@@ -2,20 +2,34 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints its lines; any failure exits non-zero):
 
 1. device   -- a CUDA card must be present (exit 1 otherwise); name,
                count, and nvidia-smi's name and power limit.
-2. build    -- nvcc builds flashmd_tpu_torch/csrc/cheb_kernels.cu for
-               sm_90a with -Xptxas -v (registers, spills per kernel).
+2. build    -- nvcc builds every flashmd_tpu_torch/csrc/*.cu for sm_90a
+               (one process per source, in parallel) with -Xptxas -v
+               (registers, spills per kernel).
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
-               slice's shapes, fp32 and bf16 tiers, and CUDA-event times.
+               slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
+               each kernel's bound (bytes or operations over the card's
+               published peak). Every kernel is compared and timed at
+               the slice's S = 128; the dense backward in both of its
+               variants (with gx, and without it as block 1 runs it).
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
-               (kernels) vs the same model on the CPU (plain twins).
+               (kernels) vs the same model on the CPU (plain twins), for
+               the cheb and the dense force field.
 5. slice    -- LangevinSimulation at the bench configuration (batch 128,
                266 beads, 3 blocks, bf16, cheb (48, 64), d_min 2.0) for
                120 steps; launch counts must be 3/2/1 per force
                evaluation; second-half throughput.
+6. dense    -- the same Langevin run on the dense exact-filter force
+               field (message_passing="dense", bf16) for the same
+               steps; launch counts must be 3 fwd + 3 bwd per force
+               evaluation; second-half throughput.
+7. fidelity -- max|F_cheb - F_dense| / max|F_dense| at batch 4: the cheb
+               bf16 (48, 64) force field (and the dense bf16 one) against
+               the dense fp32 one on the same weights and positions, with
+               and without the priors (printed, not gated).
 
 Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -44,14 +58,24 @@ BOUNDS = {
     ("cheb_fwd", "bf16"): 2e-3,
     ("cheb_bwd_gx", "bf16"): 2e-3,
     ("cheb_bwd_gd", "bf16"): 2e-3,
+    ("dense_cfconv_fwd", "fp32"): 1e-5,
+    ("dense_cfconv_bwd", "fp32"): 1e-4,
+    ("dense_cfconv_fwd", "bf16"): 2e-3,
+    ("dense_cfconv_bwd", "bf16"): 2e-3,
 }
 FORCE_BOUND = 2e-3
 REPLACES = {
     "cheb_fwd": "flashmd_tpu/ops/pallas/cheb_kernel.py:394",
     "cheb_bwd_gx": "flashmd_tpu/ops/pallas/cheb_kernel.py:476",
     "cheb_bwd_gd": "flashmd_tpu/ops/pallas/cheb_kernel.py:476",
+    "dense_cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:126",
+    "dense_cfconv_bwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:147",
 }
-SOURCE = "flashmd_tpu_torch/csrc/cheb_kernels.cu"
+CHEB_SOURCE = "flashmd_tpu_torch/csrc/cheb_kernels.cu"
+DENSE_SOURCE = "flashmd_tpu_torch/csrc/cfconv_dense_kernels.cu"
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def check(cond, msg):
@@ -107,7 +131,49 @@ def cuda_time_ms(fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(ff, pos, dev):
+def bound(flops, nbytes, tier):
+    """(ms, "operations" or "bytes"): the least time the card could take."""
+    t_ops = flops / PEAK_FLOPS[tier] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def compare_and_time(name, kern, plain, flops, nbytes, label=None):
+    """Kernel vs twin (callables of the tier) and their CUDA-event times,
+    both tiers; returns the bf16 tier's numbers, the tier of the slices."""
+    results = {}
+    for prec in ("fp32", "bf16"):
+        out_k = _tuple(kern(prec))
+        torch.cuda.synchronize()
+        out_p = _tuple(plain(prec))
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(o).all()) for o in out_k),
+              f"{name} {prec}: non-finite kernel output")
+        abs_err = max(float((k - p).abs().max()) for k, p in zip(out_k, out_p))
+        rel = max(float((k - p).abs().max() / p.abs().max())
+                  for k, p in zip(out_k, out_p))
+        ms = cuda_time_ms(lambda: kern(prec))
+        plain_ms = cuda_time_ms(lambda: plain(prec), warmup=1, iters=3)
+        bound_ms, bound_by = bound(flops, nbytes, prec)
+        limit = BOUNDS[(name, prec)]
+        print(f"kernels: {label or name} {prec} max|k-p|/max|p| = {rel:.3e} "
+              f"(bound {limit:.0e}) max_abs_err {abs_err:.3e} kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms; least time "
+              f"{bound_ms:.4f} ms by {bound_by} ({flops:.4e} FLOP, "
+              f"{nbytes} B)")
+        check(rel <= limit,
+              f"{label or name} {prec}: {rel:.3e} > {limit:.0e}")
+        results[prec] = {"max_abs_err": abs_err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+    return results["bf16"]
+
+
+def phase_cheb_kernels(ff, pos, dev):
     from flashmd_tpu_torch.models.cheb import _lin_slope
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
@@ -126,77 +192,206 @@ def phase_kernels(ff, pos, dev):
     nb = len(fits)
     x_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     g_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
+    m1, m2 = c.shape[0], c2.shape[0]
+    lin = 1 if w_lin is not None else 0
+    pair_flops = 2.0 * s * a * a
 
     cases = {
         "cheb_fwd": (
             lambda p: ck.cheb_conv_fwd(c, w0, pos, x, rcut, p, d_min, w_lin),
             lambda p: ck.cheb_conv_fwd_plain(c, w0, pos, x, rcut, p, d_min,
                                              w_lin),
+            pair_flops * f * (m1 + lin),
+            4 * (s * a * 3 + 2 * s * a * f + m1 * f + 2 * f),
         ),
         "cheb_bwd_gx": (
             lambda p: ck.cheb_conv_bwd_gx(c, w0, pos, g, rcut, p, d_min,
                                           w_lin),
             lambda p: ck.cheb_conv_bwd_gx_plain(c, w0, pos, g, rcut, p,
                                                 d_min, w_lin),
+            pair_flops * f * (m1 + 1 + lin),
+            4 * (s * a * 3 + 2 * s * a * f + m1 * f + 2 * f),
         ),
         "cheb_bwd_gd": (
             lambda p: ck.cheb_conv_bwd_gd(c2_cat, pos, x_cat, g_cat, rcut, p,
                                           d_min),
             lambda p: ck.cheb_conv_bwd_gd_plain(c2_cat, pos, x_cat, g_cat,
                                                 rcut, p, d_min),
+            pair_flops * nb * f * m2,
+            4 * (2 * s * a * 3 + 2 * s * a * nb * f + m2 * nb * f),
         ),
     }
-    print(f"kernels: shapes S={s} A={a} F={f} (gd {nb * f}) "
-          f"M1={c.shape[0]} M2={c2.shape[0]} d_min={d_min}")
-    results = {}
-    for name, (kern, plain) in cases.items():
-        for prec in ("fp32", "bf16"):
-            out_k = kern(prec)
-            torch.cuda.synchronize()
-            out_p = plain(prec)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(out_k).all()),
-                  f"{name} {prec}: non-finite kernel output")
-            abs_err = float((out_k - out_p).abs().max())
-            rel = abs_err / float(out_p.abs().max())
-            bound = BOUNDS[(name, prec)]
-            ms = cuda_time_ms(lambda: kern(prec))
-            plain_ms = cuda_time_ms(lambda: plain(prec), warmup=1, iters=3)
-            print(f"kernels: {name} {prec} max|k-p|/max|p| = {rel:.3e} "
-                  f"(bound {bound:.0e}) max_abs_err {abs_err:.3e} "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            check(rel <= bound, f"{name} {prec}: {rel:.3e} > {bound:.0e}")
-            if prec == "bf16":
-                results[name] = {"max_abs_err": abs_err, "ms": ms,
-                                 "plain_ms": plain_ms}
-    return results
+    print(f"kernels: cheb shapes S={s} A={a} F={f} (gd {nb * f}) "
+          f"M1={m1} M2={m2} d_min={d_min}")
+    return {
+        name: compare_and_time(name, kern, plain, flops, nbytes)
+        for name, (kern, plain, flops, nbytes) in cases.items()
+    }
 
 
-def phase_forces(dev):
-    from flashmd_tpu_torch.data.system import collate
+def live_counts(pos, rcut, rows=4, cols=16):
+    """(ordered pairs i != j with d_ij < rcut, pair chunks of the dense
+    kernels' rows x cols tiling that hold one, all chunks), whole batch."""
+    s, a = pos.shape[0], pos.shape[1]
+    rel = pos[:, None, :, :] - pos[:, :, None, :]
+    d = torch.sqrt(torch.sum(rel * rel, dim=-1))
+    eye = torch.eye(a, dtype=torch.bool, device=pos.device)
+    live = (d < rcut) & ~eye
+    rp, cp = -(-a // rows) * rows, -(-a // cols) * cols
+    padded = torch.zeros(s, rp, cp, dtype=torch.bool, device=pos.device)
+    padded[:, :a, :a] = live
+    chunks = padded.view(s, rp // rows, rows, cp // cols, cols).any(4).any(2)
+    return int(live.sum()), int(chunks.sum()), chunks.numel()
+
+
+def phase_dense_kernels(ff, pos, dev):
+    """Returns the two kernels' bf16 numbers and the bf16 time of the
+    backward's no-gx variant."""
+    from flashmd_tpu_torch.ops import cfconv_dense as cd
+    from flashmd_tpu_torch.ops._build import load
+
+    cfg = ff.schnet_config
+    rcut = float(cfg.cutoff.cutoff_upper)
+    layers = ff.schnet_params["interactions"][0]["filter"]["layers"]
+    rbf = ff.schnet_params["rbf"]
+    w = (layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
+         rbf["coeff"])
+    gen = torch.Generator(device=dev).manual_seed(12)
+    s, a = pos.shape[0], pos.shape[1]
+    r, f = w[0].shape
+    x = torch.randn(s, a, f, generator=gen, device=dev)
+    g = torch.randn(s, a, f, generator=gen, device=dev)
+    n_live, n_chunks, all_chunks = live_counts(pos, rcut)
+    n_all = s * a * (a - 1)
+    mlp = r * f + f * f
+    fwd_pair, bwd_pair = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
+    nogx_pair = bwd_pair - 3 * f
+    wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
+    smem = [load().dense_cfconv_smem_bytes(b) for b in (0, 1)]
+    print(f"kernels: dense shapes S={s} A={a} F={f} R={r} rcut={rcut}; "
+          f"dynamic shared memory per block fwd {smem[0]} B bwd {smem[1]} "
+          f"B; live pairs (d < rc) {n_live} of {n_all} "
+          f"({n_live / n_all:.4f}); live 4x16 chunks {n_chunks} of "
+          f"{all_chunks} ({n_chunks / all_chunks:.4f}); FLOP per pair fwd "
+          f"{fwd_pair} bwd {bwd_pair} (no gx {nogx_pair}); all-pairs FLOP "
+          f"fwd {n_all * fwd_pair:.4e} bwd {n_all * bwd_pair:.4e}; FLOP run "
+          f"on live chunks (64 pairs each) fwd "
+          f"{64 * n_chunks * fwd_pair:.4e} bwd {64 * n_chunks * bwd_pair:.4e}")
+    stats = {
+        "dense_cfconv_fwd": compare_and_time(
+            "dense_cfconv_fwd",
+            lambda p: cd.dense_cfconv_fwd(pos, x, *w, rcut, p),
+            lambda p: cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, p),
+            float(n_live * fwd_pair), 4 * (s * a * 3 + 2 * s * a * f) + wbytes,
+        ),
+        "dense_cfconv_bwd": compare_and_time(
+            "dense_cfconv_bwd",
+            lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p),
+            lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p),
+            float(n_live * bwd_pair),
+            4 * (2 * s * a * 3 + 3 * s * a * f) + wbytes,
+        ),
+    }
+    # Block 1's variant: gpos only (gx is None on both sides).
+    no_gx = compare_and_time(
+        "dense_cfconv_bwd",
+        lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p,
+                                      need_gx=False)[0],
+        lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p,
+                                            need_gx=False)[0],
+        float(n_live * nogx_pair), 4 * (2 * s * a * 3 + 2 * s * a * f) + wbytes,
+        label="dense_cfconv_bwd (no gx)",
+    )
+    bwd = stats["dense_cfconv_bwd"]
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], no_gx["max_abs_err"])
+    return stats, no_gx["ms"]
+
+
+def _force_fields(device, batch, **kw):
     from flashmd_tpu_torch.models.cheb import attach_cheb_fit
-    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
     from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 
-    out = {}
-    for device in (dev, torch.device("cpu")):
-        ff, cfgs = cgschnet_1enh_like(
-            n_atoms=N_ATOMS, batch_size=FORCE_BATCH, device=device
-        )
+    ff, cfgs = cgschnet_1enh_like(n_atoms=N_ATOMS, batch_size=batch,
+                                  device=device, **kw)
+    if ff.schnet_config.message_passing == "cheb":
         ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
                                                       ff.schnet_config))
-        sys_ = collate(cfgs, beta=1.67, device=device)
-        e, f, _ = compute_energy_forces(ff, sys_.pos, sys_.atom_types)
-        out[device.type] = (e.cpu(), f.cpu())
+    return ff, cfgs
+
+
+def _forces(ff, cfgs, device):
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+
+    sys_ = collate(cfgs, beta=1.67, device=device)
+    e, f, _ = compute_energy_forces(ff, sys_.pos, sys_.atom_types)
+    return e.cpu(), f.cpu()
+
+
+def phase_forces(dev, message_passing):
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        ff, cfgs = _force_fields(device, FORCE_BATCH,
+                                 message_passing=message_passing)
+        out[device.type] = _forces(ff, cfgs, device)
     (e_k, f_k), (e_p, f_p) = out["cuda"], out["cpu"]
-    check(bool(torch.isfinite(f_k).all()), "forces: non-finite on the card")
+    check(bool(torch.isfinite(f_k).all()),
+          f"forces {message_passing}: non-finite on the card")
     f_rel = float((f_k - f_p).abs().max() / f_p.abs().max())
     e_rel = float((e_k - e_p).abs().max() / e_p.abs().max())
-    print(f"forces: batch {FORCE_BATCH} card vs cpu plain: "
+    print(f"forces: {message_passing} batch {FORCE_BATCH} card vs cpu plain: "
           f"max|dF|/max|F| = {f_rel:.3e}, max|dE|/max|E| = {e_rel:.3e} "
           f"(bound {FORCE_BOUND:.0e})")
     check(f_rel <= FORCE_BOUND and e_rel <= FORCE_BOUND,
-          "forces: card and CPU disagree")
+          f"forces {message_passing}: card and CPU disagree")
+
+
+def phase_fidelity(dev):
+    """Printed, not gated: the (48, 64) frontier on this card is open."""
+    ff_c, cfgs = _force_fields(dev, FORCE_BATCH)
+    ff_d, _ = _force_fields(dev, FORCE_BATCH, precision="fp32",
+                            message_passing="dense")
+    ff_db, _ = _force_fields(dev, FORCE_BATCH, message_passing="dense")
+    for label, keep_priors in (("total", True), ("network only", False)):
+        def forces(ff):
+            ff = ff if keep_priors else ff.replace(priors={})
+            return _forces(ff, cfgs, dev)[1]
+
+        f_ref = forces(ff_d)
+        scale = float(f_ref.abs().max())
+        rel_cheb = float((forces(ff_c) - f_ref).abs().max()) / scale
+        rel_dense = float((forces(ff_db) - f_ref).abs().max()) / scale
+        print(f"fidelity: {label} forces, batch {FORCE_BATCH}, max|F - "
+              f"F_dense_fp32|/max|F_dense_fp32|: cheb bf16 (48, 64) d_min "
+              f"2.0 = {rel_cheb:.4e}; dense bf16 = {rel_dense:.4e}")
+
+
+def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
+              smi):
+    """Simulate with the launch counts of ``kernels`` (a kernel module)
+    set to 0 just before and read just after; returns the counts and the
+    second-half ms/step."""
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    sim = LangevinSimulation(
+        dt=0.004, friction=1.0, n_timesteps=steps,
+        save_interval=save_interval, random_seed=103838, device=dev,
+    )
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    kernels.reset_launch_counts()
+    coords = sim.simulate()
+    counts = kernels.launch_counts()
+    finite = bool(np.isfinite(coords).all())
+    m = sim.get_throughput_metrics()
+    print(f"{label}: {steps} steps batch {BATCH} A={N_ATOMS}: finite={finite} "
+          f"launches={counts} expected={expect}; second-half throughput "
+          f"{m['throughput']:.1f} timestep*mol/s ({m['ms_per_timestep']:.3f}"
+          f" ms/step) on {smi}")
+    check(finite, f"{label}: non-finite positions")
+    check(counts == expect, f"{label}: launch counts differ from {expect}")
+    check(coords.shape == (BATCH, steps // save_interval, N_ATOMS, 3),
+          f"{label}: frames of shape {coords.shape}")
+    return counts, m["ms_per_timestep"]
 
 
 def main():
@@ -214,54 +409,58 @@ def main():
     from flashmd_tpu_torch.ops import _build
 
     info = _build.build(ptxas_verbose=True)
-    print(f"build: nvcc {' '.join(_build.ARCH_FLAGS)} -> {info['path'].name} "
+    print(f"build: nvcc {' '.join(_build.ARCH_FLAGS)} "
+          f"{[p.name for p in _build.sources()]} -> {info['path'].name} "
           f"in {info['seconds']:.1f} s")
     for line in ptxas_summary(info["log"]):
         print(f"build: ptxas {line}")
 
     from flashmd_tpu_torch.data.system import collate
-    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.ops import cfconv_dense as cd
     from flashmd_tpu_torch.ops import cheb_kernel as ck
-    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
 
-    ff, cfgs = cgschnet_1enh_like(batch_size=BATCH, device=dev)
-    sim = LangevinSimulation(
-        dt=0.004, friction=1.0, n_timesteps=STEPS,
-        save_interval=SAVE_INTERVAL, random_seed=103838, device=dev,
-    )
-    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
-    cfg = sim.model.schnet_config
+    ff, cfgs = _force_fields(dev, BATCH)
+    cfg = ff.schnet_config
     check((cfg.cheb_order, cfg.cheb_order_deriv, cfg.cheb_d_min,
            cfg.precision) == (48, 64, 2.0, "bf16"),
           f"unexpected slice config {cfg}")
+    ff_dense, _ = _force_fields(dev, BATCH, message_passing="dense")
+    check((ff_dense.schnet_config.precision,
+           ff_dense.schnet_config.message_passing) == ("bf16", "dense"),
+          f"unexpected dense slice config {ff_dense.schnet_config}")
 
     pos = collate(cfgs, device=dev).pos
-    kernel_stats = phase_kernels(sim.model, pos, dev)
-    phase_forces(dev)
+    stats = phase_cheb_kernels(ff, pos, dev)
+    dense_stats, no_gx_ms = phase_dense_kernels(ff_dense, pos, dev)
+    stats.update(dense_stats)
+    phase_forces(dev, "cheb")
+    phase_forces(dev, "dense")
 
-    ck.reset_launch_counts()
-    coords = sim.simulate()
-    counts = ck.launch_counts()
     n_evals = STEPS + 1
-    expect = {"cheb_fwd": 3 * n_evals, "cheb_bwd_gx": 2 * n_evals,
-              "cheb_bwd_gd": 1 * n_evals}
-    finite = bool(np.isfinite(coords).all())
-    m = sim.get_throughput_metrics()
-    print(f"slice: {STEPS} steps batch {BATCH} A={N_ATOMS}: finite={finite} "
-          f"launches={counts} expected={expect}; second-half throughput "
-          f"{m['throughput']:.1f} timestep*mol/s ({m['ms_per_timestep']:.3f}"
-          f" ms/step) on {smi}")
-    check(finite, "slice: non-finite positions")
-    check(counts == expect, "slice: launch counts differ from 3/2/1 per "
-          "force evaluation")
-    check(coords.shape == (BATCH, STEPS // SAVE_INTERVAL, N_ATOMS, 3),
-          f"slice: frames of shape {coords.shape}")
+    counts, _ = run_slice(
+        "slice", ff, cfgs, dev, STEPS, SAVE_INTERVAL, ck,
+        {"cheb_fwd": 3 * n_evals, "cheb_bwd_gx": 2 * n_evals,
+         "cheb_bwd_gd": 1 * n_evals}, smi,
+    )
+    dense_counts, ms_step = run_slice(
+        "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
+        {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},
+        smi,
+    )
+    counts.update(dense_counts)
+    kernel_ms = (3 * stats["dense_cfconv_fwd"]["ms"]
+                 + 2 * stats["dense_cfconv_bwd"]["ms"] + no_gx_ms)
+    print(f"dense: per step 3 fwd + 2 bwd + 1 bwd (no gx) at the start "
+          f"positions' kernel times = {kernel_ms:.3f} ms of {ms_step:.3f} "
+          f"ms/step ({kernel_ms / ms_step:.3f}); an estimate, not a trace")
+    phase_fidelity(dev)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda",
+         "source": DENSE_SOURCE if name.startswith("dense") else CHEB_SOURCE,
          "replaces": REPLACES[name], "launches": counts[name],
-         **kernel_stats[name]}
-        for name in ("cheb_fwd", "cheb_bwd_gx", "cheb_bwd_gd")
+         **stats[name]}
+        for name in REPLACES
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

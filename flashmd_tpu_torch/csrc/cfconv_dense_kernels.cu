@@ -1,0 +1,552 @@
+// Dense all-pairs exact-filter CFConv kernels for Hopper (sm_90a), plain C
+// interface for ctypes. Built by flashmd_tpu_torch/ops/_build.py.
+//
+// Two kernels replace the TPU kernels of
+// flashmd_tpu/ops/pallas/cfconv_dense.py, batched over S molecules:
+//
+//   dense_cfconv_fwd  <- _fwd_kernel (:126)
+//     out[i]  = sum_{j != i, j < A} W_ij * cut_ij * x[j]
+//   dense_cfconv_bwd  <- _bwd_kernel (:147), two launches:
+//     dense_bwd_kernel:  gx[i] = sum_{j != i} W_ij * cut_ij * g[j] and
+//                        gd[i, j] = d(g_i . out_i)/d d_ij for every ordered
+//                        pair (the MLP backward of the cotangent g_i x_j)
+//     dense_gpos_kernel: gpos[i] = -sum_{j != i} (gd_ij + gd_ji) u_ij,
+//                        u_ij = (p_j - p_i) / d_ij
+//
+// with d = sqrt(max(|p_j - p_i|^2, 1e-12)), cut = 0.5 (cos(pi d / rc) + 1)
+// [d < rc], rbf = exp(coeff (d - offset)^2) cut, W = tanh(rbf @ w0 + b0) @ w1
+// (_pair_geometry :67, _filter_mlp3 :97).
+//
+// What bounds them on the H100: every pair runs a two-layer filter MLP,
+// R*F + F*F = 22,784 multiply-adds at R = 50, F = 128 (twice that in the
+// backward), against a few hundred bytes of input per molecule: they are
+// bound by arithmetic, never by memory. These first versions do the
+// arithmetic as float32 FMA from shared memory on CUDA cores (operands
+// rounded to bf16 in the bf16 tier; no tensor cores yet). What the design
+// does about the bound:
+//   - the [pairs, F] MLP activations never reach device memory: a block
+//     owns 4 destination rows and walks the source atoms in chunks of 16,
+//     so one chunk is a 64-pair tile whose activations live in registers
+//     (4 pairs x 8 features per thread) and one shared [F, 64] tile;
+//   - w0 and w1 are loaded into shared memory once per block, with padded
+//     row strides so both the products and their transposes (backward)
+//     read them without bank conflicts;
+//   - a chunk whose 64 pairs all lie at d >= rc (or are masked) adds
+//     exactly zero (cut and dcut vanish there) and is skipped whole.
+//
+// Determinism: every block owns its output rows. W and cut depend only on
+// d_ij, which is bitwise symmetric, so gx[i] is the forward with x replaced
+// by g. The reference adds gd_ij to row j across grid steps; here the
+// first kernel writes gd [S, A, A] (36 MB at S = 128, A = 266) and the
+// second sums row i of gd + gd^T in a fixed order. No sum crosses blocks,
+// there are no atomics, and results are bitwise reproducible. Each ordered
+// pair runs one MLP backward, as in the reference, so the bf16 roundings
+// fall on the same values (g_i x_j cut and gt0 of each ordered pair).
+//
+// Precision tiers: bf16 != 0 rounds the operands of the four products to
+// bf16 (round to nearest even) where the reference and the plain PyTorch
+// twins in ops/cfconv_dense.py do: rbf and w0, a0 and w1 (forward);
+// g_i x_j cut and w1, gt0 and w0 (backward). tanh, the geometry and all
+// sums stay float32.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int F = 128;           // filters: the kernels take exactly 128
+constexpr int FPT = F / 16;      // features per thread: f = fg + 16 c
+constexpr int RMAX = 64;         // radial basis functions, at most
+constexpr int ROWS = 4;          // destination rows per block
+constexpr int COLS = 16;         // source atoms per pair chunk
+constexpr int NP = ROWS * COLS;  // pairs per chunk: p = row * COLS + col
+constexpr int LDW = F + 1;       // padded weight row stride
+constexpr int LDA = NP + 4;      // padded pair stride of [k][pair] tiles
+
+// Dynamic shared memory, in floats.
+constexpr int W_FLOATS = RMAX * LDW + F * LDW;
+constexpr int FWD_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + COLS * F;
+constexpr int BWD_FLOATS = W_FLOATS + 2 * F * LDA + 2 * COLS * F + ROWS * F;
+constexpr int GPOS_ROWS = THREADS / 32;  // one warp per row of gpos
+
+__device__ __forceinline__ float rnd_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool BF16>
+__device__ __forceinline__ float op(float v) {
+  return BF16 ? rnd_bf16(v) : v;
+}
+
+// Sum over the 16 lanes of a half warp; every lane gets the same bits.
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// w0 [R, F] -> w0_s [RMAX][LDW] (rows >= R zero), w1 [F, F] -> w1_s
+// [F][LDW], both rounded in the bf16 tier; b0 and offsets as they are.
+template <bool BF16>
+__device__ void load_weights(const float* __restrict__ w0,
+                             const float* __restrict__ b0,
+                             const float* __restrict__ w1,
+                             const float* __restrict__ offset, int R,
+                             float* w0_s, float* w1_s, float* b0_s,
+                             float* off_s) {
+  for (int e = threadIdx.x; e < RMAX * F; e += THREADS) {
+    int r = e / F, f = e % F;
+    w0_s[r * LDW + f] = r < R ? op<BF16>(w0[r * F + f]) : 0.0f;
+  }
+  for (int e = threadIdx.x; e < F * F; e += THREADS)
+    w1_s[(e / F) * LDW + e % F] = op<BF16>(w1[e]);
+  for (int e = threadIdx.x; e < F; e += THREADS) b0_s[e] = b0[e];
+  for (int e = threadIdx.x; e < RMAX; e += THREADS)
+    off_s[e] = e < R ? offset[e] : 0.0f;
+}
+
+// Pair geometry; returns whether the pair contributes (valid and d < rc).
+__device__ __forceinline__ bool pair_geom(const float* pi, const float* pj,
+                                          bool valid, float rcut,
+                                          float arg_scale, float dcut_scale,
+                                          float& d, float& cut, float& dcut,
+                                          float* rel) {
+  rel[0] = pj[0] - pi[0];
+  rel[1] = pj[1] - pi[1];
+  rel[2] = pj[2] - pi[2];
+  float d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
+  d = sqrtf(fmaxf(d2, 1e-12f));
+  float arg = d * arg_scale;
+  bool inside = valid && d < rcut;
+  cut = inside ? 0.5f * (cosf(arg) + 1.0f) : 0.0f;
+  dcut = inside ? dcut_scale * sinf(arg) : 0.0f;
+  return inside;
+}
+
+// acc[i][c] += sum_{k < K} a_s[k * LDA + p0 + i] * b[k * kstride +
+// 16 c * cstride] for this thread's 4 pairs (p0..p0+3) and NC columns.
+template <int NC>
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ a_s,
+                                          const float* __restrict__ b, int K,
+                                          int kstride, int cstride, int p0,
+                                          float (&acc)[4][NC]) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float4 a = *reinterpret_cast<const float4*>(a_s + k * LDA + p0);
+    float av[4] = {a.x, a.y, a.z, a.w};
+    float bv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) bv[c] = b[k * kstride + 16 * c * cstride];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+  }
+}
+
+__device__ __forceinline__ void store4(float* dst, const float (&v)[4][FPT],
+                                       int c) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
+}
+
+// Forward. Grid: (row tiles of ROWS, molecules). Thread (pg, fg) holds
+// pairs p0 = 4 pg .. p0 + 3 (row pg / 4, columns 4 (pg % 4) + i) and
+// features fg + 16 c.
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
+                 const float* __restrict__ w0, const float* __restrict__ b0,
+                 const float* __restrict__ w1,
+                 const float* __restrict__ offset,
+                 const float* __restrict__ coeff_p, float* __restrict__ out,
+                 int A, int R, float rcut, float arg_scale,
+                 float dcut_scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* w0_s = smem;                  // [RMAX][LDW]
+  float* w1_s = w0_s + RMAX * LDW;     // [F][LDW]
+  float* rbf_s = w1_s + F * LDW;       // [RMAX][LDA]
+  float* a_s = rbf_s + RMAX * LDA;     // [F][LDA]
+  float* in_s = a_s + F * LDA;         // [COLS][F]
+  __shared__ float b0_s[F], off_s[RMAX];
+  __shared__ float pr_s[ROWS][3], pc_s[COLS][3], d_s[NP], cut_s[NP];
+
+  const int s = blockIdx.y;
+  const int r0 = blockIdx.x * ROWS;
+  const int tid = threadIdx.x;
+  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg;
+  pos += (size_t)s * A * 3;
+  x += (size_t)s * A * F;
+  out += (size_t)s * A * F;
+  const float coeff = *coeff_p;
+
+  load_weights<BF16>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  if (tid < ROWS * 3) {
+    int r = tid / 3, c = tid % 3;
+    pr_s[r][c] = r0 + r < A ? pos[(r0 + r) * 3 + c] : 0.0f;
+  }
+  float acc[FPT];
+#pragma unroll
+  for (int c = 0; c < FPT; ++c) acc[c] = 0.0f;
+
+  for (int j0 = 0; j0 < A; j0 += COLS) {
+    __syncthreads();  // the previous chunk is done with every tile
+    if (tid < COLS * 3) {
+      int jj = tid / 3, c = tid % 3;
+      pc_s[jj][c] = j0 + jj < A ? pos[(j0 + jj) * 3 + c] : 0.0f;
+    }
+    for (int e = tid; e < COLS * F; e += THREADS) {
+      int j = j0 + e / F;
+      in_s[e] = j < A ? x[(size_t)j * F + e % F] : 0.0f;
+    }
+    __syncthreads();
+    bool live = false;
+    if (tid < NP) {
+      int i = r0 + tid / COLS, j = j0 + tid % COLS;
+      float d, cut, dcut, rel[3];
+      live = pair_geom(pr_s[tid / COLS], pc_s[tid % COLS],
+                       i < A && j < A && i != j, rcut, arg_scale, dcut_scale,
+                       d, cut, dcut, rel);
+      d_s[tid] = d;
+      cut_s[tid] = cut;
+    }
+    if (!__syncthreads_or(live)) continue;  // the chunk adds exactly zero
+
+    for (int e = tid; e < R * NP; e += THREADS) {
+      int r = e / NP, p = e % NP;
+      float dr = d_s[p] - off_s[r];
+      rbf_s[r * LDA + p] = op<BF16>(expf(coeff * (dr * dr)) * cut_s[p]);
+    }
+    __syncthreads();
+    float t[4][FPT] = {};
+    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, t);
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) {
+      int f = fg + 16 * c;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t[i][c] = op<BF16>(tanhf(t[i][c] + b0_s[f]));
+      store4(a_s + f * LDA + p0, t, c);
+    }
+    __syncthreads();
+    float w[4][FPT] = {};
+    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int p = p0 + i;
+      float cutp = cut_s[p];
+      const float* xin = in_s + (p % COLS) * F + fg;
+#pragma unroll
+      for (int c = 0; c < FPT; ++c) acc[c] += (w[i][c] * cutp) * xin[16 * c];
+    }
+  }
+
+  // Row sums over the 4 column groups of each row, in order.
+  __syncthreads();
+  float* red = a_s;  // [16 pair groups][F]
+#pragma unroll
+  for (int c = 0; c < FPT; ++c) red[pg * F + fg + 16 * c] = acc[c];
+  __syncthreads();
+  for (int e = tid; e < ROWS * F; e += THREADS) {
+    int rr = e / F, f = e % F;
+    if (r0 + rr >= A) continue;
+    const float* q = red + rr * 4 * F + f;
+    out[(size_t)(r0 + rr) * F + f] = ((q[0] + q[F]) + q[2 * F]) + q[3 * F];
+  }
+}
+
+// Backward, pass 1: recompute the forward chunk, then gx (GX) of this
+// block's rows and gd of its ordered pairs (i in the block, every j) into
+// gd [S, A, A]. Same grid and thread layout as the forward.
+template <bool BF16, bool GX>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
+                 const float* __restrict__ g, const float* __restrict__ w0,
+                 const float* __restrict__ b0, const float* __restrict__ w1,
+                 const float* __restrict__ offset,
+                 const float* __restrict__ coeff_p, float* __restrict__ gd,
+                 float* __restrict__ gx, int A, int R, float rcut,
+                 float arg_scale, float dcut_scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* w0_s = smem;                  // [RMAX][LDW]
+  float* w1_s = w0_s + RMAX * LDW;     // [F][LDW]
+  float* a_s = w1_s + F * LDW;         // [F][LDA]: a0, then gt0
+  float* p_s = a_s + F * LDA;          // [F][LDA]: rbf, then g_i x_j cut
+  float* xc_s = p_s + F * LDA;         // [COLS][F]
+  float* gc_s = xc_s + COLS * F;       // [COLS][F]
+  float* gr_s = gc_s + COLS * F;       // [ROWS][F]
+  __shared__ float b0_s[F], off_s[RMAX];
+  __shared__ float pr_s[ROWS][3], pc_s[COLS][3];
+  __shared__ float d_s[NP], cut_s[NP], dcut_s[NP];
+
+  const int s = blockIdx.y;
+  const int r0 = blockIdx.x * ROWS;
+  const int tid = threadIdx.x;
+  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg, row = pg >> 2;
+  pos += (size_t)s * A * 3;
+  x += (size_t)s * A * F;
+  g += (size_t)s * A * F;
+  gd += (size_t)s * A * A;
+  const float coeff = *coeff_p;
+
+  load_weights<BF16>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  if (tid < ROWS * 3) {
+    int r = tid / 3, c = tid % 3;
+    pr_s[r][c] = r0 + r < A ? pos[(r0 + r) * 3 + c] : 0.0f;
+  }
+  for (int e = tid; e < ROWS * F; e += THREADS) {
+    int i = r0 + e / F;
+    gr_s[e] = i < A ? g[(size_t)i * F + e % F] : 0.0f;
+  }
+  float accgx[FPT];
+#pragma unroll
+  for (int c = 0; c < FPT; ++c) accgx[c] = 0.0f;
+
+  for (int j0 = 0; j0 < A; j0 += COLS) {
+    __syncthreads();
+    if (tid < COLS * 3) {
+      int jj = tid / 3, c = tid % 3;
+      pc_s[jj][c] = j0 + jj < A ? pos[(j0 + jj) * 3 + c] : 0.0f;
+    }
+    for (int e = tid; e < COLS * F; e += THREADS) {
+      int j = j0 + e / F;
+      xc_s[e] = j < A ? x[(size_t)j * F + e % F] : 0.0f;
+      gc_s[e] = j < A ? g[(size_t)j * F + e % F] : 0.0f;
+    }
+    __syncthreads();
+    bool live = false;
+    if (tid < NP) {
+      int i = r0 + tid / COLS, j = j0 + tid % COLS;
+      float d, cut, dcut, rel[3];
+      live = pair_geom(pr_s[tid / COLS], pc_s[tid % COLS],
+                       i < A && j < A && i != j, rcut, arg_scale, dcut_scale,
+                       d, cut, dcut, rel);
+      d_s[tid] = d;
+      cut_s[tid] = cut;
+      dcut_s[tid] = dcut;
+    }
+    if (!__syncthreads_or(live)) {  // the chunk adds exactly zero
+      int i = r0 + tid / COLS, j = j0 + tid % COLS;
+      if (tid < NP && i < A && j < A) gd[(size_t)i * A + j] = 0.0f;
+      continue;
+    }
+
+    float* rbf_s = p_s;
+    for (int e = tid; e < R * NP; e += THREADS) {
+      int r = e / NP, p = e % NP;
+      float dr = d_s[p] - off_s[r];
+      rbf_s[r * LDA + p] = op<BF16>(expf(coeff * (dr * dr)) * cut_s[p]);
+    }
+    __syncthreads();
+    // Forward recompute; a0 stays in registers unrounded for gt0.
+    float a0[4][FPT] = {};
+    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, a0);
+    {
+      float ar[4][FPT];
+#pragma unroll
+      for (int c = 0; c < FPT; ++c) {
+        int f = fg + 16 * c;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a0[i][c] = tanhf(a0[i][c] + b0_s[f]);
+          ar[i][c] = op<BF16>(a0[i][c]);
+        }
+        store4(a_s + f * LDA + p0, ar, c);
+      }
+    }
+    __syncthreads();  // rbf reads done, a0 tile complete
+    float w[4][FPT] = {};
+    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
+
+    // gx, s_cut = sum_f g_i W x_j and the MLP cotangent g_i x_j cut (into
+    // w's registers; reference gw, cfconv_dense.py:181).
+    float sc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int p = p0 + i;
+      float cutp = cut_s[p];
+      const float* xj = xc_s + (p % COLS) * F + fg;
+      const float* gj = gc_s + (p % COLS) * F + fg;
+      const float* gi = gr_s + row * F + fg;
+      sc[i] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < FPT; ++c) {
+        float xjv = xj[16 * c], giv = gi[16 * c];
+        if (GX) accgx[c] += (w[i][c] * cutp) * gj[16 * c];
+        sc[i] += (giv * w[i][c]) * xjv;
+        w[i][c] = op<BF16>((giv * xjv) * cutp);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) store4(p_s + (fg + 16 * c) * LDA + p0, w, c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[i] = sum16(sc[i]);
+    __syncthreads();  // cotangent tile complete; a0 tile reads done
+
+    // ga0 = (g_i x_j cut) @ w1^T, gt0 = ga0 (1 - a0^2) -> a_s.
+    float ga[4][FPT] = {};
+    gemm_tile<FPT>(p_s, w1_s + fg * LDW, F, 1, LDW, p0, ga);
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ga[i][c] = op<BF16>(ga[i][c] * (1.0f - a0[i][c] * a0[i][c]));
+      store4(a_s + (fg + 16 * c) * LDA + p0, ga, c);
+    }
+    __syncthreads();
+
+    // grbf = gt0 @ w0^T over r = fg + 16 cr, then the distance gradient.
+    float gr[4][4] = {};
+    gemm_tile<4>(a_s, w0_s + fg * LDW, F, 1, LDW, p0, gr);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float dp = d_s[p0 + i];
+      float sg = 0.0f, se = 0.0f;
+#pragma unroll
+      for (int cr = 0; cr < 4; ++cr) {
+        int r = fg + 16 * cr;
+        if (r < R) {
+          float dr = dp - off_s[r];
+          float ge = gr[i][cr] * expf(coeff * (dr * dr));
+          se += ge;
+          sg += ge * dr;
+        }
+      }
+      sg = sum16(sg);
+      se = sum16(se);
+      int p = p0 + i, ii = r0 + p / COLS, j = j0 + p % COLS;
+      if (fg == 0 && ii < A && j < A)
+        gd[(size_t)ii * A + j] =
+            cut_s[p] * (2.0f * coeff) * sg + (sc[i] + se) * dcut_s[p];
+    }
+  }
+
+  if (GX) {
+    __syncthreads();
+    float* red = a_s;
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) red[pg * F + fg + 16 * c] = accgx[c];
+    __syncthreads();
+    gx += (size_t)s * A * F;
+    for (int e = tid; e < ROWS * F; e += THREADS) {
+      int rr = e / F, f = e % F;
+      if (r0 + rr >= A) continue;
+      const float* q = red + rr * 4 * F + f;
+      gx[(size_t)(r0 + rr) * F + f] = ((q[0] + q[F]) + q[2 * F]) + q[3 * F];
+    }
+  }
+}
+
+// Backward, pass 2: gpos[i] = -sum_j (gd_ij + gd_ji) u_ij. Grid: (row
+// tiles of GPOS_ROWS, molecules); warp w owns row i = GPOS_ROWS tile + w,
+// its lanes stride over j and the shuffle tree sums them in a fixed order.
+// gd is zero on the diagonal, the padding and every pair at d >= rc.
+__global__ void __launch_bounds__(THREADS)
+dense_gpos_kernel(const float* __restrict__ pos, const float* __restrict__ gd,
+                  float* __restrict__ gpos, int A) {
+  const int s = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * GPOS_ROWS + (threadIdx.x >> 5);
+  if (i >= A) return;  // whole warps: the shuffles below stay full
+  pos += (size_t)s * A * 3;
+  gd += (size_t)s * A * A;
+  const float pi0 = pos[i * 3], pi1 = pos[i * 3 + 1], pi2 = pos[i * 3 + 2];
+  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  for (int j = lane; j < A; j += 32) {
+    float r0 = pos[j * 3] - pi0, r1 = pos[j * 3 + 1] - pi1,
+          r2 = pos[j * 3 + 2] - pi2;
+    float d = sqrtf(fmaxf(r0 * r0 + r1 * r1 + r2 * r2, 1e-12f));
+    float v = gd[(size_t)i * A + j] + gd[(size_t)j * A + i];
+    g0 += v * (r0 / d);
+    g1 += v * (r1 / d);
+    g2 += v * (r2 / d);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    g0 += __shfl_xor_sync(0xffffffffu, g0, o);
+    g1 += __shfl_xor_sync(0xffffffffu, g1, o);
+    g2 += __shfl_xor_sync(0xffffffffu, g2, o);
+  }
+  if (lane == 0) {
+    float* out = gpos + ((size_t)s * A + i) * 3;
+    out[0] = -g0;
+    out[1] = -g1;
+    out[2] = -g2;
+  }
+}
+
+template <typename K>
+cudaError_t launch(K kernel, int floats, int S, int A, cudaStream_t stream,
+                   void** args) {
+  size_t smem = sizeof(float) * (size_t)floats;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((A + ROWS - 1) / ROWS, S);
+  err = cudaLaunchKernel((const void*)kernel, grid, dim3(THREADS), args, smem,
+                         stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+const double PI = 3.14159265358979323846;
+
+}  // namespace
+
+extern "C" {
+
+// Sizes the kernels take: F == 128, 1 <= R <= 64, S >= 1, A >= 1.
+int dense_cfconv_fwd(const float* pos, const float* x, const float* w0,
+                     const float* b0, const float* w1, const float* offset,
+                     const float* coeff, float* out, int S, int A, int Fdim,
+                     int R, float rcut, int bf16, void* stream) {
+  if (Fdim != F || R < 1 || R > RMAX || S < 1 || A < 1)
+    return (int)cudaErrorInvalidValue;
+  float arg_scale = (float)(PI / (double)rcut);
+  float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
+  void* args[] = {&pos, &x,  &w0,   &b0,        &w1,        &offset, &coeff,
+                  &out, &A,  &R,    &rcut,      &arg_scale, &dcut_scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return (int)launch(dense_fwd_kernel<true>, FWD_FLOATS, S, A, st, args);
+  return (int)launch(dense_fwd_kernel<false>, FWD_FLOATS, S, A, st, args);
+}
+
+// gx may be null: then it is not computed (the block's input is
+// position-independent and its cotangent dead). gd is a workspace of
+// S * A * A floats; every entry is written before it is read.
+int dense_cfconv_bwd(const float* pos, const float* x, const float* g,
+                     const float* w0, const float* b0, const float* w1,
+                     const float* offset, const float* coeff, float* gd,
+                     float* gpos, float* gx, int S, int A, int Fdim, int R,
+                     float rcut, int bf16, void* stream) {
+  if (Fdim != F || R < 1 || R > RMAX || S < 1 || A < 1)
+    return (int)cudaErrorInvalidValue;
+  float arg_scale = (float)(PI / (double)rcut);
+  float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
+  void* args[] = {&pos,  &x,  &g, &w0, &b0,   &w1,        &offset,
+                  &coeff, &gd, &gx, &A, &R, &rcut, &arg_scale, &dcut_scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  bool need_gx = gx != nullptr;
+  cudaError_t err;
+  if (bf16 && need_gx)
+    err = launch(dense_bwd_kernel<true, true>, BWD_FLOATS, S, A, st, args);
+  else if (bf16)
+    err = launch(dense_bwd_kernel<true, false>, BWD_FLOATS, S, A, st, args);
+  else if (need_gx)
+    err = launch(dense_bwd_kernel<false, true>, BWD_FLOATS, S, A, st, args);
+  else
+    err = launch(dense_bwd_kernel<false, false>, BWD_FLOATS, S, A, st, args);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((A + GPOS_ROWS - 1) / GPOS_ROWS, S);
+  dense_gpos_kernel<<<grid, THREADS, 0, st>>>(pos, gd, gpos, A);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per block, in bytes: of the forward (bwd == 0) or
+// of the backward's first pass.
+int dense_cfconv_smem_bytes(int bwd) {
+  return (int)sizeof(float) * (bwd ? BWD_FLOATS : FWD_FLOATS);
+}
+
+}  // extern "C"

@@ -158,10 +158,11 @@ def validate_configurations(configurations: Sequence[Configuration]):
 def collate(
     configurations: Sequence[Configuration],
     beta=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> System:
-    """Stack configurations into a batched :class:`System` on ``device``.
+    """Stack configurations into a batched :class:`System` on ``device``
+    (the card unless the caller asks for the CPU).
 
     Velocities given on EVERY configuration are honoured (reference
     collate, data/system.py:338-342); otherwise the integrator samples

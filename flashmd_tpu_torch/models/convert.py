@@ -57,7 +57,7 @@ def config_from_kwargs(config_kwargs: dict) -> SchNetConfig:
 
 
 def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
-                          device="cpu") -> ForceField:
+                          device="cuda") -> ForceField:
     """The port's ForceField from numpy weights.
 
     ``schnet_params_np``: nested dicts/lists of numpy arrays in the
@@ -65,6 +65,7 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
     ``output``, optionally ``cheb_fit``). ``priors_np``: name -> prior
     with ``index_mapping``, ``params``, ``kind``, ``name``, ``feature``
     (attributes or dict keys). ``config_kwargs``: see config_from_kwargs.
+    The tensors are placed on the card unless ``device`` says otherwise.
     """
     params = _tree_to_torch(dict(schnet_params_np), device)
     if "cheb_fit" in params:

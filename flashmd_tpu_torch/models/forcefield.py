@@ -67,14 +67,19 @@ def compute_energy_forces(
             "atom_types must be a 1-D [A] integer tensor (mixed batches are "
             "not ported)"
         )
+    mp = None if ff.schnet_params is None else ff.schnet_config.message_passing
     if cell is not None:
-        raise NotImplementedError("periodic cells are not ported yet")
+        raise NotImplementedError(
+            f"Periodic cells are not ported yet (message_passing={mp!r}): "
+            "every ported path computes pair geometry from raw positions."
+        )
     if atom_mask is not None:
         raise NotImplementedError("mixed-size batches are not ported yet")
-    if ff.exc_pair_index is not None and ff.schnet_params is not None:
+    if ff.exc_pair_index is not None and mp is not None:
         raise NotImplementedError(
-            "Structure-level pair exclusions (exc_pair_index) require a "
-            "neighbor-list message-passing path; the cheb path has none."
+            "Structure-level pair exclusions (exc_pair_index) require "
+            "a neighbor-list message-passing path ('xla' or 'pallas'); "
+            f"got {mp!r}."
         )
     with torch.enable_grad():
         pos = pos_batch.detach().requires_grad_(True)

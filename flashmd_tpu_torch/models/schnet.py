@@ -1,8 +1,9 @@
-"""SchNet force field on the Chebyshev path (port of
-flashmd_tpu/models/schnet.py).
+"""SchNet force field (port of flashmd_tpu/models/schnet.py).
 
 The batch is the leading axis: ``pos [S, A, 3]`` gives ``[S]`` energies.
-Only ``message_passing="cheb"`` is ported; any other value raises.
+Two message-passing paths are ported: ``"cheb"`` (Chebyshev-tabulated
+filters, models/cheb.py) and ``"dense"`` (the exact filter MLP over all
+pairs, ops/cfconv_dense.py). Any other value raises.
 """
 
 from __future__ import annotations
@@ -12,10 +13,14 @@ from typing import Tuple
 
 import torch
 
+from ..ops.cfconv_dense import dense_cfconv_message
 from .cheb import cheb_stack_apply
 from .cutoff import CosineCutoff
 from .mlp import check_precision, init_mlp, mlp_apply, xavier_uniform
 from .radial_basis import GaussianBasisConfig, init_gaussian_basis
+
+
+MESSAGE_PASSING = ("cheb", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +48,10 @@ class SchNetConfig:
             raise ValueError(
                 "At least one interaction block must be specified"
             )
-        if self.message_passing != "cheb":
+        if self.message_passing not in MESSAGE_PASSING:
             raise NotImplementedError(
                 f"message_passing={self.message_passing!r} is not ported to "
-                "flashmd_tpu_torch; only 'cheb' is"
+                f"flashmd_tpu_torch; only {MESSAGE_PASSING} are"
             )
         if self.cheb_order_deriv is None:
             object.__setattr__(self, "cheb_order_deriv", self.cheb_order)
@@ -101,8 +106,21 @@ def output_energies(params, config: SchNetConfig, x):
 
 
 def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types):
-    """[S, A] per-atom energies (reference cheb branch, schnet.py:353-424,
-    always through ``cheb_stack_apply``). Needs the host fits attached
+    """[S, A] per-atom energies: embedding, the interaction blocks of the
+    configured path, the output head."""
+    s, a = pos.shape[0], pos.shape[1]
+    x0 = params["embedding"][atom_types]
+    x0 = x0.expand(s, a, x0.shape[-1]).contiguous()
+    if config.message_passing == "dense":
+        x = _dense_blocks(params, config, pos, x0)
+    else:
+        x = _cheb_blocks(params, config, pos, x0)
+    return output_energies(params, config, x)
+
+
+def _cheb_blocks(params, config: SchNetConfig, pos, x0):
+    """Reference cheb branch (schnet.py:353-424), always through
+    ``cheb_stack_apply``. Needs the host fits attached
     (``models.cheb.attach_cheb_fit``)."""
     fits = params.get("cheb_fit")
     if fits is None:
@@ -115,15 +133,37 @@ def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types):
         or fits[0][1].shape[0] != config.cheb_order_deriv
     ):
         raise ValueError("stale cheb_fit: its orders differ from the config")
-    s, a = pos.shape[0], pos.shape[1]
-    x0 = params["embedding"][atom_types]
-    x0 = x0.expand(s, a, x0.shape[-1]).contiguous()
-    x = cheb_stack_apply(
+    return cheb_stack_apply(
         fits, params["interactions"], pos, x0,
         float(config.cutoff.cutoff_upper), config.precision,
         d_min=float(config.cheb_d_min),
     )
-    return output_energies(params, config, x)
+
+
+def _dense_blocks(params, config: SchNetConfig, pos, x):
+    """Reference dense branch (schnet.py:426-451). The linear layers run in
+    float32, as the reference's DEFAULT-precision dot does off the TPU.
+
+    The dense kernels hard-code the zero-lower cosine cutoff
+    (cfconv_dense.py:79-82), so a nonzero ``cutoff_lower`` raises here
+    where the reference silently computes the zero-lower formula."""
+    if config.cutoff.cutoff_lower != 0:
+        raise NotImplementedError(
+            "message_passing='dense' requires CosineCutoff with "
+            f"cutoff_lower == 0 (got {config.cutoff!r})."
+        )
+    rbf = params["rbf"]
+    for bp in params["interactions"]:
+        layers = bp["filter"]["layers"]
+        h = x @ bp["lin1_w"]
+        agg = dense_cfconv_message(
+            pos, h, layers[0]["w"], layers[0]["b"], layers[1]["w"],
+            rbf["offset"], rbf["coeff"], float(config.cutoff.cutoff_upper),
+            config.precision,
+        )
+        y = agg @ bp["lin2_w"] + bp["lin2_b"]
+        x = x + (torch.tanh(y) @ bp["lin_w"] + bp["lin_b"])
+    return x
 
 
 def schnet_energy(params, config: SchNetConfig, pos, atom_types):

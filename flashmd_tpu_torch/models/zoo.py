@@ -166,14 +166,16 @@ def cgschnet_1enh_like(
     cheb_order: Optional[int] = None,
     cheb_order_deriv: Optional[int] = None,
     cheb_d_min: Optional[float] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Tuple[ForceField, List[Configuration]]:
     """CGSchNet at 1ENH scale + chain priors (reference zoo.py:164-329):
     hidden 128, filters 128, 50 RBF, embedding 100, head [128, 128, 64, 1].
 
     The reference's default ``message_passing`` is "xla"; the port has
-    only "cheb", which is its default here. No neighbour capacity is
-    probed: the cheb path has no neighbour list.
+    "cheb", its default here, and "dense". Both draw the same weights from
+    the same seed; only the config differs. No neighbour capacity is
+    probed: neither path has a neighbour list. The tensors are placed on
+    the card unless ``device`` says otherwise.
     """
     base = random_cg_protein(n_atoms=n_atoms, seed=seed)
     order, deriv, d_min = default_cheb_orders(

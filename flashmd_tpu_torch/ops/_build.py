@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ``flashmd_tpu_torch/csrc``.
 
-``nvcc`` compiles ``csrc/cheb_kernels.cu`` for ``sm_90a`` into a shared
-library with a plain C interface, which ``ctypes`` loads. The library
-lands in ``flashmd_tpu_torch/_build/`` under a name keyed by the source's
-hash, so an edited source is rebuilt and an unchanged one is reused.
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
+source, all started together) and links them into one shared library with
+a plain C interface, which ``ctypes`` loads. The library lands in
+``flashmd_tpu_torch/_build/`` under a name keyed by a hash over all the
+sources, so an edited source is rebuilt and an unchanged set is reused.
 Nothing here runs at import: the first CUDA launch builds and loads.
 """
 
@@ -18,9 +19,10 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "cheb_kernels.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,9 +36,19 @@ _SIGNATURES = {
     # bf16, stream
     "cheb_bwd_gd": [_P] * 7 + [_I] * 4 + [_F, _F, _I, _P],
     "cheb_gd_tiles": [_I],
+    # pos, x, w0, b0, w1, offset, coeff, out, S, A, F, R, rcut, bf16, stream
+    "dense_cfconv_fwd": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    # pos, x, g, w0, b0, w1, offset, coeff, gd, gpos, gx, S, A, F, R, rcut,
+    # bf16, stream
+    "dense_cfconv_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
+    "dense_cfconv_smem_bytes": [_I],
 }
 
 _loaded: dict = {}
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -51,8 +63,26 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libcheb_kernels_{digest}.so"
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libflashmd_kernels_{h.hexdigest()[:12]}.so"
+
+
+def _run_all(cmds):
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+            )
+    return "".join(logs)
 
 
 def build(ptxas_verbose: bool = False) -> dict:
@@ -64,22 +94,23 @@ def build(ptxas_verbose: bool = False) -> dict:
     if out.exists() and not ptxas_verbose:
         return {"path": out, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE),
-    ]
-    if ptxas_verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if ptxas_verbose else []
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([
+        [nvcc, *extra, *_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(sources(), objs)
+    ])
+    tmp = out.with_suffix(f".{tag}")
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
-    return {"path": out, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    return {"path": out, "seconds": seconds, "log": log}
 
 
 def load() -> ctypes.CDLL:

@@ -28,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from ..models.mlp import check_precision, round_bf16
+from ..models.mlp import check_precision
+from ._launch import _check, _op, _ptr, _raise_on, _same_device, _stream
 
 
 # ---------------------------------------------------------------------------
@@ -69,10 +70,6 @@ def _low_matrix(d: torch.Tensor, d_min: float) -> torch.Tensor:
     eye = torch.eye(d.shape[-1], dtype=torch.bool, device=d.device)
     low = torch.clamp(d - d_min, max=0.0)
     return torch.where(eye, torch.zeros_like(d), low)
-
-
-def _op(t: torch.Tensor, precision: str) -> torch.Tensor:
-    return round_bf16(t) if precision == "bf16" else t
 
 
 # ---------------------------------------------------------------------------
@@ -152,38 +149,6 @@ def cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min=0.0):
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-
-
-def _check(name, t, shape):
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
-def _same_device(*ts):
-    dev = ts[0].device
-    for t in ts[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on {dev} and {t.device}")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
 
 
 def cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min=0.0, w_lin=None):

@@ -2,8 +2,9 @@
 flashmd_tpu/simulation/base.py).
 
 What is here: the constructor options ``dt``, ``n_timesteps``,
-``save_interval``, ``random_seed`` and ``device``; attach (which fits the
-Chebyshev filters on the host, base.py:479-508); the initial carry
+``save_interval``, ``random_seed`` and ``device`` (the card unless the
+caller asks for the CPU); attach (which fits the Chebyshev filters on the
+host for a cheb model, base.py:479-508); the initial carry
 (:661-683); ``simulate()``, which steps in chunks of ``save_interval``,
 keeps position and potential frames in memory at save points, and times
 the second half of the run exactly as ``get_throughput_metrics``
@@ -41,7 +42,7 @@ class Simulation:
         n_timesteps: int = 100,
         save_interval: int = 10,
         random_seed: Optional[int] = 233,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         if n_timesteps % save_interval != 0:
             raise ValueError(
@@ -73,7 +74,11 @@ class Simulation:
 
     def _attach_model(self, model: ForceField):
         params = model.schnet_params
-        if params is not None and "cheb_fit" not in params:
+        if (
+            params is not None
+            and model.schnet_config.message_passing == "cheb"
+            and "cheb_fit" not in params
+        ):
             from ..models.cheb import attach_cheb_fit
 
             model = model.replace(

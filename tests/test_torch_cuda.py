@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
-Each kernel against its plain PyTorch twin on the card, the launch
-counters on the main path, bitwise reproducibility and the wrappers'
-refusals. Without a card every test skips (decided in a fixture, so every
+Each kernel (Chebyshev and dense CFConv) against its plain PyTorch
+twin on the card, the launch counters on both main paths, bitwise
+reproducibility and the wrappers' refusals. Without a card every test
+skips (decided in a fixture, so every
 xdist worker collects the same tests). On the GPU machine, which has no
 JAX, run them without the JAX suite's conftest:
 
@@ -14,6 +15,7 @@ This file imports no JAX.
 import pytest
 import torch
 
+from flashmd_tpu_torch.ops import cfconv_dense as cd
 from flashmd_tpu_torch.ops import cheb_kernel as ck
 
 pytestmark = pytest.mark.cuda
@@ -125,3 +127,82 @@ def test_main_path_launch_counts(dev):
     f_k, f_p = results["cuda"][0], results["cpu"][0]
     # bf16 model: summation order on the card vs the CPU only
     assert _rel(f_k, f_p) <= 2e-3
+
+
+def _dense_inputs(dev, s, a, f=128, r=50, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    offset = torch.linspace(0.0, RCUT, r, device=dev)
+    coeff = torch.tensor(-0.5 / float(offset[1] - offset[0]) ** 2,
+                         device=dev)
+    weights = (randn(r, f, scale=r ** -0.5), randn(f, scale=0.1),
+               randn(f, f, scale=f ** -0.5), offset, coeff)
+    return randn(s, a, 3, scale=6.0), randn(s, a, f), randn(s, a, f), weights
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("a", [37, 70])
+def test_dense_kernels_match_twins(dev, precision, a):
+    pos, x, g, w = _dense_inputs(dev, 3, a)
+    out = cd.dense_cfconv_fwd(pos, x, *w, RCUT, precision)
+    ref = cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT, precision)
+    assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    gpos_ref, gx_ref = cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT,
+                                                 precision)
+    gpos, gx = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, precision)
+    gpos_only, none = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, precision,
+                                          need_gx=False)
+    torch.cuda.synchronize()
+    assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
+    assert _rel(gx, gx_ref) <= BOUNDS[precision]["bwd"]
+    assert none is None and torch.equal(gpos_only, gpos)
+
+
+def test_dense_bwd_bitwise_reproducible(dev):
+    pos, x, g, w = _dense_inputs(dev, 2, 90, seed=1)
+    first = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "bf16")
+    for _ in range(3):
+        again = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "bf16")
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+def test_dense_wrappers_refuse_what_kernels_do_not_take(dev):
+    pos, x, g, w = _dense_inputs(dev, 2, 20)
+    with pytest.raises(ValueError):
+        cd.dense_cfconv_fwd(pos, x.double(), *w, RCUT, "fp32")
+    with pytest.raises(ValueError):
+        cd.dense_cfconv_bwd(pos, x, g.half(), *w, RCUT, "bf16")
+    with pytest.raises(ValueError):
+        cd.dense_cfconv_fwd(pos, x.cpu(), *w, RCUT, "fp32")
+    pos, x, g, w = _dense_inputs(dev, 2, 20, f=64)
+    with pytest.raises(ValueError):
+        cd.dense_cfconv_fwd(pos, x, *w, RCUT, "fp32")
+
+
+def test_dense_main_path_launch_counts(dev):
+    """3 dense_cfconv_fwd + 3 dense_cfconv_bwd per force evaluation of a
+    3-block dense model; the forces agree with the CPU plain path."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                      message_passing="dense", device=device)
+        system = collate(cfgs, device=device)
+        cd.reset_launch_counts()
+        for _ in range(2):
+            _, forces, _ = compute_energy_forces(ff, system.pos,
+                                                 system.atom_types)
+        results[device.type] = (forces.cpu(), cd.launch_counts())
+    assert results["cuda"][1] == {"dense_cfconv_fwd": 6,
+                                  "dense_cfconv_bwd": 6}
+    assert results["cpu"][1] == {"dense_cfconv_fwd": 0,
+                                 "dense_cfconv_bwd": 0}
+    # bf16 model: summation order on the card vs the CPU only
+    assert _rel(results["cuda"][0], results["cpu"][0]) <= 2e-3

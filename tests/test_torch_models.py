@@ -154,7 +154,7 @@ def _zoo_pair(precision, cheb_order=None):
     del np_params["cheb_fit"]
     ff = forcefield_from_numpy(
         np_params, jax.tree.map(np.asarray, jff.priors),
-        config_kwargs(jff.schnet_config),
+        config_kwargs(jff.schnet_config), device="cpu",
     )
     ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
                                                   ff.schnet_config))
@@ -242,13 +242,14 @@ def test_mlp_tiers_match_jax(precision):
 
 def test_zoo_defaults_and_refusals():
     ff, cfgs = cgschnet_1enh_like(n_atoms=24, batch_size=2,
-                                  num_interactions=1)
+                                  num_interactions=1, device="cpu")
     cfg = ff.schnet_config
     assert (cfg.cheb_order, cfg.cheb_order_deriv, cfg.cheb_d_min,
             cfg.precision) == (48, 64, 2.0, "bf16")
     assert len(cfgs) == 2 and cfgs[0].pos.shape == (24, 3)
     with pytest.raises(NotImplementedError):
-        cgschnet_1enh_like(n_atoms=24, batch_size=1, message_passing="xla")
+        cgschnet_1enh_like(n_atoms=24, batch_size=1, message_passing="xla",
+                           device="cpu")
     pos = torch.zeros(1, 24, 3)
     types = torch.zeros(24, dtype=torch.long)
     with pytest.raises(NotImplementedError):

@@ -52,13 +52,14 @@ def test_baoab_steps_match_jax_with_injected_noise():
         np_params, jax.tree.map(np.asarray, jff.priors),
         {f.name: getattr(jff.schnet_config, f.name)
          for f in dataclasses.fields(jff.schnet_config)},
+        device="cpu",
     )
     cfgs = [
         Configuration(pos=c.pos, atom_types=c.atom_types, masses=c.masses,
                       velocities=c.velocities)
         for c in jcfgs
     ]
-    sim = LangevinSimulation(**kwargs)
+    sim = LangevinSimulation(device="cpu", **kwargs)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     np.testing.assert_array_equal(
         sim.initial_system.velocities.numpy(),
@@ -85,9 +86,9 @@ def test_baoab_steps_match_jax_with_injected_noise():
 
 def test_simulate_on_cpu():
     ff, cfgs = cgschnet_1enh_like(n_atoms=20, batch_size=S,
-                                  num_interactions=1)
+                                  num_interactions=1, device="cpu")
     sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=8,
-                             save_interval=4, random_seed=5)
+                             save_interval=4, random_seed=5, device="cpu")
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     coords = sim.simulate()
     assert coords.shape == (S, 2, 20, 3)
@@ -107,7 +108,7 @@ def test_collate_honours_velocities_and_beta():
                       masses=np.ones(5), velocities=rng.normal(size=(5, 3)))
         for _ in range(3)
     ]
-    system = collate(cfgs, beta=[1.0, 2.0, 3.0])
+    system = collate(cfgs, beta=[1.0, 2.0, 3.0], device="cpu")
     assert system.pos.dtype == torch.float32 and system.pos.shape == (3, 5, 3)
     np.testing.assert_array_equal(
         system.velocities.numpy(),
@@ -115,9 +116,9 @@ def test_collate_honours_velocities_and_beta():
     )
     np.testing.assert_array_equal(system.beta.numpy(), [1.0, 2.0, 3.0])
     with pytest.raises(ValueError):
-        collate(cfgs, beta=-1.0)
+        collate(cfgs, beta=-1.0, device="cpu")
     cfgs[1] = dataclasses.replace(cfgs[1], velocities=None)
-    assert collate(cfgs).velocities is None
+    assert collate(cfgs, device="cpu").velocities is None
 
 
 def test_port_imports_no_jax():
