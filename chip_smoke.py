@@ -13,11 +13,18 @@ Phases (each prints its lines; any failure exits non-zero):
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
                published peak). Every kernel is compared and timed at
-               the slice's S = 128; the dense backward in both of its
-               variants (with gx, and without it as block 1 runs it).
+               the slice's S = 128; the dense and the neighbour-matrix
+               backward in both of their variants (with gx, and without
+               it as block 1 runs it). The neighbour-matrix kernels run
+               on the pallas slice's own list (K from the zoo rule, rc +
+               skin, start positions), and once more in fp32 on an
+               overflowed list (capacity 32: an asymmetric list); the
+               neighbour build + source CSR is timed at S = 128.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
-               the cheb and the dense force field.
+               the cheb, the dense and the pallas force field; then the
+               pallas fp32 forces vs the dense fp32 forces on the same
+               weights and positions (gated: the same function).
 5. slice    -- LangevinSimulation at the bench configuration (batch 128,
                266 beads, 3 blocks, bf16, cheb (48, 64), d_min 2.0) for
                120 steps; launch counts must be 3/2/1 per force
@@ -26,10 +33,17 @@ Phases (each prints its lines; any failure exits non-zero):
                field (message_passing="dense", bf16) for the same
                steps; launch counts must be 3 fwd + 3 bwd per force
                evaluation; second-half throughput.
-7. fidelity -- max|F_cheb - F_dense| / max|F_dense| at batch 4: the cheb
-               bf16 (48, 64) force field (and the dense bf16 one) against
-               the dense fp32 one on the same weights and positions, with
-               and without the priors (printed, not gated).
+7. pallas   -- the same Langevin run on the neighbour-matrix force field
+               (message_passing="pallas", bf16, Verlet skin 1.0, list
+               rebuilt every step); launch counts must be 3 fwd + 3 bwd
+               per force evaluation; n_max against K; second-half
+               throughput; then torch.profiler over PROFILE_STEPS more
+               steps: device time by kernel and the device idle share.
+8. fidelity -- max|F - F_dense_fp32| / max|F_dense_fp32| at batch 4: the
+               cheb bf16 (48, 64), the dense bf16 and the pallas bf16
+               force fields against the dense fp32 one on the same
+               weights and positions, with and without the priors
+               (printed, not gated).
 
 Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -48,6 +62,7 @@ N_ATOMS = 266
 STEPS = 120
 SAVE_INTERVAL = 20
 FORCE_BATCH = 4
+PROFILE_STEPS = 5
 # Bounds on max|kernel - plain| / max|plain|: the JAX suite's own kernel
 # tolerances at fp32 (tests/ops/test_cheb_kernel.py); in bf16 only the
 # summation order and recurrence ulps differ between kernel and twin.
@@ -62,17 +77,29 @@ BOUNDS = {
     ("dense_cfconv_bwd", "fp32"): 1e-4,
     ("dense_cfconv_fwd", "bf16"): 2e-3,
     ("dense_cfconv_bwd", "bf16"): 2e-3,
+    ("cfconv_fwd", "fp32"): 1e-5,
+    ("cfconv_bwd", "fp32"): 1e-4,
+    ("cfconv_fwd", "bf16"): 2e-3,
+    ("cfconv_bwd", "bf16"): 2e-3,
 }
 FORCE_BOUND = 2e-3
+# pallas fp32 vs dense fp32 forces: one function, two summation orders.
+CROSS_BOUND = 1e-4
+OVERFLOW_CAPACITY = 32
 REPLACES = {
     "cheb_fwd": "flashmd_tpu/ops/pallas/cheb_kernel.py:394",
     "cheb_bwd_gx": "flashmd_tpu/ops/pallas/cheb_kernel.py:476",
     "cheb_bwd_gd": "flashmd_tpu/ops/pallas/cheb_kernel.py:476",
     "dense_cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:126",
     "dense_cfconv_bwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:147",
+    "cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv.py:137",
+    "cfconv_bwd": "flashmd_tpu/ops/pallas/cfconv.py:163",
 }
-CHEB_SOURCE = "flashmd_tpu_torch/csrc/cheb_kernels.cu"
-DENSE_SOURCE = "flashmd_tpu_torch/csrc/cfconv_dense_kernels.cu"
+SOURCES = {
+    "cheb": "flashmd_tpu_torch/csrc/cheb_kernels.cu",
+    "dense": "flashmd_tpu_torch/csrc/cfconv_dense_kernels.cu",
+    "cfconv": "flashmd_tpu_torch/csrc/cfconv_kernels.cu",
+}
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -229,19 +256,26 @@ def phase_cheb_kernels(ff, pos, dev):
     }
 
 
-def live_counts(pos, rcut, rows=4, cols=16):
+def live_chunks(live, rows=4, cols=16):
+    """(chunks holding a live entry, all chunks) of the kernels' rows x
+    cols tiling of live [S, A, n] (each row's entries in walk order)."""
+    s, a, n = live.shape
+    rp, cp = -(-a // rows) * rows, -(-n // cols) * cols
+    padded = torch.zeros(s, rp, cp, dtype=torch.bool, device=live.device)
+    padded[:, :a, :n] = live
+    chunks = padded.view(s, rp // rows, rows, cp // cols, cols).any(4).any(2)
+    return int(chunks.sum()), chunks.numel()
+
+
+def live_counts(pos, rcut):
     """(ordered pairs i != j with d_ij < rcut, pair chunks of the dense
-    kernels' rows x cols tiling that hold one, all chunks), whole batch."""
-    s, a = pos.shape[0], pos.shape[1]
+    kernels' 4 x 16 tiling that hold one, all chunks), whole batch."""
+    a = pos.shape[1]
     rel = pos[:, None, :, :] - pos[:, :, None, :]
     d = torch.sqrt(torch.sum(rel * rel, dim=-1))
     eye = torch.eye(a, dtype=torch.bool, device=pos.device)
     live = (d < rcut) & ~eye
-    rp, cp = -(-a // rows) * rows, -(-a // cols) * cols
-    padded = torch.zeros(s, rp, cp, dtype=torch.bool, device=pos.device)
-    padded[:, :a, :a] = live
-    chunks = padded.view(s, rp // rows, rows, cp // cols, cols).any(4).any(2)
-    return int(live.sum()), int(chunks.sum()), chunks.numel()
+    return (int(live.sum()), *live_chunks(live))
 
 
 def phase_dense_kernels(ff, pos, dev):
@@ -307,6 +341,118 @@ def phase_dense_kernels(ff, pos, dev):
     return stats, no_gx["ms"]
 
 
+def nbr_slot_counts(pos, nbr, rcut):
+    """(live slots, slots of the 4x16 chunks with a live slot, which the
+    forward and the backward's first pass execute), whole batch."""
+    s = pos.shape[0]
+    b = torch.arange(s, device=pos.device)[:, None, None]
+    rel = pos[b, nbr.idx.long()] - pos[:, :, None, :]
+    live = nbr.mask & (torch.sqrt(torch.sum(rel * rel, dim=-1)) < rcut)
+    return int(live.sum()), 64 * live_chunks(live)[0]
+
+
+def phase_nbr_kernels(ff, pos, dev):
+    """Returns the two kernels' bf16 numbers and the bf16 time of the
+    backward's no-gx variant, on the slice's own list (rc + skin 1.0)."""
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+    from flashmd_tpu_torch.ops import cfconv as cf
+    from flashmd_tpu_torch.ops._build import load
+
+    cfg = ff.schnet_config
+    rcut = float(cfg.cutoff.cutoff_upper)
+    layers = ff.schnet_params["interactions"][0]["filter"]["layers"]
+    rbf = ff.schnet_params["rbf"]
+    w = (layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
+         rbf["coeff"])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    s, a = pos.shape[0], pos.shape[1]
+    r, f = w[0].shape
+    x = torch.randn(s, a, f, generator=gen, device=dev)
+    g = torch.randn(s, a, f, generator=gen, device=dev)
+    build_ms = cuda_time_ms(lambda: build_neighbors(ff, pos, skin=1.0))
+    nbr = build_neighbors(ff, pos, skin=1.0)
+    k = nbr.capacity
+    n_live, n_rows = nbr_slot_counts(pos, nbr, rcut)
+    n_list = int(nbr.mask.sum())
+    mlp = r * f + f * f
+    fwd_slot, bwd_slot = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
+    nogx_slot = bwd_slot - 3 * f
+    wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
+    lbytes = 5 * s * a * k  # idx (int32) and mask (one byte)
+    csr_bytes = 4 * (s * a + 1 + n_list)
+    smem = [load().cfconv_smem_bytes(b) for b in (0, 1)]
+    print(f"kernels: cfconv shapes S={s} A={a} K={k} F={f} R={r} rcut="
+          f"{rcut} skin 1.0; n_max {int(nbr.n_max.max())}; dynamic shared "
+          f"memory per block conv {smem[0]} B bwd {smem[1]} B; list slots "
+          f"{n_list}, live slots (d < rc) {n_live} of {s * a * k} "
+          f"({n_live / (s * a * k):.4f}); executed slots (4x16 chunks with a "
+          f"live slot) {n_rows}; FLOP per slot fwd {fwd_slot} bwd {bwd_slot} "
+          f"(no gx {nogx_slot}); live-slot FLOP fwd {n_live * fwd_slot:.4e} "
+          f"bwd {n_live * bwd_slot:.4e}; executed FLOP fwd "
+          f"{n_rows * fwd_slot:.4e} bwd (pass 1 + gx pass) "
+          f"{n_rows * nogx_slot + n_live * 3 * f:.4e}; neighbour build + "
+          f"source CSR {build_ms:.4f} ms")
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    stats = {
+        "cfconv_fwd": compare_and_time(
+            "cfconv_fwd",
+            lambda p: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, rcut, p),
+            lambda p: cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w,
+                                          rcut, p),
+            float(n_live * fwd_slot),
+            4 * (s * a * 3 + 2 * s * a * f) + lbytes + wbytes,
+        ),
+        "cfconv_bwd": compare_and_time(
+            "cfconv_bwd",
+            lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p),
+            lambda p: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w,
+                                          rcut, p),
+            float(n_live * bwd_slot),
+            4 * (2 * s * a * 3 + 3 * s * a * f) + lbytes + csr_bytes + wbytes,
+        ),
+    }
+    no_gx = compare_and_time(
+        "cfconv_bwd",
+        lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p,
+                                need_gx=False)[0],
+        lambda p: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, rcut,
+                                      p, need_gx=False)[0],
+        float(n_live * nogx_slot),
+        4 * (2 * s * a * 3 + 2 * s * a * f) + lbytes + csr_bytes + wbytes,
+        label="cfconv_bwd (no gx)",
+    )
+    bwd = stats["cfconv_bwd"]
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], no_gx["max_abs_err"])
+
+    # An overflowed list: each row keeps its nearest 32, so the list is
+    # asymmetric and the column side is not the row side's mirror.
+    over = build_neighbors(ff.replace(neighbor_capacity=OVERFLOW_CAPACITY),
+                           pos, skin=1.0)
+    n_max = int(over.n_max.max())
+    check(n_max > OVERFLOW_CAPACITY, f"capacity {OVERFLOW_CAPACITY} does "
+          f"not overflow (n_max {n_max})")
+    out_k = cf.cfconv_fwd(pos, over.idx, over.mask, x, *w, rcut, "fp32")
+    out_p = cf.cfconv_fwd_plain(pos, over.idx, over.mask, x, *w, rcut,
+                                "fp32")
+    gpos_k, gx_k = cf.cfconv_bwd(pos, over.idx, over.mask, over.csr_offsets,
+                                 over.csr_slots, x, g, *w, rcut, "fp32")
+    gpos_p, gx_p = cf.cfconv_bwd_plain(pos, over.idx, over.mask, x, g, *w,
+                                       rcut, "fp32")
+    torch.cuda.synchronize()
+    pairs = (("fwd", out_k, out_p), ("gpos", gpos_k, gpos_p),
+             ("gx", gx_k, gx_p))
+    rel = {name: float((k_ - p_).abs().max() / p_.abs().max())
+           for name, k_, p_ in pairs}
+    print(f"kernels: cfconv overflowed list (capacity {OVERFLOW_CAPACITY}, "
+          f"n_max {n_max}) fp32 max|k-p|/max|p|: fwd {rel['fwd']:.3e} "
+          f"(bound 1e-05), bwd gpos {rel['gpos']:.3e} gx {rel['gx']:.3e} "
+          f"(bound 1e-04)")
+    check(rel["fwd"] <= BOUNDS[("cfconv_fwd", "fp32")]
+          and max(rel["gpos"], rel["gx"]) <= BOUNDS[("cfconv_bwd", "fp32")],
+          "cfconv on the overflowed list: kernel and twin disagree")
+    return stats, no_gx["ms"]
+
+
 def _force_fields(device, batch, **kw):
     from flashmd_tpu_torch.models.cheb import attach_cheb_fit
     from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
@@ -346,12 +492,35 @@ def phase_forces(dev, message_passing):
           f"forces {message_passing}: card and CPU disagree")
 
 
+def phase_cross_check(dev):
+    """pallas fp32 vs dense fp32 forces on the same weights and positions:
+    one function (the list holds every pair within rc), two orders."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+
+    ff_p, cfgs = _force_fields(dev, FORCE_BATCH, precision="fp32",
+                               message_passing="pallas")
+    ff_d, _ = _force_fields(dev, FORCE_BATCH, precision="fp32",
+                            message_passing="dense")
+    n_max = int(build_neighbors(ff_p, collate(cfgs, device=dev).pos)
+                .n_max.max())
+    check(n_max <= ff_p.neighbor_capacity,
+          f"cross-check list overflows ({n_max} > {ff_p.neighbor_capacity})")
+    f_p, f_d = _forces(ff_p, cfgs, dev)[1], _forces(ff_d, cfgs, dev)[1]
+    rel = float((f_p - f_d).abs().max() / f_d.abs().max())
+    print(f"forces: pallas fp32 vs dense fp32, batch {FORCE_BATCH} (n_max "
+          f"{n_max}, K {ff_p.neighbor_capacity}): max|dF|/max|F| = "
+          f"{rel:.3e} (bound {CROSS_BOUND:.0e})")
+    check(rel <= CROSS_BOUND, "pallas and dense fp32 forces disagree")
+
+
 def phase_fidelity(dev):
     """Printed, not gated: the (48, 64) frontier on this card is open."""
     ff_c, cfgs = _force_fields(dev, FORCE_BATCH)
     ff_d, _ = _force_fields(dev, FORCE_BATCH, precision="fp32",
                             message_passing="dense")
     ff_db, _ = _force_fields(dev, FORCE_BATCH, message_passing="dense")
+    ff_pb, _ = _force_fields(dev, FORCE_BATCH, message_passing="pallas")
     for label, keep_priors in (("total", True), ("network only", False)):
         def forces(ff):
             ff = ff if keep_priors else ff.replace(priors={})
@@ -361,16 +530,18 @@ def phase_fidelity(dev):
         scale = float(f_ref.abs().max())
         rel_cheb = float((forces(ff_c) - f_ref).abs().max()) / scale
         rel_dense = float((forces(ff_db) - f_ref).abs().max()) / scale
+        rel_pallas = float((forces(ff_pb) - f_ref).abs().max()) / scale
         print(f"fidelity: {label} forces, batch {FORCE_BATCH}, max|F - "
               f"F_dense_fp32|/max|F_dense_fp32|: cheb bf16 (48, 64) d_min "
-              f"2.0 = {rel_cheb:.4e}; dense bf16 = {rel_dense:.4e}")
+              f"2.0 = {rel_cheb:.4e}; dense bf16 = {rel_dense:.4e}; pallas "
+              f"bf16 = {rel_pallas:.4e}")
 
 
 def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
               smi):
     """Simulate with the launch counts of ``kernels`` (a kernel module)
-    set to 0 just before and read just after; returns the counts and the
-    second-half ms/step."""
+    set to 0 just before and read just after; returns the counts, the
+    second-half ms/step and the simulation."""
     from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
 
     sim = LangevinSimulation(
@@ -391,7 +562,45 @@ def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
     check(counts == expect, f"{label}: launch counts differ from {expect}")
     check(coords.shape == (BATCH, steps // save_interval, N_ATOMS, 3),
           f"{label}: frames of shape {coords.shape}")
-    return counts, m["ms_per_timestep"]
+    return counts, m["ms_per_timestep"], sim
+
+
+def profile_steps(sim, dev, steps):
+    """torch.profiler over ``steps`` more steps of a simulated run: the
+    kernels by device time, and the device's busy and idle share of the
+    wall time (kernels run on one stream, so their times add)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    carry = sim.final_carry
+    shape = carry["pos"].shape
+    xis = [torch.randn(shape, generator=gen, device=dev) for _ in range(steps)]
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t, xi in enumerate(xis):
+            carry = sim._step_with_hooks(carry, xi, t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda e: -e.self_device_time_total,
+    )
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time: not measured")
+        return
+    print(f"profile: {steps} steps: wall {wall_ms:.3f} ms/step, device "
+          f"kernel time {busy_ms:.3f} ms/step, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}")
+    for e in kernels[:12]:
+        ms = e.self_device_time_total / 1e3 / steps
+        print(f"profile: {ms:8.3f} ms/step {e.count / steps:6.1f}/step "
+              f"{ms / wall_ms:.4f} {e.key[:90]}")
 
 
 def main():
@@ -416,6 +625,7 @@ def main():
         print(f"build: ptxas {line}")
 
     from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.ops import cfconv as cf
     from flashmd_tpu_torch.ops import cfconv_dense as cd
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
@@ -428,21 +638,29 @@ def main():
     check((ff_dense.schnet_config.precision,
            ff_dense.schnet_config.message_passing) == ("bf16", "dense"),
           f"unexpected dense slice config {ff_dense.schnet_config}")
+    ff_pallas, _ = _force_fields(dev, BATCH, message_passing="pallas")
+    check((ff_pallas.schnet_config.precision,
+           ff_pallas.schnet_config.message_passing) == ("bf16", "pallas"),
+          f"unexpected pallas slice config {ff_pallas.schnet_config}")
 
     pos = collate(cfgs, device=dev).pos
     stats = phase_cheb_kernels(ff, pos, dev)
     dense_stats, no_gx_ms = phase_dense_kernels(ff_dense, pos, dev)
     stats.update(dense_stats)
+    nbr_stats, nbr_no_gx_ms = phase_nbr_kernels(ff_pallas, pos, dev)
+    stats.update(nbr_stats)
     phase_forces(dev, "cheb")
     phase_forces(dev, "dense")
+    phase_forces(dev, "pallas")
+    phase_cross_check(dev)
 
     n_evals = STEPS + 1
-    counts, _ = run_slice(
+    counts, _, _ = run_slice(
         "slice", ff, cfgs, dev, STEPS, SAVE_INTERVAL, ck,
         {"cheb_fwd": 3 * n_evals, "cheb_bwd_gx": 2 * n_evals,
          "cheb_bwd_gd": 1 * n_evals}, smi,
     )
-    dense_counts, ms_step = run_slice(
+    dense_counts, ms_step, _ = run_slice(
         "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
         {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},
         smi,
@@ -453,11 +671,25 @@ def main():
     print(f"dense: per step 3 fwd + 2 bwd + 1 bwd (no gx) at the start "
           f"positions' kernel times = {kernel_ms:.3f} ms of {ms_step:.3f} "
           f"ms/step ({kernel_ms / ms_step:.3f}); an estimate, not a trace")
+    pallas_counts, ms_step, sim = run_slice(
+        "pallas", ff_pallas, cfgs, dev, STEPS, SAVE_INTERVAL, cf,
+        {"cfconv_fwd": 3 * n_evals, "cfconv_bwd": 3 * n_evals}, smi,
+    )
+    counts.update(pallas_counts)
+    kernel_ms = (3 * stats["cfconv_fwd"]["ms"] + 2 * stats["cfconv_bwd"]["ms"]
+                 + nbr_no_gx_ms)
+    print(f"pallas: K {ff_pallas.neighbor_capacity}, skin {sim.neighbor_skin}"
+          f", rebuild every {sim.neighbor_rebuild_interval} step(s); n_max "
+          f"over the run {int(sim.final_carry['nbr_n_max'])}; per step 3 fwd "
+          f"+ 2 bwd + 1 bwd (no gx) at the start positions' kernel times = "
+          f"{kernel_ms:.3f} ms of {ms_step:.3f} ms/step "
+          f"({kernel_ms / ms_step:.3f}); an estimate, not a trace")
+    profile_steps(sim, dev, PROFILE_STEPS)
     phase_fidelity(dev)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": DENSE_SOURCE if name.startswith("dense") else CHEB_SOURCE,
+         "source": SOURCES[name.split("_")[0]],
          "replaces": REPLACES[name], "launches": counts[name],
          **stats[name]}
         for name in REPLACES

@@ -1,5 +1,7 @@
 // Dense all-pairs exact-filter CFConv kernels for Hopper (sm_90a), plain C
-// interface for ctypes. Built by flashmd_tpu_torch/ops/_build.py.
+// interface for ctypes. Built by flashmd_tpu_torch/ops/_build.py. The tile
+// layout and the device code shared with the neighbour-matrix kernels are in
+// cfconv_tile.cuh.
 //
 // Two kernels replace the TPU kernels of
 // flashmd_tpu/ops/pallas/cfconv_dense.py, batched over S molecules:
@@ -49,107 +51,14 @@
 // g_i x_j cut and w1, gt0 and w0 (backward). tanh, the geometry and all
 // sums stay float32.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "cfconv_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int F = 128;           // filters: the kernels take exactly 128
-constexpr int FPT = F / 16;      // features per thread: f = fg + 16 c
-constexpr int RMAX = 64;         // radial basis functions, at most
-constexpr int ROWS = 4;          // destination rows per block
-constexpr int COLS = 16;         // source atoms per pair chunk
-constexpr int NP = ROWS * COLS;  // pairs per chunk: p = row * COLS + col
-constexpr int LDW = F + 1;       // padded weight row stride
-constexpr int LDA = NP + 4;      // padded pair stride of [k][pair] tiles
-
 // Dynamic shared memory, in floats.
-constexpr int W_FLOATS = RMAX * LDW + F * LDW;
 constexpr int FWD_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + COLS * F;
 constexpr int BWD_FLOATS = W_FLOATS + 2 * F * LDA + 2 * COLS * F + ROWS * F;
 constexpr int GPOS_ROWS = THREADS / 32;  // one warp per row of gpos
-
-__device__ __forceinline__ float rnd_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float op(float v) {
-  return BF16 ? rnd_bf16(v) : v;
-}
-
-// Sum over the 16 lanes of a half warp; every lane gets the same bits.
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// w0 [R, F] -> w0_s [RMAX][LDW] (rows >= R zero), w1 [F, F] -> w1_s
-// [F][LDW], both rounded in the bf16 tier; b0 and offsets as they are.
-template <bool BF16>
-__device__ void load_weights(const float* __restrict__ w0,
-                             const float* __restrict__ b0,
-                             const float* __restrict__ w1,
-                             const float* __restrict__ offset, int R,
-                             float* w0_s, float* w1_s, float* b0_s,
-                             float* off_s) {
-  for (int e = threadIdx.x; e < RMAX * F; e += THREADS) {
-    int r = e / F, f = e % F;
-    w0_s[r * LDW + f] = r < R ? op<BF16>(w0[r * F + f]) : 0.0f;
-  }
-  for (int e = threadIdx.x; e < F * F; e += THREADS)
-    w1_s[(e / F) * LDW + e % F] = op<BF16>(w1[e]);
-  for (int e = threadIdx.x; e < F; e += THREADS) b0_s[e] = b0[e];
-  for (int e = threadIdx.x; e < RMAX; e += THREADS)
-    off_s[e] = e < R ? offset[e] : 0.0f;
-}
-
-// Pair geometry; returns whether the pair contributes (valid and d < rc).
-__device__ __forceinline__ bool pair_geom(const float* pi, const float* pj,
-                                          bool valid, float rcut,
-                                          float arg_scale, float dcut_scale,
-                                          float& d, float& cut, float& dcut,
-                                          float* rel) {
-  rel[0] = pj[0] - pi[0];
-  rel[1] = pj[1] - pi[1];
-  rel[2] = pj[2] - pi[2];
-  float d2 = rel[0] * rel[0] + rel[1] * rel[1] + rel[2] * rel[2];
-  d = sqrtf(fmaxf(d2, 1e-12f));
-  float arg = d * arg_scale;
-  bool inside = valid && d < rcut;
-  cut = inside ? 0.5f * (cosf(arg) + 1.0f) : 0.0f;
-  dcut = inside ? dcut_scale * sinf(arg) : 0.0f;
-  return inside;
-}
-
-// acc[i][c] += sum_{k < K} a_s[k * LDA + p0 + i] * b[k * kstride +
-// 16 c * cstride] for this thread's 4 pairs (p0..p0+3) and NC columns.
-template <int NC>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ a_s,
-                                          const float* __restrict__ b, int K,
-                                          int kstride, int cstride, int p0,
-                                          float (&acc)[4][NC]) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float4 a = *reinterpret_cast<const float4*>(a_s + k * LDA + p0);
-    float av[4] = {a.x, a.y, a.z, a.w};
-    float bv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) bv[c] = b[k * kstride + 16 * c * cstride];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-  }
-}
-
-__device__ __forceinline__ void store4(float* dst, const float (&v)[4][FPT],
-                                       int c) {
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
-}
 
 // Forward. Grid: (row tiles of ROWS, molecules). Thread (pg, fg) holds
 // pairs p0 = 4 pg .. p0 + 3 (row pg / 4, columns 4 (pg % 4) + i) and
@@ -474,22 +383,6 @@ dense_gpos_kernel(const float* __restrict__ pos, const float* __restrict__ gd,
     out[2] = -g2;
   }
 }
-
-template <typename K>
-cudaError_t launch(K kernel, int floats, int S, int A, cudaStream_t stream,
-                   void** args) {
-  size_t smem = sizeof(float) * (size_t)floats;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((A + ROWS - 1) / ROWS, S);
-  err = cudaLaunchKernel((const void*)kernel, grid, dim3(THREADS), args, smem,
-                         stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-const double PI = 3.14159265358979323846;
 
 }  // namespace
 

@@ -1,0 +1,523 @@
+// Neighbour-matrix exact-filter CFConv kernels for Hopper (sm_90a), plain C
+// interface for ctypes. Built by flashmd_tpu_torch/ops/_build.py; the tile
+// layout and the device code shared with the dense kernels are in
+// cfconv_tile.cuh.
+//
+// Two entry points replace the TPU kernels of
+// flashmd_tpu/ops/pallas/cfconv.py, batched over S molecules, on the padded
+// neighbour matrix idx [S, A, K] (int32) / mask [S, A, K] (bool):
+//
+//   cfconv_fwd  <- _fwd_kernel (:137)
+//     out[i] = sum_{k: mask} W_ik * cut_ik * x[idx[i, k]]     (conv_kernel)
+//   cfconv_bwd  <- _bwd_kernel (:163), two or three launches:
+//     bwd_kernel:  gd[i, k] = d(g_i . out_i)/d d_ik for every slot (one MLP
+//                  backward on the cotangent g_i x_j cut, row-owned); when
+//                  gx is asked for, it also stores W_ik of every slot of a
+//                  live chunk into a [S, A, K, F] workspace
+//     gpos_kernel: gpos[a] = -sum_k gd[a, k] u_ak
+//                            + sum_{(i, k): idx[i, k] = a} gd[i, k] u_ik
+//     gx_kernel, only when gx is asked for:
+//                  gx[a] = sum_{(i, k): idx[i, k] = a} W_ik * cut_ik * g[i]
+//
+// with u_ik = (p_j - p_i) / d_ik, j = idx[i, k], d = sqrt(max(|p_j -
+// p_i|^2, 1e-12)), cut = 0.5 (cos(pi d / rc) + 1) [d < rc], rbf = exp(coeff
+// (d - offset)^2) cut, W = tanh(rbf @ w0 + b0) @ w1 (_tile_geometry :77,
+// _filter_mlp :111).
+//
+// What bounds them on the H100: every live slot runs the two-layer filter
+// MLP, R*F + F*F = 22,784 multiply-adds at R = 50, F = 128 (twice that in
+// the backward's first pass), against a few hundred bytes of input per slot:
+// conv_kernel and bwd_kernel are bound by arithmetic. These first versions
+// do it as float32 FMA from shared memory on CUDA cores (operands rounded to
+// bf16 in the bf16 tier; no tensor cores yet), with the tile of the dense
+// kernels. gx_kernel does no MLP: it reads W back (512 B per live slot) and
+// is bound by memory. What the design does about the bounds:
+//   - the [slots, F] MLP activations never reach device memory: a block owns
+//     4 rows and walks 16 of each row's entries per chunk, so one chunk is a
+//     64-slot tile held in registers and one shared [F, 64] tile; the 64
+//     partner feature rows are gathered into shared memory per chunk;
+//   - a chunk none of whose 64 slots is live (masked, or d >= rc) adds
+//     exactly zero (cut and dcut vanish there) and is skipped whole. The
+//     neighbour matrix lists each row nearest first, so the live slots of a
+//     row are a prefix and the dead tail costs only its geometry;
+//   - gx_kernel skips each dead incoming slot after its geometry and reads
+//     W and g rows of the live ones as whole 512 B lines.
+//
+// Determinism, and the column side: the TPU kernel adds the column side
+// (gx[j], gpos[j]) across grid steps (gx_ref[0] +=, gpos_ref[0] +=), which
+// needs its in-order grid. Here every output row has one owner and no
+// atomics: the backward's first pass writes gd per slot into a [S, A, K]
+// workspace, and the column side walks a source CSR of the live slots
+// (csr_offsets [S*A + 1], csr_slots: flat slot ids (s A + i) K + k grouped
+// by source s A + idx, in slot order, built once per neighbour rebuild by a
+// stable sort, see ops/neighborlist.py). That is the exact transpose of the
+// list, also when capacity overflow makes the list asymmetric. gx reads W of each incoming
+// live slot from the workspace that the first pass wrote (1.5 GB at S =
+// 128, A = 266, K = 88), instead of running the MLP forward a third time;
+// both give the same bits. Each sum runs in a fixed order; results are
+// bitwise reproducible.
+//
+// Precision tiers: bf16 != 0 rounds the operands of the four products to
+// bf16 where the reference and the plain PyTorch twins in ops/cfconv.py do:
+// rbf and w0, a0 and w1 (forward); g_i x_j cut and w1, gt0 and w0
+// (backward). tanh, the geometry, the gx message and all sums stay float32.
+
+#include "cfconv_tile.cuh"
+
+namespace {
+
+// Dynamic shared memory, in floats.
+constexpr int CONV_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + NP * F;
+constexpr int BWD_FLOATS = W_FLOATS + 2 * F * LDA + NP * F + ROWS * F;
+constexpr int GPOS_ROWS = THREADS / 32;  // one warp per row of gpos
+
+// Slot e of flat row `row`: its partner atom (local index), or -1 where
+// the slot is masked.
+__device__ __forceinline__ int partner_of(
+    const int* __restrict__ idx, const unsigned char* __restrict__ mask,
+    int row, int e, int K) {
+  int slot = row * K + e;
+  return mask[slot] ? idx[slot] : -1;
+}
+
+// Forward: out[i] = sum_k W_ik * cut_ik * x[idx[i, k]]. Grid: (row tiles
+// of ROWS, molecules).
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
+            const int* __restrict__ idx,
+            const unsigned char* __restrict__ mask,
+            const float* __restrict__ w0, const float* __restrict__ b0,
+            const float* __restrict__ w1, const float* __restrict__ offset,
+            const float* __restrict__ coeff_p, float* __restrict__ out, int A,
+            int K, int R, float rcut, float arg_scale, float dcut_scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* w0_s = smem;               // [RMAX][LDW]
+  float* w1_s = w0_s + RMAX * LDW;  // [F][LDW]
+  float* rbf_s = w1_s + F * LDW;    // [RMAX][LDA]
+  float* a_s = rbf_s + RMAX * LDA;  // [F][LDA]
+  float* in_s = a_s + F * LDA;      // [NP][F]: the partners' x
+  __shared__ float b0_s[F], off_s[RMAX];
+  __shared__ float pr_s[ROWS][3], d_s[NP], cut_s[NP];
+  __shared__ int part_s[NP];
+
+  const int s = blockIdx.y;
+  const int r0 = blockIdx.x * ROWS;
+  const int base = s * A;
+  const int tid = threadIdx.x;
+  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg;
+  const float coeff = *coeff_p;
+
+  load_weights<BF16>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  if (tid < ROWS * 3) {
+    int r = tid / 3, c = tid % 3;
+    pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
+  }
+  float acc[FPT];
+#pragma unroll
+  for (int c = 0; c < FPT; ++c) acc[c] = 0.0f;
+
+  for (int e0 = 0; e0 < K; e0 += COLS) {
+    __syncthreads();  // the previous chunk is done with every tile
+    bool live = false;
+    if (tid < NP) {
+      int rr = tid / COLS, e = e0 + tid % COLS;
+      int part = r0 + rr < A && e < K
+                     ? partner_of(idx, mask, base + r0 + rr, e, K)
+                     : -1;
+      part_s[tid] = part;
+      float pc[3] = {0.0f, 0.0f, 0.0f};
+      if (part >= 0) {
+        const float* q = pos + (size_t)(base + part) * 3;
+        pc[0] = q[0];
+        pc[1] = q[1];
+        pc[2] = q[2];
+      }
+      float d, cut, dcut, rel[3];
+      live = pair_geom(pr_s[rr], pc, part >= 0, rcut, arg_scale, dcut_scale,
+                       d, cut, dcut, rel);
+      d_s[tid] = d;
+      cut_s[tid] = cut;
+    }
+    if (!__syncthreads_or(live)) continue;  // the chunk adds exactly zero
+
+    for (int e = tid; e < NP * F; e += THREADS) {
+      int part = part_s[e / F];
+      in_s[e] = part >= 0 ? x[(size_t)(base + part) * F + e % F] : 0.0f;
+    }
+    for (int e = tid; e < R * NP; e += THREADS) {
+      int r = e / NP, p = e % NP;
+      float dr = d_s[p] - off_s[r];
+      rbf_s[r * LDA + p] = op<BF16>(expf(coeff * (dr * dr)) * cut_s[p]);
+    }
+    __syncthreads();
+    float t[4][FPT] = {};
+    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, t);
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) {
+      int f = fg + 16 * c;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t[i][c] = op<BF16>(tanhf(t[i][c] + b0_s[f]));
+      store4(a_s + f * LDA + p0, t, c);
+    }
+    __syncthreads();
+    float w[4][FPT] = {};
+    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int p = p0 + i;
+      float cutp = cut_s[p];
+      const float* xin = in_s + p * F + fg;
+#pragma unroll
+      for (int c = 0; c < FPT; ++c) acc[c] += (w[i][c] * cutp) * xin[16 * c];
+    }
+  }
+
+  // Row sums over the 4 column groups of each row, in order.
+  __syncthreads();
+  float* red = a_s;  // [16 pair groups][F]
+#pragma unroll
+  for (int c = 0; c < FPT; ++c) red[pg * F + fg + 16 * c] = acc[c];
+  __syncthreads();
+  for (int e = tid; e < ROWS * F; e += THREADS) {
+    int rr = e / F, f = e % F;
+    if (r0 + rr >= A) continue;
+    const float* q = red + rr * 4 * F + f;
+    out[(size_t)(base + r0 + rr) * F + f] =
+        ((q[0] + q[F]) + q[2 * F]) + q[3 * F];
+  }
+}
+
+// Backward, first pass: recompute the forward chunk, then gd of every slot
+// of this block's rows into gd [S, A, K] (zero where the slot is masked or
+// dead) and, with GX, W of every slot of a live chunk into wbuf [S, A, K,
+// F]. Same grid and thread layout as conv_kernel.
+template <bool BF16, bool GX>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
+           const unsigned char* __restrict__ mask,
+           const float* __restrict__ x, const float* __restrict__ g,
+           const float* __restrict__ w0, const float* __restrict__ b0,
+           const float* __restrict__ w1, const float* __restrict__ offset,
+           const float* __restrict__ coeff_p, float* __restrict__ gd,
+           float* __restrict__ wbuf, int A, int K, int R, float rcut,
+           float arg_scale, float dcut_scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* w0_s = smem;               // [RMAX][LDW]
+  float* w1_s = w0_s + RMAX * LDW;  // [F][LDW]
+  float* a_s = w1_s + F * LDW;      // [F][LDA]: a0, then gt0
+  float* p_s = a_s + F * LDA;       // [F][LDA]: rbf, then g_i x_j cut
+  float* xc_s = p_s + F * LDA;      // [NP][F]: the partners' x
+  float* gr_s = xc_s + NP * F;      // [ROWS][F]: the rows' g
+  __shared__ float b0_s[F], off_s[RMAX];
+  __shared__ float pr_s[ROWS][3];
+  __shared__ float d_s[NP], cut_s[NP], dcut_s[NP];
+  __shared__ int part_s[NP];
+
+  const int s = blockIdx.y;
+  const int r0 = blockIdx.x * ROWS;
+  const int base = s * A;
+  const int tid = threadIdx.x;
+  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg, row = pg >> 2;
+  const float coeff = *coeff_p;
+
+  load_weights<BF16>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  if (tid < ROWS * 3) {
+    int r = tid / 3, c = tid % 3;
+    pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
+  }
+  for (int e = tid; e < ROWS * F; e += THREADS) {
+    int i = r0 + e / F;
+    gr_s[e] = i < A ? g[(size_t)(base + i) * F + e % F] : 0.0f;
+  }
+
+  for (int e0 = 0; e0 < K; e0 += COLS) {
+    __syncthreads();
+    bool live = false;
+    // This thread's slot of the chunk (tid < NP), -1 past the rows or K.
+    int slot = -1;
+    if (tid < NP) {
+      int rr = tid / COLS, e = e0 + tid % COLS;
+      int part = -1;
+      if (r0 + rr < A && e < K) {
+        slot = (base + r0 + rr) * K + e;
+        part = partner_of(idx, mask, base + r0 + rr, e, K);
+      }
+      part_s[tid] = part;
+      float pc[3] = {0.0f, 0.0f, 0.0f};
+      if (part >= 0) {
+        const float* q = pos + (size_t)(base + part) * 3;
+        pc[0] = q[0];
+        pc[1] = q[1];
+        pc[2] = q[2];
+      }
+      float d, cut, dcut, rel[3];
+      live = pair_geom(pr_s[rr], pc, part >= 0, rcut, arg_scale, dcut_scale,
+                       d, cut, dcut, rel);
+      d_s[tid] = d;
+      cut_s[tid] = cut;
+      dcut_s[tid] = dcut;
+    }
+    if (!__syncthreads_or(live)) {  // the chunk adds exactly zero
+      if (slot >= 0) gd[slot] = 0.0f;
+      continue;
+    }
+
+    for (int e = tid; e < NP * F; e += THREADS) {
+      int part = part_s[e / F];
+      xc_s[e] = part >= 0 ? x[(size_t)(base + part) * F + e % F] : 0.0f;
+    }
+    float* rbf_s = p_s;
+    for (int e = tid; e < R * NP; e += THREADS) {
+      int r = e / NP, p = e % NP;
+      float dr = d_s[p] - off_s[r];
+      rbf_s[r * LDA + p] = op<BF16>(expf(coeff * (dr * dr)) * cut_s[p]);
+    }
+    __syncthreads();
+    // Forward recompute; a0 stays in registers unrounded for gt0.
+    float a0[4][FPT] = {};
+    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, a0);
+    {
+      float ar[4][FPT];
+#pragma unroll
+      for (int c = 0; c < FPT; ++c) {
+        int f = fg + 16 * c;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a0[i][c] = tanhf(a0[i][c] + b0_s[f]);
+          ar[i][c] = op<BF16>(a0[i][c]);
+        }
+        store4(a_s + f * LDA + p0, ar, c);
+      }
+    }
+    __syncthreads();  // rbf reads done, a0 tile complete
+    float w[4][FPT] = {};
+    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
+    if (GX && r0 + row < A) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int e = e0 + (p0 + i) % COLS;
+        if (e >= K) continue;
+        float* dst = wbuf + (size_t)((base + r0 + row) * K + e) * F + fg;
+#pragma unroll
+        for (int c = 0; c < FPT; ++c) dst[16 * c] = w[i][c];
+      }
+    }
+
+    // s_cut = sum_f g_i W x_j and the MLP cotangent g_i x_j cut (into w's
+    // registers; reference gw, cfconv.py:204).
+    float sc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int p = p0 + i;
+      float cutp = cut_s[p];
+      const float* xj = xc_s + p * F + fg;
+      const float* gi = gr_s + row * F + fg;
+      sc[i] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < FPT; ++c) {
+        float xjv = xj[16 * c], giv = gi[16 * c];
+        sc[i] += (giv * w[i][c]) * xjv;
+        w[i][c] = op<BF16>((giv * xjv) * cutp);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) store4(p_s + (fg + 16 * c) * LDA + p0, w, c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[i] = sum16(sc[i]);
+    __syncthreads();  // cotangent tile complete; a0 tile reads done
+
+    // ga0 = (g_i x_j cut) @ w1^T, gt0 = ga0 (1 - a0^2) -> a_s.
+    float ga[4][FPT] = {};
+    gemm_tile<FPT>(p_s, w1_s + fg * LDW, F, 1, LDW, p0, ga);
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ga[i][c] = op<BF16>(ga[i][c] * (1.0f - a0[i][c] * a0[i][c]));
+      store4(a_s + (fg + 16 * c) * LDA + p0, ga, c);
+    }
+    __syncthreads();
+
+    // grbf = gt0 @ w0^T over r = fg + 16 cr, then the distance gradient.
+    float gr[4][4] = {};
+    gemm_tile<4>(a_s, w0_s + fg * LDW, F, 1, LDW, p0, gr);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float dp = d_s[p0 + i];
+      float sg = 0.0f, se = 0.0f;
+#pragma unroll
+      for (int cr = 0; cr < 4; ++cr) {
+        int r = fg + 16 * cr;
+        if (r < R) {
+          float dr = dp - off_s[r];
+          float ge = gr[i][cr] * expf(coeff * (dr * dr));
+          se += ge;
+          sg += ge * dr;
+        }
+      }
+      sg = sum16(sg);
+      se = sum16(se);
+      int p = p0 + i, e = e0 + p % COLS;
+      if (fg == 0 && r0 + p / COLS < A && e < K)
+        gd[(base + r0 + p / COLS) * K + e] =
+            cut_s[p] * (2.0f * coeff) * sg + (sc[i] + se) * dcut_s[p];
+    }
+  }
+}
+
+// Backward, second pass: gpos[a] = -sum_k gd[a, k] u_ak (row side) + the
+// sum of gd u over a's incoming slots in CSR order (column side). Grid: (row
+// tiles of GPOS_ROWS, molecules); warp w owns atom a = GPOS_ROWS tile + w,
+// its lanes stride over the entries and the shuffle tree sums them in a
+// fixed order.
+__global__ void __launch_bounds__(THREADS)
+gpos_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
+            const unsigned char* __restrict__ mask,
+            const int* __restrict__ offsets, const int* __restrict__ slots,
+            const float* __restrict__ gd, float* __restrict__ gpos, int A,
+            int K) {
+  const int s = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int a = blockIdx.x * GPOS_ROWS + (threadIdx.x >> 5);
+  if (a >= A) return;  // whole warps: the shuffles below stay full
+  const int row = s * A + a;
+  const float pa0 = pos[row * 3], pa1 = pos[row * 3 + 1],
+              pa2 = pos[row * 3 + 2];
+  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  for (int k = lane; k < K; k += 32) {
+    int slot = row * K + k;
+    if (!mask[slot]) continue;
+    const float* q = pos + (size_t)(s * A + idx[slot]) * 3;
+    float r0 = q[0] - pa0, r1 = q[1] - pa1, r2 = q[2] - pa2;
+    float d = sqrtf(fmaxf(r0 * r0 + r1 * r1 + r2 * r2, 1e-12f));
+    float v = gd[slot];
+    g0 -= v * (r0 / d);
+    g1 -= v * (r1 / d);
+    g2 -= v * (r2 / d);
+  }
+  const int end = offsets[row + 1];
+  for (int e = offsets[row] + lane; e < end; e += 32) {
+    int slot = slots[e];
+    const float* q = pos + (size_t)(slot / K) * 3;
+    float r0 = pa0 - q[0], r1 = pa1 - q[1], r2 = pa2 - q[2];
+    float d = sqrtf(fmaxf(r0 * r0 + r1 * r1 + r2 * r2, 1e-12f));
+    float v = gd[slot];
+    g0 += v * (r0 / d);
+    g1 += v * (r1 / d);
+    g2 += v * (r2 / d);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    g0 += __shfl_xor_sync(0xffffffffu, g0, o);
+    g1 += __shfl_xor_sync(0xffffffffu, g1, o);
+    g2 += __shfl_xor_sync(0xffffffffu, g2, o);
+  }
+  if (lane == 0) {
+    float* out = gpos + (size_t)row * 3;
+    out[0] = g0;
+    out[1] = g1;
+    out[2] = g2;
+  }
+}
+
+// Backward, gx pass: gx[a] = sum over a's incoming slots, in CSR order,
+// of W * cut * g[i], with W read from wbuf. One block of F threads per
+// atom a (grid: atoms, molecules); thread f owns feature f. rel is p_a -
+// p_i, as in the first pass, so cut carries the same bits and the live
+// slots are exactly those whose W the first pass stored.
+__global__ void __launch_bounds__(F)
+gx_kernel(const float* __restrict__ pos, const float* __restrict__ g,
+          const int* __restrict__ offsets, const int* __restrict__ slots,
+          const float* __restrict__ wbuf, float* __restrict__ gx, int A,
+          int K, float rcut, float arg_scale, float dcut_scale) {
+  const int row = blockIdx.y * A + blockIdx.x;
+  const int f = threadIdx.x;
+  const float* pa = pos + (size_t)row * 3;
+  float acc = 0.0f;
+  const int end = offsets[row + 1];
+  for (int e = offsets[row]; e < end; ++e) {
+    int slot = slots[e];
+    int i = slot / K;  // flat row of the slot's owner
+    float d, cut, dcut, rel[3];
+    if (!pair_geom(pos + (size_t)i * 3, pa, true, rcut, arg_scale,
+                   dcut_scale, d, cut, dcut, rel))
+      continue;
+    acc += (wbuf[(size_t)slot * F + f] * cut) * g[(size_t)i * F + f];
+  }
+  gx[(size_t)row * F + f] = acc;
+}
+
+bool sizes_ok(int S, int A, int K, int Fdim, int R) {
+  return Fdim == F && R >= 1 && R <= RMAX && S >= 1 && A >= 1 && K >= 1 &&
+         (long long)S * A * K < (1LL << 31);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sizes the kernels take: F == 128, 1 <= R <= 64, S, A, K >= 1 and
+// S * A * K < 2^31. idx int32, mask one byte per slot (bool).
+int cfconv_fwd(const float* pos, const int* idx, const unsigned char* mask,
+               const float* x, const float* w0, const float* b0,
+               const float* w1, const float* offset, const float* coeff,
+               float* out, int S, int A, int K, int Fdim, int R, float rcut,
+               int bf16, void* stream) {
+  if (!sizes_ok(S, A, K, Fdim, R)) return (int)cudaErrorInvalidValue;
+  float arg_scale = (float)(PI / (double)rcut);
+  float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
+  void* args[] = {&pos, &x, &idx, &mask, &w0, &b0, &w1, &offset, &coeff,
+                  &out, &A, &K, &R, &rcut, &arg_scale, &dcut_scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) return (int)launch(conv_kernel<true>, CONV_FLOATS, S, A, st, args);
+  return (int)launch(conv_kernel<false>, CONV_FLOATS, S, A, st, args);
+}
+
+// gx and wbuf may be null (both or neither): then gx is not computed (the
+// block's input is position-independent and its cotangent dead). gd is a
+// workspace of S * A * K floats, wbuf one of S * A * K * F floats; the first
+// pass writes every slot of gd, and W of every live slot, before the later
+// passes read them. csr_offsets [S * A + 1] and csr_slots [S * A * K] (the
+// first csr_offsets[S * A] entries used) are the source CSR of the list.
+int cfconv_bwd(const float* pos, const int* idx, const unsigned char* mask,
+               const int* csr_offsets, const int* csr_slots, const float* x,
+               const float* g, const float* w0, const float* b0,
+               const float* w1, const float* offset, const float* coeff,
+               float* gd, float* wbuf, float* gpos, float* gx, int S, int A,
+               int K, int Fdim, int R, float rcut, int bf16, void* stream) {
+  if (!sizes_ok(S, A, K, Fdim, R) || (gx == nullptr) != (wbuf == nullptr))
+    return (int)cudaErrorInvalidValue;
+  float arg_scale = (float)(PI / (double)rcut);
+  float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
+  cudaStream_t st = (cudaStream_t)stream;
+  void* args[] = {&pos,  &idx, &mask, &x, &g, &w0,   &b0,        &w1,
+                  &offset, &coeff, &gd, &wbuf, &A, &K, &R, &rcut,
+                  &arg_scale, &dcut_scale};
+  cudaError_t err;
+  if (bf16 && gx)
+    err = launch(bwd_kernel<true, true>, BWD_FLOATS, S, A, st, args);
+  else if (bf16)
+    err = launch(bwd_kernel<true, false>, BWD_FLOATS, S, A, st, args);
+  else if (gx)
+    err = launch(bwd_kernel<false, true>, BWD_FLOATS, S, A, st, args);
+  else
+    err = launch(bwd_kernel<false, false>, BWD_FLOATS, S, A, st, args);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((A + GPOS_ROWS - 1) / GPOS_ROWS, S);
+  gpos_kernel<<<grid, THREADS, 0, st>>>(pos, idx, mask, csr_offsets,
+                                        csr_slots, gd, gpos, A, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || gx == nullptr) return (int)err;
+  gx_kernel<<<dim3(A, S), F, 0, st>>>(pos, g, csr_offsets, csr_slots, wbuf,
+                                      gx, A, K, rcut, arg_scale, dcut_scale);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per block, in bytes: of conv_kernel (bwd == 0) or
+// of the backward's first pass.
+int cfconv_smem_bytes(int bwd) {
+  return (int)sizeof(float) * (bwd ? BWD_FLOATS : CONV_FLOATS);
+}
+
+}  // extern "C"

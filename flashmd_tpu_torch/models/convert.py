@@ -57,7 +57,8 @@ def config_from_kwargs(config_kwargs: dict) -> SchNetConfig:
 
 
 def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
-                          device="cuda") -> ForceField:
+                          device="cuda", neighbor_capacity: int = 64,
+                          exc_pair_index=None) -> ForceField:
     """The port's ForceField from numpy weights.
 
     ``schnet_params_np``: nested dicts/lists of numpy arrays in the
@@ -65,7 +66,9 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
     ``output``, optionally ``cheb_fit``). ``priors_np``: name -> prior
     with ``index_mapping``, ``params``, ``kind``, ``name``, ``feature``
     (attributes or dict keys). ``config_kwargs``: see config_from_kwargs.
-    The tensors are placed on the card unless ``device`` says otherwise.
+    ``neighbor_capacity`` and ``exc_pair_index`` ([2, P] or None) are the
+    reference ForceField's fields of those names. The tensors are placed on
+    the card unless ``device`` says otherwise.
     """
     params = _tree_to_torch(dict(schnet_params_np), device)
     if "cheb_fit" in params:
@@ -85,4 +88,7 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
         schnet_params=params,
         priors=priors,
         schnet_config=config_from_kwargs(config_kwargs),
+        neighbor_capacity=int(neighbor_capacity),
+        exc_pair_index=(None if exc_pair_index is None
+                        else _tensor(exc_pair_index, device)),
     )

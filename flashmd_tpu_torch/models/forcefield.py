@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..ops.neighborlist import NeighborMatrix, batched_radius_neighbor_matrix
 from ..prior.priors import Prior, prior_energy
 from .schnet import SchNetConfig, schnet_energy
 
@@ -22,13 +23,16 @@ SCHNET_NAME = "SchNet"
 @dataclasses.dataclass
 class ForceField:
     """SchNet parameters + specialised priors (reference ForceField,
-    forcefield.py:38-73). ``exc_pair_index`` is carried only to refuse it:
-    the all-pairs Chebyshev path has no neighbour list to drop pairs from.
+    forcefield.py:38-73). ``neighbor_capacity`` is the static K of the
+    padded neighbour matrix. ``exc_pair_index`` ([2, P] atom pairs) is
+    dropped from the neighbour list on the ``"pallas"`` path and refused on
+    the all-pairs paths, which have no list to drop pairs from.
     """
 
     schnet_params: Optional[dict]
     priors: Dict[str, Prior]
     schnet_config: Optional[SchNetConfig] = None
+    neighbor_capacity: int = 64
     exc_pair_index: Optional[torch.Tensor] = None
 
     @property
@@ -39,14 +43,33 @@ class ForceField:
         return dataclasses.replace(self, **changes)
 
 
+def uses_neighbor_list(ff: ForceField) -> bool:
+    """Whether the SchNet term runs over a neighbour matrix."""
+    return (ff.schnet_params is not None
+            and ff.schnet_config.message_passing not in ("dense", "cheb"))
+
+
+def build_neighbors(ff: ForceField, pos_batch: torch.Tensor,
+                    skin: float = 0.0) -> NeighborMatrix:
+    """Batched padded radius graph (with its source CSR) for the SchNet
+    term at rcut + ``skin``, without the force field's excluded pairs
+    (reference build_neighbors, forcefield.py:134-164). Indices carry no
+    gradient; a skin-padded list stays exact while no pair moves from
+    beyond rcut + skin to within rcut between rebuilds."""
+    return batched_radius_neighbor_matrix(
+        pos_batch.detach(), rcut=ff.rcut + skin,
+        capacity=ff.neighbor_capacity, exclude_pairs=ff.exc_pair_index,
+    )
+
+
 def energy_components(
-    ff: ForceField, pos, atom_types
+    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None
 ) -> Dict[str, torch.Tensor]:
     """Per-model energies, each [S]."""
     out = {}
     if ff.schnet_params is not None:
         out[SCHNET_NAME] = schnet_energy(
-            ff.schnet_params, ff.schnet_config, pos, atom_types
+            ff.schnet_params, ff.schnet_config, pos, atom_types, nbr
         )
     for name, prior in ff.priors.items():
         out[name] = prior_energy(prior, pos)
@@ -57,11 +80,13 @@ def compute_energy_forces(
     ff: ForceField,
     pos_batch: torch.Tensor,  # [S, A, 3]
     atom_types: torch.Tensor,  # [A]
+    nbr: Optional[NeighborMatrix] = None,
     cell=None,
     atom_mask=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """([S] energies, [S, A, 3] forces, components dict of [S])
-    (reference compute_energy_forces, forcefield.py:166-275)."""
+    (reference compute_energy_forces, forcefield.py:166-275). On the
+    neighbour-list path ``nbr`` is built here when not given."""
     if atom_types is None or atom_types.ndim != 1:
         raise ValueError(
             "atom_types must be a 1-D [A] integer tensor (mixed batches are "
@@ -75,15 +100,18 @@ def compute_energy_forces(
         )
     if atom_mask is not None:
         raise NotImplementedError("mixed-size batches are not ported yet")
-    if ff.exc_pair_index is not None and mp is not None:
+    if ff.exc_pair_index is not None and mp in ("dense", "cheb"):
+        # The all-pairs paths have no neighbour list to drop pairs from.
         raise NotImplementedError(
             "Structure-level pair exclusions (exc_pair_index) require "
             "a neighbor-list message-passing path ('xla' or 'pallas'); "
             f"got {mp!r}."
         )
+    if nbr is None and uses_neighbor_list(ff):
+        nbr = build_neighbors(ff, pos_batch)
     with torch.enable_grad():
         pos = pos_batch.detach().requires_grad_(True)
-        comps = energy_components(ff, pos, atom_types)
+        comps = energy_components(ff, pos, atom_types, nbr)
         total = torch.zeros(pos.shape[0], dtype=pos.dtype, device=pos.device)
         for v in comps.values():
             total = total + v

@@ -1,9 +1,12 @@
 """SchNet force field (port of flashmd_tpu/models/schnet.py).
 
 The batch is the leading axis: ``pos [S, A, 3]`` gives ``[S]`` energies.
-Two message-passing paths are ported: ``"cheb"`` (Chebyshev-tabulated
-filters, models/cheb.py) and ``"dense"`` (the exact filter MLP over all
-pairs, ops/cfconv_dense.py). Any other value raises.
+Three message-passing paths are ported: ``"cheb"`` (Chebyshev-tabulated
+filters, models/cheb.py), ``"dense"`` (the exact filter MLP over all
+pairs, ops/cfconv_dense.py) and ``"pallas"``. The last keeps the
+reference's name, so that a reference config carries across with its
+meaning; in the port it names the exact filter MLP over the padded
+neighbour matrix with CUDA kernels (ops/cfconv.py). Any other value raises.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Tuple
 
 import torch
 
+from ..ops.cfconv import fused_cfconv_message
 from ..ops.cfconv_dense import dense_cfconv_message
 from .cheb import cheb_stack_apply
 from .cutoff import CosineCutoff
@@ -20,7 +24,7 @@ from .mlp import check_precision, init_mlp, mlp_apply, xavier_uniform
 from .radial_basis import GaussianBasisConfig, init_gaussian_basis
 
 
-MESSAGE_PASSING = ("cheb", "dense")
+MESSAGE_PASSING = ("cheb", "dense", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,14 +109,18 @@ def output_energies(params, config: SchNetConfig, x):
     return e[..., 0]
 
 
-def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types):
+def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
+                         nbr=None):
     """[S, A] per-atom energies: embedding, the interaction blocks of the
-    configured path, the output head."""
+    configured path, the output head. ``nbr`` is the batched neighbour
+    matrix (ops.neighborlist) that the ``"pallas"`` path needs."""
     s, a = pos.shape[0], pos.shape[1]
     x0 = params["embedding"][atom_types]
     x0 = x0.expand(s, a, x0.shape[-1]).contiguous()
     if config.message_passing == "dense":
         x = _dense_blocks(params, config, pos, x0)
+    elif config.message_passing == "pallas":
+        x = _neighbor_blocks(params, config, pos, x0, nbr)
     else:
         x = _cheb_blocks(params, config, pos, x0)
     return output_energies(params, config, x)
@@ -140,33 +148,56 @@ def _cheb_blocks(params, config: SchNetConfig, pos, x0):
     )
 
 
-def _dense_blocks(params, config: SchNetConfig, pos, x):
-    """Reference dense branch (schnet.py:426-451). The linear layers run in
+def _exact_filter_blocks(params, config: SchNetConfig, x, message):
+    """The interaction blocks around an exact-filter message ``message(h,
+    w0, b0, w1, offset, coeff, rcut, precision)``. The linear layers run in
     float32, as the reference's DEFAULT-precision dot does off the TPU.
 
-    The dense kernels hard-code the zero-lower cosine cutoff
-    (cfconv_dense.py:79-82), so a nonzero ``cutoff_lower`` raises here
-    where the reference silently computes the zero-lower formula."""
+    Both exact-filter kernels hard-code the zero-lower cosine cutoff
+    (cfconv_dense.py:79-82, cfconv.py:65-74), so a nonzero ``cutoff_lower``
+    raises here where the reference silently computes the zero-lower
+    formula."""
     if config.cutoff.cutoff_lower != 0:
         raise NotImplementedError(
-            "message_passing='dense' requires CosineCutoff with "
-            f"cutoff_lower == 0 (got {config.cutoff!r})."
+            f"message_passing={config.message_passing!r} requires "
+            f"CosineCutoff with cutoff_lower == 0 (got {config.cutoff!r})."
         )
     rbf = params["rbf"]
     for bp in params["interactions"]:
         layers = bp["filter"]["layers"]
         h = x @ bp["lin1_w"]
-        agg = dense_cfconv_message(
-            pos, h, layers[0]["w"], layers[0]["b"], layers[1]["w"],
-            rbf["offset"], rbf["coeff"], float(config.cutoff.cutoff_upper),
-            config.precision,
+        agg = message(
+            h, layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
+            rbf["coeff"], float(config.cutoff.cutoff_upper), config.precision,
         )
         y = agg @ bp["lin2_w"] + bp["lin2_b"]
         x = x + (torch.tanh(y) @ bp["lin_w"] + bp["lin_b"])
     return x
 
 
-def schnet_energy(params, config: SchNetConfig, pos, atom_types):
+def _dense_blocks(params, config: SchNetConfig, pos, x):
+    """Reference dense branch (schnet.py:426-451)."""
+    return _exact_filter_blocks(
+        params, config, x, lambda h, *w: dense_cfconv_message(pos, h, *w)
+    )
+
+
+def _neighbor_blocks(params, config: SchNetConfig, pos, x, nbr):
+    """Reference pallas branch (schnet.py:453-479) over the batched
+    neighbour matrix ``nbr``."""
+    if nbr is None:
+        raise ValueError(
+            "message_passing='pallas' needs the neighbour matrix (see "
+            "models.forcefield.build_neighbors)"
+        )
+    return _exact_filter_blocks(
+        params, config, x,
+        lambda h, *w: fused_cfconv_message(pos, h, nbr, *w),
+    )
+
+
+def schnet_energy(params, config: SchNetConfig, pos, atom_types, nbr=None):
     """Total SchNet energy per molecule, [S]."""
-    return torch.sum(schnet_atom_energies(params, config, pos, atom_types),
-                     dim=-1)
+    return torch.sum(
+        schnet_atom_energies(params, config, pos, atom_types, nbr), dim=-1
+    )

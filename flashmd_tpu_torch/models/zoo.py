@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..data.system import Configuration, make_term_list
+from ..ops.neighborlist import max_neighbor_count, suggest_capacity
 from ..prior.priors import Prior, densify_repulsion
 from .cutoff import CosineCutoff
 from .forcefield import ForceField
@@ -166,16 +167,19 @@ def cgschnet_1enh_like(
     cheb_order: Optional[int] = None,
     cheb_order_deriv: Optional[int] = None,
     cheb_d_min: Optional[float] = None,
+    neighbor_capacity: Optional[int] = None,
     device: torch.device | str = "cuda",
 ) -> Tuple[ForceField, List[Configuration]]:
     """CGSchNet at 1ENH scale + chain priors (reference zoo.py:164-329):
     hidden 128, filters 128, 50 RBF, embedding 100, head [128, 128, 64, 1].
 
     The reference's default ``message_passing`` is "xla"; the port has
-    "cheb", its default here, and "dense". Both draw the same weights from
-    the same seed; only the config differs. No neighbour capacity is
-    probed: neither path has a neighbour list. The tensors are placed on
-    the card unless ``device`` says otherwise.
+    "cheb", its default here, "dense" and "pallas". All draw the same
+    weights from the same seed; only the config differs. Without an
+    explicit ``neighbor_capacity`` the reference's rule sizes it: the max
+    neighbour count at rcut + 1.0 (the default Verlet skin) x 1.35, aligned
+    to 8, at most ``n_atoms``. The tensors are placed on the card unless
+    ``device`` says otherwise.
     """
     base = random_cg_protein(n_atoms=n_atoms, seed=seed)
     order, deriv, d_min = default_cheb_orders(
@@ -195,11 +199,19 @@ def cgschnet_1enh_like(
         cheb_order_deriv=deriv,
         cheb_d_min=d_min,
     )
+    if neighbor_capacity is None:
+        neighbor_capacity = min(
+            suggest_capacity(
+                max_neighbor_count(base.pos, cutoff_upper + 1.0), slack=1.35
+            ),
+            n_atoms,
+        )
     gen = torch.Generator().manual_seed(seed)
     ff = ForceField(
         schnet_params=init_schnet(config, gen, device),
         priors=_chain_priors(base, seed, device),
         schnet_config=config,
+        neighbor_capacity=neighbor_capacity,
     )
     rng = np.random.default_rng(seed + 7)
     configurations = [

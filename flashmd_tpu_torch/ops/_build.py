@@ -4,7 +4,8 @@
 source, all started together) and links them into one shared library with
 a plain C interface, which ``ctypes`` loads. The library lands in
 ``flashmd_tpu_torch/_build/`` under a name keyed by a hash over all the
-sources, so an edited source is rebuilt and an unchanged set is reused.
+sources and the ``csrc/*.cuh`` headers they include, so an edited source or
+header is rebuilt and an unchanged set is reused.
 Nothing here runs at import: the first CUDA launch builds and loads.
 """
 
@@ -42,6 +43,13 @@ _SIGNATURES = {
     # bf16, stream
     "dense_cfconv_bwd": [_P] * 11 + [_I] * 4 + [_F, _I, _P],
     "dense_cfconv_smem_bytes": [_I],
+    # pos, idx, mask, x, w0, b0, w1, offset, coeff, out, S, A, K, F, R,
+    # rcut, bf16, stream
+    "cfconv_fwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+    # pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1, offset,
+    # coeff, gd, wbuf, gpos, gx, S, A, K, F, R, rcut, bf16, stream
+    "cfconv_bwd": [_P] * 16 + [_I] * 5 + [_F, _I, _P],
+    "cfconv_smem_bytes": [_I],
 }
 
 _loaded: dict = {}
@@ -64,7 +72,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libflashmd_kernels_{h.hexdigest()[:12]}.so"

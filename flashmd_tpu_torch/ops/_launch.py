@@ -14,11 +14,11 @@ def _op(t: torch.Tensor, precision: str) -> torch.Tensor:
     return round_bf16(t) if precision == "bf16" else t
 
 
-def _check(name, t, shape):
+def _check(name, t, shape, dtype=torch.float32):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")

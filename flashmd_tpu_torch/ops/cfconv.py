@@ -1,0 +1,286 @@
+"""Neighbour-matrix exact-filter CFConv: wrappers, plain PyTorch twins,
+launch counts and the autograd Function.
+
+Port of flashmd_tpu/ops/pallas/cfconv.py. The CUDA sources are in
+``flashmd_tpu_torch/csrc/cfconv_kernels.cu`` (built by ``ops/_build.py``):
+
+==========  ==============================================================
+wrapper     replaces (flashmd_tpu/ops/pallas/cfconv.py)
+==========  ==============================================================
+cfconv_fwd  ``_fwd_kernel`` (:137), via ``fused_cfconv_message`` (:252)
+cfconv_bwd  ``_bwd_kernel`` (:163), its custom VJP ``_fused_cfconv_bwd``
+==========  ==============================================================
+
+    out[s, i] = sum_{k: mask} W(d_ik) * cut(d_ik) * x[s, idx[s, i, k]],
+    W = tanh(rbf @ w0 + b0) @ w1,  rbf = exp(coeff (d - offset)^2) cut.
+
+Operands carry the batch as their leading axis: ``pos [S, A, 3]``,
+``x``/``g`` ``[S, A, F]``, the neighbour matrix ``idx [S, A, K]`` (int32)
+and ``mask [S, A, K]`` (bool) of ops/neighborlist.py; ``w0 [R, F]``,
+``b0 [F]``, ``w1 [F, F]``, ``offset [R]``, ``coeff []``. The kernels take
+F = 128 and R <= 64. Masked slots (which hold the row's own index) add
+exactly zero, as the reference's mask folded into the one-hot
+(cfconv.py:86-94).
+
+The backward returns gpos and gx. Per slot it runs one MLP backward on
+the cotangent g_i x_j cut, as the reference (rounding points :204-222),
+giving gd [S, A, K]; the row side is gpos[i] -= sum_k gd_ik u_ik and the
+column side gpos[j] += gd_ik u_ik, gx[j] += g_i W_ik cut_ik over the slots
+with idx = j. The twins scatter the column side with ``index_add_``; the
+kernels gather it through the source CSR of the list (neighborlist.py),
+with no atomics.
+
+Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
+CUDA tensors it launches its kernel or raises; there is no fallback. Each
+wrapper counts its kernel launches in its ``launches`` attribute.
+
+Precision tiers: ``fp32`` and ``bf16`` (operands of the four products
+rounded to bf16, everything else float32, at the same places in the
+kernels and the twins).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..models.mlp import check_precision
+from ._launch import _check, _op, _ptr, _raise_on, _same_device, _stream
+
+KERNEL_F = 128
+KERNEL_R_MAX = 64
+# Molecules per pass of the twins: bounds their [chunk, A, K, F] tensors.
+PLAIN_CHUNK = 8
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+
+def _gather_rows(t, idx):
+    """t [s, A, C] at idx [s, A, K] -> [s, A, K, C]."""
+    b = torch.arange(t.shape[0], device=t.device)[:, None, None]
+    return t[b, idx.long()]
+
+
+def _slot_geometry(pos, idx, mask, offset, coeff, rcut):
+    """rel [s, A, K, 3], d, cut, dcut [s, A, K] (masked slots zero), e,
+    rbf [s, A, K, R] (reference _tile_geometry, cfconv.py:77-108)."""
+    rel = _gather_rows(pos, idx) - pos[:, :, None, :]
+    d = torch.sqrt(torch.clamp(torch.sum(rel * rel, dim=-1), min=1e-12))
+    arg = d * (math.pi / rcut)
+    inside = ((d < rcut) & mask).to(d.dtype)
+    cut = 0.5 * (torch.cos(arg) + 1.0) * inside
+    dcut = (-0.5 * (math.pi / rcut)) * torch.sin(arg) * inside
+    e = torch.exp(coeff * torch.square(d[..., None] - offset))
+    return rel, d, cut, dcut, e, e * cut[..., None]
+
+
+def _filter_mlp(rbf, w0, b0, w1, precision):
+    """a0 (unrounded), W [s, A, K, F] (reference _filter_mlp :111-134)."""
+    a0 = torch.tanh(_op(rbf, precision) @ _op(w0, precision) + b0)
+    return a0, _op(a0, precision) @ _op(w1, precision)
+
+
+def _molecule_chunks(n):
+    return [slice(s, min(s + PLAIN_CHUNK, n))
+            for s in range(0, n, PLAIN_CHUNK)]
+
+
+def cfconv_fwd_plain(pos, idx, mask, x, w0, b0, w1, offset, coeff, rcut,
+                     precision):
+    """out [S, A, F], written out over [PLAIN_CHUNK, A, K, F] slot
+    tensors."""
+    outs = []
+    for sl in _molecule_chunks(pos.shape[0]):
+        _, _, cut, _, _, rbf = _slot_geometry(pos[sl], idx[sl], mask[sl],
+                                              offset, coeff, rcut)
+        _, w = _filter_mlp(rbf, w0, b0, w1, precision)
+        xj = _gather_rows(x[sl], idx[sl])
+        outs.append(torch.sum(w * cut[..., None] * xj, dim=2))
+    return torch.cat(outs)
+
+
+def cfconv_bwd_plain(pos, idx, mask, x, g, w0, b0, w1, offset, coeff, rcut,
+                     precision, need_gx=True):
+    """(gpos [S, A, 3], gx [S, A, F] or None): gd per slot, its row side,
+    and the column side scattered to idx with ``index_add_``."""
+    gposs, gxs = [], []
+    for sl in _molecule_chunks(pos.shape[0]):
+        p, ix, mk = pos[sl], idx[sl], mask[sl]
+        s, a, k = ix.shape
+        rel, d, cut, dcut, e, rbf = _slot_geometry(p, ix, mk, offset, coeff,
+                                                   rcut)
+        a0, w = _filter_mlp(rbf, w0, b0, w1, precision)
+        gi, xj = g[sl, :, None, :], _gather_rows(x[sl], ix)
+        cut3 = cut[..., None]
+        # Flat destination rows of the column side.
+        col = (torch.arange(s, device=p.device)[:, None, None] * a
+               + ix.long()).reshape(-1)
+        if need_gx:
+            gx = torch.zeros(s * a, w.shape[-1], dtype=g.dtype,
+                             device=g.device)
+            gx.index_add_(0, col, (gi * w * cut3).reshape(s * a * k, -1))
+            gxs.append(gx.view(s, a, -1))
+        s_cut = torch.sum(gi * w * xj, dim=-1)
+        ga0 = _op(gi * xj * cut3, precision) @ _op(w1, precision).T
+        gt0 = ga0 * (1.0 - a0 * a0)
+        grbf = _op(gt0, precision) @ _op(w0, precision).T
+        gcut = s_cut + torch.sum(grbf * e, dim=-1)
+        ge = grbf * cut3
+        gd = torch.sum(ge * e * (2.0 * coeff) * (d[..., None] - offset),
+                       dim=-1) + gcut * dcut
+        gp = gd[..., None] * (rel / d[..., None])
+        gpos = -torch.sum(gp, dim=2).reshape(s * a, 3)
+        gpos.index_add_(0, col, gp.reshape(s * a * k, 3))
+        gposs.append(gpos.view(s, a, 3))
+    return torch.cat(gposs), (torch.cat(gxs) if need_gx else None)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(pos, idx, mask, x, w0, b0, w1, offset, coeff):
+    """(S, A, K, F, R) after the checks every launch needs."""
+    s, a, f = x.shape
+    k = idx.shape[-1]
+    r = w0.shape[0]
+    if f != KERNEL_F or not 1 <= r <= KERNEL_R_MAX:
+        raise ValueError(
+            f"neighbour-matrix CFConv kernels take F == {KERNEL_F} and 1 <= "
+            f"R <= {KERNEL_R_MAX} (got F={f}, R={r})"
+        )
+    if s * a * k >= 2 ** 31:
+        raise ValueError(f"S * A * K = {s * a * k} slots exceed int32")
+    _check("pos", pos, (s, a, 3))
+    _check("idx", idx, (s, a, k), torch.int32)
+    _check("mask", mask, (s, a, k), torch.bool)
+    _check("x", x, (s, a, f))
+    _check("w0", w0, (r, f))
+    _check("b0", b0, (f,))
+    _check("w1", w1, (f, f))
+    _check("offset", offset, (r,))
+    _check("coeff", coeff, ())
+    _same_device(pos, idx, mask, x, w0, b0, w1, offset, coeff)
+    return s, a, k, f, r
+
+
+def cfconv_fwd(pos, idx, mask, x, w0, b0, w1, offset, coeff, rcut,
+               precision):
+    """Forward neighbour-matrix CFConv, [S, A, F] (module docstring)."""
+    check_precision(precision)
+    if pos.device.type == "cpu":
+        return cfconv_fwd_plain(pos, idx, mask, x, w0, b0, w1, offset, coeff,
+                                rcut, precision)
+    from ._build import load
+
+    s, a, k, f, r = _check_operands(pos, idx, mask, x, w0, b0, w1, offset,
+                                    coeff)
+    out = torch.empty_like(x)
+    rc = load().cfconv_fwd(
+        _ptr(pos), _ptr(idx), _ptr(mask), _ptr(x), _ptr(w0), _ptr(b0),
+        _ptr(w1), _ptr(offset), _ptr(coeff), _ptr(out), s, a, k, f, r,
+        float(rcut), int(precision == "bf16"), _stream(),
+    )
+    _raise_on(rc, "cfconv_fwd")
+    cfconv_fwd.launches += 1
+    return out
+
+
+def cfconv_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
+               offset, coeff, rcut, precision, need_gx=True):
+    """(gpos [S, A, 3], gx [S, A, F] or None when ``need_gx`` is False).
+    ``csr_offsets``/``csr_slots`` are the list's source CSR
+    (ops/neighborlist.py); the twin does not need them. On the card: the
+    slot pass into an [S, A, K] gd workspace (and, for gx, W of each live
+    slot into an [S, A, K, F] one), the gpos pass, and the gx pass over
+    the CSR; the launches count as one."""
+    check_precision(precision)
+    if pos.device.type == "cpu":
+        return cfconv_bwd_plain(pos, idx, mask, x, g, w0, b0, w1, offset,
+                                coeff, rcut, precision, need_gx)
+    from ._build import load
+
+    s, a, k, f, r = _check_operands(pos, idx, mask, x, w0, b0, w1, offset,
+                                    coeff)
+    _check("g", g, (s, a, f))
+    _check("csr_offsets", csr_offsets, (s * a + 1,), torch.int32)
+    _check("csr_slots", csr_slots, (s * a * k,), torch.int32)
+    _same_device(pos, g, csr_offsets, csr_slots)
+    gd = torch.empty(s, a, k, dtype=pos.dtype, device=pos.device)
+    gpos = torch.empty_like(pos)
+    gx = torch.empty_like(g) if need_gx else None
+    wbuf = (torch.empty(s, a, k, f, dtype=pos.dtype, device=pos.device)
+            if need_gx else None)
+    rc = load().cfconv_bwd(
+        _ptr(pos), _ptr(idx), _ptr(mask), _ptr(csr_offsets), _ptr(csr_slots),
+        _ptr(x), _ptr(g), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(offset),
+        _ptr(coeff), _ptr(gd), _ptr(wbuf), _ptr(gpos), _ptr(gx), s, a, k, f, r,
+        float(rcut), int(precision == "bf16"), _stream(),
+    )
+    _raise_on(rc, "cfconv_bwd")
+    cfconv_bwd.launches += 1
+    return gpos, gx
+
+
+cfconv_fwd.launches = 0
+cfconv_bwd.launches = 0
+
+KERNELS = {
+    "cfconv_fwd": cfconv_fwd,
+    "cfconv_bwd": cfconv_bwd,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+
+class _FusedCFConv(torch.autograd.Function):
+    """Gradients flow to pos and x only; the weights are frozen at
+    simulation time, so their cotangents are None (the reference returns
+    zeros, cfconv.py:382-391). The gx pass runs only when x needs a
+    gradient (the first block's input derives from the embedding alone)."""
+
+    @staticmethod
+    def forward(ctx, pos, x, nbr, w0, b0, w1, offset, coeff, rcut,
+                precision):
+        ctx.save_for_backward(pos, x, w0, b0, w1, offset, coeff)
+        ctx.nbr, ctx.rcut, ctx.precision = nbr, rcut, precision
+        return cfconv_fwd(pos, nbr.idx, nbr.mask, x, w0, b0, w1, offset,
+                          coeff, rcut, precision)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, x, w0, b0, w1, offset, coeff = ctx.saved_tensors
+        nbr = ctx.nbr
+        need_pos, need_x = ctx.needs_input_grad[:2]
+        gpos, gx = cfconv_bwd(
+            pos, nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots, x,
+            g.contiguous(), w0, b0, w1, offset, coeff, ctx.rcut,
+            ctx.precision, need_gx=need_x,
+        )
+        return (gpos if need_pos else None, gx) + (None,) * 8
+
+
+def fused_cfconv_message(pos, x, nbr, w0, b0, w1, offset, coeff,
+                         rcut: float, precision: str):
+    """Neighbour-matrix CFConv message [S, A, F] over ``nbr`` (a batched
+    ops.neighborlist.NeighborMatrix; reference fused_cfconv_message,
+    cfconv.py:252-269, batched)."""
+    return _FusedCFConv.apply(pos, x, nbr, w0, b0, w1, offset, coeff,
+                              float(rcut), precision)

@@ -2,14 +2,20 @@
 flashmd_tpu/simulation/base.py).
 
 What is here: the constructor options ``dt``, ``n_timesteps``,
-``save_interval``, ``random_seed`` and ``device`` (the card unless the
-caller asks for the CPU); attach (which fits the Chebyshev filters on the
-host for a cheb model, base.py:479-508); the initial carry
-(:661-683); ``simulate()``, which steps in chunks of ``save_interval``,
-keeps position and potential frames in memory at save points, and times
-the second half of the run exactly as ``get_throughput_metrics``
-(:1368-1390) defines it. The host clock is read after
-``torch.cuda.synchronize()`` on the card.
+``save_interval``, ``random_seed``, ``device`` (the card unless the
+caller asks for the CPU) and the neighbour-list options
+``neighbor_capacity``, ``neighbor_skin`` and ``neighbor_rebuild_interval``;
+attach (which fits the Chebyshev filters on the host for a cheb model,
+base.py:479-508); the initial carry (:661-683); the Verlet neighbour list
+of the ``"pallas"`` path (:580-716): rebuilt at rcut + skin from the
+positions at the start of a step, every ``neighbor_rebuild_interval``
+steps, with the running maxima of the true neighbour count and of the
+displacement since the last rebuild kept on the device; ``simulate()``,
+which steps in chunks of ``save_interval``, keeps position and potential
+frames in memory at save points, raises the reference's capacity-overflow
+and Verlet-skin warnings at its end (:1176-1197), and times the second half
+of the run exactly as ``get_throughput_metrics`` (:1368-1390) defines it.
+The host clock is read after ``torch.cuda.synchronize()`` on the card.
 
 Not here yet: file export, checkpoints, the divergence and pair-floor
 guards, CUDA graphs. The reference's ``gptq`` option (which forces bf16)
@@ -19,13 +25,19 @@ is not ported: the model runs at its configured precision.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..data.system import Configuration, System, collate
-from ..models.forcefield import ForceField, compute_energy_forces
+from ..models.forcefield import (
+    ForceField,
+    build_neighbors,
+    compute_energy_forces,
+    uses_neighbor_list,
+)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -43,6 +55,9 @@ class Simulation:
         save_interval: int = 10,
         random_seed: Optional[int] = 233,
         device: torch.device | str = "cuda",
+        neighbor_capacity: Optional[int] = None,
+        neighbor_skin: float = 1.0,
+        neighbor_rebuild_interval: int = 1,
     ):
         if n_timesteps % save_interval != 0:
             raise ValueError(
@@ -55,6 +70,11 @@ class Simulation:
         self.random_seed = 233 if random_seed is None else random_seed
         self.device = torch.device(device)
         self.dtype = torch.float32
+        # Verlet list: search radius rcut + neighbor_skin, rebuilt every
+        # neighbor_rebuild_interval steps (1 = every step, always exact).
+        self.neighbor_capacity = neighbor_capacity
+        self.neighbor_skin = neighbor_skin
+        self.neighbor_rebuild_interval = neighbor_rebuild_interval
         self.model: Optional[ForceField] = None
         self.initial_system: Optional[System] = None
         self._warmup_end_time = None
@@ -84,6 +104,8 @@ class Simulation:
             model = model.replace(
                 schnet_params=attach_cheb_fit(params, model.schnet_config)
             )
+        if self.neighbor_capacity is not None:
+            model = model.replace(neighbor_capacity=self.neighbor_capacity)
         self.model = model
 
     def _attach_configurations(self, configurations, beta):
@@ -100,9 +122,38 @@ class Simulation:
     # Integrator interface
     # ------------------------------------------------------------------
 
-    def _forces(self, pos):
+    def _uses_neighbor_list(self) -> bool:
+        return self.model is not None and uses_neighbor_list(self.model)
+
+    def _rebuild_neighbors(self, carry: Dict) -> Dict:
+        """The list (and its source CSR) from the carry's positions; the
+        running max of the true neighbour count stays on the device."""
+        nbr = build_neighbors(self.model, carry["pos"],
+                              skin=self.neighbor_skin)
+        n_max = nbr.n_max.max()
+        prev = carry.get("nbr_n_max")
+        out = {
+            **carry,
+            "nbr": nbr,
+            "nbr_n_max": n_max if prev is None else torch.maximum(prev, n_max),
+        }
+        if self.neighbor_rebuild_interval > 1:
+            out["nbr_ref_pos"] = carry["pos"]
+        return out
+
+    def _track_neighbor_displacement(self, carry: Dict) -> Dict:
+        """Running max of the per-atom displacement since the last rebuild;
+        an amortised list is exact while no atom moves more than skin/2."""
+        disp2 = torch.sum(torch.square(carry["pos"] - carry["nbr_ref_pos"]),
+                          dim=-1)
+        disp = torch.sqrt(torch.max(disp2))
+        return {**carry,
+                "nbr_disp_max": torch.maximum(carry["nbr_disp_max"], disp)}
+
+    def _forces(self, carry: Dict, pos):
+        """Potential + forces at ``pos`` with the carry's neighbour list."""
         return compute_energy_forces(
-            self.model, pos, self.initial_system.atom_types
+            self.model, pos, self.initial_system.atom_types, carry.get("nbr")
         )
 
     def _init_carry(self, system: System) -> Dict:
@@ -114,10 +165,54 @@ class Simulation:
                 else torch.zeros_like(system.pos)
             ),
         }
-        potential, forces, _ = self._forces(system.pos)
+        if self._uses_neighbor_list():
+            carry = self._rebuild_neighbors(carry)
+            if self.neighbor_rebuild_interval > 1:
+                carry["nbr_disp_max"] = torch.zeros((), dtype=self.dtype,
+                                                    device=self.device)
+        potential, forces, _ = self._forces(carry, system.pos)
         carry["forces"] = forces
         carry["potential"] = potential
         return carry
+
+    def _step_with_hooks(self, carry: Dict, xi: torch.Tensor,
+                         t: int) -> Dict:
+        """Step ``t`` (0-based): the list is rebuilt from the positions at
+        the start of the step, then the integrator step evaluates the force
+        at the new positions with it (reference _step_with_hooks,
+        base.py:697-716)."""
+        nbr_list = self._uses_neighbor_list()
+        if nbr_list and t % self.neighbor_rebuild_interval == 0:
+            carry = self._rebuild_neighbors(carry)
+        carry = self._timestep(carry, xi)
+        if nbr_list and self.neighbor_rebuild_interval > 1:
+            carry = self._track_neighbor_displacement(carry)
+        return carry
+
+    def _warn_neighbor_list(self, carry: Dict) -> None:
+        """The reference's export-time checks (base.py:1176-1197)."""
+        if "nbr_n_max" in carry:
+            n_max = int(carry["nbr_n_max"])
+            cap = self.model.neighbor_capacity
+            if n_max > cap:
+                warnings.warn(
+                    f"Neighbor capacity overflow: an atom had {n_max} "
+                    f"neighbors within rcut+skin but capacity is {cap}; "
+                    "the farthest were dropped. Increase neighbor_capacity.",
+                    RuntimeWarning,
+                )
+        if "nbr_disp_max" in carry:
+            d_max = float(carry["nbr_disp_max"])
+            half_skin = self.neighbor_skin / 2
+            if d_max > half_skin:
+                warnings.warn(
+                    "Verlet-skin soundness violated: an atom moved "
+                    f"{d_max:.4f} since the last neighbor rebuild but "
+                    f"skin/2 is {half_skin:.4f}, so forces may have used a "
+                    "stale neighbor list. Decrease "
+                    "neighbor_rebuild_interval or increase neighbor_skin.",
+                    RuntimeWarning,
+                )
 
     def _timestep(self, carry: Dict, xi: torch.Tensor) -> Dict:
         """One step; ``xi`` is the step's standard-normal noise."""
@@ -157,8 +252,8 @@ class Simulation:
                         shape, generator=gen, device=self.device,
                         dtype=self.dtype,
                     )
-                    carry = self._timestep(carry, xi)
-                step += self.save_interval
+                    carry = self._step_with_hooks(carry, xi, step)
+                    step += 1
                 pos_frames.append(carry["pos"].clone())
                 pot_frames.append(carry["potential"].clone())
             _synchronize(self.device)
@@ -168,6 +263,7 @@ class Simulation:
             self._steps_at_warmup_end = step
         self._post_warmup_steps = step - self._steps_at_warmup_end
         self.final_carry = carry
+        self._warn_neighbor_list(carry)
         # [frames, S, ...] on the host
         self.simulated_coords = torch.stack(pos_frames).cpu().numpy()
         self.simulated_potential = torch.stack(pot_frames).cpu().numpy()

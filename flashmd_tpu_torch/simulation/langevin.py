@@ -78,7 +78,7 @@ class LangevinSimulation(Simulation):
         # A (second position half-step)
         x = x + v * (dt * 0.5)
         # Force evaluation (the expensive part)
-        potential, forces, _ = self._forces(x)
+        potential, forces, _ = self._forces(carry, x)
         # B (second velocity half-step)
         v = v + 0.5 * dt * forces / masses
         return {**carry, "pos": x, "vel": v, "forces": forces,

@@ -1,8 +1,8 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
-Each kernel (Chebyshev and dense CFConv) against its plain PyTorch
-twin on the card, the launch counters on both main paths, bitwise
-reproducibility and the wrappers' refusals. Without a card every test
+Each kernel (Chebyshev, dense and neighbour-matrix CFConv) against its
+plain PyTorch twin on the card, the launch counters on the three paths,
+bitwise reproducibility and the wrappers' refusals. Without a card every test
 skips (decided in a fixture, so every
 xdist worker collects the same tests). On the GPU machine, which has no
 JAX, run them without the JAX suite's conftest:
@@ -15,8 +15,10 @@ This file imports no JAX.
 import pytest
 import torch
 
+from flashmd_tpu_torch.ops import cfconv as cf
 from flashmd_tpu_torch.ops import cfconv_dense as cd
 from flashmd_tpu_torch.ops import cheb_kernel as ck
+from flashmd_tpu_torch.ops.neighborlist import batched_radius_neighbor_matrix
 
 pytestmark = pytest.mark.cuda
 
@@ -206,3 +208,110 @@ def test_dense_main_path_launch_counts(dev):
                                  "dense_cfconv_bwd": 0}
     # bf16 model: summation order on the card vs the CPU only
     assert _rel(results["cuda"][0], results["cpu"][0]) <= 2e-3
+
+
+def _nbr_case(dev, s, a, capacity, seed=0):
+    """Dense inputs plus the list at rcut + 1 (a skin) of capacity K."""
+    pos, x, g, w = _dense_inputs(dev, s, a, seed=seed)
+    pos = pos * 0.5  # denser: rows with more than 32 neighbours exist
+    nbr = batched_radius_neighbor_matrix(pos, RCUT + 1.0, capacity)
+    return pos, x, g, w, nbr
+
+
+# capacity 96 holds every neighbour (a symmetric list); 32 overflows
+# (each row keeps its nearest 32: the list is asymmetric).
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("capacity", [96, 32])
+def test_nbr_kernels_match_twins(dev, precision, capacity):
+    pos, x, g, w, nbr = _nbr_case(dev, 3, 70, capacity)
+    overflow = int(nbr.n_max.max()) > capacity
+    assert overflow == (capacity == 32)
+    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, precision)
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT,
+                              precision)
+    assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    gpos_ref, gx_ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w,
+                                           RCUT, precision)
+    gpos, gx = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, precision)
+    gpos_only, none = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, precision,
+                                    need_gx=False)
+    torch.cuda.synchronize()
+    assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
+    assert _rel(gx, gx_ref) <= BOUNDS[precision]["bwd"]
+    assert none is None and torch.equal(gpos_only, gpos)
+
+
+def test_nbr_bwd_bitwise_reproducible(dev):
+    pos, x, g, w, nbr = _nbr_case(dev, 2, 90, 32, seed=1)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    first = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16")
+    for _ in range(3):
+        again = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16")
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+def test_nbr_wrappers_refuse_what_kernels_do_not_take(dev):
+    pos, x, g, w, nbr = _nbr_case(dev, 2, 20, 16)
+    with pytest.raises(ValueError):
+        cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x.double(), *w, RCUT, "fp32")
+    with pytest.raises(ValueError):
+        cf.cfconv_fwd(pos, nbr.idx.long(), nbr.mask, x, *w, RCUT, "fp32")
+    with pytest.raises(ValueError):
+        cf.cfconv_bwd(pos, nbr.idx, nbr.mask, nbr.csr_offsets.long(),
+                      nbr.csr_slots, x, g, *w, RCUT, "bf16")
+    with pytest.raises(ValueError):
+        cf.cfconv_fwd(pos, nbr.idx, nbr.mask.float(), x, *w, RCUT, "fp32")
+
+
+def _pallas_field(device, **kw):
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                  message_passing="pallas", device=device,
+                                  **kw)
+    return ff, cfgs, collate(cfgs, device=device)
+
+
+def test_nbr_forces_bitwise_reproducible(dev):
+    """The force field's forces, neighbour build included, are bitwise
+    equal over two evaluations."""
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+
+    ff, _, system = _pallas_field(dev)
+    first = compute_energy_forces(ff, system.pos, system.atom_types)[1]
+    again = compute_energy_forces(ff, system.pos, system.atom_types)[1]
+    assert torch.equal(first, again)
+
+
+def test_nbr_main_path_launch_counts(dev):
+    """3 cfconv_fwd + 3 cfconv_bwd per force evaluation of a 3-block
+    pallas model, in compute_energy_forces and in a short simulation; the
+    forces agree with the CPU plain path."""
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        ff, _, system = _pallas_field(device)
+        cf.reset_launch_counts()
+        for _ in range(2):
+            _, forces, _ = compute_energy_forces(ff, system.pos,
+                                                 system.atom_types)
+        results[device.type] = (forces.cpu(), cf.launch_counts())
+    assert results["cuda"][1] == {"cfconv_fwd": 6, "cfconv_bwd": 6}
+    assert results["cpu"][1] == {"cfconv_fwd": 0, "cfconv_bwd": 0}
+    # bf16 model: summation order on the card vs the CPU only
+    assert _rel(results["cuda"][0], results["cpu"][0]) <= 2e-3
+
+    ff, cfgs, _ = _pallas_field(dev)
+    sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=4,
+                             save_interval=2, random_seed=5, device=dev)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    cf.reset_launch_counts()
+    coords = sim.simulate()
+    assert cf.launch_counts() == {"cfconv_fwd": 15, "cfconv_bwd": 15}
+    assert coords.shape == (2, 2, 40, 3)
+    assert torch.isfinite(torch.as_tensor(coords)).all()
