@@ -19,16 +19,27 @@ Phases (each prints its lines; any failure exits non-zero):
                on the pallas slice's own list (K from the zoo rule, rc +
                skin, start positions), and once more in fp32 on an
                overflowed list (capacity 32: an asymmetric list); the
-               neighbour build + source CSR is timed at S = 128.
+               neighbour build + source CSR is timed at S = 128. The
+               three cheb kernels' periodic-cell variants run on the
+               start positions folded into per-molecule cells (half
+               cubic 60 A, half triclinic), where live pairs cross faces.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
-               the cheb, the dense and the pallas force field; then the
-               pallas fp32 forces vs the dense fp32 forces on the same
-               weights and positions (gated: the same function).
+               the cheb, the dense and the pallas force field and the
+               periodic cheb one (folded positions, the kernels' cells);
+               then the pallas fp32 forces vs the dense fp32 forces on
+               the same weights and positions, and the periodic fp32
+               network forces on folded positions vs the open ones on
+               the unfolded positions (each gated: the same function).
 5. slice    -- LangevinSimulation at the bench configuration (batch 128,
                266 beads, 3 blocks, bf16, cheb (48, 64), d_min 2.0) for
                120 steps; launch counts must be 3/2/1 per force
-               evaluation; second-half throughput.
+               evaluation and none of a cell variant; second-half
+               throughput; torch.profiler over PROFILE_STEPS more steps.
+   periodic -- the same run with benchmarks/pbc_ab.py's cell (cubic
+               60 A on every molecule): the cell variants 3/2/1 per
+               force evaluation, the open ones never; its throughput
+               beside the open slice's; the profiler window.
 6. dense    -- the same Langevin run on the dense exact-filter force
                field (message_passing="dense", bf16) for the same
                steps; launch counts must be 3 fwd + 3 bwd per force
@@ -49,6 +60,7 @@ Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -83,13 +95,26 @@ BOUNDS = {
     ("cfconv_bwd", "bf16"): 2e-3,
 }
 FORCE_BOUND = 2e-3
-# pallas fp32 vs dense fp32 forces: one function, two summation orders.
+# pallas fp32 vs dense fp32 forces, and periodic (folded) vs open
+# (unfolded) fp32 network forces: one function, two summation orders.
 CROSS_BOUND = 1e-4
 OVERFLOW_CAPACITY = 32
+# benchmarks/pbc_ab.py's cell, and a sound triclinic one (smallest
+# perpendicular width 59.04 A; rows are lattice vectors).
+BOX = 60.0
+CELL_TRICLINIC = [[60.0, 0.0, 0.0], [10.0, 60.0, 0.0], [5.0, 5.0, 60.0]]
+# float32 operations of one minimum-image wrap of a pair displacement:
+# frac (15), rint (3), rel -= n cell (18).
+WRAP_FLOPS = 36
 REPLACES = {
     "cheb_fwd": "flashmd_tpu/ops/pallas/cheb_kernel.py:394",
     "cheb_bwd_gx": "flashmd_tpu/ops/pallas/cheb_kernel.py:476",
     "cheb_bwd_gd": "flashmd_tpu/ops/pallas/cheb_kernel.py:476",
+    "cheb_fwd_cell": "flashmd_tpu/ops/pallas/cheb_kernel.py:394 (has_cell)",
+    "cheb_bwd_gx_cell":
+        "flashmd_tpu/ops/pallas/cheb_kernel.py:476 (has_cell)",
+    "cheb_bwd_gd_cell":
+        "flashmd_tpu/ops/pallas/cheb_kernel.py:476 (has_cell)",
     "dense_cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:126",
     "dense_cfconv_bwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:147",
     "cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv.py:137",
@@ -158,9 +183,11 @@ def cuda_time_ms(fn, warmup=2, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes, tier):
-    """(ms, "operations" or "bytes"): the least time the card could take."""
-    t_ops = flops / PEAK_FLOPS[tier] * 1e3
+def bound(flops, nbytes, tier, fp32_flops=0.0):
+    """(ms, "operations" or "bytes"): the least time the card could take;
+    ``flops`` are products at the tier's peak, ``fp32_flops`` float32
+    elementwise work at the float32 peak."""
+    t_ops = (flops / PEAK_FLOPS[tier] + fp32_flops / PEAK_FLOPS["fp32"]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -169,9 +196,11 @@ def _tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def compare_and_time(name, kern, plain, flops, nbytes, label=None):
+def compare_and_time(name, kern, plain, flops, nbytes, label=None,
+                     fp32_flops=0.0):
     """Kernel vs twin (callables of the tier) and their CUDA-event times,
-    both tiers; returns the bf16 tier's numbers, the tier of the slices."""
+    both tiers, held to ``name``'s bounds; returns the bf16 tier's
+    numbers, the tier of the slices."""
     results = {}
     for prec in ("fp32", "bf16"):
         out_k = _tuple(kern(prec))
@@ -185,7 +214,7 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None):
                   for k, p in zip(out_k, out_p))
         ms = cuda_time_ms(lambda: kern(prec))
         plain_ms = cuda_time_ms(lambda: plain(prec), warmup=1, iters=3)
-        bound_ms, bound_by = bound(flops, nbytes, prec)
+        bound_ms, bound_by = bound(flops, nbytes, prec, fp32_flops)
         limit = BOUNDS[(name, prec)]
         print(f"kernels: {label or name} {prec} max|k-p|/max|p| = {rel:.3e} "
               f"(bound {limit:.0e}) max_abs_err {abs_err:.3e} kernel "
@@ -200,9 +229,12 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None):
     return results["bf16"]
 
 
-def phase_cheb_kernels(ff, pos, dev):
+def phase_cheb_kernels(ff, pos, dev, cell=None):
+    """The three cheb kernels, open or, with ``cell`` [S, 3, 3], their
+    cell variants (keys with "_cell"), at the slice's shapes."""
     from flashmd_tpu_torch.models.cheb import _lin_slope
     from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
 
     cfg = ff.schnet_config
     rcut = float(cfg.cutoff.cutoff_upper)
@@ -222,38 +254,78 @@ def phase_cheb_kernels(ff, pos, dev):
     m1, m2 = c.shape[0], c2.shape[0]
     lin = 1 if w_lin is not None else 0
     pair_flops = 2.0 * s * a * a
+    kw, suffix, wrap, cell_bytes = {}, "", 0.0, 0
+    if cell is not None:
+        kw = {"cell": cell, "inv": _inv_3x3(cell)}
+        suffix, wrap, cell_bytes = "_cell", WRAP_FLOPS * s * a * a, 72 * s
 
     cases = {
         "cheb_fwd": (
-            lambda p: ck.cheb_conv_fwd(c, w0, pos, x, rcut, p, d_min, w_lin),
+            lambda p: ck.cheb_conv_fwd(c, w0, pos, x, rcut, p, d_min, w_lin,
+                                       **kw),
             lambda p: ck.cheb_conv_fwd_plain(c, w0, pos, x, rcut, p, d_min,
-                                             w_lin),
+                                             w_lin, **kw),
             pair_flops * f * (m1 + lin),
             4 * (s * a * 3 + 2 * s * a * f + m1 * f + 2 * f),
         ),
         "cheb_bwd_gx": (
             lambda p: ck.cheb_conv_bwd_gx(c, w0, pos, g, rcut, p, d_min,
-                                          w_lin),
+                                          w_lin, **kw),
             lambda p: ck.cheb_conv_bwd_gx_plain(c, w0, pos, g, rcut, p,
-                                                d_min, w_lin),
+                                                d_min, w_lin, **kw),
             pair_flops * f * (m1 + 1 + lin),
             4 * (s * a * 3 + 2 * s * a * f + m1 * f + 2 * f),
         ),
         "cheb_bwd_gd": (
             lambda p: ck.cheb_conv_bwd_gd(c2_cat, pos, x_cat, g_cat, rcut, p,
-                                          d_min),
+                                          d_min, **kw),
             lambda p: ck.cheb_conv_bwd_gd_plain(c2_cat, pos, x_cat, g_cat,
-                                                rcut, p, d_min),
+                                                rcut, p, d_min, **kw),
             pair_flops * nb * f * m2,
             4 * (2 * s * a * 3 + 2 * s * a * nb * f + m2 * nb * f),
         ),
     }
-    print(f"kernels: cheb shapes S={s} A={a} F={f} (gd {nb * f}) "
+    print(f"kernels: cheb{suffix} shapes S={s} A={a} F={f} (gd {nb * f}) "
           f"M1={m1} M2={m2} d_min={d_min}")
     return {
-        name: compare_and_time(name, kern, plain, flops, nbytes)
+        name + suffix: compare_and_time(name, kern, plain, flops,
+                                        nbytes + cell_bytes,
+                                        label=name + suffix, fp32_flops=wrap)
         for name, (kern, plain, flops, nbytes) in cases.items()
     }
+
+
+def kernel_cells(n, dev=None):
+    """Per-molecule cells [n, 3, 3] (float64 numpy, or float32 on ``dev``):
+    cubic BOX on even molecules, CELL_TRICLINIC on odd ones."""
+    cells = np.stack([BOX * np.eye(3) if i % 2 == 0
+                      else np.asarray(CELL_TRICLINIC) for i in range(n)])
+    if dev is None:
+        return cells
+    return torch.as_tensor(cells, dtype=torch.float32, device=dev)
+
+
+def fold(pos, cells):
+    """Positions [S, A, 3] (float64) translated atom by atom into their
+    molecule's cell: pos - floor(pos inv) cell."""
+    inv = np.linalg.inv(cells)
+    frac = np.einsum("sak,skl->sal", pos, inv)
+    return pos - np.einsum("sak,skl->sal", np.floor(frac), cells)
+
+
+def crossing_pairs(pos, cell, rcut):
+    """(live pairs, live pairs whose minimum image crosses a face) of the
+    batch under ``cell`` [S, 3, 3]."""
+    from flashmd_tpu_torch.ops.cheb_kernel import pair_rel
+    from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
+
+    raw = pair_rel(pos)
+    wrapped = pair_rel(pos, cell, _inv_3x3(cell))
+    a = pos.shape[1]
+    eye = torch.eye(a, dtype=torch.bool, device=pos.device)
+    live = (torch.sqrt(torch.sum(wrapped * wrapped, dim=-1)) < rcut) & ~eye
+    crossed = live & (torch.abs(wrapped - raw).amax(dim=-1) > 1.0)
+    return int(live.sum()), int(crossed.sum())
 
 
 def live_chunks(live, rows=4, cols=16):
@@ -466,12 +538,25 @@ def _force_fields(device, batch, **kw):
 
 
 def _forces(ff, cfgs, device):
+    """compute_energy_forces on the collated configurations, with their
+    cells when they carry them."""
     from flashmd_tpu_torch.data.system import collate
     from flashmd_tpu_torch.models.forcefield import compute_energy_forces
 
     sys_ = collate(cfgs, beta=1.67, device=device)
-    e, f, _ = compute_energy_forces(ff, sys_.pos, sys_.atom_types)
+    e, f, _ = compute_energy_forces(ff, sys_.pos, sys_.atom_types,
+                                    cell=sys_.cell)
     return e.cpu(), f.cpu()
+
+
+def with_cells(cfgs, cells, folded=False):
+    """The configurations with per-molecule ``cells`` [S, 3, 3], their
+    positions folded into the cells when ``folded``."""
+    pos = np.stack([c.pos for c in cfgs])
+    if folded:
+        pos = fold(pos, cells)
+    return [dataclasses.replace(c, pos=p, cell=cl)
+            for c, p, cl in zip(cfgs, pos, cells)]
 
 
 def phase_forces(dev, message_passing):
@@ -490,6 +575,70 @@ def phase_forces(dev, message_passing):
           f"(bound {FORCE_BOUND:.0e})")
     check(f_rel <= FORCE_BOUND and e_rel <= FORCE_BOUND,
           f"forces {message_passing}: card and CPU disagree")
+
+
+def phase_periodic_forces(dev):
+    """Periodic cheb forces, card vs CPU plain path, at batch 4 on the
+    start positions folded into the kernels' cells (so live pairs cross
+    faces). Folding breaks the chain's bonds in the raw coordinates the
+    priors see, so the network alone is compared; its difference is held
+    to FORCE_BOUND of the physical force scale, the total open forces on
+    the unfolded positions, as the open phase is (the priors add the same
+    term on both sides). The network-only ratios, periodic and open, are
+    printed beside it."""
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        ff, cfgs = _force_fields(device, FORCE_BATCH)
+        net = ff.replace(priors={})
+        folded = with_cells(cfgs, kernel_cells(FORCE_BATCH), folded=True)
+        out[device.type] = (_forces(net, folded, device),
+                            _forces(net, cfgs, device)[1],
+                            _forces(ff, cfgs, device)[1])
+    ((e_k, f_k), open_k, _), ((e_p, f_p), open_p, total_p) = (
+        out["cuda"], out["cpu"])
+    check(bool(torch.isfinite(f_k).all()),
+          "forces cheb periodic: non-finite on the card")
+    scale = float(total_p.abs().max())
+    f_rel = float((f_k - f_p).abs().max()) / scale
+    e_rel = float((e_k - e_p).abs().max() / e_p.abs().max())
+    net_rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+    open_rel = float((open_k - open_p).abs().max() / open_p.abs().max())
+    print(f"forces: cheb periodic (folded, cubic/triclinic cells) network "
+          f"batch {FORCE_BATCH} card vs cpu plain: max|dF|/max|F_total| = "
+          f"{f_rel:.3e}, max|dE|/max|E| = {e_rel:.3e} (bound "
+          f"{FORCE_BOUND:.0e}); network only max|dF|/max|F_net| = "
+          f"{net_rel:.3e} periodic, {open_rel:.3e} open (unfolded), "
+          "not gated")
+    check(f_rel <= FORCE_BOUND and e_rel <= FORCE_BOUND,
+          "forces cheb periodic: card and CPU disagree")
+
+
+def phase_image_check(dev):
+    """fp32 network forces (priors removed) on positions folded into the
+    kernels' cells, with the cells, vs on the unfolded positions with open
+    boundaries: one function while every molecule's diameter is more than
+    rcut below the smallest perpendicular cell width (no live pair then
+    has a second image within rcut)."""
+    from flashmd_tpu_torch.ops.neighborlist import min_cell_width
+
+    ff, cfgs = _force_fields(dev, FORCE_BATCH, precision="fp32")
+    ff = ff.replace(priors={})
+    cells = kernel_cells(FORCE_BATCH)
+    pos = np.stack([c.pos for c in cfgs])
+    diam = max(float(np.sqrt(np.sum((p[:, None] - p[None]) ** 2, -1)).max())
+               for p in pos)
+    width = min(min_cell_width(c) for c in cells)
+    print(f"forces: periodic image check: molecule diameter {diam:.3f} A, "
+          f"smallest cell width {width:.3f} A, width - diameter "
+          f"{width - diam:.3f} A vs rcut {ff.rcut}")
+    check(width - diam > ff.rcut, "image check: a second image is in range")
+    f_cell = _forces(ff, with_cells(cfgs, cells, folded=True), dev)[1]
+    f_open = _forces(ff, cfgs, dev)[1]
+    rel = float((f_cell - f_open).abs().max() / f_open.abs().max())
+    print(f"forces: periodic fp32 (folded, cells) vs open fp32 (unfolded), "
+          f"network only, batch {FORCE_BATCH}: max|dF|/max|F| = {rel:.3e} "
+          f"(bound {CROSS_BOUND:.0e})")
+    check(rel <= CROSS_BOUND, "periodic and open fp32 forces disagree")
 
 
 def phase_cross_check(dev):
@@ -565,7 +714,7 @@ def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
     return counts, m["ms_per_timestep"], sim
 
 
-def profile_steps(sim, dev, steps):
+def profile_steps(sim, dev, steps, label):
     """torch.profiler over ``steps`` more steps of a simulated run: the
     kernels by device time, and the device's busy and idle share of the
     wall time (kernels run on one stream, so their times add)."""
@@ -592,15 +741,16 @@ def profile_steps(sim, dev, steps):
     )
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if busy_ms == 0:
-        print("profile: the profiler saw no device time: not measured")
+        print(f"profile: {label}: the profiler saw no device time: not "
+              "measured")
         return
-    print(f"profile: {steps} steps: wall {wall_ms:.3f} ms/step, device "
-          f"kernel time {busy_ms:.3f} ms/step, idle share "
+    print(f"profile: {label}: {steps} steps: wall {wall_ms:.3f} ms/step, "
+          f"device kernel time {busy_ms:.3f} ms/step, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
     for e in kernels[:12]:
         ms = e.self_device_time_total / 1e3 / steps
-        print(f"profile: {ms:8.3f} ms/step {e.count / steps:6.1f}/step "
-              f"{ms / wall_ms:.4f} {e.key[:90]}")
+        print(f"profile: {label}: {ms:8.3f} ms/step {e.count / steps:6.1f}"
+              f"/step {ms / wall_ms:.4f} {e.key[:90]}")
 
 
 def main():
@@ -645,21 +795,48 @@ def main():
 
     pos = collate(cfgs, device=dev).pos
     stats = phase_cheb_kernels(ff, pos, dev)
+    cells = kernel_cells(BATCH)
+    folded = collate(with_cells(cfgs, cells, folded=True), device=dev)
+    n_live, n_cross = crossing_pairs(folded.pos, folded.cell, ff.rcut)
+    print(f"kernels: cheb_cell inputs: start positions folded into "
+          f"{BATCH // 2} cubic {BOX:g} A and {BATCH // 2} triclinic "
+          f"{CELL_TRICLINIC} cells; live pairs (d < rc) {n_live}, of which "
+          f"{n_cross} cross a face")
+    check(n_cross > 0, "no live pair crosses a face")
+    stats.update(phase_cheb_kernels(ff, folded.pos, dev, cell=folded.cell))
     dense_stats, no_gx_ms = phase_dense_kernels(ff_dense, pos, dev)
     stats.update(dense_stats)
     nbr_stats, nbr_no_gx_ms = phase_nbr_kernels(ff_pallas, pos, dev)
     stats.update(nbr_stats)
     phase_forces(dev, "cheb")
+    phase_periodic_forces(dev)
     phase_forces(dev, "dense")
     phase_forces(dev, "pallas")
     phase_cross_check(dev)
+    phase_image_check(dev)
 
     n_evals = STEPS + 1
-    counts, _, _ = run_slice(
+    open_counts = {"cheb_fwd": 3 * n_evals, "cheb_bwd_gx": 2 * n_evals,
+                   "cheb_bwd_gd": 1 * n_evals}
+    counts, _, sim = run_slice(
         "slice", ff, cfgs, dev, STEPS, SAVE_INTERVAL, ck,
-        {"cheb_fwd": 3 * n_evals, "cheb_bwd_gx": 2 * n_evals,
-         "cheb_bwd_gd": 1 * n_evals}, smi,
+        {**open_counts, **{k + "_cell": 0 for k in open_counts}}, smi,
     )
+    open_tp = sim.get_throughput_metrics()["throughput"]
+    profile_steps(sim, dev, PROFILE_STEPS, "slice")
+    # benchmarks/pbc_ab.py's configuration: cubic BOX on every molecule.
+    pbc_cfgs = with_cells(cfgs, np.stack([BOX * np.eye(3)] * BATCH))
+    pbc_counts, _, sim = run_slice(
+        "periodic", ff, pbc_cfgs, dev, STEPS, SAVE_INTERVAL, ck,
+        {**{k: 0 for k in open_counts},
+         **{k + "_cell": v for k, v in open_counts.items()}}, smi,
+    )
+    counts.update({k: v for k, v in pbc_counts.items() if k.endswith("_cell")})
+    pbc_tp = sim.get_throughput_metrics()["throughput"]
+    print(f"periodic: second-half throughput {pbc_tp:.1f} timestep*mol/s "
+          f"beside the open cheb slice's {open_tp:.1f} in this run "
+          f"(ratio {pbc_tp / open_tp:.4f})")
+    profile_steps(sim, dev, PROFILE_STEPS, "periodic")
     dense_counts, ms_step, _ = run_slice(
         "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
         {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},
@@ -684,7 +861,7 @@ def main():
           f"+ 2 bwd + 1 bwd (no gx) at the start positions' kernel times = "
           f"{kernel_ms:.3f} ms of {ms_step:.3f} ms/step "
           f"({kernel_ms / ms_step:.3f}); an estimate, not a trace")
-    profile_steps(sim, dev, PROFILE_STEPS)
+    profile_steps(sim, dev, PROFILE_STEPS, "pallas")
     phase_fidelity(dev)
 
     print(json.dumps({"kernels": [

@@ -38,6 +38,17 @@
 // Precision tiers: bf16 != 0 rounds the product operands to bf16 (round
 // to nearest even) at the same places as the plain PyTorch twins in
 // ops/cheb_kernel.py; the recurrence and all accumulation stay float32.
+//
+// Periodic cells (HAS_CELL, the reference's has_cell): the C entry points
+// take cell and inv pointers, [S, 3, 3] float32 (lattice rows and their
+// inverse), nullptr for open boundaries. Each block stages its molecule's
+// 18 scalars in shared memory once; every pair displacement is wrapped to
+// the minimum image before d (frac = rel inv, rel -= rint(frac) cell,
+// rounded half to even as jnp.round / torch.round). The wrap breaks the
+// pos rowsum(W) - W pos identity of the gd epilogue, so the cell variant
+// contracts W against the wrapped rel directly:
+//     row side    -sum_j W_ij rel_ij,   column side  +sum_i W_ij rel_ij.
+// The open variants compile as before: every cell branch is a constant.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,16 +78,46 @@ __device__ __forceinline__ float op(float v) {
   return BF16 ? rnd_bf16(v) : v;
 }
 
-// d = sqrt(|p_j - p_i|^2 + 1e-12) from exact per-coordinate differences
+// The molecule's lattice (geo[0..8], rows) and inverse (geo[9..17]) into
+// shared memory, one thread per scalar.
+template <bool HAS_CELL>
+__device__ __forceinline__ void stage_cell(float* geo, const float* cell,
+                                           const float* inv, int s,
+                                           int tid) {
+  if (HAS_CELL && tid < 18)
+    geo[tid] = tid < 9 ? cell[s * 9 + tid] : inv[s * 9 + tid - 9];
+}
+
+// rel = p_j - p_i, minimum-imaged under a cell in the reference's index
+// order (_tile_rel, cheb_kernel.py:204-257).
+template <bool HAS_CELL>
+__device__ __forceinline__ void pair_rel(const float* pi, const float* pj,
+                                         const float* geo, float& r0,
+                                         float& r1, float& r2) {
+  r0 = pj[0] - pi[0];
+  r1 = pj[1] - pi[1];
+  r2 = pj[2] - pi[2];
+  if (HAS_CELL) {
+    const float* iv = geo + 9;
+    float n0 = rintf(r0 * iv[0] + r1 * iv[3] + r2 * iv[6]);
+    float n1 = rintf(r0 * iv[1] + r1 * iv[4] + r2 * iv[7]);
+    float n2 = rintf(r0 * iv[2] + r1 * iv[5] + r2 * iv[8]);
+    r0 -= n0 * geo[0] + n1 * geo[3] + n2 * geo[6];
+    r1 -= n0 * geo[1] + n1 * geo[4] + n2 * geo[7];
+    r2 -= n0 * geo[2] + n1 * geo[5] + n2 * geo[8];
+  }
+}
+
+// d = sqrt(|rel|^2 + 1e-12) from exact per-coordinate differences
 // (not a Gram matmul); pairs outside [0, A) are parked at 2 rcut, where
 // z = 1 and every (1-z)-weighted basis value is exactly zero.
+template <bool HAS_CELL>
 __device__ __forceinline__ void pair_geom(const float* pi, const float* pj,
-                                          bool valid, float rcut,
-                                          float d_min, float scale,
-                                          float& d, float& z) {
-  float r0 = pj[0] - pi[0];
-  float r1 = pj[1] - pi[1];
-  float r2 = pj[2] - pi[2];
+                                          const float* geo, bool valid,
+                                          float rcut, float d_min,
+                                          float scale, float& d, float& z) {
+  float r0, r1, r2;
+  pair_rel<HAS_CELL>(pi, pj, geo, r0, r1, r2);
   float dd = sqrtf(r0 * r0 + r1 * r1 + r2 * r2 + 1e-12f);
   if (!valid) dd = 2.0f * rcut;
   d = dd;
@@ -86,18 +127,22 @@ __device__ __forceinline__ void pair_geom(const float* pi, const float* pj,
 // One kernel for cheb_fwd (GX=false: basis (1-z)^2 T_m, operand x,
 // coefficient after the product) and cheb_bwd_gx (GX=true: basis
 // (1-z) T_k, operand q_k * g formed before the product). Grid:
-// (row tiles, feature chunks, molecules).
-template <bool BF16, bool GX>
+// (row tiles, feature chunks, molecules). The cell variant takes 18 floats
+// of dynamic shared memory for the lattice.
+template <bool BF16, bool GX, bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
                  const float* __restrict__ coef,
                  const float* __restrict__ w0,
-                 const float* __restrict__ w_lin, float* __restrict__ out,
+                 const float* __restrict__ w_lin,
+                 const float* __restrict__ cell,
+                 const float* __restrict__ inv, float* __restrict__ out,
                  int A, int F, int M, float rcut, float d_min, float scale) {
   __shared__ float t_s[2][RT_TA][RT_TJ];
   __shared__ float in_s[RT_TJ][RT_FC];
   __shared__ float pr_s[RT_TA][3];
   __shared__ float pc_s[RT_TJ][3];
+  extern __shared__ float geo_s[];
 
   const int s = blockIdx.z;
   const int r0 = blockIdx.x * RT_TA;
@@ -125,6 +170,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
     int r = tid / 3, c = tid % 3;
     pr_s[r][c] = (r0 + r < A) ? pos[(r0 + r) * 3 + c] : 0.0f;
   }
+  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
 
   float acc[4][4];
 #pragma unroll
@@ -152,7 +198,8 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
     for (int e = 0; e < 4; ++e) {
       int r = ty + 8 * e;
       bool valid = (r0 + r < A) && (j0 + tx < A);
-      pair_geom(pr_s[r], pc_s[tx], valid, rcut, d_min, scale, d[e], z[e]);
+      pair_geom<HAS_CELL>(pr_s[r], pc_s[tx], geo_s, valid, rcut, d_min,
+                          scale, d[e], z[e]);
       float u = 1.0f - z[e];
       float seed = GX ? u : u * u;
       tp[e] = seed;
@@ -265,10 +312,12 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
 // operands, and its row/column position-gradient sides. Grid: (row
 // tiles, molecules). Row sides go to row_part [S, A, 3] (owned rows);
 // column sides to col_part [S, n_tiles, A, 3] (one slab per row tile).
-template <bool BF16>
+template <bool BF16, bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
                const float* __restrict__ g, const float* __restrict__ c2,
+               const float* __restrict__ cell,
+               const float* __restrict__ inv,
                float* __restrict__ row_part, float* __restrict__ col_part,
                int A, int F, int M, int n_tiles, float rcut, float d_min,
                float scale) {
@@ -277,6 +326,7 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   float* x_s = g_s + GD_T * GD_LD;    // [GD_T][GD_LD]
   float* w_s = x_s + GD_T * GD_LD;    // [GD_T][GD_WLD]
   float* c_s = w_s + GD_T * GD_WLD;   // [M][GD_FC]
+  float* geo_s = c_s + M * GD_FC;     // [18], cell variant only
   __shared__ float pr_s[GD_T][3];
   __shared__ float pc_s[GD_T][3];
 
@@ -294,6 +344,7 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
     int r = tid / 3, c = tid % 3;
     pr_s[r][c] = (r0 + r < A) ? pos[(r0 + r) * 3 + c] : 0.0f;
   }
+  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
   float rs = 0.0f, wp0 = 0.0f, wp1 = 0.0f, wp2 = 0.0f;
 
   for (int j0 = 0; j0 < A; j0 += GD_T) {
@@ -312,8 +363,8 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
       for (int k = 0; k < 4; ++k) {
         int r = ty + 16 * i, j = tx + 16 * k;
         bool valid = (r0 + r < A) && (j0 + j < A);
-        pair_geom(pr_s[r], pc_s[j], valid, rcut, d_min, scale, d[i][k],
-                  z[i][k]);
+        pair_geom<HAS_CELL>(pr_s[r], pc_s[j], geo_s, valid, rcut, d_min,
+                            scale, d[i][k], z[i][k]);
         gd[i][k] = 0.0f;
       }
 
@@ -395,13 +446,22 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
       }
     __syncthreads();
     if (tid < GD_T) {
-      // row side, accumulated over column blocks in order
+      // row side, accumulated over column blocks in order: W pos_j (open)
+      // or W rel_ij (cell), rel recomputed from the staged positions
       for (int jj = 0; jj < GD_T; ++jj) {
         float w = w_s[tid * GD_WLD + jj];
-        rs += w;
-        wp0 += w * pc_s[jj][0];
-        wp1 += w * pc_s[jj][1];
-        wp2 += w * pc_s[jj][2];
+        if (HAS_CELL) {
+          float e0, e1, e2;
+          pair_rel<true>(pr_s[tid], pc_s[jj], geo_s, e0, e1, e2);
+          wp0 += w * e0;
+          wp1 += w * e1;
+          wp2 += w * e2;
+        } else {
+          rs += w;
+          wp0 += w * pc_s[jj][0];
+          wp1 += w * pc_s[jj][1];
+          wp2 += w * pc_s[jj][2];
+        }
       }
     } else if (tid < 2 * GD_T) {
       // column side of this tile, summed over its rows in order
@@ -409,24 +469,44 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
       float cs = 0.0f, q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
       for (int rr = 0; rr < GD_T; ++rr) {
         float w = w_s[rr * GD_WLD + jj];
-        cs += w;
-        q0 += w * pr_s[rr][0];
-        q1 += w * pr_s[rr][1];
-        q2 += w * pr_s[rr][2];
+        if (HAS_CELL) {
+          float e0, e1, e2;
+          pair_rel<true>(pr_s[rr], pc_s[jj], geo_s, e0, e1, e2);
+          q0 += w * e0;
+          q1 += w * e1;
+          q2 += w * e2;
+        } else {
+          cs += w;
+          q0 += w * pr_s[rr][0];
+          q1 += w * pr_s[rr][1];
+          q2 += w * pr_s[rr][2];
+        }
       }
       if (j < A) {
         float* o = col_part + (((size_t)s * n_tiles + rt) * A + j) * 3;
-        o[0] = pc_s[jj][0] * cs - q0;
-        o[1] = pc_s[jj][1] * cs - q1;
-        o[2] = pc_s[jj][2] * cs - q2;
+        if (HAS_CELL) {
+          o[0] = q0;
+          o[1] = q1;
+          o[2] = q2;
+        } else {
+          o[0] = pc_s[jj][0] * cs - q0;
+          o[1] = pc_s[jj][1] * cs - q1;
+          o[2] = pc_s[jj][2] * cs - q2;
+        }
       }
     }
   }
   if (tid < GD_T && r0 + tid < A) {
     float* o = row_part + ((size_t)s * A + r0 + tid) * 3;
-    o[0] = pr_s[tid][0] * rs - wp0;
-    o[1] = pr_s[tid][1] * rs - wp1;
-    o[2] = pr_s[tid][2] * rs - wp2;
+    if (HAS_CELL) {
+      o[0] = -wp0;
+      o[1] = -wp1;
+      o[2] = -wp2;
+    } else {
+      o[0] = pr_s[tid][0] * rs - wp0;
+      o[1] = pr_s[tid][1] * rs - wp1;
+      o[2] = pr_s[tid][2] * rs - wp2;
+    }
   }
 }
 
@@ -449,19 +529,60 @@ inline float fit_scale(float rcut, float d_min) {
   return (float)(2.0 / ((double)rcut - (double)d_min));
 }
 
-template <bool GX>
-int launch_rows(const float* pos, const float* in, const float* coef,
-                const float* w0, const float* w_lin, float* out, int S,
-                int A, int F, int M, float rcut, float d_min, int bf16,
-                cudaStream_t stream) {
+inline int cheb_gd_tiles_of(int A) { return (A + GD_T - 1) / GD_T; }
+
+template <bool GX, bool HAS_CELL>
+void launch_rows_cell(const float* pos, const float* in, const float* coef,
+                      const float* w0, const float* w_lin, const float* cell,
+                      const float* inv, float* out, int S, int A, int F,
+                      int M, float rcut, float d_min, int bf16,
+                      cudaStream_t stream) {
   dim3 grid((A + RT_TA - 1) / RT_TA, (F + RT_FC - 1) / RT_FC, S);
+  size_t smem = HAS_CELL ? 18 * sizeof(float) : 0;
   float scale = fit_scale(rcut, d_min);
   if (bf16)
-    cheb_rows_kernel<true, GX><<<grid, THREADS, 0, stream>>>(
-        pos, in, coef, w0, w_lin, out, A, F, M, rcut, d_min, scale);
+    cheb_rows_kernel<true, GX, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+        pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
+        scale);
   else
-    cheb_rows_kernel<false, GX><<<grid, THREADS, 0, stream>>>(
-        pos, in, coef, w0, w_lin, out, A, F, M, rcut, d_min, scale);
+    cheb_rows_kernel<false, GX, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+        pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
+        scale);
+}
+
+template <bool GX>
+int launch_rows(const float* pos, const float* in, const float* coef,
+                const float* w0, const float* w_lin, const float* cell,
+                const float* inv, float* out, int S, int A, int F, int M,
+                float rcut, float d_min, int bf16, cudaStream_t stream) {
+  if ((cell == nullptr) != (inv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (cell != nullptr)
+    launch_rows_cell<GX, true>(pos, in, coef, w0, w_lin, cell, inv, out, S,
+                               A, F, M, rcut, d_min, bf16, stream);
+  else
+    launch_rows_cell<GX, false>(pos, in, coef, w0, w_lin, cell, inv, out, S,
+                                A, F, M, rcut, d_min, bf16, stream);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF16, bool HAS_CELL>
+int launch_gd(const float* pos, const float* x, const float* g,
+              const float* c2, const float* cell, const float* inv,
+              float* row_part, float* col_part, int S, int A, int F, int M,
+              float rcut, float d_min, cudaStream_t stream) {
+  int n_tiles = cheb_gd_tiles_of(A);
+  size_t smem =
+      sizeof(float) * (2 * GD_T * GD_LD + GD_T * GD_WLD + (size_t)M * GD_FC +
+                       (HAS_CELL ? 18 : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      cheb_gd_kernel<BF16, HAS_CELL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_tiles, S);
+  cheb_gd_kernel<BF16, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+      pos, x, g, c2, cell, inv, row_part, col_part, A, F, M, n_tiles, rcut,
+      d_min, fit_scale(rcut, d_min));
   return (int)cudaGetLastError();
 }
 
@@ -469,53 +590,46 @@ int launch_rows(const float* pos, const float* in, const float* coef,
 
 extern "C" {
 
-int cheb_gd_tiles(int A) { return (A + GD_T - 1) / GD_T; }
+int cheb_gd_tiles(int A) { return cheb_gd_tiles_of(A); }
 
 int cheb_fwd(const float* pos, const float* x, const float* c,
-             const float* w0, const float* w_lin, float* out, int S, int A,
-             int F, int M, float rcut, float d_min, int bf16, void* stream) {
-  return launch_rows<false>(pos, x, c, w0, w_lin, out, S, A, F, M, rcut,
-                            d_min, bf16, (cudaStream_t)stream);
+             const float* w0, const float* w_lin, const float* cell,
+             const float* inv, float* out, int S, int A, int F, int M,
+             float rcut, float d_min, int bf16, void* stream) {
+  return launch_rows<false>(pos, x, c, w0, w_lin, cell, inv, out, S, A, F,
+                            M, rcut, d_min, bf16, (cudaStream_t)stream);
 }
 
 int cheb_bwd_gx(const float* pos, const float* g, const float* q,
-                const float* w0, const float* w_lin, float* gx, int S, int A,
-                int F, int M, float rcut, float d_min, int bf16,
-                void* stream) {
-  return launch_rows<true>(pos, g, q, w0, w_lin, gx, S, A, F, M, rcut,
-                           d_min, bf16, (cudaStream_t)stream);
+                const float* w0, const float* w_lin, const float* cell,
+                const float* inv, float* gx, int S, int A, int F, int M,
+                float rcut, float d_min, int bf16, void* stream) {
+  return launch_rows<true>(pos, g, q, w0, w_lin, cell, inv, gx, S, A, F, M,
+                           rcut, d_min, bf16, (cudaStream_t)stream);
 }
 
 int cheb_bwd_gd(const float* pos, const float* x, const float* g,
-                const float* c2, float* row_part, float* col_part,
-                float* gpos, int S, int A, int F, int M, float rcut,
-                float d_min, int bf16, void* stream) {
+                const float* c2, const float* cell, const float* inv,
+                float* row_part, float* col_part, float* gpos, int S, int A,
+                int F, int M, float rcut, float d_min, int bf16,
+                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int n_tiles = cheb_gd_tiles(A);
-  size_t smem =
-      sizeof(float) * (2 * GD_T * GD_LD + GD_T * GD_WLD + (size_t)M * GD_FC);
-  cudaError_t err;
-  if (bf16)
-    err = cudaFuncSetAttribute(cheb_gd_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  if ((cell == nullptr) != (inv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  if (cell != nullptr)
+    rc = bf16 ? launch_gd<true, true>(pos, x, g, c2, cell, inv, row_part,
+                                      col_part, S, A, F, M, rcut, d_min, st)
+              : launch_gd<false, true>(pos, x, g, c2, cell, inv, row_part,
+                                       col_part, S, A, F, M, rcut, d_min, st);
   else
-    err = cudaFuncSetAttribute(cheb_gd_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_tiles, S);
-  float scale = fit_scale(rcut, d_min);
-  if (bf16)
-    cheb_gd_kernel<true><<<grid, THREADS, smem, st>>>(
-        pos, x, g, c2, row_part, col_part, A, F, M, n_tiles, rcut, d_min,
-        scale);
-  else
-    cheb_gd_kernel<false><<<grid, THREADS, smem, st>>>(
-        pos, x, g, c2, row_part, col_part, A, F, M, n_tiles, rcut, d_min,
-        scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+    rc = bf16 ? launch_gd<true, false>(pos, x, g, c2, cell, inv, row_part,
+                                       col_part, S, A, F, M, rcut, d_min, st)
+              : launch_gd<false, false>(pos, x, g, c2, cell, inv, row_part,
+                                        col_part, S, A, F, M, rcut, d_min,
+                                        st);
+  if (rc != 0) return rc;
+  int n_tiles = cheb_gd_tiles_of(A);
   int total = S * A * 3;
   gd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(row_part, col_part,
                                                         gpos, S, A, n_tiles);

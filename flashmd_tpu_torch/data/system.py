@@ -5,7 +5,8 @@ flashmd_tpu/data/system.py).
   from the reference.
 * :class:`System` holds the batched state as tensors on an explicit
   ``device``: positions and velocities ``[S, A, 3]``, masses ``[S, A]``,
-  inverse temperatures ``[S]``. The batch is a leading tensor axis.
+  inverse temperatures ``[S]``, periodic cells ``[S, 3, 3]``. The batch is
+  a leading tensor axis.
 """
 
 from __future__ import annotations
@@ -89,6 +90,10 @@ class Configuration:
                 raise ValueError("velocities shape must match pos")
         if self.cell is not None:
             self.cell = np.asarray(self.cell, dtype=np.float64)
+            if self.cell.shape != (3, 3):
+                raise ValueError(
+                    f"cell must be [3, 3], got {self.cell.shape}"
+                )
 
     @property
     def n_atoms(self) -> int:
@@ -105,6 +110,11 @@ class System:
     beta: torch.Tensor  # [S]
     velocities: Optional[torch.Tensor] = None  # [S, A, 3]
     term_lists: Dict[str, TermList] = dataclasses.field(default_factory=dict)
+    # Periodic lattices (rows = lattice vectors; None = open boundaries):
+    # on the device for the force evaluation, and as float64 numpy on the
+    # host so that validating them never reads the card.
+    cell: Optional[torch.Tensor] = None  # [S, 3, 3] float32
+    cell_host: Optional[np.ndarray] = None  # [S, 3, 3] float64
 
     @property
     def n_sims(self) -> int:
@@ -120,8 +130,8 @@ class System:
 
 
 def validate_configurations(configurations: Sequence[Configuration]):
-    """Same shapes, atom types, term lists and mass presence across the
-    batch (reference validate_configurations, data/system.py:253-310)."""
+    """Same shapes, atom types, term lists, mass and cell presence across
+    the batch (reference validate_configurations, data/system.py:253-310)."""
     if len(configurations) == 0:
         raise ValueError("Cannot collate an empty configuration list")
     ref = configurations[0]
@@ -153,6 +163,10 @@ def validate_configurations(configurations: Sequence[Configuration]):
             raise ValueError(
                 f"Inconsistent mass specification at frame {frame}."
             )
+        if (cfg.cell is None) != (ref.cell is None):
+            raise ValueError(
+                f"Inconsistent cell specification at frame {frame}."
+            )
 
 
 def collate(
@@ -166,12 +180,11 @@ def collate(
 
     Velocities given on EVERY configuration are honoured (reference
     collate, data/system.py:338-342); otherwise the integrator samples
-    them. Periodic cells and pair exclusions are not on the port's path
-    and raise.
+    them. Cells (all or none) stack into ``System.cell`` [S, 3, 3]
+    (reference :344-347). Pair exclusions are not on the port's path and
+    raise.
     """
     validate_configurations(configurations)
-    if any(c.cell is not None for c in configurations):
-        raise NotImplementedError("periodic cells are not ported yet")
     if any(c.exc_pair_index is not None for c in configurations):
         raise NotImplementedError("exc_pair_index is not ported yet")
     n_sims = len(configurations)
@@ -189,6 +202,11 @@ def collate(
     if all(c.velocities is not None for c in configurations):
         velocities = tensor(np.stack([c.velocities for c in configurations]))
 
+    cell = cell_host = None
+    if configurations[0].cell is not None:
+        cell_host = np.stack([c.cell for c in configurations])
+        cell = tensor(cell_host)
+
     if beta is None:
         beta_np = np.ones(n_sims)
     else:
@@ -204,4 +222,6 @@ def collate(
         beta=tensor(beta_np),
         velocities=velocities,
         term_lists=dict(configurations[0].neighbor_lists),
+        cell=cell,
+        cell_host=cell_host,
     )

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.cheb_kernel import (
+    _cell_operands,
     _low_matrix,  # noqa: F401  (re-exported: the reference keeps it here)
     cheb_conv_bwd_gd,
     cheb_conv_bwd_gx,
@@ -176,10 +177,16 @@ class _ChebStack(torch.autograd.Function):
     [S, A, B*F] operands. The linear layers run in float32: the
     reference's DEFAULT-precision dot is float32 everywhere but on the
     TPU's matrix unit.
+
+    ``cell`` is None or [S, 3, 3] with its inverse ``inv``, both computed
+    once per force evaluation (by ``cheb_stack_apply``) and handed to every
+    launch, forward and backward; the cell gets no gradient (reference
+    _cell_cotangent, cheb.py:633-635).
     """
 
     @staticmethod
-    def forward(ctx, rcut, precision, d_min, n_blocks, pos, x0, *flat):
+    def forward(ctx, rcut, precision, d_min, n_blocks, cell, inv, pos, x0,
+                *flat):
         fits, lins = _unflatten(flat, n_blocks)
         w_lins = [
             _lin_slope(c2) if d_min > 0 else None for (_, c2, _) in fits
@@ -188,7 +195,8 @@ class _ChebStack(torch.autograd.Function):
         hs, ts = [], []
         for (c, _c2, w0), lp, w_lin in zip(fits, lins, w_lins):
             h = x @ lp["lin1_w"]
-            agg = cheb_conv_fwd(c, w0, pos, h, rcut, precision, d_min, w_lin)
+            agg = cheb_conv_fwd(c, w0, pos, h, rcut, precision, d_min, w_lin,
+                                cell, inv)
             t = torch.tanh(agg @ lp["lin2_w"] + lp["lin2_b"])
             x = x + t @ lp["lin_w"] + lp["lin_b"]
             hs.append(h)
@@ -196,6 +204,7 @@ class _ChebStack(torch.autograd.Function):
         ctx.rcut, ctx.precision, ctx.d_min = rcut, precision, d_min
         ctx.n_blocks = n_blocks
         ctx.w_lins = w_lins
+        ctx.cell, ctx.inv = cell, inv
         ctx.save_for_backward(pos, *hs, *ts, *flat)
         return x
 
@@ -220,23 +229,24 @@ class _ChebStack(torch.autograd.Function):
             g_aggs[b] = g_agg
             if b > 0:
                 gh = cheb_conv_bwd_gx(
-                    c, w0, pos, g_agg, rcut, precision, d_min, ctx.w_lins[b]
+                    c, w0, pos, g_agg, rcut, precision, d_min, ctx.w_lins[b],
+                    ctx.cell, ctx.inv,
                 )
                 g = g + gh @ lp["lin1_w"].T
         c2_cat = torch.cat([f[1] for f in fits], dim=1)
         x_cat = torch.cat(hs, dim=-1)
         g_cat = torch.cat(g_aggs, dim=-1)
         gpos = cheb_conv_bwd_gd(c2_cat, pos, x_cat, g_cat, rcut, precision,
-                                d_min)
+                                d_min, ctx.cell, ctx.inv)
         needs = ctx.needs_input_grad
         param_grads = tuple(
-            _param_cotangent(t) if needs[6 + i] else None
+            _param_cotangent(t) if needs[8 + i] else None
             for i, t in enumerate(flat)
         )
         return (
-            None, None, None, None,
-            gpos if needs[4] else None,
-            g if needs[5] else None,
+            None, None, None, None, None, None,
+            gpos if needs[6] else None,
+            g if needs[7] else None,
             *param_grads,
         )
 
@@ -259,12 +269,14 @@ def _unflatten(flat, n_blocks):
 
 
 def cheb_stack_apply(fits: Sequence, lins: Sequence, pos, x0, rcut,
-                     precision="bf16", d_min=0.0):
+                     precision="bf16", cell=None, d_min=0.0):
     """Run the full interaction stack (reference cheb.py:798-826).
 
     fits: per-block (c [M1, F], c2 [M2, F], w0 [F]); every block shares
     M2. lins: per-block dicts with lin1_w, lin2_w, lin2_b, lin_w, lin_b.
-    pos [S, A, 3]; x0 [S, A, H]. Returns [S, A, H].
+    pos [S, A, 3]; x0 [S, A, H]; ``cell`` None (open boundaries), [3, 3]
+    (shared) or [S, 3, 3] (per molecule) switches every conv to the
+    minimum image. Returns [S, A, H].
     """
     check_precision(precision)
     if len({f[1].shape[0] for f in fits}) != 1:
@@ -272,7 +284,8 @@ def cheb_stack_apply(fits: Sequence, lins: Sequence, pos, x0, rcut,
             "cheb_stack_apply requires every block to share the "
             "derivative-series order."
         )
+    cell, inv = _cell_operands(cell, pos.shape[0], pos.device)
     return _ChebStack.apply(
-        float(rcut), precision, float(d_min), len(fits), pos, x0,
+        float(rcut), precision, float(d_min), len(fits), cell, inv, pos, x0,
         *_flatten(fits, lins),
     )

@@ -4,6 +4,11 @@
 Forces are ``-torch.autograd.grad`` of the summed energy, taken under
 ``torch.enable_grad()`` on a copy of ``pos`` that requires grad, so the
 integrator around it may run under ``no_grad``.
+
+Periodic cells run on the cheb path only: it applies the minimum image
+inside its pair geometry. The dense and pallas paths refuse cells, and an
+unsound cell (rcut not below half the smallest perpendicular width)
+raises, as in the reference.
 """
 
 from __future__ import annotations
@@ -13,7 +18,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops.neighborlist import NeighborMatrix, batched_radius_neighbor_matrix
+from ..ops.neighborlist import (
+    NeighborMatrix,
+    batched_radius_neighbor_matrix,
+    validate_min_image,
+)
 from ..prior.priors import Prior, prior_energy
 from .schnet import SchNetConfig, schnet_energy
 
@@ -63,17 +72,50 @@ def build_neighbors(ff: ForceField, pos_batch: torch.Tensor,
 
 
 def energy_components(
-    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None
+    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None,
+    cell=None,
 ) -> Dict[str, torch.Tensor]:
-    """Per-model energies, each [S]."""
+    """Per-model energies, each [S] (reference energy_components,
+    forcefield.py:93-115). ``cell`` reaches the SchNet term only; the
+    priors evaluate on the raw coordinates."""
     out = {}
     if ff.schnet_params is not None:
         out[SCHNET_NAME] = schnet_energy(
-            ff.schnet_params, ff.schnet_config, pos, atom_types, nbr
+            ff.schnet_params, ff.schnet_config, pos, atom_types, nbr, cell
         )
     for name, prior in ff.priors.items():
         out[name] = prior_energy(prior, pos)
     return out
+
+
+def total_energy(
+    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None,
+    cell=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """([S] total energy, components) (reference total_energy,
+    forcefield.py:118-131)."""
+    comps = energy_components(ff, pos, atom_types, nbr, cell)
+    total = torch.zeros(pos.shape[0], dtype=pos.dtype, device=pos.device)
+    for v in comps.values():
+        total = total + v
+    return total, comps
+
+
+def _check_cell(ff: ForceField, cell, check_cell: bool) -> None:
+    """The reference's cell checks (forcefield.py:206-229): dense and
+    pallas refuse a cell; an unsound cell raises unless the caller has
+    validated it already (``check_cell=False``)."""
+    if cell is None or ff.schnet_params is None:
+        return
+    mp = ff.schnet_config.message_passing
+    if mp != "cheb":
+        raise NotImplementedError(
+            "Periodic cells require message_passing='xla' or 'cheb' "
+            f"(got {mp!r}); the dense/pallas paths compute pair geometry "
+            "from raw positions, and the xla path is not ported."
+        )
+    if check_cell:
+        validate_min_image(cell, ff.rcut, context="compute_energy_forces")
 
 
 def compute_energy_forces(
@@ -83,21 +125,25 @@ def compute_energy_forces(
     nbr: Optional[NeighborMatrix] = None,
     cell=None,
     atom_mask=None,
+    *,
+    check_cell: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """([S] energies, [S, A, 3] forces, components dict of [S])
     (reference compute_energy_forces, forcefield.py:166-275). On the
-    neighbour-list path ``nbr`` is built here when not given."""
+    neighbour-list path ``nbr`` is built here when not given.
+
+    ``cell`` ([3, 3] shared, or [S, 3, 3] per molecule; rows are lattice
+    vectors) runs the cheb path under minimum-image periodic boundaries.
+    A cell is validated here (which reads it on the host); the engine,
+    which validated its cells at attach, passes ``check_cell=False`` so
+    that its per-step calls never synchronise with the card."""
     if atom_types is None or atom_types.ndim != 1:
         raise ValueError(
             "atom_types must be a 1-D [A] integer tensor (mixed batches are "
             "not ported)"
         )
     mp = None if ff.schnet_params is None else ff.schnet_config.message_passing
-    if cell is not None:
-        raise NotImplementedError(
-            f"Periodic cells are not ported yet (message_passing={mp!r}): "
-            "every ported path computes pair geometry from raw positions."
-        )
+    _check_cell(ff, cell, check_cell)
     if atom_mask is not None:
         raise NotImplementedError("mixed-size batches are not ported yet")
     if ff.exc_pair_index is not None and mp in ("dense", "cheb"):
@@ -111,10 +157,9 @@ def compute_energy_forces(
         nbr = build_neighbors(ff, pos_batch)
     with torch.enable_grad():
         pos = pos_batch.detach().requires_grad_(True)
-        comps = energy_components(ff, pos, atom_types, nbr)
-        total = torch.zeros(pos.shape[0], dtype=pos.dtype, device=pos.device)
-        for v in comps.values():
-            total = total + v
+        # a shared [3, 3] cell broadcasts over the batch, an [S, 3, 3] one
+        # goes per molecule (models.cheb.cheb_stack_apply)
+        total, comps = total_energy(ff, pos, atom_types, nbr, cell)
         (grad,) = torch.autograd.grad(total.sum(), pos)
     return (
         total.detach(),

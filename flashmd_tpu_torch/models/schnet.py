@@ -110,10 +110,13 @@ def output_energies(params, config: SchNetConfig, x):
 
 
 def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
-                         nbr=None):
+                         nbr=None, cell=None):
     """[S, A] per-atom energies: embedding, the interaction blocks of the
     configured path, the output head. ``nbr`` is the batched neighbour
-    matrix (ops.neighborlist) that the ``"pallas"`` path needs."""
+    matrix (ops.neighborlist) that the ``"pallas"`` path needs. ``cell``
+    ([3, 3] or [S, 3, 3]) is consumed only by the cheb path (minimum-image
+    pair geometry); the other paths refuse cells upstream
+    (models.forcefield.compute_energy_forces)."""
     s, a = pos.shape[0], pos.shape[1]
     x0 = params["embedding"][atom_types]
     x0 = x0.expand(s, a, x0.shape[-1]).contiguous()
@@ -122,11 +125,11 @@ def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
     elif config.message_passing == "pallas":
         x = _neighbor_blocks(params, config, pos, x0, nbr)
     else:
-        x = _cheb_blocks(params, config, pos, x0)
+        x = _cheb_blocks(params, config, pos, x0, cell)
     return output_energies(params, config, x)
 
 
-def _cheb_blocks(params, config: SchNetConfig, pos, x0):
+def _cheb_blocks(params, config: SchNetConfig, pos, x0, cell=None):
     """Reference cheb branch (schnet.py:353-424), always through
     ``cheb_stack_apply``. Needs the host fits attached
     (``models.cheb.attach_cheb_fit``)."""
@@ -143,7 +146,7 @@ def _cheb_blocks(params, config: SchNetConfig, pos, x0):
         raise ValueError("stale cheb_fit: its orders differ from the config")
     return cheb_stack_apply(
         fits, params["interactions"], pos, x0,
-        float(config.cutoff.cutoff_upper), config.precision,
+        float(config.cutoff.cutoff_upper), config.precision, cell=cell,
         d_min=float(config.cheb_d_min),
     )
 
@@ -196,8 +199,10 @@ def _neighbor_blocks(params, config: SchNetConfig, pos, x, nbr):
     )
 
 
-def schnet_energy(params, config: SchNetConfig, pos, atom_types, nbr=None):
+def schnet_energy(params, config: SchNetConfig, pos, atom_types, nbr=None,
+                  cell=None):
     """Total SchNet energy per molecule, [S]."""
     return torch.sum(
-        schnet_atom_energies(params, config, pos, atom_types, nbr), dim=-1
+        schnet_atom_energies(params, config, pos, atom_types, nbr, cell),
+        dim=-1,
     )

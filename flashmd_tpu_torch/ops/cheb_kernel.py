@@ -15,9 +15,18 @@ Every operand carries the batch as its leading axis: ``pos [S, A, 3]``,
 ``x``/``g`` ``[S, A, F]``; coefficient tables are ``[M, F]``. The batch is
 the kernels' grid axis.
 
+Periodic cells: every wrapper and twin takes ``cell`` (None, ``[3, 3]`` or
+per molecule ``[S, 3, 3]``; rows are lattice vectors) and switches the pair
+geometry to the minimum image (reference ``_tile_rel``, :204-257):
+frac = rel @ inv, rel -= round(frac) @ cell, written out per component in
+the reference's index order and rounded half to even. ``inv`` (the
+cell's inverse, ``[S, 3, 3]``) may be passed in so that a force evaluation
+computes it once; it is computed here otherwise.
+
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
-CUDA tensors it launches its kernel or raises; there is no fallback. Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+CUDA tensors it launches its kernel or raises; there is no fallback. The
+wrappers count their launches per kernel, the cell variants apart
+(``cheb_fwd_cell``, ...): ``launch_counts()``.
 
 Precision tiers: ``fp32`` and ``bf16`` (product operands rounded to bf16,
 recurrence and accumulation in float32, at the same places in the kernel
@@ -30,6 +39,7 @@ import torch
 
 from ..models.mlp import check_precision
 from ._launch import _check, _op, _ptr, _raise_on, _same_device, _stream
+from .neighborlist import _inv_3x3
 
 
 # ---------------------------------------------------------------------------
@@ -55,13 +65,57 @@ def _to_that_basis(c: torch.Tensor) -> torch.Tensor:
     return cz[:rows] - up - down
 
 
-def pair_geometry(pos: torch.Tensor, rcut: float, d_min: float = 0.0):
-    """d, z [S, A, A] from exact per-coordinate differences
-    (reference _pair_z, models/cheb.py:469-487)."""
+def _cell_operands(cell, s: int, device, inv=None):
+    """(cell, inv) as contiguous float32 [S, 3, 3] on ``device`` from a
+    [3, 3] (shared) or [S, 3, 3] (per molecule) cell; (None, None) for
+    open boundaries (reference _cell_operands, cheb_kernel.py:688-696)."""
+    if cell is None:
+        return None, None
+    cell = torch.as_tensor(cell, dtype=torch.float32, device=device)
+    if cell.ndim == 2:
+        cell = cell.expand(s, 3, 3)
+    if tuple(cell.shape) != (s, 3, 3):
+        raise ValueError(f"cell: expected [3, 3] or [{s}, 3, 3], got "
+                         f"{tuple(cell.shape)}")
+    cell = cell.contiguous()
+    return cell, (_inv_3x3(cell) if inv is None else inv)
+
+
+def pair_rel(pos: torch.Tensor, cell=None, inv=None) -> torch.Tensor:
+    """rel[s, i, j] = pos_j - pos_i, [S, A, A, 3]; minimum-imaged under a
+    cell ([S, 3, 3] with its inverse) component by component, never by a
+    matmul: a truncated matmul operand rounds a fraction near +-0.5 to the
+    wrong image, an error of a whole box length (PERFORMANCE.md:348-352)."""
     rel = pos[:, None, :, :] - pos[:, :, None, :]
+    if cell is None:
+        return rel
+    r = [rel[..., k] for k in range(3)]
+    iv = inv[:, None, None]
+    cl = cell[:, None, None]
+    n = [
+        torch.round(r[0] * iv[..., 0, k] + r[1] * iv[..., 1, k]
+                    + r[2] * iv[..., 2, k])
+        for k in range(3)
+    ]
+    return torch.stack([
+        r[k] - (n[0] * cl[..., 0, k] + n[1] * cl[..., 1, k]
+                + n[2] * cl[..., 2, k])
+        for k in range(3)
+    ], dim=-1)
+
+
+def _geometry(rel, rcut, d_min):
     d = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     z = torch.clamp((d - d_min) * (2.0 / (rcut - d_min)) - 1.0, -1.0, 1.0)
     return d, z
+
+
+def pair_geometry(pos: torch.Tensor, rcut: float, d_min: float = 0.0,
+                  cell=None, inv=None):
+    """d, z [S, A, A] from exact per-coordinate differences, minimum-imaged
+    under a cell (reference _pair_z, models/cheb.py:469-487)."""
+    cell, inv = _cell_operands(cell, pos.shape[0], pos.device, inv)
+    return _geometry(pair_rel(pos, cell, inv), rcut, d_min)
 
 
 def _low_matrix(d: torch.Tensor, d_min: float) -> torch.Tensor:
@@ -78,11 +132,11 @@ def _low_matrix(d: torch.Tensor, d_min: float) -> torch.Tensor:
 
 
 def cheb_conv_fwd_plain(c, w0, pos, x, rcut, precision, d_min=0.0,
-                        w_lin=None):
+                        w_lin=None, cell=None, inv=None):
     """out = sum_m c_m (Ttil_m @ x) - w0 x + w_lin (low @ x); mirrors
     ``_cheb_forward_only`` plus the ``low`` term (models/cheb.py:574-630).
     bf16 rounds Ttil_m and x; c_m multiplies after the product."""
-    d, z = pair_geometry(pos, rcut, d_min)
+    d, z = pair_geometry(pos, rcut, d_min, cell, inv)
     u2 = torch.square(1.0 - z)
     two_z = 2.0 * z
     xo = _op(x, precision)
@@ -99,12 +153,12 @@ def cheb_conv_fwd_plain(c, w0, pos, x, rcut, precision, d_min=0.0,
 
 
 def cheb_conv_bwd_gx_plain(c, w0, pos, g, rcut, precision, d_min=0.0,
-                           w_lin=None):
+                           w_lin=None, cell=None, inv=None):
     """gx = sum_k That_k @ (q_k g) - w0 g + low @ (w_lin g), q =
     _to_that_basis(c): the kernel's own basis. bf16 rounds That_k and
     q_k g (and low, w_lin g)."""
     q = _to_that_basis(c)
-    d, z = pair_geometry(pos, rcut, d_min)
+    d, z = pair_geometry(pos, rcut, d_min, cell, inv)
     u = 1.0 - z
     two_z = 2.0 * z
     h_prev, h_cur = u, u * z
@@ -120,12 +174,17 @@ def cheb_conv_bwd_gx_plain(c, w0, pos, g, rcut, precision, d_min=0.0,
     return gx - w0 * g
 
 
-def cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min=0.0):
+def cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min=0.0,
+                           cell=None, inv=None):
     """Position gradient of the distance-gradient series, plain T basis:
     gd = (1-z) sum_m T_m ((c2_m g) @ x^T), W = gd/d on live pairs,
-    gpos = pos rowsum(W) - W pos + pos colsum(W) - W^T pos. bf16 rounds
-    c2_m g and x."""
-    d, z = pair_geometry(pos, rcut, d_min)
+    gpos = pos rowsum(W) - W pos + pos colsum(W) - W^T pos. Under a cell
+    the pair shifts break that identity, so W contracts the minimum-image
+    rel directly: gpos_i = -sum_j (W_ij + W_ji) rel_ij (reference
+    models/cheb.py:751-756). bf16 rounds c2_m g and x."""
+    cell, inv = _cell_operands(cell, pos.shape[0], pos.device, inv)
+    rel = pair_rel(pos, cell, inv)
+    d, z = _geometry(rel, rcut, d_min)
     two_z = 2.0 * z
     xt = _op(x, precision).transpose(1, 2)
 
@@ -143,6 +202,8 @@ def cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min=0.0):
     gd = (1.0 - z) * gd
     gd = torch.where((d < rcut) & ~eye, gd, torch.zeros_like(gd))
     ws = (gd + gd.transpose(1, 2)) / d
+    if cell is not None:
+        return -torch.sum(ws[..., None] * rel, dim=2)
     return pos * torch.sum(ws, dim=2, keepdim=True) - ws @ pos
 
 
@@ -151,12 +212,28 @@ def cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min=0.0):
 # ---------------------------------------------------------------------------
 
 
-def cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min=0.0, w_lin=None):
+def _cell_args(cell, inv, s, pos, tensors):
+    """The checked (cell, inv) operands of a launch, appended to
+    ``tensors``; (None, None) for open boundaries."""
+    cell, inv = _cell_operands(cell, s, pos.device, inv)
+    if cell is not None:
+        _check("cell", cell, (s, 3, 3))
+        _check("inv", inv, (s, 3, 3))
+        tensors += [cell, inv]
+    return cell, inv
+
+
+def _count(name, cell):
+    _launches[name if cell is None else name + "_cell"] += 1
+
+
+def cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min=0.0, w_lin=None,
+                  cell=None, inv=None):
     """Forward Chebyshev CFConv, [S, A, F] (see module docstring)."""
     check_precision(precision)
     if pos.device.type == "cpu":
         return cheb_conv_fwd_plain(c, w0, pos, x, rcut, precision, d_min,
-                                   w_lin)
+                                   w_lin, cell, inv)
     from ._build import load
 
     s, a, f = x.shape
@@ -169,25 +246,27 @@ def cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min=0.0, w_lin=None):
     if w_lin is not None:
         _check("w_lin", w_lin, (f,))
         tensors.append(w_lin)
+    cell, inv = _cell_args(cell, inv, s, pos, tensors)
     _same_device(*tensors)
     out = torch.empty_like(x)
     rc = load().cheb_fwd(
-        _ptr(pos), _ptr(x), _ptr(c), _ptr(w0), _ptr(w_lin), _ptr(out),
-        s, a, f, m, float(rcut), float(d_min), int(precision == "bf16"),
-        _stream(),
+        _ptr(pos), _ptr(x), _ptr(c), _ptr(w0), _ptr(w_lin), _ptr(cell),
+        _ptr(inv), _ptr(out), s, a, f, m, float(rcut), float(d_min),
+        int(precision == "bf16"), _stream(),
     )
     _raise_on(rc, "cheb_fwd")
-    cheb_conv_fwd.launches += 1
+    _count("cheb_fwd", cell)
     return out
 
 
-def cheb_conv_bwd_gx(c, w0, pos, g, rcut, precision, d_min=0.0, w_lin=None):
+def cheb_conv_bwd_gx(c, w0, pos, g, rcut, precision, d_min=0.0, w_lin=None,
+                     cell=None, inv=None):
     """gx-only backward, [S, A, F]; ``c`` is the forward series [M, F]
     (re-expressed on the That basis here)."""
     check_precision(precision)
     if pos.device.type == "cpu":
         return cheb_conv_bwd_gx_plain(c, w0, pos, g, rcut, precision, d_min,
-                                      w_lin)
+                                      w_lin, cell, inv)
     from ._build import load
 
     s, a, f = g.shape
@@ -200,24 +279,27 @@ def cheb_conv_bwd_gx(c, w0, pos, g, rcut, precision, d_min=0.0, w_lin=None):
     if w_lin is not None:
         _check("w_lin", w_lin, (f,))
         tensors.append(w_lin)
+    cell, inv = _cell_args(cell, inv, s, pos, tensors)
     _same_device(*tensors)
     gx = torch.empty_like(g)
     rc = load().cheb_bwd_gx(
-        _ptr(pos), _ptr(g), _ptr(q), _ptr(w0), _ptr(w_lin), _ptr(gx),
-        s, a, f, q.shape[0], float(rcut), float(d_min),
+        _ptr(pos), _ptr(g), _ptr(q), _ptr(w0), _ptr(w_lin), _ptr(cell),
+        _ptr(inv), _ptr(gx), s, a, f, q.shape[0], float(rcut), float(d_min),
         int(precision == "bf16"), _stream(),
     )
     _raise_on(rc, "cheb_bwd_gx")
-    cheb_conv_bwd_gx.launches += 1
+    _count("cheb_bwd_gx", cell)
     return gx
 
 
-def cheb_conv_bwd_gd(c2, pos, x, g, rcut, precision, d_min=0.0):
+def cheb_conv_bwd_gd(c2, pos, x, g, rcut, precision, d_min=0.0, cell=None,
+                     inv=None):
     """Distance-gradient backward over block-stacked operands
     (c2 [M2, B*F], x/g [S, A, B*F]) -> gpos [S, A, 3]."""
     check_precision(precision)
     if pos.device.type == "cpu":
-        return cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min)
+        return cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min,
+                                      cell, inv)
     from ._build import load
 
     lib = load()
@@ -227,37 +309,38 @@ def cheb_conv_bwd_gd(c2, pos, x, g, rcut, precision, d_min=0.0):
     _check("x", x, (s, a, f))
     _check("g", g, (s, a, f))
     _check("c2", c2, (m, f))
-    _same_device(pos, x, g, c2)
+    tensors = [pos, x, g, c2]
+    cell, inv = _cell_args(cell, inv, s, pos, tensors)
+    _same_device(*tensors)
     n_tiles = lib.cheb_gd_tiles(a)
     row_part = torch.empty(s, a, 3, dtype=torch.float32, device=pos.device)
     col_part = torch.empty(s, n_tiles, a, 3, dtype=torch.float32,
                            device=pos.device)
     gpos = torch.empty_like(pos)
     rc = lib.cheb_bwd_gd(
-        _ptr(pos), _ptr(x), _ptr(g), _ptr(c2), _ptr(row_part),
-        _ptr(col_part), _ptr(gpos), s, a, f, m, float(rcut), float(d_min),
-        int(precision == "bf16"), _stream(),
+        _ptr(pos), _ptr(x), _ptr(g), _ptr(c2), _ptr(cell), _ptr(inv),
+        _ptr(row_part), _ptr(col_part), _ptr(gpos), s, a, f, m, float(rcut),
+        float(d_min), int(precision == "bf16"), _stream(),
     )
     _raise_on(rc, "cheb_bwd_gd")
-    cheb_conv_bwd_gd.launches += 1
+    _count("cheb_bwd_gd", cell)
     return gpos
 
-
-cheb_conv_fwd.launches = 0
-cheb_conv_bwd_gx.launches = 0
-cheb_conv_bwd_gd.launches = 0
 
 KERNELS = {
     "cheb_fwd": cheb_conv_fwd,
     "cheb_bwd_gx": cheb_conv_bwd_gx,
     "cheb_bwd_gd": cheb_conv_bwd_gd,
 }
+# Launches per kernel: the open variants under their names, the cell
+# variants under name + "_cell".
+_launches = dict.fromkeys([*KERNELS, *(n + "_cell" for n in KERNELS)], 0)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for name in _launches:
+        _launches[name] = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return dict(_launches)

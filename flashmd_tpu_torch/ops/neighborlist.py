@@ -15,8 +15,11 @@ entries with the masked slots) with group offsets ``csr_offsets [S A +
 1]``. A stable sort gives it, so its order is fixed by the list; it is the
 exact transpose of the list, an asymmetric (overflowed) list included.
 
-Periodic cells and image replication are not ported (ROADMAP A10): a
-``cell`` or ``images`` argument raises.
+The list builders refuse periodic cells: image replication and
+minimum-image shifts on the list belong to the exact ``xla`` path, which
+is not ported (ROADMAP A11); a ``cell`` or ``images`` argument raises.
+The minimum-image helpers that the Chebyshev path needs are here:
+``_inv_3x3``, ``min_cell_width`` and ``validate_min_image``.
 """
 
 from __future__ import annotations
@@ -55,8 +58,71 @@ def _refuse_periodic(cell, images):
     if cell is not None or images is not None:
         raise NotImplementedError(
             "Periodic cells and image replication are not ported to the "
-            "neighbour list yet (ROADMAP A10): the port builds open-boundary "
+            "neighbour list yet (ROADMAP A11): the port builds open-boundary "
             "lists only."
+        )
+
+
+def _inv_3x3(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse (adjugate / det) of [..., 3, 3] lattices, in the
+    dtype of ``m`` (reference _inv_3x3, neighborlist.py:80-94)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    co = torch.stack([
+        torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], dim=-1),
+        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], dim=-1),
+        torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], dim=-1),
+    ], dim=-2)
+    det = a * co[..., 0, 0] + b * co[..., 1, 0] + c * co[..., 2, 0]
+    return co / det[..., None, None]
+
+
+def min_cell_width(cell) -> float:
+    """Smallest perpendicular width of a (possibly triclinic) cell whose
+    rows are the lattice vectors: volume / area of the face spanned by the
+    other two, which is smaller than the row norms for a skewed cell
+    (reference min_cell_width, neighborlist.py:97-113)."""
+    c = np.asarray(cell, dtype=np.float64)
+    vol = abs(float(np.linalg.det(c)))
+    widths = [
+        vol / float(np.linalg.norm(np.cross(c[(k + 1) % 3], c[(k + 2) % 3])))
+        for k in range(3)
+    ]
+    return min(widths)
+
+
+def validate_min_image(cell, rcut: float, context: str = "") -> None:
+    """Raise unless the minimum-image convention is sound for ``cell``:
+    ``rcut`` must be < half the smallest perpendicular width, or second
+    images sit within the cutoff and minimum image silently drops them
+    (reference validate_min_image, neighborlist.py:162-202).
+
+    ``cell`` may be None (no-op), a [3, 3] lattice or an [S, 3, 3] batch,
+    as numpy or a tensor; a tensor on the card is copied to the host, so
+    callers on a hot loop validate once, ahead of it."""
+    if cell is None:
+        return
+    if isinstance(cell, torch.Tensor):
+        cell = cell.detach().cpu().numpy()
+    c = np.asarray(cell)
+    if c.ndim == 3:
+        for one in c:
+            validate_min_image(one, rcut, context)
+        return
+    width = min_cell_width(c)
+    if rcut >= 0.5 * width:
+        where = f" ({context})" if context else ""
+        raise ValueError(
+            f"Minimum-image convention is unsound{where}: the search "
+            f"radius {rcut:g} must be < half the smallest perpendicular "
+            f"cell width ({width:g} / 2 = {0.5 * width:g}). A smaller "
+            "cell has multiple periodic images of the same pair within "
+            "the cutoff, which minimum image silently drops — wrong "
+            "periodic physics. Use a larger box (or a smaller cutoff/"
+            "neighbor_skin); sub-minimum-image cells are out of scope "
+            "(see PARITY.md; the reference replicates images instead, "
+            "torch_impl.py:102-163)."
         )
 
 

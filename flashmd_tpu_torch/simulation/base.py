@@ -6,7 +6,8 @@ What is here: the constructor options ``dt``, ``n_timesteps``,
 caller asks for the CPU) and the neighbour-list options
 ``neighbor_capacity``, ``neighbor_skin`` and ``neighbor_rebuild_interval``;
 attach (which fits the Chebyshev filters on the host for a cheb model,
-base.py:479-508); the initial carry (:661-683); the Verlet neighbour list
+base.py:479-508) and the minimum-image soundness check of periodic cells
+(:399-437); the initial carry (:661-683); the Verlet neighbour list
 of the ``"pallas"`` path (:580-716): rebuilt at rcut + skin from the
 positions at the start of a step, every ``neighbor_rebuild_interval``
 steps, with the running maxima of the true neighbour count and of the
@@ -91,6 +92,30 @@ class Simulation:
     ):
         self._attach_model(model)
         self._attach_configurations(configurations, beta)
+        self._check_min_image_soundness()
+
+    def _check_min_image_soundness(self):
+        """Periodic runs must satisfy the minimum-image condition at the
+        search radius: rcut on the cheb path, which keeps no list, rcut +
+        skin on a list path (reference base.py:399-437). The check reads
+        the host copy of the cells, once; the per-step force evaluations
+        then skip it. An unsound cell raises on every path (image
+        replication, the reference's fallback on the xla path, is not
+        ported), and a sound cell on a path other than cheb raises as
+        compute_energy_forces would."""
+        ff = self.model
+        cell = self.initial_system.cell_host
+        if cell is None or ff is None or ff.schnet_params is None:
+            return
+        from ..models.forcefield import _check_cell
+        from ..ops.neighborlist import validate_min_image
+
+        search_r = ff.rcut + (
+            self.neighbor_skin if self._uses_neighbor_list() else 0.0
+        )
+        validate_min_image(cell, search_r,
+                           context="attach_model_and_configurations")
+        _check_cell(ff, cell, check_cell=False)
 
     def _attach_model(self, model: ForceField):
         params = model.schnet_params
@@ -151,9 +176,12 @@ class Simulation:
                 "nbr_disp_max": torch.maximum(carry["nbr_disp_max"], disp)}
 
     def _forces(self, carry: Dict, pos):
-        """Potential + forces at ``pos`` with the carry's neighbour list."""
+        """Potential + forces at ``pos`` with the carry's neighbour list and
+        the system's cells (validated at attach, so not here: that would
+        read the cells from the card every step)."""
         return compute_energy_forces(
-            self.model, pos, self.initial_system.atom_types, carry.get("nbr")
+            self.model, pos, self.initial_system.atom_types, carry.get("nbr"),
+            cell=self.initial_system.cell, check_cell=False,
         )
 
     def _init_carry(self, system: System) -> Dict:

@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
-Each kernel (Chebyshev, dense and neighbour-matrix CFConv) against its
-plain PyTorch twin on the card, the launch counters on the three paths,
-bitwise reproducibility and the wrappers' refusals. Without a card every test
+Each kernel (Chebyshev, its periodic-cell variants, dense and
+neighbour-matrix CFConv) against its plain PyTorch twin on the card, the
+launch counters on the four paths, bitwise reproducibility and the
+wrappers' refusals. Without a card every test
 skips (decided in a fixture, so every
 xdist worker collects the same tests). On the GPU machine, which has no
 JAX, run them without the JAX suite's conftest:
@@ -80,6 +81,105 @@ def test_kernels_match_twins(dev, precision, d_min, a, f):
     assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
 
 
+# rows = lattice vectors; widths > 2 RCUT, so the minimum image is sound
+CELL_CUBIC = [[24.0, 0.0, 0.0], [0.0, 24.0, 0.0], [0.0, 0.0, 24.0]]
+CELL_TRICLINIC = [[24.0, 0.0, 0.0], [4.0, 24.0, 0.0], [2.0, 2.0, 24.0]]
+
+
+def _cells(dev, s):
+    """Per-molecule cells, cubic and triclinic in turn, [S, 3, 3]."""
+    return torch.tensor([(CELL_CUBIC, CELL_TRICLINIC)[i % 2]
+                         for i in range(s)], device=dev)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("d_min", [0.0, 2.0])
+@pytest.mark.parametrize("a,f", [(70, 128), (33, 48)])
+def test_cell_kernels_match_twins(dev, precision, d_min, a, f):
+    """The three cell variants on positions folded into [0, 24)^3, where
+    many pairs within the cutoff cross a face."""
+    t = _inputs(dev, 3, a, f, 12, 16)
+    pos = torch.remainder(t["pos"], 24.0)
+    cell = _cells(dev, 3)
+    w_lin = None
+    if d_min > 0:
+        from flashmd_tpu_torch.models.cheb import _lin_slope
+
+        w_lin = _lin_slope(t["c2"])
+    args = (pos, t["x"], RCUT, precision, d_min, w_lin)
+    out = ck.cheb_conv_fwd(t["c"], t["w0"], *args, cell=cell)
+    ref = ck.cheb_conv_fwd_plain(t["c"], t["w0"], *args, cell=cell)
+    assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    open_ = ck.cheb_conv_fwd_plain(t["c"], t["w0"], *args)
+    assert _rel(open_, ref) > 1e-2  # the cell changes the answer
+    args = (pos, t["g"], RCUT, precision, d_min, w_lin)
+    gx = ck.cheb_conv_bwd_gx(t["c"], t["w0"], *args, cell=cell)
+    gx_ref = ck.cheb_conv_bwd_gx_plain(t["c"], t["w0"], *args, cell=cell)
+    assert _rel(gx, gx_ref) <= BOUNDS[precision]["bwd"]
+    args = (t["c2"], pos, t["x"], t["g"], RCUT, precision, d_min)
+    gpos = ck.cheb_conv_bwd_gd(*args, cell=cell)
+    gpos_ref = ck.cheb_conv_bwd_gd_plain(*args, cell=cell)
+    torch.cuda.synchronize()
+    assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
+
+
+def test_cell_gd_bitwise_reproducible(dev):
+    t = _inputs(dev, 2, 90, 64, 8, 16, seed=1)
+    args = (t["c2"], torch.remainder(t["pos"], 24.0), t["x"], t["g"], RCUT,
+            "bf16", 2.0)
+    cell = _cells(dev, 2)
+    first = ck.cheb_conv_bwd_gd(*args, cell=cell)
+    for _ in range(3):
+        assert torch.equal(ck.cheb_conv_bwd_gd(*args, cell=cell), first)
+
+
+def test_cell_launch_counts(dev):
+    """A periodic force evaluation of a 3-block cheb model launches the
+    cell variants 3/2/1 times and the open ones never, in
+    compute_energy_forces and in a short simulation; the forces agree
+    with the CPU plain path."""
+    import dataclasses
+
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=device)
+        ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
+                                                      ff.schnet_config))
+        system = collate(cfgs, device=device)
+        ck.reset_launch_counts()
+        _, forces, _ = compute_energy_forces(
+            ff, system.pos, system.atom_types,
+            cell=_cells(device, 2) * (25.0 / 24.0),
+        )
+        results[device.type] = (forces.cpu(), ck.launch_counts())
+    zero = dict.fromkeys(("cheb_fwd", "cheb_bwd_gx", "cheb_bwd_gd"), 0)
+    assert results["cuda"][1] == {**zero, "cheb_fwd_cell": 3,
+                                  "cheb_bwd_gx_cell": 2,
+                                  "cheb_bwd_gd_cell": 1}
+    assert all(v == 0 for v in results["cpu"][1].values())
+    # bf16 model: summation order on the card vs the CPU only
+    assert _rel(results["cuda"][0], results["cpu"][0]) <= 2e-3
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=dev)
+    cfgs = [dataclasses.replace(c, cell=[[25.0, 0, 0], [0, 25.0, 0],
+                                         [0, 0, 25.0]]) for c in cfgs]
+    sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=4,
+                             save_interval=2, random_seed=5, device=dev)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    ck.reset_launch_counts()
+    coords = sim.simulate()
+    assert ck.launch_counts() == {**zero, "cheb_fwd_cell": 15,
+                                  "cheb_bwd_gx_cell": 10,
+                                  "cheb_bwd_gd_cell": 5}
+    assert torch.isfinite(torch.as_tensor(coords)).all()
+
+
 def test_gd_bitwise_reproducible(dev):
     t = _inputs(dev, 2, 90, 64, 8, 16, seed=1)
     args = (t["c2"], t["pos"], t["x"], t["g"], RCUT, "bf16", 2.0)
@@ -123,9 +223,10 @@ def test_main_path_launch_counts(dev):
                                                  system.atom_types)
         results[device.type] = (forces.cpu(), ck.launch_counts())
     assert results["cuda"][1] == {"cheb_fwd": 6, "cheb_bwd_gx": 4,
-                                  "cheb_bwd_gd": 2}
-    assert results["cpu"][1] == {"cheb_fwd": 0, "cheb_bwd_gx": 0,
-                                 "cheb_bwd_gd": 0}
+                                  "cheb_bwd_gd": 2, "cheb_fwd_cell": 0,
+                                  "cheb_bwd_gx_cell": 0,
+                                  "cheb_bwd_gd_cell": 0}
+    assert all(v == 0 for v in results["cpu"][1].values())
     f_k, f_p = results["cuda"][0], results["cpu"][0]
     # bf16 model: summation order on the card vs the CPU only
     assert _rel(f_k, f_p) <= 2e-3

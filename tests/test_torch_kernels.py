@@ -211,11 +211,15 @@ def test_precision_tiers():
 
 
 def test_cpu_tensors_never_count_launches():
-    """On the CPU the wrapper takes the plain twin, which is no launch."""
+    """On the CPU the wrapper takes the plain twin, which is no launch, open
+    or periodic; the cell variants are counted apart."""
     c, _, w0 = _coeffs()
     pos, x, _ = _inputs(23)
     ck.reset_launch_counts()
     ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp32")
+    ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp32",
+                     cell=9.0 * torch.eye(3))
     assert ck.launch_counts() == {
-        "cheb_fwd": 0, "cheb_bwd_gx": 0, "cheb_bwd_gd": 0
+        "cheb_fwd": 0, "cheb_bwd_gx": 0, "cheb_bwd_gd": 0,
+        "cheb_fwd_cell": 0, "cheb_bwd_gx_cell": 0, "cheb_bwd_gd_cell": 0,
     }

@@ -252,7 +252,8 @@ def test_zoo_defaults_and_refusals():
                            device="cpu")
     pos = torch.zeros(1, 24, 3)
     types = torch.zeros(24, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
+    # cheb takes cells; one below the minimum-image regime raises
+    with pytest.raises(ValueError, match="Minimum-image"):
         compute_energy_forces(ff, pos, types, cell=torch.eye(3))
     with pytest.raises(NotImplementedError):
         compute_energy_forces(

@@ -96,10 +96,10 @@ def test_source_csr_is_the_exact_transpose(capacity):
 
 def test_periodic_arguments_raise():
     pos = torch.tensor(_pos())
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A11"):
         nl.batched_radius_neighbor_matrix(pos, RCUT, 8,
                                           cell=10.0 * torch.eye(3))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A11"):
         nl.radius_neighbor_matrix(pos[0], RCUT, 8,
                                   images=np.zeros((1, 3), int))
 
