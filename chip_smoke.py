@@ -20,17 +20,21 @@ Phases (each prints its lines; any failure exits non-zero):
                skin, start positions), and once more in fp32 on an
                overflowed list (capacity 32: an asymmetric list); the
                neighbour build + source CSR is timed at S = 128. The
-               three cheb kernels' periodic-cell variants run on the
+               four cheb kernels' periodic-cell variants run on the
                start positions folded into per-molecule cells (half
                cubic 60 A, half triclinic), where live pairs cross faces.
+               The per-block schedule's kernels: the combined gx+gd
+               backward, and the gd-only one on one block's F = 128.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
-               the cheb, the dense and the pallas force field and the
-               periodic cheb one (folded positions, the kernels' cells);
-               then the pallas fp32 forces vs the dense fp32 forces on
-               the same weights and positions, and the periodic fp32
-               network forces on folded positions vs the open ones on
-               the unfolded positions (each gated: the same function).
+               the cheb (stacked and per-block schedules), the dense and
+               the pallas force field and the periodic cheb one (folded
+               positions, the kernels' cells; both schedules); then,
+               each gated as the same function, the per-block vs the
+               stacked cheb fp32 forces (open and periodic), the pallas
+               fp32 forces vs the dense fp32 forces on the same weights
+               and positions, and the periodic fp32 network forces on
+               folded positions vs the open ones on unfolded positions.
 5. slice    -- LangevinSimulation at the bench configuration (batch 128,
                266 beads, 3 blocks, bf16, cheb (48, 64), d_min 2.0) for
                120 steps; launch counts must be 3/2/1 per force
@@ -40,6 +44,12 @@ Phases (each prints its lines; any failure exits non-zero):
                60 A on every molecule): the cell variants 3/2/1 per
                force evaluation, the open ones never; its throughput
                beside the open slice's; the profiler window.
+   per-block - the open slice under FLASHMD_CHEB_STACK=0 (set in this
+               process for these runs only): cheb_fwd 3, cheb_bwd_gxgd 2,
+               cheb_bwd_gd 1 per force evaluation, cheb_bwd_gx and every
+               cell variant 0; throughput beside the stacked slice's; the
+               profiler window. Then PERBLOCK_PERIODIC_STEPS steps of it
+               under the periodic slice's cell, on the cell variants only.
 6. dense    -- the same Langevin run on the dense exact-filter force
                field (message_passing="dense", bf16) for the same
                steps; launch counts must be 3 fwd + 3 bwd per force
@@ -60,8 +70,10 @@ Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -82,9 +94,11 @@ BOUNDS = {
     ("cheb_fwd", "fp32"): 1e-5,
     ("cheb_bwd_gx", "fp32"): 1e-4,
     ("cheb_bwd_gd", "fp32"): 1e-4,
+    ("cheb_bwd_gxgd", "fp32"): 1e-4,
     ("cheb_fwd", "bf16"): 2e-3,
     ("cheb_bwd_gx", "bf16"): 2e-3,
     ("cheb_bwd_gd", "bf16"): 2e-3,
+    ("cheb_bwd_gxgd", "bf16"): 2e-3,
     ("dense_cfconv_fwd", "fp32"): 1e-5,
     ("dense_cfconv_bwd", "fp32"): 1e-4,
     ("dense_cfconv_fwd", "bf16"): 2e-3,
@@ -95,9 +109,13 @@ BOUNDS = {
     ("cfconv_bwd", "bf16"): 2e-3,
 }
 FORCE_BOUND = 2e-3
-# pallas fp32 vs dense fp32 forces, and periodic (folded) vs open
-# (unfolded) fp32 network forces: one function, two summation orders.
+# pallas fp32 vs dense fp32 forces, periodic (folded) vs open (unfolded)
+# fp32 network forces, and per-block vs stacked cheb fp32 forces: one
+# function, two summation orders.
 CROSS_BOUND = 1e-4
+# The periodic per-block run's steps: shorter than the slices', to stay
+# well inside the time limit.
+PERBLOCK_PERIODIC_STEPS = 40
 OVERFLOW_CAPACITY = 32
 # benchmarks/pbc_ab.py's cell, and a sound triclinic one (smallest
 # perpendicular width 59.04 A; rows are lattice vectors).
@@ -115,6 +133,10 @@ REPLACES = {
         "flashmd_tpu/ops/pallas/cheb_kernel.py:476 (has_cell)",
     "cheb_bwd_gd_cell":
         "flashmd_tpu/ops/pallas/cheb_kernel.py:476 (has_cell)",
+    "cheb_bwd_gxgd": "flashmd_tpu/ops/pallas/cheb_kernel.py:476 "
+                     "(need_gx, need_gd)",
+    "cheb_bwd_gxgd_cell": "flashmd_tpu/ops/pallas/cheb_kernel.py:476 "
+                          "(need_gx, need_gd, has_cell)",
     "dense_cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:126",
     "dense_cfconv_bwd": "flashmd_tpu/ops/pallas/cfconv_dense.py:147",
     "cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv.py:137",
@@ -284,15 +306,36 @@ def phase_cheb_kernels(ff, pos, dev, cell=None):
             pair_flops * nb * f * m2,
             4 * (2 * s * a * 3 + 2 * s * a * nb * f + m2 * nb * f),
         ),
+        # the per-block schedule's blocks 2..B: gx and gpos in one launch
+        "cheb_bwd_gxgd": (
+            lambda p: ck.cheb_conv_bwd_gxgd(c, c2, w0, pos, x, g, rcut, p,
+                                            d_min, w_lin, **kw),
+            lambda p: ck.cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut,
+                                                  p, d_min, w_lin, **kw),
+            pair_flops * f * (m1 + 1 + lin + m2),
+            4 * (2 * s * a * 3 + 3 * s * a * f + (m1 + 1 + m2) * f + 2 * f),
+        ),
     }
     print(f"kernels: cheb{suffix} shapes S={s} A={a} F={f} (gd {nb * f}) "
           f"M1={m1} M2={m2} d_min={d_min}")
-    return {
+    stats = {
         name + suffix: compare_and_time(name, kern, plain, flops,
                                         nbytes + cell_bytes,
                                         label=name + suffix, fp32_flops=wrap)
         for name, (kern, plain, flops, nbytes) in cases.items()
     }
+    # the per-block schedule's block 1: the gd-only kernel on one block's
+    # [S, A, F] operands
+    stats[f"cheb_bwd_gd{suffix} (F={f})"] = compare_and_time(
+        "cheb_bwd_gd",
+        lambda p: ck.cheb_conv_bwd_gd(c2, pos, x, g, rcut, p, d_min, **kw),
+        lambda p: ck.cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, p, d_min,
+                                            **kw),
+        pair_flops * f * m2, 4 * (2 * s * a * 3 + 2 * s * a * f + m2 * f)
+        + cell_bytes, label=f"cheb_bwd_gd{suffix} (F={f}, one block)",
+        fp32_flops=wrap,
+    )
+    return stats
 
 
 def kernel_cells(n, dev=None):
@@ -559,7 +602,8 @@ def with_cells(cfgs, cells, folded=False):
             for c, p, cl in zip(cfgs, pos, cells)]
 
 
-def phase_forces(dev, message_passing):
+def phase_forces(dev, message_passing, label=None):
+    label = label or message_passing
     out = {}
     for device in (dev, torch.device("cpu")):
         ff, cfgs = _force_fields(device, FORCE_BATCH,
@@ -567,17 +611,64 @@ def phase_forces(dev, message_passing):
         out[device.type] = _forces(ff, cfgs, device)
     (e_k, f_k), (e_p, f_p) = out["cuda"], out["cpu"]
     check(bool(torch.isfinite(f_k).all()),
-          f"forces {message_passing}: non-finite on the card")
+          f"forces {label}: non-finite on the card")
     f_rel = float((f_k - f_p).abs().max() / f_p.abs().max())
     e_rel = float((e_k - e_p).abs().max() / e_p.abs().max())
-    print(f"forces: {message_passing} batch {FORCE_BATCH} card vs cpu plain: "
+    print(f"forces: {label} batch {FORCE_BATCH} card vs cpu plain: "
           f"max|dF|/max|F| = {f_rel:.3e}, max|dE|/max|E| = {e_rel:.3e} "
           f"(bound {FORCE_BOUND:.0e})")
     check(f_rel <= FORCE_BOUND and e_rel <= FORCE_BOUND,
-          f"forces {message_passing}: card and CPU disagree")
+          f"forces {label}: card and CPU disagree")
 
 
-def phase_periodic_forces(dev):
+@contextlib.contextmanager
+def cheb_schedule(value):
+    """FLASHMD_CHEB_STACK set to ``value`` ("0": one conv per block) in
+    this process for the block, and restored after it."""
+    old = os.environ.get("FLASHMD_CHEB_STACK")
+    os.environ["FLASHMD_CHEB_STACK"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["FLASHMD_CHEB_STACK"]
+        else:
+            os.environ["FLASHMD_CHEB_STACK"] = old
+
+
+def cheb_counts(n_evals, per_block=False, cell=False):
+    """Every cheb launch counter's expected value over ``n_evals`` force
+    evaluations of the 3-block slice on one schedule, open or with cells:
+    fwd 3, gx 2, gd 1 (stacked) or fwd 3, gxgd 2, gd 1 (per block)."""
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    per = ({"cheb_fwd": 3, "cheb_bwd_gxgd": 2, "cheb_bwd_gd": 1} if per_block
+           else {"cheb_fwd": 3, "cheb_bwd_gx": 2, "cheb_bwd_gd": 1})
+    sfx = "_cell" if cell else ""
+    return {**dict.fromkeys(ck.launch_counts(), 0),
+            **{k + sfx: v * n_evals for k, v in per.items()}}
+
+
+def phase_schedule_check(dev):
+    """Per-block vs stacked cheb fp32 forces on the card, same weights and
+    positions, open and on the folded positions with the kernels' cells:
+    one function on two schedules."""
+    ff, cfgs = _force_fields(dev, FORCE_BATCH, precision="fp32")
+    folded = with_cells(cfgs, kernel_cells(FORCE_BATCH), folded=True)
+    for label, c in (("open", cfgs), ("periodic (folded, cells)", folded)):
+        with cheb_schedule("1"):
+            f_s = _forces(ff, c, dev)[1]
+        with cheb_schedule("0"):
+            f_b = _forces(ff, c, dev)[1]
+        rel = float((f_b - f_s).abs().max() / f_s.abs().max())
+        print(f"forces: per-block vs stacked cheb fp32, {label}, batch "
+              f"{FORCE_BATCH}: max|dF|/max|F| = {rel:.3e} (bound "
+              f"{CROSS_BOUND:.0e})")
+        check(rel <= CROSS_BOUND,
+              f"per-block and stacked fp32 forces disagree ({label})")
+
+
+def phase_periodic_forces(dev, label="cheb periodic"):
     """Periodic cheb forces, card vs CPU plain path, at batch 4 on the
     start positions folded into the kernels' cells (so live pairs cross
     faces). Folding breaks the chain's bonds in the raw coordinates the
@@ -597,20 +688,20 @@ def phase_periodic_forces(dev):
     ((e_k, f_k), open_k, _), ((e_p, f_p), open_p, total_p) = (
         out["cuda"], out["cpu"])
     check(bool(torch.isfinite(f_k).all()),
-          "forces cheb periodic: non-finite on the card")
+          f"forces {label}: non-finite on the card")
     scale = float(total_p.abs().max())
     f_rel = float((f_k - f_p).abs().max()) / scale
     e_rel = float((e_k - e_p).abs().max() / e_p.abs().max())
     net_rel = float((f_k - f_p).abs().max() / f_p.abs().max())
     open_rel = float((open_k - open_p).abs().max() / open_p.abs().max())
-    print(f"forces: cheb periodic (folded, cubic/triclinic cells) network "
+    print(f"forces: {label} (folded, cubic/triclinic cells) network "
           f"batch {FORCE_BATCH} card vs cpu plain: max|dF|/max|F_total| = "
           f"{f_rel:.3e}, max|dE|/max|E| = {e_rel:.3e} (bound "
           f"{FORCE_BOUND:.0e}); network only max|dF|/max|F_net| = "
           f"{net_rel:.3e} periodic, {open_rel:.3e} open (unfolded), "
           "not gated")
     check(f_rel <= FORCE_BOUND and e_rel <= FORCE_BOUND,
-          "forces cheb periodic: card and CPU disagree")
+          f"forces {label}: card and CPU disagree")
 
 
 def phase_image_check(dev):
@@ -808,35 +899,59 @@ def main():
     stats.update(dense_stats)
     nbr_stats, nbr_no_gx_ms = phase_nbr_kernels(ff_pallas, pos, dev)
     stats.update(nbr_stats)
-    phase_forces(dev, "cheb")
-    phase_periodic_forces(dev)
+    with cheb_schedule("1"):
+        phase_forces(dev, "cheb")
+        phase_periodic_forces(dev)
+    with cheb_schedule("0"):
+        phase_forces(dev, "cheb", label="cheb per-block")
+        phase_periodic_forces(dev, label="cheb per-block periodic")
+    phase_schedule_check(dev)
     phase_forces(dev, "dense")
     phase_forces(dev, "pallas")
     phase_cross_check(dev)
     phase_image_check(dev)
 
     n_evals = STEPS + 1
-    open_counts = {"cheb_fwd": 3 * n_evals, "cheb_bwd_gx": 2 * n_evals,
-                   "cheb_bwd_gd": 1 * n_evals}
-    counts, _, sim = run_slice(
-        "slice", ff, cfgs, dev, STEPS, SAVE_INTERVAL, ck,
-        {**open_counts, **{k + "_cell": 0 for k in open_counts}}, smi,
-    )
-    open_tp = sim.get_throughput_metrics()["throughput"]
-    profile_steps(sim, dev, PROFILE_STEPS, "slice")
-    # benchmarks/pbc_ab.py's configuration: cubic BOX on every molecule.
-    pbc_cfgs = with_cells(cfgs, np.stack([BOX * np.eye(3)] * BATCH))
-    pbc_counts, _, sim = run_slice(
-        "periodic", ff, pbc_cfgs, dev, STEPS, SAVE_INTERVAL, ck,
-        {**{k: 0 for k in open_counts},
-         **{k + "_cell": v for k, v in open_counts.items()}}, smi,
-    )
+    with cheb_schedule("1"):
+        counts, _, sim = run_slice("slice", ff, cfgs, dev, STEPS,
+                                   SAVE_INTERVAL, ck, cheb_counts(n_evals),
+                                   smi)
+        open_tp = sim.get_throughput_metrics()["throughput"]
+        profile_steps(sim, dev, PROFILE_STEPS, "slice")
+        # benchmarks/pbc_ab.py's configuration: cubic BOX on every molecule.
+        pbc_cfgs = with_cells(cfgs, np.stack([BOX * np.eye(3)] * BATCH))
+        pbc_counts, _, sim = run_slice(
+            "periodic", ff, pbc_cfgs, dev, STEPS, SAVE_INTERVAL, ck,
+            cheb_counts(n_evals, cell=True), smi,
+        )
     counts.update({k: v for k, v in pbc_counts.items() if k.endswith("_cell")})
     pbc_tp = sim.get_throughput_metrics()["throughput"]
     print(f"periodic: second-half throughput {pbc_tp:.1f} timestep*mol/s "
           f"beside the open cheb slice's {open_tp:.1f} in this run "
           f"(ratio {pbc_tp / open_tp:.4f})")
     profile_steps(sim, dev, PROFILE_STEPS, "periodic")
+    with cheb_schedule("0"):
+        pb_counts, _, sim = run_slice(
+            "per-block", ff, cfgs, dev, STEPS, SAVE_INTERVAL, ck,
+            cheb_counts(n_evals, per_block=True), smi,
+        )
+        pb_tp = sim.get_throughput_metrics()["throughput"]
+        print(f"per-block: second-half throughput {pb_tp:.1f} timestep*mol/s "
+              f"beside the stacked open slice's {open_tp:.1f} in this run "
+              f"(ratio {pb_tp / open_tp:.4f})")
+        profile_steps(sim, dev, PROFILE_STEPS, "per-block")
+        n_pbc = PERBLOCK_PERIODIC_STEPS + 1
+        pbc_pb_counts, _, sim = run_slice(
+            "per-block periodic", ff, pbc_cfgs, dev, PERBLOCK_PERIODIC_STEPS,
+            SAVE_INTERVAL, ck, cheb_counts(n_pbc, per_block=True, cell=True),
+            smi,
+        )
+    counts["cheb_bwd_gxgd"] = pb_counts["cheb_bwd_gxgd"]
+    counts["cheb_bwd_gxgd_cell"] = pbc_pb_counts["cheb_bwd_gxgd_cell"]
+    print(f"per-block periodic: second-half throughput "
+          f"{sim.get_throughput_metrics()['throughput']:.1f} timestep*mol/s "
+          f"({PERBLOCK_PERIODIC_STEPS} steps) beside the stacked periodic "
+          f"slice's {pbc_tp:.1f}")
     dense_counts, ms_step, _ = run_slice(
         "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
         {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},

@@ -1,8 +1,8 @@
 // Chebyshev matmul-only CFConv kernels for Hopper (sm_90a), plain C
 // interface for ctypes. Built by flashmd_tpu_torch/ops/_build.py.
 //
-// Three kernels replace the TPU kernels of
-// flashmd_tpu/ops/pallas/cheb_kernel.py on the simulation's main path:
+// Four kernels replace the TPU kernels of
+// flashmd_tpu/ops/pallas/cheb_kernel.py:
 //
 //   cheb_fwd     <- _cheb_fwd_kernel
 //     out[i] = sum_m c_m * (Ttil_m[i,:] @ x) - w0 * x[i]
@@ -10,10 +10,17 @@
 //   cheb_bwd_gx  <- _cheb_bwd_kernel (need_gx=True, need_gd=False)
 //     gx[i]  = sum_k That_k[i,:] @ (q_k * g) - w0 * g[i]
 //              + low[i,:] @ (w_lin * g),   That_k = (1-z) T_k(z)
-//   cheb_bwd_gd  <- _cheb_bwd_kernel (need_gx=False, stacked=True)
+//   cheb_bwd_gd  <- _cheb_bwd_kernel (need_gx=False; block-stacked on the
+//                   stacked schedule, one block's [A, F] on the per-block
+//                   schedule)
 //     gd[i,j] = (1-z) sum_m T_m(z) ((c2_m * g[i]) . x[j]),  W = gd / d
 //     gpos[i] = pos[i] rowsum(W)_i - (W @ pos)_i
 //             + pos[i] colsum(W)_i - (W^T @ pos)_i
+//   cheb_bwd_gxgd <- _cheb_bwd_kernel (need_gx=True, need_gd=True), the
+//                   per-block backward of blocks 2..B: gx and gpos in one
+//                   launch from ONE recurrence on That_m = (1-z) T_m, which
+//                   feeds the gx products directly and gd as
+//                   gd = sum_m That_m U_m (the (1-z) factor rides in That).
 //
 // What bounds them on the H100: at the slice (A=266, F=128, B=3 blocks,
 // orders 48/64) the three kernels are matrix work,
@@ -68,6 +75,15 @@ constexpr int GD_T = 64;
 constexpr int GD_FC = 32;
 constexpr int GD_LD = GD_FC + 1;  // padded row stride: no bank conflicts
 constexpr int GD_WLD = GD_T + 1;
+
+// cheb_bwd_gxgd tiling: 32 x 32 pair tiles (each thread 4 rows x 1
+// column), gx rows x 128 features per thread block, features in chunks of
+// 128. GG_LD pads the float4-read tiles to 16-byte rows whose float4
+// reads by 8 consecutive threads fall in distinct banks.
+constexpr int GG_T = 32;
+constexpr int GG_FC = 128;
+constexpr int GG_LD = GG_FC + 4;
+constexpr int GG_WLD = GG_T + 1;
 
 __device__ __forceinline__ float rnd_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -525,6 +541,316 @@ __global__ void gd_reduce_kernel(const float* __restrict__ row_part,
   gpos[idx] = v;
 }
 
+// Per-block backward with both halves (cheb_bwd_gxgd). Grid: (row tiles,
+// molecules). Per feature chunk and column block, every thread carries its
+// 4 pairs' recurrence on That_m = (1-z) T_m in registers and uses each
+// order twice: rounded into the shared pair tile for the gx product
+//     acc[rows, features] += That_m[rows, cols] @ (q_m * g[cols])
+// (orders m < MQ), and as the weight of its pairs' distance gradient
+//     gd[pair] += That_m * ((c2_m * g[row]) . x[col])
+// (orders m < M2), whose c2_m * g[rows] tile is formed once per order in
+// shared memory. The gx rows are owned by the block (That is symmetric);
+// W = gd / d enters the position gradient per column block: row sides
+// stay in registers, column sides go to this row tile's slab of
+// col_part (written by the first feature chunk, added to by later ones,
+// always by the same thread), summed by gd_reduce_kernel in tile order.
+// That epilogue repeats cheb_gd_kernel's instead of sharing device
+// functions with it: shared, ptxas gave cheb_gd_kernel 171 registers in
+// place of 165 and it ran 2.4 % slower (H100 80GB HBM3, 700 W).
+// No atomics. Bound at the per-block slice (A=266, F=128, orders 49 and
+// 64 plus the low term): 114 order-products of 2*A^2*F FLOP per molecule,
+// matrix work far above the machine balance, as in the other three.
+template <bool BF16, bool HAS_CELL>
+__global__ void __launch_bounds__(THREADS)
+cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
+                 const float* __restrict__ g, const float* __restrict__ q,
+                 const float* __restrict__ c2, const float* __restrict__ w0,
+                 const float* __restrict__ w_lin,
+                 const float* __restrict__ cell,
+                 const float* __restrict__ inv, float* __restrict__ gx,
+                 float* __restrict__ row_part, float* __restrict__ col_part,
+                 int A, int F, int MQ, int M2, int n_tiles, float rcut,
+                 float d_min, float scale) {
+  extern __shared__ float4 gxgd_smem4[];
+  float* cg_s = reinterpret_cast<float*>(gxgd_smem4);  // [2][GG_T][GG_LD]
+  float* x_s = cg_s + 2 * GG_T * GG_LD;   // [GG_T][GG_LD], x at the columns
+  float* gc_s = x_s + GG_T * GG_LD;       // [GG_T][GG_FC], g at the columns
+  float* gr_s = gc_s + GG_T * GG_FC;      // [GG_T][GG_FC], g at the rows
+  float* t_s = gr_s + GG_T * GG_FC;       // [2][GG_T][GG_T]
+  float* w_s = t_s + 2 * GG_T * GG_T;     // [GG_T][GG_WLD]
+  float* geo_s = w_s + GG_T * GG_WLD;     // [18], cell variant only
+  __shared__ float pr_s[GG_T][3];
+  __shared__ float pc_s[GG_T][3];
+  // row side per row (rowsum W, W pos or W rel), kept here rather than in
+  // registers live across the whole order loop
+  __shared__ float rsum_s[GG_T][4];
+
+  const int s = blockIdx.y;
+  const int rt = blockIdx.x;
+  const int r0 = rt * GG_T;
+  const int tid = threadIdx.x;
+  const int tx = tid & 31;
+  const int ty = tid >> 5;
+  const int cf = tid & (GG_FC - 1);  // this thread's feature of the cg tile
+  const int M = MQ > M2 ? MQ : M2;
+  pos += (size_t)s * A * 3;
+  x += (size_t)s * A * F;
+  g += (size_t)s * A * F;
+  gx += (size_t)s * A * F;
+
+  if (tid < GG_T * 3) {
+    int r = tid / 3, c = tid % 3;
+    pr_s[r][c] = (r0 + r < A) ? pos[(r0 + r) * 3 + c] : 0.0f;
+  }
+  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
+  if (tid < GG_T * 4) rsum_s[tid >> 2][tid & 3] = 0.0f;
+
+  for (int f0 = 0; f0 < F; f0 += GG_FC) {
+    const int nf4 = ((F - f0 < GG_FC ? F - f0 : GG_FC) + 3) / 4;
+    int fk[4];
+    bool fok[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      fk[k] = f0 + tx + 32 * k;
+      fok[k] = fk[k] < F;
+    }
+    __syncthreads();  // the previous chunk's reads of gr_s are done
+    for (int e = tid; e < GG_T * GG_FC; e += THREADS) {
+      int rr = e / GG_FC, ff = e % GG_FC;
+      int r = r0 + rr, f = f0 + ff;
+      gr_s[e] = (r < A && f < F) ? g[(size_t)r * F + f] : 0.0f;
+    }
+
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+
+    for (int j0 = 0; j0 < A; j0 += GG_T) {
+      __syncthreads();  // the previous column block's reads are done
+      for (int e = tid; e < GG_T * GG_FC; e += THREADS) {
+        int jj = e / GG_FC, ff = e % GG_FC;
+        int j = j0 + jj, f = f0 + ff;
+        bool in = j < A && f < F;
+        gc_s[e] = in ? g[(size_t)j * F + f] : 0.0f;
+        x_s[jj * GG_LD + ff] = in ? op<BF16>(x[(size_t)j * F + f]) : 0.0f;
+      }
+      if (tid < GG_T * 3) {
+        int jj = tid / 3, c = tid % 3;
+        pc_s[jj][c] = (j0 + jj < A) ? pos[(j0 + jj) * 3 + c] : 0.0f;
+      }
+      __syncthreads();
+
+      // This thread's 4 pairs: rows ty + 8e, column tx.
+      float z[4], d[4], hp[4], hc[4], gd[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int r = ty + 8 * e;
+        bool valid = (r0 + r < A) && (j0 + tx < A);
+        pair_geom<HAS_CELL>(pr_s[r], pc_s[tx], geo_s, valid, rcut, d_min,
+                            scale, d[e], z[e]);
+        hp[e] = 1.0f - z[e];
+        hc[e] = hp[e] * z[e];
+        gd[e] = 0.0f;
+      }
+
+      for (int m = 0; m < M; ++m) {
+        float* tb = t_s + (m & 1) * GG_T * GG_T;
+        float* cb = cg_s + (m & 1) * GG_T * GG_LD;
+        float h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (m == 0) {
+            h[e] = hp[e];
+          } else if (m == 1) {
+            h[e] = hc[e];
+          } else {
+            h[e] = 2.0f * z[e] * hc[e] - hp[e];
+            hp[e] = hc[e];
+            hc[e] = h[e];
+          }
+        }
+        if (m < MQ) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tb[(ty + 8 * e) * GG_T + tx] = op<BF16>(h[e]);
+        }
+        if (m < M2) {
+          float cv = (f0 + cf < F) ? c2[(size_t)m * F + f0 + cf] : 0.0f;
+#pragma unroll 4
+          for (int rr = tid >> 7; rr < GG_T; rr += THREADS / GG_FC)
+            cb[rr * GG_LD + cf] = op<BF16>(cv * gr_s[rr * GG_FC + cf]);
+        }
+        __syncthreads();
+
+        if (m < MQ) {
+          float qm[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            qm[k] = fok[k] ? q[(size_t)m * F + fk[k]] : 0.0f;
+#pragma unroll 4
+          for (int jj = 0; jj < GG_T; ++jj) {
+            float b[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              b[k] = op<BF16>(qm[k] * gc_s[jj * GG_FC + tx + 32 * k]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float t = tb[(ty + 8 * i) * GG_T + jj];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[i][k] += t * b[k];
+            }
+          }
+        }
+        if (m < M2) {
+          float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+          for (int f4 = 0; f4 < nf4; ++f4) {
+            float4 xv =
+                *reinterpret_cast<const float4*>(x_s + tx * GG_LD + 4 * f4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float4 cv = *reinterpret_cast<const float4*>(
+                  cb + (ty + 8 * e) * GG_LD + 4 * f4);
+              u[e] += cv.x * xv.x;
+              u[e] += cv.y * xv.y;
+              u[e] += cv.z * xv.z;
+              u[e] += cv.w * xv.w;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gd[e] += h[e] * u[e];
+        }
+      }
+
+      if (w_lin != nullptr) {
+        // gx half of the first-order extrapolation below the fit floor:
+        // low = min(d - d_min, 0) off the diagonal, zero outside [0, A).
+        float* tb = t_s + (M & 1) * GG_T * GG_T;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int r = r0 + ty + 8 * e, j = j0 + tx;
+          bool valid = (r < A) && (j < A) && (r != j);
+          float low = valid ? fminf(d[e] - d_min, 0.0f) : 0.0f;
+          tb[(ty + 8 * e) * GG_T + tx] = op<BF16>(low);
+        }
+        float wl[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) wl[k] = fok[k] ? w_lin[fk[k]] : 0.0f;
+        __syncthreads();
+#pragma unroll 4
+        for (int jj = 0; jj < GG_T; ++jj) {
+          float b[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            b[k] = op<BF16>(wl[k] * gc_s[jj * GG_FC + tx + 32 * k]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float t = tb[(ty + 8 * i) * GG_T + jj];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[i][k] += t * b[k];
+          }
+        }
+      }
+
+      // W = gd / d on live pairs: d < rcut, off the diagonal, in range.
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int rr = ty + 8 * e;
+        int r = r0 + rr, j = j0 + tx;
+        bool keep = (r < A) && (j < A) && (r != j) && (d[e] < rcut);
+        w_s[rr * GG_WLD + tx] = keep ? gd[e] / d[e] : 0.0f;
+      }
+      __syncthreads();
+      if (tid < GG_T) {
+        // row side, accumulated over chunks and column blocks in order
+        float rs = rsum_s[tid][0], wp0 = rsum_s[tid][1];
+        float wp1 = rsum_s[tid][2], wp2 = rsum_s[tid][3];
+        for (int jj = 0; jj < GG_T; ++jj) {
+          float w = w_s[tid * GG_WLD + jj];
+          if (HAS_CELL) {
+            float e0, e1, e2;
+            pair_rel<true>(pr_s[tid], pc_s[jj], geo_s, e0, e1, e2);
+            wp0 += w * e0;
+            wp1 += w * e1;
+            wp2 += w * e2;
+          } else {
+            rs += w;
+            wp0 += w * pc_s[jj][0];
+            wp1 += w * pc_s[jj][1];
+            wp2 += w * pc_s[jj][2];
+          }
+        }
+        rsum_s[tid][0] = rs;
+        rsum_s[tid][1] = wp0;
+        rsum_s[tid][2] = wp1;
+        rsum_s[tid][3] = wp2;
+      } else if (tid < 2 * GG_T) {
+        // column side of this tile, summed over its rows in order
+        int jj = tid - GG_T, j = j0 + jj;
+        float cs = 0.0f, q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
+        for (int rr = 0; rr < GG_T; ++rr) {
+          float w = w_s[rr * GG_WLD + jj];
+          if (HAS_CELL) {
+            float e0, e1, e2;
+            pair_rel<true>(pr_s[rr], pc_s[jj], geo_s, e0, e1, e2);
+            q0 += w * e0;
+            q1 += w * e1;
+            q2 += w * e2;
+          } else {
+            cs += w;
+            q0 += w * pr_s[rr][0];
+            q1 += w * pr_s[rr][1];
+            q2 += w * pr_s[rr][2];
+          }
+        }
+        if (j < A) {
+          float v0 = HAS_CELL ? q0 : pc_s[jj][0] * cs - q0;
+          float v1 = HAS_CELL ? q1 : pc_s[jj][1] * cs - q1;
+          float v2 = HAS_CELL ? q2 : pc_s[jj][2] * cs - q2;
+          float* o = col_part + (((size_t)s * n_tiles + rt) * A + j) * 3;
+          if (f0 == 0) {
+            o[0] = v0;
+            o[1] = v1;
+            o[2] = v2;
+          } else {
+            o[0] += v0;
+            o[1] += v1;
+            o[2] += v2;
+          }
+        }
+      }
+    }
+
+    // This chunk's gx rows; the diagonal (z = -1) contributed w0 * g[i].
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int r = r0 + ty + 8 * i;
+      if (r >= A) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!fok[k]) continue;
+        size_t o = (size_t)r * F + fk[k];
+        gx[o] = acc[i][k] - w0[fk[k]] * g[o];
+      }
+    }
+  }
+  if (tid < GG_T && r0 + tid < A) {
+    const float* v = rsum_s[tid];
+    float* o = row_part + ((size_t)s * A + r0 + tid) * 3;
+    if (HAS_CELL) {
+      o[0] = -v[1];
+      o[1] = -v[2];
+      o[2] = -v[3];
+    } else {
+      o[0] = pr_s[tid][0] * v[0] - v[1];
+      o[1] = pr_s[tid][1] * v[0] - v[2];
+      o[2] = pr_s[tid][2] * v[0] - v[3];
+    }
+  }
+}
+
 inline float fit_scale(float rcut, float d_min) {
   return (float)(2.0 / ((double)rcut - (double)d_min));
 }
@@ -586,11 +912,37 @@ int launch_gd(const float* pos, const float* x, const float* g,
   return (int)cudaGetLastError();
 }
 
+inline int cheb_gxgd_tiles_of(int A) { return (A + GG_T - 1) / GG_T; }
+
+template <bool BF16, bool HAS_CELL>
+int launch_gxgd(const float* pos, const float* x, const float* g,
+                const float* q, const float* c2, const float* w0,
+                const float* w_lin, const float* cell, const float* inv,
+                float* gx, float* row_part, float* col_part, int S, int A,
+                int F, int MQ, int M2, float rcut, float d_min,
+                cudaStream_t stream) {
+  int n_tiles = cheb_gxgd_tiles_of(A);
+  size_t smem = sizeof(float) *
+                (3 * GG_T * GG_LD + 2 * GG_T * GG_FC + 2 * GG_T * GG_T +
+                 GG_T * GG_WLD + (HAS_CELL ? 18 : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      cheb_gxgd_kernel<BF16, HAS_CELL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_tiles, S);
+  cheb_gxgd_kernel<BF16, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+      pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, A, F,
+      MQ, M2, n_tiles, rcut, d_min, fit_scale(rcut, d_min));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int cheb_gd_tiles(int A) { return cheb_gd_tiles_of(A); }
+
+int cheb_gxgd_tiles(int A) { return cheb_gxgd_tiles_of(A); }
 
 int cheb_fwd(const float* pos, const float* x, const float* c,
              const float* w0, const float* w_lin, const float* cell,
@@ -630,6 +982,38 @@ int cheb_bwd_gd(const float* pos, const float* x, const float* g,
                                         st);
   if (rc != 0) return rc;
   int n_tiles = cheb_gd_tiles_of(A);
+  int total = S * A * 3;
+  gd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(row_part, col_part,
+                                                        gpos, S, A, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+int cheb_bwd_gxgd(const float* pos, const float* x, const float* g,
+                  const float* q, const float* c2, const float* w0,
+                  const float* w_lin, const float* cell, const float* inv,
+                  float* gx, float* row_part, float* col_part, float* gpos,
+                  int S, int A, int F, int MQ, int M2, float rcut,
+                  float d_min, int bf16, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((cell == nullptr) != (inv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  if (cell != nullptr)
+    rc = bf16 ? launch_gxgd<true, true>(pos, x, g, q, c2, w0, w_lin, cell,
+                                        inv, gx, row_part, col_part, S, A, F,
+                                        MQ, M2, rcut, d_min, st)
+              : launch_gxgd<false, true>(pos, x, g, q, c2, w0, w_lin, cell,
+                                         inv, gx, row_part, col_part, S, A,
+                                         F, MQ, M2, rcut, d_min, st);
+  else
+    rc = bf16 ? launch_gxgd<true, false>(pos, x, g, q, c2, w0, w_lin, cell,
+                                         inv, gx, row_part, col_part, S, A,
+                                         F, MQ, M2, rcut, d_min, st)
+              : launch_gxgd<false, false>(pos, x, g, q, c2, w0, w_lin, cell,
+                                          inv, gx, row_part, col_part, S, A,
+                                          F, MQ, M2, rcut, d_min, st);
+  if (rc != 0) return rc;
+  int n_tiles = cheb_gxgd_tiles_of(A);
   int total = S * A * 3;
   gd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(row_part, col_part,
                                                         gpos, S, A, n_tiles);

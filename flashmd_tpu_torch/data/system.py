@@ -94,6 +94,21 @@ class Configuration:
                 raise ValueError(
                     f"cell must be [3, 3], got {self.cell.shape}"
                 )
+        if self.exc_pair_index is not None:
+            # reference data/system.py:165-178
+            epi = np.asarray(self.exc_pair_index, dtype=np.int64)
+            if epi.ndim != 2 or 2 not in epi.shape:
+                raise ValueError(
+                    f"exc_pair_index must be [2, P] pairs, got {epi.shape}"
+                )
+            if epi.shape[0] != 2:  # accept the transposed [P, 2] layout
+                epi = epi.T
+            if epi.size and (epi.min() < 0 or epi.max() >= self.n_atoms):
+                raise ValueError(
+                    "exc_pair_index refers to atoms outside [0, "
+                    f"{self.n_atoms})"
+                )
+            self.exc_pair_index = epi
 
     @property
     def n_atoms(self) -> int:
@@ -130,8 +145,9 @@ class System:
 
 
 def validate_configurations(configurations: Sequence[Configuration]):
-    """Same shapes, atom types, term lists, mass and cell presence across
-    the batch (reference validate_configurations, data/system.py:253-310)."""
+    """Same shapes, atom types, term lists, mass and cell presence and pair
+    exclusions across the batch (reference validate_configurations,
+    data/system.py:253-310)."""
     if len(configurations) == 0:
         raise ValueError("Cannot collate an empty configuration list")
     ref = configurations[0]
@@ -167,6 +183,18 @@ def validate_configurations(configurations: Sequence[Configuration]):
             raise ValueError(
                 f"Inconsistent cell specification at frame {frame}."
             )
+        same_exc = (
+            (cfg.exc_pair_index is None) == (ref.exc_pair_index is None)
+        ) and (
+            cfg.exc_pair_index is None
+            or np.array_equal(cfg.exc_pair_index, ref.exc_pair_index)
+        )
+        if not same_exc:
+            # the exclusions are a property of THE molecule, like its types
+            raise ValueError(
+                f"exc_pair_index at frame {frame} does not match previous "
+                "frames."
+            )
 
 
 def collate(
@@ -181,12 +209,12 @@ def collate(
     Velocities given on EVERY configuration are honoured (reference
     collate, data/system.py:338-342); otherwise the integrator samples
     them. Cells (all or none) stack into ``System.cell`` [S, 3, 3]
-    (reference :344-347). Pair exclusions are not on the port's path and
-    raise.
+    (reference :344-347). Pair exclusions (the same on every
+    configuration) are the force field's to honour
+    (``ForceField.exc_pair_index``); the engine checks at attach that it
+    carries them.
     """
     validate_configurations(configurations)
-    if any(c.exc_pair_index is not None for c in configurations):
-        raise NotImplementedError("exc_pair_index is not ported yet")
     n_sims = len(configurations)
 
     def tensor(arr, dt=dtype):

@@ -10,11 +10,17 @@ so that every conv becomes a sweep of dense [A, A] @ [A, F] products
 (ops/cheb_kernel.py). Only the host fit (``proj`` method) is ported; the
 in-jit fit is not, because attach always fits on the host.
 
-GRADIENT CONTRACT (inference only, as in the reference): the stack's
+Two schedules, as in the reference: the whole stack with the deferred,
+block-stacked gd backward (``cheb_stack_apply``), and one conv per block
+(``cheb_cfconv_apply``, the reference's ``_cheb_cfconv``), around which the
+linear layers stay in autograd.
+
+GRADIENT CONTRACT (inference only, as in the reference): the convs'
 backward propagates cotangents to positions and the input features only;
-every parameter cotangent is exactly zero, or NaN under
+the Chebyshev coefficients' cotangents are exactly zero, or NaN under
 ``FLASHMD_CHEB_PARAM_GRAD=poison`` (reference ``_param_cotangent``,
-cheb.py:638-652).
+cheb.py:638-652). The stack gives every parameter that cotangent; on the
+per-block schedule the linear layers get their real gradients.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..ops.cheb_kernel import (
     _low_matrix,  # noqa: F401  (re-exported: the reference keeps it here)
     cheb_conv_bwd_gd,
     cheb_conv_bwd_gx,
+    cheb_conv_bwd_gxgd,
     cheb_conv_fwd,
 )
 from .cutoff import CosineCutoff
@@ -164,6 +171,60 @@ def _param_cotangent(t: torch.Tensor) -> torch.Tensor:
     if os.environ.get("FLASHMD_CHEB_PARAM_GRAD", "zero") == "poison":
         return torch.full_like(t, float("nan"))
     return torch.zeros_like(t)
+
+
+class _ChebConv(torch.autograd.Function):
+    """One block's Chebyshev CFConv (reference custom VJP _cheb_cfconv,
+    cheb.py:563-772). Forward: the cheb_fwd kernel. Backward with
+    ``need_gx``: gx and gpos in one cheb_bwd_gxgd launch; without it (block
+    1, whose input is the position-independent embedding): the gd-only
+    kernel on this block's [S, A, F] operands, gx zeros. c, c2 and w0 get
+    the contract's cotangent; ``cell``/``inv`` ([S, 3, 3] or None) none."""
+
+    @staticmethod
+    def forward(ctx, rcut, precision, need_gx, d_min, cell, inv, c, c2, w0,
+                pos, x):
+        w_lin = _lin_slope(c2) if d_min > 0 else None
+        out = cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min, w_lin,
+                            cell, inv)
+        ctx.rcut, ctx.precision, ctx.d_min = rcut, precision, d_min
+        ctx.need_gx, ctx.w_lin = need_gx, w_lin
+        ctx.cell, ctx.inv = cell, inv
+        ctx.save_for_backward(c, c2, w0, pos, x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        c, c2, w0, pos, x = ctx.saved_tensors
+        g = g.contiguous()
+        args = (ctx.rcut, ctx.precision, ctx.d_min)
+        if ctx.need_gx:
+            gpos, gx = cheb_conv_bwd_gxgd(c, c2, w0, pos, x, g, *args,
+                                          ctx.w_lin, ctx.cell, ctx.inv)
+        else:
+            gpos = cheb_conv_bwd_gd(c2, pos, x, g, *args, ctx.cell, ctx.inv)
+            gx = torch.zeros_like(x)
+        needs = ctx.needs_input_grad
+        return (
+            None, None, None, None, None, None,
+            *(_param_cotangent(t) if needs[6 + i] else None
+              for i, t in enumerate((c, c2, w0))),
+            gpos if needs[9] else None,
+            gx if needs[10] else None,
+        )
+
+
+def cheb_cfconv_apply(c, c2, w0, pos, x, rcut, precision="bf16",
+                      need_gx=True, cell=None, d_min=0.0, inv=None):
+    """One block's conv, [S, A, F] (reference cheb_cfconv_apply,
+    cheb.py:497-544): c [M1, F], c2 [M2, F], w0 [F], pos [S, A, 3], x
+    [S, A, F]. ``need_gx=False`` drops the gx half of the backward (block
+    1). ``cell`` None, [3, 3] or [S, 3, 3]; ``inv``, its inverse, may be
+    passed so that a force evaluation computes it once."""
+    check_precision(precision)
+    cell, inv = _cell_operands(cell, pos.shape[0], pos.device, inv)
+    return _ChebConv.apply(float(rcut), precision, bool(need_gx),
+                           float(d_min), cell, inv, c, c2, w0, pos, x)
 
 
 class _ChebStack(torch.autograd.Function):

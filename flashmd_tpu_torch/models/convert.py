@@ -38,22 +38,45 @@ def _field(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
+def _cosine_cutoff(cut, field: str) -> CosineCutoff:
+    """The port's CosineCutoff of a reference CosineCutoff (matched by
+    class name: this module imports nothing of the reference). Other
+    envelopes (IdentityCutoff, ShiftedCosineCutoff) are not ported and
+    raise, rather than run the cosine in their place."""
+    if isinstance(cut, CosineCutoff):
+        return cut
+    if type(cut).__name__ != "CosineCutoff":
+        raise NotImplementedError(
+            f"{field}={cut!r}: only CosineCutoff is ported to "
+            "flashmd_tpu_torch"
+        )
+    return CosineCutoff(float(cut.cutoff_lower), float(cut.cutoff_upper))
+
+
 def config_from_kwargs(config_kwargs: dict) -> SchNetConfig:
     """A port SchNetConfig from the reference config's fields; fields the
-    port does not have are dropped, and any cutoff object with
-    ``cutoff_lower``/``cutoff_upper`` becomes the port's CosineCutoff."""
+    port does not have are dropped. The cutoff must be a CosineCutoff, and
+    ``rbf_cutoff``, where given, the same one: the port's radial basis
+    takes the conv cutoff (reference radial_basis.py:68-78 multiplies by
+    ``rbf_cutoff``)."""
     names = {f.name for f in dataclasses.fields(SchNetConfig)}
     kw = {k: v for k, v in config_kwargs.items() if k in names}
-    cut = kw.get("cutoff")
-    if cut is not None and not isinstance(cut, CosineCutoff):
-        kw["cutoff"] = CosineCutoff(
-            float(cut.cutoff_lower), float(cut.cutoff_upper)
-        )
+    if kw.get("cutoff") is not None:
+        kw["cutoff"] = _cosine_cutoff(kw["cutoff"], "cutoff")
     if "output_hidden_layer_widths" in kw:
         kw["output_hidden_layer_widths"] = tuple(
             kw["output_hidden_layer_widths"]
         )
-    return SchNetConfig(**kw)
+    config = SchNetConfig(**kw)
+    rbf_cut = config_kwargs.get("rbf_cutoff")
+    if rbf_cut is not None and (
+        _cosine_cutoff(rbf_cut, "rbf_cutoff") != config.cutoff
+    ):
+        raise NotImplementedError(
+            f"rbf_cutoff={rbf_cut!r} differs from cutoff={config.cutoff!r}; "
+            "the port's radial basis takes the conv cutoff"
+        )
+    return config
 
 
 def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
@@ -65,7 +88,8 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
     reference layout (``embedding``, ``rbf``, ``interactions``,
     ``output``, optionally ``cheb_fit``). ``priors_np``: name -> prior
     with ``index_mapping``, ``params``, ``kind``, ``name``, ``feature``
-    (attributes or dict keys). ``config_kwargs``: see config_from_kwargs.
+    (attributes or dict keys); one with a ``term_mask`` raises.
+    ``config_kwargs``: see config_from_kwargs.
     ``neighbor_capacity`` and ``exc_pair_index`` ([2, P] or None) are the
     reference ForceField's fields of those names. The tensors are placed on
     the card unless ``device`` says otherwise.
@@ -75,6 +99,13 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
         params["cheb_fit"] = tuple(tuple(f) for f in params["cheb_fit"])
     priors = {}
     for key, p in priors_np.items():
+        term_mask = (p.get("term_mask") if isinstance(p, dict)
+                     else getattr(p, "term_mask", None))
+        if term_mask is not None:
+            raise NotImplementedError(
+                f"prior {key!r} carries a term_mask (a padded prior of a "
+                "mixed-size batch): padding is not ported yet"
+            )
         priors[key] = Prior(
             index_mapping=_tensor(_field(p, "index_mapping"), device),
             params={

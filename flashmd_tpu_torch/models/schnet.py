@@ -12,13 +12,15 @@ neighbour matrix with CUDA kernels (ops/cfconv.py). Any other value raises.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import torch
 
 from ..ops.cfconv import fused_cfconv_message
 from ..ops.cfconv_dense import dense_cfconv_message
-from .cheb import cheb_stack_apply
+from ..ops.cheb_kernel import _cell_operands
+from .cheb import cheb_cfconv_apply, cheb_stack_apply
 from .cutoff import CosineCutoff
 from .mlp import check_precision, init_mlp, mlp_apply, xavier_uniform
 from .radial_basis import GaussianBasisConfig, init_gaussian_basis
@@ -130,9 +132,12 @@ def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
 
 
 def _cheb_blocks(params, config: SchNetConfig, pos, x0, cell=None):
-    """Reference cheb branch (schnet.py:353-424), always through
-    ``cheb_stack_apply``. Needs the host fits attached
-    (``models.cheb.attach_cheb_fit``)."""
+    """Reference cheb branch (schnet.py:353-424). Needs the host fits
+    attached (``models.cheb.attach_cheb_fit``). ``FLASHMD_CHEB_STACK``,
+    read at call time as in the reference: "1" (the default) runs the
+    stack with its deferred block-stacked gd backward; any other value one
+    conv per block (block 1 without its dead gx half), with the linear
+    layers in autograd, in float32 as on the stack."""
     fits = params.get("cheb_fit")
     if fits is None:
         raise ValueError(
@@ -144,11 +149,22 @@ def _cheb_blocks(params, config: SchNetConfig, pos, x0, cell=None):
         or fits[0][1].shape[0] != config.cheb_order_deriv
     ):
         raise ValueError("stale cheb_fit: its orders differ from the config")
-    return cheb_stack_apply(
-        fits, params["interactions"], pos, x0,
-        float(config.cutoff.cutoff_upper), config.precision, cell=cell,
-        d_min=float(config.cheb_d_min),
-    )
+    rcut = float(config.cutoff.cutoff_upper)
+    d_min = float(config.cheb_d_min)
+    if os.environ.get("FLASHMD_CHEB_STACK", "1") == "1":
+        return cheb_stack_apply(
+            fits, params["interactions"], pos, x0, rcut, config.precision,
+            cell=cell, d_min=d_min,
+        )
+    cell, inv = _cell_operands(cell, pos.shape[0], pos.device)
+    x = x0
+    for i, ((c, c2, w0), bp) in enumerate(zip(fits, params["interactions"])):
+        h = x @ bp["lin1_w"]
+        agg = cheb_cfconv_apply(c, c2, w0, pos, h, rcut, config.precision,
+                                i > 0, cell=cell, d_min=d_min, inv=inv)
+        y = agg @ bp["lin2_w"] + bp["lin2_b"]
+        x = x + (torch.tanh(y) @ bp["lin_w"] + bp["lin_b"])
+    return x
 
 
 def _exact_filter_blocks(params, config: SchNetConfig, x, message):

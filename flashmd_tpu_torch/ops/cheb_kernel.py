@@ -8,7 +8,10 @@ wrapper            replaces (flashmd_tpu/ops/pallas/cheb_kernel.py)
 =================  ==========================================================
 cheb_conv_fwd      ``_cheb_fwd_kernel`` (:394), via ``cheb_conv_fwd_pallas``
 cheb_conv_bwd_gx   ``_cheb_bwd_kernel`` (:476), ``need_gd=False``
-cheb_conv_bwd_gd   ``_cheb_bwd_kernel`` (:476), ``need_gx=False, stacked``
+cheb_conv_bwd_gd   ``_cheb_bwd_kernel`` (:476), ``need_gx=False`` (stacked
+                   or one block's operands)
+cheb_conv_bwd_gxgd ``_cheb_bwd_kernel`` (:476), ``need_gx=True,
+                   need_gd=True``: the per-block backward
 =================  ==========================================================
 
 Every operand carries the batch as its leading axis: ``pos [S, A, 3]``,
@@ -198,13 +201,57 @@ def cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min=0.0,
     for m in range(2, c2.shape[0]):
         p_prev, p_cur = p_cur, two_z * p_cur - p_prev
         gd = gd + p_cur * u_m(m)
+    return _gpos_of_gd((1.0 - z) * gd, pos, rel, d, rcut, cell)
+
+
+def _gpos_of_gd(gd, pos, rel, d, rcut, cell):
+    """gpos from the distance gradient gd [S, A, A] (the (1-z) factor
+    applied): W = gd/d on live pairs, gpos = pos rowsum(W) - W pos + pos
+    colsum(W) - W^T pos; under a cell the pair shifts break that identity,
+    so W contracts the minimum-image rel directly: gpos_i = -sum_j (W_ij +
+    W_ji) rel_ij (reference models/cheb.py:751-756)."""
     eye = torch.eye(d.shape[-1], dtype=torch.bool, device=d.device)
-    gd = (1.0 - z) * gd
     gd = torch.where((d < rcut) & ~eye, gd, torch.zeros_like(gd))
     ws = (gd + gd.transpose(1, 2)) / d
     if cell is not None:
         return -torch.sum(ws[..., None] * rel, dim=2)
     return pos * torch.sum(ws, dim=2, keepdim=True) - ws @ pos
+
+
+def cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut, precision,
+                             d_min=0.0, w_lin=None, cell=None, inv=None):
+    """Both halves of one block's backward from ONE recurrence on That_m =
+    (1-z) T_m (reference _cheb_bwd, models/cheb.py:686-723, on the
+    kernels' own bases): gx as cheb_conv_bwd_gx_plain (orders of q =
+    _to_that_basis(c)), gd = sum_m That_m ((c2_m g) @ x^T) (orders of c2),
+    into gpos as cheb_conv_bwd_gd_plain. Returns (gpos, gx). bf16 rounds
+    That_k and q_k g (and low, w_lin g) for gx, c2_m g and x for gd."""
+    q = _to_that_basis(c)
+    cell, inv = _cell_operands(cell, pos.shape[0], pos.device, inv)
+    rel = pair_rel(pos, cell, inv)
+    d, z = _geometry(rel, rcut, d_min)
+    two_z = 2.0 * z
+    xt = _op(x, precision).transpose(1, 2)
+    n_q, n_d = q.shape[0], c2.shape[0]
+    h_prev, h_cur = 1.0 - z, (1.0 - z) * z
+    gx = gd = 0.0
+    for m in range(max(n_q, n_d)):
+        if m == 0:
+            h = h_prev
+        elif m == 1:
+            h = h_cur
+        else:
+            h_prev, h_cur = h_cur, two_z * h_cur - h_prev
+            h = h_cur
+        if m < n_q:
+            gx = gx + _op(h, precision) @ _op(q[m] * g, precision)
+        if m < n_d:
+            gd = gd + h * (_op(c2[m] * g, precision) @ xt)
+    if w_lin is not None:
+        gx = gx + _op(_low_matrix(d, d_min), precision) @ _op(
+            w_lin * g, precision
+        )
+    return _gpos_of_gd(gd, pos, rel, d, rcut, cell), gx - w0 * g
 
 
 # ---------------------------------------------------------------------------
@@ -327,10 +374,55 @@ def cheb_conv_bwd_gd(c2, pos, x, g, rcut, precision, d_min=0.0, cell=None,
     return gpos
 
 
+def cheb_conv_bwd_gxgd(c, c2, w0, pos, x, g, rcut, precision, d_min=0.0,
+                       w_lin=None, cell=None, inv=None):
+    """One block's whole backward in one launch -> (gpos [S, A, 3], gx
+    [S, A, F]); ``c`` [M1, F] is the forward series (re-expressed on the
+    That basis here), ``c2`` [M2, F] the derivative series, x/g [S, A, F]."""
+    check_precision(precision)
+    if pos.device.type == "cpu":
+        return cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut,
+                                        precision, d_min, w_lin, cell, inv)
+    from ._build import load
+
+    lib = load()
+    s, a, f = x.shape
+    _check("c", c, (c.shape[0], f))
+    q = _to_that_basis(c)
+    m2 = c2.shape[0]
+    _check("pos", pos, (s, a, 3))
+    _check("x", x, (s, a, f))
+    _check("g", g, (s, a, f))
+    _check("c2", c2, (m2, f))
+    _check("w0", w0, (f,))
+    tensors = [pos, x, g, q, c2, w0]
+    if w_lin is not None:
+        _check("w_lin", w_lin, (f,))
+        tensors.append(w_lin)
+    cell, inv = _cell_args(cell, inv, s, pos, tensors)
+    _same_device(*tensors)
+    n_tiles = lib.cheb_gxgd_tiles(a)
+    gx = torch.empty_like(g)
+    row_part = torch.empty(s, a, 3, dtype=torch.float32, device=pos.device)
+    col_part = torch.empty(s, n_tiles, a, 3, dtype=torch.float32,
+                           device=pos.device)
+    gpos = torch.empty_like(pos)
+    rc = lib.cheb_bwd_gxgd(
+        _ptr(pos), _ptr(x), _ptr(g), _ptr(q), _ptr(c2), _ptr(w0),
+        _ptr(w_lin), _ptr(cell), _ptr(inv), _ptr(gx), _ptr(row_part),
+        _ptr(col_part), _ptr(gpos), s, a, f, q.shape[0], m2, float(rcut),
+        float(d_min), int(precision == "bf16"), _stream(),
+    )
+    _raise_on(rc, "cheb_bwd_gxgd")
+    _count("cheb_bwd_gxgd", cell)
+    return gpos, gx
+
+
 KERNELS = {
     "cheb_fwd": cheb_conv_fwd,
     "cheb_bwd_gx": cheb_conv_bwd_gx,
     "cheb_bwd_gd": cheb_conv_bwd_gd,
+    "cheb_bwd_gxgd": cheb_conv_bwd_gxgd,
 }
 # Launches per kernel: the open variants under their names, the cell
 # variants under name + "_cell".

@@ -47,9 +47,9 @@ class Prior:
             )
 
 
-def harmonic_compute(x, x0, k):
-    """k (x - x0)^2 (reference priors.py:69-71, V0 = 0)."""
-    return k * torch.square(x - x0)
+def harmonic_compute(x, x0, k, V0=0.0):
+    """k (x - x0)^2 + V0 (reference priors.py:69-71)."""
+    return k * torch.square(x - x0) + V0
 
 
 def fourier_compute(theta, v_0, k1s, k2s):
@@ -85,7 +85,7 @@ def prior_energy(prior: Prior, pos: torch.Tensor) -> torch.Tensor:
         )
     feats = FEATURE_FNS[prior.feature](pos, prior.index_mapping)
     if prior.kind in ("harmonic_bonds", "harmonic_angles"):
-        terms = harmonic_compute(feats, p["x0"], p["k"])
+        terms = harmonic_compute(feats, p["x0"], p["k"], p.get("V0", 0.0))
     else:
         terms = fourier_compute(feats, p["v_0"], p["k1s"], p["k2s"])
     return torch.sum(terms, dim=-1)

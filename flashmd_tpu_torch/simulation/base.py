@@ -6,8 +6,9 @@ What is here: the constructor options ``dt``, ``n_timesteps``,
 caller asks for the CPU) and the neighbour-list options
 ``neighbor_capacity``, ``neighbor_skin`` and ``neighbor_rebuild_interval``;
 attach (which fits the Chebyshev filters on the host for a cheb model,
-base.py:479-508) and the minimum-image soundness check of periodic cells
-(:399-437); the initial carry (:661-683); the Verlet neighbour list
+base.py:479-508), the minimum-image soundness check of periodic cells
+(:399-437) and the pair-exclusion binding check (:439-459); the initial
+carry (:661-683); the Verlet neighbour list
 of the ``"pallas"`` path (:580-716): rebuilt at rcut + skin from the
 positions at the start of a step, every ``neighbor_rebuild_interval``
 steps, with the running maxima of the true neighbour count and of the
@@ -91,8 +92,24 @@ class Simulation:
         self, model: ForceField, configurations: List[Configuration], beta
     ):
         self._attach_model(model)
+        self._check_exclusion_binding(model, configurations)
         self._attach_configurations(configurations, beta)
         self._check_min_image_soundness()
+
+    @staticmethod
+    def _check_exclusion_binding(model, configurations):
+        """Configurations that carry ``exc_pair_index`` need a model that
+        honours it; running the SchNet term WITH the excluded pairs would
+        change the physics (reference base.py:439-459)."""
+        has_exc = any(c.exc_pair_index is not None for c in configurations)
+        if (has_exc and model.schnet_params is not None
+                and model.exc_pair_index is None):
+            raise ValueError(
+                "Configurations carry exc_pair_index but the model was "
+                "built without pair exclusions; pass the structure's "
+                "exclusions to forcefield_from_numpy(..., exc_pair_index=) "
+                "or set ForceField.exc_pair_index explicitly."
+            )
 
     def _check_min_image_soundness(self):
         """Periodic runs must satisfy the minimum-image condition at the

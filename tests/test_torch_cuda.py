@@ -1,9 +1,10 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
-Each kernel (Chebyshev, its periodic-cell variants, dense and
-neighbour-matrix CFConv) against its plain PyTorch twin on the card, the
-launch counters on the four paths, bitwise reproducibility and the
-wrappers' refusals. Without a card every test
+Each kernel (Chebyshev with the per-block combined backward, its
+periodic-cell variants, dense and neighbour-matrix CFConv) against its
+plain PyTorch twin on the card, the launch counters on the paths and on
+both cheb schedules, bitwise reproducibility, the wrappers' refusals and
+that the per-block schedule never takes a twin. Without a card every test
 skips (decided in a fixture, so every
 xdist worker collects the same tests). On the GPU machine, which has no
 JAX, run them without the JAX suite's conftest:
@@ -158,7 +159,7 @@ def test_cell_launch_counts(dev):
             cell=_cells(device, 2) * (25.0 / 24.0),
         )
         results[device.type] = (forces.cpu(), ck.launch_counts())
-    zero = dict.fromkeys(("cheb_fwd", "cheb_bwd_gx", "cheb_bwd_gd"), 0)
+    zero = dict.fromkeys(ck.launch_counts(), 0)
     assert results["cuda"][1] == {**zero, "cheb_fwd_cell": 3,
                                   "cheb_bwd_gx_cell": 2,
                                   "cheb_bwd_gd_cell": 1}
@@ -222,14 +223,92 @@ def test_main_path_launch_counts(dev):
             _, forces, _ = compute_energy_forces(ff, system.pos,
                                                  system.atom_types)
         results[device.type] = (forces.cpu(), ck.launch_counts())
-    assert results["cuda"][1] == {"cheb_fwd": 6, "cheb_bwd_gx": 4,
-                                  "cheb_bwd_gd": 2, "cheb_fwd_cell": 0,
-                                  "cheb_bwd_gx_cell": 0,
-                                  "cheb_bwd_gd_cell": 0}
+    assert results["cuda"][1] == {**dict.fromkeys(ck.launch_counts(), 0),
+                                  "cheb_fwd": 6, "cheb_bwd_gx": 4,
+                                  "cheb_bwd_gd": 2}
     assert all(v == 0 for v in results["cpu"][1].values())
     f_k, f_p = results["cuda"][0], results["cpu"][0]
     # bf16 model: summation order on the card vs the CPU only
     assert _rel(f_k, f_p) <= 2e-3
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("d_min", [0.0, 2.0])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("a,f", [(70, 128), (33, 48), (41, 200)])
+def test_gxgd_kernel_matches_twin(dev, precision, d_min, periodic, a, f):
+    """The combined per-block backward (gpos, gx) against its twin, open
+    and on positions folded into per-molecule cells; F = 200 runs two
+    feature chunks. Two launches on the same inputs are bitwise equal."""
+    from flashmd_tpu_torch.models.cheb import _lin_slope
+
+    t = _inputs(dev, 3, a, f, 12, 16)
+    pos, cell = t["pos"], None
+    if periodic:
+        pos, cell = torch.remainder(pos, 24.0), _cells(dev, 3)
+    w_lin = _lin_slope(t["c2"]) if d_min > 0 else None
+    args = (t["c"], t["c2"], t["w0"], pos, t["x"], t["g"], RCUT, precision,
+            d_min, w_lin)
+    out = ck.cheb_conv_bwd_gxgd(*args, cell=cell)
+    again = ck.cheb_conv_bwd_gxgd(*args, cell=cell)
+    ref = ck.cheb_conv_bwd_gxgd_plain(*args, cell=cell)
+    torch.cuda.synchronize()
+    for k, r in zip(out, ref):
+        assert _rel(k, r) <= BOUNDS[precision]["bwd"]
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+
+def _perblock_forces(device, monkeypatch, cell=None):
+    """Forces of a 3-block cheb model on the per-block schedule, with the
+    launch counts of the evaluation."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    monkeypatch.setenv("FLASHMD_CHEB_STACK", "0")
+    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=device)
+    ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
+                                                  ff.schnet_config))
+    system = collate(cfgs, device=device)
+    ck.reset_launch_counts()
+    _, forces, _ = compute_energy_forces(
+        ff, system.pos, system.atom_types,
+        cell=None if cell is None else cell.to(device),
+    )
+    return forces.cpu(), ck.launch_counts()
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_perblock_launch_counts(dev, periodic, monkeypatch):
+    """FLASHMD_CHEB_STACK=0: one force evaluation of a 3-block model
+    launches cheb_fwd 3, cheb_bwd_gxgd 2 (blocks 2-3) and cheb_bwd_gd 1
+    (block 1), the cell variants under a cell; the forces agree with the
+    CPU plain path."""
+    cell = _cells(dev, 2) * (25.0 / 24.0) if periodic else None
+    forces, counts = _perblock_forces(dev, monkeypatch, cell)
+    sfx = "_cell" if periodic else ""
+    assert counts == {**dict.fromkeys(counts, 0), "cheb_fwd" + sfx: 3,
+                      "cheb_bwd_gxgd" + sfx: 2, "cheb_bwd_gd" + sfx: 1}
+    forces_cpu, counts_cpu = _perblock_forces(torch.device("cpu"),
+                                              monkeypatch, cell)
+    assert all(v == 0 for v in counts_cpu.values())
+    # bf16 model: summation order on the card vs the CPU only
+    assert _rel(forces, forces_cpu) <= 2e-3
+
+
+def test_perblock_path_never_takes_a_twin(dev, monkeypatch):
+    """With every cheb twin made to raise, the per-block schedule still
+    runs on the card: its wrappers launch, they never fall back."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain twin ran on the card")
+
+    for name in ("cheb_conv_fwd_plain", "cheb_conv_bwd_gd_plain",
+                 "cheb_conv_bwd_gxgd_plain", "cheb_conv_bwd_gx_plain"):
+        monkeypatch.setattr(ck, name, refuse)
+    forces, counts = _perblock_forces(dev, monkeypatch)
+    assert counts["cheb_bwd_gxgd"] == 2
+    assert torch.isfinite(forces).all()
 
 
 def _dense_inputs(dev, s, a, f=128, r=50, seed=0):

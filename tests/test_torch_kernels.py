@@ -213,13 +213,17 @@ def test_precision_tiers():
 def test_cpu_tensors_never_count_launches():
     """On the CPU the wrapper takes the plain twin, which is no launch, open
     or periodic; the cell variants are counted apart."""
-    c, _, w0 = _coeffs()
-    pos, x, _ = _inputs(23)
+    c, c2, w0 = _coeffs()
+    pos, x, g = _inputs(23)
     ck.reset_launch_counts()
     ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp32")
     ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp32",
                      cell=9.0 * torch.eye(3))
+    for cell in (None, 9.0 * torch.eye(3)):
+        ck.cheb_conv_bwd_gxgd(_t(c), _t(c2), _t(w0), _t(pos), _t(x), _t(g),
+                              RCUT, "fp32", cell=cell)
     assert ck.launch_counts() == {
         "cheb_fwd": 0, "cheb_bwd_gx": 0, "cheb_bwd_gd": 0,
-        "cheb_fwd_cell": 0, "cheb_bwd_gx_cell": 0, "cheb_bwd_gd_cell": 0,
+        "cheb_bwd_gxgd": 0, "cheb_fwd_cell": 0, "cheb_bwd_gx_cell": 0,
+        "cheb_bwd_gd_cell": 0, "cheb_bwd_gxgd_cell": 0,
     }

@@ -16,6 +16,10 @@ import torch
 
 from flashmd_tpu.models import cheb as jcheb
 from flashmd_tpu.models.cutoff import CosineCutoff as JCosineCutoff
+from flashmd_tpu.models.cutoff import IdentityCutoff as JIdentityCutoff
+from flashmd_tpu.models.cutoff import (
+    ShiftedCosineCutoff as JShiftedCosineCutoff,
+)
 from flashmd_tpu.models.forcefield import (
     compute_energy_forces as jcompute_energy_forces,
 )
@@ -33,6 +37,7 @@ from flashmd_tpu_torch.models.convert import (
     config_from_kwargs,
     forcefield_from_numpy,
 )
+from flashmd_tpu_torch.models.cutoff import CosineCutoff
 from flashmd_tpu_torch.models.forcefield import compute_energy_forces
 from flashmd_tpu_torch.models.mlp import mlp_apply
 from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
@@ -238,6 +243,37 @@ def test_mlp_tiers_match_jax(precision):
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "field,cut",
+    [
+        ("cutoff", JIdentityCutoff(0.0, RCUT)),
+        ("cutoff", JShiftedCosineCutoff(0.0, RCUT, 0.5)),
+        ("rbf_cutoff", JIdentityCutoff(0.0, RCUT)),
+        ("rbf_cutoff", JShiftedCosineCutoff(0.0, RCUT, 0.5)),
+        ("rbf_cutoff", JCosineCutoff(0.0, RCUT - 1.0)),
+    ],
+)
+def test_config_refuses_envelopes_it_would_replace(field, cut):
+    """An envelope the port does not have raises, rather than run as the
+    cosine; so does an rbf_cutoff other than the conv cutoff (the port's
+    radial basis takes the conv cutoff)."""
+    kw = {"cutoff": JCosineCutoff(0.0, RCUT), "rbf_cutoff": None,
+          field: cut}
+    with pytest.raises(NotImplementedError, match=field):
+        config_from_kwargs(kw)
+
+
+def test_config_takes_the_reference_cosine_cutoffs():
+    jcfg = JSchNetConfig(cutoff=JCosineCutoff(0.0, RCUT),
+                         message_passing="cheb")
+    kw = config_kwargs(jcfg)
+    assert kw["rbf_cutoff"] == kw["cutoff"]  # the reference's default
+    cfg = config_from_kwargs(kw)
+    assert isinstance(cfg.cutoff, CosineCutoff)
+    assert (cfg.cutoff.cutoff_lower, cfg.cutoff.cutoff_upper) == (0.0, RCUT)
+    assert config_from_kwargs({**kw, "rbf_cutoff": None}).cutoff == cfg.cutoff
 
 
 def test_zoo_defaults_and_refusals():
