@@ -12,7 +12,9 @@ Phases (each prints its lines; any failure exits non-zero):
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
-               published peak). Every kernel is compared and timed at
+               published peak; the operations of the pairs within the
+               cutoff only, which the data needs). Every kernel is
+               compared and timed at
                the slice's S = 128; the dense and the neighbour-matrix
                backward in both of their variants (with gx, and without
                it as block 1 runs it). The neighbour-matrix kernels run
@@ -25,6 +27,11 @@ Phases (each prints its lines; any failure exits non-zero):
                cubic 60 A, half triclinic), where live pairs cross faces.
                The per-block schedule's kernels: the combined gx+gd
                backward, and the gd-only one on one block's F = 128.
+               Then the four cheb kernels and the F = 128 gd launch at the
+               bf16x3 tier, open and on the folded cells, on the bf16x3
+               slice's own fits (64, 96); each also nearer its bf16x3
+               twin than its fp32 twin (Frobenius norms), which holds
+               only if the kernel takes the hi/lo splits.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
                the cheb (stacked and per-block schedules), the dense and
@@ -35,6 +42,10 @@ Phases (each prints its lines; any failure exits non-zero):
                fp32 forces vs the dense fp32 forces on the same weights
                and positions, and the periodic fp32 network forces on
                folded positions vs the open ones on unfolded positions.
+               bf16x3 (all gated at BF16X3_BOUND): card vs CPU forces,
+               stacked and per-block, open and periodic on folded
+               positions; per-block vs stacked; bf16x3 vs fp32 network
+               forces on the same (64, 96) fit.
 5. slice    -- LangevinSimulation at the bench configuration (batch 128,
                266 beads, 3 blocks, bf16, cheb (48, 64), d_min 2.0) for
                120 steps; launch counts must be 3/2/1 per force
@@ -50,6 +61,13 @@ Phases (each prints its lines; any failure exits non-zero):
                cell variant 0; throughput beside the stacked slice's; the
                profiler window. Then PERBLOCK_PERIODIC_STEPS steps of it
                under the periodic slice's cell, on the cell variants only.
+   bf16x3   -- cgschnet_1enh_like(precision="bf16x3"): (64, 96) on d_min
+               2.0, the slice's other settings, BF16X3_STEPS steps on the
+               stacked schedule (launches 3/2/1 per force evaluation on the
+               *_bf16x3 counters, every other counter 0), throughput beside
+               the bf16 slice's, a profiler window; then
+               BF16X3_SHORT_STEPS steps each periodic, per-block and
+               per-block periodic, each on its own counters.
 6. dense    -- the same Langevin run on the dense exact-filter force
                field (message_passing="dense", bf16) for the same
                steps; launch counts must be 3 fwd + 3 bwd per force
@@ -63,8 +81,8 @@ Phases (each prints its lines; any failure exits non-zero):
 8. fidelity -- max|F - F_dense_fp32| / max|F_dense_fp32| at batch 4: the
                cheb bf16 (48, 64), the dense bf16 and the pallas bf16
                force fields against the dense fp32 one on the same
-               weights and positions, with and without the priors
-               (printed, not gated).
+               weights and positions, with and without the priors, and
+               the cheb bf16x3 (64, 96) one (printed, not gated).
 
 Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -89,7 +107,8 @@ FORCE_BATCH = 4
 PROFILE_STEPS = 5
 # Bounds on max|kernel - plain| / max|plain|: the JAX suite's own kernel
 # tolerances at fp32 (tests/ops/test_cheb_kernel.py); in bf16 only the
-# summation order and recurrence ulps differ between kernel and twin.
+# summation order and recurrence ulps differ between kernel and twin; at
+# bf16x3 (near float32) also the order of the three bf16 products.
 BOUNDS = {
     ("cheb_fwd", "fp32"): 1e-5,
     ("cheb_bwd_gx", "fp32"): 1e-4,
@@ -99,6 +118,10 @@ BOUNDS = {
     ("cheb_bwd_gx", "bf16"): 2e-3,
     ("cheb_bwd_gd", "bf16"): 2e-3,
     ("cheb_bwd_gxgd", "bf16"): 2e-3,
+    ("cheb_fwd", "bf16x3"): 1e-4,
+    ("cheb_bwd_gx", "bf16x3"): 1e-4,
+    ("cheb_bwd_gd", "bf16x3"): 1e-4,
+    ("cheb_bwd_gxgd", "bf16x3"): 1e-4,
     ("dense_cfconv_fwd", "fp32"): 1e-5,
     ("dense_cfconv_bwd", "fp32"): 1e-4,
     ("dense_cfconv_fwd", "bf16"): 2e-3,
@@ -116,6 +139,14 @@ CROSS_BOUND = 1e-4
 # The periodic per-block run's steps: shorter than the slices', to stay
 # well inside the time limit.
 PERBLOCK_PERIODIC_STEPS = 40
+# The bf16x3 slice: its stacked run, and the short periodic, per-block and
+# per-block periodic runs that put each bf16x3 variant on a path.
+BF16X3_STEPS = 40
+BF16X3_SHORT_STEPS = 10
+# bf16x3 forces against another near-fp32 evaluation of the same function
+# (card vs CPU, per-block vs stacked, fp32 on the same fit): summation and
+# product order, and the splits' ~5e-6 of max|F| against fp32.
+BF16X3_BOUND = 1e-4
 OVERFLOW_CAPACITY = 32
 # benchmarks/pbc_ab.py's cell, and a sound triclinic one (smallest
 # perpendicular width 59.04 A; rows are lattice vectors).
@@ -142,13 +173,20 @@ REPLACES = {
     "cfconv_fwd": "flashmd_tpu/ops/pallas/cfconv.py:137",
     "cfconv_bwd": "flashmd_tpu/ops/pallas/cfconv.py:163",
 }
+# The bf16x3 tier of the four cheb kernels: the same kernels with their
+# products through _mxu_dot's three bf16 passes.
+REPLACES.update({
+    name + "_bf16x3": f"{REPLACES[name]} bf16x3 (_mxu_dot :358)"
+    for name in [n for n in REPLACES if n.startswith("cheb")]
+})
 SOURCES = {
     "cheb": "flashmd_tpu_torch/csrc/cheb_kernels.cu",
     "dense": "flashmd_tpu_torch/csrc/cfconv_dense_kernels.cu",
     "cfconv": "flashmd_tpu_torch/csrc/cfconv_kernels.cu",
 }
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W). bf16x3
+# takes three bf16 passes per product: a third of the bf16 rate.
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "bf16x3": 989e12 / 3}
 PEAK_BYTES = 3.35e12
 
 
@@ -218,13 +256,22 @@ def _tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def _nearer_split(out_k, out_p, out_f):
+    """max over outputs of ||kernel - bf16x3 twin|| / ||kernel - fp32
+    twin|| (Frobenius): below 1 only if the kernel takes the splits."""
+    return max(float(torch.linalg.norm(k - p) / torch.linalg.norm(k - f))
+               for k, p, f in zip(out_k, out_p, out_f))
+
+
 def compare_and_time(name, kern, plain, flops, nbytes, label=None,
-                     fp32_flops=0.0):
+                     fp32_flops=0.0, bf16x3=False):
     """Kernel vs twin (callables of the tier) and their CUDA-event times,
-    both tiers, held to ``name``'s bounds; returns the bf16 tier's
-    numbers, the tier of the slices."""
+    held to ``name``'s bounds, at fp32 and bf16 (returning the bf16
+    numbers, the tier of the slices) or, with ``bf16x3``, at that tier
+    alone, where the kernel must also lie nearer its bf16x3 twin than the
+    fp32 twin on the same inputs."""
     results = {}
-    for prec in ("fp32", "bf16"):
+    for prec in ("bf16x3",) if bf16x3 else ("fp32", "bf16"):
         out_k = _tuple(kern(prec))
         torch.cuda.synchronize()
         out_p = _tuple(plain(prec))
@@ -245,15 +292,40 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
               f"{nbytes} B)")
         check(rel <= limit,
               f"{label or name} {prec}: {rel:.3e} > {limit:.0e}")
+        if bf16x3:
+            near = _nearer_split(out_k, out_p, _tuple(plain("fp32")))
+            print(f"kernels: {label or name} bf16x3 ||k-p_bf16x3|| / "
+                  f"||k-p_fp32|| = {near:.3e} (must be < 1)")
+            check(near < 1.0, f"{label or name}: nearer the fp32 twin than "
+                              f"the bf16x3 one ({near:.3e})")
         results[prec] = {"max_abs_err": abs_err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
-    return results["bf16"]
+    return results[prec]
 
 
-def phase_cheb_kernels(ff, pos, dev, cell=None):
-    """The three cheb kernels, open or, with ``cell`` [S, 3, 3], their
-    cell variants (keys with "_cell"), at the slice's shapes."""
+def cheb_pair_counts(pos, rcut, d_min, cell=None):
+    """(pairs i != j with d < rcut, of which d < d_min) of the batch,
+    minimum-imaged under ``cell``: the pairs whose basis, and whose
+    sub-floor linear term, is nonzero, the only ones the cheb products
+    need."""
+    from flashmd_tpu_torch.ops.cheb_kernel import pair_rel
+    from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
+
+    rel = pair_rel(pos) if cell is None else pair_rel(pos, cell,
+                                                      _inv_3x3(cell))
+    d = torch.sqrt(torch.sum(rel * rel, dim=-1))
+    off = ~torch.eye(pos.shape[1], dtype=torch.bool, device=pos.device)
+    return int(((d < rcut) & off).sum()), int(((d < d_min) & off).sum())
+
+
+def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
+    """The four cheb kernels, open or, with ``cell`` [S, 3, 3], their
+    cell variants (keys with "_cell"), at the slice's shapes; with
+    ``bf16x3``, at that tier alone under keys with "_bf16x3". The bounds
+    count the products of the live pairs only (d < rcut off the diagonal;
+    the linear term's d < d_min), as the basis is exactly zero beyond the
+    cutoff."""
     from flashmd_tpu_torch.models.cheb import _lin_slope
     from flashmd_tpu_torch.ops import cheb_kernel as ck
     from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
@@ -274,12 +346,16 @@ def phase_cheb_kernels(ff, pos, dev, cell=None):
     x_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     g_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     m1, m2 = c.shape[0], c2.shape[0]
-    lin = 1 if w_lin is not None else 0
-    pair_flops = 2.0 * s * a * a
+    n_live, n_low = cheb_pair_counts(pos, rcut, d_min, cell)
+    pair_flops = 2.0 * n_live
+    low_flops = 2.0 * n_low * f if w_lin is not None else 0.0
     kw, suffix, wrap, cell_bytes = {}, "", 0.0, 0
     if cell is not None:
+        # every pair is wrapped before its distance is known
         kw = {"cell": cell, "inv": _inv_3x3(cell)}
         suffix, wrap, cell_bytes = "_cell", WRAP_FLOPS * s * a * a, 72 * s
+    if bf16x3:
+        suffix += "_bf16x3"
 
     cases = {
         "cheb_fwd": (
@@ -287,7 +363,7 @@ def phase_cheb_kernels(ff, pos, dev, cell=None):
                                        **kw),
             lambda p: ck.cheb_conv_fwd_plain(c, w0, pos, x, rcut, p, d_min,
                                              w_lin, **kw),
-            pair_flops * f * (m1 + lin),
+            pair_flops * f * m1 + low_flops,
             4 * (s * a * 3 + 2 * s * a * f + m1 * f + 2 * f),
         ),
         "cheb_bwd_gx": (
@@ -295,7 +371,7 @@ def phase_cheb_kernels(ff, pos, dev, cell=None):
                                           w_lin, **kw),
             lambda p: ck.cheb_conv_bwd_gx_plain(c, w0, pos, g, rcut, p,
                                                 d_min, w_lin, **kw),
-            pair_flops * f * (m1 + 1 + lin),
+            pair_flops * f * (m1 + 1) + low_flops,
             4 * (s * a * 3 + 2 * s * a * f + m1 * f + 2 * f),
         ),
         "cheb_bwd_gd": (
@@ -312,16 +388,18 @@ def phase_cheb_kernels(ff, pos, dev, cell=None):
                                             d_min, w_lin, **kw),
             lambda p: ck.cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut,
                                                   p, d_min, w_lin, **kw),
-            pair_flops * f * (m1 + 1 + lin + m2),
+            pair_flops * f * (m1 + 1 + m2) + low_flops,
             4 * (2 * s * a * 3 + 3 * s * a * f + (m1 + 1 + m2) * f + 2 * f),
         ),
     }
     print(f"kernels: cheb{suffix} shapes S={s} A={a} F={f} (gd {nb * f}) "
-          f"M1={m1} M2={m2} d_min={d_min}")
+          f"M1={m1} M2={m2} d_min={d_min}; live pairs (d < rc) {n_live} of "
+          f"{s * a * a}, below d_min {n_low}")
     stats = {
         name + suffix: compare_and_time(name, kern, plain, flops,
                                         nbytes + cell_bytes,
-                                        label=name + suffix, fp32_flops=wrap)
+                                        label=name + suffix, fp32_flops=wrap,
+                                        bf16x3=bf16x3)
         for name, (kern, plain, flops, nbytes) in cases.items()
     }
     # the per-block schedule's block 1: the gd-only kernel on one block's
@@ -333,7 +411,7 @@ def phase_cheb_kernels(ff, pos, dev, cell=None):
                                             **kw),
         pair_flops * f * m2, 4 * (2 * s * a * 3 + 2 * s * a * f + m2 * f)
         + cell_bytes, label=f"cheb_bwd_gd{suffix} (F={f}, one block)",
-        fp32_flops=wrap,
+        fp32_flops=wrap, bf16x3=bf16x3,
     )
     return stats
 
@@ -636,15 +714,16 @@ def cheb_schedule(value):
             os.environ["FLASHMD_CHEB_STACK"] = old
 
 
-def cheb_counts(n_evals, per_block=False, cell=False):
+def cheb_counts(n_evals, per_block=False, cell=False, bf16x3=False):
     """Every cheb launch counter's expected value over ``n_evals`` force
-    evaluations of the 3-block slice on one schedule, open or with cells:
-    fwd 3, gx 2, gd 1 (stacked) or fwd 3, gxgd 2, gd 1 (per block)."""
+    evaluations of the 3-block slice on one schedule, open or with cells,
+    at bf16 or bf16x3: fwd 3, gx 2, gd 1 (stacked) or fwd 3, gxgd 2, gd 1
+    (per block)."""
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
     per = ({"cheb_fwd": 3, "cheb_bwd_gxgd": 2, "cheb_bwd_gd": 1} if per_block
            else {"cheb_fwd": 3, "cheb_bwd_gx": 2, "cheb_bwd_gd": 1})
-    sfx = "_cell" if cell else ""
+    sfx = ("_cell" if cell else "") + ("_bf16x3" if bf16x3 else "")
     return {**dict.fromkeys(ck.launch_counts(), 0),
             **{k + sfx: v * n_evals for k, v in per.items()}}
 
@@ -666,6 +745,53 @@ def phase_schedule_check(dev):
               f"{CROSS_BOUND:.0e})")
         check(rel <= CROSS_BOUND,
               f"per-block and stacked fp32 forces disagree ({label})")
+
+
+def phase_bf16x3_forces(dev):
+    """bf16x3 forces at batch 4, each held to BF16X3_BOUND of max|F|: card
+    (kernels) vs CPU (twins) on both schedules, open (total forces) and
+    periodic (network forces on the start positions folded into the
+    kernels' cells: folding breaks the bonds the priors see); then on the
+    card per-block vs stacked, and bf16x3 vs fp32 network forces on the
+    same (64, 96) fit."""
+    cpu = torch.device("cpu")
+    fields = {}
+    for device in (dev, cpu):
+        ff, cfgs = _force_fields(device, FORCE_BATCH, precision="bf16x3")
+        folded = with_cells(cfgs, kernel_cells(FORCE_BATCH), folded=True)
+        fields[device.type] = (ff, cfgs, folded)
+    kinds = ("open", "periodic (folded, cells) network")
+    out = {}
+    for stack in ("1", "0"):
+        with cheb_schedule(stack):
+            for device in (dev, cpu):
+                ff, cfgs, folded = fields[device.type]
+                out[stack, device.type] = (
+                    _forces(ff, cfgs, device)[1],
+                    _forces(ff.replace(priors={}), folded, device)[1],
+                )
+
+    def gate(label, f, ref):
+        rel = float((f - ref).abs().max() / ref.abs().max())
+        print(f"forces: bf16x3 {label}, batch {FORCE_BATCH}: max|dF|/max|F| "
+              f"= {rel:.3e} (bound {BF16X3_BOUND:.0e})")
+        check(bool(torch.isfinite(f).all()) and rel <= BF16X3_BOUND,
+              f"bf16x3 forces: {label}")
+
+    for stack, sched in (("1", "stacked"), ("0", "per-block")):
+        for i, kind in enumerate(kinds):
+            gate(f"{sched} {kind} card vs cpu plain", out[stack, "cuda"][i],
+                 out[stack, "cpu"][i])
+    for i, kind in enumerate(kinds):
+        gate(f"per-block vs stacked {kind} on the card", out["0", "cuda"][i],
+             out["1", "cuda"][i])
+    ff, cfgs, _ = fields["cuda"]
+    net = ff.replace(priors={})
+    fp32 = net.replace(schnet_config=dataclasses.replace(net.schnet_config,
+                                                         precision="fp32"))
+    with cheb_schedule("1"):
+        gate("vs fp32 on the same (64, 96) fit, network only, on the card",
+             _forces(net, cfgs, dev)[1], _forces(fp32, cfgs, dev)[1])
 
 
 def phase_periodic_forces(dev, label="cheb periodic"):
@@ -761,6 +887,7 @@ def phase_fidelity(dev):
                             message_passing="dense")
     ff_db, _ = _force_fields(dev, FORCE_BATCH, message_passing="dense")
     ff_pb, _ = _force_fields(dev, FORCE_BATCH, message_passing="pallas")
+    ff_x3, _ = _force_fields(dev, FORCE_BATCH, precision="bf16x3")
     for label, keep_priors in (("total", True), ("network only", False)):
         def forces(ff):
             ff = ff if keep_priors else ff.replace(priors={})
@@ -771,10 +898,12 @@ def phase_fidelity(dev):
         rel_cheb = float((forces(ff_c) - f_ref).abs().max()) / scale
         rel_dense = float((forces(ff_db) - f_ref).abs().max()) / scale
         rel_pallas = float((forces(ff_pb) - f_ref).abs().max()) / scale
+        rel_x3 = float((forces(ff_x3) - f_ref).abs().max()) / scale
         print(f"fidelity: {label} forces, batch {FORCE_BATCH}, max|F - "
               f"F_dense_fp32|/max|F_dense_fp32|: cheb bf16 (48, 64) d_min "
               f"2.0 = {rel_cheb:.4e}; dense bf16 = {rel_dense:.4e}; pallas "
-              f"bf16 = {rel_pallas:.4e}")
+              f"bf16 = {rel_pallas:.4e}; cheb bf16x3 (64, 96) d_min 2.0 = "
+              f"{rel_x3:.4e}")
 
 
 def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
@@ -803,6 +932,49 @@ def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
     check(coords.shape == (BATCH, steps // save_interval, N_ATOMS, 3),
           f"{label}: frames of shape {coords.shape}")
     return counts, m["ms_per_timestep"], sim
+
+
+def run_bf16x3_slices(ff, cfgs, pbc_cfgs, dev, bf16_tp, smi):
+    """The bf16x3 slice: BF16X3_STEPS steps on the stacked schedule with a
+    profiler window, then BF16X3_SHORT_STEPS steps each periodic,
+    per-block and per-block periodic, each with its own counters set to 0
+    just before and read just after. Returns the bf16x3 counters as the
+    runs that launch them read them."""
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    n_evals = BF16X3_STEPS + 1
+    n_short = BF16X3_SHORT_STEPS + 1
+    short = (BF16X3_SHORT_STEPS, BF16X3_SHORT_STEPS // 2)  # two frames
+    with cheb_schedule("1"):
+        counts, _, sim = run_slice(
+            "bf16x3", ff, cfgs, dev, BF16X3_STEPS, SAVE_INTERVAL, ck,
+            cheb_counts(n_evals, bf16x3=True), smi,
+        )
+        tp = sim.get_throughput_metrics()["throughput"]
+        print(f"bf16x3: second-half throughput {tp:.1f} timestep*mol/s "
+              f"({BF16X3_STEPS} steps) beside the bf16 cheb slice's "
+              f"{bf16_tp:.1f} in this run (ratio {tp / bf16_tp:.4f})")
+        profile_steps(sim, dev, PROFILE_STEPS, "bf16x3")
+        pbc, _, _ = run_slice(
+            "bf16x3 periodic", ff, pbc_cfgs, dev, *short, ck,
+            cheb_counts(n_short, cell=True, bf16x3=True), smi,
+        )
+    with cheb_schedule("0"):
+        pb, _, _ = run_slice(
+            "bf16x3 per-block", ff, cfgs, dev, *short, ck,
+            cheb_counts(n_short, per_block=True, bf16x3=True), smi,
+        )
+        pb_pbc, _, _ = run_slice(
+            "bf16x3 per-block periodic", ff, pbc_cfgs, dev, *short,
+            ck,
+            cheb_counts(n_short, per_block=True, cell=True, bf16x3=True),
+            smi,
+        )
+    out = {k: v for k, v in counts.items() if k.endswith("_bf16x3")}
+    out.update({k: v for k, v in pbc.items() if k.endswith("_cell_bf16x3")})
+    out["cheb_bwd_gxgd_bf16x3"] = pb["cheb_bwd_gxgd_bf16x3"]
+    out["cheb_bwd_gxgd_cell_bf16x3"] = pb_pbc["cheb_bwd_gxgd_cell_bf16x3"]
+    return out
 
 
 def profile_steps(sim, dev, steps, label):
@@ -883,6 +1055,11 @@ def main():
     check((ff_pallas.schnet_config.precision,
            ff_pallas.schnet_config.message_passing) == ("bf16", "pallas"),
           f"unexpected pallas slice config {ff_pallas.schnet_config}")
+    ff_x3, _ = _force_fields(dev, BATCH, precision="bf16x3")
+    cfg_x3 = ff_x3.schnet_config
+    check((cfg_x3.cheb_order, cfg_x3.cheb_order_deriv, cfg_x3.cheb_d_min,
+           cfg_x3.precision) == (64, 96, 2.0, "bf16x3"),
+          f"unexpected bf16x3 slice config {cfg_x3}")
 
     pos = collate(cfgs, device=dev).pos
     stats = phase_cheb_kernels(ff, pos, dev)
@@ -895,6 +1072,9 @@ def main():
           f"{n_cross} cross a face")
     check(n_cross > 0, "no live pair crosses a face")
     stats.update(phase_cheb_kernels(ff, folded.pos, dev, cell=folded.cell))
+    stats.update(phase_cheb_kernels(ff_x3, pos, dev, bf16x3=True))
+    stats.update(phase_cheb_kernels(ff_x3, folded.pos, dev, cell=folded.cell,
+                                    bf16x3=True))
     dense_stats, no_gx_ms = phase_dense_kernels(ff_dense, pos, dev)
     stats.update(dense_stats)
     nbr_stats, nbr_no_gx_ms = phase_nbr_kernels(ff_pallas, pos, dev)
@@ -910,6 +1090,7 @@ def main():
     phase_forces(dev, "pallas")
     phase_cross_check(dev)
     phase_image_check(dev)
+    phase_bf16x3_forces(dev)
 
     n_evals = STEPS + 1
     with cheb_schedule("1"):
@@ -952,6 +1133,7 @@ def main():
           f"{sim.get_throughput_metrics()['throughput']:.1f} timestep*mol/s "
           f"({PERBLOCK_PERIODIC_STEPS} steps) beside the stacked periodic "
           f"slice's {pbc_tp:.1f}")
+    counts.update(run_bf16x3_slices(ff_x3, cfgs, pbc_cfgs, dev, open_tp, smi))
     dense_counts, ms_step, _ = run_slice(
         "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
         {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},

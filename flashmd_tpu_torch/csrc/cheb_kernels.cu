@@ -42,9 +42,29 @@
 // partials and summed by a second kernel in a fixed tile order. No
 // atomics anywhere, so results are bitwise reproducible run to run.
 //
-// Precision tiers: bf16 != 0 rounds the product operands to bf16 (round
-// to nearest even) at the same places as the plain PyTorch twins in
-// ops/cheb_kernel.py; the recurrence and all accumulation stay float32.
+// Precision tiers (the C entry points' `tier`, a template parameter of
+// every kernel; any other value is refused with cudaErrorInvalidValue).
+// At the same places as the plain PyTorch twins in ops/cheb_kernel.py;
+// the recurrence and all accumulation stay float32:
+//   0 fp32    float32 products.
+//   1 bf16    product operands rounded to bf16 (round to nearest even).
+//   3 bf16x3  each product operand split as hi = bf16(v), lo = bf16(v -
+//             hi), the product taken as hi*hi + lo*hi + hi*lo: the
+//             reference's _mxu_dot (cheb_kernel.py:358-380) emulating
+//             Precision.HIGH, near float32. The shared tiles hold hi and lo
+//             packed in one 32-bit word (hi in the upper half), so they
+//             keep the fp32 tier's footprint; an operand formed in
+//             registers (q_k g, w_lin g, c2_m g in cheb_gd) is split where
+//             it is formed. Each product of bf16 values is exact in
+//             float32; the three are summed as a_hi (b_hi + b_lo) + a_lo
+//             b_hi, two FMAs (b_hi + b_lo is exact in float32), the same
+//             products up to float32 rounding. What bounds the bf16x3
+//             variants: the same matrix work as the others three times
+//             over (3x the product FLOPs at the bf16 tensor-core rate);
+//             here it is two FMAs per product on CUDA cores, with the
+//             unpacking and register splits hidden under them: 2.0-2.3x
+//             the fp32 variant's time at equal orders (H100 80GB HBM3,
+//             700 W).
 //
 // Periodic cells (HAS_CELL, the reference's has_cell): the C entry points
 // take cell and inv pointers, [S, 3, 3] float32 (lattice rows and their
@@ -59,6 +79,8 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,13 +107,106 @@ constexpr int GG_FC = 128;
 constexpr int GG_LD = GG_FC + 4;
 constexpr int GG_WLD = GG_T + 1;
 
+constexpr int TIER_FP32 = 0;
+constexpr int TIER_BF16 = 1;
+constexpr int TIER_X3 = 3;
+
 __device__ __forceinline__ float rnd_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <bool BF16>
+// bf16x3 split: hi = bf16(v), lo = bf16(v - hi), both bf16-exact floats
+// (reference _split_bf16, cheb_kernel.py:352-355).
+__device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
+  hi = rnd_bf16(v);
+  lo = rnd_bf16(v - hi);
+}
+
+// hi and lo of v packed in one word, hi in the upper 16 bits; read as a
+// float the word is a finite value near hi, never a NaN.
+__device__ __forceinline__ float pack_split(float v) {
+  float hi, lo;
+  split_bf16(v, hi, lo);
+  return __uint_as_float(__float_as_uint(hi) | (__float_as_uint(lo) >> 16));
+}
+
+__device__ __forceinline__ void unpack_split(float w, float& hi, float& lo) {
+  unsigned u = __float_as_uint(w);
+  hi = __uint_as_float(u & 0xffff0000u);
+  lo = __uint_as_float(u << 16);
+}
+
+// A product operand as the shared tiles hold it: the value (fp32), its
+// bf16 rounding (bf16) or its packed hi/lo split (bf16x3).
+template <int TIER>
 __device__ __forceinline__ float op(float v) {
-  return BF16 ? rnd_bf16(v) : v;
+  if constexpr (TIER == TIER_X3) return pack_split(v);
+  return TIER == TIER_BF16 ? rnd_bf16(v) : v;
+}
+
+// A product operand in registers: the value (fp32, bf16), or at bf16x3 a
+// pair, (a_hi, a_lo) on the A side of a product and (b_hi + b_lo, b_hi)
+// on the B side, so that madd is two FMAs. fp32 and bf16 keep plain
+// floats, so their instantiations compile as with float operands.
+template <int TIER>
+using Opnd = std::conditional_t<TIER == TIER_X3, float2, float>;
+
+// A side from a shared word (lhs_word) or from a value formed in
+// registers, rounded or split here (lhs_val).
+template <int TIER>
+__device__ __forceinline__ Opnd<TIER> lhs_word(float w) {
+  if constexpr (TIER == TIER_X3) {
+    float2 o;
+    unpack_split(w, o.x, o.y);
+    return o;
+  } else {
+    return w;
+  }
+}
+
+template <int TIER>
+__device__ __forceinline__ Opnd<TIER> lhs_val(float v) {
+  if constexpr (TIER == TIER_X3) {
+    float2 o;
+    split_bf16(v, o.x, o.y);
+    return o;
+  } else {
+    return op<TIER>(v);
+  }
+}
+
+// B side, likewise; b_hi + b_lo is exact in float32.
+template <int TIER>
+__device__ __forceinline__ Opnd<TIER> rhs_word(float w) {
+  if constexpr (TIER == TIER_X3) {
+    float hi, lo;
+    unpack_split(w, hi, lo);
+    return make_float2(hi + lo, hi);
+  } else {
+    return w;
+  }
+}
+
+template <int TIER>
+__device__ __forceinline__ Opnd<TIER> rhs_val(float v) {
+  if constexpr (TIER == TIER_X3) {
+    float hi, lo;
+    split_bf16(v, hi, lo);
+    return make_float2(hi + lo, hi);
+  } else {
+    return op<TIER>(v);
+  }
+}
+
+// p + a b; at bf16x3 p + a_hi b_hi + a_lo b_hi + a_hi b_lo, taken as
+// a_hi (b_hi + b_lo) + a_lo b_hi.
+template <int TIER>
+__device__ __forceinline__ float madd(Opnd<TIER> a, Opnd<TIER> b,
+                                      float p) {
+  if constexpr (TIER == TIER_X3)
+    return fmaf(a.y, b.y, fmaf(a.x, b.x, p));
+  else
+    return p + a * b;
 }
 
 // The molecule's lattice (geo[0..8], rows) and inverse (geo[9..17]) into
@@ -145,7 +260,7 @@ __device__ __forceinline__ void pair_geom(const float* pi, const float* pj,
 // (1-z) T_k, operand q_k * g formed before the product). Grid:
 // (row tiles, feature chunks, molecules). The cell variant takes 18 floats
 // of dynamic shared memory for the lattice.
-template <bool BF16, bool GX, bool HAS_CELL>
+template <int TIER, bool GX, bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
                  const float* __restrict__ coef,
@@ -200,7 +315,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
       int jj = e / RT_FC, ff = e % RT_FC;
       int j = j0 + jj, f = f0 + ff;
       float v = (j < A && f < F) ? in[(size_t)j * F + f] : 0.0f;
-      in_s[jj][ff] = GX ? v : op<BF16>(v);
+      in_s[jj][ff] = GX ? v : op<TIER>(v);
     }
     if (tid < RT_TJ * 3) {
       int jj = tid / 3, c = tid % 3;
@@ -237,7 +352,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
           tc[e] = tn;
           tm = tn;
         }
-        tb[(ty + 8 * e) * RT_TJ + tx] = op<BF16>(tm);
+        tb[(ty + 8 * e) * RT_TJ + tx] = op<TIER>(tm);
       }
       __syncthreads();
       float cm[4];
@@ -251,17 +366,17 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
         for (int k = 0; k < 4; ++k) p[i][k] = 0.0f;
 #pragma unroll 4
       for (int jj = 0; jj < RT_TJ; ++jj) {
-        float b[4];
+        Opnd<TIER> b[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           float v = in_s[jj][tx + 32 * k];
-          b[k] = GX ? op<BF16>(cm[k] * v) : v;
+          b[k] = GX ? rhs_val<TIER>(cm[k] * v) : rhs_word<TIER>(v);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float t = tb[(ty + 8 * i) * RT_TJ + jj];
+          Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * RT_TJ + jj]);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) p[i][k] += t * b[k];
+          for (int k = 0; k < 4; ++k) p[i][k] = madd<TIER>(t, b[k], p[i][k]);
         }
       }
 #pragma unroll
@@ -280,7 +395,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
         int r = r0 + ty + 8 * e, j = j0 + tx;
         bool valid = (r < A) && (j < A) && (r != j);
         float low = valid ? fminf(d[e] - d_min, 0.0f) : 0.0f;
-        tb[(ty + 8 * e) * RT_TJ + tx] = op<BF16>(low);
+        tb[(ty + 8 * e) * RT_TJ + tx] = op<TIER>(low);
       }
       __syncthreads();
       float p[4][4];
@@ -289,17 +404,17 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
 #pragma unroll
         for (int k = 0; k < 4; ++k) p[i][k] = 0.0f;
       for (int jj = 0; jj < RT_TJ; ++jj) {
-        float b[4];
+        Opnd<TIER> b[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           float v = in_s[jj][tx + 32 * k];
-          b[k] = GX ? op<BF16>(wl[k] * v) : v;
+          b[k] = GX ? rhs_val<TIER>(wl[k] * v) : rhs_word<TIER>(v);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float t = tb[(ty + 8 * i) * RT_TJ + jj];
+          Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * RT_TJ + jj]);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) p[i][k] += t * b[k];
+          for (int k = 0; k < 4; ++k) p[i][k] = madd<TIER>(t, b[k], p[i][k]);
         }
       }
 #pragma unroll
@@ -328,7 +443,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
 // operands, and its row/column position-gradient sides. Grid: (row
 // tiles, molecules). Row sides go to row_part [S, A, 3] (owned rows);
 // column sides to col_part [S, n_tiles, A, 3] (one slab per row tile).
-template <bool BF16, bool HAS_CELL>
+template <int TIER, bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
                const float* __restrict__ g, const float* __restrict__ c2,
@@ -393,7 +508,7 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         int r = r0 + rr, j = j0 + rr;
         g_s[rr * GD_LD + ff] = (r < A && f < F) ? g[(size_t)r * F + f] : 0.0f;
         x_s[rr * GD_LD + ff] =
-            (j < A && f < F) ? op<BF16>(x[(size_t)j * F + f]) : 0.0f;
+            (j < A && f < F) ? op<TIER>(x[(size_t)j * F + f]) : 0.0f;
       }
       for (int e = tid; e < M * GD_FC; e += THREADS) {
         int m = e / GD_FC, f = f0 + e % GD_FC;
@@ -419,16 +534,18 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
 #pragma unroll 4
         for (int ff = 0; ff < GD_FC; ++ff) {
           float cv = cm[ff];
-          float a[4], b[4];
+          Opnd<TIER> a[4], b[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            a[i] = op<BF16>(cv * g_s[(ty + 16 * i) * GD_LD + ff]);
+            a[i] = lhs_val<TIER>(cv * g_s[(ty + 16 * i) * GD_LD + ff]);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) b[k] = x_s[(tx + 16 * k) * GD_LD + ff];
+          for (int k = 0; k < 4; ++k)
+            b[k] = rhs_word<TIER>(x_s[(tx + 16 * k) * GD_LD + ff]);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int k = 0; k < 4; ++k) u[i][k] += a[i] * b[k];
+            for (int k = 0; k < 4; ++k)
+              u[i][k] = madd<TIER>(a[i], b[k], u[i][k]);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -560,7 +677,7 @@ __global__ void gd_reduce_kernel(const float* __restrict__ row_part,
 // No atomics. Bound at the per-block slice (A=266, F=128, orders 49 and
 // 64 plus the low term): 114 order-products of 2*A^2*F FLOP per molecule,
 // matrix work far above the machine balance, as in the other three.
-template <bool BF16, bool HAS_CELL>
+template <int TIER, bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
                  const float* __restrict__ g, const float* __restrict__ q,
@@ -634,7 +751,7 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         int j = j0 + jj, f = f0 + ff;
         bool in = j < A && f < F;
         gc_s[e] = in ? g[(size_t)j * F + f] : 0.0f;
-        x_s[jj * GG_LD + ff] = in ? op<BF16>(x[(size_t)j * F + f]) : 0.0f;
+        x_s[jj * GG_LD + ff] = in ? op<TIER>(x[(size_t)j * F + f]) : 0.0f;
       }
       if (tid < GG_T * 3) {
         int jj = tid / 3, c = tid % 3;
@@ -674,13 +791,13 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         if (m < MQ) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            tb[(ty + 8 * e) * GG_T + tx] = op<BF16>(h[e]);
+            tb[(ty + 8 * e) * GG_T + tx] = op<TIER>(h[e]);
         }
         if (m < M2) {
           float cv = (f0 + cf < F) ? c2[(size_t)m * F + f0 + cf] : 0.0f;
 #pragma unroll 4
           for (int rr = tid >> 7; rr < GG_T; rr += THREADS / GG_FC)
-            cb[rr * GG_LD + cf] = op<BF16>(cv * gr_s[rr * GG_FC + cf]);
+            cb[rr * GG_LD + cf] = op<TIER>(cv * gr_s[rr * GG_FC + cf]);
         }
         __syncthreads();
 
@@ -691,32 +808,38 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
             qm[k] = fok[k] ? q[(size_t)m * F + fk[k]] : 0.0f;
 #pragma unroll 4
           for (int jj = 0; jj < GG_T; ++jj) {
-            float b[4];
+            Opnd<TIER> b[4];
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              b[k] = op<BF16>(qm[k] * gc_s[jj * GG_FC + tx + 32 * k]);
+              b[k] = rhs_val<TIER>(qm[k] * gc_s[jj * GG_FC + tx + 32 * k]);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              float t = tb[(ty + 8 * i) * GG_T + jj];
+              Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * GG_T + jj]);
 #pragma unroll
-              for (int k = 0; k < 4; ++k) acc[i][k] += t * b[k];
+              for (int k = 0; k < 4; ++k)
+                acc[i][k] = madd<TIER>(t, b[k], acc[i][k]);
             }
           }
         }
         if (m < M2) {
           float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
+          // c2_m g[row] (A side) and x[col] (B side), both as stored; the
+          // bf16x3 body is twice the others', so it is unrolled half as far
+#pragma unroll (TIER == TIER_X3 ? 2 : 4)
           for (int f4 = 0; f4 < nf4; ++f4) {
             float4 xv =
                 *reinterpret_cast<const float4*>(x_s + tx * GG_LD + 4 * f4);
+            const Opnd<TIER> xb[4] = {
+                rhs_word<TIER>(xv.x), rhs_word<TIER>(xv.y),
+                rhs_word<TIER>(xv.z), rhs_word<TIER>(xv.w)};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               float4 cv = *reinterpret_cast<const float4*>(
                   cb + (ty + 8 * e) * GG_LD + 4 * f4);
-              u[e] += cv.x * xv.x;
-              u[e] += cv.y * xv.y;
-              u[e] += cv.z * xv.z;
-              u[e] += cv.w * xv.w;
+              const float cw[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                u[e] = madd<TIER>(lhs_word<TIER>(cw[c]), xb[c], u[e]);
             }
           }
 #pragma unroll
@@ -733,7 +856,7 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
           int r = r0 + ty + 8 * e, j = j0 + tx;
           bool valid = (r < A) && (j < A) && (r != j);
           float low = valid ? fminf(d[e] - d_min, 0.0f) : 0.0f;
-          tb[(ty + 8 * e) * GG_T + tx] = op<BF16>(low);
+          tb[(ty + 8 * e) * GG_T + tx] = op<TIER>(low);
         }
         float wl[4];
 #pragma unroll
@@ -741,15 +864,16 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         __syncthreads();
 #pragma unroll 4
         for (int jj = 0; jj < GG_T; ++jj) {
-          float b[4];
+          Opnd<TIER> b[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            b[k] = op<BF16>(wl[k] * gc_s[jj * GG_FC + tx + 32 * k]);
+            b[k] = rhs_val<TIER>(wl[k] * gc_s[jj * GG_FC + tx + 32 * k]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            float t = tb[(ty + 8 * i) * GG_T + jj];
+            Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * GG_T + jj]);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) acc[i][k] += t * b[k];
+            for (int k = 0; k < 4; ++k)
+              acc[i][k] = madd<TIER>(t, b[k], acc[i][k]);
           }
         }
       }
@@ -857,42 +981,48 @@ inline float fit_scale(float rcut, float d_min) {
 
 inline int cheb_gd_tiles_of(int A) { return (A + GD_T - 1) / GD_T; }
 
-template <bool GX, bool HAS_CELL>
-void launch_rows_cell(const float* pos, const float* in, const float* coef,
-                      const float* w0, const float* w_lin, const float* cell,
-                      const float* inv, float* out, int S, int A, int F,
-                      int M, float rcut, float d_min, int bf16,
-                      cudaStream_t stream) {
-  dim3 grid((A + RT_TA - 1) / RT_TA, (F + RT_FC - 1) / RT_FC, S);
-  size_t smem = HAS_CELL ? 18 * sizeof(float) : 0;
-  float scale = fit_scale(rcut, d_min);
-  if (bf16)
-    cheb_rows_kernel<true, GX, HAS_CELL><<<grid, THREADS, smem, stream>>>(
-        pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
-        scale);
-  else
-    cheb_rows_kernel<false, GX, HAS_CELL><<<grid, THREADS, smem, stream>>>(
-        pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
-        scale);
+// f(std::integral_constant<int, TIER>) for the tiers the kernels are built
+// for; cudaErrorInvalidValue for any other code.
+template <class Fn>
+int with_tier(int tier, Fn&& f) {
+  switch (tier) {
+    case TIER_FP32:
+      return f(std::integral_constant<int, TIER_FP32>{});
+    case TIER_BF16:
+      return f(std::integral_constant<int, TIER_BF16>{});
+    case TIER_X3:
+      return f(std::integral_constant<int, TIER_X3>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool GX>
 int launch_rows(const float* pos, const float* in, const float* coef,
                 const float* w0, const float* w_lin, const float* cell,
                 const float* inv, float* out, int S, int A, int F, int M,
-                float rcut, float d_min, int bf16, cudaStream_t stream) {
+                float rcut, float d_min, int tier, cudaStream_t stream) {
   if ((cell == nullptr) != (inv == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (cell != nullptr)
-    launch_rows_cell<GX, true>(pos, in, coef, w0, w_lin, cell, inv, out, S,
-                               A, F, M, rcut, d_min, bf16, stream);
-  else
-    launch_rows_cell<GX, false>(pos, in, coef, w0, w_lin, cell, inv, out, S,
-                                A, F, M, rcut, d_min, bf16, stream);
-  return (int)cudaGetLastError();
+  dim3 grid((A + RT_TA - 1) / RT_TA, (F + RT_FC - 1) / RT_FC, S);
+  float scale = fit_scale(rcut, d_min);
+  int rc = with_tier(tier, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    if (cell != nullptr)
+      cheb_rows_kernel<T, GX, true>
+          <<<grid, THREADS, 18 * sizeof(float), stream>>>(
+              pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut,
+              d_min, scale);
+    else
+      cheb_rows_kernel<T, GX, false><<<grid, THREADS, 0, stream>>>(
+          pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
+          scale);
+    return 0;
+  });
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-template <bool BF16, bool HAS_CELL>
+template <int TIER, bool HAS_CELL>
 int launch_gd(const float* pos, const float* x, const float* g,
               const float* c2, const float* cell, const float* inv,
               float* row_part, float* col_part, int S, int A, int F, int M,
@@ -902,11 +1032,11 @@ int launch_gd(const float* pos, const float* x, const float* g,
       sizeof(float) * (2 * GD_T * GD_LD + GD_T * GD_WLD + (size_t)M * GD_FC +
                        (HAS_CELL ? 18 : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      cheb_gd_kernel<BF16, HAS_CELL>,
+      cheb_gd_kernel<TIER, HAS_CELL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_tiles, S);
-  cheb_gd_kernel<BF16, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+  cheb_gd_kernel<TIER, HAS_CELL><<<grid, THREADS, smem, stream>>>(
       pos, x, g, c2, cell, inv, row_part, col_part, A, F, M, n_tiles, rcut,
       d_min, fit_scale(rcut, d_min));
   return (int)cudaGetLastError();
@@ -914,7 +1044,7 @@ int launch_gd(const float* pos, const float* x, const float* g,
 
 inline int cheb_gxgd_tiles_of(int A) { return (A + GG_T - 1) / GG_T; }
 
-template <bool BF16, bool HAS_CELL>
+template <int TIER, bool HAS_CELL>
 int launch_gxgd(const float* pos, const float* x, const float* g,
                 const float* q, const float* c2, const float* w0,
                 const float* w_lin, const float* cell, const float* inv,
@@ -926,13 +1056,23 @@ int launch_gxgd(const float* pos, const float* x, const float* g,
                 (3 * GG_T * GG_LD + 2 * GG_T * GG_FC + 2 * GG_T * GG_T +
                  GG_T * GG_WLD + (HAS_CELL ? 18 : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      cheb_gxgd_kernel<BF16, HAS_CELL>,
+      cheb_gxgd_kernel<TIER, HAS_CELL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_tiles, S);
-  cheb_gxgd_kernel<BF16, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+  cheb_gxgd_kernel<TIER, HAS_CELL><<<grid, THREADS, smem, stream>>>(
       pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, A, F,
       MQ, M2, n_tiles, rcut, d_min, fit_scale(rcut, d_min));
+  return (int)cudaGetLastError();
+}
+
+// gpos = row side + column-side partials, in tile order.
+int launch_gd_reduce(const float* row_part, const float* col_part,
+                     float* gpos, int S, int A, int n_tiles,
+                     cudaStream_t stream) {
+  int total = S * A * 3;
+  gd_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+      row_part, col_part, gpos, S, A, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -947,45 +1087,38 @@ int cheb_gxgd_tiles(int A) { return cheb_gxgd_tiles_of(A); }
 int cheb_fwd(const float* pos, const float* x, const float* c,
              const float* w0, const float* w_lin, const float* cell,
              const float* inv, float* out, int S, int A, int F, int M,
-             float rcut, float d_min, int bf16, void* stream) {
+             float rcut, float d_min, int tier, void* stream) {
   return launch_rows<false>(pos, x, c, w0, w_lin, cell, inv, out, S, A, F,
-                            M, rcut, d_min, bf16, (cudaStream_t)stream);
+                            M, rcut, d_min, tier, (cudaStream_t)stream);
 }
 
 int cheb_bwd_gx(const float* pos, const float* g, const float* q,
                 const float* w0, const float* w_lin, const float* cell,
                 const float* inv, float* gx, int S, int A, int F, int M,
-                float rcut, float d_min, int bf16, void* stream) {
+                float rcut, float d_min, int tier, void* stream) {
   return launch_rows<true>(pos, g, q, w0, w_lin, cell, inv, gx, S, A, F, M,
-                           rcut, d_min, bf16, (cudaStream_t)stream);
+                           rcut, d_min, tier, (cudaStream_t)stream);
 }
 
 int cheb_bwd_gd(const float* pos, const float* x, const float* g,
                 const float* c2, const float* cell, const float* inv,
                 float* row_part, float* col_part, float* gpos, int S, int A,
-                int F, int M, float rcut, float d_min, int bf16,
+                int F, int M, float rcut, float d_min, int tier,
                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((cell == nullptr) != (inv == nullptr))
     return (int)cudaErrorInvalidValue;
-  int rc;
-  if (cell != nullptr)
-    rc = bf16 ? launch_gd<true, true>(pos, x, g, c2, cell, inv, row_part,
-                                      col_part, S, A, F, M, rcut, d_min, st)
-              : launch_gd<false, true>(pos, x, g, c2, cell, inv, row_part,
-                                       col_part, S, A, F, M, rcut, d_min, st);
-  else
-    rc = bf16 ? launch_gd<true, false>(pos, x, g, c2, cell, inv, row_part,
-                                       col_part, S, A, F, M, rcut, d_min, st)
-              : launch_gd<false, false>(pos, x, g, c2, cell, inv, row_part,
-                                        col_part, S, A, F, M, rcut, d_min,
-                                        st);
+  int rc = with_tier(tier, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return cell != nullptr
+               ? launch_gd<T, true>(pos, x, g, c2, cell, inv, row_part,
+                                    col_part, S, A, F, M, rcut, d_min, st)
+               : launch_gd<T, false>(pos, x, g, c2, cell, inv, row_part,
+                                     col_part, S, A, F, M, rcut, d_min, st);
+  });
   if (rc != 0) return rc;
-  int n_tiles = cheb_gd_tiles_of(A);
-  int total = S * A * 3;
-  gd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(row_part, col_part,
-                                                        gpos, S, A, n_tiles);
-  return (int)cudaGetLastError();
+  return launch_gd_reduce(row_part, col_part, gpos, S, A,
+                          cheb_gd_tiles_of(A), st);
 }
 
 int cheb_bwd_gxgd(const float* pos, const float* x, const float* g,
@@ -993,31 +1126,23 @@ int cheb_bwd_gxgd(const float* pos, const float* x, const float* g,
                   const float* w_lin, const float* cell, const float* inv,
                   float* gx, float* row_part, float* col_part, float* gpos,
                   int S, int A, int F, int MQ, int M2, float rcut,
-                  float d_min, int bf16, void* stream) {
+                  float d_min, int tier, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((cell == nullptr) != (inv == nullptr))
     return (int)cudaErrorInvalidValue;
-  int rc;
-  if (cell != nullptr)
-    rc = bf16 ? launch_gxgd<true, true>(pos, x, g, q, c2, w0, w_lin, cell,
-                                        inv, gx, row_part, col_part, S, A, F,
-                                        MQ, M2, rcut, d_min, st)
-              : launch_gxgd<false, true>(pos, x, g, q, c2, w0, w_lin, cell,
-                                         inv, gx, row_part, col_part, S, A,
-                                         F, MQ, M2, rcut, d_min, st);
-  else
-    rc = bf16 ? launch_gxgd<true, false>(pos, x, g, q, c2, w0, w_lin, cell,
-                                         inv, gx, row_part, col_part, S, A,
-                                         F, MQ, M2, rcut, d_min, st)
-              : launch_gxgd<false, false>(pos, x, g, q, c2, w0, w_lin, cell,
-                                          inv, gx, row_part, col_part, S, A,
-                                          F, MQ, M2, rcut, d_min, st);
+  int rc = with_tier(tier, [&](auto t) {
+    constexpr int T = decltype(t)::value;
+    return cell != nullptr
+               ? launch_gxgd<T, true>(pos, x, g, q, c2, w0, w_lin, cell, inv,
+                                      gx, row_part, col_part, S, A, F, MQ,
+                                      M2, rcut, d_min, st)
+               : launch_gxgd<T, false>(pos, x, g, q, c2, w0, w_lin, cell,
+                                       inv, gx, row_part, col_part, S, A, F,
+                                       MQ, M2, rcut, d_min, st);
+  });
   if (rc != 0) return rc;
-  int n_tiles = cheb_gxgd_tiles_of(A);
-  int total = S * A * 3;
-  gd_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(row_part, col_part,
-                                                        gpos, S, A, n_tiles);
-  return (int)cudaGetLastError();
+  return launch_gd_reduce(row_part, col_part, gpos, S, A,
+                          cheb_gxgd_tiles_of(A), st);
 }
 
 }  // extern "C"

@@ -13,7 +13,9 @@ in-jit fit is not, because attach always fits on the host.
 Two schedules, as in the reference: the whole stack with the deferred,
 block-stacked gd backward (``cheb_stack_apply``), and one conv per block
 (``cheb_cfconv_apply``, the reference's ``_cheb_cfconv``), around which the
-linear layers stay in autograd.
+linear layers stay in autograd. Both carry the precision tier (fp32, bf16,
+bf16x3) to every kernel launch, forward and backward; the linear layers
+run in float32 at every tier.
 
 GRADIENT CONTRACT (inference only, as in the reference): the convs'
 backward propagates cotangents to positions and the input features only;

@@ -10,7 +10,11 @@ Weights are stored ``[in, out]`` as in the reference. Precision tiers:
   result that JAX does not have, so the rounded operands are multiplied
   in float32: the product of two bf16 values is exact in float32, which
   makes this the same arithmetic as a bf16 MMA with float32 accumulation.
-* ``bf16x3`` is not ported yet and raises.
+* ``bf16x3``: float32 operands and result, as ``fp32``. The reference's
+  ``_dense`` at this tier is a float32 dot at ``Precision.HIGH``
+  (mlp.py:97-106), with no cast of its own; off the TPU that is a float32
+  product. TF32 (10-bit mantissa) is another tier and stays off. Only the
+  Chebyshev kernels split their operands at this tier (ops/_launch.py).
 """
 
 from __future__ import annotations
@@ -20,14 +24,10 @@ from typing import Sequence
 
 import torch
 
-PRECISIONS = ("fp32", "bf16")
+PRECISIONS = ("fp32", "bf16", "bf16x3")
 
 
 def check_precision(precision: str) -> None:
-    if precision == "bf16x3":
-        raise NotImplementedError(
-            "precision='bf16x3' is not ported to flashmd_tpu_torch yet"
-        )
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
 

@@ -9,6 +9,7 @@ distributions as the reference, not the same numbers (use
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -133,27 +134,53 @@ def _chain_priors(cfg: Configuration, seed: int = 0, device="cpu"):
 def default_cheb_orders(n_atoms, precision, cheb_order=None,
                         cheb_order_deriv=None, cheb_d_min=None):
     """(order, order_deriv, d_min) as the reference zoo picks them
-    (zoo.py:234-270): the bf16 defaults are (48, 64) on d_min = 2.0 for
-    A <= 266, (64, 64) above; an explicit order opts out of all coupled
-    defaults; fp32 takes the full symmetric 128 on the full domain."""
+    (zoo.py:234-269). All-default bf16 takes (48, 64) on d_min = 2.0 for
+    A <= 266 and (64, 64) above; bf16x3 takes its own (64, 96) on d_min =
+    2.0 at every size; fp32 the full symmetric 128 on the full domain. An
+    explicit order, either one, opts out of all coupled defaults: the other
+    order becomes 64 (bf16), 96 (bf16x3 given the derivative order) or 128
+    (fp32), or stays symmetric, and d_min 0.0."""
     bf16 = precision.startswith("bf16")
-    if cheb_order is None:
-        if cheb_order_deriv is not None:
-            order = 64 if bf16 else 128
-        else:
-            order = (48 if n_atoms <= 266 else 64) if bf16 else 128
-    else:
+    x3 = precision == "bf16x3"
+    if cheb_order is not None:
         order = cheb_order
-    if cheb_order_deriv is None:
-        deriv = 64 if (cheb_order is None and bf16) else None
+    elif x3:
+        order = 64 if cheb_order_deriv is None else 96
+    elif bf16:
+        order = 64 if cheb_order_deriv is not None or n_atoms > 266 else 48
     else:
+        order = 128
+    if cheb_order_deriv is not None:
         deriv = cheb_order_deriv
+    elif cheb_order is None and bf16:
+        deriv = 96 if x3 else 64
+    else:
+        deriv = None
     if cheb_d_min is None:
         explicit = cheb_order is not None or cheb_order_deriv is not None
         d_min = 2.0 if (not explicit and bf16) else 0.0
     else:
         d_min = cheb_d_min
     return order, deriv, d_min
+
+
+def warn_past_frontier(n_atoms, precision, cheb_order=None,
+                       cheb_order_deriv=None):
+    """The reference's size warning (zoo.py:272-294): the default orders of
+    the 16-bit tiers were measured up to 266 beads for bf16x3 and 532 for
+    bf16; past that, without explicit orders, warn."""
+    frontier = 266 if precision == "bf16x3" else 532
+    if (cheb_order is None and cheb_order_deriv is None
+            and precision.startswith("bf16") and n_atoms > frontier):
+        warnings.warn(
+            f"n_atoms={n_atoms} is past the measured fidelity frontier "
+            f"(A={frontier} for precision={precision!r}): the 16-bit "
+            "accumulation error of the Chebyshev path grows with the "
+            "molecule size and the default orders were validated only up "
+            f"to {frontier} beads. Measure the force error vs "
+            "precision='fp32' or pass explicit cheb_order/cheb_order_deriv.",
+            stacklevel=3,
+        )
 
 
 def cgschnet_1enh_like(
@@ -179,12 +206,15 @@ def cgschnet_1enh_like(
     explicit ``neighbor_capacity`` the reference's rule sizes it: the max
     neighbour count at rcut + 1.0 (the default Verlet skin) x 1.35, aligned
     to 8, at most ``n_atoms``. The tensors are placed on the card unless
-    ``device`` says otherwise.
+    ``device`` says otherwise. Past the measured fidelity frontier of the
+    default orders (266 beads at bf16x3, 532 at bf16) it warns, as the
+    reference does.
     """
     base = random_cg_protein(n_atoms=n_atoms, seed=seed)
     order, deriv, d_min = default_cheb_orders(
         n_atoms, precision, cheb_order, cheb_order_deriv, cheb_d_min
     )
+    warn_past_frontier(n_atoms, precision, cheb_order, cheb_order_deriv)
     config = SchNetConfig(
         hidden_channels=128,
         embedding_size=100,

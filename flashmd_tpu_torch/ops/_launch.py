@@ -1,6 +1,7 @@
 """Launch helpers shared by the kernel wrappers of ``flashmd_tpu_torch.ops``:
-operand checks, raw pointers, the current stream, CUDA error codes, and the
-bf16 operand rounding of the plain twins."""
+operand checks, raw pointers, the current stream, CUDA error codes, the
+tier codes of the kernels, and the operand rounding and tier products of
+the plain twins."""
 
 from __future__ import annotations
 
@@ -9,9 +10,33 @@ import torch
 from ..models.mlp import round_bf16
 
 
+# The kernels' tier argument: 0 fp32, 1 bf16, 3 bf16x3 (three bf16 passes).
+TIER_CODES = {"fp32": 0, "bf16": 1, "bf16x3": 3}
+
+
 def _op(t: torch.Tensor, precision: str) -> torch.Tensor:
-    """A product operand at the precision tier."""
+    """A product operand at the precision tier (bf16x3: the unsplit value;
+    see ``_dot``)."""
     return round_bf16(t) if precision == "bf16" else t
+
+
+def _split_bf16(a: torch.Tensor):
+    """(hi, lo): hi = bf16(a), lo = bf16(a - hi), both as float32 (reference
+    ``_split_bf16``, ops/pallas/cheb_kernel.py:352-355)."""
+    hi = round_bf16(a)
+    return hi, round_bf16(a - hi)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """a @ b at the precision tier, float32 result. bf16x3 mirrors the
+    reference's ``_mxu_dot`` (cheb_kernel.py:358-380): hi_a @ hi_b + lo_a @
+    hi_b + hi_a @ lo_b, summed in that order, each a float32 product of
+    bf16-exact values. fp32 and bf16 are ``_op(a) @ _op(b)``."""
+    if precision == "bf16x3":
+        a_hi, a_lo = _split_bf16(a)
+        b_hi, b_lo = _split_bf16(b)
+        return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo
+    return _op(a, precision) @ _op(b, precision)
 
 
 def _check(name, t, shape, dtype=torch.float32):

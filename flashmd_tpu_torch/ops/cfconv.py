@@ -36,7 +36,9 @@ wrapper counts its kernel launches in its ``launches`` attribute.
 
 Precision tiers: ``fp32`` and ``bf16`` (operands of the four products
 rounded to bf16, everything else float32, at the same places in the
-kernels and the twins).
+kernels and the twins). ``bf16x3`` takes the fp32 variant, wrapper and
+twin: the reference computes this kernel at ``compute_dtype = float32``
+with ``HIGHEST`` for every tier but bf16 (cfconv.py:322).
 """
 
 from __future__ import annotations

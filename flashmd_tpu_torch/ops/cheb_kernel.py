@@ -28,12 +28,18 @@ computes it once; it is computed here otherwise.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. The
-wrappers count their launches per kernel, the cell variants apart
-(``cheb_fwd_cell``, ...): ``launch_counts()``.
+wrappers count their launches per kernel, the cell variants and the
+bf16x3 tier apart (``cheb_fwd_cell``, ``cheb_fwd_bf16x3``,
+``cheb_fwd_cell_bf16x3``, ...): ``launch_counts()``.
 
-Precision tiers: ``fp32`` and ``bf16`` (product operands rounded to bf16,
-recurrence and accumulation in float32, at the same places in the kernel
-and its twin). ``bf16x3`` raises.
+Precision tiers, at the same places in each kernel and its twin; the
+recurrence and all accumulation stay float32:
+
+* ``fp32``: float32 products.
+* ``bf16``: product operands rounded to bf16.
+* ``bf16x3``: each product operand split into bf16 hi and lo parts, the
+  product taken as hi @ hi + lo @ hi + hi @ lo (``_launch._dot``, the
+  reference's ``_mxu_dot``, cheb_kernel.py:352-380), near float32.
 """
 
 from __future__ import annotations
@@ -41,7 +47,15 @@ from __future__ import annotations
 import torch
 
 from ..models.mlp import check_precision
-from ._launch import _check, _op, _ptr, _raise_on, _same_device, _stream
+from ._launch import (
+    TIER_CODES,
+    _check,
+    _dot,
+    _ptr,
+    _raise_on,
+    _same_device,
+    _stream,
+)
 from .neighborlist import _inv_3x3
 
 
@@ -138,42 +152,42 @@ def cheb_conv_fwd_plain(c, w0, pos, x, rcut, precision, d_min=0.0,
                         w_lin=None, cell=None, inv=None):
     """out = sum_m c_m (Ttil_m @ x) - w0 x + w_lin (low @ x); mirrors
     ``_cheb_forward_only`` plus the ``low`` term (models/cheb.py:574-630).
-    bf16 rounds Ttil_m and x; c_m multiplies after the product."""
+    The tier applies to Ttil_m and x (then low and x), as in the
+    reference's ``chain_matvec`` (:422) and ``low`` term (:471); c_m
+    multiplies after the product."""
     d, z = pair_geometry(pos, rcut, d_min, cell, inv)
     u2 = torch.square(1.0 - z)
     two_z = 2.0 * z
-    xo = _op(x, precision)
     t_prev, t_cur = u2, u2 * z
-    out = c[0] * (_op(t_prev, precision) @ xo)
+    out = c[0] * _dot(t_prev, x, precision)
     if c.shape[0] > 1:
-        out = out + c[1] * (_op(t_cur, precision) @ xo)
+        out = out + c[1] * _dot(t_cur, x, precision)
     for m in range(2, c.shape[0]):
         t_prev, t_cur = t_cur, two_z * t_cur - t_prev
-        out = out + c[m] * (_op(t_cur, precision) @ xo)
+        out = out + c[m] * _dot(t_cur, x, precision)
     if w_lin is not None:
-        out = out + w_lin * (_op(_low_matrix(d, d_min), precision) @ xo)
+        out = out + w_lin * _dot(_low_matrix(d, d_min), x, precision)
     return out - w0 * x
 
 
 def cheb_conv_bwd_gx_plain(c, w0, pos, g, rcut, precision, d_min=0.0,
                            w_lin=None, cell=None, inv=None):
     """gx = sum_k That_k @ (q_k g) - w0 g + low @ (w_lin g), q =
-    _to_that_basis(c): the kernel's own basis. bf16 rounds That_k and
-    q_k g (and low, w_lin g)."""
+    _to_that_basis(c): the kernel's own basis. The tier applies to That_k
+    and q_k g (then low and w_lin g), as in the reference's ``chain_gx``
+    (:529) and ``low`` term (:616)."""
     q = _to_that_basis(c)
     d, z = pair_geometry(pos, rcut, d_min, cell, inv)
     u = 1.0 - z
     two_z = 2.0 * z
     h_prev, h_cur = u, u * z
-    gx = _op(h_prev, precision) @ _op(q[0] * g, precision)
-    gx = gx + _op(h_cur, precision) @ _op(q[1] * g, precision)
+    gx = _dot(h_prev, q[0] * g, precision)
+    gx = gx + _dot(h_cur, q[1] * g, precision)
     for k in range(2, q.shape[0]):
         h_prev, h_cur = h_cur, two_z * h_cur - h_prev
-        gx = gx + _op(h_cur, precision) @ _op(q[k] * g, precision)
+        gx = gx + _dot(h_cur, q[k] * g, precision)
     if w_lin is not None:
-        gx = gx + _op(_low_matrix(d, d_min), precision) @ _op(
-            w_lin * g, precision
-        )
+        gx = gx + _dot(_low_matrix(d, d_min), w_lin * g, precision)
     return gx - w0 * g
 
 
@@ -184,15 +198,17 @@ def cheb_conv_bwd_gd_plain(c2, pos, x, g, rcut, precision, d_min=0.0,
     gpos = pos rowsum(W) - W pos + pos colsum(W) - W^T pos. Under a cell
     the pair shifts break that identity, so W contracts the minimum-image
     rel directly: gpos_i = -sum_j (W_ij + W_ji) rel_ij (reference
-    models/cheb.py:751-756). bf16 rounds c2_m g and x."""
+    models/cheb.py:751-756). The tier applies to c2_m g and x, as in the
+    reference's ``chain_gd`` (:537); the basis multiplies the product
+    afterwards in float32."""
     cell, inv = _cell_operands(cell, pos.shape[0], pos.device, inv)
     rel = pair_rel(pos, cell, inv)
     d, z = _geometry(rel, rcut, d_min)
     two_z = 2.0 * z
-    xt = _op(x, precision).transpose(1, 2)
+    xt = x.transpose(1, 2)
 
     def u_m(m):
-        return _op(c2[m] * g, precision) @ xt
+        return _dot(c2[m] * g, xt, precision)
 
     p_prev, p_cur = torch.ones_like(z), z
     gd = p_prev * u_m(0)
@@ -224,14 +240,15 @@ def cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut, precision,
     (1-z) T_m (reference _cheb_bwd, models/cheb.py:686-723, on the
     kernels' own bases): gx as cheb_conv_bwd_gx_plain (orders of q =
     _to_that_basis(c)), gd = sum_m That_m ((c2_m g) @ x^T) (orders of c2),
-    into gpos as cheb_conv_bwd_gd_plain. Returns (gpos, gx). bf16 rounds
-    That_k and q_k g (and low, w_lin g) for gx, c2_m g and x for gd."""
+    into gpos as cheb_conv_bwd_gd_plain. Returns (gpos, gx). The tier
+    applies to That_k and q_k g (and low, w_lin g) for gx, c2_m g and x for
+    gd."""
     q = _to_that_basis(c)
     cell, inv = _cell_operands(cell, pos.shape[0], pos.device, inv)
     rel = pair_rel(pos, cell, inv)
     d, z = _geometry(rel, rcut, d_min)
     two_z = 2.0 * z
-    xt = _op(x, precision).transpose(1, 2)
+    xt = x.transpose(1, 2)
     n_q, n_d = q.shape[0], c2.shape[0]
     h_prev, h_cur = 1.0 - z, (1.0 - z) * z
     gx = gd = 0.0
@@ -244,13 +261,11 @@ def cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut, precision,
             h_prev, h_cur = h_cur, two_z * h_cur - h_prev
             h = h_cur
         if m < n_q:
-            gx = gx + _op(h, precision) @ _op(q[m] * g, precision)
+            gx = gx + _dot(h, q[m] * g, precision)
         if m < n_d:
-            gd = gd + h * (_op(c2[m] * g, precision) @ xt)
+            gd = gd + h * _dot(c2[m] * g, xt, precision)
     if w_lin is not None:
-        gx = gx + _op(_low_matrix(d, d_min), precision) @ _op(
-            w_lin * g, precision
-        )
+        gx = gx + _dot(_low_matrix(d, d_min), w_lin * g, precision)
     return _gpos_of_gd(gd, pos, rel, d, rcut, cell), gx - w0 * g
 
 
@@ -270,8 +285,11 @@ def _cell_args(cell, inv, s, pos, tensors):
     return cell, inv
 
 
-def _count(name, cell):
-    _launches[name if cell is None else name + "_cell"] += 1
+def _count(name, cell, precision):
+    """One launch of ``name``'s variant: "_cell" under a cell, then
+    "_bf16x3" at that tier."""
+    name += "" if cell is None else "_cell"
+    _launches[name + ("_bf16x3" if precision == "bf16x3" else "")] += 1
 
 
 def cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min=0.0, w_lin=None,
@@ -299,10 +317,10 @@ def cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min=0.0, w_lin=None,
     rc = load().cheb_fwd(
         _ptr(pos), _ptr(x), _ptr(c), _ptr(w0), _ptr(w_lin), _ptr(cell),
         _ptr(inv), _ptr(out), s, a, f, m, float(rcut), float(d_min),
-        int(precision == "bf16"), _stream(),
+        TIER_CODES[precision], _stream(),
     )
     _raise_on(rc, "cheb_fwd")
-    _count("cheb_fwd", cell)
+    _count("cheb_fwd", cell, precision)
     return out
 
 
@@ -332,10 +350,10 @@ def cheb_conv_bwd_gx(c, w0, pos, g, rcut, precision, d_min=0.0, w_lin=None,
     rc = load().cheb_bwd_gx(
         _ptr(pos), _ptr(g), _ptr(q), _ptr(w0), _ptr(w_lin), _ptr(cell),
         _ptr(inv), _ptr(gx), s, a, f, q.shape[0], float(rcut), float(d_min),
-        int(precision == "bf16"), _stream(),
+        TIER_CODES[precision], _stream(),
     )
     _raise_on(rc, "cheb_bwd_gx")
-    _count("cheb_bwd_gx", cell)
+    _count("cheb_bwd_gx", cell, precision)
     return gx
 
 
@@ -367,10 +385,10 @@ def cheb_conv_bwd_gd(c2, pos, x, g, rcut, precision, d_min=0.0, cell=None,
     rc = lib.cheb_bwd_gd(
         _ptr(pos), _ptr(x), _ptr(g), _ptr(c2), _ptr(cell), _ptr(inv),
         _ptr(row_part), _ptr(col_part), _ptr(gpos), s, a, f, m, float(rcut),
-        float(d_min), int(precision == "bf16"), _stream(),
+        float(d_min), TIER_CODES[precision], _stream(),
     )
     _raise_on(rc, "cheb_bwd_gd")
-    _count("cheb_bwd_gd", cell)
+    _count("cheb_bwd_gd", cell, precision)
     return gpos
 
 
@@ -411,10 +429,10 @@ def cheb_conv_bwd_gxgd(c, c2, w0, pos, x, g, rcut, precision, d_min=0.0,
         _ptr(pos), _ptr(x), _ptr(g), _ptr(q), _ptr(c2), _ptr(w0),
         _ptr(w_lin), _ptr(cell), _ptr(inv), _ptr(gx), _ptr(row_part),
         _ptr(col_part), _ptr(gpos), s, a, f, q.shape[0], m2, float(rcut),
-        float(d_min), int(precision == "bf16"), _stream(),
+        float(d_min), TIER_CODES[precision], _stream(),
     )
     _raise_on(rc, "cheb_bwd_gxgd")
-    _count("cheb_bwd_gxgd", cell)
+    _count("cheb_bwd_gxgd", cell, precision)
     return gpos, gx
 
 
@@ -425,8 +443,10 @@ KERNELS = {
     "cheb_bwd_gxgd": cheb_conv_bwd_gxgd,
 }
 # Launches per kernel: the open variants under their names, the cell
-# variants under name + "_cell".
-_launches = dict.fromkeys([*KERNELS, *(n + "_cell" for n in KERNELS)], 0)
+# variants under name + "_cell", each at the bf16x3 tier + "_bf16x3".
+_VARIANTS = [*KERNELS, *(n + "_cell" for n in KERNELS)]
+_launches = dict.fromkeys([*_VARIANTS, *(n + "_bf16x3" for n in _VARIANTS)],
+                          0)
 
 
 def reset_launch_counts() -> None:

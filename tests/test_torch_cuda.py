@@ -1,12 +1,13 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 Each kernel (Chebyshev with the per-block combined backward, its
-periodic-cell variants, dense and neighbour-matrix CFConv) against its
-plain PyTorch twin on the card, the launch counters on the paths and on
-both cheb schedules, bitwise reproducibility, the wrappers' refusals and
-that the per-block schedule never takes a twin. Without a card every test
-skips (decided in a fixture, so every
-xdist worker collects the same tests). On the GPU machine, which has no
+periodic-cell variants and its bf16x3 tier, dense and neighbour-matrix
+CFConv) against its plain PyTorch twin on the card (at bf16x3 also
+nearer that twin than the fp32 one), the launch counters on the paths
+and on both cheb schedules, bitwise reproducibility, the wrappers'
+refusals and that the per-block schedule never takes a twin. Without a
+card every test skips (decided in a fixture, so every xdist worker
+collects the same tests). On the GPU machine, which has no
 JAX, run them without the JAX suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -26,9 +27,12 @@ pytestmark = pytest.mark.cuda
 
 RCUT = 10.0
 # max|kernel - plain| / max|plain|, as chip_smoke.py: the JAX suite's fp32
-# kernel tolerances; bf16 differs only by summation order and recurrence ulps.
-BOUNDS = {"fp32": {"fwd": 1e-5, "bwd": 1e-4}, "bf16": {"fwd": 2e-3,
-                                                         "bwd": 2e-3}}
+# kernel tolerances; bf16 differs only by summation order and recurrence
+# ulps; bf16x3 by those and the order of its three bf16 products, near
+# float32, held to the fp32 backward tolerance.
+BOUNDS = {"fp32": {"fwd": 1e-5, "bwd": 1e-4},
+          "bf16": {"fwd": 2e-3, "bwd": 2e-3},
+          "bf16x3": {"fwd": 1e-4, "bwd": 1e-4}}
 
 
 @pytest.fixture
@@ -57,7 +61,19 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def _fp32(args):
+    """The argument tuple with its precision replaced by "fp32"."""
+    return tuple("fp32" if isinstance(v, str) else v for v in args)
+
+
+def _takes_splits(k, ref, fp32_ref):
+    """The bf16x3 kernel output lies nearer its bf16x3 twin than the fp32
+    twin on the same inputs (Frobenius norms): the 1e-4 bound alone would
+    also pass a kernel that skipped the hi/lo splits."""
+    return bool(torch.linalg.norm(k - ref) < torch.linalg.norm(k - fp32_ref))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
 @pytest.mark.parametrize("d_min", [0.0, 2.0])
 @pytest.mark.parametrize("a,f", [(70, 128), (33, 48)])
 def test_kernels_match_twins(dev, precision, d_min, a, f):
@@ -71,15 +87,22 @@ def test_kernels_match_twins(dev, precision, d_min, a, f):
     out = ck.cheb_conv_fwd(t["c"], t["w0"], *args)
     ref = ck.cheb_conv_fwd_plain(t["c"], t["w0"], *args)
     assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    x3 = precision == "bf16x3"
+    assert not x3 or _takes_splits(
+        out, ref, ck.cheb_conv_fwd_plain(t["c"], t["w0"], *_fp32(args)))
     args = (t["pos"], t["g"], RCUT, precision, d_min, w_lin)
     gx = ck.cheb_conv_bwd_gx(t["c"], t["w0"], *args)
     gx_ref = ck.cheb_conv_bwd_gx_plain(t["c"], t["w0"], *args)
     assert _rel(gx, gx_ref) <= BOUNDS[precision]["bwd"]
+    assert not x3 or _takes_splits(
+        gx, gx_ref, ck.cheb_conv_bwd_gx_plain(t["c"], t["w0"], *_fp32(args)))
     args = (t["c2"], t["pos"], t["x"], t["g"], RCUT, precision, d_min)
     gpos = ck.cheb_conv_bwd_gd(*args)
     gpos_ref = ck.cheb_conv_bwd_gd_plain(*args)
     torch.cuda.synchronize()
     assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
+    assert not x3 or _takes_splits(
+        gpos, gpos_ref, ck.cheb_conv_bwd_gd_plain(*_fp32(args)))
 
 
 # rows = lattice vectors; widths > 2 RCUT, so the minimum image is sound
@@ -93,7 +116,7 @@ def _cells(dev, s):
                          for i in range(s)], device=dev)
 
 
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
 @pytest.mark.parametrize("d_min", [0.0, 2.0])
 @pytest.mark.parametrize("a,f", [(70, 128), (33, 48)])
 def test_cell_kernels_match_twins(dev, precision, d_min, a, f):
@@ -111,17 +134,24 @@ def test_cell_kernels_match_twins(dev, precision, d_min, a, f):
     out = ck.cheb_conv_fwd(t["c"], t["w0"], *args, cell=cell)
     ref = ck.cheb_conv_fwd_plain(t["c"], t["w0"], *args, cell=cell)
     assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    x3 = precision == "bf16x3"
+    assert not x3 or _takes_splits(out, ref, ck.cheb_conv_fwd_plain(
+        t["c"], t["w0"], *_fp32(args), cell=cell))
     open_ = ck.cheb_conv_fwd_plain(t["c"], t["w0"], *args)
     assert _rel(open_, ref) > 1e-2  # the cell changes the answer
     args = (pos, t["g"], RCUT, precision, d_min, w_lin)
     gx = ck.cheb_conv_bwd_gx(t["c"], t["w0"], *args, cell=cell)
     gx_ref = ck.cheb_conv_bwd_gx_plain(t["c"], t["w0"], *args, cell=cell)
     assert _rel(gx, gx_ref) <= BOUNDS[precision]["bwd"]
+    assert not x3 or _takes_splits(gx, gx_ref, ck.cheb_conv_bwd_gx_plain(
+        t["c"], t["w0"], *_fp32(args), cell=cell))
     args = (t["c2"], pos, t["x"], t["g"], RCUT, precision, d_min)
     gpos = ck.cheb_conv_bwd_gd(*args, cell=cell)
     gpos_ref = ck.cheb_conv_bwd_gd_plain(*args, cell=cell)
     torch.cuda.synchronize()
     assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
+    assert not x3 or _takes_splits(
+        gpos, gpos_ref, ck.cheb_conv_bwd_gd_plain(*_fp32(args), cell=cell))
 
 
 def test_cell_gd_bitwise_reproducible(dev):
@@ -200,8 +230,8 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         ck.cheb_conv_fwd(t["c"], t["w0"], t["pos"], t["x"].cpu(), RCUT,
                          "fp32")
-    with pytest.raises(NotImplementedError):
-        ck.cheb_conv_fwd(t["c"], t["w0"], t["pos"], t["x"], RCUT, "bf16x3")
+    with pytest.raises(ValueError):
+        ck.cheb_conv_fwd(t["c"], t["w0"], t["pos"], t["x"], RCUT, "fp16")
 
 
 def test_main_path_launch_counts(dev):
@@ -232,7 +262,7 @@ def test_main_path_launch_counts(dev):
     assert _rel(f_k, f_p) <= 2e-3
 
 
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
 @pytest.mark.parametrize("d_min", [0.0, 2.0])
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("a,f", [(70, 128), (33, 48), (41, 200)])
@@ -256,18 +286,25 @@ def test_gxgd_kernel_matches_twin(dev, precision, d_min, periodic, a, f):
     for k, r in zip(out, ref):
         assert _rel(k, r) <= BOUNDS[precision]["bwd"]
     assert all(torch.equal(u, v) for u, v in zip(out, again))
+    if precision == "bf16x3":
+        ref32 = ck.cheb_conv_bwd_gxgd_plain(*_fp32(args), cell=cell)
+        assert all(_takes_splits(k, r, r32)
+                   for k, r, r32 in zip(out, ref, ref32))
 
 
-def _perblock_forces(device, monkeypatch, cell=None):
-    """Forces of a 3-block cheb model on the per-block schedule, with the
-    launch counts of the evaluation."""
+def _perblock_forces(device, monkeypatch, cell=None, precision="bf16",
+                     stack="0"):
+    """Forces of a 3-block cheb model on the per-block schedule (or, with
+    ``stack="1"``, the stacked one), with the launch counts of the
+    evaluation."""
     from flashmd_tpu_torch.data.system import collate
     from flashmd_tpu_torch.models.cheb import attach_cheb_fit
     from flashmd_tpu_torch.models.forcefield import compute_energy_forces
     from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 
-    monkeypatch.setenv("FLASHMD_CHEB_STACK", "0")
-    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=device)
+    monkeypatch.setenv("FLASHMD_CHEB_STACK", stack)
+    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                  precision=precision, device=device)
     ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
                                                   ff.schnet_config))
     system = collate(cfgs, device=device)
@@ -295,6 +332,25 @@ def test_perblock_launch_counts(dev, periodic, monkeypatch):
     assert all(v == 0 for v in counts_cpu.values())
     # bf16 model: summation order on the card vs the CPU only
     assert _rel(forces, forces_cpu) <= 2e-3
+
+
+@pytest.mark.parametrize("stack", ["1", "0"])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_bf16x3_launch_counts(dev, periodic, stack, monkeypatch):
+    """A bf16x3 force evaluation of a 3-block model launches only the
+    bf16x3 counters (3/2/1 stacked, 3/2/1 of fwd/gxgd/gd per block, under
+    "_cell" with a cell); its forces agree with the CPU plain path to
+    1e-4 (near float32: summation order and product order only)."""
+    cell = _cells(dev, 2) * (25.0 / 24.0) if periodic else None
+    forces, counts = _perblock_forces(dev, monkeypatch, cell, "bf16x3",
+                                      stack)
+    sfx = ("_cell" if periodic else "") + "_bf16x3"
+    bwd = "cheb_bwd_gx" if stack == "1" else "cheb_bwd_gxgd"
+    assert counts == {**dict.fromkeys(counts, 0), "cheb_fwd" + sfx: 3,
+                      bwd + sfx: 2, "cheb_bwd_gd" + sfx: 1}
+    forces_cpu, _ = _perblock_forces(torch.device("cpu"), monkeypatch, cell,
+                                     "bf16x3", stack)
+    assert _rel(forces, forces_cpu) <= 1e-4
 
 
 def test_perblock_path_never_takes_a_twin(dev, monkeypatch):

@@ -202,28 +202,33 @@ def test_host_fit_bit_identical(d_min, order_deriv):
 
 
 def test_precision_tiers():
+    """bf16x3 runs (near fp32: within 1e-5 of the fp32 twin, and not equal
+    to it, so the splits are taken); an unknown tier raises."""
     c, _, w0 = _coeffs()
     pos, x, _ = _inputs(23)
-    with pytest.raises(NotImplementedError):
-        ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "bf16x3")
+    out = ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "bf16x3")
+    ref = ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp32")
+    assert out.shape == ref.shape and not torch.equal(out, ref)
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-5
     with pytest.raises(ValueError):
         ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp16")
 
 
 def test_cpu_tensors_never_count_launches():
     """On the CPU the wrapper takes the plain twin, which is no launch, open
-    or periodic; the cell variants are counted apart."""
+    or periodic, at any tier; the cell variants and the bf16x3 tier are
+    counted apart."""
     c, c2, w0 = _coeffs()
     pos, x, g = _inputs(23)
     ck.reset_launch_counts()
-    ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp32")
-    ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, "fp32",
-                     cell=9.0 * torch.eye(3))
-    for cell in (None, 9.0 * torch.eye(3)):
-        ck.cheb_conv_bwd_gxgd(_t(c), _t(c2), _t(w0), _t(pos), _t(x), _t(g),
-                              RCUT, "fp32", cell=cell)
-    assert ck.launch_counts() == {
-        "cheb_fwd": 0, "cheb_bwd_gx": 0, "cheb_bwd_gd": 0,
-        "cheb_bwd_gxgd": 0, "cheb_fwd_cell": 0, "cheb_bwd_gx_cell": 0,
-        "cheb_bwd_gd_cell": 0, "cheb_bwd_gxgd_cell": 0,
-    }
+    for precision in ("fp32", "bf16x3"):
+        ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, precision)
+        ck.cheb_conv_fwd(_t(c), _t(w0), _t(pos), _t(x), RCUT, precision,
+                         cell=9.0 * torch.eye(3))
+        for cell in (None, 9.0 * torch.eye(3)):
+            ck.cheb_conv_bwd_gxgd(_t(c), _t(c2), _t(w0), _t(pos), _t(x),
+                                  _t(g), RCUT, precision, cell=cell)
+    names = ["cheb_fwd", "cheb_bwd_gx", "cheb_bwd_gd", "cheb_bwd_gxgd"]
+    variants = names + [n + "_cell" for n in names]
+    assert ck.launch_counts() == dict.fromkeys(
+        variants + [v + "_bf16x3" for v in variants], 0)
