@@ -8,14 +8,18 @@ Phases (each prints its lines; any failure exits non-zero):
                count, and nvidia-smi's name and power limit.
 2. build    -- nvcc builds every flashmd_tpu_torch/csrc/*.cu for sm_90a
                (one process per source, in parallel) with -Xptxas -v
-               (registers, spills per kernel).
+               (registers, spills per kernel). The tensor-core gd
+               kernel's four instantiations (bf16, bf16x3; open, cell)
+               must not spill and must hold tensor-core MMA instructions
+               in their SASS (cuobjdump); their counts are printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
                published peak; the operations of the pairs within the
                cutoff only, which the data needs). Every kernel is
-               compared and timed at
-               the slice's S = 128; the dense and the neighbour-matrix
+               compared and timed at the slice's S = 128, beside the
+               live pairs and the live 16 x 8 pair fragments that the gd
+               kernel runs; the dense and the neighbour-matrix
                backward in both of their variants (with gx, and without
                it as block 1 runs it). The neighbour-matrix kernels run
                on the pallas slice's own list (K from the zoo rule, rc +
@@ -229,6 +233,58 @@ def ptxas_summary(log):
     return lines
 
 
+GD_MMA = re.compile(r"cheb_gd_mma_kernelILi(\d)ELb([01])E")
+
+
+def gd_kernel_report(log, lib_path, nvcc):
+    """The tensor-core gd kernel's four instantiations (bf16, bf16x3; open,
+    cell): ptxas registers, static shared memory and spills, and the
+    tensor-core instructions (HMMA/HGMMA) in their SASS. Fails if one is
+    missing, spills or holds no tensor-core instruction."""
+    from pathlib import Path
+
+    tiers = {"1": "bf16", "3": "bf16x3"}
+    seen, name, spill = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name and GD_MMA.search(name):
+            t, c = GD_MMA.search(name).groups()
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            seen[t, c] = [int(m.group(1)), smem.group(1) if smem else "0",
+                          spill or (0, 0), 0]
+        if m:
+            name, spill = None, None
+    cuobjdump = Path(nvcc).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for part in sass.split("Function : ")[1:]:
+        m = GD_MMA.search(part.split("\n", 1)[0])
+        if m and m.groups() in seen:
+            seen[m.groups()][3] = len(re.findall(r"\b(?:HMMA|HGMMA)\.", part))
+    for t in tiers:
+        for c in "01":
+            check((t, c) in seen, f"gd kernel {tiers[t]} cell={c}: not built")
+            regs, smem, (st, ld), n_mma = seen[t, c]
+            print(f"build: gd kernel cheb_gd_mma_kernel {tiers[t]} "
+                  f"{'cell' if c == '1' else 'open'}: {regs} regs, {smem} B "
+                  f"static smem (+ dynamic per launch), spill {st}/{ld} B, "
+                  f"{n_mma} tensor-core MMA instructions in SASS")
+            check(st == 0 and ld == 0, f"gd kernel {tiers[t]} cell={c} "
+                  "spills")
+            check(n_mma > 0, f"gd kernel {tiers[t]} cell={c}: no tensor-core "
+                  "instruction in its SASS")
+
+
 def cuda_time_ms(fn, warmup=2, iters=10):
     for _ in range(warmup):
         fn()
@@ -305,10 +361,12 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
 
 
 def cheb_pair_counts(pos, rcut, d_min, cell=None):
-    """(pairs i != j with d < rcut, of which d < d_min) of the batch,
+    """(pairs i != j with d < rcut, of which d < d_min, 16 x 8 pair
+    fragments holding such a pair, all fragments) of the batch,
     minimum-imaged under ``cell``: the pairs whose basis, and whose
     sub-floor linear term, is nonzero, the only ones the cheb products
-    need."""
+    need; the fragments are the tensor-core gd kernel's mma tiles, of
+    which it runs the live ones."""
     from flashmd_tpu_torch.ops.cheb_kernel import pair_rel
     from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
 
@@ -316,7 +374,9 @@ def cheb_pair_counts(pos, rcut, d_min, cell=None):
                                                       _inv_3x3(cell))
     d = torch.sqrt(torch.sum(rel * rel, dim=-1))
     off = ~torch.eye(pos.shape[1], dtype=torch.bool, device=pos.device)
-    return int(((d < rcut) & off).sum()), int(((d < d_min) & off).sum())
+    live = (d < rcut) & off
+    return (int(live.sum()), int(((d < d_min) & off).sum()),
+            *live_chunks(live, rows=16, cols=8))
 
 
 def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
@@ -346,7 +406,8 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
     x_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     g_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     m1, m2 = c.shape[0], c2.shape[0]
-    n_live, n_low = cheb_pair_counts(pos, rcut, d_min, cell)
+    n_live, n_low, n_frag, all_frag = cheb_pair_counts(pos, rcut, d_min,
+                                                       cell)
     pair_flops = 2.0 * n_live
     low_flops = 2.0 * n_low * f if w_lin is not None else 0.0
     kw, suffix, wrap, cell_bytes = {}, "", 0.0, 0
@@ -394,7 +455,9 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
     }
     print(f"kernels: cheb{suffix} shapes S={s} A={a} F={f} (gd {nb * f}) "
           f"M1={m1} M2={m2} d_min={d_min}; live pairs (d < rc) {n_live} of "
-          f"{s * a * a}, below d_min {n_low}")
+          f"{s * a * a}, below d_min {n_low}; live 16x8 fragments (gd "
+          f"kernel) {n_frag} of {all_frag} ({n_frag / all_frag:.4f}), "
+          f"{128 * n_frag / (s * a * a):.4f} x all pairs")
     stats = {
         name + suffix: compare_and_time(name, kern, plain, flops,
                                         nbytes + cell_bytes,
@@ -1036,6 +1099,7 @@ def main():
           f"in {info['seconds']:.1f} s")
     for line in ptxas_summary(info["log"]):
         print(f"build: ptxas {line}")
+    gd_kernel_report(info["log"], info["path"], _build._nvcc())
 
     from flashmd_tpu_torch.data.system import collate
     from flashmd_tpu_torch.ops import cfconv as cf

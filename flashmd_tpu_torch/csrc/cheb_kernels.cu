@@ -27,10 +27,13 @@
 // (2B-1)*M1 + B*M2 = 432 order-products of 2*A^2*F FLOPs, about 7.8 GFLOP
 // per molecule-step; the bytes they read are pos, x/g and the coefficient
 // tables (a few hundred KB per molecule), so they sit far above the
-// machine balance and are bound by arithmetic. These first versions do
-// that arithmetic as float32 FMA from shared memory (register-tiled 4x4
-// per thread), on operands rounded to bf16 in the bf16 tier; they do not
-// use the tensor cores yet (mma/wgmma is later work). What the design
+// machine balance and are bound by arithmetic. cheb_fwd, cheb_bwd_gx,
+// cheb_bwd_gxgd and the fp32 tier of cheb_bwd_gd do that arithmetic as
+// float32 FMA from shared memory (register-tiled 4x4 per thread), on
+// operands rounded to bf16 in the bf16 tier. cheb_bwd_gd at bf16 and
+// bf16x3 takes its order products on the tensor cores over the live
+// 16 x 8 pair fragments only (cheb_gd_mma_kernel, its note below). What
+// the design
 // does about the bound: the [A, A] pair and recurrence state never
 // reaches device memory -- it lives in registers and a double-buffered
 // shared tile per (row tile, column block) -- so every FLOP is spent on
@@ -61,10 +64,11 @@
 //             products up to float32 rounding. What bounds the bf16x3
 //             variants: the same matrix work as the others three times
 //             over (3x the product FLOPs at the bf16 tensor-core rate);
-//             here it is two FMAs per product on CUDA cores, with the
+//             on CUDA cores it is two FMAs per product, with the
 //             unpacking and register splits hidden under them: 2.0-2.3x
 //             the fp32 variant's time at equal orders (H100 80GB HBM3,
-//             700 W).
+//             700 W). cheb_gd_mma_kernel takes the three products as
+//             three mma passes on packed hi and lo operands.
 //
 // Periodic cells (HAS_CELL, the reference's has_cell): the C entry points
 // take cell and inv pointers, [S, 3, 3] float32 (lattice rows and their
@@ -643,6 +647,475 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   }
 }
 
+// cheb_bwd_gd at the bf16 and bf16x3 tiers, on the tensor cores.
+//
+// Replaces _cheb_bwd_kernel with need_gx=False (flashmd_tpu/ops/pallas/
+// cheb_kernel.py:476: chain_gd :533-545, gpos epilogue :639-685), as
+// cheb_gd_kernel does at fp32. Bound: operations, 2 * live pairs * F * M
+// FLOP of order products at 989 TFLOP/s, three times that at bf16x3: at
+// the stacked slice (871,318 live pairs of 128 molecules, F = 384, M = 64)
+// 0.0433 ms, at the bf16x3 slice (M = 96) 0.195 ms. The recurrence and gd
+// add two FMAs per pair and order against F multiply-adds, the epilogue is
+// O(A^2). Reached on an H100 80GB HBM3 at 700 W (chip_smoke, PERF.md):
+// 1.31-1.32 ms stacked bf16, 3.3 % of the bound, 28x faster than the
+// 64 x 64 CUDA-core tiles it replaced; 4.27-4.31 ms at bf16x3, 4.6 %.
+// What holds it there: per mma (16 x 8 x 16) a lane also issues several
+// instructions forming A and stepping the recurrence, and at 246-254
+// registers only 8 warps share an SM to hide the mma.sync dependency
+// chains.
+//
+// Design. One CTA per (16-row strip, molecule), MG_W warps. Pairs are
+// taken in mma.m16n8k16 fragments (16 rows x 8 columns), so the tiling
+// pads A only to the MMA grain (272 x 272 at A = 266, 1.046x all pairs).
+// 1. Before any product, the warps test every 16 x 8 fragment of the
+//    strip (d < rcut, i != j, in range; a warp vote per fragment) and
+//    warp 0 compacts the live ones into a list; dead fragments are
+//    skipped outright (exact: their W is zero by the keep mask whatever
+//    gd is; 0.449x all pairs run at the slice's start positions). The
+//    list is dealt round-robin to the warps, MG_NC fragments per warp and
+//    round, so a strip's band of live fragments is shared.
+// 2. Per feature chunk of FC, c2[:, chunk] and g[strip rows, chunk] are
+//    staged in shared memory by cp.async, double-buffered, zero-padded
+//    past F and A. Each warp loads g into registers in the A-fragment
+//    layout and x of its fragments' columns in the B-fragment layout,
+//    rounded (bf16) or split (bf16x3) as loaded. The B fragments stay in
+//    registers for all M orders, so rounding x once per (strip, fragment,
+//    chunk) costs 1/M of forming the A side: no pre-pass, no scratch.
+// 3. Per order m the warp forms A = bf16(c2_m * g) in registers (float32
+//    product, then round to nearest even, as the twin; at bf16x3 split into
+//    hi and lo where the reference's _split_bf16 splits it) and reuses it
+//    over its MG_NC fragments: U_m = A B^T by mma.sync into float32
+//    accumulators (bf16x3: hi*hi, lo*hi, hi*lo into the same accumulator,
+//    the reference's _mxu_dot order). Two orders are in flight at once.
+// 4. The Chebyshev recurrence lives in the accumulator layout: lane l
+//    holds the pairs (l/4, 2(l%4) + {0,1}) and (l/4 + 8, ...) of each
+//    fragment, and carries T_m, T_{m+1}, 2z and gd for exactly those, one
+//    FMA each for the recurrence and gd += T_m U_m per order. It restarts
+//    per feature chunk (gd = sum_chunks sum_m T_m U_m^(chunk)). No pair
+//    state reaches device memory.
+// 5. Epilogue: W = (1-z) gd / d on live pairs, in registers. Column sides:
+//    summed over the strip's 16 rows by shuffles in a fixed order, written
+//    to this strip's slab of col_part (dead fragments' columns are written
+//    zero). Row sides: each lane sums its columns over its warp's
+//    fragments in list order, the quad by shuffles, then the warps in warp
+//    order into row_part. No atomics: bitwise reproducible.
+constexpr int MG_W = 4;
+constexpr int MG_NC = 4;
+constexpr int MG_ROWS = 16;
+
+template <int TIER>
+constexpr int MG_FC = TIER == TIER_X3 ? 32 : 64;
+
+// Two floats as one bf16x2 mma operand, round to nearest even; `lo_k` is
+// the lower k index (the lower 16 bits).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo_k, float hi_k) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// hi = bf16(v), lo = bf16(v - hi) of two floats, each packed as an operand.
+__device__ __forceinline__ void split_bf16x2(float v0, float v1,
+                                             unsigned& hi, unsigned& lo) {
+  hi = pack_bf16x2(v0, v1);
+  lo = pack_bf16x2(v0 - __uint_as_float(hi << 16),
+                   v1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// d = a b + c for one m16n8k16 bf16 tile, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1,
+                                         const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// d and z of this lane's four pairs of the fragment at (strip row r_base,
+// column cf * 8), in accumulator order: rows (gq, gq, gq + 8, gq + 8),
+// columns (2 tq, 2 tq + 1, 2 tq, 2 tq + 1); live = d < rcut off the
+// diagonal in range (pair_geom parks out-of-range pairs at 2 rcut).
+template <bool HAS_CELL>
+__device__ __forceinline__ void mg_frag_geom(
+    const float (*pr_s)[3], const float* pos, const float* geo, int r_base,
+    int cf, int A, int gq, int tq, float rcut, float d_min, float scale,
+    float (&d)[4], float (&z)[4], bool (&live)[4], float (&pcol)[2][3]) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    int j = cf * 8 + 2 * tq + c;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pcol[c][k] = j < A ? pos[j * 3 + k] : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    int rr = gq + 8 * (e >> 1), c = e & 1;
+    int r = r_base + rr, j = cf * 8 + 2 * tq + c;
+    pair_geom<HAS_CELL>(pr_s[rr], pcol[c], geo, r < A && j < A, rcut, d_min,
+                        scale, d[e], z[e]);
+    live[e] = r != j && d[e] < rcut;
+  }
+}
+
+// One float to shared memory by cp.async, zero-filled when !in (src is
+// then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// c2[:, kc:kc+FC] into c2_s [M][FC] and g[strip rows, kc:kc+FC] into g_s
+// [16][FC + 8], zero past F and A; one cp.async group.
+template <int FC>
+__device__ __forceinline__ void mg_stage(float* c2_s, float* g_s,
+                                         const float* c2, const float* g,
+                                         int kc, int r_base, int A, int F,
+                                         int M, int tid) {
+  for (int e = tid; e < M * FC; e += MG_W * 32) {
+    int m = e / FC, k = kc + e % FC;
+    bool in = k < F;
+    cp_async4(c2_s + e, in ? c2 + (size_t)m * F + k : c2, in);
+  }
+  for (int e = tid; e < MG_ROWS * FC; e += MG_W * 32) {
+    int rr = e / FC, k = kc + e % FC, r = r_base + rr;
+    bool in = r < A && k < F;
+    cp_async4(g_s + rr * (FC + 8) + e % FC, in ? g + (size_t)r * F + k : g,
+              in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One feature chunk of a warp's fragments: gd += sum_m T_m U_m over the
+// chunk's features, the recurrence restarted at T_0 = 1, T_1 = z.
+// cs: c2[:, chunk] [M][FC]; gs: g[strip rows, chunk] [16][FC + 8]; x is
+// read at the fragments' columns. Fragments c >= n_on are computed on
+// zero x (a branch per fragment cost more than the products).
+template <int TIER>
+__device__ __forceinline__ void mg_chunk(const float* cs, const float* gs,
+                                         const float* x,
+                                         const int (&cfs)[MG_NC], int n_on,
+                                         int kc, int A, int F, int M,
+                                         int lane, const float (&z2)[MG_NC][4],
+                                         float (&gd)[MG_NC][4]) {
+  constexpr bool X3 = TIER == TIER_X3;
+  constexpr int FC = MG_FC<TIER>;
+  constexpr int KS = FC / 16;
+  constexpr int GLD = FC + 8;
+  const int gq = lane >> 2, tq = lane & 3;
+  // g at this lane's A-fragment places: rows gq, gq + 8; k = 2 tq + {0, 1}
+  // and 2 tq + 8 + {0, 1} of each k16 step.
+  float2 gr[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const float* g0 = gs + gq * GLD + ks * 16 + 2 * tq;
+    const float* g1 = g0 + 8 * GLD;
+    gr[ks][0] = *reinterpret_cast<const float2*>(g0);
+    gr[ks][1] = *reinterpret_cast<const float2*>(g1);
+    gr[ks][2] = *reinterpret_cast<const float2*>(g0 + 8);
+    gr[ks][3] = *reinterpret_cast<const float2*>(g1 + 8);
+  }
+  // x at this lane's B-fragment places: column gq of the fragment, k =
+  // 2 tq + {0, 1} and 2 tq + 8 + {0, 1}; rounded or split here, once for
+  // all M orders.
+  unsigned bh[MG_NC][KS][2], bl[MG_NC][KS][2];
+#pragma unroll
+  for (int c = 0; c < MG_NC; ++c) {
+    int j = cfs[c] * 8 + gq;
+    bool on = c < n_on && j < A;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int k = kc + ks * 16 + 2 * tq + 8 * h;
+        float v0 = on && k < F ? x[(size_t)j * F + k] : 0.0f;
+        float v1 = on && k + 1 < F ? x[(size_t)j * F + k + 1] : 0.0f;
+        if constexpr (X3)
+          split_bf16x2(v0, v1, bh[c][ks][h], bl[c][ks][h]);
+        else
+          bh[c][ks][h] = pack_bf16x2(v0, v1);
+      }
+  }
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // u = U_m of every fragment: A = c2_m * g formed once, used MG_NC times
+  auto product = [&](const float* cm, float (&u)[MG_NC][4]) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      float2 ca = *reinterpret_cast<const float2*>(cm + ks * 16 + 2 * tq);
+      float2 cb = *reinterpret_cast<const float2*>(cm + ks * 16 + 2 * tq + 8);
+      // A at (row gq | gq + 8) x (k | k + 8)
+      const float2 av[4] = {
+          make_float2(ca.x * gr[ks][0].x, ca.y * gr[ks][0].y),
+          make_float2(ca.x * gr[ks][1].x, ca.y * gr[ks][1].y),
+          make_float2(cb.x * gr[ks][2].x, cb.y * gr[ks][2].y),
+          make_float2(cb.x * gr[ks][3].x, cb.y * gr[ks][3].y)};
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (X3)
+          split_bf16x2(av[i].x, av[i].y, ah[i], al[i]);
+        else
+          ah[i] = pack_bf16x2(av[i].x, av[i].y);
+      }
+#pragma unroll
+      for (int c = 0; c < MG_NC; ++c) {
+        if (ks == 0)
+          mma_bf16(u[c], ah, bh[c][ks][0], bh[c][ks][1], zero);
+        else
+          mma_bf16(u[c], ah, bh[c][ks][0], bh[c][ks][1], u[c]);
+        if constexpr (X3) {
+          mma_bf16(u[c], al, bh[c][ks][0], bh[c][ks][1], u[c]);
+          mma_bf16(u[c], ah, bl[c][ks][0], bl[c][ks][1], u[c]);
+        }
+      }
+    }
+  };
+  // Orders in pairs: ta = T_m, tb = T_{m+1}, advanced in place after both
+  // (T_{m+2} = 2z T_{m+1} - T_m), so no state moves between orders.
+  float ta[MG_NC][4], tb[MG_NC][4];
+#pragma unroll
+  for (int c = 0; c < MG_NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ta[c][e] = 1.0f;
+      tb[c][e] = 0.5f * z2[c][e];
+    }
+  // two orders' products in flight, then their gd terms in order
+  int m = 0;
+  for (; m + 1 < M; m += 2) {
+    float u0[MG_NC][4], u1[MG_NC][4];
+    product(cs + m * FC, u0);
+    product(cs + (m + 1) * FC, u1);
+#pragma unroll
+    for (int c = 0; c < MG_NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gd[c][e] += ta[c][e] * u0[c][e];
+        gd[c][e] += tb[c][e] * u1[c][e];
+        ta[c][e] = z2[c][e] * tb[c][e] - ta[c][e];
+        tb[c][e] = z2[c][e] * ta[c][e] - tb[c][e];
+      }
+  }
+  if (m < M) {
+    float u0[MG_NC][4];
+    product(cs + m * FC, u0);
+#pragma unroll
+    for (int c = 0; c < MG_NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gd[c][e] += ta[c][e] * u0[c][e];
+  }
+}
+
+template <int TIER, bool HAS_CELL>
+__global__ void __launch_bounds__(MG_W * 32)
+cheb_gd_mma_kernel(const float* __restrict__ pos,
+                   const float* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ c2,
+                   const float* __restrict__ cell,
+                   const float* __restrict__ inv,
+                   float* __restrict__ row_part, float* __restrict__ col_part,
+                   int A, int F, int M, int n_strips, float rcut, float d_min,
+                   float scale) {
+  constexpr int FC = MG_FC<TIER>;
+  constexpr int GLD = FC + 8;  // g_s row stride: conflict-free LDS.64
+  extern __shared__ float4 mg_smem4[];
+  float* c2_s = reinterpret_cast<float*>(mg_smem4);  // [2][M][FC]
+  float* g_s = c2_s + 2 * (size_t)M * FC;            // [2][16][GLD]
+  int* live_s = reinterpret_cast<int*>(g_s + 2 * MG_ROWS * GLD);  // [n_cf]
+  int* list_s = live_s + (A + 7) / 8;                         // [n_cf]
+  __shared__ float pr_s[MG_ROWS][3];
+  __shared__ float geo_s[18];
+  __shared__ float rp_s[MG_W][MG_ROWS][4];
+  __shared__ int n_live_s;
+
+  const int s = blockIdx.y;
+  const int strip = blockIdx.x;
+  const int r_base = strip * MG_ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int n_cf = (A + 7) / 8;
+  pos += (size_t)s * A * 3;
+  x += (size_t)s * A * F;
+  g += (size_t)s * A * F;
+  float* slab = col_part + ((size_t)s * n_strips + strip) * A * 3;
+
+  if (tid < MG_ROWS * 3) {
+    int r = tid / 3, k = tid % 3;
+    pr_s[r][k] = (r_base + r < A) ? pos[(r_base + r) * 3 + k] : 0.0f;
+  }
+  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
+  __syncthreads();
+
+  // 1. Which fragments of the strip hold a live pair.
+  for (int cf = warp; cf < n_cf; cf += MG_W) {
+    float d[4], z[4], pcol[2][3];
+    bool live[4];
+    mg_frag_geom<HAS_CELL>(pr_s, pos, geo_s, r_base, cf, A, gq, tq, rcut,
+                           d_min, scale, d, z, live, pcol);
+    int any = __any_sync(0xffffffffu, live[0] || live[1] || live[2] ||
+                                          live[3]);
+    if (lane == 0) live_s[cf] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < n_cf; base += 32) {
+      int cf = base + lane;
+      unsigned vote = __ballot_sync(0xffffffffu, cf < n_cf && live_s[cf]);
+      if (cf < n_cf && live_s[cf])
+        list_s[n + __popc(vote & ((1u << lane) - 1u))] = cf;
+      n += __popc(vote);
+    }
+    if (lane == 0) n_live_s = n;
+  }
+  // dead fragments' columns of this strip's slab are zero
+  for (int e = tid; e < A * 3; e += MG_W * 32)
+    if (!live_s[e / 24]) slab[e] = 0.0f;
+  __syncthreads();
+  const int n_live = n_live_s;
+
+  float rs[2] = {0.0f, 0.0f};
+  float wp[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+
+  // 2-4. Rounds of MG_W * MG_NC live fragments, in list order.
+  for (int q0 = 0; q0 < n_live; q0 += MG_W * MG_NC) {
+    int cfs[MG_NC];
+    int n_on = 0;  // this warp's fragments of the round: entries c < n_on
+#pragma unroll
+    for (int c = 0; c < MG_NC; ++c) {
+      int q = q0 + c * MG_W + warp;
+      cfs[c] = q < n_live ? list_s[q] : 0;
+      n_on += q < n_live;
+    }
+    float z2[MG_NC][4], gd[MG_NC][4];
+#pragma unroll
+    for (int c = 0; c < MG_NC; ++c) {
+      float d[4], z[4], pcol[2][3];
+      bool live[4];
+      mg_frag_geom<HAS_CELL>(pr_s, pos, geo_s, r_base, cfs[c], A, gq, tq,
+                             rcut, d_min, scale, d, z, live, pcol);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        z2[c][e] = 2.0f * z[e];
+        gd[c][e] = 0.0f;
+      }
+    }
+
+    // feature chunks, double-buffered: chunk kc + FC is copied in while
+    // chunk kc is multiplied
+    mg_stage<FC>(c2_s, g_s, c2, g, 0, r_base, A, F, M, tid);
+    for (int kc = 0, b = 0; kc < F; kc += FC, b ^= 1) {
+      if (kc + FC < F) {
+        mg_stage<FC>(c2_s + (b ^ 1) * M * FC, g_s + (b ^ 1) * MG_ROWS * GLD,
+                     c2, g, kc + FC, r_base, A, F, M, tid);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();  // chunk kc is in buffer b
+      if (n_on > 0)
+        mg_chunk<TIER>(c2_s + b * M * FC, g_s + b * MG_ROWS * GLD, x, cfs,
+                       n_on, kc, A, F, M, lane, z2, gd);
+      __syncthreads();  // buffer b is read: the next stage may refill it
+    }
+
+    // 5. W = (1-z) gd / d on live pairs; this round's sides.
+#pragma unroll
+    for (int c = 0; c < MG_NC; ++c) {
+      if (c >= n_on) break;
+      float d[4], z[4], pcol[2][3];
+      bool live[4];
+      mg_frag_geom<HAS_CELL>(pr_s, pos, geo_s, r_base, cfs[c], A, gq, tq,
+                             rcut, d_min, scale, d, z, live, pcol);
+      float col[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int h = e >> 1, cc = e & 1;
+        float w = live[e] ? ((1.0f - z[e]) * gd[c][e]) / d[e] : 0.0f;
+        const float* pi = pr_s[gq + 8 * h];
+        if (HAS_CELL) {
+          float e0, e1, e2;
+          pair_rel<true>(pi, pcol[cc], geo_s, e0, e1, e2);
+          wp[h][0] += w * e0;
+          wp[h][1] += w * e1;
+          wp[h][2] += w * e2;
+          col[cc][1] += w * e0;
+          col[cc][2] += w * e1;
+          col[cc][3] += w * e2;
+        } else {
+          rs[h] += w;
+          wp[h][0] += w * pcol[cc][0];
+          wp[h][1] += w * pcol[cc][1];
+          wp[h][2] += w * pcol[cc][2];
+          col[cc][0] += w;
+          col[cc][1] += w * pi[0];
+          col[cc][2] += w * pi[1];
+          col[cc][3] += w * pi[2];
+        }
+      }
+      // column sides over the strip's rows: lanes of equal tq
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            col[cc][k] += __shfl_xor_sync(0xffffffffu, col[cc][k], off);
+      if (gq == 0) {
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          int j = cfs[c] * 8 + 2 * tq + cc;
+          if (j < A) {
+            float* o = slab + j * 3;
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              o[k] = HAS_CELL ? col[cc][k + 1]
+                              : pcol[cc][k] * col[cc][0] - col[cc][k + 1];
+          }
+        }
+      }
+    }
+  }
+
+  // Row sides: the quad's columns, then the warps in order.
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], off);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        wp[h][k] += __shfl_xor_sync(0xffffffffu, wp[h][k], off);
+    }
+  if (tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* o = rp_s[warp][gq + 8 * h];
+      o[0] = rs[h];
+      o[1] = wp[h][0];
+      o[2] = wp[h][1];
+      o[3] = wp[h][2];
+    }
+  }
+  __syncthreads();
+  if (tid < MG_ROWS && r_base + tid < A) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int w = 0; w < MG_W; ++w)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] += rp_s[w][tid][k];
+    float* o = row_part + ((size_t)s * A + r_base + tid) * 3;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      o[k] = HAS_CELL ? -v[k + 1] : pr_s[tid][k] * v[0] - v[k + 1];
+  }
+}
+
 // gpos = row side + column-side partials summed in tile order 0..n-1.
 __global__ void gd_reduce_kernel(const float* __restrict__ row_part,
                                  const float* __restrict__ col_part,
@@ -1022,23 +1495,47 @@ int launch_rows(const float* pos, const float* in, const float* coef,
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
+// fp32 keeps cheb_gd_kernel (64 x 64 tiles, one col_part slab per row
+// tile); bf16 and bf16x3 take cheb_gd_mma_kernel (one slab per 16-row
+// strip). col_part is sized for the larger count; each tier's kernel and
+// its reduce use the first gd_slabs_of(A, tier) slabs.
+inline int gd_slabs_of(int A, int tier) {
+  return tier == TIER_FP32 ? cheb_gd_tiles_of(A)
+                           : (A + MG_ROWS - 1) / MG_ROWS;
+}
+
 template <int TIER, bool HAS_CELL>
 int launch_gd(const float* pos, const float* x, const float* g,
               const float* c2, const float* cell, const float* inv,
               float* row_part, float* col_part, int S, int A, int F, int M,
               float rcut, float d_min, cudaStream_t stream) {
-  int n_tiles = cheb_gd_tiles_of(A);
-  size_t smem =
-      sizeof(float) * (2 * GD_T * GD_LD + GD_T * GD_WLD + (size_t)M * GD_FC +
-                       (HAS_CELL ? 18 : 0));
-  cudaError_t err = cudaFuncSetAttribute(
-      cheb_gd_kernel<TIER, HAS_CELL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  int n_tiles = gd_slabs_of(A, TIER);
+  float scale = fit_scale(rcut, d_min);
   dim3 grid(n_tiles, S);
-  cheb_gd_kernel<TIER, HAS_CELL><<<grid, THREADS, smem, stream>>>(
-      pos, x, g, c2, cell, inv, row_part, col_part, A, F, M, n_tiles, rcut,
-      d_min, fit_scale(rcut, d_min));
+  cudaError_t err;
+  if constexpr (TIER == TIER_FP32) {
+    size_t smem =
+        sizeof(float) * (2 * GD_T * GD_LD + GD_T * GD_WLD +
+                         (size_t)M * GD_FC + (HAS_CELL ? 18 : 0));
+    err = cudaFuncSetAttribute(cheb_gd_kernel<TIER, HAS_CELL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cheb_gd_kernel<TIER, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+        pos, x, g, c2, cell, inv, row_part, col_part, A, F, M, n_tiles, rcut,
+        d_min, scale);
+  } else {
+    constexpr int FC = MG_FC<TIER>;
+    size_t smem = sizeof(float) * 2 * ((size_t)M * FC + MG_ROWS * (FC + 8)) +
+                  sizeof(int) * 2 * (size_t)((A + 7) / 8);
+    err = cudaFuncSetAttribute(cheb_gd_mma_kernel<TIER, HAS_CELL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cheb_gd_mma_kernel<TIER, HAS_CELL><<<grid, MG_W * 32, smem, stream>>>(
+        pos, x, g, c2, cell, inv, row_part, col_part, A, F, M, n_tiles, rcut,
+        d_min, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1080,7 +1577,8 @@ int launch_gd_reduce(const float* row_part, const float* col_part,
 
 extern "C" {
 
-int cheb_gd_tiles(int A) { return cheb_gd_tiles_of(A); }
+// col_part slabs of cheb_bwd_gd: enough for every tier.
+int cheb_gd_tiles(int A) { return gd_slabs_of(A, TIER_BF16); }
 
 int cheb_gxgd_tiles(int A) { return cheb_gxgd_tiles_of(A); }
 
@@ -1118,7 +1616,7 @@ int cheb_bwd_gd(const float* pos, const float* x, const float* g,
   });
   if (rc != 0) return rc;
   return launch_gd_reduce(row_part, col_part, gpos, S, A,
-                          cheb_gd_tiles_of(A), st);
+                          gd_slabs_of(A, tier), st);
 }
 
 int cheb_bwd_gxgd(const float* pos, const float* x, const float* g,

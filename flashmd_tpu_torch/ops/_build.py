@@ -12,6 +12,7 @@ Nothing here runs at import: the first CUDA launch builds and loads.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -76,7 +77,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+@functools.cache
 def library_path() -> Path:
+    """The library's path, keyed by the sources as this process first
+    reads them (hashed once: every wrapper call looks the library up)."""
     h = hashlib.sha256()
     for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())

@@ -14,6 +14,11 @@ cheb_conv_bwd_gxgd ``_cheb_bwd_kernel`` (:476), ``need_gx=True,
                    need_gd=True``: the per-block backward
 =================  ==========================================================
 
+``cheb_bwd_gd`` at bf16 and bf16x3 takes its order products on the tensor
+cores over 16 x 8 pair fragments and skips those with no pair within the
+cutoff (exact: their W is zero); fp32 keeps its float32 tiles. Its column
+partials take ``cheb_gd_tiles(A)`` slabs, enough for either.
+
 Every operand carries the batch as its leading axis: ``pos [S, A, 3]``,
 ``x``/``g`` ``[S, A, F]``; coefficient tables are ``[M, F]``. The batch is
 the kernels' grid axis.

@@ -219,6 +219,97 @@ def test_gd_bitwise_reproducible(dev):
         assert torch.equal(ck.cheb_conv_bwd_gd(*args), first)
 
 
+# The tensor-core gd kernel (bf16, bf16x3): 16 x 8 pair fragments, dead
+# ones skipped. Ragged atom counts (not multiples of 16 or 8), feature
+# widths (not multiples of 16), order counts down to 1.
+GD_ATOMS = [1, 7, 17, 63, 65, 266]
+GD_FEATURES = [16, 50, 128, 384]
+GD_ORDERS = [1, 2, 64]
+# a cell wide enough for the layouts below (minimum image sound)
+CELL_WIDE = [[100.0, 0.0, 0.0], [10.0, 100.0, 0.0], [5.0, 5.0, 100.0]]
+
+
+def _gd_check(pos, x, g, c2, precision, cell=None):
+    """The gd kernel vs its twin: 2e-3 (bf16) or 1e-4 and nearer the bf16x3
+    twin than the fp32 one (bf16x3) of max|twin|; exactly zero where the
+    twin is (no live pair)."""
+    args = (c2, pos, x, g, RCUT, precision, 2.0)
+    gpos = ck.cheb_conv_bwd_gd(*args, cell=cell)
+    ref = ck.cheb_conv_bwd_gd_plain(*args, cell=cell)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(gpos).all())
+    if float(ref.abs().max()) == 0.0:
+        assert float(gpos.abs().max()) == 0.0
+        return
+    assert _rel(gpos, ref) <= BOUNDS[precision]["bwd"]
+    if precision == "bf16x3":
+        assert _takes_splits(gpos, ref, ck.cheb_conv_bwd_gd_plain(
+            *_fp32(args), cell=cell))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m", GD_ORDERS)
+@pytest.mark.parametrize("f", GD_FEATURES)
+@pytest.mark.parametrize("a", GD_ATOMS)
+def test_gd_tensor_core_kernel_matches_twin(dev, a, f, m, periodic,
+                                            precision):
+    t = _inputs(dev, 2, a, f, 1, m, seed=a * 1000 + f + m)
+    pos, cell = t["pos"], None
+    if periodic:
+        pos, cell = torch.remainder(pos, 24.0), _cells(dev, 2)
+    _gd_check(pos, t["x"], t["g"], t["c2"], precision, cell)
+
+
+def _gd_layout(dev, s, a, layout, seed):
+    """Positions [S, A, 3] inside [5, 95)^3: "clusters", two compact
+    clusters 3 RCUT apart (dead fragments beside live ones); "none", a
+    grid of spacing 1.2 RCUT (no pair within the cutoff); "compact", all
+    in a 5 A cube (every fragment live)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "clusters":
+        pos = 1.5 * torch.randn(s, a, 3, generator=gen, device=dev)
+        pos[:, a // 2:, 0] += 3 * RCUT
+    elif layout == "none":
+        i = torch.arange(a, device=dev)
+        grid = torch.stack([i % 7, (i // 7) % 7, i // 49], dim=-1)
+        pos = (1.2 * RCUT * grid.float()).expand(s, a, 3).contiguous()
+    else:
+        pos = 5.0 * torch.rand(s, a, 3, generator=gen, device=dev)
+    return pos + 10.0
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("layout", ["clusters", "none", "compact"])
+@pytest.mark.parametrize("a", [63, 266])
+def test_gd_tensor_core_kernel_layouts(dev, a, layout, periodic, precision):
+    t = _inputs(dev, 2, a, 128, 1, 64, seed=a + 7)
+    pos = _gd_layout(dev, 2, a, layout, seed=a + 8)
+    cell = None
+    if periodic:
+        cell = torch.tensor([CELL_WIDE] * 2, device=dev)
+    if layout == "none":
+        gpos = ck.cheb_conv_bwd_gd(t["c2"], pos, t["x"], t["g"], RCUT,
+                                   precision, 2.0, cell=cell)
+        assert torch.equal(gpos, torch.zeros_like(gpos))
+    _gd_check(pos, t["x"], t["g"], t["c2"], precision, cell)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_gd_tensor_core_bitwise_reproducible(dev, precision, periodic):
+    """Two launches at the stacked slice's widths give identical gpos."""
+    t = _inputs(dev, 3, 266, 384, 1, 64, seed=2)
+    pos, cell = 3.0 * t["pos"], None
+    if periodic:
+        pos, cell = torch.remainder(pos, 24.0), _cells(dev, 3)
+    args = (t["c2"], pos, t["x"], t["g"], RCUT, precision, 2.0)
+    first = ck.cheb_conv_bwd_gd(*args, cell=cell)
+    for _ in range(2):
+        assert torch.equal(ck.cheb_conv_bwd_gd(*args, cell=cell), first)
+
+
 def test_wrappers_refuse_what_kernels_do_not_take(dev):
     t = _inputs(dev, 2, 20, 16, 8, 8)
     with pytest.raises(ValueError):
