@@ -10,16 +10,18 @@ Phases (each prints its lines; any failure exits non-zero):
                (one process per source, in parallel) with -Xptxas -v
                (registers, spills per kernel). The tensor-core gd
                kernel's four instantiations (bf16, bf16x3; open, cell)
-               must not spill and must hold tensor-core MMA instructions
-               in their SASS (cuobjdump); their counts are printed.
+               and the fwd/gx kernel's eight (also fwd, gx) must not
+               spill and must hold tensor-core MMA instructions in their
+               SASS (cuobjdump); their counts are printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
                published peak; the operations of the pairs within the
                cutoff only, which the data needs). Every kernel is
                compared and timed at the slice's S = 128, beside the
-               live pairs and the live 16 x 8 pair fragments that the gd
-               kernel runs; the dense and the neighbour-matrix
+               live pairs and the live pair fragments that the
+               tensor-core kernels run (16 x 8 gd, 16 x 16 fwd/gx); the
+               dense and the neighbour-matrix
                backward in both of their variants (with gx, and without
                it as block 1 runs it). The neighbour-matrix kernels run
                on the pallas slice's own list (K from the zoo rule, rc +
@@ -233,17 +235,44 @@ def ptxas_summary(log):
     return lines
 
 
-GD_MMA = re.compile(r"cheb_gd_mma_kernelILi(\d)ELb([01])E")
+# The tensor-core kernels' template arguments in their mangled names:
+# cheb_gd_mma_kernel<TIER, HAS_CELL>, cheb_rows_mma_kernel<TIER, GX,
+# HAS_CELL>.
+MMA_KERNELS = {
+    "gd": re.compile(r"cheb_gd_mma_kernelILi(\d)ELb([01])E"),
+    "rows": re.compile(r"cheb_rows_mma_kernelILi(\d)ELb([01])ELb([01])E"),
+}
+MMA_TIERS = {"1": "bf16", "3": "bf16x3"}
 
 
-def gd_kernel_report(log, lib_path, nvcc):
-    """The tensor-core gd kernel's four instantiations (bf16, bf16x3; open,
-    cell): ptxas registers, static shared memory and spills, and the
-    tensor-core instructions (HMMA/HGMMA) in their SASS. Fails if one is
-    missing, spills or holds no tensor-core instruction."""
+def _mma_match(name):
+    """(kind, template arguments) of a tensor-core kernel's mangled name,
+    or None."""
+    for kind, pat in MMA_KERNELS.items():
+        m = pat.search(name)
+        if m:
+            return kind, m.groups()
+    return None
+
+
+def _mma_label(kind, args):
+    if kind == "gd":
+        t, c = args
+        return (f"gd kernel cheb_gd_mma_kernel {MMA_TIERS[t]} "
+                f"{'cell' if c == '1' else 'open'}")
+    t, gx, c = args
+    return (f"rows kernel cheb_rows_mma_kernel {'gx' if gx == '1' else 'fwd'}"
+            f" {MMA_TIERS[t]} {'cell' if c == '1' else 'open'}")
+
+
+def mma_kernel_report(log, lib_path, nvcc):
+    """The tensor-core kernels' instantiations: cheb_gd_mma_kernel (bf16,
+    bf16x3; open, cell) and cheb_rows_mma_kernel (also fwd, gx): ptxas
+    registers, static shared memory and spills, and the tensor-core
+    instructions (HMMA/HGMMA) in their SASS. Fails if one is missing,
+    spills or holds no tensor-core instruction."""
     from pathlib import Path
 
-    tiers = {"1": "bf16", "3": "bf16x3"}
     seen, name, spill = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -256,11 +285,11 @@ def gd_kernel_report(log, lib_path, nvcc):
             spill = (int(m.group(1)), int(m.group(2)))
             continue
         m = re.search(r"Used (\d+) registers(.*)", line)
-        if m and name and GD_MMA.search(name):
-            t, c = GD_MMA.search(name).groups()
+        key = _mma_match(name) if m and name else None
+        if key:
             smem = re.search(r"(\d+) bytes smem", m.group(2))
-            seen[t, c] = [int(m.group(1)), smem.group(1) if smem else "0",
-                          spill or (0, 0), 0]
+            seen[key] = [int(m.group(1)), smem.group(1) if smem else "0",
+                         spill or (0, 0), 0]
         if m:
             name, spill = None, None
     cuobjdump = Path(nvcc).parent / "cuobjdump"
@@ -268,21 +297,21 @@ def gd_kernel_report(log, lib_path, nvcc):
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     for part in sass.split("Function : ")[1:]:
-        m = GD_MMA.search(part.split("\n", 1)[0])
-        if m and m.groups() in seen:
-            seen[m.groups()][3] = len(re.findall(r"\b(?:HMMA|HGMMA)\.", part))
-    for t in tiers:
-        for c in "01":
-            check((t, c) in seen, f"gd kernel {tiers[t]} cell={c}: not built")
-            regs, smem, (st, ld), n_mma = seen[t, c]
-            print(f"build: gd kernel cheb_gd_mma_kernel {tiers[t]} "
-                  f"{'cell' if c == '1' else 'open'}: {regs} regs, {smem} B "
-                  f"static smem (+ dynamic per launch), spill {st}/{ld} B, "
-                  f"{n_mma} tensor-core MMA instructions in SASS")
-            check(st == 0 and ld == 0, f"gd kernel {tiers[t]} cell={c} "
-                  "spills")
-            check(n_mma > 0, f"gd kernel {tiers[t]} cell={c}: no tensor-core "
-                  "instruction in its SASS")
+        key = _mma_match(part.split("\n", 1)[0])
+        if key in seen:
+            seen[key][3] = len(re.findall(r"\b(?:HMMA|HGMMA)\.", part))
+    expected = [("gd", (t, c)) for t in MMA_TIERS for c in "01"]
+    expected += [("rows", (t, gx, c)) for gx in "01" for t in MMA_TIERS
+                 for c in "01"]
+    for key in expected:
+        label = _mma_label(*key)
+        check(key in seen, f"{label}: not built")
+        regs, smem, (st, ld), n_mma = seen[key]
+        print(f"build: {label}: {regs} regs, {smem} B static smem (+ dynamic "
+              f"per launch), spill {st}/{ld} B, {n_mma} tensor-core MMA "
+              "instructions in SASS")
+        check(st == 0 and ld == 0, f"{label} spills")
+        check(n_mma > 0, f"{label}: no tensor-core instruction in its SASS")
 
 
 def cuda_time_ms(fn, warmup=2, iters=10):
@@ -362,21 +391,24 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
 
 def cheb_pair_counts(pos, rcut, d_min, cell=None):
     """(pairs i != j with d < rcut, of which d < d_min, 16 x 8 pair
-    fragments holding such a pair, all fragments) of the batch,
-    minimum-imaged under ``cell``: the pairs whose basis, and whose
+    fragments holding such a pair, all 16 x 8 fragments, 16 x 16
+    fragments holding a pair with z != 1, all 16 x 16 fragments) of the
+    batch, minimum-imaged under ``cell``: the pairs whose basis, and whose
     sub-floor linear term, is nonzero, the only ones the cheb products
-    need; the fragments are the tensor-core gd kernel's mma tiles, of
-    which it runs the live ones."""
-    from flashmd_tpu_torch.ops.cheb_kernel import pair_rel
+    need; the 16 x 8 fragments are the tensor-core gd kernel's mma tiles,
+    the 16 x 16 ones the fwd/gx kernel's (its rule z != 1 keeps the
+    diagonal), of which each runs the live ones."""
+    from flashmd_tpu_torch.ops.cheb_kernel import _geometry, pair_rel
     from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
 
     rel = pair_rel(pos) if cell is None else pair_rel(pos, cell,
                                                       _inv_3x3(cell))
-    d = torch.sqrt(torch.sum(rel * rel, dim=-1))
+    d, z = _geometry(rel, rcut, d_min)
     off = ~torch.eye(pos.shape[1], dtype=torch.bool, device=pos.device)
     live = (d < rcut) & off
     return (int(live.sum()), int(((d < d_min) & off).sum()),
-            *live_chunks(live, rows=16, cols=8))
+            *live_chunks(live, rows=16, cols=8),
+            *live_chunks(z != 1.0, rows=16, cols=16))
 
 
 def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
@@ -406,8 +438,8 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
     x_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     g_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     m1, m2 = c.shape[0], c2.shape[0]
-    n_live, n_low, n_frag, all_frag = cheb_pair_counts(pos, rcut, d_min,
-                                                       cell)
+    n_live, n_low, n_frag, all_frag, n_rows, all_rows = cheb_pair_counts(
+        pos, rcut, d_min, cell)
     pair_flops = 2.0 * n_live
     low_flops = 2.0 * n_low * f if w_lin is not None else 0.0
     kw, suffix, wrap, cell_bytes = {}, "", 0.0, 0
@@ -457,7 +489,10 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
           f"M1={m1} M2={m2} d_min={d_min}; live pairs (d < rc) {n_live} of "
           f"{s * a * a}, below d_min {n_low}; live 16x8 fragments (gd "
           f"kernel) {n_frag} of {all_frag} ({n_frag / all_frag:.4f}), "
-          f"{128 * n_frag / (s * a * a):.4f} x all pairs")
+          f"{128 * n_frag / (s * a * a):.4f} x all pairs; live 16x16 "
+          f"fragments (fwd/gx kernel, z != 1) {n_rows} of {all_rows} "
+          f"({n_rows / all_rows:.4f}), {256 * n_rows / (s * a * a):.4f} x "
+          "all pairs")
     stats = {
         name + suffix: compare_and_time(name, kern, plain, flops,
                                         nbytes + cell_bytes,
@@ -1099,7 +1134,7 @@ def main():
           f"in {info['seconds']:.1f} s")
     for line in ptxas_summary(info["log"]):
         print(f"build: ptxas {line}")
-    gd_kernel_report(info["log"], info["path"], _build._nvcc())
+    mma_kernel_report(info["log"], info["path"], _build._nvcc())
 
     from flashmd_tpu_torch.data.system import collate
     from flashmd_tpu_torch.ops import cfconv as cf

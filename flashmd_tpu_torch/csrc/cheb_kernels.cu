@@ -27,13 +27,14 @@
 // (2B-1)*M1 + B*M2 = 432 order-products of 2*A^2*F FLOPs, about 7.8 GFLOP
 // per molecule-step; the bytes they read are pos, x/g and the coefficient
 // tables (a few hundred KB per molecule), so they sit far above the
-// machine balance and are bound by arithmetic. cheb_fwd, cheb_bwd_gx,
-// cheb_bwd_gxgd and the fp32 tier of cheb_bwd_gd do that arithmetic as
+// machine balance and are bound by arithmetic. cheb_bwd_gxgd and the
+// fp32 tier of cheb_fwd, cheb_bwd_gx and cheb_bwd_gd do that arithmetic as
 // float32 FMA from shared memory (register-tiled 4x4 per thread), on
-// operands rounded to bf16 in the bf16 tier. cheb_bwd_gd at bf16 and
-// bf16x3 takes its order products on the tensor cores over the live
-// 16 x 8 pair fragments only (cheb_gd_mma_kernel, its note below). What
-// the design
+// operands rounded to bf16 in cheb_bwd_gxgd's bf16 tier. At bf16 and
+// bf16x3, cheb_bwd_gd takes its order products on the tensor cores over
+// the live 16 x 8 pair fragments only (cheb_gd_mma_kernel), and cheb_fwd
+// and cheb_bwd_gx over the 16 x 16 fragments with a pair inside the
+// cutoff (cheb_rows_mma_kernel); their notes are below. What the design
 // does about the bound: the [A, A] pair and recurrence state never
 // reaches device memory -- it lives in registers and a double-buffered
 // shared tile per (row tile, column block) -- so every FLOP is spent on
@@ -67,8 +68,9 @@
 //             on CUDA cores it is two FMAs per product, with the
 //             unpacking and register splits hidden under them: 2.0-2.3x
 //             the fp32 variant's time at equal orders (H100 80GB HBM3,
-//             700 W). cheb_gd_mma_kernel takes the three products as
-//             three mma passes on packed hi and lo operands.
+//             700 W). cheb_gd_mma_kernel and cheb_rows_mma_kernel take
+//             the three products as three mma passes on packed hi and lo
+//             operands.
 //
 // Periodic cells (HAS_CELL, the reference's has_cell): the C entry points
 // take cell and inv pointers, [S, 3, 3] float32 (lattice rows and their
@@ -261,7 +263,8 @@ __device__ __forceinline__ void pair_geom(const float* pi, const float* pj,
 
 // One kernel for cheb_fwd (GX=false: basis (1-z)^2 T_m, operand x,
 // coefficient after the product) and cheb_bwd_gx (GX=true: basis
-// (1-z) T_k, operand q_k * g formed before the product). Grid:
+// (1-z) T_k, operand q_k * g formed before the product), at the fp32 tier
+// (bf16 and bf16x3 take cheb_rows_mma_kernel). Grid:
 // (row tiles, feature chunks, molecules). The cell variant takes 18 floats
 // of dynamic shared memory for the lattice.
 template <int TIER, bool GX, bool HAS_CELL>
@@ -1448,6 +1451,433 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   }
 }
 
+// cheb_fwd and cheb_bwd_gx at the bf16 and bf16x3 tiers, on the tensor
+// cores.
+//
+// Replaces _cheb_fwd_kernel (flashmd_tpu/ops/pallas/cheb_kernel.py:394:
+// chain_matvec :421-429, low term :466-471) and _cheb_bwd_kernel with
+// need_gd=False (:476: chain_gx :520-531, low term :609-617), as
+// cheb_rows_kernel does at fp32. Bound: operations, 2 * live pairs * F
+// FLOP per order product at 989 TFLOP/s (three times that at bf16x3): at
+// the cheb slice (871,318 live pairs of 128 molecules, F = 128) 0.0108 ms
+// for the 48 forward orders, 0.0111 ms for the 49 gx orders. The
+// recurrence adds one FMA per pair and order against F multiply-adds.
+//
+// Design. One warp per CTA and per (16-row strip, 64-feature chunk,
+// molecule); the CTA owns those output elements and sums them in a fixed
+// order (no atomics: bitwise reproducible). Pairs are taken in 16 x 16
+// fragments, the A operand of mma.m16n8k16 (rows i, K = source atoms j);
+// the output strip 16 x 64 is eight n-tiles, 32 float32 accumulators per
+// lane.
+// 1. Skip rule. The warp tests every 16 x 16 fragment of its strip: it
+//    runs only if some pair has z != 1.0f exactly (warp vote, compacted
+//    list in shared memory). At z == 1 (d >= rcut, or out of range and
+//    parked at 2 rcut by pair_geom) both seeds, (1-z)^2 and (1-z), are
+//    exactly zero, so every order's basis value is zero and the fragment
+//    adds nothing: skipping it is exact. Not "d < rcut, i != j" as in the
+//    gd kernel: the diagonal pair sits at z = -1 and contributes
+//    sum_m c_m Ttil_m(-1) x[i], which the epilogue removes as w0 x[i].
+//    At the slice's start positions 19,072 of 36,992 fragments run (0.54x
+//    all pairs). The linear term runs as one more product only on
+//    fragments holding a pair with low = min(d - d_min, 0) != 0 (a second
+//    list); low is exactly zero elsewhere.
+// 2. The basis from the recurrence in the A-fragment layout: lane l holds
+//    the pairs (l/4 + {0, 8}, 2(l%4) + {0, 1} + {0, 8}) of a fragment,
+//    seeds T_0 = s, T_1 = s z with s = (1-z)^2 (fwd) or (1-z) (gx) from
+//    the pair geometry, and steps T_{m+1} = 2z T_m - T_{m-1} in registers,
+//    two orders in flight; each order's A operand is rounded (bf16) or
+//    split (bf16x3) from those registers. No basis tile, no barrier.
+// 3. Operands. Forward: x at this lane's B-fragment places, rounded or
+//    split once per fragment and held for all M orders; the product P_m =
+//    bf16(Ttil_m) @ bf16(x) is taken over a run of two fragments and
+//    then scaled, acc += c_m * P_m, one FMA per accumulator: the
+//    coefficient multiplies after the product, as in the reference. gx:
+//    bf16(q_k * g) is formed per order in registers from g held in float32
+//    (the float32 product, then round or split) and accumulated directly,
+//    acc += That_k @ B (at bf16x3 each order's three passes go to a fresh
+//    accumulator, added in float32). Coefficient rows (and w_lin for the
+//    linear term) are staged once in shared memory, permuted so that a
+//    lane reads its features with two or four 16-byte loads per order.
+// 4. bf16x3 is three mma passes into one float32 accumulator (hi*hi,
+//    lo*hi, hi*lo, the reference's _mxu_dot order).
+// 5. Epilogue: out = acc - w0 * in (the diagonal's share), masked to
+//    A x F. A and F are padded to 16 and 64 by zero operands.
+// Reached at the cheb slice (H100 80GB HBM3, 700 W; chip_smoke, PERF.md
+// §6): fwd 0.345 ms bf16 (3.1 % of the bound, 15x the CUDA-core kernel),
+// gx 0.452 ms (2.5 %). What holds it there: the fragments run are 5.6x
+// the live pairs (the 16 x 16 grain at A = 266), and per mma a lane also
+// issues the scale FMAs (fwd) or forms B = bf16(q_k g) (gx: six
+// instructions per mma), with one warp per CTA.
+// Tried and measured at the slice's shapes (tools/cheb_rows_variants.py,
+// times in PERF.md §6): a forward run of one, two or three fragments per
+// scaling (two is fastest at bf16 and at bf16x3; three reaches 254
+// registers); gx at bf16x3 with every order's passes summed in the mma
+// accumulator (faster, but the tensor core's float32 sum is not round to
+// nearest: it lies as far from the split twin as from the fp32 one, so
+// each order takes a fresh accumulator added in float32); the cell's
+// lattice held in registers (spills gx bf16x3 cell). A first form with
+// the run as a generic lambda crashed nvcc (cicc segfault).
+constexpr int RM_ROWS = 16;
+constexpr int RM_FC = 64;
+constexpr int RM_NT = RM_FC / 8;
+
+// Fragments per run: two for the forward's product, one for gx.
+template <bool GX>
+constexpr int RM_NJ = GX ? 1 : 2;
+
+// Row stride of the staged coefficients: gx lanes read 8 features each at
+// gq * 8; forward lanes read 16 at tq * 20 (padded: no bank conflict).
+template <bool GX>
+constexpr int RM_CROW = GX ? RM_FC : 80;
+
+// Place of chunk feature fl = 8t + n in a staged coefficient row: gx lane
+// gq needs n = gq of every n-tile t; forward lane tq needs n = 2tq + {0,1}
+// (its accumulator columns) of every t.
+template <bool GX>
+__device__ __forceinline__ int rm_cidx(int fl) {
+  int t = fl >> 3, n = fl & 7;
+  if constexpr (GX) return n * 8 + t;
+  return (n >> 1) * 20 + 2 * t + (n & 1);
+}
+
+// Row and column of pair p of this lane in a 16 x 16 fragment at (r_base,
+// j0), A-fragment order: p = 2 (h + 2 kk) + c -> row gq + 8h, column
+// 2 tq + c + 8 kk.
+__device__ __forceinline__ void rm_pair(int p, int r_base, int j0, int gq,
+                                        int tq, int& r, int& j) {
+  r = r_base + gq + 8 * ((p >> 1) & 1);
+  j = j0 + 2 * tq + (p & 1) + 8 * (p >> 2);
+}
+
+// d and z of this lane's eight pairs of the fragment at columns j0..j0+15;
+// prow holds the positions of rows gq and gq + 8 of the strip. The cell's
+// 18 scalars are read from shared memory at each call (volatile), so that
+// they are not held in registers across the order loop.
+template <bool HAS_CELL>
+__device__ __forceinline__ void rm_frag_geom(
+    const float (&prow)[2][3], const float* pos, const float* geo_s,
+    int r_base, int j0, int A, int gq, int tq, float rcut, float d_min,
+    float scale, float (&d)[8], float (&z)[8]) {
+  float geo[18];
+  if (HAS_CELL) {
+#pragma unroll
+    for (int k = 0; k < 18; ++k)
+      geo[k] = reinterpret_cast<const volatile float*>(geo_s)[k];
+  }
+  float pc[4][3];  // columns 2 tq + c + 8 kk at index c + 2 kk
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    int j = j0 + 2 * tq + (q & 1) + 8 * (q >> 1);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pc[q][k] = j < A ? pos[j * 3 + k] : 0.0f;
+  }
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    int r, j;
+    rm_pair(p, r_base, j0, gq, tq, r, j);
+    pair_geom<HAS_CELL>(prow[(p >> 1) & 1], pc[(p & 1) + 2 * (p >> 2)], geo,
+                        r < A && j < A, rcut, d_min, scale, d[p], z[p]);
+  }
+}
+
+// low = min(d - d_min, 0) off the diagonal in range, else 0.
+__device__ __forceinline__ float rm_low(float d, float d_min, int r, int j,
+                                        int A) {
+  return (r < A && j < A && r != j) ? fminf(d - d_min, 0.0f) : 0.0f;
+}
+
+// One order of a run into acc. Forward: acc += c_m * (bf16(T_m) @
+// bf16(x)) over the run's fragments, c_m from the staged row cr at this
+// lane's accumulator columns; gx: acc += bf16(T_k) @ bf16(q_k g), q_k from
+// cr at this lane's B-fragment features. bf16x3: three passes each.
+template <int TIER, bool GX, int NJ>
+__device__ __forceinline__ void rm_product(
+    const float (&tm)[NJ][8], const float* cr,
+    const unsigned (&xh)[NJ][RM_NT][2], const unsigned (&xl)[NJ][RM_NT][2],
+    const float (&gv)[NJ][RM_NT][4], int gq, int tq,
+    float (&acc)[RM_NT][4]) {
+  constexpr bool X3 = TIER == TIER_X3;
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  unsigned ah[NJ][4], al[NJ][4];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (X3)
+        split_bf16x2(tm[jj][2 * i], tm[jj][2 * i + 1], ah[jj][i], al[jj][i]);
+      else
+        ah[jj][i] = pack_bf16x2(tm[jj][2 * i], tm[jj][2 * i + 1]);
+    }
+  if constexpr (GX) {
+    const float4 qa = *reinterpret_cast<const float4*>(cr + gq * 8);
+    const float4 qb = *reinterpret_cast<const float4*>(cr + gq * 8 + 4);
+    const float qv[RM_NT] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+    for (int t = 0; t < RM_NT; ++t)
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        unsigned bh[2], bl[2];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          float v0 = qv[t] * gv[jj][t][2 * kk];
+          float v1 = qv[t] * gv[jj][t][2 * kk + 1];
+          if constexpr (X3)
+            split_bf16x2(v0, v1, bh[kk], bl[kk]);
+          else
+            bh[kk] = pack_bf16x2(v0, v1);
+        }
+        if constexpr (X3) {
+          // the order's three passes apart, then added in float32: summed
+          // in the tensor core's accumulator over all orders they drift
+          // from the split twin by ~3e-5 of max|gx|, as far as from fp32
+          float p[4];
+          mma_bf16(p, ah[jj], bh[0], bh[1], zero);
+          mma_bf16(p, al[jj], bh[0], bh[1], p);
+          mma_bf16(p, ah[jj], bl[0], bl[1], p);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t][e] += p[e];
+        } else {
+          mma_bf16(acc[t], ah[jj], bh[0], bh[1], acc[t]);
+        }
+      }
+  } else {
+    float cv[2 * RM_NT];
+#pragma unroll
+    for (int v = 0; v < RM_NT / 2; ++v) {
+      const float4 c4 = *reinterpret_cast<const float4*>(cr + tq * 20 + 4 * v);
+      cv[4 * v] = c4.x;
+      cv[4 * v + 1] = c4.y;
+      cv[4 * v + 2] = c4.z;
+      cv[4 * v + 3] = c4.w;
+    }
+#pragma unroll
+    for (int t = 0; t < RM_NT; ++t) {
+      float p[4];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        if (jj == 0)
+          mma_bf16(p, ah[jj], xh[jj][t][0], xh[jj][t][1], zero);
+        else
+          mma_bf16(p, ah[jj], xh[jj][t][0], xh[jj][t][1], p);
+        if constexpr (X3) {
+          mma_bf16(p, al[jj], xh[jj][t][0], xh[jj][t][1], p);
+          mma_bf16(p, ah[jj], xl[jj][t][0], xl[jj][t][1], p);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[t][e] = fmaf(cv[2 * t + (e & 1)], p[e], acc[t][e]);
+    }
+  }
+}
+
+// One run of NJ fragments (cfs[jj] < 0: absent, zero operands) into acc:
+// every order (LOW = false) or the linear term (LOW = true: basis low,
+// coefficient row M).
+template <int TIER, bool GX, bool HAS_CELL, bool LOW, int NJ>
+__device__ __forceinline__ void rm_run(
+    const int (&cfs)[NJ], const float* in, const float* pos,
+    const float* geo, const float (&prow)[2][3], const float* coef_s,
+    int r_base, int f0, int A, int F, int M, float rcut, float d_min,
+    float scale, int gq, int tq, float (&acc)[RM_NT][4]) {
+  constexpr bool X3 = TIER == TIER_X3;
+  constexpr int CROW = RM_CROW<GX>;
+  // B-side operands at this lane's places: feature f0 + 8t + gq (n = gq),
+  // source atoms j0 + 2tq + {0, 1} and + 8 (k). Forward: x rounded or
+  // split once for all orders; gx: g in float32.
+  unsigned xh[NJ][RM_NT][2], xl[NJ][RM_NT][2];
+  float gv[NJ][RM_NT][4];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+    for (int t = 0; t < RM_NT; ++t) {
+      int f = f0 + 8 * t + gq;
+      bool fin = cfs[jj] >= 0 && f < F;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        int j = cfs[jj] * RM_ROWS + 2 * tq + 8 * kk;
+        float v0 = fin && j < A ? in[(size_t)j * F + f] : 0.0f;
+        float v1 = fin && j + 1 < A ? in[(size_t)(j + 1) * F + f] : 0.0f;
+        if constexpr (GX) {
+          gv[jj][t][2 * kk] = v0;
+          gv[jj][t][2 * kk + 1] = v1;
+        } else if constexpr (X3) {
+          split_bf16x2(v0, v1, xh[jj][t][kk], xl[jj][t][kk]);
+        } else {
+          xh[jj][t][kk] = pack_bf16x2(v0, v1);
+        }
+      }
+    }
+  // basis seeds T_0 (ta), T_1 (tb) and 2z; the linear term's low in ta
+  float ta[NJ][8], tb[NJ][8], z2[NJ][8];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) {
+    float d[8], z[8];
+    if (cfs[jj] >= 0) {
+      rm_frag_geom<HAS_CELL>(prow, pos, geo, r_base, cfs[jj] * RM_ROWS, A,
+                             gq, tq, rcut, d_min, scale, d, z);
+    } else {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        d[p] = 2.0f * rcut;
+        z[p] = 1.0f;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      if constexpr (LOW) {
+        int r, j;
+        rm_pair(p, r_base, cfs[jj] * RM_ROWS, gq, tq, r, j);
+        ta[jj][p] = cfs[jj] >= 0 ? rm_low(d[p], d_min, r, j, A) : 0.0f;
+      } else {
+        float u = 1.0f - z[p];
+        float seed = GX ? u : u * u;
+        ta[jj][p] = seed;
+        tb[jj][p] = seed * z[p];
+        z2[jj][p] = 2.0f * z[p];
+      }
+    }
+  }
+  if constexpr (LOW) {
+    rm_product<TIER, GX, NJ>(ta, coef_s + (size_t)M * CROW, xh, xl, gv, gq,
+                             tq, acc);
+  } else {
+    // orders in pairs: ta = T_m, tb = T_{m+1}, advanced in place
+    int m = 0;
+    for (; m + 1 < M; m += 2) {
+      rm_product<TIER, GX, NJ>(ta, coef_s + (size_t)m * CROW, xh, xl, gv,
+                               gq, tq, acc);
+      rm_product<TIER, GX, NJ>(tb, coef_s + (size_t)(m + 1) * CROW, xh, xl,
+                               gv, gq, tq, acc);
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          ta[jj][p] = z2[jj][p] * tb[jj][p] - ta[jj][p];
+          tb[jj][p] = z2[jj][p] * ta[jj][p] - tb[jj][p];
+        }
+    }
+    if (m < M)
+      rm_product<TIER, GX, NJ>(ta, coef_s + (size_t)m * CROW, xh, xl, gv, gq,
+                               tq, acc);
+  }
+}
+
+template <int TIER, bool GX, bool HAS_CELL>
+__global__ void __launch_bounds__(32)
+cheb_rows_mma_kernel(const float* __restrict__ pos,
+                     const float* __restrict__ in,
+                     const float* __restrict__ coef,
+                     const float* __restrict__ w0,
+                     const float* __restrict__ w_lin,
+                     const float* __restrict__ cell,
+                     const float* __restrict__ inv, float* __restrict__ out,
+                     int A, int F, int M, float rcut, float d_min,
+                     float scale) {
+  constexpr int NJ = RM_NJ<GX>;
+  constexpr int CROW = RM_CROW<GX>;
+  const int n_jf = (A + RM_ROWS - 1) / RM_ROWS;
+  extern __shared__ float4 rm_smem4[];
+  float* coef_s = reinterpret_cast<float*>(rm_smem4);  // [M + 1][CROW]
+  int* list_s = reinterpret_cast<int*>(coef_s + (size_t)(M + 1) * CROW);
+  int* low_s = list_s + n_jf;  // [n_jf] each
+  __shared__ float geo_s[18];
+
+  const int s = blockIdx.z;
+  const int r_base = blockIdx.x * RM_ROWS;
+  const int f0 = blockIdx.y * RM_FC;
+  const int lane = threadIdx.x;
+  const int gq = lane >> 2, tq = lane & 3;
+  pos += (size_t)s * A * 3;
+  in += (size_t)s * A * F;
+  out += (size_t)s * A * F;
+
+  // coefficient rows 0..M-1 and w_lin as row M, zero past F
+  for (int e = lane; e < (M + 1) * RM_FC; e += 32) {
+    int m = e / RM_FC, fl = e % RM_FC, f = f0 + fl;
+    float v = 0.0f;
+    if (f < F)
+      v = m < M ? coef[(size_t)m * F + f]
+                : (w_lin != nullptr ? w_lin[f] : 0.0f);
+    coef_s[m * CROW + rm_cidx<GX>(fl)] = v;
+  }
+  stage_cell<HAS_CELL>(geo_s, cell, inv, s, lane);
+  float prow[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int r = r_base + gq + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) prow[h][k] = r < A ? pos[r * 3 + k] : 0.0f;
+  }
+  __syncwarp();
+
+  // 1. The fragments that run: z != 1 somewhere (all orders), low != 0
+  // somewhere (the linear term).
+  int n_live = 0, n_low = 0;
+  for (int cf = 0; cf < n_jf; ++cf) {
+    float d[8], z[8];
+    rm_frag_geom<HAS_CELL>(prow, pos, geo_s, r_base, cf * RM_ROWS, A, gq,
+                           tq, rcut, d_min, scale, d, z);
+    bool live = false, low = false;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      int r, j;
+      rm_pair(p, r_base, cf * RM_ROWS, gq, tq, r, j);
+      live |= z[p] != 1.0f;
+      low |= rm_low(d[p], d_min, r, j, A) != 0.0f;
+    }
+    if (__any_sync(0xffffffffu, live)) {
+      if (lane == 0) list_s[n_live] = cf;
+      ++n_live;
+    }
+    if (w_lin != nullptr && __any_sync(0xffffffffu, low)) {
+      if (lane == 0) low_s[n_low] = cf;
+      ++n_low;
+    }
+  }
+  __syncwarp();
+
+  float acc[RM_NT][4];
+#pragma unroll
+  for (int t = 0; t < RM_NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
+
+  // 2. The live fragments in list order, runs of NJ.
+  for (int q0 = 0; q0 < n_live; q0 += NJ) {
+    int cfs[NJ];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+      cfs[jj] = q0 + jj < n_live ? list_s[q0 + jj] : -1;
+    rm_run<TIER, GX, HAS_CELL, false, NJ>(cfs, in, pos, geo_s, prow, coef_s,
+                                          r_base, f0, A, F, M, rcut, d_min,
+                                          scale, gq, tq, acc);
+  }
+  // 3. The linear term on its fragments.
+  for (int q0 = 0; q0 < n_low; q0 += NJ) {
+    int cfs[NJ];
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+      cfs[jj] = q0 + jj < n_low ? low_s[q0 + jj] : -1;
+    rm_run<TIER, GX, HAS_CELL, true, NJ>(cfs, in, pos, geo_s, prow, coef_s,
+                                         r_base, f0, A, F, M, rcut, d_min,
+                                         scale, gq, tq, acc);
+  }
+
+  // 4. The diagonal (z = -1) contributed w0 * in[i].
+#pragma unroll
+  for (int t = 0; t < RM_NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int r = r_base + gq + 8 * (e >> 1);
+      int f = f0 + 8 * t + 2 * tq + (e & 1);
+      if (r < A && f < F) {
+        size_t o = (size_t)r * F + f;
+        out[o] = acc[t][e] - w0[f] * in[o];
+      }
+    }
+}
+
 inline float fit_scale(float rcut, float d_min) {
   return (float)(2.0 / ((double)rcut - (double)d_min));
 }
@@ -1470,6 +1900,26 @@ int with_tier(int tier, Fn&& f) {
   }
 }
 
+// bf16 and bf16x3: one warp per (16-row strip, 64-feature chunk, molecule).
+template <int TIER, bool GX, bool HAS_CELL>
+int launch_rows_mma(const float* pos, const float* in, const float* coef,
+                    const float* w0, const float* w_lin, const float* cell,
+                    const float* inv, float* out, int S, int A, int F, int M,
+                    float rcut, float d_min, float scale,
+                    cudaStream_t stream) {
+  int n_jf = (A + RM_ROWS - 1) / RM_ROWS;
+  size_t smem = sizeof(float) * (size_t)(M + 1) * RM_CROW<GX> +
+                sizeof(int) * 2 * (size_t)n_jf;
+  cudaError_t err = cudaFuncSetAttribute(
+      cheb_rows_mma_kernel<TIER, GX, HAS_CELL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(n_jf, (F + RM_FC - 1) / RM_FC, S);
+  cheb_rows_mma_kernel<TIER, GX, HAS_CELL><<<grid, 32, smem, stream>>>(
+      pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min, scale);
+  return (int)cudaGetLastError();
+}
+
 template <bool GX>
 int launch_rows(const float* pos, const float* in, const float* coef,
                 const float* w0, const float* w_lin, const float* cell,
@@ -1477,20 +1927,30 @@ int launch_rows(const float* pos, const float* in, const float* coef,
                 float rcut, float d_min, int tier, cudaStream_t stream) {
   if ((cell == nullptr) != (inv == nullptr))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((A + RT_TA - 1) / RT_TA, (F + RT_FC - 1) / RT_FC, S);
   float scale = fit_scale(rcut, d_min);
   int rc = with_tier(tier, [&](auto t) {
     constexpr int T = decltype(t)::value;
-    if (cell != nullptr)
-      cheb_rows_kernel<T, GX, true>
-          <<<grid, THREADS, 18 * sizeof(float), stream>>>(
-              pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut,
-              d_min, scale);
-    else
-      cheb_rows_kernel<T, GX, false><<<grid, THREADS, 0, stream>>>(
-          pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
-          scale);
-    return 0;
+    if constexpr (T == TIER_FP32) {
+      dim3 grid((A + RT_TA - 1) / RT_TA, (F + RT_FC - 1) / RT_FC, S);
+      if (cell != nullptr)
+        cheb_rows_kernel<T, GX, true>
+            <<<grid, THREADS, 18 * sizeof(float), stream>>>(
+                pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut,
+                d_min, scale);
+      else
+        cheb_rows_kernel<T, GX, false><<<grid, THREADS, 0, stream>>>(
+            pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
+            scale);
+      return 0;
+    } else {
+      return cell != nullptr
+                 ? launch_rows_mma<T, GX, true>(pos, in, coef, w0, w_lin,
+                                                cell, inv, out, S, A, F, M,
+                                                rcut, d_min, scale, stream)
+                 : launch_rows_mma<T, GX, false>(pos, in, coef, w0, w_lin,
+                                                 cell, inv, out, S, A, F, M,
+                                                 rcut, d_min, scale, stream);
+    }
   });
   return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -310,6 +310,73 @@ def test_gd_tensor_core_bitwise_reproducible(dev, precision, periodic):
         assert torch.equal(ck.cheb_conv_bwd_gd(*args, cell=cell), first)
 
 
+# The tensor-core fwd/gx kernel (bf16, bf16x3): 16 x 16 pair fragments,
+# those with z == 1 on every pair skipped, the linear term only where low
+# != 0. Ragged atom counts (not multiples of 16) and feature widths (not
+# multiples of 64), one order and an odd count.
+ROWS_ATOMS = [33, 70, 266]
+ROWS_FEATURES = [48, 128]
+ROWS_ORDERS = [1, 12]
+
+
+def _rows_check(c, w0, pos, x, d_min, precision, cell=None):
+    """cheb_fwd and cheb_bwd_gx vs their twins: 2e-3 (bf16) or 1e-4 and
+    nearer the bf16x3 twin than the fp32 one (bf16x3) of max|twin|; two
+    launches bitwise equal."""
+    from flashmd_tpu_torch.models.cheb import _lin_slope
+
+    w_lin = _lin_slope(c) if d_min > 0 else None
+    args = (c, w0, pos, x, RCUT, precision, d_min, w_lin)
+    for kern, plain, bound in (
+            (ck.cheb_conv_fwd, ck.cheb_conv_fwd_plain, "fwd"),
+            (ck.cheb_conv_bwd_gx, ck.cheb_conv_bwd_gx_plain, "bwd")):
+        out = kern(*args, cell=cell)
+        again = kern(*args, cell=cell)
+        ref = plain(*args, cell=cell)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, again)
+        assert _rel(out, ref) <= BOUNDS[precision][bound]
+        if precision == "bf16x3":
+            assert _takes_splits(out, ref, plain(*_fp32(args), cell=cell))
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("m", ROWS_ORDERS)
+@pytest.mark.parametrize("f", ROWS_FEATURES)
+@pytest.mark.parametrize("a", ROWS_ATOMS)
+def test_rows_tensor_core_kernel_matches_twin(dev, a, f, m, periodic,
+                                              precision):
+    """d_min 2.0 on positions spread at 6 A: pairs below it exist, so the
+    linear term runs."""
+    t = _inputs(dev, 2, a, f, m, 1, seed=a * 1000 + f + m)
+    pos, cell = t["pos"], None
+    if periodic:
+        pos, cell = torch.remainder(pos, 24.0), _cells(dev, 2)
+    d, _ = ck.pair_geometry(pos, RCUT, 2.0, cell)
+    eye = torch.eye(a, dtype=torch.bool, device=dev)
+    assert bool(((d < 2.0) & ~eye).any())
+    _rows_check(t["c"], t["w0"], pos, t["x"], 2.0, precision, cell)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("layout", ["clusters", "none", "compact"])
+@pytest.mark.parametrize("a", [63, 266])
+def test_rows_tensor_core_kernel_layouts(dev, a, layout, periodic,
+                                         precision):
+    """Dead fragments beside live ones, only the diagonal's fragments
+    live, every fragment live; at the slice's width and orders."""
+    t = _inputs(dev, 2, a, 128, 48, 1, seed=a + 9)
+    pos = _gd_layout(dev, 2, a, layout, seed=a + 10)
+    cell = None
+    if periodic:
+        cell = torch.tensor([CELL_WIDE] * 2, device=dev)
+    for d_min in (0.0, 2.0):
+        _rows_check(t["c"], t["w0"], pos, t["x"], d_min, precision, cell)
+
+
 def test_wrappers_refuse_what_kernels_do_not_take(dev):
     t = _inputs(dev, 2, 20, 16, 8, 8)
     with pytest.raises(ValueError):

@@ -1,0 +1,218 @@
+"""The invariant that lets the tensor-core fwd/gx kernel skip fragments.
+
+``cheb_fwd`` and ``cheb_bwd_gx`` at bf16 and bf16x3 take their pairs in
+16 x 16 fragments (the A operand of mma.m16n8k16) and run no order product
+for a fragment whose every pair has z == 1 (both bases' seeds, (1-z)^2 and
+(1-z), are then exactly zero), and the linear term only on fragments that
+hold a pair with low = min(d - d_min, 0) != 0. Here, on the CPU: copies
+of the two twins' order loops with every product of such a fragment
+zeroed give outputs equal (torch.equal) to ``cheb_conv_fwd_plain`` and
+``cheb_conv_bwd_gx_plain``, at every tier, open and under a triclinic
+cell, on two-cluster positions with all-dead, all-live and mixed
+fragments, an atom count and a feature width that are not multiples of
+16, and pairs below d_min; the gd kernel's rule (a live pair off the
+diagonal) instead drops the diagonal's share and breaks equality, so the
+z == 1 rule is what holds; and the fp32 twins on those positions are held
+to the JAX package's Pallas kernels (interpreted) as the other parity
+tests hold them.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashmd_tpu.ops.pallas.cheb_kernel import (
+    cheb_conv_bwd_pallas,
+    cheb_conv_fwd_pallas,
+)
+from flashmd_tpu_torch.models.cheb import _lin_slope
+from flashmd_tpu_torch.ops import cheb_kernel as ck
+from flashmd_tpu_torch.ops._launch import _dot
+
+RCUT = 4.0
+D_MIN = 1.2
+A = 45  # not a multiple of 16
+F = 20  # not a multiple of 16
+M1, M2 = 8, 10
+FRAG = 16
+# rows = lattice vectors; smallest perpendicular width ~29.9 > 2 RCUT +
+# both clusters' extent, so the minimum image is sound
+CELL = np.array([[30.0, 0.0, 0.0], [3.0, 30.0, 0.0], [1.5, 1.5, 30.0]],
+                np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _clusters(seed=0, s=2):
+    """[S, A, 3]: two compact clusters 3 RCUT apart, split at atom 21 (not
+    on a fragment boundary): fragments within a cluster are all live,
+    those across the two are all dead, those over the split are mixed;
+    some pairs lie below D_MIN."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(scale=0.5, size=(s, A, 3)).astype(np.float32)
+    pos[:, 21:, 0] += 3 * RCUT
+    return pos + 5.0
+
+
+def _sparse(s=2):
+    """[S, A, 3] on a grid of spacing 1.2 RCUT: no pair within the cutoff
+    but the diagonal."""
+    i = np.arange(A)
+    grid = np.stack([i % 4, (i // 4) % 4, i // 16], -1).astype(np.float32)
+    return np.broadcast_to(1.2 * RCUT * grid + 1.0, (s, A, 3)).copy()
+
+
+def _operands(seed=1, s=2):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(s, A, F)).astype(np.float32)
+    c = (rng.normal(size=(M1, F)) / M1).astype(np.float32)
+    c2 = (rng.normal(size=(M2, F)) / M2).astype(np.float32)
+    w0 = rng.normal(size=(F,)).astype(np.float32)
+    return _t(x), _t(c), _t(c2), _t(w0)
+
+
+def _cell(periodic, s=2):
+    return _t(np.stack([CELL] * s)) if periodic else None
+
+
+def _fragments(mask):
+    """[S, A, A] bool: the pair's 16 x 16 fragment (padded to the grain)
+    holds a True entry of ``mask``."""
+    s, a, _ = mask.shape
+    n = -(-a // FRAG) * FRAG
+    pad = torch.zeros(s, n, n, dtype=torch.bool)
+    pad[:, :a, :a] = mask
+    frag = pad.view(s, n // FRAG, FRAG, n // FRAG, FRAG).any(4).any(2)
+    return (frag.repeat_interleave(FRAG, 1).repeat_interleave(FRAG, 2)
+            [:, :a, :a])
+
+
+def _runs(pos, cell, rule):
+    """(d, z, fragments whose order products run, fragments whose linear
+    term runs). ``rule`` "z": some pair has z != 1 (the kernel's); "gd":
+    some pair has d < rcut off the diagonal (the gd kernel's)."""
+    d, z = ck.pair_geometry(pos, RCUT, D_MIN, cell)
+    eye = torch.eye(pos.shape[1], dtype=torch.bool)
+    live = (z != 1.0) if rule == "z" else (d < RCUT) & ~eye
+    return (d, z, _fragments(live),
+            _fragments(ck._low_matrix(d, D_MIN) != 0.0))
+
+
+def _masked(t, on):
+    return torch.where(on, t, torch.zeros_like(t))
+
+
+def _fwd_skipping(c, w0, pos, x, precision, w_lin, cell, rule="z"):
+    """cheb_conv_fwd_plain's order loop with the products of the fragments
+    that do not run zeroed."""
+    d, z, on, on_low = _runs(pos, cell, rule)
+    u2 = torch.square(1.0 - z)
+    two_z = 2.0 * z
+    t_prev, t_cur = u2, u2 * z
+    out = c[0] * _dot(_masked(t_prev, on), x, precision)
+    if c.shape[0] > 1:
+        out = out + c[1] * _dot(_masked(t_cur, on), x, precision)
+    for m in range(2, c.shape[0]):
+        t_prev, t_cur = t_cur, two_z * t_cur - t_prev
+        out = out + c[m] * _dot(_masked(t_cur, on), x, precision)
+    if w_lin is not None:
+        low = _masked(ck._low_matrix(d, D_MIN), on_low)
+        out = out + w_lin * _dot(low, x, precision)
+    return out - w0 * x
+
+
+def _gx_skipping(c, w0, pos, g, precision, w_lin, cell, rule="z"):
+    """cheb_conv_bwd_gx_plain's order loop with the products of the
+    fragments that do not run zeroed."""
+    q = ck._to_that_basis(c)
+    d, z, on, on_low = _runs(pos, cell, rule)
+    u = 1.0 - z
+    two_z = 2.0 * z
+    h_prev, h_cur = u, u * z
+    gx = _dot(_masked(h_prev, on), q[0] * g, precision)
+    gx = gx + _dot(_masked(h_cur, on), q[1] * g, precision)
+    for k in range(2, q.shape[0]):
+        h_prev, h_cur = h_cur, two_z * h_cur - h_prev
+        gx = gx + _dot(_masked(h_cur, on), q[k] * g, precision)
+    if w_lin is not None:
+        low = _masked(ck._low_matrix(d, D_MIN), on_low)
+        gx = gx + _dot(low, w_lin * g, precision)
+    return gx - w0 * g
+
+
+KERNELS = {
+    "fwd": (_fwd_skipping, ck.cheb_conv_fwd_plain),
+    "gx": (_gx_skipping, ck.cheb_conv_bwd_gx_plain),
+}
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+def test_skipping_dead_fragments_is_exact(kernel, periodic, precision):
+    pos = _t(_clusters())
+    x, c, c2, w0 = _operands()
+    w_lin = _lin_slope(c2)
+    cell = _cell(periodic)
+    d, z, on, on_low = _runs(pos, cell, "z")
+    every = _fragments(z == 1.0)  # a fragment holding a dead pair
+    # all-dead, all-live and mixed fragments; a live linear term
+    assert bool((~on).any()) and bool((on & ~every).any())
+    assert bool((on & every).any())
+    assert bool(on_low.any())
+    skip, plain = KERNELS[kernel]
+    ref = plain(c, w0, pos, x, RCUT, precision, D_MIN, w_lin, cell)
+    out = skip(c, w0, pos, x, precision, w_lin, cell)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
+@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+def test_gd_rule_drops_the_diagonal(kernel, precision):
+    """On positions where no pair but the diagonal is within the cutoff,
+    every fragment runs under the z != 1 rule only where it holds the
+    diagonal, and the result equals the twin; the gd kernel's rule (a
+    live pair off the diagonal) runs none, dropping sum_m c_m Ttil_m(-1)
+    x[i], and differs from it."""
+    pos = _t(_sparse())
+    x, c, c2, w0 = _operands(seed=2)
+    w_lin = _lin_slope(c2)
+    skip, plain = KERNELS[kernel]
+    ref = plain(c, w0, pos, x, RCUT, precision, D_MIN, w_lin, None)
+    assert torch.equal(skip(c, w0, pos, x, precision, w_lin, None), ref)
+    dropped = skip(c, w0, pos, x, precision, w_lin, None, rule="gd")
+    assert torch.equal(dropped, -w0 * x)
+    assert not torch.equal(dropped, ref)
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+def test_twins_match_pallas_on_dead_fragments(kernel, periodic):
+    """The fp32 twins on the clustered positions, with pairs below d_min,
+    against the reference's Pallas kernels (interpreted), at the JAX
+    suite's tolerances (2e-5 forward, 1e-4 backward)."""
+    pos = _clusters(seed=3)
+    x, c, c2, w0 = _operands(seed=4)
+    cell = CELL if periodic else None
+    jcell = None if cell is None else jnp.asarray(cell)
+    w_lin = _lin_slope(c2)
+    jc, jc2, jw0 = (jnp.asarray(v.numpy()) for v in (c, c2, w0))
+    if kernel == "fwd":
+        ref = np.stack([np.asarray(cheb_conv_fwd_pallas(
+            jc, jw0, jnp.asarray(pos[s]), jnp.asarray(x[s].numpy()), RCUT,
+            "fp32", cell=jcell, d_min=D_MIN,
+            w_lin=jnp.asarray(w_lin.numpy()))) for s in range(pos.shape[0])])
+        out = ck.cheb_conv_fwd(c, w0, _t(pos), x, RCUT, "fp32", D_MIN, w_lin,
+                               _cell(periodic))
+        np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+        return
+    ref = np.stack([np.asarray(cheb_conv_bwd_pallas(
+        jc, jc2, jw0, jnp.asarray(pos[s]), jnp.asarray(x[s].numpy()),
+        jnp.asarray(x[s].numpy()), RCUT, "fp32", need_gx=True, need_gd=False,
+        cell=jcell, d_min=D_MIN)[1]) for s in range(pos.shape[0])])
+    out = ck.cheb_conv_bwd_gx(c, w0, _t(pos), x, RCUT, "fp32", D_MIN, w_lin,
+                              _cell(periodic))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
