@@ -9,8 +9,10 @@ Phases (each prints its lines; any failure exits non-zero):
 2. build    -- nvcc builds every flashmd_tpu_torch/csrc/*.cu for sm_90a
                (one process per source, in parallel) with -Xptxas -v
                (registers, spills per kernel). The tensor-core gd
-               kernel's four instantiations (bf16, bf16x3; open, cell)
-               and the fwd/gx kernel's eight (also fwd, gx) must not
+               kernel's four instantiations (bf16, bf16x3; open, cell),
+               the fwd/gx kernel's eight (also fwd, gx), the combined
+               gx+gd kernel's four (bf16, bf16x3; open, cell) and the
+               dense backward's two (bf16; with and without gx) must not
                spill and must hold tensor-core MMA instructions in their
                SASS (cuobjdump); their counts are printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
@@ -20,7 +22,9 @@ Phases (each prints its lines; any failure exits non-zero):
                cutoff only, which the data needs). Every kernel is
                compared and timed at the slice's S = 128, beside the
                live pairs and the live pair fragments that the
-               tensor-core kernels run (16 x 8 gd, 16 x 16 fwd/gx); the
+               tensor-core kernels run (16 x 8 gd, 16 x 16 fwd/gx and
+               gx+gd), and the dense backward's executed pairs (16-pair
+               tiles of each work item's live pairs); the
                dense and the neighbour-matrix
                backward in both of their variants (with gx, and without
                it as block 1 runs it). The neighbour-matrix kernels run
@@ -32,7 +36,9 @@ Phases (each prints its lines; any failure exits non-zero):
                start positions folded into per-molecule cells (half
                cubic 60 A, half triclinic), where live pairs cross faces.
                The per-block schedule's kernels: the combined gx+gd
-               backward, and the gd-only one on one block's F = 128.
+               backward, and the gd-only one on one block's F = 128; the
+               composition gx + one-block gd on the same operands is
+               timed beside the combined kernel.
                Then the four cheb kernels and the F = 128 gd launch at the
                bf16x3 tier, open and on the folded cells, on the bf16x3
                slice's own fits (64, 96); each also nearer its bf16x3
@@ -237,10 +243,12 @@ def ptxas_summary(log):
 
 # The tensor-core kernels' template arguments in their mangled names:
 # cheb_gd_mma_kernel<TIER, HAS_CELL>, cheb_rows_mma_kernel<TIER, GX,
-# HAS_CELL>.
+# HAS_CELL>, cheb_gxgd_mma_kernel<TIER, HAS_CELL>, dense_bwd_mma_kernel<GX>.
 MMA_KERNELS = {
     "gd": re.compile(r"cheb_gd_mma_kernelILi(\d)ELb([01])E"),
     "rows": re.compile(r"cheb_rows_mma_kernelILi(\d)ELb([01])ELb([01])E"),
+    "gxgd": re.compile(r"cheb_gxgd_mma_kernelILi(\d)ELb([01])E"),
+    "dense": re.compile(r"dense_bwd_mma_kernelILb([01])E"),
 }
 MMA_TIERS = {"1": "bf16", "3": "bf16x3"}
 
@@ -256,18 +264,22 @@ def _mma_match(name):
 
 
 def _mma_label(kind, args):
-    if kind == "gd":
+    if kind in ("gd", "gxgd"):
         t, c = args
-        return (f"gd kernel cheb_gd_mma_kernel {MMA_TIERS[t]} "
+        return (f"{kind} kernel cheb_{kind}_mma_kernel {MMA_TIERS[t]} "
                 f"{'cell' if c == '1' else 'open'}")
+    if kind == "dense":
+        return (f"dense kernel dense_bwd_mma_kernel bf16 "
+                f"{'with gx' if args[0] == '1' else 'no gx'}")
     t, gx, c = args
     return (f"rows kernel cheb_rows_mma_kernel {'gx' if gx == '1' else 'fwd'}"
             f" {MMA_TIERS[t]} {'cell' if c == '1' else 'open'}")
 
 
 def mma_kernel_report(log, lib_path, nvcc):
-    """The tensor-core kernels' instantiations: cheb_gd_mma_kernel (bf16,
-    bf16x3; open, cell) and cheb_rows_mma_kernel (also fwd, gx): ptxas
+    """The tensor-core kernels' instantiations: cheb_gd_mma_kernel and
+    cheb_gxgd_mma_kernel (bf16, bf16x3; open, cell), cheb_rows_mma_kernel
+    (also fwd, gx) and dense_bwd_mma_kernel (with and without gx): ptxas
     registers, static shared memory and spills, and the tensor-core
     instructions (HMMA/HGMMA) in their SASS. Fails if one is missing,
     spills or holds no tensor-core instruction."""
@@ -303,6 +315,8 @@ def mma_kernel_report(log, lib_path, nvcc):
     expected = [("gd", (t, c)) for t in MMA_TIERS for c in "01"]
     expected += [("rows", (t, gx, c)) for gx in "01" for t in MMA_TIERS
                  for c in "01"]
+    expected += [("gxgd", (t, c)) for t in MMA_TIERS for c in "01"]
+    expected += [("dense", (gx,)) for gx in "01"]
     for key in expected:
         label = _mma_label(*key)
         check(key in seen, f"{label}: not built")
@@ -500,6 +514,23 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
                                         bf16x3=bf16x3)
         for name, (kern, plain, flops, nbytes) in cases.items()
     }
+    # the combined kernel beside the composition of the two tensor-core
+    # kernels that compute its halves apart on the same operands
+    prec = "bf16x3" if bf16x3 else "bf16"
+
+    def composition():
+        ck.cheb_conv_bwd_gx(c, w0, pos, g, rcut, prec, d_min, w_lin, **kw)
+        ck.cheb_conv_bwd_gd(c2, pos, x, g, rcut, prec, d_min, **kw)
+
+    comp_ms = cuda_time_ms(composition)
+    gxgd_ms = stats["cheb_bwd_gxgd" + suffix]["ms"]
+    print(f"kernels: cheb_bwd_gxgd{suffix} live 16x16 fragments (z != 1, "
+          f"run by the combined kernel) {n_rows} of {all_rows} "
+          f"({n_rows / all_rows:.4f}); {prec} combined {gxgd_ms:.4f} ms")
+    print(f"kernels: cheb_bwd_gxgd{suffix} composition {prec} "
+          f"(cheb_bwd_gx + one-block cheb_bwd_gd, same operands) "
+          f"{comp_ms:.4f} ms beside the combined {gxgd_ms:.4f} ms (ratio "
+          f"{gxgd_ms / comp_ms:.4f})")
     # the per-block schedule's block 1: the gd-only kernel on one block's
     # [S, A, F] operands
     stats[f"cheb_bwd_gd{suffix} (F={f})"] = compare_and_time(
@@ -558,15 +589,28 @@ def live_chunks(live, rows=4, cols=16):
     return int(chunks.sum()), chunks.numel()
 
 
+# Rows of one work item of the tensor-core dense backward (DM_RW in
+# csrc/cfconv_dense_kernels.cu).
+DENSE_ITEM_ROWS = 4
+
+
 def live_counts(pos, rcut):
     """(ordered pairs i != j with d_ij < rcut, pair chunks of the dense
-    kernels' 4 x 16 tiling that hold one, all chunks), whole batch."""
+    kernels' 4 x 16 tiling that hold one, all chunks, pairs the bf16
+    backward executes: each work item's live pairs in 16-pair tiles),
+    whole batch."""
     a = pos.shape[1]
     rel = pos[:, None, :, :] - pos[:, :, None, :]
     d = torch.sqrt(torch.sum(rel * rel, dim=-1))
     eye = torch.eye(a, dtype=torch.bool, device=pos.device)
     live = (d < rcut) & ~eye
-    return (int(live.sum()), *live_chunks(live))
+    rows = -(-a // DENSE_ITEM_ROWS) * DENSE_ITEM_ROWS
+    per_row = torch.zeros(pos.shape[0], rows, dtype=torch.long,
+                          device=pos.device)
+    per_row[:, :a] = live.sum(dim=2)
+    per_item = per_row.view(pos.shape[0], -1, DENSE_ITEM_ROWS).sum(dim=2)
+    executed = int((16 * ((per_item + 15) // 16)).sum())
+    return (int(live.sum()), *live_chunks(live), executed)
 
 
 def phase_dense_kernels(ff, pos, dev):
@@ -586,17 +630,21 @@ def phase_dense_kernels(ff, pos, dev):
     r, f = w[0].shape
     x = torch.randn(s, a, f, generator=gen, device=dev)
     g = torch.randn(s, a, f, generator=gen, device=dev)
-    n_live, n_chunks, all_chunks = live_counts(pos, rcut)
+    n_live, n_chunks, all_chunks, n_exec = live_counts(pos, rcut)
     n_all = s * a * (a - 1)
     mlp = r * f + f * f
     fwd_pair, bwd_pair = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
     nogx_pair = bwd_pair - 3 * f
     wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
-    smem = [load().dense_cfconv_smem_bytes(b) for b in (0, 1)]
+    smem = [load().dense_cfconv_smem_bytes(b) for b in (0, 1, 2)]
     print(f"kernels: dense shapes S={s} A={a} F={f} R={r} rcut={rcut}; "
-          f"dynamic shared memory per block fwd {smem[0]} B bwd {smem[1]} "
-          f"B; live pairs (d < rc) {n_live} of {n_all} "
-          f"({n_live / n_all:.4f}); live 4x16 chunks {n_chunks} of "
+          f"dynamic shared memory per block fwd {smem[0]} B bwd fp32 "
+          f"{smem[1]} B bwd bf16 (tensor cores) {smem[2]} B; live pairs "
+          f"(d < rc) {n_live} of {n_all} ({n_live / n_all:.4f}); executed "
+          f"pairs (bf16 bwd: 16-pair tiles per {DENSE_ITEM_ROWS}-row work "
+          f"item) {n_exec} ({n_exec / n_live:.4f} x live, "
+          f"{n_exec / n_all:.4f} of all); live 4x16 chunks (fwd, fp32 "
+          f"bwd) {n_chunks} of "
           f"{all_chunks} ({n_chunks / all_chunks:.4f}); FLOP per pair fwd "
           f"{fwd_pair} bwd {bwd_pair} (no gx {nogx_pair}); all-pairs FLOP "
           f"fwd {n_all * fwd_pair:.4e} bwd {n_all * bwd_pair:.4e}; FLOP run "

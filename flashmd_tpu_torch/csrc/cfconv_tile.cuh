@@ -115,6 +115,102 @@ __device__ __forceinline__ void store4(float* dst, const float (&v)[4][FPT],
       make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core tiles of the filter MLP: mma.m16n8k16 with bf16 operands and
+// float32 accumulators, M = 16 pairs. A lane (gq = lane / 4, tq = lane % 4)
+// holds accumulator element e of n-tile nt at (pair gq + 8 (e >> 1),
+// column 8 nt + 2 tq + (e & 1)), and A-fragment register i of a k-step at
+// (pair gq + 8 (i & 1), k 2 tq + 8 (i >> 1) + {0, 1}). So the accumulators
+// of n-tiles 2 ks and 2 ks + 1 are, packed, the A fragment of k-step ks of
+// the next product (mlp_afrag): activations pass from one product to the
+// next in registers. B comes from bf16 copies of the weights in shared
+// memory (stage_weights_bf16) through ldmatrix, plain for a product with
+// the transposed weight, .trans for one with the weight as stored.
+
+constexpr int LDB = F + 8;  // bf16 row stride: 16-byte rows, no conflicts
+
+// Two floats as one bf16x2 operand, round to nearest even; `lo_k` is the
+// lower k index (the lower 16 bits).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo_k, float hi_k) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// d += a b for one m16n8k16 bf16 tile, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of k-step ks from accumulators v (n-tiles 2 ks, 2 ks + 1).
+template <int NT>
+__device__ __forceinline__ void mlp_afrag(unsigned (&a)[4],
+                                          const float (&v)[NT][4], int ks) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* t = v[2 * ks + (i >> 1)];
+    a[i] = pack_bf16x2(t[2 * (i & 1)], t[2 * (i & 1) + 1]);
+  }
+}
+
+// acc[n-tiles 0 .. 2 np_end - 1] += a (k-step k0) times the weight w, a bf16
+// [rows][LDB] matrix in shared memory: TRANS, B[k][n] = w[k][n] (the
+// product with w); otherwise B[k][n] = w[n][k] (with w^T). One ldmatrix.x4
+// gives the B fragments of two n-tiles.
+template <bool TRANS, int NT>
+__device__ __forceinline__ void mma_kstep(float (&acc)[NT][4],
+                                          const unsigned (&a)[4],
+                                          const __nv_bfloat16* w, int k0,
+                                          int np_end, int lane) {
+  const int mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    if (np >= np_end) break;
+    int n0 = 16 * np;
+    const __nv_bfloat16* p =
+        TRANS ? w + (k0 + 8 * (mat & 1) + r) * LDB + n0 + 8 * (mat >> 1)
+              : w + (n0 + 8 * (mat >> 1) + r) * LDB + k0 + 8 * (mat & 1);
+    unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+    unsigned b[4];
+    if (TRANS)
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+          "[%4];\n"
+          : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+          : "r"(addr));
+    else
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+          : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+          : "r"(addr));
+    mma_bf16(acc[2 * np], a, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// w0 [R, F] -> w0_b [RMAX][LDB] (rows >= R zero) and w1 [F, F] -> w1_b
+// [F][LDB], rounded to bf16; b0 and the offsets (zero past R) as they are.
+__device__ __forceinline__ void stage_weights_bf16(const float* __restrict__ w0,
+                                   const float* __restrict__ b0,
+                                   const float* __restrict__ w1,
+                                   const float* __restrict__ offset, int R,
+                                   __nv_bfloat16* w0_b, __nv_bfloat16* w1_b,
+                                   float* b0_s, float* off_s) {
+  for (int e = threadIdx.x; e < RMAX * F; e += blockDim.x) {
+    int r = e / F, f = e % F;
+    w0_b[r * LDB + f] = __float2bfloat16_rn(r < R ? w0[r * F + f] : 0.0f);
+  }
+  for (int e = threadIdx.x; e < F * F; e += blockDim.x)
+    w1_b[(e / F) * LDB + e % F] = __float2bfloat16_rn(w1[e]);
+  for (int e = threadIdx.x; e < F; e += blockDim.x) b0_s[e] = b0[e];
+  for (int e = threadIdx.x; e < RMAX; e += blockDim.x)
+    off_s[e] = e < R ? offset[e] : 0.0f;
+}
+
 // Launch on a (row tiles of ROWS, molecules) grid with `floats` floats of
 // dynamic shared memory.
 template <typename K>

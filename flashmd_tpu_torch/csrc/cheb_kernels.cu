@@ -27,50 +27,40 @@
 // (2B-1)*M1 + B*M2 = 432 order-products of 2*A^2*F FLOPs, about 7.8 GFLOP
 // per molecule-step; the bytes they read are pos, x/g and the coefficient
 // tables (a few hundred KB per molecule), so they sit far above the
-// machine balance and are bound by arithmetic. cheb_bwd_gxgd and the
-// fp32 tier of cheb_fwd, cheb_bwd_gx and cheb_bwd_gd do that arithmetic as
-// float32 FMA from shared memory (register-tiled 4x4 per thread), on
-// operands rounded to bf16 in cheb_bwd_gxgd's bf16 tier. At bf16 and
-// bf16x3, cheb_bwd_gd takes its order products on the tensor cores over
-// the live 16 x 8 pair fragments only (cheb_gd_mma_kernel), and cheb_fwd
-// and cheb_bwd_gx over the 16 x 16 fragments with a pair inside the
-// cutoff (cheb_rows_mma_kernel); their notes are below. What the design
-// does about the bound: the [A, A] pair and recurrence state never
-// reaches device memory -- it lives in registers and a double-buffered
-// shared tile per (row tile, column block) -- so every FLOP is spent on
-// the products themselves, and the three-term recurrence costs one FMA
-// per pair and order against F FMAs of product.
+// machine balance and are bound by arithmetic. The fp32 tier of all four
+// does that arithmetic as float32 FMA from shared memory (register-tiled
+// 4x4 per thread: cheb_rows_kernel, cheb_gd_kernel, cheb_gxgd_kernel). At
+// bf16 and bf16x3 each takes its order products on the tensor cores:
+// cheb_bwd_gd over the live 16 x 8 pair fragments only
+// (cheb_gd_mma_kernel), cheb_fwd and cheb_bwd_gx over the 16 x 16
+// fragments with a pair inside the cutoff (cheb_rows_mma_kernel), and
+// cheb_bwd_gxgd over those same fragments, both halves from one
+// recurrence (cheb_gxgd_mma_kernel); their notes are below. What the
+// design does about the bound: the [A, A] pair and recurrence state never
+// reaches device memory -- it lives in registers (and, in the fp32
+// kernels, a double-buffered shared tile per (row tile, column block)) --
+// so every FLOP is spent on the products themselves, and the three-term
+// recurrence costs one FMA per pair and order against F FMAs of product.
 //
 // Determinism: each block owns its output rows; the only cross-block sum
 // (the column side of the position gradient) is written as per-tile
 // partials and summed by a second kernel in a fixed tile order. No
 // atomics anywhere, so results are bitwise reproducible run to run.
 //
-// Precision tiers (the C entry points' `tier`, a template parameter of
-// every kernel; any other value is refused with cudaErrorInvalidValue).
-// At the same places as the plain PyTorch twins in ops/cheb_kernel.py;
-// the recurrence and all accumulation stay float32:
-//   0 fp32    float32 products.
-//   1 bf16    product operands rounded to bf16 (round to nearest even).
+// Precision tiers (the C entry points' `tier`; any other value is refused
+// with cudaErrorInvalidValue). At the same places as the plain PyTorch
+// twins in ops/cheb_kernel.py; the recurrence and all accumulation stay
+// float32:
+//   0 fp32    float32 products (the CUDA-core kernels).
+//   1 bf16    product operands rounded to bf16 (round to nearest even),
+//             one mma.m16n8k16 per product tile.
 //   3 bf16x3  each product operand split as hi = bf16(v), lo = bf16(v -
 //             hi), the product taken as hi*hi + lo*hi + hi*lo: the
 //             reference's _mxu_dot (cheb_kernel.py:358-380) emulating
-//             Precision.HIGH, near float32. The shared tiles hold hi and lo
-//             packed in one 32-bit word (hi in the upper half), so they
-//             keep the fp32 tier's footprint; an operand formed in
-//             registers (q_k g, w_lin g, c2_m g in cheb_gd) is split where
-//             it is formed. Each product of bf16 values is exact in
-//             float32; the three are summed as a_hi (b_hi + b_lo) + a_lo
-//             b_hi, two FMAs (b_hi + b_lo is exact in float32), the same
-//             products up to float32 rounding. What bounds the bf16x3
-//             variants: the same matrix work as the others three times
-//             over (3x the product FLOPs at the bf16 tensor-core rate);
-//             on CUDA cores it is two FMAs per product, with the
-//             unpacking and register splits hidden under them: 2.0-2.3x
-//             the fp32 variant's time at equal orders (H100 80GB HBM3,
-//             700 W). cheb_gd_mma_kernel and cheb_rows_mma_kernel take
-//             the three products as three mma passes on packed hi and lo
-//             operands.
+//             Precision.HIGH, near float32; three mma passes on the split
+//             operands, each split where its operand is formed. What
+//             bounds the bf16x3 variants: the same matrix work three
+//             times over (3x the product FLOPs at the bf16 rate).
 //
 // Periodic cells (HAS_CELL, the reference's has_cell): the C entry points
 // take cell and inv pointers, [S, 3, 3] float32 (lattice rows and their
@@ -116,104 +106,6 @@ constexpr int GG_WLD = GG_T + 1;
 constexpr int TIER_FP32 = 0;
 constexpr int TIER_BF16 = 1;
 constexpr int TIER_X3 = 3;
-
-__device__ __forceinline__ float rnd_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// bf16x3 split: hi = bf16(v), lo = bf16(v - hi), both bf16-exact floats
-// (reference _split_bf16, cheb_kernel.py:352-355).
-__device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
-  hi = rnd_bf16(v);
-  lo = rnd_bf16(v - hi);
-}
-
-// hi and lo of v packed in one word, hi in the upper 16 bits; read as a
-// float the word is a finite value near hi, never a NaN.
-__device__ __forceinline__ float pack_split(float v) {
-  float hi, lo;
-  split_bf16(v, hi, lo);
-  return __uint_as_float(__float_as_uint(hi) | (__float_as_uint(lo) >> 16));
-}
-
-__device__ __forceinline__ void unpack_split(float w, float& hi, float& lo) {
-  unsigned u = __float_as_uint(w);
-  hi = __uint_as_float(u & 0xffff0000u);
-  lo = __uint_as_float(u << 16);
-}
-
-// A product operand as the shared tiles hold it: the value (fp32), its
-// bf16 rounding (bf16) or its packed hi/lo split (bf16x3).
-template <int TIER>
-__device__ __forceinline__ float op(float v) {
-  if constexpr (TIER == TIER_X3) return pack_split(v);
-  return TIER == TIER_BF16 ? rnd_bf16(v) : v;
-}
-
-// A product operand in registers: the value (fp32, bf16), or at bf16x3 a
-// pair, (a_hi, a_lo) on the A side of a product and (b_hi + b_lo, b_hi)
-// on the B side, so that madd is two FMAs. fp32 and bf16 keep plain
-// floats, so their instantiations compile as with float operands.
-template <int TIER>
-using Opnd = std::conditional_t<TIER == TIER_X3, float2, float>;
-
-// A side from a shared word (lhs_word) or from a value formed in
-// registers, rounded or split here (lhs_val).
-template <int TIER>
-__device__ __forceinline__ Opnd<TIER> lhs_word(float w) {
-  if constexpr (TIER == TIER_X3) {
-    float2 o;
-    unpack_split(w, o.x, o.y);
-    return o;
-  } else {
-    return w;
-  }
-}
-
-template <int TIER>
-__device__ __forceinline__ Opnd<TIER> lhs_val(float v) {
-  if constexpr (TIER == TIER_X3) {
-    float2 o;
-    split_bf16(v, o.x, o.y);
-    return o;
-  } else {
-    return op<TIER>(v);
-  }
-}
-
-// B side, likewise; b_hi + b_lo is exact in float32.
-template <int TIER>
-__device__ __forceinline__ Opnd<TIER> rhs_word(float w) {
-  if constexpr (TIER == TIER_X3) {
-    float hi, lo;
-    unpack_split(w, hi, lo);
-    return make_float2(hi + lo, hi);
-  } else {
-    return w;
-  }
-}
-
-template <int TIER>
-__device__ __forceinline__ Opnd<TIER> rhs_val(float v) {
-  if constexpr (TIER == TIER_X3) {
-    float hi, lo;
-    split_bf16(v, hi, lo);
-    return make_float2(hi + lo, hi);
-  } else {
-    return op<TIER>(v);
-  }
-}
-
-// p + a b; at bf16x3 p + a_hi b_hi + a_lo b_hi + a_hi b_lo, taken as
-// a_hi (b_hi + b_lo) + a_lo b_hi.
-template <int TIER>
-__device__ __forceinline__ float madd(Opnd<TIER> a, Opnd<TIER> b,
-                                      float p) {
-  if constexpr (TIER == TIER_X3)
-    return fmaf(a.y, b.y, fmaf(a.x, b.x, p));
-  else
-    return p + a * b;
-}
 
 // The molecule's lattice (geo[0..8], rows) and inverse (geo[9..17]) into
 // shared memory, one thread per scalar.
@@ -267,7 +159,7 @@ __device__ __forceinline__ void pair_geom(const float* pi, const float* pj,
 // (bf16 and bf16x3 take cheb_rows_mma_kernel). Grid:
 // (row tiles, feature chunks, molecules). The cell variant takes 18 floats
 // of dynamic shared memory for the lattice.
-template <int TIER, bool GX, bool HAS_CELL>
+template <bool GX, bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
                  const float* __restrict__ coef,
@@ -322,7 +214,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
       int jj = e / RT_FC, ff = e % RT_FC;
       int j = j0 + jj, f = f0 + ff;
       float v = (j < A && f < F) ? in[(size_t)j * F + f] : 0.0f;
-      in_s[jj][ff] = GX ? v : op<TIER>(v);
+      in_s[jj][ff] = v;
     }
     if (tid < RT_TJ * 3) {
       int jj = tid / 3, c = tid % 3;
@@ -359,7 +251,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
           tc[e] = tn;
           tm = tn;
         }
-        tb[(ty + 8 * e) * RT_TJ + tx] = op<TIER>(tm);
+        tb[(ty + 8 * e) * RT_TJ + tx] = tm;
       }
       __syncthreads();
       float cm[4];
@@ -373,17 +265,17 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
         for (int k = 0; k < 4; ++k) p[i][k] = 0.0f;
 #pragma unroll 4
       for (int jj = 0; jj < RT_TJ; ++jj) {
-        Opnd<TIER> b[4];
+        float b[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           float v = in_s[jj][tx + 32 * k];
-          b[k] = GX ? rhs_val<TIER>(cm[k] * v) : rhs_word<TIER>(v);
+          b[k] = GX ? cm[k] * v : v;
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * RT_TJ + jj]);
+          float t = tb[(ty + 8 * i) * RT_TJ + jj];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) p[i][k] = madd<TIER>(t, b[k], p[i][k]);
+          for (int k = 0; k < 4; ++k) p[i][k] += t * b[k];
         }
       }
 #pragma unroll
@@ -402,7 +294,7 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
         int r = r0 + ty + 8 * e, j = j0 + tx;
         bool valid = (r < A) && (j < A) && (r != j);
         float low = valid ? fminf(d[e] - d_min, 0.0f) : 0.0f;
-        tb[(ty + 8 * e) * RT_TJ + tx] = op<TIER>(low);
+        tb[(ty + 8 * e) * RT_TJ + tx] = low;
       }
       __syncthreads();
       float p[4][4];
@@ -411,17 +303,17 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
 #pragma unroll
         for (int k = 0; k < 4; ++k) p[i][k] = 0.0f;
       for (int jj = 0; jj < RT_TJ; ++jj) {
-        Opnd<TIER> b[4];
+        float b[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           float v = in_s[jj][tx + 32 * k];
-          b[k] = GX ? rhs_val<TIER>(wl[k] * v) : rhs_word<TIER>(v);
+          b[k] = GX ? wl[k] * v : v;
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * RT_TJ + jj]);
+          float t = tb[(ty + 8 * i) * RT_TJ + jj];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) p[i][k] = madd<TIER>(t, b[k], p[i][k]);
+          for (int k = 0; k < 4; ++k) p[i][k] += t * b[k];
         }
       }
 #pragma unroll
@@ -447,10 +339,11 @@ cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
 }
 
 // Distance gradient of all blocks at once over block-stacked [A, F]
-// operands, and its row/column position-gradient sides. Grid: (row
-// tiles, molecules). Row sides go to row_part [S, A, 3] (owned rows);
+// operands, and its row/column position-gradient sides, at the fp32 tier
+// (bf16 and bf16x3 take cheb_gd_mma_kernel). Grid: (row tiles,
+// molecules). Row sides go to row_part [S, A, 3] (owned rows);
 // column sides to col_part [S, n_tiles, A, 3] (one slab per row tile).
-template <int TIER, bool HAS_CELL>
+template <bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
                const float* __restrict__ g, const float* __restrict__ c2,
@@ -515,7 +408,7 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         int r = r0 + rr, j = j0 + rr;
         g_s[rr * GD_LD + ff] = (r < A && f < F) ? g[(size_t)r * F + f] : 0.0f;
         x_s[rr * GD_LD + ff] =
-            (j < A && f < F) ? op<TIER>(x[(size_t)j * F + f]) : 0.0f;
+            (j < A && f < F) ? x[(size_t)j * F + f] : 0.0f;
       }
       for (int e = tid; e < M * GD_FC; e += THREADS) {
         int m = e / GD_FC, f = f0 + e % GD_FC;
@@ -541,18 +434,18 @@ cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
 #pragma unroll 4
         for (int ff = 0; ff < GD_FC; ++ff) {
           float cv = cm[ff];
-          Opnd<TIER> a[4], b[4];
+          float a[4], b[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            a[i] = lhs_val<TIER>(cv * g_s[(ty + 16 * i) * GD_LD + ff]);
+            a[i] = cv * g_s[(ty + 16 * i) * GD_LD + ff];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            b[k] = rhs_word<TIER>(x_s[(tx + 16 * k) * GD_LD + ff]);
+            b[k] = x_s[(tx + 16 * k) * GD_LD + ff];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              u[i][k] = madd<TIER>(a[i], b[k], u[i][k]);
+              u[i][k] += a[i] * b[k];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -1134,10 +1027,11 @@ __global__ void gd_reduce_kernel(const float* __restrict__ row_part,
   gpos[idx] = v;
 }
 
-// Per-block backward with both halves (cheb_bwd_gxgd). Grid: (row tiles,
+// Per-block backward with both halves (cheb_bwd_gxgd) at the fp32 tier
+// (bf16 and bf16x3 take cheb_gxgd_mma_kernel). Grid: (row tiles,
 // molecules). Per feature chunk and column block, every thread carries its
 // 4 pairs' recurrence on That_m = (1-z) T_m in registers and uses each
-// order twice: rounded into the shared pair tile for the gx product
+// order twice: stored into the shared pair tile for the gx product
 //     acc[rows, features] += That_m[rows, cols] @ (q_m * g[cols])
 // (orders m < MQ), and as the weight of its pairs' distance gradient
 //     gd[pair] += That_m * ((c2_m * g[row]) . x[col])
@@ -1153,7 +1047,7 @@ __global__ void gd_reduce_kernel(const float* __restrict__ row_part,
 // No atomics. Bound at the per-block slice (A=266, F=128, orders 49 and
 // 64 plus the low term): 114 order-products of 2*A^2*F FLOP per molecule,
 // matrix work far above the machine balance, as in the other three.
-template <int TIER, bool HAS_CELL>
+template <bool HAS_CELL>
 __global__ void __launch_bounds__(THREADS)
 cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
                  const float* __restrict__ g, const float* __restrict__ q,
@@ -1227,7 +1121,7 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         int j = j0 + jj, f = f0 + ff;
         bool in = j < A && f < F;
         gc_s[e] = in ? g[(size_t)j * F + f] : 0.0f;
-        x_s[jj * GG_LD + ff] = in ? op<TIER>(x[(size_t)j * F + f]) : 0.0f;
+        x_s[jj * GG_LD + ff] = in ? x[(size_t)j * F + f] : 0.0f;
       }
       if (tid < GG_T * 3) {
         int jj = tid / 3, c = tid % 3;
@@ -1267,13 +1161,13 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         if (m < MQ) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            tb[(ty + 8 * e) * GG_T + tx] = op<TIER>(h[e]);
+            tb[(ty + 8 * e) * GG_T + tx] = h[e];
         }
         if (m < M2) {
           float cv = (f0 + cf < F) ? c2[(size_t)m * F + f0 + cf] : 0.0f;
 #pragma unroll 4
           for (int rr = tid >> 7; rr < GG_T; rr += THREADS / GG_FC)
-            cb[rr * GG_LD + cf] = op<TIER>(cv * gr_s[rr * GG_FC + cf]);
+            cb[rr * GG_LD + cf] = cv * gr_s[rr * GG_FC + cf];
         }
         __syncthreads();
 
@@ -1284,30 +1178,27 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
             qm[k] = fok[k] ? q[(size_t)m * F + fk[k]] : 0.0f;
 #pragma unroll 4
           for (int jj = 0; jj < GG_T; ++jj) {
-            Opnd<TIER> b[4];
+            float b[4];
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              b[k] = rhs_val<TIER>(qm[k] * gc_s[jj * GG_FC + tx + 32 * k]);
+              b[k] = qm[k] * gc_s[jj * GG_FC + tx + 32 * k];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * GG_T + jj]);
+              float t = tb[(ty + 8 * i) * GG_T + jj];
 #pragma unroll
               for (int k = 0; k < 4; ++k)
-                acc[i][k] = madd<TIER>(t, b[k], acc[i][k]);
+                acc[i][k] += t * b[k];
             }
           }
         }
         if (m < M2) {
           float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          // c2_m g[row] (A side) and x[col] (B side), both as stored; the
-          // bf16x3 body is twice the others', so it is unrolled half as far
-#pragma unroll (TIER == TIER_X3 ? 2 : 4)
+          // c2_m g[row] (A side) and x[col] (B side), both as stored
+#pragma unroll 4
           for (int f4 = 0; f4 < nf4; ++f4) {
             float4 xv =
                 *reinterpret_cast<const float4*>(x_s + tx * GG_LD + 4 * f4);
-            const Opnd<TIER> xb[4] = {
-                rhs_word<TIER>(xv.x), rhs_word<TIER>(xv.y),
-                rhs_word<TIER>(xv.z), rhs_word<TIER>(xv.w)};
+            const float xb[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               float4 cv = *reinterpret_cast<const float4*>(
@@ -1315,7 +1206,7 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
               const float cw[4] = {cv.x, cv.y, cv.z, cv.w};
 #pragma unroll
               for (int c = 0; c < 4; ++c)
-                u[e] = madd<TIER>(lhs_word<TIER>(cw[c]), xb[c], u[e]);
+                u[e] += cw[c] * xb[c];
             }
           }
 #pragma unroll
@@ -1332,7 +1223,7 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
           int r = r0 + ty + 8 * e, j = j0 + tx;
           bool valid = (r < A) && (j < A) && (r != j);
           float low = valid ? fminf(d[e] - d_min, 0.0f) : 0.0f;
-          tb[(ty + 8 * e) * GG_T + tx] = op<TIER>(low);
+          tb[(ty + 8 * e) * GG_T + tx] = low;
         }
         float wl[4];
 #pragma unroll
@@ -1340,16 +1231,16 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
         __syncthreads();
 #pragma unroll 4
         for (int jj = 0; jj < GG_T; ++jj) {
-          Opnd<TIER> b[4];
+          float b[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            b[k] = rhs_val<TIER>(wl[k] * gc_s[jj * GG_FC + tx + 32 * k]);
+            b[k] = wl[k] * gc_s[jj * GG_FC + tx + 32 * k];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            Opnd<TIER> t = lhs_word<TIER>(tb[(ty + 8 * i) * GG_T + jj]);
+            float t = tb[(ty + 8 * i) * GG_T + jj];
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              acc[i][k] = madd<TIER>(t, b[k], acc[i][k]);
+              acc[i][k] += t * b[k];
           }
         }
       }
@@ -1878,6 +1769,479 @@ cheb_rows_mma_kernel(const float* __restrict__ pos,
     }
 }
 
+// cheb_bwd_gxgd at the bf16 and bf16x3 tiers, on the tensor cores.
+//
+// Replaces _cheb_bwd_kernel with need_gx=True, need_gd=True (flashmd_tpu/
+// ops/pallas/cheb_kernel.py:476: chain_gx :520-531 and chain_gd :533-545
+// on one recurrence, low term :609-617, gpos epilogue :639-685), as
+// cheb_gxgd_kernel does at fp32. Bound: operations, 2 * live pairs * F
+// FLOP per order product at 989 TFLOP/s (three times that at bf16x3),
+// MQ gx orders plus M2 gd orders: at the per-block slice (871,318 live
+// pairs, F = 128, MQ 49, M2 64) 0.0255 ms. The recurrence adds one FMA
+// per pair and order and gd one more, against 2F multiply-adds of
+// product.
+//
+// Design. One CTA of GM_W warps per (16-row strip, molecule); pairs in
+// the 16 x 16 fragments of cheb_rows_mma_kernel, skipped by its rule (a
+// fragment runs only if some pair has z != 1: the diagonal runs, which gx
+// needs). All warps take the same fragment at once, each over its own
+// 32-feature chunks of F (warp w: chunks w, w + GM_W, ...):
+// 1. The warp holds T_m, T_{m+1} and 2z of its lane's 8 pairs as That_m =
+//    (1-z) T_m in registers (seeds 1-z and (1-z) z), in the order of the
+//    fragment's two m16n8 accumulator tiles, which is also the A layout of
+//    one m16k16 tile: the same eight floats feed both halves.
+// 2. gd half, orders m < M2: U_m = bf16(c2_m g[rows]) bf16(x[cols])^T over
+//    the chunk (mma.m16n8k16, two k-steps, two n-tiles), gd += That_m U_m
+//    in the accumulator layout. gd is linear in the features, so the
+//    chunks' partial gd sum exactly; x's B fragments are rounded (split)
+//    once per fragment and chunk and held for all orders.
+// 3. gx half, orders m < MQ: acc[rows, chunk] += bf16(That_m) bf16(q_m
+//    g[cols]) (packed from the same registers as the A operand, the B
+//    operand formed per order from g held in float32); at bf16x3 each
+//    order's three passes go to a fresh accumulator added in float32, as
+//    in cheb_rows_mma_kernel. The linear term runs as one more product on
+//    fragments holding a pair with low = min(d - d_min, 0) != 0. The gx
+//    accumulators live in shared memory between fragments, each lane's
+//    own slots: no barrier, any F.
+// 4. Epilogue per fragment: the warps' gd (double-buffered in shared
+//    memory, one barrier per fragment) summed in warp order by warp 0,
+//    W = gd / d on pairs with d < rcut off the diagonal in range; row sides
+//    in warp 0's registers over the fragments in list order, column sides
+//    to this strip's slab of col_part (dead fragments' columns zero),
+//    summed by gd_reduce_kernel in slab order. gx = acc - w0 g at the end.
+//    No atomics: bitwise reproducible.
+constexpr int GM_W = 4;
+constexpr int GM_FC = 32;
+constexpr int GM_ROWS = 16;
+
+// Place of chunk feature fl (0..31) in a staged coefficient row. q (and
+// w_lin): lane gq reads n = gq of the four n-tiles t (fl = 8t + n) as one
+// float4. c2: lane tq reads its A-fragment features 16 ks + 8 h + 2 tq + b
+// as two float4s.
+__device__ __forceinline__ int gm_qidx(int fl) {
+  return (fl & 7) * 4 + (fl >> 3);
+}
+
+__device__ __forceinline__ int gm_cidx(int fl) {
+  return ((fl >> 1) & 3) * 8 + (fl >> 4) * 4 + ((fl >> 3) & 1) * 2 + (fl & 1);
+}
+
+// One order on one fragment and chunk: gd += h * U_m (c2m != nullptr) and
+// acc += bf16(h) bf16(q_m g[cols]) (qm != nullptr). h is in the order of
+// rm_pair: p = 4 nt + e is accumulator element e of n-tile nt.
+template <int TIER>
+__device__ __forceinline__ void gm_order(
+    const float (&h)[8], const float* c2m, const float* qm, int gq, int tq,
+    const float2 (&gr)[2][4], const unsigned (&xh)[2][2][2],
+    const unsigned (&xl)[2][2][2], const float (&gc)[4][4], float (&gd)[8],
+    float (&acc)[4][4]) {
+  constexpr bool X3 = TIER == TIER_X3;
+  const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (c2m != nullptr) {
+    float u[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const float4 c = *reinterpret_cast<const float4*>(c2m + tq * 8 + ks * 4);
+      // A = c2_m g at (row gq | gq + 8) x (k | k + 8)
+      const float2 av[4] = {
+          make_float2(c.x * gr[ks][0].x, c.y * gr[ks][0].y),
+          make_float2(c.x * gr[ks][1].x, c.y * gr[ks][1].y),
+          make_float2(c.z * gr[ks][2].x, c.w * gr[ks][2].y),
+          make_float2(c.z * gr[ks][3].x, c.w * gr[ks][3].y)};
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (X3)
+          split_bf16x2(av[i].x, av[i].y, ah[i], al[i]);
+        else
+          ah[i] = pack_bf16x2(av[i].x, av[i].y);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if (ks == 0)
+          mma_bf16(u[nt], ah, xh[ks][nt][0], xh[ks][nt][1], zero);
+        else
+          mma_bf16(u[nt], ah, xh[ks][nt][0], xh[ks][nt][1], u[nt]);
+        if constexpr (X3) {
+          mma_bf16(u[nt], al, xh[ks][nt][0], xh[ks][nt][1], u[nt]);
+          mma_bf16(u[nt], ah, xl[ks][nt][0], xl[ks][nt][1], u[nt]);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 8; ++p) gd[p] += h[p] * u[p >> 2][p & 3];
+  }
+  if (qm != nullptr) {
+    unsigned ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (X3)
+        split_bf16x2(h[2 * i], h[2 * i + 1], ah[i], al[i]);
+      else
+        ah[i] = pack_bf16x2(h[2 * i], h[2 * i + 1]);
+    }
+    const float4 q4 = *reinterpret_cast<const float4*>(qm + gq * 4);
+    const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      unsigned bh[2], bl[2];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        float v0 = qv[nt] * gc[nt][2 * kk];
+        float v1 = qv[nt] * gc[nt][2 * kk + 1];
+        if constexpr (X3)
+          split_bf16x2(v0, v1, bh[kk], bl[kk]);
+        else
+          bh[kk] = pack_bf16x2(v0, v1);
+      }
+      if constexpr (X3) {
+        float p[4];
+        mma_bf16(p, ah, bh[0], bh[1], zero);
+        mma_bf16(p, al, bh[0], bh[1], p);
+        mma_bf16(p, ah, bl[0], bl[1], p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] += p[e];
+      } else {
+        mma_bf16(acc[nt], ah, bh[0], bh[1], acc[nt]);
+      }
+    }
+  }
+}
+
+// Every order of one fragment (columns j0..j0+15) over the chunk at
+// feature fc0: gd += sum_m That_m U_m, and this lane's gx accumulators
+// (acc_s, 16 floats in shared memory) += sum_k That_k (q_k g) plus the
+// linear term where `low`.
+template <int TIER>
+__device__ __forceinline__ void gm_chunk(
+    const float* q_s, const float* c2_s, float* acc_s, const float* x,
+    const float* g, int FP, int fc0, int r_base, int j0, int A, int F,
+    int MQ, int M2, int gq, int tq, const float (&z)[8],
+    const float (&lowv)[8], bool low, float (&gd)[8]) {
+  constexpr bool X3 = TIER == TIER_X3;
+  // x at this lane's B places of U: column j0 + 8 nt + gq, features fc0 +
+  // 16 ks + 2 tq + 8 h + {0, 1}; rounded or split once for all orders
+  unsigned xh[2][2][2], xl[2][2][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int j = j0 + 8 * nt + gq, k = fc0 + 16 * ks + 2 * tq + 8 * h;
+        float v0 = j < A && k < F ? x[(size_t)j * F + k] : 0.0f;
+        float v1 = j < A && k + 1 < F ? x[(size_t)j * F + k + 1] : 0.0f;
+        if constexpr (X3)
+          split_bf16x2(v0, v1, xh[ks][nt][h], xl[ks][nt][h]);
+        else
+          xh[ks][nt][h] = pack_bf16x2(v0, v1);
+      }
+  // g at this lane's A places of U (rows gq | gq + 8 of the strip, the
+  // same features), float32: c2_m multiplies it per order
+  float2 gr[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int r = r_base + gq + 8 * (i & 1);
+      int k = fc0 + 16 * ks + 2 * tq + 8 * (i >> 1);
+      gr[ks][i].x = r < A && k < F ? g[(size_t)r * F + k] : 0.0f;
+      gr[ks][i].y = r < A && k + 1 < F ? g[(size_t)r * F + k + 1] : 0.0f;
+    }
+  // g at this lane's B places of the gx product: feature fc0 + 8 nt + gq,
+  // columns j0 + 2 tq + {0, 1} + 8 kk, float32: q_k multiplies it per order
+  float gc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int f = fc0 + 8 * nt + gq, j = j0 + 2 * tq + (c & 1) + 8 * (c >> 1);
+      gc[nt][c] = j < A && f < F ? g[(size_t)j * F + f] : 0.0f;
+    }
+  float acc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const float4 a4 = reinterpret_cast<const float4*>(acc_s)[nt];
+    acc[nt][0] = a4.x;
+    acc[nt][1] = a4.y;
+    acc[nt][2] = a4.z;
+    acc[nt][3] = a4.w;
+  }
+  // orders in pairs: ha = That_m, hb = That_{m+1}, advanced in place
+  float ha[8], hb[8], z2[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    ha[p] = 1.0f - z[p];
+    hb[p] = ha[p] * z[p];
+    z2[p] = 2.0f * z[p];
+  }
+  const int M = MQ > M2 ? MQ : M2;
+  const float* cm = c2_s + fc0;
+  const float* qm = q_s + fc0;
+  int m = 0;
+  for (; m + 1 < M; m += 2) {
+    gm_order<TIER>(ha, m < M2 ? cm + (size_t)m * FP : nullptr,
+                   m < MQ ? qm + (size_t)m * FP : nullptr, gq, tq, gr, xh,
+                   xl, gc, gd, acc);
+    gm_order<TIER>(hb, m + 1 < M2 ? cm + (size_t)(m + 1) * FP : nullptr,
+                   m + 1 < MQ ? qm + (size_t)(m + 1) * FP : nullptr, gq, tq,
+                   gr, xh, xl, gc, gd, acc);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      ha[p] = z2[p] * hb[p] - ha[p];
+      hb[p] = z2[p] * ha[p] - hb[p];
+    }
+  }
+  if (m < M)
+    gm_order<TIER>(ha, m < M2 ? cm + (size_t)m * FP : nullptr,
+                   m < MQ ? qm + (size_t)m * FP : nullptr, gq, tq, gr, xh,
+                   xl, gc, gd, acc);
+  // the linear term: basis low, operand w_lin g (staged as q's row MQ)
+  if (low)
+    gm_order<TIER>(lowv, nullptr, qm + (size_t)MQ * FP, gq, tq, gr, xh, xl,
+                   gc, gd, acc);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+    reinterpret_cast<float4*>(acc_s)[nt] =
+        make_float4(acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]);
+}
+
+// bf16: three blocks (12 warps) per SM, at most 168 registers a thread
+// (no spills; 17 % faster than two, tools/bwd_variants.py); bf16x3 spills
+// there and keeps up to 255.
+template <int TIER, bool HAS_CELL>
+__global__ void __launch_bounds__(GM_W * 32, TIER == TIER_X3 ? 1 : 3)
+cheb_gxgd_mma_kernel(const float* __restrict__ pos,
+                     const float* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ q, const float* __restrict__ c2,
+                     const float* __restrict__ w0,
+                     const float* __restrict__ w_lin,
+                     const float* __restrict__ cell,
+                     const float* __restrict__ inv, float* __restrict__ gx,
+                     float* __restrict__ row_part,
+                     float* __restrict__ col_part, int A, int F, int MQ,
+                     int M2, int n_strips, float rcut, float d_min,
+                     float scale) {
+  const int n_jf = (A + GM_ROWS - 1) / GM_ROWS;
+  const int n_ch = (F + GM_FC - 1) / GM_FC;
+  const int FP = n_ch * GM_FC;
+  extern __shared__ float4 gm_smem4[];
+  float* q_s = reinterpret_cast<float*>(gm_smem4);  // [MQ + 1][FP]
+  float* c2_s = q_s + (size_t)(MQ + 1) * FP;        // [M2][FP]
+  float* gx_s = c2_s + (size_t)M2 * FP;             // [n_ch][32 lanes][16]
+  float* gd_s = gx_s + (size_t)n_ch * 512;          // [2][GM_W][32][8]
+  int* flag_s = reinterpret_cast<int*>(gd_s + 2 * GM_W * 256);  // [n_jf]
+  int* list_s = flag_s + n_jf;                                  // [n_jf]
+  __shared__ float geo_s[18];
+  __shared__ int n_live_s;
+
+  const int s = blockIdx.y;
+  const int strip = blockIdx.x;
+  const int r_base = strip * GM_ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  pos += (size_t)s * A * 3;
+  x += (size_t)s * A * F;
+  g += (size_t)s * A * F;
+  gx += (size_t)s * A * F;
+  float* slab = col_part + ((size_t)s * n_strips + strip) * A * 3;
+
+  // q rows 0..MQ-1 and w_lin as row MQ, c2 rows, permuted per chunk, zero
+  // past F; the gx accumulators zero
+  for (int e = tid; e < (MQ + 1) * FP; e += GM_W * 32) {
+    int m = e / FP, f = e % FP;
+    float v = 0.0f;
+    if (f < F)
+      v = m < MQ ? q[(size_t)m * F + f]
+                 : (w_lin != nullptr ? w_lin[f] : 0.0f);
+    q_s[(size_t)m * FP + (f & ~31) + gm_qidx(f & 31)] = v;
+  }
+  for (int e = tid; e < M2 * FP; e += GM_W * 32) {
+    int m = e / FP, f = e % FP;
+    c2_s[(size_t)m * FP + (f & ~31) + gm_cidx(f & 31)] =
+        f < F ? c2[(size_t)m * F + f] : 0.0f;
+  }
+  for (int e = tid; e < n_ch * 512; e += GM_W * 32) gx_s[e] = 0.0f;
+  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
+  float prow[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int r = r_base + gq + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) prow[h][k] = r < A ? pos[r * 3 + k] : 0.0f;
+  }
+  __syncthreads();
+
+  // 1. The fragments that run (bit 0: z != 1 somewhere) and those with a
+  // linear term (bit 1: low != 0 somewhere), compacted in column order.
+  for (int cf = warp; cf < n_jf; cf += GM_W) {
+    float d[8], z[8];
+    rm_frag_geom<HAS_CELL>(prow, pos, geo_s, r_base, cf * GM_ROWS, A, gq, tq,
+                           rcut, d_min, scale, d, z);
+    bool live = false, low = false;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      int r, j;
+      rm_pair(p, r_base, cf * GM_ROWS, gq, tq, r, j);
+      live |= z[p] != 1.0f;
+      low |= rm_low(d[p], d_min, r, j, A) != 0.0f;
+    }
+    int any = __any_sync(0xffffffffu, live);
+    int any_low = w_lin != nullptr && __any_sync(0xffffffffu, low);
+    if (lane == 0) flag_s[cf] = any | (any_low << 1);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < n_jf; base += 32) {
+      int cf = base + lane;
+      int fl = cf < n_jf ? flag_s[cf] : 0;
+      unsigned vote = __ballot_sync(0xffffffffu, fl & 1);
+      if (fl & 1)
+        list_s[n + __popc(vote & ((1u << lane) - 1u))] = cf * 2 + (fl >> 1);
+      n += __popc(vote);
+    }
+    if (lane == 0) n_live_s = n;
+  }
+  // dead fragments' columns of this strip's slab are zero
+  for (int e = tid; e < A * 3; e += GM_W * 32)
+    if (!(flag_s[e / (3 * GM_ROWS)] & 1)) slab[e] = 0.0f;
+  __syncthreads();
+  const int n_live = n_live_s;
+
+  float rs[2] = {0.0f, 0.0f};
+  float wp[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+
+  // 2-4. The live fragments in list order, every warp on each.
+  for (int qi = 0; qi < n_live; ++qi) {
+    const int ent = list_s[qi];
+    const int j0 = (ent >> 1) * GM_ROWS;
+    float d[8], z[8], lowv[8];
+    rm_frag_geom<HAS_CELL>(prow, pos, geo_s, r_base, j0, A, gq, tq, rcut,
+                           d_min, scale, d, z);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      int r, j;
+      rm_pair(p, r_base, j0, gq, tq, r, j);
+      lowv[p] = rm_low(d[p], d_min, r, j, A);
+    }
+    float gd[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int ch = warp; ch < n_ch; ch += GM_W)
+      gm_chunk<TIER>(q_s, c2_s, gx_s + ch * 512 + lane * 16, x, g, FP,
+                     ch * GM_FC, r_base, j0, A, F, MQ, M2, gq, tq, z, lowv,
+                     ent & 1, gd);
+    float* gdb = gd_s + (qi & 1) * GM_W * 256;
+    float4* mine = reinterpret_cast<float4*>(gdb + warp * 256 + lane * 8);
+    mine[0] = make_float4(gd[0], gd[1], gd[2], gd[3]);
+    mine[1] = make_float4(gd[4], gd[5], gd[6], gd[7]);
+    __syncthreads();  // every warp's gd of this fragment is in buffer qi & 1
+    if (warp != 0) continue;
+
+    // W = gd / d on live pairs, the warps' gd summed in warp order
+    float col[4][4] = {};
+    float pc[4][3];  // columns j0 + 2 tq + (c & 1) + 8 (c >> 1)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      int j = j0 + 2 * tq + (c & 1) + 8 * (c >> 1);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pc[c][k] = j < A ? pos[j * 3 + k] : 0.0f;
+    }
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      float v = gdb[lane * 8 + p];
+#pragma unroll
+      for (int w = 1; w < GM_W; ++w) v += gdb[w * 256 + lane * 8 + p];
+      int r, j;
+      rm_pair(p, r_base, j0, gq, tq, r, j);
+      bool keep = r < A && j < A && r != j && d[p] < rcut;
+      float wv = keep ? v / d[p] : 0.0f;
+      int h = (p >> 1) & 1, c = (p & 1) + 2 * (p >> 2);
+      if (HAS_CELL) {
+        float e0, e1, e2;
+        pair_rel<true>(prow[h], pc[c], geo_s, e0, e1, e2);
+        wp[h][0] += wv * e0;
+        wp[h][1] += wv * e1;
+        wp[h][2] += wv * e2;
+        col[c][1] += wv * e0;
+        col[c][2] += wv * e1;
+        col[c][3] += wv * e2;
+      } else {
+        rs[h] += wv;
+        wp[h][0] += wv * pc[c][0];
+        wp[h][1] += wv * pc[c][1];
+        wp[h][2] += wv * pc[c][2];
+        col[c][0] += wv;
+        col[c][1] += wv * prow[h][0];
+        col[c][2] += wv * prow[h][1];
+        col[c][3] += wv * prow[h][2];
+      }
+    }
+    // column sides over the strip's rows: lanes of equal tq
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          col[c][k] += __shfl_xor_sync(0xffffffffu, col[c][k], off);
+    if (gq == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        int j = j0 + 2 * tq + (c & 1) + 8 * (c >> 1);
+        if (j < A) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            slab[j * 3 + k] = HAS_CELL ? col[c][k + 1]
+                                       : pc[c][k] * col[c][0] - col[c][k + 1];
+        }
+      }
+    }
+  }
+
+  // Row sides: warp 0's quads, in column order within the quad.
+  if (warp == 0) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], off);
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          wp[h][k] += __shfl_xor_sync(0xffffffffu, wp[h][k], off);
+      }
+    if (tq == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int r = r_base + gq + 8 * h;
+        if (r < A) {
+          float* o = row_part + ((size_t)s * A + r) * 3;
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            o[k] = HAS_CELL ? -wp[h][k] : prow[h][k] * rs[h] - wp[h][k];
+        }
+      }
+    }
+  }
+
+  // gx = acc - w0 g (the diagonal's share), each warp its own chunks.
+  for (int ch = warp; ch < n_ch; ch += GM_W) {
+    const float* a = gx_s + ch * 512 + lane * 16;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int r = r_base + gq + 8 * (e >> 1);
+        int f = ch * GM_FC + 8 * nt + 2 * tq + (e & 1);
+        if (r < A && f < F) {
+          size_t o = (size_t)r * F + f;
+          gx[o] = a[nt * 4 + e] - w0[f] * g[o];
+        }
+      }
+  }
+}
+
 inline float fit_scale(float rcut, float d_min) {
   return (float)(2.0 / ((double)rcut - (double)d_min));
 }
@@ -1933,12 +2297,12 @@ int launch_rows(const float* pos, const float* in, const float* coef,
     if constexpr (T == TIER_FP32) {
       dim3 grid((A + RT_TA - 1) / RT_TA, (F + RT_FC - 1) / RT_FC, S);
       if (cell != nullptr)
-        cheb_rows_kernel<T, GX, true>
+        cheb_rows_kernel<GX, true>
             <<<grid, THREADS, 18 * sizeof(float), stream>>>(
                 pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut,
                 d_min, scale);
       else
-        cheb_rows_kernel<T, GX, false><<<grid, THREADS, 0, stream>>>(
+        cheb_rows_kernel<GX, false><<<grid, THREADS, 0, stream>>>(
             pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
             scale);
       return 0;
@@ -1977,11 +2341,11 @@ int launch_gd(const float* pos, const float* x, const float* g,
     size_t smem =
         sizeof(float) * (2 * GD_T * GD_LD + GD_T * GD_WLD +
                          (size_t)M * GD_FC + (HAS_CELL ? 18 : 0));
-    err = cudaFuncSetAttribute(cheb_gd_kernel<TIER, HAS_CELL>,
+    err = cudaFuncSetAttribute(cheb_gd_kernel<HAS_CELL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    cheb_gd_kernel<TIER, HAS_CELL><<<grid, THREADS, smem, stream>>>(
+    cheb_gd_kernel<HAS_CELL><<<grid, THREADS, smem, stream>>>(
         pos, x, g, c2, cell, inv, row_part, col_part, A, F, M, n_tiles, rcut,
         d_min, scale);
   } else {
@@ -1999,7 +2363,13 @@ int launch_gd(const float* pos, const float* x, const float* g,
   return (int)cudaGetLastError();
 }
 
-inline int cheb_gxgd_tiles_of(int A) { return (A + GG_T - 1) / GG_T; }
+// fp32 keeps cheb_gxgd_kernel (one col_part slab per 32-row tile); bf16
+// and bf16x3 take cheb_gxgd_mma_kernel (one slab per 16-row strip), as
+// gd_slabs_of.
+inline int gxgd_slabs_of(int A, int tier) {
+  return tier == TIER_FP32 ? (A + GG_T - 1) / GG_T
+                           : (A + GM_ROWS - 1) / GM_ROWS;
+}
 
 template <int TIER, bool HAS_CELL>
 int launch_gxgd(const float* pos, const float* x, const float* g,
@@ -2008,18 +2378,34 @@ int launch_gxgd(const float* pos, const float* x, const float* g,
                 float* gx, float* row_part, float* col_part, int S, int A,
                 int F, int MQ, int M2, float rcut, float d_min,
                 cudaStream_t stream) {
-  int n_tiles = cheb_gxgd_tiles_of(A);
-  size_t smem = sizeof(float) *
-                (3 * GG_T * GG_LD + 2 * GG_T * GG_FC + 2 * GG_T * GG_T +
-                 GG_T * GG_WLD + (HAS_CELL ? 18 : 0));
-  cudaError_t err = cudaFuncSetAttribute(
-      cheb_gxgd_kernel<TIER, HAS_CELL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  int n_tiles = gxgd_slabs_of(A, TIER);
+  float scale = fit_scale(rcut, d_min);
   dim3 grid(n_tiles, S);
-  cheb_gxgd_kernel<TIER, HAS_CELL><<<grid, THREADS, smem, stream>>>(
-      pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, A, F,
-      MQ, M2, n_tiles, rcut, d_min, fit_scale(rcut, d_min));
+  cudaError_t err;
+  if constexpr (TIER == TIER_FP32) {
+    size_t smem = sizeof(float) *
+                  (3 * GG_T * GG_LD + 2 * GG_T * GG_FC + 2 * GG_T * GG_T +
+                   GG_T * GG_WLD + (HAS_CELL ? 18 : 0));
+    err = cudaFuncSetAttribute(cheb_gxgd_kernel<HAS_CELL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cheb_gxgd_kernel<HAS_CELL><<<grid, THREADS, smem, stream>>>(
+        pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, A, F,
+        MQ, M2, n_tiles, rcut, d_min, scale);
+  } else {
+    size_t fp = (size_t)(F + GM_FC - 1) / GM_FC * GM_FC;
+    size_t smem = sizeof(float) * ((size_t)(MQ + 1 + M2) * fp + fp * 16 +
+                                   2 * GM_W * 256) +
+                  sizeof(int) * 2 * (size_t)n_tiles;
+    err = cudaFuncSetAttribute(cheb_gxgd_mma_kernel<TIER, HAS_CELL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    cheb_gxgd_mma_kernel<TIER, HAS_CELL><<<grid, GM_W * 32, smem, stream>>>(
+        pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, A, F,
+        MQ, M2, n_tiles, rcut, d_min, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -2040,7 +2426,8 @@ extern "C" {
 // col_part slabs of cheb_bwd_gd: enough for every tier.
 int cheb_gd_tiles(int A) { return gd_slabs_of(A, TIER_BF16); }
 
-int cheb_gxgd_tiles(int A) { return cheb_gxgd_tiles_of(A); }
+// col_part slabs of cheb_bwd_gxgd: enough for every tier.
+int cheb_gxgd_tiles(int A) { return gxgd_slabs_of(A, TIER_BF16); }
 
 int cheb_fwd(const float* pos, const float* x, const float* c,
              const float* w0, const float* w_lin, const float* cell,
@@ -2100,7 +2487,7 @@ int cheb_bwd_gxgd(const float* pos, const float* x, const float* g,
   });
   if (rc != 0) return rc;
   return launch_gd_reduce(row_part, col_part, gpos, S, A,
-                          cheb_gxgd_tiles_of(A), st);
+                          gxgd_slabs_of(A, tier), st);
 }
 
 }  // extern "C"

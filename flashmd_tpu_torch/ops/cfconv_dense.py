@@ -28,6 +28,11 @@ reference's scatter to row j (``gpos_ref[0] +=``, cfconv_dense.py:215)
 from the transpose. This equals the reference up to summation order, with
 the bf16 roundings on the same values.
 
+On the card the bf16 backward takes its four filter-MLP products on the
+tensor cores over the live pairs only (d < rc, i != j), writing gd = 0
+for every other pair: exact, as ``_pair_gd`` is zero wherever cut and
+dcut are. The forward and the fp32 backward run float32 tiles.
+
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each
 wrapper counts its kernel launches in its ``launches`` attribute.
@@ -96,29 +101,45 @@ def dense_cfconv_fwd_plain(pos, x, w0, b0, w1, offset, coeff, rcut,
     return torch.cat(outs)
 
 
+def _pair_gd(geometry, x, g, w0, b0, w1, offset, coeff, precision,
+             need_gx=True):
+    """(gd [S, A, A], gx [S, A, F] or None) from ``_pair_geometry``'s
+    output: gd_ij = d(g_i . out_i) / d d_ij for every ordered pair (one MLP
+    backward of the cotangent g_i x_j cut each), zero wherever cut and dcut
+    are (d >= rc, the diagonal)."""
+    _, d, cut, dcut, e, rbf = geometry
+    a0, w = _filter_mlp(rbf, w0, b0, w1, precision)
+    gi, xj = g[:, :, None, :], x[:, None, :, :]
+    cut3 = cut[..., None]
+    gx = torch.sum(w * cut3 * g[:, None, :, :], dim=2) if need_gx else None
+    s_cut = torch.sum(gi * w * xj, dim=-1)
+    ga0 = _op(gi * xj * cut3, precision) @ _op(w1, precision).T
+    gt0 = ga0 * (1.0 - a0 * a0)
+    grbf = _op(gt0, precision) @ _op(w0, precision).T
+    gcut = s_cut + torch.sum(grbf * e, dim=-1)
+    ge = grbf * cut3
+    gd = torch.sum(ge * e * (2.0 * coeff) * (d[..., None] - offset),
+                   dim=-1) + gcut * dcut
+    return gd, gx
+
+
+def _gpos_of_gd(gd, rel, d):
+    """gpos[i] = -sum_j (gd_ij + gd_ji) u_ij, [S, A, 3]."""
+    gd = gd + gd.transpose(1, 2)
+    return -torch.sum(gd[..., None] * (rel / d[..., None]), dim=2)
+
+
 def dense_cfconv_bwd_plain(pos, x, g, w0, b0, w1, offset, coeff, rcut,
                            precision, need_gx=True):
     """(gpos [S, A, 3], gx [S, A, F] or None): gd per ordered pair, then
     its row-owned gather (module docstring)."""
     gposs, gxs = [], []
     for sl in _molecule_chunks(pos.shape[0]):
-        rel, d, cut, dcut, e, rbf = _pair_geometry(pos[sl], offset, coeff,
-                                                   rcut)
-        a0, w = _filter_mlp(rbf, w0, b0, w1, precision)
-        gi, xj = g[sl, :, None, :], x[sl, None, :, :]
-        cut3 = cut[..., None]
-        if need_gx:
-            gxs.append(torch.sum(w * cut3 * g[sl, None, :, :], dim=2))
-        s_cut = torch.sum(gi * w * xj, dim=-1)
-        ga0 = _op(gi * xj * cut3, precision) @ _op(w1, precision).T
-        gt0 = ga0 * (1.0 - a0 * a0)
-        grbf = _op(gt0, precision) @ _op(w0, precision).T
-        gcut = s_cut + torch.sum(grbf * e, dim=-1)
-        ge = grbf * cut3
-        gd = torch.sum(ge * e * (2.0 * coeff) * (d[..., None] - offset),
-                       dim=-1) + gcut * dcut
-        gd = gd + gd.transpose(1, 2)  # gd_ij + gd_ji
-        gposs.append(-torch.sum(gd[..., None] * (rel / d[..., None]), dim=2))
+        geometry = _pair_geometry(pos[sl], offset, coeff, rcut)
+        gd, gx = _pair_gd(geometry, x[sl], g[sl], w0, b0, w1, offset, coeff,
+                          precision, need_gx)
+        gposs.append(_gpos_of_gd(gd, geometry[0], geometry[1]))
+        gxs.append(gx)
     return torch.cat(gposs), (torch.cat(gxs) if need_gx else None)
 
 

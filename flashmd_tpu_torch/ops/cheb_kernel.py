@@ -14,14 +14,15 @@ cheb_conv_bwd_gxgd ``_cheb_bwd_kernel`` (:476), ``need_gx=True,
                    need_gd=True``: the per-block backward
 =================  ==========================================================
 
-At bf16 and bf16x3 the kernels but ``cheb_bwd_gxgd`` take their order
-products on the tensor cores and skip the pair fragments that add
-nothing; fp32 keeps the float32 tiles. ``cheb_bwd_gd`` runs 16 x 8
-fragments with a pair within the cutoff off the diagonal (exact: W is
-zero elsewhere); its column partials take ``cheb_gd_tiles(A)`` slabs,
-enough for either tier. ``cheb_fwd`` and ``cheb_bwd_gx`` run 16 x 16
-fragments with a pair at z != 1 (exact: both bases vanish at z == 1; the
-diagonal, at z = -1, runs) and their linear term only where low != 0.
+At bf16 and bf16x3 the kernels take their order products on the tensor
+cores and skip the pair fragments that add nothing; fp32 keeps the
+float32 tiles. ``cheb_bwd_gd`` runs 16 x 8 fragments with a pair within
+the cutoff off the diagonal (exact: W is zero elsewhere); its column
+partials take ``cheb_gd_tiles(A)`` slabs, enough for every tier.
+``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gxgd`` run 16 x 16 fragments
+with a pair at z != 1 (exact: both bases vanish at z == 1; the diagonal,
+at z = -1, runs) and their linear term only where low != 0;
+``cheb_bwd_gxgd``'s column partials take ``cheb_gxgd_tiles(A)`` slabs.
 
 Every operand carries the batch as its leading axis: ``pos [S, A, 3]``,
 ``x``/``g`` ``[S, A, F]``; coefficient tables are ``[M, F]``. The batch is

@@ -2,8 +2,10 @@
 
 Each kernel (Chebyshev with the per-block combined backward, its
 periodic-cell variants and its bf16x3 tier, dense and neighbour-matrix
-CFConv) against its plain PyTorch twin on the card (at bf16x3 also
-nearer that twin than the fp32 one), the launch counters on the paths
+CFConv; the tensor-core kernels also on ragged sizes and on positions
+with dead, live and clustered pairs) against its plain PyTorch twin on
+the card (at bf16x3 also nearer that twin than the fp32 one), the launch
+counters on the paths
 and on both cheb schedules, bitwise reproducibility, the wrappers'
 refusals and that the per-block schedule never takes a twin. Without a
 card every test skips (decided in a fixture, so every xdist worker
@@ -450,6 +452,55 @@ def test_gxgd_kernel_matches_twin(dev, precision, d_min, periodic, a, f):
                    for k, r, r32 in zip(out, ref, ref32))
 
 
+# The tensor-core gx+gd kernel (bf16, bf16x3): 16 x 16 pair fragments,
+# those with z == 1 on every pair skipped, the linear term only where low
+# != 0; the slice's orders and width, ragged atom counts.
+GXGD_ATOMS = [33, 70, 266]
+
+
+@pytest.mark.parametrize("precision", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("layout", ["spread", "clusters", "none", "compact"])
+@pytest.mark.parametrize("a", GXGD_ATOMS)
+def test_gxgd_tensor_core_kernel_matches_twin(dev, a, layout, periodic,
+                                              precision):
+    """(gpos, gx) against the twin: 2e-3 (bf16) or 1e-4 and nearer the
+    bf16x3 twin than the fp32 one (bf16x3) of max|twin|, gpos exactly zero
+    where the twin's is (only the diagonal live); two launches bitwise
+    equal. Positions spread at 6 A (pairs below d_min 2.0: the linear
+    term runs), in two clusters, on a grid beyond the cutoff, or compact."""
+    from flashmd_tpu_torch.models.cheb import _lin_slope
+
+    t = _inputs(dev, 2, a, 128, 48, 64, seed=a + 11)
+    cell = None
+    if layout == "spread":
+        pos = t["pos"]
+        if periodic:
+            pos, cell = torch.remainder(pos, 24.0), _cells(dev, 2)
+    else:
+        pos = _gd_layout(dev, 2, a, layout, seed=a + 12)
+        if periodic:
+            cell = torch.tensor([CELL_WIDE] * 2, device=dev)
+    args = (t["c"], t["c2"], t["w0"], pos, t["x"], t["g"], RCUT, precision,
+            2.0, _lin_slope(t["c2"]))
+    out = ck.cheb_conv_bwd_gxgd(*args, cell=cell)
+    again = ck.cheb_conv_bwd_gxgd(*args, cell=cell)
+    ref = ck.cheb_conv_bwd_gxgd_plain(*args, cell=cell)
+    ref32 = ck.cheb_conv_bwd_gxgd_plain(*_fp32(args), cell=cell)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    for k, r, r32 in zip(out, ref, ref32):
+        assert bool(torch.isfinite(k).all())
+        if float(r.abs().max()) == 0.0:
+            assert float(k.abs().max()) == 0.0
+            continue
+        assert _rel(k, r) <= BOUNDS[precision]["bwd"]
+        if precision == "bf16x3":
+            assert _takes_splits(k, r, r32)
+    if layout == "none":
+        assert float(ref[0].abs().max()) == 0.0
+
+
 def _perblock_forces(device, monkeypatch, cell=None, precision="bf16",
                      stack="0"):
     """Forces of a 3-block cheb model on the per-block schedule (or, with
@@ -555,6 +606,45 @@ def test_dense_kernels_match_twins(dev, precision, a):
     assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
     assert _rel(gx, gx_ref) <= BOUNDS[precision]["bwd"]
     assert none is None and torch.equal(gpos_only, gpos)
+
+
+# The tensor-core dense backward (bf16): each work item's live pairs in
+# 16-pair tiles, gd = 0 written for the others; ragged atom counts.
+DENSE_ATOMS = [20, 90, 266]
+
+
+@pytest.mark.parametrize("layout", ["spread", "dense", "none"])
+@pytest.mark.parametrize("a", DENSE_ATOMS)
+def test_dense_tensor_core_bwd_matches_twin(dev, a, layout):
+    """gpos and gx, with and without gx, against the bf16 twin (2e-3 of
+    max|twin|; exactly zero where the twin is), two launches bitwise
+    equal. Positions spread at 6 A, or at half that (rows with more than
+    32 live pairs), or on a grid beyond the cutoff (no live pair)."""
+    pos, x, g, w = _dense_inputs(dev, 2, a, seed=a)
+    if layout == "dense":
+        pos = pos * 0.5
+        d = torch.cdist(pos, pos)
+        assert int(((d < RCUT).sum(-1) - 1).max()) > min(32, a - 2)
+    elif layout == "none":
+        pos = _gd_layout(dev, 2, a, "none", seed=a)
+    for need_gx in (True, False):
+        out = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "bf16",
+                                  need_gx=need_gx)
+        again = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "bf16",
+                                    need_gx=need_gx)
+        ref = cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT, "bf16",
+                                        need_gx=need_gx)
+        torch.cuda.synchronize()
+        assert (out[1] is None) == (ref[1] is None) == (not need_gx)
+        for k, k2, r in zip(out, again, ref):
+            if r is None:
+                continue
+            assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
+            if layout == "none":
+                assert float(r.abs().max()) == 0.0
+                assert float(k.abs().max()) == 0.0
+            else:
+                assert _rel(k, r) <= BOUNDS["bf16"]["bwd"]
 
 
 def test_dense_bwd_bitwise_reproducible(dev):

@@ -1,14 +1,17 @@
-"""The invariant that lets the tensor-core fwd/gx kernel skip fragments.
+"""The invariant that lets the tensor-core fwd/gx and gx+gd kernels skip
+fragments.
 
-``cheb_fwd`` and ``cheb_bwd_gx`` at bf16 and bf16x3 take their pairs in
-16 x 16 fragments (the A operand of mma.m16n8k16) and run no order product
-for a fragment whose every pair has z == 1 (both bases' seeds, (1-z)^2 and
-(1-z), are then exactly zero), and the linear term only on fragments that
-hold a pair with low = min(d - d_min, 0) != 0. Here, on the CPU: copies
-of the two twins' order loops with every product of such a fragment
-zeroed give outputs equal (torch.equal) to ``cheb_conv_fwd_plain`` and
-``cheb_conv_bwd_gx_plain``, at every tier, open and under a triclinic
-cell, on two-cluster positions with all-dead, all-live and mixed
+``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gxgd`` at bf16 and bf16x3
+take their pairs in 16 x 16 fragments (the A operand of mma.m16n8k16) and
+run no order product for a fragment whose every pair has z == 1 (both
+bases' seeds, (1-z)^2 and (1-z), are then exactly zero), and the linear
+term only on fragments that hold a pair with low = min(d - d_min, 0) !=
+0. Here, on the CPU: copies of the three twins' order loops with every
+product of such a fragment zeroed (for gx+gd, both the gx product and the
+gd term of each order) give outputs equal (torch.equal) to
+``cheb_conv_fwd_plain``, ``cheb_conv_bwd_gx_plain`` and
+``cheb_conv_bwd_gxgd_plain`` (gpos and gx), at every tier, open and under
+a triclinic cell, on two-cluster positions with all-dead, all-live and mixed
 fragments, an atom count and a feature width that are not multiples of
 16, and pairs below d_min; the gd kernel's rule (a live pair off the
 diagonal) instead drops the diagonal's share and breaks equality, so the
@@ -72,6 +75,12 @@ def _operands(seed=1, s=2):
     c2 = (rng.normal(size=(M2, F)) / M2).astype(np.float32)
     w0 = rng.normal(size=(F,)).astype(np.float32)
     return _t(x), _t(c), _t(c2), _t(w0)
+
+
+def _cotangent(seed=5, s=2):
+    """g [S, A, F], the gx+gd kernel's second operand."""
+    rng = np.random.default_rng(seed)
+    return _t(rng.normal(size=(s, A, F)).astype(np.float32))
 
 
 def _cell(periodic, s=2):
@@ -143,6 +152,36 @@ def _gx_skipping(c, w0, pos, g, precision, w_lin, cell, rule="z"):
     return gx - w0 * g
 
 
+def _gxgd_skipping(c, c2, w0, pos, x, g, precision, w_lin, cell):
+    """cheb_conv_bwd_gxgd_plain's order loop with both products of the
+    fragments that do not run zeroed (the z == 1 rule)."""
+    q = ck._to_that_basis(c)
+    d, z, on, on_low = _runs(pos, cell, "z")
+    cell, inv = ck._cell_operands(cell, pos.shape[0], pos.device)
+    rel = ck.pair_rel(pos, cell, inv)
+    two_z = 2.0 * z
+    xt = x.transpose(1, 2)
+    n_q, n_d = q.shape[0], c2.shape[0]
+    h_prev, h_cur = 1.0 - z, (1.0 - z) * z
+    gx = gd = 0.0
+    for m in range(max(n_q, n_d)):
+        if m == 0:
+            h = h_prev
+        elif m == 1:
+            h = h_cur
+        else:
+            h_prev, h_cur = h_cur, two_z * h_cur - h_prev
+            h = h_cur
+        if m < n_q:
+            gx = gx + _dot(_masked(h, on), q[m] * g, precision)
+        if m < n_d:
+            gd = gd + _masked(h, on) * _dot(c2[m] * g, xt, precision)
+    if w_lin is not None:
+        low = _masked(ck._low_matrix(d, D_MIN), on_low)
+        gx = gx + _dot(low, w_lin * g, precision)
+    return ck._gpos_of_gd(gd, pos, rel, d, RCUT, cell), gx - w0 * g
+
+
 KERNELS = {
     "fwd": (_fwd_skipping, ck.cheb_conv_fwd_plain),
     "gx": (_gx_skipping, ck.cheb_conv_bwd_gx_plain),
@@ -151,7 +190,7 @@ KERNELS = {
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
 @pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
-@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+@pytest.mark.parametrize("kernel", ["fwd", "gx", "gxgd"])
 def test_skipping_dead_fragments_is_exact(kernel, periodic, precision):
     pos = _t(_clusters())
     x, c, c2, w0 = _operands()
@@ -163,6 +202,14 @@ def test_skipping_dead_fragments_is_exact(kernel, periodic, precision):
     assert bool((~on).any()) and bool((on & ~every).any())
     assert bool((on & every).any())
     assert bool(on_low.any())
+    if kernel == "gxgd":
+        g = _cotangent()
+        args = (c, c2, w0, pos, x, g)
+        ref = ck.cheb_conv_bwd_gxgd_plain(*args, RCUT, precision, D_MIN,
+                                          w_lin, cell)
+        out = _gxgd_skipping(*args, precision, w_lin, cell)
+        assert all(torch.equal(o, r) for o, r in zip(out, ref))
+        return
     skip, plain = KERNELS[kernel]
     ref = plain(c, w0, pos, x, RCUT, precision, D_MIN, w_lin, cell)
     out = skip(c, w0, pos, x, precision, w_lin, cell)
@@ -189,7 +236,7 @@ def test_gd_rule_drops_the_diagonal(kernel, precision):
 
 
 @pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
-@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+@pytest.mark.parametrize("kernel", ["fwd", "gx", "gxgd"])
 def test_twins_match_pallas_on_dead_fragments(kernel, periodic):
     """The fp32 twins on the clustered positions, with pairs below d_min,
     against the reference's Pallas kernels (interpreted), at the JAX
@@ -208,6 +255,28 @@ def test_twins_match_pallas_on_dead_fragments(kernel, periodic):
         out = ck.cheb_conv_fwd(c, w0, _t(pos), x, RCUT, "fp32", D_MIN, w_lin,
                                _cell(periodic))
         np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+        return
+    if kernel == "gxgd":
+        # the Pallas kernel runs the gd series in chains: 16 orders
+        rng = np.random.default_rng(6)
+        c2 = _t((rng.normal(size=(16, F)) / 16).astype(np.float32))
+        jc2, w_lin = jnp.asarray(c2.numpy()), _lin_slope(c2)
+        g = _cotangent(seed=7)
+        refs = [cheb_conv_bwd_pallas(
+            jc, jc2, jw0, jnp.asarray(pos[s]), jnp.asarray(x[s].numpy()),
+            jnp.asarray(g[s].numpy()), RCUT, "fp32", need_gx=True,
+            need_gd=True, cell=jcell, d_min=D_MIN)
+            for s in range(pos.shape[0])]
+        out = ck.cheb_conv_bwd_gxgd(c, c2, w0, _t(pos), x, g, RCUT, "fp32",
+                                    D_MIN, w_lin, _cell(periodic))
+        # max|port - jax| / max|jax| (chip_smoke's metric): gpos sums
+        # every live pair of a cluster and reaches ~7 here, where an
+        # element-wise 1e-4 would bound the summation order's ulps tighter
+        # than the JAX suite does
+        for k in range(2):
+            ref = np.stack([np.asarray(r[k]) for r in refs])
+            err = np.abs(out[k].numpy() - ref).max()
+            assert err <= 1e-4 * np.abs(ref).max()
         return
     ref = np.stack([np.asarray(cheb_conv_bwd_pallas(
         jc, jc2, jw0, jnp.asarray(pos[s]), jnp.asarray(x[s].numpy()),

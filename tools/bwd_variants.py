@@ -1,0 +1,227 @@
+"""Design variants of the two tensor-core backward kernels, timed on the card.
+
+    python3 tools/bwd_variants.py
+
+Each variant is an edited copy of one source of flashmd_tpu_torch/csrc
+(text substitutions) compiled into a library of its own, all in parallel;
+ptxas' registers and spills of its tensor-core kernel are printed, then
+the kernel at its slice's shapes is held against its twin and timed with
+CUDA events (batch 128, 266 beads, F = 128, bf16; the combined cheb
+backward also at bf16x3, on the bf16x3 slice's (64, 96) fit; open
+boundaries):
+
+* cheb_bwd_gxgd (cheb_gxgd_mma_kernel, the per-block slice's fit):
+  base   -- the source as it is: at bf16 three blocks per SM (at most
+            168 registers a thread, 12 warps per SM), at bf16x3 up to 255;
+  lb1    -- every tier up to 255 registers (two blocks, 8 warps per SM);
+  lb3    -- every tier three blocks per SM.
+* dense_cfconv_bwd (dense_bwd_mma_kernel, with gx):
+  base   -- the source as it is (8 warps, 4 rows per work item; more
+            rows or warps do not fit in shared memory);
+  rw2    -- 2 rows per work item (more items, more padded tails);
+  inline -- ga0's x_j and g_i loaded in their own k-step, not one ahead
+            (the gx instantiation then spills 12 B).
+
+Needs a CUDA card and nvcc; prints the card's name and power limit last.
+"""
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke as cs  # noqa: E402
+from flashmd_tpu_torch.data.system import collate  # noqa: E402
+from flashmd_tpu_torch.models.cheb import _lin_slope  # noqa: E402
+from flashmd_tpu_torch.ops import _build  # noqa: E402
+from flashmd_tpu_torch.ops import cfconv_dense as cd  # noqa: E402
+from flashmd_tpu_torch.ops import cheb_kernel as ck  # noqa: E402
+from flashmd_tpu_torch.ops._launch import TIER_CODES, _ptr, _stream  # noqa: E402
+
+GXGD_LB = "TIER == TIER_X3 ? 1 : 3)\ncheb_gxgd_mma_kernel"
+RW = "constexpr int DM_RW = 4;       // rows per work item"
+GA_LOOP = """#pragma unroll 1
+  for (int ks = 0; ks < 8; ++ks) {
+    unsigned af[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int h = i & 1, k = 16 * ks + 8 * (i >> 1) + 2 * tq;
+      const float2 xv =
+          *reinterpret_cast<const float2*>(x + (size_t)jj[h] * F + k);
+      const float2 gv = *reinterpret_cast<const float2*>(gi_s + rr[h] * F + k);
+      af[i] = pack_bf16x2((gv.x * xv.x) * cut[h], (gv.y * xv.y) * cut[h]);
+    }"""
+GA_AHEAD = """  float2 xv[4], gv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int h = i & 1, k = 8 * (i >> 1) + 2 * tq;
+    xv[i] = *reinterpret_cast<const float2*>(x + (size_t)jj[h] * F + k);
+    gv[i] = *reinterpret_cast<const float2*>(gi_s + rr[h] * F + k);
+  }
+#pragma unroll 1
+  for (int ks = 0; ks < 8; ++ks) {
+    unsigned af[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float c = cut[i & 1];
+      af[i] = pack_bf16x2((gv[i].x * xv[i].x) * c, (gv[i].y * xv[i].y) * c);
+    }
+    if (ks + 1 < 8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int h = i & 1, k = 16 * (ks + 1) + 8 * (i >> 1) + 2 * tq;
+        xv[i] = *reinterpret_cast<const float2*>(x + (size_t)jj[h] * F + k);
+        gv[i] = *reinterpret_cast<const float2*>(gi_s + rr[h] * F + k);
+      }
+    }"""
+VARIANTS = {
+    ("cheb_kernels.cu", "gxgd_mma_kernel", "cheb_bwd_gxgd"): {
+        "base": {},
+        "lb1": {GXGD_LB: GXGD_LB.replace("TIER == TIER_X3 ? 1 : 3", "1")},
+        "lb3": {GXGD_LB: GXGD_LB.replace("TIER == TIER_X3 ? 1 : 3", "3")},
+    },
+    ("cfconv_dense_kernels.cu", "dense_bwd_mma_kernel", "dense_cfconv_bwd"): {
+        "base": {},
+        "rw2": {RW: RW.replace("4;", "2;")},
+        "inline": {GA_AHEAD: GA_LOOP},
+    },
+}
+
+
+def build_all(tmp):
+    """{(fn, variant): loaded library}; prints each variant's ptxas lines
+    for its tensor-core kernel."""
+    procs = {}
+    for (source, kernel, fn), variants in VARIANTS.items():
+        src = (_build.CSRC / source).read_text()
+        for name, subs in variants.items():
+            text = src
+            for old, new in subs.items():
+                if text.count(old) != 1:
+                    raise SystemExit(f"FAILED: {fn} {name}: substitution "
+                                     "not found")
+                text = text.replace(old, new)
+            cu = tmp / f"{fn}_{name}.cu"
+            cu.write_text(text)
+            procs[fn, name, kernel] = subprocess.Popen(
+                [_build._nvcc(), *_build._FLAGS, "-I", str(_build.CSRC),
+                 "-Xptxas", "-v", "-shared", "-o",
+                 str(tmp / f"{fn}_{name}.so"), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (fn, name, kernel), proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"FAILED: {fn} {name} does not build\n"
+                             f"{log[-4000:]}")
+        for line in cs.ptxas_summary(log):
+            if kernel in line.split(":")[0]:
+                print(f"variant {fn} {name}: {line[-90:]}")
+        lib = ctypes.CDLL(str(tmp / f"{fn}_{name}.so"))
+        for sym in (fn, "cheb_gxgd_tiles") if fn == "cheb_bwd_gxgd" else (fn,):
+            getattr(lib, sym).argtypes = _build._SIGNATURES[sym]
+            getattr(lib, sym).restype = ctypes.c_int
+        libs[fn, name] = lib
+    return libs
+
+
+def report(label, call, out, ref, ref32=None):
+    call()
+    torch.cuda.synchronize()
+    rel = max(float((o - r).abs().max() / r.abs().max())
+              for o, r in zip(out, ref))
+    extra = ""
+    if ref32 is not None:
+        near = max(float(torch.linalg.norm(o - r) / torch.linalg.norm(o - f))
+                   for o, r, f in zip(out, ref, ref32))
+        extra = f", ||k-p|| / ||k-p_fp32|| {near:.3e}"
+    ms = cs.cuda_time_ms(call, warmup=2, iters=20)
+    print(f"variant {label}: max|k-p|/max|p| {rel:.3e}{extra}, {ms:.4f} ms")
+
+
+def gxgd_cases(libs, dev):
+    for prec in ("bf16", "bf16x3"):
+        ff, cfgs = cs._force_fields(dev, cs.BATCH, precision=prec)
+        pos = collate(cfgs, device=dev).pos
+        c, c2, w0 = ff.schnet_params["cheb_fit"][0]
+        w_lin = _lin_slope(c2)
+        rcut, d_min = float(ff.rcut), float(ff.schnet_config.cheb_d_min)
+        s, a, f = pos.shape[0], pos.shape[1], c.shape[1]
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn(s, a, f, generator=gen, device=dev)
+        g = torch.randn(s, a, f, generator=gen, device=dev)
+        q = ck._to_that_basis(c).contiguous()
+        args = (c, c2, w0, pos, x, g, rcut)
+        ref = ck.cheb_conv_bwd_gxgd_plain(*args, prec, d_min, w_lin)
+        ref32 = (ck.cheb_conv_bwd_gxgd_plain(*args, "fp32", d_min, w_lin)
+                 if prec == "bf16x3" else None)
+        for (fn, name), lib in libs.items():
+            if fn != "cheb_bwd_gxgd":
+                continue
+            n = lib.cheb_gxgd_tiles(a)
+            gx = torch.empty_like(g)
+            gpos = torch.empty_like(pos)
+            row = torch.empty(s, a, 3, device=dev)
+            col = torch.empty(s, n, a, 3, device=dev)
+
+            def call():
+                rc = lib.cheb_bwd_gxgd(
+                    _ptr(pos), _ptr(x), _ptr(g), _ptr(q), _ptr(c2),
+                    _ptr(w0), _ptr(w_lin), None, None, _ptr(gx), _ptr(row),
+                    _ptr(col), _ptr(gpos), s, a, f, q.shape[0],
+                    c2.shape[0], rcut, d_min, TIER_CODES[prec], _stream())
+                if rc:
+                    raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+            report(f"{fn} {name} {prec}", call, (gpos, gx), ref, ref32)
+
+
+def dense_cases(libs, dev):
+    ff, cfgs = cs._force_fields(dev, cs.BATCH, message_passing="dense")
+    pos = collate(cfgs, device=dev).pos
+    layers = ff.schnet_params["interactions"][0]["filter"]["layers"]
+    rbf = ff.schnet_params["rbf"]
+    w = (layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
+         rbf["coeff"])
+    rcut = float(ff.schnet_config.cutoff.cutoff_upper)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    s, a = pos.shape[0], pos.shape[1]
+    r, f = w[0].shape
+    x = torch.randn(s, a, f, generator=gen, device=dev)
+    g = torch.randn(s, a, f, generator=gen, device=dev)
+    ref = cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, "bf16")
+    for (fn, name), lib in libs.items():
+        if fn != "dense_cfconv_bwd":
+            continue
+        gd = torch.empty(s, a, a, device=dev)
+        gpos = torch.empty_like(pos)
+        gx = torch.empty_like(g)
+
+        def call():
+            rc = lib.dense_cfconv_bwd(
+                _ptr(pos), _ptr(x), _ptr(g), *(_ptr(t) for t in w),
+                _ptr(gd), _ptr(gpos), _ptr(gx), s, a, f, r, rcut, 1,
+                _stream())
+            if rc:
+                raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+        report(f"{fn} {name} bf16", call, (gpos, gx), ref)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("FAILED: no CUDA device")
+    dev = torch.device("cuda", 0)
+    libs = build_all(Path(tempfile.mkdtemp()))
+    gxgd_cases(libs, dev)
+    dense_cases(libs, dev)
+    print(cs.nvidia_smi_line())
+
+
+if __name__ == "__main__":
+    main()
