@@ -11,10 +11,12 @@ Phases (each prints its lines; any failure exits non-zero):
                (registers, spills per kernel). The tensor-core gd
                kernel's four instantiations (bf16, bf16x3; open, cell),
                the fwd/gx kernel's eight (also fwd, gx), the combined
-               gx+gd kernel's four (bf16, bf16x3; open, cell) and the
-               dense backward's two (bf16; with and without gx) must not
-               spill and must hold tensor-core MMA instructions in their
-               SASS (cuobjdump); their counts are printed.
+               gx+gd kernel's four (bf16, bf16x3; open, cell), the
+               dense backward's two (bf16; with and without gx), the
+               dense forward's and the neighbour-matrix backward's two
+               passes (bf16) must not spill and must hold tensor-core MMA
+               instructions in their SASS (cuobjdump); their counts are
+               printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
@@ -23,14 +25,17 @@ Phases (each prints its lines; any failure exits non-zero):
                compared and timed at the slice's S = 128, beside the
                live pairs and the live pair fragments that the
                tensor-core kernels run (16 x 8 gd, 16 x 16 fwd/gx and
-               gx+gd), and the dense backward's executed pairs (16-pair
-               tiles of each work item's live pairs); the
+               gx+gd), and the executed pairs or slots of the bf16 dense
+               kernels and neighbour-matrix backward (16-pair tiles of
+               each work item's live pairs or slots); the
                dense and the neighbour-matrix
                backward in both of their variants (with gx, and without
                it as block 1 runs it). The neighbour-matrix kernels run
                on the pallas slice's own list (K from the zoo rule, rc +
-               skin, start positions), and once more in fp32 on an
-               overflowed list (capacity 32: an asymmetric list); the
+               skin, start positions), and once more in fp32 and bf16 on
+               an overflowed list (capacity 32: an asymmetric list); the
+               peak device memory of one cfconv_bwd above its inputs is
+               gated at bf16 (no [S, A, K, F] workspace); the
                neighbour build + source CSR is timed at S = 128. The
                four cheb kernels' periodic-cell variants run on the
                start positions folded into per-molecule cells (half
@@ -83,7 +88,8 @@ Phases (each prints its lines; any failure exits non-zero):
 6. dense    -- the same Langevin run on the dense exact-filter force
                field (message_passing="dense", bf16) for the same
                steps; launch counts must be 3 fwd + 3 bwd per force
-               evaluation; second-half throughput.
+               evaluation; second-half throughput; then torch.profiler
+               over PROFILE_STEPS more steps.
 7. pallas   -- the same Langevin run on the neighbour-matrix force field
                (message_passing="pallas", bf16, Verlet skin 1.0, list
                rebuilt every step); launch counts must be 3 fwd + 3 bwd
@@ -160,6 +166,10 @@ BF16X3_SHORT_STEPS = 10
 # product order, and the splits' ~5e-6 of max|F| against fp32.
 BF16X3_BOUND = 1e-4
 OVERFLOW_CAPACITY = 32
+# Peak device memory of one bf16 cfconv_bwd above its inputs: gd [S, A, K],
+# gpos and gx take 29 MB at the pallas slice's shape, the [S, A, K, F]
+# workspace that the bf16 backward must not allocate 1.5 GB.
+NBR_BWD_MEMORY_LIMIT = 100 * 10**6
 # benchmarks/pbc_ab.py's cell, and a sound triclinic one (smallest
 # perpendicular width 59.04 A; rows are lattice vectors).
 BOX = 60.0
@@ -243,12 +253,23 @@ def ptxas_summary(log):
 
 # The tensor-core kernels' template arguments in their mangled names:
 # cheb_gd_mma_kernel<TIER, HAS_CELL>, cheb_rows_mma_kernel<TIER, GX,
-# HAS_CELL>, cheb_gxgd_mma_kernel<TIER, HAS_CELL>, dense_bwd_mma_kernel<GX>.
+# HAS_CELL>, cheb_gxgd_mma_kernel<TIER, HAS_CELL>, dense_bwd_mma_kernel<GX>;
+# dense_fwd_mma_kernel, nbr_bwd_mma_kernel and nbr_gx_mma_kernel (bf16, no
+# template arguments).
 MMA_KERNELS = {
     "gd": re.compile(r"cheb_gd_mma_kernelILi(\d)ELb([01])E"),
     "rows": re.compile(r"cheb_rows_mma_kernelILi(\d)ELb([01])ELb([01])E"),
     "gxgd": re.compile(r"cheb_gxgd_mma_kernelILi(\d)ELb([01])E"),
     "dense": re.compile(r"dense_bwd_mma_kernelILb([01])E"),
+    "dense fwd": re.compile(r"dense_fwd_mma_kernel"),
+    "cfconv": re.compile(r"nbr_bwd_mma_kernel"),
+    "cfconv gx": re.compile(r"nbr_gx_mma_kernel"),
+}
+# The labels of the kernels without template arguments.
+MMA_SINGLE = {
+    "dense fwd": "dense_fwd_mma_kernel (dense_cfconv_fwd)",
+    "cfconv": "nbr_bwd_mma_kernel (cfconv_bwd, first pass)",
+    "cfconv gx": "nbr_gx_mma_kernel (cfconv_bwd, gx pass)",
 }
 MMA_TIERS = {"1": "bf16", "3": "bf16x3"}
 
@@ -264,6 +285,8 @@ def _mma_match(name):
 
 
 def _mma_label(kind, args):
+    if kind in MMA_SINGLE:
+        return f"{kind} kernel {MMA_SINGLE[kind]} bf16"
     if kind in ("gd", "gxgd"):
         t, c = args
         return (f"{kind} kernel cheb_{kind}_mma_kernel {MMA_TIERS[t]} "
@@ -279,7 +302,8 @@ def _mma_label(kind, args):
 def mma_kernel_report(log, lib_path, nvcc):
     """The tensor-core kernels' instantiations: cheb_gd_mma_kernel and
     cheb_gxgd_mma_kernel (bf16, bf16x3; open, cell), cheb_rows_mma_kernel
-    (also fwd, gx) and dense_bwd_mma_kernel (with and without gx): ptxas
+    (also fwd, gx), dense_bwd_mma_kernel (with and without gx) and the
+    three bf16 kernels of MMA_SINGLE: ptxas
     registers, static shared memory and spills, and the tensor-core
     instructions (HMMA/HGMMA) in their SASS. Fails if one is missing,
     spills or holds no tensor-core instruction."""
@@ -317,6 +341,7 @@ def mma_kernel_report(log, lib_path, nvcc):
                  for c in "01"]
     expected += [("gxgd", (t, c)) for t in MMA_TIERS for c in "01"]
     expected += [("dense", (gx,)) for gx in "01"]
+    expected += [(kind, ()) for kind in MMA_SINGLE]
     for key in expected:
         label = _mma_label(*key)
         check(key in seen, f"{label}: not built")
@@ -589,28 +614,35 @@ def live_chunks(live, rows=4, cols=16):
     return int(chunks.sum()), chunks.numel()
 
 
-# Rows of one work item of the tensor-core dense backward (DM_RW in
-# csrc/cfconv_dense_kernels.cu).
-DENSE_ITEM_ROWS = 4
+# Rows of one work item of the tensor-core kernels (DM_RW in
+# csrc/cfconv_tile.cuh).
+ITEM_ROWS = 4
+
+
+def executed_pairs(per_row):
+    """Pairs the tensor-core kernels run for ``per_row`` [S, A] live pairs
+    (or slots) of each row: each work item's live ones in 16-pair
+    tiles."""
+    s, a = per_row.shape
+    rows = -(-a // ITEM_ROWS) * ITEM_ROWS
+    padded = torch.zeros(s, rows, dtype=torch.long, device=per_row.device)
+    padded[:, :a] = per_row
+    per_item = padded.view(s, -1, ITEM_ROWS).sum(dim=2)
+    return int((16 * ((per_item + 15) // 16)).sum())
 
 
 def live_counts(pos, rcut):
-    """(ordered pairs i != j with d_ij < rcut, pair chunks of the dense
+    """(ordered pairs i != j with d_ij < rcut, pair chunks of the fp32
     kernels' 4 x 16 tiling that hold one, all chunks, pairs the bf16
-    backward executes: each work item's live pairs in 16-pair tiles),
-    whole batch."""
+    kernels execute: each work item's live pairs in 16-pair tiles), whole
+    batch."""
     a = pos.shape[1]
     rel = pos[:, None, :, :] - pos[:, :, None, :]
     d = torch.sqrt(torch.sum(rel * rel, dim=-1))
     eye = torch.eye(a, dtype=torch.bool, device=pos.device)
     live = (d < rcut) & ~eye
-    rows = -(-a // DENSE_ITEM_ROWS) * DENSE_ITEM_ROWS
-    per_row = torch.zeros(pos.shape[0], rows, dtype=torch.long,
-                          device=pos.device)
-    per_row[:, :a] = live.sum(dim=2)
-    per_item = per_row.view(pos.shape[0], -1, DENSE_ITEM_ROWS).sum(dim=2)
-    executed = int((16 * ((per_item + 15) // 16)).sum())
-    return (int(live.sum()), *live_chunks(live), executed)
+    return (int(live.sum()), *live_chunks(live),
+            executed_pairs(live.sum(dim=2)))
 
 
 def phase_dense_kernels(ff, pos, dev):
@@ -636,15 +668,15 @@ def phase_dense_kernels(ff, pos, dev):
     fwd_pair, bwd_pair = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
     nogx_pair = bwd_pair - 3 * f
     wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
-    smem = [load().dense_cfconv_smem_bytes(b) for b in (0, 1, 2)]
+    smem = [load().dense_cfconv_smem_bytes(b) for b in (0, 1, 2, 3)]
     print(f"kernels: dense shapes S={s} A={a} F={f} R={r} rcut={rcut}; "
-          f"dynamic shared memory per block fwd {smem[0]} B bwd fp32 "
-          f"{smem[1]} B bwd bf16 (tensor cores) {smem[2]} B; live pairs "
-          f"(d < rc) {n_live} of {n_all} ({n_live / n_all:.4f}); executed "
-          f"pairs (bf16 bwd: 16-pair tiles per {DENSE_ITEM_ROWS}-row work "
-          f"item) {n_exec} ({n_exec / n_live:.4f} x live, "
-          f"{n_exec / n_all:.4f} of all); live 4x16 chunks (fwd, fp32 "
-          f"bwd) {n_chunks} of "
+          f"dynamic shared memory per block fwd fp32 {smem[0]} B bf16 "
+          f"(tensor cores) {smem[3]} B, bwd fp32 {smem[1]} B bf16 (tensor "
+          f"cores) {smem[2]} B; live pairs (d < rc) {n_live} of {n_all} "
+          f"({n_live / n_all:.4f}); executed pairs (bf16 fwd and bwd: "
+          f"16-pair tiles per {ITEM_ROWS}-row work item) {n_exec} "
+          f"({n_exec / n_live:.4f} x live, {n_exec / n_all:.4f} of all); "
+          f"live 4x16 chunks (fp32 fwd and bwd) {n_chunks} of "
           f"{all_chunks} ({n_chunks / all_chunks:.4f}); FLOP per pair fwd "
           f"{fwd_pair} bwd {bwd_pair} (no gx {nogx_pair}); all-pairs FLOP "
           f"fwd {n_all * fwd_pair:.4e} bwd {n_all * bwd_pair:.4e}; FLOP run "
@@ -682,12 +714,21 @@ def phase_dense_kernels(ff, pos, dev):
 
 def nbr_slot_counts(pos, nbr, rcut):
     """(live slots, slots of the 4x16 chunks with a live slot, which the
-    forward and the backward's first pass execute), whole batch."""
-    s = pos.shape[0]
+    forward and the fp32 backward's first pass execute, slots the bf16
+    backward's first pass executes: each work item's live slots in 16-slot
+    tiles, and its gx pass: each item's live incoming slots in 16-slot
+    tiles), whole batch."""
+    s, a = pos.shape[:2]
     b = torch.arange(s, device=pos.device)[:, None, None]
     rel = pos[b, nbr.idx.long()] - pos[:, :, None, :]
     live = nbr.mask & (torch.sqrt(torch.sum(rel * rel, dim=-1)) < rcut)
-    return int(live.sum()), 64 * live_chunks(live)[0]
+    incoming = torch.zeros(s * a, dtype=torch.long, device=pos.device)
+    incoming.index_add_(0, (b * a + nbr.idx.long())[live],
+                        torch.ones(int(live.sum()), dtype=torch.long,
+                                   device=pos.device))
+    return (int(live.sum()), 64 * live_chunks(live)[0],
+            executed_pairs(live.sum(dim=2)),
+            executed_pairs(incoming.view(s, a)))
 
 
 def phase_nbr_kernels(ff, pos, dev):
@@ -711,7 +752,7 @@ def phase_nbr_kernels(ff, pos, dev):
     build_ms = cuda_time_ms(lambda: build_neighbors(ff, pos, skin=1.0))
     nbr = build_neighbors(ff, pos, skin=1.0)
     k = nbr.capacity
-    n_live, n_rows = nbr_slot_counts(pos, nbr, rcut)
+    n_live, n_rows, n_exec, n_exec_gx = nbr_slot_counts(pos, nbr, rcut)
     n_list = int(nbr.mask.sum())
     mlp = r * f + f * f
     fwd_slot, bwd_slot = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
@@ -719,18 +760,23 @@ def phase_nbr_kernels(ff, pos, dev):
     wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
     lbytes = 5 * s * a * k  # idx (int32) and mask (one byte)
     csr_bytes = 4 * (s * a + 1 + n_list)
-    smem = [load().cfconv_smem_bytes(b) for b in (0, 1)]
+    smem = [load().cfconv_smem_bytes(b) for b in (0, 1, 2, 3)]
     print(f"kernels: cfconv shapes S={s} A={a} K={k} F={f} R={r} rcut="
           f"{rcut} skin 1.0; n_max {int(nbr.n_max.max())}; dynamic shared "
-          f"memory per block conv {smem[0]} B bwd {smem[1]} B; list slots "
-          f"{n_list}, live slots (d < rc) {n_live} of {s * a * k} "
-          f"({n_live / (s * a * k):.4f}); executed slots (4x16 chunks with a "
-          f"live slot) {n_rows}; FLOP per slot fwd {fwd_slot} bwd {bwd_slot} "
-          f"(no gx {nogx_slot}); live-slot FLOP fwd {n_live * fwd_slot:.4e} "
-          f"bwd {n_live * bwd_slot:.4e}; executed FLOP fwd "
-          f"{n_rows * fwd_slot:.4e} bwd (pass 1 + gx pass) "
-          f"{n_rows * nogx_slot + n_live * 3 * f:.4e}; neighbour build + "
-          f"source CSR {build_ms:.4f} ms")
+          f"memory per block conv {smem[0]} B, bwd fp32 {smem[1]} B, bwd "
+          f"bf16 (tensor cores) first pass {smem[2]} B gx pass {smem[3]} B; "
+          f"list slots {n_list}, live slots (d < rc) {n_live} of "
+          f"{s * a * k} ({n_live / (s * a * k):.4f}); executed slots: fwd "
+          f"and fp32 bwd (4x16 chunks with a live slot) {n_rows}, bf16 bwd "
+          f"(16-slot tiles per {ITEM_ROWS}-row work item) first pass "
+          f"{n_exec} ({n_exec / n_live:.4f} x live), gx pass {n_exec_gx} "
+          f"({n_exec_gx / n_live:.4f} x live); FLOP per slot fwd {fwd_slot} "
+          f"bwd {bwd_slot} (no gx {nogx_slot}); live-slot FLOP fwd "
+          f"{n_live * fwd_slot:.4e} bwd {n_live * bwd_slot:.4e}; executed "
+          f"FLOP fwd {n_rows * fwd_slot:.4e}, bwd fp32 (pass 1 + gx pass) "
+          f"{n_rows * nogx_slot + n_live * 3 * f:.4e}, bwd bf16 (pass 1 + gx "
+          f"pass) {n_exec * nogx_slot + n_exec_gx * fwd_slot:.4e}; "
+          f"neighbour build + source CSR {build_ms:.4f} ms")
     csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
     stats = {
         "cfconv_fwd": compare_and_time(
@@ -762,6 +808,7 @@ def phase_nbr_kernels(ff, pos, dev):
     )
     bwd = stats["cfconv_bwd"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], no_gx["max_abs_err"])
+    nbr_bwd_memory(pos, csr, x, g, w, rcut)
 
     # An overflowed list: each row keeps its nearest 32, so the list is
     # asymmetric and the column side is not the row side's mirror.
@@ -770,26 +817,56 @@ def phase_nbr_kernels(ff, pos, dev):
     n_max = int(over.n_max.max())
     check(n_max > OVERFLOW_CAPACITY, f"capacity {OVERFLOW_CAPACITY} does "
           f"not overflow (n_max {n_max})")
-    out_k = cf.cfconv_fwd(pos, over.idx, over.mask, x, *w, rcut, "fp32")
-    out_p = cf.cfconv_fwd_plain(pos, over.idx, over.mask, x, *w, rcut,
-                                "fp32")
-    gpos_k, gx_k = cf.cfconv_bwd(pos, over.idx, over.mask, over.csr_offsets,
-                                 over.csr_slots, x, g, *w, rcut, "fp32")
-    gpos_p, gx_p = cf.cfconv_bwd_plain(pos, over.idx, over.mask, x, g, *w,
-                                       rcut, "fp32")
-    torch.cuda.synchronize()
-    pairs = (("fwd", out_k, out_p), ("gpos", gpos_k, gpos_p),
-             ("gx", gx_k, gx_p))
-    rel = {name: float((k_ - p_).abs().max() / p_.abs().max())
-           for name, k_, p_ in pairs}
-    print(f"kernels: cfconv overflowed list (capacity {OVERFLOW_CAPACITY}, "
-          f"n_max {n_max}) fp32 max|k-p|/max|p|: fwd {rel['fwd']:.3e} "
-          f"(bound 1e-05), bwd gpos {rel['gpos']:.3e} gx {rel['gx']:.3e} "
-          f"(bound 1e-04)")
-    check(rel["fwd"] <= BOUNDS[("cfconv_fwd", "fp32")]
-          and max(rel["gpos"], rel["gx"]) <= BOUNDS[("cfconv_bwd", "fp32")],
-          "cfconv on the overflowed list: kernel and twin disagree")
+    for prec in ("fp32", "bf16"):
+        out_k = cf.cfconv_fwd(pos, over.idx, over.mask, x, *w, rcut, prec)
+        out_p = cf.cfconv_fwd_plain(pos, over.idx, over.mask, x, *w, rcut,
+                                    prec)
+        gpos_k, gx_k = cf.cfconv_bwd(pos, over.idx, over.mask,
+                                     over.csr_offsets, over.csr_slots, x, g,
+                                     *w, rcut, prec)
+        gpos_p, gx_p = cf.cfconv_bwd_plain(pos, over.idx, over.mask, x, g,
+                                           *w, rcut, prec)
+        torch.cuda.synchronize()
+        pairs = (("fwd", out_k, out_p), ("gpos", gpos_k, gpos_p),
+                 ("gx", gx_k, gx_p))
+        rel = {name: float((k_ - p_).abs().max() / p_.abs().max())
+               for name, k_, p_ in pairs}
+        lim_f = BOUNDS[("cfconv_fwd", prec)]
+        lim_b = BOUNDS[("cfconv_bwd", prec)]
+        print(f"kernels: cfconv overflowed list (capacity "
+              f"{OVERFLOW_CAPACITY}, n_max {n_max}) {prec} max|k-p|/max|p|: "
+              f"fwd {rel['fwd']:.3e} (bound {lim_f:.0e}), bwd gpos "
+              f"{rel['gpos']:.3e} gx {rel['gx']:.3e} (bound {lim_b:.0e})")
+        check(rel["fwd"] <= lim_f and max(rel["gpos"], rel["gx"]) <= lim_b,
+              f"cfconv {prec} on the overflowed list: kernel and twin "
+              "disagree")
     return stats, no_gx["ms"]
+
+
+def nbr_bwd_memory(pos, csr, x, g, w, rcut):
+    """Peak device memory of one cfconv_bwd with gx above what was
+    allocated before it (its inputs), at bf16 (gated below
+    NBR_BWD_MEMORY_LIMIT: no [S, A, K, F] workspace) and at fp32 (which
+    keeps one, printed)."""
+    from flashmd_tpu_torch.ops import cfconv as cf
+
+    extra = {}
+    for prec in ("bf16", "fp32"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, prec)
+        torch.cuda.synchronize()
+        extra[prec] = torch.cuda.max_memory_allocated() - before
+        del out
+    s, a, k = csr[0].shape
+    print(f"kernels: cfconv_bwd memory at S={s} A={a} K={k}: peak above its "
+          f"inputs bf16 {extra['bf16']} B ({extra['bf16'] / 1e6:.1f} MB; "
+          f"bound {NBR_BWD_MEMORY_LIMIT / 1e6:.0f} MB), fp32 "
+          f"{extra['fp32']} B ({extra['fp32'] / 1e6:.1f} MB, with its W "
+          "workspace)")
+    check(extra["bf16"] < NBR_BWD_MEMORY_LIMIT,
+          "the bf16 cfconv_bwd allocates a workspace of the size of W")
 
 
 def _force_fields(device, batch, **kw):
@@ -1281,7 +1358,7 @@ def main():
           f"({PERBLOCK_PERIODIC_STEPS} steps) beside the stacked periodic "
           f"slice's {pbc_tp:.1f}")
     counts.update(run_bf16x3_slices(ff_x3, cfgs, pbc_cfgs, dev, open_tp, smi))
-    dense_counts, ms_step, _ = run_slice(
+    dense_counts, ms_step, sim = run_slice(
         "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
         {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},
         smi,
@@ -1292,6 +1369,7 @@ def main():
     print(f"dense: per step 3 fwd + 2 bwd + 1 bwd (no gx) at the start "
           f"positions' kernel times = {kernel_ms:.3f} ms of {ms_step:.3f} "
           f"ms/step ({kernel_ms / ms_step:.3f}); an estimate, not a trace")
+    profile_steps(sim, dev, PROFILE_STEPS, "dense")
     pallas_counts, ms_step, sim = run_slice(
         "pallas", ff_pallas, cfgs, dev, STEPS, SAVE_INTERVAL, cf,
         {"cfconv_fwd": 3 * n_evals, "cfconv_bwd": 3 * n_evals}, smi,

@@ -1,7 +1,6 @@
 // Neighbour-matrix exact-filter CFConv kernels for Hopper (sm_90a), plain C
 // interface for ctypes. Built by flashmd_tpu_torch/ops/_build.py; the tile
-// layout and the device code shared with the dense kernels are in
-// cfconv_tile.cuh.
+// code shared with the dense kernels is in cfconv_tile.cuh.
 //
 // Two entry points replace the TPU kernels of
 // flashmd_tpu/ops/pallas/cfconv.py, batched over S molecules, on the padded
@@ -10,14 +9,16 @@
 //   cfconv_fwd  <- _fwd_kernel (:137)
 //     out[i] = sum_{k: mask} W_ik * cut_ik * x[idx[i, k]]     (conv_kernel)
 //   cfconv_bwd  <- _bwd_kernel (:163), two or three launches:
-//     bwd_kernel:  gd[i, k] = d(g_i . out_i)/d d_ik for every slot (one MLP
-//                  backward on the cotangent g_i x_j cut, row-owned); when
-//                  gx is asked for, it also stores W_ik of every slot of a
-//                  live chunk into a [S, A, K, F] workspace
+//     bwd_kernel (fp32), nbr_bwd_mma_kernel (bf16):
+//                  gd[i, k] = d(g_i . out_i)/d d_ik for every slot (one MLP
+//                  backward on the cotangent g_i x_j cut, row-owned); at
+//                  fp32, when gx is asked for, bwd_kernel also stores W_ik
+//                  of every slot of a live chunk into a [S, A, K, F]
+//                  workspace
 //     gpos_kernel: gpos[a] = -sum_k gd[a, k] u_ak
 //                            + sum_{(i, k): idx[i, k] = a} gd[i, k] u_ik
-//     gx_kernel, only when gx is asked for:
-//                  gx[a] = sum_{(i, k): idx[i, k] = a} W_ik * cut_ik * g[i]
+//     gx_kernel (fp32), nbr_gx_mma_kernel (bf16), only when gx is asked
+//     for:         gx[a] = sum_{(i, k): idx[i, k] = a} W_ik * cut_ik * g[i]
 //
 // with u_ik = (p_j - p_i) / d_ik, j = idx[i, k], d = sqrt(max(|p_j -
 // p_i|^2, 1e-12)), cut = 0.5 (cos(pi d / rc) + 1) [d < rc], rbf = exp(coeff
@@ -27,21 +28,28 @@
 // What bounds them on the H100: every live slot runs the two-layer filter
 // MLP, R*F + F*F = 22,784 multiply-adds at R = 50, F = 128 (twice that in
 // the backward's first pass), against a few hundred bytes of input per slot:
-// conv_kernel and bwd_kernel are bound by arithmetic. These first versions
-// do it as float32 FMA from shared memory on CUDA cores (operands rounded to
-// bf16 in the bf16 tier; no tensor cores yet), with the tile of the dense
-// kernels. gx_kernel does no MLP: it reads W back (512 B per live slot) and
-// is bound by memory. What the design does about the bounds:
+// they are bound by arithmetic. At bf16 the backward runs on the tensor
+// cores over the live slots only (mask set and d < rc): its first pass is
+// the dense backward's ring over each row's K slots, its gx pass the
+// forward's two products over each atom's incoming live slots of the
+// source CSR, with W computed again instead of stored (both kernels'
+// notes below). conv_kernel (both tiers) and the fp32 backward do the
+// arithmetic as float32 FMA from shared memory on CUDA cores (operands
+// rounded to bf16 in conv_kernel's bf16 tier), with the tile of the dense
+// kernels; the fp32 gx_kernel does no MLP: it reads W back (512 B per live
+// slot) and is bound by memory. What the CUDA-core design does about the
+// bounds:
 //   - the [slots, F] MLP activations never reach device memory: a block owns
 //     4 rows and walks 16 of each row's entries per chunk, so one chunk is a
 //     64-slot tile held in registers and one shared [F, 64] tile; the 64
 //     partner feature rows are gathered into shared memory per chunk;
 //   - a chunk none of whose 64 slots is live (masked, or d >= rc) adds
-//     exactly zero (cut and dcut vanish there) and is skipped whole. The
-//     neighbour matrix lists each row nearest first, so the live slots of a
-//     row are a prefix and the dead tail costs only its geometry;
+//     exactly zero (cut and dcut vanish there) and is skipped whole;
 //   - gx_kernel skips each dead incoming slot after its geometry and reads
 //     W and g rows of the live ones as whole 512 B lines.
+// The list is sorted nearest first when it is built, but between Verlet
+// rebuilds atoms move, and it keeps slots out to rc + skin: a row's live
+// slots need not come first, so every kernel looks at all K slots.
 //
 // Determinism, and the column side: the TPU kernel adds the column side
 // (gx[j], gpos[j]) across grid steps (gx_ref[0] +=, gpos_ref[0] +=), which
@@ -51,11 +59,12 @@
 // (csr_offsets [S*A + 1], csr_slots: flat slot ids (s A + i) K + k grouped
 // by source s A + idx, in slot order, built once per neighbour rebuild by a
 // stable sort, see ops/neighborlist.py). That is the exact transpose of the
-// list, also when capacity overflow makes the list asymmetric. gx reads W of each incoming
-// live slot from the workspace that the first pass wrote (1.5 GB at S =
-// 128, A = 266, K = 88), instead of running the MLP forward a third time;
-// both give the same bits. Each sum runs in a fixed order; results are
-// bitwise reproducible.
+// list, also when capacity overflow makes the list asymmetric. At fp32 gx
+// reads W of each incoming live slot from the workspace that the first
+// pass wrote (1.5 GB at S = 128, A = 266, K = 88); at bf16 the gx pass
+// computes it again on the tensor cores, and the backward allocates no
+// workspace beyond gd. Each sum runs in a fixed order; results are bitwise
+// reproducible.
 //
 // Precision tiers: bf16 != 0 rounds the operands of the four products to
 // bf16 where the reference and the plain PyTorch twins in ops/cfconv.py do:
@@ -188,11 +197,11 @@ conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   }
 }
 
-// Backward, first pass: recompute the forward chunk, then gd of every slot
-// of this block's rows into gd [S, A, K] (zero where the slot is masked or
-// dead) and, with GX, W of every slot of a live chunk into wbuf [S, A, K,
-// F]. Same grid and thread layout as conv_kernel.
-template <bool BF16, bool GX>
+// Backward, first pass at fp32: recompute the forward chunk, then gd of
+// every slot of this block's rows into gd [S, A, K] (zero where the slot is
+// masked or dead) and, with GX, W of every slot of a live chunk into wbuf
+// [S, A, K, F]. Same grid and thread layout as conv_kernel.
+template <bool GX>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
            const unsigned char* __restrict__ mask,
@@ -221,7 +230,7 @@ bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
   const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg, row = pg >> 2;
   const float coeff = *coeff_p;
 
-  load_weights<BF16>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  load_weights<false>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
   if (tid < ROWS * 3) {
     int r = tid / 3, c = tid % 3;
     pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
@@ -271,24 +280,18 @@ bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
     for (int e = tid; e < R * NP; e += THREADS) {
       int r = e / NP, p = e % NP;
       float dr = d_s[p] - off_s[r];
-      rbf_s[r * LDA + p] = op<BF16>(expf(coeff * (dr * dr)) * cut_s[p]);
+      rbf_s[r * LDA + p] = expf(coeff * (dr * dr)) * cut_s[p];
     }
     __syncthreads();
     // Forward recompute; a0 stays in registers unrounded for gt0.
     float a0[4][FPT] = {};
     gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, a0);
-    {
-      float ar[4][FPT];
 #pragma unroll
-      for (int c = 0; c < FPT; ++c) {
-        int f = fg + 16 * c;
+    for (int c = 0; c < FPT; ++c) {
+      int f = fg + 16 * c;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a0[i][c] = tanhf(a0[i][c] + b0_s[f]);
-          ar[i][c] = op<BF16>(a0[i][c]);
-        }
-        store4(a_s + f * LDA + p0, ar, c);
-      }
+      for (int i = 0; i < 4; ++i) a0[i][c] = tanhf(a0[i][c] + b0_s[f]);
+      store4(a_s + f * LDA + p0, a0, c);
     }
     __syncthreads();  // rbf reads done, a0 tile complete
     float w[4][FPT] = {};
@@ -318,7 +321,7 @@ bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
       for (int c = 0; c < FPT; ++c) {
         float xjv = xj[16 * c], giv = gi[16 * c];
         sc[i] += (giv * w[i][c]) * xjv;
-        w[i][c] = op<BF16>((giv * xjv) * cutp);
+        w[i][c] = (giv * xjv) * cutp;
       }
     }
 #pragma unroll
@@ -334,7 +337,7 @@ bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
     for (int c = 0; c < FPT; ++c) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        ga[i][c] = op<BF16>(ga[i][c] * (1.0f - a0[i][c] * a0[i][c]));
+        ga[i][c] = ga[i][c] * (1.0f - a0[i][c] * a0[i][c]);
       store4(a_s + (fg + 16 * c) * LDA + p0, ga, c);
     }
     __syncthreads();
@@ -448,17 +451,181 @@ gx_kernel(const float* __restrict__ pos, const float* __restrict__ g,
   gx[(size_t)row * F + f] = acc;
 }
 
+// Backward, first pass at bf16, on the tensor cores: gd of every slot of a
+// work item's rows (zero where masked or dead). The dense backward's ring
+// (cfconv_tile.cuh) over the rows' K slots instead of their A partners: a
+// warp votes each row's slots 32 at a time, all K of them (between Verlet
+// rebuilds a live slot may follow a dead one), a slot live where its mask
+// is set and d < rc (a masked slot holds the row's own index, at d = 1e-6,
+// so the mask decides), writing gd = 0 for the others; the live slots'
+// entries (row - r0) << 16 | k run in 16-slot tiles through bwd_mma_tile's
+// four products (NBR: the partner is idx[row][k]), gd landing at the flat
+// slot (s A + i) K + k. The gx half is the CSR pass below.
+// per warp, in floats: g rows [DM_RW][F], the ring, the float32 a0
+// [16 n-tiles][32 lanes][4]
+constexpr int NB_WARP_FLOATS = DM_RW * F + DM_RING + 16 * F;
+constexpr int NB_SMEM = WB_BYTES + 4 * DM_WARPS * NB_WARP_FLOATS;  // bytes
+
+__global__ void __launch_bounds__(DM_WARPS * 32, 1)
+nbr_bwd_mma_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
+                   const unsigned char* __restrict__ mask,
+                   const float* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ w0, const float* __restrict__ b0,
+                   const float* __restrict__ w1,
+                   const float* __restrict__ offset,
+                   const float* __restrict__ coeff_p, float* __restrict__ gd,
+                   int S, int A, int K, int R, float rcut, float arg_scale,
+                   float dcut_scale) {
+  extern __shared__ float4 mma_smem4[];
+  const __nv_bfloat16 *w0_b, *w1_b;
+  const float *b0_s, *off_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* gi_s = stage_mma_smem(mma_smem4, w0, b0, w1, offset, R, w0_b, w1_b,
+                               b0_s, off_s) +
+                warp * NB_WARP_FLOATS;                  // [DM_RW][F]
+  int* ring = reinterpret_cast<int*>(gi_s + DM_RW * F);  // [DM_RING]
+  float4* a0_s = reinterpret_cast<float4*>(ring + DM_RING);
+  const float coeff = *coeff_p;
+
+  const int n_groups = (A + DM_RW - 1) / DM_RW;
+  const int n_items = S * n_groups;
+  for (int item = blockIdx.x * DM_WARPS + warp; item < n_items;
+       item += gridDim.x * DM_WARPS) {
+    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
+    const float* ps = pos + (size_t)s * A * 3;
+    const float* xs = x + (size_t)s * A * F;
+    const float* gs = g + (size_t)s * A * F;
+    const int* is = idx + (size_t)s * A * K;
+    const unsigned char* ms = mask + (size_t)s * A * K;
+    float* gds = gd + (size_t)s * A * K;
+    for (int e = lane; e < DM_RW * F; e += 32) {
+      int i = r0 + e / F;
+      gi_s[e] = i < A ? gs[(size_t)i * F + e % F] : 0.0f;
+    }
+    __syncwarp();
+
+    int head = 0, tail = 0;
+    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
+      const int i = r0 + rr;
+      const float* pi = ps + i * 3;
+      for (int kb = 0; kb < K; kb += 32) {
+        int k = kb + lane;
+        bool live = false;
+        if (k < K) {
+          int slot = i * K + k;
+          if (ms[slot]) {
+            float d, cut, dcut, rel[3];
+            live = pair_geom(pi, ps + is[slot] * 3, true, rcut, arg_scale,
+                             dcut_scale, d, cut, dcut, rel);
+          }
+          if (!live) gds[slot] = 0.0f;
+        }
+        tail = ring_push(ring, tail, live, (rr << 16) | k, lane);
+        for (; tail - head >= 16; head += 16)
+          bwd_mma_tile<false, true>(ring, head, 16, r0, ps, is, K, xs, gs,
+                                    gi_s, nullptr, nullptr, a0_s, gds, w0_b,
+                                    w1_b, b0_s, off_s, R, coeff, rcut,
+                                    arg_scale, dcut_scale, lane);
+      }
+    }
+    if (tail > head)
+      bwd_mma_tile<false, true>(ring, head, tail - head, r0, ps, is, K, xs,
+                                gs, gi_s, nullptr, nullptr, a0_s, gds, w0_b,
+                                w1_b, b0_s, off_s, R, coeff, rcut, arg_scale,
+                                dcut_scale, lane);
+    __syncwarp();  // gi_s is read before the next item writes
+  }
+}
+
+// Backward, gx pass at bf16, on the tensor cores: gx[a] = sum over a's
+// incoming slots (i, k), in CSR order, of W_ik cut_ik g[i], with W computed
+// again on the tensor cores instead of stored (the fp32 path's [S, A, K, F]
+// workspace is 1.5 GB at S = 128, A = 266, K = 88). A warp owns work items
+// of DM_RW atoms; it walks each atom's CSR entries 32 at a time, votes the
+// live ones (d < rc; the CSR holds only mask slots) into the ring as
+// (atom - r0) << 16 | i, and runs them in 16-slot tiles through
+// fwd_mma_tile with g in place of x: the forward's two products, and gx_a
+// += (W cut) g_i as a running sum in CSR order. d is that of p_i - p_a,
+// bitwise the first pass's (p_a - p_i negated), so cut carries the same
+// bits and the live slots are the same.
+__global__ void __launch_bounds__(FW_WARPS * 32, 1)
+nbr_gx_mma_kernel(const float* __restrict__ pos,
+                  const int* __restrict__ offsets,
+                  const int* __restrict__ slots, const float* __restrict__ g,
+                  const float* __restrict__ w0, const float* __restrict__ b0,
+                  const float* __restrict__ w1,
+                  const float* __restrict__ offset,
+                  const float* __restrict__ coeff_p, float* __restrict__ gx,
+                  int S, int A, int K, int R, float rcut, float arg_scale,
+                  float dcut_scale) {
+  extern __shared__ float4 mma_smem4[];
+  const __nv_bfloat16 *w0_b, *w1_b;
+  const float *b0_s, *off_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* v_s = stage_mma_smem(mma_smem4, w0, b0, w1, offset, R, w0_b, w1_b,
+                              b0_s, off_s) +
+               warp * FW_WARP_FLOATS;                      // [16][DM_VLD]
+  float* out_s = v_s + 16 * DM_VLD;                        // [DM_RW][F]
+  int* ring = reinterpret_cast<int*>(out_s + DM_RW * F);  // [DM_RING]
+  const float coeff = *coeff_p;
+
+  const int n_groups = (A + DM_RW - 1) / DM_RW;
+  const int n_items = S * n_groups;
+  for (int item = blockIdx.x * FW_WARPS + warp; item < n_items;
+       item += gridDim.x * FW_WARPS) {
+    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
+    const float* ps = pos + (size_t)s * A * 3;
+    const float* gs = g + (size_t)s * A * F;
+    for (int e = lane; e < DM_RW * F; e += 32) out_s[e] = 0.0f;
+    __syncwarp();
+
+    int head = 0, tail = 0;
+    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
+      const int row = s * A + r0 + rr;
+      const float* pa = ps + (r0 + rr) * 3;
+      const int end = offsets[row + 1];
+      for (int eb = offsets[row]; eb < end; eb += 32) {
+        int e = eb + lane, i = 0;
+        bool live = false;
+        if (e < end) {
+          i = slots[e] / K - s * A;
+          float d, cut, dcut, rel[3];
+          live = pair_geom(pa, ps + i * 3, true, rcut, arg_scale, dcut_scale,
+                           d, cut, dcut, rel);
+        }
+        tail = ring_push(ring, tail, live, (rr << 16) | i, lane);
+        for (; tail - head >= 16; head += 16)
+          fwd_mma_tile(ring, head, 16, r0, ps, gs, v_s, out_s, w0_b, w1_b,
+                       b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
+                       lane);
+      }
+    }
+    if (tail > head)
+      fwd_mma_tile(ring, head, tail - head, r0, ps, gs, v_s, out_s, w0_b,
+                   w1_b, b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
+                   lane);
+    float* gxs = gx + (size_t)s * A * F;
+    for (int e = 4 * lane; e < DM_RW * F; e += 128) {
+      int a = r0 + e / F;
+      if (a < A)
+        *reinterpret_cast<float4*>(gxs + (size_t)a * F + e % F) =
+            *reinterpret_cast<const float4*>(out_s + e);
+    }
+    __syncwarp();  // out_s is read before the next item writes
+  }
+}
+
 bool sizes_ok(int S, int A, int K, int Fdim, int R) {
   return Fdim == F && R >= 1 && R <= RMAX && S >= 1 && A >= 1 && K >= 1 &&
-         (long long)S * A * K < (1LL << 31);
+         A <= RING_MAX && K <= RING_MAX && (long long)S * A * K < (1LL << 31);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Sizes the kernels take: F == 128, 1 <= R <= 64, S, A, K >= 1 and
-// S * A * K < 2^31. idx int32, mask one byte per slot (bool).
+// Sizes the kernels take: F == 128, 1 <= R <= 64, S >= 1, 1 <= A, K <=
+// RING_MAX and S * A * K < 2^31. idx int32, mask one byte per slot (bool).
 int cfconv_fwd(const float* pos, const int* idx, const unsigned char* mask,
                const float* x, const float* w0, const float* b0,
                const float* w1, const float* offset, const float* coeff,
@@ -474,50 +641,66 @@ int cfconv_fwd(const float* pos, const int* idx, const unsigned char* mask,
   return (int)launch(conv_kernel<false>, CONV_FLOATS, S, A, st, args);
 }
 
-// gx and wbuf may be null (both or neither): then gx is not computed (the
-// block's input is position-independent and its cotangent dead). gd is a
-// workspace of S * A * K floats, wbuf one of S * A * K * F floats; the first
-// pass writes every slot of gd, and W of every live slot, before the later
-// passes read them. csr_offsets [S * A + 1] and csr_slots [S * A * K] (the
-// first csr_offsets[S * A] entries used) are the source CSR of the list.
+// gx may be null: then it is not computed (the block's input is
+// position-independent and its cotangent dead). gd is a workspace of
+// S * A * K floats; the first pass writes every slot of it before the gpos
+// pass reads it. wbuf, used at fp32 only and null exactly when gx is, is a
+// workspace of S * A * K * F floats for W of every live slot; at bf16 the
+// gx pass computes W again and wbuf is not read. csr_offsets [S * A + 1]
+// and csr_slots [S * A * K] (the first csr_offsets[S * A] entries used)
+// are the source CSR of the list.
 int cfconv_bwd(const float* pos, const int* idx, const unsigned char* mask,
                const int* csr_offsets, const int* csr_slots, const float* x,
                const float* g, const float* w0, const float* b0,
                const float* w1, const float* offset, const float* coeff,
                float* gd, float* wbuf, float* gpos, float* gx, int S, int A,
                int K, int Fdim, int R, float rcut, int bf16, void* stream) {
-  if (!sizes_ok(S, A, K, Fdim, R) || (gx == nullptr) != (wbuf == nullptr))
+  if (!sizes_ok(S, A, K, Fdim, R) ||
+      (!bf16 && (gx == nullptr) != (wbuf == nullptr)))
     return (int)cudaErrorInvalidValue;
   float arg_scale = (float)(PI / (double)rcut);
   float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
   cudaStream_t st = (cudaStream_t)stream;
-  void* args[] = {&pos,  &idx, &mask, &x, &g, &w0,   &b0,        &w1,
-                  &offset, &coeff, &gd, &wbuf, &A, &K, &R, &rcut,
-                  &arg_scale, &dcut_scale};
+  const int n_items = S * ((A + DM_RW - 1) / DM_RW);
   cudaError_t err;
-  if (bf16 && gx)
-    err = launch(bwd_kernel<true, true>, BWD_FLOATS, S, A, st, args);
-  else if (bf16)
-    err = launch(bwd_kernel<true, false>, BWD_FLOATS, S, A, st, args);
-  else if (gx)
-    err = launch(bwd_kernel<false, true>, BWD_FLOATS, S, A, st, args);
-  else
-    err = launch(bwd_kernel<false, false>, BWD_FLOATS, S, A, st, args);
+  if (bf16) {
+    void* args[] = {&pos, &idx, &mask, &x, &g, &w0,   &b0,        &w1,
+                    &offset, &coeff, &gd, &S, &A, &K, &R, &rcut,
+                    &arg_scale, &dcut_scale};
+    err = launch_persistent(nbr_bwd_mma_kernel, DM_WARPS, NB_SMEM, n_items,
+                            st, args);
+  } else {
+    void* args[] = {&pos,  &idx, &mask, &x, &g, &w0,   &b0,        &w1,
+                    &offset, &coeff, &gd, &wbuf, &A, &K, &R, &rcut,
+                    &arg_scale, &dcut_scale};
+    err = launch(gx ? bwd_kernel<true> : bwd_kernel<false>, BWD_FLOATS, S, A,
+                 st, args);
+  }
   if (err != cudaSuccess) return (int)err;
   dim3 grid((A + GPOS_ROWS - 1) / GPOS_ROWS, S);
   gpos_kernel<<<grid, THREADS, 0, st>>>(pos, idx, mask, csr_offsets,
                                         csr_slots, gd, gpos, A, K);
   err = cudaGetLastError();
   if (err != cudaSuccess || gx == nullptr) return (int)err;
+  if (bf16) {
+    void* args[] = {&pos, &csr_offsets, &csr_slots, &g, &w0, &b0, &w1,
+                    &offset, &coeff, &gx, &S, &A, &K, &R, &rcut, &arg_scale,
+                    &dcut_scale};
+    return (int)launch_persistent(nbr_gx_mma_kernel, FW_WARPS, FW_SMEM,
+                                  n_items, st, args);
+  }
   gx_kernel<<<dim3(A, S), F, 0, st>>>(pos, g, csr_offsets, csr_slots, wbuf,
                                       gx, A, K, rcut, arg_scale, dcut_scale);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory per block, in bytes: of conv_kernel (bwd == 0) or
-// of the backward's first pass.
-int cfconv_smem_bytes(int bwd) {
-  return (int)sizeof(float) * (bwd ? BWD_FLOATS : CONV_FLOATS);
+// Dynamic shared memory per block, in bytes: of conv_kernel (kind 0), of
+// the backward's first pass at fp32 (1) or at bf16 (2, tensor cores), of
+// the backward's gx pass at bf16 (3, tensor cores).
+int cfconv_smem_bytes(int kind) {
+  if (kind == 3) return FW_SMEM;
+  if (kind == 2) return NB_SMEM;
+  return (int)sizeof(float) * (kind ? BWD_FLOATS : CONV_FLOATS);
 }
 
 }  // extern "C"

@@ -1,9 +1,12 @@
 // Device code shared by the exact-filter CFConv kernels of
 // cfconv_dense_kernels.cu (all pairs) and cfconv_kernels.cu (neighbour
-// matrix): the 64-pair tile layout, the weight staging, the pair geometry
-// and the float32-FMA tile product of the filter MLP.
+// matrix): the pair geometry; the CUDA-core kernels' 64-pair tile layout,
+// weight staging and float32-FMA tile product of the filter MLP; and the
+// tensor-core kernels' live-pair rings with their filter-MLP tiles, the
+// backward's four products (bwd_mma_tile) and the forward's two
+// (fwd_mma_tile).
 //
-// Tile layout: a block of THREADS threads owns ROWS destination rows and
+// CUDA-core tile layout: a block of THREADS threads owns ROWS rows and
 // walks their partners in chunks of COLS, so one chunk is NP = ROWS * COLS
 // pairs (p = row * COLS + col). Thread (pg = tid / 16, fg = tid % 16) holds
 // pairs p0 = 4 pg .. p0 + 3 (all of row pg / 4) and features fg + 16 c.
@@ -209,6 +212,404 @@ __device__ __forceinline__ void stage_weights_bf16(const float* __restrict__ w0,
   for (int e = threadIdx.x; e < F; e += blockDim.x) b0_s[e] = b0[e];
   for (int e = threadIdx.x; e < RMAX; e += blockDim.x)
     off_s[e] = e < R ? offset[e] : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernels' live-pair rings. A persistent grid stages w0 and
+// w1 once per block as bf16 in shared memory (stage_mma_smem); each warp
+// then owns work items of DM_RW rows of one molecule and walks them alone:
+// it votes the rows' pairs (or list slots) 32 at a time and appends the
+// live ones, in order, to a ring in shared memory (ring_push); every 16
+// entries of the ring are one M tile of the filter MLP (bwd_mma_tile,
+// fwd_mma_tile), so only the last tile of an item carries padding. An
+// item's output rows are owned by its warp: no atomics, and every sum runs
+// in ring order, so results are bitwise reproducible.
+
+constexpr int DM_WARPS = 8;    // warps per block of the backward tiles
+constexpr int FW_WARPS = 16;   // warps per block of the forward tiles
+constexpr int DM_RW = 4;       // rows per work item
+constexpr int DM_RING = 64;    // live-pair ring per warp (a power of two)
+constexpr int DM_VLD = F + 4;  // row stride of the per-pair W cut staging
+constexpr int RING_MAX = 0xffff;  // largest partner or slot of an entry
+// bytes of the staged weights: w0_b [RMAX][LDB], w1_b [F][LDB], b0, off
+constexpr int WB_BYTES = 2 * (RMAX + F) * LDB + 4 * (F + RMAX);
+// per warp of a forward-tile kernel, in floats: W cut staging [16][DM_VLD],
+// the output rows [DM_RW][F], the ring
+constexpr int FW_WARP_FLOATS = 16 * DM_VLD + DM_RW * F + DM_RING;
+constexpr int FW_SMEM = WB_BYTES + 4 * FW_WARPS * FW_WARP_FLOATS;  // bytes
+
+// Stages the weights into the dynamic shared memory `smem` (stage_weights_
+// bf16) and returns the start of the per-warp areas behind them.
+__device__ __forceinline__ float* stage_mma_smem(
+    float4* smem, const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ w1, const float* __restrict__ offset, int R,
+    const __nv_bfloat16*& w0_b, const __nv_bfloat16*& w1_b,
+    const float*& b0_s, const float*& off_s) {
+  __nv_bfloat16* w0_w = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* w1_w = w0_w + RMAX * LDB;
+  float* b0_w = reinterpret_cast<float*>(w1_w + F * LDB);
+  float* off_w = b0_w + F;
+  stage_weights_bf16(w0, b0, w1, offset, R, w0_w, w1_w, b0_w, off_w);
+  __syncthreads();
+  w0_b = w0_w;
+  w1_b = w1_w;
+  b0_s = b0_w;
+  off_s = off_w;
+  return off_w + RMAX;
+}
+
+// Appends `entry` of every lane with `live` to the ring, in lane order;
+// returns the ring's new tail.
+__device__ __forceinline__ int ring_push(int* ring, int tail, bool live,
+                                         int entry, int lane) {
+  unsigned vote = __ballot_sync(0xffffffffu, live);
+  if (live)
+    ring[(tail + __popc(vote & ((1u << lane) - 1u))) & (DM_RING - 1)] = entry;
+  __syncwarp();
+  return tail + __popc(vote);
+}
+
+// One M tile of the filter MLP backward: the ring's entries head .. head +
+// nv - 1 (nv <= 16) of the item at row r0 (pointers at its molecule). Each
+// entry is (row - r0) << 16 | e, where e is the partner j (dense) or, with
+// NBR, the slot k of the row, whose partner is idx[row][k]; gd lands at
+// gd[row * stride + e] (stride A dense, K with NBR). Four products (see
+// dense_bwd_mma_kernel); with GX (dense only), gx_s rows += (W cut) g_j.
+template <bool GX, bool NBR>
+__device__ __forceinline__ void bwd_mma_tile(
+    const int* ring, int head, int nv, int r0, const float* pos,
+    const int* idx, int stride, const float* x, const float* g,
+    const float* gi_s, float* v_s, float* gx_s, float4* a0_s, float* gd,
+    const __nv_bfloat16* w0_b, const __nv_bfloat16* w1_b, const float* b0_s,
+    const float* off_s, int R, float coeff, float rcut, float arg_scale,
+    float dcut_scale, int lane) {
+  static_assert(!(GX && NBR), "the neighbour-matrix gx runs over the CSR");
+  const int gq = lane >> 2, tq = lane & 3;
+  const int nks = (R + 15) >> 4;  // k-steps over R, n-tile pairs over R
+  // this lane's pairs: tile rows gq (h = 0) and gq + 8 (h = 1)
+  int rr[2], ee[2], jj[2];
+  float d[2], cut[2], dcut[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int t = gq + 8 * h;
+    bool ok = t < nv;
+    int ent = ok ? ring[(head + t) & (DM_RING - 1)] : 0;
+    rr[h] = ent >> 16;
+    ee[h] = ent & 0xffff;
+    jj[h] = NBR ? idx[(r0 + rr[h]) * stride + ee[h]] : ee[h];
+    float rel[3];
+    pair_geom(pos + (r0 + rr[h]) * 3, pos + jj[h] * 3, ok, rcut, arg_scale,
+              dcut_scale, d[h], cut[h], dcut[h], rel);
+  }
+
+  // a0 = tanh(bf16(rbf) @ bf16(w0) + b0), float32
+  float a0[16][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (ks >= nks) break;
+    unsigned af[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int h = i & 1, r = 16 * ks + 8 * (i >> 1) + 2 * tq;
+      float v[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float dr = d[h] - off_s[r + b];
+        v[b] = r + b < R ? expf(coeff * (dr * dr)) * cut[h] : 0.0f;
+      }
+      af[i] = pack_bf16x2(v[0], v[1]);
+    }
+    mma_kstep<true>(a0, af, w0_b, 16 * ks, 8, lane);
+  }
+  // the float32 a0 waits in this lane's slots of a0_s for (1 - a0^2) and
+  // bf16(a0), out of the registers that ga0 needs
+  a0_s += lane;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float2 b = *reinterpret_cast<const float2*>(b0_s + 8 * nt + 2 * tq);
+    a0[nt][0] = tanhf(a0[nt][0] + b.x);
+    a0[nt][1] = tanhf(a0[nt][1] + b.y);
+    a0[nt][2] = tanhf(a0[nt][2] + b.x);
+    a0[nt][3] = tanhf(a0[nt][3] + b.y);
+    a0_s[32 * nt] = make_float4(a0[nt][0], a0[nt][1], a0[nt][2], a0[nt][3]);
+  }
+
+  // ga0 = bf16(g_i x_j cut) @ bf16(w1)^T (reference gw, cfconv_dense.py:181);
+  // the k-steps not unrolled, x_j and g_i loaded one k-step ahead
+  // (unrolled, every k-step's loads were hoisted and spilled)
+  float ga[16][4] = {};
+  float2 xv[4], gv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int h = i & 1, k = 8 * (i >> 1) + 2 * tq;
+    xv[i] = *reinterpret_cast<const float2*>(x + (size_t)jj[h] * F + k);
+    gv[i] = *reinterpret_cast<const float2*>(gi_s + rr[h] * F + k);
+  }
+#pragma unroll 1
+  for (int ks = 0; ks < 8; ++ks) {
+    unsigned af[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float c = cut[i & 1];
+      af[i] = pack_bf16x2((gv[i].x * xv[i].x) * c, (gv[i].y * xv[i].y) * c);
+    }
+    if (ks + 1 < 8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int h = i & 1, k = 16 * (ks + 1) + 8 * (i >> 1) + 2 * tq;
+        xv[i] = *reinterpret_cast<const float2*>(x + (size_t)jj[h] * F + k);
+        gv[i] = *reinterpret_cast<const float2*>(gi_s + rr[h] * F + k);
+      }
+    }
+    mma_kstep<false>(ga, af, w1_b, 16 * ks, 8, lane);
+  }
+  // gt0 = ga0 (1 - a0^2) into ga's registers, bf16(gt0) as the A
+  // fragments of grbf's product
+  unsigned gt[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const float4 a = a0_s[32 * nt];
+    ga[nt][0] *= 1.0f - a.x * a.x;
+    ga[nt][1] *= 1.0f - a.y * a.y;
+    ga[nt][2] *= 1.0f - a.z * a.z;
+    ga[nt][3] *= 1.0f - a.w * a.w;
+  }
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) mlp_afrag(gt[ks], ga, ks);
+
+  // grbf = bf16(gt0) @ bf16(w0)^T, then this lane's r of the rbf chain
+  float gr[8][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    mma_kstep<false>(gr, gt[ks], w0_b, 16 * ks, nks, lane);
+  float sg[2] = {0.0f, 0.0f}, se[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int r = 8 * nt + 2 * tq + (e & 1), h = e >> 1;
+      if (r < R) {
+        float dr = d[h] - off_s[r];
+        float ge = gr[nt][e] * expf(coeff * (dr * dr));
+        se[h] += ge;
+        sg[h] += ge * dr;
+      }
+    }
+
+  // W = bf16(a0) @ bf16(w1) in two halves of its columns, each consumed
+  // into s_cut = sum_f g_i W x_j and the gx terms before the next
+  float sc[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float w[8][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const float4 lo = a0_s[32 * (2 * ks)], hi = a0_s[32 * (2 * ks + 1)];
+      const unsigned ap[4] = {pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
+                              pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w)};
+      mma_kstep<true>(w, ap, w1_b + 64 * half, 16 * ks, 4, lane);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int f = 64 * half + 8 * nt + 2 * tq;
+        const float2 xv =
+            *reinterpret_cast<const float2*>(x + (size_t)jj[h] * F + f);
+        const float2 gi =
+            *reinterpret_cast<const float2*>(gi_s + rr[h] * F + f);
+        float w0v = w[nt][2 * h], w1v = w[nt][2 * h + 1];
+        sc[h] += (gi.x * w0v) * xv.x;
+        sc[h] += (gi.y * w1v) * xv.y;
+        if (GX)
+          *reinterpret_cast<float2*>(v_s + (gq + 8 * h) * DM_VLD + f) =
+              make_float2(w0v * cut[h], w1v * cut[h]);
+      }
+  }
+
+  // gd of the lane's pairs: sums over the quad's columns, then the pair
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sc[h] += __shfl_xor_sync(0xffffffffu, sc[h], off);
+      se[h] += __shfl_xor_sync(0xffffffffu, se[h], off);
+      sg[h] += __shfl_xor_sync(0xffffffffu, sg[h], off);
+    }
+  if (tq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (gq + 8 * h < nv)
+        gd[(size_t)(r0 + rr[h]) * stride + ee[h]] =
+            cut[h] * (2.0f * coeff) * sg[h] + (sc[h] + se[h]) * dcut[h];
+  }
+
+  if (GX) {
+    // gx rows += (W cut) g_j, pairs in ring order: a running sum per row
+    // segment, lane l on features 4 l .. 4 l + 3 (g_j one float4 per lane)
+    __syncwarp();
+    float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int cur = ring[head & (DM_RING - 1)] >> 16;
+#pragma unroll 1  // unrolled, it pushes this instantiation into spills
+    for (int t = 0; t < nv; ++t) {
+      int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
+      if (r != cur) {
+        float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;
+        float4 a = *o;
+        *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+        run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        cur = r;
+      }
+      const float4 v = reinterpret_cast<const float4*>(v_s + t * DM_VLD)[lane];
+      const float4 gj =
+          reinterpret_cast<const float4*>(g + (size_t)(ent & 0xffff) * F)[lane];
+      run.x += __fmul_rn(v.x, gj.x);
+      run.y += __fmul_rn(v.y, gj.y);
+      run.z += __fmul_rn(v.z, gj.z);
+      run.w += __fmul_rn(v.w, gj.w);
+    }
+    float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;
+    float4 a = *o;
+    *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+  }
+  __syncwarp();  // the ring and v_s are read before they are written again
+}
+
+
+// One M tile of the filter MLP forward: the ring's entries head .. head +
+// nv - 1 (nv <= 16) of the item at row r0 (pointers at its molecule), each
+// (row - r0) << 16 | p for the pair (row, p). Two products: a0 =
+// tanh(bf16(rbf) bf16(w0) + b0) (K = R padded to 16) and W = bf16(a0)
+// bf16(w1), a0's accumulators packed by mlp_afrag as W's A fragments, never
+// leaving registers. Each product runs in quarters of its columns (16
+// accumulators at a time), so that a thread fits in 128 registers and 16
+// warps share an SM. W cut is staged per pair in v_s, then out_s rows +=
+// (W cut) src[p] in ring order: a running sum per row segment, lane l on
+// features 4 l .. 4 l + 3 (src[p] read coalesced). The roundings of the
+// twins: bf16(rbf cut), bf16(w0), bf16(a0), bf16(w1); tanh, the geometry
+// and the sums float32.
+__device__ __forceinline__ void fwd_mma_tile(
+    const int* ring, int head, int nv, int r0, const float* pos,
+    const float* src, float* v_s, float* out_s, const __nv_bfloat16* w0_b,
+    const __nv_bfloat16* w1_b, const float* b0_s, const float* off_s, int R,
+    float coeff, float rcut, float arg_scale, float dcut_scale, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+  const int nks = (R + 15) >> 4;  // k-steps over R
+  // this lane's pairs: tile rows gq (h = 0) and gq + 8 (h = 1)
+  float d[2], cut[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int t = gq + 8 * h;
+    bool ok = t < nv;
+    int ent = ok ? ring[(head + t) & (DM_RING - 1)] : 0;
+    float dcut, rel[3];
+    pair_geom(pos + (r0 + (ent >> 16)) * 3, pos + (ent & 0xffff) * 3, ok,
+              rcut, arg_scale, dcut_scale, d[h], cut[h], dcut, rel);
+  }
+
+  // bf16(rbf) as the A fragments of a0's product (K = R padded to 16)
+  unsigned ar[4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int h = i & 1, r = 16 * ks + 8 * (i >> 1) + 2 * tq;
+      float v[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        float dr = d[h] - off_s[r + b];
+        v[b] = r + b < R ? expf(coeff * (dr * dr)) * cut[h] : 0.0f;
+      }
+      ar[ks][i] = pack_bf16x2(v[0], v[1]);
+    }
+  // a0 = tanh(bf16(rbf) @ bf16(w0) + b0) in quarters of its columns, each
+  // packed as bf16 into the A fragments of W's two k-steps over it
+  unsigned af[8][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float a0[4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks >= nks) break;
+      mma_kstep<true>(a0, ar[ks], w0_b + 32 * q, 16 * ks, 2, lane);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float2 b = *reinterpret_cast<const float2*>(
+          b0_s + 32 * q + 8 * nt + 2 * tq);
+      a0[nt][0] = tanhf(a0[nt][0] + b.x);
+      a0[nt][1] = tanhf(a0[nt][1] + b.y);
+      a0[nt][2] = tanhf(a0[nt][2] + b.x);
+      a0[nt][3] = tanhf(a0[nt][3] + b.y);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) mlp_afrag(af[2 * q + ks], a0, ks);
+  }
+
+  // W = bf16(a0) @ bf16(w1) in quarters of its columns, W cut staged
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float w[4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      mma_kstep<true>(w, af[ks], w1_b + 32 * q, 16 * ks, 2, lane);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(v_s + (gq + 8 * h) * DM_VLD + 32 * q +
+                                   8 * nt + 2 * tq) =
+            make_float2(w[nt][2 * h] * cut[h], w[nt][2 * h + 1] * cut[h]);
+  }
+
+  // out rows += (W cut) src[p], pairs in ring order
+  __syncwarp();
+  float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int cur = ring[head & (DM_RING - 1)] >> 16;
+#pragma unroll 1
+  for (int t = 0; t < nv; ++t) {
+    int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
+    if (r != cur) {
+      float4* o = reinterpret_cast<float4*>(out_s + cur * F) + lane;
+      float4 a = *o;
+      *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+      run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      cur = r;
+    }
+    const float4 v = reinterpret_cast<const float4*>(v_s + t * DM_VLD)[lane];
+    const float4 sp =
+        reinterpret_cast<const float4*>(src + (size_t)(ent & 0xffff) * F)[lane];
+    run.x += __fmul_rn(v.x, sp.x);
+    run.y += __fmul_rn(v.y, sp.y);
+    run.z += __fmul_rn(v.z, sp.z);
+    run.w += __fmul_rn(v.w, sp.w);
+  }
+  float4* o = reinterpret_cast<float4*>(out_s + cur * F) + lane;
+  float4 a = *o;
+  *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+  __syncwarp();  // the ring and v_s are read before they are written again
+}
+
+// A persistent grid for a kernel of `warps` warps a block and `smem` bytes
+// of dynamic shared memory (one block per SM fits), one warp per work item
+// at a time: a block per SM, or fewer when there are fewer items.
+template <typename K>
+cudaError_t launch_persistent(K kernel, int warps, int smem, int n_items,
+                              cudaStream_t stream, void** args) {
+  int dev, n_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int blocks = (n_items + warps - 1) / warps;
+  err = cudaLaunchKernel((const void*)kernel, dim3(blocks < n_sm ? blocks
+                                                                  : n_sm),
+                         dim3(32 * warps), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Launch on a (row tiles of ROWS, molecules) grid with `floats` floats of

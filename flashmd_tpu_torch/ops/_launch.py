@@ -12,6 +12,9 @@ from ..models.mlp import round_bf16
 
 # The kernels' tier argument: 0 fp32, 1 bf16, 3 bf16x3 (three bf16 passes).
 TIER_CODES = {"fp32": 0, "bf16": 1, "bf16x3": 3}
+# Largest atom index or list slot that a ring entry of the tensor-core
+# CFConv kernels holds (RING_MAX in csrc/cfconv_tile.cuh).
+RING_MAX = 0xFFFF
 
 
 def _op(t: torch.Tensor, precision: str) -> torch.Tensor:

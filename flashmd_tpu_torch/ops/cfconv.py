@@ -26,9 +26,18 @@ The backward returns gpos and gx. Per slot it runs one MLP backward on
 the cotangent g_i x_j cut, as the reference (rounding points :204-222),
 giving gd [S, A, K]; the row side is gpos[i] -= sum_k gd_ik u_ik and the
 column side gpos[j] += gd_ik u_ik, gx[j] += g_i W_ik cut_ik over the slots
-with idx = j. The twins scatter the column side with ``index_add_``; the
-kernels gather it through the source CSR of the list (neighborlist.py),
-with no atomics.
+with idx = j. The twin (``_slot_gd``, then ``_slot_sums``) scatters the
+column side with ``index_add_``; the kernels gather it through the source
+CSR of the list (neighborlist.py), with no atomics.
+
+On the card the bf16 backward runs on the tensor cores over the live slots
+only (mask set and d < rc, voted over all K slots of a row: between
+rebuilds the live slots of a row need not be its first), writing gd = 0
+for every other slot: exact, as ``_slot_gd`` is zero wherever cut and dcut
+are. Its gx pass computes W of each live incoming slot again over the
+source CSR, so it needs no [S, A, K, F] workspace; the fp32 backward
+stores W there for its gx pass (1.5 GB at S = 128, A = 266, K = 88). The
+forward runs float32 tiles at both tiers.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each
@@ -48,7 +57,8 @@ import math
 import torch
 
 from ..models.mlp import check_precision
-from ._launch import _check, _op, _ptr, _raise_on, _same_device, _stream
+from ._launch import (RING_MAX, _check, _op, _ptr, _raise_on, _same_device,
+                      _stream)
 
 KERNEL_F = 128
 KERNEL_R_MAX = 64
@@ -105,39 +115,59 @@ def cfconv_fwd_plain(pos, idx, mask, x, w0, b0, w1, offset, coeff, rcut,
     return torch.cat(outs)
 
 
+def _slot_gd(geometry, xj, gi, w0, b0, w1, offset, coeff, precision):
+    """(gd [s, A, K], W [s, A, K, F]) from ``_slot_geometry``'s output, the
+    partners' x ``xj`` [s, A, K, F] and the rows' g ``gi`` [s, A, 1, F]:
+    gd_ik = d(g_i . out_i) / d d_ik per slot (one MLP backward of the
+    cotangent g_i x_j cut each), zero wherever cut and dcut are (masked
+    slots, d >= rc)."""
+    _, d, cut, dcut, e, rbf = geometry
+    a0, w = _filter_mlp(rbf, w0, b0, w1, precision)
+    cut3 = cut[..., None]
+    s_cut = torch.sum(gi * w * xj, dim=-1)
+    ga0 = _op(gi * xj * cut3, precision) @ _op(w1, precision).T
+    gt0 = ga0 * (1.0 - a0 * a0)
+    grbf = _op(gt0, precision) @ _op(w0, precision).T
+    gcut = s_cut + torch.sum(grbf * e, dim=-1)
+    ge = grbf * cut3
+    gd = torch.sum(ge * e * (2.0 * coeff) * (d[..., None] - offset),
+                   dim=-1) + gcut * dcut
+    return gd, w
+
+
+def _slot_sums(geometry, idx, gd, w, gi, need_gx):
+    """(gpos [s, A, 3], gx [s, A, F] or None) of per-slot gd and W: the row
+    side, and the column side scattered to idx with ``index_add_``."""
+    rel, d, cut = geometry[:3]
+    s, a, k = idx.shape
+    # Flat destination rows of the column side.
+    col = (torch.arange(s, device=idx.device)[:, None, None] * a
+           + idx.long()).reshape(-1)
+    gx = None
+    if need_gx:
+        gx = torch.zeros(s * a, w.shape[-1], dtype=w.dtype, device=w.device)
+        gx.index_add_(0, col, (gi * w * cut[..., None]).reshape(s * a * k, -1))
+        gx = gx.view(s, a, -1)
+    gp = gd[..., None] * (rel / d[..., None])
+    gpos = -torch.sum(gp, dim=2).reshape(s * a, 3)
+    gpos.index_add_(0, col, gp.reshape(s * a * k, 3))
+    return gpos.view(s, a, 3), gx
+
+
 def cfconv_bwd_plain(pos, idx, mask, x, g, w0, b0, w1, offset, coeff, rcut,
                      precision, need_gx=True):
     """(gpos [S, A, 3], gx [S, A, F] or None): gd per slot, its row side,
     and the column side scattered to idx with ``index_add_``."""
     gposs, gxs = [], []
     for sl in _molecule_chunks(pos.shape[0]):
-        p, ix, mk = pos[sl], idx[sl], mask[sl]
-        s, a, k = ix.shape
-        rel, d, cut, dcut, e, rbf = _slot_geometry(p, ix, mk, offset, coeff,
-                                                   rcut)
-        a0, w = _filter_mlp(rbf, w0, b0, w1, precision)
+        ix = idx[sl]
+        geometry = _slot_geometry(pos[sl], ix, mask[sl], offset, coeff, rcut)
         gi, xj = g[sl, :, None, :], _gather_rows(x[sl], ix)
-        cut3 = cut[..., None]
-        # Flat destination rows of the column side.
-        col = (torch.arange(s, device=p.device)[:, None, None] * a
-               + ix.long()).reshape(-1)
-        if need_gx:
-            gx = torch.zeros(s * a, w.shape[-1], dtype=g.dtype,
-                             device=g.device)
-            gx.index_add_(0, col, (gi * w * cut3).reshape(s * a * k, -1))
-            gxs.append(gx.view(s, a, -1))
-        s_cut = torch.sum(gi * w * xj, dim=-1)
-        ga0 = _op(gi * xj * cut3, precision) @ _op(w1, precision).T
-        gt0 = ga0 * (1.0 - a0 * a0)
-        grbf = _op(gt0, precision) @ _op(w0, precision).T
-        gcut = s_cut + torch.sum(grbf * e, dim=-1)
-        ge = grbf * cut3
-        gd = torch.sum(ge * e * (2.0 * coeff) * (d[..., None] - offset),
-                       dim=-1) + gcut * dcut
-        gp = gd[..., None] * (rel / d[..., None])
-        gpos = -torch.sum(gp, dim=2).reshape(s * a, 3)
-        gpos.index_add_(0, col, gp.reshape(s * a * k, 3))
-        gposs.append(gpos.view(s, a, 3))
+        gd, w = _slot_gd(geometry, xj, gi, w0, b0, w1, offset, coeff,
+                         precision)
+        gpos, gx = _slot_sums(geometry, ix, gd, w, gi, need_gx)
+        gposs.append(gpos)
+        gxs.append(gx)
     return torch.cat(gposs), (torch.cat(gxs) if need_gx else None)
 
 
@@ -158,6 +188,9 @@ def _check_operands(pos, idx, mask, x, w0, b0, w1, offset, coeff):
         )
     if s * a * k >= 2 ** 31:
         raise ValueError(f"S * A * K = {s * a * k} slots exceed int32")
+    if max(a, k) > RING_MAX:
+        raise ValueError(f"neighbour-matrix CFConv kernels take A, K <= "
+                         f"{RING_MAX} (got A={a}, K={k})")
     _check("pos", pos, (s, a, 3))
     _check("idx", idx, (s, a, k), torch.int32)
     _check("mask", mask, (s, a, k), torch.bool)
@@ -198,9 +231,10 @@ def cfconv_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
     """(gpos [S, A, 3], gx [S, A, F] or None when ``need_gx`` is False).
     ``csr_offsets``/``csr_slots`` are the list's source CSR
     (ops/neighborlist.py); the twin does not need them. On the card: the
-    slot pass into an [S, A, K] gd workspace (and, for gx, W of each live
-    slot into an [S, A, K, F] one), the gpos pass, and the gx pass over
-    the CSR; the launches count as one."""
+    slot pass into an [S, A, K] gd workspace (at fp32 with gx, also W of
+    each live slot into an [S, A, K, F] one), the gpos pass, and the gx
+    pass over the CSR (at bf16 it computes W again on the tensor cores);
+    the launches count as one."""
     check_precision(precision)
     if pos.device.type == "cpu":
         return cfconv_bwd_plain(pos, idx, mask, x, g, w0, b0, w1, offset,
@@ -217,7 +251,7 @@ def cfconv_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
     gpos = torch.empty_like(pos)
     gx = torch.empty_like(g) if need_gx else None
     wbuf = (torch.empty(s, a, k, f, dtype=pos.dtype, device=pos.device)
-            if need_gx else None)
+            if need_gx and precision != "bf16" else None)
     rc = load().cfconv_bwd(
         _ptr(pos), _ptr(idx), _ptr(mask), _ptr(csr_offsets), _ptr(csr_slots),
         _ptr(x), _ptr(g), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(offset),

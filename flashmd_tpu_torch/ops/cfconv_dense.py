@@ -28,10 +28,12 @@ reference's scatter to row j (``gpos_ref[0] +=``, cfconv_dense.py:215)
 from the transpose. This equals the reference up to summation order, with
 the bf16 roundings on the same values.
 
-On the card the bf16 backward takes its four filter-MLP products on the
-tensor cores over the live pairs only (d < rc, i != j), writing gd = 0
-for every other pair: exact, as ``_pair_gd`` is zero wherever cut and
-dcut are. The forward and the fp32 backward run float32 tiles.
+On the card both bf16 kernels take their filter-MLP products on the
+tensor cores over the live pairs only (d < rc, i != j): the forward its
+two, the backward its four, writing gd = 0 for every other pair. That is
+exact: W cut vanishes with cut, and ``_pair_gd`` is zero wherever cut
+and dcut are. The fp32 kernels run float32 tiles on every pair chunk
+that holds a live pair.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each
@@ -51,7 +53,8 @@ import math
 import torch
 
 from ..models.mlp import check_precision
-from ._launch import _check, _op, _ptr, _raise_on, _same_device, _stream
+from ._launch import (RING_MAX, _check, _op, _ptr, _raise_on, _same_device,
+                      _stream)
 
 KERNEL_F = 128
 KERNEL_R_MAX = 64
@@ -148,12 +151,13 @@ def dense_cfconv_bwd_plain(pos, x, g, w0, b0, w1, offset, coeff, rcut,
 # ---------------------------------------------------------------------------
 
 
-def _check_weights(w0, b0, w1, offset, coeff, f):
+def _check_weights(w0, b0, w1, offset, coeff, a, f):
     r = w0.shape[0]
-    if f != KERNEL_F or not 1 <= r <= KERNEL_R_MAX:
+    if f != KERNEL_F or not 1 <= r <= KERNEL_R_MAX or a > RING_MAX:
         raise ValueError(
-            f"dense CFConv kernels take F == {KERNEL_F} and 1 <= R <= "
-            f"{KERNEL_R_MAX} (got F={f}, R={r})"
+            f"dense CFConv kernels take F == {KERNEL_F}, 1 <= R <= "
+            f"{KERNEL_R_MAX} and A <= {RING_MAX} (got F={f}, R={r}, "
+            f"A={a})"
         )
     _check("w0", w0, (r, f))
     _check("b0", b0, (f,))
@@ -174,7 +178,7 @@ def dense_cfconv_fwd(pos, x, w0, b0, w1, offset, coeff, rcut, precision):
     s, a, f = x.shape
     _check("pos", pos, (s, a, 3))
     _check("x", x, (s, a, f))
-    r = _check_weights(w0, b0, w1, offset, coeff, f)
+    r = _check_weights(w0, b0, w1, offset, coeff, a, f)
     _same_device(pos, x, w0, b0, w1, offset, coeff)
     out = torch.empty_like(x)
     rc = load().dense_cfconv_fwd(
@@ -202,7 +206,7 @@ def dense_cfconv_bwd(pos, x, g, w0, b0, w1, offset, coeff, rcut, precision,
     _check("pos", pos, (s, a, 3))
     _check("x", x, (s, a, f))
     _check("g", g, (s, a, f))
-    r = _check_weights(w0, b0, w1, offset, coeff, f)
+    r = _check_weights(w0, b0, w1, offset, coeff, a, f)
     _same_device(pos, x, g, w0, b0, w1, offset, coeff)
     gd = torch.empty(s, a, a, dtype=pos.dtype, device=pos.device)
     gpos = torch.empty_like(pos)

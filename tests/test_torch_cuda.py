@@ -608,9 +608,41 @@ def test_dense_kernels_match_twins(dev, precision, a):
     assert none is None and torch.equal(gpos_only, gpos)
 
 
-# The tensor-core dense backward (bf16): each work item's live pairs in
+# The tensor-core dense kernels (bf16): each work item's live pairs in
 # 16-pair tiles, gd = 0 written for the others; ragged atom counts.
 DENSE_ATOMS = [20, 90, 266]
+
+
+def _dense_layout(dev, pos, a, layout):
+    """Positions spread at 6 A ("spread"), at half that ("dense": rows
+    with more than 32 live pairs), or on a grid beyond the cutoff ("none":
+    no live pair)."""
+    if layout == "dense":
+        pos = pos * 0.5
+        d = torch.cdist(pos, pos)
+        assert int(((d < RCUT).sum(-1) - 1).max()) > min(32, a - 2)
+    elif layout == "none":
+        pos = _gd_layout(dev, 2, a, "none", seed=a)
+    return pos
+
+
+@pytest.mark.parametrize("layout", ["spread", "dense", "none"])
+@pytest.mark.parametrize("a", DENSE_ATOMS)
+def test_dense_tensor_core_fwd_matches_twin(dev, a, layout):
+    """out against the bf16 twin (2e-3 of max|twin|; exactly zero where
+    the twin is), two launches bitwise equal (_dense_layout)."""
+    pos, x, _, w = _dense_inputs(dev, 2, a, seed=a)
+    pos = _dense_layout(dev, pos, a, layout)
+    out = cd.dense_cfconv_fwd(pos, x, *w, RCUT, "bf16")
+    again = cd.dense_cfconv_fwd(pos, x, *w, RCUT, "bf16")
+    ref = cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT, "bf16")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+    if layout == "none":
+        assert float(ref.abs().max()) == 0.0
+        assert float(out.abs().max()) == 0.0
+    else:
+        assert _rel(out, ref) <= BOUNDS["bf16"]["fwd"]
 
 
 @pytest.mark.parametrize("layout", ["spread", "dense", "none"])
@@ -618,15 +650,9 @@ DENSE_ATOMS = [20, 90, 266]
 def test_dense_tensor_core_bwd_matches_twin(dev, a, layout):
     """gpos and gx, with and without gx, against the bf16 twin (2e-3 of
     max|twin|; exactly zero where the twin is), two launches bitwise
-    equal. Positions spread at 6 A, or at half that (rows with more than
-    32 live pairs), or on a grid beyond the cutoff (no live pair)."""
+    equal (_dense_layout)."""
     pos, x, g, w = _dense_inputs(dev, 2, a, seed=a)
-    if layout == "dense":
-        pos = pos * 0.5
-        d = torch.cdist(pos, pos)
-        assert int(((d < RCUT).sum(-1) - 1).max()) > min(32, a - 2)
-    elif layout == "none":
-        pos = _gd_layout(dev, 2, a, "none", seed=a)
+    pos = _dense_layout(dev, pos, a, layout)
     for need_gx in (True, False):
         out = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "bf16",
                                   need_gx=need_gx)
@@ -724,6 +750,59 @@ def test_nbr_kernels_match_twins(dev, precision, capacity):
     assert _rel(gpos, gpos_ref) <= BOUNDS[precision]["bwd"]
     assert _rel(gx, gx_ref) <= BOUNDS[precision]["bwd"]
     assert none is None and torch.equal(gpos_only, gpos)
+
+
+# The tensor-core neighbour-matrix backward (bf16): each work item's live
+# slots in 16-slot tiles (gd = 0 for the others), gx over the source CSR
+# with W computed again; ragged atom counts.
+NBR_ATOMS = [33, 70, 266]
+
+
+def _not_a_prefix(pos, nbr):
+    """Whether some row of the list has a live slot (d < RCUT) after a
+    listed slot at d >= RCUT."""
+    b = torch.arange(pos.shape[0], device=pos.device)[:, None, None]
+    rel = pos[b, nbr.idx.long()] - pos[:, :, None, :]
+    live = nbr.mask & (torch.linalg.norm(rel, dim=-1) < RCUT)
+    dead_before = torch.cumsum((nbr.mask & ~live).int(), dim=-1) > 0
+    return bool((live & dead_before).any())
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("capacity", [96, 32])
+@pytest.mark.parametrize("a", NBR_ATOMS)
+def test_nbr_tensor_core_bwd_matches_twin(dev, a, capacity, stale):
+    """gpos and gx, with and without gx, against the bf16 twin (2e-3 of
+    max|twin|), two launches bitwise equal, on a symmetric list (capacity
+    96) and an overflowed one (32, where a row has more neighbours), fresh
+    or with the atoms moved after the build (a stale list, whose live
+    slots are not a prefix of their row). Atoms uniform in a cube at about
+    40 within RCUT + 1 of an inner atom."""
+    _, x, g, w = _dense_inputs(dev, 2, a, seed=a)
+    gen = torch.Generator(device=dev).manual_seed(a + 1)
+    side = (a / 0.0072) ** (1 / 3)
+    pos = side * torch.rand(2, a, 3, generator=gen, device=dev)
+    nbr = batched_radius_neighbor_matrix(pos, RCUT + 1.0, capacity)
+    if a >= 70:
+        assert (int(nbr.n_max.max()) > capacity) == (capacity == 32)
+    if stale:
+        pos = pos + 0.5 * torch.randn(pos.shape, generator=gen, device=dev)
+        assert _not_a_prefix(pos, nbr)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    for need_gx in (True, False):
+        out = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16",
+                            need_gx=need_gx)
+        again = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16",
+                              need_gx=need_gx)
+        ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, RCUT,
+                                  "bf16", need_gx=need_gx)
+        torch.cuda.synchronize()
+        assert (out[1] is None) == (ref[1] is None) == (not need_gx)
+        for k, k2, r in zip(out, again, ref):
+            if r is None:
+                continue
+            assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
+            assert _rel(k, r) <= BOUNDS["bf16"]["bwd"]
 
 
 def test_nbr_bwd_bitwise_reproducible(dev):

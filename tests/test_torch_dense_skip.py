@@ -1,15 +1,18 @@
-"""The invariant that lets the tensor-core dense backward skip dead pairs.
+"""The invariant that lets the tensor-core dense kernels skip dead pairs.
 
 ``dense_cfconv_bwd`` at bf16 compacts the live pairs of its rows (d < rc,
 i != j, in range) and runs the four filter-MLP products over those only,
 writing gd = 0 for every other pair of the [S, A, A] workspace, which the
-gpos gather then reads. That is exact because the twin's per-pair
-distance gradient vanishes wherever cut and dcut do. Here, on the CPU, at
-fp32 and bf16: the twin's gd (``cfconv_dense._pair_gd``) is exactly zero
-on every pair at d >= rc, on the diagonal and on padding atoms parked
-beyond the cutoff (as a padded tile's slots carry no pair); and a copy of
-the twin with every MLP product of those pairs zeroed gives gpos and gx
-equal (torch.equal) to ``dense_cfconv_bwd_plain``, with and without gx, on
+gpos gather then reads; ``dense_cfconv_fwd`` at bf16 runs its two products
+over the same live pairs only. That is exact because the twin's per-pair
+distance gradient, and its message W cut x_j, vanish wherever cut and dcut
+do. Here, on the CPU, at fp32 and bf16: the twin's gd
+(``cfconv_dense._pair_gd``) is exactly zero on every pair at d >= rc, on
+the diagonal and on padding atoms parked beyond the cutoff (as a padded
+tile's slots carry no pair); a copy of the backward twin with every MLP
+product of those pairs zeroed gives gpos and gx equal (torch.equal) to
+``dense_cfconv_bwd_plain``, with and without gx, and a copy of the forward
+twin with their W zeroed gives ``dense_cfconv_fwd_plain``'s output, on
 two-cluster positions with a ragged atom count (not a multiple of 16).
 """
 
@@ -136,3 +139,28 @@ def test_skipping_dead_pairs_is_exact(precision, need_gx):
         assert torch.equal(gx, gx_ref)
     else:
         assert gx is None and gx_ref is None
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["ragged", "padded"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_forward_skipping_dead_pairs_is_exact(precision, padded):
+    """dense_cfconv_fwd_plain with both MLP products of the dead pairs
+    zeroed (rbf @ w0, a0 @ w1) equals the twin bitwise."""
+    pos = _clusters(seed=4)
+    if padded:
+        pos = _padded(pos)
+    pos = _t(pos)
+    x, _, (w0, b0, w1, offset, coeff) = _operands(pos.shape[1], seed=5)
+    keep = ~_dead(pos)[..., None]
+
+    def run(t):
+        return torch.where(keep, t, torch.zeros_like(t))
+
+    _, _, cut, _, _, rbf = cd._pair_geometry(pos, offset, coeff, RCUT)
+    a0 = torch.tanh(run(_op(rbf, precision) @ _op(w0, precision)) + b0)
+    w = run(_op(a0, precision) @ _op(w1, precision))
+    out = torch.sum(w * cut[..., None] * x[:, None, :, :], dim=2)
+    ref = cd.dense_cfconv_fwd_plain(pos, x, w0, b0, w1, offset, coeff, RCUT,
+                                    precision)
+    assert torch.equal(out, ref)
+    assert bool((ref != 0.0).any())

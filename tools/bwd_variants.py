@@ -1,14 +1,15 @@
-"""Design variants of the two tensor-core backward kernels, timed on the card.
+"""Design variants of the tensor-core CFConv kernels, timed on the card.
 
     python3 tools/bwd_variants.py
 
 Each variant is an edited copy of one source of flashmd_tpu_torch/csrc
-(text substitutions) compiled into a library of its own, all in parallel;
-ptxas' registers and spills of its tensor-core kernel are printed, then
-the kernel at its slice's shapes is held against its twin and timed with
-CUDA events (batch 128, 266 beads, F = 128, bf16; the combined cheb
+and, where it edits it, of the shared header cfconv_tile.cuh (text
+substitutions), compiled into a library of its own, all in parallel;
+ptxas' registers and spills of its tensor-core kernels are printed, then
+the function at its slice's shapes is held against its twin and timed
+with CUDA events (batch 128, 266 beads, F = 128, bf16; the combined cheb
 backward also at bf16x3, on the bf16x3 slice's (64, 96) fit; open
-boundaries):
+boundaries; the neighbour-matrix backward on the pallas slice's list):
 
 * cheb_bwd_gxgd (cheb_gxgd_mma_kernel, the per-block slice's fit):
   base   -- the source as it is: at bf16 three blocks per SM (at most
@@ -21,6 +22,15 @@ boundaries):
   rw2    -- 2 rows per work item (more items, more padded tails);
   inline -- ga0's x_j and g_i loaded in their own k-step, not one ahead
             (the gx instantiation then spills 12 B).
+* dense_cfconv_fwd (dense_fwd_mma_kernel):
+  base   -- the source as it is (16 warps, at most 128 registers);
+  w8     -- 8 warps a block (up to 255 registers);
+  w12    -- 12 warps a block (up to 168 registers);
+  rw2    -- 2 rows per work item.
+* cfconv_bwd (nbr_bwd_mma_kernel, then nbr_gx_mma_kernel, with gx):
+  base   -- the source as it is (the gx pass at 16 warps);
+  w8     -- the gx pass at 8 warps a block;
+  rw2    -- 2 rows (first pass) and atoms (gx pass) per work item.
 
 Needs a CUDA card and nvcc; prints the card's name and power limit last.
 """
@@ -39,12 +49,15 @@ import chip_smoke as cs  # noqa: E402
 from flashmd_tpu_torch.data.system import collate  # noqa: E402
 from flashmd_tpu_torch.models.cheb import _lin_slope  # noqa: E402
 from flashmd_tpu_torch.ops import _build  # noqa: E402
+from flashmd_tpu_torch.ops import cfconv as cf  # noqa: E402
 from flashmd_tpu_torch.ops import cfconv_dense as cd  # noqa: E402
 from flashmd_tpu_torch.ops import cheb_kernel as ck  # noqa: E402
 from flashmd_tpu_torch.ops._launch import TIER_CODES, _ptr, _stream  # noqa: E402
 
 GXGD_LB = "TIER == TIER_X3 ? 1 : 3)\ncheb_gxgd_mma_kernel"
+TILE = "cfconv_tile.cuh"
 RW = "constexpr int DM_RW = 4;       // rows per work item"
+FW = "constexpr int FW_WARPS = 16;   // warps per block of the forward tiles"
 GA_LOOP = """#pragma unroll 1
   for (int ks = 0; ks < 8; ++ks) {
     unsigned af[4];
@@ -79,39 +92,56 @@ GA_AHEAD = """  float2 xv[4], gv[4];
         gv[i] = *reinterpret_cast<const float2*>(gi_s + rr[h] * F + k);
       }
     }"""
+# (source, kernels of its ptxas lines, function): {variant: {file: {old:
+# new}}}; a file is the source or the shared header.
 VARIANTS = {
     ("cheb_kernels.cu", "gxgd_mma_kernel", "cheb_bwd_gxgd"): {
         "base": {},
-        "lb1": {GXGD_LB: GXGD_LB.replace("TIER == TIER_X3 ? 1 : 3", "1")},
-        "lb3": {GXGD_LB: GXGD_LB.replace("TIER == TIER_X3 ? 1 : 3", "3")},
+        "lb1": {"cheb_kernels.cu": {
+            GXGD_LB: GXGD_LB.replace("TIER == TIER_X3 ? 1 : 3", "1")}},
+        "lb3": {"cheb_kernels.cu": {
+            GXGD_LB: GXGD_LB.replace("TIER == TIER_X3 ? 1 : 3", "3")}},
     },
     ("cfconv_dense_kernels.cu", "dense_bwd_mma_kernel", "dense_cfconv_bwd"): {
         "base": {},
-        "rw2": {RW: RW.replace("4;", "2;")},
-        "inline": {GA_AHEAD: GA_LOOP},
+        "rw2": {TILE: {RW: RW.replace("4;", "2;")}},
+        "inline": {TILE: {GA_AHEAD: GA_LOOP}},
+    },
+    ("cfconv_dense_kernels.cu", "dense_fwd_mma_kernel", "dense_cfconv_fwd"): {
+        "base": {},
+        "w8": {TILE: {FW: FW.replace("16;", "8; ")}},
+        "w12": {TILE: {FW: FW.replace("16;", "12;")}},
+        "rw2": {TILE: {RW: RW.replace("4;", "2;")}},
+    },
+    ("cfconv_kernels.cu", "nbr_", "cfconv_bwd"): {
+        "base": {},
+        "w8": {TILE: {FW: FW.replace("16;", "8; ")}},
+        "rw2": {TILE: {RW: RW.replace("4;", "2;")}},
     },
 }
 
 
 def build_all(tmp):
     """{(fn, variant): loaded library}; prints each variant's ptxas lines
-    for its tensor-core kernel."""
+    for its tensor-core kernels."""
     procs = {}
     for (source, kernel, fn), variants in VARIANTS.items():
-        src = (_build.CSRC / source).read_text()
-        for name, subs in variants.items():
-            text = src
-            for old, new in subs.items():
-                if text.count(old) != 1:
-                    raise SystemExit(f"FAILED: {fn} {name}: substitution "
-                                     "not found")
-                text = text.replace(old, new)
-            cu = tmp / f"{fn}_{name}.cu"
-            cu.write_text(text)
+        for name, edits in variants.items():
+            out = tmp / f"{fn}_{name}"
+            out.mkdir()
+            # the edited header beside the source wins over -I's original
+            for file in {source, *edits}:
+                text = (_build.CSRC / file).read_text()
+                for old, new in edits.get(file, {}).items():
+                    if text.count(old) != 1:
+                        raise SystemExit(f"FAILED: {fn} {name}: "
+                                         "substitution not found")
+                    text = text.replace(old, new)
+                (out / file).write_text(text)
             procs[fn, name, kernel] = subprocess.Popen(
                 [_build._nvcc(), *_build._FLAGS, "-I", str(_build.CSRC),
-                 "-Xptxas", "-v", "-shared", "-o",
-                 str(tmp / f"{fn}_{name}.so"), str(cu)],
+                 "-Xptxas", "-v", "-shared", "-o", str(out / "lib.so"),
+                 str(out / source)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for (fn, name, kernel), proc in procs.items():
@@ -122,7 +152,7 @@ def build_all(tmp):
         for line in cs.ptxas_summary(log):
             if kernel in line.split(":")[0]:
                 print(f"variant {fn} {name}: {line[-90:]}")
-        lib = ctypes.CDLL(str(tmp / f"{fn}_{name}.so"))
+        lib = ctypes.CDLL(str(tmp / f"{fn}_{name}" / "lib.so"))
         for sym in (fn, "cheb_gxgd_tiles") if fn == "cheb_bwd_gxgd" else (fn,):
             getattr(lib, sym).argtypes = _build._SIGNATURES[sym]
             getattr(lib, sym).restype = ctypes.c_int
@@ -181,32 +211,77 @@ def gxgd_cases(libs, dev):
             report(f"{fn} {name} {prec}", call, (gpos, gx), ref, ref32)
 
 
-def dense_cases(libs, dev):
-    ff, cfgs = cs._force_fields(dev, cs.BATCH, message_passing="dense")
+def _filter_case(dev, message_passing, seed):
+    """(force field, start positions, x, g, filter weights, rcut) of the
+    dense or the pallas slice."""
+    ff, cfgs = cs._force_fields(dev, cs.BATCH,
+                                message_passing=message_passing)
     pos = collate(cfgs, device=dev).pos
     layers = ff.schnet_params["interactions"][0]["filter"]["layers"]
     rbf = ff.schnet_params["rbf"]
     w = (layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
          rbf["coeff"])
-    rcut = float(ff.schnet_config.cutoff.cutoff_upper)
-    gen = torch.Generator(device=dev).manual_seed(12)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     s, a = pos.shape[0], pos.shape[1]
-    r, f = w[0].shape
+    f = w[0].shape[1]
     x = torch.randn(s, a, f, generator=gen, device=dev)
     g = torch.randn(s, a, f, generator=gen, device=dev)
-    ref = cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, "bf16")
+    return ff, pos, x, g, w, float(ff.schnet_config.cutoff.cutoff_upper)
+
+
+def dense_cases(libs, dev):
+    _, pos, x, g, w, rcut = _filter_case(dev, "dense", 12)
+    s, a = pos.shape[0], pos.shape[1]
+    r, f = w[0].shape
+    ref_bwd = cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, "bf16")
+    ref_fwd = (cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, "bf16"),)
     for (fn, name), lib in libs.items():
-        if fn != "dense_cfconv_bwd":
-            continue
         gd = torch.empty(s, a, a, device=dev)
+        gpos = torch.empty_like(pos)
+        gx = torch.empty_like(g)
+        out = torch.empty_like(x)
+        if fn == "dense_cfconv_bwd":
+            def call():
+                rc = lib.dense_cfconv_bwd(
+                    _ptr(pos), _ptr(x), _ptr(g), *(_ptr(t) for t in w),
+                    _ptr(gd), _ptr(gpos), _ptr(gx), s, a, f, r, rcut, 1,
+                    _stream())
+                if rc:
+                    raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+            report(f"{fn} {name} bf16", call, (gpos, gx), ref_bwd)
+        elif fn == "dense_cfconv_fwd":
+            def call():
+                rc = lib.dense_cfconv_fwd(
+                    _ptr(pos), _ptr(x), *(_ptr(t) for t in w), _ptr(out), s,
+                    a, f, r, rcut, 1, _stream())
+                if rc:
+                    raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+            report(f"{fn} {name} bf16", call, (out,), ref_fwd)
+
+
+def nbr_cases(libs, dev):
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+
+    ff, pos, x, g, w, rcut = _filter_case(dev, "pallas", 13)
+    nbr = build_neighbors(ff, pos, skin=1.0)
+    s, a, k = nbr.idx.shape
+    r, f = w[0].shape
+    ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, rcut, "bf16")
+    for (fn, name), lib in libs.items():
+        if fn != "cfconv_bwd":
+            continue
+        gd = torch.empty(s, a, k, device=dev)
         gpos = torch.empty_like(pos)
         gx = torch.empty_like(g)
 
         def call():
-            rc = lib.dense_cfconv_bwd(
-                _ptr(pos), _ptr(x), _ptr(g), *(_ptr(t) for t in w),
-                _ptr(gd), _ptr(gpos), _ptr(gx), s, a, f, r, rcut, 1,
-                _stream())
+            rc = lib.cfconv_bwd(
+                _ptr(pos), _ptr(nbr.idx), _ptr(nbr.mask),
+                _ptr(nbr.csr_offsets), _ptr(nbr.csr_slots), _ptr(x), _ptr(g),
+                *(_ptr(t) for t in w), _ptr(gd), None, _ptr(gpos), _ptr(gx),
+                s, a, k, f, r, rcut, 1, _stream())
             if rc:
                 raise SystemExit(f"FAILED: {name}: CUDA {rc}")
 
@@ -220,6 +295,7 @@ def main():
     libs = build_all(Path(tempfile.mkdtemp()))
     gxgd_cases(libs, dev)
     dense_cases(libs, dev)
+    nbr_cases(libs, dev)
     print(cs.nvidia_smi_line())
 
 
