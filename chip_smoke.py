@@ -13,10 +13,10 @@ Phases (each prints its lines; any failure exits non-zero):
                the fwd/gx kernel's eight (also fwd, gx), the combined
                gx+gd kernel's four (bf16, bf16x3; open, cell), the
                dense backward's two (bf16; with and without gx), the
-               dense forward's and the neighbour-matrix backward's two
-               passes (bf16) must not spill and must hold tensor-core MMA
-               instructions in their SASS (cuobjdump); their counts are
-               printed.
+               dense forward, the neighbour-matrix forward and the
+               neighbour-matrix backward's two passes (bf16) must not
+               spill and must hold tensor-core MMA instructions in their
+               SASS (cuobjdump); their counts are printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
@@ -26,8 +26,8 @@ Phases (each prints its lines; any failure exits non-zero):
                live pairs and the live pair fragments that the
                tensor-core kernels run (16 x 8 gd, 16 x 16 fwd/gx and
                gx+gd), and the executed pairs or slots of the bf16 dense
-               kernels and neighbour-matrix backward (16-pair tiles of
-               each work item's live pairs or slots); the
+               and neighbour-matrix kernels (16-pair tiles of each work
+               item's live pairs or slots); the
                dense and the neighbour-matrix
                backward in both of their variants (with gx, and without
                it as block 1 runs it). The neighbour-matrix kernels run
@@ -254,20 +254,22 @@ def ptxas_summary(log):
 # The tensor-core kernels' template arguments in their mangled names:
 # cheb_gd_mma_kernel<TIER, HAS_CELL>, cheb_rows_mma_kernel<TIER, GX,
 # HAS_CELL>, cheb_gxgd_mma_kernel<TIER, HAS_CELL>, dense_bwd_mma_kernel<GX>;
-# dense_fwd_mma_kernel, nbr_bwd_mma_kernel and nbr_gx_mma_kernel (bf16, no
-# template arguments).
+# dense_fwd_mma_kernel, nbr_fwd_mma_kernel, nbr_bwd_mma_kernel and
+# nbr_gx_mma_kernel (bf16, no template arguments).
 MMA_KERNELS = {
     "gd": re.compile(r"cheb_gd_mma_kernelILi(\d)ELb([01])E"),
     "rows": re.compile(r"cheb_rows_mma_kernelILi(\d)ELb([01])ELb([01])E"),
     "gxgd": re.compile(r"cheb_gxgd_mma_kernelILi(\d)ELb([01])E"),
     "dense": re.compile(r"dense_bwd_mma_kernelILb([01])E"),
     "dense fwd": re.compile(r"dense_fwd_mma_kernel"),
+    "cfconv fwd": re.compile(r"nbr_fwd_mma_kernel"),
     "cfconv": re.compile(r"nbr_bwd_mma_kernel"),
     "cfconv gx": re.compile(r"nbr_gx_mma_kernel"),
 }
 # The labels of the kernels without template arguments.
 MMA_SINGLE = {
     "dense fwd": "dense_fwd_mma_kernel (dense_cfconv_fwd)",
+    "cfconv fwd": "nbr_fwd_mma_kernel (cfconv_fwd)",
     "cfconv": "nbr_bwd_mma_kernel (cfconv_bwd, first pass)",
     "cfconv gx": "nbr_gx_mma_kernel (cfconv_bwd, gx pass)",
 }
@@ -303,7 +305,7 @@ def mma_kernel_report(log, lib_path, nvcc):
     """The tensor-core kernels' instantiations: cheb_gd_mma_kernel and
     cheb_gxgd_mma_kernel (bf16, bf16x3; open, cell), cheb_rows_mma_kernel
     (also fwd, gx), dense_bwd_mma_kernel (with and without gx) and the
-    three bf16 kernels of MMA_SINGLE: ptxas
+    four bf16 kernels of MMA_SINGLE: ptxas
     registers, static shared memory and spills, and the tensor-core
     instructions (HMMA/HGMMA) in their SASS. Fails if one is missing,
     spills or holds no tensor-core instruction."""
@@ -714,10 +716,10 @@ def phase_dense_kernels(ff, pos, dev):
 
 def nbr_slot_counts(pos, nbr, rcut):
     """(live slots, slots of the 4x16 chunks with a live slot, which the
-    forward and the fp32 backward's first pass execute, slots the bf16
-    backward's first pass executes: each work item's live slots in 16-slot
-    tiles, and its gx pass: each item's live incoming slots in 16-slot
-    tiles), whole batch."""
+    fp32 forward and backward's first pass execute, slots the bf16 forward
+    and backward's first pass execute: each work item's live slots in
+    16-slot tiles, and the bf16 backward's gx pass: each item's live
+    incoming slots in 16-slot tiles), whole batch."""
     s, a = pos.shape[:2]
     b = torch.arange(s, device=pos.device)[:, None, None]
     rel = pos[b, nbr.idx.long()] - pos[:, :, None, :]
@@ -763,17 +765,19 @@ def phase_nbr_kernels(ff, pos, dev):
     smem = [load().cfconv_smem_bytes(b) for b in (0, 1, 2, 3)]
     print(f"kernels: cfconv shapes S={s} A={a} K={k} F={f} R={r} rcut="
           f"{rcut} skin 1.0; n_max {int(nbr.n_max.max())}; dynamic shared "
-          f"memory per block conv {smem[0]} B, bwd fp32 {smem[1]} B, bwd "
-          f"bf16 (tensor cores) first pass {smem[2]} B gx pass {smem[3]} B; "
-          f"list slots {n_list}, live slots (d < rc) {n_live} of "
-          f"{s * a * k} ({n_live / (s * a * k):.4f}); executed slots: fwd "
-          f"and fp32 bwd (4x16 chunks with a live slot) {n_rows}, bf16 bwd "
-          f"(16-slot tiles per {ITEM_ROWS}-row work item) first pass "
-          f"{n_exec} ({n_exec / n_live:.4f} x live), gx pass {n_exec_gx} "
+          f"memory per block fwd fp32 {smem[0]} B bf16 (tensor cores) "
+          f"{smem[3]} B, bwd fp32 {smem[1]} B, bwd bf16 (tensor cores) "
+          f"first pass {smem[2]} B gx pass {smem[3]} B; list slots "
+          f"{n_list}, live slots (d < rc) {n_live} of {s * a * k} "
+          f"({n_live / (s * a * k):.4f}); executed slots: fp32 fwd and bwd "
+          f"(4x16 chunks with a live slot) {n_rows}, bf16 (16-slot tiles "
+          f"per {ITEM_ROWS}-row work item) fwd and bwd first pass {n_exec} "
+          f"({n_exec / n_live:.4f} x live), bwd gx pass {n_exec_gx} "
           f"({n_exec_gx / n_live:.4f} x live); FLOP per slot fwd {fwd_slot} "
           f"bwd {bwd_slot} (no gx {nogx_slot}); live-slot FLOP fwd "
           f"{n_live * fwd_slot:.4e} bwd {n_live * bwd_slot:.4e}; executed "
-          f"FLOP fwd {n_rows * fwd_slot:.4e}, bwd fp32 (pass 1 + gx pass) "
+          f"FLOP fwd fp32 {n_rows * fwd_slot:.4e} bf16 "
+          f"{n_exec * fwd_slot:.4e}, bwd fp32 (pass 1 + gx pass) "
           f"{n_rows * nogx_slot + n_live * 3 * f:.4e}, bwd bf16 (pass 1 + gx "
           f"pass) {n_exec * nogx_slot + n_exec_gx * fwd_slot:.4e}; "
           f"neighbour build + source CSR {build_ms:.4f} ms")

@@ -94,7 +94,7 @@ dense_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   out += (size_t)s * A * F;
   const float coeff = *coeff_p;
 
-  load_weights<false>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
   if (tid < ROWS * 3) {
     int r = tid / 3, c = tid % 3;
     pr_s[r][c] = r0 + r < A ? pos[(r0 + r) * 3 + c] : 0.0f;
@@ -202,7 +202,7 @@ dense_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   gd += (size_t)s * A * A;
   const float coeff = *coeff_p;
 
-  load_weights<false>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
   if (tid < ROWS * 3) {
     int r = tid / 3, c = tid % 3;
     pr_s[r][c] = r0 + r < A ? pos[(r0 + r) * 3 + c] : 0.0f;
@@ -452,11 +452,12 @@ dense_bwd_mma_kernel(const float* __restrict__ pos,
 }
 
 // Forward at bf16, on the tensor cores: out of a work item's rows. The
-// ring of the backward with two of its four products (fwd_mma_tile): the
-// rows' live pairs (d < rc, i != j, in range) in 16-pair tiles, a0 and W on
-// the tensor cores, out_i += (W cut) x_j in ring order into the item's out
-// rows, which its warp owns. Without the float32 a0 that the backward keeps,
-// a thread needs at most 128 registers, so FW_WARPS = 16 warps share an SM.
+// ring of the backward with two of its four products (fwd_mma_items over
+// each row's A partners): the rows' live pairs (d < rc, i != j) in 16-pair
+// tiles, a0 and W on the tensor cores, out_i += (W cut) x_j in ring order
+// into the item's out rows, which its warp owns. Without the float32 a0 that
+// the backward keeps, a thread needs at most 128 registers, so FW_WARPS = 16
+// warps share an SM.
 __global__ void __launch_bounds__(FW_WARPS * 32, 1)
 dense_fwd_mma_kernel(const float* __restrict__ pos,
                      const float* __restrict__ x,
@@ -468,58 +469,15 @@ dense_fwd_mma_kernel(const float* __restrict__ pos,
                      float* __restrict__ out, int S, int A, int R, float rcut,
                      float arg_scale, float dcut_scale) {
   extern __shared__ float4 mma_smem4[];
-  const __nv_bfloat16 *w0_b, *w1_b;
-  const float *b0_s, *off_s;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* v_s = stage_mma_smem(mma_smem4, w0, b0, w1, offset, R, w0_b, w1_b,
-                              b0_s, off_s) +
-               warp * FW_WARP_FLOATS;                      // [16][DM_VLD]
-  float* out_s = v_s + 16 * DM_VLD;                        // [DM_RW][F]
-  int* ring = reinterpret_cast<int*>(out_s + DM_RW * F);  // [DM_RING]
-  const float coeff = *coeff_p;
-
-  const int n_groups = (A + DM_RW - 1) / DM_RW;
-  const int n_items = S * n_groups;
-  for (int item = blockIdx.x * FW_WARPS + warp; item < n_items;
-       item += gridDim.x * FW_WARPS) {
-    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
-    const float* ps = pos + (size_t)s * A * 3;
-    const float* xs = x + (size_t)s * A * F;
-    for (int e = lane; e < DM_RW * F; e += 32) out_s[e] = 0.0f;
-    __syncwarp();
-
-    int head = 0, tail = 0;
-    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
-      const int i = r0 + rr;
-      const float* pi = ps + i * 3;
-      for (int jb = 0; jb < A; jb += 32) {
-        int j = jb + lane;
-        bool live = false;
-        if (j < A) {
-          float d, cut, dcut, rel[3];
-          live = pair_geom(pi, ps + j * 3, j != i, rcut, arg_scale,
-                           dcut_scale, d, cut, dcut, rel);
-        }
-        tail = ring_push(ring, tail, live, (rr << 16) | j, lane);
-        for (; tail - head >= 16; head += 16)
-          fwd_mma_tile(ring, head, 16, r0, ps, xs, v_s, out_s, w0_b, w1_b,
-                       b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
-                       lane);
-      }
-    }
-    if (tail > head)
-      fwd_mma_tile(ring, head, tail - head, r0, ps, xs, v_s, out_s, w0_b,
-                   w1_b, b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
-                   lane);
-    float* os = out + (size_t)s * A * F;
-    for (int e = 4 * lane; e < DM_RW * F; e += 128) {
-      int i = r0 + e / F;
-      if (i < A)
-        *reinterpret_cast<float4*>(os + (size_t)i * F + e % F) =
-            *reinterpret_cast<const float4*>(out_s + e);
-    }
-    __syncwarp();  // out_s is read before the next item writes
-  }
+  fwd_mma_items(
+      mma_smem4, pos, x, w0, b0, w1, offset, coeff_p, out, S, A, R, rcut,
+      arg_scale, dcut_scale, [=](int, int) { return make_int2(0, A); },
+      [=](int, const float* ps, int i, int e, int& j) {
+        j = e;
+        float d, cut, dcut, rel[3];
+        return pair_geom(ps + i * 3, ps + j * 3, j != i, rcut, arg_scale,
+                         dcut_scale, d, cut, dcut, rel);
+      });
 }
 
 // Backward, pass 2: gpos[i] = -sum_j (gd_ij + gd_ji) u_ij. Grid: (row

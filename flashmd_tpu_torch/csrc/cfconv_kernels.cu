@@ -6,8 +6,9 @@
 // flashmd_tpu/ops/pallas/cfconv.py, batched over S molecules, on the padded
 // neighbour matrix idx [S, A, K] (int32) / mask [S, A, K] (bool):
 //
-//   cfconv_fwd  <- _fwd_kernel (:137)
-//     out[i] = sum_{k: mask} W_ik * cut_ik * x[idx[i, k]]     (conv_kernel)
+//   cfconv_fwd  <- _fwd_kernel (:137), conv_kernel (fp32),
+//     nbr_fwd_mma_kernel (bf16):
+//                  out[i] = sum_{k: mask} W_ik * cut_ik * x[idx[i, k]]
 //   cfconv_bwd  <- _bwd_kernel (:163), two or three launches:
 //     bwd_kernel (fp32), nbr_bwd_mma_kernel (bf16):
 //                  gd[i, k] = d(g_i . out_i)/d d_ik for every slot (one MLP
@@ -28,17 +29,16 @@
 // What bounds them on the H100: every live slot runs the two-layer filter
 // MLP, R*F + F*F = 22,784 multiply-adds at R = 50, F = 128 (twice that in
 // the backward's first pass), against a few hundred bytes of input per slot:
-// they are bound by arithmetic. At bf16 the backward runs on the tensor
-// cores over the live slots only (mask set and d < rc): its first pass is
-// the dense backward's ring over each row's K slots, its gx pass the
-// forward's two products over each atom's incoming live slots of the
-// source CSR, with W computed again instead of stored (both kernels'
-// notes below). conv_kernel (both tiers) and the fp32 backward do the
-// arithmetic as float32 FMA from shared memory on CUDA cores (operands
-// rounded to bf16 in conv_kernel's bf16 tier), with the tile of the dense
-// kernels; the fp32 gx_kernel does no MLP: it reads W back (512 B per live
-// slot) and is bound by memory. What the CUDA-core design does about the
-// bounds:
+// they are bound by arithmetic. At bf16 every kernel with a filter MLP runs
+// on the tensor cores over the live slots only (mask set and d < rc): the
+// forward and the backward's first pass are the dense kernels' ring over
+// each row's K slots, the backward's gx pass the forward's two products
+// over each atom's incoming live slots of the source CSR, with W computed
+// again instead of stored (the kernels' notes below). At fp32, conv_kernel
+// and the backward do the arithmetic as float32 FMA from shared memory on
+// CUDA cores, with the tile of the dense kernels; the fp32 gx_kernel does
+// no MLP: it reads W back (512 B per live slot) and is bound by memory.
+// What the CUDA-core design does about the bounds:
 //   - the [slots, F] MLP activations never reach device memory: a block owns
 //     4 rows and walks 16 of each row's entries per chunk, so one chunk is a
 //     64-slot tile held in registers and one shared [F, 64] tile; the 64
@@ -89,9 +89,8 @@ __device__ __forceinline__ int partner_of(
   return mask[slot] ? idx[slot] : -1;
 }
 
-// Forward: out[i] = sum_k W_ik * cut_ik * x[idx[i, k]]. Grid: (row tiles
-// of ROWS, molecules).
-template <bool BF16>
+// Forward at fp32: out[i] = sum_k W_ik * cut_ik * x[idx[i, k]]. Grid: (row
+// tiles of ROWS, molecules).
 __global__ void __launch_bounds__(THREADS, 1)
 conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
             const int* __restrict__ idx,
@@ -117,7 +116,7 @@ conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg;
   const float coeff = *coeff_p;
 
-  load_weights<BF16>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
   if (tid < ROWS * 3) {
     int r = tid / 3, c = tid % 3;
     pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
@@ -157,7 +156,7 @@ conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
     for (int e = tid; e < R * NP; e += THREADS) {
       int r = e / NP, p = e % NP;
       float dr = d_s[p] - off_s[r];
-      rbf_s[r * LDA + p] = op<BF16>(expf(coeff * (dr * dr)) * cut_s[p]);
+      rbf_s[r * LDA + p] = expf(coeff * (dr * dr)) * cut_s[p];
     }
     __syncthreads();
     float t[4][FPT] = {};
@@ -166,7 +165,7 @@ conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
     for (int c = 0; c < FPT; ++c) {
       int f = fg + 16 * c;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) t[i][c] = op<BF16>(tanhf(t[i][c] + b0_s[f]));
+      for (int i = 0; i < 4; ++i) t[i][c] = tanhf(t[i][c] + b0_s[f]);
       store4(a_s + f * LDA + p0, t, c);
     }
     __syncthreads();
@@ -230,7 +229,7 @@ bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
   const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg, row = pg >> 2;
   const float coeff = *coeff_p;
 
-  load_weights<false>(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
   if (tid < ROWS * 3) {
     int r = tid / 3, c = tid % 3;
     pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
@@ -544,7 +543,7 @@ nbr_bwd_mma_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
 // of DM_RW atoms; it walks each atom's CSR entries 32 at a time, votes the
 // live ones (d < rc; the CSR holds only mask slots) into the ring as
 // (atom - r0) << 16 | i, and runs them in 16-slot tiles through
-// fwd_mma_tile with g in place of x: the forward's two products, and gx_a
+// fwd_mma_items with g in place of x: the forward's two products, and gx_a
 // += (W cut) g_i as a running sum in CSR order. d is that of p_i - p_a,
 // bitwise the first pass's (p_a - p_i negated), so cut carries the same
 // bits and the live slots are the same.
@@ -559,60 +558,53 @@ nbr_gx_mma_kernel(const float* __restrict__ pos,
                   int S, int A, int K, int R, float rcut, float arg_scale,
                   float dcut_scale) {
   extern __shared__ float4 mma_smem4[];
-  const __nv_bfloat16 *w0_b, *w1_b;
-  const float *b0_s, *off_s;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* v_s = stage_mma_smem(mma_smem4, w0, b0, w1, offset, R, w0_b, w1_b,
-                              b0_s, off_s) +
-               warp * FW_WARP_FLOATS;                      // [16][DM_VLD]
-  float* out_s = v_s + 16 * DM_VLD;                        // [DM_RW][F]
-  int* ring = reinterpret_cast<int*>(out_s + DM_RW * F);  // [DM_RING]
-  const float coeff = *coeff_p;
+  fwd_mma_items(
+      mma_smem4, pos, g, w0, b0, w1, offset, coeff_p, gx, S, A, R, rcut,
+      arg_scale, dcut_scale,
+      [=](int s, int a) {
+        return make_int2(offsets[s * A + a], offsets[s * A + a + 1]);
+      },
+      [=](int s, const float* ps, int a, int e, int& i) {
+        i = slots[e] / K - s * A;
+        float d, cut, dcut, rel[3];
+        return pair_geom(ps + a * 3, ps + i * 3, true, rcut, arg_scale,
+                         dcut_scale, d, cut, dcut, rel);
+      });
+}
 
-  const int n_groups = (A + DM_RW - 1) / DM_RW;
-  const int n_items = S * n_groups;
-  for (int item = blockIdx.x * FW_WARPS + warp; item < n_items;
-       item += gridDim.x * FW_WARPS) {
-    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
-    const float* ps = pos + (size_t)s * A * 3;
-    const float* gs = g + (size_t)s * A * F;
-    for (int e = lane; e < DM_RW * F; e += 32) out_s[e] = 0.0f;
-    __syncwarp();
-
-    int head = 0, tail = 0;
-    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
-      const int row = s * A + r0 + rr;
-      const float* pa = ps + (r0 + rr) * 3;
-      const int end = offsets[row + 1];
-      for (int eb = offsets[row]; eb < end; eb += 32) {
-        int e = eb + lane, i = 0;
-        bool live = false;
-        if (e < end) {
-          i = slots[e] / K - s * A;
-          float d, cut, dcut, rel[3];
-          live = pair_geom(pa, ps + i * 3, true, rcut, arg_scale, dcut_scale,
-                           d, cut, dcut, rel);
-        }
-        tail = ring_push(ring, tail, live, (rr << 16) | i, lane);
-        for (; tail - head >= 16; head += 16)
-          fwd_mma_tile(ring, head, 16, r0, ps, gs, v_s, out_s, w0_b, w1_b,
-                       b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
-                       lane);
-      }
-    }
-    if (tail > head)
-      fwd_mma_tile(ring, head, tail - head, r0, ps, gs, v_s, out_s, w0_b,
-                   w1_b, b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
-                   lane);
-    float* gxs = gx + (size_t)s * A * F;
-    for (int e = 4 * lane; e < DM_RW * F; e += 128) {
-      int a = r0 + e / F;
-      if (a < A)
-        *reinterpret_cast<float4*>(gxs + (size_t)a * F + e % F) =
-            *reinterpret_cast<const float4*>(out_s + e);
-    }
-    __syncwarp();  // out_s is read before the next item writes
-  }
+// Forward at bf16, on the tensor cores: out of a work item's rows. A warp
+// votes each row's slots 32 at a time, all K of them (between Verlet
+// rebuilds a live slot may follow a dead one), a slot live where its mask
+// is set and d < rc (a masked slot holds the row's own index, at d = 1e-6,
+// so the mask decides; idx is read for the masked-in slots only), and
+// pushes the live ones as (row - r0) << 16 | idx[row][k]: the partner atom,
+// not the slot, as the forward stores nothing per slot. So the dense
+// forward's items and tile run unchanged (fwd_mma_items over [0, K) with
+// src = x): 16-slot tiles of the two products, out_i += (W cut) x_j in ring
+// order into the item's out rows, which its warp owns; rows with no live
+// slot stay zero.
+__global__ void __launch_bounds__(FW_WARPS * 32, 1)
+nbr_fwd_mma_kernel(const float* __restrict__ pos, const float* __restrict__ x,
+                   const int* __restrict__ idx,
+                   const unsigned char* __restrict__ mask,
+                   const float* __restrict__ w0, const float* __restrict__ b0,
+                   const float* __restrict__ w1,
+                   const float* __restrict__ offset,
+                   const float* __restrict__ coeff_p, float* __restrict__ out,
+                   int S, int A, int K, int R, float rcut, float arg_scale,
+                   float dcut_scale) {
+  extern __shared__ float4 mma_smem4[];
+  fwd_mma_items(
+      mma_smem4, pos, x, w0, b0, w1, offset, coeff_p, out, S, A, R, rcut,
+      arg_scale, dcut_scale, [=](int, int) { return make_int2(0, K); },
+      [=](int s, const float* ps, int i, int k, int& j) {
+        const size_t slot = ((size_t)s * A + i) * K + k;
+        if (!mask[slot]) return false;
+        j = idx[slot];
+        float d, cut, dcut, rel[3];
+        return pair_geom(ps + i * 3, ps + j * 3, true, rcut, arg_scale,
+                         dcut_scale, d, cut, dcut, rel);
+      });
 }
 
 bool sizes_ok(int S, int A, int K, int Fdim, int R) {
@@ -634,11 +626,16 @@ int cfconv_fwd(const float* pos, const int* idx, const unsigned char* mask,
   if (!sizes_ok(S, A, K, Fdim, R)) return (int)cudaErrorInvalidValue;
   float arg_scale = (float)(PI / (double)rcut);
   float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    void* args[] = {&pos, &x, &idx, &mask, &w0, &b0, &w1, &offset, &coeff,
+                    &out, &S, &A, &K, &R, &rcut, &arg_scale, &dcut_scale};
+    return (int)launch_persistent(nbr_fwd_mma_kernel, FW_WARPS, FW_SMEM,
+                                  S * ((A + DM_RW - 1) / DM_RW), st, args);
+  }
   void* args[] = {&pos, &x, &idx, &mask, &w0, &b0, &w1, &offset, &coeff,
                   &out, &A, &K, &R, &rcut, &arg_scale, &dcut_scale};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) return (int)launch(conv_kernel<true>, CONV_FLOATS, S, A, st, args);
-  return (int)launch(conv_kernel<false>, CONV_FLOATS, S, A, st, args);
+  return (int)launch(conv_kernel, CONV_FLOATS, S, A, st, args);
 }
 
 // gx may be null: then it is not computed (the block's input is
@@ -694,9 +691,10 @@ int cfconv_bwd(const float* pos, const int* idx, const unsigned char* mask,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory per block, in bytes: of conv_kernel (kind 0), of
-// the backward's first pass at fp32 (1) or at bf16 (2, tensor cores), of
-// the backward's gx pass at bf16 (3, tensor cores).
+// Dynamic shared memory per block, in bytes: of the forward at fp32 (kind
+// 0, conv_kernel), of the backward's first pass at fp32 (1) or at bf16 (2,
+// tensor cores), of the forward and of the backward's gx pass at bf16 (3,
+// tensor cores: both run fwd_mma_tile, with the same per-warp areas).
 int cfconv_smem_bytes(int kind) {
   if (kind == 3) return FW_SMEM;
   if (kind == 2) return NB_SMEM;

@@ -1,18 +1,19 @@
 // Device code shared by the exact-filter CFConv kernels of
 // cfconv_dense_kernels.cu (all pairs) and cfconv_kernels.cu (neighbour
-// matrix): the pair geometry; the CUDA-core kernels' 64-pair tile layout,
-// weight staging and float32-FMA tile product of the filter MLP; and the
-// tensor-core kernels' live-pair rings with their filter-MLP tiles, the
-// backward's four products (bwd_mma_tile) and the forward's two
-// (fwd_mma_tile).
+// matrix): the pair geometry; the fp32 CUDA-core kernels' 64-pair tile
+// layout, weight staging and float32-FMA tile product of the filter MLP;
+// and the tensor-core kernels' live-pair rings with their filter-MLP tiles,
+// the backward's four products (bwd_mma_tile) and the forward's two
+// (fwd_mma_tile, with the forward-tile kernels' item loop fwd_mma_items).
 //
 // CUDA-core tile layout: a block of THREADS threads owns ROWS rows and
 // walks their partners in chunks of COLS, so one chunk is NP = ROWS * COLS
 // pairs (p = row * COLS + col). Thread (pg = tid / 16, fg = tid % 16) holds
 // pairs p0 = 4 pg .. p0 + 3 (all of row pg / 4) and features fg + 16 c.
 //
-// Precision tiers: BF16 rounds the operands of the products to bf16 (round
-// to nearest even) through op<BF16>; everything else stays float32.
+// Precision tiers: the CUDA-core tile computes float32 only; the bf16 tier
+// runs on the tensor-core tiles below, with the operands of the products
+// rounded to bf16 (round to nearest even) and everything else float32.
 
 #pragma once
 
@@ -36,15 +37,6 @@ constexpr int W_FLOATS = RMAX * LDW + F * LDW;
 
 const double PI = 3.14159265358979323846;
 
-__device__ __forceinline__ float rnd_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float op(float v) {
-  return BF16 ? rnd_bf16(v) : v;
-}
-
 // Sum over the 16 lanes of a half warp; every lane gets the same bits.
 __device__ __forceinline__ float sum16(float v) {
 #pragma unroll
@@ -53,8 +45,7 @@ __device__ __forceinline__ float sum16(float v) {
 }
 
 // w0 [R, F] -> w0_s [RMAX][LDW] (rows >= R zero), w1 [F, F] -> w1_s
-// [F][LDW], both rounded in the bf16 tier; b0 and offsets as they are.
-template <bool BF16>
+// [F][LDW]; b0 and offsets as they are.
 __device__ void load_weights(const float* __restrict__ w0,
                              const float* __restrict__ b0,
                              const float* __restrict__ w1,
@@ -63,10 +54,10 @@ __device__ void load_weights(const float* __restrict__ w0,
                              float* off_s) {
   for (int e = threadIdx.x; e < RMAX * F; e += THREADS) {
     int r = e / F, f = e % F;
-    w0_s[r * LDW + f] = r < R ? op<BF16>(w0[r * F + f]) : 0.0f;
+    w0_s[r * LDW + f] = r < R ? w0[r * F + f] : 0.0f;
   }
   for (int e = threadIdx.x; e < F * F; e += THREADS)
-    w1_s[(e / F) * LDW + e % F] = op<BF16>(w1[e]);
+    w1_s[(e / F) * LDW + e % F] = w1[e];
   for (int e = threadIdx.x; e < F; e += THREADS) b0_s[e] = b0[e];
   for (int e = threadIdx.x; e < RMAX; e += THREADS)
     off_s[e] = e < R ? offset[e] : 0.0f;
@@ -588,6 +579,71 @@ __device__ __forceinline__ void fwd_mma_tile(
   float4 a = *o;
   *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
   __syncwarp();  // the ring and v_s are read before they are written again
+}
+
+// The body of a forward-tile kernel (FW_WARPS warps a block, FW_SMEM bytes
+// of dynamic shared memory at `smem`): w0 and w1 staged once per block;
+// then each warp owns work items of DM_RW rows of one molecule s. For each
+// row i it walks the entries e of span(s, i) = [begin, end), 32 at a time,
+// and vote(s, ps, i, e, j) (ps: the molecule's positions) says whether entry
+// e is live and sets its partner j; the live ones enter the ring as
+// (i - r0) << 16 | j and run through fwd_mma_tile, 16 at a time, then the
+// tail, summing (W cut) src[j] into the item's rows, which are stored to
+// out (rows with no live entry as zeros).
+template <typename Span, typename Vote>
+__device__ __forceinline__ void fwd_mma_items(
+    float4* smem, const float* __restrict__ pos,
+    const float* __restrict__ src, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ w1,
+    const float* __restrict__ offset, const float* __restrict__ coeff_p,
+    float* __restrict__ out, int S, int A, int R, float rcut,
+    float arg_scale, float dcut_scale, Span span, Vote vote) {
+  const __nv_bfloat16 *w0_b, *w1_b;
+  const float *b0_s, *off_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* v_s = stage_mma_smem(smem, w0, b0, w1, offset, R, w0_b, w1_b, b0_s,
+                              off_s) +
+               warp * FW_WARP_FLOATS;                      // [16][DM_VLD]
+  float* out_s = v_s + 16 * DM_VLD;                        // [DM_RW][F]
+  int* ring = reinterpret_cast<int*>(out_s + DM_RW * F);  // [DM_RING]
+  const float coeff = *coeff_p;
+
+  const int n_groups = (A + DM_RW - 1) / DM_RW;
+  const int n_items = S * n_groups;
+  for (int item = blockIdx.x * FW_WARPS + warp; item < n_items;
+       item += gridDim.x * FW_WARPS) {
+    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
+    const float* ps = pos + (size_t)s * A * 3;
+    const float* ss = src + (size_t)s * A * F;
+    for (int e = lane; e < DM_RW * F; e += 32) out_s[e] = 0.0f;
+    __syncwarp();
+
+    int head = 0, tail = 0;
+    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
+      const int2 range = span(s, r0 + rr);
+      for (int eb = range.x; eb < range.y; eb += 32) {
+        int e = eb + lane, j = 0;
+        bool live = e < range.y && vote(s, ps, r0 + rr, e, j);
+        tail = ring_push(ring, tail, live, (rr << 16) | j, lane);
+        for (; tail - head >= 16; head += 16)
+          fwd_mma_tile(ring, head, 16, r0, ps, ss, v_s, out_s, w0_b, w1_b,
+                       b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
+                       lane);
+      }
+    }
+    if (tail > head)
+      fwd_mma_tile(ring, head, tail - head, r0, ps, ss, v_s, out_s, w0_b,
+                   w1_b, b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
+                   lane);
+    float* os = out + (size_t)s * A * F;
+    for (int e = 4 * lane; e < DM_RW * F; e += 128) {
+      int i = r0 + e / F;
+      if (i < A)
+        *reinterpret_cast<float4*>(os + (size_t)i * F + e % F) =
+            *reinterpret_cast<const float4*>(out_s + e);
+    }
+    __syncwarp();  // out_s is read before the next item writes
+  }
 }
 
 // A persistent grid for a kernel of `warps` warps a block and `smem` bytes

@@ -30,14 +30,15 @@ with idx = j. The twin (``_slot_gd``, then ``_slot_sums``) scatters the
 column side with ``index_add_``; the kernels gather it through the source
 CSR of the list (neighborlist.py), with no atomics.
 
-On the card the bf16 backward runs on the tensor cores over the live slots
+On the card both bf16 kernels run on the tensor cores over the live slots
 only (mask set and d < rc, voted over all K slots of a row: between
-rebuilds the live slots of a row need not be its first), writing gd = 0
-for every other slot: exact, as ``_slot_gd`` is zero wherever cut and dcut
-are. Its gx pass computes W of each live incoming slot again over the
-source CSR, so it needs no [S, A, K, F] workspace; the fp32 backward
-stores W there for its gx pass (1.5 GB at S = 128, A = 266, K = 88). The
-forward runs float32 tiles at both tiers.
+rebuilds the live slots of a row need not be its first). The forward adds
+nothing for the others, the backward writes gd = 0 for them: exact, as
+the twins' MLP products enter only through cut and dcut, which are zero
+there. The backward's gx pass computes W of each live incoming slot again
+over the source CSR, so it needs no [S, A, K, F] workspace; the fp32
+backward stores W there for its gx pass (1.5 GB at S = 128, A = 266,
+K = 88). At fp32 both kernels run float32 tiles on CUDA cores.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each

@@ -752,9 +752,10 @@ def test_nbr_kernels_match_twins(dev, precision, capacity):
     assert none is None and torch.equal(gpos_only, gpos)
 
 
-# The tensor-core neighbour-matrix backward (bf16): each work item's live
-# slots in 16-slot tiles (gd = 0 for the others), gx over the source CSR
-# with W computed again; ragged atom counts.
+# The tensor-core neighbour-matrix kernels (bf16): each work item's live
+# slots in 16-slot tiles (the forward adds nothing for the others, the
+# backward writes gd = 0 for them), gx over the source CSR with W computed
+# again; ragged atom counts.
 NBR_ATOMS = [33, 70, 266]
 
 
@@ -768,16 +769,12 @@ def _not_a_prefix(pos, nbr):
     return bool((live & dead_before).any())
 
 
-@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
-@pytest.mark.parametrize("capacity", [96, 32])
-@pytest.mark.parametrize("a", NBR_ATOMS)
-def test_nbr_tensor_core_bwd_matches_twin(dev, a, capacity, stale):
-    """gpos and gx, with and without gx, against the bf16 twin (2e-3 of
-    max|twin|), two launches bitwise equal, on a symmetric list (capacity
-    96) and an overflowed one (32, where a row has more neighbours), fresh
-    or with the atoms moved after the build (a stale list, whose live
-    slots are not a prefix of their row). Atoms uniform in a cube at about
-    40 within RCUT + 1 of an inner atom."""
+def _nbr_tc_case(dev, a, capacity, stale):
+    """(pos, x, g, filter weights, list): a symmetric list (capacity 96)
+    or an overflowed one (32, where a row has more neighbours), fresh or
+    with the atoms moved after the build (a stale list, whose live slots
+    are not a prefix of their row). Atoms uniform in a cube at about 40
+    within RCUT + 1 of an inner atom."""
     _, x, g, w = _dense_inputs(dev, 2, a, seed=a)
     gen = torch.Generator(device=dev).manual_seed(a + 1)
     side = (a / 0.0072) ** (1 / 3)
@@ -788,6 +785,48 @@ def test_nbr_tensor_core_bwd_matches_twin(dev, a, capacity, stale):
     if stale:
         pos = pos + 0.5 * torch.randn(pos.shape, generator=gen, device=dev)
         assert _not_a_prefix(pos, nbr)
+    return pos, x, g, w, nbr
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("capacity", [96, 32])
+@pytest.mark.parametrize("a", NBR_ATOMS)
+def test_nbr_tensor_core_fwd_matches_twin(dev, a, capacity, stale):
+    """out against the bf16 twin (2e-3 of max|twin|), two launches bitwise
+    equal (_nbr_tc_case)."""
+    pos, x, _, w, nbr = _nbr_tc_case(dev, a, capacity, stale)
+    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+    again = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+    assert _rel(out, ref) <= BOUNDS["bf16"]["fwd"]
+
+
+@pytest.mark.parametrize("a", NBR_ATOMS)
+def test_nbr_tensor_core_fwd_all_dead(dev, a):
+    """A list built on compact positions, then every atom moved onto a
+    grid of spacing 1.2 RCUT: every listed slot at d >= RCUT. out is
+    exactly zero, as the twin's."""
+    _, x, _, w = _dense_inputs(dev, 2, a, seed=a)
+    nbr = batched_radius_neighbor_matrix(
+        _gd_layout(dev, 2, a, "compact", seed=a), RCUT + 1.0, 32)
+    assert bool(nbr.mask.any())
+    pos = _gd_layout(dev, 2, a, "none", seed=a)
+    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) == 0.0
+    assert float(out.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("capacity", [96, 32])
+@pytest.mark.parametrize("a", NBR_ATOMS)
+def test_nbr_tensor_core_bwd_matches_twin(dev, a, capacity, stale):
+    """gpos and gx, with and without gx, against the bf16 twin (2e-3 of
+    max|twin|), two launches bitwise equal (_nbr_tc_case)."""
+    pos, x, g, w, nbr = _nbr_tc_case(dev, a, capacity, stale)
     csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
     for need_gx in (True, False):
         out = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16",
@@ -806,13 +845,17 @@ def test_nbr_tensor_core_bwd_matches_twin(dev, a, capacity, stale):
 
 
 def test_nbr_bwd_bitwise_reproducible(dev):
+    """The bf16 backward and forward, each bitwise equal over launches."""
     pos, x, g, w, nbr = _nbr_case(dev, 2, 90, 32, seed=1)
     csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
     first = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16")
+    first_out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
     for _ in range(3):
         again = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16")
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
+        out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+        assert torch.equal(out, first_out)
 
 
 def test_nbr_wrappers_refuse_what_kernels_do_not_take(dev):

@@ -1,20 +1,23 @@
-"""The invariant that lets the tensor-core neighbour-matrix backward skip
+"""The invariant that lets the tensor-core neighbour-matrix kernels skip
 dead slots.
 
-``cfconv_bwd`` at bf16 votes the live slots of its rows (mask set and
-d < rc, over all K slots of a row) and runs the four filter-MLP products
-over those only, writing gd = 0 for every other slot of the [S, A, K]
-workspace; its gx pass runs the two forward products over the live
-incoming slots of the source CSR only. That is exact because the twin's
-per-slot distance gradient and gx message vanish wherever cut and dcut
-do. Here, on the CPU, at fp32 and bf16, on a symmetric list and on an
-overflowed (asymmetric) one, fresh or stale (the atoms moved after the
-build, so a row's live slots are not all its first), with a ragged atom
-count: the twin's gd (``cfconv._slot_gd``) is exactly zero on every
-masked slot (which holds the row's own index, at d = 1e-6 < rc) and every
-slot at d >= rc; and a copy of the twin with every MLP product of those
+``cfconv_fwd`` and ``cfconv_bwd`` at bf16 vote the live slots of their
+rows (mask set and d < rc, over all K slots of a row) and run the filter
+MLP's products over those only: the forward adds nothing for the other
+slots, the backward writes gd = 0 for them into its [S, A, K] workspace;
+its gx pass runs the two forward products over the live incoming slots
+of the source CSR only. That is exact because the twins' message, per-slot
+distance gradient and gx message vanish wherever cut and dcut do. Here,
+on the CPU, at fp32 and bf16, on a symmetric list and on an overflowed
+(asymmetric) one, fresh or stale (the atoms moved after the build, so a
+row's live slots are not all its first), with a ragged atom count: the
+twin's gd (``cfconv._slot_gd``) is exactly zero on every masked slot
+(which holds the row's own index, at d = 1e-6 < rc) and every slot at
+d >= rc; a copy of the backward twin with every MLP product of those
 slots zeroed gives gpos and gx equal (torch.equal) to
-``cfconv_bwd_plain``, with and without gx.
+``cfconv_bwd_plain``, with and without gx; and a copy of the forward twin
+with both of its products zeroed there gives out equal to
+``cfconv_fwd_plain``.
 """
 
 import numpy as np
@@ -146,3 +149,28 @@ def test_skipping_dead_slots_is_exact(precision, kind, stale, need_gx):
         assert torch.equal(gx, gx_ref)
     else:
         assert gx is None and gx_ref is None
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("kind", ["symmetric", "overflowed"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_forward_skipping_dead_slots_is_exact(precision, kind, stale):
+    """cfconv_fwd_plain with both MLP products of the dead slots zeroed
+    (rbf @ w0, a0 @ w1) equals the twin bitwise."""
+    pos, nbr = _case(kind, stale, seed=4)
+    x, _, (w0, b0, w1, offset, coeff) = _operands(seed=5)
+    geometry, dead = _geometry(pos, nbr, offset, coeff)
+    _check_layout(nbr, kind, stale, dead)
+    keep = ~dead[..., None]
+
+    def run(t):
+        return torch.where(keep, t, torch.zeros_like(t))
+
+    _, _, cut, _, _, rbf = geometry
+    a0 = torch.tanh(run(_op(rbf, precision) @ _op(w0, precision)) + b0)
+    w = run(_op(a0, precision) @ _op(w1, precision))
+    out = torch.sum(w * cut[..., None] * cf._gather_rows(x, nbr.idx), dim=2)
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, w0, b0, w1, offset,
+                              coeff, RCUT, precision)
+    assert torch.equal(out, ref)
+    assert bool((ref != 0.0).any())

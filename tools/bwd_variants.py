@@ -9,7 +9,7 @@ ptxas' registers and spills of its tensor-core kernels are printed, then
 the function at its slice's shapes is held against its twin and timed
 with CUDA events (batch 128, 266 beads, F = 128, bf16; the combined cheb
 backward also at bf16x3, on the bf16x3 slice's (64, 96) fit; open
-boundaries; the neighbour-matrix backward on the pallas slice's list):
+boundaries; the neighbour-matrix kernels on the pallas slice's list):
 
 * cheb_bwd_gxgd (cheb_gxgd_mma_kernel, the per-block slice's fit):
   base   -- the source as it is: at bf16 three blocks per SM (at most
@@ -23,6 +23,11 @@ boundaries; the neighbour-matrix backward on the pallas slice's list):
   inline -- ga0's x_j and g_i loaded in their own k-step, not one ahead
             (the gx instantiation then spills 12 B).
 * dense_cfconv_fwd (dense_fwd_mma_kernel):
+  base   -- the source as it is (16 warps, at most 128 registers);
+  w8     -- 8 warps a block (up to 255 registers);
+  w12    -- 12 warps a block (up to 168 registers);
+  rw2    -- 2 rows per work item.
+* cfconv_fwd (nbr_fwd_mma_kernel), as dense_cfconv_fwd:
   base   -- the source as it is (16 warps, at most 128 registers);
   w8     -- 8 warps a block (up to 255 registers);
   w12    -- 12 warps a block (up to 168 registers);
@@ -108,6 +113,12 @@ VARIANTS = {
         "inline": {TILE: {GA_AHEAD: GA_LOOP}},
     },
     ("cfconv_dense_kernels.cu", "dense_fwd_mma_kernel", "dense_cfconv_fwd"): {
+        "base": {},
+        "w8": {TILE: {FW: FW.replace("16;", "8; ")}},
+        "w12": {TILE: {FW: FW.replace("16;", "12;")}},
+        "rw2": {TILE: {RW: RW.replace("4;", "2;")}},
+    },
+    ("cfconv_kernels.cu", "nbr_fwd_mma_kernel", "cfconv_fwd"): {
         "base": {},
         "w8": {TILE: {FW: FW.replace("16;", "8; ")}},
         "w12": {TILE: {FW: FW.replace("16;", "12;")}},
@@ -269,23 +280,34 @@ def nbr_cases(libs, dev):
     s, a, k = nbr.idx.shape
     r, f = w[0].shape
     ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, rcut, "bf16")
+    ref_fwd = (cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, rcut,
+                                   "bf16"),)
     for (fn, name), lib in libs.items():
-        if fn != "cfconv_bwd":
-            continue
         gd = torch.empty(s, a, k, device=dev)
         gpos = torch.empty_like(pos)
         gx = torch.empty_like(g)
+        out = torch.empty_like(x)
+        if fn == "cfconv_bwd":
+            def call():
+                rc = lib.cfconv_bwd(
+                    _ptr(pos), _ptr(nbr.idx), _ptr(nbr.mask),
+                    _ptr(nbr.csr_offsets), _ptr(nbr.csr_slots), _ptr(x),
+                    _ptr(g), *(_ptr(t) for t in w), _ptr(gd), None,
+                    _ptr(gpos), _ptr(gx), s, a, k, f, r, rcut, 1, _stream())
+                if rc:
+                    raise SystemExit(f"FAILED: {name}: CUDA {rc}")
 
-        def call():
-            rc = lib.cfconv_bwd(
-                _ptr(pos), _ptr(nbr.idx), _ptr(nbr.mask),
-                _ptr(nbr.csr_offsets), _ptr(nbr.csr_slots), _ptr(x), _ptr(g),
-                *(_ptr(t) for t in w), _ptr(gd), None, _ptr(gpos), _ptr(gx),
-                s, a, k, f, r, rcut, 1, _stream())
-            if rc:
-                raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+            report(f"{fn} {name} bf16", call, (gpos, gx), ref)
+        elif fn == "cfconv_fwd":
+            def call():
+                rc = lib.cfconv_fwd(
+                    _ptr(pos), _ptr(nbr.idx), _ptr(nbr.mask), _ptr(x),
+                    *(_ptr(t) for t in w), _ptr(out), s, a, k, f, r, rcut,
+                    1, _stream())
+                if rc:
+                    raise SystemExit(f"FAILED: {name}: CUDA {rc}")
 
-        report(f"{fn} {name} bf16", call, (gpos, gx), ref)
+            report(f"{fn} {name} bf16", call, (out,), ref_fwd)
 
 
 def main():
