@@ -96,11 +96,31 @@ Phases (each prints its lines; any failure exits non-zero):
                per force evaluation; n_max against K; second-half
                throughput; then torch.profiler over PROFILE_STEPS more
                steps: device time by kernel and the device idle share.
-8. fidelity -- max|F - F_dense_fp32| / max|F_dense_fp32| at batch 4: the
-               cheb bf16 (48, 64), the dense bf16 and the pallas bf16
-               force fields against the dense fp32 one on the same
-               weights and positions, with and without the priors, and
-               the cheb bf16x3 (64, 96) one (printed, not gated).
+8. xla      -- the exact xla path (plain PyTorch, no kernel of its own:
+               every kernel counter must stay 0 on it). Forces at batch 4:
+               bf16 card vs CPU (FORCE_BOUND); fp32 against pallas fp32
+               and dense fp32, and fp32 folded periodic (the kernels'
+               cells) vs open, each CROSS_BOUND. The slice: the zoo's
+               default configuration cgschnet_1enh_like(message_passing=
+               "xla") (bf16, K from the zoo rule, skin 1.0, remat
+               "block") for STEPS steps with throughput and a profiler
+               window; at batch 128 two force evaluations bitwise equal
+               (forces and energies) and the peak device memory of one
+               under remat "block" and "none" (block gated below none);
+               XLA_CELL_STEPS steps under the periodic slice's cubic
+               60 A cell (minimum image, Verlet rebuild under the cell).
+               Then XLA_IMAGE_ATOMS beads in XLA_IMAGE_CELL, below the
+               minimum-image regime: the engine switches to image
+               replication, XLA_IMAGE_STEPS steps stay finite, and the
+               fp32 network forces equal those of the 2 x 1 x 1
+               supercell without images (CROSS_BOUND).
+9. fidelity -- max|F - F_dense_fp32| / max|F_dense_fp32| at batch 4: the
+               cheb bf16 (48, 64), the dense bf16, the pallas bf16 and
+               the xla bf16 force fields against the dense fp32 one on
+               the same weights and positions, with and without the
+               priors, and the cheb bf16x3 (64, 96) one; the xla one
+               also with float32 cotangents in its filter MLP (printed,
+               not gated).
 
 Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -170,6 +190,16 @@ OVERFLOW_CAPACITY = 32
 # gpos and gx take 29 MB at the pallas slice's shape, the [S, A, K, F]
 # workspace that the bf16 backward must not allocate 1.5 GB.
 NBR_BWD_MEMORY_LIMIT = 100 * 10**6
+# The xla slice: its run under the periodic slice's cubic cell, and the
+# image-replicated run at reduced size. That run's cell is below the
+# minimum-image regime along x only (15 A < 2 (rcut + skin) = 22 A, and
+# < 2 rcut: a pair has two x images within rcut), 21 A along y and z, so
+# that its 2 x 1 x 1 supercell (30 x 21 x 21) is sound at rcut without
+# images.
+XLA_CELL_STEPS = 40
+XLA_IMAGE_ATOMS = 64
+XLA_IMAGE_STEPS = 10
+XLA_IMAGE_CELL = np.diag([15.0, 21.0, 21.0])
 # benchmarks/pbc_ab.py's cell, and a sound triclinic one (smallest
 # perpendicular width 59.04 A; rows are lattice vectors).
 BOX = 60.0
@@ -1057,7 +1087,7 @@ def phase_periodic_forces(dev, label="cheb periodic"):
           f"forces {label}: card and CPU disagree")
 
 
-def phase_image_check(dev):
+def phase_image_check(dev, message_passing="cheb"):
     """fp32 network forces (priors removed) on positions folded into the
     kernels' cells, with the cells, vs on the unfolded positions with open
     boundaries: one function while every molecule's diameter is more than
@@ -1065,7 +1095,8 @@ def phase_image_check(dev):
     has a second image within rcut)."""
     from flashmd_tpu_torch.ops.neighborlist import min_cell_width
 
-    ff, cfgs = _force_fields(dev, FORCE_BATCH, precision="fp32")
+    ff, cfgs = _force_fields(dev, FORCE_BATCH, precision="fp32",
+                             message_passing=message_passing)
     ff = ff.replace(priors={})
     cells = kernel_cells(FORCE_BATCH)
     pos = np.stack([c.pos for c in cfgs])
@@ -1079,10 +1110,11 @@ def phase_image_check(dev):
     f_cell = _forces(ff, with_cells(cfgs, cells, folded=True), dev)[1]
     f_open = _forces(ff, cfgs, dev)[1]
     rel = float((f_cell - f_open).abs().max() / f_open.abs().max())
-    print(f"forces: periodic fp32 (folded, cells) vs open fp32 (unfolded), "
-          f"network only, batch {FORCE_BATCH}: max|dF|/max|F| = {rel:.3e} "
-          f"(bound {CROSS_BOUND:.0e})")
-    check(rel <= CROSS_BOUND, "periodic and open fp32 forces disagree")
+    print(f"forces: {message_passing} periodic fp32 (folded, cells) vs "
+          f"open fp32 (unfolded), network only, batch {FORCE_BATCH}: "
+          f"max|dF|/max|F| = {rel:.3e} (bound {CROSS_BOUND:.0e})")
+    check(rel <= CROSS_BOUND,
+          f"{message_passing}: periodic and open fp32 forces disagree")
 
 
 def phase_cross_check(dev):
@@ -1107,14 +1139,43 @@ def phase_cross_check(dev):
     check(rel <= CROSS_BOUND, "pallas and dense fp32 forces disagree")
 
 
+class _RoundForwardOnly(torch.autograd.Function):
+    """bf16 rounding whose backward passes the cotangent through in
+    float32 (autograd's cast rounds it to bf16, as JAX's does)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+@contextlib.contextmanager
+def float32_cotangents():
+    """models.mlp's bf16 rounding with float32 cotangents, for the block."""
+    from flashmd_tpu_torch.models import mlp
+
+    old = mlp.round_bf16
+    mlp.round_bf16 = _RoundForwardOnly.apply
+    try:
+        yield
+    finally:
+        mlp.round_bf16 = old
+
+
 def phase_fidelity(dev):
-    """Printed, not gated: the (48, 64) frontier on this card is open."""
+    """Printed, not gated: the (48, 64) frontier on this card is open. The
+    xla bf16 field also with float32 cotangents in its filter MLP, which
+    tells its own bf16 error from the cotangent rounding at the casts."""
     ff_c, cfgs = _force_fields(dev, FORCE_BATCH)
     ff_d, _ = _force_fields(dev, FORCE_BATCH, precision="fp32",
                             message_passing="dense")
     ff_db, _ = _force_fields(dev, FORCE_BATCH, message_passing="dense")
     ff_pb, _ = _force_fields(dev, FORCE_BATCH, message_passing="pallas")
     ff_x3, _ = _force_fields(dev, FORCE_BATCH, precision="bf16x3")
+    ff_xla, _ = _force_fields(dev, FORCE_BATCH, message_passing="xla")
     for label, keep_priors in (("total", True), ("network only", False)):
         def forces(ff):
             ff = ff if keep_priors else ff.replace(priors={})
@@ -1126,11 +1187,225 @@ def phase_fidelity(dev):
         rel_dense = float((forces(ff_db) - f_ref).abs().max()) / scale
         rel_pallas = float((forces(ff_pb) - f_ref).abs().max()) / scale
         rel_x3 = float((forces(ff_x3) - f_ref).abs().max()) / scale
+        rel_xla = float((forces(ff_xla) - f_ref).abs().max()) / scale
+        with float32_cotangents():
+            rel_xla32 = float((forces(ff_xla) - f_ref).abs().max()) / scale
         print(f"fidelity: {label} forces, batch {FORCE_BATCH}, max|F - "
               f"F_dense_fp32|/max|F_dense_fp32|: cheb bf16 (48, 64) d_min "
               f"2.0 = {rel_cheb:.4e}; dense bf16 = {rel_dense:.4e}; pallas "
               f"bf16 = {rel_pallas:.4e}; cheb bf16x3 (64, 96) d_min 2.0 = "
-              f"{rel_x3:.4e}")
+              f"{rel_x3:.4e}; xla bf16 = {rel_xla:.4e} (float32 cotangents "
+              f"{rel_xla32:.4e})")
+
+
+class AllKernels:
+    """The launch counters of every kernel module, read and set to 0 as
+    one (run_slice's ``kernels``): a path that runs none of the kernels
+    must leave every counter at 0."""
+
+    @staticmethod
+    def modules():
+        from flashmd_tpu_torch.ops import cfconv, cfconv_dense, cheb_kernel
+
+        return (cheb_kernel, cfconv_dense, cfconv)
+
+    @classmethod
+    def reset_launch_counts(cls):
+        for mod in cls.modules():
+            mod.reset_launch_counts()
+
+    @classmethod
+    def launch_counts(cls):
+        return {k: v for mod in cls.modules()
+                for k, v in mod.launch_counts().items()}
+
+    @classmethod
+    def zeros(cls):
+        return dict.fromkeys(cls.launch_counts(), 0)
+
+
+def phase_xla_forces(dev):
+    """The exact xla path at batch 4 on the start positions: fp32 against
+    the pallas and the dense fp32 force fields (one function), with every
+    kernel counter at 0 over the xla evaluations; bf16 card vs CPU is
+    phase_forces(dev, "xla")."""
+    ff_x, cfgs = _force_fields(dev, FORCE_BATCH, precision="fp32",
+                               message_passing="xla")
+    AllKernels.reset_launch_counts()
+    f_x = _forces(ff_x, cfgs, dev)[1]
+    counts = AllKernels.launch_counts()
+    check(counts == AllKernels.zeros(), f"xla launched kernels: {counts}")
+    for other in ("pallas", "dense"):
+        ff_o, _ = _force_fields(dev, FORCE_BATCH, precision="fp32",
+                                message_passing=other)
+        f_o = _forces(ff_o, cfgs, dev)[1]
+        rel = float((f_x - f_o).abs().max() / f_o.abs().max())
+        print(f"forces: xla fp32 vs {other} fp32, batch {FORCE_BATCH} (K "
+              f"{ff_x.neighbor_capacity}): max|dF|/max|F| = {rel:.3e} (bound "
+              f"{CROSS_BOUND:.0e})")
+        check(rel <= CROSS_BOUND, f"xla and {other} fp32 forces disagree")
+
+
+def phase_xla_batch(ff, cfgs, dev):
+    """At batch 128: two force evaluations (list build included) bitwise
+    equal in forces and energies, then the peak device memory of one
+    evaluation under remat "block" and "none"."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+
+    system = collate(cfgs, beta=1.67, device=dev)
+    args = (system.pos, system.atom_types)
+    e1, f1, _ = compute_energy_forces(ff, *args)
+    e2, f2, _ = compute_energy_forces(ff, *args)
+    same = bool(torch.equal(f1, f2) and torch.equal(e1, e2))
+    print(f"forces: xla bf16 batch {BATCH}: two evaluations bitwise equal "
+          f"(forces and energies) = {same}; max|dF| = "
+          f"{float((f1 - f2).abs().max()):.3e}")
+    check(same, "xla forces or energies differ between two evaluations")
+    del e1, f1, e2, f2
+    peaks = {}
+    for remat in ("block", "none"):
+        one = ff.replace(schnet_config=dataclasses.replace(ff.schnet_config,
+                                                           remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = compute_energy_forces(one, *args)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        del out
+        print(f"memory: xla bf16 batch {BATCH} A={N_ATOMS} K "
+              f"{ff.neighbor_capacity}, one force evaluation, remat "
+              f"{remat!r}: peak {peaks[remat]} B ({peaks[remat] / 1e9:.3f} "
+              f"GB), {peaks[remat] - base} B above the "
+              f"{base / 1e9:.3f} GB held before it")
+    w_bytes = BATCH * N_ATOMS * ff.neighbor_capacity * 128 * 4
+    print(f"memory: one [S, A, K, F] float32 tensor at this shape: {w_bytes} "
+          f"B ({w_bytes / 1e9:.3f} GB); peak none / block = "
+          f"{peaks['none'] / peaks['block']:.3f}")
+    check(peaks["block"] < peaks["none"],
+          "remat='block' does not lower the peak memory")
+    gather_times(ff, system.pos, dev)
+
+
+def gather_times(ff, pos, dev):
+    """The xla path's neighbour gather of h [S, A, F] on the slice's list
+    (CUDA events): forward, and forward plus the CSR segment-sum backward,
+    beside index_add_ (atomic, not deterministic; used nowhere in the
+    port) on the same cotangents."""
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+    from flashmd_tpu_torch.ops.gather import neighbor_gather
+
+    nbr = build_neighbors(ff, pos, skin=1.0)
+    s, a, k = nbr.idx.shape
+    gen = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn(s, a, 128, generator=gen, device=dev, requires_grad=True)
+    cot = torch.randn(s, a, k, 128, generator=gen, device=dev)
+    cot = cot * nbr.mask[..., None]
+    flat = (torch.arange(s, device=dev)[:, None, None] * a
+            + nbr.idx.long()).reshape(-1)
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: neighbor_gather(h, nbr))
+    both = cuda_time_ms(
+        lambda: torch.autograd.grad(neighbor_gather(h, nbr), h, cot))
+    atomic = cuda_time_ms(lambda: torch.zeros(s * a, 128, device=dev)
+                          .index_add_(0, flat, cot.reshape(-1, 128)))
+    print(f"gather: h [{s}, {a}, 128] at K {k} ({int(nbr.mask.sum())} live "
+          f"slots): forward {fwd:.3f} ms, forward + CSR segment-sum backward "
+          f"{both:.3f} ms (backward {both - fwd:.3f} ms); index_add_ on the "
+          f"same cotangents {atomic:.3f} ms")
+
+
+def image_configs(dev, cell, copies=1):
+    """The xla fp32 field at XLA_IMAGE_ATOMS beads with its priors removed,
+    and its first FORCE_BATCH configurations in ``cell``, each repeated
+    ``copies`` times along the cell's first lattice vector (a supercell,
+    whose first lattice vector is ``copies`` times as long)."""
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=XLA_IMAGE_ATOMS,
+                                  batch_size=FORCE_BATCH, precision="fp32",
+                                  message_passing="xla", device=dev)
+    big = np.array(cell, dtype=np.float64)
+    big[0] *= copies
+    return ff.replace(priors={}), [
+        dataclasses.replace(
+            c, pos=np.concatenate([c.pos + r * big[0] / copies
+                                   for r in range(copies)]),
+            atom_types=np.tile(c.atom_types, copies),
+            masses=np.tile(c.masses, copies), neighbor_lists={}, cell=big,
+        )
+        for c in cfgs
+    ]
+
+
+def phase_xla_images(dev, smi):
+    """The image-replicated run at reduced size: XLA_IMAGE_ATOMS beads in
+    XLA_IMAGE_CELL, where rcut + skin reaches past half the width, so the
+    engine switches the xla field to image replication; XLA_IMAGE_STEPS
+    steps stay finite with every kernel counter at 0. Then fp32 network
+    forces against the same system as a 2 x 1 x 1 supercell without
+    images (tests/models/test_pbc_images.py::test_supercell_invariance),
+    within CROSS_BOUND of max|F|. K holds every neighbour within rcut +
+    skin, counted once with a capacity of every candidate column."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+    from flashmd_tpu_torch.ops.neighborlist import (
+        compute_image_shifts,
+        suggest_capacity,
+    )
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    ff, cfgs = image_configs(dev, XLA_IMAGE_CELL)
+    skin = 1.0
+    images = compute_image_shifts(XLA_IMAGE_CELL, ff.rcut + skin)
+    probe = ff.replace(pbc_images=tuple(map(tuple, images.tolist())),
+                       neighbor_capacity=len(images) * XLA_IMAGE_ATOMS)
+    system = collate(cfgs, device=dev)
+    n_true = int(build_neighbors(probe, system.pos, skin=skin,
+                                 cell=system.cell).n_max.max())
+    cap = suggest_capacity(n_true, slack=1.35)
+    ff = ff.replace(neighbor_capacity=cap)
+    sim = LangevinSimulation(
+        dt=0.004, friction=1.0, n_timesteps=XLA_IMAGE_STEPS,
+        save_interval=XLA_IMAGE_STEPS // 2, random_seed=103838, device=dev,
+        neighbor_skin=skin,
+    )
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    bound = sim.model.pbc_images
+    check(bound is not None, "the engine did not switch to image replication")
+    AllKernels.reset_launch_counts()
+    coords = sim.simulate()
+    counts = AllKernels.launch_counts()
+    n_max = int(sim.final_carry["nbr_n_max"])
+    finite = bool(np.isfinite(coords).all())
+    print(f"xla images: {XLA_IMAGE_STEPS} steps batch {FORCE_BATCH} "
+          f"A={XLA_IMAGE_ATOMS} fp32 network in cell diag"
+          f"{np.diag(XLA_IMAGE_CELL).tolist()} (rcut {ff.rcut} + skin "
+          f"{skin}): switched to {len(bound)} lattice images; K {cap} (true "
+          f"max {n_true} at the start), n_max over the run {n_max}; "
+          f"finite={finite}; every kernel counter 0: "
+          f"{counts == AllKernels.zeros()} on {smi}")
+    check(finite and coords.shape[1] == 2, "xla images: bad trajectory")
+    check(n_max <= cap, "xla images: the list overflowed")
+    check(counts == AllKernels.zeros(), "xla images launched kernels")
+
+    e_s, f_s = _forces(sim.model, cfgs, dev)
+    ff_super, super_cfgs = image_configs(dev, XLA_IMAGE_CELL, copies=2)
+    e_b, f_b = _forces(ff_super.replace(neighbor_capacity=cap), super_cfgs,
+                       dev)
+    a = XLA_IMAGE_ATOMS
+    rel = max(float((f_b[:, r * a:(r + 1) * a] - f_s).abs().max())
+              for r in range(2)) / float(f_s.abs().max())
+    e_rel = float((e_b - 2 * e_s).abs().max() / (2 * e_s).abs().max())
+    print(f"forces: xla images vs the 2 x 1 x 1 supercell without images "
+          f"(cell diag{np.diag(super_cfgs[0].cell).tolist()}), fp32 network, "
+          f"batch {FORCE_BATCH}: max|dF|/max|F| = {rel:.3e}, "
+          f"max|E_super - 2 E|/max|2 E| = {e_rel:.3e} (bound "
+          f"{CROSS_BOUND:.0e})")
+    check(rel <= CROSS_BOUND and e_rel <= CROSS_BOUND,
+          "xla images and the supercell disagree")
 
 
 def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
@@ -1204,10 +1479,12 @@ def run_bf16x3_slices(ff, cfgs, pbc_cfgs, dev, bf16_tp, smi):
     return out
 
 
-def profile_steps(sim, dev, steps, label):
+def profile_steps(sim, dev, steps, label, ops=0):
     """torch.profiler over ``steps`` more steps of a simulated run: the
     kernels by device time, and the device's busy and idle share of the
-    wall time (kernels run on one stream, so their times add)."""
+    wall time (kernels run on one stream, so their times add); with
+    ``ops``, also that many PyTorch ops by the device time of the kernels
+    each launched itself."""
     import time
 
     from torch.autograd import DeviceType
@@ -1241,6 +1518,15 @@ def profile_steps(sim, dev, steps, label):
         ms = e.self_device_time_total / 1e3 / steps
         print(f"profile: {label}: {ms:8.3f} ms/step {e.count / steps:6.1f}"
               f"/step {ms / wall_ms:.4f} {e.key[:90]}")
+    host_ops = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+        key=lambda e: -e.self_device_time_total,
+    )
+    for e in host_ops[:ops]:
+        ms = e.self_device_time_total / 1e3 / steps
+        print(f"profile: {label}: op {ms:8.3f} ms/step {e.count / steps:6.1f}"
+              f"/step {ms / busy_ms:.4f} of device {e.key[:60]}")
 
 
 def main():
@@ -1283,6 +1569,11 @@ def main():
     check((ff_pallas.schnet_config.precision,
            ff_pallas.schnet_config.message_passing) == ("bf16", "pallas"),
           f"unexpected pallas slice config {ff_pallas.schnet_config}")
+    ff_xla, _ = _force_fields(dev, BATCH, message_passing="xla")
+    check((ff_xla.schnet_config.precision,
+           ff_xla.schnet_config.message_passing,
+           ff_xla.schnet_config.remat) == ("bf16", "xla", "block"),
+          f"unexpected xla slice config {ff_xla.schnet_config}")
     ff_x3, _ = _force_fields(dev, BATCH, precision="bf16x3")
     cfg_x3 = ff_x3.schnet_config
     check((cfg_x3.cheb_order, cfg_x3.cheb_order_deriv, cfg_x3.cheb_d_min,
@@ -1319,6 +1610,9 @@ def main():
     phase_cross_check(dev)
     phase_image_check(dev)
     phase_bf16x3_forces(dev)
+    phase_forces(dev, "xla")
+    phase_xla_forces(dev)
+    phase_image_check(dev, "xla")
 
     n_evals = STEPS + 1
     with cheb_schedule("1"):
@@ -1388,6 +1682,26 @@ def main():
           f"{kernel_ms:.3f} ms of {ms_step:.3f} ms/step "
           f"({kernel_ms / ms_step:.3f}); an estimate, not a trace")
     profile_steps(sim, dev, PROFILE_STEPS, "pallas")
+    _, ms_step, sim = run_slice("xla", ff_xla, cfgs, dev, STEPS,
+                                SAVE_INTERVAL, AllKernels, AllKernels.zeros(),
+                                smi)
+    print(f"xla: K {ff_xla.neighbor_capacity}, skin {sim.neighbor_skin}, "
+          f"rebuild every {sim.neighbor_rebuild_interval} step(s), remat "
+          f"{ff_xla.schnet_config.remat!r}; n_max over the run "
+          f"{int(sim.final_carry['nbr_n_max'])}; every kernel counter 0")
+    xla_tp = sim.get_throughput_metrics()["throughput"]
+    profile_steps(sim, dev, PROFILE_STEPS, "xla", ops=16)
+    phase_xla_batch(ff_xla, cfgs, dev)
+    _, _, sim = run_slice("xla periodic", ff_xla, pbc_cfgs, dev,
+                          XLA_CELL_STEPS, SAVE_INTERVAL, AllKernels,
+                          AllKernels.zeros(), smi)
+    check(sim.model.pbc_images is None,
+          "the 60 A cell should stay in the minimum-image regime")
+    print(f"xla periodic: second-half throughput "
+          f"{sim.get_throughput_metrics()['throughput']:.1f} timestep*mol/s "
+          f"({XLA_CELL_STEPS} steps, minimum image, Verlet rebuild under the "
+          f"cell) beside the open xla slice's {xla_tp:.1f}")
+    phase_xla_images(dev, smi)
     phase_fidelity(dev)
 
     print(json.dumps({"kernels": [

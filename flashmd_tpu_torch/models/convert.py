@@ -13,7 +13,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from .cutoff import CosineCutoff
+from .cutoff import (
+    CosineCutoff,
+    IdentityCutoff,
+    ShiftedCosineCutoff,
+    _Cutoff,
+)
 from .forcefield import ForceField
 from .schnet import SchNetConfig
 from ..prior.priors import Prior
@@ -38,50 +43,48 @@ def _field(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
 
 
-def _cosine_cutoff(cut, field: str) -> CosineCutoff:
-    """The port's CosineCutoff of a reference CosineCutoff (matched by
-    class name: this module imports nothing of the reference). Other
-    envelopes (IdentityCutoff, ShiftedCosineCutoff) are not ported and
-    raise, rather than run the cosine in their place."""
-    if isinstance(cut, CosineCutoff):
+_ENVELOPES = {cls.__name__: cls
+              for cls in (CosineCutoff, IdentityCutoff, ShiftedCosineCutoff)}
+
+
+def _cutoff(cut, field: str) -> _Cutoff:
+    """The port's envelope of a reference envelope (matched by class name
+    and fields: this module imports nothing of the reference); an envelope
+    the port does not have raises rather than run as another."""
+    if cut is None or isinstance(cut, _Cutoff):
         return cut
-    if type(cut).__name__ != "CosineCutoff":
+    cls = _ENVELOPES.get(type(cut).__name__)
+    if cls is None:
         raise NotImplementedError(
-            f"{field}={cut!r}: only CosineCutoff is ported to "
+            f"{field}={cut!r}: only {sorted(_ENVELOPES)} are ported to "
             "flashmd_tpu_torch"
         )
-    return CosineCutoff(float(cut.cutoff_lower), float(cut.cutoff_upper))
+    return cls(**{f.name: float(getattr(cut, f.name))
+                  for f in dataclasses.fields(cls)})
 
 
 def config_from_kwargs(config_kwargs: dict) -> SchNetConfig:
     """A port SchNetConfig from the reference config's fields; fields the
-    port does not have are dropped. The cutoff must be a CosineCutoff, and
-    ``rbf_cutoff``, where given, the same one: the port's radial basis
-    takes the conv cutoff (reference radial_basis.py:68-78 multiplies by
-    ``rbf_cutoff``)."""
+    port does not have are dropped. ``cutoff`` and ``rbf_cutoff`` carry
+    across as the port's envelope of the same class (CosineCutoff,
+    IdentityCutoff, ShiftedCosineCutoff); the config refuses those that
+    its message-passing path cannot compute (models.schnet)."""
     names = {f.name for f in dataclasses.fields(SchNetConfig)}
     kw = {k: v for k, v in config_kwargs.items() if k in names}
-    if kw.get("cutoff") is not None:
-        kw["cutoff"] = _cosine_cutoff(kw["cutoff"], "cutoff")
+    for field in ("cutoff", "rbf_cutoff"):
+        if field in kw:
+            kw[field] = _cutoff(kw[field], field)
     if "output_hidden_layer_widths" in kw:
         kw["output_hidden_layer_widths"] = tuple(
             kw["output_hidden_layer_widths"]
         )
-    config = SchNetConfig(**kw)
-    rbf_cut = config_kwargs.get("rbf_cutoff")
-    if rbf_cut is not None and (
-        _cosine_cutoff(rbf_cut, "rbf_cutoff") != config.cutoff
-    ):
-        raise NotImplementedError(
-            f"rbf_cutoff={rbf_cut!r} differs from cutoff={config.cutoff!r}; "
-            "the port's radial basis takes the conv cutoff"
-        )
-    return config
+    return SchNetConfig(**kw)
 
 
 def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
                           device="cuda", neighbor_capacity: int = 64,
-                          exc_pair_index=None) -> ForceField:
+                          exc_pair_index=None,
+                          pbc_images=None) -> ForceField:
     """The port's ForceField from numpy weights.
 
     ``schnet_params_np``: nested dicts/lists of numpy arrays in the
@@ -90,8 +93,9 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
     with ``index_mapping``, ``params``, ``kind``, ``name``, ``feature``
     (attributes or dict keys); one with a ``term_mask`` raises.
     ``config_kwargs``: see config_from_kwargs.
-    ``neighbor_capacity`` and ``exc_pair_index`` ([2, P] or None) are the
-    reference ForceField's fields of those names. The tensors are placed on
+    ``neighbor_capacity``, ``exc_pair_index`` ([2, P] or None) and
+    ``pbc_images`` (the reference's tuple of (i, j, k) shifts, or None) are
+    the reference ForceField's fields of those names. The tensors are placed on
     the card unless ``device`` says otherwise.
     """
     params = _tree_to_torch(dict(schnet_params_np), device)
@@ -122,4 +126,6 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
         neighbor_capacity=int(neighbor_capacity),
         exc_pair_index=(None if exc_pair_index is None
                         else _tensor(exc_pair_index, device)),
+        pbc_images=(None if pbc_images is None
+                    else tuple(tuple(map(int, s)) for s in pbc_images)),
     )

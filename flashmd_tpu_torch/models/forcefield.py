@@ -5,10 +5,14 @@ Forces are ``-torch.autograd.grad`` of the summed energy, taken under
 ``torch.enable_grad()`` on a copy of ``pos`` that requires grad, so the
 integrator around it may run under ``no_grad``.
 
-Periodic cells run on the cheb path only: it applies the minimum image
-inside its pair geometry. The dense and pallas paths refuse cells, and an
-unsound cell (rcut not below half the smallest perpendicular width)
-raises, as in the reference.
+Periodic cells run on the cheb path, which applies the minimum image
+inside its pair geometry, and on the exact xla path, which takes the
+periodic displacements from the neighbour list's shifts. The dense and
+pallas paths refuse cells. An unsound cell (rcut not below half the
+smallest perpendicular width) raises, as in the reference, unless an xla
+field carries an image-replication shift set (``with_image_replication``)
+that covers the search radius in that cell; a shift set on any other path
+raises.
 """
 
 from __future__ import annotations
@@ -16,11 +20,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.neighborlist import (
     NeighborMatrix,
     batched_radius_neighbor_matrix,
+    compute_image_shifts,
+    image_shift_radius,
     validate_min_image,
 )
 from ..prior.priors import Prior, prior_energy
@@ -34,8 +41,11 @@ class ForceField:
     """SchNet parameters + specialised priors (reference ForceField,
     forcefield.py:38-73). ``neighbor_capacity`` is the static K of the
     padded neighbour matrix. ``exc_pair_index`` ([2, P] atom pairs) is
-    dropped from the neighbour list on the ``"pallas"`` path and refused on
-    the all-pairs paths, which have no list to drop pairs from.
+    dropped from the neighbour list on the ``"xla"`` and ``"pallas"`` paths
+    and refused on the all-pairs paths, which have no list to drop pairs
+    from. ``pbc_images`` (a tuple of (i, j, k) integer lattice shifts, set
+    by ``with_image_replication``) switches the xla path's list to image
+    replication, for cells below the minimum-image regime.
     """
 
     schnet_params: Optional[dict]
@@ -43,6 +53,7 @@ class ForceField:
     schnet_config: Optional[SchNetConfig] = None
     neighbor_capacity: int = 64
     exc_pair_index: Optional[torch.Tensor] = None
+    pbc_images: Optional[tuple] = None
 
     @property
     def rcut(self) -> float:
@@ -58,17 +69,69 @@ def uses_neighbor_list(ff: ForceField) -> bool:
             and ff.schnet_config.message_passing not in ("dense", "cheb"))
 
 
+def _require_exact_path_for_images(ff: ForceField) -> None:
+    """Image shifts are honoured by the xla path only; on another path
+    they would bypass both minimum-image walls (a fault of the reference,
+    forcefield.py:218, which the port does not copy): the cheb kernels
+    apply the minimum image in-kernel, and dense and pallas refuse cells."""
+    if ff.pbc_images is None or ff.schnet_params is None:
+        return
+    mp = ff.schnet_config.message_passing
+    if mp != "xla":
+        raise NotImplementedError(
+            "Image replication (pbc_images, sub-minimum-image cells) "
+            f"requires message_passing='xla' (got {mp!r}): no other path "
+            "reads the list's image shifts."
+        )
+
+
 def build_neighbors(ff: ForceField, pos_batch: torch.Tensor,
-                    skin: float = 0.0) -> NeighborMatrix:
+                    skin: float = 0.0, cell=None,
+                    check_cell: bool = True) -> NeighborMatrix:
     """Batched padded radius graph (with its source CSR) for the SchNet
     term at rcut + ``skin``, without the force field's excluded pairs
-    (reference build_neighbors, forcefield.py:134-164). Indices carry no
-    gradient; a skin-padded list stays exact while no pair moves from
-    beyond rcut + skin to within rcut between rebuilds."""
+    (reference build_neighbors, forcefield.py:134-164): minimum-imaged
+    under ``cell``, or image-replicated when the field carries
+    ``pbc_images``. Indices carry no gradient; a skin-padded list stays
+    exact while no pair moves from beyond rcut + skin to within rcut
+    between rebuilds. ``check_cell=False`` skips the host-side
+    minimum-image check of a cell validated ahead of a hot loop."""
+    _require_exact_path_for_images(ff)
+    images = None if ff.pbc_images is None else np.asarray(ff.pbc_images)
     return batched_radius_neighbor_matrix(
         pos_batch.detach(), rcut=ff.rcut + skin,
-        capacity=ff.neighbor_capacity, exclude_pairs=ff.exc_pair_index,
+        capacity=ff.neighbor_capacity, cell=cell,
+        exclude_pairs=ff.exc_pair_index, images=images,
+        check_cell=check_cell,
     )
+
+
+def validate_image_cover(ff: ForceField, cell, radius: float,
+                         context: str = "") -> None:
+    """Raise unless the field's image shifts reach every image within
+    ``radius`` in ``cell`` (the port's fix of the reference's early return,
+    simulation/base.py:413, which trusts any bound shift set)."""
+    cover = image_shift_radius(ff.pbc_images, cell)
+    if radius >= cover:
+        where = f" ({context})" if context else ""
+        raise ValueError(
+            f"Image replication is unsound{where}: the bound shifts reach "
+            f"images within {cover:g} in this cell, but the search radius "
+            f"is {radius:g}. Bind them again with with_image_replication("
+            "ff, cell, skin=neighbor_skin)."
+        )
+
+
+def with_image_replication(ff: ForceField, cell,
+                           skin: float = 0.0) -> ForceField:
+    """The field with an image-replication shift set bound: every lattice
+    image that can reach rcut + ``skin`` in ``cell`` ([3, 3] or
+    [S, 3, 3]; reference with_image_replication, forcefield.py:349-385).
+    Sub-minimum-image cells on the xla path; the other paths raise."""
+    shifts = compute_image_shifts(cell, ff.rcut + skin)
+    out = ff.replace(pbc_images=tuple(map(tuple, shifts.tolist())))
+    _require_exact_path_for_images(out)
+    return out
 
 
 def energy_components(
@@ -104,17 +167,23 @@ def total_energy(
 def _check_cell(ff: ForceField, cell, check_cell: bool) -> None:
     """The reference's cell checks (forcefield.py:206-229): dense and
     pallas refuse a cell; an unsound cell raises unless the caller has
-    validated it already (``check_cell=False``)."""
+    validated it already (``check_cell=False``), or the xla field carries
+    image shifts, which must then cover rcut in the cell."""
     if cell is None or ff.schnet_params is None:
         return
     mp = ff.schnet_config.message_passing
-    if mp != "cheb":
+    if mp not in ("xla", "cheb"):
         raise NotImplementedError(
             "Periodic cells require message_passing='xla' or 'cheb' "
             f"(got {mp!r}); the dense/pallas paths compute pair geometry "
-            "from raw positions, and the xla path is not ported."
+            "from raw positions."
         )
-    if check_cell:
+    if not check_cell:
+        return
+    if ff.pbc_images is not None:
+        validate_image_cover(ff, cell, ff.rcut,
+                             context="compute_energy_forces")
+    else:
         validate_min_image(cell, ff.rcut, context="compute_energy_forces")
 
 
@@ -130,11 +199,13 @@ def compute_energy_forces(
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """([S] energies, [S, A, 3] forces, components dict of [S])
     (reference compute_energy_forces, forcefield.py:166-275). On the
-    neighbour-list path ``nbr`` is built here when not given.
+    neighbour-list paths ``nbr`` is built here when not given (under
+    ``cell``, with the field's image shifts where it has them).
 
     ``cell`` ([3, 3] shared, or [S, 3, 3] per molecule; rows are lattice
-    vectors) runs the cheb path under minimum-image periodic boundaries.
-    A cell is validated here (which reads it on the host); the engine,
+    vectors) runs the cheb path, and the xla path through the list's
+    shifts, under periodic boundaries. A cell is validated here (which
+    reads it on the host); the engine,
     which validated its cells at attach, passes ``check_cell=False`` so
     that its per-step calls never synchronise with the card."""
     if atom_types is None or atom_types.ndim != 1:
@@ -143,6 +214,7 @@ def compute_energy_forces(
             "not ported)"
         )
     mp = None if ff.schnet_params is None else ff.schnet_config.message_passing
+    _require_exact_path_for_images(ff)
     _check_cell(ff, cell, check_cell)
     if atom_mask is not None:
         raise NotImplementedError("mixed-size batches are not ported yet")
@@ -154,12 +226,14 @@ def compute_energy_forces(
             f"got {mp!r}."
         )
     if nbr is None and uses_neighbor_list(ff):
-        nbr = build_neighbors(ff, pos_batch)
+        nbr = build_neighbors(ff, pos_batch, cell=cell, check_cell=False)
     with torch.enable_grad():
         pos = pos_batch.detach().requires_grad_(True)
-        # a shared [3, 3] cell broadcasts over the batch, an [S, 3, 3] one
-        # goes per molecule (models.cheb.cheb_stack_apply)
-        total, comps = total_energy(ff, pos, atom_types, nbr, cell)
+        # only the cheb path reads the cell in the model: a shared [3, 3]
+        # one broadcasts over the batch, an [S, 3, 3] one goes per molecule
+        # (models.cheb.cheb_stack_apply); the xla path reads nbr.shifts
+        model_cell = cell if mp == "cheb" else None
+        total, comps = total_energy(ff, pos, atom_types, nbr, model_cell)
         (grad,) = torch.autograd.grad(total.sum(), pos)
     return (
         total.detach(),

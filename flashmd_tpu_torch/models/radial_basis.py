@@ -1,26 +1,42 @@
-"""Gaussian radial basis parameters (port of
-flashmd_tpu/models/radial_basis.py).
+"""Gaussian radial basis (port of flashmd_tpu/models/radial_basis.py).
 
-On the Chebyshev path only the float64 host fit reads the basis; nothing
-here runs per step.
+On the Chebyshev path only the float64 host fit reads the basis; the
+exact ``"xla"`` path expands every neighbour-matrix distance with
+``gaussian_basis_apply``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import numpy as np
 import torch
 
-from .cutoff import CosineCutoff
+from .cutoff import IdentityCutoff, _Cutoff
 
 
 @dataclasses.dataclass(frozen=True)
 class GaussianBasisConfig:
-    """Equidistant Gaussian basis f_n = exp(coeff (d - c_n)^2) cutoff(d)."""
+    """Equidistant Gaussian basis f_n = exp(coeff (d - c_n)^2) cutoff(d).
 
-    cutoff: CosineCutoff = CosineCutoff(0.0, 5.0)
+    ``cutoff`` may be a number, read as IdentityCutoff(0, cutoff) as in the
+    reference (radial_basis.py:20-45), or a cutoff dataclass."""
+
+    cutoff: Union[float, int, _Cutoff] = 5.0
     num_rbf: int = 50
+
+    def __post_init__(self):
+        if isinstance(self.cutoff, (float, int)):
+            object.__setattr__(
+                self, "cutoff", IdentityCutoff(0.0, float(self.cutoff))
+            )
+        elif not isinstance(self.cutoff, _Cutoff):
+            raise TypeError(
+                f"Supplied cutoff {self.cutoff} is neither a number nor a "
+                "cutoff instance."
+            )
+        self.cutoff.check_cutoff()
 
     @property
     def cutoff_lower(self) -> float:
@@ -42,3 +58,11 @@ def init_gaussian_basis(config: GaussianBasisConfig, device):
         "offset": torch.as_tensor(offset, dtype=torch.float32, device=device),
         "coeff": torch.tensor(coeff, dtype=torch.float32, device=device),
     }
+
+
+def gaussian_basis_apply(params, config: GaussianBasisConfig, dist):
+    """``dist [...]`` -> ``[..., num_rbf]``, the basis times its own cutoff
+    (reference gaussian_basis_apply, radial_basis.py:68-78)."""
+    d = dist[..., None]
+    expanded = torch.exp(params["coeff"] * torch.square(d - params["offset"]))
+    return expanded * config.cutoff(d)

@@ -1,45 +1,66 @@
 """SchNet force field (port of flashmd_tpu/models/schnet.py).
 
 The batch is the leading axis: ``pos [S, A, 3]`` gives ``[S]`` energies.
-Three message-passing paths are ported: ``"cheb"`` (Chebyshev-tabulated
-filters, models/cheb.py), ``"dense"`` (the exact filter MLP over all
-pairs, ops/cfconv_dense.py) and ``"pallas"``. The last keeps the
-reference's name, so that a reference config carries across with its
-meaning; in the port it names the exact filter MLP over the padded
-neighbour matrix with CUDA kernels (ops/cfconv.py). Any other value raises.
+Four message-passing paths are ported: ``"xla"`` (the reference's
+default: the exact filter MLP over the padded neighbour matrix in plain
+PyTorch, with a deterministic neighbour gather, ops/gather.py),
+``"cheb"`` (Chebyshev-tabulated filters, models/cheb.py), ``"dense"``
+(the exact filter MLP over all pairs, ops/cfconv_dense.py) and
+``"pallas"``. The last keeps the reference's name, so that a reference
+config carries across with its meaning; in the port it names the exact
+filter MLP over the padded neighbour matrix with CUDA kernels
+(ops/cfconv.py). Any other value raises.
+
+Only ``"xla"`` takes any cutoff envelope and a radial-basis cutoff other
+than the conv cutoff: the kernels of the other three paths hard-code the
+zero-lower cosine on both, so their configs refuse anything else.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+import warnings
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cfconv import fused_cfconv_message
 from ..ops.cfconv_dense import dense_cfconv_message
 from ..ops.cheb_kernel import _cell_operands
+from ..ops.gather import neighbor_gather
 from .cheb import cheb_cfconv_apply, cheb_stack_apply
-from .cutoff import CosineCutoff
+from .cutoff import CosineCutoff, _Cutoff
 from .mlp import check_precision, init_mlp, mlp_apply, xavier_uniform
-from .radial_basis import GaussianBasisConfig, init_gaussian_basis
+from .radial_basis import (
+    GaussianBasisConfig,
+    gaussian_basis_apply,
+    init_gaussian_basis,
+)
 
 
-MESSAGE_PASSING = ("cheb", "dense", "pallas")
+MESSAGE_PASSING = ("xla", "cheb", "dense", "pallas")
+REMAT = ("block", "none")
 
 
 @dataclasses.dataclass(frozen=True)
 class SchNetConfig:
     """Static hyperparameters (reference SchNetConfig, schnet.py:58-163).
-    The radial basis shares the conv cutoff."""
+
+    ``rbf_cutoff`` is the radial basis's own envelope, the conv cutoff when
+    None; a lower or upper cutoff that differs from the conv cutoff's warns,
+    as in the reference. ``remat`` ("block" or "none") is the xla path's
+    rematerialisation: "block" recomputes each block's [S, A, K, F]
+    intermediates in the backward instead of storing them."""
 
     hidden_channels: int = 128
     embedding_size: int = 100
     num_filters: int = 128
     num_interactions: int = 3
     num_rbf: int = 50
-    cutoff: CosineCutoff = CosineCutoff(0.0, 5.0)
+    cutoff: _Cutoff = CosineCutoff(0.0, 5.0)
+    rbf_cutoff: Optional[_Cutoff] = None
     output_hidden_layer_widths: Tuple[int, ...] = (128,)
     activation: str = "tanh"
     precision: str = "fp32"
@@ -48,6 +69,7 @@ class SchNetConfig:
     cheb_order_deriv: int | None = None
     cheb_d_min: float = 0.0
     cheb_fit_method: str = "proj"
+    remat: str = "block"
 
     def __post_init__(self):
         if self.num_interactions < 1:
@@ -59,13 +81,50 @@ class SchNetConfig:
                 f"message_passing={self.message_passing!r} is not ported to "
                 f"flashmd_tpu_torch; only {MESSAGE_PASSING} are"
             )
+        if self.remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got "
+                             f"{self.remat!r}")
         if self.cheb_order_deriv is None:
             object.__setattr__(self, "cheb_order_deriv", self.cheb_order)
+        rbf_cutoff = self.rbf_cutoff or self.cutoff
+        object.__setattr__(self, "rbf_cutoff", rbf_cutoff)
+        for end in ("lower", "upper"):
+            conv = getattr(self.cutoff, f"cutoff_{end}")
+            rbf = getattr(rbf_cutoff, f"cutoff_{end}")
+            if conv != rbf:
+                warnings.warn(
+                    f"Cutoff function {end} cutoff, {conv}, and radial "
+                    f"basis function {end} cutoff, {rbf}, do not match."
+                )
+        if self.message_passing != "xla":
+            _require_kernel_envelopes(self)
         check_precision(self.precision)
 
     @property
     def rbf_config(self) -> GaussianBasisConfig:
-        return GaussianBasisConfig(cutoff=self.cutoff, num_rbf=self.num_rbf)
+        return GaussianBasisConfig(cutoff=self.rbf_cutoff,
+                                   num_rbf=self.num_rbf)
+
+
+def _require_kernel_envelopes(config: SchNetConfig) -> None:
+    """The cheb, dense and pallas kernels compute the cosine envelope, and
+    the radial basis's zero-lower cosine, on the conv cutoff's upper bound:
+    another envelope would run as that cosine. (A nonzero lower bound of
+    the conv cosine is refused where each path runs.)"""
+    mp = config.message_passing
+    cut, rbf = config.cutoff, config.rbf_cutoff
+    if not isinstance(cut, CosineCutoff):
+        raise NotImplementedError(
+            f"message_passing={mp!r} requires cutoff=CosineCutoff (got "
+            f"cutoff={cut!r}); only 'xla' takes other envelopes."
+        )
+    if not (isinstance(rbf, CosineCutoff) and rbf.cutoff_lower == 0
+            and rbf.cutoff_upper == cut.cutoff_upper):
+        raise NotImplementedError(
+            f"message_passing={mp!r} requires rbf_cutoff=CosineCutoff(0, "
+            f"{cut.cutoff_upper}) (got rbf_cutoff={rbf!r}); only 'xla' "
+            "takes another radial-basis envelope."
+        )
 
 
 def init_schnet(config: SchNetConfig, generator: torch.Generator, device):
@@ -115,20 +174,91 @@ def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
                          nbr=None, cell=None):
     """[S, A] per-atom energies: embedding, the interaction blocks of the
     configured path, the output head. ``nbr`` is the batched neighbour
-    matrix (ops.neighborlist) that the ``"pallas"`` path needs. ``cell``
-    ([3, 3] or [S, 3, 3]) is consumed only by the cheb path (minimum-image
-    pair geometry); the other paths refuse cells upstream
+    matrix (ops.neighborlist) that the ``"xla"`` and ``"pallas"`` paths
+    need; the xla path takes its periodicity from the list's shifts.
+    ``cell`` ([3, 3] or [S, 3, 3]) is consumed only by the cheb path
+    (minimum-image pair geometry); dense and pallas refuse cells upstream
     (models.forcefield.compute_energy_forces)."""
     s, a = pos.shape[0], pos.shape[1]
     x0 = params["embedding"][atom_types]
     x0 = x0.expand(s, a, x0.shape[-1]).contiguous()
-    if config.message_passing == "dense":
+    mp = config.message_passing
+    if mp == "xla":
+        x = _xla_blocks(params, config, pos, x0, nbr)
+    elif mp == "dense":
         x = _dense_blocks(params, config, pos, x0)
-    elif config.message_passing == "pallas":
+    elif mp == "pallas":
         x = _neighbor_blocks(params, config, pos, x0, nbr)
     else:
         x = _cheb_blocks(params, config, pos, x0, cell)
     return output_energies(params, config, x)
+
+
+def neighbor_distances_rbf(params, config: SchNetConfig, pos, nbr):
+    """(d [S, A, K], rbf [S, A, K, R]) over the neighbour matrix, with the
+    list's periodic shifts where it has them (reference
+    neighbor_distances_rbf, schnet.py:241-260). Masked slots read their own
+    row, so their d2 is zero: the square root takes 1 there, which keeps
+    its gradient finite, and the mask zeroes d and the basis."""
+    rel = neighbor_gather(pos, nbr) - pos[:, :, None, :]
+    if nbr.shifts is not None:
+        rel = rel + nbr.shifts
+    d2 = torch.sum(rel * rel, dim=-1)
+    d = torch.sqrt(torch.where(nbr.mask, d2, 1.0))
+    d = torch.where(nbr.mask, d, 0.0)
+    rbf = gaussian_basis_apply(params["rbf"], config.rbf_config, d)
+    return d, rbf * nbr.mask[..., None]
+
+
+def cfconv_apply(block_params, config: SchNetConfig, x, d, rbf, nbr):
+    """Continuous-filter convolution (reference cfconv_apply,
+    schnet.py:263-289): lin1, the filter MLP on the basis at the config's
+    precision, cutoff(d) W h[j] summed over the K slots in order, lin2.
+    The linear layers run in float32, as the reference's DEFAULT-precision
+    dot does off the TPU."""
+    h = x @ block_params["lin1_w"]
+    w = mlp_apply(block_params["filter"], rbf, activation=config.activation,
+                  precision=config.precision)  # [S, A, K, F]
+    c = config.cutoff(d) * nbr.mask
+    msg = w * c[..., None] * neighbor_gather(h, nbr)
+    agg = torch.sum(msg, dim=2)
+    return agg @ block_params["lin2_w"] + block_params["lin2_b"]
+
+
+def interaction_block_apply(block_params, config: SchNetConfig, x, d, rbf,
+                            nbr):
+    """CFConv, tanh, linear (reference interaction_block_apply,
+    schnet.py:292-310); the residual is added by the caller."""
+    y = cfconv_apply(block_params, config, x, d, rbf, nbr)
+    return torch.tanh(y) @ block_params["lin_w"] + block_params["lin_b"]
+
+
+def _xla_blocks(params, config: SchNetConfig, pos, x, nbr):
+    """Reference xla branch (schnet.py:481-499). Under ``remat="block"``
+    each block, with its distances and basis, runs under a non-reentrant
+    checkpoint (the reference's jax.checkpoint): the backward recomputes
+    the block's [S, A, K, F] intermediates from its inputs and the list,
+    which is built once, outside, and never again in the recompute."""
+    if nbr is None:
+        raise ValueError(
+            "message_passing='xla' needs the neighbour matrix (see "
+            "models.forcefield.build_neighbors)"
+        )
+    if config.remat == "none":
+        d, rbf = neighbor_distances_rbf(params, config, pos, nbr)
+        for bp in params["interactions"]:
+            x = x + interaction_block_apply(bp, config, x, d, rbf, nbr)
+        return x
+
+    def one_block(bp, rbf_params, x, pos):
+        d, rbf = neighbor_distances_rbf({"rbf": rbf_params}, config, pos,
+                                        nbr)
+        return interaction_block_apply(bp, config, x, d, rbf, nbr)
+
+    for bp in params["interactions"]:
+        x = x + checkpoint(one_block, bp, params["rbf"], x, pos,
+                           use_reentrant=False, preserve_rng_state=False)
+    return x
 
 
 def _cheb_blocks(params, config: SchNetConfig, pos, x0, cell=None):

@@ -200,9 +200,11 @@ def cgschnet_1enh_like(
     """CGSchNet at 1ENH scale + chain priors (reference zoo.py:164-329):
     hidden 128, filters 128, 50 RBF, embedding 100, head [128, 128, 64, 1].
 
-    The reference's default ``message_passing`` is "xla"; the port has
-    "cheb", its default here, "dense" and "pallas". All draw the same
-    weights from the same seed; only the config differs. Without an
+    ``message_passing`` takes the reference's four paths: "cheb", the
+    default here (the reference's default is "xla", the exact path that
+    parameter gradients, pair exclusions and small periodic cells need),
+    "xla", "dense" and "pallas". All draw the same weights from the same
+    seed; only the config differs. Without an
     explicit ``neighbor_capacity`` the reference's rule sizes it: the max
     neighbour count at rcut + 1.0 (the default Verlet skin) x 1.35, aligned
     to 8, at most ``n_atoms``. The tensors are placed on the card unless

@@ -66,7 +66,7 @@ from ._launch import (
     _same_device,
     _stream,
 )
-from .neighborlist import _inv_3x3
+from .neighborlist import _cell_operands, pair_rel
 
 
 # ---------------------------------------------------------------------------
@@ -90,45 +90,6 @@ def _to_that_basis(c: torch.Tensor) -> torch.Tensor:
     up = cz[1:rows + 1] * 0.5
     down = torch.cat([zeros[:1], cz[0:1], cz[1:rows - 1] * 0.5], dim=0)
     return cz[:rows] - up - down
-
-
-def _cell_operands(cell, s: int, device, inv=None):
-    """(cell, inv) as contiguous float32 [S, 3, 3] on ``device`` from a
-    [3, 3] (shared) or [S, 3, 3] (per molecule) cell; (None, None) for
-    open boundaries (reference _cell_operands, cheb_kernel.py:688-696)."""
-    if cell is None:
-        return None, None
-    cell = torch.as_tensor(cell, dtype=torch.float32, device=device)
-    if cell.ndim == 2:
-        cell = cell.expand(s, 3, 3)
-    if tuple(cell.shape) != (s, 3, 3):
-        raise ValueError(f"cell: expected [3, 3] or [{s}, 3, 3], got "
-                         f"{tuple(cell.shape)}")
-    cell = cell.contiguous()
-    return cell, (_inv_3x3(cell) if inv is None else inv)
-
-
-def pair_rel(pos: torch.Tensor, cell=None, inv=None) -> torch.Tensor:
-    """rel[s, i, j] = pos_j - pos_i, [S, A, A, 3]; minimum-imaged under a
-    cell ([S, 3, 3] with its inverse) component by component, never by a
-    matmul: a truncated matmul operand rounds a fraction near +-0.5 to the
-    wrong image, an error of a whole box length (PERFORMANCE.md:348-352)."""
-    rel = pos[:, None, :, :] - pos[:, :, None, :]
-    if cell is None:
-        return rel
-    r = [rel[..., k] for k in range(3)]
-    iv = inv[:, None, None]
-    cl = cell[:, None, None]
-    n = [
-        torch.round(r[0] * iv[..., 0, k] + r[1] * iv[..., 1, k]
-                    + r[2] * iv[..., 2, k])
-        for k in range(3)
-    ]
-    return torch.stack([
-        r[k] - (n[0] * cl[..., 0, k] + n[1] * cl[..., 1, k]
-                + n[2] * cl[..., 2, k])
-        for k in range(3)
-    ], dim=-1)
 
 
 def _geometry(rel, rcut, d_min):

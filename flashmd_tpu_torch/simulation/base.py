@@ -7,10 +7,12 @@ caller asks for the CPU) and the neighbour-list options
 ``neighbor_capacity``, ``neighbor_skin`` and ``neighbor_rebuild_interval``;
 attach (which fits the Chebyshev filters on the host for a cheb model,
 base.py:479-508), the minimum-image soundness check of periodic cells
-(:399-437) and the pair-exclusion binding check (:439-459); the initial
-carry (:661-683); the Verlet neighbour list
-of the ``"pallas"`` path (:580-716): rebuilt at rcut + skin from the
-positions at the start of a step, every ``neighbor_rebuild_interval``
+with the xla path's switch to image replication (:399-437) and the
+pair-exclusion binding check (:439-459); the initial carry (:661-683); the
+Verlet neighbour list of the ``"xla"`` and ``"pallas"`` paths
+(:580-716), under the cells and image shifts where there are any: rebuilt
+at rcut + skin from the positions at the start of a step, every
+``neighbor_rebuild_interval``
 steps, with the running maxima of the true neighbour count and of the
 displacement since the last rebuild kept on the device; ``simulate()``,
 which steps in chunks of ``save_interval``, keeps position and potential
@@ -26,6 +28,7 @@ is not ported: the model runs at its configured precision.
 
 from __future__ import annotations
 
+import logging
 import time
 import warnings
 from typing import Dict, List, Optional
@@ -40,6 +43,9 @@ from ..models.forcefield import (
     compute_energy_forces,
     uses_neighbor_list,
 )
+
+
+logger = logging.getLogger(__name__)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -116,22 +122,43 @@ class Simulation:
         search radius: rcut on the cheb path, which keeps no list, rcut +
         skin on a list path (reference base.py:399-437). The check reads
         the host copy of the cells, once; the per-step force evaluations
-        then skip it. An unsound cell raises on every path (image
-        replication, the reference's fallback on the xla path, is not
-        ported), and a sound cell on a path other than cheb raises as
-        compute_energy_forces would."""
+        then skip it. An xla field below the minimum-image regime switches
+        to image replication with the skin, as in the reference; other
+        paths raise, and a sound cell on dense or pallas raises as
+        compute_energy_forces would. A field that comes with image shifts
+        bound is checked, not trusted: the shifts must cover rcut + skin in
+        these cells (the reference returns early, base.py:413)."""
         ff = self.model
         cell = self.initial_system.cell_host
         if cell is None or ff is None or ff.schnet_params is None:
             return
-        from ..models.forcefield import _check_cell
+        from ..models.forcefield import (
+            _check_cell,
+            _require_exact_path_for_images,
+            validate_image_cover,
+            with_image_replication,
+        )
         from ..ops.neighborlist import validate_min_image
 
-        search_r = ff.rcut + (
-            self.neighbor_skin if self._uses_neighbor_list() else 0.0
-        )
-        validate_min_image(cell, search_r,
-                           context="attach_model_and_configurations")
+        skin = self.neighbor_skin if self._uses_neighbor_list() else 0.0
+        search_r = ff.rcut + skin
+        context = "attach_model_and_configurations"
+        _require_exact_path_for_images(ff)
+        if ff.pbc_images is not None:
+            validate_image_cover(ff, cell, search_r, context=context)
+            return
+        try:
+            validate_min_image(cell, search_r, context=context)
+        except ValueError:
+            if ff.schnet_config.message_passing != "xla":
+                raise
+            self.model = with_image_replication(ff, cell, skin=skin)
+            logger.info(
+                "[pbc] cell below the minimum-image regime: switched the "
+                "neighbor build to explicit image replication "
+                f"({len(self.model.pbc_images)} lattice images)"
+            )
+            return
         _check_cell(ff, cell, check_cell=False)
 
     def _attach_model(self, model: ForceField):
@@ -168,10 +195,14 @@ class Simulation:
         return self.model is not None and uses_neighbor_list(self.model)
 
     def _rebuild_neighbors(self, carry: Dict) -> Dict:
-        """The list (and its source CSR) from the carry's positions; the
-        running max of the true neighbour count stays on the device."""
+        """The list (and its source CSR) from the carry's positions, under
+        the system's cells (validated at attach) and the field's image
+        shifts; the running max of the true neighbour count stays on the
+        device."""
         nbr = build_neighbors(self.model, carry["pos"],
-                              skin=self.neighbor_skin)
+                              skin=self.neighbor_skin,
+                              cell=self.initial_system.cell,
+                              check_cell=False)
         n_max = nbr.n_max.max()
         prev = carry.get("nbr_n_max")
         out = {

@@ -1,4 +1,6 @@
-"""Card-only tests of the port's CUDA kernels (marker ``cuda``).
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``), and of
+the exact xla path on the card (bitwise forces, the pallas kernels'
+function, the neighbour gather's backward).
 
 Each kernel (Chebyshev with the per-block combined backward, its
 periodic-cell variants and its bf16x3 tier, dense and neighbour-matrix
@@ -921,3 +923,98 @@ def test_nbr_main_path_launch_counts(dev):
     assert cf.launch_counts() == {"cfconv_fwd": 15, "cfconv_bwd": 15}
     assert coords.shape == (2, 2, 40, 3)
     assert torch.isfinite(torch.as_tensor(coords)).all()
+
+
+# --------------------------------------------------------------------------
+# the exact xla path (no kernel of its own: plain PyTorch with the
+# deterministic neighbour gather of ops/gather.py)
+# --------------------------------------------------------------------------
+
+
+def _all_counts():
+    return {**ck.launch_counts(), **cd.launch_counts(), **cf.launch_counts()}
+
+
+def _reset_all_counts():
+    for mod in (ck, cd, cf):
+        mod.reset_launch_counts()
+
+
+def _xla_field(device, batch, **kw):
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=266, batch_size=batch,
+                                  message_passing="xla", device=device, **kw)
+    return ff, collate(cfgs, device=device)
+
+
+def test_xla_forces_bitwise_reproducible_at_batch_128(dev):
+    """Forces and energies of the full-width bf16 xla field at S = 128,
+    list build included, are bitwise equal over two evaluations: the
+    gather's backward is the fixed-order CSR segment sum. The path
+    launches none of the port's kernels."""
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+
+    ff, system = _xla_field(dev, 128)
+    _reset_all_counts()
+    e1, f1, _ = compute_energy_forces(ff, system.pos, system.atom_types)
+    e2, f2, _ = compute_energy_forces(ff, system.pos, system.atom_types)
+    assert torch.isfinite(f1).all()
+    assert torch.equal(f1, f2) and torch.equal(e1, e2)
+    assert all(v == 0 for v in _all_counts().values())
+
+
+def test_xla_fp32_matches_pallas_fp32_on_one_list(dev):
+    """One function, two implementations: the fp32 xla and pallas fields
+    on the same weights, positions and list, within 1e-4 of max|F|."""
+    import dataclasses
+
+    from flashmd_tpu_torch.models.forcefield import (
+        build_neighbors,
+        compute_energy_forces,
+    )
+
+    ff, system = _xla_field(dev, 4, precision="fp32")
+    pallas = ff.replace(schnet_config=dataclasses.replace(
+        ff.schnet_config, message_passing="pallas"))
+    nbr = build_neighbors(ff, system.pos)
+    assert int(nbr.n_max.max()) <= ff.neighbor_capacity
+    f_x = compute_energy_forces(ff, system.pos, system.atom_types, nbr)[1]
+    f_p = compute_energy_forces(pallas, system.pos, system.atom_types,
+                                nbr)[1]
+    assert _rel(f_x, f_p) <= 1e-4
+
+
+@pytest.mark.parametrize("images", [False, True])
+def test_gather_backward_card_matches_cpu(dev, images):
+    """The gather's backward on the card against the same call on the CPU,
+    1e-6 of max|CPU|, on an open list and an image-replicated one."""
+    import numpy as np
+
+    from flashmd_tpu_torch.ops.gather import neighbor_gather
+    from flashmd_tpu_torch.ops.neighborlist import compute_image_shifts
+
+    gen = torch.Generator().manual_seed(0)
+    if images:
+        pos = 5.0 * torch.rand(8, 12, 3, generator=gen)
+        kw = {"cell": 5.0 * torch.eye(3),
+              "images": compute_image_shifts(5.0 * np.eye(3), 4.0)}
+        capacity = 96
+    else:
+        pos = 12.0 * torch.rand(8, 128, 3, generator=gen)
+        kw, capacity = {}, 48
+    src = torch.randn(8, pos.shape[1], 128, generator=gen)
+    cot = torch.randn(8, pos.shape[1], capacity, 128, generator=gen)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        nbr = batched_radius_neighbor_matrix(
+            pos.to(device), 4.0, capacity,
+            **{k: (v.to(device) if torch.is_tensor(v) else v)
+               for k, v in kw.items()})
+        # cotangents as the xla path gives them: zero on masked slots
+        g = cot.to(device) * nbr.mask[..., None]
+        x = src.to(device).requires_grad_(True)
+        (out[device.type],) = torch.autograd.grad(neighbor_gather(x, nbr),
+                                                  x, g)
+    assert _rel(out["cuda"].cpu(), out["cpu"]) <= 1e-6

@@ -7,6 +7,7 @@ differ only in summation order.
 """
 
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -256,13 +257,22 @@ def test_mlp_tiers_match_jax(precision):
     ],
 )
 def test_config_refuses_envelopes_it_would_replace(field, cut):
-    """An envelope the port does not have raises, rather than run as the
-    cosine; so does an rbf_cutoff other than the conv cutoff (the port's
-    radial basis takes the conv cutoff)."""
+    """The exact xla path takes every reference envelope, carried across
+    as the port's envelope of the same class and fields; the cheb, dense
+    and pallas paths, whose kernels compute the zero-lower cosine on the
+    conv cutoff, still refuse each of them."""
     kw = {"cutoff": JCosineCutoff(0.0, RCUT), "rbf_cutoff": None,
           field: cut}
-    with pytest.raises(NotImplementedError, match=field):
-        config_from_kwargs(kw)
+    for mp in ("cheb", "dense", "pallas"):
+        with pytest.raises(NotImplementedError, match=field):
+            config_from_kwargs({**kw, "message_passing": mp})
+    with warnings.catch_warnings():
+        # an rbf_cutoff with another upper bound warns, as the reference
+        warnings.simplefilter("ignore", UserWarning)
+        cfg = config_from_kwargs({**kw, "message_passing": "xla"})
+    got = getattr(cfg, field)
+    assert type(got).__name__ == type(cut).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(cut)
 
 
 def test_config_takes_the_reference_cosine_cutoffs():
@@ -283,9 +293,17 @@ def test_zoo_defaults_and_refusals():
     assert (cfg.cheb_order, cfg.cheb_order_deriv, cfg.cheb_d_min,
             cfg.precision) == (48, 64, 2.0, "bf16")
     assert len(cfgs) == 2 and cfgs[0].pos.shape == (24, 3)
-    with pytest.raises(NotImplementedError):
-        cgschnet_1enh_like(n_atoms=24, batch_size=1, message_passing="xla",
-                           device="cpu")
+    # the reference's default path builds on the same weights
+    xla, _ = cgschnet_1enh_like(n_atoms=24, batch_size=2,
+                                num_interactions=1, message_passing="xla",
+                                device="cpu")
+    assert xla.schnet_config.message_passing == "xla"
+    assert xla.schnet_config.remat == "block"
+    assert torch.equal(xla.schnet_params["interactions"][0]["lin1_w"],
+                       ff.schnet_params["interactions"][0]["lin1_w"])
+    with pytest.raises(NotImplementedError, match="cheb_fused"):
+        cgschnet_1enh_like(n_atoms=24, batch_size=1,
+                           message_passing="cheb_fused", device="cpu")
     pos = torch.zeros(1, 24, 3)
     types = torch.zeros(24, dtype=torch.long)
     # cheb takes cells; one below the minimum-image regime raises

@@ -95,13 +95,24 @@ def test_source_csr_is_the_exact_transpose(capacity):
 
 
 def test_periodic_arguments_raise():
+    """Periodic lists are built now (tests/test_torch_images.py holds them
+    against JAX); what still raises: a cell below the minimum-image regime
+    without images, images without a cell, and a shift set that does not
+    start with the zero shift."""
     pos = torch.tensor(_pos())
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="Minimum-image"):
         nl.batched_radius_neighbor_matrix(pos, RCUT, 8,
-                                          cell=10.0 * torch.eye(3))
-    with pytest.raises(NotImplementedError, match="A11"):
-        nl.radius_neighbor_matrix(pos[0], RCUT, 8,
-                                  images=np.zeros((1, 3), int))
+                                          cell=6.0 * torch.eye(3))
+    images = nl.compute_image_shifts(6.0 * np.eye(3), RCUT)
+    with pytest.raises(ValueError, match="requires a cell"):
+        nl.radius_neighbor_matrix(pos[0], RCUT, 8, images=images)
+    with pytest.raises(ValueError, match="zero shift"):
+        nl.batched_radius_neighbor_matrix(pos, RCUT, 8,
+                                          cell=6.0 * torch.eye(3),
+                                          images=images[::-1])
+    nbr = nl.batched_radius_neighbor_matrix(pos, RCUT, 8,
+                                            cell=10.0 * torch.eye(3))
+    assert nbr.shifts.shape == (S, A, 8, 3)
 
 
 def test_capacity_helpers_match_jax():
