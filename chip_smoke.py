@@ -114,6 +114,26 @@ Phases (each prints its lines; any failure exits non-zero):
                replication, XLA_IMAGE_STEPS steps stay finite, and the
                fp32 network forces equal those of the 2 x 1 x 1
                supercell without images (CROSS_BOUND).
+   checkpoint - a full-width model_and_prior.pt and configurations.pt
+               written in the reference's pickled layout (GradientsOut(
+               SumOut({SchNet, bonds, angles, dihedrals, repulsion})),
+               flashmd.* module paths removed before reading, BATCH
+               structures of the zoo chain, random weights and type
+               tables from seed 0), read by checkpoint_io and bound with
+               optimize=True: the frontier's d_min, bf16 floor, budget,
+               candidate errors and chosen orders, the attach time (load,
+               frontier, fit). The four cheb kernels on the frontier's
+               (96, 96) fit against their twins. Forces at batch 4: the
+               optimize=False (fp32 xla) field against the written
+               modules' own fp32 autograd forces (CROSS_BOUND), the cheb
+               bf16 field network-only within 1.05x the frontier's budget.
+               STEPS steps at batch 128 with launches 3/2/1 per force
+               evaluation and no twin call, throughput beside the cheb
+               slice's, a profiler window; a second identical run
+               bitwise equal; the nine other prior kinds card vs CPU
+               (PRIOR_BOUND); CKPT_SHORT_STEPS steps each of the
+               optimize=False field and of structures with
+               exc_pair_index (xla bf16), every kernel counter 0.
 9. fidelity -- max|F - F_dense_fp32| / max|F_dense_fp32| at batch 4: the
                cheb bf16 (48, 64), the dense bf16, the pallas bf16 and
                the xla bf16 force fields against the dense fp32 one on
@@ -129,6 +149,7 @@ Then a kernels JSON line, the nvidia-smi line, and as the last line
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import re
 import subprocess
@@ -200,6 +221,9 @@ XLA_CELL_STEPS = 40
 XLA_IMAGE_ATOMS = 64
 XLA_IMAGE_STEPS = 10
 XLA_IMAGE_CELL = np.diag([15.0, 21.0, 21.0])
+# The other prior kinds, card vs CPU: float32 elementwise terms, summed in
+# another order.
+PRIOR_BOUND = 1e-5
 # benchmarks/pbc_ab.py's cell, and a sound triclinic one (smallest
 # perpendicular width 59.04 A; rows are lattice vectors).
 BOX = 60.0
@@ -1529,6 +1553,602 @@ def profile_steps(sim, dev, steps, label, ops=0):
               f"/step {ms / busy_ms:.4f} of device {e.key[:60]}")
 
 
+# ---------------------------------------------------------------------------
+# The checkpoint slice: a full-width model_and_prior.pt in the reference's
+# pickled module layout, ingested with the port
+# ---------------------------------------------------------------------------
+
+CKPT_TYPES = 25
+CKPT_SHORT_STEPS = 10
+# The reference's module paths, registered while the files are written and
+# removed after, so that the loader meets them as unimportable symbols.
+CKPT_MODULES = ("flashmd", "flashmd.models", "flashmd.models.schnet",
+                "flashmd.prior", "flashmd.data")
+
+
+def reference_layout_classes():
+    """Classes with the reference checkpoint's names, module paths and
+    attributes (GradientsOut(SumOut({SchNet, priors})), AtomicData), each
+    with its own forward: the ground truth here computes through them and
+    not through the port. SchNet.forward(pos [S, A, 3], types [A]) sums
+    every pair within the cutoff; a prior's forward(pos, types, mapping)
+    gathers its type tables per term."""
+    import math
+    import types as pytypes
+
+    nn = torch.nn
+
+    class CosineCutoff(nn.Module):
+        def __init__(self, lower, upper):
+            super().__init__()
+            self.cutoff_lower = lower
+            self.cutoff_upper = upper
+
+        def forward(self, d):
+            return 0.5 * (torch.cos(d * math.pi / self.cutoff_upper)
+                          + 1.0) * (d < self.cutoff_upper)
+
+    class GaussianBasis(nn.Module):
+        def __init__(self, cutoff, num_rbf):
+            super().__init__()
+            self.cutoff = cutoff
+            offset = torch.linspace(0.0, cutoff.cutoff_upper, num_rbf)
+            self.register_buffer("offset", offset)
+            self.register_buffer("coeff",
+                                 -0.5 / (offset[1] - offset[0]) ** 2)
+
+        def forward(self, d):
+            d = d[..., None]
+            return torch.exp(self.coeff * (d - self.offset) ** 2) \
+                * self.cutoff(d)
+
+    class MLP(nn.Module):
+        def __init__(self, widths, last_bias=True):
+            super().__init__()
+            layers = []
+            for w_in, w_out in zip(widths[:-2], widths[1:-1]):
+                layers += [nn.Linear(w_in, w_out), nn.Tanh()]
+            layers.append(nn.Linear(widths[-2], widths[-1], bias=last_bias))
+            self.layers = nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.layers(x)
+
+    class CFConv(nn.Module):
+        def __init__(self, hidden, filters, num_rbf, cutoff):
+            super().__init__()
+            self.lin1 = nn.Linear(hidden, filters, bias=False)
+            self.lin2 = nn.Linear(filters, hidden)
+            self.filter_network = MLP([num_rbf, filters, filters],
+                                      last_bias=False)
+            self.cutoff = cutoff
+
+        def forward(self, x, rbf, d, live):
+            w = self.filter_network(rbf) * (self.cutoff(d) * live)[..., None]
+            return self.lin2(torch.einsum("sijf,sjf->sif", w, self.lin1(x)))
+
+    class InteractionBlock(nn.Module):
+        def __init__(self, conv, hidden):
+            super().__init__()
+            self.conv = conv
+            self.lin = nn.Linear(hidden, hidden)
+
+        def forward(self, x, rbf, d, live):
+            return self.lin(torch.tanh(self.conv(x, rbf, d, live)))
+
+    class SchNet(nn.Module):
+        def __init__(self, hidden=128, filters=128, num_rbf=50, blocks=3,
+                     rcut=10.0, embedding=100, head=(128, 64)):
+            super().__init__()
+            cutoff = CosineCutoff(0.0, rcut)
+            self.embedding_layer = nn.Embedding(embedding, hidden)
+            self.rbf_layer = GaussianBasis(cutoff, num_rbf)
+            self.interaction_blocks = nn.Sequential(*[
+                InteractionBlock(CFConv(hidden, filters, num_rbf, cutoff),
+                                 hidden) for _ in range(blocks)])
+            self.output_network = MLP([hidden, *head, 1], last_bias=False)
+            self.max_num_neighbors = 1000
+
+        def forward(self, pos, types):
+            rel = pos[:, None, :, :] - pos[:, :, None, :]
+            d2 = torch.sum(rel * rel, dim=-1)
+            off = ~torch.eye(pos.shape[1], dtype=torch.bool,
+                             device=pos.device)
+            d = torch.sqrt(torch.where(off, d2, torch.ones_like(d2)))
+            live = off & (d < self.rbf_layer.cutoff.cutoff_upper)
+            rbf = self.rbf_layer(d)
+            x = self.embedding_layer(types).expand(pos.shape[0], -1, -1)
+            for block in self.interaction_blocks:
+                x = x + block(x, rbf, d, live)
+            return self.output_network(x)[..., 0].sum(dim=-1)
+
+    def _gather(table, types, mapping):
+        return table[tuple(types[m] for m in mapping)]
+
+    def _cos_angle(pos, mapping):
+        dr1 = pos[:, mapping[0]] - pos[:, mapping[1]]
+        dr2 = pos[:, mapping[2]] - pos[:, mapping[1]]
+        return torch.sum(dr1 * dr2, -1) / (dr1.norm(dim=-1)
+                                          * dr2.norm(dim=-1))
+
+    def _torsion(pos, mapping):
+        def unit(v):
+            return v / v.norm(dim=-1, keepdim=True)
+
+        b1 = unit(pos[:, mapping[1]] - pos[:, mapping[0]])
+        b2 = unit(pos[:, mapping[2]] - pos[:, mapping[1]])
+        b3 = unit(pos[:, mapping[3]] - pos[:, mapping[2]])
+        n1, n2 = torch.cross(b1, b2, dim=-1), torch.cross(b2, b3, dim=-1)
+        m1 = torch.cross(n1, b2, dim=-1)
+        return torch.atan2(-torch.sum(m1 * n2, -1), torch.sum(n1 * n2, -1))
+
+    class HarmonicBonds(nn.Module):
+        def __init__(self, x_0, k):
+            super().__init__()
+            self.order = 2
+            self.register_buffer("x_0", x_0)
+            self.register_buffer("k", k)
+
+        def forward(self, pos, types, mapping):
+            x = (pos[:, mapping[1]] - pos[:, mapping[0]]).norm(dim=-1)
+            return torch.sum(_gather(self.k, types, mapping) * (
+                x - _gather(self.x_0, types, mapping)) ** 2, dim=-1)
+
+    class HarmonicAngles(HarmonicBonds):
+        def __init__(self, x_0, k):
+            super().__init__(x_0, k)
+            self.order = 3
+
+        def forward(self, pos, types, mapping):
+            x = _cos_angle(pos, mapping)
+            return torch.sum(_gather(self.k, types, mapping) * (
+                x - _gather(self.x_0, types, mapping)) ** 2, dim=-1)
+
+    class Dihedral(nn.Module):
+        def __init__(self, k1s, k2s, v_0):
+            super().__init__()
+            self.order = 4
+            self.n_degs = k1s.shape[0]
+            self.register_buffer("k1s", k1s)
+            self.register_buffer("k2s", k2s)
+            self.register_buffer("v_0", v_0)
+
+        def forward(self, pos, types, mapping):
+            theta = _torsion(pos, mapping)
+            v = _gather(self.v_0, types, mapping)
+            for n in range(self.n_degs):
+                v = v + _gather(self.k1s[n], types, mapping) * torch.sin(
+                    (n + 1) * theta) + _gather(self.k2s[n], types,
+                                               mapping) * torch.cos(
+                    (n + 1) * theta)
+            return torch.sum(v, dim=-1)
+
+    class Repulsion(nn.Module):
+        def __init__(self, sigma):
+            super().__init__()
+            self.order = 2
+            self.register_buffer("sigma", sigma)
+
+        def forward(self, pos, types, mapping):
+            x = (pos[:, mapping[1]] - pos[:, mapping[0]]).norm(dim=-1)
+            return torch.sum((_gather(self.sigma, types, mapping) / x) ** 6,
+                             dim=-1)
+
+    class GradientsOut(nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+    class SumOut(nn.Module):
+        def __init__(self, models):
+            super().__init__()
+            self.models = nn.ModuleDict(models)
+
+    class AtomicData:
+        """Pickles as a PyG Data: its fields in a nested storage dict."""
+
+        def __init__(self, **fields):
+            self._store = pytypes.SimpleNamespace(_mapping=fields)
+
+    paths = {"flashmd.models.schnet": (CosineCutoff, GaussianBasis, MLP,
+                                       CFConv, InteractionBlock, SchNet,
+                                       GradientsOut, SumOut),
+             "flashmd.prior": (HarmonicBonds, HarmonicAngles, Dihedral,
+                               Repulsion),
+             "flashmd.data": (AtomicData,)}
+    classes = {}
+    for module, group in paths.items():
+        for cls in group:
+            cls.__module__ = module
+            cls.__qualname__ = cls.__name__
+            classes[cls.__name__] = cls
+    return paths, classes
+
+
+def _seeded_(module, gen):
+    """Every parameter of ``module`` drawn from ``gen``: weights Xavier
+    uniform, biases uniform in +-0.1, embeddings standard normal."""
+    import math
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.2 * torch.rand(p.shape, generator=gen) - 0.1)
+            elif "embedding" in name:
+                p.copy_(torch.randn(p.shape, generator=gen))
+            else:
+                a = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+                p.copy_((2 * torch.rand(p.shape, generator=gen) - 1) * a)
+    return module
+
+
+def write_reference_checkpoint(directory, seed=0):
+    """model_and_prior.pt and configurations.pt under ``directory``: a
+    CGSchNet at the zoo's 1ENH widths (hidden and filters 128, 3 blocks,
+    50 RBF, CosineCutoff(0, 10), embedding 100, head [128, 128, 64, 1],
+    tanh) with bonds, cos angles, Fourier dihedrals (3 degrees) and a
+    repulsion over the non-bonded pairs, type tables over the 25 bead
+    types; BATCH structures of random_cg_protein's chain with noise. Every
+    number is drawn from ``seed``. Returns (the modules, the structures'
+    positions [BATCH, A, 3] float64, the types [A], the term lists)."""
+    import sys
+    import types as pytypes
+
+    from flashmd_tpu_torch.models.zoo import random_cg_protein
+
+    paths, cls = reference_layout_classes()
+    gen = torch.Generator().manual_seed(seed)
+    t = CKPT_TYPES
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen)
+
+    schnet = _seeded_(cls["SchNet"](), gen)
+    priors = {
+        "bonds": cls["HarmonicBonds"](uniform(3.7, 3.9, t, t),
+                                      uniform(40.0, 80.0, t, t)),
+        "angles": cls["HarmonicAngles"](uniform(-0.4, 0.0, t, t, t),
+                                        uniform(5.0, 15.0, t, t, t)),
+        "dihedrals": cls["Dihedral"](uniform(-0.5, 0.5, 3, t, t, t, t),
+                                     uniform(-0.5, 0.5, 3, t, t, t, t),
+                                     uniform(-0.1, 0.1, t, t, t, t)),
+        "repulsion": cls["Repulsion"](uniform(2.9, 3.1, t, t)),
+    }
+    model = cls["GradientsOut"](cls["SumOut"](
+        {"SchNet": cls["GradientsOut"](schnet),
+         **{k: cls["GradientsOut"](v) for k, v in priors.items()}}))
+
+    base = random_cg_protein(n_atoms=N_ATOMS, n_types=t, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    pos = np.stack([base.pos + rng.normal(scale=0.05, size=base.pos.shape)
+                    for _ in range(BATCH)])
+    lists = {k: tl.index_mapping.astype(np.int64)
+             for k, tl in base.neighbor_lists.items()}
+    # one dict for every structure: pickled once
+    nls = {k: dict(tag=k, order=m.shape[0], index_mapping=torch.tensor(m),
+                   mapping_batch=torch.zeros(m.shape[1], dtype=torch.long),
+                   cell_shifts=None, rcut=None, self_interaction=False)
+           for k, m in lists.items()}
+    data = [cls["AtomicData"](pos=torch.tensor(p, dtype=torch.float32),
+                              atom_types=torch.tensor(base.atom_types),
+                              masses=torch.tensor(base.masses,
+                                                  dtype=torch.float32),
+                              neighbor_list=nls, tag=base.tag)
+            for p in pos]
+    for name in CKPT_MODULES:
+        sys.modules[name] = pytypes.ModuleType(name)
+    try:
+        for module, group in paths.items():
+            for c in group:
+                setattr(sys.modules[module], c.__name__, c)
+        torch.save(model, os.path.join(directory, "model_and_prior.pt"))
+        torch.save(data, os.path.join(directory, "configurations.pt"))
+    finally:
+        for name in CKPT_MODULES:
+            del sys.modules[name]
+    return (schnet, priors), pos, base.atom_types, lists
+
+
+def reference_forces(modules, pos, types, lists, dev, network_only=False):
+    """[S, A, 3] fp32 autograd forces of the written modules' own forward
+    on the card (the SchNet term, and the priors unless
+    ``network_only``)."""
+    schnet, priors = modules
+    p = torch.tensor(pos, dtype=torch.float32, device=dev,
+                     requires_grad=True)
+    t = torch.as_tensor(types, device=dev)
+    e = schnet.to(dev)(p, t)
+    if not network_only:
+        for k, prior in priors.items():
+            e = e + prior.to(dev)(p, t, torch.as_tensor(lists[k],
+                                                        device=dev))
+    (g,) = torch.autograd.grad(e.sum(), p)
+    return -g
+
+
+class FrontierLog(logging.Handler):
+    """Keeps the FrontierReport that models.frontier logs."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.reports = []
+
+    def emit(self, record):
+        if hasattr(record, "frontier"):
+            self.reports.append(record.frontier)
+
+
+@contextlib.contextmanager
+def counting_twins():
+    """Every cheb twin counted while the block runs; yields the counts."""
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    names = ("cheb_conv_fwd_plain", "cheb_conv_bwd_gx_plain",
+             "cheb_conv_bwd_gd_plain", "cheb_conv_bwd_gxgd_plain")
+    counts = dict.fromkeys(names, 0)
+    old = {n: getattr(ck, n) for n in names}
+
+    def counted(name):
+        def twin(*args, **kw):
+            counts[name] += 1
+            return old[name](*args, **kw)
+        return twin
+
+    for n in names:
+        setattr(ck, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in old.items():
+            setattr(ck, n, fn)
+
+
+def phase_checkpoint(dev, open_tp, smi):
+    """The checkpoint slice (the module docstring's `checkpoint` phase)."""
+    import tempfile
+    import time
+
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models import checkpoint_io as cio
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        modules, pos, types, lists = write_reference_checkpoint(tmp)
+        t1 = time.perf_counter()
+        ref = cio.load_reference_checkpoint(
+            os.path.join(tmp, "model_and_prior.pt"))
+        cfgs = cio.load_reference_configurations(
+            os.path.join(tmp, "configurations.pt"))
+        t2 = time.perf_counter()
+    check(len(cfgs) == BATCH and ref.schnet_config.hidden_channels == 128
+          and ref.schnet_config.num_interactions == 3
+          and sorted(p.kind for p in ref.priors) == [
+              "dihedral", "harmonic_angles", "harmonic_bonds", "repulsion"],
+          f"checkpoint ingested as {ref.schnet_config}, "
+          f"{[p.kind for p in ref.priors]}")
+    log = FrontierLog()
+    frontier_logger = logging.getLogger("flashmd_tpu_torch.models.frontier")
+    frontier_logger.addHandler(log)
+    frontier_logger.setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ff = cio.build_forcefield(ref, cfgs[0], tune_configurations=cfgs,
+                                  device=dev)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    finally:
+        frontier_logger.removeHandler(log)
+    cfg = ff.schnet_config
+    check(len(log.reports) == 1, "the frontier logged no measurement")
+    rep = log.reports[0]
+    print(f"checkpoint: wrote model_and_prior.pt + configurations.pt "
+          f"({BATCH} structures, A={N_ATOMS}, {CKPT_TYPES} types) in "
+          f"{t1 - t0:.2f} s; ingested as {cfg.message_passing} "
+          f"{cfg.precision}, priors "
+          f"{ {k: p.kind for k, p in ff.priors.items()} }, K "
+          f"{ff.neighbor_capacity}")
+    print(f"checkpoint: frontier on {rep.n_structures} structures: d_min "
+          f"{rep.d_min}, bf16 floor {rep.floor:.4e}, budget "
+          f"{rep.budget:.4e}, errors "
+          f"{ {f'{m1},{m2}': round(e, 6) for (m1, m2), e in rep.errors.items()} }"
+          f" -> chosen {rep.chosen} -> (m1, m2, d_min) = ({cfg.cheb_order}, "
+          f"{cfg.cheb_order_deriv}, {cfg.cheb_d_min})")
+    check(cfg.message_passing == "cheb" and cfg.precision == "bf16",
+          f"checkpoint not on the cheb bf16 path: {cfg}")
+
+    # the frontier's 96-order series on the card against its twins
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+    from flashmd_tpu_torch.models.frontier import MAX_ORDER
+
+    cfg96 = dataclasses.replace(cfg, cheb_order=MAX_ORDER,
+                                cheb_order_deriv=MAX_ORDER,
+                                cheb_d_min=rep.d_min)
+    ff96 = ff.replace(schnet_config=cfg96, schnet_params=attach_cheb_fit(
+        ff.schnet_params, cfg96))
+    print(f"checkpoint: the four cheb kernels on the frontier's fit at "
+          f"M1 = M2 = {MAX_ORDER}, d_min {rep.d_min} (the sweep's orders), "
+          f"on the {BATCH} ingested structures:")
+    phase_cheb_kernels(ff96, collate(cfgs, device=dev).pos, dev)
+
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    def simulation(model, structures, steps, save_interval=SAVE_INTERVAL):
+        sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=steps,
+                                 save_interval=save_interval,
+                                 random_seed=103838, device=dev)
+        sim.attach_model_and_configurations(model, structures, beta=1.67)
+        return sim
+
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    sim = simulation(ff, cfgs, STEPS)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    print(f"checkpoint: attach {(t2 - t1) + (t4 - t3) + (t6 - t5):.3f} s = "
+          f"load {t2 - t1:.3f} s + frontier (build_forcefield) {t4 - t3:.3f} s "
+          f"+ fit and collate (attach_model_and_configurations) "
+          f"{t6 - t5:.3f} s")
+
+    # fidelity on the tuning structures against the modules' own forces
+    tune = pos[:FORCE_BATCH]
+    system = collate(cfgs[:FORCE_BATCH], device=dev)
+    ff_exact = cio.build_forcefield(ref, cfgs[0], optimize=False, device=dev)
+    for label, network_only in (("total", False), ("network only", True)):
+        f_ref = reference_forces(modules, tune, types, lists, dev,
+                                 network_only)
+        scale = float(f_ref.abs().max())
+        strip = (lambda m: m.replace(priors={})) if network_only else (
+            lambda m: m)
+        f_exact = compute_energy_forces(strip(ff_exact), system.pos,
+                                        system.atom_types)[1]
+        f_cheb = compute_energy_forces(strip(sim.model), system.pos,
+                                       system.atom_types)[1]
+        rel_exact = float((f_exact - f_ref).abs().max()) / scale
+        rel_cheb = float((f_cheb - f_ref).abs().max()) / scale
+        print(f"forces: checkpoint {label}, batch {FORCE_BATCH}, against the "
+              f"written modules' fp32 autograd forces: xla fp32 (optimize="
+              f"False) {rel_exact:.3e} (bound {CROSS_BOUND:.0e}); cheb bf16 "
+              f"({cfg.cheb_order}, {cfg.cheb_order_deriv}) d_min "
+              f"{cfg.cheb_d_min} {rel_cheb:.4e}")
+        check(rel_exact <= CROSS_BOUND,
+              f"checkpoint {label}: the ingested fp32 field disagrees")
+        if network_only:
+            # the frontier's own budget, with its 5 % measurement slack
+            check(rel_cheb <= 1.05 * rep.budget,
+                  f"checkpoint cheb forces {rel_cheb:.3e} past the budget "
+                  f"{rep.budget:.3e}")
+
+    n_evals = STEPS + 1
+    with counting_twins() as twins:
+        ck.reset_launch_counts()
+        coords = sim.simulate()
+        counts = ck.launch_counts()
+    m = sim.get_throughput_metrics()
+    expect = cheb_counts(n_evals)
+    finite = bool(np.isfinite(coords).all())
+    print(f"checkpoint: {STEPS} steps batch {BATCH} A={N_ATOMS}: finite="
+          f"{finite} launches={counts} expected={expect}; twin calls "
+          f"{twins}; second-half throughput {m['throughput']:.1f} "
+          f"timestep*mol/s ({m['ms_per_timestep']:.3f} ms/step) beside the "
+          f"zoo cheb slice's {open_tp:.1f} in this run (ratio "
+          f"{m['throughput'] / open_tp:.4f}) on {smi}")
+    check(finite, "checkpoint: non-finite positions")
+    check(counts == expect, f"checkpoint: launch counts differ from {expect}")
+    check(not any(twins.values()), f"checkpoint: twins ran: {twins}")
+    profile_steps(sim, dev, PROFILE_STEPS, "checkpoint")
+
+    again = simulation(ff, cfgs, STEPS)
+    again.simulate()
+    same = bool(torch.equal(sim.final_carry["forces"],
+                            again.final_carry["forces"])
+                and np.array_equal(sim.coords, again.coords))
+    print(f"checkpoint: two identical {STEPS}-step runs: final forces and "
+          f"every saved frame bitwise equal = {same}")
+    check(same, "checkpoint: two identical runs differ")
+
+    phase_prior_kinds(dev)
+
+    for label, model, structures in (
+            ("optimize=False (xla fp32)", ff_exact, cfgs),
+            ("exc_pair_index (xla bf16)", *exclusion_field(ref, cfgs, dev))):
+        check(model.schnet_config.message_passing == "xla",
+              f"checkpoint {label}: {model.schnet_config}")
+        AllKernels.reset_launch_counts()
+        short = simulation(model, structures, CKPT_SHORT_STEPS,
+                           CKPT_SHORT_STEPS // 2)
+        coords = short.simulate()
+        counts = AllKernels.launch_counts()
+        finite = bool(np.isfinite(coords).all())
+        print(f"checkpoint: {label}: {CKPT_SHORT_STEPS} steps batch {BATCH}: "
+              f"finite={finite}; every kernel counter 0: "
+              f"{counts == AllKernels.zeros()}; second-half throughput "
+              f"{short.get_throughput_metrics()['throughput']:.1f} "
+              "timestep*mol/s")
+        check(finite and counts == AllKernels.zeros(),
+              f"checkpoint {label} run failed")
+
+
+def exclusion_field(ref, cfgs, dev):
+    """The structures with pair exclusions (each bead with its third
+    neighbour along the chain) and the field built for them: optimize=True
+    takes the xla path at bf16."""
+    from flashmd_tpu_torch.models import checkpoint_io as cio
+
+    i = np.arange(N_ATOMS - 3)
+    exc = np.stack([i, i + 3])
+    with_exc = [dataclasses.replace(c, exc_pair_index=exc) for c in cfgs]
+    ff = cio.build_forcefield(ref, with_exc[0], device=dev)
+    check(ff.schnet_config.precision == "bf16", f"{ff.schnet_config}")
+    return ff, with_exc
+
+
+def phase_prior_kinds(dev):
+    """The nine prior kinds the checkpoint does not carry, on the chain's
+    term lists with per-term parameters drawn from a seed: energies and
+    forces on the card against the CPU, batch 4, each within
+    PRIOR_BOUND of max|CPU|."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.zoo import random_cg_protein
+    from flashmd_tpu_torch.prior import priors as pr
+
+    base = random_cg_protein(n_atoms=N_ATOMS, n_types=CKPT_TYPES)
+    rng = np.random.default_rng(3)
+    lists = {"distance": base.neighbor_lists["bonds"],
+             "angle_cos": base.neighbor_lists["angles"],
+             "angle_raw": base.neighbor_lists["angles"],
+             "torsion": base.neighbor_lists["dihedrals"],
+             "torsion_shifted": base.neighbor_lists["dihedrals"]}
+    kinds = {
+        "harmonic_angles_raw": {"x0": (1.5, 2.5), "k": (5.0, 15.0)},
+        "harmonic_impropers": {"x0": (-3.0, 3.0), "k": (1.0, 5.0)},
+        "shifted_periodic_harmonic_impropers": {"x0": (-0.5, 0.5),
+                                                "k": (1.0, 5.0)},
+        "general_bonds": {"x0": (3.7, 3.9), "k": (40.0, 80.0)},
+        "general_angles": {"x0": (-0.4, 0.0), "k": (5.0, 15.0)},
+        "repulsion": {"sigma": (2.9, 3.1)},
+        "polynomial": {"ks": (-1.0, 1.0, 4), "v_0": (-0.1, 0.1)},
+        "quartic_angles": {"ks": (-1.0, 1.0, 4), "v_0": (-0.1, 0.1)},
+        "restricted_quartic": {"a": (-1.0, 1.0), "b": (-1.0, 1.0),
+                               "c": (-1.0, 1.0), "d": (-1.0, 1.0),
+                               "k": (0.1, 0.5), "v_0": (-0.1, 0.1)},
+    }
+    cfgs = [dataclasses.replace(base, pos=base.pos + rng.normal(
+        scale=0.05, size=base.pos.shape)) for _ in range(FORCE_BATCH)]
+    worst = {}
+    for kind, spec in kinds.items():
+        feature = pr._KIND_FEATURES[kind]
+        mapping = (base.neighbor_lists["repulsion"] if kind == "repulsion"
+                   else lists[feature]).index_mapping
+        n = mapping.shape[1]
+        params = {k: rng.uniform(v[0], v[1], (v[2], n) if len(v) > 2
+                                 else n) for k, v in spec.items()}
+        out = []
+        for device in (dev, torch.device("cpu")):
+            prior = pr.Prior(
+                index_mapping=torch.as_tensor(mapping, dtype=torch.int64,
+                                              device=device),
+                params={k: torch.as_tensor(v, dtype=torch.float32,
+                                           device=device)
+                        for k, v in params.items()},
+                kind=kind, name=kind, feature=feature)
+            pos = collate(cfgs, device=device).pos.requires_grad_(True)
+            e = pr.prior_energy(prior, pos)
+            (g,) = torch.autograd.grad(e.sum(), pos)
+            out.append((e.detach().cpu(), -g.cpu()))
+        (e_k, f_k), (e_p, f_p) = out
+        worst[kind] = max(float((e_k - e_p).abs().max() / e_p.abs().max()),
+                          float((f_k - f_p).abs().max() / f_p.abs().max()))
+    print(f"forces: the other prior kinds, batch {FORCE_BATCH}, card vs cpu, "
+          f"max over energy and forces of max|d|/max|cpu|: "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (bound "
+          f"{PRIOR_BOUND:.0e})")
+    check(all(v <= PRIOR_BOUND for v in worst.values()),
+          "a prior kind differs between the card and the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; this smoke run needs the GPU",
@@ -1702,6 +2322,7 @@ def main():
           f"({XLA_CELL_STEPS} steps, minimum image, Verlet rebuild under the "
           f"cell) beside the open xla slice's {xla_tp:.1f}")
     phase_xla_images(dev, smi)
+    phase_checkpoint(dev, open_tp, smi)
     phase_fidelity(dev)
 
     print(json.dumps({"kernels": [

@@ -58,6 +58,16 @@ def make_term_list(
     return TermList(index_mapping, tag, order, rcut, self_interaction)
 
 
+def validate_term_list(term_list) -> bool:
+    """True iff ``term_list`` is a usable :class:`TermList` (reference
+    validate_term_list, data/system.py:104-115)."""
+    return (
+        isinstance(term_list, TermList)
+        and term_list.index_mapping.ndim == 2
+        and term_list.index_mapping.shape[0] == term_list.order
+    )
+
+
 @dataclasses.dataclass
 class Configuration:
     """Host-side description of a single molecule (one frame)."""

@@ -24,19 +24,22 @@ from .schnet import SchNetConfig
 from ..prior.priors import Prior
 
 
-def _tensor(a, device):
+def _tensor(a, device, dtype=torch.float32):
+    """An integer array as int64, any other as ``dtype``."""
     a = np.array(a)
-    integer = np.issubdtype(a.dtype, np.integer)
-    dtype = torch.int64 if integer else torch.float32
+    if np.issubdtype(a.dtype, np.integer):
+        dtype = torch.int64
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def _tree_to_torch(tree, device):
+def _tree_to_torch(tree, device, dtype=torch.float32):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+        return {k: _tree_to_torch(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_to_torch(v, device) for v in tree)
-    return _tensor(tree, device)
+        return type(tree)(_tree_to_torch(v, device, dtype) for v in tree)
+    return _tensor(tree, device, dtype)
 
 
 def _field(obj, name):

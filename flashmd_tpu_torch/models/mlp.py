@@ -1,6 +1,10 @@
 """Functional multilayer perceptrons (port of flashmd_tpu/models/mlp.py).
 
-Weights are stored ``[in, out]`` as in the reference. Precision tiers:
+Weights are stored ``[in, out]`` as in the reference. Activations:
+tanh, relu, silu and identity (reference ``ACTIVATIONS``, mlp.py:25-30).
+A per-species head (``init_types_mlp`` / ``types_mlp_apply``, the
+reference TypesMLP) evaluates every species' MLP and selects per atom.
+Precision tiers:
 
 * ``fp32``: float32 operands and result (TF32 is off, see the package
   ``__init__``).
@@ -25,6 +29,18 @@ from typing import Sequence
 import torch
 
 PRECISIONS = ("fp32", "bf16", "bf16x3")
+ACTIVATIONS = {
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "silu": torch.nn.functional.silu,
+    "identity": lambda x: x,
+}
+
+
+def check_activation(activation: str) -> None:
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; the "
+                         f"reference has {sorted(ACTIVATIONS)}")
 
 
 def check_precision(precision: str) -> None:
@@ -83,10 +99,41 @@ def _dense(x, layer, precision: str):
 
 
 def mlp_apply(params, x, activation: str = "tanh", precision: str = "fp32"):
-    """Linear -> tanh -> ... -> Linear (no activation on the last layer)."""
-    if activation != "tanh":
-        raise NotImplementedError(f"activation {activation!r} is not ported")
+    """Linear -> act -> ... -> Linear (no activation on the last layer;
+    reference mlp_apply, mlp.py:112-126)."""
+    act = ACTIVATIONS[activation]
     layers = params["layers"]
     for layer in layers[:-1]:
-        x = torch.tanh(_dense(x, layer, precision))
+        x = act(_dense(x, layer, precision))
     return _dense(x, layers[-1], precision)
+
+
+def init_types_mlp(layer_widths: Sequence[int], generator: torch.Generator,
+                   device, species=None):
+    """Per-species MLP bank (reference init_types_mlp, mlp.py:129-149):
+    one MLP per distinct entry of ``species`` (sorted, as ``unique``), or
+    one shared MLP without species."""
+    if species is None:
+        return {"species": None,
+                "mlps": [init_mlp(layer_widths, generator, device)]}
+    species = torch.unique(torch.as_tensor(species)).to(device)
+    return {"species": species,
+            "mlps": [init_mlp(layer_widths, generator, device)
+                     for _ in range(species.shape[0])]}
+
+
+def types_mlp_apply(params, features, atom_types, activation: str = "tanh",
+                    precision: str = "fp32"):
+    """y_i = MLP_{species(i)}(features_i), [..., A, 1] (reference
+    types_mlp_apply, mlp.py:152-174): every species' MLP runs on every
+    atom and a select keeps each atom's own, so no branch depends on the
+    data. ``atom_types`` [A] broadcasts over the batch axes of
+    ``features``; an atom of no listed species gets 0."""
+    if params["species"] is None:
+        return mlp_apply(params["mlps"][0], features, activation, precision)
+    out = torch.zeros(features.shape[:-1] + (1,), dtype=features.dtype,
+                      device=features.device)
+    for s, mlp in zip(params["species"], params["mlps"]):
+        y = mlp_apply(mlp, features, activation, precision)
+        out = torch.where((atom_types == s)[..., None], y, out)
+    return out

@@ -12,8 +12,12 @@ filter MLP over the padded neighbour matrix with CUDA kernels
 (ops/cfconv.py). Any other value raises.
 
 Only ``"xla"`` takes any cutoff envelope and a radial-basis cutoff other
-than the conv cutoff: the kernels of the other three paths hard-code the
-zero-lower cosine on both, so their configs refuse anything else.
+than the conv cutoff, and any activation (tanh, relu, silu, identity) in
+its filter MLP and interaction blocks: the kernels of the other three
+paths hard-code the zero-lower cosine on both and the tanh filter, so
+their configs refuse anything else. The energy head is a plain MLP or a
+per-species TypesMLP bank (``{"species", "mlps"}``, from checkpoint
+ingestion) on every path.
 """
 
 from __future__ import annotations
@@ -32,7 +36,15 @@ from ..ops.cheb_kernel import _cell_operands
 from ..ops.gather import neighbor_gather
 from .cheb import cheb_cfconv_apply, cheb_stack_apply
 from .cutoff import CosineCutoff, _Cutoff
-from .mlp import check_precision, init_mlp, mlp_apply, xavier_uniform
+from .mlp import (
+    ACTIVATIONS,
+    check_activation,
+    check_precision,
+    init_mlp,
+    mlp_apply,
+    types_mlp_apply,
+    xavier_uniform,
+)
 from .radial_basis import (
     GaussianBasisConfig,
     gaussian_basis_apply,
@@ -96,8 +108,9 @@ class SchNetConfig:
                     f"Cutoff function {end} cutoff, {conv}, and radial "
                     f"basis function {end} cutoff, {rbf}, do not match."
                 )
+        check_activation(self.activation)
         if self.message_passing != "xla":
-            _require_kernel_envelopes(self)
+            _require_kernel_config(self)
         check_precision(self.precision)
 
     @property
@@ -106,11 +119,12 @@ class SchNetConfig:
                                    num_rbf=self.num_rbf)
 
 
-def _require_kernel_envelopes(config: SchNetConfig) -> None:
+def _require_kernel_config(config: SchNetConfig) -> None:
     """The cheb, dense and pallas kernels compute the cosine envelope, and
-    the radial basis's zero-lower cosine, on the conv cutoff's upper bound:
-    another envelope would run as that cosine. (A nonzero lower bound of
-    the conv cosine is refused where each path runs.)"""
+    the radial basis's zero-lower cosine, on the conv cutoff's upper bound,
+    and a tanh filter MLP (the Chebyshev fit fits one): another envelope or
+    activation would run as those. (A nonzero lower bound of the conv
+    cosine is refused where each path runs.)"""
     mp = config.message_passing
     cut, rbf = config.cutoff, config.rbf_cutoff
     if not isinstance(cut, CosineCutoff):
@@ -124,6 +138,12 @@ def _require_kernel_envelopes(config: SchNetConfig) -> None:
             f"message_passing={mp!r} requires rbf_cutoff=CosineCutoff(0, "
             f"{cut.cutoff_upper}) (got rbf_cutoff={rbf!r}); only 'xla' "
             "takes another radial-basis envelope."
+        )
+    if config.activation != "tanh":
+        raise NotImplementedError(
+            f"message_passing={mp!r} requires activation='tanh' (got "
+            f"{config.activation!r}): its filter and blocks are tanh; only "
+            "'xla' takes another activation."
         )
 
 
@@ -161,12 +181,17 @@ def init_schnet(config: SchNetConfig, generator: torch.Generator, device):
     return params
 
 
-def output_energies(params, config: SchNetConfig, x):
-    """Per-atom energies from the plain MLP head: [S, A, H] -> [S, A]."""
-    e = mlp_apply(
-        params["output"], x, activation=config.activation,
-        precision=config.precision,
-    )
+def output_energies(params, config: SchNetConfig, x, atom_types):
+    """Per-atom energies from the head, [S, A, H] -> [S, A]: a plain MLP,
+    or a per-species TypesMLP bank (reference output_energies,
+    schnet.py:219-236)."""
+    out = params["output"]
+    if "mlps" in out:
+        e = types_mlp_apply(out, x, atom_types, activation=config.activation,
+                            precision=config.precision)
+    else:
+        e = mlp_apply(out, x, activation=config.activation,
+                      precision=config.precision)
     return e[..., 0]
 
 
@@ -191,7 +216,7 @@ def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
         x = _neighbor_blocks(params, config, pos, x0, nbr)
     else:
         x = _cheb_blocks(params, config, pos, x0, cell)
-    return output_energies(params, config, x)
+    return output_energies(params, config, x, atom_types)
 
 
 def neighbor_distances_rbf(params, config: SchNetConfig, pos, nbr):
@@ -227,10 +252,12 @@ def cfconv_apply(block_params, config: SchNetConfig, x, d, rbf, nbr):
 
 def interaction_block_apply(block_params, config: SchNetConfig, x, d, rbf,
                             nbr):
-    """CFConv, tanh, linear (reference interaction_block_apply,
-    schnet.py:292-310); the residual is added by the caller."""
+    """CFConv, the configured activation, linear (reference
+    interaction_block_apply, schnet.py:292-310); the residual is added by
+    the caller."""
     y = cfconv_apply(block_params, config, x, d, rbf, nbr)
-    return torch.tanh(y) @ block_params["lin_w"] + block_params["lin_b"]
+    act = ACTIVATIONS[config.activation]
+    return act(y) @ block_params["lin_w"] + block_params["lin_b"]
 
 
 def _xla_blocks(params, config: SchNetConfig, pos, x, nbr):

@@ -1,20 +1,60 @@
-"""Internal coordinates: distances, angle cosines, torsions (port of
+"""Internal coordinates: distances, angles, torsions (port of
 flashmd_tpu/ops/geometry.py).
 
 Positions carry the batch as a leading axis, ``pos [S, A, 3]``; the index
 map ``mapping [order, n_terms]`` (int64 tensor) is shared by the batch.
-Each function returns ``[S, n_terms]``.
+Each function returns ``[S, n_terms]`` (``compute_distance_vectors``:
+``[S, n_terms, 1]`` and ``[S, n_terms, 3]``).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def safe_norm(x, dim: int = -1, keepdim: bool = True, eps: float = 1e-16):
+    """sqrt(sum(x^2) + eps) - sqrt(eps): differentiable at 0 (reference
+    geometry.py:23-33)."""
+    return (torch.sqrt(torch.sum(torch.square(x), dim=dim, keepdim=keepdim)
+                       + eps) - math.sqrt(eps))
+
+
+def safe_normalization(x, norms):
+    """x / norms where norms > 0, x unchanged elsewhere (reference
+    geometry.py:36-47); the untaken branch divides by 1, never by 0."""
+    mask = norms > 0.0
+    safe = torch.where(mask, norms, torch.ones_like(norms))
+    return torch.where(mask, x / safe, x)
+
+
+def compute_distance_vectors(pos: torch.Tensor, mapping: torch.Tensor,
+                             cell_shifts=None):
+    """(safe-norm distances [S, T, 1], unit vectors [S, T, 3]) of
+    r_j - r_i, with ``cell_shifts`` added to the displacement where given
+    (reference geometry.py:50-65)."""
+    dr = pos[:, mapping[1]] - pos[:, mapping[0]]
+    if cell_shifts is not None:
+        dr = dr + cell_shifts
+    distances = safe_norm(dr, dim=-1, keepdim=True)
+    return distances, safe_normalization(dr, distances)
 
 
 def compute_distances(pos: torch.Tensor, mapping: torch.Tensor):
     """Plain 2-norm of r_j - r_i (reference geometry.py:66-81)."""
     dr = pos[:, mapping[1]] - pos[:, mapping[0]]
     return torch.linalg.vector_norm(dr, dim=-1)
+
+
+def compute_angles_raw(pos: torch.Tensor, mapping: torch.Tensor):
+    """theta_ijk in radians, atan2(|r_ij x r_kj|, r_ij . r_kj) (reference
+    geometry.py:84-99)."""
+    dr1 = pos[:, mapping[0]] - pos[:, mapping[1]]
+    dr2 = pos[:, mapping[2]] - pos[:, mapping[1]]
+    n = torch.linalg.vector_norm(torch.cross(dr1, dr2, dim=-1), dim=-1)
+    d = torch.sum(dr1 * dr2, dim=-1)
+    return torch.atan2(n, d)
 
 
 def compute_angles_cos(pos: torch.Tensor, mapping: torch.Tensor):
@@ -34,8 +74,8 @@ def _normalize(x, eps: float = 1e-12):
 
 
 def compute_torsions(pos: torch.Tensor, mapping: torch.Tensor):
-    """Dihedral phi_ijkl, MDTraj sign: atan2(-(n1 x r_kj) . n2, n1 . n2)
-    on normalised bond vectors (reference geometry.py:124-141)."""
+    """Dihedral or improper phi_ijkl, MDTraj sign: atan2(-(n1 x r_kj) . n2,
+    n1 . n2) on normalised bond vectors (reference geometry.py:118-141)."""
     dr1 = _normalize(pos[:, mapping[1]] - pos[:, mapping[0]])
     dr2 = _normalize(pos[:, mapping[2]] - pos[:, mapping[1]])
     dr3 = _normalize(pos[:, mapping[3]] - pos[:, mapping[2]])

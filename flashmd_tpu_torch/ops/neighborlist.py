@@ -421,12 +421,19 @@ def suggest_capacity(n_true_max: int, slack: float = 1.25, align: int = 8):
     return ((cap + align - 1) // align) * align
 
 
-def max_neighbor_count(pos, rcut: float) -> int:
-    """Max per-atom neighbour count at ``rcut`` on the host, in float64
-    (the numpy branch of the reference's native ``max_neighbor_count``,
-    flashmd_tpu/native/__init__.py:89-128, open boundaries)."""
+def max_neighbor_count(pos, rcut: float, cell=None) -> int:
+    """Max per-atom neighbour count at ``rcut`` on the host, in float64,
+    minimum-imaged under a [3, 3] ``cell`` (the numpy branch of the
+    reference's native ``max_neighbor_count``,
+    flashmd_tpu/native/__init__.py:90-130; the port does not load its C++
+    cell list, whose counts are the same integers)."""
     pos = np.ascontiguousarray(pos, dtype=np.float64)
     dr = pos[None, :, :] - pos[:, None, :]
+    if cell is not None:
+        cell = np.asarray(cell, dtype=np.float64)
+        frac = dr @ np.linalg.inv(cell)
+        frac -= np.round(frac)
+        dr = frac @ cell
     d2 = np.einsum("ijk,ijk->ij", dr, dr)
     np.fill_diagonal(d2, np.inf)
     return int((d2 < rcut * rcut).sum(axis=1).max(initial=0))

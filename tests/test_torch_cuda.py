@@ -1018,3 +1018,52 @@ def test_gather_backward_card_matches_cpu(dev, images):
         (out[device.type],) = torch.autograd.grad(neighbor_gather(x, nbr),
                                                   x, g)
     assert _rel(out["cuda"].cpu(), out["cpu"]) <= 1e-6
+
+
+def test_checkpoint_ingestion_card_matches_cpu(dev, tmp_path):
+    """The helper's reference-layout checkpoint ingested on the card
+    against the same ingestion on the CPU: the exact fp32 field's forces
+    within 1e-5 of max|CPU|; the default field on the cheb path with the
+    frontier measured on the card, its forces within 2e-3 of the same
+    config's on the CPU and 2/1/1 kernel launches per evaluation (two
+    blocks)."""
+    import dataclasses
+
+    from flashmd_tpu_torch.models import checkpoint_io as cio
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from tests.helpers.synthetic_checkpoint import build_synthetic_checkpoint
+
+    info = build_synthetic_checkpoint(tmp_path, general_priors=True)
+    ref = cio.load_reference_checkpoint(info["model_path"])
+    cfgs = cio.load_reference_configurations(info["structures_path"])
+    types = torch.tensor(info["types"])
+    pos = torch.tensor(info["pos"], dtype=torch.float32)[None]
+
+    def forces(ff, device):
+        return compute_energy_forces(ff, pos.to(device),
+                                     types.to(device))[1].cpu()
+
+    exact = {d.type: forces(cio.build_forcefield(ref, cfgs[0], optimize=False,
+                                                 device=d), d)
+             for d in (dev, torch.device("cpu"))}
+    assert _rel(exact["cuda"], exact["cpu"]) <= 1e-5
+
+    ff = cio.build_forcefield(ref, cfgs[0], tune_configurations=cfgs)
+    cfg = ff.schnet_config
+    assert (cfg.message_passing, cfg.precision) == ("cheb", "bf16")
+    assert ff.schnet_params["embedding"].device.type == "cuda"
+    ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params, cfg))
+    cpu = cio.build_forcefield(ref, cfgs[0], optimize=False, device="cpu")
+    cpu = cpu.replace(schnet_config=dataclasses.replace(
+        cpu.schnet_config, message_passing="cheb", precision="bf16",
+        cheb_order=cfg.cheb_order, cheb_order_deriv=cfg.cheb_order_deriv,
+        cheb_d_min=cfg.cheb_d_min))
+    cpu = cpu.replace(schnet_params=attach_cheb_fit(cpu.schnet_params,
+                                                    cpu.schnet_config))
+    ck.reset_launch_counts()
+    f_card = forces(ff, dev)
+    counts = ck.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "cheb_fwd": 2,
+                      "cheb_bwd_gx": 1, "cheb_bwd_gd": 1}
+    assert _rel(f_card, forces(cpu, torch.device("cpu"))) <= 2e-3
