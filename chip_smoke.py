@@ -142,6 +142,28 @@ Phases (each prints its lines; any failure exits non-zero):
                also with float32 cotangents in its filter MLP (printed,
                not gated).
 
+10. integrators -- the open cheb slice once more at this point of the
+               process ("cheb again"), then beside it: NVESimulation
+               (launches 3/2/1 per force evaluation, the total-energy
+               excursion printed, not gated: the cheb forces are not the
+               gradient of the cheb energy), OverdampedSimulation
+               (friction 1.0; the same launch gate), and PTSimulation at
+               benchmarks/run_all.py:_cfg_pt's configuration (PT_INDEP
+               structures x PT_BETAS, exchange every PT_EXCHANGE_INTERVAL
+               steps): the cheb launches, the attempts, the int32
+               matrix's off-diagonal sum, two runs with one seed bitwise
+               equal, each replica's kinetic energy per degree of freedom
+               beside 1/(2 beta) (hotter reads higher), throughput and a
+               profiler window. "pt exchange": one exchange at full width
+               on the pallas path (open) and the xla path (positions
+               folded into the BOX cell) under
+               torch.cuda.set_sync_debug_mode("error"), the permuted
+               list, shifts, Verlet reference positions and source CSR
+               and the forces from them bitwise equal to a fresh build's.
+               "nve drift": NVE on the dense fp32 field at two steps over
+               the same time; the excursion ratio shows velocity Verlet's
+               O(dt^2) error (gated >= DRIFT_RATIO_MIN).
+
 Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -154,6 +176,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -221,6 +244,20 @@ XLA_CELL_STEPS = 40
 XLA_IMAGE_ATOMS = 64
 XLA_IMAGE_STEPS = 10
 XLA_IMAGE_CELL = np.diag([15.0, 21.0, 21.0])
+# The integrator phases. NVE drift: dense fp32 (forces the autograd of its
+# energy) at batch NVE_DRIFT_BATCH over the same time at two steps, 20 save
+# points each; velocity Verlet's energy error is O(dt^2), 4x at half the
+# step, gated at DRIFT_RATIO_MIN. Parallel tempering:
+# benchmarks/run_all.py:_cfg_pt (42 structures x 3 betas = 126 slots),
+# exchanging every 10 steps (examples/parallel_tempering.yaml: 100, which
+# would give one exchange in STEPS).
+NVE_DRIFT_BATCH = 16
+NVE_DRIFT_RUNS = ((0.004, 200), (0.002, 400))
+DRIFT_RATIO_MIN = 3.0
+PT_INDEP = 42
+PT_BETAS = [1.67, 1.42, 1.16]
+PT_SAVE_INTERVAL = 10
+PT_EXCHANGE_INTERVAL = 10
 # The other prior kinds, card vs CPU: float32 elementwise terms, summed in
 # another order.
 PRIOR_BOUND = 1e-5
@@ -1433,30 +1470,39 @@ def phase_xla_images(dev, smi):
 
 
 def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
-              smi):
+              smi, cls=None, beta=1.67, **kw):
     """Simulate with the launch counts of ``kernels`` (a kernel module)
     set to 0 just before and read just after; returns the counts, the
-    second-half ms/step and the simulation."""
-    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+    second-half ms/step and the simulation. ``cls`` is the integrator
+    (BAOAB Langevin at friction 1.0 when None), ``kw`` its options."""
+    if cls is None:
+        from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
 
-    sim = LangevinSimulation(
-        dt=0.004, friction=1.0, n_timesteps=steps,
-        save_interval=save_interval, random_seed=103838, device=dev,
-    )
-    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+        cls = LangevinSimulation
+        kw.setdefault("friction", 1.0)
+    sim = cls(dt=0.004, n_timesteps=steps, save_interval=save_interval,
+              random_seed=103838, device=dev, **kw)
+    sim.attach_model_and_configurations(ff, cfgs, beta)
     kernels.reset_launch_counts()
     coords = sim.simulate()
     counts = kernels.launch_counts()
     finite = bool(np.isfinite(coords).all())
     m = sim.get_throughput_metrics()
-    print(f"{label}: {steps} steps batch {BATCH} A={N_ATOMS}: finite={finite} "
-          f"launches={counts} expected={expect}; second-half throughput "
-          f"{m['throughput']:.1f} timestep*mol/s ({m['ms_per_timestep']:.3f}"
-          f" ms/step) on {smi}")
+    print(f"{label}: {steps} steps batch {sim.n_sims} A={sim.n_atoms}: "
+          f"finite={finite} launches={counts} expected={expect}; second-half "
+          f"throughput {m['throughput']:.1f} timestep*mol/s "
+          f"({m['ms_per_timestep']:.3f} ms/step) on {smi}")
     check(finite, f"{label}: non-finite positions")
     check(counts == expect, f"{label}: launch counts differ from {expect}")
-    check(coords.shape == (BATCH, steps // save_interval, N_ATOMS, 3),
+    check(coords.shape == (sim.n_sims, steps // save_interval, sim.n_atoms,
+                           3),
           f"{label}: frames of shape {coords.shape}")
+    if "pair_d_min" in sim.simulated_frames:
+        d_seen = float(sim.simulated_frames["pair_d_min"].min())
+        floor = sim.model.schnet_config.cheb_d_min
+        print(f"{label}: smallest pair distance at the save points "
+              f"{d_seen:.4f} A, cheb_d_min {floor}"
+              + (" (crossed: the run warned)" if d_seen < floor else ""))
     return counts, m["ms_per_timestep"], sim
 
 
@@ -1516,14 +1562,15 @@ def profile_steps(sim, dev, steps, label, ops=0):
 
     gen = torch.Generator(device=dev).manual_seed(7)
     carry = sim.final_carry
-    shape = carry["pos"].shape
-    xis = [torch.randn(shape, generator=gen, device=dev) for _ in range(steps)]
+    # the steps after the run's last, with their draws made up front
+    first = sim.n_timesteps
+    draws = [sim._step_draws(gen, first + i) for i in range(steps)]
     torch.cuda.synchronize()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
                                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t, xi in enumerate(xis):
-            carry = sim._step_with_hooks(carry, xi, t)
+        for i, (xi, u) in enumerate(draws):
+            carry = sim._step_with_hooks(carry, xi, first + i, u)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = sorted(
@@ -1551,6 +1598,215 @@ def profile_steps(sim, dev, steps, label, ops=0):
         ms = e.self_device_time_total / 1e3 / steps
         print(f"profile: {label}: op {ms:8.3f} ms/step {e.count / steps:6.1f}"
               f"/step {ms / busy_ms:.4f} of device {e.key[:60]}")
+
+
+# ---------------------------------------------------------------------------
+# The other integrators: NVE, overdamped, parallel tempering
+# ---------------------------------------------------------------------------
+
+def total_energy_excursion(sim):
+    """max over save points of |E_tot - E_tot(0)| per molecule, [S], in
+    float64 on the host; E_tot(0) from the start positions and velocities
+    (one more force evaluation, after the run's counters were read)."""
+    from flashmd_tpu_torch.simulation.langevin import kinetic_energy
+
+    system = sim.initial_system
+    with torch.no_grad():
+        e0 = (sim._init_carry(system)["potential"]
+              + kinetic_energy(system.velocities, system.masses))
+    e0 = e0.double().cpu().numpy()
+    e = (sim.simulated_potential.astype(np.float64)
+         + sim.simulated_kinetic_energies.astype(np.float64))
+    return np.abs(e - e0).max(axis=0), np.abs(e0)
+
+
+def phase_nve_overdamped(ff, cfgs, dev, open_tp, smi):
+    """NVE and overdamped runs of the cheb slice: launches 3/2/1 per force
+    evaluation, finite positions, throughput beside the open cheb slice's;
+    NVE's total-energy excursion printed, not gated (the cheb forces are
+    not the gradient of the cheb energy: the derivative series is a fit of
+    its own)."""
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.simulation import (
+        NVESimulation,
+        OverdampedSimulation,
+    )
+
+    expect = cheb_counts(STEPS + 1)
+    _, _, sim = run_slice("nve", ff, cfgs, dev, STEPS, SAVE_INTERVAL, ck,
+                          expect, smi, cls=NVESimulation, save_energies=True)
+    tp = sim.get_throughput_metrics()["throughput"]
+    exc, e0 = total_energy_excursion(sim)
+    print(f"nve: second-half throughput {tp:.1f} timestep*mol/s beside the "
+          f"open cheb slice's {open_tp:.1f} in this run (ratio "
+          f"{tp / open_tp:.4f}); cheb bf16 max|E_tot - E_tot(0)| per "
+          f"molecule: median {np.median(exc):.4e}, max {exc.max():.4e} "
+          f"(mean |E_tot(0)| {e0.mean():.4e}); not gated")
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Masses were provided")
+        _, _, sim = run_slice("overdamped", ff, cfgs, dev, STEPS,
+                              SAVE_INTERVAL, ck, expect, smi,
+                              cls=OverdampedSimulation, friction=1.0)
+    tp = sim.get_throughput_metrics()["throughput"]
+    print(f"overdamped: friction 1.0, second-half throughput {tp:.1f} "
+          f"timestep*mol/s beside the open cheb slice's {open_tp:.1f} "
+          f"(ratio {tp / open_tp:.4f})")
+
+
+def phase_nve_drift(dev):
+    """Velocity Verlet on the dense fp32 field (forces = autograd of its
+    energy) from the same start velocities, over the same time at two
+    steps: the total-energy excursion falls as dt^2."""
+    from flashmd_tpu_torch.simulation import NVESimulation
+
+    ff, cfgs = _force_fields(dev, NVE_DRIFT_BATCH, message_passing="dense",
+                             precision="fp32")
+    exc = {}
+    for dt, steps in NVE_DRIFT_RUNS:
+        sim = NVESimulation(dt=dt, n_timesteps=steps,
+                            save_interval=steps // 20, save_energies=True,
+                            random_seed=103838, device=dev)
+        sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+        coords = sim.simulate()
+        check(bool(np.isfinite(coords).all()),
+              f"nve drift: non-finite positions at dt {dt}")
+        per_mol, e0 = total_energy_excursion(sim)
+        exc[dt] = per_mol.max()
+        print(f"nve drift: dense fp32 batch {NVE_DRIFT_BATCH}, dt {dt}, "
+              f"{steps} steps: max|E_tot - E_tot(0)| {exc[dt]:.6e} (median "
+              f"per molecule {np.median(per_mol):.6e}; mean |E_tot(0)| "
+              f"{e0.mean():.6e})")
+    (dt1, _), (dt2, _) = NVE_DRIFT_RUNS
+    ratio = exc[dt1] / exc[dt2]
+    print(f"nve drift: excursion ratio dt {dt1} / dt {dt2} = {ratio:.4f} "
+          f"(velocity Verlet: {(dt1 / dt2) ** 2:.0f}; gated >= "
+          f"{DRIFT_RATIO_MIN})")
+    check(ratio >= DRIFT_RATIO_MIN, "nve drift: no O(dt^2) energy error")
+
+
+def phase_pt(dev, open_tp, open_ms, smi):
+    """benchmarks/run_all.py:_cfg_pt's configuration on the cheb slice's
+    field: PT_INDEP structures x PT_BETAS, two runs with one seed. Gates:
+    the cheb launches (the exchange launches none), the attempts, the
+    matrix's off-diagonal sum, the bitwise repeat, hotter replicas
+    reading a higher kinetic energy. Returns the first run."""
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.simulation import PTSimulation
+
+    ff, cfgs = _force_fields(dev, PT_INDEP)
+    runs = []
+    for label in ("pt", "pt repeat"):
+        _, ms, sim = run_slice(
+            label, ff, cfgs, dev, STEPS, PT_SAVE_INTERVAL, ck,
+            cheb_counts(STEPS + 1), smi, cls=PTSimulation, beta=PT_BETAS,
+            friction=1.0, exchange_interval=PT_EXCHANGE_INTERVAL,
+            save_energies=True,
+        )
+        runs.append((ms, sim))
+    (ms, sim), (_, again) = runs
+    attempted = int(sim.final_carry["n_exchange_attempted"])
+    approved = int(sim.final_carry["n_exchange_approved"])
+    acc = sim.simulated_acceptance[-1]
+    off_diag = int(acc.sum() - np.trace(acc))
+    n_exchanges = STEPS // PT_EXCHANGE_INTERVAL
+    print(f"pt: {n_exchanges} exchanges (every {PT_EXCHANGE_INTERVAL} steps; "
+          f"the example's 100 would give 1 in {STEPS}): attempted "
+          f"{attempted} (expected {n_exchanges * PT_INDEP}), approved "
+          f"{approved}, rate {approved / attempted:.4f}; final int32 "
+          f"matrix {acc.tolist()} (off-diagonal sum {off_diag})")
+    check(attempted == n_exchanges * PT_INDEP, "pt: attempts")
+    check(off_diag == attempted, "pt: matrix off-diagonal sum != attempts")
+    same = (torch.equal(sim.final_carry["pos"], again.final_carry["pos"])
+            and np.array_equal(sim.simulated_acceptance,
+                               again.simulated_acceptance))
+    print(f"pt: two runs with one seed: final positions and matrices "
+          f"bitwise equal: {same}")
+    check(same, "pt: two runs with one seed differ")
+    per_dof = [kinetic_per_dof(sim, slice(r * PT_INDEP, (r + 1) * PT_INDEP))
+               for r in range(sim.n_replicas)]
+    print("pt: mean kinetic energy per degree of freedom over the second "
+          "half: " + ", ".join(
+              f"beta {b}: {k:.5f} (1/(2 beta) {0.5 / b:.5f})"
+              for b, k in zip(PT_BETAS, per_dof)))
+    check(all(a < b for a, b in zip(per_dof, per_dof[1:])),
+          "pt: hotter replicas do not read a higher kinetic energy")
+    tp = sim.get_throughput_metrics()["throughput"]
+    print(f"pt: second-half throughput {tp:.1f} timestep*mol/s ({ms:.3f} "
+          f"ms/step at {sim.n_sims} slots) beside the open cheb slice's "
+          f"{open_tp:.1f} ({open_ms:.3f} ms/step at {BATCH}) in this run "
+          f"(ratio {tp / open_tp:.4f})")
+    profile_steps(sim, dev, PT_EXCHANGE_INTERVAL, "pt")
+
+
+def phase_pt_exchange(dev):
+    """One exchange at full width on the pallas path (open) and on the xla
+    path in the BOX cell (positions folded into it), with distinct
+    positions per slot, the list
+    rebuilt, and potentials set so that every pair of the even group
+    swaps, under torch.cuda.set_sync_debug_mode("error"). Gates: the
+    permuted list entries and the CSR built again equal a fresh build at
+    the permuted positions, and so do its forces, bitwise."""
+    from flashmd_tpu_torch.simulation import PTSimulation
+
+    for label, mp, cell in (("pallas", "pallas", None),
+                            ("xla", "xla", BOX)):
+        ff, cfgs = _force_fields(dev, PT_INDEP, message_passing=mp)
+        if cell is not None:
+            # folded into the cell, so that live pairs cross its faces
+            cfgs = with_cells(cfgs, np.stack([cell * np.eye(3)] * PT_INDEP),
+                              folded=True)
+        sim = PTSimulation(friction=1.0, dt=0.004, n_timesteps=10,
+                           save_interval=10, exchange_interval=10,
+                           neighbor_rebuild_interval=2, device=dev)
+        sim.attach_model_and_configurations(ff, cfgs, PT_BETAS)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        with torch.no_grad():
+            carry = sim._init_carry(sim.initial_system)
+            carry["pos"] = carry["pos"] + 0.2 * torch.randn(
+                carry["pos"].shape, generator=gen, device=dev)
+            carry = sim._rebuild_neighbors(carry)
+            carry["potential"], carry["forces"], _ = sim._forces(
+                carry, carry["pos"])
+            # U_a - U_b > 0 with beta_a > beta_b on every adjacent pair
+            carry["potential"] = 100.0 * (
+                sim.n_replicas - 1 - sim._slot_to_replica).float()
+            u = torch.rand(sim._subroutine_draw_shape(), generator=gen,
+                           device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                new = sim._device_subroutine(carry, u)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            ms = cuda_time_ms(lambda: sim._device_subroutine(carry, u))
+            n = PT_INDEP
+            perm = torch.cat([torch.arange(n, 2 * n), torch.arange(n),
+                              torch.arange(2 * n, 3 * n)]).to(dev)
+            nbr, fresh = new["nbr"], sim._rebuild_neighbors(dict(new))
+            equal = {
+                "approved": int(new["n_exchange_approved"]) == n,
+                "pos": torch.equal(new["pos"], carry["pos"][perm]),
+                "nbr_ref_pos": torch.equal(new["nbr_ref_pos"],
+                                           fresh["nbr_ref_pos"]),
+            }
+            for leaf in ("idx", "mask", "shifts", "csr_offsets",
+                         "csr_slots"):
+                a, b = getattr(nbr, leaf), getattr(fresh["nbr"], leaf)
+                equal[leaf] = (a is None and b is None) or torch.equal(a, b)
+            equal["forces"] = torch.equal(sim._forces(new, new["pos"])[1],
+                                          sim._forces(fresh,
+                                                      fresh["pos"])[1])
+        shifts = ("" if cell is None else
+                  f", {int(nbr.shifts.abs().sum(-1).gt(0).sum())} slots "
+                  "with a nonzero shift")
+        print(f"pt exchange: {label} at {sim.n_sims} slots"
+              f" (K {ff.neighbor_capacity}, skin {sim.neighbor_skin}"
+              f"{shifts}): one exchange under set_sync_debug_mode('error') "
+              f"in {ms:.3f} ms; equal to a fresh build at the permuted "
+              f"positions, bitwise: {equal}")
+        check(all(equal.values()),
+              f"pt exchange {label}: the permuted carry differs from a "
+              "fresh build")
 
 
 # ---------------------------------------------------------------------------
@@ -2149,7 +2405,15 @@ def phase_prior_kinds(dev):
           "a prior kind differs between the card and the CPU")
 
 
+def kinetic_per_dof(sim, slots=slice(None)):
+    """Mean kinetic energy per degree of freedom over the second half of
+    the save points, over ``slots``."""
+    ke = sim.simulated_kinetic_energies
+    return float(ke[ke.shape[0] // 2:, slots].mean()) / (3 * sim.n_atoms)
+
+
 def main():
+    sys.stdout.reconfigure(line_buffering=True)  # in order with warnings
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device; this smoke run needs the GPU",
               file=sys.stderr)
@@ -2324,6 +2588,23 @@ def main():
     phase_xla_images(dev, smi)
     phase_checkpoint(dev, open_tp, smi)
     phase_fidelity(dev)
+    # The integrators, beside a second run of the open cheb slice at this
+    # point of the process.
+    with cheb_schedule("1"):
+        _, late_ms, sim = run_slice("cheb again", ff, cfgs, dev, STEPS,
+                                    SAVE_INTERVAL, ck, cheb_counts(n_evals),
+                                    smi, save_energies=True)
+        late_tp = sim.get_throughput_metrics()["throughput"]
+        print(f"cheb again: second-half throughput {late_tp:.1f} "
+              f"timestep*mol/s beside the first open cheb slice's "
+              f"{open_tp:.1f} in this run (ratio {late_tp / open_tp:.4f}); "
+              f"kinetic energy per degree of freedom over the second half "
+              f"{kinetic_per_dof(sim):.5f} at beta 1.67 (1/(2 beta) "
+              f"{0.5 / 1.67:.5f})")
+        phase_nve_overdamped(ff, cfgs, dev, late_tp, smi)
+        phase_pt(dev, late_tp, late_ms, smi)
+    phase_pt_exchange(dev)
+    phase_nve_drift(dev)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

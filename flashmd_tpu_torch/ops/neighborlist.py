@@ -348,6 +348,23 @@ def source_csr(idx, mask):
     return offsets.to(torch.int32), slots.to(torch.int32)
 
 
+def permute_neighbor_matrix(nbr: NeighborMatrix,
+                            perm: torch.Tensor) -> NeighborMatrix:
+    """The batched list with its molecules reordered, molecule ``s`` of
+    the result being molecule ``perm[s]`` of ``nbr``: ``idx``, ``mask``,
+    ``n_max`` and ``shifts`` are gathered along the batch; the source CSR
+    is built again from them, since its slot ids ``(s A + i) K + k`` and
+    its one tail of masked slots are global to the batch and cannot be
+    permuted in place. On the device and free of host syncs."""
+    idx, mask = nbr.idx[perm], nbr.mask[perm]
+    offsets, slots = source_csr(idx, mask)
+    return NeighborMatrix(
+        idx=idx, mask=mask, n_max=nbr.n_max[perm],
+        csr_offsets=offsets, csr_slots=slots,
+        shifts=None if nbr.shifts is None else nbr.shifts[perm],
+    )
+
+
 def _build_any(pos, rcut, capacity, cell, exclude_pairs, images,
                check_cell, context):
     if images is not None:

@@ -1,9 +1,8 @@
-"""Simulation engine, main-path slice (port of
-flashmd_tpu/simulation/base.py).
+"""Simulation engine (port of flashmd_tpu/simulation/base.py).
 
 What is here: the constructor options ``dt``, ``n_timesteps``,
-``save_interval``, ``random_seed``, ``device`` (the card unless the
-caller asks for the CPU) and the neighbour-list options
+``save_interval``, ``save_energies``, ``random_seed``, ``device`` (the
+card unless the caller asks for the CPU) and the neighbour-list options
 ``neighbor_capacity``, ``neighbor_skin`` and ``neighbor_rebuild_interval``;
 attach (which fits the Chebyshev filters on the host for a cheb model,
 base.py:479-508), the minimum-image soundness check of periodic cells
@@ -14,16 +13,28 @@ Verlet neighbour list of the ``"xla"`` and ``"pallas"`` paths
 at rcut + skin from the positions at the start of a step, every
 ``neighbor_rebuild_interval``
 steps, with the running maxima of the true neighbour count and of the
-displacement since the last rebuild kept on the device; ``simulate()``,
-which steps in chunks of ``save_interval``, keeps position and potential
-frames in memory at save points, raises the reference's capacity-overflow
-and Verlet-skin warnings at its end (:1176-1197), and times the second half
-of the run exactly as ``get_throughput_metrics`` (:1368-1390) defines it.
-The host clock is read after ``torch.cuda.synchronize()`` on the card.
+displacement since the last rebuild kept on the device; the in-loop
+subroutine hook (identity here; parallel tempering's replica exchange),
+run after the step that makes ``(t + 1) % sim_subroutine_interval == 0``
+(:697-725); ``simulate()``, which steps in chunks of ``save_interval``,
+keeps ``_frame_outputs`` on the device at save points (positions,
+potentials, the blow-up statistic ``pos_spread``, the neighbour maxima,
+the Chebyshev pair floor ``pair_d_min``; the integrators add theirs),
+copies them to the host once at its end and runs the reference's
+divergence, capacity-overflow, Verlet-skin and pair-floor checks on them
+(:1150-1215), and times the second half of the run exactly as
+``get_throughput_metrics`` (:1368-1390) defines it. The host clock is
+read after ``torch.cuda.synchronize()`` on the card; nothing inside the
+step loop reads the card.
 
-Not here yet: file export, checkpoints, the divergence and pair-floor
-guards, CUDA graphs. The reference's ``gptq`` option (which forces bf16)
-is not ported: the model runs at its configured precision.
+Every draw comes from the simulation's one ``torch.Generator`` on the
+device, in a fixed order per step: the step's standard-normal noise (none
+for an integrator that uses none), then the subroutine's uniforms after
+the steps that run it. Two runs with one seed are bitwise equal.
+
+Not here yet: file export, checkpoints and resume, logging, CUDA graphs.
+The reference's ``gptq`` option (which forces bf16) is not ported: the
+model runs at its configured precision.
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from __future__ import annotations
 import logging
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,14 +64,36 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def fetch_frames(frames: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The tensors as numpy arrays through ONE device-to-host copy: their
+    bytes are packed into one buffer on the device, copied, and read back
+    in their own dtypes and shapes."""
+    parts = {k: v.contiguous().reshape(-1) for k, v in frames.items()}
+    buf = torch.cat([v.view(torch.uint8) for v in parts.values()]).cpu()
+    raw = buf.numpy()
+    out, off = {}, 0
+    for k, v in parts.items():
+        dtype = torch.empty((), dtype=v.dtype).numpy().dtype
+        out[k] = np.frombuffer(raw, dtype=dtype, count=v.numel(),
+                               offset=off).reshape(frames[k].shape).copy()
+        off += v.numel() * v.element_size()
+    return out
+
+
 class Simulation:
     """Base class for MD simulations of a trained force field."""
+
+    #: whether a step takes a standard-normal draw of the positions' shape
+    uses_noise = True
+    #: steps between runs of the in-loop subroutine (None: never)
+    sim_subroutine_interval: Optional[int] = None
 
     def __init__(
         self,
         dt: float = 5e-4,
         n_timesteps: int = 100,
         save_interval: int = 10,
+        save_energies: bool = False,
         random_seed: Optional[int] = 233,
         device: torch.device | str = "cuda",
         neighbor_capacity: Optional[int] = None,
@@ -75,6 +108,7 @@ class Simulation:
         self.dt = dt
         self.n_timesteps = n_timesteps
         self.save_interval = save_interval
+        self.save_energies = save_energies
         self.random_seed = 233 if random_seed is None else random_seed
         self.device = torch.device(device)
         self.dtype = torch.float32
@@ -185,6 +219,10 @@ class Simulation:
         self.n_atoms = system.n_atoms
         self.n_dims = system.n_dims
         self.beta = system.beta
+        # Blow-up guard scale (reference base.py:557-560).
+        self.initial_pos_spread = float(
+            max(np.std(np.asarray(c.pos), axis=0).max() for c in configurations)
+        )
         self.initial_system = system
 
     # ------------------------------------------------------------------
@@ -251,24 +289,116 @@ class Simulation:
         carry["potential"] = potential
         return carry
 
-    def _step_with_hooks(self, carry: Dict, xi: torch.Tensor,
-                         t: int) -> Dict:
+    def _has_device_subroutine(self) -> bool:
+        return False
+
+    def _subroutine_due(self, t: int) -> bool:
+        """Whether the subroutine runs after step ``t`` (0-based)."""
+        return (self._has_device_subroutine()
+                and (t + 1) % self.sim_subroutine_interval == 0)
+
+    def _subroutine_draw_shape(self) -> Tuple[int, ...]:
+        """Shape of the uniforms one subroutine run takes."""
+        raise NotImplementedError
+
+    def _device_subroutine(self, carry: Dict, u: torch.Tensor) -> Dict:
+        """In-loop subroutine (parallel tempering's exchange); ``u`` is its
+        uniform draw. Identity by default."""
+        return carry
+
+    def _step_draws(self, gen: torch.Generator, t: int):
+        """(xi, u) of step ``t``: its standard-normal noise (None for an
+        integrator that uses none) and, where the subroutine runs after
+        it, the subroutine's uniforms (else None), drawn in that order."""
+        xi = u = None
+        if self.uses_noise:
+            xi = torch.randn(self.initial_system.pos.shape, generator=gen,
+                             device=self.device, dtype=self.dtype)
+        if self._subroutine_due(t):
+            u = torch.rand(self._subroutine_draw_shape(), generator=gen,
+                           device=self.device, dtype=self.dtype)
+        return xi, u
+
+    def _step_with_hooks(self, carry: Dict, xi: Optional[torch.Tensor],
+                         t: int, u: Optional[torch.Tensor] = None) -> Dict:
         """Step ``t`` (0-based): the list is rebuilt from the positions at
         the start of the step, then the integrator step evaluates the force
-        at the new positions with it (reference _step_with_hooks,
-        base.py:697-716)."""
+        at the new positions with it, then the subroutine runs if the step
+        makes ``(t + 1) % sim_subroutine_interval == 0`` (reference
+        _step_with_hooks, base.py:697-725)."""
         nbr_list = self._uses_neighbor_list()
         if nbr_list and t % self.neighbor_rebuild_interval == 0:
             carry = self._rebuild_neighbors(carry)
         carry = self._timestep(carry, xi)
         if nbr_list and self.neighbor_rebuild_interval > 1:
             carry = self._track_neighbor_displacement(carry)
+        if self._subroutine_due(t):
+            carry = self._device_subroutine(carry, u)
         return carry
 
-    def _warn_neighbor_list(self, carry: Dict) -> None:
-        """The reference's export-time checks (base.py:1176-1197)."""
-        if "nbr_n_max" in carry:
-            n_max = int(carry["nbr_n_max"])
+    def _timestep(self, carry: Dict, xi: Optional[torch.Tensor]) -> Dict:
+        """One step; ``xi`` is the step's standard-normal noise (None
+        where ``uses_noise`` is False)."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    # Save points and their checks
+    # ------------------------------------------------------------------
+
+    def _frame_outputs(self, carry: Dict) -> Dict[str, torch.Tensor]:
+        """What is recorded at each save point, on the device (reference
+        _frame_outputs, base.py:727-765). The carry's tensors are never
+        written in place, so they are kept without a copy."""
+        pos = carry["pos"]
+        out = {
+            "pos": pos,
+            "potential": carry["potential"],
+            "pos_spread": torch.std(pos.reshape(pos.shape[0], -1), dim=1,
+                                    correction=0),
+        }
+        for key in ("nbr_n_max", "nbr_disp_max"):
+            if key in carry:
+                out[key] = carry[key]
+        d_min = self._pair_d_min(pos)
+        if d_min is not None:
+            out["pair_d_min"] = d_min
+        return out
+
+    def _pair_d_min(self, pos) -> Optional[torch.Tensor]:
+        """The smallest pair distance in the batch, minimum-imaged under
+        the system's cells, where the field is cheb with a restricted fit
+        domain (cheb_d_min > 0); else None (reference _pair_floor_outputs,
+        base.py:767-802)."""
+        cfg = None if self.model is None else self.model.schnet_config
+        if (cfg is None or cfg.message_passing != "cheb"
+                or cfg.cheb_d_min <= 0.0):
+            return None
+        from ..ops.neighborlist import _cell_operands, pair_rel
+
+        cell, inv = _cell_operands(self.initial_system.cell, pos.shape[0],
+                                   pos.device)
+        rel = pair_rel(pos, cell, inv)
+        d2 = torch.sum(rel * rel, dim=-1)
+        eye = torch.eye(pos.shape[1], dtype=d2.dtype, device=d2.device)
+        return torch.sqrt(torch.min(d2 + eye * 1e12))
+
+    def _check_divergence(self, frames: Dict[str, np.ndarray],
+                          step_end: int) -> None:
+        """Trajectory blow-up guard and the list and fit-domain checks on
+        the host frames (reference _check_divergence, base.py:1150-1215)."""
+        spread = frames["pos_spread"]  # [n_frames, S]
+        bad = ~np.isfinite(spread) | (
+            spread > 1e3 * max(self.initial_pos_spread, 1e-12)
+        )
+        if np.any(bad):
+            frame_idx = int(np.argwhere(bad.any(axis=1))[0][0])
+            n_frames = spread.shape[0]
+            t = step_end - (n_frames - 1 - frame_idx) * self.save_interval
+            raise RuntimeError(
+                f"Simulation of trajectory blew up at #timestep={t}"
+            )
+        if "nbr_n_max" in frames:
+            n_max = int(frames["nbr_n_max"].max())
             cap = self.model.neighbor_capacity
             if n_max > cap:
                 warnings.warn(
@@ -277,8 +407,8 @@ class Simulation:
                     "the farthest were dropped. Increase neighbor_capacity.",
                     RuntimeWarning,
                 )
-        if "nbr_disp_max" in carry:
-            d_max = float(carry["nbr_disp_max"])
+        if "nbr_disp_max" in frames:
+            d_max = float(frames["nbr_disp_max"].max())
             half_skin = self.neighbor_skin / 2
             if d_max > half_skin:
                 warnings.warn(
@@ -289,10 +419,20 @@ class Simulation:
                     "neighbor_rebuild_interval or increase neighbor_skin.",
                     RuntimeWarning,
                 )
-
-    def _timestep(self, carry: Dict, xi: torch.Tensor) -> Dict:
-        """One step; ``xi`` is the step's standard-normal noise."""
-        raise NotImplementedError
+        if "pair_d_min" in frames:
+            d_seen = float(np.min(frames["pair_d_min"]))
+            floor = float(self.model.schnet_config.cheb_d_min)
+            if d_seen < floor:
+                warnings.warn(
+                    f"Chebyshev fit-domain floor crossed: a pair came "
+                    f"within {d_seen:.4f} but the filter was fitted on "
+                    f"[{floor}, rcut] (cheb_d_min). Forces for that pair "
+                    "were first-order extrapolated (accuracy degrades "
+                    "quadratically with depth below the floor). Lower "
+                    "cheb_d_min (0 restores the full-domain fit) or "
+                    "strengthen the repulsive prior.",
+                    RuntimeWarning,
+                )
 
     # ------------------------------------------------------------------
     # The host loop
@@ -313,25 +453,22 @@ class Simulation:
         )
         self._warmup_end_time = None
         halfway_step = self.n_timesteps // 2
-        pos_frames, pot_frames = [], []
+        frames = []
         step = 0
         with torch.no_grad():
             carry = self._init_carry(self.initial_system)
-            shape = carry["pos"].shape
             while step < self.n_timesteps:
                 if self._warmup_end_time is None and step >= halfway_step:
                     _synchronize(self.device)
                     self._warmup_end_time = time.perf_counter()
                     self._steps_at_warmup_end = step
                 for _ in range(self.save_interval):
-                    xi = torch.randn(
-                        shape, generator=gen, device=self.device,
-                        dtype=self.dtype,
-                    )
-                    carry = self._step_with_hooks(carry, xi, step)
+                    xi, u = self._step_draws(gen, step)
+                    carry = self._step_with_hooks(carry, xi, step, u)
                     step += 1
-                pos_frames.append(carry["pos"].clone())
-                pot_frames.append(carry["potential"].clone())
+                frames.append(self._frame_outputs(carry))
+            stacked = {k: torch.stack([f[k] for f in frames])
+                       for k in frames[0]}
             _synchronize(self.device)
         self._simulation_end_time = time.perf_counter()
         if self._warmup_end_time is None:
@@ -339,10 +476,12 @@ class Simulation:
             self._steps_at_warmup_end = step
         self._post_warmup_steps = step - self._steps_at_warmup_end
         self.final_carry = carry
-        self._warn_neighbor_list(carry)
-        # [frames, S, ...] on the host
-        self.simulated_coords = torch.stack(pos_frames).cpu().numpy()
-        self.simulated_potential = torch.stack(pot_frames).cpu().numpy()
+        host = fetch_frames(stacked)  # [frames, S, ...] on the host
+        self._check_divergence(host, step)
+        self.simulated_frames = host
+        self.simulated_coords = host["pos"]
+        self.simulated_potential = host["potential"]
+        self.simulated_kinetic_energies = host.get("kinetic_energy")
         self._simulated = True
         return self.coords
 

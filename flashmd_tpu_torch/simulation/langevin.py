@@ -1,6 +1,7 @@
-"""BAOAB Langevin dynamics (port of flashmd_tpu/simulation/langevin.py).
+"""BAOAB Langevin and overdamped (Brownian) dynamics (port of
+flashmd_tpu/simulation/langevin.py).
 
-The step takes its standard-normal noise ``xi`` as an argument:
+A step takes its standard-normal noise ``xi`` as an argument:
 ``simulate()`` draws it from the simulation's ``torch.Generator`` on the
 device, and a test can inject the reference's own noise to compare
 trajectories step for step (JAX's threefry and torch's Philox give
@@ -9,6 +10,7 @@ different streams).
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict
 
 import numpy as np
@@ -25,6 +27,25 @@ def sample_maxwell_boltzmann(beta, masses, generator: torch.Generator):
         dtype=masses.dtype,
     )
     return scale * noise
+
+
+def kinetic_energy(vel, masses):
+    """Per-molecule kinetic energy 0.5 sum m v^2, [S] (reference
+    langevin.py:124-133, velocity_verlet.py:76-85)."""
+    return 0.5 * torch.sum(masses[..., None] * vel * vel, dim=(1, 2))
+
+
+def attach_velocities(sim: Simulation) -> None:
+    """Maxwell-Boltzmann velocities at each molecule's beta from
+    ``random_seed + 1`` where the configurations gave none."""
+    system = sim.initial_system
+    if system.velocities is None:
+        beta_atom = system.beta[:, None].expand_as(system.masses)
+        gen = torch.Generator(device=sim.device).manual_seed(
+            sim.random_seed + 1
+        )
+        system.velocities = sample_maxwell_boltzmann(beta_atom,
+                                                     system.masses, gen)
 
 
 class LangevinSimulation(Simulation):
@@ -54,13 +75,7 @@ class LangevinSimulation(Simulation):
         self.beta_mass_ratio = torch.sqrt(1.0 / beta_atom / system.masses)[
             ..., None
         ]
-        if system.velocities is None:
-            gen = torch.Generator(device=self.device).manual_seed(
-                self.random_seed + 1
-            )
-            system.velocities = sample_maxwell_boltzmann(
-                beta_atom, system.masses, gen
-            )
+        attach_velocities(self)
 
     def _timestep(self, carry: Dict, xi: torch.Tensor) -> Dict:
         return self._baoab(carry, xi)
@@ -83,3 +98,45 @@ class LangevinSimulation(Simulation):
         v = v + 0.5 * dt * forces / masses
         return {**carry, "pos": x, "vel": v, "forces": forces,
                 "potential": potential}
+
+    def _frame_outputs(self, carry: Dict) -> Dict:
+        out = super()._frame_outputs(carry)
+        if self.save_energies:
+            out["kinetic_energy"] = kinetic_energy(
+                carry["vel"], self.initial_system.masses)
+        return out
+
+
+class OverdampedSimulation(Simulation):
+    r"""Brownian dynamics (reference langevin.py:153-202):
+
+    .. math::
+        x \leftarrow x + F D\, dt + \sqrt{2 D\, dt}\, \xi,
+        \quad D = 1 / (\beta \gamma)
+
+    Masses and velocities are unused.
+    """
+
+    def __init__(self, friction: float = 1.0, **kwargs: Any):
+        super().__init__(**kwargs)
+        if friction <= 0:
+            raise ValueError("friction must be positive")
+        self.friction = friction
+
+    def _attach_configurations(self, configurations, beta):
+        super()._attach_configurations(configurations, beta)
+        if any(c.masses is not None for c in configurations):
+            warnings.warn(
+                "Masses were provided, but will not be used since an "
+                "overdamped Langevin scheme is being used for integration."
+            )
+        system = self.initial_system
+        beta_atom = system.beta[:, None].expand_as(system.masses)[..., None]
+        self.diffusion = 1.0 / beta_atom / self.friction  # [S, A, 1]
+        self._dtau = self.diffusion * self.dt
+
+    def _timestep(self, carry: Dict, xi: torch.Tensor) -> Dict:
+        x = (carry["pos"] + carry["forces"] * self._dtau
+             + torch.sqrt(2 * self._dtau) * xi)
+        potential, forces, _ = self._forces(carry, x)
+        return {**carry, "pos": x, "forces": forces, "potential": potential}

@@ -1,0 +1,238 @@
+"""Parallel tempering (replica exchange) on BAOAB Langevin (port of
+flashmd_tpu/simulation/parallel_tempering.py).
+
+Each of ``n_indep`` configurations is replicated across ``n_replicas``
+inverse temperatures into one flat batch, replica-major (slot
+``r * n_indep + i``). After every ``exchange_interval``-th step adjacent
+temperature pairs, even and odd in turn, propose Metropolis swaps
+``exp((U_a - U_b)(beta_a - beta_b))``; exchanged velocities are rescaled by
+``sqrt(beta_old / beta_new)``.
+
+The exchange stays on the device, as in the reference: the uniforms come
+from the simulation's generator, the accepted swaps become one
+permutation of the batch axis, and every batch-leading carry entry
+(positions, velocities, forces, potentials, the neighbour list with its
+shifts and a CSR built again for the new order, the Verlet reference
+positions) follows it. Nothing in it reads the card from the host: no
+``.item()``, boolean-mask indexing, ``nonzero`` or Python branch on a
+device value. The int32 acceptance counts ride the carry; a snapshot of
+the cumulative matrix is kept at each save point.
+"""
+
+from __future__ import annotations
+
+import logging
+from copy import deepcopy
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from ..data.system import Configuration
+from ..ops.neighborlist import NeighborMatrix, permute_neighbor_matrix
+from .langevin import LangevinSimulation
+
+logger = logging.getLogger(__name__)
+
+# Carry entries that are not per slot, even where their first dimension
+# happens to equal the batch size (an [R, R] matrix with R == S).
+_NOT_PERMUTED = frozenset({
+    "vel", "exchange_parity", "acceptance_matrix", "n_exchange_approved",
+    "n_exchange_attempted",
+})
+
+
+class PTSimulation(LangevinSimulation):
+    """Parallel-tempering Langevin simulation (reference
+    parallel_tempering.py:44-335)."""
+
+    def __init__(self, friction: float = 1e-3, exchange_interval: int = 100,
+                 **kwargs: Any):
+        super().__init__(friction=friction, **kwargs)
+        if exchange_interval < 1:
+            raise ValueError("exchange_interval must be a positive number "
+                             "of steps")
+        self.exchange_interval = exchange_interval
+        self.sim_subroutine_interval = exchange_interval
+
+    def _has_device_subroutine(self) -> bool:
+        return True
+
+    # ------------------------------------------------------------------
+    # Attachment (reference parallel_tempering.py:72-159)
+    # ------------------------------------------------------------------
+
+    def attach_model_and_configurations(self, model, configurations, betas):
+        if isinstance(model, (list, tuple)):
+            raise NotImplementedError(
+                "Parallel tempering does not support mixed-size batches "
+                "(lists of per-molecule force fields)."
+            )
+        super().attach_model_and_configurations(model, configurations, betas)
+
+    def _attach_configurations(self, configurations: List[Configuration],
+                               beta):
+        betas = beta
+        if not isinstance(betas, (list, tuple, np.ndarray)):
+            raise ValueError(
+                "Parallel tempering requires multiple temperatures, but "
+                f"only {betas} was supplied."
+            )
+        betas = [float(b) for b in betas]
+        if not all(b > 0 and np.isfinite(b) for b in betas):
+            raise ValueError(
+                f"All betas must be positive and finite, got {betas}."
+            )
+        if not (np.array(betas[::-1]) == np.sort(betas[::-1])).all():
+            raise ValueError(
+                "Betas must be in order of increasing temperature."
+            )
+        self.n_indep_sims = len(configurations)
+        self.n_replicas = len(betas)
+        self.betas = betas
+        replicated = [deepcopy(c) for _ in betas for c in configurations]
+        extended_betas = [b for b in betas for _ in configurations]
+        super()._attach_configurations(replicated, extended_betas)
+        self._build_exchange_pairs()
+
+    def _build_exchange_pairs(self):
+        """Even/odd adjacent-pair slot indices, padded to one length with
+        (0, 0) pairs marked invalid (reference :120-159). Padding only
+        ever pads the odd group, which never holds slot 0, so the padded
+        writes of slot 0 in the permutation write its own index."""
+        n_ind, n_rep = self.n_indep_sims, self.n_replicas
+        even = [(i, i + 1) for i in range(0, n_rep - 1, 2)]
+        odd = [(i, i + 1) for i in range(1, n_rep - 1, 2)] or even
+
+        def expand(pairs, pad_to):
+            a = [s for pa, _ in pairs for s in range(pa * n_ind,
+                                                     (pa + 1) * n_ind)]
+            b = [s for _, pb in pairs for s in range(pb * n_ind,
+                                                     (pb + 1) * n_ind)]
+            valid = [True] * len(a) + [False] * (pad_to - len(a))
+            pad = [0] * (pad_to - len(a))
+            return a + pad, b + pad, valid
+
+        pad_to = max(len(even), len(odd)) * n_ind
+        ea, eb, ev = expand(even, pad_to)
+        oa, ob, ov = expand(odd, pad_to)
+
+        def dev(x, dtype):
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
+
+        self._pairs_a = dev([ea, oa], torch.int64)  # [2, P]
+        self._pairs_b = dev([eb, ob], torch.int64)
+        self._pairs_valid = dev([ev, ov], torch.bool)
+        self._slot_to_replica = dev(
+            np.repeat(np.arange(n_rep), n_ind), torch.int64)
+        self._slots = torch.arange(self.n_sims, device=self.device)
+
+    def _subroutine_draw_shape(self):
+        return (self._pairs_a.shape[1],)
+
+    # ------------------------------------------------------------------
+    # Carry (reference :161-173)
+    # ------------------------------------------------------------------
+
+    def _init_carry(self, system):
+        carry = super()._init_carry(system)
+
+        def zero(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+        carry["exchange_parity"] = zero()
+        carry["acceptance_matrix"] = zero(self.n_replicas, self.n_replicas)
+        carry["n_exchange_approved"] = zero()
+        carry["n_exchange_attempted"] = zero()
+        return carry
+
+    # ------------------------------------------------------------------
+    # On-device replica exchange (reference :195-282)
+    # ------------------------------------------------------------------
+
+    def _device_subroutine(self, carry: Dict, u: torch.Tensor) -> Dict:
+        parity = carry["exchange_parity"]
+        even = parity == 0
+        pair_a = torch.where(even, self._pairs_a[0], self._pairs_a[1])
+        pair_b = torch.where(even, self._pairs_b[0], self._pairs_b[1])
+        valid = torch.where(even, self._pairs_valid[0], self._pairs_valid[1])
+
+        beta = self.initial_system.beta
+        pot = carry["potential"]
+        # Metropolis acceptance against the step's uniforms
+        p_pair = torch.exp((pot[pair_a] - pot[pair_b])
+                           * (beta[pair_a] - beta[pair_b]))
+        approved = (u < p_pair) & valid
+
+        # One permutation of the batch axis for every approved swap
+        perm = self._slots.clone()
+        perm.index_put_((pair_a,), torch.where(approved, pair_b, pair_a))
+        perm.index_put_((pair_b,), torch.where(approved, pair_a, pair_b))
+
+        # velocities rescaled by sqrt(beta_old / beta_new) (reference
+        # parallel_tempering.py:465-477)
+        vscale = torch.sqrt(beta[perm] / beta)[:, None, None]
+
+        def permute(name, x):
+            if isinstance(x, NeighborMatrix):
+                return permute_neighbor_matrix(x, perm)
+            if (name not in _NOT_PERMUTED and isinstance(x, torch.Tensor)
+                    and x.ndim >= 1 and x.shape[0] == self.n_sims):
+                return x[perm]
+            return x
+
+        new = {k: permute(k, v) for k, v in carry.items()}
+        new["vel"] = carry["vel"][perm] * vscale
+        new["exchange_parity"] = 1 - parity
+        new["n_exchange_approved"] = (carry["n_exchange_approved"]
+                                      + approved.sum(dtype=torch.int32))
+        new["n_exchange_attempted"] = (carry["n_exchange_attempted"]
+                                       + valid.sum(dtype=torch.int32))
+        # upper triangle counts accepts, lower triangle rejects, between
+        # adjacent betas (reference parallel_tempering.py:399-413)
+        n_rep = self.n_replicas
+        ra = self._slot_to_replica[pair_a]
+        rb = self._slot_to_replica[pair_b]
+        acc = carry["acceptance_matrix"].reshape(-1)
+        acc = acc.index_add(0, ra * n_rep + rb, approved.to(torch.int32))
+        acc = acc.index_add(0, rb * n_rep + ra,
+                            (valid & ~approved).to(torch.int32))
+        new["acceptance_matrix"] = acc.reshape(n_rep, n_rep)
+        return new
+
+    def _frame_outputs(self, carry: Dict) -> Dict:
+        out = super()._frame_outputs(carry)
+        out["acceptance_matrix"] = carry["acceptance_matrix"]
+        return out
+
+    @property
+    def simulated_acceptance(self) -> np.ndarray:
+        """The cumulative int32 accept (upper) / reject (lower) counts at
+        each save point, [frames, R, R]."""
+        return self.simulated_frames["acceptance_matrix"]
+
+    # ------------------------------------------------------------------
+    # Replica bookkeeping (reference :318-335)
+    # ------------------------------------------------------------------
+
+    def get_replica_info(self, replica_num: int = 0) -> Dict:
+        """Inverse temperature + output indices of one replica."""
+        if (not isinstance(replica_num, int) or replica_num < 0
+                or replica_num >= self.n_replicas):
+            raise ValueError("Please provide a valid replica number.")
+        indices = np.arange(replica_num * self.n_indep_sims,
+                            (replica_num + 1) * self.n_indep_sims)
+        return {"beta": self.betas[replica_num],
+                "indices_in_the_output": indices}
+
+    def summary(self) -> Dict:
+        """Exchange counts of the finished run, logged and returned."""
+        attempted = int(self.final_carry["n_exchange_attempted"])
+        exchanged = int(self.final_carry["n_exchange_approved"])
+        if attempted:
+            logger.info("Replica-exchange rate: %.2f%% (%d/%d)",
+                        exchanged / attempted * 100.0, exchanged, attempted)
+        logger.info("Call .get_replica_info(#replica) for the inverse "
+                    "temperature and trajectory indices of a replica.")
+        return {"attempted": attempted, "approved": exchanged}

@@ -1067,3 +1067,70 @@ def test_checkpoint_ingestion_card_matches_cpu(dev, tmp_path):
     assert counts == {**dict.fromkeys(counts, 0), "cheb_fwd": 2,
                       "cheb_bwd_gx": 1, "cheb_bwd_gd": 1}
     assert _rel(f_card, forces(cpu, torch.device("cpu"))) <= 2e-3
+
+
+def test_pt_exchange_card_matches_cpu_without_host_sync(dev):
+    """Parallel tempering's exchange on the card equals the exchange on
+    the CPU for the same carry (the pallas list rebuilt from the same
+    distinct positions per slot) and uniforms, at four replicas and both
+    parities: permutation, list, source CSR, counters and int32 matrix
+    bitwise, the rescaled velocities to 1e-6; on the card it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so nothing in it waits
+    for the card."""
+    import numpy as np
+
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.simulation import PTSimulation
+
+    betas = [2.0, 1.6, 1.3, 1.0]
+    rng = np.random.default_rng(0)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        ff, cfgs = cgschnet_1enh_like(n_atoms=24, batch_size=3,
+                                      num_interactions=1,
+                                      message_passing="pallas", device=device)
+        sim = PTSimulation(friction=1.0, dt=5e-3, n_timesteps=20,
+                           save_interval=10, exchange_interval=10,
+                           neighbor_rebuild_interval=2, device=device)
+        sim.attach_model_and_configurations(ff, cfgs, betas)
+        if not out:
+            s, a = sim.n_sims, sim.n_atoms
+            state = {
+                "pos": sim.initial_system.pos.cpu().numpy()
+                + rng.normal(scale=0.3, size=(s, a, 3)),
+                "vel": rng.normal(size=(s, a, 3)),
+                "forces": rng.normal(size=(s, a, 3)),
+                "potential": rng.normal(scale=4.0, size=s),
+            }
+            u = rng.uniform(size=sim._subroutine_draw_shape())
+        with torch.no_grad():
+            carry = sim._init_carry(sim.initial_system)
+            carry.update({k: torch.tensor(v, dtype=torch.float32,
+                                          device=device)
+                          for k, v in state.items()})
+            carry = sim._rebuild_neighbors(carry)
+            u_dev = torch.tensor(u, dtype=torch.float32, device=device)
+            out[device.type] = []
+            for parity in (0, 1):
+                carry["exchange_parity"] = torch.tensor(
+                    parity, dtype=torch.int32, device=device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    new = sim._device_subroutine(carry, u_dev)
+                finally:
+                    if device.type == "cuda":
+                        torch.cuda.set_sync_debug_mode("default")
+                out[device.type].append(new)
+    for card, cpu in zip(out["cuda"], out["cpu"]):
+        for name in ("pos", "forces", "potential", "nbr_ref_pos",
+                     "acceptance_matrix", "n_exchange_approved",
+                     "n_exchange_attempted", "exchange_parity"):
+            assert torch.equal(card[name].cpu(), cpu[name]), name
+        for leaf in ("idx", "mask", "n_max", "csr_offsets", "csr_slots"):
+            assert torch.equal(getattr(card["nbr"], leaf).cpu(),
+                               getattr(cpu["nbr"], leaf)), leaf
+        assert _rel(card["vel"].cpu(), cpu["vel"]) <= 1e-6
+    # not vacuous: some swap was accepted
+    assert sum(int(n["n_exchange_approved"]) for n in out["cpu"]) > 0
