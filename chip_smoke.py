@@ -164,6 +164,32 @@ Phases (each prints its lines; any failure exits non-zero):
                the same time; the excursion ratio shows velocity Verlet's
                O(dt^2) error (gated >= DRIFT_RATIO_MIN).
 
+11. export -- the export loop on the cheb slice's field. "export":
+               bench.py's corroboration run (EXPORT_STEPS steps saved
+               every EXPORT_SAVE, exported every EXPORT_INTERVAL, forces
+               and energies, the default gptq) with files and without,
+               interleaved A, B in EXPORT_PAIRS pairs: each throughput,
+               each pair's ratio and the ratio of the medians, ms per
+               launch fetched (the wait for its copy) and
+               written; gated: the exact file names, their (S, frames,
+               ...) shapes and float32, the files equal to the frames, the
+               coordinates bitwise those of the run without files, 3/2/1
+               launches per force evaluation. "components": every energy
+               component, the SchNet force component and the shape log
+               over COMPONENT_STEPS: one more evaluation's launches per
+               save point, the components summing to the potential.
+               "resume": 2 RESUME_N steps straight against RESUME_N and a
+               resume from the checkpoint, on the cheb slice and on PT at
+               126 slots: frames bitwise equal; PT's acceptance npys sum
+               to its cumulative matrix. "pair floor":
+               benchmarks/pair_floor_traj.py's protocol (FLOOR_STEPS steps
+               saved every FLOOR_SAVE, launches of FLOOR_LAUNCH): the
+               smallest pair distance at the save points and its step
+               beside the reference's FLOOR_REFERENCE (measured, not
+               gated). "guard": NVE on the dense fp32 field at GUARD_DT
+               in launches of GUARD_LAUNCH_STEPS raises at the launch
+               after the blow-up's.
+
 Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -176,6 +202,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -258,6 +285,34 @@ PT_INDEP = 42
 PT_BETAS = [1.67, 1.42, 1.16]
 PT_SAVE_INTERVAL = 10
 PT_EXCHANGE_INTERVAL = 10
+# The export loop: bench.py's corroboration run (bench.py:184-211: 400
+# steps saved every 100, exported every 200, forces and energies, the list
+# rebuilt every 10), with and without files, interleaved A, B in
+# EXPORT_PAIRS pairs (late in the process the same slice reads 0.69-1.08x
+# its first run, and a pair's two runs differ by up to 20 % on this
+# host-bound slice; PERF.md section 7). A short run with the
+# energy and force components and the shape log (COMPONENT_STEPS). Resume:
+# the cheb slice and PT (126 slots, exchange every RESUME_EXCHANGE: an odd
+# count per segment) over 2 N steps straight, and N plus a resume to 2 N. The
+# guard: the dense fp32 field at GUARD_DT. The pair floor:
+# benchmarks/pair_floor_traj.py's protocol (5000 steps saved every 25,
+# launches of 1000 steps), the reference's 2.047 A beside it.
+EXPORT_STEPS = 400
+EXPORT_SAVE = 100
+EXPORT_INTERVAL = 200
+EXPORT_REBUILD = 10
+EXPORT_PAIRS = 4
+COMPONENT_STEPS = 40
+RESUME_N = 100
+RESUME_SAVE = 20
+RESUME_EXCHANGE = 20
+GUARD_DT = 10.0
+GUARD_LAUNCH_STEPS = 10
+GUARD_MAX_STEPS = 400
+FLOOR_STEPS = 5000
+FLOOR_SAVE = 25
+FLOOR_LAUNCH = 1000
+FLOOR_REFERENCE = 2.047
 # The other prior kinds, card vs CPU: float32 elementwise terms, summed in
 # another order.
 PRIOR_BOUND = 1e-5
@@ -1431,7 +1486,7 @@ def phase_xla_images(dev, smi):
     sim = LangevinSimulation(
         dt=0.004, friction=1.0, n_timesteps=XLA_IMAGE_STEPS,
         save_interval=XLA_IMAGE_STEPS // 2, random_seed=103838, device=dev,
-        neighbor_skin=skin,
+        neighbor_skin=skin, gptq=None,
     )
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     bound = sim.model.pbc_images
@@ -1520,7 +1575,7 @@ def run_bf16x3_slices(ff, cfgs, pbc_cfgs, dev, bf16_tp, smi):
     with cheb_schedule("1"):
         counts, _, sim = run_slice(
             "bf16x3", ff, cfgs, dev, BF16X3_STEPS, SAVE_INTERVAL, ck,
-            cheb_counts(n_evals, bf16x3=True), smi,
+            cheb_counts(n_evals, bf16x3=True), smi, gptq=None,
         )
         tp = sim.get_throughput_metrics()["throughput"]
         print(f"bf16x3: second-half throughput {tp:.1f} timestep*mol/s "
@@ -1529,18 +1584,19 @@ def run_bf16x3_slices(ff, cfgs, pbc_cfgs, dev, bf16_tp, smi):
         profile_steps(sim, dev, PROFILE_STEPS, "bf16x3")
         pbc, _, _ = run_slice(
             "bf16x3 periodic", ff, pbc_cfgs, dev, *short, ck,
-            cheb_counts(n_short, cell=True, bf16x3=True), smi,
+            cheb_counts(n_short, cell=True, bf16x3=True), smi, gptq=None,
         )
     with cheb_schedule("0"):
         pb, _, _ = run_slice(
             "bf16x3 per-block", ff, cfgs, dev, *short, ck,
             cheb_counts(n_short, per_block=True, bf16x3=True), smi,
+            gptq=None,
         )
         pb_pbc, _, _ = run_slice(
             "bf16x3 per-block periodic", ff, pbc_cfgs, dev, *short,
             ck,
             cheb_counts(n_short, per_block=True, cell=True, bf16x3=True),
-            smi,
+            smi, gptq=None,
         )
     out = {k: v for k, v in counts.items() if k.endswith("_bf16x3")}
     out.update({k: v for k, v in pbc.items() if k.endswith("_cell_bf16x3")})
@@ -1665,7 +1721,7 @@ def phase_nve_drift(dev):
     for dt, steps in NVE_DRIFT_RUNS:
         sim = NVESimulation(dt=dt, n_timesteps=steps,
                             save_interval=steps // 20, save_energies=True,
-                            random_seed=103838, device=dev)
+                            random_seed=103838, device=dev, gptq=None)
         sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
         coords = sim.simulate()
         check(bool(np.isfinite(coords).all()),
@@ -1706,7 +1762,7 @@ def phase_pt(dev, open_tp, open_ms, smi):
     (ms, sim), (_, again) = runs
     attempted = int(sim.final_carry["n_exchange_attempted"])
     approved = int(sim.final_carry["n_exchange_approved"])
-    acc = sim.simulated_acceptance[-1]
+    acc = sim.final_carry["acceptance_matrix"].cpu().numpy()
     off_diag = int(acc.sum() - np.trace(acc))
     n_exchanges = STEPS // PT_EXCHANGE_INTERVAL
     print(f"pt: {n_exchanges} exchanges (every {PT_EXCHANGE_INTERVAL} steps; "
@@ -2234,7 +2290,7 @@ def phase_checkpoint(dev, open_tp, smi):
     def simulation(model, structures, steps, save_interval=SAVE_INTERVAL):
         sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=steps,
                                  save_interval=save_interval,
-                                 random_seed=103838, device=dev)
+                                 random_seed=103838, device=dev, gptq=None)
         sim.attach_model_and_configurations(model, structures, beta=1.67)
         return sim
 
@@ -2403,6 +2459,295 @@ def phase_prior_kinds(dev):
           f"{PRIOR_BOUND:.0e})")
     check(all(v <= PRIOR_BOUND for v in worst.values()),
           "a prior kind differs between the card and the CPU")
+
+
+# ---------------------------------------------------------------------------
+# The export loop: files, resume, the per-launch guard, the pair floor
+# ---------------------------------------------------------------------------
+
+class _Timed:
+    """Host seconds spent in a simulation's fetches (waiting for a
+    launch's copy) and writes (``_export_segment``), per call."""
+
+    def __init__(self, sim):
+        from flashmd_tpu_torch.simulation import base
+
+        self.fetch, self.write = [], []
+        timed = self
+
+        class Copy(base.HostCopy):
+            def result(self):
+                t0 = time.perf_counter()
+                out = super().result()
+                timed.fetch.append(time.perf_counter() - t0)
+                return out
+
+        export = sim._export_segment
+
+        def write(*args):
+            t0 = time.perf_counter()
+            export(*args)
+            timed.write.append(time.perf_counter() - t0)
+
+        self._base, self._orig = base, base.HostCopy
+        base.HostCopy = Copy
+        sim._export_segment = write
+
+    def close(self):
+        self._base.HostCopy = self._orig
+
+
+def phase_export(ff, cfgs, dev, smi):
+    """bench.py's corroboration run with files (A) and without (B), A, B
+    in EXPORT_PAIRS pairs: throughputs, each pair's ratio and the ratio of
+    the medians, ms per launch fetched and written;
+    gates: the file names, their (S, frames, ...) shapes and dtypes, the
+    coordinates bitwise those of the run without files, launches 3/2/1
+    per force evaluation. Then COMPONENT_STEPS with every energy
+    component, the SchNet force component and the shape log: one more
+    force evaluation's launches per save point, the components summing to
+    the potential."""
+    import tempfile
+
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    n_frames = EXPORT_STEPS // EXPORT_SAVE
+    per_file = n_frames * EXPORT_INTERVAL // EXPORT_STEPS
+    expect = cheb_counts(EXPORT_STEPS + 1)
+    names = {"bench_log.txt", "bench_specialized_model_and_config.pkl"}
+    for i in range(EXPORT_STEPS // EXPORT_INTERVAL):
+        names |= {f"bench_{k}_{i:04d}.npy" for k in (
+            "coords", "forces", "potential", "kineticenergy")}
+    tps = {"files": [], "none": []}
+    with tempfile.TemporaryDirectory() as td:
+        coords = {}
+        for i, tag in enumerate(("files", "none") * EXPORT_PAIRS):
+            out = os.path.join(td, str(i))
+            kw = (dict(filename="bench", output_dir=out,
+                       export_interval=EXPORT_INTERVAL)
+                  if tag == "files" else {})
+            sim = LangevinSimulation(
+                dt=0.004, friction=1.0, n_timesteps=EXPORT_STEPS,
+                save_interval=EXPORT_SAVE, save_forces=True,
+                save_energies=True, random_seed=103838, neighbor_skin=1.0,
+                neighbor_rebuild_interval=EXPORT_REBUILD, device=dev, **kw)
+            sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+            timed = _Timed(sim)
+            ck.reset_launch_counts()
+            try:
+                sim.simulate()
+            finally:
+                timed.close()
+            counts = ck.launch_counts()
+            tp = sim.get_throughput_metrics()["throughput"]
+            tps[tag].append(tp)
+            print(f"export: run {i + 1} ({'with' if kw else 'without'} "
+                  f"files): {EXPORT_STEPS} steps batch {sim.n_sims}, "
+                  f"second-half throughput {tp:.1f} timestep*mol/s; "
+                  f"launches {counts == expect} ({counts['cheb_fwd']}/"
+                  f"{counts['cheb_bwd_gx']}/{counts['cheb_bwd_gd']}); per "
+                  f"launch fetch {1e3 * np.mean(timed.fetch):.3f} ms, write "
+                  f"{1e3 * np.mean(timed.write):.3f} ms "
+                  f"({len(timed.fetch)} launches)")
+            check(counts == expect, f"export: launch counts differ from "
+                  f"{expect}")
+            coords.setdefault(tag, sim.coords)
+            if not kw:
+                continue
+            found = set(os.listdir(out))
+            check(found == names, f"export: files {sorted(found)}")
+            ok = True
+            for kind, tail in (("coords", (N_ATOMS, 3)),
+                               ("forces", (N_ATOMS, 3)), ("potential", ()),
+                               ("kineticenergy", ())):
+                for j in range(EXPORT_STEPS // EXPORT_INTERVAL):
+                    a = np.load(os.path.join(out, f"bench_{kind}_{j:04d}.npy"))
+                    ok &= (a.shape == (BATCH, per_file) + tail
+                           and a.dtype == np.float32)
+            check(ok, "export: npy shapes or dtypes")
+            files = np.concatenate(
+                [np.load(os.path.join(out, f"bench_coords_{j:04d}.npy"))
+                 for j in range(EXPORT_STEPS // EXPORT_INTERVAL)], axis=1)
+            check(np.array_equal(files, sim.coords),
+                  "export: files differ from the run's frames")
+        same = np.array_equal(coords["files"], coords["none"])
+        print(f"export: {len(names)} files {sorted(names)}; shapes (S, "
+              f"frames, ...) = ({BATCH}, {per_file}, ...) float32; "
+              f"coordinates bitwise those of the run without files: {same}")
+        check(same, "export: the files change the trajectory")
+        files_tp, none_tp = np.median(tps["files"]), np.median(tps["none"])
+        pairs = [a / b for a, b in zip(tps["files"], tps["none"])]
+        print(f"export: throughput with files "
+              f"{', '.join(f'{t:.1f}' for t in tps['files'])}; without "
+              f"{', '.join(f'{t:.1f}' for t in tps['none'])}; pair ratios "
+              f"{', '.join(f'{r:.4f}' for r in pairs)}; ratio of the "
+              f"medians {files_tp / none_tp:.4f} on {smi}")
+
+        out = os.path.join(td, "components")
+        names = ["SchNet", "bonds", "angles", "dihedrals", "repulsion"]
+        sim = LangevinSimulation(
+            dt=0.004, friction=1.0, n_timesteps=COMPONENT_STEPS,
+            save_interval=COMPONENT_STEPS // 2, random_seed=103838,
+            save_energies=True, save_energy_components=True,
+            energy_components=names, save_force_components=True,
+            force_components=["SchNet"], print_shape=True, filename="c",
+            output_dir=out, export_interval=COMPONENT_STEPS, device=dev)
+        sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+        ck.reset_launch_counts()
+        sim.simulate()
+        counts = ck.launch_counts()
+        expect = cheb_counts(COMPONENT_STEPS + 1 + 2)
+        energies = np.load(os.path.join(out, "c_energy_components_0000.npz"))
+        total = sum(energies[k].astype(np.float64) for k in names)
+        pot = np.load(os.path.join(out, "c_potential_0000.npy"))
+        rel = float(np.abs(total - pot).max() / np.abs(pot).max())
+        forces = np.load(os.path.join(out, "c_force_components_0000.npz"))
+        log = open(os.path.join(out, "c_print_shape.log")).read()
+        print(f"components: {COMPONENT_STEPS} steps, 2 save points: launches "
+              f"{counts['cheb_fwd']}/{counts['cheb_bwd_gx']}/"
+              f"{counts['cheb_bwd_gd']} (steps + 1 + one evaluation per save "
+              f"point: {counts == expect}); sum of the energy components vs "
+              f"the potential {rel:.3e}; SchNet force component "
+              f"{forces['SchNet'].shape}; shape log {len(log.splitlines())} "
+              "lines")
+        check(counts == expect, f"components: launch counts != {expect}")
+        check(rel <= 1e-5, "components: they do not sum to the potential")
+        check(forces["SchNet"].shape == (BATCH, 2, N_ATOMS, 3)
+              and "frame outputs" in log, "components: files")
+
+
+def phase_resume(ff, cfgs, dev):
+    """2 N steps straight and N steps plus a resume to 2 N from the
+    checkpoint, on the cheb slice and on PT at 126 slots: the frames
+    bitwise equal (the generator's state restored); PT's acceptance npys
+    sum to its cumulative matrix."""
+    import tempfile
+
+    from flashmd_tpu_torch.simulation import PTSimulation
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    pt_ff, pt_cfgs = _force_fields(dev, PT_INDEP)
+    cases = (("cheb", LangevinSimulation, ff, cfgs, 1.67, {}),
+             ("pt", PTSimulation, pt_ff, pt_cfgs, PT_BETAS,
+              dict(exchange_interval=RESUME_EXCHANGE)))
+    with tempfile.TemporaryDirectory() as td:
+        for label, cls, field, structures, beta, extra in cases:
+            sims = {}
+            for tag, steps, more in (("a", 2 * RESUME_N, {}),
+                                     ("b", RESUME_N, {}),
+                                     ("b", 2 * RESUME_N,
+                                      dict(read_checkpoint_file=True))):
+                sim = cls(dt=0.004, friction=1.0, n_timesteps=steps,
+                          save_interval=RESUME_SAVE,
+                          export_interval=RESUME_N, create_checkpoints=True,
+                          filename=label, output_dir=os.path.join(td, tag),
+                          random_seed=103838, device=dev, **extra, **more)
+                sim.attach_model_and_configurations(field, structures, beta)
+                sim.simulate()
+                sims[tag, steps] = sim
+            a, b = sims["a", 2 * RESUME_N], sims["b", 2 * RESUME_N]
+            half = RESUME_N // RESUME_SAVE
+            same = (np.array_equal(a.simulated_coords[half:],
+                                   b.simulated_coords)
+                    and np.array_equal(a.simulated_coords[:half],
+                                       sims["b", RESUME_N].simulated_coords))
+            line = (f"resume: {label}: {2 * RESUME_N} steps straight vs "
+                    f"{RESUME_N} + a resume to {2 * RESUME_N} at batch "
+                    f"{a.n_sims}: frames bitwise equal {same}")
+            if label == "pt":
+                acc = [np.load(os.path.join(td, "a", f"pt_acceptance_{j:04d}"
+                                            ".npy")) for j in range(2)]
+                cum = a.final_carry["acceptance_matrix"].cpu().numpy()
+                summed = np.array_equal(acc[0] + acc[1], cum)
+                resumed = np.array_equal(
+                    acc[1], np.load(os.path.join(td, "b",
+                                                 "pt_acceptance_0001.npy")))
+                counters = all(torch.equal(a.final_carry[k],
+                                           b.final_carry[k])
+                               for k in ("n_exchange_attempted",
+                                         "n_exchange_approved"))
+                line += (f"; acceptance npys sum to the cumulative matrix "
+                         f"{summed} ({int(cum.sum())} attempts), the resumed "
+                         f"run's second npy equal {resumed}, counters equal "
+                         f"{counters}")
+                same = same and summed and resumed and counters
+            print(line)
+            check(same, f"resume: {label}: the resumed run differs")
+
+
+def phase_guard(dev):
+    """The dense fp32 field at GUARD_DT blows up; the run raises at the
+    launch after the blow-up's (launches of GUARD_LAUNCH_STEPS), not at
+    its end."""
+    from flashmd_tpu_torch.simulation import NVESimulation
+
+    ff, cfgs = _force_fields(dev, BATCH, message_passing="dense",
+                             precision="fp32")
+    sim = NVESimulation(dt=GUARD_DT, n_timesteps=GUARD_MAX_STEPS,
+                        save_interval=GUARD_LAUNCH_STEPS,
+                        max_steps_per_launch=GUARD_LAUNCH_STEPS,
+                        random_seed=103838, device=dev, gptq=None)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    starts = []
+    launch = sim._launch
+
+    def counted(carry, gen, step, n_frames, halfway):
+        starts.append(step)
+        return launch(carry, gen, step, n_frames, halfway)
+
+    sim._launch = counted
+    blew = None
+    try:
+        sim.simulate()
+    except RuntimeError as err:
+        m = re.search(r"blew up at #timestep=(\d+)", str(err))
+        blew = None if m is None else int(m.group(1))
+    # pipelined: the launch after the blow-up's is the last dispatched
+    within = blew is not None and max(starts) <= blew
+    print(f"guard: dense fp32 NVE at dt {GUARD_DT}, launches of "
+          f"{GUARD_LAUNCH_STEPS} steps over {GUARD_MAX_STEPS}: raised at "
+          f"#timestep={blew}; launches dispatched {len(starts)} (last from "
+          f"step {max(starts)}): within one launch of the blow-up {within}")
+    check(within, "guard: the blow-up was not raised within one launch")
+
+
+def phase_pair_floor(ff, cfgs, dev, smi):
+    """benchmarks/pair_floor_traj.py's protocol on the port's zoo weights:
+    the smallest pair distance at the save points and its step, beside
+    the reference's record. Measured, not gated (the guard warns)."""
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=FLOOR_STEPS,
+                             save_interval=FLOOR_SAVE,
+                             max_steps_per_launch=FLOOR_LAUNCH,
+                             random_seed=103838, device=dev)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    ck.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim.simulate()
+    counts = ck.launch_counts()
+    d = sim.simulated_frames["pair_d_min"]
+    k = int(np.argmin(d))
+    floor_warned = sum("fit-domain floor" in str(w.message) for w in caught)
+    tp = sim.get_throughput_metrics()
+    print(f"pair floor: {FLOOR_STEPS} steps, batch {sim.n_sims}, saved every "
+          f"{FLOOR_SAVE}, launches of {FLOOR_LAUNCH} steps: smallest pair "
+          f"distance at the save points {float(d[k]):.4f} A at step "
+          f"{(k + 1) * FLOOR_SAVE} (the reference's record "
+          f"{FLOOR_REFERENCE} A; cheb_d_min "
+          f"{sim.model.schnet_config.cheb_d_min}); frames below d_min "
+          f"{int((d < sim.model.schnet_config.cheb_d_min).sum())} of "
+          f"{d.size}; warnings {floor_warned} (one per launch that "
+          f"crossed); launches {counts == cheb_counts(FLOOR_STEPS + 1)}; "
+          f"second-half throughput {tp['throughput']:.1f} timestep*mol/s "
+          f"({tp['ms_per_timestep']:.3f} ms/step) on {smi}")
+    check(counts == cheb_counts(FLOOR_STEPS + 1),
+          "pair floor: launch counts")
+    check(bool(np.isfinite(sim.simulated_coords).all()),
+          "pair floor: non-finite positions")
 
 
 def kinetic_per_dof(sim, slots=slice(None)):
@@ -2605,6 +2950,11 @@ def main():
         phase_pt(dev, late_tp, late_ms, smi)
     phase_pt_exchange(dev)
     phase_nve_drift(dev)
+    with cheb_schedule("1"):
+        phase_export(ff, cfgs, dev, smi)
+        phase_resume(ff, cfgs, dev)
+        phase_pair_floor(ff, cfgs, dev, smi)
+    phase_guard(dev)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -643,6 +643,7 @@ def build_forcefield(
 
 NATIVE_MODEL_FORMAT = "flashmd_tpu_torch_native_model_v1"
 NATIVE_CONFIGURATIONS_FORMAT = "flashmd_tpu_torch_native_configurations_v1"
+SPECIALIZED_DUMP_FORMAT = "flashmd_tpu_torch_specialized_model_and_config_v1"
 _CUTOFFS = {cls.__name__: cls
             for cls in (CosineCutoff, IdentityCutoff, ShiftedCosineCutoff)}
 
@@ -690,6 +691,11 @@ def save_native_model(model, path: str):
     """Write a ReferenceModel or the port's ForceField as the port's
     native file: plain dicts of numpy arrays, the config as a dict, no
     class of either package."""
+    with open(path, "wb") as f:
+        pickle.dump(_model_payload(model), f)
+
+
+def _model_payload(model) -> dict:
     if isinstance(model, ReferenceModel):
         payload = {
             "kind": "reference_model",
@@ -710,8 +716,7 @@ def save_native_model(model, path: str):
     else:
         raise TypeError(f"cannot save {type(model)!r}: a ReferenceModel or "
                         "a ForceField of flashmd_tpu_torch")
-    with open(path, "wb") as f:
-        pickle.dump({"format": NATIVE_MODEL_FORMAT, **payload}, f)
+    return {"format": NATIVE_MODEL_FORMAT, **payload}
 
 
 class _NumpyUnpickler(pickle.Unpickler):
@@ -733,9 +738,13 @@ class _NumpyUnpickler(pickle.Unpickler):
             f"a native file holds no class, found {module}.{name}")
 
 
-def _load_native(path: str, fmt: str) -> dict:
+def _load_native(path: str, fmt: str, dump_key: str) -> dict:
+    """The payload of ``fmt`` in ``path``; a specialized dump
+    (:func:`save_specialized_dump`) unwraps to its ``dump_key`` part."""
     with open(path, "rb") as f:
         obj = _NumpyUnpickler(f).load()
+    if isinstance(obj, dict) and obj.get("format") == SPECIALIZED_DUMP_FORMAT:
+        obj = obj[dump_key]
     if not (isinstance(obj, dict) and obj.get("format") == fmt):
         raise ValueError(f"{path} is not a {fmt} file")
     return obj
@@ -744,7 +753,7 @@ def _load_native(path: str, fmt: str) -> dict:
 def load_native_model(path: str, device="cuda", dtype=torch.float32):
     """Read :func:`save_native_model`'s file: a ReferenceModel (numpy) or
     a ForceField with its tensors on ``device``."""
-    obj = _load_native(path, NATIVE_MODEL_FORMAT)
+    obj = _load_native(path, NATIVE_MODEL_FORMAT, "model")
     config = _config_from_dict(obj["schnet_config"])
     if obj["kind"] == "reference_model":
         return ReferenceModel(
@@ -774,6 +783,11 @@ def load_native_model(path: str, device="cuda", dtype=torch.float32):
 
 def save_native_configurations(configs: List[Configuration], path: str):
     """Write configurations as plain dicts of numpy arrays."""
+    with open(path, "wb") as f:
+        pickle.dump(_configurations_payload(configs), f)
+
+
+def _configurations_payload(configs: List[Configuration]) -> dict:
     items = []
     for c in configs:
         d = {f.name: getattr(c, f.name)
@@ -781,14 +795,24 @@ def save_native_configurations(configs: List[Configuration], path: str):
         d["neighbor_lists"] = {k: dataclasses.asdict(tl)
                                for k, tl in c.neighbor_lists.items()}
         items.append(d)
+    return {"format": NATIVE_CONFIGURATIONS_FORMAT, "configurations": items}
+
+
+def save_specialized_dump(model, configs: List[Configuration], path: str):
+    """Write a simulation's ``<filename>_specialized_model_and_config.pkl``
+    (reference save_specialized_dump, checkpoint_io.py:793-807): the
+    attached ForceField and the configurations in the native formats,
+    tagged so that :func:`load_native_model` and
+    :func:`load_native_configurations` each unwrap their part."""
     with open(path, "wb") as f:
-        pickle.dump({"format": NATIVE_CONFIGURATIONS_FORMAT,
-                     "configurations": items}, f)
+        pickle.dump({"format": SPECIALIZED_DUMP_FORMAT,
+                     "model": _model_payload(model),
+                     "configurations": _configurations_payload(configs)}, f)
 
 
 def load_native_configurations(path: str) -> List[Configuration]:
     """Read :func:`save_native_configurations`' file."""
-    obj = _load_native(path, NATIVE_CONFIGURATIONS_FORMAT)
+    obj = _load_native(path, NATIVE_CONFIGURATIONS_FORMAT, "configurations")
     out = []
     for d in obj["configurations"]:
         d = dict(d)

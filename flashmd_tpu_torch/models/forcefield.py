@@ -63,6 +63,20 @@ class ForceField:
         return dataclasses.replace(self, **changes)
 
 
+def validate_quantized(ff: ForceField) -> None:
+    """Raise unless the SchNet MLPs run on the bf16 path, as a quantized
+    (``gptq``) simulation asks (reference validate_quantized,
+    forcefield.py:76-89)."""
+    if ff.schnet_config is None:
+        return
+    if ff.schnet_config.precision != "bf16":
+        raise RuntimeError(
+            "Quantized simulation requested but the SchNet filter/output "
+            f"MLPs run at precision={ff.schnet_config.precision!r}; "
+            "expected 'bf16'."
+        )
+
+
 def uses_neighbor_list(ff: ForceField) -> bool:
     """Whether the SchNet term runs over a neighbour matrix."""
     return (ff.schnet_params is not None

@@ -195,6 +195,17 @@ def output_energies(params, config: SchNetConfig, x, atom_types):
     return e[..., 0]
 
 
+def _cast_floats(tree, dtype):
+    """The parameter tree with its floating-point tensors in ``dtype``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, dtype) for v in tree)
+    return tree
+
+
 def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
                          nbr=None, cell=None):
     """[S, A] per-atom energies: embedding, the interaction blocks of the
@@ -204,10 +215,19 @@ def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
     ``cell`` ([3, 3] or [S, 3, 3]) is consumed only by the cheb path
     (minimum-image pair geometry); dense and pallas refuse cells upstream
     (models.forcefield.compute_energy_forces)."""
+    mp = config.message_passing
+    if mp != "xla":
+        # The kernels take float32 positions, as the JAX package's kernel
+        # calls cast them: under dtype="double" the network runs in
+        # float32 and its position gradient returns in float64.
+        pos = pos.to(torch.float32)
+    elif pos.dtype == torch.float64:
+        # float64 positions promote the xla path's float32 weights in the
+        # JAX package; torch's products do not promote, so cast them here.
+        params = _cast_floats(params, pos.dtype)
     s, a = pos.shape[0], pos.shape[1]
     x0 = params["embedding"][atom_types]
     x0 = x0.expand(s, a, x0.shape[-1]).contiguous()
-    mp = config.message_passing
     if mp == "xla":
         x = _xla_blocks(params, config, pos, x0, nbr)
     elif mp == "dense":

@@ -15,13 +15,16 @@ permutation of the batch axis, and every batch-leading carry entry
 shifts and a CSR built again for the new order, the Verlet reference
 positions) follows it. Nothing in it reads the card from the host: no
 ``.item()``, boolean-mask indexing, ``nonzero`` or Python branch on a
-device value. The int32 acceptance counts ride the carry; a snapshot of
-the cumulative matrix is kept at each save point.
+device value. The int32 acceptance counts ride the carry and are fetched
+with each export segment's last launch; each export writes the counts of
+its own segment as float32 (``<filename>_acceptance_NNNN.npy``), the
+difference of the cumulative matrix on the host, so the carry is never
+changed at export.
 """
 
 from __future__ import annotations
 
-import logging
+import time
 from copy import deepcopy
 from typing import Any, Dict, List
 
@@ -30,9 +33,8 @@ import torch
 
 from ..data.system import Configuration
 from ..ops.neighborlist import NeighborMatrix, permute_neighbor_matrix
+from ..utils.io import logger
 from .langevin import LangevinSimulation
-
-logger = logging.getLogger(__name__)
 
 # Carry entries that are not per slot, even where their first dimension
 # happens to equal the batch size (an [R, R] matrix with R == S).
@@ -48,12 +50,17 @@ class PTSimulation(LangevinSimulation):
 
     def __init__(self, friction: float = 1e-3, exchange_interval: int = 100,
                  **kwargs: Any):
-        super().__init__(friction=friction, **kwargs)
         if exchange_interval < 1:
             raise ValueError("exchange_interval must be a positive number "
                              "of steps")
+        kwargs.pop("sim_subroutine", None)
+        kwargs.pop("save_subroutine", None)
+        kwargs.setdefault("sim_subroutine_interval", exchange_interval)
+        super().__init__(friction=friction, **kwargs)
         self.exchange_interval = exchange_interval
-        self.sim_subroutine_interval = exchange_interval
+        # the cumulative matrix at the last export, on the host
+        self._acc_exported = None
+        self._acceptance = []
 
     def _has_device_subroutine(self) -> bool:
         return True
@@ -137,6 +144,8 @@ class PTSimulation(LangevinSimulation):
 
     def _init_carry(self, system):
         carry = super()._init_carry(system)
+        self._acc_exported = None  # a fresh run or a resume: deltas restart
+        self._acceptance = []
 
         def zero(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=self.device)
@@ -201,16 +210,40 @@ class PTSimulation(LangevinSimulation):
         new["acceptance_matrix"] = acc.reshape(n_rep, n_rep)
         return new
 
-    def _frame_outputs(self, carry: Dict) -> Dict:
-        out = super()._frame_outputs(carry)
+    # ------------------------------------------------------------------
+    # Checkpoints and exports (reference :175-192, 283-302)
+    # ------------------------------------------------------------------
+
+    def _checkpoint_extra_state(self, carry: Dict) -> Dict:
+        """The exchange parity (the alternation continues) and the
+        cumulative counters of summary(). The matrix is not kept: a
+        resumed run restarts it and its export baseline at zero, so the
+        per-export deltas are unchanged."""
+        return {name: carry[name] for name in (
+            "exchange_parity", "n_exchange_approved", "n_exchange_attempted")}
+
+    def _segment_end_state(self, carry: Dict) -> Dict:
+        out = super()._segment_end_state(carry)
         out["acceptance_matrix"] = carry["acceptance_matrix"]
         return out
 
+    def _export_segment(self, carry, state, frames_np, step_end):
+        key = self._get_numpy_count()
+        super()._export_segment(carry, state, frames_np, step_end)
+        acc = state["acceptance_matrix"].astype(np.float32)
+        if self._acc_exported is None:
+            self._acc_exported = np.zeros_like(acc)
+        delta = acc - self._acc_exported
+        self._acc_exported = acc
+        self._acceptance.append(delta)
+        if self.filename is not None:
+            np.save(f"{self.filename}_acceptance_{key}.npy", delta)
+
     @property
     def simulated_acceptance(self) -> np.ndarray:
-        """The cumulative int32 accept (upper) / reject (lower) counts at
-        each save point, [frames, R, R]."""
-        return self.simulated_frames["acceptance_matrix"]
+        """Each export segment's accept (upper) / reject (lower) counts,
+        [exports, R, R] float32, as the acceptance npys hold them."""
+        return np.stack(self._acceptance)
 
     # ------------------------------------------------------------------
     # Replica bookkeeping (reference :318-335)
@@ -230,6 +263,7 @@ class PTSimulation(LangevinSimulation):
         """Exchange counts of the finished run, logged and returned."""
         attempted = int(self.final_carry["n_exchange_attempted"])
         exchanged = int(self.final_carry["n_exchange_approved"])
+        logger.info(f"Done simulating ({time.asctime()})")
         if attempted:
             logger.info("Replica-exchange rate: %.2f%% (%d/%d)",
                         exchanged / attempted * 100.0, exchanged, attempted)

@@ -242,7 +242,7 @@ def _baoab_pair(interval):
     cfgs = [Configuration(pos=c.pos, atom_types=c.atom_types,
                           masses=c.masses, velocities=c.velocities)
             for c in jcfgs]
-    sim = LangevinSimulation(device="cpu", **kwargs)
+    sim = LangevinSimulation(device="cpu", gptq=None, **kwargs)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     return jsim, sim
 

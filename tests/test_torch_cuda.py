@@ -1134,3 +1134,79 @@ def test_pt_exchange_card_matches_cpu_without_host_sync(dev):
         assert _rel(card["vel"].cpu(), cpu["vel"]) <= 1e-6
     # not vacuous: some swap was accepted
     assert sum(int(n["n_exchange_approved"]) for n in out["cpu"]) > 0
+
+
+def test_pipelined_export_on_the_card_matches_synchronous(dev, tmp_path):
+    """The export loop on the card: the pipelined order's files (with the
+    checkpoints and the generator's state) are bitwise those of the
+    synchronous order (a no-op host subroutine), and nothing between two
+    fetches waits for the card: every launch but the one that reads the
+    throughput fence, and every launch's copy to the host, runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import pathlib
+
+    import numpy as np
+
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.simulation import LangevinSimulation
+    from flashmd_tpu_torch.simulation import base
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=dev)
+    guarded = []
+
+    class NoSyncCopy(base.HostCopy):
+        def __init__(self, tensors, stream=None):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super().__init__(tensors, stream)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def run(tag, **extra):
+        sim = LangevinSimulation(
+            dt=0.004, friction=1.0, n_timesteps=40, save_interval=5,
+            export_interval=20, max_steps_per_launch=10, save_forces=True,
+            save_energies=True, create_checkpoints=True, random_seed=5,
+            filename="t", output_dir=str(tmp_path / tag), device=dev,
+            **extra)
+        sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+        launch = sim._launch
+
+        def no_sync_launch(carry, gen, step, n_frames, halfway):
+            if (sim._warmup_end_time is None
+                    and step + (n_frames - 1) * sim.save_interval >= halfway):
+                return launch(carry, gen, step, n_frames, halfway)
+            guarded.append(step)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return launch(carry, gen, step, n_frames, halfway)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        sim._launch = no_sync_launch
+        sim.simulate()
+        return tmp_path / tag
+
+    original = base.HostCopy
+    base.HostCopy = NoSyncCopy
+    try:
+        piped = run("pipelined")
+    finally:
+        base.HostCopy = original
+    assert guarded == [0, 10, 30]
+    sync = run("synchronous", sim_subroutine=lambda carry: carry,
+               sim_subroutine_interval=20)
+    names = sorted(p.name for p in piped.iterdir()
+                   if p.suffix in (".npy", ".npz"))
+    assert names == sorted(p.name for p in sync.iterdir()
+                           if p.suffix in (".npy", ".npz"))
+    assert "t_checkpoint_0001.npz" in names and "t_forces_0001.npy" in names
+    for name in names:
+        a, b = np.load(piped / name), np.load(sync / name)
+        if name.endswith(".npy"):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k])
+    assert pathlib.Path(piped / "t_specialized_model_and_config.pkl").exists()

@@ -224,7 +224,7 @@ def test_baoab_steps_dense_match_jax_with_injected_noise():
     cfgs = [Configuration(pos=c.pos, atom_types=c.atom_types,
                           masses=c.masses, velocities=c.velocities)
             for c in jcfgs]
-    sim = LangevinSimulation(device="cpu", **kwargs)
+    sim = LangevinSimulation(device="cpu", gptq=None, **kwargs)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     assert "cheb_fit" not in sim.model.schnet_params
 

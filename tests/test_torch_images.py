@@ -266,7 +266,7 @@ def test_attach_auto_switches_to_images():
     sim = LangevinSimulation(
         dt=1e-3, friction=1.0, n_timesteps=20, save_interval=10,
         random_seed=5, neighbor_skin=0.5, neighbor_rebuild_interval=5,
-        device="cpu",
+        device="cpu", gptq=None,
     )
     sim.attach_model_and_configurations(_schnet_ff(), _run_config(),
                                         beta=1.0)
@@ -279,7 +279,8 @@ def test_attach_auto_switches_to_images():
     ff_cheb = ff_cheb.replace(schnet_config=dataclasses.replace(
         ff_cheb.schnet_config, message_passing="cheb"))
     sim2 = LangevinSimulation(dt=1e-3, friction=1.0, n_timesteps=20,
-                              save_interval=10, random_seed=5, device="cpu")
+                              save_interval=10, random_seed=5, device="cpu",
+                              gptq=None)
     with pytest.raises(ValueError, match="[Mm]inimum-image"):
         sim2.attach_model_and_configurations(ff_cheb, _run_config(),
                                              beta=1.0)
@@ -310,12 +311,12 @@ def test_bound_images_must_cover_the_search_radius():
     ff = with_image_replication(_schnet_ff(), np.eye(3) * SMALL, skin=0.0)
     sim = LangevinSimulation(dt=1e-3, friction=1.0, n_timesteps=2,
                              save_interval=1, neighbor_skin=1.0,
-                             device="cpu")
+                             device="cpu", gptq=None)
     with pytest.raises(ValueError, match="Image replication is unsound"):
         sim.attach_model_and_configurations(ff, _run_config(), beta=1.0)
     sim = LangevinSimulation(dt=1e-3, friction=1.0, n_timesteps=2,
                              save_interval=1, neighbor_skin=0.5,
-                             device="cpu")
+                             device="cpu", gptq=None)
     sim.attach_model_and_configurations(ff, _run_config(), beta=1.0)
     assert sim.model.pbc_images == ff.pbc_images
     pos, types, _ = _small_system()
@@ -360,7 +361,7 @@ def test_baoab_steps_under_cells_match_jax(box):
                           masses=c.masses, velocities=c.velocities,
                           neighbor_lists=c.neighbor_lists, cell=c.cell)
             for c in jcfgs]
-    sim = LangevinSimulation(device="cpu", **kwargs)
+    sim = LangevinSimulation(device="cpu", gptq=None, **kwargs)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     assert sim.model.pbc_images == jsim.model.pbc_images
     assert (sim.model.pbc_images is None) == (box == 12.0)

@@ -129,7 +129,7 @@ def test_nve_steps_match_jax():
     jff, jcfgs, ff, cfgs = jax_cheb_field()
     jsim = JNVESimulation(gptq=None, **KW)
     jsim.attach_model_and_configurations(jff, jcfgs, beta=1.67)
-    sim = NVESimulation(device="cpu", **KW)
+    sim = NVESimulation(device="cpu", gptq=None, **KW)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     jcarry = jax.jit(jsim._init_carry)(jsim.initial_system,
                                        jax.random.PRNGKey(3))
@@ -151,7 +151,7 @@ def test_overdamped_steps_match_jax():
     jff, jcfgs, ff, cfgs = jax_cheb_field()
     kw = dict(friction=1.0, **KW)
     jsim = JOverdampedSimulation(gptq=None, **kw)
-    sim = OverdampedSimulation(device="cpu", **kw)
+    sim = OverdampedSimulation(device="cpu", gptq=None, **kw)
     with pytest.warns(UserWarning, match="Masses were provided"):
         jsim.attach_model_and_configurations(jff, jcfgs, beta=1.67)
     with pytest.warns(UserWarning, match="Masses were provided"):
@@ -184,7 +184,7 @@ def test_frame_statistics_match_jax():
     kw = dict(save_energies=True, **KW)
     jsim = JNVESimulation(gptq=None, **kw)
     jsim.attach_model_and_configurations(jff, jcfgs, beta=1.67)
-    sim = NVESimulation(device="cpu", **kw)
+    sim = NVESimulation(device="cpu", gptq=None, **kw)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     assert sim.initial_pos_spread == pytest.approx(jsim.initial_pos_spread,
                                                    rel=1e-12)
@@ -337,7 +337,8 @@ def _floor_sim(cheb_d_min, beta=2.0, dt=1e-4):
         cheb_order=32, cheb_d_min=cheb_d_min, device="cpu",
     )
     sim = LangevinSimulation(dt=dt, friction=1.0, n_timesteps=20,
-                             save_interval=10, random_seed=3, device="cpu")
+                             save_interval=10, random_seed=3, device="cpu",
+                             gptq=None)
     sim.attach_model_and_configurations(ff, configs, beta=beta)
     return sim
 

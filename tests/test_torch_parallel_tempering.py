@@ -56,7 +56,7 @@ def test_pt_steps_match_jax_with_injected_draws():
               exchange_interval=5, random_seed=3)
     jsim = JPTSimulation(gptq=None, **kw)
     jsim.attach_model_and_configurations(jff, jcfgs, BETAS)
-    sim = PTSimulation(device="cpu", **kw)
+    sim = PTSimulation(device="cpu", gptq=None, **kw)
     sim.attach_model_and_configurations(ff, cfgs, BETAS)
     np.testing.assert_array_equal(sim.initial_system.beta.numpy(),
                                   np.asarray(jsim.initial_system.beta))
@@ -193,7 +193,7 @@ def test_exchange_permutes_complete_neighbor_state(case):
     ff, cfgs, pos = {"xla_cell": _xla_cell_case,
                      "pallas": _pallas_case}[case]()
     sim = make_pt(neighbor_rebuild_interval=5, neighbor_skin=0.5,
-                  exchange_interval=10, n_timesteps=20)
+                  exchange_interval=10, n_timesteps=20, gptq=None)
     sim.attach_model_and_configurations(ff, cfgs, [2.0, 1.0])
     with torch.no_grad():
         carry = sim._init_carry(sim.initial_system)
@@ -277,11 +277,13 @@ def test_two_replica_exchange():
     assert int(sim.final_carry["n_exchange_attempted"]) == 10 * 2
 
 
-def test_exchange_happens_and_is_recorded():
+def test_exchange_happens_and_is_recorded(tmp_path):
     """200 steps / 20 = 10 exchanges of 4 pairs each (one even group (0,
-    1) and one odd (1, 2)); the int32 matrix snapshot at each save point
-    counts every attempt once across the diagonal."""
-    sim = make_pt()
+    1) and one odd (1, 2)); the int32 matrix on the device counts every
+    attempt once across the diagonal, and each of the two exports (every
+    100 steps) writes its own segment's counts as float32."""
+    sim = make_pt(export_interval=100, filename="pt",
+                  output_dir=str(tmp_path))
     sim.attach_model_and_configurations(harmonic_ff(6), chain_configs(4, 6),
                                         BETAS)
     sim.simulate()
@@ -289,12 +291,18 @@ def test_exchange_happens_and_is_recorded():
     approved = int(sim.final_carry["n_exchange_approved"])
     assert attempted == 10 * 4
     assert 0 < approved <= attempted
-    acc = sim.simulated_acceptance  # [frames, R, R], cumulative
-    assert acc.shape == (20, 3, 3) and acc.dtype == np.int32
+    total = sim.final_carry["acceptance_matrix"].numpy()
+    assert total.dtype == np.int32
+    assert total.sum() == attempted and np.triu(total).sum() == approved
+    acc = sim.simulated_acceptance  # [exports, R, R], per export
+    assert acc.shape == (2, 3, 3) and acc.dtype == np.float32
     assert np.trace(acc, axis1=1, axis2=2).max() == 0
-    # frame 9 is step 100: 5 exchanges of 4 pairs
-    assert acc[9].sum() == 5 * 4 and acc[-1].sum() == attempted
-    assert np.triu(acc[-1]).sum() == approved
+    # the first export holds steps 1-100: 5 exchanges of 4 pairs
+    assert acc[0].sum() == 5 * 4
+    np.testing.assert_array_equal(acc.sum(axis=0), total)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.load(tmp_path / f"pt_acceptance_{i:04d}.npy"), acc[i])
     assert sim.summary() == {"attempted": attempted, "approved": approved}
     assert sim.simulated_kinetic_energies.shape == (20, 12)
 

@@ -435,7 +435,7 @@ def test_baoab_steps_with_cell_match_jax_with_injected_noise():
                       velocities=c.velocities, cell=c.cell)
         for c in jcfgs
     ]
-    sim = LangevinSimulation(device="cpu", **kwargs)
+    sim = LangevinSimulation(device="cpu", gptq=None, **kwargs)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
 
     jcarry = jax.jit(jsim._init_carry)(jsim.initial_system,

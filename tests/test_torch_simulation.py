@@ -59,7 +59,7 @@ def test_baoab_steps_match_jax_with_injected_noise():
                       velocities=c.velocities)
         for c in jcfgs
     ]
-    sim = LangevinSimulation(device="cpu", **kwargs)
+    sim = LangevinSimulation(device="cpu", gptq=None, **kwargs)
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
     np.testing.assert_array_equal(
         sim.initial_system.velocities.numpy(),
