@@ -134,6 +134,25 @@ Phases (each prints its lines; any failure exits non-zero):
                (PRIOR_BOUND); CKPT_SHORT_STEPS steps each of the
                optimize=False field and of structures with
                exc_pair_index (xla bf16), every kernel counter 0.
+   cli      -- the console entry points' mains (sys.argv as the command
+               line gives it) on that checkpoint's two files, with
+               examples/*.yaml read and written by the port's own YAML
+               code (model_file, structure_file and output_dir replaced).
+               "langevin": examples/langevin.yaml as it is at --batch_size
+               BATCH; launches 3/2/1 per force evaluation (the steps, the
+               start and each frontier candidate of the binding), no twin
+               call; the file names the config implies; coordinates
+               (BATCH, frames, A, 3) finite; the echo read back equal to
+               the parsed config; final positions and frames bitwise those
+               of the engine driven directly (build_forcefield with the
+               command line's arguments, LangevinSimulation with the
+               YAML's options); attach seconds, throughput, peak memory.
+               "pt": examples/parallel_tempering.yaml at --batch_size
+               PT_INDEP (x 3 betas): the acceptance npys sum to the
+               matrix. "nve": the Langevin example through the NVE entry
+               point for CLI_NVE_STEPS (its friction warned as unknown),
+               finite energies. "disable_optim": CLI_OFF_STEPS steps of
+               the fp32 xla field, every kernel counter 0, gptq None.
 9. fidelity -- max|F - F_dense_fp32| / max|F_dense_fp32| at batch 4: the
                cheb bf16 (48, 64), the dense bf16, the pallas bf16 and
                the xla bf16 force fields against the dense fp32 one on
@@ -202,6 +221,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -313,6 +333,11 @@ FLOOR_STEPS = 5000
 FLOOR_SAVE = 25
 FLOOR_LAUNCH = 1000
 FLOOR_REFERENCE = 2.047
+# The command line: examples/langevin.yaml (500 steps) at BATCH and
+# examples/parallel_tempering.yaml at PT_INDEP x 3 betas as they are; the
+# NVE and the optimisations-off runs (no kernel of their own) cut short.
+CLI_NVE_STEPS = 120
+CLI_OFF_STEPS = 40
 # The other prior kinds, card vs CPU: float32 elementwise terms, summed in
 # another order.
 PRIOR_BOUND = 1e-5
@@ -2215,9 +2240,9 @@ def counting_twins():
             setattr(ck, n, fn)
 
 
-def phase_checkpoint(dev, open_tp, smi):
-    """The checkpoint slice (the module docstring's `checkpoint` phase)."""
-    import tempfile
+def phase_checkpoint(dev, open_tp, smi, tmp):
+    """The checkpoint slice (the module docstring's `checkpoint` phase);
+    the checkpoint's two files stay in the directory ``tmp``."""
     import time
 
     from flashmd_tpu_torch.data.system import collate
@@ -2225,15 +2250,14 @@ def phase_checkpoint(dev, open_tp, smi):
     from flashmd_tpu_torch.models.forcefield import compute_energy_forces
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        modules, pos, types, lists = write_reference_checkpoint(tmp)
-        t1 = time.perf_counter()
-        ref = cio.load_reference_checkpoint(
-            os.path.join(tmp, "model_and_prior.pt"))
-        cfgs = cio.load_reference_configurations(
-            os.path.join(tmp, "configurations.pt"))
-        t2 = time.perf_counter()
+    t0 = time.perf_counter()
+    modules, pos, types, lists = write_reference_checkpoint(tmp)
+    t1 = time.perf_counter()
+    ref = cio.load_reference_checkpoint(
+        os.path.join(tmp, "model_and_prior.pt"))
+    cfgs = cio.load_reference_configurations(
+        os.path.join(tmp, "configurations.pt"))
+    t2 = time.perf_counter()
     check(len(cfgs) == BATCH and ref.schnet_config.hidden_channels == 128
           and ref.schnet_config.num_interactions == 3
           and sorted(p.kind for p in ref.priors) == [
@@ -2464,6 +2488,231 @@ def phase_prior_kinds(dev):
 # ---------------------------------------------------------------------------
 # The export loop: files, resume, the per-launch guard, the pair floor
 # ---------------------------------------------------------------------------
+
+def cli_config(name, tmp, out):
+    """examples/<name>.yaml read and written by the port's own YAML code
+    with model_file and structure_file (the checkpoint phase's files in
+    ``tmp``) and simulation.output_dir (``out``) replaced, and nothing else;
+    returns its path and the config."""
+    from flashmd_tpu_torch.utils.io import dump_yaml, load_yaml
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_yaml(os.path.join(here, "examples", f"{name}.yaml"))
+    cfg["model_file"] = os.path.join(tmp, "model_and_prior.pt")
+    cfg["structure_file"] = os.path.join(tmp, "configurations.pt")
+    cfg["simulation"]["output_dir"] = out
+    path = os.path.join(tmp, f"{os.path.basename(out)}.yaml")
+    dump_yaml(path, cfg)
+    return path, cfg
+
+
+class _Messages(logging.Handler):
+    """Keeps the messages of the port's logger."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def cli_run(main, path, *args):
+    """A console entry point's ``main`` as the command line runs it
+    (sys.argv: --config ``path`` and ``args``), with every kernel counter
+    and every cheb twin call counted over the whole call (the checkpoint's
+    binding included: its frontier evaluates its candidates on the cheb
+    kernels), the frontier's reports, the port's log messages, the
+    seconds from the call to the run's first step (YAML, load, frontier,
+    fit, attach) and of the run, and the peak device memory."""
+    from flashmd_tpu_torch.simulation import base
+
+    log, messages = FrontierLog(), _Messages()
+    frontier_logger = logging.getLogger("flashmd_tpu_torch.models.frontier")
+    frontier_logger.addHandler(log)
+    frontier_logger.setLevel(logging.INFO)
+    port_logger = logging.getLogger("flashmd_tpu_torch")
+    port_logger.addHandler(messages)
+    simulate, marks = base.Simulation.simulate, {}
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        marks["run"] = time.perf_counter()
+        return simulate(self, *a, **kw)
+
+    argv = sys.argv
+    sys.argv = [main.__name__, "--config", path, *args]
+    base.Simulation.simulate = timed
+    try:
+        with counting_twins() as twins:
+            AllKernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim = main()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counts = AllKernels.launch_counts()
+            twins = dict(twins)
+    finally:
+        sys.argv = argv
+        base.Simulation.simulate = simulate
+        frontier_logger.removeHandler(log)
+        port_logger.removeHandler(messages)
+    return {"sim": sim, "counts": counts, "twins": twins,
+            "candidates": sum(len(r.errors) for r in log.reports),
+            "messages": messages.messages, "attach": marks["run"] - t0,
+            "run": t1 - marks["run"], "peak": torch.cuda.max_memory_allocated()}
+
+
+def cli_expect(r, steps):
+    """Every kernel counter over a cheb run of ``steps`` steps through the
+    command line: 3/2/1 per force evaluation, one evaluation per step, one
+    for the start and one per frontier candidate; every other counter 0."""
+    return {**AllKernels.zeros(), **cheb_counts(steps + 1 + r["candidates"])}
+
+
+def cli_line(label, r, smi):
+    sim = r["sim"]
+    cfg = sim.model.schnet_config
+    m = sim.get_throughput_metrics()
+    print(f"cli: {label}: {cfg.message_passing} {cfg.precision} "
+          f"({cfg.cheb_order}, {cfg.cheb_order_deriv}) d_min "
+          f"{cfg.cheb_d_min}, batch {sim.n_sims}, {sim.n_timesteps} steps; "
+          f"launches {r['counts']} ({r['candidates']} frontier candidates); "
+          f"twin calls {r['twins']}; attach {r['attach']:.3f} s (YAML, "
+          f"load, frontier, fit, collate), run {r['run']:.3f} s, second-half "
+          f"throughput {m['throughput']:.1f} timestep*mol/s "
+          f"({m['ms_per_timestep']:.3f} ms/step), peak device memory "
+          f"{r['peak'] / 2 ** 30:.3f} GiB on {smi}")
+
+
+def phase_cli(tmp, dev, smi):
+    """The cli phase (the module docstring's)."""
+    from flashmd_tpu_torch.models import checkpoint_io as cio
+    from flashmd_tpu_torch.simulation import scripts
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+    from flashmd_tpu_torch.utils.io import load_yaml
+
+    # langevin: examples/langevin.yaml as it is
+    out = os.path.join(tmp, "langevin")
+    path, cfg = cli_config("langevin", tmp, out)
+    r = cli_run(scripts.nvt_langevin_main, path, "--batch_size", str(BATCH))
+    sim, opts = r["sim"], cfg["simulation"]
+    steps, save, name = (opts["n_timesteps"], opts["save_interval"],
+                         opts["filename"])
+    cli_line("langevin", r, smi)
+    check(r["counts"] == cli_expect(r, steps),
+          f"cli: langevin: launches differ from {cli_expect(r, steps)}")
+    check(not any(r["twins"].values()), "cli: langevin: twins ran")
+    n_exports = steps // opts["export_interval"]
+    kinds = (["coords"] + ["forces"] * opts["save_forces"]
+             + ["potential", "kineticenergy"] * opts["save_energies"])
+    names = {f"{name}_{kind}_{i:04d}.npy" for i in range(n_exports)
+             for kind in kinds}
+    names |= {f"{name}_checkpoint_{i:04d}.npz" for i in range(n_exports)}
+    names |= {f"{name}_{tail}" for tail in (
+        "checkpoint_init.npz", "log.txt", "config.yaml",
+        "specialized_model_and_config.pkl")}
+    found = set(os.listdir(out))
+    coords = sim.coords
+    echo = load_yaml(os.path.join(out, f"{name}_config.yaml"))
+    parsed = {**cfg, "batch_size": BATCH, "profile": ""}
+    print(f"cli: langevin: {len(found)} files, the expected "
+          f"{len(names)} {found == names}; coordinates {coords.shape} "
+          f"finite {bool(np.isfinite(coords).all())}; the echo read back "
+          f"equals the parsed config {echo == parsed}")
+    check(found == names, f"cli: langevin: files {sorted(found ^ names)}")
+    check(coords.shape == (BATCH, steps // save, N_ATOMS, 3)
+          and np.isfinite(coords).all(), "cli: langevin: coordinates")
+    check(echo == parsed, f"cli: langevin: echo {echo} != {parsed}")
+
+    # the engine driven directly with the same options and binding
+    ref = cio.load_reference_checkpoint(cfg["model_file"])
+    structures = cio.load_reference_configurations(cfg["structure_file"])
+    ff = cio.build_forcefield(ref, structures[0], optimize=True,
+                              allow_missing_priors=False,
+                              tune_configurations=structures, device=dev)
+    direct = LangevinSimulation(**{**opts, "output_dir": out + "_direct",
+                                   "device": dev})
+    direct.attach_model_and_configurations(ff, structures, cfg["betas"][0])
+    direct.simulate()
+    same = (torch.equal(direct.final_carry["pos"], sim.final_carry["pos"])
+            and np.array_equal(direct.coords, coords))
+    print(f"cli: langevin: final positions and every saved frame bitwise "
+          f"those of the engine driven directly (build_forcefield(optimize="
+          f"True, tune_configurations=the {len(structures)} structures) "
+          f"and LangevinSimulation with the YAML's options): {same}")
+    check(same, "cli: langevin: the command line changed the trajectory")
+
+    # pt: examples/parallel_tempering.yaml, PT_INDEP structures x 3 betas
+    out = os.path.join(tmp, "pt")
+    path, cfg = cli_config("parallel_tempering", tmp, out)
+    r = cli_run(scripts.nvt_pt_langevin_main, path, "--batch_size",
+                str(PT_INDEP))
+    sim, opts = r["sim"], cfg["simulation"]
+    steps, name = opts["n_timesteps"], opts["filename"]
+    cli_line("pt", r, smi)
+    acc = sum(np.load(os.path.join(out, f"{name}_acceptance_{i:04d}.npy"))
+              for i in range(steps // opts["export_interval"]))
+    cum = sim.final_carry["acceptance_matrix"].cpu().numpy()
+    attempted = int(sim.final_carry["n_exchange_attempted"])
+    approved = int(sim.final_carry["n_exchange_approved"])
+    coords = sim.coords
+    print(f"cli: pt: {sim.n_sims} slots, exchange every "
+          f"{opts['exchange_interval']}: {attempted} attempts, rate "
+          f"{approved / max(attempted, 1):.4f}; acceptance npys sum to the "
+          f"matrix {np.array_equal(acc, cum)}; coordinates {coords.shape} "
+          f"finite {bool(np.isfinite(coords).all())}")
+    check(r["counts"] == cli_expect(r, steps)
+          and not any(r["twins"].values()), "cli: pt: launches or twins")
+    check(np.array_equal(acc, cum) and attempted > 0,
+          "cli: pt: the acceptance files do not sum to the matrix")
+    check(sim.n_sims == PT_INDEP * len(cfg["betas"])
+          and np.isfinite(coords).all(), "cli: pt: coordinates")
+
+    # nve: the Langevin example through the NVE entry point, cut short;
+    # its friction is not an option of NVE
+    out = os.path.join(tmp, "nve")
+    path, cfg = cli_config("langevin", tmp, out)
+    r = cli_run(scripts.nve_verlet_main, path, "--batch_size", str(BATCH),
+                "--simulation.n_timesteps", str(CLI_NVE_STEPS),
+                "--simulation.save_energies", "true")
+    sim = r["sim"]
+    cli_line("nve", r, smi)
+    warned = any("Ignoring unknown simulation options" in m
+                 and "friction" in m for m in r["messages"])
+    energies = (np.isfinite(sim.simulated_potential).all()
+                and np.isfinite(sim.simulated_kinetic_energies).all())
+    print(f"cli: nve: friction warned as unknown {warned}; potential and "
+          f"kinetic energies finite {bool(energies)}")
+    check(r["counts"] == cli_expect(r, CLI_NVE_STEPS)
+          and not any(r["twins"].values()), "cli: nve: launches or twins")
+    check(warned and energies, "cli: nve: warning or energies")
+
+    # --disable_optim: the exact fp32 xla field, no kernel, gptq None
+    out = os.path.join(tmp, "disable_optim")
+    path, cfg = cli_config("langevin", tmp, out)
+    r = cli_run(scripts.nvt_langevin_main, path, "--batch_size", str(BATCH),
+                "--disable_optim", "--simulation.n_timesteps",
+                str(CLI_OFF_STEPS))
+    sim = r["sim"]
+    cfg_off = sim.model.schnet_config
+    m = sim.get_throughput_metrics()
+    finite = bool(np.isfinite(sim.coords).all())
+    print(f"cli: disable_optim: {cfg_off.message_passing} "
+          f"{cfg_off.precision}, gptq {sim.gptq}, {CLI_OFF_STEPS} steps "
+          f"batch {sim.n_sims}: every kernel counter 0 "
+          f"{r['counts'] == AllKernels.zeros()}, finite {finite}; attach "
+          f"{r['attach']:.3f} s, second-half throughput "
+          f"{m['throughput']:.1f} timestep*mol/s, peak device memory "
+          f"{r['peak'] / 2 ** 30:.3f} GiB")
+    check((cfg_off.message_passing, cfg_off.precision, sim.gptq)
+          == ("xla", "fp32", None) and r["candidates"] == 0,
+          f"cli: disable_optim: {cfg_off}, gptq {sim.gptq}")
+    check(r["counts"] == AllKernels.zeros() and finite,
+          "cli: disable_optim: a kernel ran or positions not finite")
+
 
 class _Timed:
     """Host seconds spent in a simulation's fetches (waiting for a
@@ -2931,7 +3180,9 @@ def main():
           f"({XLA_CELL_STEPS} steps, minimum image, Verlet rebuild under the "
           f"cell) beside the open xla slice's {xla_tp:.1f}")
     phase_xla_images(dev, smi)
-    phase_checkpoint(dev, open_tp, smi)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        phase_checkpoint(dev, open_tp, smi, ckpt_dir)
+        phase_cli(ckpt_dir, dev, smi)
     phase_fidelity(dev)
     # The integrators, beside a second run of the open cheb slice at this
     # point of the process.

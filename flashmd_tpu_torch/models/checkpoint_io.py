@@ -18,11 +18,16 @@ tensors), and the weights and buffers are walked out of the stub tree:
   otherwise;
 * ``save_native_model`` / ``load_native_model`` and the configuration
   pair: the port's own format, a pickle of plain dicts of numpy arrays.
+  The loaders also read the JAX package's native files (its pickled
+  ``ForceField`` / ``ReferenceModel``, its ``Configuration`` lists, its
+  specialized dump) without importing it: each of its classes is read as
+  its pickled state and rebuilt as the port's counterpart.
 
 Unpickling a reference checkpoint runs whatever the file says, as
 ``torch.load(weights_only=False)`` does for the reference itself: load
 only files from a source you trust. The native loaders accept numpy
-arrays and builtin containers only.
+arrays, builtin containers and the two packages' model and structure
+classes only, and refuse any other global by name.
 
 torch ``Linear`` stores ``[out, in]``; the port's MLPs take ``[in, out]``,
 transposed here once.
@@ -51,6 +56,7 @@ from ..prior.priors import (
 from .convert import _tree_to_torch, config_from_kwargs
 from .cutoff import CosineCutoff, IdentityCutoff, ShiftedCosineCutoff
 from .forcefield import ForceField
+from .radial_basis import GaussianBasisConfig
 from .schnet import SchNetConfig
 
 logger = logging.getLogger(__name__)
@@ -719,32 +725,131 @@ def _model_payload(model) -> dict:
     return {"format": NATIVE_MODEL_FORMAT, **payload}
 
 
-class _NumpyUnpickler(pickle.Unpickler):
-    """Rebuilds numpy arrays and builtin containers, and nothing else: a
-    native file holds no class, and a JAX-package file (its classes under
-    ``flashmd_tpu.``) is named as such instead of imported."""
+# What a native file may name besides builtin containers: numpy's array
+# and scalar reconstructors (numpy 2 under ``numpy._core``, numpy 1 under
+# ``numpy.core``).
+_NUMPY_GLOBALS = {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "scalar"),
+    ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"),
+}
+
+# The JAX package's classes that its native files hold (save_native_model,
+# save_native_configurations, save_specialized_dump there), each read as
+# its pickled state and rebuilt as the port's counterpart by _from_jax.
+_JAX_CLASSES = {
+    "flashmd_tpu.models.forcefield": ("ForceField",),
+    "flashmd_tpu.models.schnet": ("SchNetConfig",),
+    "flashmd_tpu.models.cutoff": ("CosineCutoff", "IdentityCutoff",
+                                  "ShiftedCosineCutoff"),
+    "flashmd_tpu.models.radial_basis": ("GaussianBasisConfig",),
+    "flashmd_tpu.prior.priors": ("Prior",),
+    "flashmd_tpu.data.system": ("Configuration", "TermList"),
+    "flashmd_tpu.models.checkpoint_io": ("ReferenceModel", "ReferencePrior"),
+}
+JAX_SPECIALIZED_DUMP_FORMAT = "flashmd_tpu_specialized_model_and_config_v1"
+# classes whose state is already the port's native payload
+_NATIVE_DICTS = {"Prior": Prior, "TermList": TermList,
+                 "ReferencePrior": ReferencePrior,
+                 "Configuration": Configuration}
+
+
+class _JaxState:
+    """A JAX-package object as its file holds it: the class's name and the
+    instance's state (its ``__dict__``, as pickle's BUILD gives it)."""
+
+    name = ""
+
+    def __setstate__(self, state):
+        self.state = dict(state)
+
+
+def _array_from_jax(fun, args, arr_state, aval_state):
+    """``jax._src.array._reconstruct_array`` without the device_put: the
+    numpy array that a pickled JAX array carries."""
+    value = fun(*args)
+    value.__setstate__(arr_state)
+    return value
+
+
+class _NativeUnpickler(pickle.Unpickler):
+    """Rebuilds builtin containers, numpy arrays and the JAX package's
+    native classes (as :class:`_JaxState`), and refuses every other
+    global by name: a native file runs no code of its own."""
 
     def find_class(self, module, name):
-        top = module.split(".")[0]
-        if top == "numpy":
+        if (module, name) in _NUMPY_GLOBALS:
             return super().find_class(module, name)
-        if top == "flashmd_tpu":
-            raise ValueError(
-                f"this is a native file of the JAX package ({module}.{name}"
-                "); flashmd_tpu_torch reads its own native files and "
-                "reference .pt checkpoints only"
-            )
+        if name in _JAX_CLASSES.get(module, ()):
+            return type(name, (_JaxState,), {"name": name})
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _array_from_jax
         raise pickle.UnpicklingError(
-            f"a native file holds no class, found {module}.{name}")
+            f"refusing {module}.{name}: a native file of flashmd_tpu or "
+            "flashmd_tpu_torch holds numpy arrays, builtin containers and "
+            "the packages' own model and structure classes only")
+
+
+def _fields(name: str, state: dict, cls, drop=()) -> dict:
+    """The state of the JAX package's ``name`` as keyword arguments of the
+    port's ``cls``; a field the port does not have raises, ``drop`` names
+    those it may leave out."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    extra = set(state) - names - set(drop)
+    if extra:
+        raise ValueError(f"the JAX package's {name} has fields "
+                         f"{sorted(extra)} that flashmd_tpu_torch's "
+                         f"{cls.__name__} does not")
+    return {k: v for k, v in state.items() if k in names}
+
+
+def _from_jax(obj):
+    """The JAX package's objects in ``obj`` -> the payloads of the port's
+    native format (and its cutoff and basis classes), bottom up."""
+    if isinstance(obj, dict):
+        return {k: _from_jax(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_from_jax(v) for v in obj)
+    if not isinstance(obj, _JaxState):
+        return obj
+    name, state = obj.name, _from_jax(obj.state)
+    if name in _CUTOFFS:
+        return _CUTOFFS[name](**_fields(name, state, _CUTOFFS[name]))
+    if name == "GaussianBasisConfig":
+        # ``trainable`` is a training flag; the port trains nothing
+        return GaussianBasisConfig(**_fields(name, state, GaussianBasisConfig,
+                                             drop=("trainable",)))
+    if name == "SchNetConfig":
+        # config_from_kwargs drops the JAX-only max_num_neighbors and aggr
+        return _config_to_dict(config_from_kwargs(state))
+    if name in _NATIVE_DICTS:
+        return _fields(name, state, _NATIVE_DICTS[name])
+    if name == "ReferenceModel":
+        return {"format": NATIVE_MODEL_FORMAT, "kind": "reference_model",
+                **_fields(name, state, ReferenceModel)}
+    if state.get("batched_priors"):  # a ForceField
+        raise NotImplementedError(
+            "this ForceField carries batched priors (a mixed-size batch of "
+            "stack_forcefields): mixed-size batches are not ported yet")
+    return {"format": NATIVE_MODEL_FORMAT, "kind": "forcefield",
+            **_fields(name, state, ForceField, drop=("batched_priors",))}
 
 
 def _load_native(path: str, fmt: str, dump_key: str) -> dict:
-    """The payload of ``fmt`` in ``path``; a specialized dump
-    (:func:`save_specialized_dump`) unwraps to its ``dump_key`` part."""
+    """The payload of ``fmt`` in ``path``, a native file of the port or of
+    the JAX package; a specialized dump of either unwraps to its
+    ``dump_key`` part."""
     with open(path, "rb") as f:
-        obj = _NumpyUnpickler(f).load()
-    if isinstance(obj, dict) and obj.get("format") == SPECIALIZED_DUMP_FORMAT:
+        obj = _NativeUnpickler(f).load()
+    if isinstance(obj, dict) and obj.get("format") in (
+            SPECIALIZED_DUMP_FORMAT, JAX_SPECIALIZED_DUMP_FORMAT):
         obj = obj[dump_key]
+    obj = _from_jax(obj)
+    if fmt == NATIVE_CONFIGURATIONS_FORMAT and isinstance(obj, list):
+        # the JAX package's structures file: a list of Configurations
+        obj = {"format": fmt, "configurations": obj}
     if not (isinstance(obj, dict) and obj.get("format") == fmt):
         raise ValueError(f"{path} is not a {fmt} file")
     return obj

@@ -11,6 +11,7 @@ bf16x3 is their fp32 variant.
 """
 
 import dataclasses
+import functools
 import warnings
 
 import jax
@@ -36,6 +37,7 @@ from flashmd_tpu_torch.models.forcefield import compute_energy_forces
 from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 from flashmd_tpu_torch.ops import cheb_kernel as ck
 from flashmd_tpu_torch.ops._launch import _dot, _split_bf16
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 F = 16
@@ -236,11 +238,13 @@ def test_bf16x3_twins_match_pallas(kernel, cell, d_min):
     assert min(_nrel(o, r) for o, r in zip(fp32, ref)) > TWIN_BOUND
 
 
+@functools.cache
 def _carried_pair(precision):
     """A small 2-block zoo model in JAX and the same weights in the port,
     both with their host fits attached: orders (12, 16) on d_min 2.0,
     below the tier's (64, 96) to keep the JAX trace short, with the
-    sub-floor linear term on."""
+    sub-floor linear term on. Built once per module (the tests derive
+    their variants by ``replace``)."""
     jff, jcfgs = jcgschnet(
         n_atoms=32, batch_size=BATCH, num_interactions=2,
         precision=precision,

@@ -52,6 +52,7 @@ from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 from flashmd_tpu_torch.ops import cfconv as cf
 from flashmd_tpu_torch.ops.neighborlist import batched_radius_neighbor_matrix
 from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 A = 29  # JAX pads to a multiple of 8: padding is exercised
 F = 16

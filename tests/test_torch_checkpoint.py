@@ -45,6 +45,7 @@ from flashmd_tpu_torch.models.mlp import (
 )
 from flashmd_tpu_torch.ops.neighborlist import max_neighbor_count
 from tests.helpers import synthetic_checkpoint as sc
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 A = sc.A
 VARIANTS = {
@@ -380,23 +381,35 @@ def test_native_round_trip(written, tmp_path):
 
 
 def test_jax_native_files_are_refused(written, tmp_path):
-    """A native file of the JAX package is named as such, read without
-    importing any of its classes; any other class is refused too."""
+    """A native file of the JAX package is read without importing any of
+    its classes (the same ReferenceModel and configurations as the port
+    reads from the checkpoint itself); a file naming any other class of
+    either package, or any other global, is refused by name."""
     info = written["plain"]
-    jref = jcio.load_reference_checkpoint(info["model_path"])
+    ref, cfgs, jref, jcfgs = _load_both(info)
     jcio.save_native_model(jref, str(tmp_path / "jax_model.pkl"))
-    jcio.save_native_configurations(
-        jcio.load_reference_configurations(info["structures_path"]),
-        str(tmp_path / "jax_structures.pkl"))
-    with pytest.raises(ValueError, match="native file of the JAX package"):
-        cio.load_native_model(str(tmp_path / "jax_model.pkl"))
-    with pytest.raises(ValueError, match="native file of the JAX package"):
-        cio.load_native_configurations(str(tmp_path / "jax_structures.pkl"))
-    with open(tmp_path / "other.pkl", "wb") as f:
-        pickle.dump({"format": cio.NATIVE_MODEL_FORMAT,
-                     "x": collections.OrderedDict()}, f)
-    with pytest.raises(pickle.UnpicklingError, match="holds no class"):
-        cio.load_native_model(str(tmp_path / "other.pkl"))
+    jcio.save_native_configurations(jcfgs, str(tmp_path / "jax_structures.pkl"))
+    ref2 = cio.load_native_model(str(tmp_path / "jax_model.pkl"))
+    _assert_tree_equal(ref2.schnet_params, ref.schnet_params)
+    assert ref2.schnet_config == ref.schnet_config
+    assert len(ref2.priors) == len(ref.priors)
+    for p, q in zip(ref.priors, ref2.priors):
+        assert (q.kind, q.name, q.order, q.n_degs) == (
+            p.kind, p.name, p.order, p.n_degs)
+        _assert_tree_equal(q.tables, p.tables, p.name)
+    cfgs2 = cio.load_native_configurations(str(tmp_path / "jax_structures.pkl"))
+    assert len(cfgs2) == len(cfgs)
+    for c, c2 in zip(cfgs, cfgs2):
+        np.testing.assert_array_equal(c2.pos, c.pos)
+        np.testing.assert_array_equal(c2.atom_types, c.atom_types)
+        np.testing.assert_array_equal(c2.exc_pair_index, c.exc_pair_index)
+    for name, obj in (("collections.OrderedDict", collections.OrderedDict()),
+                      ("flashmd_tpu.models.checkpoint_io.build_forcefield",
+                       jcio.build_forcefield)):
+        with open(tmp_path / "other.pkl", "wb") as f:
+            pickle.dump({"format": cio.NATIVE_MODEL_FORMAT, "x": obj}, f)
+        with pytest.raises(pickle.UnpicklingError, match=f"refusing {name}"):
+            cio.load_native_model(str(tmp_path / "other.pkl"))
 
 
 def _with_activation(info, path, activation):

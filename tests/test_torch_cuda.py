@@ -1210,3 +1210,41 @@ def test_pipelined_export_on_the_card_matches_synchronous(dev, tmp_path):
             for k in a.files:
                 np.testing.assert_array_equal(a[k], b[k])
     assert pathlib.Path(piped / "t_specialized_model_and_config.pkl").exists()
+
+
+def test_cli_on_the_card_matches_the_engine(dev, tmp_path, monkeypatch):
+    """The command line (flashmd-torch-langevin's main) on the helper's
+    reference checkpoint, on the card by default: the cheb path, and the
+    final positions bitwise those of the engine driven directly with the
+    YAML's options and the command line's build_forcefield arguments."""
+    import numpy as np
+
+    from flashmd_tpu_torch.models import checkpoint_io as cio
+    from flashmd_tpu_torch.simulation import scripts
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+    from flashmd_tpu_torch.utils.io import dump_yaml
+    from tests.helpers.synthetic_checkpoint import build_synthetic_checkpoint
+
+    info = build_synthetic_checkpoint(tmp_path)
+    opts = {"friction": 1.0, "n_timesteps": 40, "dt": 0.004,
+            "save_interval": 10, "random_seed": 7, "export_interval": 20,
+            "filename": "cli", "output_dir": str(tmp_path / "cli")}
+    dump_yaml(tmp_path / "config.yaml",
+              {"simulation": opts, "betas": [1.67],
+               "model_file": info["model_path"],
+               "structure_file": info["structures_path"]})
+    monkeypatch.setattr("sys.argv", ["flashmd-torch-langevin", "--config",
+                                     str(tmp_path / "config.yaml")])
+    sim = scripts.nvt_langevin_main()
+    assert sim.device.type == "cuda"
+    assert sim.model.schnet_config.message_passing == "cheb"
+    ref = cio.load_reference_checkpoint(info["model_path"])
+    structures = cio.load_reference_configurations(info["structures_path"])
+    ff = cio.build_forcefield(ref, structures[0],
+                              tune_configurations=structures, device=dev)
+    direct = LangevinSimulation(**{**opts, "output_dir": str(tmp_path / "d"),
+                                   "device": dev})
+    direct.attach_model_and_configurations(ff, structures, 1.67)
+    direct.simulate()
+    assert torch.equal(direct.final_carry["pos"], sim.final_carry["pos"])
+    assert np.array_equal(direct.coords, sim.coords)

@@ -22,6 +22,7 @@ import torch
 
 from flashmd_tpu_torch.ops import cfconv_dense as cd
 from flashmd_tpu_torch.ops._launch import _op
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 A = 45  # not a multiple of 16

@@ -45,6 +45,7 @@ from .test_torch_integrators import (
     jax_harmonic_ff,
     with_velocities,
 )
+from .test_torch_threads import one_torch_thread  # noqa: F401
 
 BETAS = [1.67, 1.42, 1.16]
 # NVE on the harmonic chain: noise-free, so both packages' files agree
@@ -710,7 +711,9 @@ def test_double_matches_jax_x64(path, bound, x64):
 
 def test_port_runs_without_tqdm_or_yaml():
     """The card has neither: with both unimportable, every module of the
-    package imports and a run exports through the no-op progress bar."""
+    package imports, a run exports through the no-op progress bar, and
+    the command line parses a YAML config and writes its echo with the
+    port's own YAML code."""
     code = (
         "import sys\n"
         "sys.modules['tqdm'] = None\n"
@@ -739,6 +742,23 @@ def test_port_runs_without_tqdm_or_yaml():
         "sim.simulate()\n"
         "import os\n"
         "assert os.path.exists(os.path.join(d, 't_coords_0001.npy'))\n"
+        "from flashmd_tpu_torch.models.checkpoint_io import (\n"
+        "    save_native_configurations, save_native_model)\n"
+        "from flashmd_tpu_torch.simulation.scripts import nve_verlet_main\n"
+        "from flashmd_tpu_torch.utils.io import load_yaml\n"
+        "save_native_model(ff, os.path.join(d, 'm.pkl'))\n"
+        "save_native_configurations([cfg], os.path.join(d, 's.pkl'))\n"
+        "open(os.path.join(d, 'c.yaml'), 'w').write(\n"
+        "    '# a config\\nsimulation:\\n  n_timesteps: 4\\n'\n"
+        "    '  save_interval: 2\\n  dt: 1.0e-3\\n  filename: e\\n'\n"
+        "    f'  output_dir: {d}\\n  device: cpu\\nbetas: [1.0]\\n'\n"
+        "    f'model_file: {d}/m.pkl\\nstructure_file: {d}/s.pkl\\n')\n"
+        "sys.argv = ['nve', '--config', os.path.join(d, 'c.yaml')]\n"
+        "nve_verlet_main()\n"
+        "echo = load_yaml(os.path.join(d, 'e_config.yaml'))\n"
+        "assert echo['simulation']['dt'] == 0.001, echo\n"
+        "assert echo['betas'] == [1.0] and echo['profile'] == '', echo\n"
+        "assert os.path.exists(os.path.join(d, 'e_coords_0000.npy'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flashmd_tpu')]\n"
         "assert not bad, bad\n"

@@ -42,6 +42,7 @@ from tests.test_torch_checkpoint import (  # noqa: F401  (the fixture)
     _rel,
     written,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 A = sc.A
 BF16_FORCE_TOL = 2e-3

@@ -21,6 +21,7 @@ import torch
 from flashmd_tpu.ops.pallas.cheb_kernel import cheb_conv_bwd_pallas
 from flashmd_tpu_torch.ops import cheb_kernel as ck
 from flashmd_tpu_torch.ops._launch import _dot
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 D_MIN = 1.2

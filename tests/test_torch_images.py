@@ -32,6 +32,7 @@ from flashmd_tpu_torch.models.forcefield import (
 from flashmd_tpu_torch.models.schnet import SchNetConfig, init_schnet
 from flashmd_tpu_torch.ops import neighborlist as nl
 from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 S = 2

@@ -6,6 +6,7 @@ message against JAX's, and the frame statistics against JAX's
 ``_frame_outputs``."""
 
 import dataclasses
+import functools
 import warnings
 
 import jax
@@ -30,6 +31,7 @@ from flashmd_tpu_torch.simulation import (
     OverdampedSimulation,
 )
 from flashmd_tpu_torch.simulation.base import fetch_frames
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 S = 2
 N_STEPS = 5
@@ -87,9 +89,12 @@ def with_velocities(cfgs, seed=4):
         scale=0.5, size=c.pos.shape)) for c in cfgs]
 
 
+@functools.cache
 def jax_cheb_field(n_atoms=24, batch=S, cheb_d_min=None):
     """The 24-bead, 2-block cheb fp32 field of the JAX zoo with its
-    configurations (velocities given), and the same field in the port."""
+    configurations (velocities given), and the same field in the port;
+    built once per argument tuple (callers derive variants by
+    ``replace``)."""
     jff, jcfgs = jcgschnet(
         n_atoms=n_atoms, batch_size=batch, num_interactions=2,
         precision="fp32", message_passing="cheb", neighbor_capacity=24,

@@ -28,6 +28,7 @@ from flashmd_tpu.ops.pallas.cheb_kernel import (
 from flashmd_tpu_torch.models.cheb import _lin_slope, fit_chebyshev_filter_host
 from flashmd_tpu_torch.models.convert import config_from_kwargs
 from flashmd_tpu_torch.ops import cheb_kernel as ck
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 F = 16

@@ -42,6 +42,7 @@ from flashmd_tpu_torch.models.cutoff import CosineCutoff
 from flashmd_tpu_torch.models.forcefield import compute_energy_forces
 from flashmd_tpu_torch.models.mlp import mlp_apply
 from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 F = 16

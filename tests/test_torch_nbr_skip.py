@@ -27,6 +27,7 @@ import torch
 from flashmd_tpu_torch.ops import cfconv as cf
 from flashmd_tpu_torch.ops._launch import _op
 from flashmd_tpu_torch.ops.neighborlist import batched_radius_neighbor_matrix
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 SKIN = 1.0

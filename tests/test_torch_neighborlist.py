@@ -19,6 +19,7 @@ from flashmd_tpu.ops.neighborlist import (
 from flashmd_tpu.ops.neighborlist import radius_neighbor_matrix as jradius
 from flashmd_tpu.ops.neighborlist import suggest_capacity as jsuggest
 from flashmd_tpu_torch.ops import neighborlist as nl
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 S, A, RCUT = 3, 29, 4.0
 

@@ -30,6 +30,7 @@ from .test_torch_integrators import (
     jax_cheb_field,
     jax_harmonic_ff,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 BETAS = [1.67, 1.42, 1.16]
 

@@ -11,6 +11,7 @@ answer.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,7 @@ from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 from flashmd_tpu_torch.ops import cheb_kernel as ck
 from flashmd_tpu_torch.ops import neighborlist as nl
 from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 L = 9.0
 RCUT = 4.0
@@ -227,8 +229,11 @@ def test_bf16_cell_twins_match_jnp_branch(d_min):
     assert rel(gpos, gpos_ref) <= 1e-2
 
 
+@functools.cache
 def _carried_pair(precision, cheb_order, **kw):
-    """A small zoo model in JAX and the same weights in the port."""
+    """A small zoo model in JAX and the same weights in the port, built
+    once per module and argument tuple (tests derive variants by
+    ``replace``)."""
     jff, jcfgs = jcgschnet(
         n_atoms=32, batch_size=S, num_interactions=2, precision=precision,
         message_passing="cheb", neighbor_capacity=32, cheb_order=cheb_order,

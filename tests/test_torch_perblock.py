@@ -11,6 +11,7 @@ False there), so it is the oracle of the model-level tests too.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from flashmd_tpu_torch.models.cheb import (
 from flashmd_tpu_torch.models.convert import forcefield_from_numpy
 from flashmd_tpu_torch.models.forcefield import compute_energy_forces
 from flashmd_tpu_torch.ops import cheb_kernel as ck
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 L = 9.0
 RCUT = 4.0
@@ -159,9 +161,11 @@ def test_bf16_gxgd_twin_matches_jnp_branch(cell_kind, d_min):
     assert rel(gpos.numpy(), gpos_ref) <= 1e-2
 
 
+@functools.cache
 def _carried_pair(precision, cheb_order, num_interactions=2):
     """A small zoo model in JAX and the same weights in the port, both
-    with their host fits attached."""
+    with their host fits attached; built once per module and argument
+    tuple (the tests derive their variants by ``replace``)."""
     jff, jcfgs = jcgschnet(
         n_atoms=32, batch_size=S, num_interactions=num_interactions,
         precision=precision, message_passing="cheb", neighbor_capacity=32,

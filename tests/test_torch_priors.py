@@ -22,6 +22,7 @@ from flashmd_tpu.ops import geometry as jgeo
 from flashmd_tpu.prior import priors as jpriors
 from flashmd_tpu_torch.ops import geometry as geo
 from flashmd_tpu_torch.prior import priors
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 S, A, T_MAX = 3, 12, 9
 TOL = 1e-5

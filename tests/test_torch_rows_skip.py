@@ -32,6 +32,7 @@ from flashmd_tpu.ops.pallas.cheb_kernel import (
 from flashmd_tpu_torch.models.cheb import _lin_slope
 from flashmd_tpu_torch.ops import cheb_kernel as ck
 from flashmd_tpu_torch.ops._launch import _dot
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RCUT = 4.0
 D_MIN = 1.2

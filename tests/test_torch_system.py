@@ -27,6 +27,7 @@ from flashmd_tpu_torch.models.convert import forcefield_from_numpy
 from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 from flashmd_tpu_torch.prior.priors import prior_energy
 from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 A = 24
 

@@ -47,6 +47,7 @@ from flashmd_tpu_torch.models.forcefield import (
 from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 from flashmd_tpu_torch.ops import neighborlist as nl
 from flashmd_tpu_torch.ops.gather import neighbor_gather
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 S, A, F, R, K = 2, 32, 16, 9, 16
 RCUT = 4.0
