@@ -209,6 +209,27 @@ Phases (each prints its lines; any failure exits non-zero):
                in launches of GUARD_LAUNCH_STEPS raises at the launch
                after the blow-up's.
 
+12. mixed -- mixed-size batches through a list of per-molecule fields.
+               "mixed forces": 2 x 266 + 2 x 532 beads padded to 532 at
+               MIXED_ORDERS on the shared weights: card vs CPU plain on
+               cheb, pallas, dense and xla (bf16, FORCE_BOUND; xla with
+               every counter 0), the padded rows' forces exactly 0 on the
+               card; at fp32 each molecule's rows against its own
+               homogeneous evaluation on the card (CROSS_BOUND). "mixed":
+               benchmarks/run_all.py:_cfg_mixed (MIXED_HALF x 266 +
+               MIXED_HALF x 532, gptq None) for STEPS steps: launches
+               3/2/1 per force evaluation, every other counter 0, no twin
+               call, every frame's padded rows bitwise the initial ladder,
+               the real atoms moved, <filename>_atom_mask.npy equal to the
+               mask; throughput, the pair floor, a profiler window, the
+               three stacked cheb kernels at S = 32, A = 532 against their
+               twins (live pairs, bound), and the padding overhead against
+               the same molecules as two homogeneous batches. "mixed
+               pallas": MIXED_PALLAS_STEPS steps on the neighbour-matrix
+               kernels (list rebuilt every step; the padding's rows
+               empty): launches 3 + 3 per force evaluation, frozen
+               padding, n_max <= K.
+
 Then a kernels JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -338,6 +359,15 @@ FLOOR_REFERENCE = 2.047
 # NVE and the optimisations-off runs (no kernel of their own) cut short.
 CLI_NVE_STEPS = 120
 CLI_OFF_STEPS = 40
+# Mixed-size batches: benchmarks/run_all.py:_cfg_mixed (16 molecules of 266
+# beads and 16 of 532 in one batch, padded to 532; cheb bf16 with the
+# explicit orders (64, 64) on d_min 2.0 that both sizes share, as the
+# size-aware defaults differ at 266 and 532; seed 0; dt 0.004, friction
+# 1.0, beta 1.67), STEPS steps; its neighbour-matrix run is shorter.
+MIXED_SIZES = (266, 532)
+MIXED_HALF = 16
+MIXED_ORDERS = dict(cheb_order=64, cheb_order_deriv=64, cheb_d_min=2.0)
+MIXED_PALLAS_STEPS = 20
 # The other prior kinds, card vs CPU: float32 elementwise terms, summed in
 # another order.
 PRIOR_BOUND = 1e-5
@@ -623,13 +653,15 @@ def cheb_pair_counts(pos, rcut, d_min, cell=None):
             *live_chunks(z != 1.0, rows=16, cols=16))
 
 
-def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
+def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False, tag="",
+                       stacked_only=False):
     """The four cheb kernels, open or, with ``cell`` [S, 3, 3], their
     cell variants (keys with "_cell"), at the slice's shapes; with
     ``bf16x3``, at that tier alone under keys with "_bf16x3". The bounds
     count the products of the live pairs only (d < rcut off the diagonal;
     the linear term's d < d_min), as the basis is exactly zero beyond the
-    cutoff."""
+    cutoff. ``tag`` ends every key and label; ``stacked_only`` times the
+    three kernels of the stacked schedule alone."""
     from flashmd_tpu_torch.models.cheb import _lin_slope
     from flashmd_tpu_torch.ops import cheb_kernel as ck
     from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
@@ -661,6 +693,7 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
         suffix, wrap, cell_bytes = "_cell", WRAP_FLOPS * s * a * a, 72 * s
     if bf16x3:
         suffix += "_bf16x3"
+    suffix += tag
 
     cases = {
         "cheb_fwd": (
@@ -697,6 +730,8 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
             4 * (2 * s * a * 3 + 3 * s * a * f + (m1 + 1 + m2) * f + 2 * f),
         ),
     }
+    if stacked_only:
+        del cases["cheb_bwd_gxgd"]
     print(f"kernels: cheb{suffix} shapes S={s} A={a} F={f} (gd {nb * f}) "
           f"M1={m1} M2={m2} d_min={d_min}; live pairs (d < rc) {n_live} of "
           f"{s * a * a}, below d_min {n_low}; live 16x8 fragments (gd "
@@ -712,6 +747,8 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False):
                                         bf16x3=bf16x3)
         for name, (kern, plain, flops, nbytes) in cases.items()
     }
+    if stacked_only:
+        return stats
     # the combined kernel beside the composition of the two tensor-core
     # kernels that compute its halves apart on the same operands
     prec = "bf16x3" if bf16x3 else "bf16"
@@ -3006,6 +3043,203 @@ def kinetic_per_dof(sim, slots=slice(None)):
     return float(ke[ke.shape[0] // 2:, slots].mean()) / (3 * sim.n_atoms)
 
 
+# ---------------------------------------------------------------------------
+# Mixed-size batches
+# ---------------------------------------------------------------------------
+
+def mixed_fields(device, half, **kw):
+    """(per-molecule fields, configurations) of benchmarks/run_all.py:
+    _cfg_mixed: ``half`` copies each of the zoo's MIXED_SIZES molecules
+    (seed 0, MIXED_ORDERS, the shared network), the smaller first."""
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    ffs, cfgs = [], []
+    for a in MIXED_SIZES:
+        ff, c = cgschnet_1enh_like(n_atoms=a, batch_size=1, device=device,
+                                   **MIXED_ORDERS, **kw)
+        ffs += [ff] * half
+        cfgs += c * half
+    return ffs, cfgs
+
+
+def _with_fit(ff):
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+
+    if ff.schnet_config.message_passing != "cheb":
+        return ff
+    return ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
+                                                    ff.schnet_config))
+
+
+def _mixed_forces(ffs, cfgs, device):
+    """compute_energy_forces of the stacked field on the padded batch:
+    (energies, forces, the padded System)."""
+    from flashmd_tpu_torch.data.system import collate_padded
+    from flashmd_tpu_torch.models.forcefield import (
+        compute_energy_forces,
+        stack_forcefields,
+    )
+
+    sys_ = collate_padded(cfgs, beta=1.67, device=device)
+    e, f, _ = compute_energy_forces(_with_fit(stack_forcefields(ffs)),
+                                    sys_.pos, sys_.atom_types,
+                                    atom_mask=sys_.atom_mask)
+    return e.cpu(), f.cpu(), sys_
+
+
+def padded_rows(sys_):
+    """[S, A] bool of the padded atoms, on the host."""
+    return sys_.atom_mask.cpu().numpy() == 0
+
+
+def phase_mixed_forces(dev):
+    """Forces of a mixed batch (2 x 266 + 2 x 532, padded to 532) on the
+    run's shared weights: card vs CPU plain on cheb, pallas, dense (bf16)
+    and xla (every counter 0), the padded rows' forces exactly 0 on the
+    card; at fp32 each molecule's rows against its own homogeneous
+    evaluation on the card."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+
+    t0 = time.perf_counter()
+    for mp in ("cheb", "pallas", "dense", "xla"):
+        ffs, cfgs = mixed_fields(dev, 2, message_passing=mp)
+        AllKernels.reset_launch_counts()
+        e_k, f_k, sys_ = _mixed_forces(ffs, cfgs, dev)
+        counts = AllKernels.launch_counts()
+        ffs, cfgs = mixed_fields("cpu", 2, message_passing=mp)
+        e_p, f_p, _ = _mixed_forces(ffs, cfgs, "cpu")
+        pad = padded_rows(sys_)
+        check(bool(torch.isfinite(f_k).all()),
+              f"mixed forces {mp}: non-finite on the card")
+        f_rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+        e_rel = float((e_k - e_p).abs().max() / e_p.abs().max())
+        zero = bool((f_k[torch.from_numpy(pad)] == 0).all())
+        print(f"mixed forces: {mp} bf16 batch 4 ({' + '.join(f'2 x {a}' for a in MIXED_SIZES)}, "
+              f"padded to {sys_.n_atoms}) card vs cpu plain: max|dF|/max|F| "
+              f"= {f_rel:.3e}, max|dE|/max|E| = {e_rel:.3e} (bound "
+              f"{FORCE_BOUND:.0e}); the {int(pad.sum())} padded rows' forces "
+              f"exactly 0 on the card: {zero}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        check(f_rel <= FORCE_BOUND and e_rel <= FORCE_BOUND,
+              f"mixed forces {mp}: card and CPU disagree")
+        check(zero, f"mixed forces {mp}: a padded row's force is not 0")
+        if mp == "xla":
+            check(counts == AllKernels.zeros(),
+                  f"mixed forces xla launched kernels: {counts}")
+    for mp in ("cheb", "pallas", "dense"):
+        ffs, cfgs = mixed_fields(dev, 2, message_passing=mp,
+                                 precision="fp32")
+        _, f, _ = _mixed_forces(ffs, cfgs, dev)
+        worst = 0.0
+        for s, (ff, cfg) in enumerate(zip(ffs, cfgs)):
+            one = collate([cfg], device=dev)
+            _, f1, _ = compute_energy_forces(_with_fit(ff), one.pos,
+                                             one.atom_types)
+            f1 = f1[0].cpu()
+            worst = max(worst, float((f[s, :cfg.n_atoms] - f1).abs().max()
+                                     / f1.abs().max()))
+        print(f"mixed forces: {mp} fp32 each molecule's rows vs its own "
+              f"homogeneous evaluation on the card: max|dF|/max|F| = "
+              f"{worst:.3e} (bound {CROSS_BOUND:.0e})")
+        check(worst <= CROSS_BOUND,
+              f"mixed forces {mp} fp32: mixed and homogeneous disagree")
+    print(f"mixed forces: {time.perf_counter() - t0:.1f} s")
+
+
+def frozen_padding(sim, label):
+    """Gate: every saved frame's padded rows bitwise the initial ladder,
+    and every molecule's real atoms moved; returns the smallest real-atom
+    displacement over the run."""
+    coords = sim.coords  # [S, frames, A, 3]
+    start = sim.initial_system.pos.cpu().numpy()
+    pad = padded_rows(sim.initial_system)
+    frozen = all(np.array_equal(coords[s][:, pad[s]],
+                                np.broadcast_to(start[s][pad[s]],
+                                                coords[s][:, pad[s]].shape))
+                 for s in range(coords.shape[0]))
+    moved = min(float(np.abs(coords[s, -1][~pad[s]]
+                             - start[s][~pad[s]]).max())
+                for s in range(coords.shape[0]))
+    print(f"{label}: padded rows ({int(pad.sum())}) of every frame bitwise "
+          f"the initial ladder: {frozen}; the least moved molecule's "
+          f"largest real-atom displacement {moved:.4f} A")
+    check(frozen, f"{label}: a padded row moved")
+    check(moved > 0, f"{label}: a molecule's real atoms did not move")
+    return moved
+
+
+def phase_mixed(dev, smi):
+    """benchmarks/run_all.py:_cfg_mixed through LangevinSimulation with a
+    list of fields (gptq None): launches 3/2/1 per force evaluation, no
+    twin call, padding frozen, the atom mask file; throughput, a profiler
+    window, the three stacked cheb kernels at S = 32, A = 532 against
+    their twins, and the padding overhead against the same molecules in
+    two homogeneous batches. Then the neighbour-matrix kernels on the
+    same batch (MIXED_PALLAS_STEPS steps, the list rebuilt every step)."""
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    t0 = time.perf_counter()
+    ffs, cfgs = mixed_fields(dev, MIXED_HALF)
+    n_evals = STEPS + 1
+    expect = {**AllKernels.zeros(), **cheb_counts(n_evals)}
+    with tempfile.TemporaryDirectory() as out, counting_twins() as twins:
+        _, ms_mixed, sim = run_slice(
+            "mixed", ffs, cfgs, dev, STEPS, SAVE_INTERVAL, AllKernels,
+            expect, smi, gptq=None, filename="mixed", output_dir=out)
+        mask = np.load(os.path.join(out, "mixed_atom_mask.npy"))
+    system = sim.initial_system
+    cfg = sim.model.schnet_config
+    print(f"mixed: {MIXED_HALF} x {MIXED_SIZES[0]} + {MIXED_HALF} x "
+          f"{MIXED_SIZES[1]} beads padded to {system.n_atoms}, cheb "
+          f"{cfg.precision} ({cfg.cheb_order}, {cfg.cheb_order_deriv}) on "
+          f"d_min {cfg.cheb_d_min}; twin calls {twins}; mixed_atom_mask.npy "
+          f"{mask.shape} {mask.dtype} equal to the system's mask: "
+          f"{np.array_equal(mask, system.atom_mask.cpu().numpy())}")
+    check(not any(twins.values()), f"mixed: twin calls {twins}")
+    check(np.array_equal(mask, system.atom_mask.cpu().numpy()),
+          "mixed: the atom mask file differs from the system's mask")
+    frozen_padding(sim, "mixed")
+    tp = sim.get_throughput_metrics()["throughput"]
+    profile_steps(sim, dev, PROFILE_STEPS, "mixed")
+    t1 = time.perf_counter()
+    phase_cheb_kernels(sim.model, system.pos, dev, tag=" mixed",
+                       stacked_only=True)
+    t_kernels = time.perf_counter() - t1
+    # the same molecules as two homogeneous batches on the same fit
+    ms = {}
+    for i, a in enumerate(MIXED_SIZES):
+        part = slice(i * MIXED_HALF, (i + 1) * MIXED_HALF)
+        _, ms[a], _ = run_slice(
+            f"mixed homogeneous {a}", ffs[part.start], cfgs[part], dev,
+            STEPS, SAVE_INTERVAL, AllKernels, expect, smi, gptq=None)
+    two = sum(ms.values())
+    print(f"mixed: padding overhead: the mixed batch {ms_mixed:.3f} ms/step "
+          f"({tp:.1f} timestep*mol/s) against the same {2 * MIXED_HALF} "
+          f"molecules in two homogeneous batches "
+          + " + ".join(f"{ms[a]:.3f} ({a})" for a in MIXED_SIZES)
+          + f" = {two:.3f} ms/step ({2 * MIXED_HALF * 1e3 / two:.1f} "
+          f"timestep*mol/s): mixed / two batches throughput "
+          f"{two / ms_mixed:.4f} on {smi}")
+    # the neighbour-matrix kernels: the padded atoms' rows are empty
+    n = MIXED_PALLAS_STEPS + 1
+    ffs_p, cfgs_p = mixed_fields(dev, MIXED_HALF, message_passing="pallas")
+    counts, _, sim = run_slice(
+        "mixed pallas", ffs_p, cfgs_p, dev, MIXED_PALLAS_STEPS,
+        MIXED_PALLAS_STEPS // 2, AllKernels,
+        {**AllKernels.zeros(), "cfconv_fwd": 3 * n, "cfconv_bwd": 3 * n},
+        smi, gptq=None)
+    frozen_padding(sim, "mixed pallas")
+    n_max = int(sim.final_carry["nbr_n_max"])
+    cap = sim.model.neighbor_capacity
+    print(f"mixed pallas: K {cap} (the larger molecule's), n_max over the "
+          f"run {n_max}; rows without a neighbour (the padding) "
+          f"{int(padded_rows(sim.initial_system).sum())}")
+    check(n_max <= cap, f"mixed pallas: n_max {n_max} > K {cap}")
+    print(f"mixed: {time.perf_counter() - t0:.1f} s, of which the kernel "
+          f"comparisons {t_kernels:.1f} s")
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)  # in order with warnings
     if not torch.cuda.is_available():
@@ -3206,6 +3440,9 @@ def main():
         phase_resume(ff, cfgs, dev)
         phase_pair_floor(ff, cfgs, dev, smi)
     phase_guard(dev)
+    with cheb_schedule("1"):
+        phase_mixed_forces(dev)
+        phase_mixed(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

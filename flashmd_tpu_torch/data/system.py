@@ -7,6 +7,10 @@ flashmd_tpu/data/system.py).
   ``device``: positions and velocities ``[S, A, 3]``, masses ``[S, A]``,
   inverse temperatures ``[S]``, periodic cells ``[S, 3, 3]``. The batch is
   a leading tensor axis.
+* :func:`collate` stacks one molecule's frames; :func:`collate_padded`
+  stacks molecules of different sizes, padded to the largest, with an
+  ``atom_mask`` of the real atoms (reference collate_padded,
+  data/system.py:392-500).
 """
 
 from __future__ import annotations
@@ -130,7 +134,7 @@ class System:
     """The batched on-device simulation state."""
 
     pos: torch.Tensor  # [S, A, 3]
-    atom_types: torch.Tensor  # [A] int64
+    atom_types: torch.Tensor  # [A] int64, or [S, A] in a mixed batch
     masses: torch.Tensor  # [S, A]
     beta: torch.Tensor  # [S]
     velocities: Optional[torch.Tensor] = None  # [S, A, 3]
@@ -140,6 +144,9 @@ class System:
     # host so that validating them never reads the card.
     cell: Optional[torch.Tensor] = None  # [S, 3, 3] float32
     cell_host: Optional[np.ndarray] = None  # [S, 3, 3] float64
+    # Mixed-size batches (collate_padded): 1 on real atoms, 0 on padding;
+    # None when every molecule has the batch's size.
+    atom_mask: Optional[torch.Tensor] = None  # [S, A] float32
 
     @property
     def n_sims(self) -> int:
@@ -262,4 +269,97 @@ def collate(
         term_lists=dict(configurations[0].neighbor_lists),
         cell=cell,
         cell_host=cell_host,
+    )
+
+
+def collate_padded(
+    configurations: Sequence[Configuration],
+    beta=None,
+    device: torch.device | str = "cuda",
+    dtype: torch.dtype = torch.float32,
+    pad_spacing: float = 1.0e4,
+) -> System:
+    """Stack configurations of different sizes into one padded
+    :class:`System` on ``device`` (reference collate_padded,
+    data/system.py:392-500).
+
+    Every molecule is padded to the batch's largest atom count, with types
+    0 and masses 1 on the padding, and ``atom_mask`` [S, A_max] marks the
+    real atoms. Padded atoms are parked on a ladder along x, starting
+    ``pad_spacing`` beyond the molecule's mean position and
+    ``pad_spacing`` apart, so that no pair within any cutoff involves one
+    and every padded pair distance is positive. Velocities are kept when
+    every configuration gives them (zero on the padding).
+
+    Masses must be given on every configuration or on none: the
+    reference gives mass 1.0 to the atoms of a configuration without
+    masses when another one has them (:444, :486); the port raises.
+    Periodic cells and pair exclusions raise, as in the reference.
+    """
+    if len(configurations) == 0:
+        raise ValueError("Cannot collate an empty configuration list")
+    if any(c.cell is not None for c in configurations):
+        raise NotImplementedError(
+            "Mixed-size (padded) batches do not support periodic cells: "
+            "minimum-image wrapping would fold the padding atoms back "
+            "into the box. Collate homogeneous batches for PBC."
+        )
+    if any(c.exc_pair_index is not None for c in configurations):
+        raise NotImplementedError(
+            "Mixed-size batches with exc_pair_index are not supported "
+            "(the exclusion list is bound per force field; see "
+            "models/forcefield.stack_forcefields)."
+        )
+    with_masses = [c.masses is not None for c in configurations]
+    if any(with_masses) and not all(with_masses):
+        frame = with_masses.index(not with_masses[0])
+        raise ValueError(
+            f"Inconsistent mass specification at frame {frame}: give "
+            "masses on every configuration of a mixed batch or on none."
+        )
+    n_sims = len(configurations)
+    a_max = max(c.n_atoms for c in configurations)
+    have_vel = all(c.velocities is not None for c in configurations)
+
+    pos = np.zeros((n_sims, a_max, 3), np.float64)
+    types = np.zeros((n_sims, a_max), np.int64)
+    masses = np.ones((n_sims, a_max), np.float64)
+    mask = np.zeros((n_sims, a_max), np.float32)
+    vel = np.zeros((n_sims, a_max, 3), np.float64) if have_vel else None
+    for s, c in enumerate(configurations):
+        a = c.n_atoms
+        pos[s, :a] = c.pos
+        n_pad = a_max - a
+        if n_pad:
+            # strictly increasing offsets along x keep every padded-padded
+            # and padded-real distance at least pad_spacing
+            pos[s, a:] = c.pos.mean(axis=0)
+            pos[s, a:, 0] += pad_spacing * np.arange(1, n_pad + 1)
+        types[s, :a] = c.atom_types
+        if c.masses is not None:
+            masses[s, :a] = c.masses
+        mask[s, :a] = 1.0
+        if have_vel:
+            vel[s, :a] = c.velocities
+
+    if beta is None:
+        beta_np = np.ones(n_sims)
+    else:
+        beta_np = np.broadcast_to(np.asarray(beta, np.float64),
+                                  (n_sims,)).copy()
+        if not np.all(beta_np > 0) or not np.all(np.isfinite(beta_np)):
+            raise ValueError(
+                f"All betas must be positive and finite, got {beta_np}."
+            )
+
+    def tensor(arr, dt=dtype):
+        return torch.as_tensor(arr, dtype=dt, device=device)
+
+    return System(
+        pos=tensor(pos),
+        atom_types=tensor(types, torch.int64),
+        masses=tensor(masses),
+        beta=tensor(beta_np),
+        velocities=None if vel is None else tensor(vel),
+        atom_mask=tensor(mask, torch.float32),
     )

@@ -718,6 +718,7 @@ def _model_payload(model) -> dict:
             "neighbor_capacity": int(model.neighbor_capacity),
             "exc_pair_index": _numpy_tree(model.exc_pair_index),
             "pbc_images": model.pbc_images,
+            "batched_priors": bool(model.batched_priors),
         }
     else:
         raise TypeError(f"cannot save {type(model)!r}: a ReferenceModel or "
@@ -829,12 +830,8 @@ def _from_jax(obj):
     if name == "ReferenceModel":
         return {"format": NATIVE_MODEL_FORMAT, "kind": "reference_model",
                 **_fields(name, state, ReferenceModel)}
-    if state.get("batched_priors"):  # a ForceField
-        raise NotImplementedError(
-            "this ForceField carries batched priors (a mixed-size batch of "
-            "stack_forcefields): mixed-size batches are not ported yet")
     return {"format": NATIVE_MODEL_FORMAT, "kind": "forcefield",
-            **_fields(name, state, ForceField, drop=("batched_priors",))}
+            **_fields(name, state, ForceField)}
 
 
 def _load_native(path: str, fmt: str, dump_key: str) -> dict:
@@ -883,6 +880,7 @@ def load_native_model(path: str, device="cuda", dtype=torch.float32):
         neighbor_capacity=obj["neighbor_capacity"],
         exc_pair_index=_tree_to_torch(obj["exc_pair_index"], device),
         pbc_images=None if images is None else tuple(map(tuple, images)),
+        batched_priors=bool(obj.get("batched_priors", False)),
     )
 
 

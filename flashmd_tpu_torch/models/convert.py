@@ -94,12 +94,14 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
     reference layout (``embedding``, ``rbf``, ``interactions``,
     ``output``, optionally ``cheb_fit``). ``priors_np``: name -> prior
     with ``index_mapping``, ``params``, ``kind``, ``name``, ``feature``
-    (attributes or dict keys); one with a ``term_mask`` raises.
+    and optionally ``term_mask`` (attributes or dict keys); priors stacked
+    along [S] by the reference's stack_forcefields (``index_mapping``
+    [S, order, T]) make a field with ``batched_priors``.
     ``config_kwargs``: see config_from_kwargs.
     ``neighbor_capacity``, ``exc_pair_index`` ([2, P] or None) and
     ``pbc_images`` (the reference's tuple of (i, j, k) shifts, or None) are
-    the reference ForceField's fields of those names. The tensors are placed on
-    the card unless ``device`` says otherwise.
+    the reference ForceField's fields of those names. The tensors are
+    placed on the card unless ``device`` says otherwise.
     """
     params = _tree_to_torch(dict(schnet_params_np), device)
     if "cheb_fit" in params:
@@ -108,11 +110,6 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
     for key, p in priors_np.items():
         term_mask = (p.get("term_mask") if isinstance(p, dict)
                      else getattr(p, "term_mask", None))
-        if term_mask is not None:
-            raise NotImplementedError(
-                f"prior {key!r} carries a term_mask (a padded prior of a "
-                "mixed-size batch): padding is not ported yet"
-            )
         priors[key] = Prior(
             index_mapping=_tensor(_field(p, "index_mapping"), device),
             params={
@@ -121,6 +118,8 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
             kind=_field(p, "kind"),
             name=_field(p, "name"),
             feature=_field(p, "feature"),
+            term_mask=(None if term_mask is None
+                       else _tensor(term_mask, device)),
         )
     return ForceField(
         schnet_params=params,
@@ -131,4 +130,5 @@ def forcefield_from_numpy(schnet_params_np, priors_np, config_kwargs,
                         else _tensor(exc_pair_index, device)),
         pbc_images=(None if pbc_images is None
                     else tuple(tuple(map(int, s)) for s in pbc_images)),
+        batched_priors=any(p.batched for p in priors.values()),
     )

@@ -13,6 +13,13 @@ smallest perpendicular width) raises, as in the reference, unless an xla
 field carries an image-replication shift set (``with_image_replication``)
 that covers the search radius in that cell; a shift set on any other path
 raises.
+
+Mixed-size batches (``stack_forcefields``; the reference refuses them,
+base.py:914-983) share one network over molecules of different sizes:
+each molecule keeps its own priors, stacked along [S]
+(``batched_priors``), the types are [S, A] and an ``atom_mask`` drops the
+padded atoms' head energies. They run on every path, with open
+boundaries and without pair exclusions.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ class ForceField:
     from. ``pbc_images`` (a tuple of (i, j, k) integer lattice shifts, set
     by ``with_image_replication``) switches the xla path's list to image
     replication, for cells below the minimum-image regime.
+    ``batched_priors`` (set by ``stack_forcefields``) marks priors whose
+    leaves carry a leading per-molecule [S] axis, those of a mixed batch.
     """
 
     schnet_params: Optional[dict]
@@ -54,6 +63,7 @@ class ForceField:
     neighbor_capacity: int = 64
     exc_pair_index: Optional[torch.Tensor] = None
     pbc_images: Optional[tuple] = None
+    batched_priors: bool = False
 
     @property
     def rcut(self) -> float:
@@ -150,15 +160,18 @@ def with_image_replication(ff: ForceField, cell,
 
 def energy_components(
     ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None,
-    cell=None,
+    cell=None, atom_mask=None,
 ) -> Dict[str, torch.Tensor]:
     """Per-model energies, each [S] (reference energy_components,
     forcefield.py:93-115). ``cell`` reaches the SchNet term only; the
-    priors evaluate on the raw coordinates."""
+    priors evaluate on the raw coordinates. ``atom_mask`` ([S, A]) drops
+    the padded atoms' head energies of a mixed batch; padded priors carry
+    their own ``term_mask``."""
     out = {}
     if ff.schnet_params is not None:
         out[SCHNET_NAME] = schnet_energy(
-            ff.schnet_params, ff.schnet_config, pos, atom_types, nbr, cell
+            ff.schnet_params, ff.schnet_config, pos, atom_types, nbr, cell,
+            atom_mask=atom_mask,
         )
     for name, prior in ff.priors.items():
         out[name] = prior_energy(prior, pos)
@@ -167,11 +180,11 @@ def energy_components(
 
 def total_energy(
     ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None,
-    cell=None,
+    cell=None, atom_mask=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """([S] total energy, components) (reference total_energy,
     forcefield.py:118-131)."""
-    comps = energy_components(ff, pos, atom_types, nbr, cell)
+    comps = energy_components(ff, pos, atom_types, nbr, cell, atom_mask)
     total = torch.zeros(pos.shape[0], dtype=pos.dtype, device=pos.device)
     for v in comps.values():
         total = total + v
@@ -204,17 +217,20 @@ def _check_cell(ff: ForceField, cell, check_cell: bool) -> None:
 def compute_energy_forces(
     ff: ForceField,
     pos_batch: torch.Tensor,  # [S, A, 3]
-    atom_types: torch.Tensor,  # [A]
+    atom_types: torch.Tensor,  # [A], or [S, A] in a mixed batch
     nbr: Optional[NeighborMatrix] = None,
     cell=None,
-    atom_mask=None,
+    atom_mask=None,  # [S, A] in a mixed batch, else None
     *,
     check_cell: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """([S] energies, [S, A, 3] forces, components dict of [S])
     (reference compute_energy_forces, forcefield.py:166-275). On the
     neighbour-list paths ``nbr`` is built here when not given (under
-    ``cell``, with the field's image shifts where it has them).
+    ``cell``, with the field's image shifts where it has them). A mixed
+    batch (``data.system.collate_padded``) gives [S, A] types and its
+    ``atom_mask``; a field with batched priors needs [S, A] types, and a
+    mixed batch refuses a cell, as in the reference.
 
     ``cell`` ([3, 3] shared, or [S, 3, 3] per molecule; rows are lattice
     vectors) runs the cheb path, and the xla path through the list's
@@ -222,16 +238,25 @@ def compute_energy_forces(
     reads it on the host); the engine,
     which validated its cells at attach, passes ``check_cell=False`` so
     that its per-step calls never synchronise with the card."""
-    if atom_types is None or atom_types.ndim != 1:
+    if atom_types is None or atom_types.ndim not in (1, 2):
         raise ValueError(
-            "atom_types must be a 1-D [A] integer tensor (mixed batches are "
-            "not ported)"
+            "atom_types must be a 1-D [A] (homogeneous batch) or 2-D "
+            "[S, A] (mixed batch) integer array"
+        )
+    types_mapped = atom_types.ndim == 2
+    if ff.batched_priors and ff.priors and not types_mapped:
+        raise ValueError(
+            "A batched-prior (mixed-size) force field needs per-sim "
+            "[S, A] atom_types (see data.system.collate_padded)."
+        )
+    if (types_mapped or atom_mask is not None) and cell is not None:
+        raise NotImplementedError(
+            "Mixed-size (padded) batches do not support periodic cells "
+            "(data/system.collate_padded refuses them at collation)."
         )
     mp = None if ff.schnet_params is None else ff.schnet_config.message_passing
     _require_exact_path_for_images(ff)
     _check_cell(ff, cell, check_cell)
-    if atom_mask is not None:
-        raise NotImplementedError("mixed-size batches are not ported yet")
     if ff.exc_pair_index is not None and mp in ("dense", "cheb"):
         # The all-pairs paths have no neighbour list to drop pairs from.
         raise NotImplementedError(
@@ -247,10 +272,78 @@ def compute_energy_forces(
         # one broadcasts over the batch, an [S, 3, 3] one goes per molecule
         # (models.cheb.cheb_stack_apply); the xla path reads nbr.shifts
         model_cell = cell if mp == "cheb" else None
-        total, comps = total_energy(ff, pos, atom_types, nbr, model_cell)
+        total, comps = total_energy(ff, pos, atom_types, nbr, model_cell,
+                                    atom_mask)
         (grad,) = torch.autograd.grad(total.sum(), pos)
     return (
         total.detach(),
         -grad,
         {k: v.detach() for k, v in comps.items()},
+    )
+
+
+def _same_tree(a, b) -> bool:
+    """Whether two parameter trees have one structure and equal tensors,
+    leaf by leaf."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and torch.equal(a, b.to(a.device)))
+    return a == b
+
+
+def stack_forcefields(ffs) -> ForceField:
+    """One mixed-batch field from per-molecule fields (reference
+    stack_forcefields, forcefield.py:278-346): every field shares one
+    SchNet network (configs equal, parameters equal leaf by leaf, the
+    Chebyshev fits included where present) and one prior keyset; each
+    prior kind is stacked along [S] (``prior.priors.stack_priors``), and
+    the largest ``neighbor_capacity`` is kept. Pair exclusions raise. Pair
+    it with ``data.system.collate_padded``."""
+    from ..prior.priors import stack_priors
+
+    ffs = list(ffs)
+    if not ffs:
+        raise ValueError("stack_forcefields needs at least one field")
+    ref = ffs[0]
+    if any(ff.batched_priors for ff in ffs):
+        raise ValueError("stack_forcefields inputs must be unbatched")
+    if any(ff.exc_pair_index is not None for ff in ffs):
+        raise NotImplementedError(
+            "Mixed-size batches with exc_pair_index are not supported."
+        )
+    for ff in ffs[1:]:
+        if (ff.schnet_params is None) != (ref.schnet_params is None):
+            raise ValueError(
+                "stack_forcefields: SchNet presence differs across fields"
+            )
+        if ff.schnet_config != ref.schnet_config:
+            raise ValueError(
+                "stack_forcefields requires identical SchNet configs "
+                "(one transferable network shared by every molecule)."
+            )
+        if (ref.schnet_params is not None
+                and not _same_tree(ref.schnet_params, ff.schnet_params)):
+            raise ValueError(
+                "stack_forcefields requires identical SchNet "
+                "parameters — the mixed batch shares one network."
+            )
+        if set(ff.priors.keys()) != set(ref.priors.keys()):
+            raise ValueError(
+                f"Prior keysets differ: {sorted(ff.priors)} vs "
+                f"{sorted(ref.priors)}"
+            )
+    priors = {
+        name: stack_priors([ff.priors[name] for ff in ffs])
+        for name in ref.priors
+    }
+    return ref.replace(
+        priors=priors,
+        neighbor_capacity=max(ff.neighbor_capacity for ff in ffs),
+        batched_priors=True,
     )

@@ -128,7 +128,8 @@ def types_mlp_apply(params, features, atom_types, activation: str = "tanh",
     types_mlp_apply, mlp.py:152-174): every species' MLP runs on every
     atom and a select keeps each atom's own, so no branch depends on the
     data. ``atom_types`` [A] broadcasts over the batch axes of
-    ``features``; an atom of no listed species gets 0."""
+    ``features``, [S, A] (a mixed batch) gives each molecule its own; an
+    atom of no listed species gets 0."""
     if params["species"] is None:
         return mlp_apply(params["mlps"][0], features, activation, precision)
     out = torch.zeros(features.shape[:-1] + (1,), dtype=features.dtype,

@@ -225,9 +225,9 @@ def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
         # float64 positions promote the xla path's float32 weights in the
         # JAX package; torch's products do not promote, so cast them here.
         params = _cast_floats(params, pos.dtype)
-    s, a = pos.shape[0], pos.shape[1]
     x0 = params["embedding"][atom_types]
-    x0 = x0.expand(s, a, x0.shape[-1]).contiguous()
+    if atom_types.ndim == 1:  # one molecule's types, shared by the batch
+        x0 = x0.expand(pos.shape[0], -1, -1).contiguous()
     if mp == "xla":
         x = _xla_blocks(params, config, pos, x0, nbr)
     elif mp == "dense":
@@ -393,9 +393,12 @@ def _neighbor_blocks(params, config: SchNetConfig, pos, x, nbr):
 
 
 def schnet_energy(params, config: SchNetConfig, pos, atom_types, nbr=None,
-                  cell=None):
-    """Total SchNet energy per molecule, [S]."""
-    return torch.sum(
-        schnet_atom_energies(params, config, pos, atom_types, nbr, cell),
-        dim=-1,
-    )
+                  cell=None, atom_mask=None):
+    """Total SchNet energy per molecule, [S]. ``atom_mask`` ([S, A], 1 on
+    real atoms, 0 on padding) drops the head's energies of a mixed batch's
+    padded atoms (reference schnet_energy, schnet.py:502-517); their
+    messages need no mask, as the padding lies beyond every cutoff."""
+    e = schnet_atom_energies(params, config, pos, atom_types, nbr, cell)
+    if atom_mask is not None:
+        e = e * atom_mask
+    return torch.sum(e, dim=-1)

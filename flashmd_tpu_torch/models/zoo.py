@@ -76,7 +76,7 @@ def random_cg_protein(
     )
 
 
-def _chain_priors(cfg: Configuration, seed: int = 0, device="cpu"):
+def _chain_priors(cfg: Configuration, seed: int, device):
     """Prior parameters for the synthetic chain (reference zoo.py:99-161)."""
     rng = np.random.default_rng(seed + 1)
     nl = cfg.neighbor_lists

@@ -2,8 +2,9 @@
 flashmd_tpu/ops/geometry.py).
 
 Positions carry the batch as a leading axis, ``pos [S, A, 3]``; the index
-map ``mapping [order, n_terms]`` (int64 tensor) is shared by the batch.
-Each function returns ``[S, n_terms]`` (``compute_distance_vectors``:
+map (int64 tensor) is ``mapping [order, n_terms]``, shared by the batch,
+or ``[S, order, n_terms]``, one per molecule (a mixed-size batch). Each
+function returns ``[S, n_terms]`` (``compute_distance_vectors``:
 ``[S, n_terms, 1]`` and ``[S, n_terms, 3]``).
 """
 
@@ -12,6 +13,17 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def _atoms(pos: torch.Tensor, mapping: torch.Tensor, k: int):
+    """[S, n_terms, 3]: the k-th atom of every term, from a shared map or
+    from each molecule's own (one flat index, so that the backward is the
+    same index accumulation as for a shared map)."""
+    if mapping.ndim == 2:
+        return pos[:, mapping[k]]
+    s, a = pos.shape[0], pos.shape[1]
+    base = torch.arange(s, device=pos.device)[:, None] * a
+    return pos.reshape(s * a, pos.shape[-1])[mapping[:, k] + base]
 
 
 def safe_norm(x, dim: int = -1, keepdim: bool = True, eps: float = 1e-16):
@@ -34,7 +46,7 @@ def compute_distance_vectors(pos: torch.Tensor, mapping: torch.Tensor,
     """(safe-norm distances [S, T, 1], unit vectors [S, T, 3]) of
     r_j - r_i, with ``cell_shifts`` added to the displacement where given
     (reference geometry.py:50-65)."""
-    dr = pos[:, mapping[1]] - pos[:, mapping[0]]
+    dr = _atoms(pos, mapping, 1) - _atoms(pos, mapping, 0)
     if cell_shifts is not None:
         dr = dr + cell_shifts
     distances = safe_norm(dr, dim=-1, keepdim=True)
@@ -43,15 +55,15 @@ def compute_distance_vectors(pos: torch.Tensor, mapping: torch.Tensor,
 
 def compute_distances(pos: torch.Tensor, mapping: torch.Tensor):
     """Plain 2-norm of r_j - r_i (reference geometry.py:66-81)."""
-    dr = pos[:, mapping[1]] - pos[:, mapping[0]]
+    dr = _atoms(pos, mapping, 1) - _atoms(pos, mapping, 0)
     return torch.linalg.vector_norm(dr, dim=-1)
 
 
 def compute_angles_raw(pos: torch.Tensor, mapping: torch.Tensor):
     """theta_ijk in radians, atan2(|r_ij x r_kj|, r_ij . r_kj) (reference
     geometry.py:84-99)."""
-    dr1 = pos[:, mapping[0]] - pos[:, mapping[1]]
-    dr2 = pos[:, mapping[2]] - pos[:, mapping[1]]
+    dr1 = _atoms(pos, mapping, 0) - _atoms(pos, mapping, 1)
+    dr2 = _atoms(pos, mapping, 2) - _atoms(pos, mapping, 1)
     n = torch.linalg.vector_norm(torch.cross(dr1, dr2, dim=-1), dim=-1)
     d = torch.sum(dr1 * dr2, dim=-1)
     return torch.atan2(n, d)
@@ -59,8 +71,8 @@ def compute_angles_raw(pos: torch.Tensor, mapping: torch.Tensor):
 
 def compute_angles_cos(pos: torch.Tensor, mapping: torch.Tensor):
     """cos(theta_ijk) (reference geometry.py:100-115)."""
-    dr1 = pos[:, mapping[0]] - pos[:, mapping[1]]
-    dr2 = pos[:, mapping[2]] - pos[:, mapping[1]]
+    dr1 = _atoms(pos, mapping, 0) - _atoms(pos, mapping, 1)
+    dr2 = _atoms(pos, mapping, 2) - _atoms(pos, mapping, 1)
     dot = torch.sum(dr1 * dr2, dim=-1)
     norms = torch.linalg.vector_norm(dr1, dim=-1) * torch.linalg.vector_norm(
         dr2, dim=-1
@@ -76,9 +88,9 @@ def _normalize(x, eps: float = 1e-12):
 def compute_torsions(pos: torch.Tensor, mapping: torch.Tensor):
     """Dihedral or improper phi_ijkl, MDTraj sign: atan2(-(n1 x r_kj) . n2,
     n1 . n2) on normalised bond vectors (reference geometry.py:118-141)."""
-    dr1 = _normalize(pos[:, mapping[1]] - pos[:, mapping[0]])
-    dr2 = _normalize(pos[:, mapping[2]] - pos[:, mapping[1]])
-    dr3 = _normalize(pos[:, mapping[3]] - pos[:, mapping[2]])
+    dr1 = _normalize(_atoms(pos, mapping, 1) - _atoms(pos, mapping, 0))
+    dr2 = _normalize(_atoms(pos, mapping, 2) - _atoms(pos, mapping, 1))
+    dr3 = _normalize(_atoms(pos, mapping, 3) - _atoms(pos, mapping, 2))
     n1 = torch.cross(dr1, dr2, dim=-1)
     n2 = torch.cross(dr2, dr3, dim=-1)
     m1 = torch.cross(n1, dr2, dim=-1)

@@ -8,8 +8,15 @@ A :class:`Prior` holds its per-term parameters directly (gathered once
 from the type tables, ``gather_type_params``); ``prior_energy`` evaluates
 the whole batch ``pos [S, A, 3] -> [S]``. The constructors from
 type-indexed statistics are numpy, copied from the reference, and place
-the gathered parameters on ``device``. Padding (``pad_prior``, ``stack_priors``) is not
-ported: a ``term_mask`` here is one [n_terms] mask shared by the batch.
+the gathered parameters on ``device``.
+
+A prior is shared by the batch (``index_mapping`` [order, T], parameters
+[T, ...], ``term_mask`` [T] or None), or, in a mixed-size batch, one per
+molecule stacked along a leading [S] axis (``stack_priors``: index
+mapping [S, order, T], parameters [S, ...], ``term_mask`` [S, T], dense
+``sigma6`` [S, A, A]); the features then gather each molecule's atoms
+from its own map. ``pad_prior`` pads a prior to more terms with masked
+copies of its first, which add exactly zero energy and gradient.
 """
 
 from __future__ import annotations
@@ -90,12 +97,20 @@ class Prior:
             raise NotImplementedError(f"Unknown prior kind: {self.kind}")
 
     @property
+    def batched(self) -> bool:
+        """Whether the leaves carry a leading per-molecule [S] axis."""
+        return self.index_mapping.ndim == 3
+
+    @property
     def order(self) -> int:
-        return self.index_mapping.shape[0]
+        return self.index_mapping.shape[-2]
 
     @property
     def n_terms(self) -> int:
-        return self.index_mapping.shape[1]
+        return self.index_mapping.shape[-1]
+
+    def replace(self, **changes) -> "Prior":
+        return dataclasses.replace(self, **changes)
 
 
 def harmonic_compute(x, x0, k, V0=0.0):
@@ -105,13 +120,14 @@ def harmonic_compute(x, x0, k, V0=0.0):
 
 def fourier_compute(theta, v_0, k1s, k2s):
     """v0 + sum_n k1_n sin(n theta) + k2_n cos(n theta); k1s/k2s
-    [n_terms, n_degs] (reference priors.py:74-83)."""
-    n_k = k1s.shape[1]
+    [n_terms, n_degs], or [S, n_terms, n_degs] stacked (reference
+    priors.py:74-83)."""
+    n_k = k1s.shape[-1]
     n_degs = torch.arange(1, n_k + 1, dtype=theta.dtype, device=theta.device)
     angles = theta[..., None] * n_degs
     v = k1s * torch.sin(angles) + k2s * torch.cos(angles)
-    if v_0.ndim > 1:
-        v_0 = v_0[:, 0]
+    if v_0.ndim == k1s.ndim:  # [..., T, 1]
+        v_0 = v_0[..., 0]
     return torch.sum(v, dim=-1) + v_0
 
 
@@ -154,7 +170,8 @@ def _dense_repulsion_energy(sigma6, pos):
 
 
 def prior_energy(prior: Prior, pos: torch.Tensor) -> torch.Tensor:
-    """Per-molecule prior energy, [S] (reference priors.py:162-213)."""
+    """Per-molecule prior energy, [S] (reference priors.py:162-213), of a
+    shared or a stacked (per-molecule) prior."""
     kind = prior.kind
     p = prior.params
     if kind == "repulsion_dense":
@@ -167,7 +184,10 @@ def prior_energy(prior: Prior, pos: torch.Tensor) -> torch.Tensor:
     elif kind == "dihedral":
         terms = fourier_compute(feats, p["v_0"], p["k1s"], p["k2s"])
     elif kind in ("polynomial", "quartic_angles"):
-        terms = polynomial_compute(feats, p["ks"], p["v_0"])
+        ks = p["ks"]  # [n_degs, T], stacked [S, n_degs, T]
+        if prior.batched:
+            ks = ks.transpose(0, 1)
+        terms = polynomial_compute(feats, ks, p["v_0"])
     else:  # restricted_quartic
         terms = restricted_quartic_compute(
             feats, p["a"], p["b"], p["c"], p["d"], p["k"], p["v_0"]
@@ -344,4 +364,103 @@ def densify_repulsion(prior: Prior, n_atoms: int) -> Prior:
         kind="repulsion_dense",
         name=prior.name,
         feature="distance",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Mixed-size batches: padding and stacking per-molecule priors (reference
+# priors.py:443-562)
+# ---------------------------------------------------------------------------
+
+
+def _term_axis(name: str) -> int:
+    """The term axis of a parameter leaf: polynomial ``ks`` is
+    [n_degs, T], every other leaf [T, ...]."""
+    return 1 if name == "ks" else 0
+
+
+def pad_prior(prior: Prior, n_terms: int) -> Prior:
+    """The prior padded to ``n_terms`` terms, the padding masked out
+    (reference pad_prior, priors.py:456-512).
+
+    Padding terms copy the first term (indices and parameters), whose
+    features and partials are finite, so the masked select of
+    :func:`prior_energy` gives them exactly zero energy and gradient. A
+    prior without terms is padded with consecutive atoms 0..order-1 and
+    zero parameters. Polynomial ``ks`` pad along their term axis (the
+    reference pads them along the degree axis)."""
+    if prior.kind == "repulsion_dense":
+        raise ValueError(
+            "pad_prior pads term lists; densify after stacking instead "
+            "(dense repulsion pads by zero-extending sigma6)."
+        )
+    t = prior.n_terms
+    if n_terms < t:
+        raise ValueError(f"Cannot pad {t} terms down to {n_terms}")
+    idx = prior.index_mapping
+    mask = prior.term_mask
+    if mask is None:
+        mask = torch.ones(t, dtype=torch.float32, device=idx.device)
+    if n_terms == t:
+        return prior.replace(term_mask=mask)
+    extra = n_terms - t
+    if t > 0:
+        idx_pad = idx[:, :1].expand(-1, extra)
+        params_pad = {
+            k: v.narrow(_term_axis(k), 0, 1).repeat_interleave(
+                extra, dim=_term_axis(k))
+            for k, v in prior.params.items()
+        }
+    else:
+        idx_pad = torch.arange(prior.order, dtype=idx.dtype,
+                               device=idx.device)[:, None].expand(-1, extra)
+        params_pad = {}
+        for k, v in prior.params.items():
+            shape = list(v.shape)
+            shape[_term_axis(k)] = extra
+            params_pad[k] = v.new_zeros(shape)
+    return prior.replace(
+        index_mapping=torch.cat([idx, idx_pad], dim=1),
+        params={k: torch.cat([v, params_pad[k]], dim=_term_axis(k))
+                for k, v in prior.params.items()},
+        term_mask=torch.cat([mask, mask.new_zeros(extra)]),
+    )
+
+
+def stack_priors(priors) -> Prior:
+    """Per-molecule priors of one kind stacked into one prior whose leaves
+    carry a leading [S] axis, each padded to the largest term count
+    (reference stack_priors, priors.py:515-562); dense repulsion
+    zero-extends ``sigma6`` to the largest atom count instead."""
+    priors = list(priors)
+    if not priors:
+        raise ValueError("stack_priors needs at least one prior")
+    ref = priors[0]
+    for p in priors:
+        if (p.kind, p.name, p.feature, p.order) != (
+            ref.kind, ref.name, ref.feature, ref.order,
+        ):
+            raise ValueError(
+                "stack_priors requires matching (kind, name, feature, "
+                f"order): got {(p.kind, p.name, p.feature, p.order)} vs "
+                f"{(ref.kind, ref.name, ref.feature, ref.order)}"
+            )
+    if ref.kind == "repulsion_dense":
+        a_max = max(p.params["sigma6"].shape[0] for p in priors)
+        mats = [torch.nn.functional.pad(
+                    p.params["sigma6"],
+                    (0, a_max - p.params["sigma6"].shape[0]) * 2)
+                for p in priors]
+        return ref.replace(
+            index_mapping=ref.index_mapping.new_zeros(
+                (len(priors), ref.order, 0)),
+            params={"sigma6": torch.stack(mats)},
+        )
+    t_max = max(p.n_terms for p in priors)
+    padded = [pad_prior(p, t_max) for p in priors]
+    return ref.replace(
+        index_mapping=torch.stack([p.index_mapping for p in padded]),
+        params={k: torch.stack([p.params[k] for p in padded])
+                for k in ref.params},
+        term_mask=torch.stack([p.term_mask for p in padded]),
     )

@@ -40,7 +40,13 @@ Throughput is the second half of the run as ``get_throughput_metrics``
 (:1368-1390) defines it, with the fence read at the first save point at
 or past half-way (the reference reads it at a launch start only).
 
-Not ported: the CLI, mixed-size batches, multi-GPU meshes, CUDA graphs.
+A list of per-molecule force fields attaches a mixed-size batch
+(:367-397, :510-560): the fields are stacked (one network, the priors
+along [S]), the configurations padded to the largest (``collate_padded``),
+the atom mask reaches the force field, the blow-up statistic counts real
+atoms only, and ``<filename>_atom_mask.npy`` is written once.
+
+Not ported: multi-GPU meshes, CUDA graphs.
 """
 
 from __future__ import annotations
@@ -56,11 +62,12 @@ import numpy as np
 import torch
 
 from ..data.keys import POSITIONS_KEY, VELOCITY_KEY
-from ..data.system import Configuration, System, collate
+from ..data.system import Configuration, System, collate, collate_padded
 from ..models.forcefield import (
     ForceField,
     build_neighbors,
     compute_energy_forces,
+    stack_forcefields,
     total_energy,
     uses_neighbor_list,
 )
@@ -395,8 +402,22 @@ class Simulation:
     # ------------------------------------------------------------------
 
     def attach_model_and_configurations(
-        self, model: ForceField, configurations: List[Configuration], beta
+        self, model: Union[ForceField, List[ForceField]],
+        configurations: List[Configuration], beta
     ):
+        """Attach the force field and the starting structures. A LIST of
+        force fields, one per configuration and all of one network,
+        selects a mixed-size batch: the fields are stacked
+        (``stack_forcefields``) and the configurations padded to the
+        largest (``collate_padded``)."""
+        if isinstance(model, (list, tuple)):
+            if len(model) != len(configurations):
+                raise ValueError(
+                    f"Got {len(model)} force fields for "
+                    f"{len(configurations)} configurations; a mixed "
+                    "batch needs one per configuration."
+                )
+            model = stack_forcefields(model)
         self._attach_model(model)
         self._check_exclusion_binding(model, configurations)
         self._attach_configurations(configurations, beta)
@@ -500,9 +521,29 @@ class Simulation:
         self.model = model
 
     def _attach_configurations(self, configurations, beta):
-        system = collate(
-            configurations, beta=beta, device=self.device, dtype=self.dtype
-        )
+        ff = self.model
+        batched = ff is not None and ff.batched_priors
+        if batched or len({c.n_atoms for c in configurations}) > 1:
+            if ff is not None and ff.priors and not batched:
+                raise ValueError(
+                    "Configurations of different sizes need per-molecule "
+                    "force fields: pass a LIST of fields to "
+                    "attach_model_and_configurations (stacked via "
+                    "models.forcefield.stack_forcefields)."
+                )
+            system = collate_padded(configurations, beta=beta,
+                                    device=self.device, dtype=self.dtype)
+            if batched and ff.priors:
+                s_prior = next(iter(ff.priors.values())).index_mapping.shape[0]
+                if s_prior != system.n_sims:
+                    raise ValueError(
+                        f"The stacked force field carries {s_prior} "
+                        f"molecules but {system.n_sims} configurations "
+                        "were attached."
+                    )
+        else:
+            system = collate(configurations, beta=beta, device=self.device,
+                             dtype=self.dtype)
         self.n_sims = system.n_sims
         self.n_atoms = system.n_atoms
         self.n_dims = system.n_dims
@@ -560,9 +601,10 @@ class Simulation:
         """Potential + forces at ``pos`` with the carry's neighbour list and
         the system's cells (validated at attach, so not here: that would
         read the cells from the card every step)."""
+        system = self.initial_system
         return compute_energy_forces(
-            self.model, pos, self.initial_system.atom_types, carry.get("nbr"),
-            cell=self.initial_system.cell, check_cell=False,
+            self.model, pos, system.atom_types, carry.get("nbr"),
+            cell=system.cell, atom_mask=system.atom_mask, check_cell=False,
         )
 
     def _init_carry(self, system: System) -> Dict:
@@ -645,8 +687,7 @@ class Simulation:
         out = {
             "pos": pos,
             "potential": carry["potential"],
-            "pos_spread": torch.std(pos.reshape(pos.shape[0], -1), dim=1,
-                                    correction=0),
+            "pos_spread": self._pos_spread(pos),
         }
         for key in ("nbr_n_max", "nbr_disp_max"):
             if key in carry:
@@ -662,6 +703,22 @@ class Simulation:
         if self.save_energy_components or self.save_force_components:
             out.update(self._component_outputs(carry))
         return out
+
+    def _pos_spread(self, pos) -> torch.Tensor:
+        """[S] standard deviation of each molecule's coordinates, the
+        blow-up statistic; over the real atoms only in a mixed batch,
+        whose far-away padding would dominate it (reference
+        _frame_outputs, base.py:730-750)."""
+        mask = self.initial_system.atom_mask
+        if mask is None:
+            return torch.std(pos.reshape(pos.shape[0], -1), dim=1,
+                             correction=0)
+        w = mask[..., None]
+        n = torch.sum(w, dim=(1, 2)) * pos.shape[-1]
+        mean = torch.sum(pos * w, dim=(1, 2)) / n
+        var = torch.sum(torch.square(pos - mean[:, None, None]) * w,
+                        dim=(1, 2)) / n
+        return torch.sqrt(var)
 
     def _pair_d_min(self, pos) -> Optional[torch.Tensor]:
         """The smallest pair distance in the batch, minimum-imaged under
@@ -698,7 +755,8 @@ class Simulation:
         with torch.set_grad_enabled(self.save_force_components):
             p = pos.detach().requires_grad_(self.save_force_components)
             _, comps = total_energy(ff, p, self.initial_system.atom_types,
-                                    nbr, cell if cheb else None)
+                                    nbr, cell if cheb else None,
+                                    self.initial_system.atom_mask)
             if self.save_energy_components:
                 for key in self.energy_components:
                     out[f"energy_component/{key}"] = comps[key].detach()
@@ -997,6 +1055,11 @@ class Simulation:
         if self.filename is not None and self.log_type == "write":
             self._log_file = os.path.abspath(f"{self.filename}_log.txt")
         setup_logging(log_file=self._log_file)
+        mask = self.initial_system.atom_mask
+        if self.filename is not None and mask is not None:
+            # a mixed batch's frames are padded to its largest molecule:
+            # the [S, A] mask of the real atoms trims them per molecule
+            np.save(f"{self.filename}_atom_mask.npy", mask.cpu().numpy())
         if self.log_interval is not None:
             logger.info(
                 f"Generating {self.n_sims} simulations of n_timesteps "

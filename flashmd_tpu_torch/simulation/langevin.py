@@ -37,15 +37,18 @@ def kinetic_energy(vel, masses):
 
 def attach_velocities(sim: Simulation) -> None:
     """Maxwell-Boltzmann velocities at each molecule's beta from
-    ``random_seed + 1`` where the configurations gave none."""
+    ``random_seed + 1`` where the configurations gave none; a mixed
+    batch's padded atoms start at rest (reference langevin.py:80-87)."""
     system = sim.initial_system
     if system.velocities is None:
         beta_atom = system.beta[:, None].expand_as(system.masses)
         gen = torch.Generator(device=sim.device).manual_seed(
             sim.random_seed + 1
         )
-        system.velocities = sample_maxwell_boltzmann(beta_atom,
-                                                     system.masses, gen)
+        vel = sample_maxwell_boltzmann(beta_atom, system.masses, gen)
+        if system.atom_mask is not None:
+            vel = vel * system.atom_mask[..., None]
+        system.velocities = vel
 
 
 class LangevinSimulation(Simulation):
@@ -75,6 +78,12 @@ class LangevinSimulation(Simulation):
         self.beta_mass_ratio = torch.sqrt(1.0 / beta_atom / system.masses)[
             ..., None
         ]
+        if system.atom_mask is not None:
+            # a zero noise scale, zero force and zero initial velocity make
+            # every BAOAB substep the identity on a mixed batch's padding
+            # (reference langevin.py:71-78); the draw keeps its [S, A, 3]
+            self.beta_mass_ratio = (self.beta_mass_ratio
+                                    * system.atom_mask[..., None])
         attach_velocities(self)
 
     def _timestep(self, carry: Dict, xi: torch.Tensor) -> Dict:
@@ -133,6 +142,10 @@ class OverdampedSimulation(Simulation):
         system = self.initial_system
         beta_atom = system.beta[:, None].expand_as(system.masses)[..., None]
         self.diffusion = 1.0 / beta_atom / self.friction  # [S, A, 1]
+        if system.atom_mask is not None:
+            # zero diffusion freezes a mixed batch's padding: no drift,
+            # no noise (reference langevin.py:179-182)
+            self.diffusion = self.diffusion * system.atom_mask[..., None]
         self._dtau = self.diffusion * self.dt
 
     def _timestep(self, carry: Dict, xi: torch.Tensor) -> Dict:

@@ -2,7 +2,8 @@
 flashmd_tpu/simulation/velocity_verlet.py): symplectic, time-reversible,
 one force evaluation per step, no noise drawn. Initial velocities are
 Maxwell-Boltzmann sampled from ``random_seed + 1`` where the
-configurations give none."""
+configurations give none; a mixed batch's padding starts, and stays, at
+rest (reference velocity_verlet.py:50-54)."""
 
 from __future__ import annotations
 

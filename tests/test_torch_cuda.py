@@ -1248,3 +1248,47 @@ def test_cli_on_the_card_matches_the_engine(dev, tmp_path, monkeypatch):
     direct.simulate()
     assert torch.equal(direct.final_carry["pos"], sim.final_carry["pos"])
     assert np.array_equal(direct.coords, sim.coords)
+
+
+@pytest.mark.parametrize("mp", ["cheb", "pallas", "dense", "xla"])
+def test_mixed_batch_card_matches_cpu(dev, mp):
+    """A mixed batch (2 x 40 + 2 x 70 beads of the zoo, one network, the
+    priors stacked, padded to 70) on the card against the CPU plain path:
+    forces within the bf16 bound, the padded rows' forces exactly 0 on
+    the card, the cheb kernels launched 3/2/1 once."""
+    from flashmd_tpu_torch.data.system import collate_padded
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+    from flashmd_tpu_torch.models.forcefield import (
+        compute_energy_forces,
+        stack_forcefields,
+    )
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        ffs, cfgs = [], []
+        for a in (40, 40, 70, 70):
+            ff, c = cgschnet_1enh_like(
+                n_atoms=a, batch_size=1, message_passing=mp, cheb_order=64,
+                cheb_order_deriv=64, cheb_d_min=2.0, neighbor_capacity=40,
+                device=device)
+            ffs.append(ff)
+            cfgs += c
+        mixed = stack_forcefields(ffs)
+        if mp == "cheb":
+            mixed = mixed.replace(schnet_params=attach_cheb_fit(
+                mixed.schnet_params, mixed.schnet_config))
+        system = collate_padded(cfgs, device=device)
+        ck.reset_launch_counts()
+        _, forces, _ = compute_energy_forces(mixed, system.pos,
+                                             system.atom_types,
+                                             atom_mask=system.atom_mask)
+        results[device.type] = (forces.cpu(), ck.launch_counts())
+    f_k, f_p = results["cuda"][0], results["cpu"][0]
+    assert bool(torch.isfinite(f_k).all())
+    assert torch.all(f_k[:2, 40:] == 0.0)
+    # bf16 model: summation order on the card vs the CPU only
+    assert _rel(f_k, f_p) <= 2e-3
+    cheb = {"cheb_fwd": 3, "cheb_bwd_gx": 2, "cheb_bwd_gd": 1}
+    assert results["cuda"][1] == {**dict.fromkeys(ck.launch_counts(), 0),
+                                  **(cheb if mp == "cheb" else {})}

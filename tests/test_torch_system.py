@@ -123,7 +123,8 @@ def _carry(priors):
                        message_passing="cheb")
     return forcefield_from_numpy(
         jax.tree.map(np.asarray, dict(jff.schnet_params)),
-        {k: jax.tree.map(np.asarray, p) for k, p in priors.items()},
+        {k: p if isinstance(p, dict) else jax.tree.map(np.asarray, p)
+         for k, p in priors.items()},
         {f.name: getattr(jff.schnet_config, f.name)
          for f in dataclasses.fields(jff.schnet_config)},
         device="cpu",
@@ -156,16 +157,47 @@ def test_harmonic_prior_v0_matches_jax():
 
 
 def test_prior_with_term_mask_raises():
-    """A padded prior (term_mask) raises, as an object or a dict, rather
-    than count its padding terms."""
+    """A padded prior (term_mask) carries, as an object or a dict, and
+    counts only its real terms, as in JAX; a stacked (per-molecule)
+    prior carries into a field with ``batched_priors`` and matches JAX's
+    energies per molecule; that field raises on [A] types, as in JAX."""
+    from flashmd_tpu.prior.priors import pad_prior as jpad_prior
+    from flashmd_tpu.prior.priors import stack_priors as jstack_priors
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+
     _, jff = _carry({})
     bonds = jff.priors["bonds"]
+    rng = np.random.default_rng(2)
+    pos = rng.normal(size=(2, A, 3)).astype(np.float32) * 3.0
+    mask = jnp.asarray(rng.integers(0, 2, bonds.n_terms), jnp.float32)
+    masked = bonds.replace(term_mask=mask)
     as_dict = {"index_mapping": bonds.index_mapping, "params": bonds.params,
                "kind": bonds.kind, "name": bonds.name,
-               "feature": bonds.feature}
-    for prior in (bonds.replace(term_mask=jnp.ones(bonds.n_terms)),
-                  {**as_dict, "term_mask": jnp.ones(bonds.n_terms)}):
-        with pytest.raises(NotImplementedError, match="term_mask"):
-            _carry({"bonds": prior})
-    ff, _ = _carry({"bonds": as_dict})
-    assert set(ff.priors) == {"bonds"}
+               "feature": bonds.feature, "term_mask": mask}
+    ref = np.array([float(jprior_energy(masked, jnp.asarray(p)))
+                    for p in pos])
+    for prior in (masked, as_dict):
+        ff, _ = _carry({"bonds": prior})
+        out = prior_energy(ff.priors["bonds"], torch.from_numpy(pos))
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-5)
+    # one molecule's bonds and a shorter copy, stacked (padded, masked)
+    short = bonds.replace(index_mapping=bonds.index_mapping[:, :7],
+                          params={k: v[:7] for k, v in bonds.params.items()})
+    stacked = jstack_priors([bonds, short])
+    np.testing.assert_array_equal(np.asarray(stacked.term_mask[1]),
+                                  np.asarray(jpad_prior(
+                                      short, bonds.n_terms).term_mask))
+    ref = np.asarray(jax.vmap(jprior_energy)(stacked, jnp.asarray(pos)))
+    carried = forcefield_from_numpy(
+        jax.tree.map(np.asarray, dict(jff.schnet_params)),
+        {"bonds": jax.tree.map(np.asarray, stacked)},
+        {f.name: getattr(jff.schnet_config, f.name)
+         for f in dataclasses.fields(jff.schnet_config)},
+        device="cpu",
+    )
+    assert carried.batched_priors
+    out = prior_energy(carried.priors["bonds"], torch.from_numpy(pos))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-5)
+    with pytest.raises(ValueError, match="per-sim"):
+        compute_energy_forces(carried, torch.from_numpy(pos),
+                              torch.zeros(A, dtype=torch.int64))
