@@ -3240,6 +3240,417 @@ def phase_mixed(dev, smi):
           f"comparisons {t_kernels:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Host utilities and replica sharding
+# ---------------------------------------------------------------------------
+
+def host_ms(fn, repeats=5):
+    """Median host milliseconds of ``fn()`` over ``repeats`` calls, and its
+    last result."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def chain_geometry(coords):
+    """Bond lengths, bend angles (rad) and dihedrals (rad) along each
+    chain of ``coords`` [..., A, 3], flattened, in float64."""
+    x = np.asarray(coords, dtype=np.float64)
+    b = x[..., 1:, :] - x[..., :-1, :]
+    bonds = np.linalg.norm(b, axis=-1)
+    u, v = b[..., :-1, :], b[..., 1:, :]
+    cos = np.sum(-u * v, -1) / (np.linalg.norm(u, axis=-1)
+                                * np.linalg.norm(v, axis=-1))
+    angles = np.arccos(np.clip(cos, -1.0, 1.0))
+    b1, b2, b3 = b[..., :-2, :], b[..., 1:-1, :], b[..., 2:, :]
+    n1, n2 = np.cross(b1, b2), np.cross(b2, b3)
+    m1 = np.cross(n1, b2 / np.linalg.norm(b2, axis=-1, keepdims=True))
+    dihedrals = np.arctan2(np.sum(m1 * n2, -1), np.sum(n1 * n2, -1))
+    return bonds.ravel(), angles.ravel(), dihedrals.ravel()
+
+
+def free_energy(values, bins, beta=1.67):
+    """(populated bin centres, -ln p / beta) of a histogram of
+    ``values``."""
+    hist, edges = np.histogram(values, bins=bins, density=True)
+    centres = 0.5 * (edges[1:] + edges[:-1])
+    nz = hist > 0
+    return centres[nz], -np.log(hist[nz]) / beta
+
+
+def phase_host(ff, cfgs, dev, open_tp, smi):
+    """The host utilities (ROADMAP A18) on the main path's field: the
+    radius engine built from radius.cpp and held against its numpy twin on
+    three inputs; the term list of the 266-bead start; the zoo's dense
+    repulsion sparsified and densified back; the field with the term-list
+    repulsion against the dense one; STEPS steps built from the package
+    root's names with files, read back by utils.render.load_coords; the
+    prior fits on the run's own histograms."""
+    import flashmd_tpu_torch as fm
+    from flashmd_tpu_torch import native
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.ops import configuration2term_list
+    from flashmd_tpu_torch.prior import fitting
+    from flashmd_tpu_torch.prior import sparsify_repulsion
+    from flashmd_tpu_torch.prior.priors import densify_repulsion
+    from flashmd_tpu_torch.utils.render import load_coords
+
+    t_phase = time.perf_counter()
+    info = native.build(force=True)
+    print(f"host: radius engine: g++ {' '.join(native._FLAGS)} radius.cpp "
+          f"-> {info['path'].name} in {info['seconds']:.2f} s")
+    rcut = ff.rcut + 1.0  # the capacity rule's search radius
+    start = cfgs[0].pos
+    big = cgschnet_1enh_like(n_atoms=MIXED_SIZES[1], batch_size=1,
+                             device="cpu", **MIXED_ORDERS)[1][0].pos
+    box = BOX * np.eye(3)
+    inputs = [(f"{N_ATOMS}-bead start", start, None),
+              (f"{MIXED_SIZES[1]}-bead start (_cfg_mixed)", big, None),
+              (f"{N_ATOMS}-bead start folded into the cubic {BOX:g} A cell",
+               np.mod(start, BOX), box)]
+    for label, pos, cell in inputs:
+        ms_n, counts = host_ms(lambda: native.neighbor_counts(pos, rcut,
+                                                              cell))
+        ms_p, twin = host_ms(lambda: native.neighbor_counts(
+            pos, rcut, cell, native=False))
+        same = np.array_equal(counts, twin)
+        line = (f"host: neighbor_counts at {rcut:g} A, {label}: equal to "
+                f"the numpy twin: {same} (max {int(counts.max())}); host "
+                f"{ms_n:.3f} ms (engine) vs {ms_p:.3f} ms (numpy)")
+        check(same, f"host: neighbor_counts differ from the twin ({label})")
+        if cell is None:
+            ms_n, pairs = host_ms(lambda: native.radius_pairs(pos, rcut))
+            ms_p, twin = host_ms(lambda: native.radius_pairs(pos, rcut,
+                                                             native=False))
+            same = all(np.array_equal(a, b) for a, b in zip(pairs, twin))
+            line += (f"; radius_pairs {len(pairs[0])} pairs equal: {same}, "
+                     f"{ms_n:.3f} ms vs {ms_p:.3f} ms")
+            check(same, f"host: radius_pairs differ from the twin ({label})")
+        print(f"{line} on {smi} (host CPU)")
+    terms = configuration2term_list(start, rcut)
+    src, dst = native.radius_pairs(start, rcut, native=False)
+    same = np.array_equal(terms.index_mapping, np.stack([src, dst]))
+    print(f"host: configuration2term_list of the {N_ATOMS}-bead start at "
+          f"{rcut:g} A: {terms.n_terms} terms, equal to the numpy pairs: "
+          f"{same}")
+    check(same, "host: the term list differs from the numpy pairs")
+    dense = ff.priors["repulsion"]
+    sparse = sparsify_repulsion(dense)
+    back = densify_repulsion(sparse, N_ATOMS)
+    same = torch.equal(back.params["sigma6"], dense.params["sigma6"])
+    print(f"host: sparsify_repulsion of the zoo's dense repulsion: "
+          f"{sparse.n_terms} terms on {sparse.params['sigma'].device}; "
+          f"densified back bitwise: {same}")
+    check(same, "host: sparsify/densify round trip is not bitwise")
+    ff_sparse = ff.replace(priors={**ff.priors, "repulsion": sparse})
+    sys_ = collate(cfgs, beta=1.67, device=dev)
+    _, f_dense, _ = compute_energy_forces(ff, sys_.pos, sys_.atom_types)
+    _, f_sparse, _ = compute_energy_forces(ff_sparse, sys_.pos,
+                                           sys_.atom_types)
+    rel = float((f_sparse - f_dense).abs().max() / f_dense.abs().max())
+    print(f"host: forces with the term-list repulsion vs the dense one at "
+          f"batch {BATCH} on the card: max|dF|/max|F| = {rel:.3e} (bound "
+          f"{CROSS_BOUND:.0e})")
+    check(rel <= CROSS_BOUND, "host: term-list and dense repulsion disagree")
+    # the run, through the package root's names
+    field = fm.ForceField(schnet_params=ff.schnet_params,
+                          priors=ff_sparse.priors,
+                          schnet_config=ff.schnet_config,
+                          neighbor_capacity=ff.neighbor_capacity)
+    structures = [fm.Configuration(pos=c.pos, atom_types=c.atom_types,
+                                   masses=c.masses) for c in cfgs]
+    with tempfile.TemporaryDirectory() as out, counting_twins() as twins:
+        sim = fm.LangevinSimulation(
+            friction=1.0, dt=0.004, n_timesteps=STEPS,
+            save_interval=SAVE_INTERVAL, export_interval=STEPS // 2,
+            random_seed=103838, device=dev, filename="host",
+            output_dir=out)
+        sim.attach_model_and_configurations(field, structures, 1.67)
+        ck.reset_launch_counts()
+        coords = sim.simulate()
+        counts = ck.launch_counts()
+        read = load_coords(os.path.join(out, "host"))
+        n_files = sum(f.startswith("host_coords_") for f in os.listdir(out))
+    expect = cheb_counts(STEPS + 1)
+    tp = sim.get_throughput_metrics()["throughput"]
+    finite = bool(np.isfinite(coords).all())
+    same = np.array_equal(read, sim.coords)
+    print(f"host: {STEPS} steps batch {sim.n_sims} from the package root's "
+          f"names (fm.LangevinSimulation, fm.ForceField with the term-list "
+          f"repulsion, fm.Configuration): finite={finite} launches={counts} "
+          f"expected={expect}; twin calls {twins}; second-half throughput "
+          f"{tp:.1f} timestep*mol/s beside the open cheb slice's "
+          f"{open_tp:.1f} in this run (ratio {tp / open_tp:.4f}) on {smi}")
+    print(f"host: utils.render.load_coords on the {n_files} coordinate "
+          f"files: {read.shape}, equal to simulated_coords: {same}")
+    check(finite and counts == expect, "host: the run's launches differ")
+    check(not any(twins.values()), f"host: twin calls {twins}")
+    check(same and n_files == 2, "host: load_coords differs from the run")
+    # prior fits on the run's own histograms
+    bonds, angles, dihedrals = chain_geometry(coords)
+    last = np.asarray(coords[:8, -1], dtype=np.float64)
+    far = []
+    for pos in last:
+        i, j = native.radius_pairs(pos, 6.0)
+        keep = np.abs(i - j) > 3
+        far.append(np.linalg.norm(pos[i[keep]] - pos[j[keep]], axis=-1))
+    fits = [
+        ("bonds harmonic", fitting.fit_harmonic_from_potential_estimates,
+         free_energy(bonds, 100)),
+        ("angles harmonic", fitting.fit_harmonic_from_potential_estimates,
+         free_energy(angles, 100)),
+        ("dihedrals fourier", fitting.fit_fourier_from_potential_estimates,
+         free_energy(dihedrals, np.linspace(-np.pi, np.pi, 61))),
+        ("non-bonded repulsion", fitting.fit_repulsion_from_values,
+         (np.concatenate(far),)),
+    ]
+    for label, fn, args in fits:
+        ms, stat = host_ms(lambda: fn(*args), repeats=3)
+        flat = [v for x in stat.values()
+                for v in (x.values() if isinstance(x, dict) else [x])]
+        finite = all(np.isfinite(flat))
+        shown = {k: (round(v, 5) if isinstance(v, float) else
+                     {kk: round(vv, 5) for kk, vv in v.items()})
+                 for k, v in stat.items()}
+        print(f"host: fit {label} on the run's {len(args[0])} "
+              f"{'samples' if len(args) == 1 else 'populated bins'}: "
+              f"{shown}, finite={finite}; host {ms:.2f} ms")
+        check(finite, f"host: the {label} fit is not finite")
+    print(f"host: {time.perf_counter() - t_phase:.1f} s")
+
+
+# The mesh phase's workers: torch.distributed.run with one rank per process
+# (an NCCL group of one on this card; two gloo ranks sharing it), each
+# running this file with --mesh-worker. The repeats of the timed calls.
+MESH_TIMED = 20
+# Two ranks on one card over gloo with CUDA tensors, held to the JAX
+# suite's PT bounds (tests/simulation/test_parallel.py:111).
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
+
+
+def mesh_worker(args):
+    """One rank of the mesh phase. ``args``: the mode and the output
+    directory. "nccl": one rank joins through mesh="auto" (NCCL); the
+    batch-128 cheb Langevin slice and PT at _cfg_pt, each without a mesh
+    and with mesh="auto" in this process, in turns. "gloo": the ranks
+    join over gloo with CUDA tensors; PT sharded. "cards": NCCL over every
+    card; the Langevin slice without a mesh (each rank on its card) and
+    sharded, in turns. Rank 0 prints the lines and writes the results."""
+    mode, out = args
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.parallel import mesh as mesh_mod
+    from flashmd_tpu_torch.simulation import LangevinSimulation, PTSimulation
+
+    sys.stdout.reconfigure(line_buffering=True)
+    logging.getLogger("flashmd_tpu_torch").setLevel(logging.WARNING)
+    if mode == "gloo":
+        mesh_mod.initialize_distributed(backend="gloo")
+    mesh = mesh_mod.as_mesh("auto")
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    rank, size = mesh.rank, mesh.size
+    tag = f"mesh: {mode} {size} rank{'s' if size > 1 else ''}"
+
+    def say(msg):
+        if rank == 0:
+            print(f"{tag}: {msg}")
+
+    def run(cls, ff, cfgs, beta, mesh_opt, **kw):
+        kw = {"n_timesteps": STEPS, "save_interval": SAVE_INTERVAL,
+              "random_seed": 103838, **kw}
+        sim = cls(dt=0.004, device=dev, friction=1.0, mesh=mesh_opt, **kw)
+        sim.attach_model_and_configurations(ff, cfgs, beta)
+        ck.reset_launch_counts()
+        sim.simulate()
+        return sim, ck.launch_counts()
+
+    def timed(fn, n=MESH_TIMED):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    results = {"size": size}
+    workloads = {"nccl": ["langevin", "pt", "small"], "gloo": ["pt", "small"],
+                 "cards": ["langevin"]}[mode]
+    for name in workloads:
+        if name == "langevin":
+            ff, cfgs = _force_fields(dev, BATCH)
+            cls, beta, kw = LangevinSimulation, 1.67, {}
+        elif name == "pt":
+            ff, cfgs = _force_fields(dev, PT_INDEP)
+            cls, beta = PTSimulation, PT_BETAS
+            kw = dict(exchange_interval=PT_EXCHANGE_INTERVAL)
+        else:  # tests/test_torch_cuda.py's mesh case, at bf16
+            from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+            ff, cfgs = cgschnet_1enh_like(n_atoms=64, batch_size=2,
+                                          device=dev)
+            cls, beta = PTSimulation, [1.67, 1.5]
+            kw = dict(exchange_interval=5, n_timesteps=40, save_interval=10,
+                      random_seed=9)
+        if mode != "gloo":
+            # in turns: without, with, with, without
+            runs = [run(cls, ff, cfgs, beta, m, **kw)
+                    for m in (None, mesh, mesh, None)]
+            ref = runs[0][0]
+            sim, counts = runs[1]
+            tps = [r[0].get_throughput_metrics()["throughput"]
+                   for r in runs]
+        else:
+            ref = None
+            sim, counts = run(cls, ff, cfgs, beta, mesh, **kw)
+            tps = [sim.get_throughput_metrics()["throughput"]]
+        expect = cheb_counts(sim.n_timesteps + 1)
+        shown = {k: v for k, v in counts.items() if v}
+        finite = bool(np.isfinite(sim.coords).all())
+        say(f"{name}: {sim.n_timesteps} steps, {sim.n_sims} molecules, "
+            f"{sim.initial_system.n_sims} on rank 0; launches {shown} "
+            f"(expected {({k: v for k, v in expect.items() if v})}); finite "
+            f"{finite}; second-half throughput "
+            + (f"without / with / with / without a mesh, in turns: "
+               + " / ".join(f"{t:.1f}" for t in tps)
+               if ref is not None else f"{tps[0]:.1f}")
+            + " timestep*mol/s")
+        res = {"launches_ok": counts == expect, "finite": finite,
+               "throughput": tps}
+        if ref is not None and name != "small":
+            same = all(
+                np.array_equal(s.coords, ref.coords)
+                and torch.equal(s.final_carry["pos"], ref.final_carry["pos"])
+                and (name != "pt" or np.array_equal(
+                    s.simulated_acceptance, ref.simulated_acceptance))
+                for s, _ in runs[1:])
+            dx = max(float(np.abs(s.coords - ref.coords).max())
+                     for s, _ in runs[1:])
+            res.update(bitwise=same, max_dx=dx)
+            say(f"{name}: frames, final positions"
+                + (" and acceptance" if name == "pt" else "")
+                + f" of the three runs bitwise equal to the first run "
+                  f"without a mesh: {same} (max|dx| {dx:.3e})")
+        if name in ("pt", "small") and rank == 0:
+            keep = ("acceptance_matrix", "n_exchange_approved",
+                    "n_exchange_attempted")
+            for label, r in (((mode, sim), ("ref", ref)) if ref is not None
+                             else ((mode, sim),)):
+                np.savez(os.path.join(out, f"{name}_{label}.npz"),
+                         coords=r.coords, acceptance=r.simulated_acceptance,
+                         **{k: r.final_carry[k].cpu().numpy() for k in keep})
+        if name == "small":
+            continue
+        # the costs the mesh adds, per call, on this run's state
+        gen = torch.Generator(device=dev).manual_seed(1)
+        draw_ms = timed(lambda: sim._step_draws(gen, 0))
+        carry = mesh_mod.shard_carry(sim.final_carry, mesh)
+        frame = {k: v[None] for k, v in sim._frame_outputs(carry).items()}
+        gather_ms = timed(lambda: sim._gather_frames(frame))
+        res.update(draw_ms=draw_ms, gather_ms=gather_ms)
+        say(f"{name}: the whole batch's normal draw "
+            f"({sim.n_sims} x {sim.n_atoms} x 3 floats, of which this rank "
+            f"keeps {sim.initial_system.n_sims} rows) {draw_ms:.4f} ms per "
+            f"step; all-gather of one save point's frames "
+            f"({', '.join(frame)}) {gather_ms:.4f} ms")
+        if name == "pt":
+            u = torch.rand(sim._subroutine_draw_shape(), generator=gen,
+                           device=dev)
+            ex_ms = timed(lambda: sim._device_subroutine(carry, u))
+            res["exchange_ms"] = ex_ms
+            say(f"pt: one exchange ({sim.n_sims} slots over {size} "
+                f"rank{'s' if size > 1 else ''}, potentials all-gathered, "
+                f"every per-slot entry moved) {ex_ms:.4f} ms")
+        results[name] = res
+    if rank == 0:
+        with open(os.path.join(out, f"{mode}.json"), "w") as f:
+            json.dump(results, f)
+    torch.distributed.destroy_process_group()
+
+
+def launch_mesh_workers(mode, nproc, out, timeout):
+    """This file under torch.distributed.run with ``nproc`` ranks in mesh
+    worker mode; returns the exit code, with the ranks' output printed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__),
+           "--mesh-worker", mode, out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    for line in proc.stdout.splitlines():
+        if line.startswith("mesh:"):
+            print(line)
+    print(f"mesh: {mode} x{nproc}: exit {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s (process start included)")
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], sep="\n",
+              file=sys.stderr)
+    return proc.returncode
+
+
+def phase_mesh(smi):
+    """Replica sharding (ROADMAP A17) under torch.distributed.run: one NCCL
+    rank, each workload bitwise equal to the run without a mesh; two gloo
+    ranks sharing this card, PT held to the JAX suite's bounds against the
+    one-rank run's; NCCL over every card where there are several."""
+    torch.cuda.empty_cache()  # the workers share this card
+    with tempfile.TemporaryDirectory() as out:
+        rc = launch_mesh_workers("nccl", 1, out, 600)
+        check(rc == 0, "mesh: the NCCL rank failed")
+        res = json.load(open(os.path.join(out, "nccl.json")))
+        for name in ("langevin", "pt"):
+            r = res[name]
+            check(r["launches_ok"] and r["finite"],
+                  f"mesh: nccl {name}: launches or positions")
+            check(r["bitwise"], f"mesh: nccl {name} differs from the run "
+                                "without a mesh")
+        rc = launch_mesh_workers("gloo", 2, out, 600)
+        check(rc == 0, "mesh: a gloo rank failed")
+        for name, label in (("pt", f"PT at {3 * PT_INDEP} slots"),
+                            ("small", "PT at 4 slots of 64 beads, 40 steps "
+                                      "(not gated)")):
+            got = dict(np.load(os.path.join(out, f"{name}_gloo.npz")))
+            want = dict(np.load(os.path.join(out, f"{name}_ref.npz")))
+            err = np.abs(got["coords"] - want["coords"])
+            beyond = int(np.sum(err > MESH_ATOL + MESH_RTOL
+                                * np.abs(want["coords"])))
+            exact = all(np.array_equal(got[k], want[k]) for k in (
+                "acceptance", "acceptance_matrix", "n_exchange_approved",
+                "n_exchange_attempted"))
+            print(f"mesh: gloo 2 ranks on one card: {label} vs the "
+                  f"one-process run: max|dx| {float(err.max()):.3e}, "
+                  f"{beyond} of {err.size} coordinates beyond rtol "
+                  f"{MESH_RTOL:.0e} + atol {MESH_ATOL:.0e}; acceptance "
+                  f"counts and matrix exactly equal: {exact} "
+                  f"({int(want['n_exchange_approved'])} of "
+                  f"{int(want['n_exchange_attempted'])} approved)")
+            if name == "pt":
+                check(beyond == 0 and exact,
+                      "mesh: two gloo ranks differ from one process")
+        n = torch.cuda.device_count()
+        if n > 1:
+            rc = launch_mesh_workers("cards", n, out, 600)
+            check(rc == 0, f"mesh: NCCL over {n} cards failed")
+            r = json.load(open(os.path.join(out, "cards.json")))["langevin"]
+            check(r["launches_ok"] and r["finite"],
+                  f"mesh: NCCL over {n} cards: launches or positions")
+            print(f"mesh: NCCL over {n} cards: the sharded Langevin slice "
+                  f"against one card's run: max|dx| {r['max_dx']:.3e} "
+                  f"(not gated: each rank's fewer rows may take other "
+                  f"cuBLAS kernels); throughput "
+                  + " / ".join(f"{t:.1f}" for t in r["throughput"])
+                  + " (without / with / with / without)")
+        else:
+            print("mesh: NCCL across several cards: this machine has one "
+                  "card; the check waits for a machine with more")
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)  # in order with warnings
     if not torch.cuda.is_available():
@@ -3443,6 +3854,8 @@ def main():
     with cheb_schedule("1"):
         phase_mixed_forces(dev)
         phase_mixed(dev, smi)
+        phase_host(ff, cfgs, dev, open_tp, smi)
+        phase_mesh(smi)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -3457,4 +3870,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
+    else:
+        main()

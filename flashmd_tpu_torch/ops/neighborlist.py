@@ -34,10 +34,12 @@ truncated operand rounds a fraction near +-0.5 to the wrong image.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..native import max_neighbor_count  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -438,19 +440,43 @@ def suggest_capacity(n_true_max: int, slack: float = 1.25, align: int = 8):
     return ((cap + align - 1) // align) * align
 
 
-def max_neighbor_count(pos, rcut: float, cell=None) -> int:
-    """Max per-atom neighbour count at ``rcut`` on the host, in float64,
-    minimum-imaged under a [3, 3] ``cell`` (the numpy branch of the
-    reference's native ``max_neighbor_count``,
-    flashmd_tpu/native/__init__.py:90-130; the port does not load its C++
-    cell list, whose counts are the same integers)."""
-    pos = np.ascontiguousarray(pos, dtype=np.float64)
-    dr = pos[None, :, :] - pos[:, None, :]
-    if cell is not None:
-        cell = np.asarray(cell, dtype=np.float64)
-        frac = dr @ np.linalg.inv(cell)
-        frac -= np.round(frac)
-        dr = frac @ cell
-    d2 = np.einsum("ijk,ijk->ij", dr, dr)
-    np.fill_diagonal(d2, np.inf)
-    return int((d2 < rcut * rcut).sum(axis=1).max(initial=0))
+class EdgeList(NamedTuple):
+    """Flat padded edge list + mask, the reference's ``index_mapping
+    [2, E]`` view of one molecule's list (reference EdgeList,
+    neighborlist.py:429-441); the neighbour matrix is the layout the
+    force field runs on."""
+
+    senders: torch.Tensor  # [E] source atom j (edge_index[0])
+    receivers: torch.Tensor  # [E] destination atom i
+    mask: torch.Tensor  # [E] bool
+
+
+def neighbor_matrix_to_edges(nm: NeighborMatrix) -> EdgeList:
+    """Flatten one molecule's [A, K] neighbour matrix into E = A K edges,
+    on its device (reference neighborlist.py:444-453)."""
+    n_atoms, capacity = nm.idx.shape
+    receivers = torch.arange(n_atoms, dtype=torch.int32,
+                             device=nm.idx.device).repeat_interleave(capacity)
+    return EdgeList(senders=nm.idx.reshape(-1), receivers=receivers,
+                    mask=nm.mask.reshape(-1))
+
+
+def configuration2term_list(pos, rcut: float, tag: str = "fully connected",
+                            self_interaction: bool = False):
+    """Every directed pair within ``rcut`` of one configuration as an
+    order-2 :class:`~flashmd_tpu_torch.data.system.TermList`, from the host
+    radius engine (reference configuration2term_list,
+    neighborlist.py:456-485), e.g. to attach a pair prior. ``pos`` [A, 3]
+    may be numpy or a tensor on any device."""
+    from ..data.system import make_term_list
+    from ..native import radius_pairs
+
+    if isinstance(pos, torch.Tensor):
+        pos = pos.detach().cpu().numpy()
+    pos = np.asarray(pos, dtype=np.float64)
+    src, dst = radius_pairs(pos, rcut)
+    if self_interaction:
+        eye = np.arange(pos.shape[0], dtype=np.int64)
+        src, dst = np.concatenate([src, eye]), np.concatenate([dst, eye])
+    return make_term_list(np.stack([src, dst]), tag=tag, rcut=rcut,
+                          self_interaction=self_interaction)

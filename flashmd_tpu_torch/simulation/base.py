@@ -46,7 +46,21 @@ along [S]), the configurations padded to the largest (``collate_padded``),
 the atom mask reaches the force field, the blow-up statistic counts real
 atoms only, and ``<filename>_atom_mask.npy`` is written once.
 
-Not ported: multi-GPU meshes, CUDA graphs.
+A ``mesh`` (:mod:`flashmd_tpu_torch.parallel.mesh`; one process per GPU)
+shards the batch (reference base.py:119, 924-927): every rank attaches the
+whole batch, then keeps its rows of the system, of the stacked priors of a
+mixed batch and of the integrator's per-molecule tensors, so that
+``initial_system`` holds this rank's rows. Each step draws the whole
+batch's noise and keeps its rows, so a sharded run draws what the
+unsharded one draws. Each launch all-gathers its frames and reduces the
+guards' scalars (list capacity, Verlet displacement, pair floor) over the
+ranks, so every rank guards the whole batch and raises what the others
+raise; checkpoints and the final carry are gathered the same way. Files,
+the dump, the log file, the shape log and the profiler trace are written
+by rank 0 alone (:func:`~flashmd_tpu_torch.parallel.mesh.is_io_process`).
+The throughput fence waits for every rank.
+
+Not ported: CUDA graphs.
 """
 
 from __future__ import annotations
@@ -70,6 +84,15 @@ from ..models.forcefield import (
     stack_forcefields,
     total_energy,
     uses_neighbor_list,
+)
+from ..ops.neighborlist import NeighborMatrix
+from ..parallel.mesh import (
+    all_gather,
+    all_reduce,
+    as_mesh,
+    barrier,
+    gather_neighbor_matrix,
+    is_io_process,
 )
 from ..utils.io import close_log_file, logger, setup_logging, tqdm
 
@@ -145,6 +168,13 @@ class Simulation:
 
     #: whether a step takes a standard-normal draw of the positions' shape
     uses_noise = True
+    #: the integrator's per-molecule [S, ...] tensors, sharded with the batch
+    _batch_attrs: Tuple[str, ...] = ()
+    #: carry entries that are the same on every rank, whatever their shape
+    _replicated_carry = frozenset()
+    #: the save-point scalars of the guards, and their reduction over ranks
+    _frame_reductions = {"nbr_n_max": "max", "nbr_disp_max": "max",
+                         "pair_d_min": "min"}
 
     def __init__(
         self,
@@ -184,6 +214,7 @@ class Simulation:
         neighbor_skin: float = 1.0,
         neighbor_rebuild_interval: int = 1,
         max_steps_per_launch: Optional[int] = 1000,
+        mesh=None,
     ):
         self.model: Optional[ForceField] = None
         self.gptq = gptq
@@ -211,6 +242,17 @@ class Simulation:
         )
         self.random_seed = 233 if random_seed is None else random_seed
         self.device = torch.device(device)
+        # A ReplicaMesh, "auto" (every rank of the process group) or N (the
+        # first N ranks): this rank then runs on the mesh's device.
+        self.mesh = as_mesh(mesh)
+        if self.mesh is not None:
+            if self.mesh.device.type != self.device.type:
+                raise ValueError(
+                    f"device {device!r} differs from the mesh's device "
+                    f"{self.mesh.device}"
+                )
+            self.device = self.mesh.device
+        self._rows = slice(None)  # this rank's rows of the batch
         if dtype == "single":
             self.dtype = torch.float32
         elif dtype == "double":
@@ -423,6 +465,39 @@ class Simulation:
         self._attach_configurations(configurations, beta)
         self._check_min_image_soundness()
         self._dump_specialized_model(configurations)
+        if self.mesh is not None:
+            self._shard_batch()
+
+    def _shard_batch(self):
+        """Keep this rank's rows of the attached batch: the system, the
+        stacked priors of a mixed batch and ``_batch_attrs``. Raises when
+        the batch does not divide over the mesh (reference shard_carry,
+        mesh.py:120-125)."""
+        rows = self.mesh.rows(self.n_sims)
+        self._rows = rows
+        system = self.initial_system
+
+        def cut(x):
+            return None if x is None else x[rows]
+
+        self.initial_system = dataclasses.replace(
+            system, pos=system.pos[rows],
+            atom_types=(system.atom_types[rows]
+                        if system.atom_types.ndim == 2
+                        else system.atom_types),
+            masses=system.masses[rows], beta=system.beta[rows],
+            velocities=cut(system.velocities), cell=cut(system.cell),
+            cell_host=cut(system.cell_host), atom_mask=cut(system.atom_mask),
+        )
+        if self.model.batched_priors:
+            self.model = self.model.replace(priors={
+                name: p.replace(
+                    index_mapping=p.index_mapping[rows],
+                    params={k: v[rows] for k, v in p.params.items()},
+                    term_mask=cut(p.term_mask))
+                for name, p in self.model.priors.items()})
+        for name in self._batch_attrs:
+            setattr(self, name, getattr(self, name)[rows])
 
     @staticmethod
     def _check_exclusion_binding(model, configurations):
@@ -488,7 +563,7 @@ class Simulation:
         Chebyshev fits included) and the configurations next to the
         outputs, readable by the checkpoint_io loaders (reference
         base.py:461-477)."""
-        if self.filename is None:
+        if self.filename is None or not is_io_process():
             return
         from ..models.checkpoint_io import save_specialized_dump
 
@@ -646,8 +721,10 @@ class Simulation:
         it, the subroutine's uniforms (else None), drawn in that order."""
         xi = u = None
         if self.uses_noise:
-            xi = torch.randn(self.initial_system.pos.shape, generator=gen,
-                             device=self.device, dtype=self.dtype)
+            # the whole batch's draw, of which this rank keeps its rows
+            shape = (self.n_sims, *self.initial_system.pos.shape[1:])
+            xi = torch.randn(shape, generator=gen, device=self.device,
+                             dtype=self.dtype)[self._rows]
         if self._subroutine_due(t):
             u = torch.rand(self._subroutine_draw_shape(), generator=gen,
                            device=self.device, dtype=self.dtype)
@@ -886,6 +963,7 @@ class Simulation:
         for _ in range(n_frames):
             if self._warmup_end_time is None and step >= halfway_step:
                 _synchronize(self.device)
+                barrier(self.mesh)
                 self._warmup_end_time = time.perf_counter()
                 self._steps_at_warmup_end = step
             for _ in range(self.save_interval):
@@ -893,15 +971,50 @@ class Simulation:
                 carry = self._step_with_hooks(carry, xi, step, u)
                 step += 1
             frames.append(self._frame_outputs(carry))
-        return carry, {k: torch.stack([f[k] for f in frames])
-                       for k in frames[0]}
+        return carry, self._gather_frames(
+            {k: torch.stack([f[k] for f in frames]) for k in frames[0]})
+
+    def _gather_frames(self, frames: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """A launch's frames for the whole batch on every rank: the
+        per-molecule ones ([n_frames, S, ...]) all-gathered along S, the
+        guards' scalars reduced (``_frame_reductions``). Without a mesh,
+        the frames as they are."""
+        if self.mesh is None:
+            return frames
+        return {k: (all_reduce(v, self.mesh, self._frame_reductions[k])
+                    if v.ndim == 1 else all_gather(v, self.mesh, dim=1))
+                for k, v in frames.items()}
+
+    def _is_batch_leaf(self, name: str, x) -> bool:
+        """Whether carry entry ``name`` is a per-molecule tensor (leading
+        axis this rank's batch)."""
+        return (name not in self._replicated_carry
+                and isinstance(x, torch.Tensor) and x.ndim >= 1
+                and x.shape[0] == self.initial_system.n_sims)
+
+    def _gather_carry(self, carry: Dict) -> Dict:
+        """The carry of the whole batch on every rank (reference
+        base.py:1124): per-molecule entries all-gathered, the neighbour
+        list with a source CSR for the whole batch."""
+        if self.mesh is None:
+            return carry
+        out = {}
+        for k, v in carry.items():
+            if isinstance(v, NeighborMatrix):
+                v = gather_neighbor_matrix(v, self.mesh)
+            elif self._is_batch_leaf(k, v):
+                v = all_gather(v, self.mesh)
+            out[k] = v
+        return out
 
     def _segment_end_state(self, carry: Dict) -> Dict[str, torch.Tensor]:
         """Carry entries fetched with a segment's last launch: those its
         checkpoint writes, under their checkpoint keys."""
         if not (self.create_checkpoints and self.filename is not None):
             return {}
-        out = {POSITIONS_KEY: carry["pos"], VELOCITY_KEY: carry["vel"]}
+        out = {POSITIONS_KEY: all_gather(carry["pos"], self.mesh),
+               VELOCITY_KEY: all_gather(carry["vel"], self.mesh)}
         for name, val in self._checkpoint_extra_state(carry).items():
             out[f"carry__{name}"] = val
         return out
@@ -985,14 +1098,16 @@ class Simulation:
                 for i, (n_f, seg_end) in enumerate(self._launch_sizes()):
                     if (profiler is None and self.filename is not None
                             and self.profile_start_step is not None
-                            and step >= self.profile_start_step):
+                            and step >= self.profile_start_step
+                            and is_io_process()):
                         profiler = self._start_profiler()
                     carry, frames = self._launch(carry, gen, step, n_f,
                                                  halfway_step)
                     step += n_f * self.save_interval
                     # the state of the generator after this launch's draws
                     rng_state = gen.get_state().numpy()
-                    if i == 0 and self.print_shape and self.filename:
+                    if (i == 0 and self.print_shape and self.filename
+                            and is_io_process()):
                         self._write_shape_log(carry, frames)
                     if (profiler is not None
                             and self.profile_end_step is not None
@@ -1018,6 +1133,7 @@ class Simulation:
                 if pending is not None:
                     process(pending)
                 _synchronize(self.device)
+                barrier(self.mesh)
                 if profiler is not None:
                     self._stop_profiler(profiler)
                     profiler = None
@@ -1026,7 +1142,7 @@ class Simulation:
                 self._warmup_end_time = self._simulation_end_time
                 self._steps_at_warmup_end = step
             self._post_warmup_steps = step - self._steps_at_warmup_end
-            self.final_carry = carry
+            self.final_carry = self._gather_carry(carry)
             self.simulated_frames = {  # [frames, S, ...] on the host
                 k: np.concatenate([s[k] for s in segments])
                 for k in segments[0]
@@ -1052,14 +1168,17 @@ class Simulation:
 
     def _set_up_simulation(self):
         self._log_file = None
-        if self.filename is not None and self.log_type == "write":
+        io = is_io_process()
+        if self.filename is not None and self.log_type == "write" and io:
             self._log_file = os.path.abspath(f"{self.filename}_log.txt")
         setup_logging(log_file=self._log_file)
         mask = self.initial_system.atom_mask
         if self.filename is not None and mask is not None:
             # a mixed batch's frames are padded to its largest molecule:
             # the [S, A] mask of the real atoms trims them per molecule
-            np.save(f"{self.filename}_atom_mask.npy", mask.cpu().numpy())
+            mask = all_gather(mask, self.mesh)
+            if io:
+                np.save(f"{self.filename}_atom_mask.npy", mask.cpu().numpy())
         if self.log_interval is not None:
             logger.info(
                 f"Generating {self.n_sims} simulations of n_timesteps "
@@ -1086,6 +1205,15 @@ class Simulation:
         it accumulates across exports on the host."""
         if self.filename is None:
             return
+        if is_io_process():
+            self._write_segment_files(state, frames_np)
+        if self.save_subroutine is not None:
+            self.save_subroutine(carry, step_end // self.save_interval)
+        self._npy_file_index += 1
+
+    def _write_segment_files(self, state: Dict[str, np.ndarray],
+                             frames_np: Dict[str, np.ndarray]):
+        """The files of one export segment, on the IO rank."""
         key = self._get_numpy_count()
 
         def save(name, arr):
@@ -1116,9 +1244,6 @@ class Simulation:
         self._write_extra_frames(frames_np, key)
         if self.create_checkpoints:
             self._write_checkpoint(state, key, index=self._npy_file_index + 1)
-        if self.save_subroutine is not None:
-            self.save_subroutine(carry, step_end // self.save_interval)
-        self._npy_file_index += 1
 
     def _write_extra_frames(self, frames_np: Dict[str, np.ndarray], key: str):
         """Files of the integrators' own frames: the kinetic energy, which
@@ -1164,8 +1289,8 @@ class Simulation:
     def _write_checkpoint(self, state: Dict[str, np.ndarray], key: str,
                           index: int = 0):
         """The checkpoint of the reference's layout (:1333-1351), with the
-        generator's state under ``rng_state``."""
-        if self.filename is None:
+        generator's state under ``rng_state``; on the IO rank."""
+        if self.filename is None or not is_io_process():
             return
         out = {
             POSITIONS_KEY: state[POSITIONS_KEY],

@@ -16,10 +16,12 @@ The same surface as the reference's CLI:
 
 What differs: ``simulation.device`` is an option of the port's
 ``Simulation`` (default ``"cuda"``), and the model is loaded onto that
-device. The JAX package's compile options (``compile``, ``compile_mode``,
-``force_compile``, ``compile_model``) and ``mesh`` are not options of the
-port: a YAML that sets them is run with a warning, as any unknown
-simulation option is. Model files: a reference ``model_and_prior.pt`` or a
+device, or onto the mesh's under ``simulation.mesh`` (``auto`` or ``N``;
+one process per GPU, launched with ``torchrun --nproc_per_node=N``). The
+JAX package's compile options (``compile``, ``compile_mode``,
+``force_compile``, ``compile_model``) are not options of the port: a YAML
+that sets them is run with a warning, as any unknown simulation option
+is. Model files: a reference ``model_and_prior.pt`` or a
 native ``.pkl`` of either package; structure files likewise.
 """
 
@@ -44,6 +46,7 @@ from ..models.checkpoint_io import (
     load_reference_configurations,
 )
 from ..models.forcefield import ForceField
+from ..parallel.mesh import as_mesh, is_io_process
 from ..utils.io import dump_yaml, load_yaml, logger
 from .base import Simulation
 
@@ -224,11 +227,6 @@ def _warn_unknown(options: Dict[str, Any], known) -> None:
     if not unknown:
         return
     logger.warning(f"Ignoring unknown simulation options: {unknown}")
-    mesh = options.get("mesh")
-    if "mesh" in unknown and mesh is not None and str(mesh) != "1":
-        logger.warning(
-            f"simulation.mesh={mesh!r}: multi-GPU replica sharding is not "
-            "ported to flashmd_tpu_torch; the run uses one device")
 
 
 def parse_simulation_config(
@@ -268,10 +266,16 @@ def parse_simulation_config(
         # a keyword, not os.environ: the opt-out must not leak into a later
         # parse in the same process
         sim_kwargs["gptq"] = None
+    # `mesh: auto` shards the batch over every rank of the process group
+    # (joined here from torchrun's environment), `mesh: N` over the first N
+    # ranks; a ReplicaMesh passes through (reference cli.py:415-427)
+    sim_kwargs["mesh"] = as_mesh(sim_kwargs.get("mesh"))
     device = sim_kwargs.get("device", sim_params["device"].default)
+    if sim_kwargs["mesh"] is not None:
+        device = sim_kwargs["mesh"].device
 
     out_name = sim_kwargs.get("filename")
-    if out_name is not None:
+    if out_name is not None and is_io_process():
         output_dir = sim_kwargs.get("output_dir", "./outputs")
         os.makedirs(output_dir, exist_ok=True)
         dump_yaml(os.path.join(output_dir, f"{out_name}_config.yaml"),

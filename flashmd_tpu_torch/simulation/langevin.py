@@ -63,6 +63,8 @@ class LangevinSimulation(Simulation):
         [B]\; V_{t+1} = V'_{t+1/2} + (dt / 2m) F(X_{t+1})
     """
 
+    _batch_attrs = ("beta_mass_ratio",)
+
     def __init__(self, friction: float = 1e-3, **kwargs: Any):
         super().__init__(**kwargs)
         if friction <= 0:
@@ -125,6 +127,8 @@ class OverdampedSimulation(Simulation):
 
     Masses and velocities are unused.
     """
+
+    _batch_attrs = ("diffusion", "_dtau")
 
     def __init__(self, friction: float = 1.0, **kwargs: Any):
         super().__init__(**kwargs)

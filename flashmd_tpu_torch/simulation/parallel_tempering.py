@@ -20,6 +20,14 @@ with each export segment's last launch; each export writes the counts of
 its own segment as float32 (``<filename>_acceptance_NNNN.npy``), the
 difference of the cumulative matrix on the host, so the carry is never
 changed at export.
+
+Under a mesh (parallel.mesh) each rank holds the rows of its slots. The
+exchange all-gathers the potentials, so that every rank draws the same
+permutation from the shared uniforms, and every per-slot carry entry moves
+to the rank that owns its new slot (gathered, then this rank's rows taken;
+reference parallel_tempering.py:225-240). The acceptance matrix and the
+counters are the same on every rank, and rank 0 writes the acceptance
+files.
 """
 
 from __future__ import annotations
@@ -33,20 +41,21 @@ import torch
 
 from ..data.system import Configuration
 from ..ops.neighborlist import NeighborMatrix, permute_neighbor_matrix
+from ..parallel.mesh import all_gather, gather_neighbor_matrix, is_io_process
 from ..utils.io import logger
 from .langevin import LangevinSimulation
-
-# Carry entries that are not per slot, even where their first dimension
-# happens to equal the batch size (an [R, R] matrix with R == S).
-_NOT_PERMUTED = frozenset({
-    "vel", "exchange_parity", "acceptance_matrix", "n_exchange_approved",
-    "n_exchange_attempted",
-})
 
 
 class PTSimulation(LangevinSimulation):
     """Parallel-tempering Langevin simulation (reference
     parallel_tempering.py:44-335)."""
+
+    # Carry entries that are not per slot, even where their first dimension
+    # happens to equal the batch size (an [R, R] matrix with R == S).
+    _replicated_carry = frozenset({
+        "exchange_parity", "acceptance_matrix", "n_exchange_approved",
+        "n_exchange_attempted",
+    })
 
     def __init__(self, friction: float = 1e-3, exchange_interval: int = 100,
                  **kwargs: Any):
@@ -100,6 +109,7 @@ class PTSimulation(LangevinSimulation):
         replicated = [deepcopy(c) for _ in betas for c in configurations]
         extended_betas = [b for b in betas for _ in configurations]
         super()._attach_configurations(replicated, extended_betas)
+        self._beta_all = self.initial_system.beta  # every slot's, unsharded
         self._build_exchange_pairs()
 
     def _build_exchange_pairs(self):
@@ -167,8 +177,8 @@ class PTSimulation(LangevinSimulation):
         pair_b = torch.where(even, self._pairs_b[0], self._pairs_b[1])
         valid = torch.where(even, self._pairs_valid[0], self._pairs_valid[1])
 
-        beta = self.initial_system.beta
-        pot = carry["potential"]
+        beta = self._beta_all
+        pot = all_gather(carry["potential"], self.mesh)
         # Metropolis acceptance against the step's uniforms
         p_pair = torch.exp((pot[pair_a] - pot[pair_b])
                            * (beta[pair_a] - beta[pair_b]))
@@ -179,20 +189,22 @@ class PTSimulation(LangevinSimulation):
         perm.index_put_((pair_a,), torch.where(approved, pair_b, pair_a))
         perm.index_put_((pair_b,), torch.where(approved, pair_a, pair_b))
 
+        # the slots that this rank's rows take their replicas from; the
         # velocities rescaled by sqrt(beta_old / beta_new) (reference
         # parallel_tempering.py:465-477)
-        vscale = torch.sqrt(beta[perm] / beta)[:, None, None]
+        src = perm[self._rows]
+        vscale = torch.sqrt(beta[src] / beta[self._rows])[:, None, None]
 
         def permute(name, x):
             if isinstance(x, NeighborMatrix):
-                return permute_neighbor_matrix(x, perm)
-            if (name not in _NOT_PERMUTED and isinstance(x, torch.Tensor)
-                    and x.ndim >= 1 and x.shape[0] == self.n_sims):
-                return x[perm]
+                return permute_neighbor_matrix(
+                    gather_neighbor_matrix(x, self.mesh), src)
+            if name != "vel" and self._is_batch_leaf(name, x):
+                return all_gather(x, self.mesh)[src]
             return x
 
         new = {k: permute(k, v) for k, v in carry.items()}
-        new["vel"] = carry["vel"][perm] * vscale
+        new["vel"] = all_gather(carry["vel"], self.mesh)[src] * vscale
         new["exchange_parity"] = 1 - parity
         new["n_exchange_approved"] = (carry["n_exchange_approved"]
                                       + approved.sum(dtype=torch.int32))
@@ -236,7 +248,7 @@ class PTSimulation(LangevinSimulation):
         delta = acc - self._acc_exported
         self._acc_exported = acc
         self._acceptance.append(delta)
-        if self.filename is not None:
+        if self.filename is not None and is_io_process():
             np.save(f"{self.filename}_acceptance_{key}.npy", delta)
 
     @property

@@ -196,26 +196,35 @@ def test_first_force_evaluation_matches_jax(files):
 
 @pytest.mark.parametrize("mesh", [None, 1, 2, "auto"])
 def test_jax_only_options_warn(files, tmp_path, mesh, caplog):
-    """The compile options and ``mesh`` are not the port's: a YAML that
-    sets them runs with the unknown-option warning, and a ``mesh`` beyond
-    one device says that the run uses one; on the command line they are
-    argparse errors."""
+    """The compile options are not the port's: a YAML that sets them runs
+    with the unknown-option warning, and on the command line they are
+    argparse errors. ``mesh`` is an option of the port (replica sharding
+    over the ranks of the process group): in one process without a group,
+    ``1`` and ``auto`` give a mesh of one rank, and ``2`` raises, as the
+    world holds one process."""
     cfg = yaml.safe_load(open(files["config"]))
     if mesh is not None:
         cfg["simulation"]["mesh"] = mesh
     path = tmp_path / "config.yaml"
     path.write_text(yaml.safe_dump(cfg))
+    args = ["--config", str(path), "--simulation.device", "cpu"]
+    if mesh == 2:
+        with pytest.raises(ValueError, match="the world holds 1"):
+            cli.parse_simulation_config(LangevinSimulation, args=args)
+        return
     with caplog.at_level("WARNING", logger="flashmd_tpu_torch"):
-        _, _, _, sim, _ = cli.parse_simulation_config(
-            LangevinSimulation, args=["--config", str(path),
-                                      "--simulation.device", "cpu"])
-    unknown = {"compile_mode"} | ({"mesh"} if mesh is not None else set())
-    assert f"Ignoring unknown simulation options: {unknown}" in caplog.text
-    assert ("multi-GPU" in caplog.text) == (mesh in (2, "auto"))
-    assert not hasattr(sim, "mesh")
+        _, _, _, sim, _ = cli.parse_simulation_config(LangevinSimulation,
+                                                      args=args)
+    assert ("Ignoring unknown simulation options: {'compile_mode'}"
+            in caplog.text)
+    assert "multi-GPU" not in caplog.text
+    if mesh is None:
+        assert sim.mesh is None
+    else:
+        assert (sim.mesh.rank, sim.mesh.size) == (0, 1)
     with pytest.raises(SystemExit):
         cli.build_parser(LangevinSimulation).parse_args(
-            ["--simulation.mesh", "2"])
+            ["--simulation.compile_mode", "default"])
 
 
 def _dmin_refusal_input(kind, files, tmp_path):

@@ -1292,3 +1292,111 @@ def test_mixed_batch_card_matches_cpu(dev, mp):
     cheb = {"cheb_fwd": 3, "cheb_bwd_gx": 2, "cheb_bwd_gd": 1}
     assert results["cuda"][1] == {**dict.fromkeys(ck.launch_counts(), 0),
                                   **(cheb if mp == "cheb" else {})}
+
+
+def test_radius_engine_matches_its_twin(dev):
+    """The host cell-list engine, built with g++ on the card's machine,
+    against its numpy twin: counts open and under a cubic cell, and the
+    pairs, on the zoo's 266-bead start."""
+    import numpy as np
+
+    from flashmd_tpu_torch import native
+    from flashmd_tpu_torch.models.zoo import random_cg_protein
+
+    native.build(force=True)
+    pos = random_cg_protein(n_atoms=266, seed=0).pos
+    for cell in (None, 60.0 * np.eye(3)):
+        p = pos if cell is None else np.mod(pos, 60.0)
+        assert np.array_equal(native.neighbor_counts(p, 11.0, cell),
+                              native.neighbor_counts(p, 11.0, cell,
+                                                     native=False))
+    got, want = (native.radius_pairs(pos, 11.0, native=use)
+                 for use in (True, False))
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def _mesh_run(mesh):
+    """PT on the zoo's 64-bead cheb field at fp32, two betas over two
+    structures (four slots), 40 steps, exchanging every 5. At bf16 a
+    sharded run is not bitwise at this size: cuBLAS takes other GEMM
+    kernels for each rank's fewer rows, and a last-bit difference can move
+    a bf16 cast (chip_smoke.py's mesh phase prints it; at 126 slots of 266
+    beads the runs are bitwise)."""
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.simulation import PTSimulation
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=64, batch_size=2,
+                                  precision="fp32", device="cuda")
+    sim = PTSimulation(friction=1.0, dt=0.004, n_timesteps=40,
+                       save_interval=10, exchange_interval=5, random_seed=9,
+                       device="cuda", gptq=None, mesh=mesh)
+    sim.attach_model_and_configurations(ff, cfgs, [1.67, 1.5])
+    sim.simulate()
+    carry = sim.final_carry
+    return {"coords": sim.coords, "acceptance": sim.simulated_acceptance,
+            **{k: carry[k].cpu().numpy() for k in (
+                "pos", "acceptance_matrix", "n_exchange_approved")}}
+
+
+def _mesh_rank_main(mode, out):
+    """One rank under torch.distributed.run: "nccl" (one rank; mesh="auto"
+    joins an NCCL group) or "gloo" (the ranks share this card over gloo);
+    rank 0 saves the sharded run."""
+    import numpy as np
+
+    from flashmd_tpu_torch.parallel import mesh as mesh_mod
+
+    if mode == "gloo":
+        mesh_mod.initialize_distributed(backend="gloo")
+    got = _mesh_run("auto")
+    if mesh_mod.is_io_process():
+        np.savez(out, **got)
+    torch.distributed.destroy_process_group()
+
+
+def _launch_ranks(mode, nproc, out):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={nproc}", os.path.abspath(__file__),
+         "--mesh-rank", mode, str(out)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+def test_mesh_auto_one_nccl_rank_is_bitwise_the_run_without(dev, tmp_path):
+    """PT through mesh="auto" on one NCCL rank under torch.distributed.run
+    equals the same run without a mesh in this process, bitwise."""
+    import numpy as np
+
+    _launch_ranks("nccl", 1, tmp_path / "nccl.npz")
+    got = dict(np.load(tmp_path / "nccl.npz"))
+    for k, v in _mesh_run(None).items():
+        assert np.array_equal(got[k], v), k
+
+
+def test_mesh_two_gloo_ranks_share_the_card(dev, tmp_path):
+    """Two ranks on this card over gloo with CUDA tensors: PT within the
+    JAX suite's bounds of the one-process run (rtol 1e-5, atol 1e-6), the
+    acceptance counts and matrix exactly equal."""
+    import numpy as np
+
+    _launch_ranks("gloo", 2, tmp_path / "gloo.npz")
+    got = dict(np.load(tmp_path / "gloo.npz"))
+    want = _mesh_run(None)
+    np.testing.assert_allclose(got["coords"], want["coords"], rtol=1e-5,
+                               atol=1e-6)
+    for k in ("acceptance", "acceptance_matrix", "n_exchange_approved"):
+        assert np.array_equal(got[k], want[k]), k
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        _mesh_rank_main(*sys.argv[2:])
