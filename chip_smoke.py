@@ -158,8 +158,27 @@ Phases (each prints its lines; any failure exits non-zero):
                the xla bf16 force fields against the dense fp32 one on
                the same weights and positions, with and without the
                priors, and the cheb bf16x3 (64, 96) one; the xla one
-               also with float32 cotangents in its filter MLP (printed,
-               not gated).
+               also with float32 cotangents in its filter MLP; the cheb
+               bf16 (48, 64) one also on its wls and lawson host fits
+               (printed, not gated).
+   fit      -- the Chebyshev fit in its other forms. The host fits of
+               the slice's field by proj, wls and lawson, each timed on
+               the host (before the fidelity lines, which use them). The
+               in-graph fit (models.cheb.fit_chebyshev_filter) of the 3
+               blocks on the card at FIT_NODES nodes, (48, 64) on d_min
+               2.0: its CUDA-event time, and per block c, c2 and w0
+               against the float64 host fit (FIT_BOUND). compute_energy_
+               forces at S = BATCH with no fit attached: launches 3/2/1
+               (gated), fp32 network forces against the attached host
+               fit's (CROSS_BOUND), bf16 printed; a fit attached at
+               (32, 32) and called at (48, 64) refits, bitwise the
+               unattached run (gated). wls and lawson: coefficient L1
+               norms beside proj's, the three stacked cheb kernels on
+               their coefficients against the twins (phase 3's bounds),
+               and STEPS steps of the slice on each, interleaved proj,
+               wls, lawson, proj: launches 3/2/1 per force evaluation,
+               finite positions, the fit attached not redone (gated);
+               the pair floor and the throughputs printed.
 
 10. integrators -- the open cheb slice once more at this point of the
                process ("cheb again"), then beside it: NVESimulation
@@ -282,6 +301,13 @@ BOUNDS = {
     ("cfconv_bwd", "bf16"): 2e-3,
 }
 FORCE_BOUND = 2e-3
+# The fit phase: the in-graph fit at the slice's (48, 64) on d_min 2.0
+# against the float64 host fit, max|d|/max|host| per block and series
+# (float32 tanhf/expf within 2 ulp; about 1e-6 on the CPU), and the host
+# fit's other two methods.
+FIT_NODES = 512
+FIT_BOUND = 1e-4
+FIT_METHODS = ("wls", "lawson")
 # pallas fp32 vs dense fp32 forces, periodic (folded) vs open (unfolded)
 # fp32 network forces, and per-block vs stacked cheb fp32 forces: one
 # function, two summation orders.
@@ -1343,11 +1369,16 @@ def float32_cotangents():
         mlp.round_bf16 = old
 
 
-def phase_fidelity(dev):
+def phase_fidelity(dev, method_fits):
     """Printed, not gated: the (48, 64) frontier on this card is open. The
     xla bf16 field also with float32 cotangents in its filter MLP, which
-    tells its own bf16 error from the cotangent rounding at the casts."""
+    tells its own bf16 error from the cotangent rounding at the casts.
+    ``method_fits``: {method: the slice's host fits}; each wls or lawson
+    fit on the cheb bf16 field, beside proj's."""
     ff_c, cfgs = _force_fields(dev, FORCE_BATCH)
+    ff_methods = {m: ff_c.replace(schnet_params={**ff_c.schnet_params,
+                                                 "cheb_fit": fits})
+                  for m, fits in method_fits.items() if m != "proj"}
     ff_d, _ = _force_fields(dev, FORCE_BATCH, precision="fp32",
                             message_passing="dense")
     ff_db, _ = _force_fields(dev, FORCE_BATCH, message_passing="dense")
@@ -1368,12 +1399,157 @@ def phase_fidelity(dev):
         rel_xla = float((forces(ff_xla) - f_ref).abs().max()) / scale
         with float32_cotangents():
             rel_xla32 = float((forces(ff_xla) - f_ref).abs().max()) / scale
+        rel_methods = "".join(
+            f"; cheb bf16 (48, 64) d_min 2.0 {m} = "
+            f"{float((forces(f) - f_ref).abs().max()) / scale:.4e}"
+            for m, f in ff_methods.items())
         print(f"fidelity: {label} forces, batch {FORCE_BATCH}, max|F - "
               f"F_dense_fp32|/max|F_dense_fp32|: cheb bf16 (48, 64) d_min "
               f"2.0 = {rel_cheb:.4e}; dense bf16 = {rel_dense:.4e}; pallas "
               f"bf16 = {rel_pallas:.4e}; cheb bf16x3 (64, 96) d_min 2.0 = "
               f"{rel_x3:.4e}; xla bf16 = {rel_xla:.4e} (float32 cotangents "
-              f"{rel_xla32:.4e})")
+              f"{rel_xla32:.4e}){rel_methods}")
+
+
+def host_fit_methods(ff):
+    """{method: the slice field's float64 host fits} for proj, wls and
+    lawson, each timed on the host as attach makes it."""
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+
+    out = {}
+    for method in ("proj",) + FIT_METHODS:
+        cfg = dataclasses.replace(ff.schnet_config, cheb_fit_method=method)
+        t0 = time.perf_counter()
+        out[method] = attach_cheb_fit(ff.schnet_params, cfg)["cheb_fit"]
+        seconds = time.perf_counter() - t0
+        print(f"fit: host fit {method} of the slice's {len(out[method])} "
+              f"blocks x {cfg.num_filters} features at ({cfg.cheb_order}, "
+              f"{cfg.cheb_order_deriv}) on d_min {cfg.cheb_d_min}: "
+              f"{seconds:.3f} s on the host (attach)")
+    return out
+
+
+def _unattached(ff, **config):
+    """The field without its attached fit, its config changed by
+    ``config``."""
+    params = {k: v for k, v in ff.schnet_params.items() if k != "cheb_fit"}
+    return ff.replace(schnet_params=params, schnet_config=dataclasses.replace(
+        ff.schnet_config, **config))
+
+
+def _l1(fits, i):
+    return sum(float(f[i].abs().sum()) for f in fits)
+
+
+def phase_fit(ff, cfgs, dev, smi, method_fits):
+    """The fit phase (the module docstring's): the in-graph fit against
+    the float64 host fit, forces with no fit and with a stale one, the
+    wls and lawson fits through the kernels and the Langevin slice."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.cheb import (
+        attach_cheb_fit,
+        fit_chebyshev_filter,
+    )
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    cfg, params = ff.schnet_config, ff.schnet_params
+    m1, m2 = cfg.cheb_order, cfg.cheb_order_deriv
+
+    def fit_all():
+        return [fit_chebyshev_filter(bp, params["rbf"], cfg, order=m1,
+                                     n_nodes=FIT_NODES, order_deriv=m2)
+                for bp in params["interactions"]]
+
+    fits = fit_all()
+    fit_ms = cuda_time_ms(fit_all)
+    print(f"fit: in-graph fit of {len(fits)} blocks, F = {cfg.num_filters}, "
+          f"{FIT_NODES} nodes, ({m1}, {m2}) on d_min {cfg.cheb_d_min}: "
+          f"{fit_ms:.3f} ms on the card (CUDA events, after a warm-up) on "
+          f"{smi}")
+    for b, (got, host) in enumerate(zip(fits, method_fits["proj"])):
+        rels = [float((g - h).abs().max() / h.abs().max())
+                for g, h in zip(got, host)]
+        check(all(g.device == dev and g.dtype == torch.float32 for g in got),
+              "fit: the in-graph fit left the card or float32")
+        print(f"fit: block {b + 1} in-graph vs float64 host fit "
+              f"max|d|/max|host|: c {rels[0]:.3e}, c2 {rels[1]:.3e}, w0 "
+              f"{rels[2]:.3e} (bound {FIT_BOUND:.0e})")
+        check(max(rels) <= FIT_BOUND,
+              f"fit: block {b + 1} in-graph fit off the host fit")
+
+    # forces at the slice's batch with no fit attached, and a stale fit
+    system = collate(cfgs, beta=1.67, device=dev)
+
+    def evaluate(field):
+        ck.reset_launch_counts()
+        e, f, _ = compute_energy_forces(field, system.pos, system.atom_types)
+        counts = ck.launch_counts()
+        check(counts == cheb_counts(1),
+              f"fit: launches {counts}, expected 3/2/1")
+        return e, f
+
+    for precision in ("fp32", "bf16"):
+        net = ff.replace(priors={})
+        bare = _unattached(net, precision=precision)
+        attached = bare.replace(schnet_params={**bare.schnet_params,
+                                               "cheb_fit": params["cheb_fit"]})
+        _, f_u = evaluate(bare)
+        _, f_a = evaluate(attached)
+        rel = float((f_u - f_a).abs().max() / f_a.abs().max())
+        gated = precision == "fp32"
+        print(f"fit: {precision} network forces, S = {system.n_sims}, A = "
+              f"{system.n_atoms}, no fit attached (in-graph fit) vs the "
+              f"attached host fit: max|dF|/max|F| = {rel:.3e}"
+              + (f" (bound {CROSS_BOUND:.0e})" if gated else " (not gated)")
+              + "; launches 3/2/1")
+        if gated:
+            check(rel <= CROSS_BOUND, "fit: unattached fp32 forces differ")
+    bare = _unattached(ff)
+    stale_cfg = dataclasses.replace(cfg, cheb_order=32, cheb_order_deriv=32)
+    stale = bare.replace(schnet_params=attach_cheb_fit(bare.schnet_params,
+                                                       stale_cfg))
+    e_u, f_u = evaluate(bare)
+    e_s, f_s = evaluate(stale)
+    same = torch.equal(f_u, f_s) and torch.equal(e_u, e_s)
+    print(f"fit: stale fit attached at (32, 32), called at ({m1}, {m2}): "
+          f"refit in the graph, forces and energies bitwise the unattached "
+          f"run's: {same}")
+    check(same, "fit: the stale run differs from the unattached one")
+
+    # wls and lawson: coefficients, kernels against their twins, the slice
+    pos = system.pos
+    for method in FIT_METHODS:
+        mf = method_fits[method]
+        print(f"fit: {method} coefficient L1 norms (3 blocks): c "
+              f"{_l1(mf, 0):.4e}, c2 {_l1(mf, 1):.4e}; proj's c "
+              f"{_l1(method_fits['proj'], 0):.4e}, c2 "
+              f"{_l1(method_fits['proj'], 1):.4e} (ratios "
+              f"{_l1(mf, 0) / _l1(method_fits['proj'], 0):.4f}, "
+              f"{_l1(mf, 1) / _l1(method_fits['proj'], 1):.4f})")
+        field = ff.replace(schnet_params={**params, "cheb_fit": mf})
+        phase_cheb_kernels(field, pos, dev, tag=f" {method}",
+                           stacked_only=True)
+    n_evals = STEPS + 1
+    tps = {}
+    for method in ("proj",) + FIT_METHODS + ("proj",):
+        field = _unattached(ff, cheb_fit_method=method)
+        field = field.replace(schnet_params={
+            **field.schnet_params, "cheb_fit": method_fits[method]})
+        _, _, sim = run_slice(f"fit {method}", field, cfgs, dev, STEPS,
+                              SAVE_INTERVAL, ck, cheb_counts(n_evals), smi)
+        check(all(torch.equal(a, b) for got, want in zip(
+            sim.model.schnet_params["cheb_fit"], method_fits[method])
+            for a, b in zip(got, want)),
+            f"fit {method}: the simulation ran another fit")
+        tps.setdefault(method, []).append(
+            sim.get_throughput_metrics()["throughput"])
+    proj_tp = float(np.mean(tps["proj"]))
+    print(f"fit: second-half throughput proj {tps['proj'][0]:.1f} and "
+          f"{tps['proj'][1]:.1f} (runs 1 and 4), "
+          + ", ".join(f"{m} {tps[m][0]:.1f} (ratio to proj's mean "
+                      f"{tps[m][0] / proj_tp:.4f})" for m in FIT_METHODS)
+          + f" timestep*mol/s on {smi}")
 
 
 class AllKernels:
@@ -3828,7 +4004,10 @@ def main():
     with tempfile.TemporaryDirectory() as ckpt_dir:
         phase_checkpoint(dev, open_tp, smi, ckpt_dir)
         phase_cli(ckpt_dir, dev, smi)
-    phase_fidelity(dev)
+    method_fits = host_fit_methods(ff)
+    phase_fidelity(dev, method_fits)
+    with cheb_schedule("1"):
+        phase_fit(ff, cfgs, dev, smi, method_fits)
     # The integrators, beside a second run of the open cheb slice at this
     # point of the process.
     with cheb_schedule("1"):

@@ -128,6 +128,33 @@ class Configuration:
     def n_atoms(self) -> int:
         return self.pos.shape[0]
 
+    @classmethod
+    def from_points(
+        cls,
+        pos,
+        atom_types,
+        masses=None,
+        velocities=None,
+        neighbor_lists=None,
+        cell=None,
+        exc_pair_index=None,
+        tag: str = "",
+    ) -> "Configuration":
+        """Construct from raw arrays (reference Configuration.from_points,
+        data/system.py:185-209)."""
+        return cls(
+            pos=np.asarray(pos),
+            atom_types=np.asarray(atom_types),
+            masses=None if masses is None else np.asarray(masses),
+            velocities=None if velocities is None else np.asarray(velocities),
+            neighbor_lists=dict(neighbor_lists or {}),
+            cell=None if cell is None else np.asarray(cell),
+            exc_pair_index=(
+                None if exc_pair_index is None else np.asarray(exc_pair_index)
+            ),
+            tag=tag,
+        )
+
 
 @dataclasses.dataclass
 class System:

@@ -1,14 +1,21 @@
 """Chebyshev-tabulated continuous-filter convolution (port of
 flashmd_tpu/models/cheb.py).
 
-The frozen filter W'(d) is fitted once on the host in float64,
+The frozen filter W'(d) is fitted as a Chebyshev series,
 
     W'(d)    ~= (1-z)^2 sum_m c[m]  T_m(z)
     dW'/dd   ~= (1-z)   sum_m c2[m] T_m(z)
 
 so that every conv becomes a sweep of dense [A, A] @ [A, F] products
-(ops/cheb_kernel.py). Only the host fit (``proj`` method) is ported; the
-in-jit fit is not, because attach always fits on the host.
+(ops/cheb_kernel.py). Two fits, as in the reference:
+
+* ``fit_chebyshev_filter_host``: float64 numpy at attach
+  (``attach_cheb_fit``), by projection (``proj``), one weighted least
+  squares (``wls``) or Lawson's reweighting toward the weighted minimax
+  (``lawson``), after ``config.cheb_fit_method``;
+* ``fit_chebyshev_filter``: float32 on the parameters' device, inside the
+  autograd graph, by projection only. ``schnet._cheb_blocks`` runs it when
+  the parameters carry no fit, or a fit of other orders than the config's.
 
 Two schedules, as in the reference: the whole stack with the deferred,
 block-stacked gd backward (``cheb_stack_apply``), and one conv per block
@@ -27,6 +34,7 @@ per-block schedule the linear layers get their real gradients.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Sequence
 
@@ -42,7 +50,8 @@ from ..ops.cheb_kernel import (
     cheb_conv_fwd,
 )
 from .cutoff import CosineCutoff
-from .mlp import check_precision
+from .mlp import check_precision, mlp_apply
+from .radial_basis import gaussian_basis_apply
 
 LIN_KEYS = ("lin1_w", "lin2_w", "lin2_b", "lin_w", "lin_b")
 
@@ -63,25 +72,132 @@ def _require_cheb_eligible_cutoff(cut):
         )
 
 
+def chebyshev_nodes(n: int, device=None) -> torch.Tensor:
+    """Chebyshev-Gauss nodes on (-1, 1), float32 (reference cheb.py:86-89)."""
+    k = torch.arange(n, dtype=torch.float32, device=device)
+    return torch.cos(math.pi * (k + 0.5) / n)
+
+
+def _cut_over_u2(u: torch.Tensor, sigma: float = 0.5) -> torch.Tensor:
+    """cutoff(d) / (1-z)^2 = (pi sigma / 2)^2 sinc^2(u sigma / 2) with
+    u = 1 - z, free of cancellation as u -> 0 (reference cheb.py:102-115;
+    ``torch.sinc`` is the normalised sinc, as ``jnp.sinc``)."""
+    return (math.pi * sigma / 2.0) ** 2 * torch.square(
+        torch.sinc(u * (sigma / 2.0))
+    )
+
+
+def _project(values: torch.Tensor, order: int, n_nodes: int) -> torch.Tensor:
+    """Discrete Chebyshev transform at the Chebyshev-Gauss nodes, values
+    [N, F] -> [order, F] (reference cheb.py:118-136): a float32 product,
+    which TF32 being off (package ``__init__``) keeps at the reference's
+    Precision.HIGHEST."""
+    m = torch.arange(order, dtype=torch.float32, device=values.device)
+    k = torch.arange(n_nodes, dtype=torch.float32, device=values.device)
+    tmk = torch.cos(m[:, None] * math.pi * (k[None, :] + 0.5) / n_nodes)
+    c = (2.0 / n_nodes) * (tmk @ values)
+    half = torch.ones(order, 1, dtype=c.dtype, device=c.device)
+    half[0] = 0.5
+    return c * half
+
+
+def fit_chebyshev_filter(block_params, rbf_params, config, order=64,
+                         n_nodes=512, order_deriv=None):
+    """The filter's and its distance derivative's series, (c [M1, F], c2
+    [M2, F], w0 [F]) in float32 on the parameters' device (reference
+    fit_chebyshev_filter, cheb.py:139-227).
+
+    The composed filter (the Gaussian basis with its own cutoff, the filter
+    MLP at fp32 whatever ``config.precision``, the analytic conv cutoff) is
+    evaluated at the Chebyshev nodes in float32 and projected. The MLP
+    factor's derivative is forward mode, as the reference's
+    ``vmap(jacfwd)``: node k's output depends on d_k alone, so one jvp with
+    a tangent of ones gives dM/dd at every node. Everything stays in the
+    autograd graph, so the kernels' cotangent of c, c2 and w0 reaches the
+    filter parameters as in the reference.
+    """
+    _require_cheb_eligible_cutoff(config.cutoff)
+    if getattr(config, "cheb_fit_method", "proj") != "proj":
+        raise NotImplementedError(
+            f"cheb_fit_method={config.cheb_fit_method!r} requires the "
+            "host-side fit (models/cheb.attach_cheb_fit, done at model "
+            "attach); the in-graph fit implements only the projection."
+        )
+    order_deriv = order if order_deriv is None else order_deriv
+    rcut = float(config.cutoff.cutoff_upper)
+    d_min = float(config.cheb_d_min)
+    sigma = _sigma(rcut, d_min)
+    z = chebyshev_nodes(n_nodes, rbf_params["offset"].device)
+    d = d_min + (z + 1.0) * ((rcut - d_min) / 2.0)
+    u = 1.0 - z
+
+    def w_of_d(dd):
+        rbf = gaussian_basis_apply(rbf_params, config.rbf_config, dd)
+        return mlp_apply(block_params["filter"], rbf,
+                         activation=config.activation, precision="fp32")
+
+    w, dm = torch.func.jvp(w_of_d, (d,), (torch.ones_like(d),))  # [N, F]
+    c = _project(w * _cut_over_u2(u, sigma)[:, None], order, n_nodes)
+    # dW'/dd / (1-z) = M' u (pi sigma/2)^2 sinc^2(u sigma/2)
+    #                  - M (pi^2 sigma / (2 rcut)) sinc(u sigma)
+    h2 = (
+        dm * (u * _cut_over_u2(u, sigma))[:, None]
+        - w * ((math.pi**2 * sigma / (2.0 * rcut))
+               * torch.sinc(u * sigma))[:, None]
+    )
+    c2 = _project(h2, order_deriv, n_nodes)
+    # the self-pair value W'(z=-1) = (1-(-1))^2 sum_m c_m T_m(-1)
+    return c, c2, 4.0 * _at_minus_one(c)
+
+
 def _np64(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         t = t.detach().cpu().numpy()
     return np.asarray(t, dtype=np.float64)
 
 
+def _lawson_coeffs(target, tmk, weight, iters=30):
+    """Lawson's iteratively reweighted least squares toward the weighted
+    minimax, max_k weight_k |target_k - (T c)_k| per feature (reference
+    cheb.py:285-326, float64 numpy). One iteration is the weighted least
+    squares. ``weight`` needs a positive floor (the callers add 0.05):
+    the raw basis factor vanishes at z = 1 and leaves the fit free there.
+
+    target [N, F], tmk [M, N], weight [N] -> coefficients [M, F].
+    """
+    T = tmk.T  # [N, M]
+    n, n_feat = target.shape
+    out = np.empty((tmk.shape[0], n_feat))
+    for f in range(n_feat):
+        lw = np.full(n, 1.0 / n)
+        t = target[:, f]
+        c = None
+        for _ in range(iters):
+            sw = np.sqrt(lw) * weight
+            c, *_ = np.linalg.lstsq(T * sw[:, None], t * sw, rcond=None)
+            r = np.abs((t - T @ c) * weight)
+            lw = lw * r
+            s = lw.sum()
+            if s <= 0:  # exact fit: any weighting is optimal
+                break
+            lw /= s
+        out[:, f] = c
+    return out
+
+
 def fit_chebyshev_filter_host(block_params, rbf_params, config, order=64,
-                              n_nodes=512, order_deriv=None, device="cpu"):
+                              n_nodes=512, order_deriv=None,
+                              extra_weight=None, device="cpu"):
     """float64 host fit of the filter and its distance derivative
-    (reference cheb.py:329-428, ``proj`` method only).
+    (reference cheb.py:329-428), by ``config.cheb_fit_method``: ``proj``
+    (the projection), ``wls`` (one weighted least squares) or ``lawson``
+    (30 reweightings). The last two weight the delivered quantity's basis
+    factor with a floor, (u^2 + 0.05) for c and (u + 0.05) for c2, times
+    ``extra_weight(d)`` (float64 node distances -> [N]) where given.
 
     Returns float32 tensors on ``device``: (c [M1, F], c2 [M2, F], w0 [F]).
     """
     _require_cheb_eligible_cutoff(config.cutoff)
-    if getattr(config, "cheb_fit_method", "proj") != "proj":
-        raise NotImplementedError(
-            f"cheb_fit_method={config.cheb_fit_method!r} is not ported; "
-            "flashmd_tpu_torch fits by projection ('proj') only"
-        )
     if config.activation != "tanh":
         raise NotImplementedError("host fit supports tanh filter activations")
     order_deriv = order if order_deriv is None else order_deriv
@@ -130,10 +246,23 @@ def fit_chebyshev_filter_host(block_params, rbf_params, config, order=64,
         dm * (u * (np.pi * sigma / 2.0) ** 2 * sinc * sinc)[:, None]
         - w * ((np.pi**2 * sigma / (2.0 * rcut)) * sinc_full)[:, None]
     )
-    c = (2.0 / n_nodes) * (tmk[:order] @ h)
-    c[0] *= 0.5
-    c2 = (2.0 / n_nodes) * (tmk[:order_deriv] @ h2)
-    c2[0] *= 0.5
+    fit_method = getattr(config, "cheb_fit_method", "proj")
+    if fit_method == "proj":
+        c = (2.0 / n_nodes) * (tmk[:order] @ h)
+        c[0] *= 0.5
+        c2 = (2.0 / n_nodes) * (tmk[:order_deriv] @ h2)
+        c2[0] *= 0.5
+    elif fit_method in ("lawson", "wls"):
+        ew = 1.0 if extra_weight is None else extra_weight(d)
+        iters = 30 if fit_method == "lawson" else 1
+        c = _lawson_coeffs(h, tmk[:order], (u**2 + 0.05) * ew, iters=iters)
+        c2 = _lawson_coeffs(h2, tmk[:order_deriv], (u + 0.05) * ew,
+                            iters=iters)
+    else:
+        raise ValueError(
+            f"unknown cheb_fit_method {fit_method!r} "
+            "(expected 'proj', 'wls', or 'lawson')"
+        )
 
     signs = np.where(np.arange(order) % 2 == 0, 1.0, -1.0)
     w0 = 4.0 * (signs @ c)
@@ -161,12 +290,18 @@ def attach_cheb_fit(params, config):
     return {**params, "cheb_fit": fits}
 
 
+def _at_minus_one(c: torch.Tensor) -> torch.Tensor:
+    """A series' sum at z = -1, sum_m (-1)^m c[m] -> [F], as
+    T_m(-1) = (-1)^m."""
+    signs = torch.ones(c.shape[0], dtype=c.dtype, device=c.device)
+    signs[1::2] = -1.0
+    return signs @ c
+
+
 def _lin_slope(c2: torch.Tensor) -> torch.Tensor:
     """dW'/dd at the fit-domain floor, 2 sum_m (-1)^m c2[m] -> [F]
     (reference cheb.py:547)."""
-    signs = torch.ones(c2.shape[0], dtype=c2.dtype, device=c2.device)
-    signs[1::2] = -1.0
-    return 2.0 * (signs @ c2)
+    return 2.0 * _at_minus_one(c2)
 
 
 def _param_cotangent(t: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Gaussian radial basis (port of flashmd_tpu/models/radial_basis.py).
 
-On the Chebyshev path only the float64 host fit reads the basis; the
-exact ``"xla"`` path expands every neighbour-matrix distance with
-``gaussian_basis_apply``.
+On the Chebyshev path only the fits read the basis (the float64 host fit
+its numpy copy, the in-graph fit ``gaussian_basis_apply`` at the
+Chebyshev nodes); the exact ``"xla"`` path expands every neighbour-matrix
+distance with ``gaussian_basis_apply``.
 """
 
 from __future__ import annotations

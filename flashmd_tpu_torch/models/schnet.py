@@ -34,7 +34,7 @@ from ..ops.cfconv import fused_cfconv_message
 from ..ops.cfconv_dense import dense_cfconv_message
 from ..ops.cheb_kernel import _cell_operands
 from ..ops.gather import neighbor_gather
-from .cheb import cheb_cfconv_apply, cheb_stack_apply
+from .cheb import cheb_cfconv_apply, cheb_stack_apply, fit_chebyshev_filter
 from .cutoff import CosineCutoff, _Cutoff
 from .mlp import (
     ACTIVATIONS,
@@ -309,23 +309,29 @@ def _xla_blocks(params, config: SchNetConfig, pos, x, nbr):
 
 
 def _cheb_blocks(params, config: SchNetConfig, pos, x0, cell=None):
-    """Reference cheb branch (schnet.py:353-424). Needs the host fits
-    attached (``models.cheb.attach_cheb_fit``). ``FLASHMD_CHEB_STACK``,
-    read at call time as in the reference: "1" (the default) runs the
-    stack with its deferred block-stacked gd backward; any other value one
-    conv per block (block 1 without its dead gx half), with the linear
-    layers in autograd, in float32 as on the stack."""
+    """Reference cheb branch (schnet.py:353-424). Takes the host fits
+    attached under ``params["cheb_fit"]`` (``models.cheb.attach_cheb_fit``,
+    which the simulation runs at attach); without them, or when their
+    orders differ from the config's, it fits every block in the graph
+    (``models.cheb.fit_chebyshev_filter``), as the reference refits in
+    jit. ``FLASHMD_CHEB_STACK``, read at call time as in the reference:
+    "1" (the default) runs the stack with its deferred block-stacked gd
+    backward; any other value one conv per block (block 1 without its dead
+    gx half), with the linear layers in autograd, in float32 as on the
+    stack."""
     fits = params.get("cheb_fit")
-    if fits is None:
-        raise ValueError(
-            "params carry no 'cheb_fit': run models.cheb.attach_cheb_fit "
-            "(the simulation does so at attach)"
-        )
-    if (
+    if fits is not None and (
         fits[0][0].shape[0] != config.cheb_order
         or fits[0][1].shape[0] != config.cheb_order_deriv
     ):
-        raise ValueError("stale cheb_fit: its orders differ from the config")
+        fits = None  # stale (the orders changed): refit in the graph
+    if fits is None:
+        fits = tuple(
+            fit_chebyshev_filter(bp, params["rbf"], config,
+                                 order=config.cheb_order,
+                                 order_deriv=config.cheb_order_deriv)
+            for bp in params["interactions"]
+        )
     rcut = float(config.cutoff.cutoff_upper)
     d_min = float(config.cheb_d_min)
     if os.environ.get("FLASHMD_CHEB_STACK", "1") == "1":

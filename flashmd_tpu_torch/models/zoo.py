@@ -189,12 +189,13 @@ def cgschnet_1enh_like(
     cutoff_upper: float = 10.0,
     num_interactions: int = 3,
     precision: str = "bf16",
+    neighbor_capacity: Optional[int] = None,
     message_passing: str = "cheb",
     seed: int = 0,
     cheb_order: Optional[int] = None,
     cheb_order_deriv: Optional[int] = None,
     cheb_d_min: Optional[float] = None,
-    neighbor_capacity: Optional[int] = None,
+    cheb_fit_method: Optional[str] = None,
     device: torch.device | str = "cuda",
 ) -> Tuple[ForceField, List[Configuration]]:
     """CGSchNet at 1ENH scale + chain priors (reference zoo.py:164-329):
@@ -204,7 +205,9 @@ def cgschnet_1enh_like(
     default here (the reference's default is "xla", the exact path that
     parameter gradients, pair exclusions and small periodic cells need),
     "xla", "dense" and "pallas". All draw the same weights from the same
-    seed; only the config differs. Without an
+    seed; only the config differs. The arguments bind positionally as the
+    reference's do, ``device`` last. ``cheb_fit_method`` ("proj" when None,
+    "wls" or "lawson") chooses the host fit made at attach. Without an
     explicit ``neighbor_capacity`` the reference's rule sizes it: the max
     neighbour count at rcut + 1.0 (the default Verlet skin) x 1.35, aligned
     to 8, at most ``n_atoms``. The tensors are placed on the card unless
@@ -230,6 +233,7 @@ def cgschnet_1enh_like(
         cheb_order=order,
         cheb_order_deriv=deriv,
         cheb_d_min=d_min,
+        cheb_fit_method=cheb_fit_method or "proj",
     )
     if neighbor_capacity is None:
         neighbor_capacity = min(

@@ -7,7 +7,11 @@ files with their intervals and the "already exists" refusal, resume from
 a checkpoint, the host subroutines, the profiler window, the shape log,
 neighbour-list dumps, ``max_steps_per_launch``, ``dtype`` and ``gptq``
 (whose default, as in the reference, runs the network in bf16), and the
-port's ``device`` (the card unless the caller asks for the CPU).
+port's ``device`` (the card unless the caller asks for the CPU). The
+reference's ``compile``, ``compile_mode``, ``force_compile`` and
+``compile_model`` are accepted and do nothing, as there (:104-107): the
+port compiles nothing at run time, and its kernels build once into
+``_build/``.
 
 Attach fits the Chebyshev filters on the host for a cheb model
 (base.py:479-508), checks periodic cells for the minimum-image condition
@@ -203,6 +207,10 @@ class Simulation:
         sim_subroutine: Optional[Callable] = None,
         sim_subroutine_interval: Optional[int] = None,
         save_subroutine: Optional[Callable] = None,
+        compile: bool = True,
+        compile_mode: str = "default",
+        force_compile: bool = False,
+        compile_model: bool = True,
         profile_start_step: Optional[int] = None,
         profile_end_step: Optional[int] = None,
         gptq: Optional[str] = "w16a16",

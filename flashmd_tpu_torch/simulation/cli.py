@@ -18,11 +18,11 @@ What differs: ``simulation.device`` is an option of the port's
 ``Simulation`` (default ``"cuda"``), and the model is loaded onto that
 device, or onto the mesh's under ``simulation.mesh`` (``auto`` or ``N``;
 one process per GPU, launched with ``torchrun --nproc_per_node=N``). The
-JAX package's compile options (``compile``, ``compile_mode``,
-``force_compile``, ``compile_model``) are not options of the port: a YAML
-that sets them is run with a warning, as any unknown simulation option
-is. Model files: a reference ``model_and_prior.pt`` or a
-native ``.pkl`` of either package; structure files likewise.
+compile options (``compile``, ``compile_mode``, ``force_compile``,
+``compile_model``) are accepted from a YAML file or the command line and
+do nothing, as in the JAX package. Model files: a reference
+``model_and_prior.pt`` or a native ``.pkl`` of either package; structure
+files likewise.
 """
 
 from __future__ import annotations

@@ -424,6 +424,51 @@ def test_main_path_launch_counts(dev):
     assert _rel(f_k, f_p) <= 2e-3
 
 
+def test_in_graph_fit_card_matches_cpu(dev):
+    """The in-graph Chebyshev fit runs on the card when the parameters are
+    there: each block's c, c2, w0 within 1e-5 of the same fit on the CPU
+    (float32 transcendentals and summation order) and within 1e-4 of the
+    float64 host fit; a field with no fit attached launches 3/2/1 per
+    force evaluation and its forces agree with the CPU's."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.cheb import (
+        fit_chebyshev_filter,
+        fit_chebyshev_filter_host,
+    )
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    fits, forces, counts = {}, {}, {}
+    for device in (dev, torch.device("cpu")):
+        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=device)
+        cfg, params = ff.schnet_config, ff.schnet_params
+        fits[device.type] = [
+            fit_chebyshev_filter(bp, params["rbf"], cfg, cfg.cheb_order,
+                                 order_deriv=cfg.cheb_order_deriv)
+            for bp in params["interactions"]
+        ]
+        system = collate(cfgs, device=device)
+        ck.reset_launch_counts()
+        forces[device.type] = compute_energy_forces(
+            ff, system.pos, system.atom_types)[1].cpu()
+        counts[device.type] = ck.launch_counts()
+    host = [fit_chebyshev_filter_host(bp, params["rbf"], cfg,
+                                      cfg.cheb_order,
+                                      order_deriv=cfg.cheb_order_deriv)
+            for bp in params["interactions"]]
+    for card, cpu, ref in zip(fits["cuda"], fits["cpu"], host):
+        for k, p, h in zip(card, cpu, ref):
+            assert k.device.type == "cuda" and k.dtype == torch.float32
+            assert _rel(k.cpu(), p) <= 1e-5
+            assert _rel(k.cpu(), h) <= 1e-4
+    assert counts["cuda"] == {**dict.fromkeys(ck.launch_counts(), 0),
+                              "cheb_fwd": 3, "cheb_bwd_gx": 2,
+                              "cheb_bwd_gd": 1}
+    assert all(v == 0 for v in counts["cpu"].values())  # twins only
+    # bf16 model: summation order on the card vs the CPU only
+    assert _rel(forces["cuda"], forces["cpu"]) <= 2e-3
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
 @pytest.mark.parametrize("d_min", [0.0, 2.0])
 @pytest.mark.parametrize("periodic", [False, True])

@@ -500,13 +500,16 @@ def test_render_console_script_is_declared():
 # ---------------------------------------------------------------------------
 
 # The JAX package's public names that the port deliberately does not have:
-# the in-jit Chebyshev fit (the port fits on the host at attach, as the
-# reference injects the host fit) and an XLA precision helper (the port
-# fixes TF32 off in flashmd_tpu_torch/__init__.py).
+# an XLA precision helper (the port fixes TF32 off in
+# flashmd_tpu_torch/__init__.py).
 NOT_PORTED = {
+    "flashmd_tpu_torch.models.mlp": {"dot_precision"},
+}
+# Names once on that list that the port now has: the in-graph Chebyshev
+# fit and its nodes, beside the host fit's methods.
+PORTED_SINCE = {
     "flashmd_tpu_torch.models.cheb": {"fit_chebyshev_filter",
                                       "chebyshev_nodes"},
-    "flashmd_tpu_torch.models.mlp": {"dot_precision"},
 }
 
 
@@ -554,13 +557,32 @@ def test_module_has_every_jax_public_name(module):
     assert not missing, f"flashmd_tpu_torch.{module} lacks {sorted(missing)}"
 
 
-@pytest.mark.parametrize("module", sorted(NOT_PORTED))
+@pytest.mark.parametrize("module", sorted({*NOT_PORTED, *PORTED_SINCE}))
 def test_deliberately_not_ported_names(module):
+    """The names on NOT_PORTED are the JAX module's and not the port's;
+    those on PORTED_SINCE are both modules', and the port's config and
+    host fit take every fit method of the JAX package."""
     jmod = importlib.import_module(module.replace("flashmd_tpu_torch",
                                                   "flashmd_tpu"))
     port = importlib.import_module(module)
-    for name in NOT_PORTED[module]:
+    for name in NOT_PORTED.get(module, ()):
         assert hasattr(jmod, name) and not hasattr(port, name), name
+    for name in PORTED_SINCE.get(module, ()):
+        assert hasattr(jmod, name) and hasattr(port, name), name
+    if module in PORTED_SINCE:
+        from flashmd_tpu_torch.models.schnet import SchNetConfig, init_schnet
+
+        for method in ("proj", "wls", "lawson"):
+            cfg = SchNetConfig(hidden_channels=4, num_filters=4, num_rbf=5,
+                               num_interactions=1, embedding_size=3,
+                               output_hidden_layer_widths=(4,),
+                               cheb_order=6, cheb_fit_method=method)
+            params = init_schnet(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+            c, c2, w0 = port.fit_chebyshev_filter_host(
+                params["interactions"][0], params["rbf"], cfg, order=6,
+                n_nodes=32)
+            assert c.shape == c2.shape == (6, 4) and w0.shape == (4,)
 
 
 def test_package_import_is_light():

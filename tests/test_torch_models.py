@@ -314,5 +314,13 @@ def test_zoo_defaults_and_refusals():
         compute_energy_forces(
             ff.replace(exc_pair_index=torch.zeros(2, 1)), pos, types
         )
-    with pytest.raises(ValueError):
-        compute_energy_forces(ff, pos, types[None])
+    # atom_types must be [A] or [S, A] (mixed batches); the field carries
+    # no fit, so an [S, A] call fits in the graph and equals the [A] one
+    with pytest.raises(ValueError, match="atom_types"):
+        compute_energy_forces(ff, pos, types[None, None])
+    pos = torch.as_tensor(np.stack([c.pos for c in cfgs]), dtype=torch.float32)
+    types = torch.as_tensor(cfgs[0].atom_types, dtype=torch.long)
+    assert "cheb_fit" not in ff.schnet_params
+    _, f, _ = compute_energy_forces(ff, pos, types)
+    _, f_st, _ = compute_energy_forces(ff, pos, types.expand(2, -1))
+    assert bool(torch.isfinite(f).all()) and torch.equal(f, f_st)
