@@ -78,7 +78,8 @@ Phases (each prints its lines; any failure exits non-zero):
                cell variant 0; throughput beside the stacked slice's; the
                profiler window. Then PERBLOCK_PERIODIC_STEPS steps of it
                under the periodic slice's cell, on the cell variants only.
-   bf16x3   -- cgschnet_1enh_like(precision="bf16x3"): (64, 96) on d_min
+   bf16x3   -- cgschnet_1enh_like(precision="bf16x3", message_passing=
+               "cheb"): (64, 96) on d_min
                2.0, the slice's other settings, BF16X3_STEPS steps on the
                stacked schedule (launches 3/2/1 per force evaluation on the
                *_bf16x3 counters, every other counter 0), throughput beside
@@ -133,7 +134,15 @@ Phases (each prints its lines; any failure exits non-zero):
                bitwise equal; the nine other prior kinds card vs CPU
                (PRIOR_BOUND); CKPT_SHORT_STEPS steps each of the
                optimize=False field and of structures with
-               exc_pair_index (xla bf16), every kernel counter 0.
+               exc_pair_index (xla bf16), every kernel counter 0. Then
+               the same layout written with a plain-number basis cutoff
+               (the reference's GaussianBasis makes it an IdentityCutoff)
+               and max_num_neighbors CKPT_MAX_NEIGHBORS: optimize=True
+               lands on cheb bf16 (gated) with max_num_neighbors carried
+               (gated); the frontier's (m1, m2, d_min), the attach time
+               (load, frontier, fit), one force evaluation's launches
+               3/2/1 (gated), its network forces within 1.05x the
+               frontier's budget of the modules' own fp32 ones (gated).
    cli      -- the console entry points' mains (sys.argv as the command
                line gives it) on that checkpoint's two files, with
                examples/*.yaml read and written by the port's own YAML
@@ -179,6 +188,19 @@ Phases (each prints its lines; any failure exits non-zero):
                wls, lawson, proj: launches 3/2/1 per force evaluation,
                finite positions, the fit attached not redone (gated);
                the pair floor and the throughputs printed.
+   envelope -- the slice's weights under the radial-basis envelopes of
+               ENVELOPES (the conv cutoff stays the cosine; the basis of
+               a plain-number reference cutoff is IdentityCutoff): the
+               proj host fit's seconds; the three stacked cheb kernels on
+               its coefficients against their twins (phase 3's bounds);
+               forces at batch 4 card vs CPU twins (FORCE_BOUND, bf16)
+               and the network's fp32 and bf16 forces against the xla
+               fp32 field of the same envelope, the cosine's beside them
+               (printed; dense computes the cosine basis and refuses
+               these); STEPS steps of the slice on
+               each, interleaved cosine, each envelope, cosine: launches
+               3/2/1 per force evaluation and finite positions (gated),
+               the throughputs printed.
 
 10. integrators -- the open cheb slice once more at this point of the
                process ("cheb again"), then beside it: NVESimulation
@@ -308,6 +330,9 @@ FORCE_BOUND = 2e-3
 FIT_NODES = 512
 FIT_BOUND = 1e-4
 FIT_METHODS = ("wls", "lawson")
+# radial-basis envelopes of the envelope phase, on the slice's rc = 10
+ENVELOPES = (("identity", "IdentityCutoff", (0.0, 10.0)),
+             ("shifted cosine", "ShiftedCosineCutoff", (0.0, 10.0, 0.5)))
 # pallas fp32 vs dense fp32 forces, periodic (folded) vs open (unfolded)
 # fp32 network forces, and per-block vs stacked cheb fp32 forces: one
 # function, two summation orders.
@@ -1107,11 +1132,22 @@ def nbr_bwd_memory(pos, csr, x, g, w, rcut):
           "the bf16 cfconv_bwd allocates a workspace of the size of W")
 
 
-def _force_fields(device, batch, **kw):
+def cheb_orders(cfg):
+    """(cheb_order, derivative order) of a config, None resolved."""
+    from flashmd_tpu_torch.models.cheb import resolved_order_deriv
+
+    return cfg.cheb_order, resolved_order_deriv(cfg)
+
+
+def _force_fields(device, batch, message_passing="cheb", **kw):
+    """The zoo's field on ``message_passing`` (the Chebyshev kernels unless
+    another path is named; the zoo itself defaults to "xla"), with its host
+    fit attached on cheb."""
     from flashmd_tpu_torch.models.cheb import attach_cheb_fit
     from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 
     ff, cfgs = cgschnet_1enh_like(n_atoms=N_ATOMS, batch_size=batch,
+                                  message_passing=message_passing,
                                   device=device, **kw)
     if ff.schnet_config.message_passing == "cheb":
         ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
@@ -1423,8 +1459,8 @@ def host_fit_methods(ff):
         out[method] = attach_cheb_fit(ff.schnet_params, cfg)["cheb_fit"]
         seconds = time.perf_counter() - t0
         print(f"fit: host fit {method} of the slice's {len(out[method])} "
-              f"blocks x {cfg.num_filters} features at ({cfg.cheb_order}, "
-              f"{cfg.cheb_order_deriv}) on d_min {cfg.cheb_d_min}: "
+              f"blocks x {cfg.num_filters} features at {cheb_orders(cfg)} "
+              f"on d_min {cfg.cheb_d_min}: "
               f"{seconds:.3f} s on the host (attach)")
     return out
 
@@ -1454,7 +1490,7 @@ def phase_fit(ff, cfgs, dev, smi, method_fits):
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
     cfg, params = ff.schnet_config, ff.schnet_params
-    m1, m2 = cfg.cheb_order, cfg.cheb_order_deriv
+    m1, m2 = cheb_orders(cfg)
 
     def fit_all():
         return [fit_chebyshev_filter(bp, params["rbf"], cfg, order=m1,
@@ -1550,6 +1586,86 @@ def phase_fit(ff, cfgs, dev, smi, method_fits):
           + ", ".join(f"{m} {tps[m][0]:.1f} (ratio to proj's mean "
                       f"{tps[m][0] / proj_tp:.4f})" for m in FIT_METHODS)
           + f" timestep*mol/s on {smi}")
+
+
+def phase_envelopes(ff, cfgs, dev, smi):
+    """The envelope phase (the module docstring's): the slice's weights
+    under each radial-basis envelope of ENVELOPES."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models import cutoff
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    bare = _unattached(ff)
+    pos = collate(cfgs, device=dev).pos
+    fields = {}
+    for label, name, args in ENVELOPES:
+        env = getattr(cutoff, name)(*args)
+        cfg = dataclasses.replace(bare.schnet_config, rbf_cutoff=env)
+        t0 = time.perf_counter()
+        fits = attach_cheb_fit(bare.schnet_params, cfg)["cheb_fit"]
+        seconds = time.perf_counter() - t0
+        print(f"envelope {label}: rbf_cutoff {env}, cutoff {cfg.cutoff}: "
+              f"host fit proj of {len(fits)} blocks x {cfg.num_filters} "
+              f"features at {cheb_orders(cfg)} on d_min {cfg.cheb_d_min}: "
+              f"{seconds:.3f} s on the host (attach)")
+        field = bare.replace(schnet_config=cfg, schnet_params={
+            **bare.schnet_params, "cheb_fit": fits})
+        fields[label] = field
+        phase_cheb_kernels(field, pos, dev, tag=f" {label}",
+                           stacked_only=True)
+        # forces at batch 4, card against the CPU twins on the same fit
+        out = []
+        for device in (dev, torch.device("cpu")):
+            f_dev, c_dev = _force_fields(device, FORCE_BATCH)
+            f_dev = _unattached(f_dev, rbf_cutoff=env)
+            f_dev = f_dev.replace(schnet_params={
+                **f_dev.schnet_params, "cheb_fit": tuple(
+                    tuple(t.to(device) for t in fit) for fit in fits)})
+            out.append(_forces(f_dev, c_dev, device)[1])
+        f_card, f_cpu = out
+        check(bool(torch.isfinite(f_card).all()),
+              f"envelope {label}: non-finite forces on the card")
+        rel = float((f_card - f_cpu).abs().max() / f_cpu.abs().max())
+        print(f"forces: envelope {label} batch {FORCE_BATCH} card vs cpu "
+              f"plain: max|dF|/max|F| = {rel:.3e} (bound {FORCE_BOUND:.0e})")
+        check(rel <= FORCE_BOUND, f"envelope {label}: card and CPU disagree")
+    # the network's cheb forces against the xla fp32 field of the same
+    # basis, the slice's cosine beside the envelopes: fp32 (the fit's
+    # truncation alone) and bf16
+    f_dev, c_dev = _force_fields(dev, FORCE_BATCH)
+    net = f_dev.replace(priors={})
+    for label, field in (("cosine", ff), *fields.items()):
+        env = field.schnet_config.rbf_cutoff
+        exact = _unattached(net, rbf_cutoff=env, message_passing="xla",
+                            precision="fp32")
+        f_x = _forces(exact, c_dev, dev)[1]
+        rels = []
+        for precision in ("fp32", "bf16"):
+            cheb = _unattached(net, rbf_cutoff=env, precision=precision)
+            cheb = cheb.replace(schnet_params={
+                **cheb.schnet_params,
+                "cheb_fit": field.schnet_params["cheb_fit"]})
+            f_c = _forces(cheb, c_dev, dev)[1]
+            rels.append(float((f_c - f_x).abs().max() / f_x.abs().max()))
+        print(f"fidelity: envelope {label} network forces, batch "
+              f"{FORCE_BATCH}, max|F - F_xla_fp32|/max|F_xla_fp32| of the "
+              f"cheb field {cheb_orders(field.schnet_config)} d_min "
+              f"{field.schnet_config.cheb_d_min}: fp32 {rels[0]:.4e}, bf16 "
+              f"{rels[1]:.4e} (printed, not gated)")
+    n_evals = STEPS + 1
+    tps = []
+    for label in ("cosine",) + tuple(e[0] for e in ENVELOPES) + ("cosine",):
+        field = fields.get(label, ff)
+        _, _, sim = run_slice(f"envelope {label}", field, cfgs, dev, STEPS,
+                              SAVE_INTERVAL, ck, cheb_counts(n_evals), smi)
+        tps.append((label, sim.get_throughput_metrics()["throughput"]))
+    cos_tp = float(np.mean([tp for label, tp in tps if label == "cosine"]))
+    print("envelope: second-half throughput " + ", ".join(
+        f"{label} {tp:.1f}" for label, tp in tps)
+        + " timestep*mol/s (ratios to the cosine runs' mean: "
+        + ", ".join(f"{label} {tp / cos_tp:.4f}" for label, tp in tps)
+        + f") on {smi}")
 
 
 class AllKernels:
@@ -2110,6 +2226,7 @@ def phase_pt_exchange(dev):
 
 CKPT_TYPES = 25
 CKPT_SHORT_STEPS = 10
+CKPT_MAX_NEIGHBORS = 64
 # The reference's module paths, registered while the files are written and
 # removed after, so that the loader meets them as unimportable symbols.
 CKPT_MODULES = ("flashmd", "flashmd.models", "flashmd.models.schnet",
@@ -2137,6 +2254,17 @@ def reference_layout_classes():
         def forward(self, d):
             return 0.5 * (torch.cos(d * math.pi / self.cutoff_upper)
                           + 1.0) * (d < self.cutoff_upper)
+
+    class IdentityCutoff(nn.Module):
+        """What the reference's GaussianBasis makes of a plain number."""
+
+        def __init__(self, lower, upper):
+            super().__init__()
+            self.cutoff_lower = lower
+            self.cutoff_upper = upper
+
+        def forward(self, d):
+            return torch.ones_like(d)
 
     class GaussianBasis(nn.Module):
         def __init__(self, cutoff, num_rbf):
@@ -2188,11 +2316,14 @@ def reference_layout_classes():
 
     class SchNet(nn.Module):
         def __init__(self, hidden=128, filters=128, num_rbf=50, blocks=3,
-                     rcut=10.0, embedding=100, head=(128, 64)):
+                     rcut=10.0, embedding=100, head=(128, 64),
+                     identity_basis=False):
             super().__init__()
             cutoff = CosineCutoff(0.0, rcut)
             self.embedding_layer = nn.Embedding(embedding, hidden)
-            self.rbf_layer = GaussianBasis(cutoff, num_rbf)
+            self.rbf_layer = GaussianBasis(
+                IdentityCutoff(0.0, rcut) if identity_basis else cutoff,
+                num_rbf)
             self.interaction_blocks = nn.Sequential(*[
                 InteractionBlock(CFConv(hidden, filters, num_rbf, cutoff),
                                  hidden) for _ in range(blocks)])
@@ -2300,7 +2431,8 @@ def reference_layout_classes():
         def __init__(self, **fields):
             self._store = pytypes.SimpleNamespace(_mapping=fields)
 
-    paths = {"flashmd.models.schnet": (CosineCutoff, GaussianBasis, MLP,
+    paths = {"flashmd.models.schnet": (CosineCutoff, IdentityCutoff,
+                                       GaussianBasis, MLP,
                                        CFConv, InteractionBlock, SchNet,
                                        GradientsOut, SumOut),
              "flashmd.prior": (HarmonicBonds, HarmonicAngles, Dihedral,
@@ -2332,15 +2464,18 @@ def _seeded_(module, gen):
     return module
 
 
-def write_reference_checkpoint(directory, seed=0):
+def write_reference_checkpoint(directory, seed=0, identity_basis=False,
+                               max_num_neighbors=1000):
     """model_and_prior.pt and configurations.pt under ``directory``: a
     CGSchNet at the zoo's 1ENH widths (hidden and filters 128, 3 blocks,
     50 RBF, CosineCutoff(0, 10), embedding 100, head [128, 128, 64, 1],
     tanh) with bonds, cos angles, Fourier dihedrals (3 degrees) and a
     repulsion over the non-bonded pairs, type tables over the 25 bead
     types; BATCH structures of random_cg_protein's chain with noise. Every
-    number is drawn from ``seed``. Returns (the modules, the structures'
-    positions [BATCH, A, 3] float64, the types [A], the term lists)."""
+    number is drawn from ``seed``. With ``identity_basis`` the basis
+    carries IdentityCutoff(0, 10), as a plain-number cutoff gives it.
+    Returns (the modules, the structures' positions [BATCH, A, 3]
+    float64, the types [A], the term lists)."""
     import sys
     import types as pytypes
 
@@ -2353,7 +2488,8 @@ def write_reference_checkpoint(directory, seed=0):
     def uniform(lo, hi, *shape):
         return lo + (hi - lo) * torch.rand(shape, generator=gen)
 
-    schnet = _seeded_(cls["SchNet"](), gen)
+    schnet = _seeded_(cls["SchNet"](identity_basis=identity_basis), gen)
+    schnet.max_num_neighbors = max_num_neighbors
     priors = {
         "bonds": cls["HarmonicBonds"](uniform(3.7, 3.9, t, t),
                                       uniform(40.0, 80.0, t, t)),
@@ -2453,6 +2589,28 @@ def counting_twins():
             setattr(ck, n, fn)
 
 
+def build_with_frontier(ref, cfgs, dev):
+    """build_forcefield(optimize=True) on the card: (the field, the
+    frontier's report, the seconds it took after a synchronize)."""
+    from flashmd_tpu_torch.models import checkpoint_io as cio
+
+    log = FrontierLog()
+    frontier_logger = logging.getLogger("flashmd_tpu_torch.models.frontier")
+    frontier_logger.addHandler(log)
+    frontier_logger.setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ff = cio.build_forcefield(ref, cfgs[0], tune_configurations=cfgs,
+                                  device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        frontier_logger.removeHandler(log)
+    check(len(log.reports) == 1, "the frontier logged no measurement")
+    return ff, log.reports[0], seconds
+
+
 def phase_checkpoint(dev, open_tp, smi, tmp):
     """The checkpoint slice (the module docstring's `checkpoint` phase);
     the checkpoint's two files stay in the directory ``tmp``."""
@@ -2477,22 +2635,8 @@ def phase_checkpoint(dev, open_tp, smi, tmp):
               "dihedral", "harmonic_angles", "harmonic_bonds", "repulsion"],
           f"checkpoint ingested as {ref.schnet_config}, "
           f"{[p.kind for p in ref.priors]}")
-    log = FrontierLog()
-    frontier_logger = logging.getLogger("flashmd_tpu_torch.models.frontier")
-    frontier_logger.addHandler(log)
-    frontier_logger.setLevel(logging.INFO)
-    try:
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        ff = cio.build_forcefield(ref, cfgs[0], tune_configurations=cfgs,
-                                  device=dev)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-    finally:
-        frontier_logger.removeHandler(log)
+    ff, rep, frontier_s = build_with_frontier(ref, cfgs, dev)
     cfg = ff.schnet_config
-    check(len(log.reports) == 1, "the frontier logged no measurement")
-    rep = log.reports[0]
     print(f"checkpoint: wrote model_and_prior.pt + configurations.pt "
           f"({BATCH} structures, A={N_ATOMS}, {CKPT_TYPES} types) in "
           f"{t1 - t0:.2f} s; ingested as {cfg.message_passing} "
@@ -2503,8 +2647,8 @@ def phase_checkpoint(dev, open_tp, smi, tmp):
           f"{rep.d_min}, bf16 floor {rep.floor:.4e}, budget "
           f"{rep.budget:.4e}, errors "
           f"{ {f'{m1},{m2}': round(e, 6) for (m1, m2), e in rep.errors.items()} }"
-          f" -> chosen {rep.chosen} -> (m1, m2, d_min) = ({cfg.cheb_order}, "
-          f"{cfg.cheb_order_deriv}, {cfg.cheb_d_min})")
+          f" -> chosen {rep.chosen} -> (m1, m2, d_min) = "
+          f"{(*cheb_orders(cfg), cfg.cheb_d_min)}")
     check(cfg.message_passing == "cheb" and cfg.precision == "bf16",
           f"checkpoint not on the cheb bf16 path: {cfg}")
 
@@ -2536,8 +2680,9 @@ def phase_checkpoint(dev, open_tp, smi, tmp):
     sim = simulation(ff, cfgs, STEPS)
     torch.cuda.synchronize()
     t6 = time.perf_counter()
-    print(f"checkpoint: attach {(t2 - t1) + (t4 - t3) + (t6 - t5):.3f} s = "
-          f"load {t2 - t1:.3f} s + frontier (build_forcefield) {t4 - t3:.3f} s "
+    print(f"checkpoint: attach {(t2 - t1) + frontier_s + (t6 - t5):.3f} s = "
+          f"load {t2 - t1:.3f} s + frontier (build_forcefield) "
+          f"{frontier_s:.3f} s "
           f"+ fit and collate (attach_model_and_configurations) "
           f"{t6 - t5:.3f} s")
 
@@ -2560,7 +2705,7 @@ def phase_checkpoint(dev, open_tp, smi, tmp):
         print(f"forces: checkpoint {label}, batch {FORCE_BATCH}, against the "
               f"written modules' fp32 autograd forces: xla fp32 (optimize="
               f"False) {rel_exact:.3e} (bound {CROSS_BOUND:.0e}); cheb bf16 "
-              f"({cfg.cheb_order}, {cfg.cheb_order_deriv}) d_min "
+              f"{cheb_orders(cfg)} d_min "
               f"{cfg.cheb_d_min} {rel_cheb:.4e}")
         check(rel_exact <= CROSS_BOUND,
               f"checkpoint {label}: the ingested fp32 field disagrees")
@@ -2618,6 +2763,72 @@ def phase_checkpoint(dev, open_tp, smi, tmp):
               "timestep*mol/s")
         check(finite and counts == AllKernels.zeros(),
               f"checkpoint {label} run failed")
+
+
+def phase_checkpoint_identity_basis(dev, smi, tmp):
+    """The checkpoint phase's ingestion of the same layout with a
+    plain-number basis cutoff (IdentityCutoff) and max_num_neighbors
+    CKPT_MAX_NEIGHBORS, under ``tmp``: optimize=True lands on cheb."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models import checkpoint_io as cio
+    from flashmd_tpu_torch.models.cutoff import IdentityCutoff
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    modules, pos, types, lists = write_reference_checkpoint(
+        tmp, identity_basis=True, max_num_neighbors=CKPT_MAX_NEIGHBORS)
+    t0 = time.perf_counter()
+    ref = cio.load_reference_checkpoint(
+        os.path.join(tmp, "model_and_prior.pt"))
+    cfgs = cio.load_reference_configurations(
+        os.path.join(tmp, "configurations.pt"))
+    t1 = time.perf_counter()
+    ff, rep, frontier_s = build_with_frontier(ref, cfgs, dev)
+    cfg = ff.schnet_config
+    sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=STEPS,
+                             save_interval=SAVE_INTERVAL, random_seed=103838,
+                             device=dev, gptq=None)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"checkpoint identity basis: ingested as {cfg.message_passing} "
+          f"{cfg.precision}, rbf_cutoff {cfg.rbf_cutoff}, cutoff "
+          f"{cfg.cutoff}, max_num_neighbors {cfg.max_num_neighbors}; "
+          f"frontier on {rep.n_structures} structures: bf16 floor "
+          f"{rep.floor:.4e}, budget {rep.budget:.4e}, errors "
+          f"{ {f'{m1},{m2}': round(e, 6) for (m1, m2), e in rep.errors.items()} }"
+          f" -> chosen {rep.chosen} -> (m1, m2, d_min) = "
+          f"{(*cheb_orders(cfg), cfg.cheb_d_min)}")
+    print(f"checkpoint identity basis: attach "
+          f"{t1 - t0 + frontier_s + t3 - t2:.3f} s = load {t1 - t0:.3f} s + "
+          f"frontier (build_forcefield) {frontier_s:.3f} s + fit and collate "
+          f"(attach_model_and_configurations) {t3 - t2:.3f} s")
+    check(cfg.message_passing == "cheb" and cfg.precision == "bf16"
+          and isinstance(cfg.rbf_cutoff, IdentityCutoff),
+          f"identity basis checkpoint not on cheb bf16: {cfg}")
+    check(cfg.max_num_neighbors == CKPT_MAX_NEIGHBORS,
+          f"max_num_neighbors not carried: {cfg.max_num_neighbors}")
+    system = collate(cfgs[:FORCE_BATCH], device=dev)
+    network = sim.model.replace(priors={})
+    ck.reset_launch_counts()
+    f_cheb = compute_energy_forces(network, system.pos,
+                                   system.atom_types)[1]
+    counts = ck.launch_counts()
+    f_ref = reference_forces(modules, pos[:FORCE_BATCH], types, lists, dev,
+                             network_only=True)
+    rel = float((f_cheb - f_ref).abs().max() / f_ref.abs().max())
+    print(f"checkpoint identity basis: network forces, batch {FORCE_BATCH}, "
+          f"cheb bf16 {cheb_orders(cfg)} d_min {cfg.cheb_d_min} against the "
+          f"written modules' fp32 autograd forces {rel:.4e} (bound 1.05 x "
+          f"budget = {1.05 * rep.budget:.4e}); launches {counts} on {smi}")
+    check(counts == cheb_counts(1),
+          f"identity basis: launches {counts}, expected 3/2/1")
+    check(rel <= 1.05 * rep.budget,
+          f"identity basis cheb forces {rel:.3e} past the budget "
+          f"{rep.budget:.3e}")
 
 
 def exclusion_field(ref, cfgs, dev):
@@ -2790,7 +3001,7 @@ def cli_line(label, r, smi):
     cfg = sim.model.schnet_config
     m = sim.get_throughput_metrics()
     print(f"cli: {label}: {cfg.message_passing} {cfg.precision} "
-          f"({cfg.cheb_order}, {cfg.cheb_order_deriv}) d_min "
+          f"{cheb_orders(cfg)} d_min "
           f"{cfg.cheb_d_min}, batch {sim.n_sims}, {sim.n_timesteps} steps; "
           f"launches {r['counts']} ({r['candidates']} frontier candidates); "
           f"twin calls {r['twins']}; attach {r['attach']:.3f} s (YAML, "
@@ -3223,15 +3434,17 @@ def kinetic_per_dof(sim, slots=slice(None)):
 # Mixed-size batches
 # ---------------------------------------------------------------------------
 
-def mixed_fields(device, half, **kw):
+def mixed_fields(device, half, message_passing="cheb", **kw):
     """(per-molecule fields, configurations) of benchmarks/run_all.py:
     _cfg_mixed: ``half`` copies each of the zoo's MIXED_SIZES molecules
-    (seed 0, MIXED_ORDERS, the shared network), the smaller first."""
+    (seed 0, MIXED_ORDERS, the shared network), the smaller first, on the
+    Chebyshev path unless another is named."""
     from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 
     ffs, cfgs = [], []
     for a in MIXED_SIZES:
         ff, c = cgschnet_1enh_like(n_atoms=a, batch_size=1, device=device,
+                                   message_passing=message_passing,
                                    **MIXED_ORDERS, **kw)
         ffs += [ff] * half
         cfgs += c * half
@@ -3368,7 +3581,7 @@ def phase_mixed(dev, smi):
     cfg = sim.model.schnet_config
     print(f"mixed: {MIXED_HALF} x {MIXED_SIZES[0]} + {MIXED_HALF} x "
           f"{MIXED_SIZES[1]} beads padded to {system.n_atoms}, cheb "
-          f"{cfg.precision} ({cfg.cheb_order}, {cfg.cheb_order_deriv}) on "
+          f"{cfg.precision} {cheb_orders(cfg)} on "
           f"d_min {cfg.cheb_d_min}; twin calls {twins}; mixed_atom_mask.npy "
           f"{mask.shape} {mask.dtype} equal to the system's mask: "
           f"{np.array_equal(mask, system.atom_mask.cpu().numpy())}")
@@ -3670,6 +3883,7 @@ def mesh_worker(args):
             from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 
             ff, cfgs = cgschnet_1enh_like(n_atoms=64, batch_size=2,
+                                          message_passing="cheb",
                                           device=dev)
             cls, beta = PTSimulation, [1.67, 1.5]
             kw = dict(exchange_interval=5, n_timesteps=40, save_interval=10,
@@ -3857,8 +4071,8 @@ def main():
 
     ff, cfgs = _force_fields(dev, BATCH)
     cfg = ff.schnet_config
-    check((cfg.cheb_order, cfg.cheb_order_deriv, cfg.cheb_d_min,
-           cfg.precision) == (48, 64, 2.0, "bf16"),
+    check((*cheb_orders(cfg), cfg.cheb_d_min, cfg.precision,
+           cfg.message_passing) == (48, 64, 2.0, "bf16", "cheb"),
           f"unexpected slice config {cfg}")
     ff_dense, _ = _force_fields(dev, BATCH, message_passing="dense")
     check((ff_dense.schnet_config.precision,
@@ -3875,8 +4089,8 @@ def main():
           f"unexpected xla slice config {ff_xla.schnet_config}")
     ff_x3, _ = _force_fields(dev, BATCH, precision="bf16x3")
     cfg_x3 = ff_x3.schnet_config
-    check((cfg_x3.cheb_order, cfg_x3.cheb_order_deriv, cfg_x3.cheb_d_min,
-           cfg_x3.precision) == (64, 96, 2.0, "bf16x3"),
+    check((*cheb_orders(cfg_x3), cfg_x3.cheb_d_min, cfg_x3.precision,
+           cfg_x3.message_passing) == (64, 96, 2.0, "bf16x3", "cheb"),
           f"unexpected bf16x3 slice config {cfg_x3}")
 
     pos = collate(cfgs, device=dev).pos
@@ -4004,10 +4218,13 @@ def main():
     with tempfile.TemporaryDirectory() as ckpt_dir:
         phase_checkpoint(dev, open_tp, smi, ckpt_dir)
         phase_cli(ckpt_dir, dev, smi)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        phase_checkpoint_identity_basis(dev, smi, ckpt_dir)
     method_fits = host_fit_methods(ff)
     phase_fidelity(dev, method_fits)
     with cheb_schedule("1"):
         phase_fit(ff, cfgs, dev, smi, method_fits)
+        phase_envelopes(ff, cfgs, dev, smi)
     # The integrators, beside a second run of the open cheb slice at this
     # point of the process.
     with cheb_schedule("1"):

@@ -165,12 +165,12 @@ class System:
     masses: torch.Tensor  # [S, A]
     beta: torch.Tensor  # [S]
     velocities: Optional[torch.Tensor] = None  # [S, A, 3]
-    term_lists: Dict[str, TermList] = dataclasses.field(default_factory=dict)
     # Periodic lattices (rows = lattice vectors; None = open boundaries):
     # on the device for the force evaluation, and as float64 numpy on the
     # host so that validating them never reads the card.
     cell: Optional[torch.Tensor] = None  # [S, 3, 3] float32
     cell_host: Optional[np.ndarray] = None  # [S, 3, 3] float64
+    term_lists: Dict[str, TermList] = dataclasses.field(default_factory=dict)
     # Mixed-size batches (collate_padded): 1 on real atoms, 0 on padding;
     # None when every molecule has the batch's size.
     atom_mask: Optional[torch.Tensor] = None  # [S, A] float32

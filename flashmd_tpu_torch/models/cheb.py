@@ -49,11 +49,17 @@ from ..ops.cheb_kernel import (
     cheb_conv_bwd_gxgd,
     cheb_conv_fwd,
 )
-from .cutoff import CosineCutoff
+from .cutoff import CosineCutoff, IdentityCutoff, ShiftedCosineCutoff
 from .mlp import check_precision, mlp_apply
 from .radial_basis import gaussian_basis_apply
 
 LIN_KEYS = ("lin1_w", "lin2_w", "lin2_b", "lin_w", "lin_b")
+
+
+def resolved_order_deriv(config) -> int:
+    """The derivative series' order of a SchNetConfig: ``cheb_order_deriv``,
+    or ``cheb_order`` where that is None (reference schnet.py:373)."""
+    return config.cheb_order_deriv or config.cheb_order
 
 
 def _sigma(rcut: float, d_min: float) -> float:
@@ -70,6 +76,26 @@ def _require_cheb_eligible_cutoff(cut):
             "Chebyshev filter fitting requires CosineCutoff with "
             f"cutoff_lower == 0 (got {cut!r})."
         )
+
+
+def _cutoff_np(cut, d: np.ndarray) -> np.ndarray:
+    """float64 numpy copy of the envelopes' ``__call__`` (models/cutoff.py)
+    for the host fit (reference _cutoff_np, cheb.py:246-280)."""
+    if isinstance(cut, IdentityCutoff):
+        return np.ones_like(d)
+    if isinstance(cut, CosineCutoff):
+        lo, hi = cut.cutoff_lower, cut.cutoff_upper
+        if lo > 0:
+            c = 0.5 * (np.cos(np.pi * (2 * (d - lo) / (hi - lo) + 1.0))
+                       + 1.0)
+            return c * (d < hi) * (d > lo)
+        return 0.5 * (np.cos(d * np.pi / hi) + 1.0) * (d < hi)
+    if isinstance(cut, ShiftedCosineCutoff):
+        hi, width = cut.cutoff_upper, cut.smooth_width
+        smooth = 0.5 + 0.5 * np.cos(np.pi * (d - hi + width) / width)
+        c = np.where(d > hi - width, smooth, 1.0)
+        return np.where(d > hi, 0.0, c)
+    raise NotImplementedError(f"host fit: unsupported cutoff {cut!r}")
 
 
 def chebyshev_nodes(n: int, device=None) -> torch.Tensor:
@@ -217,15 +243,9 @@ def fit_chebyshev_filter_host(block_params, rbf_params, config, order=64,
     ]
     rbf_cut = config.rbf_config.cutoff
 
-    def cutoff_np(dd):
-        return (
-            0.5 * (np.cos(dd * np.pi / rbf_cut.cutoff_upper) + 1.0)
-            * (dd < rbf_cut.cutoff_upper)
-        )
-
     def w_of_d(dd):
         rbf = np.exp(coeff * np.square(dd[:, None] - offset[None, :]))
-        rbf = rbf * cutoff_np(dd)[:, None]
+        rbf = rbf * _cutoff_np(rbf_cut, dd)[:, None]
         x = rbf
         for layer in layers[:-1]:
             x = np.tanh(x @ layer["w"] + layer.get("b", 0.0))
@@ -283,7 +303,7 @@ def attach_cheb_fit(params, config):
     fits = tuple(
         fit_chebyshev_filter_host(
             bp, params["rbf"], config, order=config.cheb_order,
-            order_deriv=config.cheb_order_deriv, device=device,
+            order_deriv=resolved_order_deriv(config), device=device,
         )
         for bp in params["interactions"]
     )

@@ -346,6 +346,7 @@ def _extract_schnet(schnet) -> tuple:
             for layer in _output_first_mlp(output)["layers"][:-1]
         ),
         activation=filter_act,
+        max_num_neighbors=int(_attr(schnet, "max_num_neighbors", 1000)),
         message_passing="xla",
     )
     return params, config
@@ -793,17 +794,16 @@ class _NativeUnpickler(pickle.Unpickler):
             "the packages' own model and structure classes only")
 
 
-def _fields(name: str, state: dict, cls, drop=()) -> dict:
+def _fields(name: str, state: dict, cls) -> dict:
     """The state of the JAX package's ``name`` as keyword arguments of the
-    port's ``cls``; a field the port does not have raises, ``drop`` names
-    those it may leave out."""
+    port's ``cls``; a field the port does not have raises."""
     names = {f.name for f in dataclasses.fields(cls)}
-    extra = set(state) - names - set(drop)
+    extra = set(state) - names
     if extra:
         raise ValueError(f"the JAX package's {name} has fields "
                          f"{sorted(extra)} that flashmd_tpu_torch's "
                          f"{cls.__name__} does not")
-    return {k: v for k, v in state.items() if k in names}
+    return state
 
 
 def _from_jax(obj):
@@ -819,12 +819,11 @@ def _from_jax(obj):
     if name in _CUTOFFS:
         return _CUTOFFS[name](**_fields(name, state, _CUTOFFS[name]))
     if name == "GaussianBasisConfig":
-        # ``trainable`` is a training flag; the port trains nothing
-        return GaussianBasisConfig(**_fields(name, state, GaussianBasisConfig,
-                                             drop=("trainable",)))
+        return GaussianBasisConfig(**_fields(name, state,
+                                             GaussianBasisConfig))
     if name == "SchNetConfig":
-        # config_from_kwargs drops the JAX-only max_num_neighbors and aggr
-        return _config_to_dict(config_from_kwargs(state))
+        return _config_to_dict(config_from_kwargs(
+            _fields(name, state, SchNetConfig)))
     if name in _NATIVE_DICTS:
         return _fields(name, state, _NATIVE_DICTS[name])
     if name == "ReferenceModel":
@@ -852,9 +851,9 @@ def _load_native(path: str, fmt: str, dump_key: str) -> dict:
     return obj
 
 
-def load_native_model(path: str, device="cuda", dtype=torch.float32):
+def load_native_model(path: str, device="cuda"):
     """Read :func:`save_native_model`'s file: a ReferenceModel (numpy) or
-    a ForceField with its tensors on ``device``."""
+    a ForceField with its float tensors in float32 on ``device``."""
     obj = _load_native(path, NATIVE_MODEL_FORMAT, "model")
     config = _config_from_dict(obj["schnet_config"])
     if obj["kind"] == "reference_model":
@@ -865,13 +864,13 @@ def load_native_model(path: str, device="cuda", dtype=torch.float32):
     priors = {
         k: Prior(
             index_mapping=_tree_to_torch(p["index_mapping"], device),
-            params=_tree_to_torch(p["params"], device, dtype),
+            params=_tree_to_torch(p["params"], device),
             kind=p["kind"], name=p["name"], feature=p["feature"],
-            term_mask=_tree_to_torch(p["term_mask"], device, dtype),
+            term_mask=_tree_to_torch(p["term_mask"], device),
         )
         for k, p in obj["priors"].items()
     }
-    params = _tree_to_torch(obj["schnet_params"], device, dtype)
+    params = _tree_to_torch(obj["schnet_params"], device)
     if params is not None and "cheb_fit" in params:
         params["cheb_fit"] = tuple(tuple(f) for f in params["cheb_fit"])
     images = obj["pbc_images"]

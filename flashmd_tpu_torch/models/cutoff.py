@@ -2,8 +2,11 @@
 
 Frozen, hashable dataclasses whose ``__call__`` evaluates the envelope
 elementwise on a distance tensor of any shape. The Chebyshev, dense and
-neighbour-matrix kernels hard-code the zero-lower ``CosineCutoff``; the
-exact ``"xla"`` path takes every envelope here.
+neighbour-matrix kernels hard-code the zero-lower ``CosineCutoff`` as the
+conv cutoff, and the dense and neighbour-matrix ones also as the radial
+basis's; the Chebyshev fits take every envelope here as the basis's (a
+float64 copy in models/cheb.py for the host fit), and the exact ``"xla"``
+path every envelope in both places.
 """
 
 from __future__ import annotations

@@ -62,8 +62,8 @@ class ForceField:
     schnet_config: Optional[SchNetConfig] = None
     neighbor_capacity: int = 64
     exc_pair_index: Optional[torch.Tensor] = None
-    pbc_images: Optional[tuple] = None
     batched_priors: bool = False
+    pbc_images: Optional[tuple] = None
 
     @property
     def rcut(self) -> float:
@@ -159,14 +159,15 @@ def with_image_replication(ff: ForceField, cell,
 
 
 def energy_components(
-    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None,
+    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix],
     cell=None, atom_mask=None,
 ) -> Dict[str, torch.Tensor]:
     """Per-model energies, each [S] (reference energy_components,
-    forcefield.py:93-115). ``cell`` reaches the SchNet term only; the
-    priors evaluate on the raw coordinates. ``atom_mask`` ([S, A]) drops
-    the padded atoms' head energies of a mixed batch; padded priors carry
-    their own ``term_mask``."""
+    forcefield.py:93-115). ``nbr`` is None on the cheb and dense paths.
+    ``cell`` reaches the SchNet term only; the priors evaluate on the raw
+    coordinates. ``atom_mask`` ([S, A]) drops the padded atoms' head
+    energies of a mixed batch; padded priors carry their own
+    ``term_mask``."""
     out = {}
     if ff.schnet_params is not None:
         out[SCHNET_NAME] = schnet_energy(
@@ -179,7 +180,7 @@ def energy_components(
 
 
 def total_energy(
-    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix] = None,
+    ff: ForceField, pos, atom_types, nbr: Optional[NeighborMatrix],
     cell=None, atom_mask=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """([S] total energy, components) (reference total_energy,

@@ -1,9 +1,10 @@
 """Gaussian radial basis (port of flashmd_tpu/models/radial_basis.py).
 
-On the Chebyshev path only the fits read the basis (the float64 host fit
-its numpy copy, the in-graph fit ``gaussian_basis_apply`` at the
-Chebyshev nodes); the exact ``"xla"`` path expands every neighbour-matrix
-distance with ``gaussian_basis_apply``.
+On the Chebyshev path only the fits read the basis, with its own
+envelope, whatever that is (the float64 host fit its numpy copy, the
+in-graph fit ``gaussian_basis_apply`` at the Chebyshev nodes); the exact
+``"xla"`` path expands every neighbour-matrix distance with
+``gaussian_basis_apply``.
 """
 
 from __future__ import annotations
@@ -22,10 +23,13 @@ class GaussianBasisConfig:
     """Equidistant Gaussian basis f_n = exp(coeff (d - c_n)^2) cutoff(d).
 
     ``cutoff`` may be a number, read as IdentityCutoff(0, cutoff) as in the
-    reference (radial_basis.py:20-45), or a cutoff dataclass."""
+    reference (radial_basis.py:20-45), or a cutoff dataclass.
+    ``trainable`` is the reference's training flag, kept as metadata: no
+    code of either package reads it."""
 
     cutoff: Union[float, int, _Cutoff] = 5.0
     num_rbf: int = 50
+    trainable: bool = False
 
     def __post_init__(self):
         if isinstance(self.cutoff, (float, int)):

@@ -11,13 +11,16 @@ config carries across with its meaning; in the port it names the exact
 filter MLP over the padded neighbour matrix with CUDA kernels
 (ops/cfconv.py). Any other value raises.
 
-Only ``"xla"`` takes any cutoff envelope and a radial-basis cutoff other
-than the conv cutoff, and any activation (tanh, relu, silu, identity) in
-its filter MLP and interaction blocks: the kernels of the other three
-paths hard-code the zero-lower cosine on both and the tanh filter, so
-their configs refuse anything else. The energy head is a plain MLP or a
-per-species TypesMLP bank (``{"species", "mlps"}``, from checkpoint
-ingestion) on every path.
+Only ``"xla"`` takes any conv cutoff envelope and any activation (tanh,
+relu, silu, identity) in its filter MLP and interaction blocks. The
+Chebyshev path takes any radial-basis envelope, as the reference's does:
+the basis enters only its fits, which evaluate the basis with its own
+envelope. The kernels of the dense and pallas paths compute the basis
+themselves, with the zero-lower cosine on the conv cutoff's upper bound,
+so those two refuse any other basis envelope. All three take only the
+conv cutoff's zero-lower cosine and the tanh filter. The energy head is a
+plain MLP or a per-species TypesMLP bank (``{"species", "mlps"}``, from
+checkpoint ingestion) on every path.
 """
 
 from __future__ import annotations
@@ -34,7 +37,12 @@ from ..ops.cfconv import fused_cfconv_message
 from ..ops.cfconv_dense import dense_cfconv_message
 from ..ops.cheb_kernel import _cell_operands
 from ..ops.gather import neighbor_gather
-from .cheb import cheb_cfconv_apply, cheb_stack_apply, fit_chebyshev_filter
+from .cheb import (
+    cheb_cfconv_apply,
+    cheb_stack_apply,
+    fit_chebyshev_filter,
+    resolved_order_deriv,
+)
 from .cutoff import CosineCutoff, _Cutoff
 from .mlp import (
     ACTIVATIONS,
@@ -62,9 +70,15 @@ class SchNetConfig:
 
     ``rbf_cutoff`` is the radial basis's own envelope, the conv cutoff when
     None; a lower or upper cutoff that differs from the conv cutoff's warns,
-    as in the reference. ``remat`` ("block" or "none") is the xla path's
-    rematerialisation: "block" recomputes each block's [S, A, K, F]
-    intermediates in the backward instead of storing them."""
+    as in the reference. ``max_num_neighbors`` is the reference's field,
+    carried from a checkpoint and read by nothing (the neighbour matrix
+    keeps the nearest ``neighbor_capacity`` pairs); ``aggr`` takes "add"
+    only. ``message_passing`` defaults to the reference's exact "xla".
+    ``cheb_order_deriv`` None follows ``cheb_order``, resolved where it is
+    read (:func:`resolved_order_deriv`), so that ``dataclasses.replace(cfg,
+    cheb_order=N)`` keeps the two coupled. ``remat`` ("block" or "none") is
+    the xla path's rematerialisation: "block" recomputes each block's
+    [S, A, K, F] intermediates in the backward instead of storing them."""
 
     hidden_channels: int = 128
     embedding_size: int = 100
@@ -75,8 +89,10 @@ class SchNetConfig:
     rbf_cutoff: Optional[_Cutoff] = None
     output_hidden_layer_widths: Tuple[int, ...] = (128,)
     activation: str = "tanh"
+    max_num_neighbors: int = 1000
+    aggr: str = "add"
     precision: str = "fp32"
-    message_passing: str = "cheb"
+    message_passing: str = "xla"
     cheb_order: int = 128
     cheb_order_deriv: int | None = None
     cheb_d_min: float = 0.0
@@ -88,6 +104,10 @@ class SchNetConfig:
             raise ValueError(
                 "At least one interaction block must be specified"
             )
+        if self.aggr != "add":
+            raise NotImplementedError(
+                f"Only aggr='add' is supported (got {self.aggr!r})."
+            )
         if self.message_passing not in MESSAGE_PASSING:
             raise NotImplementedError(
                 f"message_passing={self.message_passing!r} is not ported to "
@@ -96,8 +116,6 @@ class SchNetConfig:
         if self.remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got "
                              f"{self.remat!r}")
-        if self.cheb_order_deriv is None:
-            object.__setattr__(self, "cheb_order_deriv", self.cheb_order)
         rbf_cutoff = self.rbf_cutoff or self.cutoff
         object.__setattr__(self, "rbf_cutoff", rbf_cutoff)
         for end in ("lower", "upper"):
@@ -120,11 +138,13 @@ class SchNetConfig:
 
 
 def _require_kernel_config(config: SchNetConfig) -> None:
-    """The cheb, dense and pallas kernels compute the cosine envelope, and
-    the radial basis's zero-lower cosine, on the conv cutoff's upper bound,
-    and a tanh filter MLP (the Chebyshev fit fits one): another envelope or
-    activation would run as those. (A nonzero lower bound of the conv
-    cosine is refused where each path runs.)"""
+    """The cheb, dense and pallas kernels compute the cosine envelope on
+    the conv cutoff's upper bound, and a tanh filter MLP (the Chebyshev fit
+    fits one): another envelope or activation would run as those. The dense
+    and pallas kernels also compute the radial basis with the zero-lower
+    cosine on that bound, so those two refuse another basis envelope; the
+    Chebyshev fits evaluate the basis with its own. (A nonzero lower bound
+    of the conv cosine is refused where each path runs.)"""
     mp = config.message_passing
     cut, rbf = config.cutoff, config.rbf_cutoff
     if not isinstance(cut, CosineCutoff):
@@ -132,12 +152,14 @@ def _require_kernel_config(config: SchNetConfig) -> None:
             f"message_passing={mp!r} requires cutoff=CosineCutoff (got "
             f"cutoff={cut!r}); only 'xla' takes other envelopes."
         )
-    if not (isinstance(rbf, CosineCutoff) and rbf.cutoff_lower == 0
-            and rbf.cutoff_upper == cut.cutoff_upper):
+    if mp != "cheb" and not (isinstance(rbf, CosineCutoff)
+                             and rbf.cutoff_lower == 0
+                             and rbf.cutoff_upper == cut.cutoff_upper):
         raise NotImplementedError(
             f"message_passing={mp!r} requires rbf_cutoff=CosineCutoff(0, "
-            f"{cut.cutoff_upper}) (got rbf_cutoff={rbf!r}); only 'xla' "
-            "takes another radial-basis envelope."
+            f"{cut.cutoff_upper}) (got rbf_cutoff={rbf!r}): its kernels "
+            "compute the basis with that envelope; 'xla' and 'cheb' take "
+            "another radial-basis envelope."
         )
     if config.activation != "tanh":
         raise NotImplementedError(
@@ -207,11 +229,12 @@ def _cast_floats(tree, dtype):
 
 
 def schnet_atom_energies(params, config: SchNetConfig, pos, atom_types,
-                         nbr=None, cell=None):
+                         nbr, cell=None):
     """[S, A] per-atom energies: embedding, the interaction blocks of the
     configured path, the output head. ``nbr`` is the batched neighbour
     matrix (ops.neighborlist) that the ``"xla"`` and ``"pallas"`` paths
-    need; the xla path takes its periodicity from the list's shifts.
+    need, None on the others; the xla path takes its periodicity from the
+    list's shifts.
     ``cell`` ([3, 3] or [S, 3, 3]) is consumed only by the cheb path
     (minimum-image pair geometry); dense and pallas refuse cells upstream
     (models.forcefield.compute_energy_forces)."""
@@ -244,13 +267,17 @@ def neighbor_distances_rbf(params, config: SchNetConfig, pos, nbr):
     list's periodic shifts where it has them (reference
     neighbor_distances_rbf, schnet.py:241-260). Masked slots read their own
     row, so their d2 is zero: the square root takes 1 there, which keeps
-    its gradient finite, and the mask zeroes d and the basis."""
+    its gradient finite, and the mask zeroes d and the basis. The live self
+    pairs of a ``self_interaction`` list have d2 = 0 too: they take the
+    same safe root and d = 0 with a zero position gradient (d is zero for
+    every position), where the reference's root at 0 gives NaN forces."""
     rel = neighbor_gather(pos, nbr) - pos[:, :, None, :]
     if nbr.shifts is not None:
         rel = rel + nbr.shifts
     d2 = torch.sum(rel * rel, dim=-1)
-    d = torch.sqrt(torch.where(nbr.mask, d2, 1.0))
-    d = torch.where(nbr.mask, d, 0.0)
+    live = nbr.mask & (d2 > 0)
+    d = torch.sqrt(torch.where(live, d2, 1.0))
+    d = torch.where(live, d, 0.0)
     rbf = gaussian_basis_apply(params["rbf"], config.rbf_config, d)
     return d, rbf * nbr.mask[..., None]
 
@@ -319,17 +346,18 @@ def _cheb_blocks(params, config: SchNetConfig, pos, x0, cell=None):
     backward; any other value one conv per block (block 1 without its dead
     gx half), with the linear layers in autograd, in float32 as on the
     stack."""
+    order_deriv = resolved_order_deriv(config)
     fits = params.get("cheb_fit")
     if fits is not None and (
         fits[0][0].shape[0] != config.cheb_order
-        or fits[0][1].shape[0] != config.cheb_order_deriv
+        or fits[0][1].shape[0] != order_deriv
     ):
         fits = None  # stale (the orders changed): refit in the graph
     if fits is None:
         fits = tuple(
             fit_chebyshev_filter(bp, params["rbf"], config,
                                  order=config.cheb_order,
-                                 order_deriv=config.cheb_order_deriv)
+                                 order_deriv=order_deriv)
             for bp in params["interactions"]
         )
     rcut = float(config.cutoff.cutoff_upper)
@@ -398,7 +426,7 @@ def _neighbor_blocks(params, config: SchNetConfig, pos, x, nbr):
     )
 
 
-def schnet_energy(params, config: SchNetConfig, pos, atom_types, nbr=None,
+def schnet_energy(params, config: SchNetConfig, pos, atom_types, nbr,
                   cell=None, atom_mask=None):
     """Total SchNet energy per molecule, [S]. ``atom_mask`` ([S, A], 1 on
     real atoms, 0 on padding) drops the head's energies of a mixed batch's

@@ -190,7 +190,7 @@ def cgschnet_1enh_like(
     num_interactions: int = 3,
     precision: str = "bf16",
     neighbor_capacity: Optional[int] = None,
-    message_passing: str = "cheb",
+    message_passing: str = "xla",
     seed: int = 0,
     cheb_order: Optional[int] = None,
     cheb_order_deriv: Optional[int] = None,
@@ -201,10 +201,11 @@ def cgschnet_1enh_like(
     """CGSchNet at 1ENH scale + chain priors (reference zoo.py:164-329):
     hidden 128, filters 128, 50 RBF, embedding 100, head [128, 128, 64, 1].
 
-    ``message_passing`` takes the reference's four paths: "cheb", the
-    default here (the reference's default is "xla", the exact path that
-    parameter gradients, pair exclusions and small periodic cells need),
-    "xla", "dense" and "pallas". All draw the same weights from the same
+    ``message_passing`` takes the reference's four paths: "xla", the
+    default as in the reference (the exact path that parameter gradients,
+    pair exclusions and small periodic cells need), "cheb" (the Chebyshev
+    kernels: name it to run them), "dense" and "pallas". All draw the same
+    weights from the same
     seed; only the config differs. The arguments bind positionally as the
     reference's do, ``device`` last. ``cheb_fit_method`` ("proj" when None,
     "wls" or "lawson") chooses the host fit made at attach. Without an

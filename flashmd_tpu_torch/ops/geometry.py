@@ -26,10 +26,10 @@ def _atoms(pos: torch.Tensor, mapping: torch.Tensor, k: int):
     return pos.reshape(s * a, pos.shape[-1])[mapping[:, k] + base]
 
 
-def safe_norm(x, dim: int = -1, keepdim: bool = True, eps: float = 1e-16):
+def safe_norm(x, axis: int = -1, keepdims: bool = True, eps: float = 1e-16):
     """sqrt(sum(x^2) + eps) - sqrt(eps): differentiable at 0 (reference
-    geometry.py:23-33)."""
-    return (torch.sqrt(torch.sum(torch.square(x), dim=dim, keepdim=keepdim)
+    geometry.py:23-33, whose argument names it keeps)."""
+    return (torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=keepdims)
                        + eps) - math.sqrt(eps))
 
 
@@ -49,19 +49,26 @@ def compute_distance_vectors(pos: torch.Tensor, mapping: torch.Tensor,
     dr = _atoms(pos, mapping, 1) - _atoms(pos, mapping, 0)
     if cell_shifts is not None:
         dr = dr + cell_shifts
-    distances = safe_norm(dr, dim=-1, keepdim=True)
+    distances = safe_norm(dr, axis=-1, keepdims=True)
     return distances, safe_normalization(dr, distances)
 
 
-def compute_distances(pos: torch.Tensor, mapping: torch.Tensor):
-    """Plain 2-norm of r_j - r_i (reference geometry.py:66-81)."""
+def compute_distances(pos: torch.Tensor, mapping: torch.Tensor,
+                      cell_shifts=None):
+    """Plain 2-norm of r_j - r_i, with ``cell_shifts`` ([S, T, 3] or
+    broadcastable) added to the displacement where given (reference
+    geometry.py:66-81)."""
     dr = _atoms(pos, mapping, 1) - _atoms(pos, mapping, 0)
+    if cell_shifts is not None:
+        dr = dr + cell_shifts
     return torch.linalg.vector_norm(dr, dim=-1)
 
 
-def compute_angles_raw(pos: torch.Tensor, mapping: torch.Tensor):
+def compute_angles_raw(pos: torch.Tensor, mapping: torch.Tensor,
+                       cell_shifts=None):
     """theta_ijk in radians, atan2(|r_ij x r_kj|, r_ij . r_kj) (reference
-    geometry.py:84-99)."""
+    geometry.py:84-99). ``cell_shifts`` is taken and not read, as in the
+    reference."""
     dr1 = _atoms(pos, mapping, 0) - _atoms(pos, mapping, 1)
     dr2 = _atoms(pos, mapping, 2) - _atoms(pos, mapping, 1)
     n = torch.linalg.vector_norm(torch.cross(dr1, dr2, dim=-1), dim=-1)
@@ -69,8 +76,10 @@ def compute_angles_raw(pos: torch.Tensor, mapping: torch.Tensor):
     return torch.atan2(n, d)
 
 
-def compute_angles_cos(pos: torch.Tensor, mapping: torch.Tensor):
-    """cos(theta_ijk) (reference geometry.py:100-115)."""
+def compute_angles_cos(pos: torch.Tensor, mapping: torch.Tensor,
+                       cell_shifts=None):
+    """cos(theta_ijk) (reference geometry.py:100-115). ``cell_shifts`` is
+    taken and not read, as in the reference."""
     dr1 = _atoms(pos, mapping, 0) - _atoms(pos, mapping, 1)
     dr2 = _atoms(pos, mapping, 2) - _atoms(pos, mapping, 1)
     dot = torch.sum(dr1 * dr2, dim=-1)

@@ -251,15 +251,18 @@ def _pad(capacity, k_eff, idx, mask, shifts):
     return idx, mask, shifts
 
 
-def _build(pos, rcut, capacity, exclude_pairs, cell=None):
+def _build(pos, rcut, capacity, exclude_pairs, cell=None,
+           self_interaction=False):
     """(idx, mask, n_max, shifts) of the batched build, minimum-imaged
     under ``cell`` (shifts None without one)."""
     s, n_atoms, _ = pos.shape
     cell, inv = _cell_operands(cell, s, pos.device)
     dr = pair_rel(pos, cell, inv)  # [s, i, j] = p_j - p_i (min image)
     d2 = _squared_norm(dr)
-    valid = (d2 < rcut * rcut) & ~torch.eye(n_atoms, dtype=torch.bool,
-                                             device=pos.device)
+    valid = d2 < rcut * rcut
+    if not self_interaction:
+        valid = valid & ~torch.eye(n_atoms, dtype=torch.bool,
+                                   device=pos.device)
     if exclude_pairs is not None:
         valid = valid & ~_exclusion_matrix(exclude_pairs, n_atoms,
                                            pos.device)
@@ -291,7 +294,8 @@ def _check_images(images) -> np.ndarray:
     return imgs
 
 
-def _build_images(pos, rcut, capacity, exclude_pairs, cell, images):
+def _build_images(pos, rcut, capacity, exclude_pairs, cell, images,
+                  self_interaction=False):
     """(idx, mask, n_max, shifts) of the image-replication build over the
     [S, A, M A] candidate columns (image m, atom j) of the wrapped
     positions (reference _radius_neighbor_matrix_images,
@@ -309,13 +313,14 @@ def _build_images(pos, rcut, capacity, exclude_pairs, cell, images):
     dr = ghost[:, None, :, :] - posw[:, :, None, :]  # [S, A, M A, 3]
     d2 = _squared_norm(dr)
     valid = d2 < rcut * rcut
-    # zero-shift self pairs only: an atom is a neighbour of its own
-    # non-zero images in a cell this small
-    self_pair = torch.zeros(n_atoms, m_img * n_atoms, dtype=torch.bool,
-                            device=pos.device)
-    self_pair[:, :n_atoms] = torch.eye(n_atoms, dtype=torch.bool,
-                                       device=pos.device)
-    valid = valid & ~self_pair
+    if not self_interaction:
+        # zero-shift self pairs only: an atom is a neighbour of its own
+        # non-zero images in a cell this small
+        self_pair = torch.zeros(n_atoms, m_img * n_atoms, dtype=torch.bool,
+                                device=pos.device)
+        self_pair[:, :n_atoms] = torch.eye(n_atoms, dtype=torch.bool,
+                                           device=pos.device)
+        valid = valid & ~self_pair
     if exclude_pairs is not None:
         excl = _exclusion_matrix(exclude_pairs, n_atoms, pos.device)
         valid = valid & ~excl.repeat(1, m_img)
@@ -367,16 +372,16 @@ def permute_neighbor_matrix(nbr: NeighborMatrix,
     )
 
 
-def _build_any(pos, rcut, capacity, cell, exclude_pairs, images,
-               check_cell, context):
+def _build_any(pos, rcut, capacity, cell, self_interaction, exclude_pairs,
+               images, check_cell, context):
     if images is not None:
         if cell is None:
             raise ValueError("image replication requires a cell")
         return _build_images(pos, rcut, capacity, exclude_pairs, cell,
-                             images)
+                             images, self_interaction)
     if check_cell:
         validate_min_image(cell, rcut, context=context)
-    return _build(pos, rcut, capacity, exclude_pairs, cell)
+    return _build(pos, rcut, capacity, exclude_pairs, cell, self_interaction)
 
 
 def batched_radius_neighbor_matrix(
@@ -384,6 +389,7 @@ def batched_radius_neighbor_matrix(
     rcut: float,
     capacity: int,
     cell=None,
+    self_interaction: bool = False,
     exclude_pairs=None,
     images=None,
     check_cell: bool = True,
@@ -391,17 +397,20 @@ def batched_radius_neighbor_matrix(
     """Padded neighbour matrices of a [S, A, 3] batch, with the source CSR
     (reference batched_radius_neighbor_matrix, neighborlist.py:390-426).
 
-    Pairs i != j with d < rcut (strict) are neighbours; ``exclude_pairs``
-    [2, P] are dropped in both directions (every image of the pair under
-    replication). ``n_max`` is per molecule. ``cell`` ([3, 3] or
+    Pairs i != j with d < rcut (strict) are neighbours, and with
+    ``self_interaction`` the self pairs i == i at d = 0 too (under image
+    replication the self pair of the zero shift is the only one ever left
+    out without it: an atom's other images are pairs like any other);
+    ``exclude_pairs`` [2, P] are dropped in both directions (every image of
+    the pair under replication). ``n_max`` is per molecule. ``cell`` ([3, 3] or
     [S, 3, 3]) takes the minimum image, validated on the host unless
     ``check_cell`` is False (a caller that validated it once, ahead of a
     hot loop); ``images`` (an [M, 3] integer shift set, zero first, from
     ``compute_image_shifts``) takes image replication instead."""
     with torch.no_grad():
         idx, mask, n_max, shifts = _build_any(
-            pos, rcut, capacity, cell, exclude_pairs, images, check_cell,
-            "batched_radius_neighbor_matrix",
+            pos, rcut, capacity, cell, self_interaction, exclude_pairs,
+            images, check_cell, "batched_radius_neighbor_matrix",
         )
         offsets, slots = source_csr(idx, mask)
     return NeighborMatrix(idx=idx, mask=mask, n_max=n_max,
@@ -414,20 +423,22 @@ def radius_neighbor_matrix(
     rcut: float,
     capacity: int,
     cell=None,
+    self_interaction: bool = False,
     exclude_pairs=None,
     images=None,
     check_cell: bool = True,
 ) -> NeighborMatrix:
     """The padded neighbour matrix of one molecule, pos [A, 3], with a
     [3, 3] cell where given (reference radius_neighbor_matrix,
-    neighborlist.py:224-309); no source CSR."""
+    neighborlist.py:224-309; the arguments as in
+    :func:`batched_radius_neighbor_matrix`); no source CSR."""
     if cell is not None:
         cell = torch.as_tensor(cell, dtype=torch.float32,
                                device=pos.device)[None]
     with torch.no_grad():
         idx, mask, n_max, shifts = _build_any(
-            pos[None], rcut, capacity, cell, exclude_pairs, images,
-            check_cell, "radius_neighbor_matrix",
+            pos[None], rcut, capacity, cell, self_interaction, exclude_pairs,
+            images, check_cell, "radius_neighbor_matrix",
         )
     return NeighborMatrix(idx=idx[0], mask=mask[0], n_max=n_max[0],
                           shifts=None if shifts is None else shifts[0])

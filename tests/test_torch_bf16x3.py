@@ -77,9 +77,8 @@ def _nrel(a, b):
 
 def _zoo_config(module_fn, **kw):
     """(order, order_deriv, d_min) of a zoo config, a symmetric order's
-    derivative order resolved to the order (the port's config resolves it,
-    the reference's keeps None), and the frontier warnings its call
-    emitted."""
+    derivative order (None in both packages' configs) resolved to the
+    order, and the frontier warnings its call emitted."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         ff, _ = module_fn(batch_size=1, **kw)
@@ -107,12 +106,13 @@ def test_zoo_configs_match_reference(precision):
                   cheb_order_deriv=deriv, num_interactions=1,
                   neighbor_capacity=16)
         ref, ref_warn = _zoo_config(jcgschnet, message_passing="cheb", **kw)
-        got, got_warn = _zoo_config(cgschnet_1enh_like, device="cpu", **kw)
+        got, got_warn = _zoo_config(cgschnet_1enh_like, device="cpu",
+                                    message_passing="cheb", **kw)
         assert got == ref, (n_atoms, order, deriv)
         assert len(got_warn) == len(ref_warn), (n_atoms, order, deriv)
     assert _zoo_config(cgschnet_1enh_like, n_atoms=266, precision=precision,
                        num_interactions=1, neighbor_capacity=16,
-                       device="cpu")[0] == (
+                       message_passing="cheb", device="cpu")[0] == (
         (64, 96, 2.0) if precision == "bf16x3" else (48, 64, 2.0))
 
 
@@ -129,7 +129,8 @@ def test_zoo_warns_past_frontier(precision, frontier):
         _, ref = _zoo_config(jcgschnet, message_passing="cheb",
                              n_atoms=n_atoms, cheb_order=order, **kw)
         _, got = _zoo_config(cgschnet_1enh_like, device="cpu",
-                             n_atoms=n_atoms, cheb_order=order, **kw)
+                             message_passing="cheb", n_atoms=n_atoms,
+                             cheb_order=order, **kw)
         assert len(ref) == len(got) == expect, (n_atoms, order)
         for r, g in zip(ref, got):
             head = f"(A={frontier} for precision={precision!r})"

@@ -317,7 +317,8 @@ def test_zoo_capacity_rule_and_weights():
     ff_small, _ = _small_pallas(neighbor_capacity=12)
     assert ff_small.neighbor_capacity == 12
     ff_cheb, _ = cgschnet_1enh_like(n_atoms=24, batch_size=2,
-                                    num_interactions=1, device="cpu")
+                                    num_interactions=1,
+                                    message_passing="cheb", device="cpu")
     flat = jax.tree_util.tree_leaves(ff_small.schnet_params)
     flat_cheb = jax.tree_util.tree_leaves(ff_cheb.schnet_params)
     assert len(flat) == len(flat_cheb)

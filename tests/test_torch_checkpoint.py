@@ -109,15 +109,12 @@ def _assert_tree_equal(port, ref, where="params"):
 
 def _assert_config_equal(cfg, jcfg):
     """Every field of the port's config equals the reference config's
-    field of that name (envelopes by class and fields; the port resolves
-    the derivative order the reference leaves None)."""
+    field of that name (envelopes by class and fields)."""
     for f in dataclasses.fields(cfg):
         port, ref = getattr(cfg, f.name), getattr(jcfg, f.name)
         if f.name in ("cutoff", "rbf_cutoff"):
             assert type(port).__name__ == type(ref).__name__
             assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-        elif f.name == "cheb_order_deriv":
-            assert port == (ref or jcfg.cheb_order)
         else:
             assert port == ref, f.name
 

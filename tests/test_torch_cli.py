@@ -308,8 +308,6 @@ def _assert_forcefield_equal(ff, jff):
         if f.name in ("cutoff", "rbf_cutoff"):
             assert (type(port).__name__, dataclasses.asdict(port)) == (
                 type(ref).__name__, dataclasses.asdict(ref))
-        elif f.name == "cheb_order_deriv":
-            assert port == (ref or jff.schnet_config.cheb_order)
         else:
             assert port == ref, f.name
     assert ff.priors.keys() == jff.priors.keys()

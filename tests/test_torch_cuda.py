@@ -8,7 +8,7 @@ CFConv; the tensor-core kernels also on ragged sizes and on positions
 with dead, live and clustered pairs) against its plain PyTorch twin on
 the card (at bf16x3 also nearer that twin than the fp32 one), the launch
 counters on the paths
-and on both cheb schedules, bitwise reproducibility, the wrappers'
+and on both cheb schedules (also under each radial-basis envelope), bitwise reproducibility, the wrappers'
 refusals and that the per-block schedule never takes a twin. Without a
 card every test skips (decided in a fixture, so every xdist worker
 collects the same tests). On the GPU machine, which has no
@@ -183,7 +183,8 @@ def test_cell_launch_counts(dev):
 
     results = {}
     for device in (dev, torch.device("cpu")):
-        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=device)
+        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                      message_passing="cheb", device=device)
         ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
                                                       ff.schnet_config))
         system = collate(cfgs, device=device)
@@ -201,7 +202,8 @@ def test_cell_launch_counts(dev):
     # bf16 model: summation order on the card vs the CPU only
     assert _rel(results["cuda"][0], results["cpu"][0]) <= 2e-3
 
-    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=dev)
+    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                  message_passing="cheb", device=dev)
     cfgs = [dataclasses.replace(c, cell=[[25.0, 0, 0], [0, 25.0, 0],
                                          [0, 0, 25.0]]) for c in cfgs]
     sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=4,
@@ -406,7 +408,8 @@ def test_main_path_launch_counts(dev):
 
     results = {}
     for device in (dev, torch.device("cpu")):
-        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=device)
+        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                      message_passing="cheb", device=device)
         ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
                                                       ff.schnet_config))
         system = collate(cfgs, device=device)
@@ -440,7 +443,8 @@ def test_in_graph_fit_card_matches_cpu(dev):
 
     fits, forces, counts = {}, {}, {}
     for device in (dev, torch.device("cpu")):
-        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=device)
+        ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                      message_passing="cheb", device=device)
         cfg, params = ff.schnet_config, ff.schnet_params
         fits[device.type] = [
             fit_chebyshev_filter(bp, params["rbf"], cfg, cfg.cheb_order,
@@ -467,6 +471,72 @@ def test_in_graph_fit_card_matches_cpu(dev):
     assert all(v == 0 for v in counts["cpu"].values())  # twins only
     # bf16 model: summation order on the card vs the CPU only
     assert _rel(forces["cuda"], forces["cpu"]) <= 2e-3
+
+
+ENVELOPES = ("IdentityCutoff(0, rc)", "CosineCutoff(0, rc - 1)",
+             "CosineCutoff(1, rc)", "ShiftedCosineCutoff(0, rc, 0.5)")
+
+
+def _envelope(name, rcut):
+    from flashmd_tpu_torch.models.cutoff import (
+        CosineCutoff,
+        IdentityCutoff,
+        ShiftedCosineCutoff,
+    )
+
+    return {"IdentityCutoff(0, rc)": IdentityCutoff(0.0, rcut),
+            "CosineCutoff(0, rc - 1)": CosineCutoff(0.0, rcut - 1.0),
+            "CosineCutoff(1, rc)": CosineCutoff(1.0, rcut),
+            "ShiftedCosineCutoff(0, rc, 0.5)": ShiftedCosineCutoff(
+                0.0, rcut, 0.5)}[name]
+
+
+@pytest.mark.parametrize("schedule", ["1", "0"], ids=["stacked",
+                                                      "per-block"])
+@pytest.mark.parametrize("envelope", ENVELOPES)
+def test_cheb_basis_envelope_card_matches_cpu(dev, monkeypatch, envelope,
+                                              schedule):
+    """The cheb path under each radial-basis envelope the reference's cheb
+    path takes: the host fit attached on the card and on the CPU, forces
+    card vs CPU within 1e-4 of max|F| at fp32 and 2e-3 at bf16, and the
+    launches of one force evaluation: 3/2/1 of fwd/gx/gd stacked, 3/2/1 of
+    fwd/gxgd/gd per block."""
+    import dataclasses
+    import warnings
+
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.cheb import attach_cheb_fit
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    monkeypatch.setenv("FLASHMD_CHEB_STACK", schedule)
+    per = ({"cheb_fwd": 3, "cheb_bwd_gx": 2, "cheb_bwd_gd": 1}
+           if schedule == "1" else
+           {"cheb_fwd": 3, "cheb_bwd_gxgd": 2, "cheb_bwd_gd": 1})
+    for precision, bound in (("fp32", 1e-4), ("bf16", 2e-3)):
+        forces, counts = {}, {}
+        for device in (dev, torch.device("cpu")):
+            ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                          precision=precision,
+                                          message_passing="cheb",
+                                          device=device)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # the bounds
+                cfg = dataclasses.replace(
+                    ff.schnet_config,
+                    rbf_cutoff=_envelope(envelope, ff.rcut))
+            ff = ff.replace(schnet_config=cfg, schnet_params=attach_cheb_fit(
+                ff.schnet_params, cfg))
+            system = collate(cfgs, device=device)
+            ck.reset_launch_counts()
+            f = compute_energy_forces(ff, system.pos, system.atom_types)[1]
+            forces[device.type], counts[device.type] = (f.cpu(),
+                                                        ck.launch_counts())
+        assert torch.isfinite(forces["cuda"]).all()
+        assert _rel(forces["cuda"], forces["cpu"]) <= bound, precision
+        assert counts["cuda"] == {**dict.fromkeys(ck.launch_counts(), 0),
+                                  **per}
+        assert all(v == 0 for v in counts["cpu"].values())  # twins only
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
@@ -560,7 +630,8 @@ def _perblock_forces(device, monkeypatch, cell=None, precision="bf16",
 
     monkeypatch.setenv("FLASHMD_CHEB_STACK", stack)
     ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
-                                  precision=precision, device=device)
+                                  precision=precision,
+                                  message_passing="cheb", device=device)
     ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
                                                   ff.schnet_config))
     system = collate(cfgs, device=device)
@@ -1196,7 +1267,8 @@ def test_pipelined_export_on_the_card_matches_synchronous(dev, tmp_path):
     from flashmd_tpu_torch.simulation import LangevinSimulation
     from flashmd_tpu_torch.simulation import base
 
-    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2, device=dev)
+    ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
+                                  message_passing="cheb", device=dev)
     guarded = []
 
     class NoSyncCopy(base.HostCopy):
@@ -1371,7 +1443,8 @@ def _mesh_run(mesh):
     from flashmd_tpu_torch.simulation import PTSimulation
 
     ff, cfgs = cgschnet_1enh_like(n_atoms=64, batch_size=2,
-                                  precision="fp32", device="cuda")
+                                  precision="fp32", message_passing="cheb",
+                                  device="cuda")
     sim = PTSimulation(friction=1.0, dt=0.004, n_timesteps=40,
                        save_interval=10, exchange_interval=5, random_seed=9,
                        device="cuda", gptq=None, mesh=mesh)

@@ -256,7 +256,8 @@ def test_zoo_dense_weights_config_and_simulate():
     the config carries across; attach fits nothing; simulate() runs."""
     ff, cfgs = _small_dense()
     ff_cheb, _ = cgschnet_1enh_like(n_atoms=12, batch_size=2,
-                                    num_interactions=1, device="cpu")
+                                    num_interactions=1,
+                                    message_passing="cheb", device="cpu")
     flat = jax.tree_util.tree_leaves(ff.schnet_params)
     flat_cheb = jax.tree_util.tree_leaves(ff_cheb.schnet_params)
     assert len(flat) == len(flat_cheb)
@@ -318,11 +319,13 @@ def test_entry_points_default_to_the_card():
         ff, _ = _small_dense(device=torch.device("cuda"))
         assert ff.schnet_params["embedding"].device.type == "cuda"
         ff, _ = cgschnet_1enh_like(n_atoms=12, batch_size=1,
-                                   num_interactions=1)
+                                   num_interactions=1,
+                                   message_passing="cheb")
         assert ff.schnet_params["embedding"].device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
-            cgschnet_1enh_like(n_atoms=12, batch_size=1, num_interactions=1)
+            cgschnet_1enh_like(n_atoms=12, batch_size=1, num_interactions=1,
+                               message_passing="cheb")
         _, cfgs = _small_dense()
         with pytest.raises((AssertionError, RuntimeError)):
             collate(cfgs)

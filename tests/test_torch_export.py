@@ -505,7 +505,7 @@ def test_specialized_dump_round_trips(tmp_path):
     configurations come back from the dump, and give the same forces."""
     ff, cfgs = cgschnet_1enh_like(n_atoms=20, batch_size=2,
                                   num_interactions=1, precision="fp32",
-                                  device="cpu")
+                                  message_passing="cheb", device="cpu")
     sim = LangevinSimulation(friction=1.0, dt=1e-3, n_timesteps=10,
                              save_interval=5, filename="dumped",
                              output_dir=str(tmp_path), device="cpu")
@@ -640,7 +640,8 @@ def test_default_gptq_attaches_bf16_as_jax(cheb_field):
 
 def test_validate_quantized():
     ff, _ = cgschnet_1enh_like(n_atoms=12, batch_size=1, num_interactions=1,
-                               precision="fp32", device="cpu")
+                               precision="fp32", message_passing="cheb",
+                               device="cpu")
     with pytest.raises(RuntimeError, match="precision='fp32'"):
         validate_quantized(ff)
     validate_quantized(harmonic_ff(3))

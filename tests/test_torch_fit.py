@@ -311,7 +311,7 @@ def test_filter_cotangents_on_the_unattached_path(mode, stack, monkeypatch):
         leaf.requires_grad_(True)
     try:
         schnet_energy(params, ff.schnet_config, torch.from_numpy(pos[:1]),
-                      torch.from_numpy(types).long()).sum().backward()
+                      torch.from_numpy(types).long(), None).sum().backward()
         grads = [leaf.grad.numpy() for leaf in leaves]
     finally:
         for leaf in leaves:

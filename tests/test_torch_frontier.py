@@ -82,7 +82,7 @@ def test_default_conversion_matches_jax(written, variant, caplog):
     assert (cfg.message_passing, cfg.precision, cfg.cheb_order,
             cfg.cheb_order_deriv, cfg.cheb_d_min) == (
         jcfg.message_passing, jcfg.precision, jcfg.cheb_order,
-        jcfg.cheb_order_deriv or jcfg.cheb_order, jcfg.cheb_d_min)
+        jcfg.cheb_order_deriv, jcfg.cheb_d_min)
     if variant == "exc_pairs":
         assert (cfg.message_passing, cfg.precision) == ("xla", "bf16")
     else:

@@ -41,6 +41,7 @@ from flashmd_tpu_torch.models.convert import (
 from flashmd_tpu_torch.models.cutoff import CosineCutoff
 from flashmd_tpu_torch.models.forcefield import compute_energy_forces
 from flashmd_tpu_torch.models.mlp import mlp_apply
+from flashmd_tpu_torch.models.schnet import SchNetConfig
 from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -255,25 +256,34 @@ def test_mlp_tiers_match_jax(precision):
         ("rbf_cutoff", JIdentityCutoff(0.0, RCUT)),
         ("rbf_cutoff", JShiftedCosineCutoff(0.0, RCUT, 0.5)),
         ("rbf_cutoff", JCosineCutoff(0.0, RCUT - 1.0)),
+        ("rbf_cutoff", JCosineCutoff(1.0, RCUT)),
     ],
 )
 def test_config_refuses_envelopes_it_would_replace(field, cut):
     """The exact xla path takes every reference envelope, carried across
-    as the port's envelope of the same class and fields; the cheb, dense
-    and pallas paths, whose kernels compute the zero-lower cosine on the
-    conv cutoff, still refuse each of them."""
+    as the port's envelope of the same class and fields. A conv cutoff
+    other than the cosine is refused by the cheb, dense and pallas paths,
+    whose kernels compute the cosine on it. A radial-basis envelope is
+    taken by cheb, as by the reference's cheb path (its fits evaluate the
+    basis with its own envelope), and refused by dense and pallas, whose
+    kernels compute the basis with the zero-lower cosine."""
     kw = {"cutoff": JCosineCutoff(0.0, RCUT), "rbf_cutoff": None,
           field: cut}
-    for mp in ("cheb", "dense", "pallas"):
-        with pytest.raises(NotImplementedError, match=field):
-            config_from_kwargs({**kw, "message_passing": mp})
+    refusing = ("cheb", "dense", "pallas") if field == "cutoff" else (
+        "dense", "pallas")
+    taking = tuple(mp for mp in ("xla", "cheb") if mp not in refusing)
     with warnings.catch_warnings():
-        # an rbf_cutoff with another upper bound warns, as the reference
+        # an rbf_cutoff with other bounds warns, as the reference
         warnings.simplefilter("ignore", UserWarning)
-        cfg = config_from_kwargs({**kw, "message_passing": "xla"})
-    got = getattr(cfg, field)
-    assert type(got).__name__ == type(cut).__name__
-    assert dataclasses.asdict(got) == dataclasses.asdict(cut)
+        for mp in refusing:
+            with pytest.raises(NotImplementedError, match=field):
+                config_from_kwargs({**kw, "message_passing": mp})
+        for mp in taking:
+            cfg = config_from_kwargs({**kw, "message_passing": mp})
+            assert cfg.message_passing == mp
+            got = getattr(cfg, field)
+            assert type(got).__name__ == type(cut).__name__
+            assert dataclasses.asdict(got) == dataclasses.asdict(cut)
 
 
 def test_config_takes_the_reference_cosine_cutoffs():
@@ -288,18 +298,25 @@ def test_config_takes_the_reference_cosine_cutoffs():
 
 
 def test_zoo_defaults_and_refusals():
-    ff, cfgs = cgschnet_1enh_like(n_atoms=24, batch_size=2,
-                                  num_interactions=1, device="cpu")
-    cfg = ff.schnet_config
-    assert (cfg.cheb_order, cfg.cheb_order_deriv, cfg.cheb_d_min,
-            cfg.precision) == (48, 64, 2.0, "bf16")
-    assert len(cfgs) == 2 and cfgs[0].pos.shape == (24, 3)
-    # the reference's default path builds on the same weights
+    # the default path is the JAX zoo's and the JAX config's: "xla"
     xla, _ = cgschnet_1enh_like(n_atoms=24, batch_size=2,
-                                num_interactions=1, message_passing="xla",
-                                device="cpu")
-    assert xla.schnet_config.message_passing == "xla"
-    assert xla.schnet_config.remat == "block"
+                                num_interactions=1, device="cpu")
+    jxla, _ = jcgschnet(n_atoms=24, batch_size=2, num_interactions=1)
+    fields = ("message_passing", "remat", "precision", "cheb_order",
+              "cheb_order_deriv", "cheb_d_min", "max_num_neighbors", "aggr")
+    assert ([getattr(xla.schnet_config, f) for f in fields]
+            == [getattr(jxla.schnet_config, f) for f in fields]
+            == ["xla", "block", "bf16", 48, 64, 2.0, 1000, "add"])
+    assert (SchNetConfig().message_passing == JSchNetConfig().message_passing
+            == "xla")
+    ff, cfgs = cgschnet_1enh_like(n_atoms=24, batch_size=2,
+                                  num_interactions=1, message_passing="cheb",
+                                  device="cpu")
+    cfg = ff.schnet_config
+    assert (cfg.message_passing, cfg.cheb_order, cfg.cheb_order_deriv,
+            cfg.cheb_d_min, cfg.precision) == ("cheb", 48, 64, 2.0, "bf16")
+    assert len(cfgs) == 2 and cfgs[0].pos.shape == (24, 3)
+    # both paths build on the same weights
     assert torch.equal(xla.schnet_params["interactions"][0]["lin1_w"],
                        ff.schnet_params["interactions"][0]["lin1_w"])
     with pytest.raises(NotImplementedError, match="cheb_fused"):

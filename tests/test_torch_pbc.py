@@ -350,7 +350,8 @@ def test_refusals():
     """dense and pallas refuse cells; unsound cells raise on a direct call
     and at attach; collation refuses inconsistent and malformed cells."""
     ff, cfgs = cgschnet_1enh_like(n_atoms=24, batch_size=S,
-                                  num_interactions=1, device="cpu")
+                                  num_interactions=1, message_passing="cheb",
+                                  device="cpu")
     ff = ff.replace(schnet_params=attach_cheb_fit(ff.schnet_params,
                                                   ff.schnet_config))
     system = collate(cfgs, device="cpu")
@@ -391,7 +392,8 @@ def test_refusals():
 
 def test_collate_stacks_cells():
     _, cfgs = cgschnet_1enh_like(n_atoms=24, batch_size=S,
-                                 num_interactions=1, device="cpu")
+                                 num_interactions=1, message_passing="cheb",
+                                 device="cpu")
     cells = [np.eye(3) * 21.0, TRICLINIC.astype(np.float64) * 3.0]
     system = collate([dataclasses.replace(c, cell=cl)
                       for c, cl in zip(cfgs, cells)], device="cpu")

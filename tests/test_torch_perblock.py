@@ -268,7 +268,7 @@ def test_perblock_lin_gradients_match_jax(monkeypatch):
         for bp in params["interactions"]
     ]
     tschnet.schnet_energy(params, ff.schnet_config, _t(pos_np),
-                          torch.tensor(jcfgs[0].atom_types).long()
+                          torch.tensor(jcfgs[0].atom_types).long(), None
                           ).sum().backward()
     for b, (bp, jbp) in enumerate(zip(params["interactions"], jgrads)):
         for k in LIN_KEYS:
@@ -304,7 +304,7 @@ def test_perblock_param_cotangents(mode, monkeypatch):
     pos = _t(np.stack([c.pos for c in jcfgs]).astype(np.float32))
     pos.requires_grad_(True)
     tschnet.schnet_energy(params, ff.schnet_config, pos,
-                          torch.tensor(jcfgs[0].atom_types).long()
+                          torch.tensor(jcfgs[0].atom_types).long(), None
                           ).sum().backward()
     assert torch.isfinite(pos.grad).all() and pos.grad.abs().max() > 0
     for fit in params["cheb_fit"]:

@@ -87,7 +87,8 @@ def test_baoab_steps_match_jax_with_injected_noise():
 
 def test_simulate_on_cpu():
     ff, cfgs = cgschnet_1enh_like(n_atoms=20, batch_size=S,
-                                  num_interactions=1, device="cpu")
+                                  num_interactions=1, message_passing="cheb",
+                                  device="cpu")
     sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=8,
                              save_interval=4, random_seed=5, device="cpu")
     sim.attach_model_and_configurations(ff, cfgs, beta=1.67)

@@ -87,7 +87,8 @@ def test_validate_configurations_raises_on_mismatched_exclusions():
 
 def _cheb_pair_with_exclusions():
     ff, cfgs = cgschnet_1enh_like(n_atoms=A, batch_size=2,
-                                  num_interactions=1, device="cpu")
+                                  num_interactions=1, message_passing="cheb",
+                                  device="cpu")
     exc = np.array([[0, 3], [10, 14]])
     return ff, [dataclasses.replace(c, exc_pair_index=exc) for c in cfgs], exc
 

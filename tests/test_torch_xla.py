@@ -409,7 +409,8 @@ def test_images_need_the_exact_path():
     cheb field with pbc_images in a small cell); here compute_energy_forces
     and build_neighbors raise."""
     ff, cfgs = cgschnet_1enh_like(n_atoms=24, batch_size=1,
-                                  num_interactions=1, device="cpu")
+                                  num_interactions=1, message_passing="cheb",
+                                  device="cpu")
     small = 8.0 * np.eye(3)
     images = tuple(map(tuple, nl.compute_image_shifts(small, ff.rcut)))
     pos = torch.tensor(cfgs[0].pos[None], dtype=torch.float32)
