@@ -16,7 +16,11 @@ Phases (each prints its lines; any failure exits non-zero):
                dense forward, the neighbour-matrix forward and the
                neighbour-matrix backward's two passes (bf16) must not
                spill and must hold tensor-core MMA instructions in their
-               SASS (cuobjdump); their counts are printed.
+               SASS (cuobjdump); their counts are printed. The fp32
+               CUDA-core live-pair kernels' six instantiations
+               (cheb_rows_ffma_kernel fwd, gx; cheb_gd_ffma_kernel; open,
+               cell) must be built; their registers and spills are
+               printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
@@ -48,7 +52,14 @@ Phases (each prints its lines; any failure exits non-zero):
                bf16x3 tier, open and on the folded cells, on the bf16x3
                slice's own fits (64, 96); each also nearer its bf16x3
                twin than its fp32 twin (Frobenius norms), which holds
-               only if the kernel takes the hi/lo splits.
+               only if the kernel takes the hi/lo splits. Then the four
+               and the F = 128 gd launch at fp32 alone, open and on the
+               folded cells, on the fp32 slice's own fits (128, 128) on
+               d_min 0 (keys "_fp32"). Every fp32 line of cheb_fwd,
+               cheb_bwd_gx and cheb_bwd_gd (also at the slice's (48, 64))
+               adds the pairs the live-pair kernel runs against S A^2,
+               its registers and spills, and two launches gated bitwise
+               equal.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
                the cheb (stacked and per-block schedules), the dense and
@@ -62,7 +73,10 @@ Phases (each prints its lines; any failure exits non-zero):
                bf16x3 (all gated at BF16X3_BOUND): card vs CPU forces,
                stacked and per-block, open and periodic on folded
                positions; per-block vs stacked; bf16x3 vs fp32 network
-               forces on the same (64, 96) fit.
+               forces on the same (64, 96) fit. The fp32 slice's field
+               (128, 128) on d_min 0: card vs CPU (CROSS_BOUND), and its
+               total and network forces against the dense fp32 field
+               (fidelity, printed, not gated).
 5. slice    -- LangevinSimulation at the bench configuration (batch 128,
                266 beads, 3 blocks, bf16, cheb (48, 64), d_min 2.0) for
                120 steps; launch counts must be 3/2/1 per force
@@ -84,7 +98,15 @@ Phases (each prints its lines; any failure exits non-zero):
                stacked schedule (launches 3/2/1 per force evaluation on the
                *_bf16x3 counters, every other counter 0), throughput beside
                the bf16 slice's, a profiler window; then
-               BF16X3_SHORT_STEPS steps each periodic, per-block and
+               TIER_SHORT_STEPS steps each periodic, per-block and
+               per-block periodic, each on its own counters.
+   fp32     -- cgschnet_1enh_like(precision="fp32", message_passing=
+               "cheb") at the zoo's fp32 defaults, (128, 128) on d_min 0,
+               the slice's other settings and gptq None, STEPS steps on
+               the stacked schedule: launches 3/2/1 per force evaluation
+               on the *_fp32 counters, every other counter 0; throughput
+               beside the bf16 and bf16x3 slices'; a profiler window;
+               then TIER_SHORT_STEPS steps each periodic, per-block and
                per-block periodic, each on its own counters.
 6. dense    -- the same Langevin run on the dense exact-filter force
                field (message_passing="dense", bf16) for the same
@@ -340,10 +362,11 @@ CROSS_BOUND = 1e-4
 # The periodic per-block run's steps: shorter than the slices', to stay
 # well inside the time limit.
 PERBLOCK_PERIODIC_STEPS = 40
-# The bf16x3 slice: its stacked run, and the short periodic, per-block and
-# per-block periodic runs that put each bf16x3 variant on a path.
+# The bf16x3 slice's stacked run; the bf16x3 and fp32 slices' short
+# periodic, per-block and per-block periodic runs, which put each variant
+# of the tier on a path.
 BF16X3_STEPS = 40
-BF16X3_SHORT_STEPS = 10
+TIER_SHORT_STEPS = 10
 # bf16x3 forces against another near-fp32 evaluation of the same function
 # (card vs CPU, per-block vs stacked, fp32 on the same fit): summation and
 # product order, and the splits' ~5e-6 of max|F| against fp32.
@@ -449,10 +472,14 @@ REPLACES = {
 }
 # The bf16x3 tier of the four cheb kernels: the same kernels with their
 # products through _mxu_dot's three bf16 passes.
+_CHEB = [n for n in REPLACES if n.startswith("cheb")]
 REPLACES.update({
     name + "_bf16x3": f"{REPLACES[name]} bf16x3 (_mxu_dot :358)"
-    for name in [n for n in REPLACES if n.startswith("cheb")]
+    for name in _CHEB
 })
+# Its fp32 tier: cheb_fwd, cheb_bwd_gx and cheb_bwd_gd on the CUDA-core
+# live-pair kernels, cheb_bwd_gxgd on its 32 x 32 tiles.
+REPLACES.update({name + "_fp32": f"{REPLACES[name]} fp32" for name in _CHEB})
 SOURCES = {
     "cheb": "flashmd_tpu_torch/csrc/cheb_kernels.cu",
     "dense": "flashmd_tpu_torch/csrc/cfconv_dense_kernels.cu",
@@ -553,6 +580,58 @@ def _mma_label(kind, args):
             f" {MMA_TIERS[t]} {'cell' if c == '1' else 'open'}")
 
 
+# Pairs per batch of the fp32 CUDA-core kernels (LF_PB in
+# csrc/cheb_kernels.cu): a warp pads its last batch up to it.
+LF_PB = 16
+# {label: (registers, spill stores, spill loads)} of the fp32 CUDA-core
+# kernels, read from ptxas by ffma_kernel_report at the build.
+FFMA_BUILD = {}
+# The fp32 CUDA-core kernels' template arguments in their mangled names:
+# cheb_rows_ffma_kernel<GX, HAS_CELL>, cheb_gd_ffma_kernel<HAS_CELL>.
+FFMA_KERNELS = {
+    "rows": re.compile(r"cheb_rows_ffma_kernelILb([01])ELb([01])E"),
+    "gd": re.compile(r"cheb_gd_ffma_kernelILb([01])E"),
+}
+
+
+def ffma_label(name):
+    """"cheb_rows_ffma_kernel fwd open", ... of a mangled kernel name, or
+    None for another kernel."""
+    m = FFMA_KERNELS["rows"].search(name)
+    if m:
+        return (f"cheb_rows_ffma_kernel {'gx' if m.group(1) == '1' else 'fwd'}"
+                f" {'cell' if m.group(2) == '1' else 'open'}")
+    m = FFMA_KERNELS["gd"].search(name)
+    if m:
+        return f"cheb_gd_ffma_kernel {'cell' if m.group(1) == '1' else 'open'}"
+    return None
+
+
+def ffma_kernel_report(log):
+    """{label: (registers, spill stores, spill loads)} of the six fp32
+    CUDA-core instantiations (fwd, gx, gd; open, cell), printed; fails if
+    one is missing."""
+    seen = {}
+    for line in ptxas_summary(log):
+        label = ffma_label(line.split(":")[0])
+        if label:
+            regs = int(re.search(r": (\d+) regs", line).group(1))
+            st, ld = map(int, re.search(r"spill (\d+)/(\d+) B",
+                                        line).groups())
+            seen[label] = (regs, st, ld)
+    for kind in ("fwd", "gx"):
+        for c in ("open", "cell"):
+            check(f"cheb_rows_ffma_kernel {kind} {c}" in seen,
+                  f"cheb_rows_ffma_kernel {kind} {c}: not built")
+    for c in ("open", "cell"):
+        check(f"cheb_gd_ffma_kernel {c}" in seen,
+              f"cheb_gd_ffma_kernel {c}: not built")
+    for label, (regs, st, ld) in sorted(seen.items()):
+        print(f"build: fp32 kernel {label}: {regs} regs, spill {st}/{ld} B")
+    FFMA_BUILD.update(seen)
+    return seen
+
+
 def mma_kernel_report(log, lib_path, nvcc):
     """The tensor-core kernels' instantiations: cheb_gd_mma_kernel and
     cheb_gxgd_mma_kernel (bf16, bf16x3; open, cell), cheb_rows_mma_kernel
@@ -642,16 +721,26 @@ def _nearer_split(out_k, out_p, out_f):
 
 
 def compare_and_time(name, kern, plain, flops, nbytes, label=None,
-                     fp32_flops=0.0, bf16x3=False):
+                     fp32_flops=0.0, precs=("fp32", "bf16"), fp32_note="",
+                     repeat=False):
     """Kernel vs twin (callables of the tier) and their CUDA-event times,
-    held to ``name``'s bounds, at fp32 and bf16 (returning the bf16
-    numbers, the tier of the slices) or, with ``bf16x3``, at that tier
-    alone, where the kernel must also lie nearer its bf16x3 twin than the
-    fp32 twin on the same inputs."""
+    held to ``name``'s bounds, at the tiers ``precs`` (returning the last
+    one's numbers: bf16, the tier of the slices, by default); at bf16x3
+    the kernel must also lie nearer its bf16x3 twin than the fp32 twin on
+    the same inputs. The fp32 line ends with ``fp32_note``; with
+    ``repeat``, a second fp32 launch must equal the first bitwise."""
     results = {}
-    for prec in ("bf16x3",) if bf16x3 else ("fp32", "bf16"):
+    for prec in precs:
         out_k = _tuple(kern(prec))
         torch.cuda.synchronize()
+        note = ""
+        if prec == "fp32":
+            note = f"; {fp32_note}" if fp32_note else ""
+            if repeat:
+                same = all(torch.equal(a, b)
+                           for a, b in zip(out_k, _tuple(kern(prec))))
+                note += f"; two launches bitwise equal: {same}"
+                check(same, f"{label or name} fp32: two launches differ")
         out_p = _tuple(plain(prec))
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(o).all()) for o in out_k),
@@ -667,10 +756,10 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
               f"(bound {limit:.0e}) max_abs_err {abs_err:.3e} kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms; least time "
               f"{bound_ms:.4f} ms by {bound_by} ({flops:.4e} FLOP, "
-              f"{nbytes} B)")
+              f"{nbytes} B){note}")
         check(rel <= limit,
               f"{label or name} {prec}: {rel:.3e} > {limit:.0e}")
-        if bf16x3:
+        if prec == "bf16x3":
             near = _nearer_split(out_k, out_p, _tuple(plain("fp32")))
             print(f"kernels: {label or name} bf16x3 ||k-p_bf16x3|| / "
                   f"||k-p_fp32|| = {near:.3e} (must be < 1)")
@@ -685,12 +774,14 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
 def cheb_pair_counts(pos, rcut, d_min, cell=None):
     """(pairs i != j with d < rcut, of which d < d_min, 16 x 8 pair
     fragments holding such a pair, all 16 x 8 fragments, 16 x 16
-    fragments holding a pair with z != 1, all 16 x 16 fragments) of the
-    batch, minimum-imaged under ``cell``: the pairs whose basis, and whose
-    sub-floor linear term, is nonzero, the only ones the cheb products
-    need; the 16 x 8 fragments are the tensor-core gd kernel's mma tiles,
-    the 16 x 16 ones the fwd/gx kernel's (its rule z != 1 keeps the
-    diagonal), of which each runs the live ones."""
+    fragments holding a pair with z != 1, all 16 x 16 fragments, pairs
+    with z != 1) of the batch, minimum-imaged under ``cell``: the pairs
+    whose basis, and whose sub-floor linear term, is nonzero, the only
+    ones the cheb products need; the 16 x 8 fragments are the tensor-core
+    gd kernel's mma tiles, the 16 x 16 ones the fwd/gx kernel's (its rule
+    z != 1 keeps the diagonal), of which each runs the live ones; the fp32
+    kernels run the pairs themselves (z != 1 for fwd/gx, the first count
+    for gd)."""
     from flashmd_tpu_torch.ops.cheb_kernel import _geometry, pair_rel
     from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
 
@@ -701,18 +792,21 @@ def cheb_pair_counts(pos, rcut, d_min, cell=None):
     live = (d < rcut) & off
     return (int(live.sum()), int(((d < d_min) & off).sum()),
             *live_chunks(live, rows=16, cols=8),
-            *live_chunks(z != 1.0, rows=16, cols=16))
+            *live_chunks(z != 1.0, rows=16, cols=16), int((z != 1.0).sum()))
 
 
-def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False, tag="",
+def phase_cheb_kernels(ff, pos, dev, cell=None, tier=None, tag="",
                        stacked_only=False):
     """The four cheb kernels, open or, with ``cell`` [S, 3, 3], their
-    cell variants (keys with "_cell"), at the slice's shapes; with
-    ``bf16x3``, at that tier alone under keys with "_bf16x3". The bounds
-    count the products of the live pairs only (d < rcut off the diagonal;
-    the linear term's d < d_min), as the basis is exactly zero beyond the
-    cutoff. ``tag`` ends every key and label; ``stacked_only`` times the
-    three kernels of the stacked schedule alone."""
+    cell variants (keys with "_cell"), at the slice's shapes, at fp32 and
+    bf16 or, with ``tier`` "bf16x3" or "fp32", at that tier alone under
+    keys with "_bf16x3" or "_fp32". The bounds count the products of the
+    live pairs only (d < rcut off the diagonal; the linear term's d <
+    d_min), as the basis is exactly zero beyond the cutoff. Each fp32 line
+    of fwd, gx and gd adds the pairs the fp32 kernel runs, its registers
+    and spills (FFMA_BUILD) and a bitwise repeat. ``tag`` ends every key
+    and label; ``stacked_only`` times the three kernels of the stacked
+    schedule alone."""
     from flashmd_tpu_torch.models.cheb import _lin_slope
     from flashmd_tpu_torch.ops import cheb_kernel as ck
     from flashmd_tpu_torch.ops.neighborlist import _inv_3x3
@@ -733,8 +827,8 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False, tag="",
     x_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     g_cat = torch.randn(s, a, nb * f, generator=gen, device=dev)
     m1, m2 = c.shape[0], c2.shape[0]
-    n_live, n_low, n_frag, all_frag, n_rows, all_rows = cheb_pair_counts(
-        pos, rcut, d_min, cell)
+    n_live, n_low, n_frag, all_frag, n_rows, all_rows, n_z = (
+        cheb_pair_counts(pos, rcut, d_min, cell))
     pair_flops = 2.0 * n_live
     low_flops = 2.0 * n_low * f if w_lin is not None else 0.0
     kw, suffix, wrap, cell_bytes = {}, "", 0.0, 0
@@ -742,9 +836,24 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False, tag="",
         # every pair is wrapped before its distance is known
         kw = {"cell": cell, "inv": _inv_3x3(cell)}
         suffix, wrap, cell_bytes = "_cell", WRAP_FLOPS * s * a * a, 72 * s
-    if bf16x3:
-        suffix += "_bf16x3"
+    if tier is not None:
+        suffix += "_" + tier
     suffix += tag
+    precs = ("fp32", "bf16") if tier is None else (tier,)
+    variant = "cell" if cell is not None else "open"
+
+    def fp32_note(kernel, pairs):
+        regs = FFMA_BUILD.get(f"{kernel} {variant}")
+        return (f"pairs run {pairs} of {s * a * a} (+ at most {LF_PB - 1} "
+                f"padding slots per warp); {kernel} {variant}: "
+                + (f"{regs[0]} regs, spill {regs[1]}/{regs[2]} B" if regs
+                   else "registers not read"))
+
+    notes = {
+        "cheb_fwd": fp32_note("cheb_rows_ffma_kernel fwd", n_z),
+        "cheb_bwd_gx": fp32_note("cheb_rows_ffma_kernel gx", n_z),
+        "cheb_bwd_gd": fp32_note("cheb_gd_ffma_kernel", n_live),
+    }
 
     cases = {
         "cheb_fwd": (
@@ -795,14 +904,16 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False, tag="",
         name + suffix: compare_and_time(name, kern, plain, flops,
                                         nbytes + cell_bytes,
                                         label=name + suffix, fp32_flops=wrap,
-                                        bf16x3=bf16x3)
+                                        precs=precs,
+                                        fp32_note=notes.get(name, ""),
+                                        repeat=name in notes)
         for name, (kern, plain, flops, nbytes) in cases.items()
     }
     if stacked_only:
         return stats
-    # the combined kernel beside the composition of the two tensor-core
-    # kernels that compute its halves apart on the same operands
-    prec = "bf16x3" if bf16x3 else "bf16"
+    # the combined kernel beside the composition of the two kernels that
+    # compute its halves apart on the same operands
+    prec = tier or "bf16"
 
     def composition():
         ck.cheb_conv_bwd_gx(c, w0, pos, g, rcut, prec, d_min, w_lin, **kw)
@@ -810,9 +921,11 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False, tag="",
 
     comp_ms = cuda_time_ms(composition)
     gxgd_ms = stats["cheb_bwd_gxgd" + suffix]["ms"]
-    print(f"kernels: cheb_bwd_gxgd{suffix} live 16x16 fragments (z != 1, "
-          f"run by the combined kernel) {n_rows} of {all_rows} "
-          f"({n_rows / all_rows:.4f}); {prec} combined {gxgd_ms:.4f} ms")
+    runs = ("every pair, in 32 x 32 tiles" if tier == "fp32" else
+            f"live 16x16 fragments (z != 1, run by the combined kernel) "
+            f"{n_rows} of {all_rows} ({n_rows / all_rows:.4f})")
+    print(f"kernels: cheb_bwd_gxgd{suffix} {runs}; {prec} combined "
+          f"{gxgd_ms:.4f} ms")
     print(f"kernels: cheb_bwd_gxgd{suffix} composition {prec} "
           f"(cheb_bwd_gx + one-block cheb_bwd_gd, same operands) "
           f"{comp_ms:.4f} ms beside the combined {gxgd_ms:.4f} ms (ratio "
@@ -826,7 +939,8 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, bf16x3=False, tag="",
                                             **kw),
         pair_flops * f * m2, 4 * (2 * s * a * 3 + 2 * s * a * f + m2 * f)
         + cell_bytes, label=f"cheb_bwd_gd{suffix} (F={f}, one block)",
-        fp32_flops=wrap, bf16x3=bf16x3,
+        precs=precs, fp32_note=notes["cheb_bwd_gd"], repeat=True,
+        fp32_flops=wrap,
     )
     return stats
 
@@ -1177,12 +1291,15 @@ def with_cells(cfgs, cells, folded=False):
             for c, p, cl in zip(cfgs, pos, cells)]
 
 
-def phase_forces(dev, message_passing, label=None):
+def phase_forces(dev, message_passing, label=None, bound=FORCE_BOUND, **kw):
+    """Forces and energies at FORCE_BATCH on the card (kernels) and on the
+    CPU (twins) of the zoo's field on ``message_passing`` (``kw``: more of
+    its arguments), held to ``bound`` of their maxima."""
     label = label or message_passing
     out = {}
     for device in (dev, torch.device("cpu")):
         ff, cfgs = _force_fields(device, FORCE_BATCH,
-                                 message_passing=message_passing)
+                                 message_passing=message_passing, **kw)
         out[device.type] = _forces(ff, cfgs, device)
     (e_k, f_k), (e_p, f_p) = out["cuda"], out["cpu"]
     check(bool(torch.isfinite(f_k).all()),
@@ -1191,8 +1308,8 @@ def phase_forces(dev, message_passing, label=None):
     e_rel = float((e_k - e_p).abs().max() / e_p.abs().max())
     print(f"forces: {label} batch {FORCE_BATCH} card vs cpu plain: "
           f"max|dF|/max|F| = {f_rel:.3e}, max|dE|/max|E| = {e_rel:.3e} "
-          f"(bound {FORCE_BOUND:.0e})")
-    check(f_rel <= FORCE_BOUND and e_rel <= FORCE_BOUND,
+          f"(bound {bound:.0e})")
+    check(f_rel <= bound and e_rel <= bound,
           f"forces {label}: card and CPU disagree")
 
 
@@ -1211,16 +1328,16 @@ def cheb_schedule(value):
             os.environ["FLASHMD_CHEB_STACK"] = old
 
 
-def cheb_counts(n_evals, per_block=False, cell=False, bf16x3=False):
+def cheb_counts(n_evals, per_block=False, cell=False, tier="bf16"):
     """Every cheb launch counter's expected value over ``n_evals`` force
     evaluations of the 3-block slice on one schedule, open or with cells,
-    at bf16 or bf16x3: fwd 3, gx 2, gd 1 (stacked) or fwd 3, gxgd 2, gd 1
-    (per block)."""
+    at the tier (bf16, bf16x3 or fp32): fwd 3, gx 2, gd 1 (stacked) or fwd
+    3, gxgd 2, gd 1 (per block)."""
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
     per = ({"cheb_fwd": 3, "cheb_bwd_gxgd": 2, "cheb_bwd_gd": 1} if per_block
            else {"cheb_fwd": 3, "cheb_bwd_gx": 2, "cheb_bwd_gd": 1})
-    sfx = ("_cell" if cell else "") + ("_bf16x3" if bf16x3 else "")
+    sfx = ("_cell" if cell else "") + ("" if tier == "bf16" else "_" + tier)
     return {**dict.fromkeys(ck.launch_counts(), 0),
             **{k + sfx: v * n_evals for k, v in per.items()}}
 
@@ -1521,7 +1638,7 @@ def phase_fit(ff, cfgs, dev, smi, method_fits):
         ck.reset_launch_counts()
         e, f, _ = compute_energy_forces(field, system.pos, system.atom_types)
         counts = ck.launch_counts()
-        check(counts == cheb_counts(1),
+        check(counts == cheb_counts(1, tier=field.schnet_config.precision),
               f"fit: launches {counts}, expected 3/2/1")
         return e, f
 
@@ -1915,48 +2032,80 @@ def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
     return counts, m["ms_per_timestep"], sim
 
 
-def run_bf16x3_slices(ff, cfgs, pbc_cfgs, dev, bf16_tp, smi):
-    """The bf16x3 slice: BF16X3_STEPS steps on the stacked schedule with a
-    profiler window, then BF16X3_SHORT_STEPS steps each periodic,
-    per-block and per-block periodic, each with its own counters set to 0
-    just before and read just after. Returns the bf16x3 counters as the
-    runs that launch them read them."""
+def run_tier_slices(ff, cfgs, pbc_cfgs, dev, steps, beside, smi):
+    """The slice of a field at another tier than bf16 (bf16x3 or fp32):
+    ``steps`` steps on the stacked schedule (launches 3/2/1 per force
+    evaluation on the tier's counters, every other counter 0), its
+    throughput beside those of ``beside`` ({slice: throughput} of this
+    process), a profiler window; then TIER_SHORT_STEPS steps each
+    periodic, per-block and per-block periodic, each with its own counters
+    set to 0 just before and read just after. Returns the tier's counters
+    as the runs that launch them read them, and the stacked run's
+    throughput."""
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
-    n_evals = BF16X3_STEPS + 1
-    n_short = BF16X3_SHORT_STEPS + 1
-    short = (BF16X3_SHORT_STEPS, BF16X3_SHORT_STEPS // 2)  # two frames
+    cfg = ff.schnet_config
+    tier = cfg.precision
+    n_short = TIER_SHORT_STEPS + 1
+    short = (TIER_SHORT_STEPS, TIER_SHORT_STEPS // 2)  # two frames
     with cheb_schedule("1"):
         counts, _, sim = run_slice(
-            "bf16x3", ff, cfgs, dev, BF16X3_STEPS, SAVE_INTERVAL, ck,
-            cheb_counts(n_evals, bf16x3=True), smi, gptq=None,
+            tier, ff, cfgs, dev, steps, SAVE_INTERVAL, ck,
+            cheb_counts(steps + 1, tier=tier), smi, gptq=None,
         )
         tp = sim.get_throughput_metrics()["throughput"]
-        print(f"bf16x3: second-half throughput {tp:.1f} timestep*mol/s "
-              f"({BF16X3_STEPS} steps) beside the bf16 cheb slice's "
-              f"{bf16_tp:.1f} in this run (ratio {tp / bf16_tp:.4f})")
-        profile_steps(sim, dev, PROFILE_STEPS, "bf16x3")
+        print(f"{tier}: second-half throughput {tp:.1f} timestep*mol/s "
+              f"({steps} steps, orders {cheb_orders(cfg)} on d_min "
+              f"{cfg.cheb_d_min}) beside " + ", ".join(
+                  f"the {name} slice's {v:.1f} (ratio {tp / v:.4f})"
+                  for name, v in beside.items()) + f" in this run, on {smi}")
+        profile_steps(sim, dev, PROFILE_STEPS, tier)
         pbc, _, _ = run_slice(
-            "bf16x3 periodic", ff, pbc_cfgs, dev, *short, ck,
-            cheb_counts(n_short, cell=True, bf16x3=True), smi, gptq=None,
+            f"{tier} periodic", ff, pbc_cfgs, dev, *short, ck,
+            cheb_counts(n_short, cell=True, tier=tier), smi, gptq=None,
         )
     with cheb_schedule("0"):
         pb, _, _ = run_slice(
-            "bf16x3 per-block", ff, cfgs, dev, *short, ck,
-            cheb_counts(n_short, per_block=True, bf16x3=True), smi,
+            f"{tier} per-block", ff, cfgs, dev, *short, ck,
+            cheb_counts(n_short, per_block=True, tier=tier), smi,
             gptq=None,
         )
         pb_pbc, _, _ = run_slice(
-            "bf16x3 per-block periodic", ff, pbc_cfgs, dev, *short,
-            ck,
-            cheb_counts(n_short, per_block=True, cell=True, bf16x3=True),
+            f"{tier} per-block periodic", ff, pbc_cfgs, dev, *short, ck,
+            cheb_counts(n_short, per_block=True, cell=True, tier=tier),
             smi, gptq=None,
         )
-    out = {k: v for k, v in counts.items() if k.endswith("_bf16x3")}
-    out.update({k: v for k, v in pbc.items() if k.endswith("_cell_bf16x3")})
-    out["cheb_bwd_gxgd_bf16x3"] = pb["cheb_bwd_gxgd_bf16x3"]
-    out["cheb_bwd_gxgd_cell_bf16x3"] = pb_pbc["cheb_bwd_gxgd_cell_bf16x3"]
-    return out
+    sfx = "_" + tier
+    out = {k: v for k, v in counts.items() if k.endswith(sfx)}
+    out.update({k: v for k, v in pbc.items() if k.endswith("_cell" + sfx)})
+    out["cheb_bwd_gxgd" + sfx] = pb["cheb_bwd_gxgd" + sfx]
+    out["cheb_bwd_gxgd_cell" + sfx] = pb_pbc["cheb_bwd_gxgd_cell" + sfx]
+    return out, tp
+
+
+def phase_fp32_forces(dev):
+    """The fp32 slice's field at FORCE_BATCH: card (kernels) vs CPU (twins)
+    at CROSS_BOUND (two fp32 evaluations of one function); then its total
+    and network forces against the dense fp32 field on the same weights
+    and positions (printed, not gated: the fidelity of the zoo's fp32
+    orders on the full domain)."""
+    phase_forces(dev, "cheb", label="cheb fp32 (the zoo's fp32 defaults)",
+                 bound=CROSS_BOUND, precision="fp32")
+    ff_c, cfgs = _force_fields(dev, FORCE_BATCH, precision="fp32")
+    ff_d, _ = _force_fields(dev, FORCE_BATCH, precision="fp32",
+                            message_passing="dense")
+    for label, keep_priors in (("total", True), ("network only", False)):
+        def forces(ff):
+            return _forces(ff if keep_priors else ff.replace(priors={}),
+                           cfgs, dev)[1]
+
+        f_ref = forces(ff_d)
+        rel = float((forces(ff_c) - f_ref).abs().max() / f_ref.abs().max())
+        print(f"fidelity: {label} forces, batch {FORCE_BATCH}, max|F - "
+              f"F_dense_fp32|/max|F_dense_fp32|: cheb fp32 "
+              f"{cheb_orders(ff_c.schnet_config)} d_min "
+              f"{ff_c.schnet_config.cheb_d_min} = {rel:.4e} (printed, not "
+              "gated)")
 
 
 def profile_steps(sim, dev, steps, label, ops=0):
@@ -4063,6 +4212,7 @@ def main():
     for line in ptxas_summary(info["log"]):
         print(f"build: ptxas {line}")
     mma_kernel_report(info["log"], info["path"], _build._nvcc())
+    ffma_kernel_report(info["log"])
 
     from flashmd_tpu_torch.data.system import collate
     from flashmd_tpu_torch.ops import cfconv as cf
@@ -4092,6 +4242,11 @@ def main():
     check((*cheb_orders(cfg_x3), cfg_x3.cheb_d_min, cfg_x3.precision,
            cfg_x3.message_passing) == (64, 96, 2.0, "bf16x3", "cheb"),
           f"unexpected bf16x3 slice config {cfg_x3}")
+    ff_32, _ = _force_fields(dev, BATCH, precision="fp32")
+    cfg_32 = ff_32.schnet_config
+    check((*cheb_orders(cfg_32), cfg_32.cheb_d_min, cfg_32.precision,
+           cfg_32.message_passing) == (128, 128, 0.0, "fp32", "cheb"),
+          f"unexpected fp32 slice config {cfg_32}")
 
     pos = collate(cfgs, device=dev).pos
     stats = phase_cheb_kernels(ff, pos, dev)
@@ -4104,9 +4259,13 @@ def main():
           f"{n_cross} cross a face")
     check(n_cross > 0, "no live pair crosses a face")
     stats.update(phase_cheb_kernels(ff, folded.pos, dev, cell=folded.cell))
-    stats.update(phase_cheb_kernels(ff_x3, pos, dev, bf16x3=True))
+    stats.update(phase_cheb_kernels(ff_x3, pos, dev, tier="bf16x3"))
     stats.update(phase_cheb_kernels(ff_x3, folded.pos, dev, cell=folded.cell,
-                                    bf16x3=True))
+                                    tier="bf16x3"))
+    # the fp32 tier at the fp32 slice's own fits (128, 128) on d_min 0
+    stats.update(phase_cheb_kernels(ff_32, pos, dev, tier="fp32"))
+    stats.update(phase_cheb_kernels(ff_32, folded.pos, dev, cell=folded.cell,
+                                    tier="fp32"))
     dense_stats, no_gx_ms = phase_dense_kernels(ff_dense, pos, dev)
     stats.update(dense_stats)
     nbr_stats, nbr_no_gx_ms = phase_nbr_kernels(ff_pallas, pos, dev)
@@ -4123,6 +4282,7 @@ def main():
     phase_cross_check(dev)
     phase_image_check(dev)
     phase_bf16x3_forces(dev)
+    phase_fp32_forces(dev)
     phase_forces(dev, "xla")
     phase_xla_forces(dev)
     phase_image_check(dev, "xla")
@@ -4168,7 +4328,13 @@ def main():
           f"{sim.get_throughput_metrics()['throughput']:.1f} timestep*mol/s "
           f"({PERBLOCK_PERIODIC_STEPS} steps) beside the stacked periodic "
           f"slice's {pbc_tp:.1f}")
-    counts.update(run_bf16x3_slices(ff_x3, cfgs, pbc_cfgs, dev, open_tp, smi))
+    x3_counts, x3_tp = run_tier_slices(ff_x3, cfgs, pbc_cfgs, dev,
+                                       BF16X3_STEPS, {"bf16 cheb": open_tp},
+                                       smi)
+    counts.update(x3_counts)
+    counts.update(run_tier_slices(ff_32, cfgs, pbc_cfgs, dev, STEPS,
+                                  {"bf16 cheb": open_tp, "bf16x3": x3_tp},
+                                  smi)[0])
     dense_counts, ms_step, sim = run_slice(
         "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
         {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},

@@ -23,13 +23,18 @@
 //                   gd = sum_m That_m U_m (the (1-z) factor rides in That).
 //
 // What bounds them on the H100: at the slice (A=266, F=128, B=3 blocks,
-// orders 48/64) the three kernels are matrix work,
-// (2B-1)*M1 + B*M2 = 432 order-products of 2*A^2*F FLOPs, about 7.8 GFLOP
-// per molecule-step; the bytes they read are pos, x/g and the coefficient
-// tables (a few hundred KB per molecule), so they sit far above the
-// machine balance and are bound by arithmetic. The fp32 tier of all four
-// does that arithmetic as float32 FMA from shared memory (register-tiled
-// 4x4 per thread: cheb_rows_kernel, cheb_gd_kernel, cheb_gxgd_kernel). At
+// orders 48/64) the three kernels are matrix work over the pairs within
+// the cutoff (871,318 of 9,056,768 at the slice's start), 2 F FLOP per
+// live pair and order; the bytes they read are pos, x/g and the
+// coefficient tables (a few hundred KB per molecule), so they sit far
+// above the machine balance and are bound by arithmetic. Every kernel
+// but the per-block fp32 one runs only the pairs that add something:
+// at fp32 cheb_fwd, cheb_bwd_gx and cheb_bwd_gd take float32 FMAs on the
+// CUDA cores over the live pairs one by one, compacted per row by warp
+// vote (cheb_rows_ffma_kernel, cheb_gd_ffma_kernel: each pair's filter
+// over all features as a register-tiled [pairs x M] [M x F] product,
+// 32 FMAs per shared load, with the recurrence in registers); cheb_bwd_gxgd
+// at fp32 keeps the 32 x 32 tiles of every pair (cheb_gxgd_kernel). At
 // bf16 and bf16x3 each takes its order products on the tensor cores:
 // cheb_bwd_gd over the live 16 x 8 pair fragments only
 // (cheb_gd_mma_kernel), cheb_fwd and cheb_bwd_gx over the 16 x 16
@@ -37,15 +42,18 @@
 // cheb_bwd_gxgd over those same fragments, both halves from one
 // recurrence (cheb_gxgd_mma_kernel); their notes are below. What the
 // design does about the bound: the [A, A] pair and recurrence state never
-// reaches device memory -- it lives in registers (and, in the fp32
-// kernels, a double-buffered shared tile per (row tile, column block)) --
-// so every FLOP is spent on the products themselves, and the three-term
-// recurrence costs one FMA per pair and order against F FMAs of product.
+// reaches device memory -- it lives in registers (and, in
+// cheb_gxgd_kernel, a double-buffered shared tile per (row tile, column
+// block)) -- so every FLOP is spent on the products themselves, and the
+// three-term recurrence costs one FMA per pair and order against F FMAs
+// of product (eight at fp32, where each lane steps its own pairs).
 //
-// Determinism: each block owns its output rows; the only cross-block sum
-// (the column side of the position gradient) is written as per-tile
-// partials and summed by a second kernel in a fixed tile order. No
-// atomics anywhere, so results are bitwise reproducible run to run.
+// Determinism: each warp or block owns its output rows; the only sums
+// that cross them (the column side of the position gradient at bf16 and
+// bf16x3 and in cheb_gxgd_kernel; the feature chunks of the fp32 gd) are
+// written as partial slabs and summed by a second kernel in a fixed slab
+// order. No atomics anywhere, so results are bitwise reproducible run to
+// run.
 //
 // Precision tiers (the C entry points' `tier`; any other value is refused
 // with cudaErrorInvalidValue). At the same places as the plain PyTorch
@@ -81,18 +89,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-
-// cheb_fwd / cheb_bwd_gx tiling: 32 destination rows x 128 features per
-// block, source atoms in column blocks of 32.
-constexpr int RT_TA = 32;
-constexpr int RT_TJ = 32;
-constexpr int RT_FC = 128;
-
-// cheb_bwd_gd tiling: 64 x 64 pair tiles, features in chunks of 32.
-constexpr int GD_T = 64;
-constexpr int GD_FC = 32;
-constexpr int GD_LD = GD_FC + 1;  // padded row stride: no bank conflicts
-constexpr int GD_WLD = GD_T + 1;
 
 // cheb_bwd_gxgd tiling: 32 x 32 pair tiles (each thread 4 rows x 1
 // column), gx rows x 128 features per thread block, features in chunks of
@@ -153,401 +149,555 @@ __device__ __forceinline__ void pair_geom(const float* pi, const float* pj,
   z = fminf(fmaxf((dd - d_min) * scale - 1.0f, -1.0f), 1.0f);
 }
 
-// One kernel for cheb_fwd (GX=false: basis (1-z)^2 T_m, operand x,
-// coefficient after the product) and cheb_bwd_gx (GX=true: basis
-// (1-z) T_k, operand q_k * g formed before the product), at the fp32 tier
-// (bf16 and bf16x3 take cheb_rows_mma_kernel). Grid:
-// (row tiles, feature chunks, molecules). The cell variant takes 18 floats
-// of dynamic shared memory for the lattice.
-template <bool GX, bool HAS_CELL>
-__global__ void __launch_bounds__(THREADS)
-cheb_rows_kernel(const float* __restrict__ pos, const float* __restrict__ in,
-                 const float* __restrict__ coef,
-                 const float* __restrict__ w0,
-                 const float* __restrict__ w_lin,
-                 const float* __restrict__ cell,
-                 const float* __restrict__ inv, float* __restrict__ out,
-                 int A, int F, int M, float rcut, float d_min, float scale) {
-  __shared__ float t_s[2][RT_TA][RT_TJ];
-  __shared__ float in_s[RT_TJ][RT_FC];
-  __shared__ float pr_s[RT_TA][3];
-  __shared__ float pc_s[RT_TJ][3];
-  extern __shared__ float geo_s[];
+// One float to shared memory by cp.async, zero-filled when !in (src is
+// then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
 
-  const int s = blockIdx.z;
-  const int r0 = blockIdx.x * RT_TA;
-  const int f0 = blockIdx.y * RT_FC;
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-  pos += (size_t)s * A * 3;
-  in += (size_t)s * A * F;
-  out += (size_t)s * A * F;
+// The fp32 tier of cheb_fwd, cheb_bwd_gx and cheb_bwd_gd, on the CUDA
+// cores, over the live pairs only.
+//
+// Replace _cheb_fwd_kernel (flashmd_tpu/ops/pallas/cheb_kernel.py:394)
+// and _cheb_bwd_kernel with need_gd=False or need_gx=False (:476) at
+// fp32, as cheb_rows_mma_kernel and cheb_gd_mma_kernel do at bf16 and
+// bf16x3. Bound: operations, 2 * live pairs * F * M FLOP of order
+// products at the 67 TFLOP/s float32 peak (TF32 stays off: this tier is
+// exact float32 arithmetic): at the cheb slice (871,318 live pairs of 128
+// molecules, F = 128) 0.160 ms for the 48 forward orders, 0.163 ms for the
+// 49 gx orders, 0.639 ms for the stacked gd (F = 384, M = 64).
+//
+// Design. For the P live pairs of a row the filter is a matrix product,
+//     Wf[p, f] = sum_m T~_m(z_p) C[m, f],
+// with C = c (fwd), q (gx) or c2 (gd) and T~_m the three-term recurrence
+// from the seed (1-z)^2, (1-z) or 1. Each output is a sum of Wf against
+// the operands:
+//     fwd   out[i, f]  = sum_p Wf[p, f] x[j_p, f]  (+ low_p w_lin[f] in Wf)
+//     gx    gx[i, f]   = sum_p Wf[p, f] g[j_p, f]  (the same, q and g)
+//     gd    W_p = (1-z_p) / d_p sum_f Wf[p, f] (g[i, f] x[j, f]
+//                                               + g[j, f] x[i, f])
+//           gpos[i]    = -sum_p W_p rel_p          (rel_p = p_j - p_i,
+//                                                   minimum-imaged)
+// gd takes W_ij + W_ji from one Wf: d, z and the basis are symmetric
+// bitwise (rel_ji = -rel_ij exactly, rint is odd), so each row owns its
+// whole gradient and no column partial crosses a row.
+// 1. Live pairs. A warp owns whole rows (one block stages C once and its
+//    LF_W warps walk a contiguous range of the batch's S * A rows, warp w
+//    taking every LF_W-th; the rows of a molecule stay together, so the
+//    warps of a block read neighbouring x rows from L1). Per row the warp
+//    computes z for 32 columns at a time (lf_geom), votes, and pushes
+//    the live ones in column order into its ring (row, column, z and low
+//    or d and rel): fwd/gx keep z != 1 exactly (both seeds vanish at z ==
+//    1; the diagonal, at z = -1, stays and the epilogue removes its share
+//    as w0 x[i]); gd keeps d < rcut off the diagonal in range (W is zero
+//    elsewhere). Nothing leaves the card, the step loop waits for nothing.
+// 2. Product core. Whenever LF_PB = 16 pairs are queued the warp takes
+//    them as one batch: lane (fg = lane % 16, pg = lane / 16) holds Wf of
+//    pairs 8 pg .. 8 pg + 7 at features 4 fg + {0..3} and 64 + 4 fg +
+//    {0..3} of the block's LF_FC = 128-feature chunk in 64 float32
+//    accumulators. Per order it steps its 8 pairs' recurrence in
+//    registers (one FMA each; the forward's product and difference
+//    rounded apart, lf_two_orders: no basis tile, no barrier), reads C[m] at
+//    its features with two 16-byte shared loads, then takes 64 FMAs: 32
+//    FMAs per shared load, against 2 in the 32 x 32 tiles this replaces.
+//    C (and w_lin as one more row) is staged once per block by cp.async.
+// 3. Epilogues. fwd/gx: the batch's Wf goes to the warp's shared rows in
+//    two halves; lane l then sums Wf[p, 4l..4l+3] * x[j_p] over the pairs
+//    in ring order into a running row sum, written as sum - w0 x[i] when
+//    the row changes. gd: each lane contracts its 8 features per pair,
+//    the 16 feature lanes reduce by shuffles (xor 1, 2, 4, 8), and -W rel
+//    is summed per row in ring order. A row with no live pair is written
+//    at the end of its scan (fwd/gx: -w0 x[i]; gd: 0).
+// 4. Feature chunks. The grid's y axis takes F in chunks of LF_FC; fwd
+//    and gx chunks own their features; gd chunk 0 writes row_part and
+//    chunk c > 0 slab c - 1 of col_part, summed by gd_reduce_kernel in
+//    chunk order (cheb_bwd_gd's n_slabs = chunks - 1).
+// Determinism: every sum runs in a fixed order (orders, ring order within
+// a row, the shuffle tree, chunk order), whatever the grid; no atomics.
+// What bounds it: the product's FMAs, with one recurrence step per eight
+// product FMAs on top. Reached at the cheb slice's shapes (H100 80GB
+// HBM3, 700 W; chip_smoke, PERF.md section 6): at (48, 64) fwd about 0.51
+// ms (31 % of the bound), gx 0.49-0.54 (30-33 %), stacked gd 1.84 (35 %),
+// one block's gd 0.68 (31 %), 10-16x the 32 x 32 and 64 x 64 all-pair
+// tiles they replace; at the fp32 zoo's (128, 128) fwd and gx about 1.0
+// ms (42-44 %), stacked gd 2.8 (45 %). What holds them there: the order
+// loop runs at about half the FFMA rate, and the rest (the scan, the
+// epilogues, the staging: tools/cheb_ffma_variants.py's no_orders) takes
+// 0.16 ms of the forward at M = 48 and 0.71 ms of the stacked gd, whose
+// three feature chunks each scan the rows again.
+// Orders up to ~370 (fwd, gx) or ~420 (gd) fit the staged C.
+constexpr int LF_W = 8;          // warps per block
+constexpr int LF_FC = 128;       // features per block
+constexpr int LF_PP = 8;         // pairs per lane
+constexpr int LF_PB = 2 * LF_PP;  // pairs per batch
+constexpr int LF_RING = 64;      // ring entries per warp (a power of two)
+// Blocks per SM that the register budget must allow: one for fwd/gx (168
+// registers with the order loop unrolled four times; two blocks cap them
+// at 128 and ran 10-22 % slower at M = 128, 3-12 % at M = 48:
+// tools/cheb_ffma_variants.py), two for gd (at one, 168 registers and
+// 10-13 % slower stacked).
+constexpr int LF_ROWS_MINB = 1;
+constexpr int LF_GD_MINB = 2;
+// per-warp shared floats: Wf half batch, ring (row, column, z, low), cell
+constexpr int LF_ROWS_WARP = LF_PP * LF_FC + 4 * LF_RING + 32;
+// per-warp shared floats: -W rel per pair, ring (row, column, z, d, rel),
+// cell
+constexpr int LF_GD_WARP = 4 * LF_PB + 7 * LF_RING + 32;
 
-  int fk[4];
-  bool fok[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    fk[k] = f0 + tx + 32 * k;
-    fok[k] = fk[k] < F;
+// Four features f..f+3 of a row (zero past F); one 16-byte load when the
+// row is 16-byte aligned (vec: F % 4 == 0 and an aligned base).
+__device__ __forceinline__ float4 lf_ld4(const float* row, int f, int F,
+                                         bool vec) {
+  if (vec && f + 3 < F) return *reinterpret_cast<const float4*>(row + f);
+  return make_float4(f < F ? row[f] : 0.0f, f + 1 < F ? row[f + 1] : 0.0f,
+                     f + 2 < F ? row[f + 2] : 0.0f,
+                     f + 3 < F ? row[f + 3] : 0.0f);
+}
+
+// C rows 0..rows-1 ([rows][F] at coef) and, when extra != nullptr, one
+// more row from extra [F], of features f0..f0+LF_FC-1 into c_s
+// [rows (+1)][LF_FC], zero past F; waited for and visible to the block.
+__device__ __forceinline__ void lf_stage(float* c_s, const float* coef,
+                                         const float* extra, int rows,
+                                         int f0, int F) {
+  int n = (rows + (extra != nullptr)) * LF_FC;
+  for (int e = threadIdx.x; e < n; e += LF_W * 32) {
+    int m = e / LF_FC, f = f0 + e % LF_FC;
+    bool in = f < F;
+    const float* src = m < rows ? coef + (size_t)m * F + f : extra + f;
+    cp_async4(c_s + e, in ? src : coef, in);
   }
-  float wl[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    wl[k] = (w_lin != nullptr && fok[k]) ? w_lin[fk[k]] : 0.0f;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
 
-  if (tid < RT_TA * 3) {
-    int r = tid / 3, c = tid % 3;
-    pr_s[r][c] = (r0 + r < A) ? pos[(r0 + r) * 3 + c] : 0.0f;
+// rel = p_j - p_i and d, z as the twins round them on the CPU: every
+// product and sum apart, sums left to right, none contracted into an FMA
+// (pair_rel and pair_geom let the compiler contract), so that z is bitwise
+// the CPU twins'. The basis at order m moves by ~m^2 ulps of z near z =
+// +-1, so at M = 128 on coefficients that do not decay the twin on the
+// card, whose torch.sum adds the squares as (x^2 + z^2) + y^2, lies about
+// as far from the twin on the CPU as the forward's 1e-5 bound; the card
+// tests hold these kernels against the CPU twins.
+template <bool HAS_CELL>
+__device__ __forceinline__ void lf_geom(const float* pi, const float* pj,
+                                        const float* geo, bool valid,
+                                        float rcut, float d_min, float scale,
+                                        float (&r)[3], float& d, float& z) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r[k] = pj[k] - pi[k];
+  if (HAS_CELL) {
+    const float* iv = geo + 9;
+    float n[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      n[k] = rintf(__fadd_rn(__fadd_rn(__fmul_rn(r[0], iv[k]),
+                                       __fmul_rn(r[1], iv[3 + k])),
+                             __fmul_rn(r[2], iv[6 + k])));
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      r[k] = __fsub_rn(r[k], __fadd_rn(__fadd_rn(__fmul_rn(n[0], geo[k]),
+                                                 __fmul_rn(n[1], geo[3 + k])),
+                                       __fmul_rn(n[2], geo[6 + k])));
   }
-  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
+  float d2 = __fadd_rn(__fadd_rn(__fmul_rn(r[0], r[0]), __fmul_rn(r[1], r[1])),
+                       __fmul_rn(r[2], r[2]));
+  d = valid ? sqrtf(__fadd_rn(d2, 1e-12f)) : 2.0f * rcut;
+  z = fminf(fmaxf(__fsub_rn(__fmul_rn(__fsub_rn(d, d_min), scale), 1.0f),
+                  -1.0f),
+            1.0f);
+}
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
+// The molecule's lattice and inverse into the warp's geo (cell variant),
+// when the molecule changes.
+template <bool HAS_CELL>
+__device__ __forceinline__ void lf_geo(float* geo, const float* cell,
+                                       const float* inv, int s, int& cur_s,
+                                       int lane) {
+  if (!HAS_CELL || s == cur_s) return;
+  __syncwarp();
+  if (lane < 18) geo[lane] = lane < 9 ? cell[s * 9 + lane]
+                                      : inv[s * 9 + lane - 9];
+  __syncwarp();
+  cur_s = s;
+}
 
-  for (int j0 = 0; j0 < A; j0 += RT_TJ) {
-    __syncthreads();  // previous column block's reads are done
-    for (int e = tid; e < RT_TJ * RT_FC; e += THREADS) {
-      int jj = e / RT_FC, ff = e % RT_FC;
-      int j = j0 + jj, f = f0 + ff;
-      float v = (j < A && f < F) ? in[(size_t)j * F + f] : 0.0f;
-      in_s[jj][ff] = v;
-    }
-    if (tid < RT_TJ * 3) {
-      int jj = tid / 3, c = tid % 3;
-      pc_s[jj][c] = (j0 + jj < A) ? pos[(j0 + jj) * 3 + c] : 0.0f;
-    }
-    __syncthreads();
+// acc[p][k] += t[p] * C[m][k] at this lane's features (cm = C[m] + 4 fg).
+__device__ __forceinline__ void lf_order(float (&acc)[LF_PP][8],
+                                         const float (&t)[LF_PP],
+                                         const float* cm) {
+  const float4 lo = *reinterpret_cast<const float4*>(cm);
+  const float4 hi = *reinterpret_cast<const float4*>(cm + LF_FC / 2);
+  const float c[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int p = 0; p < LF_PP; ++p)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[p][k] = fmaf(t[p], c[k], acc[p][k]);
+}
 
-    // This thread's 4 pairs of the tile: rows ty + 8e, column tx.
-    float z[4], d[4], tp[4], tc[4];
+// Orders m and m + 1 into acc, then ta, tb advanced to T_{m+2}, T_{m+3}.
+// With TWIN_STEP the step is rounded twice, as the twins' two_z * t -
+// t_prev, so that the basis is bitwise the twins' (with lf_geom's z): the
+// recurrence's rounding grows as m^2 near z = +-1, and at M = 128 on
+// coefficients that do not decay an FMA here takes the forward several
+// times farther from its twin, toward its 1e-5 bound. The forward pays
+// the extra instruction (tools/cheb_ffma_variants.py, fwd_fma_step); gx
+// and gd, bound at 1e-4, take one FMA.
+template <bool TWIN_STEP>
+__device__ __forceinline__ void lf_two_orders(float (&acc)[LF_PP][8],
+                                              float (&ta)[LF_PP],
+                                              float (&tb)[LF_PP],
+                                              const float (&z2)[LF_PP],
+                                              const float* cm) {
+  lf_order(acc, ta, cm);
+  lf_order(acc, tb, cm + LF_FC);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      int r = ty + 8 * e;
-      bool valid = (r0 + r < A) && (j0 + tx < A);
-      pair_geom<HAS_CELL>(pr_s[r], pc_s[tx], geo_s, valid, rcut, d_min,
-                          scale, d[e], z[e]);
-      float u = 1.0f - z[e];
-      float seed = GX ? u : u * u;
-      tp[e] = seed;
-      tc[e] = seed * z[e];
-    }
-
-    for (int m = 0; m < M; ++m) {
-      float* tb = &t_s[m & 1][0][0];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float tm;
-        if (m == 0) {
-          tm = tp[e];
-        } else if (m == 1) {
-          tm = tc[e];
-        } else {
-          float tn = 2.0f * z[e] * tc[e] - tp[e];
-          tp[e] = tc[e];
-          tc[e] = tn;
-          tm = tn;
-        }
-        tb[(ty + 8 * e) * RT_TJ + tx] = tm;
-      }
-      __syncthreads();
-      float cm[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        cm[k] = fok[k] ? coef[(size_t)m * F + fk[k]] : 0.0f;
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) p[i][k] = 0.0f;
-#pragma unroll 4
-      for (int jj = 0; jj < RT_TJ; ++jj) {
-        float b[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float v = in_s[jj][tx + 32 * k];
-          b[k] = GX ? cm[k] * v : v;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float t = tb[(ty + 8 * i) * RT_TJ + jj];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) p[i][k] += t * b[k];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          acc[i][k] += GX ? p[i][k] : cm[k] * p[i][k];
-    }
-
-    if (w_lin != nullptr) {
-      // First-order extrapolation below the fit-domain floor:
-      // low = min(d - d_min, 0) off the diagonal, zero outside [0, A).
-      float* tb = &t_s[M & 1][0][0];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r = r0 + ty + 8 * e, j = j0 + tx;
-        bool valid = (r < A) && (j < A) && (r != j);
-        float low = valid ? fminf(d[e] - d_min, 0.0f) : 0.0f;
-        tb[(ty + 8 * e) * RT_TJ + tx] = low;
-      }
-      __syncthreads();
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) p[i][k] = 0.0f;
-      for (int jj = 0; jj < RT_TJ; ++jj) {
-        float b[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float v = in_s[jj][tx + 32 * k];
-          b[k] = GX ? wl[k] * v : v;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float t = tb[(ty + 8 * i) * RT_TJ + jj];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) p[i][k] += t * b[k];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          acc[i][k] += GX ? p[i][k] : wl[k] * p[i][k];
-    }
-  }
-
-  // Self-pair removal: the diagonal (z = -1) contributed w0 * in[i].
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r = r0 + ty + 8 * i;
-    if (r >= A) continue;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!fok[k]) continue;
-      size_t o = (size_t)r * F + fk[k];
-      out[o] = acc[i][k] - w0[fk[k]] * in[o];
+  for (int p = 0; p < LF_PP; ++p) {
+    if constexpr (TWIN_STEP) {
+      ta[p] = __fsub_rn(__fmul_rn(z2[p], tb[p]), ta[p]);
+      tb[p] = __fsub_rn(__fmul_rn(z2[p], ta[p]), tb[p]);
+    } else {
+      ta[p] = fmaf(z2[p], tb[p], -ta[p]);
+      tb[p] = fmaf(z2[p], ta[p], -tb[p]);
     }
   }
 }
 
-// Distance gradient of all blocks at once over block-stacked [A, F]
-// operands, and its row/column position-gradient sides, at the fp32 tier
-// (bf16 and bf16x3 take cheb_gd_mma_kernel). Grid: (row tiles,
-// molecules). Row sides go to row_part [S, A, 3] (owned rows);
-// column sides to col_part [S, n_tiles, A, 3] (one slab per row tile).
+// acc = sum_m T_m C[m] over M orders from the seeds ta = T_0, tb = T_1
+// (advanced in place, two orders a step: T_{m+2} = 2z T_{m+1} - T_m), the
+// loop over steps unrolled UNROLL times (tools/cheb_ffma_variants.py: 4
+// for fwd/gx, which have the registers for it, 1 for gd).
+template <int UNROLL, bool TWIN_STEP>
+__device__ __forceinline__ void lf_product(float (&acc)[LF_PP][8],
+                                           float (&ta)[LF_PP],
+                                           float (&tb)[LF_PP],
+                                           const float (&z2)[LF_PP],
+                                           const float* cf, int M) {
+#pragma unroll
+  for (int p = 0; p < LF_PP; ++p)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[p][k] = 0.0f;
+  int m = 0;
+#pragma unroll(UNROLL)
+  for (; m + 1 < M; m += 2)
+    lf_two_orders<TWIN_STEP>(acc, ta, tb, z2, cf + m * LF_FC);
+  if (m < M) lf_order(acc, ta, cf + m * LF_FC);
+}
+
+// The warp's share [lo + warp, hi) step LF_W of the block's rows.
+__device__ __forceinline__ void lf_rows(int S, int A, int warp, int& lo,
+                                        int& hi) {
+  int n = S * A;
+  int per = (n + gridDim.x - 1) / gridDim.x;
+  lo = blockIdx.x * per + warp;
+  hi = min((int)(blockIdx.x * per) + per, n);
+}
+
+// cheb_fwd (GX = false: seed (1-z)^2, operand x, coefficients c) and
+// cheb_bwd_gx (GX = true: seed (1-z), operand g, coefficients q) at fp32.
+// Grid: (blocks over the S * A rows, feature chunks); LF_W warps.
+template <bool GX, bool HAS_CELL>
+__global__ void __launch_bounds__(LF_W * 32, LF_ROWS_MINB)
+cheb_rows_ffma_kernel(const float* __restrict__ pos,
+                      const float* __restrict__ in,
+                      const float* __restrict__ coef,
+                      const float* __restrict__ w0,
+                      const float* __restrict__ w_lin,
+                      const float* __restrict__ cell,
+                      const float* __restrict__ inv, float* __restrict__ out,
+                      int S, int A, int F, int M, float rcut, float d_min,
+                      float scale, int vec_in) {
+  extern __shared__ float4 lf_smem4[];
+  float* c_s = reinterpret_cast<float*>(lf_smem4);  // [M + 1][LF_FC]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fg = lane & 15, pg = lane >> 4;
+  const int f0 = blockIdx.y * LF_FC;
+  const bool vec = vec_in != 0;
+  float* wf_s = c_s + (size_t)(M + 1) * LF_FC + warp * LF_ROWS_WARP;
+  int* ring_i = reinterpret_cast<int*>(wf_s + LF_PP * LF_FC);
+  int* ring_j = ring_i + LF_RING;
+  float* ring_z = reinterpret_cast<float*>(ring_j + LF_RING);
+  float* ring_a = ring_z + LF_RING;
+  float* geo = ring_a + LF_RING;
+  lf_stage(c_s, coef, w_lin, M, f0, F);
+
+  int row, row_end;
+  lf_rows(S, A, warp, row, row_end);
+  int head = 0, tail = 0, cur = -1, cur_s = -1;
+  float run[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // out[r] = run - w0 in[r] at this lane's four features
+  auto commit = [&](int r) {
+    const size_t o = (size_t)r * F;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int f = f0 + 4 * lane + k;
+      if (f < F) out[o + f] = run[k] - w0[f] * in[o + f];
+    }
+  };
+  // the nv (<= LF_PB) queued pairs from head
+  auto batch = [&](int nv) {
+    float ta[LF_PP], tb[LF_PP], z2[LF_PP];
+#pragma unroll
+    for (int p = 0; p < LF_PP; ++p) {
+      int t = pg * LF_PP + p;
+      float z = t < nv ? ring_z[(head + t) & (LF_RING - 1)] : 1.0f;
+      float u = 1.0f - z;
+      float seed = GX ? u : u * u;
+      ta[p] = seed;
+      tb[p] = seed * z;
+      z2[p] = 2.0f * z;
+    }
+    float acc[LF_PP][8];
+    // the forward's bound is 1e-5: its basis is stepped as the twin's
+    lf_product<4, !GX>(acc, ta, tb, z2, c_s + 4 * fg, M);
+    if (w_lin != nullptr) {  // the linear term: Wf += low w_lin
+#pragma unroll
+      for (int p = 0; p < LF_PP; ++p) {
+        int t = pg * LF_PP + p;
+        ta[p] = t < nv ? ring_a[(head + t) & (LF_RING - 1)] : 0.0f;
+      }
+      lf_order(acc, ta, c_s + M * LF_FC + 4 * fg);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (pg == h) {
+#pragma unroll
+        for (int p = 0; p < LF_PP; ++p) {
+          float* w = wf_s + p * LF_FC + 4 * fg;
+          *reinterpret_cast<float4*>(w) =
+              make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+          *reinterpret_cast<float4*>(w + LF_FC / 2) =
+              make_float4(acc[p][4], acc[p][5], acc[p][6], acc[p][7]);
+        }
+      }
+      __syncwarp();
+      for (int t = 0; t < LF_PP; ++t) {
+        int e = h * LF_PP + t;
+        if (e >= nv) break;
+        int q = (head + e) & (LF_RING - 1);
+        int gi = ring_i[q], gj = ring_j[q];
+        if (gi != cur) {
+          if (cur >= 0) commit(cur);
+          cur = gi;
+          run[0] = run[1] = run[2] = run[3] = 0.0f;
+        }
+        float4 w = *reinterpret_cast<const float4*>(wf_s + t * LF_FC +
+                                                    4 * lane);
+        float4 v = lf_ld4(in + (size_t)gj * F, f0 + 4 * lane, F, vec);
+        run[0] = fmaf(w.x, v.x, run[0]);
+        run[1] = fmaf(w.y, v.y, run[1]);
+        run[2] = fmaf(w.z, v.z, run[2]);
+        run[3] = fmaf(w.w, v.w, run[3]);
+      }
+      __syncwarp();
+    }
+  };
+
+  for (; row < row_end; row += LF_W) {
+    const int s = row / A, r = row - s * A;
+    lf_geo<HAS_CELL>(geo, cell, inv, s, cur_s, lane);
+    const float* ps = pos + (size_t)s * A * 3;
+    const float pi[3] = {ps[r * 3], ps[r * 3 + 1], ps[r * 3 + 2]};
+    int n_row = 0;
+    for (int j0 = 0; j0 < A; j0 += 32) {
+      const int j = j0 + lane;
+      const bool valid = j < A;
+      float pj[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pj[k] = valid ? ps[j * 3 + k] : 0.0f;
+      float e[3], d, z;
+      lf_geom<HAS_CELL>(pi, pj, geo, valid, rcut, d_min, scale, e, d, z);
+      const bool live = z != 1.0f;
+      const unsigned vote = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        int q = (tail + __popc(vote & ((1u << lane) - 1u))) & (LF_RING - 1);
+        ring_i[q] = row;
+        ring_j[q] = s * A + j;
+        ring_z[q] = z;
+        ring_a[q] = j != r ? fminf(d - d_min, 0.0f) : 0.0f;
+      }
+      __syncwarp();
+      tail += __popc(vote);
+      n_row += __popc(vote);
+      while (tail - head >= LF_PB) {
+        batch(LF_PB);
+        head += LF_PB;
+      }
+    }
+    if (n_row == 0) {  // no live pair: the sum is empty
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int f = f0 + 4 * lane + k;
+        const size_t o = (size_t)row * F + f;
+        if (f < F) out[o] = 0.0f - w0[f] * in[o];
+      }
+    }
+  }
+  if (tail > head) batch(tail - head);
+  if (cur >= 0) commit(cur);
+}
+
+// cheb_bwd_gd at fp32: one launch per (blocks over the rows, feature
+// chunk); chunk 0 writes row_part [S, A, 3], chunk c > 0 slab c - 1 of
+// col_part [S, n_slabs, A, 3].
 template <bool HAS_CELL>
-__global__ void __launch_bounds__(THREADS)
-cheb_gd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
-               const float* __restrict__ g, const float* __restrict__ c2,
-               const float* __restrict__ cell,
-               const float* __restrict__ inv,
-               float* __restrict__ row_part, float* __restrict__ col_part,
-               int A, int F, int M, int n_tiles, float rcut, float d_min,
-               float scale) {
-  extern __shared__ float smem[];
-  float* g_s = smem;                  // [GD_T][GD_LD]
-  float* x_s = g_s + GD_T * GD_LD;    // [GD_T][GD_LD]
-  float* w_s = x_s + GD_T * GD_LD;    // [GD_T][GD_WLD]
-  float* c_s = w_s + GD_T * GD_WLD;   // [M][GD_FC]
-  float* geo_s = c_s + M * GD_FC;     // [18], cell variant only
-  __shared__ float pr_s[GD_T][3];
-  __shared__ float pc_s[GD_T][3];
+__global__ void __launch_bounds__(LF_W * 32, LF_GD_MINB)
+cheb_gd_ffma_kernel(const float* __restrict__ pos,
+                    const float* __restrict__ x, const float* __restrict__ g,
+                    const float* __restrict__ c2,
+                    const float* __restrict__ cell,
+                    const float* __restrict__ inv,
+                    float* __restrict__ row_part,
+                    float* __restrict__ col_part, int S, int A, int F, int M,
+                    int n_slabs, float rcut, float d_min, float scale,
+                    int vec_in) {
+  extern __shared__ float4 lf_smem4[];
+  float* c_s = reinterpret_cast<float*>(lf_smem4);  // [M][LF_FC]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fg = lane & 15, pg = lane >> 4;
+  const int chunk = blockIdx.y, f0 = chunk * LF_FC;
+  const bool vec = vec_in != 0;
+  float* cb_s = c_s + (size_t)M * LF_FC + warp * LF_GD_WARP;  // [LF_PB][4]
+  int* ring_i = reinterpret_cast<int*>(cb_s + 4 * LF_PB);
+  int* ring_j = ring_i + LF_RING;
+  float* ring_z = reinterpret_cast<float*>(ring_j + LF_RING);
+  float* ring_d = ring_z + LF_RING;
+  float* ring_r = ring_d + LF_RING;  // [3][LF_RING]
+  float* geo = ring_r + 3 * LF_RING;
+  lf_stage(c_s, c2, nullptr, M, f0, F);
 
-  const int s = blockIdx.y;
-  const int rt = blockIdx.x;
-  const int r0 = rt * GD_T;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  pos += (size_t)s * A * 3;
-  x += (size_t)s * A * F;
-  g += (size_t)s * A * F;
+  int row, row_end;
+  lf_rows(S, A, warp, row, row_end);
+  int head = 0, tail = 0, cur = -1, cur_s = -1;
+  float run[3] = {0.0f, 0.0f, 0.0f};
+  // row r's side of this chunk into its slab
+  auto store = [&](int r, float v0, float v1, float v2) {
+    if (lane == 0) {
+      int s = r / A;
+      float* o = chunk == 0
+                     ? row_part + (size_t)r * 3
+                     : col_part + (((size_t)s * n_slabs + chunk - 1) * A +
+                                   (r - s * A)) * 3;
+      o[0] = v0;
+      o[1] = v1;
+      o[2] = v2;
+    }
+  };
+  auto commit = [&](int r) { store(r, run[0], run[1], run[2]); };
+  auto batch = [&](int nv) {
+    float ta[LF_PP], tb[LF_PP], z2[LF_PP];
+#pragma unroll
+    for (int p = 0; p < LF_PP; ++p) {
+      int t = pg * LF_PP + p;
+      float z = t < nv ? ring_z[(head + t) & (LF_RING - 1)] : 1.0f;
+      ta[p] = 1.0f;
+      tb[p] = z;
+      z2[p] = 2.0f * z;
+    }
+    float acc[LF_PP][8];
+    lf_product<1, false>(acc, ta, tb, z2, c_s + 4 * fg, M);
+    // sum_f Wf (g_i x_j + g_j x_i) over this lane's features
+    float part[LF_PP];
+#pragma unroll
+    for (int p = 0; p < LF_PP; ++p) {
+      int t = pg * LF_PP + p, q = (head + t) & (LF_RING - 1);
+      bool ok = t < nv;
+      const size_t gi = ok ? ring_i[q] : 0, gj = ok ? ring_j[q] : 0;
+      float v = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int f = f0 + h * (LF_FC / 2) + 4 * fg;
+        float4 a = lf_ld4(g + gi * F, f, F, vec);
+        float4 b = lf_ld4(x + gj * F, f, F, vec);
+        float4 c = lf_ld4(g + gj * F, f, F, vec);
+        float4 e = lf_ld4(x + gi * F, f, F, vec);
+        v = fmaf(acc[p][4 * h], fmaf(a.x, b.x, c.x * e.x), v);
+        v = fmaf(acc[p][4 * h + 1], fmaf(a.y, b.y, c.y * e.y), v);
+        v = fmaf(acc[p][4 * h + 2], fmaf(a.z, b.z, c.z * e.z), v);
+        v = fmaf(acc[p][4 * h + 3], fmaf(a.w, b.w, c.w * e.w), v);
+      }
+      part[p] = ok ? v : 0.0f;
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+      for (int p = 0; p < LF_PP; ++p)
+        part[p] += __shfl_xor_sync(0xffffffffu, part[p], off);
+    if (fg == 0) {
+#pragma unroll
+      for (int p = 0; p < LF_PP; ++p) {
+        int t = pg * LF_PP + p, q = (head + t) & (LF_RING - 1);
+        if (t < nv) {
+          float w = ((1.0f - ring_z[q]) * part[p]) / ring_d[q];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            cb_s[t * 4 + k] = -w * ring_r[k * LF_RING + q];
+        }
+      }
+    }
+    __syncwarp();
+    for (int t = 0; t < nv; ++t) {
+      int gi = ring_i[(head + t) & (LF_RING - 1)];
+      if (gi != cur) {
+        if (cur >= 0) commit(cur);
+        cur = gi;
+        run[0] = run[1] = run[2] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) run[k] += cb_s[t * 4 + k];
+    }
+    __syncwarp();
+  };
 
-  if (tid < GD_T * 3) {
-    int r = tid / 3, c = tid % 3;
-    pr_s[r][c] = (r0 + r < A) ? pos[(r0 + r) * 3 + c] : 0.0f;
+  for (; row < row_end; row += LF_W) {
+    const int s = row / A, r = row - s * A;
+    lf_geo<HAS_CELL>(geo, cell, inv, s, cur_s, lane);
+    const float* ps = pos + (size_t)s * A * 3;
+    const float pi[3] = {ps[r * 3], ps[r * 3 + 1], ps[r * 3 + 2]};
+    int n_row = 0;
+    for (int j0 = 0; j0 < A; j0 += 32) {
+      const int j = j0 + lane;
+      const bool valid = j < A;
+      float pj[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pj[k] = valid ? ps[j * 3 + k] : 0.0f;
+      float e[3], d, z;
+      lf_geom<HAS_CELL>(pi, pj, geo, valid, rcut, d_min, scale, e, d, z);
+      const bool live = valid && j != r && d < rcut;
+      const unsigned vote = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        int q = (tail + __popc(vote & ((1u << lane) - 1u))) & (LF_RING - 1);
+        ring_i[q] = row;
+        ring_j[q] = s * A + j;
+        ring_z[q] = z;
+        ring_d[q] = d;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) ring_r[k * LF_RING + q] = e[k];
+      }
+      __syncwarp();
+      tail += __popc(vote);
+      n_row += __popc(vote);
+      while (tail - head >= LF_PB) {
+        batch(LF_PB);
+        head += LF_PB;
+      }
+    }
+    if (n_row == 0) store(row, 0.0f, 0.0f, 0.0f);  // no live pair
   }
-  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
-  float rs = 0.0f, wp0 = 0.0f, wp1 = 0.0f, wp2 = 0.0f;
-
-  for (int j0 = 0; j0 < A; j0 += GD_T) {
-    __syncthreads();
-    if (tid < GD_T * 3) {
-      int jj = tid / 3, c = tid % 3;
-      pc_s[jj][c] = (j0 + jj < A) ? pos[(j0 + jj) * 3 + c] : 0.0f;
-    }
-    __syncthreads();
-
-    // This thread's 16 pairs: rows ty + 16i, columns tx + 16k.
-    float d[4][4], z[4][4], gd[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        int r = ty + 16 * i, j = tx + 16 * k;
-        bool valid = (r0 + r < A) && (j0 + j < A);
-        pair_geom<HAS_CELL>(pr_s[r], pc_s[j], geo_s, valid, rcut, d_min,
-                            scale, d[i][k], z[i][k]);
-        gd[i][k] = 0.0f;
-      }
-
-    // gd = sum over feature chunks of sum_m T_m * U_m(chunk); the
-    // recurrence restarts per chunk (one FMA per pair and order).
-    for (int f0 = 0; f0 < F; f0 += GD_FC) {
-      __syncthreads();
-      for (int e = tid; e < GD_T * GD_FC; e += THREADS) {
-        int rr = e / GD_FC, ff = e % GD_FC, f = f0 + ff;
-        int r = r0 + rr, j = j0 + rr;
-        g_s[rr * GD_LD + ff] = (r < A && f < F) ? g[(size_t)r * F + f] : 0.0f;
-        x_s[rr * GD_LD + ff] =
-            (j < A && f < F) ? x[(size_t)j * F + f] : 0.0f;
-      }
-      for (int e = tid; e < M * GD_FC; e += THREADS) {
-        int m = e / GD_FC, f = f0 + e % GD_FC;
-        c_s[e] = (f < F) ? c2[(size_t)m * F + f] : 0.0f;
-      }
-      __syncthreads();
-
-      float tp[4][4], tc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          tp[i][k] = 1.0f;
-          tc[i][k] = z[i][k];
-        }
-      for (int m = 0; m < M; ++m) {
-        float u[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) u[i][k] = 0.0f;
-        const float* cm = c_s + m * GD_FC;
-#pragma unroll 4
-        for (int ff = 0; ff < GD_FC; ++ff) {
-          float cv = cm[ff];
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            a[i] = cv * g_s[(ty + 16 * i) * GD_LD + ff];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            b[k] = x_s[(tx + 16 * k) * GD_LD + ff];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              u[i][k] += a[i] * b[k];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            float t;
-            if (m == 0) {
-              t = tp[i][k];
-            } else if (m == 1) {
-              t = tc[i][k];
-            } else {
-              t = 2.0f * z[i][k] * tc[i][k] - tp[i][k];
-              tp[i][k] = tc[i][k];
-              tc[i][k] = t;
-            }
-            gd[i][k] += t * u[i][k];
-          }
-      }
-    }
-
-    // W = (1-z) gd / d on live pairs: d < rcut, off the diagonal, in range.
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        int rr = ty + 16 * i, jj = tx + 16 * k;
-        int r = r0 + rr, j = j0 + jj;
-        bool keep = (r < A) && (j < A) && (r != j) && (d[i][k] < rcut);
-        w_s[rr * GD_WLD + jj] =
-            keep ? ((1.0f - z[i][k]) * gd[i][k]) / d[i][k] : 0.0f;
-      }
-    __syncthreads();
-    if (tid < GD_T) {
-      // row side, accumulated over column blocks in order: W pos_j (open)
-      // or W rel_ij (cell), rel recomputed from the staged positions
-      for (int jj = 0; jj < GD_T; ++jj) {
-        float w = w_s[tid * GD_WLD + jj];
-        if (HAS_CELL) {
-          float e0, e1, e2;
-          pair_rel<true>(pr_s[tid], pc_s[jj], geo_s, e0, e1, e2);
-          wp0 += w * e0;
-          wp1 += w * e1;
-          wp2 += w * e2;
-        } else {
-          rs += w;
-          wp0 += w * pc_s[jj][0];
-          wp1 += w * pc_s[jj][1];
-          wp2 += w * pc_s[jj][2];
-        }
-      }
-    } else if (tid < 2 * GD_T) {
-      // column side of this tile, summed over its rows in order
-      int jj = tid - GD_T, j = j0 + jj;
-      float cs = 0.0f, q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
-      for (int rr = 0; rr < GD_T; ++rr) {
-        float w = w_s[rr * GD_WLD + jj];
-        if (HAS_CELL) {
-          float e0, e1, e2;
-          pair_rel<true>(pr_s[rr], pc_s[jj], geo_s, e0, e1, e2);
-          q0 += w * e0;
-          q1 += w * e1;
-          q2 += w * e2;
-        } else {
-          cs += w;
-          q0 += w * pr_s[rr][0];
-          q1 += w * pr_s[rr][1];
-          q2 += w * pr_s[rr][2];
-        }
-      }
-      if (j < A) {
-        float* o = col_part + (((size_t)s * n_tiles + rt) * A + j) * 3;
-        if (HAS_CELL) {
-          o[0] = q0;
-          o[1] = q1;
-          o[2] = q2;
-        } else {
-          o[0] = pc_s[jj][0] * cs - q0;
-          o[1] = pc_s[jj][1] * cs - q1;
-          o[2] = pc_s[jj][2] * cs - q2;
-        }
-      }
-    }
-  }
-  if (tid < GD_T && r0 + tid < A) {
-    float* o = row_part + ((size_t)s * A + r0 + tid) * 3;
-    if (HAS_CELL) {
-      o[0] = -wp0;
-      o[1] = -wp1;
-      o[2] = -wp2;
-    } else {
-      o[0] = pr_s[tid][0] * rs - wp0;
-      o[1] = pr_s[tid][1] * rs - wp1;
-      o[2] = pr_s[tid][2] * rs - wp2;
-    }
-  }
+  if (tail > head) batch(tail - head);
+  if (cur >= 0) commit(cur);
 }
 
 // cheb_bwd_gd at the bf16 and bf16x3 tiers, on the tensor cores.
 //
 // Replaces _cheb_bwd_kernel with need_gx=False (flashmd_tpu/ops/pallas/
 // cheb_kernel.py:476: chain_gd :533-545, gpos epilogue :639-685), as
-// cheb_gd_kernel does at fp32. Bound: operations, 2 * live pairs * F * M
+// cheb_gd_ffma_kernel does at fp32. Bound: operations, 2 * live pairs * F * M
 // FLOP of order products at 989 TFLOP/s, three times that at bf16x3: at
 // the stacked slice (871,318 live pairs of 128 molecules, F = 384, M = 64)
 // 0.0433 ms, at the bf16x3 slice (M = 96) 0.195 ms. The recurrence and gd
@@ -652,16 +802,6 @@ __device__ __forceinline__ void mg_frag_geom(
                         scale, d[e], z[e]);
     live[e] = r != j && d[e] < rcut;
   }
-}
-
-// One float to shared memory by cp.async, zero-filled when !in (src is
-// then not read).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
 }
 
 // c2[:, kc:kc+FC] into c2_s [M][FC] and g[strip rows, kc:kc+FC] into g_s
@@ -1041,9 +1181,9 @@ __global__ void gd_reduce_kernel(const float* __restrict__ row_part,
 // stay in registers, column sides go to this row tile's slab of
 // col_part (written by the first feature chunk, added to by later ones,
 // always by the same thread), summed by gd_reduce_kernel in tile order.
-// That epilogue repeats cheb_gd_kernel's instead of sharing device
-// functions with it: shared, ptxas gave cheb_gd_kernel 171 registers in
-// place of 165 and it ran 2.4 % slower (H100 80GB HBM3, 700 W).
+// That epilogue repeated the then fp32 gd kernel's instead of sharing
+// device functions with it: shared, ptxas gave that kernel 171 registers
+// in place of 165 and it ran 2.4 % slower (H100 80GB HBM3, 700 W).
 // No atomics. Bound at the per-block slice (A=266, F=128, orders 49 and
 // 64 plus the low term): 114 order-products of 2*A^2*F FLOP per molecule,
 // matrix work far above the machine balance, as in the other three.
@@ -1348,7 +1488,7 @@ cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
 // Replaces _cheb_fwd_kernel (flashmd_tpu/ops/pallas/cheb_kernel.py:394:
 // chain_matvec :421-429, low term :466-471) and _cheb_bwd_kernel with
 // need_gd=False (:476: chain_gx :520-531, low term :609-617), as
-// cheb_rows_kernel does at fp32. Bound: operations, 2 * live pairs * F
+// cheb_rows_ffma_kernel does at fp32. Bound: operations, 2 * live pairs * F
 // FLOP per order product at 989 TFLOP/s (three times that at bf16x3): at
 // the cheb slice (871,318 live pairs of 128 molecules, F = 128) 0.0108 ms
 // for the 48 forward orders, 0.0111 ms for the 49 gx orders. The
@@ -2246,8 +2386,6 @@ inline float fit_scale(float rcut, float d_min) {
   return (float)(2.0 / ((double)rcut - (double)d_min));
 }
 
-inline int cheb_gd_tiles_of(int A) { return (A + GD_T - 1) / GD_T; }
-
 // f(std::integral_constant<int, TIER>) for the tiers the kernels are built
 // for; cudaErrorInvalidValue for any other code.
 template <class Fn>
@@ -2262,6 +2400,54 @@ int with_tier(int tier, Fn&& f) {
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+}
+
+// fp32: a grid of (blocks over the S * A rows, feature chunks of LF_FC),
+// as many blocks as the card holds at once, shared out over the chunks;
+// the results do not depend on the grid (each row is summed by one warp
+// in its own order). The attribute call also refuses a C too large for
+// shared memory.
+template <class K>
+int lf_grid(K kernel, size_t smem, int S, int A, int F, dim3& grid) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev, n_sm, occ;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, LF_W * 32,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  int n_fc = (F + LF_FC - 1) / LF_FC;
+  int want = (n_sm * occ + n_fc - 1) / n_fc;
+  int most = (S * A + LF_W - 1) / LF_W;
+  grid = dim3(want < most ? want : most, n_fc);
+  return 0;
+}
+
+template <bool GX, bool HAS_CELL>
+int launch_rows_ffma(const float* pos, const float* in, const float* coef,
+                     const float* w0, const float* w_lin, const float* cell,
+                     const float* inv, float* out, int S, int A, int F, int M,
+                     float rcut, float d_min, float scale,
+                     cudaStream_t stream) {
+  size_t smem = sizeof(float) * ((size_t)(M + 1) * LF_FC +
+                                 (size_t)LF_W * LF_ROWS_WARP);
+  dim3 grid;
+  int rc = lf_grid(cheb_rows_ffma_kernel<GX, HAS_CELL>, smem, S, A, F, grid);
+  if (rc != 0) return rc;
+  int vec = F % 4 == 0 && aligned16(in);
+  cheb_rows_ffma_kernel<GX, HAS_CELL><<<grid, LF_W * 32, smem, stream>>>(
+      pos, in, coef, w0, w_lin, cell, inv, out, S, A, F, M, rcut, d_min,
+      scale, vec);
+  return (int)cudaGetLastError();
 }
 
 // bf16 and bf16x3: one warp per (16-row strip, 64-feature chunk, molecule).
@@ -2291,21 +2477,18 @@ int launch_rows(const float* pos, const float* in, const float* coef,
                 float rcut, float d_min, int tier, cudaStream_t stream) {
   if ((cell == nullptr) != (inv == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (S * A == 0) return 0;
   float scale = fit_scale(rcut, d_min);
   int rc = with_tier(tier, [&](auto t) {
     constexpr int T = decltype(t)::value;
     if constexpr (T == TIER_FP32) {
-      dim3 grid((A + RT_TA - 1) / RT_TA, (F + RT_FC - 1) / RT_FC, S);
-      if (cell != nullptr)
-        cheb_rows_kernel<GX, true>
-            <<<grid, THREADS, 18 * sizeof(float), stream>>>(
-                pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut,
-                d_min, scale);
-      else
-        cheb_rows_kernel<GX, false><<<grid, THREADS, 0, stream>>>(
-            pos, in, coef, w0, w_lin, cell, inv, out, A, F, M, rcut, d_min,
-            scale);
-      return 0;
+      return cell != nullptr
+                 ? launch_rows_ffma<GX, true>(pos, in, coef, w0, w_lin, cell,
+                                              inv, out, S, A, F, M, rcut,
+                                              d_min, scale, stream)
+                 : launch_rows_ffma<GX, false>(pos, in, coef, w0, w_lin,
+                                               cell, inv, out, S, A, F, M,
+                                               rcut, d_min, scale, stream);
     } else {
       return cell != nullptr
                  ? launch_rows_mma<T, GX, true>(pos, in, coef, w0, w_lin,
@@ -2319,12 +2502,12 @@ int launch_rows(const float* pos, const float* in, const float* coef,
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-// fp32 keeps cheb_gd_kernel (64 x 64 tiles, one col_part slab per row
-// tile); bf16 and bf16x3 take cheb_gd_mma_kernel (one slab per 16-row
-// strip). col_part is sized for the larger count; each tier's kernel and
-// its reduce use the first gd_slabs_of(A, tier) slabs.
-inline int gd_slabs_of(int A, int tier) {
-  return tier == TIER_FP32 ? cheb_gd_tiles_of(A)
+// col_part slabs of cheb_bwd_gd's kernels (the wrapper sizes col_part
+// with ops/cheb_kernel.py's gd_slabs, which the entry point checks
+// against this): fp32, one per feature chunk after the first;
+// bf16 and bf16x3, one per 16-row strip.
+inline int gd_slabs_of(int A, int F, int tier) {
+  return tier == TIER_FP32 ? (F + LF_FC - 1) / LF_FC - 1
                            : (A + MG_ROWS - 1) / MG_ROWS;
 }
 
@@ -2333,22 +2516,21 @@ int launch_gd(const float* pos, const float* x, const float* g,
               const float* c2, const float* cell, const float* inv,
               float* row_part, float* col_part, int S, int A, int F, int M,
               float rcut, float d_min, cudaStream_t stream) {
-  int n_tiles = gd_slabs_of(A, TIER);
+  int n_tiles = gd_slabs_of(A, F, TIER);
   float scale = fit_scale(rcut, d_min);
-  dim3 grid(n_tiles, S);
   cudaError_t err;
   if constexpr (TIER == TIER_FP32) {
-    size_t smem =
-        sizeof(float) * (2 * GD_T * GD_LD + GD_T * GD_WLD +
-                         (size_t)M * GD_FC + (HAS_CELL ? 18 : 0));
-    err = cudaFuncSetAttribute(cheb_gd_kernel<HAS_CELL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    cheb_gd_kernel<HAS_CELL><<<grid, THREADS, smem, stream>>>(
-        pos, x, g, c2, cell, inv, row_part, col_part, A, F, M, n_tiles, rcut,
-        d_min, scale);
+    size_t smem = sizeof(float) * ((size_t)M * LF_FC +
+                                   (size_t)LF_W * LF_GD_WARP);
+    dim3 grid;
+    int rc = lf_grid(cheb_gd_ffma_kernel<HAS_CELL>, smem, S, A, F, grid);
+    if (rc != 0) return rc;
+    int vec = F % 4 == 0 && aligned16(x) && aligned16(g);
+    cheb_gd_ffma_kernel<HAS_CELL><<<grid, LF_W * 32, smem, stream>>>(
+        pos, x, g, c2, cell, inv, row_part, col_part, S, A, F, M, n_tiles,
+        rcut, d_min, scale, vec);
   } else {
+    dim3 grid(n_tiles, S);
     constexpr int FC = MG_FC<TIER>;
     size_t smem = sizeof(float) * 2 * ((size_t)M * FC + MG_ROWS * (FC + 8)) +
                   sizeof(int) * 2 * (size_t)((A + 7) / 8);
@@ -2423,9 +2605,6 @@ int launch_gd_reduce(const float* row_part, const float* col_part,
 
 extern "C" {
 
-// col_part slabs of cheb_bwd_gd: enough for every tier.
-int cheb_gd_tiles(int A) { return gd_slabs_of(A, TIER_BF16); }
-
 // col_part slabs of cheb_bwd_gxgd: enough for every tier.
 int cheb_gxgd_tiles(int A) { return gxgd_slabs_of(A, TIER_BF16); }
 
@@ -2445,14 +2624,17 @@ int cheb_bwd_gx(const float* pos, const float* g, const float* q,
                            rcut, d_min, tier, (cudaStream_t)stream);
 }
 
+// col_part holds n_slabs slabs, which must be the tier's count.
 int cheb_bwd_gd(const float* pos, const float* x, const float* g,
                 const float* c2, const float* cell, const float* inv,
                 float* row_part, float* col_part, float* gpos, int S, int A,
-                int F, int M, float rcut, float d_min, int tier,
+                int F, int M, int n_slabs, float rcut, float d_min, int tier,
                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((cell == nullptr) != (inv == nullptr))
+  if ((cell == nullptr) != (inv == nullptr) ||
+      n_slabs != gd_slabs_of(A, F, tier))
     return (int)cudaErrorInvalidValue;
+  if (S * A == 0) return 0;
   int rc = with_tier(tier, [&](auto t) {
     constexpr int T = decltype(t)::value;
     return cell != nullptr
@@ -2462,8 +2644,7 @@ int cheb_bwd_gd(const float* pos, const float* x, const float* g,
                                      col_part, S, A, F, M, rcut, d_min, st);
   });
   if (rc != 0) return rc;
-  return launch_gd_reduce(row_part, col_part, gpos, S, A,
-                          gd_slabs_of(A, tier), st);
+  return launch_gd_reduce(row_part, col_part, gpos, S, A, n_slabs, st);
 }
 
 int cheb_bwd_gxgd(const float* pos, const float* x, const float* g,

@@ -36,10 +36,9 @@ _SIGNATURES = {
     # pos, g, q, w0, w_lin, cell, inv, gx, S, A, F, M, rcut, d_min, tier,
     # stream
     "cheb_bwd_gx": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
-    # pos, x, g, c2, cell, inv, row_part, col_part, gpos, S, A, F, M, rcut,
-    # d_min, tier, stream
-    "cheb_bwd_gd": [_P] * 9 + [_I] * 4 + [_F, _F, _I, _P],
-    "cheb_gd_tiles": [_I],
+    # pos, x, g, c2, cell, inv, row_part, col_part, gpos, S, A, F, M,
+    # n_slabs, rcut, d_min, tier, stream
+    "cheb_bwd_gd": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P],
     # pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, gpos,
     # S, A, F, MQ, M2, rcut, d_min, tier, stream
     "cheb_bwd_gxgd": [_P] * 13 + [_I] * 5 + [_F, _F, _I, _P],

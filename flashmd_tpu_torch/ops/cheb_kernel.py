@@ -15,14 +15,17 @@ cheb_conv_bwd_gxgd ``_cheb_bwd_kernel`` (:476), ``need_gx=True,
 =================  ==========================================================
 
 At bf16 and bf16x3 the kernels take their order products on the tensor
-cores and skip the pair fragments that add nothing; fp32 keeps the
-float32 tiles. ``cheb_bwd_gd`` runs 16 x 8 fragments with a pair within
-the cutoff off the diagonal (exact: W is zero elsewhere); its column
-partials take ``cheb_gd_tiles(A)`` slabs, enough for every tier.
-``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gxgd`` run 16 x 16 fragments
-with a pair at z != 1 (exact: both bases vanish at z == 1; the diagonal,
-at z = -1, runs) and their linear term only where low != 0;
-``cheb_bwd_gxgd``'s column partials take ``cheb_gxgd_tiles(A)`` slabs.
+cores and skip the pair fragments that add nothing: ``cheb_bwd_gd`` runs
+16 x 8 fragments with a pair within the cutoff off the diagonal (exact:
+W is zero elsewhere); ``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gxgd``
+run 16 x 16 fragments with a pair at z != 1 (exact: both bases vanish at
+z == 1; the diagonal, at z = -1, runs) and their linear term only where
+low != 0. At fp32 ``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gd`` take
+float32 FMAs on the CUDA cores over the same pairs one by one (z != 1;
+d < rcut off the diagonal for gd), compacted per row on the card;
+``cheb_bwd_gxgd`` keeps the float32 tiles of every pair.
+``cheb_bwd_gd``'s column partials take ``gd_slabs(A, F, precision)``
+slabs, ``cheb_bwd_gxgd``'s ``cheb_gxgd_tiles(A)``.
 
 Every operand carries the batch as its leading axis: ``pos [S, A, 3]``,
 ``x``/``g`` ``[S, A, F]``; coefficient tables are ``[M, F]``. The batch is
@@ -39,8 +42,8 @@ computes it once; it is computed here otherwise.
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. The
 wrappers count their launches per kernel, the cell variants and the
-bf16x3 tier apart (``cheb_fwd_cell``, ``cheb_fwd_bf16x3``,
-``cheb_fwd_cell_bf16x3``, ...): ``launch_counts()``.
+fp32 and bf16x3 tiers apart (``cheb_fwd`` is bf16, ``cheb_fwd_cell``,
+``cheb_fwd_fp32``, ``cheb_fwd_cell_bf16x3``, ...): ``launch_counts()``.
 
 Precision tiers, at the same places in each kernel and its twin; the
 recurrence and all accumulation stay float32:
@@ -257,10 +260,20 @@ def _cell_args(cell, inv, s, pos, tensors):
 
 
 def _count(name, cell, precision):
-    """One launch of ``name``'s variant: "_cell" under a cell, then
-    "_bf16x3" at that tier."""
+    """One launch of ``name``'s variant: "_cell" under a cell, then the
+    tier's suffix ("" at bf16)."""
     name += "" if cell is None else "_cell"
-    _launches[name + ("_bf16x3" if precision == "bf16x3" else "")] += 1
+    _launches[name + _TIER_SUFFIX[precision]] += 1
+
+
+def gd_slabs(a: int, f: int, precision: str) -> int:
+    """Slabs of ``cheb_bwd_gd``'s column partials col_part [S, slabs, A,
+    3]: at fp32 one per 128-feature chunk after the first (whose part goes
+    to row_part), at bf16 and bf16x3 one per 16-row strip. The kernel
+    refuses any other count."""
+    if precision == "fp32":
+        return -(-f // 128) - 1
+    return -(-a // 16)
 
 
 def cheb_conv_fwd(c, w0, pos, x, rcut, precision, d_min=0.0, w_lin=None,
@@ -348,15 +361,15 @@ def cheb_conv_bwd_gd(c2, pos, x, g, rcut, precision, d_min=0.0, cell=None,
     tensors = [pos, x, g, c2]
     cell, inv = _cell_args(cell, inv, s, pos, tensors)
     _same_device(*tensors)
-    n_tiles = lib.cheb_gd_tiles(a)
+    n_slabs = gd_slabs(a, f, precision)
     row_part = torch.empty(s, a, 3, dtype=torch.float32, device=pos.device)
-    col_part = torch.empty(s, n_tiles, a, 3, dtype=torch.float32,
+    col_part = torch.empty(s, n_slabs, a, 3, dtype=torch.float32,
                            device=pos.device)
     gpos = torch.empty_like(pos)
     rc = lib.cheb_bwd_gd(
         _ptr(pos), _ptr(x), _ptr(g), _ptr(c2), _ptr(cell), _ptr(inv),
-        _ptr(row_part), _ptr(col_part), _ptr(gpos), s, a, f, m, float(rcut),
-        float(d_min), TIER_CODES[precision], _stream(),
+        _ptr(row_part), _ptr(col_part), _ptr(gpos), s, a, f, m, n_slabs,
+        float(rcut), float(d_min), TIER_CODES[precision], _stream(),
     )
     _raise_on(rc, "cheb_bwd_gd")
     _count("cheb_bwd_gd", cell, precision)
@@ -414,10 +427,12 @@ KERNELS = {
     "cheb_bwd_gxgd": cheb_conv_bwd_gxgd,
 }
 # Launches per kernel: the open variants under their names, the cell
-# variants under name + "_cell", each at the bf16x3 tier + "_bf16x3".
+# variants under name + "_cell", each at bf16 as it is and at the fp32 and
+# bf16x3 tiers + "_fp32" and "_bf16x3".
+_TIER_SUFFIX = {"bf16": "", "fp32": "_fp32", "bf16x3": "_bf16x3"}
 _VARIANTS = [*KERNELS, *(n + "_cell" for n in KERNELS)]
-_launches = dict.fromkeys([*_VARIANTS, *(n + "_bf16x3" for n in _VARIANTS)],
-                          0)
+_launches = dict.fromkeys(
+    [n + sfx for sfx in _TIER_SUFFIX.values() for n in _VARIANTS], 0)
 
 
 def reset_launch_counts() -> None:

@@ -383,6 +383,125 @@ def test_rows_tensor_core_kernel_layouts(dev, a, layout, periodic,
         _rows_check(t["c"], t["w0"], pos, t["x"], d_min, precision, cell)
 
 
+# The fp32 CUDA-core kernels of cheb_fwd, cheb_bwd_gx and cheb_bwd_gd:
+# live pairs only, compacted per row (z != 1 for fwd/gx, d < rcut off the
+# diagonal for gd). Ragged atom counts and feature widths (45 x 20, and 70
+# x 45, not a multiple of 4: the scalar loads), a few orders and the fp32
+# zoo's 128; gd stacked over three blocks and on one block's features.
+FP32_SHAPES = [(45, 20), (70, 45)]
+FP32_ORDERS = [8, 128]
+
+
+def _cpu(args):
+    return tuple(v.cpu() if torch.is_tensor(v) else v for v in args)
+
+
+def _fp32_check(t, pos, cell, d_min):
+    """fwd and gx within 1e-5 and 1e-4 of max|twin|, gd (stacked over
+    three blocks' features and one block's) within 1e-4, exactly zero
+    where the twin is; each two launches bitwise equal. The twins run on
+    the CPU: the kernels round the pair geometry and the forward's
+    recurrence as the twins do there, and on the card the twins' torch.sum
+    adds the squared components in another order, which at order 128
+    moves the basis near z = +-1 by as much as the forward's bound."""
+    from flashmd_tpu_torch.models.cheb import _lin_slope
+
+    w_lin = _lin_slope(t["c2"]) if d_min > 0 else None
+    stacked = [torch.cat([t[k]] * 3, dim=-1).contiguous()
+               for k in ("x", "g", "c2")]
+    calls = [
+        (ck.cheb_conv_fwd, ck.cheb_conv_fwd_plain, "fwd",
+         (t["c"], t["w0"], pos, t["x"], RCUT, "fp32", d_min, w_lin)),
+        (ck.cheb_conv_bwd_gx, ck.cheb_conv_bwd_gx_plain, "bwd",
+         (t["c"], t["w0"], pos, t["g"], RCUT, "fp32", d_min, w_lin)),
+        (ck.cheb_conv_bwd_gd, ck.cheb_conv_bwd_gd_plain, "bwd",
+         (t["c2"], pos, t["x"], t["g"], RCUT, "fp32", d_min)),
+        (ck.cheb_conv_bwd_gd, ck.cheb_conv_bwd_gd_plain, "bwd",
+         (stacked[2], pos, stacked[0], stacked[1], RCUT, "fp32", d_min)),
+    ]
+    for kern, plain, bound, args in calls:
+        out = kern(*args, cell=cell)
+        again = kern(*args, cell=cell)
+        ref = plain(*_cpu(args), cell=None if cell is None else cell.cpu())
+        torch.cuda.synchronize()
+        out, again = out.cpu(), again.cpu()
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, again)
+        if float(ref.abs().max()) == 0.0:
+            assert float(out.abs().max()) == 0.0
+            continue
+        assert _rel(out, ref) <= BOUNDS["fp32"][bound]
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("layout", ["spread", "clusters", "none", "compact"])
+@pytest.mark.parametrize("m", FP32_ORDERS)
+@pytest.mark.parametrize("a,f", FP32_SHAPES)
+def test_fp32_live_pair_kernels_match_twins(dev, a, f, m, layout, periodic):
+    """Positions spread at 6 A (pairs below d_min 2.0: the linear term), in
+    two clusters (rows whose pairs are all dead beside mixed ones), on a
+    grid beyond the cutoff (only the diagonal live: gd exactly zero) or
+    compact (every pair live); open and under cells; d_min 0 and 2."""
+    t = _inputs(dev, 2, a, f, m, m, seed=a * 1000 + f + m)
+    cell = None
+    if layout == "spread":
+        pos = t["pos"]
+        if periodic:
+            pos, cell = torch.remainder(pos, 24.0), _cells(dev, 2)
+    else:
+        pos = _gd_layout(dev, 2, a, layout, seed=a + m)
+        if periodic:
+            cell = torch.tensor([CELL_WIDE] * 2, device=dev)
+    for d_min in (0.0, 2.0):
+        _fp32_check(t, pos, cell, d_min)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_fp32_live_pair_kernels_at_the_slice_widths(dev, periodic):
+    """266 beads, F = 128 (gd also stacked to 384), the fp32 zoo's 128
+    orders, positions spread so that most pairs are dead."""
+    t = _inputs(dev, 2, 266, 128, 128, 128, seed=3)
+    pos, cell = 3.0 * t["pos"], None
+    if periodic:
+        pos, cell = torch.remainder(pos, 24.0), _cells(dev, 2)
+    _fp32_check(t, pos, cell, 0.0)
+
+
+def test_fp32_step_loop_makes_no_host_sync(dev):
+    """Five BAOAB steps of a 3-block fp32 cheb field under
+    ``torch.cuda.set_sync_debug_mode("error")``: the live-pair kernels
+    compact their pairs on the card, so nothing in a step waits for it;
+    the steps launch 3/2/1 per force evaluation on the fp32 counters."""
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=45, batch_size=2,
+                                  precision="fp32", message_passing="cheb",
+                                  device=dev)
+    sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=4,
+                             save_interval=2, random_seed=5, device=dev,
+                             gptq=None)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    sim.simulate()  # builds the kernels, warms the allocator
+    gen = torch.Generator(device=dev).manual_seed(7)
+    carry, first = sim.final_carry, sim.n_timesteps
+    draws = [sim._step_draws(gen, first + i) for i in range(5)]
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for i, (xi, u) in enumerate(draws):
+                carry = sim._step_with_hooks(carry, xi, first + i, u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ck.launch_counts() == {**dict.fromkeys(ck.launch_counts(), 0),
+                                  "cheb_fwd_fp32": 15,
+                                  "cheb_bwd_gx_fp32": 10,
+                                  "cheb_bwd_gd_fp32": 5}
+    assert bool(torch.isfinite(carry["pos"]).all())
+
+
 def test_wrappers_refuse_what_kernels_do_not_take(dev):
     t = _inputs(dev, 2, 20, 16, 8, 8)
     with pytest.raises(ValueError):
@@ -500,7 +619,7 @@ def test_cheb_basis_envelope_card_matches_cpu(dev, monkeypatch, envelope,
     path takes: the host fit attached on the card and on the CPU, forces
     card vs CPU within 1e-4 of max|F| at fp32 and 2e-3 at bf16, and the
     launches of one force evaluation: 3/2/1 of fwd/gx/gd stacked, 3/2/1 of
-    fwd/gxgd/gd per block."""
+    fwd/gxgd/gd per block (on the fp32 counters at fp32)."""
     import dataclasses
     import warnings
 
@@ -514,6 +633,7 @@ def test_cheb_basis_envelope_card_matches_cpu(dev, monkeypatch, envelope,
            if schedule == "1" else
            {"cheb_fwd": 3, "cheb_bwd_gxgd": 2, "cheb_bwd_gd": 1})
     for precision, bound in (("fp32", 1e-4), ("bf16", 2e-3)):
+        sfx = "_fp32" if precision == "fp32" else ""
         forces, counts = {}, {}
         for device in (dev, torch.device("cpu")):
             ff, cfgs = cgschnet_1enh_like(n_atoms=40, batch_size=2,
@@ -535,7 +655,7 @@ def test_cheb_basis_envelope_card_matches_cpu(dev, monkeypatch, envelope,
         assert torch.isfinite(forces["cuda"]).all()
         assert _rel(forces["cuda"], forces["cpu"]) <= bound, precision
         assert counts["cuda"] == {**dict.fromkeys(ck.launch_counts(), 0),
-                                  **per}
+                                  **{k + sfx: v for k, v in per.items()}}
         assert all(v == 0 for v in counts["cpu"].values())  # twins only
 
 

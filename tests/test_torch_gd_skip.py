@@ -11,6 +11,14 @@ an atom count that is not a multiple of 16; a pair just beyond the cutoff
 contributes exactly nothing; and the twin on those positions is held to
 the JAX package's Pallas kernel (interpreted, fp32) as the other parity
 tests hold it.
+
+The fp32 tier runs on the CUDA cores over single pairs (compacted per
+row): U_m zeroed on every pair outside the keep mask, pair by pair, gives
+gpos equal to the fp32 twin, on the clusters with a lone atom (a row with
+no live pair) open and under the cell; and the kernel's order of
+operations, each row's W_ij + W_ji from one filter Wf = sum_m T_m c2_m of
+the pair contracted with g_i x_j + g_j x_i, its gradient -sum_j W rel_ij
+owned by the row, agrees with the twin at the card's bound (1e-4).
 """
 
 import jax.numpy as jnp
@@ -80,11 +88,13 @@ def _geometry(pos, cell):
     return cell, rel, d, z, (d < RCUT) & ~eye
 
 
-def _gd_skipping_dead_fragments(c2, pos, x, g, precision, cell):
+def _gd_skipping_dead_fragments(c2, pos, x, g, precision, cell,
+                                pairwise=False):
     """cheb_conv_bwd_gd_plain's order loop with U_m zeroed on every
-    fragment that holds no live pair, as the kernel skips them."""
+    fragment that holds no live pair (``pairwise``: on every pair that is
+    not live), as the kernels skip them."""
     cell, rel, d, z, live = _geometry(pos, cell)
-    on = _live_fragments(live)
+    on = live if pairwise else _live_fragments(live)
     two_z = 2.0 * z
     xt = x.transpose(1, 2)
 
@@ -160,3 +170,67 @@ def test_gd_twin_matches_pallas_on_dead_fragments(periodic):
     out = ck.cheb_conv_bwd_gd(c2, _t(pos), x, g, RCUT, "fp32", D_MIN,
                               _cell(periodic))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+def _clusters_with_a_lone_atom():
+    """The clusters with their last atom moved half the cell away along y:
+    no pair of its row is live, open or under the cell."""
+    pos = _clusters()
+    pos[:, -1, 1] += 15.0
+    return pos
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+def test_skipping_dead_pairs_is_exact(periodic):
+    """The fp32 kernel's rule, pair by pair: U_m zeroed on every pair
+    outside the keep mask gives the fp32 twin's gpos exactly, on a row
+    with no live pair beside rows with live and dead pairs."""
+    pos = _t(_clusters_with_a_lone_atom())
+    x, g, c2 = _operands()
+    cell = _cell(periodic)
+    live = _geometry(pos, cell)[4]
+    assert not bool(live[:, -1].any()) and not bool(live[:, :, -1].any())
+    assert bool(live.any(2)[:, :-1].all())
+    assert bool((~live).any(2).all())
+    ref = ck.cheb_conv_bwd_gd_plain(c2, pos, x, g, RCUT, "fp32", D_MIN,
+                                    cell)
+    assert float(ref[:, -1].abs().max()) == 0.0
+    out = _gd_skipping_dead_fragments(c2, pos, x, g, "fp32", cell,
+                                      pairwise=True)
+    assert torch.equal(out, ref)
+
+
+def _live_pair_order(c2, pos, x, g, cell):
+    """The fp32 kernel's order of operations in plain float32: per live
+    pair of row i the filter Wf = sum_m T_m c2_m (the recurrence stepped
+    per order), W_ij + W_ji = (1-z) / d sum_f Wf (g_i x_j + g_j x_i), and
+    gpos_i = -sum_j (W_ij + W_ji) rel_ij over the row's pairs in column
+    order."""
+    cell, rel, d, z, live = _geometry(pos, cell)
+    gpos = torch.zeros_like(pos)
+    for s in range(pos.shape[0]):
+        for i in range(pos.shape[1]):
+            js = torch.nonzero(live[s, i])[:, 0]
+            zj = z[s, i, js][:, None]
+            ta, tb = torch.ones_like(zj), zj
+            wf = ta * c2[0]
+            for m in range(1, c2.shape[0]):
+                wf = wf + tb * c2[m]
+                ta, tb = tb, 2.0 * zj * tb - ta
+            sym = g[s, i] * x[s, js] + g[s, js] * x[s, i]
+            w = (1.0 - z[s, i, js]) * (wf * sym).sum(1) / d[s, i, js]
+            gpos[s, i] = -(w[:, None] * rel[s, i, js]).sum(0)
+    return gpos
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+def test_live_pair_order_matches_the_twin(periodic):
+    """The fp32 kernel's per-row gradient from one filter per pair agrees
+    with the twin's W + W^T sums within 1e-4 of max|twin|."""
+    pos = _t(_clusters_with_a_lone_atom())
+    x, g, c2 = _operands(seed=9)
+    cell = _cell(periodic)
+    got = _live_pair_order(c2, pos, x, g, cell)
+    ref = ck.cheb_conv_bwd_gd_plain(c2, pos, x, g, RCUT, "fp32", D_MIN,
+                                    cell)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-4

@@ -217,8 +217,8 @@ def test_precision_tiers():
 
 def test_cpu_tensors_never_count_launches():
     """On the CPU the wrapper takes the plain twin, which is no launch, open
-    or periodic, at any tier; the cell variants and the bf16x3 tier are
-    counted apart."""
+    or periodic, at any tier; the cell variants and the fp32 and bf16x3
+    tiers are counted apart."""
     c, c2, w0 = _coeffs()
     pos, x, g = _inputs(23)
     ck.reset_launch_counts()
@@ -232,4 +232,5 @@ def test_cpu_tensors_never_count_launches():
     names = ["cheb_fwd", "cheb_bwd_gx", "cheb_bwd_gd", "cheb_bwd_gxgd"]
     variants = names + [n + "_cell" for n in names]
     assert ck.launch_counts() == dict.fromkeys(
-        variants + [v + "_bf16x3" for v in variants], 0)
+        variants + [v + sfx for sfx in ("_fp32", "_bf16x3")
+                    for v in variants], 0)

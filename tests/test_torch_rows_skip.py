@@ -18,6 +18,15 @@ diagonal) instead drops the diagonal's share and breaks equality, so the
 z == 1 rule is what holds; and the fp32 twins on those positions are held
 to the JAX package's Pallas kernels (interpreted) as the other parity
 tests hold them.
+
+The fp32 tier of ``cheb_fwd`` and ``cheb_bwd_gx`` runs on the CUDA cores
+over single pairs (compacted per row): the same copies with the products
+of every pair at z == 1 zeroed pair by pair (the linear term riding on the
+live pairs) equal the fp32 twins, on the clusters with a lone atom (a row
+whose only live pair is its diagonal) open and under the cell; the
+pair-granular gd rule drops the diagonal there too; and the kernel's order
+of operations, the filter Wf = sum_m Ttil_m c_m of each pair summed
+against x (or g) row by row, agrees with the twin at the card's bounds.
 """
 
 import jax.numpy as jnp
@@ -100,13 +109,17 @@ def _fragments(mask):
             [:, :a, :a])
 
 
-def _runs(pos, cell, rule):
-    """(d, z, fragments whose order products run, fragments whose linear
-    term runs). ``rule`` "z": some pair has z != 1 (the kernel's); "gd":
-    some pair has d < rcut off the diagonal (the gd kernel's)."""
+def _runs(pos, cell, rule, grain=FRAG):
+    """(d, z, pairs whose order products run, pairs whose linear term
+    runs), by 16 x 16 fragment (the tensor-core kernel) or, with grain 1,
+    pair by pair (the fp32 kernel, whose linear term rides on its live
+    pairs). ``rule`` "z": z != 1 (the kernels'); "gd": d < rcut off the
+    diagonal (the gd kernels')."""
     d, z = ck.pair_geometry(pos, RCUT, D_MIN, cell)
     eye = torch.eye(pos.shape[1], dtype=torch.bool)
     live = (z != 1.0) if rule == "z" else (d < RCUT) & ~eye
+    if grain == 1:
+        return d, z, live, live
     return (d, z, _fragments(live),
             _fragments(ck._low_matrix(d, D_MIN) != 0.0))
 
@@ -115,10 +128,11 @@ def _masked(t, on):
     return torch.where(on, t, torch.zeros_like(t))
 
 
-def _fwd_skipping(c, w0, pos, x, precision, w_lin, cell, rule="z"):
+def _fwd_skipping(c, w0, pos, x, precision, w_lin, cell, rule="z",
+                  grain=FRAG):
     """cheb_conv_fwd_plain's order loop with the products of the fragments
-    that do not run zeroed."""
-    d, z, on, on_low = _runs(pos, cell, rule)
+    (grain 1: pairs) that do not run zeroed."""
+    d, z, on, on_low = _runs(pos, cell, rule, grain)
     u2 = torch.square(1.0 - z)
     two_z = 2.0 * z
     t_prev, t_cur = u2, u2 * z
@@ -134,11 +148,12 @@ def _fwd_skipping(c, w0, pos, x, precision, w_lin, cell, rule="z"):
     return out - w0 * x
 
 
-def _gx_skipping(c, w0, pos, g, precision, w_lin, cell, rule="z"):
+def _gx_skipping(c, w0, pos, g, precision, w_lin, cell, rule="z",
+                 grain=FRAG):
     """cheb_conv_bwd_gx_plain's order loop with the products of the
-    fragments that do not run zeroed."""
+    fragments (grain 1: pairs) that do not run zeroed."""
     q = ck._to_that_basis(c)
-    d, z, on, on_low = _runs(pos, cell, rule)
+    d, z, on, on_low = _runs(pos, cell, rule, grain)
     u = 1.0 - z
     two_z = 2.0 * z
     h_prev, h_cur = u, u * z
@@ -286,3 +301,103 @@ def test_twins_match_pallas_on_dead_fragments(kernel, periodic):
     out = ck.cheb_conv_bwd_gx(c, w0, _t(pos), x, RCUT, "fp32", D_MIN, w_lin,
                               _cell(periodic))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+def _clusters_with_a_lone_atom():
+    """The clusters with their last atom moved half the cell away along y:
+    its row's only pair within the cutoff is its diagonal, open and under
+    the cell."""
+    pos = _clusters()
+    pos[:, -1, 1] += 15.0
+    return pos
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+def test_skipping_dead_pairs_is_exact(kernel, periodic):
+    """The fp32 kernels' rule, pair by pair: every product of a pair at z
+    == 1 zeroed (with its linear term) gives the fp32 twin's output
+    exactly, on rows whose pairs are all dead but the diagonal, rows with
+    live and dead pairs, and pairs below d_min."""
+    pos = _t(_clusters_with_a_lone_atom())
+    x, c, c2, w0 = _operands()
+    w_lin = _lin_slope(c2)
+    cell = _cell(periodic)
+    d, z, on, _ = _runs(pos, cell, "z", grain=1)
+    eye = torch.eye(A, dtype=torch.bool)
+    assert not bool((on & ~eye)[:, -1].any())  # the lone atom's row
+    assert bool((on & ~eye).any(2)[:, :-1].all())
+    assert bool((~on).any(2).all())  # every row holds dead pairs
+    assert bool(((d < D_MIN) & ~eye).any())
+    skip, plain = KERNELS[kernel]
+    ref = plain(c, w0, pos, x, RCUT, "fp32", D_MIN, w_lin, cell)
+    assert torch.equal(skip(c, w0, pos, x, "fp32", w_lin, cell, grain=1),
+                       ref)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+def test_pair_rule_keeps_the_diagonal(kernel):
+    """Pair by pair on positions where no pair but the diagonal is within
+    the cutoff: the z != 1 rule runs the diagonal alone and equals the
+    fp32 twin; the gd kernels' rule (a live pair off the diagonal) runs
+    nothing, drops sum_m c_m Ttil_m(-1) x[i] and differs from it."""
+    pos = _t(_sparse())
+    x, c, c2, w0 = _operands(seed=2)
+    w_lin = _lin_slope(c2)
+    skip, plain = KERNELS[kernel]
+    ref = plain(c, w0, pos, x, RCUT, "fp32", D_MIN, w_lin, None)
+    assert torch.equal(skip(c, w0, pos, x, "fp32", w_lin, None, grain=1),
+                       ref)
+    dropped = skip(c, w0, pos, x, "fp32", w_lin, None, rule="gd", grain=1)
+    assert torch.equal(dropped, -w0 * x)
+    assert not torch.equal(dropped, ref)
+
+
+def _live_pair_order(c, w0, pos, x, seed, w_lin, cell):
+    """The fp32 kernel's order of operations in plain float32: per pair
+    with z != 1 the filter Wf = sum_m T_m c_m (T_0 = seed(z), T_1 = seed z,
+    the recurrence stepped per order) plus low w_lin, then each row's sum
+    of Wf * x over its pairs in column order, less w0 x[i]."""
+    d, z = ck.pair_geometry(pos, RCUT, D_MIN, cell)
+    out = torch.empty_like(x)
+    for s in range(pos.shape[0]):
+        for i in range(pos.shape[1]):
+            js = torch.nonzero(z[s, i] != 1.0)[:, 0]
+            zj = z[s, i, js][:, None]
+            ta, tb = seed(zj), seed(zj) * zj
+            wf = ta * c[0]
+            for m in range(1, c.shape[0]):
+                wf = wf + tb * c[m]
+                ta, tb = tb, 2.0 * zj * tb - ta
+            if w_lin is not None:
+                low = torch.clamp(d[s, i, js] - D_MIN, max=0.0)
+                low = torch.where(js == i, torch.zeros_like(low), low)
+                wf = wf + low[:, None] * w_lin
+            out[s, i] = (wf * x[s, js]).sum(0) - w0 * x[s, i]
+    return out
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+@pytest.mark.parametrize("kernel", ["fwd", "gx"])
+def test_live_pair_order_matches_the_twin(kernel, periodic):
+    """The fp32 kernels sum the coefficient series per pair before the
+    operand (the twins: the operand product per order); on the clusters
+    with a lone atom the two orders agree within the card's bounds (1e-5
+    forward, 1e-4 gx of max|twin|)."""
+    pos = _t(_clusters_with_a_lone_atom())
+    x, c, c2, w0 = _operands(seed=8)
+    w_lin = _lin_slope(c2)
+    cell = _cell(periodic)
+    if kernel == "fwd":
+        got = _live_pair_order(c, w0, pos, x, lambda z: (1.0 - z) ** 2,
+                               w_lin, cell)
+        ref = ck.cheb_conv_fwd_plain(c, w0, pos, x, RCUT, "fp32", D_MIN,
+                                     w_lin, cell)
+        bound = 1e-5
+    else:
+        got = _live_pair_order(ck._to_that_basis(c), w0, pos, x,
+                               lambda z: 1.0 - z, w_lin, cell)
+        ref = ck.cheb_conv_bwd_gx_plain(c, w0, pos, x, RCUT, "fp32", D_MIN,
+                                        w_lin, cell)
+        bound = 1e-4
+    assert float((got - ref).abs().max() / ref.abs().max()) <= bound
