@@ -55,11 +55,11 @@ Phases (each prints its lines; any failure exits non-zero):
                only if the kernel takes the hi/lo splits. Then the four
                and the F = 128 gd launch at fp32 alone, open and on the
                folded cells, on the fp32 slice's own fits (128, 128) on
-               d_min 0 (keys "_fp32"). Every fp32 line of cheb_fwd,
-               cheb_bwd_gx and cheb_bwd_gd (also at the slice's (48, 64))
-               adds the pairs the live-pair kernel runs against S A^2,
-               its registers and spills, and two launches gated bitwise
-               equal.
+               d_min 0 (keys "_fp32"). Every fp32 line of the four cheb
+               kernels (also at the slice's (48, 64)) and of the dense
+               backward adds the pairs the live-pair kernel runs against
+               S A^2, its registers and spills, and two launches gated
+               bitwise equal.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
                the cheb (stacked and per-block schedules), the dense and
@@ -106,13 +106,23 @@ Phases (each prints its lines; any failure exits non-zero):
                the stacked schedule: launches 3/2/1 per force evaluation
                on the *_fp32 counters, every other counter 0; throughput
                beside the bf16 and bf16x3 slices'; a profiler window;
-               then TIER_SHORT_STEPS steps each periodic, per-block and
-               per-block periodic, each on its own counters.
+               then TIER_SHORT_STEPS steps periodic, STEPS steps
+               per-block (FLASHMD_CHEB_STACK=0: cheb_fwd 3, cheb_bwd_gxgd
+               2 and one-block cheb_bwd_gd 1 on the fp32 counters, every
+               other counter 0, no twin call; throughput beside the
+               stacked fp32 slice's and a profiler window) and
+               TIER_SHORT_STEPS per-block periodic, each on its own
+               counters.
 6. dense    -- the same Langevin run on the dense exact-filter force
                field (message_passing="dense", bf16) for the same
                steps; launch counts must be 3 fwd + 3 bwd per force
                evaluation; second-half throughput; then torch.profiler
-               over PROFILE_STEPS more steps.
+               over PROFILE_STEPS more steps. "dense fp32":
+               cgschnet_1enh_like(precision="fp32", message_passing=
+               "dense") at the slice's shapes, gptq None, DENSE_FP32_STEPS
+               steps: 3 fwd + 3 bwd per force evaluation, every cheb
+               counter 0, no twin call, throughput beside the bf16 dense
+               slice's and a profiler window.
 7. pallas   -- the same Langevin run on the neighbour-matrix force field
                (message_passing="pallas", bf16, Verlet skin 1.0, list
                rebuilt every step); launch counts must be 3 fwd + 3 bwd
@@ -362,11 +372,13 @@ CROSS_BOUND = 1e-4
 # The periodic per-block run's steps: shorter than the slices', to stay
 # well inside the time limit.
 PERBLOCK_PERIODIC_STEPS = 40
-# The bf16x3 slice's stacked run; the bf16x3 and fp32 slices' short
-# periodic, per-block and per-block periodic runs, which put each variant
-# of the tier on a path.
+# The bf16x3 slice's stacked run; the short periodic and per-block periodic
+# runs of the bf16x3 and fp32 slices and the bf16x3 per-block run, which
+# put each variant of the tier on a path.
 BF16X3_STEPS = 40
 TIER_SHORT_STEPS = 10
+# The dense fp32 slice (the port's fidelity yardstick at full width).
+DENSE_FP32_STEPS = 40
 # bf16x3 forces against another near-fp32 evaluation of the same function
 # (card vs CPU, per-block vs stacked, fp32 on the same fit): summation and
 # product order, and the splits' ~5e-6 of max|F| against fp32.
@@ -477,9 +489,11 @@ REPLACES.update({
     name + "_bf16x3": f"{REPLACES[name]} bf16x3 (_mxu_dot :358)"
     for name in _CHEB
 })
-# Its fp32 tier: cheb_fwd, cheb_bwd_gx and cheb_bwd_gd on the CUDA-core
-# live-pair kernels, cheb_bwd_gxgd on its 32 x 32 tiles.
-REPLACES.update({name + "_fp32": f"{REPLACES[name]} fp32" for name in _CHEB})
+# Its fp32 tier: all four on the CUDA-core live-pair kernels; and the
+# dense kernels' fp32 tier (the backward on its CUDA-core live-pair
+# kernel), launched by the dense fp32 slice.
+REPLACES.update({name + "_fp32": f"{REPLACES[name]} fp32"
+                 for name in [*_CHEB, "dense_cfconv_fwd", "dense_cfconv_bwd"]})
 SOURCES = {
     "cheb": "flashmd_tpu_torch/csrc/cheb_kernels.cu",
     "dense": "flashmd_tpu_torch/csrc/cfconv_dense_kernels.cu",
@@ -586,11 +600,14 @@ LF_PB = 16
 # {label: (registers, spill stores, spill loads)} of the fp32 CUDA-core
 # kernels, read from ptxas by ffma_kernel_report at the build.
 FFMA_BUILD = {}
-# The fp32 CUDA-core kernels' template arguments in their mangled names:
-# cheb_rows_ffma_kernel<GX, HAS_CELL>, cheb_gd_ffma_kernel<HAS_CELL>.
+# The fp32 CUDA-core live-pair kernels' template arguments in their mangled
+# names: cheb_rows_ffma_kernel<GX, HAS_CELL>, cheb_gd_ffma_kernel<HAS_CELL>,
+# cheb_gxgd_ffma_kernel<HAS_CELL>, dense_bwd_ffma_kernel<GX>.
 FFMA_KERNELS = {
     "rows": re.compile(r"cheb_rows_ffma_kernelILb([01])ELb([01])E"),
     "gd": re.compile(r"cheb_gd_ffma_kernelILb([01])E"),
+    "gxgd": re.compile(r"cheb_gxgd_ffma_kernelILb([01])E"),
+    "dense": re.compile(r"dense_bwd_ffma_kernelILb([01])E"),
 }
 
 
@@ -601,16 +618,23 @@ def ffma_label(name):
     if m:
         return (f"cheb_rows_ffma_kernel {'gx' if m.group(1) == '1' else 'fwd'}"
                 f" {'cell' if m.group(2) == '1' else 'open'}")
-    m = FFMA_KERNELS["gd"].search(name)
+    m = FFMA_KERNELS["dense"].search(name)
     if m:
-        return f"cheb_gd_ffma_kernel {'cell' if m.group(1) == '1' else 'open'}"
+        return (f"dense_bwd_ffma_kernel "
+                f"{'with gx' if m.group(1) == '1' else 'no gx'}")
+    for kind in ("gd", "gxgd"):
+        m = FFMA_KERNELS[kind].search(name)
+        if m:
+            return (f"cheb_{kind}_ffma_kernel "
+                    f"{'cell' if m.group(1) == '1' else 'open'}")
     return None
 
 
 def ffma_kernel_report(log):
-    """{label: (registers, spill stores, spill loads)} of the six fp32
-    CUDA-core instantiations (fwd, gx, gd; open, cell), printed; fails if
-    one is missing."""
+    """{label: (registers, spill stores, spill loads)} of the ten fp32
+    CUDA-core live-pair instantiations (cheb fwd, gx, gd, gx+gd; open,
+    cell; the dense backward with and without gx), printed; fails if one
+    is missing."""
     seen = {}
     for line in ptxas_summary(log):
         label = ffma_label(line.split(":")[0])
@@ -623,9 +647,13 @@ def ffma_kernel_report(log):
         for c in ("open", "cell"):
             check(f"cheb_rows_ffma_kernel {kind} {c}" in seen,
                   f"cheb_rows_ffma_kernel {kind} {c}: not built")
-    for c in ("open", "cell"):
-        check(f"cheb_gd_ffma_kernel {c}" in seen,
-              f"cheb_gd_ffma_kernel {c}: not built")
+    for kind in ("gd", "gxgd"):
+        for c in ("open", "cell"):
+            check(f"cheb_{kind}_ffma_kernel {c}" in seen,
+                  f"cheb_{kind}_ffma_kernel {c}: not built")
+    for gx in ("with gx", "no gx"):
+        check(f"dense_bwd_ffma_kernel {gx}" in seen,
+              f"dense_bwd_ffma_kernel {gx}: not built")
     for label, (regs, st, ld) in sorted(seen.items()):
         print(f"build: fp32 kernel {label}: {regs} regs, spill {st}/{ld} B")
     FFMA_BUILD.update(seen)
@@ -720,6 +748,10 @@ def _nearer_split(out_k, out_p, out_f):
                for k, p, f in zip(out_k, out_p, out_f))
 
 
+# {(label, tier): numbers} of every compare_and_time call of this run.
+TIER_STATS = {}
+
+
 def compare_and_time(name, kern, plain, flops, nbytes, label=None,
                      fp32_flops=0.0, precs=("fp32", "bf16"), fp32_note="",
                      repeat=False):
@@ -756,7 +788,7 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
               f"(bound {limit:.0e}) max_abs_err {abs_err:.3e} kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms; least time "
               f"{bound_ms:.4f} ms by {bound_by} ({flops:.4e} FLOP, "
-              f"{nbytes} B){note}")
+              f"{nbytes} B), {bound_ms / ms:.1%} of the kernel's{note}")
         check(rel <= limit,
               f"{label or name} {prec}: {rel:.3e} > {limit:.0e}")
         if prec == "bf16x3":
@@ -768,6 +800,7 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
         results[prec] = {"max_abs_err": abs_err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": None}
+        TIER_STATS[label or name, prec] = results[prec]
     return results[prec]
 
 
@@ -853,6 +886,7 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, tier=None, tag="",
         "cheb_fwd": fp32_note("cheb_rows_ffma_kernel fwd", n_z),
         "cheb_bwd_gx": fp32_note("cheb_rows_ffma_kernel gx", n_z),
         "cheb_bwd_gd": fp32_note("cheb_gd_ffma_kernel", n_live),
+        "cheb_bwd_gxgd": fp32_note("cheb_gxgd_ffma_kernel", n_z),
     }
 
     cases = {
@@ -912,24 +946,25 @@ def phase_cheb_kernels(ff, pos, dev, cell=None, tier=None, tag="",
     if stacked_only:
         return stats
     # the combined kernel beside the composition of the two kernels that
-    # compute its halves apart on the same operands
-    prec = tier or "bf16"
+    # compute its halves apart on the same operands, at each tier
+    for prec in precs:
+        def composition():
+            ck.cheb_conv_bwd_gx(c, w0, pos, g, rcut, prec, d_min, w_lin,
+                                **kw)
+            ck.cheb_conv_bwd_gd(c2, pos, x, g, rcut, prec, d_min, **kw)
 
-    def composition():
-        ck.cheb_conv_bwd_gx(c, w0, pos, g, rcut, prec, d_min, w_lin, **kw)
-        ck.cheb_conv_bwd_gd(c2, pos, x, g, rcut, prec, d_min, **kw)
-
-    comp_ms = cuda_time_ms(composition)
-    gxgd_ms = stats["cheb_bwd_gxgd" + suffix]["ms"]
-    runs = ("every pair, in 32 x 32 tiles" if tier == "fp32" else
-            f"live 16x16 fragments (z != 1, run by the combined kernel) "
-            f"{n_rows} of {all_rows} ({n_rows / all_rows:.4f})")
-    print(f"kernels: cheb_bwd_gxgd{suffix} {runs}; {prec} combined "
-          f"{gxgd_ms:.4f} ms")
-    print(f"kernels: cheb_bwd_gxgd{suffix} composition {prec} "
-          f"(cheb_bwd_gx + one-block cheb_bwd_gd, same operands) "
-          f"{comp_ms:.4f} ms beside the combined {gxgd_ms:.4f} ms (ratio "
-          f"{gxgd_ms / comp_ms:.4f})")
+        comp_ms = cuda_time_ms(composition)
+        gxgd_ms = TIER_STATS["cheb_bwd_gxgd" + suffix, prec]["ms"]
+        runs = (f"pairs at z != 1 (run by the live-pair kernel) {n_z} of "
+                f"{s * a * a}" if prec == "fp32" else
+                f"live 16x16 fragments (z != 1, run by the combined kernel) "
+                f"{n_rows} of {all_rows} ({n_rows / all_rows:.4f})")
+        print(f"kernels: cheb_bwd_gxgd{suffix} {runs}; {prec} combined "
+              f"{gxgd_ms:.4f} ms")
+        print(f"kernels: cheb_bwd_gxgd{suffix} composition {prec} fit "
+              f"({m1}, {m2}) {variant} (cheb_bwd_gx + one-block cheb_bwd_gd, "
+              f"same operands) {comp_ms:.4f} ms beside the combined "
+              f"{gxgd_ms:.4f} ms (ratio {gxgd_ms / comp_ms:.4f})")
     # the per-block schedule's block 1: the gd-only kernel on one block's
     # [S, A, F] operands
     stats[f"cheb_bwd_gd{suffix} (F={f})"] = compare_and_time(
@@ -1008,9 +1043,9 @@ def executed_pairs(per_row):
 
 def live_counts(pos, rcut):
     """(ordered pairs i != j with d_ij < rcut, pair chunks of the fp32
-    kernels' 4 x 16 tiling that hold one, all chunks, pairs the bf16
-    kernels execute: each work item's live pairs in 16-pair tiles), whole
-    batch."""
+    forward's 4 x 16 tiling that hold one, all chunks, pairs the live-pair
+    kernels (bf16 forward and backward, fp32 backward) execute: each work
+    item's live pairs in 16-pair tiles), whole batch."""
     a = pos.shape[1]
     rel = pos[:, None, :, :] - pos[:, :, None, :]
     d = torch.sqrt(torch.sum(rel * rel, dim=-1))
@@ -1043,20 +1078,30 @@ def phase_dense_kernels(ff, pos, dev):
     fwd_pair, bwd_pair = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
     nogx_pair = bwd_pair - 3 * f
     wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
-    smem = [load().dense_cfconv_smem_bytes(b) for b in (0, 1, 2, 3)]
+    smem = [load().dense_cfconv_smem_bytes(b) for b in range(6)]
     print(f"kernels: dense shapes S={s} A={a} F={f} R={r} rcut={rcut}; "
           f"dynamic shared memory per block fwd fp32 {smem[0]} B bf16 "
-          f"(tensor cores) {smem[3]} B, bwd fp32 {smem[1]} B bf16 (tensor "
-          f"cores) {smem[2]} B; live pairs (d < rc) {n_live} of {n_all} "
-          f"({n_live / n_all:.4f}); executed pairs (bf16 fwd and bwd: "
-          f"16-pair tiles per {ITEM_ROWS}-row work item) {n_exec} "
-          f"({n_exec / n_live:.4f} x live, {n_exec / n_all:.4f} of all); "
-          f"live 4x16 chunks (fp32 fwd and bwd) {n_chunks} of "
-          f"{all_chunks} ({n_chunks / all_chunks:.4f}); FLOP per pair fwd "
-          f"{fwd_pair} bwd {bwd_pair} (no gx {nogx_pair}); all-pairs FLOP "
-          f"fwd {n_all * fwd_pair:.4e} bwd {n_all * bwd_pair:.4e}; FLOP run "
-          f"on live chunks (64 pairs each) fwd "
-          f"{64 * n_chunks * fwd_pair:.4e} bwd {64 * n_chunks * bwd_pair:.4e}")
+          f"(tensor cores) {smem[3]} B, bwd fp32 (CUDA cores) {smem[1]} B "
+          f"({smem[4]} warps of {smem[5]} B beside "
+          f"{smem[1] - smem[4] * smem[5]} B of float32 weights) bf16 "
+          f"(tensor cores) {smem[2]} B; live pairs (d < rc) {n_live} of "
+          f"{n_all} ({n_live / n_all:.4f}); pairs run by the live-pair "
+          f"kernels (bf16 fwd and bwd, fp32 bwd: 16-pair tiles per "
+          f"{ITEM_ROWS}-row work item) {n_exec} ({n_exec / n_live:.4f} x "
+          f"live, {n_exec / n_all:.4f} of all); live 4x16 chunks (fp32 fwd) "
+          f"{n_chunks} of {all_chunks} ({n_chunks / all_chunks:.4f}); FLOP "
+          f"per pair fwd {fwd_pair} bwd {bwd_pair} (no gx {nogx_pair}); "
+          f"all-pairs FLOP fwd {n_all * fwd_pair:.4e} bwd "
+          f"{n_all * bwd_pair:.4e}; FLOP run on live chunks (64 pairs each, "
+          f"fp32 fwd) {64 * n_chunks * fwd_pair:.4e}; on the pairs run "
+          f"(bwd) {n_exec * bwd_pair:.4e}")
+
+    def bwd_note(gx):
+        regs = FFMA_BUILD.get(f"dense_bwd_ffma_kernel {gx}")
+        return (f"pairs run {n_exec} of {n_all}; dense_bwd_ffma_kernel {gx}: "
+                + (f"{regs[0]} regs, spill {regs[1]}/{regs[2]} B" if regs
+                   else "registers not read"))
+
     stats = {
         "dense_cfconv_fwd": compare_and_time(
             "dense_cfconv_fwd",
@@ -1070,6 +1115,7 @@ def phase_dense_kernels(ff, pos, dev):
             lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p),
             float(n_live * bwd_pair),
             4 * (2 * s * a * 3 + 3 * s * a * f) + wbytes,
+            fp32_note=bwd_note("with gx"), repeat=True,
         ),
     }
     # Block 1's variant: gpos only (gx is None on both sides).
@@ -1080,7 +1126,8 @@ def phase_dense_kernels(ff, pos, dev):
         lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p,
                                             need_gx=False)[0],
         float(n_live * nogx_pair), 4 * (2 * s * a * 3 + 2 * s * a * f) + wbytes,
-        label="dense_cfconv_bwd (no gx)",
+        label="dense_cfconv_bwd (no gx)", fp32_note=bwd_note("no gx"),
+        repeat=True,
     )
     bwd = stats["dense_cfconv_bwd"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], no_gx["max_abs_err"])
@@ -2032,16 +2079,19 @@ def run_slice(label, ff, cfgs, dev, steps, save_interval, kernels, expect,
     return counts, m["ms_per_timestep"], sim
 
 
-def run_tier_slices(ff, cfgs, pbc_cfgs, dev, steps, beside, smi):
+def run_tier_slices(ff, cfgs, pbc_cfgs, dev, steps, beside, smi,
+                    perblock_steps=TIER_SHORT_STEPS):
     """The slice of a field at another tier than bf16 (bf16x3 or fp32):
     ``steps`` steps on the stacked schedule (launches 3/2/1 per force
     evaluation on the tier's counters, every other counter 0), its
     throughput beside those of ``beside`` ({slice: throughput} of this
-    process), a profiler window; then TIER_SHORT_STEPS steps each
-    periodic, per-block and per-block periodic, each with its own counters
-    set to 0 just before and read just after. Returns the tier's counters
-    as the runs that launch them read them, and the stacked run's
-    throughput."""
+    process), a profiler window; then TIER_SHORT_STEPS steps periodic,
+    ``perblock_steps`` per-block (above TIER_SHORT_STEPS with its
+    throughput beside the stacked run's, no twin call and a profiler
+    window) and TIER_SHORT_STEPS per-block periodic, each with its own
+    counters set to 0 just before and read just after. Returns the tier's
+    counters as the runs that launch them read them, and the stacked
+    run's throughput."""
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
     cfg = ff.schnet_config
@@ -2065,11 +2115,24 @@ def run_tier_slices(ff, cfgs, pbc_cfgs, dev, steps, beside, smi):
             cheb_counts(n_short, cell=True, tier=tier), smi, gptq=None,
         )
     with cheb_schedule("0"):
-        pb, _, _ = run_slice(
-            f"{tier} per-block", ff, cfgs, dev, *short, ck,
-            cheb_counts(n_short, per_block=True, tier=tier), smi,
-            gptq=None,
-        )
+        pb_run = ((perblock_steps, SAVE_INTERVAL)
+                  if perblock_steps > TIER_SHORT_STEPS else short)
+        with counting_twins() as twins:
+            pb, _, sim = run_slice(
+                f"{tier} per-block", ff, cfgs, dev, *pb_run, ck,
+                cheb_counts(pb_run[0] + 1, per_block=True, tier=tier), smi,
+                gptq=None,
+            )
+        check(not any(twins.values()), f"{tier} per-block: twin calls "
+                                       f"{twins}")
+        if perblock_steps > TIER_SHORT_STEPS:
+            pb_tp = sim.get_throughput_metrics()["throughput"]
+            print(f"{tier} per-block: second-half throughput {pb_tp:.1f} "
+                  f"timestep*mol/s ({perblock_steps} steps, "
+                  f"FLASHMD_CHEB_STACK=0, twin calls 0) beside the stacked "
+                  f"{tier} slice's {tp:.1f} in this run (ratio "
+                  f"{pb_tp / tp:.4f}), on {smi}")
+            profile_steps(sim, dev, PROFILE_STEPS, f"{tier} per-block")
         pb_pbc, _, _ = run_slice(
             f"{tier} per-block periodic", ff, pbc_cfgs, dev, *short, ck,
             cheb_counts(n_short, per_block=True, cell=True, tier=tier),
@@ -2081,6 +2144,39 @@ def run_tier_slices(ff, cfgs, pbc_cfgs, dev, steps, beside, smi):
     out["cheb_bwd_gxgd" + sfx] = pb["cheb_bwd_gxgd" + sfx]
     out["cheb_bwd_gxgd_cell" + sfx] = pb_pbc["cheb_bwd_gxgd_cell" + sfx]
     return out, tp
+
+
+def phase_dense_fp32_slice(cfgs, dev, bf16_tp, smi):
+    """cgschnet_1enh_like(precision="fp32", message_passing="dense") at the
+    slice's shapes, gptq None: DENSE_FP32_STEPS BAOAB steps with dense
+    fwd 3 and bwd 3 per force evaluation (every other counter 0) and no
+    twin call, the throughput beside the bf16 dense slice's, a profiler
+    window. Returns the launch counts under the fp32 keys."""
+    from flashmd_tpu_torch.ops import cfconv_dense as cd
+    from flashmd_tpu_torch.ops import cheb_kernel as ck
+
+    ff, _ = _force_fields(dev, BATCH, message_passing="dense",
+                          precision="fp32")
+    check((ff.schnet_config.precision, ff.schnet_config.message_passing)
+          == ("fp32", "dense"),
+          f"unexpected dense fp32 config {ff.schnet_config}")
+    n_evals = DENSE_FP32_STEPS + 1
+    ck.reset_launch_counts()
+    with counting_twins(dense=True) as twins:
+        counts, _, sim = run_slice(
+            "dense fp32", ff, cfgs, dev, DENSE_FP32_STEPS, SAVE_INTERVAL, cd,
+            {"dense_cfconv_fwd": 3 * n_evals,
+             "dense_cfconv_bwd": 3 * n_evals}, smi, gptq=None)
+    check(not any(twins.values()), f"dense fp32: twin calls {twins}")
+    check(not any(ck.launch_counts().values()),
+          f"dense fp32: cheb launches {ck.launch_counts()}")
+    tp = sim.get_throughput_metrics()["throughput"]
+    print(f"dense fp32: second-half throughput {tp:.1f} timestep*mol/s "
+          f"({DENSE_FP32_STEPS} steps, twin calls 0, every cheb counter 0) "
+          f"beside the bf16 dense slice's {bf16_tp:.1f} in this run (ratio "
+          f"{tp / bf16_tp:.4f}), on {smi}")
+    profile_steps(sim, dev, PROFILE_STEPS, "dense fp32")
+    return {k + "_fp32": v for k, v in counts.items()}
 
 
 def phase_fp32_forces(dev):
@@ -2714,14 +2810,18 @@ class FrontierLog(logging.Handler):
 
 
 @contextlib.contextmanager
-def counting_twins():
-    """Every cheb twin counted while the block runs; yields the counts."""
+def counting_twins(dense=False):
+    """Every cheb twin (with ``dense``, every dense twin) counted while the
+    block runs; yields the counts."""
+    from flashmd_tpu_torch.ops import cfconv_dense as cd
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
-    names = ("cheb_conv_fwd_plain", "cheb_conv_bwd_gx_plain",
-             "cheb_conv_bwd_gd_plain", "cheb_conv_bwd_gxgd_plain")
+    mod = cd if dense else ck
+    names = (("dense_cfconv_fwd_plain", "dense_cfconv_bwd_plain") if dense
+             else ("cheb_conv_fwd_plain", "cheb_conv_bwd_gx_plain",
+                   "cheb_conv_bwd_gd_plain", "cheb_conv_bwd_gxgd_plain"))
     counts = dict.fromkeys(names, 0)
-    old = {n: getattr(ck, n) for n in names}
+    old = {n: getattr(mod, n) for n in names}
 
     def counted(name):
         def twin(*args, **kw):
@@ -2730,12 +2830,12 @@ def counting_twins():
         return twin
 
     for n in names:
-        setattr(ck, n, counted(n))
+        setattr(mod, n, counted(n))
     try:
         yield counts
     finally:
         for n, fn in old.items():
-            setattr(ck, n, fn)
+            setattr(mod, n, fn)
 
 
 def build_with_frontier(ref, cfgs, dev):
@@ -4334,7 +4434,7 @@ def main():
     counts.update(x3_counts)
     counts.update(run_tier_slices(ff_32, cfgs, pbc_cfgs, dev, STEPS,
                                   {"bf16 cheb": open_tp, "bf16x3": x3_tp},
-                                  smi)[0])
+                                  smi, perblock_steps=STEPS)[0])
     dense_counts, ms_step, sim = run_slice(
         "dense", ff_dense, cfgs, dev, STEPS, SAVE_INTERVAL, cd,
         {"dense_cfconv_fwd": 3 * n_evals, "dense_cfconv_bwd": 3 * n_evals},
@@ -4346,7 +4446,9 @@ def main():
     print(f"dense: per step 3 fwd + 2 bwd + 1 bwd (no gx) at the start "
           f"positions' kernel times = {kernel_ms:.3f} ms of {ms_step:.3f} "
           f"ms/step ({kernel_ms / ms_step:.3f}); an estimate, not a trace")
+    dense_tp = sim.get_throughput_metrics()["throughput"]
     profile_steps(sim, dev, PROFILE_STEPS, "dense")
+    counts.update(phase_dense_fp32_slice(cfgs, dev, dense_tp, smi))
     pallas_counts, ms_step, sim = run_slice(
         "pallas", ff_pallas, cfgs, dev, STEPS, SAVE_INTERVAL, cf,
         {"cfconv_fwd": 3 * n_evals, "cfconv_bwd": 3 * n_evals}, smi,
@@ -4419,6 +4521,8 @@ def main():
         phase_host(ff, cfgs, dev, open_tp, smi)
         phase_mesh(smi)
 
+    for name in ("dense_cfconv_fwd", "dense_cfconv_bwd"):
+        stats[name + "_fp32"] = TIER_STATS[name, "fp32"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": SOURCES[name.split("_")[0]],

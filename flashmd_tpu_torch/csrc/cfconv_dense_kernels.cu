@@ -9,7 +9,7 @@
 //     dense_fwd_kernel (fp32), dense_fwd_mma_kernel (bf16):
 //                        out[i] = sum_{j != i, j < A} W_ij * cut_ij * x[j]
 //   dense_cfconv_bwd  <- _bwd_kernel (:147), two launches:
-//     dense_bwd_kernel (fp32), dense_bwd_mma_kernel (bf16):
+//     dense_bwd_ffma_kernel (fp32), dense_bwd_mma_kernel (bf16):
 //                        gx[i] = sum_{j != i} W_ij * cut_ij * g[j] and
 //                        gd[i, j] = d(g_i . out_i)/d d_ij for every ordered
 //                        pair (the MLP backward of the cotangent g_i x_j)
@@ -23,24 +23,27 @@
 // What bounds them on the H100: every pair runs a two-layer filter MLP,
 // R*F + F*F = 22,784 multiply-adds at R = 50, F = 128 (twice that in the
 // backward), against a few hundred bytes of input per molecule: they are
-// bound by arithmetic, never by memory. At bf16 both kernels take their
-// products on the tensor cores over the live pairs only (d < rc, i != j;
-// 0.097 of all pairs at the dense slice's start positions): a warp
-// compacts its rows' live pairs into a ring and runs them in 16-pair M
-// tiles of mma.m16n8k16 (cfconv_tile.cuh; the kernels' notes below). At
-// fp32 they do the arithmetic as float32 FMA from shared memory on CUDA
-// cores, which the design keeps near the bound as follows:
+// bound by arithmetic, never by memory. The live pairs (d < rc, i != j;
+// 0.097 of all pairs at the dense slice's start positions) are the only
+// ones that add something. At bf16 both kernels take their products on the
+// tensor cores over those only: a warp compacts its rows' live pairs into a
+// ring and runs them in 16-pair M tiles of mma.m16n8k16 (cfconv_tile.cuh;
+// the kernels' notes below). At fp32 the backward runs the same ring's
+// pairs through register-tiled float32 FMAs on the CUDA cores
+// (dense_bwd_ffma_kernel, bwd_ffma_tile); the fp32 forward does the
+// arithmetic as float32 FMA from shared memory on every 64-pair chunk that
+// holds a live pair:
 //   - the [pairs, F] MLP activations never reach device memory: a block
 //     owns 4 destination rows and walks the source atoms in chunks of 16,
 //     so one chunk is a 64-pair tile whose activations live in registers
 //     (4 pairs x 8 features per thread) and one shared [F, 64] tile;
 //   - w0 and w1 are loaded into shared memory once per block, with padded
-//     row strides so both the products and their transposes (backward)
-//     read them without bank conflicts;
+//     row strides so the products read them without bank conflicts;
 //   - a chunk whose 64 pairs all lie at d >= rc (or are masked) adds
 //     exactly zero (cut and dcut vanish there) and is skipped whole.
 //
-// Determinism: every block (bf16: every warp) owns its output rows. W and
+// Determinism: every block (the backward and the bf16 forward: every warp)
+// owns its output rows. W and
 // cut depend only on d_ij, which is bitwise symmetric, so gx[i] is the
 // forward with x replaced by g. The reference adds gd_ij to row j across
 // grid steps; here the first kernel writes gd [S, A, A] (36 MB at S = 128,
@@ -62,7 +65,6 @@ namespace {
 
 // Dynamic shared memory, in floats.
 constexpr int FWD_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + COLS * F;
-constexpr int BWD_FLOATS = W_FLOATS + 2 * F * LDA + 2 * COLS * F + ROWS * F;
 constexpr int GPOS_ROWS = THREADS / 32;  // one warp per row of gpos
 
 // Forward at fp32. Grid: (row tiles of ROWS, molecules). Thread (pg, fg)
@@ -168,179 +170,105 @@ dense_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   }
 }
 
-// Backward, pass 1 at fp32: recompute the forward chunk, then gx (GX) of
-// this block's rows and gd of its ordered pairs (i in the block, every j)
-// into gd [S, A, A]. Same grid and thread layout as the forward.
+// Backward, pass 1 at fp32, on the CUDA cores: gd of every ordered pair of
+// a work item's rows (zero where dead) and, with GX, gx of those rows.
+//
+// Replaces _bwd_kernel (flashmd_tpu/ops/pallas/cfconv_dense.py:147) at
+// fp32, as dense_bwd_mma_kernel does at bf16. Bound: operations, per live
+// pair 4 (R F + F F) FLOP of the four products (+ 12 F + 6 R elementwise)
+// at the 67 TFLOP/s float32 peak: 1.2091 ms at the dense slice's start
+// (871,318 live pairs, R = 50, F = 128).
+//
+// Design: dense_bwd_mma_kernel's pairs, with the products on the CUDA
+// cores. A persistent grid stages w0 and w1 as float32 once per block
+// (stage_weights_f32, 101 KB); each of its DF_WARPS = 4 warps (one per
+// scheduler of the SM, dense_cfconv_smem_bytes(4)) owns work items of
+// DM_RW rows, scans their partners 32 at a time, writes gd = 0 for every
+// dead pair and pushes the live ones (d < rc, i != j, in range), in
+// row-major order, into its ring. Every DF_TILE = 16
+// entries are one tile (bwd_ffma_tile): the four products as
+// register-tiled float32 FMAs (8 pairs x 8 columns a lane, 16 FMAs per
+// shared load), tanhf and expf at the twin's places, a0 kept in the warp's
+// shared tile for (1 - a0^2), gd of the tile's pairs written to the [S, A,
+// A] workspace, and with GX (W cut) g_j summed into the item's gx rows in
+// ring order. Every sum runs in a fixed order (features, then pairs in
+// ring order); no atomics.
 template <bool GX>
-__global__ void __launch_bounds__(THREADS, 1)
-dense_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
-                 const float* __restrict__ g, const float* __restrict__ w0,
-                 const float* __restrict__ b0, const float* __restrict__ w1,
-                 const float* __restrict__ offset,
-                 const float* __restrict__ coeff_p, float* __restrict__ gd,
-                 float* __restrict__ gx, int A, int R, float rcut,
-                 float arg_scale, float dcut_scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* w0_s = smem;                  // [RMAX][LDW]
-  float* w1_s = w0_s + RMAX * LDW;     // [F][LDW]
-  float* a_s = w1_s + F * LDW;         // [F][LDA]: a0, then gt0
-  float* p_s = a_s + F * LDA;          // [F][LDA]: rbf, then g_i x_j cut
-  float* xc_s = p_s + F * LDA;         // [COLS][F]
-  float* gc_s = xc_s + COLS * F;       // [COLS][F]
-  float* gr_s = gc_s + COLS * F;       // [ROWS][F]
-  __shared__ float b0_s[F], off_s[RMAX];
-  __shared__ float pr_s[ROWS][3], pc_s[COLS][3];
-  __shared__ float d_s[NP], cut_s[NP], dcut_s[NP];
-
-  const int s = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS;
-  const int tid = threadIdx.x;
-  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg, row = pg >> 2;
-  pos += (size_t)s * A * 3;
-  x += (size_t)s * A * F;
-  g += (size_t)s * A * F;
-  gd += (size_t)s * A * A;
+__global__ void __launch_bounds__(DF_WARPS * 32, 1)
+dense_bwd_ffma_kernel(const float* __restrict__ pos,
+                      const float* __restrict__ x,
+                      const float* __restrict__ g,
+                      const float* __restrict__ w0,
+                      const float* __restrict__ b0,
+                      const float* __restrict__ w1,
+                      const float* __restrict__ offset,
+                      const float* __restrict__ coeff_p,
+                      float* __restrict__ gd, float* __restrict__ gx, int S,
+                      int A, int R, float rcut, float arg_scale,
+                      float dcut_scale) {
+  extern __shared__ float4 ffma_smem4[];
+  float* w0_s = reinterpret_cast<float*>(ffma_smem4);  // [RMAX][DF_LDW]
+  float* w1_s = w0_s + RMAX * DF_LDW;                  // [F][DF_LDW]
+  float* b0_s = w1_s + F * DF_LDW;                     // [F]
+  float* off_s = b0_s + F;                             // [RMAX]
+  stage_weights_f32(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* act_s = off_s + RMAX + warp * DF_WARP_FLOATS;  // [DF_TILE][F]
+  float* buf_s = act_s + DF_TILE * F;                   // [DF_TILE][F]
+  float* gx_s = buf_s + DF_TILE * F;                    // [DM_RW][F]
+  float* pd_s = gx_s + DM_RW * F;                       // [DF_TILE][4]
+  int* ring = reinterpret_cast<int*>(pd_s + 4 * DF_TILE);  // [DM_RING]
   const float coeff = *coeff_p;
 
-  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
-  if (tid < ROWS * 3) {
-    int r = tid / 3, c = tid % 3;
-    pr_s[r][c] = r0 + r < A ? pos[(r0 + r) * 3 + c] : 0.0f;
-  }
-  for (int e = tid; e < ROWS * F; e += THREADS) {
-    int i = r0 + e / F;
-    gr_s[e] = i < A ? g[(size_t)i * F + e % F] : 0.0f;
-  }
-  float accgx[FPT];
-#pragma unroll
-  for (int c = 0; c < FPT; ++c) accgx[c] = 0.0f;
-
-  for (int j0 = 0; j0 < A; j0 += COLS) {
-    __syncthreads();
-    if (tid < COLS * 3) {
-      int jj = tid / 3, c = tid % 3;
-      pc_s[jj][c] = j0 + jj < A ? pos[(j0 + jj) * 3 + c] : 0.0f;
-    }
-    for (int e = tid; e < COLS * F; e += THREADS) {
-      int j = j0 + e / F;
-      xc_s[e] = j < A ? x[(size_t)j * F + e % F] : 0.0f;
-      gc_s[e] = j < A ? g[(size_t)j * F + e % F] : 0.0f;
-    }
-    __syncthreads();
-    bool live = false;
-    if (tid < NP) {
-      int i = r0 + tid / COLS, j = j0 + tid % COLS;
-      float d, cut, dcut, rel[3];
-      live = pair_geom(pr_s[tid / COLS], pc_s[tid % COLS],
-                       i < A && j < A && i != j, rcut, arg_scale, dcut_scale,
-                       d, cut, dcut, rel);
-      d_s[tid] = d;
-      cut_s[tid] = cut;
-      dcut_s[tid] = dcut;
-    }
-    if (!__syncthreads_or(live)) {  // the chunk adds exactly zero
-      int i = r0 + tid / COLS, j = j0 + tid % COLS;
-      if (tid < NP && i < A && j < A) gd[(size_t)i * A + j] = 0.0f;
-      continue;
+  const int n_groups = (A + DM_RW - 1) / DM_RW;
+  const int n_items = S * n_groups;
+  for (int item = blockIdx.x * DF_WARPS + warp; item < n_items;
+       item += gridDim.x * DF_WARPS) {
+    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
+    const float* ps = pos + (size_t)s * A * 3;
+    const float* xs = x + (size_t)s * A * F;
+    const float* gs = g + (size_t)s * A * F;
+    float* gds = gd + (size_t)s * A * A;
+    if (GX) {
+      for (int e = lane; e < DM_RW * F; e += 32) gx_s[e] = 0.0f;
+      __syncwarp();
     }
 
-    float* rbf_s = p_s;
-    for (int e = tid; e < R * NP; e += THREADS) {
-      int r = e / NP, p = e % NP;
-      float dr = d_s[p] - off_s[r];
-      rbf_s[r * LDA + p] = expf(coeff * (dr * dr)) * cut_s[p];
-    }
-    __syncthreads();
-    // Forward recompute; a0 stays in registers unrounded for gt0.
-    float a0[4][FPT] = {};
-    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, a0);
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) {
-      int f = fg + 16 * c;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a0[i][c] = tanhf(a0[i][c] + b0_s[f]);
-      store4(a_s + f * LDA + p0, a0, c);
-    }
-    __syncthreads();  // rbf reads done, a0 tile complete
-    float w[4][FPT] = {};
-    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
-
-    // gx, s_cut = sum_f g_i W x_j and the MLP cotangent g_i x_j cut (into
-    // w's registers; reference gw, cfconv_dense.py:181).
-    float sc[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int p = p0 + i;
-      float cutp = cut_s[p];
-      const float* xj = xc_s + (p % COLS) * F + fg;
-      const float* gj = gc_s + (p % COLS) * F + fg;
-      const float* gi = gr_s + row * F + fg;
-      sc[i] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < FPT; ++c) {
-        float xjv = xj[16 * c], giv = gi[16 * c];
-        if (GX) accgx[c] += (w[i][c] * cutp) * gj[16 * c];
-        sc[i] += (giv * w[i][c]) * xjv;
-        w[i][c] = (giv * xjv) * cutp;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) store4(p_s + (fg + 16 * c) * LDA + p0, w, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i] = sum16(sc[i]);
-    __syncthreads();  // cotangent tile complete; a0 tile reads done
-
-    // ga0 = (g_i x_j cut) @ w1^T, gt0 = ga0 (1 - a0^2) -> a_s.
-    float ga[4][FPT] = {};
-    gemm_tile<FPT>(p_s, w1_s + fg * LDW, F, 1, LDW, p0, ga);
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ga[i][c] = ga[i][c] * (1.0f - a0[i][c] * a0[i][c]);
-      store4(a_s + (fg + 16 * c) * LDA + p0, ga, c);
-    }
-    __syncthreads();
-
-    // grbf = gt0 @ w0^T over r = fg + 16 cr, then the distance gradient.
-    float gr[4][4] = {};
-    gemm_tile<4>(a_s, w0_s + fg * LDW, F, 1, LDW, p0, gr);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float dp = d_s[p0 + i];
-      float sg = 0.0f, se = 0.0f;
-#pragma unroll
-      for (int cr = 0; cr < 4; ++cr) {
-        int r = fg + 16 * cr;
-        if (r < R) {
-          float dr = dp - off_s[r];
-          float ge = gr[i][cr] * expf(coeff * (dr * dr));
-          se += ge;
-          sg += ge * dr;
+    int head = 0, tail = 0;
+    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
+      const int i = r0 + rr;
+      const float* pi = ps + i * 3;
+      for (int jb = 0; jb < A; jb += 32) {
+        int j = jb + lane;
+        bool live = false;
+        if (j < A) {
+          float d, cut, dcut, rel[3];
+          live = pair_geom(pi, ps + j * 3, j != i, rcut, arg_scale,
+                           dcut_scale, d, cut, dcut, rel);
+          if (!live) gds[(size_t)i * A + j] = 0.0f;
         }
+        tail = ring_push(ring, tail, live, (rr << 16) | j, lane);
+        for (; tail - head >= DF_TILE; head += DF_TILE)
+          bwd_ffma_tile<GX>(ring, head, DF_TILE, r0, ps, A, xs, gs, act_s,
+                            buf_s, pd_s, gx_s, gds, w0_s, w1_s, b0_s, off_s,
+                            R, coeff, rcut, arg_scale, dcut_scale, lane);
       }
-      sg = sum16(sg);
-      se = sum16(se);
-      int p = p0 + i, ii = r0 + p / COLS, j = j0 + p % COLS;
-      if (fg == 0 && ii < A && j < A)
-        gd[(size_t)ii * A + j] =
-            cut_s[p] * (2.0f * coeff) * sg + (sc[i] + se) * dcut_s[p];
     }
-  }
-
-  if (GX) {
-    __syncthreads();
-    float* red = a_s;
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) red[pg * F + fg + 16 * c] = accgx[c];
-    __syncthreads();
-    gx += (size_t)s * A * F;
-    for (int e = tid; e < ROWS * F; e += THREADS) {
-      int rr = e / F, f = e % F;
-      if (r0 + rr >= A) continue;
-      const float* q = red + rr * 4 * F + f;
-      gx[(size_t)(r0 + rr) * F + f] = ((q[0] + q[F]) + q[2 * F]) + q[3 * F];
+    if (tail > head)
+      bwd_ffma_tile<GX>(ring, head, tail - head, r0, ps, A, xs, gs, act_s,
+                        buf_s, pd_s, gx_s, gds, w0_s, w1_s, b0_s, off_s, R,
+                        coeff, rcut, arg_scale, dcut_scale, lane);
+    if (GX) {
+      float* gxs = gx + (size_t)s * A * F;
+      for (int e = 4 * lane; e < DM_RW * F; e += 128) {
+        int i = r0 + e / F;
+        if (i < A)
+          *reinterpret_cast<float4*>(gxs + (size_t)i * F + e % F) =
+              *reinterpret_cast<const float4*>(gx_s + e);
+      }
     }
+    __syncwarp();  // gx_s is read before the next item writes
   }
 }
 
@@ -559,22 +487,22 @@ int dense_cfconv_bwd(const float* pos, const float* x, const float* g,
   if (!sizes_ok(S, A, Fdim, R)) return (int)cudaErrorInvalidValue;
   float arg_scale = (float)(PI / (double)rcut);
   float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
-  void* args[] = {&pos,  &x,  &g, &w0, &b0,   &w1,        &offset,
-                  &coeff, &gd, &gx, &A, &R, &rcut, &arg_scale, &dcut_scale};
+  void* margs[] = {&pos, &x,  &g, &w0, &b0, &w1,   &offset,    &coeff,
+                   &gd,  &gx, &S, &A,  &R,  &rcut, &arg_scale, &dcut_scale};
   cudaStream_t st = (cudaStream_t)stream;
   bool need_gx = gx != nullptr;
   cudaError_t err;
   if (bf16) {
-    void* margs[] = {&pos, &x,  &g, &w0, &b0, &w1,   &offset,    &coeff,
-                     &gd,  &gx, &S, &A,  &R,  &rcut, &arg_scale, &dcut_scale};
     err = launch_persistent(need_gx ? dense_bwd_mma_kernel<true>
                                     : dense_bwd_mma_kernel<false>,
                             DM_WARPS, DM_SMEM, S * ((A + DM_RW - 1) / DM_RW),
                             st, margs);
-  } else if (need_gx)
-    err = launch(dense_bwd_kernel<true>, BWD_FLOATS, S, A, st, args);
-  else
-    err = launch(dense_bwd_kernel<false>, BWD_FLOATS, S, A, st, args);
+  } else {
+    err = launch_persistent(need_gx ? dense_bwd_ffma_kernel<true>
+                                    : dense_bwd_ffma_kernel<false>,
+                            DF_WARPS, DF_SMEM, S * ((A + DM_RW - 1) / DM_RW),
+                            st, margs);
+  }
   if (err != cudaSuccess) return (int)err;
   dim3 grid((A + GPOS_ROWS - 1) / GPOS_ROWS, S);
   dense_gpos_kernel<<<grid, THREADS, 0, st>>>(pos, gd, gpos, A);
@@ -582,12 +510,20 @@ int dense_cfconv_bwd(const float* pos, const float* x, const float* g,
 }
 
 // Dynamic shared memory per block, in bytes: of the forward at fp32 (kind
-// 0) or at bf16 (3, tensor cores), of the backward's first pass at fp32 (1)
-// or at bf16 (2, tensor cores).
+// 0) or at bf16 (3, tensor cores), of the backward's first pass at fp32 (1,
+// CUDA cores) or at bf16 (2, tensor cores). Kind 4: the fp32 backward's
+// warps per block; 5: its bytes per warp (the rest of kind 1 is the
+// staged float32 weights).
 int dense_cfconv_smem_bytes(int kind) {
-  if (kind == 3) return FW_SMEM;
-  if (kind == 2) return DM_SMEM;
-  return (int)sizeof(float) * (kind ? BWD_FLOATS : FWD_FLOATS);
+  switch (kind) {
+    case 0: return (int)sizeof(float) * FWD_FLOATS;
+    case 1: return DF_SMEM;
+    case 2: return DM_SMEM;
+    case 3: return FW_SMEM;
+    case 4: return DF_WARPS;
+    case 5: return (int)sizeof(float) * DF_WARP_FLOATS;
+    default: return -1;
+  }
 }
 
 }  // extern "C"

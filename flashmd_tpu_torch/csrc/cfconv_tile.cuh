@@ -4,7 +4,9 @@
 // layout, weight staging and float32-FMA tile product of the filter MLP;
 // and the tensor-core kernels' live-pair rings with their filter-MLP tiles,
 // the backward's four products (bwd_mma_tile) and the forward's two
-// (fwd_mma_tile, with the forward-tile kernels' item loop fwd_mma_items).
+// (fwd_mma_tile, with the forward-tile kernels' item loop fwd_mma_items);
+// and the fp32 dense backward's live-pair tiles on the CUDA cores
+// (bwd_ffma_tile, on the same rings).
 //
 // CUDA-core tile layout: a block of THREADS threads owns ROWS rows and
 // walks their partners in chunks of COLS, so one chunk is NP = ROWS * COLS
@@ -682,6 +684,320 @@ cudaError_t launch(K kernel, int floats, int S, int A, cudaStream_t stream,
                          stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 dense backward's live-pair tiles on the CUDA cores
+// (dense_bwd_ffma_kernel): the tensor-core kernels' ring and work items,
+// with the four filter-MLP products as register-tiled float32 FMAs. A warp
+// takes DF_TILE = 16 ring entries at a time; its activation tiles are
+// pair-major [DF_TILE][F] in its own shared memory, w0 and w1 float32 in
+// the block's, row stride DF_LDW. A product's lane holds DF_PP = 8 pairs
+// x 8 output columns (64 accumulators) and reads, per 4 steps of the
+// reduction, one float4 of each of its pairs' activations and 8 float4 of
+// weights: 256 FMAs per 16 shared loads. The products with w (a0 = rbf w0,
+// W = a0 w1) take the lane's columns 4 fg + {0..3} and 64 + 4 fg + {0..3}
+// of a weight row (float4 reads along the row); those with w^T (ga0 =
+// cot w1^T, grbf = gt0 w0^T) take weight rows, read as float4 along the
+// reduction, rows 1 apart in the 8 lanes of a phase, which the stride
+// DF_LDW = F + 4 puts in distinct banks.
+
+constexpr int DF_LDW = F + 4;  // float32 weight row stride
+constexpr int DF_PP = 8;       // pairs per lane of a product
+constexpr int DF_TILE = 16;    // pairs per tile
+// floats of the block's staged weights: w0_s [RMAX][DF_LDW], w1_s
+// [F][DF_LDW], b0, offsets
+constexpr int DF_W_FLOATS = (RMAX + F) * DF_LDW + F + RMAX;
+// floats per warp: a0 (then gt0) and the second tile (rbf, W cut, then
+// the cotangent), the item's gx rows, per-pair d, cut, dcut and s_cut,
+// the ring
+constexpr int DF_WARP_FLOATS = 2 * DF_TILE * F + DM_RW * F + 4 * DF_TILE +
+                               DM_RING;
+// warps per block: one on each of the SM's four schedulers. The 227 KB a
+// block may hold would take 6, but then two schedulers carry two warps
+// each and set the pace (tools/bwd_variants.py, H100 80GB HBM3, 700 W: 6
+// and 5 warps ran 12 % and 5-8 % slower than 4, 3 warps 27-31 %).
+constexpr int DF_WARPS = 4;
+static_assert(4 * (DF_W_FLOATS + DF_WARPS * DF_WARP_FLOATS) <= 232448,
+              "the fp32 dense backward's shared memory");
+constexpr int DF_SMEM = 4 * (DF_W_FLOATS + DF_WARPS * DF_WARP_FLOATS);
+
+// w0 [R, F] -> w0_s [RMAX][DF_LDW] (rows >= R zero), w1 [F, F] -> w1_s
+// [F][DF_LDW], float32; b0 and the offsets (zero past R) as they are.
+__device__ __forceinline__ void stage_weights_f32(
+    const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ w1, const float* __restrict__ offset, int R,
+    float* w0_s, float* w1_s, float* b0_s, float* off_s) {
+  for (int e = threadIdx.x; e < RMAX * F; e += blockDim.x) {
+    int r = e / F, f = e % F;
+    w0_s[r * DF_LDW + f] = r < R ? w0[r * F + f] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < F * F; e += blockDim.x)
+    w1_s[(e / F) * DF_LDW + e % F] = w1[e];
+  for (int e = threadIdx.x; e < F; e += blockDim.x) b0_s[e] = b0[e];
+  for (int e = threadIdx.x; e < RMAX; e += blockDim.x)
+    off_s[e] = e < R ? offset[e] : 0.0f;
+}
+
+// acc[q][c] = sum_{k < K} a[(p0 + q) lda + k] w[k DF_LDW + n_c] (the
+// product with w), n_c = 4 fg + c (c < 4), 64 + 4 fg + c - 4 (c >= 4); a
+// pair-major, K a multiple of 4; the sum over k in order.
+__device__ __forceinline__ void df_rowprod(float (&acc)[DF_PP][8],
+                                           const float* a, int lda,
+                                           const float* w, int K, int p0,
+                                           int fg) {
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[q][c] = 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < K; k += 4) {
+    float4 av[DF_PP];
+#pragma unroll
+    for (int q = 0; q < DF_PP; ++q)
+      av[q] = *reinterpret_cast<const float4*>(a + (p0 + q) * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* wr = w + (k + kk) * DF_LDW + 4 * fg;
+      const float4 lo = *reinterpret_cast<const float4*>(wr);
+      const float4 hi = *reinterpret_cast<const float4*>(wr + F / 2);
+      const float b[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int q = 0; q < DF_PP; ++q) {
+        const float aq = kk == 0 ? av[q].x : kk == 1 ? av[q].y
+                       : kk == 2 ? av[q].z : av[q].w;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(aq, b[c], acc[q][c]);
+      }
+    }
+  }
+}
+
+// acc[q][c] = sum_{k0 <= k < k1} a[(p0 + q) lda + k] w[(row0 + c step)
+// DF_LDW + k] (the product with w^T, rows of w as its columns); a
+// pair-major, k0 and k1 multiples of 4; the sum over k in order.
+__device__ __forceinline__ void df_colprod(float (&acc)[DF_PP][8],
+                                           const float* a, int lda,
+                                           const float* w, int k0, int k1,
+                                           int p0, int row0, int step) {
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[q][c] = 0.0f;
+#pragma unroll 1
+  for (int k = k0; k < k1; k += 4) {
+    float4 av[DF_PP];
+#pragma unroll
+    for (int q = 0; q < DF_PP; ++q)
+      av[q] = *reinterpret_cast<const float4*>(a + (p0 + q) * lda + k);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float4 b = *reinterpret_cast<const float4*>(
+          w + (row0 + c * step) * DF_LDW + k);
+#pragma unroll
+      for (int q = 0; q < DF_PP; ++q) {
+        acc[q][c] = fmaf(av[q].x, b.x, acc[q][c]);
+        acc[q][c] = fmaf(av[q].y, b.y, acc[q][c]);
+        acc[q][c] = fmaf(av[q].z, b.z, acc[q][c]);
+        acc[q][c] = fmaf(av[q].w, b.w, acc[q][c]);
+      }
+    }
+  }
+}
+
+// One tile of the fp32 filter-MLP backward: the ring's entries head ..
+// head + nv - 1 (nv <= DF_TILE) of the item at row r0 (pointers at its
+// molecule), each (row - r0) << 16 | j. In order: per pair d, cut, dcut;
+// rbf = exp(coeff (d - offset)^2) cut; a0 = tanh(rbf w0 + b0) (tanhf, kept
+// in act_s); W = a0 w1; s_cut = sum_f (g_i W) x_j, the cotangent (g_i x_j)
+// cut and, with GX, W cut staged for gx; ga0 = cot w1^T and gt0 = ga0 (1 -
+// a0^2) in place of a0; grbf = gt0 w0^T over the two halves of F (lanes 16
+// apart, added), then se = sum_r grbf e_r, sg = sum_r grbf e_r (d -
+// offset_r) (expf) and gd = cut 2 coeff sg + (s_cut + se) dcut. With GX,
+// gx_s rows += (W cut) g_j, pairs in ring order (a running sum per row
+// segment, lane l on features 4 l .. 4 l + 3). Padding entries (nv <= t)
+// carry cut = 0: their products are zero and never stored.
+template <bool GX>
+__device__ __forceinline__ void bwd_ffma_tile(
+    const int* ring, int head, int nv, int r0, const float* pos, int A,
+    const float* x, const float* g, float* act_s, float* buf_s, float* pd_s,
+    float* gx_s, float* gd, const float* w0_s, const float* w1_s,
+    const float* b0_s, const float* off_s, int R, float coeff, float rcut,
+    float arg_scale, float dcut_scale, int lane) {
+  const int pg = lane >> 4, fg = lane & 15, p0 = DF_PP * pg;
+  if (lane < DF_TILE) {
+    float d = rcut, cut = 0.0f, dcut = 0.0f;
+    if (lane < nv) {
+      int ent = ring[(head + lane) & (DM_RING - 1)];
+      float rel[3];
+      pair_geom(pos + (r0 + (ent >> 16)) * 3, pos + (ent & 0xffff) * 3, true,
+                rcut, arg_scale, dcut_scale, d, cut, dcut, rel);
+    }
+    pd_s[4 * lane] = d;
+    pd_s[4 * lane + 1] = cut;
+    pd_s[4 * lane + 2] = dcut;
+  }
+  __syncwarp();
+  const int rp = (R + 3) & ~3;  // rbf columns, zero past R
+  for (int e = lane; e < DF_TILE * rp; e += 32) {
+    int p = e / rp, r = e - p * rp;
+    float v = 0.0f;
+    if (r < R && p < nv) {
+      float dr = pd_s[4 * p] - off_s[r];
+      v = expf(coeff * (dr * dr)) * pd_s[4 * p + 1];
+    }
+    buf_s[p * rp + r] = v;
+  }
+  __syncwarp();
+
+  // a0 = tanh(rbf @ w0 + b0) -> act_s
+  float acc[DF_PP][8];
+  df_rowprod(acc, buf_s, rp, w0_s, rp, p0, fg);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float b = b0_s[(c < 4 ? 0 : F / 2) + 4 * fg + (c & 3)];
+#pragma unroll
+    for (int q = 0; q < DF_PP; ++q) acc[q][c] = tanhf(acc[q][c] + b);
+  }
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q) {
+    float* o = act_s + (p0 + q) * F + 4 * fg;
+    *reinterpret_cast<float4*>(o) =
+        make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    *reinterpret_cast<float4*>(o + F / 2) =
+        make_float4(acc[q][4], acc[q][5], acc[q][6], acc[q][7]);
+  }
+  __syncwarp();
+
+  // W = a0 @ w1; s_cut, W cut for gx, and the cotangent in W's registers
+  df_rowprod(acc, act_s, F, w1_s, F, p0, fg);
+  float sc[DF_PP];
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q) {
+    const int p = p0 + q;
+    const int ent = p < nv ? ring[(head + p) & (DM_RING - 1)] : 0;
+    const float cutp = pd_s[4 * p + 1];
+    const float* gi = g + (size_t)(r0 + (ent >> 16)) * F + 4 * fg;
+    const float* xj = x + (size_t)(ent & 0xffff) * F + 4 * fg;
+    const float4 gl = *reinterpret_cast<const float4*>(gi);
+    const float4 gh = *reinterpret_cast<const float4*>(gi + F / 2);
+    const float4 xl = *reinterpret_cast<const float4*>(xj);
+    const float4 xh = *reinterpret_cast<const float4*>(xj + F / 2);
+    const float gv[8] = {gl.x, gl.y, gl.z, gl.w, gh.x, gh.y, gh.z, gh.w};
+    const float xv[8] = {xl.x, xl.y, xl.z, xl.w, xh.x, xh.y, xh.z, xh.w};
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s += (gv[c] * acc[q][c]) * xv[c];
+    sc[q] = s;
+    if (GX) {
+      float* o = buf_s + p * F + 4 * fg;
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[q][0] * cutp, acc[q][1] * cutp, acc[q][2] * cutp,
+                      acc[q][3] * cutp);
+      *reinterpret_cast<float4*>(o + F / 2) =
+          make_float4(acc[q][4] * cutp, acc[q][5] * cutp, acc[q][6] * cutp,
+                      acc[q][7] * cutp);
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[q][c] = (gv[c] * xv[c]) * cutp;
+  }
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q) sc[q] = sum16(sc[q]);
+  if (fg == 0) {
+#pragma unroll
+    for (int q = 0; q < DF_PP; ++q) pd_s[4 * (p0 + q) + 3] = sc[q];
+  }
+  __syncwarp();
+  if (GX) {
+    float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int cur = ring[head & (DM_RING - 1)] >> 16;
+#pragma unroll 1
+    for (int t = 0; t < nv; ++t) {
+      int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
+      if (r != cur) {
+        float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;
+        float4 a = *o;
+        *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+        run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        cur = r;
+      }
+      const float4 v = reinterpret_cast<const float4*>(buf_s + t * F)[lane];
+      const float4 gj =
+          reinterpret_cast<const float4*>(g + (size_t)(ent & 0xffff) * F)[lane];
+      run.x += __fmul_rn(v.x, gj.x);
+      run.y += __fmul_rn(v.y, gj.y);
+      run.z += __fmul_rn(v.z, gj.z);
+      run.w += __fmul_rn(v.w, gj.w);
+    }
+    float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;
+    float4 a = *o;
+    *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q) {
+    float* o = buf_s + (p0 + q) * F + 4 * fg;
+    *reinterpret_cast<float4*>(o) =
+        make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+    *reinterpret_cast<float4*>(o + F / 2) =
+        make_float4(acc[q][4], acc[q][5], acc[q][6], acc[q][7]);
+  }
+  __syncwarp();
+
+  // ga0 = cot @ w1^T (columns fg + 16 c); gt0 = ga0 (1 - a0^2) over a0
+  df_colprod(acc, buf_s, F, w1_s, 0, F, p0, fg, 16);
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float* a = act_s + (p0 + q) * F + fg + 16 * c;
+      const float a0 = *a;
+      *a = acc[q][c] * (1.0f - a0 * a0);
+    }
+  __syncwarp();
+
+  // grbf = gt0 @ w0^T: lane (rg, ph, kh) on columns r = rg + 8 c, pairs
+  // 8 ph .., k in [64 kh, 64 kh + 64); the halves added
+  const int rg = lane & 7, ph = (lane >> 3) & 1, kh = lane >> 4;
+  df_colprod(acc, act_s, F, w0_s, (F / 2) * kh, (F / 2) * (kh + 1),
+             DF_PP * ph, rg, 8);
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      acc[q][c] += __shfl_xor_sync(0xffffffffu, acc[q][c], 16);
+  // se, sg: lane kh takes columns c = 4 kh .. 4 kh + 3
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q) {
+    const int p = DF_PP * ph + q;
+    const float dp = pd_s[4 * p];
+    float se = 0.0f, sg = 0.0f;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int r = rg + 8 * (4 * kh + cc);
+      const float v = kh ? acc[q][4 + cc] : acc[q][cc];
+      if (r < R) {
+        float dr = dp - off_s[r];
+        float ge = v * expf(coeff * (dr * dr));
+        se += ge;
+        sg += ge * dr;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      se += __shfl_xor_sync(0xffffffffu, se, o);
+      sg += __shfl_xor_sync(0xffffffffu, sg, o);
+    }
+    se += __shfl_xor_sync(0xffffffffu, se, 16);
+    sg += __shfl_xor_sync(0xffffffffu, sg, 16);
+    if (rg == 0 && kh == 0 && p < nv) {
+      const int ent = ring[(head + p) & (DM_RING - 1)];
+      gd[(size_t)(r0 + (ent >> 16)) * A + (ent & 0xffff)] =
+          pd_s[4 * p + 1] * (2.0f * coeff) * sg +
+          (pd_s[4 * p + 3] + se) * pd_s[4 * p + 2];
+    }
+  }
+  __syncwarp();  // the ring and the tiles are read before they are written
 }
 
 }  // namespace

@@ -18,23 +18,22 @@
 //             + pos[i] colsum(W)_i - (W^T @ pos)_i
 //   cheb_bwd_gxgd <- _cheb_bwd_kernel (need_gx=True, need_gd=True), the
 //                   per-block backward of blocks 2..B: gx and gpos in one
-//                   launch from ONE recurrence on That_m = (1-z) T_m, which
-//                   feeds the gx products directly and gd as
-//                   gd = sum_m That_m U_m (the (1-z) factor rides in That).
+//                   launch from the pairs' recurrence on T_m, which feeds
+//                   the gx series (That_m = (1-z) T_m, the (1-z) factor
+//                   applied to each pair's filter) and the gd series (the
+//                   (1-z) factor riding in W).
 //
 // What bounds them on the H100: at the slice (A=266, F=128, B=3 blocks,
-// orders 48/64) the three kernels are matrix work over the pairs within
-// the cutoff (871,318 of 9,056,768 at the slice's start), 2 F FLOP per
-// live pair and order; the bytes they read are pos, x/g and the
-// coefficient tables (a few hundred KB per molecule), so they sit far
-// above the machine balance and are bound by arithmetic. Every kernel
-// but the per-block fp32 one runs only the pairs that add something:
-// at fp32 cheb_fwd, cheb_bwd_gx and cheb_bwd_gd take float32 FMAs on the
-// CUDA cores over the live pairs one by one, compacted per row by warp
-// vote (cheb_rows_ffma_kernel, cheb_gd_ffma_kernel: each pair's filter
-// over all features as a register-tiled [pairs x M] [M x F] product,
-// 32 FMAs per shared load, with the recurrence in registers); cheb_bwd_gxgd
-// at fp32 keeps the 32 x 32 tiles of every pair (cheb_gxgd_kernel). At
+// orders 48/64) the kernels are matrix work over the pairs within the
+// cutoff (871,318 of 9,056,768 at the slice's start), 2 F FLOP per live
+// pair and order; the bytes they read are pos, x/g and the coefficient
+// tables (a few hundred KB per molecule), so they sit far above the
+// machine balance and are bound by arithmetic. Every kernel runs only the
+// pairs that add something: at fp32 each takes float32 FMAs on the CUDA
+// cores over the live pairs one by one, compacted per row by warp vote
+// (cheb_rows_ffma_kernel, cheb_gd_ffma_kernel, cheb_gxgd_ffma_kernel: each
+// pair's filter over all features as a register-tiled [pairs x M] [M x F]
+// product, 32 FMAs per shared load, with the recurrence in registers). At
 // bf16 and bf16x3 each takes its order products on the tensor cores:
 // cheb_bwd_gd over the live 16 x 8 pair fragments only
 // (cheb_gd_mma_kernel), cheb_fwd and cheb_bwd_gx over the 16 x 16
@@ -42,15 +41,14 @@
 // cheb_bwd_gxgd over those same fragments, both halves from one
 // recurrence (cheb_gxgd_mma_kernel); their notes are below. What the
 // design does about the bound: the [A, A] pair and recurrence state never
-// reaches device memory -- it lives in registers (and, in
-// cheb_gxgd_kernel, a double-buffered shared tile per (row tile, column
-// block)) -- so every FLOP is spent on the products themselves, and the
-// three-term recurrence costs one FMA per pair and order against F FMAs
-// of product (eight at fp32, where each lane steps its own pairs).
+// reaches device memory -- it lives in registers -- so every FLOP is spent
+// on the products themselves, and the three-term recurrence costs one FMA
+// per pair and order against F FMAs of product (eight at fp32, where each
+// lane steps its own pairs).
 //
 // Determinism: each warp or block owns its output rows; the only sums
 // that cross them (the column side of the position gradient at bf16 and
-// bf16x3 and in cheb_gxgd_kernel; the feature chunks of the fp32 gd) are
+// bf16x3; the feature chunks of the fp32 gd and gx+gd) are
 // written as partial slabs and summed by a second kernel in a fixed slab
 // order. No atomics anywhere, so results are bitwise reproducible run to
 // run.
@@ -87,17 +85,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int THREADS = 256;
-
-// cheb_bwd_gxgd tiling: 32 x 32 pair tiles (each thread 4 rows x 1
-// column), gx rows x 128 features per thread block, features in chunks of
-// 128. GG_LD pads the float4-read tiles to 16-byte rows whose float4
-// reads by 8 consecutive threads fall in distinct banks.
-constexpr int GG_T = 32;
-constexpr int GG_FC = 128;
-constexpr int GG_LD = GG_FC + 4;
-constexpr int GG_WLD = GG_T + 1;
 
 constexpr int TIER_FP32 = 0;
 constexpr int TIER_BF16 = 1;
@@ -160,7 +147,8 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 }
 
 // The fp32 tier of cheb_fwd, cheb_bwd_gx and cheb_bwd_gd, on the CUDA
-// cores, over the live pairs only.
+// cores, over the live pairs only (cheb_bwd_gxgd's, built from the same
+// machinery, is cheb_gxgd_ffma_kernel below).
 //
 // Replace _cheb_fwd_kernel (flashmd_tpu/ops/pallas/cheb_kernel.py:394)
 // and _cheb_bwd_kernel with need_gd=False or need_gx=False (:476) at
@@ -371,7 +359,8 @@ __device__ __forceinline__ void lf_two_orders(float (&acc)[LF_PP][8],
 // acc = sum_m T_m C[m] over M orders from the seeds ta = T_0, tb = T_1
 // (advanced in place, two orders a step: T_{m+2} = 2z T_{m+1} - T_m), the
 // loop over steps unrolled UNROLL times (tools/cheb_ffma_variants.py: 4
-// for fwd/gx, which have the registers for it, 1 for gd).
+// for fwd/gx, which have the registers for it, 1 for gd and both passes
+// of gx+gd).
 template <int UNROLL, bool TWIN_STEP>
 __device__ __forceinline__ void lf_product(float (&acc)[LF_PP][8],
                                            float (&ta)[LF_PP],
@@ -691,6 +680,289 @@ cheb_gd_ffma_kernel(const float* __restrict__ pos,
   }
   if (tail > head) batch(tail - head);
   if (cur >= 0) commit(cur);
+}
+
+// cheb_bwd_gxgd at fp32 (the per-block backward of blocks 2..B): gx and
+// gpos in one launch, on the CUDA cores, over the live pairs only.
+//
+// Replaces _cheb_bwd_kernel with need_gx=True, need_gd=True
+// (flashmd_tpu/ops/pallas/cheb_kernel.py:476) at fp32, as
+// cheb_gxgd_mma_kernel does at bf16 and bf16x3. Per pair p = (i, j) with
+// z != 1 it forms two filters from the recurrence on T_m (seeds 1, z):
+//     Wq[p, f] = (1-z) sum_{k < MQ} T_k q_k[f] + low_p w_lin[f]
+//     Wc[p, f] = sum_{m < M2} T_m c2_m[f]
+// and sums them as the gx and gd kernels do:
+//     gx[i, f] = sum_p Wq[p, f] g[j_p, f] - w0[f] g[i, f]
+//     W_p      = (1-z_p) / d_p sum_f Wc[p, f] (g[i, f] x[j, f]
+//                                              + g[j, f] x[i, f])
+//     gpos[i]  = -sum_p W_p rel_p       (d < rcut off the diagonal)
+// Bound: operations, 2 * live pairs * F * (MQ + M2) FLOP at the 67
+// TFLOP/s float32 peak: at the per-block fp32 slice's (128, 128) fit
+// (871,318 live pairs, F = 128) 0.8556 ms.
+//
+// Design: cheb_rows_ffma_kernel's and cheb_gd_ffma_kernel's machinery in
+// one launch. A warp owns whole rows and compacts their pairs with z != 1
+// (gx's live set: it keeps the diagonal, whose share the epilogue removes
+// as w0 g[i]) into its ring, each entry with d, rel and low. A pair at d <
+// rcut whose z rounds to exactly 1.0f is in gd's keep mask but not in the
+// ring: exact, since its W carries the factor 1 - z = 0. Every GG_PB pairs
+// the warp takes two product passes over the batch, sharing its scan, ring
+// and geometry: Wq against q (staged with w_lin once per block), then Wc
+// against c2 (staged beside it); each is lf_product's register-tiled
+// float32 product (8 pairs x 8 features a lane, 32 FMAs per shared load),
+// and the two passes reuse its 64 accumulators (two sets do not fit in
+// 255 registers). gx: Wq to the warp's shared rows, then a running row sum
+// of Wq g[j] in ring order, written as sum - w0 g[i]; gd: W_p of each pair
+// (0 outside d < rcut, i != j) and -W rel summed per row in ring order:
+// W_ij + W_ji from one Wc, so no column partial crosses a row. Feature
+// chunks (F > 128) as cheb_gd_ffma_kernel: gx chunks own their features,
+// gd chunk 0 writes row_part and chunk c > 0 slab c - 1 of col_part,
+// summed by gd_reduce_kernel in chunk order; at F <= 128 the kernel writes
+// gpos itself and no reduce runs. tools/cheb_ffma_variants.py times the
+// other designs (one pass with both filters at 4 pairs a lane, 16 FMAs per
+// shared load, q and c2 apart or interleaved in one table) and the
+// unrolling. No atomics; every sum in a fixed order.
+constexpr int GG_PP = LF_PP;      // pairs per lane
+constexpr int GG_PB = 2 * GG_PP;  // pairs per batch
+// Blocks per SM that the register budget must allow.
+constexpr int GG_MINB = 1;
+// per-warp shared floats: Wq half batch, -W rel per pair, ring (row,
+// column, z, low, d, rel), cell
+constexpr int GG_WARP = GG_PP * LF_FC + 4 * GG_PB + 8 * LF_RING + 32;
+
+template <bool HAS_CELL>
+__global__ void __launch_bounds__(LF_W * 32, GG_MINB)
+cheb_gxgd_ffma_kernel(const float* __restrict__ pos,
+                      const float* __restrict__ x,
+                      const float* __restrict__ g,
+                      const float* __restrict__ q,
+                      const float* __restrict__ c2,
+                      const float* __restrict__ w0,
+                      const float* __restrict__ w_lin,
+                      const float* __restrict__ cell,
+                      const float* __restrict__ inv, float* __restrict__ gx,
+                      float* __restrict__ row_part,
+                      float* __restrict__ col_part, int S, int A, int F,
+                      int MQ, int M2, int n_slabs, float rcut, float d_min,
+                      float scale, int vec_in) {
+  extern __shared__ float4 lf_smem4[];
+  float* q_s = reinterpret_cast<float*>(lf_smem4);  // [MQ][LF_FC]
+  float* wl_s = q_s + (size_t)MQ * LF_FC;           // [LF_FC]: w_lin
+  float* c2_s = wl_s + LF_FC;                       // [M2][LF_FC]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fg = lane & 15, pg = lane >> 4;
+  const int chunk = blockIdx.y, f0 = chunk * LF_FC;
+  const bool vec = vec_in != 0;
+  float* wq_s = c2_s + (size_t)M2 * LF_FC + warp * GG_WARP;  // [GG_PP][FC]
+  float* cb_s = wq_s + GG_PP * LF_FC;                         // [GG_PB][4]
+  int* ring_i = reinterpret_cast<int*>(cb_s + 4 * GG_PB);
+  int* ring_j = ring_i + LF_RING;
+  float* ring_z = reinterpret_cast<float*>(ring_j + LF_RING);
+  float* ring_a = ring_z + LF_RING;
+  float* ring_d = ring_a + LF_RING;
+  float* ring_r = ring_d + LF_RING;  // [3][LF_RING]
+  float* geo = ring_r + 3 * LF_RING;
+  lf_stage(q_s, q, w_lin, MQ, f0, F);
+  lf_stage(c2_s, c2, nullptr, M2, f0, F);
+
+  int row, row_end;
+  lf_rows(S, A, warp, row, row_end);
+  int head = 0, tail = 0, cur_x = -1, cur_d = -1, cur_s = -1;
+  float run_x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float run_d[3] = {0.0f, 0.0f, 0.0f};
+  // gx[r] = run_x - w0 g[r] at this lane's four features
+  auto commit_x = [&](int r) {
+    const size_t o = (size_t)r * F;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int f = f0 + 4 * lane + k;
+      if (f < F) gx[o + f] = run_x[k] - w0[f] * g[o + f];
+    }
+  };
+  // row r's side of this chunk's gpos into its slab
+  auto store_d = [&](int r, float v0, float v1, float v2) {
+    if (lane == 0) {
+      int s = r / A;
+      float* o = chunk == 0
+                     ? row_part + (size_t)r * 3
+                     : col_part + (((size_t)s * n_slabs + chunk - 1) * A +
+                                   (r - s * A)) * 3;
+      o[0] = v0;
+      o[1] = v1;
+      o[2] = v2;
+    }
+  };
+  // gx of the batch's nv pairs from acc = sum_k T_k q_k
+  auto gx_side = [&](float (&acc)[GG_PP][8], int nv) {
+    float low[GG_PP];
+#pragma unroll
+    for (int p = 0; p < GG_PP; ++p) {
+      int t = pg * GG_PP + p, qq = (head + t) & (LF_RING - 1);
+      bool ok = t < nv;
+      float u = ok ? 1.0f - ring_z[qq] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[p][k] *= u;
+      low[p] = ok ? ring_a[qq] : 0.0f;
+    }
+    if (w_lin != nullptr) lf_order(acc, low, wl_s + 4 * fg);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (pg == h) {
+#pragma unroll
+        for (int p = 0; p < GG_PP; ++p) {
+          float* w = wq_s + p * LF_FC + 4 * fg;
+          *reinterpret_cast<float4*>(w) =
+              make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+          *reinterpret_cast<float4*>(w + LF_FC / 2) =
+              make_float4(acc[p][4], acc[p][5], acc[p][6], acc[p][7]);
+        }
+      }
+      __syncwarp();
+      for (int t = 0; t < GG_PP; ++t) {
+        int e = h * GG_PP + t;
+        if (e >= nv) break;
+        int qq = (head + e) & (LF_RING - 1);
+        int gi = ring_i[qq], gj = ring_j[qq];
+        if (gi != cur_x) {
+          if (cur_x >= 0) commit_x(cur_x);
+          cur_x = gi;
+          run_x[0] = run_x[1] = run_x[2] = run_x[3] = 0.0f;
+        }
+        float4 w = *reinterpret_cast<const float4*>(wq_s + t * LF_FC +
+                                                    4 * lane);
+        float4 v = lf_ld4(g + (size_t)gj * F, f0 + 4 * lane, F, vec);
+        run_x[0] = fmaf(w.x, v.x, run_x[0]);
+        run_x[1] = fmaf(w.y, v.y, run_x[1]);
+        run_x[2] = fmaf(w.z, v.z, run_x[2]);
+        run_x[3] = fmaf(w.w, v.w, run_x[3]);
+      }
+      __syncwarp();
+    }
+  };
+  // gpos of the batch's nv pairs from acc = sum_m T_m c2_m
+  auto gd_side = [&](float (&acc)[GG_PP][8], int nv) {
+    float part[GG_PP];
+#pragma unroll
+    for (int p = 0; p < GG_PP; ++p) {
+      int t = pg * GG_PP + p, qq = (head + t) & (LF_RING - 1);
+      bool ok = t < nv;
+      const size_t gi = ok ? ring_i[qq] : 0, gj = ok ? ring_j[qq] : 0;
+      float v = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int f = f0 + h * (LF_FC / 2) + 4 * fg;
+        float4 a = lf_ld4(g + gi * F, f, F, vec);
+        float4 b = lf_ld4(x + gj * F, f, F, vec);
+        float4 c = lf_ld4(g + gj * F, f, F, vec);
+        float4 e = lf_ld4(x + gi * F, f, F, vec);
+        v = fmaf(acc[p][4 * h], fmaf(a.x, b.x, c.x * e.x), v);
+        v = fmaf(acc[p][4 * h + 1], fmaf(a.y, b.y, c.y * e.y), v);
+        v = fmaf(acc[p][4 * h + 2], fmaf(a.z, b.z, c.z * e.z), v);
+        v = fmaf(acc[p][4 * h + 3], fmaf(a.w, b.w, c.w * e.w), v);
+      }
+      part[p] = ok ? v : 0.0f;
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+      for (int p = 0; p < GG_PP; ++p)
+        part[p] += __shfl_xor_sync(0xffffffffu, part[p], off);
+    if (fg == 0) {
+#pragma unroll
+      for (int p = 0; p < GG_PP; ++p) {
+        int t = pg * GG_PP + p, qq = (head + t) & (LF_RING - 1);
+        if (t < nv) {
+          // gd's keep mask: within the cutoff, off the diagonal
+          bool keep = ring_i[qq] != ring_j[qq] && ring_d[qq] < rcut;
+          float w = keep ? ((1.0f - ring_z[qq]) * part[p]) / ring_d[qq]
+                         : 0.0f;
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            cb_s[t * 4 + k] = -w * ring_r[k * LF_RING + qq];
+        }
+      }
+    }
+    __syncwarp();
+    for (int t = 0; t < nv; ++t) {
+      int gi = ring_i[(head + t) & (LF_RING - 1)];
+      if (gi != cur_d) {
+        if (cur_d >= 0) store_d(cur_d, run_d[0], run_d[1], run_d[2]);
+        cur_d = gi;
+        run_d[0] = run_d[1] = run_d[2] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) run_d[k] += cb_s[t * 4 + k];
+    }
+    __syncwarp();
+  };
+  // the nv (<= GG_PB) queued pairs from head: two product passes
+  auto batch = [&](int nv) {
+    float ta[GG_PP], tb[GG_PP], z2[GG_PP], acc[GG_PP][8];
+    auto seed = [&]() {
+#pragma unroll
+      for (int p = 0; p < GG_PP; ++p) {
+        int t = pg * GG_PP + p;
+        float z = t < nv ? ring_z[(head + t) & (LF_RING - 1)] : 1.0f;
+        ta[p] = 1.0f;
+        tb[p] = z;
+        z2[p] = 2.0f * z;
+      }
+    };
+    seed();
+    lf_product<1, false>(acc, ta, tb, z2, q_s + 4 * fg, MQ);
+    gx_side(acc, nv);
+    seed();
+    lf_product<1, false>(acc, ta, tb, z2, c2_s + 4 * fg, M2);
+    gd_side(acc, nv);
+  };
+
+  for (; row < row_end; row += LF_W) {
+    const int s = row / A, r = row - s * A;
+    lf_geo<HAS_CELL>(geo, cell, inv, s, cur_s, lane);
+    const float* ps = pos + (size_t)s * A * 3;
+    const float pi[3] = {ps[r * 3], ps[r * 3 + 1], ps[r * 3 + 2]};
+    int n_row = 0;
+    for (int j0 = 0; j0 < A; j0 += 32) {
+      const int j = j0 + lane;
+      const bool valid = j < A;
+      float pj[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) pj[k] = valid ? ps[j * 3 + k] : 0.0f;
+      float e[3], d, z;
+      lf_geom<HAS_CELL>(pi, pj, geo, valid, rcut, d_min, scale, e, d, z);
+      const bool live = z != 1.0f;
+      const unsigned vote = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        int qq = (tail + __popc(vote & ((1u << lane) - 1u))) & (LF_RING - 1);
+        ring_i[qq] = row;
+        ring_j[qq] = s * A + j;
+        ring_z[qq] = z;
+        ring_a[qq] = j != r ? fminf(d - d_min, 0.0f) : 0.0f;
+        ring_d[qq] = d;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) ring_r[k * LF_RING + qq] = e[k];
+      }
+      __syncwarp();
+      tail += __popc(vote);
+      n_row += __popc(vote);
+      while (tail - head >= GG_PB) {
+        batch(GG_PB);
+        head += GG_PB;
+      }
+    }
+    if (n_row == 0) {  // no live pair: both sums are empty
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int f = f0 + 4 * lane + k;
+        const size_t o = (size_t)row * F + f;
+        if (f < F) gx[o] = 0.0f - w0[f] * g[o];
+      }
+      store_d(row, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  if (tail > head) batch(tail - head);
+  if (cur_x >= 0) commit_x(cur_x);
+  if (cur_d >= 0) store_d(cur_d, run_d[0], run_d[1], run_d[2]);
 }
 
 // cheb_bwd_gd at the bf16 and bf16x3 tiers, on the tensor cores.
@@ -1167,321 +1439,6 @@ __global__ void gd_reduce_kernel(const float* __restrict__ row_part,
   gpos[idx] = v;
 }
 
-// Per-block backward with both halves (cheb_bwd_gxgd) at the fp32 tier
-// (bf16 and bf16x3 take cheb_gxgd_mma_kernel). Grid: (row tiles,
-// molecules). Per feature chunk and column block, every thread carries its
-// 4 pairs' recurrence on That_m = (1-z) T_m in registers and uses each
-// order twice: stored into the shared pair tile for the gx product
-//     acc[rows, features] += That_m[rows, cols] @ (q_m * g[cols])
-// (orders m < MQ), and as the weight of its pairs' distance gradient
-//     gd[pair] += That_m * ((c2_m * g[row]) . x[col])
-// (orders m < M2), whose c2_m * g[rows] tile is formed once per order in
-// shared memory. The gx rows are owned by the block (That is symmetric);
-// W = gd / d enters the position gradient per column block: row sides
-// stay in registers, column sides go to this row tile's slab of
-// col_part (written by the first feature chunk, added to by later ones,
-// always by the same thread), summed by gd_reduce_kernel in tile order.
-// That epilogue repeated the then fp32 gd kernel's instead of sharing
-// device functions with it: shared, ptxas gave that kernel 171 registers
-// in place of 165 and it ran 2.4 % slower (H100 80GB HBM3, 700 W).
-// No atomics. Bound at the per-block slice (A=266, F=128, orders 49 and
-// 64 plus the low term): 114 order-products of 2*A^2*F FLOP per molecule,
-// matrix work far above the machine balance, as in the other three.
-template <bool HAS_CELL>
-__global__ void __launch_bounds__(THREADS)
-cheb_gxgd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
-                 const float* __restrict__ g, const float* __restrict__ q,
-                 const float* __restrict__ c2, const float* __restrict__ w0,
-                 const float* __restrict__ w_lin,
-                 const float* __restrict__ cell,
-                 const float* __restrict__ inv, float* __restrict__ gx,
-                 float* __restrict__ row_part, float* __restrict__ col_part,
-                 int A, int F, int MQ, int M2, int n_tiles, float rcut,
-                 float d_min, float scale) {
-  extern __shared__ float4 gxgd_smem4[];
-  float* cg_s = reinterpret_cast<float*>(gxgd_smem4);  // [2][GG_T][GG_LD]
-  float* x_s = cg_s + 2 * GG_T * GG_LD;   // [GG_T][GG_LD], x at the columns
-  float* gc_s = x_s + GG_T * GG_LD;       // [GG_T][GG_FC], g at the columns
-  float* gr_s = gc_s + GG_T * GG_FC;      // [GG_T][GG_FC], g at the rows
-  float* t_s = gr_s + GG_T * GG_FC;       // [2][GG_T][GG_T]
-  float* w_s = t_s + 2 * GG_T * GG_T;     // [GG_T][GG_WLD]
-  float* geo_s = w_s + GG_T * GG_WLD;     // [18], cell variant only
-  __shared__ float pr_s[GG_T][3];
-  __shared__ float pc_s[GG_T][3];
-  // row side per row (rowsum W, W pos or W rel), kept here rather than in
-  // registers live across the whole order loop
-  __shared__ float rsum_s[GG_T][4];
-
-  const int s = blockIdx.y;
-  const int rt = blockIdx.x;
-  const int r0 = rt * GG_T;
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-  const int cf = tid & (GG_FC - 1);  // this thread's feature of the cg tile
-  const int M = MQ > M2 ? MQ : M2;
-  pos += (size_t)s * A * 3;
-  x += (size_t)s * A * F;
-  g += (size_t)s * A * F;
-  gx += (size_t)s * A * F;
-
-  if (tid < GG_T * 3) {
-    int r = tid / 3, c = tid % 3;
-    pr_s[r][c] = (r0 + r < A) ? pos[(r0 + r) * 3 + c] : 0.0f;
-  }
-  stage_cell<HAS_CELL>(geo_s, cell, inv, s, tid);
-  if (tid < GG_T * 4) rsum_s[tid >> 2][tid & 3] = 0.0f;
-
-  for (int f0 = 0; f0 < F; f0 += GG_FC) {
-    const int nf4 = ((F - f0 < GG_FC ? F - f0 : GG_FC) + 3) / 4;
-    int fk[4];
-    bool fok[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      fk[k] = f0 + tx + 32 * k;
-      fok[k] = fk[k] < F;
-    }
-    __syncthreads();  // the previous chunk's reads of gr_s are done
-    for (int e = tid; e < GG_T * GG_FC; e += THREADS) {
-      int rr = e / GG_FC, ff = e % GG_FC;
-      int r = r0 + rr, f = f0 + ff;
-      gr_s[e] = (r < A && f < F) ? g[(size_t)r * F + f] : 0.0f;
-    }
-
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][k] = 0.0f;
-
-    for (int j0 = 0; j0 < A; j0 += GG_T) {
-      __syncthreads();  // the previous column block's reads are done
-      for (int e = tid; e < GG_T * GG_FC; e += THREADS) {
-        int jj = e / GG_FC, ff = e % GG_FC;
-        int j = j0 + jj, f = f0 + ff;
-        bool in = j < A && f < F;
-        gc_s[e] = in ? g[(size_t)j * F + f] : 0.0f;
-        x_s[jj * GG_LD + ff] = in ? x[(size_t)j * F + f] : 0.0f;
-      }
-      if (tid < GG_T * 3) {
-        int jj = tid / 3, c = tid % 3;
-        pc_s[jj][c] = (j0 + jj < A) ? pos[(j0 + jj) * 3 + c] : 0.0f;
-      }
-      __syncthreads();
-
-      // This thread's 4 pairs: rows ty + 8e, column tx.
-      float z[4], d[4], hp[4], hc[4], gd[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r = ty + 8 * e;
-        bool valid = (r0 + r < A) && (j0 + tx < A);
-        pair_geom<HAS_CELL>(pr_s[r], pc_s[tx], geo_s, valid, rcut, d_min,
-                            scale, d[e], z[e]);
-        hp[e] = 1.0f - z[e];
-        hc[e] = hp[e] * z[e];
-        gd[e] = 0.0f;
-      }
-
-      for (int m = 0; m < M; ++m) {
-        float* tb = t_s + (m & 1) * GG_T * GG_T;
-        float* cb = cg_s + (m & 1) * GG_T * GG_LD;
-        float h[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (m == 0) {
-            h[e] = hp[e];
-          } else if (m == 1) {
-            h[e] = hc[e];
-          } else {
-            h[e] = 2.0f * z[e] * hc[e] - hp[e];
-            hp[e] = hc[e];
-            hc[e] = h[e];
-          }
-        }
-        if (m < MQ) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            tb[(ty + 8 * e) * GG_T + tx] = h[e];
-        }
-        if (m < M2) {
-          float cv = (f0 + cf < F) ? c2[(size_t)m * F + f0 + cf] : 0.0f;
-#pragma unroll 4
-          for (int rr = tid >> 7; rr < GG_T; rr += THREADS / GG_FC)
-            cb[rr * GG_LD + cf] = cv * gr_s[rr * GG_FC + cf];
-        }
-        __syncthreads();
-
-        if (m < MQ) {
-          float qm[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            qm[k] = fok[k] ? q[(size_t)m * F + fk[k]] : 0.0f;
-#pragma unroll 4
-          for (int jj = 0; jj < GG_T; ++jj) {
-            float b[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              b[k] = qm[k] * gc_s[jj * GG_FC + tx + 32 * k];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              float t = tb[(ty + 8 * i) * GG_T + jj];
-#pragma unroll
-              for (int k = 0; k < 4; ++k)
-                acc[i][k] += t * b[k];
-            }
-          }
-        }
-        if (m < M2) {
-          float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          // c2_m g[row] (A side) and x[col] (B side), both as stored
-#pragma unroll 4
-          for (int f4 = 0; f4 < nf4; ++f4) {
-            float4 xv =
-                *reinterpret_cast<const float4*>(x_s + tx * GG_LD + 4 * f4);
-            const float xb[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              float4 cv = *reinterpret_cast<const float4*>(
-                  cb + (ty + 8 * e) * GG_LD + 4 * f4);
-              const float cw[4] = {cv.x, cv.y, cv.z, cv.w};
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                u[e] += cw[c] * xb[c];
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) gd[e] += h[e] * u[e];
-        }
-      }
-
-      if (w_lin != nullptr) {
-        // gx half of the first-order extrapolation below the fit floor:
-        // low = min(d - d_min, 0) off the diagonal, zero outside [0, A).
-        float* tb = t_s + (M & 1) * GG_T * GG_T;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int r = r0 + ty + 8 * e, j = j0 + tx;
-          bool valid = (r < A) && (j < A) && (r != j);
-          float low = valid ? fminf(d[e] - d_min, 0.0f) : 0.0f;
-          tb[(ty + 8 * e) * GG_T + tx] = low;
-        }
-        float wl[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) wl[k] = fok[k] ? w_lin[fk[k]] : 0.0f;
-        __syncthreads();
-#pragma unroll 4
-        for (int jj = 0; jj < GG_T; ++jj) {
-          float b[4];
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            b[k] = wl[k] * gc_s[jj * GG_FC + tx + 32 * k];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float t = tb[(ty + 8 * i) * GG_T + jj];
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              acc[i][k] += t * b[k];
-          }
-        }
-      }
-
-      // W = gd / d on live pairs: d < rcut, off the diagonal, in range.
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int rr = ty + 8 * e;
-        int r = r0 + rr, j = j0 + tx;
-        bool keep = (r < A) && (j < A) && (r != j) && (d[e] < rcut);
-        w_s[rr * GG_WLD + tx] = keep ? gd[e] / d[e] : 0.0f;
-      }
-      __syncthreads();
-      if (tid < GG_T) {
-        // row side, accumulated over chunks and column blocks in order
-        float rs = rsum_s[tid][0], wp0 = rsum_s[tid][1];
-        float wp1 = rsum_s[tid][2], wp2 = rsum_s[tid][3];
-        for (int jj = 0; jj < GG_T; ++jj) {
-          float w = w_s[tid * GG_WLD + jj];
-          if (HAS_CELL) {
-            float e0, e1, e2;
-            pair_rel<true>(pr_s[tid], pc_s[jj], geo_s, e0, e1, e2);
-            wp0 += w * e0;
-            wp1 += w * e1;
-            wp2 += w * e2;
-          } else {
-            rs += w;
-            wp0 += w * pc_s[jj][0];
-            wp1 += w * pc_s[jj][1];
-            wp2 += w * pc_s[jj][2];
-          }
-        }
-        rsum_s[tid][0] = rs;
-        rsum_s[tid][1] = wp0;
-        rsum_s[tid][2] = wp1;
-        rsum_s[tid][3] = wp2;
-      } else if (tid < 2 * GG_T) {
-        // column side of this tile, summed over its rows in order
-        int jj = tid - GG_T, j = j0 + jj;
-        float cs = 0.0f, q0 = 0.0f, q1 = 0.0f, q2 = 0.0f;
-        for (int rr = 0; rr < GG_T; ++rr) {
-          float w = w_s[rr * GG_WLD + jj];
-          if (HAS_CELL) {
-            float e0, e1, e2;
-            pair_rel<true>(pr_s[rr], pc_s[jj], geo_s, e0, e1, e2);
-            q0 += w * e0;
-            q1 += w * e1;
-            q2 += w * e2;
-          } else {
-            cs += w;
-            q0 += w * pr_s[rr][0];
-            q1 += w * pr_s[rr][1];
-            q2 += w * pr_s[rr][2];
-          }
-        }
-        if (j < A) {
-          float v0 = HAS_CELL ? q0 : pc_s[jj][0] * cs - q0;
-          float v1 = HAS_CELL ? q1 : pc_s[jj][1] * cs - q1;
-          float v2 = HAS_CELL ? q2 : pc_s[jj][2] * cs - q2;
-          float* o = col_part + (((size_t)s * n_tiles + rt) * A + j) * 3;
-          if (f0 == 0) {
-            o[0] = v0;
-            o[1] = v1;
-            o[2] = v2;
-          } else {
-            o[0] += v0;
-            o[1] += v1;
-            o[2] += v2;
-          }
-        }
-      }
-    }
-
-    // This chunk's gx rows; the diagonal (z = -1) contributed w0 * g[i].
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int r = r0 + ty + 8 * i;
-      if (r >= A) continue;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (!fok[k]) continue;
-        size_t o = (size_t)r * F + fk[k];
-        gx[o] = acc[i][k] - w0[fk[k]] * g[o];
-      }
-    }
-  }
-  if (tid < GG_T && r0 + tid < A) {
-    const float* v = rsum_s[tid];
-    float* o = row_part + ((size_t)s * A + r0 + tid) * 3;
-    if (HAS_CELL) {
-      o[0] = -v[1];
-      o[1] = -v[2];
-      o[2] = -v[3];
-    } else {
-      o[0] = pr_s[tid][0] * v[0] - v[1];
-      o[1] = pr_s[tid][1] * v[0] - v[2];
-      o[2] = pr_s[tid][2] * v[0] - v[3];
-    }
-  }
-}
-
 // cheb_fwd and cheb_bwd_gx at the bf16 and bf16x3 tiers, on the tensor
 // cores.
 //
@@ -1914,7 +1871,7 @@ cheb_rows_mma_kernel(const float* __restrict__ pos,
 // Replaces _cheb_bwd_kernel with need_gx=True, need_gd=True (flashmd_tpu/
 // ops/pallas/cheb_kernel.py:476: chain_gx :520-531 and chain_gd :533-545
 // on one recurrence, low term :609-617, gpos epilogue :639-685), as
-// cheb_gxgd_kernel does at fp32. Bound: operations, 2 * live pairs * F
+// cheb_gxgd_ffma_kernel does at fp32. Bound: operations, 2 * live pairs * F
 // FLOP per order product at 989 TFLOP/s (three times that at bf16x3),
 // MQ gx orders plus M2 gd orders: at the per-block slice (871,318 live
 // pairs, F = 128, MQ 49, M2 64) 0.0255 ms. The recurrence adds one FMA
@@ -2502,10 +2459,10 @@ int launch_rows(const float* pos, const float* in, const float* coef,
   return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
-// col_part slabs of cheb_bwd_gd's kernels (the wrapper sizes col_part
-// with ops/cheb_kernel.py's gd_slabs, which the entry point checks
-// against this): fp32, one per feature chunk after the first;
-// bf16 and bf16x3, one per 16-row strip.
+// col_part slabs of cheb_bwd_gd's and cheb_bwd_gxgd's kernels (the
+// wrappers size col_part with ops/cheb_kernel.py's gd_slabs, which the
+// entry points check against this): fp32, one per feature chunk after the
+// first; bf16 and bf16x3, one per 16-row strip.
 inline int gd_slabs_of(int A, int F, int tier) {
   return tier == TIER_FP32 ? (F + LF_FC - 1) / LF_FC - 1
                            : (A + MG_ROWS - 1) / MG_ROWS;
@@ -2545,48 +2502,42 @@ int launch_gd(const float* pos, const float* x, const float* g,
   return (int)cudaGetLastError();
 }
 
-// fp32 keeps cheb_gxgd_kernel (one col_part slab per 32-row tile); bf16
-// and bf16x3 take cheb_gxgd_mma_kernel (one slab per 16-row strip), as
-// gd_slabs_of.
-inline int gxgd_slabs_of(int A, int tier) {
-  return tier == TIER_FP32 ? (A + GG_T - 1) / GG_T
-                           : (A + GM_ROWS - 1) / GM_ROWS;
-}
-
+// col_part holds n_slabs = gd_slabs_of(A, F, tier) slabs, as cheb_bwd_gd's
+// (cheb_gxgd_mma_kernel's strips are MG_ROWS rows too); at fp32 with no
+// slab (F <= LF_FC) the kernel writes gpos itself.
 template <int TIER, bool HAS_CELL>
 int launch_gxgd(const float* pos, const float* x, const float* g,
                 const float* q, const float* c2, const float* w0,
                 const float* w_lin, const float* cell, const float* inv,
-                float* gx, float* row_part, float* col_part, int S, int A,
-                int F, int MQ, int M2, float rcut, float d_min,
-                cudaStream_t stream) {
-  int n_tiles = gxgd_slabs_of(A, TIER);
+                float* gx, float* row_part, float* col_part, float* gpos,
+                int S, int A, int F, int MQ, int M2, int n_slabs, float rcut,
+                float d_min, cudaStream_t stream) {
   float scale = fit_scale(rcut, d_min);
-  dim3 grid(n_tiles, S);
   cudaError_t err;
   if constexpr (TIER == TIER_FP32) {
-    size_t smem = sizeof(float) *
-                  (3 * GG_T * GG_LD + 2 * GG_T * GG_FC + 2 * GG_T * GG_T +
-                   GG_T * GG_WLD + (HAS_CELL ? 18 : 0));
-    err = cudaFuncSetAttribute(cheb_gxgd_kernel<HAS_CELL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    cheb_gxgd_kernel<HAS_CELL><<<grid, THREADS, smem, stream>>>(
-        pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, A, F,
-        MQ, M2, n_tiles, rcut, d_min, scale);
+    size_t smem = sizeof(float) * ((size_t)(MQ + 1 + M2) * LF_FC +
+                                   (size_t)LF_W * GG_WARP);
+    dim3 grid;
+    int rc = lf_grid(cheb_gxgd_ffma_kernel<HAS_CELL>, smem, S, A, F, grid);
+    if (rc != 0) return rc;
+    int vec = F % 4 == 0 && aligned16(x) && aligned16(g);
+    cheb_gxgd_ffma_kernel<HAS_CELL><<<grid, LF_W * 32, smem, stream>>>(
+        pos, x, g, q, c2, w0, w_lin, cell, inv, gx,
+        n_slabs == 0 ? gpos : row_part, col_part, S, A, F, MQ, M2, n_slabs,
+        rcut, d_min, scale, vec);
   } else {
     size_t fp = (size_t)(F + GM_FC - 1) / GM_FC * GM_FC;
     size_t smem = sizeof(float) * ((size_t)(MQ + 1 + M2) * fp + fp * 16 +
                                    2 * GM_W * 256) +
-                  sizeof(int) * 2 * (size_t)n_tiles;
+                  sizeof(int) * 2 * (size_t)n_slabs;
     err = cudaFuncSetAttribute(cheb_gxgd_mma_kernel<TIER, HAS_CELL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
+    dim3 grid(n_slabs, S);
     cheb_gxgd_mma_kernel<TIER, HAS_CELL><<<grid, GM_W * 32, smem, stream>>>(
         pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, A, F,
-        MQ, M2, n_tiles, rcut, d_min, scale);
+        MQ, M2, n_slabs, rcut, d_min, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -2604,9 +2555,6 @@ int launch_gd_reduce(const float* row_part, const float* col_part,
 }  // namespace
 
 extern "C" {
-
-// col_part slabs of cheb_bwd_gxgd: enough for every tier.
-int cheb_gxgd_tiles(int A) { return gxgd_slabs_of(A, TIER_BF16); }
 
 int cheb_fwd(const float* pos, const float* x, const float* c,
              const float* w0, const float* w_lin, const float* cell,
@@ -2647,28 +2595,32 @@ int cheb_bwd_gd(const float* pos, const float* x, const float* g,
   return launch_gd_reduce(row_part, col_part, gpos, S, A, n_slabs, st);
 }
 
+// col_part holds n_slabs slabs, which must be the tier's count (as
+// cheb_bwd_gd's); at fp32 with none, one launch and no reduce.
 int cheb_bwd_gxgd(const float* pos, const float* x, const float* g,
                   const float* q, const float* c2, const float* w0,
                   const float* w_lin, const float* cell, const float* inv,
                   float* gx, float* row_part, float* col_part, float* gpos,
-                  int S, int A, int F, int MQ, int M2, float rcut,
-                  float d_min, int tier, void* stream) {
+                  int S, int A, int F, int MQ, int M2, int n_slabs,
+                  float rcut, float d_min, int tier, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((cell == nullptr) != (inv == nullptr))
+  if ((cell == nullptr) != (inv == nullptr) ||
+      n_slabs != gd_slabs_of(A, F, tier))
     return (int)cudaErrorInvalidValue;
+  if (S * A == 0) return 0;
   int rc = with_tier(tier, [&](auto t) {
     constexpr int T = decltype(t)::value;
     return cell != nullptr
                ? launch_gxgd<T, true>(pos, x, g, q, c2, w0, w_lin, cell, inv,
-                                      gx, row_part, col_part, S, A, F, MQ,
-                                      M2, rcut, d_min, st)
+                                      gx, row_part, col_part, gpos, S, A, F,
+                                      MQ, M2, n_slabs, rcut, d_min, st)
                : launch_gxgd<T, false>(pos, x, g, q, c2, w0, w_lin, cell,
-                                       inv, gx, row_part, col_part, S, A, F,
-                                       MQ, M2, rcut, d_min, st);
+                                       inv, gx, row_part, col_part, gpos, S,
+                                       A, F, MQ, M2, n_slabs, rcut, d_min,
+                                       st);
   });
-  if (rc != 0) return rc;
-  return launch_gd_reduce(row_part, col_part, gpos, S, A,
-                          gxgd_slabs_of(A, tier), st);
+  if (rc != 0 || n_slabs == 0) return rc;
+  return launch_gd_reduce(row_part, col_part, gpos, S, A, n_slabs, st);
 }
 
 }  // extern "C"

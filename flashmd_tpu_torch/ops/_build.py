@@ -40,9 +40,8 @@ _SIGNATURES = {
     # n_slabs, rcut, d_min, tier, stream
     "cheb_bwd_gd": [_P] * 9 + [_I] * 5 + [_F, _F, _I, _P],
     # pos, x, g, q, c2, w0, w_lin, cell, inv, gx, row_part, col_part, gpos,
-    # S, A, F, MQ, M2, rcut, d_min, tier, stream
-    "cheb_bwd_gxgd": [_P] * 13 + [_I] * 5 + [_F, _F, _I, _P],
-    "cheb_gxgd_tiles": [_I],
+    # S, A, F, MQ, M2, n_slabs, rcut, d_min, tier, stream
+    "cheb_bwd_gxgd": [_P] * 13 + [_I] * 6 + [_F, _F, _I, _P],
     # pos, x, w0, b0, w1, offset, coeff, out, S, A, F, R, rcut, bf16, stream
     "dense_cfconv_fwd": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     # pos, x, g, w0, b0, w1, offset, coeff, gd, gpos, gx, S, A, F, R, rcut,

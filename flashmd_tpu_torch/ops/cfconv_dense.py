@@ -32,8 +32,9 @@ On the card both bf16 kernels take their filter-MLP products on the
 tensor cores over the live pairs only (d < rc, i != j): the forward its
 two, the backward its four, writing gd = 0 for every other pair. That is
 exact: W cut vanishes with cut, and ``_pair_gd`` is zero wherever cut
-and dcut are. The fp32 kernels run float32 tiles on every pair chunk
-that holds a live pair.
+and dcut are. The fp32 backward runs the same live pairs through
+register-tiled float32 FMAs on the CUDA cores; the fp32 forward runs
+float32 tiles on every 64-pair chunk that holds a live pair.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each

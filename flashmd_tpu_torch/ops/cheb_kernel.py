@@ -20,12 +20,13 @@ cores and skip the pair fragments that add nothing: ``cheb_bwd_gd`` runs
 W is zero elsewhere); ``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gxgd``
 run 16 x 16 fragments with a pair at z != 1 (exact: both bases vanish at
 z == 1; the diagonal, at z = -1, runs) and their linear term only where
-low != 0. At fp32 ``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gd`` take
-float32 FMAs on the CUDA cores over the same pairs one by one (z != 1;
-d < rcut off the diagonal for gd), compacted per row on the card;
-``cheb_bwd_gxgd`` keeps the float32 tiles of every pair.
-``cheb_bwd_gd``'s column partials take ``gd_slabs(A, F, precision)``
-slabs, ``cheb_bwd_gxgd``'s ``cheb_gxgd_tiles(A)``.
+low != 0. At fp32 all four take float32 FMAs on the CUDA cores over the
+same pairs one by one (z != 1; d < rcut off the diagonal for gd alone),
+compacted per row on the card; ``cheb_bwd_gxgd`` runs the pairs at z != 1
+and weighs their gd by the keep mask. The column partials of
+``cheb_bwd_gd`` and ``cheb_bwd_gxgd`` take ``gd_slabs(A, F, precision)``
+slabs (none for ``cheb_bwd_gxgd`` at fp32 with F <= 128: one launch, no
+reduce).
 
 Every operand carries the batch as its leading axis: ``pos [S, A, 3]``,
 ``x``/``g`` ``[S, A, F]``; coefficient tables are ``[M, F]``. The batch is
@@ -267,10 +268,10 @@ def _count(name, cell, precision):
 
 
 def gd_slabs(a: int, f: int, precision: str) -> int:
-    """Slabs of ``cheb_bwd_gd``'s column partials col_part [S, slabs, A,
-    3]: at fp32 one per 128-feature chunk after the first (whose part goes
-    to row_part), at bf16 and bf16x3 one per 16-row strip. The kernel
-    refuses any other count."""
+    """Slabs of the column partials col_part [S, slabs, A, 3] of
+    ``cheb_bwd_gd`` and ``cheb_bwd_gxgd``: at fp32 one per 128-feature
+    chunk after the first (whose part goes to row_part), at bf16 and
+    bf16x3 one per 16-row strip. The kernels refuse any other count."""
     if precision == "fp32":
         return -(-f // 128) - 1
     return -(-a // 16)
@@ -403,17 +404,17 @@ def cheb_conv_bwd_gxgd(c, c2, w0, pos, x, g, rcut, precision, d_min=0.0,
         tensors.append(w_lin)
     cell, inv = _cell_args(cell, inv, s, pos, tensors)
     _same_device(*tensors)
-    n_tiles = lib.cheb_gxgd_tiles(a)
+    n_slabs = gd_slabs(a, f, precision)
     gx = torch.empty_like(g)
     row_part = torch.empty(s, a, 3, dtype=torch.float32, device=pos.device)
-    col_part = torch.empty(s, n_tiles, a, 3, dtype=torch.float32,
+    col_part = torch.empty(s, n_slabs, a, 3, dtype=torch.float32,
                            device=pos.device)
     gpos = torch.empty_like(pos)
     rc = lib.cheb_bwd_gxgd(
         _ptr(pos), _ptr(x), _ptr(g), _ptr(q), _ptr(c2), _ptr(w0),
         _ptr(w_lin), _ptr(cell), _ptr(inv), _ptr(gx), _ptr(row_part),
-        _ptr(col_part), _ptr(gpos), s, a, f, q.shape[0], m2, float(rcut),
-        float(d_min), TIER_CODES[precision], _stream(),
+        _ptr(col_part), _ptr(gpos), s, a, f, q.shape[0], m2, n_slabs,
+        float(rcut), float(d_min), TIER_CODES[precision], _stream(),
     )
     _raise_on(rc, "cheb_bwd_gxgd")
     _count("cheb_bwd_gxgd", cell, precision)

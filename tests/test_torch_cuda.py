@@ -738,6 +738,140 @@ def test_gxgd_tensor_core_kernel_matches_twin(dev, a, layout, periodic,
         assert float(ref[0].abs().max()) == 0.0
 
 
+
+# The fp32 gx+gd kernel (CUDA cores, live pairs only): rows all dead but the
+# diagonal ("none"), all live ("compact"), a lone atom's beside mixed ones
+# ("lone"), mixed ("spread", "clusters"); ragged atom counts, one feature
+# chunk (F = 128: one launch, no reduce) and two (F = 200: the second
+# chunk's partials reduced), odd orders (13 forward, so 14 gx; 15 gd).
+FP32_GXGD_ATOMS = [33, 266, 300]
+
+
+def _lone_atom(pos):
+    """Positions with their last atom moved 3 RCUT along y: its row's only
+    pair within the cutoff is its diagonal, open and in CELL_WIDE."""
+    pos = pos.clone()
+    pos[:, -1, 1] += 3 * RCUT
+    return pos
+
+
+def _fp32_gxgd_check(t, pos, cell, d_min, cpu_twin=False):
+    """(gpos, gx) of the fp32 kernel against the twin (on the CPU with
+    ``cpu_twin``, as _fp32_check) at 1e-4 of max|twin|, exactly zero where
+    the twin is; two launches bitwise equal."""
+    from flashmd_tpu_torch.models.cheb import _lin_slope
+
+    w_lin = _lin_slope(t["c2"]) if d_min > 0 else None
+    args = (t["c"], t["c2"], t["w0"], pos, t["x"], t["g"], RCUT, "fp32",
+            d_min, w_lin)
+    out = ck.cheb_conv_bwd_gxgd(*args, cell=cell)
+    again = ck.cheb_conv_bwd_gxgd(*args, cell=cell)
+    if cpu_twin:
+        ref = ck.cheb_conv_bwd_gxgd_plain(
+            *_cpu(args), cell=None if cell is None else cell.cpu())
+    else:
+        ref = ck.cheb_conv_bwd_gxgd_plain(*args, cell=cell)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    for k, r in zip(out, ref):
+        k = k.to(r.device)
+        assert bool(torch.isfinite(k).all())
+        if float(r.abs().max()) == 0.0:
+            assert float(k.abs().max()) == 0.0
+            continue
+        assert _rel(k, r) <= BOUNDS["fp32"]["bwd"]
+    return ref
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("layout",
+                         ["spread", "clusters", "lone", "none", "compact"])
+@pytest.mark.parametrize("f", [128, 200])
+@pytest.mark.parametrize("a", FP32_GXGD_ATOMS)
+def test_fp32_gxgd_kernel_matches_twin(dev, a, f, layout, periodic):
+    """At d_min 0 and 2.0 (pairs below it: the linear term), open and
+    under cells; only the diagonal live ("none"): gpos exactly zero."""
+    t = _inputs(dev, 2, a, f, 13, 15, seed=a + f)
+    cell = None
+    if layout == "spread":
+        pos = t["pos"]
+        if periodic:
+            pos, cell = torch.remainder(pos, 24.0), _cells(dev, 2)
+    else:
+        pos = _gd_layout(dev, 2, a, "clusters" if layout == "lone"
+                         else layout, seed=a + 5)
+        if layout == "lone":
+            pos = _lone_atom(pos)
+        if periodic:
+            cell = torch.tensor([CELL_WIDE] * 2, device=dev)
+    for d_min in (0.0, 2.0):
+        ref = _fp32_gxgd_check(t, pos, cell, d_min)
+        if layout == "none":
+            assert float(ref[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_fp32_gxgd_kernel_at_the_slice_widths(dev, periodic):
+    """266 beads, F = 128, the fp32 zoo's orders (128, so 129 gx; 128 gd)
+    on d_min 0, positions spread so that most pairs are dead; against the
+    twin on the CPU (at order 128 the twin on the card sums |rel|^2 in
+    another order, _fp32_check)."""
+    t = _inputs(dev, 2, 266, 128, 128, 128, seed=4)
+    pos, cell = 3.0 * t["pos"], None
+    if periodic:
+        pos, cell = torch.remainder(pos, 24.0), _cells(dev, 2)
+    _fp32_gxgd_check(t, pos, cell, 0.0, cpu_twin=True)
+
+
+def _no_sync_steps(sim, dev, n=5):
+    """``n`` BAOAB steps of an attached and simulated ``sim`` under
+    ``torch.cuda.set_sync_debug_mode("error")``; the carry after them."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    carry, first = sim.final_carry, sim.n_timesteps
+    draws = [sim._step_draws(gen, first + i) for i in range(n)]
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    cd.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for i, (xi, u) in enumerate(draws):
+                carry = sim._step_with_hooks(carry, xi, first + i, u)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return carry
+
+
+@pytest.mark.parametrize("path", ["perblock", "dense"])
+def test_fp32_slice_step_loops_make_no_host_sync(dev, monkeypatch, path):
+    """Five BAOAB steps of a 3-block fp32 field on the per-block cheb
+    schedule (FLASHMD_CHEB_STACK=0) and on the dense path launch nothing
+    that waits for the card: per force evaluation cheb_fwd 3, cheb_bwd_gxgd
+    2 and one-block cheb_bwd_gd 1 on the fp32 counters, or dense fwd 3 and
+    bwd 3, every other counter 0."""
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    if path == "perblock":
+        monkeypatch.setenv("FLASHMD_CHEB_STACK", "0")
+    ff, cfgs = cgschnet_1enh_like(
+        n_atoms=45, batch_size=2, precision="fp32",
+        message_passing="cheb" if path == "perblock" else "dense",
+        device=dev)
+    sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=4,
+                             save_interval=2, random_seed=5, device=dev,
+                             gptq=None)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    sim.simulate()  # builds the kernels, warms the allocator
+    carry = _no_sync_steps(sim, dev)
+    cheb = {"cheb_fwd_fp32": 15, "cheb_bwd_gxgd_fp32": 10,
+            "cheb_bwd_gd_fp32": 5} if path == "perblock" else {}
+    dense = dict.fromkeys(cd.launch_counts(), 0 if cheb else 15)
+    assert ck.launch_counts() == {**dict.fromkeys(ck.launch_counts(), 0),
+                                  **cheb}
+    assert cd.launch_counts() == dense
+    assert bool(torch.isfinite(carry["pos"]).all())
+
 def _perblock_forces(device, monkeypatch, cell=None, precision="bf16",
                      stack="0"):
     """Forces of a 3-block cheb model on the per-block schedule (or, with
@@ -919,6 +1053,83 @@ def test_dense_bwd_bitwise_reproducible(dev):
         assert torch.equal(again[0], first[0])
         assert torch.equal(again[1], first[1])
 
+
+
+def _dense_gd(pos, x, g, w, precision, need_gx=True):
+    """The backward's [S, A, A] gd workspace after one launch (filled with
+    NaN before it: every entry must be written) and its (gpos, gx)."""
+    from flashmd_tpu_torch.ops._build import load
+    from flashmd_tpu_torch.ops._launch import _ptr, _stream
+
+    s, a, f = x.shape
+    gd = torch.full((s, a, a), float("nan"), device=pos.device)
+    gpos = torch.empty_like(pos)
+    gx = torch.empty_like(g) if need_gx else None
+    rc = load().dense_cfconv_bwd(
+        _ptr(pos), _ptr(x), _ptr(g), *(_ptr(t) for t in w), _ptr(gd),
+        _ptr(gpos), _ptr(gx), s, a, f, w[0].shape[0], RCUT,
+        int(precision == "bf16"), _stream())
+    assert rc == 0
+    return gd, gpos, gx
+
+
+@pytest.mark.parametrize("layout", ["spread", "dense", "none", "lone"])
+@pytest.mark.parametrize("a", DENSE_ATOMS)
+def test_dense_fp32_bwd_matches_twin(dev, a, layout):
+    """The fp32 live-pair backward: gpos and gx, with and without gx,
+    against the fp32 twin (1e-4 of max|twin|; exactly zero where the twin
+    is), two launches bitwise equal; gd exactly 0 on every dead pair (d >=
+    rc, the diagonal) and within 1e-4 of the twin's on the live ones
+    (_dense_layout; "lone": two clusters with an atom whose row has no
+    live pair)."""
+    pos, x, g, w = _dense_inputs(dev, 2, a, seed=a + 3)
+    if layout == "lone":
+        pos = _lone_atom(_gd_layout(dev, 2, a, "clusters", seed=a))
+    else:
+        pos = _dense_layout(dev, pos, a, layout)
+    for need_gx in (True, False):
+        out = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "fp32",
+                                  need_gx=need_gx)
+        again = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "fp32",
+                                    need_gx=need_gx)
+        ref = cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT, "fp32",
+                                        need_gx=need_gx)
+        torch.cuda.synchronize()
+        assert (out[1] is None) == (ref[1] is None) == (not need_gx)
+        for k, k2, r in zip(out, again, ref):
+            if r is None:
+                continue
+            assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
+            if float(r.abs().max()) == 0.0:
+                assert float(k.abs().max()) == 0.0
+            else:
+                assert _rel(k, r) <= BOUNDS["fp32"]["bwd"]
+        gd, gpos, _ = _dense_gd(pos, x, g, w, "fp32", need_gx)
+        torch.cuda.synchronize()
+        assert torch.equal(gpos, out[0])
+        geometry = cd._pair_geometry(pos, w[3], w[4], RCUT)
+        eye = torch.eye(a, dtype=torch.bool, device=dev)
+        dead = (geometry[1] >= RCUT) | eye
+        assert bool((gd[dead] == 0.0).all())
+        gd_ref, _ = cd._pair_gd(geometry, x, g, *w, "fp32", need_gx=False)
+        assert bool(torch.isfinite(gd).all())
+        if bool((~dead).any()):
+            assert _rel(gd, gd_ref) <= BOUNDS["fp32"]["bwd"]
+
+
+def test_dense_fp32_bwd_at_the_slice_width(dev):
+    """266 beads at the dense slice's widths (F = 128, R = 50) on positions
+    spread so that most pairs are dead: within 1e-4 of the twin, three
+    launches bitwise equal."""
+    pos, x, g, w = _dense_inputs(dev, 4, 266, seed=9)
+    first = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "fp32")
+    ref = cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT, "fp32")
+    for _ in range(2):
+        again = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "fp32")
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+    for k, r in zip(first, ref):
+        assert _rel(k, r) <= BOUNDS["fp32"]["bwd"]
 
 def test_dense_wrappers_refuse_what_kernels_do_not_take(dev):
     pos, x, g, w = _dense_inputs(dev, 2, 20)

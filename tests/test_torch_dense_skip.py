@@ -14,12 +14,23 @@ product of those pairs zeroed gives gpos and gx equal (torch.equal) to
 ``dense_cfconv_bwd_plain``, with and without gx, and a copy of the forward
 twin with their W zeroed gives ``dense_cfconv_fwd_plain``'s output, on
 two-cluster positions with a ragged atom count (not a multiple of 16).
+
+``dense_cfconv_bwd`` at fp32 runs the same live pairs (the bf16 kernel's
+ring) through float32 FMAs on the CUDA cores: a ring-order emulation that
+runs the MLP backward only on each row's live pairs, in column order,
+writes gd = 0 on every other pair and sums gx per row in ring order
+equals ``dense_cfconv_bwd_plain`` at fp32 within 1e-5 of max|twin|, and
+the reference's ``_dense_cfconv_bwd`` (Pallas, interpreted) within 1e-5,
+with gx and without, on the clusters with a lone atom (a row with no
+live pair).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from flashmd_tpu.ops.pallas.cfconv_dense import _dense_cfconv_bwd
 from flashmd_tpu_torch.ops import cfconv_dense as cd
 from flashmd_tpu_torch.ops._launch import _op
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
@@ -165,3 +176,80 @@ def test_forward_skipping_dead_pairs_is_exact(precision, padded):
                                     precision)
     assert torch.equal(out, ref)
     assert bool((ref != 0.0).any())
+
+
+def _with_a_lone_atom(pos):
+    """The clusters with their last atom moved 3 RCUT along y: no pair of
+    its row is live."""
+    pos = pos.copy()
+    pos[:, -1, 1] += 3 * RCUT
+    return pos
+
+
+def _ring_order_bwd(pos, x, g, w0, b0, w1, offset, coeff, need_gx):
+    """The fp32 kernel's pairs in plain float32: each row's live pairs (d <
+    rc, i != j), in column order (the ring's), run the MLP backward; gd =
+    0 on every other pair; gx of the row summed over its pairs in ring
+    order; gpos by the gather of gd (``_gpos_of_gd``)."""
+    rel, d, cut, dcut, e, rbf = cd._pair_geometry(pos, offset, coeff, RCUT)
+    n_s, a, f = x.shape
+    live = (d < RCUT) & ~torch.eye(a, dtype=torch.bool)
+    gd = torch.zeros(n_s, a, a)
+    gx = torch.zeros_like(x) if need_gx else None
+    for s in range(n_s):
+        for i in range(a):
+            js = torch.nonzero(live[s, i])[:, 0]
+            if js.numel() == 0:
+                continue
+            ct = cut[s, i, js][:, None]
+            a0 = torch.tanh(rbf[s, i, js] @ w0 + b0)
+            w = a0 @ w1
+            if need_gx:
+                acc = torch.zeros(f)
+                for p, j in enumerate(js):
+                    acc = acc + (w[p] * ct[p]) * g[s, j]
+                gx[s, i] = acc
+            s_cut = torch.sum((g[s, i] * w) * x[s, js], dim=1)
+            ga0 = ((g[s, i] * x[s, js]) * ct) @ w1.T
+            grbf = (ga0 * (1.0 - a0 * a0)) @ w0.T
+            ee = e[s, i, js]
+            dr = d[s, i, js][:, None] - offset
+            se = torch.sum(grbf * ee, dim=1)
+            sg = torch.sum(grbf * ee * dr, dim=1)
+            gd[s, i, js] = (ct[:, 0] * (2.0 * coeff) * sg
+                            + (s_cut + se) * dcut[s, i, js])
+    return cd._gpos_of_gd(gd, rel, d), gx
+
+
+def _close(out, ref, bound=1e-5):
+    ref = np.asarray(ref)
+    return np.abs(np.asarray(out) - ref).max() <= bound * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("need_gx", [True, False], ids=["gx", "no_gx"])
+def test_ring_order_matches_the_twin_and_pallas(need_gx):
+    """The fp32 live-pair kernel's emulation against the fp32 twin and the
+    reference's Pallas backward (interpreted), within 1e-5 of max|ref|."""
+    pos = _t(_with_a_lone_atom(_clusters(seed=6)))
+    x, g, (w0, b0, w1, offset, coeff) = _operands(seed=7)
+    eye = torch.eye(A, dtype=torch.bool)
+    assert not bool(((~_dead(pos)) & ~eye)[:, -1].any())  # the lone row
+    gpos, gx = _ring_order_bwd(pos, x, g, w0, b0, w1, offset, coeff,
+                               need_gx)
+    gpos_ref, gx_ref = cd.dense_cfconv_bwd_plain(
+        pos, x, g, w0, b0, w1, offset, coeff, RCUT, "fp32", need_gx)
+    assert _close(gpos.numpy(), gpos_ref.numpy())
+    assert (gx is None) == (gx_ref is None) == (not need_gx)
+    if need_gx:
+        assert _close(gx.numpy(), gx_ref.numpy())
+    weights = tuple(jnp.asarray(v.numpy()) for v in (w0, b0, w1))
+    rbf = (jnp.asarray(offset.numpy()), jnp.asarray(coeff.numpy()))
+    for s in range(S):
+        jgpos, jgx = _dense_cfconv_bwd(
+            RCUT, 8, "fp32",
+            (jnp.asarray(pos[s].numpy()), jnp.asarray(x[s].numpy()),
+             *weights, rbf),
+            jnp.asarray(g[s].numpy()))[:2]
+        assert _close(gpos[s].numpy(), jgpos)
+        if need_gx:
+            assert _close(gx[s].numpy(), jgx)

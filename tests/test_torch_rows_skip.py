@@ -19,14 +19,20 @@ z == 1 rule is what holds; and the fp32 twins on those positions are held
 to the JAX package's Pallas kernels (interpreted) as the other parity
 tests hold them.
 
-The fp32 tier of ``cheb_fwd`` and ``cheb_bwd_gx`` runs on the CUDA cores
-over single pairs (compacted per row): the same copies with the products
-of every pair at z == 1 zeroed pair by pair (the linear term riding on the
-live pairs) equal the fp32 twins, on the clusters with a lone atom (a row
-whose only live pair is its diagonal) open and under the cell; the
-pair-granular gd rule drops the diagonal there too; and the kernel's order
-of operations, the filter Wf = sum_m Ttil_m c_m of each pair summed
-against x (or g) row by row, agrees with the twin at the card's bounds.
+The fp32 tier of ``cheb_fwd``, ``cheb_bwd_gx`` and ``cheb_bwd_gxgd`` runs on
+the CUDA cores over single pairs (compacted per row): the same copies with
+the products of every pair at z == 1 zeroed pair by pair (the linear term
+riding on the live pairs; for gx+gd also the gd terms outside the keep
+mask) equal the fp32 twins, on the clusters with a lone atom (a row whose
+only live pair is its diagonal) open and under the cell, for gx+gd at
+d_min 0 and 2.0 and beside a pair at d < rcut whose z rounds to exactly
+1.0f (in gd's keep mask, dropped by the kernel: exact, as its W carries 1
+- z = 0); the pair-granular gd rule drops the diagonal there too; the
+kernel's order of operations, the filter Wf = sum_m Ttil_m c_m of each
+pair summed against x (or g) row by row, and for gx+gd two filters from
+one recurrence with gd as W_ij + W_ji owned by the row, agrees with the
+twin at the card's bounds; and the gx+gd twin on those positions agrees
+with the Pallas kernel (interpreted).
 """
 
 import jax.numpy as jnp
@@ -401,3 +407,204 @@ def test_live_pair_order_matches_the_twin(kernel, periodic):
                                         w_lin, cell)
         bound = 1e-4
     assert float((got - ref).abs().max() / ref.abs().max()) <= bound
+
+
+# The fp32 gx+gd kernel (cheb_gxgd_ffma_kernel) runs the pairs of its ring,
+# z != 1 (gx's live set, with the diagonal), and weighs their gd by the
+# keep mask (d < rcut off the diagonal). A pair at d < rcut whose z rounds
+# to exactly 1.0f is in the keep mask but not in the ring. At d_min 0 and
+# this cutoff such a pair exists (_hazard_pair finds it, the tests assert
+# it); at d_min 2.0 and RCUT none does: d - d_min then loses more to
+# rounding than the scale 2 / (rcut - d_min) can gain.
+HAZARD_RCUT = float(np.float32(3.6052))
+
+
+def _hazard_pair(rcut, d_min, base=(5.0, 12.0, 22.0)):
+    """Two atoms [2, 3], dx apart along x, whose pair lies at d < rcut with
+    z == 1.0f exactly (searched over dx within 200 steps of 2^-21 below
+    rcut); None if there is none."""
+    base = np.asarray(base, np.float32)
+    for k in range(1, 200):
+        dx = np.float32(rcut) - np.float32(k * 2.0 ** -21)
+        pair = np.stack([base, base + np.array([dx, 0.0, 0.0], np.float32)])
+        d, z = ck.pair_geometry(_t(pair[None]), rcut, d_min)
+        if float(d[0, 0, 1]) < rcut and float(z[0, 0, 1]) == 1.0:
+            return pair
+    return None
+
+
+def _gxgd_case(d_min):
+    """(pos, rcut): the clusters with a lone atom (index A - 1); at d_min 0
+    two atoms appended whose pair sits at d < HAZARD_RCUT with z == 1.0f,
+    far from the others (also under the cell)."""
+    pos = _clusters_with_a_lone_atom()
+    if d_min > 0.0:
+        return _t(pos), RCUT
+    pair = _hazard_pair(HAZARD_RCUT, d_min)
+    assert pair is not None
+    pos = np.concatenate(
+        [pos, np.broadcast_to(pair, (pos.shape[0], 2, 3))], axis=1)
+    return _t(pos), HAZARD_RCUT
+
+
+def _gxgd_operands(a, seed):
+    """x, g [2, a, F], c [M1, F] (so q has M1 + 1 orders), c2 [M2, F],
+    w0 [F]."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, a, F)).astype(np.float32)
+    g = rng.normal(size=(2, a, F)).astype(np.float32)
+    c = (rng.normal(size=(M1, F)) / M1).astype(np.float32)
+    c2 = (rng.normal(size=(M2, F)) / M2).astype(np.float32)
+    w0 = rng.normal(size=(F,)).astype(np.float32)
+    return _t(x), _t(g), _t(c), _t(c2), _t(w0)
+
+
+def _gxgd_live_pairs(c, c2, w0, pos, x, g, rcut, d_min, w_lin, cell):
+    """cheb_conv_bwd_gxgd_plain's order loop at fp32 with, pair by pair,
+    the products the fp32 kernel does not run zeroed: gx's (and the linear
+    term's) of every pair at z == 1, gd's of every pair at z == 1 or
+    outside the keep mask."""
+    q = ck._to_that_basis(c)
+    cell, inv = ck._cell_operands(cell, pos.shape[0], pos.device)
+    rel = ck.pair_rel(pos, cell, inv)
+    d, z = ck._geometry(rel, rcut, d_min)
+    eye = torch.eye(pos.shape[1], dtype=torch.bool)
+    on_x = z != 1.0
+    on_d = on_x & (d < rcut) & ~eye
+    two_z = 2.0 * z
+    xt = x.transpose(1, 2)
+    h_prev, h_cur = 1.0 - z, (1.0 - z) * z
+    gx = gd = 0.0
+    for m in range(max(q.shape[0], c2.shape[0])):
+        if m == 0:
+            h = h_prev
+        elif m == 1:
+            h = h_cur
+        else:
+            h_prev, h_cur = h_cur, two_z * h_cur - h_prev
+            h = h_cur
+        if m < q.shape[0]:
+            gx = gx + _dot(_masked(h, on_x), q[m] * g, "fp32")
+        if m < c2.shape[0]:
+            gd = gd + _masked(h, on_d) * _dot(c2[m] * g, xt, "fp32")
+    if w_lin is not None:
+        low = _masked(ck._low_matrix(d, d_min), on_x)
+        gx = gx + _dot(low, w_lin * g, "fp32")
+    return ck._gpos_of_gd(gd, pos, rel, d, rcut, cell), gx - w0 * g
+
+
+@pytest.mark.parametrize("d_min", [0.0, 2.0])
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+def test_gxgd_skipping_dead_pairs_is_exact(periodic, d_min):
+    """The fp32 gx+gd kernel's rule, pair by pair, gives the fp32 twin's
+    gpos and gx exactly (torch.equal): on the lone atom's row (its
+    diagonal alone at z != 1), rows with live and dead pairs, pairs below
+    d_min 2.0 (the linear term) and, at d_min 0, the pair at d < rcut with
+    z == 1.0f that the kernel drops from gd's keep mask."""
+    pos, rcut = _gxgd_case(d_min)
+    x, g, c, c2, w0 = _gxgd_operands(pos.shape[1], seed=10)
+    w_lin = _lin_slope(c2) if d_min > 0 else None
+    cell = _cell(periodic)
+    d, z = ck.pair_geometry(pos, rcut, d_min, cell)
+    eye = torch.eye(pos.shape[1], dtype=torch.bool)
+    on = z != 1.0
+    assert not bool((on & ~eye)[:, A - 1].any())  # the lone atom's row
+    assert bool((on & ~eye).any(2)[:, :A - 1].all())
+    assert bool((~on).any(2).all())  # every row holds dead pairs
+    if d_min > 0:
+        assert bool(((d < d_min) & ~eye).any())
+    else:
+        hazard = (d < rcut) & (z == 1.0)
+        assert bool(hazard[:, A, A + 1].all())
+        assert bool(hazard[:, A + 1, A].all())
+    ref = ck.cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut, "fp32",
+                                      d_min, w_lin, cell)
+    out = _gxgd_live_pairs(c, c2, w0, pos, x, g, rcut, d_min, w_lin, cell)
+    assert all(torch.equal(o, r) for o, r in zip(out, ref))
+    assert bool((ref[0] != 0.0).any())
+
+
+def _gxgd_live_pair_order(c, c2, w0, pos, x, g, rcut, d_min, w_lin, cell):
+    """The fp32 gx+gd kernel's order of operations in plain float32: per
+    pair with z != 1 of row i, in column order, one recurrence T_m (T_0 =
+    1, T_1 = z) gives Wq = (1 - z) sum_k T_k q_k + low w_lin and Wc =
+    sum_m T_m c2_m; gx_i = sum_p Wq g_j - w0 g_i; W = (1 - z) / d sum_f Wc
+    (g_i x_j + g_j x_i) on the pairs in the keep mask (0 on the others),
+    gpos_i = -sum_p W rel_p."""
+    q = ck._to_that_basis(c)
+    cell, inv = ck._cell_operands(cell, pos.shape[0], pos.device)
+    rel = ck.pair_rel(pos, cell, inv)
+    d, z = ck._geometry(rel, rcut, d_min)
+    gx = torch.empty_like(g)
+    gpos = torch.zeros_like(pos)
+    for s in range(pos.shape[0]):
+        for i in range(pos.shape[1]):
+            js = torch.nonzero(z[s, i] != 1.0)[:, 0]
+            zj = z[s, i, js][:, None]
+
+            def series(coef):
+                ta, tb = torch.ones_like(zj), zj
+                wf = ta * coef[0]
+                for m in range(1, coef.shape[0]):
+                    wf = wf + tb * coef[m]
+                    ta, tb = tb, 2.0 * zj * tb - ta
+                return wf
+
+            wq = (1.0 - zj) * series(q)
+            if w_lin is not None:
+                low = torch.clamp(d[s, i, js] - d_min, max=0.0)
+                low = torch.where(js == i, torch.zeros_like(low), low)
+                wq = wq + low[:, None] * w_lin
+            gx[s, i] = (wq * g[s, js]).sum(0) - w0 * g[s, i]
+            sym = g[s, i] * x[s, js] + g[s, js] * x[s, i]
+            dj = d[s, i, js]
+            keep = (dj < rcut) & (js != i)
+            w = (1.0 - z[s, i, js]) * (series(c2) * sym).sum(1) / dj
+            w = torch.where(keep, w, torch.zeros_like(w))
+            gpos[s, i] = -(w[:, None] * rel[s, i, js]).sum(0)
+    return gpos, gx
+
+
+@pytest.mark.parametrize("d_min", [0.0, 2.0])
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+def test_gxgd_live_pair_order_matches_the_twin(periodic, d_min):
+    """The fp32 gx+gd kernel's per-pair filters (gd as W_ij + W_ji from
+    one Wc, each row owning its gradient; gx summed per row in ring order)
+    agree with the twin within 1e-4 of max|twin| (the card's bound)."""
+    pos, rcut = _gxgd_case(d_min)
+    x, g, c, c2, w0 = _gxgd_operands(pos.shape[1], seed=11)
+    w_lin = _lin_slope(c2) if d_min > 0 else None
+    cell = _cell(periodic)
+    got = _gxgd_live_pair_order(c, c2, w0, pos, x, g, rcut, d_min, w_lin,
+                                cell)
+    ref = ck.cheb_conv_bwd_gxgd_plain(c, c2, w0, pos, x, g, rcut, "fp32",
+                                      d_min, w_lin, cell)
+    for o, r in zip(got, ref):
+        assert float((o - r).abs().max() / r.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("d_min", [0.0, 2.0])
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "cell"])
+def test_gxgd_twin_matches_pallas_on_live_pairs(periodic, d_min):
+    """The fp32 gx+gd twin on those positions (the lone atom, and at d_min
+    0 the pair at z == 1.0f) against the reference's Pallas kernel with
+    need_gx and need_gd (interpreted), at 1e-4 of max|jax|; the gd series
+    at 16 orders, one Pallas chain."""
+    pos, rcut = _gxgd_case(d_min)
+    x, g, c, _, w0 = _gxgd_operands(pos.shape[1], seed=12)
+    rng = np.random.default_rng(13)
+    c2 = _t((rng.normal(size=(16, F)) / 16).astype(np.float32))
+    w_lin = _lin_slope(c2) if d_min > 0 else None
+    cell = CELL if periodic else None
+    jc, jc2, jw0 = (jnp.asarray(v.numpy()) for v in (c, c2, w0))
+    refs = [cheb_conv_bwd_pallas(
+        jc, jc2, jw0, jnp.asarray(pos[s].numpy()), jnp.asarray(x[s].numpy()),
+        jnp.asarray(g[s].numpy()), rcut, "fp32", need_gx=True, need_gd=True,
+        cell=None if cell is None else jnp.asarray(cell), d_min=d_min)
+        for s in range(pos.shape[0])]
+    out = ck.cheb_conv_bwd_gxgd(c, c2, w0, pos, x, g, rcut, "fp32", d_min,
+                                w_lin, _cell(periodic))
+    for k in range(2):
+        ref = np.stack([np.asarray(r[k]) for r in refs])
+        err = np.abs(out[k].numpy() - ref).max()
+        assert err <= 1e-4 * np.abs(ref).max()

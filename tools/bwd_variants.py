@@ -1,6 +1,6 @@
 """Design variants of the tensor-core CFConv kernels, timed on the card.
 
-    python3 tools/bwd_variants.py
+    python3 tools/bwd_variants.py [function ...]
 
 Each variant is an edited copy of one source of flashmd_tpu_torch/csrc
 and, where it edits it, of the shared header cfconv_tile.cuh (text
@@ -8,8 +8,10 @@ substitutions), compiled into a library of its own, all in parallel;
 ptxas' registers and spills of its tensor-core kernels are printed, then
 the function at its slice's shapes is held against its twin and timed
 with CUDA events (batch 128, 266 beads, F = 128, bf16; the combined cheb
-backward also at bf16x3, on the bf16x3 slice's (64, 96) fit; open
-boundaries; the neighbour-matrix kernels on the pallas slice's list):
+backward also at bf16x3, on the bf16x3 slice's (64, 96) fit; the dense
+backward also at fp32, on its CUDA-core kernel; open boundaries; the
+neighbour-matrix kernels on the pallas slice's list). Naming functions
+(e.g. dense_cfconv_bwd_fp32) builds and times those alone:
 
 * cheb_bwd_gxgd (cheb_gxgd_mma_kernel, the per-block slice's fit):
   base   -- the source as it is: at bf16 three blocks per SM (at most
@@ -22,6 +24,21 @@ boundaries; the neighbour-matrix kernels on the pallas slice's list):
   rw2    -- 2 rows per work item (more items, more padded tails);
   inline -- ga0's x_j and g_i loaded in their own k-step, not one ahead
             (the gx instantiation then spills 12 B).
+* dense_cfconv_bwd_fp32 (dense_bwd_ffma_kernel, with and without gx):
+  base       -- the source as it is (4 warps a block beside the staged
+                float32 weights, one per scheduler; the item's gx rows in
+                shared memory);
+  gx_global  -- the item's gx rows summed in place in device memory (its
+                warp owns them);
+  row_unroll2, col_unroll2 -- the products with w (a0, W) or with w^T
+                (ga0, grbf) unrolled over two 4-step slices of the
+                reduction (the source: one);
+  w6, w5, w3 -- 6 (as many as shared memory holds), 5 or 3 warps a block;
+  gi_smem    -- the item's g rows staged in the warp's shared memory for
+                s_cut and the cotangent (the source reads g_i from device
+                memory, through L1);
+  gx_unroll4 -- gx's ring-order sum unrolled four times (its g_j loads
+                issued ahead).
 * dense_cfconv_fwd (dense_fwd_mma_kernel):
   base   -- the source as it is (16 warps, at most 128 registers);
   w8     -- 8 warps a block (up to 255 registers);
@@ -97,6 +114,47 @@ GA_AHEAD = """  float2 xv[4], gv[4];
         gv[i] = *reinterpret_cast<const float2*>(gi_s + rr[h] * F + k);
       }
     }"""
+DENSE = "cfconv_dense_kernels.cu"
+DF_WARP = """constexpr int DF_WARP_FLOATS = 2 * DF_TILE * F + DM_RW * F + 4 * DF_TILE +
+                               DM_RING;"""
+DF_GX_S = """  float* gx_s = buf_s + DF_TILE * F;                    // [DM_RW][F]
+  float* pd_s = gx_s + DM_RW * F;                       // [DF_TILE][4]"""
+DF_GX_ZERO = """    if (GX) {
+      for (int e = lane; e < DM_RW * F; e += 32) gx_s[e] = 0.0f;
+      __syncwarp();
+    }"""
+DF_GX_OUT = """    if (GX) {
+      float* gxs = gx + (size_t)s * A * F;
+      for (int e = 4 * lane; e < DM_RW * F; e += 128) {
+        int i = r0 + e / F;
+        if (i < A)
+          *reinterpret_cast<float4*>(gxs + (size_t)i * F + e % F) =
+              *reinterpret_cast<const float4*>(gx_s + e);
+      }
+    }
+"""
+DF_W = "constexpr int DF_WARPS = 4;"
+DF_GI = """    const float* gi = g + (size_t)(r0 + (ent >> 16)) * F + 4 * fg;"""
+DF_PD = """  float* pd_s = gx_s + DM_RW * F;                       // [DF_TILE][4]"""
+DF_ZERO = """      for (int e = lane; e < DM_RW * F; e += 32) gx_s[e] = 0.0f;
+      __syncwarp();
+    }"""
+DF_ZERO_GI = """      for (int e = lane; e < DM_RW * F; e += 32) gx_s[e] = 0.0f;
+      __syncwarp();
+    }
+    for (int e = lane; e < DM_RW * F; e += 32) {
+      int i = r0 + e / F;
+      gx_s[DM_RW * F + e] = i < A ? gs[(size_t)i * F + e % F] : 0.0f;
+    }
+    __syncwarp();"""
+GI_SMEM = {
+    TILE: {DF_WARP: DF_WARP.replace("DM_RW * F", "2 * DM_RW * F"),
+           DF_GI: "    const float* gi = gx_s + (DM_RW + (ent >> 16)) * F "
+                  "+ 4 * fg;"},
+    DENSE: {DF_PD: DF_PD.replace("DM_RW * F", "2 * DM_RW * F"),
+            DF_ZERO: DF_ZERO_GI}}
+DF_K = """#pragma unroll 1
+  for (int k = {}; k < {}; k += 4) {{"""
 # (source, kernels of its ptxas lines, function): {variant: {file: {old:
 # new}}}; a file is the source or the shared header.
 VARIANTS = {
@@ -111,6 +169,41 @@ VARIANTS = {
         "base": {},
         "rw2": {TILE: {RW: RW.replace("4;", "2;")}},
         "inline": {TILE: {GA_AHEAD: GA_LOOP}},
+    },
+    (DENSE, "dense_bwd_ffma_kernel", "dense_cfconv_bwd_fp32"): {
+        "base": {},
+        "gx_global": {
+            TILE: {DF_WARP: "constexpr int DF_WARP_FLOATS = "
+                            "2 * DF_TILE * F + 4 * DF_TILE + DM_RING;"},
+            DENSE: {DF_GX_S: "  float* pd_s = buf_s + DF_TILE * F;  "
+                             "// [DF_TILE][4]",
+                    DF_GX_ZERO: "    // the item's gx rows, in place\n"
+                                "    float* gx_s = GX ? gx + ((size_t)s * A"
+                                " + r0) * F : nullptr;\n"
+                                "    if (GX) {\n"
+                                "      for (int e = lane; e < DM_RW * F && "
+                                "r0 + e / F < A; e += 32)\n"
+                                "        gx_s[e] = 0.0f;\n"
+                                "      __syncwarp();\n    }",
+                    DF_GX_OUT: ""}},
+        "row_unroll2": {TILE: {DF_K.format(0, "K"):
+                               DF_K.format(0, "K").replace("1", "2")}},
+        "col_unroll2": {TILE: {DF_K.format("k0", "k1"):
+                               DF_K.format("k0", "k1").replace("1\n", "2\n")}},
+        "w6": {TILE: {DF_W: "constexpr int DF_WARPS = 6;"}},
+        "w5": {TILE: {DF_W: "constexpr int DF_WARPS = 5;"}},
+        "w3": {TILE: {DF_W: "constexpr int DF_WARPS = 3;"}},
+        "gi_smem": GI_SMEM,
+        "gx_unroll4": {TILE: {"""#pragma unroll 1
+    for (int t = 0; t < nv; ++t) {
+      int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
+      if (r != cur) {
+        float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;""":
+            """#pragma unroll 4
+    for (int t = 0; t < nv; ++t) {
+      int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
+      if (r != cur) {
+        float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;"""}},
     },
     ("cfconv_dense_kernels.cu", "dense_fwd_mma_kernel", "dense_cfconv_fwd"): {
         "base": {},
@@ -132,11 +225,13 @@ VARIANTS = {
 }
 
 
-def build_all(tmp):
-    """{(fn, variant): loaded library}; prints each variant's ptxas lines
-    for its tensor-core kernels."""
+def build_all(tmp, only=()):
+    """{(fn, variant): loaded library} of the functions ``only`` (all when
+    empty); prints each variant's ptxas lines for its kernels."""
     procs = {}
     for (source, kernel, fn), variants in VARIANTS.items():
+        if only and fn not in only:
+            continue
         for name, edits in variants.items():
             out = tmp / f"{fn}_{name}"
             out.mkdir()
@@ -164,9 +259,9 @@ def build_all(tmp):
             if kernel in line.split(":")[0]:
                 print(f"variant {fn} {name}: {line[-90:]}")
         lib = ctypes.CDLL(str(tmp / f"{fn}_{name}" / "lib.so"))
-        for sym in (fn, "cheb_gxgd_tiles") if fn == "cheb_bwd_gxgd" else (fn,):
-            getattr(lib, sym).argtypes = _build._SIGNATURES[sym]
-            getattr(lib, sym).restype = ctypes.c_int
+        sym = fn.removesuffix("_fp32")
+        getattr(lib, sym).argtypes = _build._SIGNATURES[sym]
+        getattr(lib, sym).restype = ctypes.c_int
         libs[fn, name] = lib
     return libs
 
@@ -204,7 +299,7 @@ def gxgd_cases(libs, dev):
         for (fn, name), lib in libs.items():
             if fn != "cheb_bwd_gxgd":
                 continue
-            n = lib.cheb_gxgd_tiles(a)
+            n = ck.gd_slabs(a, f, prec)
             gx = torch.empty_like(g)
             gpos = torch.empty_like(pos)
             row = torch.empty(s, a, 3, device=dev)
@@ -215,7 +310,8 @@ def gxgd_cases(libs, dev):
                     _ptr(pos), _ptr(x), _ptr(g), _ptr(q), _ptr(c2),
                     _ptr(w0), _ptr(w_lin), None, None, _ptr(gx), _ptr(row),
                     _ptr(col), _ptr(gpos), s, a, f, q.shape[0],
-                    c2.shape[0], rcut, d_min, TIER_CODES[prec], _stream())
+                    c2.shape[0], n, rcut, d_min, TIER_CODES[prec],
+                    _stream())
                 if rc:
                     raise SystemExit(f"FAILED: {name}: CUDA {rc}")
 
@@ -246,6 +342,9 @@ def dense_cases(libs, dev):
     r, f = w[0].shape
     ref_bwd = cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, "bf16")
     ref_fwd = (cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, "bf16"),)
+    ref32 = {gx: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, "fp32",
+                                           need_gx=gx)
+             for gx in (True, False)}
     for (fn, name), lib in libs.items():
         gd = torch.empty(s, a, a, device=dev)
         gpos = torch.empty_like(pos)
@@ -261,6 +360,20 @@ def dense_cases(libs, dev):
                     raise SystemExit(f"FAILED: {name}: CUDA {rc}")
 
             report(f"{fn} {name} bf16", call, (gpos, gx), ref_bwd)
+        elif fn == "dense_cfconv_bwd_fp32":
+            for need_gx in (True, False):
+                def call(gx_ptr=_ptr(gx) if need_gx else None):
+                    rc = lib.dense_cfconv_bwd(
+                        _ptr(pos), _ptr(x), _ptr(g), *(_ptr(t) for t in w),
+                        _ptr(gd), _ptr(gpos), gx_ptr, s, a, f, r, rcut, 0,
+                        _stream())
+                    if rc:
+                        raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+                ref = ref32[need_gx]
+                report(f"{fn} {name} {'with' if need_gx else 'no'} gx", call,
+                       (gpos, gx) if need_gx else (gpos,),
+                       ref if need_gx else ref[:1])
         elif fn == "dense_cfconv_fwd":
             def call():
                 rc = lib.dense_cfconv_fwd(
@@ -314,7 +427,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
     dev = torch.device("cuda", 0)
-    libs = build_all(Path(tempfile.mkdtemp()))
+    libs = build_all(Path(tempfile.mkdtemp()), sys.argv[1:])
     gxgd_cases(libs, dev)
     dense_cases(libs, dev)
     nbr_cases(libs, dev)
