@@ -17,10 +17,12 @@ Phases (each prints its lines; any failure exits non-zero):
                neighbour-matrix backward's two passes (bf16) must not
                spill and must hold tensor-core MMA instructions in their
                SASS (cuobjdump); their counts are printed. The fp32
-               CUDA-core live-pair kernels' six instantiations
-               (cheb_rows_ffma_kernel fwd, gx; cheb_gd_ffma_kernel; open,
-               cell) must be built; their registers and spills are
-               printed.
+               CUDA-core live-pair kernels' thirteen instantiations
+               (FFMA_LABELS: cheb_rows_ffma_kernel fwd, gx;
+               cheb_gd_ffma_kernel; cheb_gxgd_ffma_kernel; open, cell;
+               dense_bwd_ffma_kernel and nbr_bwd_ffma_kernel with and
+               without gx; dense_fwd_ffma_kernel) must be built; their
+               registers and spills are printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
@@ -56,10 +58,12 @@ Phases (each prints its lines; any failure exits non-zero):
                and the F = 128 gd launch at fp32 alone, open and on the
                folded cells, on the fp32 slice's own fits (128, 128) on
                d_min 0 (keys "_fp32"). Every fp32 line of the four cheb
-               kernels (also at the slice's (48, 64)) and of the dense
-               backward adds the pairs the live-pair kernel runs against
-               S A^2, its registers and spills, and two launches gated
-               bitwise equal.
+               kernels (also at the slice's (48, 64)), of the dense
+               forward and backward and of the neighbour-matrix backward
+               adds the pairs (slots) the live-pair kernel runs against
+               S A^2 (S A K), its registers and spills, and two launches
+               gated bitwise equal; the neighbour-matrix kernels on the
+               overflowed list also without gx.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
                the cheb (stacked and per-block schedules), the dense and
@@ -129,6 +133,12 @@ Phases (each prints its lines; any failure exits non-zero):
                per force evaluation; n_max against K; second-half
                throughput; then torch.profiler over PROFILE_STEPS more
                steps: device time by kernel and the device idle share.
+               "pallas fp32": cgschnet_1enh_like(precision="fp32",
+               message_passing="pallas") at the slice's shapes, gptq
+               None, PALLAS_FP32_STEPS steps: 3 fwd + 3 bwd per force
+               evaluation, every cheb and dense counter 0, no twin call,
+               throughput beside the bf16 pallas slice's and a profiler
+               window.
 8. xla      -- the exact xla path (plain PyTorch, no kernel of its own:
                every kernel counter must stay 0 on it). Forces at batch 4:
                bf16 card vs CPU (FORCE_BOUND); fp32 against pallas fp32
@@ -377,8 +387,10 @@ PERBLOCK_PERIODIC_STEPS = 40
 # put each variant of the tier on a path.
 BF16X3_STEPS = 40
 TIER_SHORT_STEPS = 10
-# The dense fp32 slice (the port's fidelity yardstick at full width).
+# The dense fp32 slice (the port's fidelity yardstick at full width) and the
+# pallas fp32 slice (the neighbour-matrix kernels at fp32).
 DENSE_FP32_STEPS = 40
+PALLAS_FP32_STEPS = 40
 # bf16x3 forces against another near-fp32 evaluation of the same function
 # (card vs CPU, per-block vs stacked, fp32 on the same fit): summation and
 # product order, and the splits' ~5e-6 of max|F| against fp32.
@@ -490,10 +502,11 @@ REPLACES.update({
     for name in _CHEB
 })
 # Its fp32 tier: all four on the CUDA-core live-pair kernels; and the
-# dense kernels' fp32 tier (the backward on its CUDA-core live-pair
-# kernel), launched by the dense fp32 slice.
+# exact-filter kernels' fp32 tier, launched by the dense fp32 and pallas
+# fp32 slices.
 REPLACES.update({name + "_fp32": f"{REPLACES[name]} fp32"
-                 for name in [*_CHEB, "dense_cfconv_fwd", "dense_cfconv_bwd"]})
+                 for name in [*_CHEB, "dense_cfconv_fwd", "dense_cfconv_bwd",
+                              "cfconv_fwd", "cfconv_bwd"]})
 SOURCES = {
     "cheb": "flashmd_tpu_torch/csrc/cheb_kernels.cu",
     "dense": "flashmd_tpu_torch/csrc/cfconv_dense_kernels.cu",
@@ -602,13 +615,26 @@ LF_PB = 16
 FFMA_BUILD = {}
 # The fp32 CUDA-core live-pair kernels' template arguments in their mangled
 # names: cheb_rows_ffma_kernel<GX, HAS_CELL>, cheb_gd_ffma_kernel<HAS_CELL>,
-# cheb_gxgd_ffma_kernel<HAS_CELL>, dense_bwd_ffma_kernel<GX>.
+# cheb_gxgd_ffma_kernel<HAS_CELL>, dense_bwd_ffma_kernel<GX>,
+# nbr_bwd_ffma_kernel<GX>; dense_fwd_ffma_kernel (no template arguments).
 FFMA_KERNELS = {
     "rows": re.compile(r"cheb_rows_ffma_kernelILb([01])ELb([01])E"),
     "gd": re.compile(r"cheb_gd_ffma_kernelILb([01])E"),
     "gxgd": re.compile(r"cheb_gxgd_ffma_kernelILb([01])E"),
     "dense": re.compile(r"dense_bwd_ffma_kernelILb([01])E"),
+    "nbr": re.compile(r"nbr_bwd_ffma_kernelILb([01])E"),
+    "dense fwd": re.compile(r"dense_fwd_ffma_kernel"),
 }
+# The fp32 CUDA-core live-pair kernels' labels, as ffma_label gives them.
+FFMA_LABELS = (
+    *(f"cheb_rows_ffma_kernel {kind} {c}" for kind in ("fwd", "gx")
+      for c in ("open", "cell")),
+    *(f"cheb_{kind}_ffma_kernel {c}" for kind in ("gd", "gxgd")
+      for c in ("open", "cell")),
+    *(f"{name}_ffma_kernel {gx}" for name in ("dense_bwd", "nbr_bwd")
+      for gx in ("with gx", "no gx")),
+    "dense_fwd_ffma_kernel",
+)
 
 
 def ffma_label(name):
@@ -618,10 +644,13 @@ def ffma_label(name):
     if m:
         return (f"cheb_rows_ffma_kernel {'gx' if m.group(1) == '1' else 'fwd'}"
                 f" {'cell' if m.group(2) == '1' else 'open'}")
-    m = FFMA_KERNELS["dense"].search(name)
-    if m:
-        return (f"dense_bwd_ffma_kernel "
-                f"{'with gx' if m.group(1) == '1' else 'no gx'}")
+    for kind in ("dense", "nbr"):
+        m = FFMA_KERNELS[kind].search(name)
+        if m:
+            return (f"{kind}_bwd_ffma_kernel "
+                    f"{'with gx' if m.group(1) == '1' else 'no gx'}")
+    if FFMA_KERNELS["dense fwd"].search(name):
+        return "dense_fwd_ffma_kernel"
     for kind in ("gd", "gxgd"):
         m = FFMA_KERNELS[kind].search(name)
         if m:
@@ -631,10 +660,11 @@ def ffma_label(name):
 
 
 def ffma_kernel_report(log):
-    """{label: (registers, spill stores, spill loads)} of the ten fp32
-    CUDA-core live-pair instantiations (cheb fwd, gx, gd, gx+gd; open,
-    cell; the dense backward with and without gx), printed; fails if one
-    is missing."""
+    """{label: (registers, spill stores, spill loads)} of the thirteen fp32
+    CUDA-core live-pair instantiations (FFMA_LABELS: cheb fwd, gx, gd,
+    gx+gd, open and cell; the dense and the neighbour-matrix backward with
+    and without gx; the dense forward), printed; fails if one is
+    missing."""
     seen = {}
     for line in ptxas_summary(log):
         label = ffma_label(line.split(":")[0])
@@ -643,17 +673,8 @@ def ffma_kernel_report(log):
             st, ld = map(int, re.search(r"spill (\d+)/(\d+) B",
                                         line).groups())
             seen[label] = (regs, st, ld)
-    for kind in ("fwd", "gx"):
-        for c in ("open", "cell"):
-            check(f"cheb_rows_ffma_kernel {kind} {c}" in seen,
-                  f"cheb_rows_ffma_kernel {kind} {c}: not built")
-    for kind in ("gd", "gxgd"):
-        for c in ("open", "cell"):
-            check(f"cheb_{kind}_ffma_kernel {c}" in seen,
-                  f"cheb_{kind}_ffma_kernel {c}: not built")
-    for gx in ("with gx", "no gx"):
-        check(f"dense_bwd_ffma_kernel {gx}" in seen,
-              f"dense_bwd_ffma_kernel {gx}: not built")
+    for label in FFMA_LABELS:
+        check(label in seen, f"{label}: not built")
     for label, (regs, st, ld) in sorted(seen.items()):
         print(f"build: fp32 kernel {label}: {regs} regs, spill {st}/{ld} B")
     FFMA_BUILD.update(seen)
@@ -1042,17 +1063,15 @@ def executed_pairs(per_row):
 
 
 def live_counts(pos, rcut):
-    """(ordered pairs i != j with d_ij < rcut, pair chunks of the fp32
-    forward's 4 x 16 tiling that hold one, all chunks, pairs the live-pair
-    kernels (bf16 forward and backward, fp32 backward) execute: each work
-    item's live pairs in 16-pair tiles), whole batch."""
+    """(ordered pairs i != j with d_ij < rcut, pairs the live-pair kernels
+    (forward and backward, bf16 and fp32) execute: each work item's live
+    pairs in 16-pair tiles), whole batch."""
     a = pos.shape[1]
     rel = pos[:, None, :, :] - pos[:, :, None, :]
     d = torch.sqrt(torch.sum(rel * rel, dim=-1))
     eye = torch.eye(a, dtype=torch.bool, device=pos.device)
     live = (d < rcut) & ~eye
-    return (int(live.sum()), *live_chunks(live),
-            executed_pairs(live.sum(dim=2)))
+    return int(live.sum()), executed_pairs(live.sum(dim=2))
 
 
 def phase_dense_kernels(ff, pos, dev):
@@ -1072,33 +1091,31 @@ def phase_dense_kernels(ff, pos, dev):
     r, f = w[0].shape
     x = torch.randn(s, a, f, generator=gen, device=dev)
     g = torch.randn(s, a, f, generator=gen, device=dev)
-    n_live, n_chunks, all_chunks, n_exec = live_counts(pos, rcut)
+    n_live, n_exec = live_counts(pos, rcut)
     n_all = s * a * (a - 1)
     mlp = r * f + f * f
     fwd_pair, bwd_pair = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
     nogx_pair = bwd_pair - 3 * f
     wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
-    smem = [load().dense_cfconv_smem_bytes(b) for b in range(6)]
+    smem = [load().dense_cfconv_smem_bytes(b) for b in range(8)]
     print(f"kernels: dense shapes S={s} A={a} F={f} R={r} rcut={rcut}; "
-          f"dynamic shared memory per block fwd fp32 {smem[0]} B bf16 "
+          f"dynamic shared memory per block fwd fp32 (CUDA cores) {smem[0]} "
+          f"B ({smem[6]} warps of {smem[7]} B beside "
+          f"{smem[0] - smem[6] * smem[7]} B of float32 weights) bf16 "
           f"(tensor cores) {smem[3]} B, bwd fp32 (CUDA cores) {smem[1]} B "
-          f"({smem[4]} warps of {smem[5]} B beside "
-          f"{smem[1] - smem[4] * smem[5]} B of float32 weights) bf16 "
-          f"(tensor cores) {smem[2]} B; live pairs (d < rc) {n_live} of "
-          f"{n_all} ({n_live / n_all:.4f}); pairs run by the live-pair "
-          f"kernels (bf16 fwd and bwd, fp32 bwd: 16-pair tiles per "
-          f"{ITEM_ROWS}-row work item) {n_exec} ({n_exec / n_live:.4f} x "
-          f"live, {n_exec / n_all:.4f} of all); live 4x16 chunks (fp32 fwd) "
-          f"{n_chunks} of {all_chunks} ({n_chunks / all_chunks:.4f}); FLOP "
-          f"per pair fwd {fwd_pair} bwd {bwd_pair} (no gx {nogx_pair}); "
-          f"all-pairs FLOP fwd {n_all * fwd_pair:.4e} bwd "
-          f"{n_all * bwd_pair:.4e}; FLOP run on live chunks (64 pairs each, "
-          f"fp32 fwd) {64 * n_chunks * fwd_pair:.4e}; on the pairs run "
-          f"(bwd) {n_exec * bwd_pair:.4e}")
+          f"({smem[4]} warps of {smem[5]} B) bf16 (tensor cores) {smem[2]} "
+          f"B; live pairs (d < rc) {n_live} of {n_all} "
+          f"({n_live / n_all:.4f}); pairs run by the live-pair kernels (fwd "
+          f"and bwd, bf16 and fp32: 16-pair tiles per {ITEM_ROWS}-row work "
+          f"item) {n_exec} ({n_exec / n_live:.4f} x live, "
+          f"{n_exec / n_all:.4f} of all); FLOP per pair fwd {fwd_pair} bwd "
+          f"{bwd_pair} (no gx {nogx_pair}); all-pairs FLOP fwd "
+          f"{n_all * fwd_pair:.4e} bwd {n_all * bwd_pair:.4e}; on the pairs "
+          f"run fwd {n_exec * fwd_pair:.4e} bwd {n_exec * bwd_pair:.4e}")
 
-    def bwd_note(gx):
-        regs = FFMA_BUILD.get(f"dense_bwd_ffma_kernel {gx}")
-        return (f"pairs run {n_exec} of {n_all}; dense_bwd_ffma_kernel {gx}: "
+    def note(kernel):
+        regs = FFMA_BUILD.get(kernel)
+        return (f"pairs run {n_exec} of {n_all}; {kernel}: "
                 + (f"{regs[0]} regs, spill {regs[1]}/{regs[2]} B" if regs
                    else "registers not read"))
 
@@ -1108,6 +1125,7 @@ def phase_dense_kernels(ff, pos, dev):
             lambda p: cd.dense_cfconv_fwd(pos, x, *w, rcut, p),
             lambda p: cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, p),
             float(n_live * fwd_pair), 4 * (s * a * 3 + 2 * s * a * f) + wbytes,
+            fp32_note=note("dense_fwd_ffma_kernel"), repeat=True,
         ),
         "dense_cfconv_bwd": compare_and_time(
             "dense_cfconv_bwd",
@@ -1115,7 +1133,7 @@ def phase_dense_kernels(ff, pos, dev):
             lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p),
             float(n_live * bwd_pair),
             4 * (2 * s * a * 3 + 3 * s * a * f) + wbytes,
-            fp32_note=bwd_note("with gx"), repeat=True,
+            fp32_note=note("dense_bwd_ffma_kernel with gx"), repeat=True,
         ),
     }
     # Block 1's variant: gpos only (gx is None on both sides).
@@ -1126,8 +1144,8 @@ def phase_dense_kernels(ff, pos, dev):
         lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p,
                                             need_gx=False)[0],
         float(n_live * nogx_pair), 4 * (2 * s * a * 3 + 2 * s * a * f) + wbytes,
-        label="dense_cfconv_bwd (no gx)", fp32_note=bwd_note("no gx"),
-        repeat=True,
+        label="dense_cfconv_bwd (no gx)",
+        fp32_note=note("dense_bwd_ffma_kernel no gx"), repeat=True,
     )
     bwd = stats["dense_cfconv_bwd"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], no_gx["max_abs_err"])
@@ -1136,10 +1154,10 @@ def phase_dense_kernels(ff, pos, dev):
 
 def nbr_slot_counts(pos, nbr, rcut):
     """(live slots, slots of the 4x16 chunks with a live slot, which the
-    fp32 forward and backward's first pass execute, slots the bf16 forward
-    and backward's first pass execute: each work item's live slots in
-    16-slot tiles, and the bf16 backward's gx pass: each item's live
-    incoming slots in 16-slot tiles), whole batch."""
+    fp32 forward executes, slots the live-slot kernels (the bf16 forward,
+    the backward's first pass at bf16 and fp32) execute: each work item's
+    live slots in 16-slot tiles, and the bf16 backward's gx pass: each
+    item's live incoming slots in 16-slot tiles), whole batch."""
     s, a = pos.shape[:2]
     b = torch.arange(s, device=pos.device)[:, None, None]
     rel = pos[b, nbr.idx.long()] - pos[:, :, None, :]
@@ -1189,18 +1207,26 @@ def phase_nbr_kernels(ff, pos, dev):
           f"{smem[3]} B, bwd fp32 {smem[1]} B, bwd bf16 (tensor cores) "
           f"first pass {smem[2]} B gx pass {smem[3]} B; list slots "
           f"{n_list}, live slots (d < rc) {n_live} of {s * a * k} "
-          f"({n_live / (s * a * k):.4f}); executed slots: fp32 fwd and bwd "
-          f"(4x16 chunks with a live slot) {n_rows}, bf16 (16-slot tiles "
-          f"per {ITEM_ROWS}-row work item) fwd and bwd first pass {n_exec} "
-          f"({n_exec / n_live:.4f} x live), bwd gx pass {n_exec_gx} "
-          f"({n_exec_gx / n_live:.4f} x live); FLOP per slot fwd {fwd_slot} "
-          f"bwd {bwd_slot} (no gx {nogx_slot}); live-slot FLOP fwd "
-          f"{n_live * fwd_slot:.4e} bwd {n_live * bwd_slot:.4e}; executed "
-          f"FLOP fwd fp32 {n_rows * fwd_slot:.4e} bf16 "
+          f"({n_live / (s * a * k):.4f}); executed slots: fp32 fwd (4x16 "
+          f"chunks with a live slot) {n_rows}, 16-slot tiles per "
+          f"{ITEM_ROWS}-row work item (bf16 fwd, bwd first pass at bf16 and "
+          f"fp32) {n_exec} ({n_exec / n_live:.4f} x live), bf16 bwd gx pass "
+          f"{n_exec_gx} ({n_exec_gx / n_live:.4f} x live); FLOP per slot fwd "
+          f"{fwd_slot} bwd {bwd_slot} (no gx {nogx_slot}); live-slot FLOP "
+          f"fwd {n_live * fwd_slot:.4e} bwd {n_live * bwd_slot:.4e}; "
+          f"executed FLOP fwd fp32 {n_rows * fwd_slot:.4e} bf16 "
           f"{n_exec * fwd_slot:.4e}, bwd fp32 (pass 1 + gx pass) "
-          f"{n_rows * nogx_slot + n_live * 3 * f:.4e}, bwd bf16 (pass 1 + gx "
+          f"{n_exec * nogx_slot + n_live * 3 * f:.4e}, bwd bf16 (pass 1 + gx "
           f"pass) {n_exec * nogx_slot + n_exec_gx * fwd_slot:.4e}; "
           f"neighbour build + source CSR {build_ms:.4f} ms")
+
+    def note(gx):
+        regs = FFMA_BUILD.get(f"nbr_bwd_ffma_kernel {gx}")
+        return (f"slots run {n_exec} of {s * a * k} (first pass); "
+                f"nbr_bwd_ffma_kernel {gx}: "
+                + (f"{regs[0]} regs, spill {regs[1]}/{regs[2]} B" if regs
+                   else "registers not read"))
+
     csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
     stats = {
         "cfconv_fwd": compare_and_time(
@@ -1218,6 +1244,7 @@ def phase_nbr_kernels(ff, pos, dev):
                                           rcut, p),
             float(n_live * bwd_slot),
             4 * (2 * s * a * 3 + 3 * s * a * f) + lbytes + csr_bytes + wbytes,
+            fp32_note=note("with gx"), repeat=True,
         ),
     }
     no_gx = compare_and_time(
@@ -1228,7 +1255,7 @@ def phase_nbr_kernels(ff, pos, dev):
                                       p, need_gx=False)[0],
         float(n_live * nogx_slot),
         4 * (2 * s * a * 3 + 2 * s * a * f) + lbytes + csr_bytes + wbytes,
-        label="cfconv_bwd (no gx)",
+        label="cfconv_bwd (no gx)", fp32_note=note("no gx"), repeat=True,
     )
     bwd = stats["cfconv_bwd"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], no_gx["max_abs_err"])
@@ -1245,14 +1272,15 @@ def phase_nbr_kernels(ff, pos, dev):
         out_k = cf.cfconv_fwd(pos, over.idx, over.mask, x, *w, rcut, prec)
         out_p = cf.cfconv_fwd_plain(pos, over.idx, over.mask, x, *w, rcut,
                                     prec)
-        gpos_k, gx_k = cf.cfconv_bwd(pos, over.idx, over.mask,
-                                     over.csr_offsets, over.csr_slots, x, g,
-                                     *w, rcut, prec)
+        ocsr = (over.idx, over.mask, over.csr_offsets, over.csr_slots)
+        gpos_k, gx_k = cf.cfconv_bwd(pos, *ocsr, x, g, *w, rcut, prec)
+        gpos_n, _ = cf.cfconv_bwd(pos, *ocsr, x, g, *w, rcut, prec,
+                                  need_gx=False)
         gpos_p, gx_p = cf.cfconv_bwd_plain(pos, over.idx, over.mask, x, g,
                                            *w, rcut, prec)
         torch.cuda.synchronize()
         pairs = (("fwd", out_k, out_p), ("gpos", gpos_k, gpos_p),
-                 ("gx", gx_k, gx_p))
+                 ("gx", gx_k, gx_p), ("gpos (no gx)", gpos_n, gpos_p))
         rel = {name: float((k_ - p_).abs().max() / p_.abs().max())
                for name, k_, p_ in pairs}
         lim_f = BOUNDS[("cfconv_fwd", prec)]
@@ -1260,8 +1288,10 @@ def phase_nbr_kernels(ff, pos, dev):
         print(f"kernels: cfconv overflowed list (capacity "
               f"{OVERFLOW_CAPACITY}, n_max {n_max}) {prec} max|k-p|/max|p|: "
               f"fwd {rel['fwd']:.3e} (bound {lim_f:.0e}), bwd gpos "
-              f"{rel['gpos']:.3e} gx {rel['gx']:.3e} (bound {lim_b:.0e})")
-        check(rel["fwd"] <= lim_f and max(rel["gpos"], rel["gx"]) <= lim_b,
+              f"{rel['gpos']:.3e} gx {rel['gx']:.3e}, without gx gpos "
+              f"{rel['gpos (no gx)']:.3e} (bound {lim_b:.0e})")
+        check(rel["fwd"] <= lim_f
+              and max(rel["gpos"], rel["gx"], rel["gpos (no gx)"]) <= lim_b,
               f"cfconv {prec} on the overflowed list: kernel and twin "
               "disagree")
     return stats, no_gx["ms"]
@@ -2162,7 +2192,7 @@ def phase_dense_fp32_slice(cfgs, dev, bf16_tp, smi):
           f"unexpected dense fp32 config {ff.schnet_config}")
     n_evals = DENSE_FP32_STEPS + 1
     ck.reset_launch_counts()
-    with counting_twins(dense=True) as twins:
+    with counting_twins("dense") as twins:
         counts, _, sim = run_slice(
             "dense fp32", ff, cfgs, dev, DENSE_FP32_STEPS, SAVE_INTERVAL, cd,
             {"dense_cfconv_fwd": 3 * n_evals,
@@ -2176,6 +2206,42 @@ def phase_dense_fp32_slice(cfgs, dev, bf16_tp, smi):
           f"beside the bf16 dense slice's {bf16_tp:.1f} in this run (ratio "
           f"{tp / bf16_tp:.4f}), on {smi}")
     profile_steps(sim, dev, PROFILE_STEPS, "dense fp32")
+    return {k + "_fp32": v for k, v in counts.items()}
+
+
+def phase_pallas_fp32_slice(cfgs, dev, bf16_tp, smi):
+    """cgschnet_1enh_like(precision="fp32", message_passing="pallas") at the
+    slice's shapes (K from the zoo rule, skin 1.0, the list rebuilt every
+    step), gptq None: PALLAS_FP32_STEPS BAOAB steps with cfconv_fwd 3 and
+    cfconv_bwd 3 per force evaluation (every cheb and dense counter 0) and
+    no twin call, the throughput beside the bf16 pallas slice's, a profiler
+    window. Returns the launch counts under the fp32 keys."""
+    from flashmd_tpu_torch.ops import cfconv as cf
+
+    ff, _ = _force_fields(dev, BATCH, message_passing="pallas",
+                          precision="fp32")
+    check((ff.schnet_config.precision, ff.schnet_config.message_passing)
+          == ("fp32", "pallas"),
+          f"unexpected pallas fp32 config {ff.schnet_config}")
+    n_evals = PALLAS_FP32_STEPS + 1
+    AllKernels.reset_launch_counts()
+    with counting_twins("pallas") as twins:
+        counts, _, sim = run_slice(
+            "pallas fp32", ff, cfgs, dev, PALLAS_FP32_STEPS, SAVE_INTERVAL,
+            cf, {"cfconv_fwd": 3 * n_evals, "cfconv_bwd": 3 * n_evals}, smi,
+            gptq=None)
+    check(not any(twins.values()), f"pallas fp32: twin calls {twins}")
+    others = {k: v for k, v in AllKernels.launch_counts().items()
+              if k not in counts}
+    check(not any(others.values()), f"pallas fp32: other launches {others}")
+    tp = sim.get_throughput_metrics()["throughput"]
+    print(f"pallas fp32: second-half throughput {tp:.1f} timestep*mol/s "
+          f"({PALLAS_FP32_STEPS} steps, K {ff.neighbor_capacity}, skin "
+          f"{sim.neighbor_skin}, rebuild every "
+          f"{sim.neighbor_rebuild_interval} step(s), twin calls 0, every "
+          f"cheb and dense counter 0) beside the bf16 pallas slice's "
+          f"{bf16_tp:.1f} in this run (ratio {tp / bf16_tp:.4f}), on {smi}")
+    profile_steps(sim, dev, PROFILE_STEPS, "pallas fp32")
     return {k + "_fp32": v for k, v in counts.items()}
 
 
@@ -2810,16 +2876,20 @@ class FrontierLog(logging.Handler):
 
 
 @contextlib.contextmanager
-def counting_twins(dense=False):
-    """Every cheb twin (with ``dense``, every dense twin) counted while the
-    block runs; yields the counts."""
+def counting_twins(kind="cheb"):
+    """Every twin of the cheb (``kind`` "cheb"), dense ("dense") or
+    neighbour-matrix ("pallas") kernels counted while the block runs;
+    yields the counts."""
+    from flashmd_tpu_torch.ops import cfconv as cf
     from flashmd_tpu_torch.ops import cfconv_dense as cd
     from flashmd_tpu_torch.ops import cheb_kernel as ck
 
-    mod = cd if dense else ck
-    names = (("dense_cfconv_fwd_plain", "dense_cfconv_bwd_plain") if dense
-             else ("cheb_conv_fwd_plain", "cheb_conv_bwd_gx_plain",
-                   "cheb_conv_bwd_gd_plain", "cheb_conv_bwd_gxgd_plain"))
+    mod, names = {
+        "cheb": (ck, ("cheb_conv_fwd_plain", "cheb_conv_bwd_gx_plain",
+                      "cheb_conv_bwd_gd_plain", "cheb_conv_bwd_gxgd_plain")),
+        "dense": (cd, ("dense_cfconv_fwd_plain", "dense_cfconv_bwd_plain")),
+        "pallas": (cf, ("cfconv_fwd_plain", "cfconv_bwd_plain")),
+    }[kind]
     counts = dict.fromkeys(names, 0)
     old = {n: getattr(mod, n) for n in names}
 
@@ -4462,7 +4532,9 @@ def main():
           f"+ 2 bwd + 1 bwd (no gx) at the start positions' kernel times = "
           f"{kernel_ms:.3f} ms of {ms_step:.3f} ms/step "
           f"({kernel_ms / ms_step:.3f}); an estimate, not a trace")
+    pallas_tp = sim.get_throughput_metrics()["throughput"]
     profile_steps(sim, dev, PROFILE_STEPS, "pallas")
+    counts.update(phase_pallas_fp32_slice(cfgs, dev, pallas_tp, smi))
     _, ms_step, sim = run_slice("xla", ff_xla, cfgs, dev, STEPS,
                                 SAVE_INTERVAL, AllKernels, AllKernels.zeros(),
                                 smi)
@@ -4521,8 +4593,13 @@ def main():
         phase_host(ff, cfgs, dev, open_tp, smi)
         phase_mesh(smi)
 
-    for name in ("dense_cfconv_fwd", "dense_cfconv_bwd"):
-        stats[name + "_fp32"] = TIER_STATS[name, "fp32"]
+    for name in ("dense_cfconv_fwd", "dense_cfconv_bwd", "cfconv_fwd",
+                 "cfconv_bwd"):
+        st = dict(TIER_STATS[name, "fp32"])
+        no_gx = TIER_STATS.get((name + " (no gx)", "fp32"))
+        if no_gx:
+            st["max_abs_err"] = max(st["max_abs_err"], no_gx["max_abs_err"])
+        stats[name + "_fp32"] = st
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": SOURCES[name.split("_")[0]],

@@ -6,7 +6,7 @@
 // flashmd_tpu/ops/pallas/cfconv_dense.py, batched over S molecules:
 //
 //   dense_cfconv_fwd  <- _fwd_kernel (:126), one launch:
-//     dense_fwd_kernel (fp32), dense_fwd_mma_kernel (bf16):
+//     dense_fwd_ffma_kernel (fp32), dense_fwd_mma_kernel (bf16):
 //                        out[i] = sum_{j != i, j < A} W_ij * cut_ij * x[j]
 //   dense_cfconv_bwd  <- _bwd_kernel (:147), two launches:
 //     dense_bwd_ffma_kernel (fp32), dense_bwd_mma_kernel (bf16):
@@ -25,25 +25,15 @@
 // backward), against a few hundred bytes of input per molecule: they are
 // bound by arithmetic, never by memory. The live pairs (d < rc, i != j;
 // 0.097 of all pairs at the dense slice's start positions) are the only
-// ones that add something. At bf16 both kernels take their products on the
-// tensor cores over those only: a warp compacts its rows' live pairs into a
-// ring and runs them in 16-pair M tiles of mma.m16n8k16 (cfconv_tile.cuh;
-// the kernels' notes below). At fp32 the backward runs the same ring's
-// pairs through register-tiled float32 FMAs on the CUDA cores
-// (dense_bwd_ffma_kernel, bwd_ffma_tile); the fp32 forward does the
-// arithmetic as float32 FMA from shared memory on every 64-pair chunk that
-// holds a live pair:
-//   - the [pairs, F] MLP activations never reach device memory: a block
-//     owns 4 destination rows and walks the source atoms in chunks of 16,
-//     so one chunk is a 64-pair tile whose activations live in registers
-//     (4 pairs x 8 features per thread) and one shared [F, 64] tile;
-//   - w0 and w1 are loaded into shared memory once per block, with padded
-//     row strides so the products read them without bank conflicts;
-//   - a chunk whose 64 pairs all lie at d >= rc (or are masked) adds
-//     exactly zero (cut and dcut vanish there) and is skipped whole.
+// ones that add something, and all four kernels with a filter MLP run
+// those only: a warp compacts its rows' live pairs into a ring and runs
+// them in 16-pair tiles (cfconv_tile.cuh; the kernels' notes below). At
+// bf16 a tile's products are mma.m16n8k16 on the tensor cores; at fp32
+// register-tiled float32 FMAs on the CUDA cores (8 pairs x 8 columns a
+// lane), with w0 and w1 staged as float32 once per block (101 KB), so the
+// [pairs, F] activations never reach device memory.
 //
-// Determinism: every block (the backward and the bf16 forward: every warp)
-// owns its output rows. W and
+// Determinism: every warp owns its work item's output rows. W and
 // cut depend only on d_ij, which is bitwise symmetric, so gx[i] is the
 // forward with x replaced by g. The reference adds gd_ij to row j across
 // grid steps; here the first kernel writes gd [S, A, A] (36 MB at S = 128,
@@ -63,111 +53,47 @@
 
 namespace {
 
-// Dynamic shared memory, in floats.
-constexpr int FWD_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + COLS * F;
 constexpr int GPOS_ROWS = THREADS / 32;  // one warp per row of gpos
 
-// Forward at fp32. Grid: (row tiles of ROWS, molecules). Thread (pg, fg)
-// holds pairs p0 = 4 pg .. p0 + 3 (row pg / 4, columns 4 (pg % 4) + i) and
-// features fg + 16 c.
-__global__ void __launch_bounds__(THREADS, 1)
-dense_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ x,
-                 const float* __restrict__ w0, const float* __restrict__ b0,
-                 const float* __restrict__ w1,
-                 const float* __restrict__ offset,
-                 const float* __restrict__ coeff_p, float* __restrict__ out,
-                 int A, int R, float rcut, float arg_scale,
-                 float dcut_scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* w0_s = smem;                  // [RMAX][LDW]
-  float* w1_s = w0_s + RMAX * LDW;     // [F][LDW]
-  float* rbf_s = w1_s + F * LDW;       // [RMAX][LDA]
-  float* a_s = rbf_s + RMAX * LDA;     // [F][LDA]
-  float* in_s = a_s + F * LDA;         // [COLS][F]
-  __shared__ float b0_s[F], off_s[RMAX];
-  __shared__ float pr_s[ROWS][3], pc_s[COLS][3], d_s[NP], cut_s[NP];
-
-  const int s = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS;
-  const int tid = threadIdx.x;
-  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg;
-  pos += (size_t)s * A * 3;
-  x += (size_t)s * A * F;
-  out += (size_t)s * A * F;
-  const float coeff = *coeff_p;
-
-  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
-  if (tid < ROWS * 3) {
-    int r = tid / 3, c = tid % 3;
-    pr_s[r][c] = r0 + r < A ? pos[(r0 + r) * 3 + c] : 0.0f;
-  }
-  float acc[FPT];
-#pragma unroll
-  for (int c = 0; c < FPT; ++c) acc[c] = 0.0f;
-
-  for (int j0 = 0; j0 < A; j0 += COLS) {
-    __syncthreads();  // the previous chunk is done with every tile
-    if (tid < COLS * 3) {
-      int jj = tid / 3, c = tid % 3;
-      pc_s[jj][c] = j0 + jj < A ? pos[(j0 + jj) * 3 + c] : 0.0f;
-    }
-    for (int e = tid; e < COLS * F; e += THREADS) {
-      int j = j0 + e / F;
-      in_s[e] = j < A ? x[(size_t)j * F + e % F] : 0.0f;
-    }
-    __syncthreads();
-    bool live = false;
-    if (tid < NP) {
-      int i = r0 + tid / COLS, j = j0 + tid % COLS;
-      float d, cut, dcut, rel[3];
-      live = pair_geom(pr_s[tid / COLS], pc_s[tid % COLS],
-                       i < A && j < A && i != j, rcut, arg_scale, dcut_scale,
-                       d, cut, dcut, rel);
-      d_s[tid] = d;
-      cut_s[tid] = cut;
-    }
-    if (!__syncthreads_or(live)) continue;  // the chunk adds exactly zero
-
-    for (int e = tid; e < R * NP; e += THREADS) {
-      int r = e / NP, p = e % NP;
-      float dr = d_s[p] - off_s[r];
-      rbf_s[r * LDA + p] = expf(coeff * (dr * dr)) * cut_s[p];
-    }
-    __syncthreads();
-    float t[4][FPT] = {};
-    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, t);
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) {
-      int f = fg + 16 * c;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) t[i][c] = tanhf(t[i][c] + b0_s[f]);
-      store4(a_s + f * LDA + p0, t, c);
-    }
-    __syncthreads();
-    float w[4][FPT] = {};
-    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int p = p0 + i;
-      float cutp = cut_s[p];
-      const float* xin = in_s + (p % COLS) * F + fg;
-#pragma unroll
-      for (int c = 0; c < FPT; ++c) acc[c] += (w[i][c] * cutp) * xin[16 * c];
-    }
-  }
-
-  // Row sums over the 4 column groups of each row, in order.
-  __syncthreads();
-  float* red = a_s;  // [16 pair groups][F]
-#pragma unroll
-  for (int c = 0; c < FPT; ++c) red[pg * F + fg + 16 * c] = acc[c];
-  __syncthreads();
-  for (int e = tid; e < ROWS * F; e += THREADS) {
-    int rr = e / F, f = e % F;
-    if (r0 + rr >= A) continue;
-    const float* q = red + rr * 4 * F + f;
-    out[(size_t)(r0 + rr) * F + f] = ((q[0] + q[F]) + q[2 * F]) + q[3 * F];
-  }
+// Forward at fp32, on the CUDA cores: out of a work item's rows.
+//
+// Replaces _fwd_kernel (flashmd_tpu/ops/pallas/cfconv_dense.py:126) at
+// fp32, as dense_fwd_mma_kernel does at bf16. Bound: operations, per live
+// pair 2 (R F + F F) FLOP of the two products (+ 3 F elementwise) at the
+// 67 TFLOP/s float32 peak: 0.5976 ms at the dense slice's start (871,318
+// live pairs, R = 50, F = 128).
+//
+// Design: the backward's ring and tile with two of its four products
+// (fwd_items<false> over each row's A partners): a persistent grid stages
+// w0 and w1 as float32 once per block (101 KB); each of its FF_WARPS warps
+// owns work items of DM_RW rows, scans their partners 32 at a time and
+// pushes the live ones (d < rc, i != j, in range), in row-major order,
+// into its ring. Every DF_TILE = 16 entries are one tile (fwd_ffma_tile):
+// a0 and W as register-tiled float32 FMAs (8 pairs x 8 columns a lane),
+// tanhf and expf at the twin's places, then out_i += (W cut) x_j in ring
+// order into the item's out rows, which its warp owns. Without the float32
+// a0 and the two transposed products of the backward, one activation tile
+// a warp serves rbf, a0 and W cut in turn, so more warps share an SM.
+__global__ void __launch_bounds__(FF_WARPS * 32, 1)
+dense_fwd_ffma_kernel(const float* __restrict__ pos,
+                      const float* __restrict__ x,
+                      const float* __restrict__ w0,
+                      const float* __restrict__ b0,
+                      const float* __restrict__ w1,
+                      const float* __restrict__ offset,
+                      const float* __restrict__ coeff_p,
+                      float* __restrict__ out, int S, int A, int R,
+                      float rcut, float arg_scale, float dcut_scale) {
+  extern __shared__ float4 ffma_smem4[];
+  fwd_items<false>(
+      ffma_smem4, pos, x, w0, b0, w1, offset, coeff_p, out, S, A, R, rcut,
+      arg_scale, dcut_scale, [=](int, int) { return make_int2(0, A); },
+      [=](int, const float* ps, int i, int e, int& j) {
+        j = e;
+        float d, cut, dcut, rel[3];
+        return pair_geom(ps + i * 3, ps + j * 3, j != i, rcut, arg_scale,
+                         dcut_scale, d, cut, dcut, rel);
+      });
 }
 
 // Backward, pass 1 at fp32, on the CUDA cores: gd of every ordered pair of
@@ -207,14 +133,11 @@ dense_bwd_ffma_kernel(const float* __restrict__ pos,
                       int A, int R, float rcut, float arg_scale,
                       float dcut_scale) {
   extern __shared__ float4 ffma_smem4[];
-  float* w0_s = reinterpret_cast<float*>(ffma_smem4);  // [RMAX][DF_LDW]
-  float* w1_s = w0_s + RMAX * DF_LDW;                  // [F][DF_LDW]
-  float* b0_s = w1_s + F * DF_LDW;                     // [F]
-  float* off_s = b0_s + F;                             // [RMAX]
-  stage_weights_f32(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
-  __syncthreads();
+  const float *w0_s, *w1_s, *b0_s, *off_s;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* act_s = off_s + RMAX + warp * DF_WARP_FLOATS;  // [DF_TILE][F]
+  float* act_s = stage_ffma_smem(ffma_smem4, w0, b0, w1, offset, R, w0_s,
+                                 w1_s, b0_s, off_s) +
+                 warp * DF_WARP_FLOATS;                 // [DF_TILE][F]
   float* buf_s = act_s + DF_TILE * F;                   // [DF_TILE][F]
   float* gx_s = buf_s + DF_TILE * F;                    // [DM_RW][F]
   float* pd_s = gx_s + DM_RW * F;                       // [DF_TILE][4]
@@ -250,15 +173,17 @@ dense_bwd_ffma_kernel(const float* __restrict__ pos,
         }
         tail = ring_push(ring, tail, live, (rr << 16) | j, lane);
         for (; tail - head >= DF_TILE; head += DF_TILE)
-          bwd_ffma_tile<GX>(ring, head, DF_TILE, r0, ps, A, xs, gs, act_s,
-                            buf_s, pd_s, gx_s, gds, w0_s, w1_s, b0_s, off_s,
-                            R, coeff, rcut, arg_scale, dcut_scale, lane);
+          bwd_ffma_tile<GX, false>(ring, head, DF_TILE, r0, ps, nullptr, A,
+                                   xs, gs, act_s, buf_s, pd_s, gx_s, gds,
+                                   nullptr, w0_s, w1_s, b0_s, off_s, R,
+                                   coeff, rcut, arg_scale, dcut_scale, lane);
       }
     }
     if (tail > head)
-      bwd_ffma_tile<GX>(ring, head, tail - head, r0, ps, A, xs, gs, act_s,
-                        buf_s, pd_s, gx_s, gds, w0_s, w1_s, b0_s, off_s, R,
-                        coeff, rcut, arg_scale, dcut_scale, lane);
+      bwd_ffma_tile<GX, false>(ring, head, tail - head, r0, ps, nullptr, A,
+                               xs, gs, act_s, buf_s, pd_s, gx_s, gds, nullptr,
+                               w0_s, w1_s, b0_s, off_s, R, coeff, rcut,
+                               arg_scale, dcut_scale, lane);
     if (GX) {
       float* gxs = gx + (size_t)s * A * F;
       for (int e = 4 * lane; e < DM_RW * F; e += 128) {
@@ -380,7 +305,7 @@ dense_bwd_mma_kernel(const float* __restrict__ pos,
 }
 
 // Forward at bf16, on the tensor cores: out of a work item's rows. The
-// ring of the backward with two of its four products (fwd_mma_items over
+// ring of the backward with two of its four products (fwd_items<true> over
 // each row's A partners): the rows' live pairs (d < rc, i != j) in 16-pair
 // tiles, a0 and W on the tensor cores, out_i += (W cut) x_j in ring order
 // into the item's out rows, which its warp owns. Without the float32 a0 that
@@ -397,7 +322,7 @@ dense_fwd_mma_kernel(const float* __restrict__ pos,
                      float* __restrict__ out, int S, int A, int R, float rcut,
                      float arg_scale, float dcut_scale) {
   extern __shared__ float4 mma_smem4[];
-  fwd_mma_items(
+  fwd_items<true>(
       mma_smem4, pos, x, w0, b0, w1, offset, coeff_p, out, S, A, R, rcut,
       arg_scale, dcut_scale, [=](int, int) { return make_int2(0, A); },
       [=](int, const float* ps, int i, int e, int& j) {
@@ -464,16 +389,15 @@ int dense_cfconv_fwd(const float* pos, const float* x, const float* w0,
   if (!sizes_ok(S, A, Fdim, R)) return (int)cudaErrorInvalidValue;
   float arg_scale = (float)(PI / (double)rcut);
   float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
-  void* args[] = {&pos, &x,  &w0,   &b0,        &w1,        &offset, &coeff,
-                  &out, &A,  &R,    &rcut,      &arg_scale, &dcut_scale};
+  void* args[] = {&pos, &x, &w0, &b0,   &w1,        &offset,    &coeff,
+                  &out, &S, &A,  &R,    &rcut,      &arg_scale, &dcut_scale};
+  const int n_items = S * ((A + DM_RW - 1) / DM_RW);
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) {
-    void* margs[] = {&pos,  &x, &w0, &b0,   &w1,        &offset,    &coeff,
-                     &out, &S, &A,  &R,    &rcut,      &arg_scale, &dcut_scale};
+  if (bf16)
     return (int)launch_persistent(dense_fwd_mma_kernel, FW_WARPS, FW_SMEM,
-                                  S * ((A + DM_RW - 1) / DM_RW), st, margs);
-  }
-  return (int)launch(dense_fwd_kernel, FWD_FLOATS, S, A, st, args);
+                                  n_items, st, args);
+  return (int)launch_persistent(dense_fwd_ffma_kernel, FF_WARPS, FF_SMEM,
+                                n_items, st, args);
 }
 
 // gx may be null: then it is not computed (the block's input is
@@ -510,18 +434,20 @@ int dense_cfconv_bwd(const float* pos, const float* x, const float* g,
 }
 
 // Dynamic shared memory per block, in bytes: of the forward at fp32 (kind
-// 0) or at bf16 (3, tensor cores), of the backward's first pass at fp32 (1,
-// CUDA cores) or at bf16 (2, tensor cores). Kind 4: the fp32 backward's
-// warps per block; 5: its bytes per warp (the rest of kind 1 is the
-// staged float32 weights).
+// 0, CUDA cores) or at bf16 (3, tensor cores), of the backward's first pass
+// at fp32 (1, CUDA cores) or at bf16 (2, tensor cores). Kind 4: the fp32
+// backward's warps per block; 5: its bytes per warp (the rest of kind 1 is
+// the staged float32 weights); 6 and 7: the same of the fp32 forward.
 int dense_cfconv_smem_bytes(int kind) {
   switch (kind) {
-    case 0: return (int)sizeof(float) * FWD_FLOATS;
+    case 0: return FF_SMEM;
     case 1: return DF_SMEM;
     case 2: return DM_SMEM;
     case 3: return FW_SMEM;
     case 4: return DF_WARPS;
     case 5: return (int)sizeof(float) * DF_WARP_FLOATS;
+    case 6: return FF_WARPS;
+    case 7: return (int)sizeof(float) * FF_WARP_FLOATS;
     default: return -1;
   }
 }

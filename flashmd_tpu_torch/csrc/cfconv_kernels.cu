@@ -10,12 +10,11 @@
 //     nbr_fwd_mma_kernel (bf16):
 //                  out[i] = sum_{k: mask} W_ik * cut_ik * x[idx[i, k]]
 //   cfconv_bwd  <- _bwd_kernel (:163), two or three launches:
-//     bwd_kernel (fp32), nbr_bwd_mma_kernel (bf16):
+//     nbr_bwd_ffma_kernel (fp32), nbr_bwd_mma_kernel (bf16):
 //                  gd[i, k] = d(g_i . out_i)/d d_ik for every slot (one MLP
 //                  backward on the cotangent g_i x_j cut, row-owned); at
-//                  fp32, when gx is asked for, bwd_kernel also stores W_ik
-//                  of every slot of a live chunk into a [S, A, K, F]
-//                  workspace
+//                  fp32, when gx is asked for, the first pass also stores
+//                  W_ik of every live slot into a [S, A, K, F] workspace
 //     gpos_kernel: gpos[a] = -sum_k gd[a, k] u_ak
 //                            + sum_{(i, k): idx[i, k] = a} gd[i, k] u_ik
 //     gx_kernel (fp32), nbr_gx_mma_kernel (bf16), only when gx is asked
@@ -29,24 +28,24 @@
 // What bounds them on the H100: every live slot runs the two-layer filter
 // MLP, R*F + F*F = 22,784 multiply-adds at R = 50, F = 128 (twice that in
 // the backward's first pass), against a few hundred bytes of input per slot:
-// they are bound by arithmetic. At bf16 every kernel with a filter MLP runs
-// on the tensor cores over the live slots only (mask set and d < rc): the
-// forward and the backward's first pass are the dense kernels' ring over
-// each row's K slots, the backward's gx pass the forward's two products
-// over each atom's incoming live slots of the source CSR, with W computed
-// again instead of stored (the kernels' notes below). At fp32, conv_kernel
-// and the backward do the arithmetic as float32 FMA from shared memory on
-// CUDA cores, with the tile of the dense kernels; the fp32 gx_kernel does
-// no MLP: it reads W back (512 B per live slot) and is bound by memory.
-// What the CUDA-core design does about the bounds:
+// they are bound by arithmetic. Every kernel with a filter MLP but the fp32
+// forward runs over the live slots only (mask set and d < rc): the forward
+// and the backward's first pass are the dense kernels' ring over each row's
+// K slots (16-slot tiles on the tensor cores at bf16, register-tiled
+// float32 FMAs on the CUDA cores at fp32), the bf16 backward's gx pass the
+// forward's two products over each atom's incoming live slots of the
+// source CSR, with W computed again instead of stored (the kernels' notes
+// below). The fp32 gx_kernel does no MLP: it reads W back (512 B per live
+// slot) and is bound by memory; it skips each dead incoming slot after its
+// geometry and reads W and g rows of the live ones as whole 512 B lines.
+// The fp32 forward (conv_kernel) does the arithmetic as float32 FMA from
+// shared memory on the CUDA cores:
 //   - the [slots, F] MLP activations never reach device memory: a block owns
 //     4 rows and walks 16 of each row's entries per chunk, so one chunk is a
 //     64-slot tile held in registers and one shared [F, 64] tile; the 64
 //     partner feature rows are gathered into shared memory per chunk;
 //   - a chunk none of whose 64 slots is live (masked, or d >= rc) adds
-//     exactly zero (cut and dcut vanish there) and is skipped whole;
-//   - gx_kernel skips each dead incoming slot after its geometry and reads
-//     W and g rows of the live ones as whole 512 B lines.
+//     exactly zero (cut and dcut vanish there) and is skipped whole.
 // The list is sorted nearest first when it is built, but between Verlet
 // rebuilds atoms move, and it keeps slots out to rc + skin: a row's live
 // slots need not come first, so every kernel looks at all K slots.
@@ -77,7 +76,6 @@ namespace {
 
 // Dynamic shared memory, in floats.
 constexpr int CONV_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + NP * F;
-constexpr int BWD_FLOATS = W_FLOATS + 2 * F * LDA + NP * F + ROWS * F;
 constexpr int GPOS_ROWS = THREADS / 32;  // one warp per row of gpos
 
 // Slot e of flat row `row`: its partner atom (local index), or -1 where
@@ -196,175 +194,106 @@ conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
   }
 }
 
-// Backward, first pass at fp32: recompute the forward chunk, then gd of
-// every slot of this block's rows into gd [S, A, K] (zero where the slot is
-// masked or dead) and, with GX, W of every slot of a live chunk into wbuf
-// [S, A, K, F]. Same grid and thread layout as conv_kernel.
+// Backward, first pass at fp32, on the CUDA cores: gd of every slot of a
+// work item's rows (zero where masked or dead) and, with GX, W of every
+// live slot into wbuf [S, A, K, F] for the gx pass.
+//
+// Replaces _bwd_kernel (flashmd_tpu/ops/pallas/cfconv.py:163) at fp32,
+// with gpos_kernel and gx_kernel, as nbr_bwd_mma_kernel does at bf16.
+// Bound: operations, per live slot 4 (R F + F F) FLOP of the four products
+// (+ 12 F + 6 R elementwise) at the 67 TFLOP/s float32 peak, 1.2091 ms at
+// the pallas slice's start (871,318 live slots, R = 50, F = 128); W of the
+// live slots is 446 MB, 0.13 ms at 3.35 TB/s.
+//
+// Design: dense_bwd_ffma_kernel over the rows' K slots instead of their A
+// partners, as nbr_bwd_mma_kernel is dense_bwd_mma_kernel's. A persistent
+// grid stages w0 and w1 as float32 once per block (101 KB); each of its
+// DF_WARPS = 4 warps owns work items of DM_RW rows and votes each row's
+// slots 32 at a time, all K of them (between Verlet rebuilds a live slot
+// may follow a dead one), a slot live where its mask is set and d < rc (a
+// masked slot holds the row's own index, at d = 1e-6, so the mask decides;
+// idx is read for the masked-in slots only), writing gd = 0 for the
+// others; the live slots' entries (row - r0) << 16 | k run in 16-slot
+// tiles through bwd_ffma_tile's four float32 products (NBR: the partner is
+// idx[row][k]), gd landing at the flat slot (s A + i) K + k. With GX the
+// tile also stores W of each live slot (not W cut) at that slot of wbuf:
+// gx_kernel reads W back for exactly the slots whose pair_geom (p_a - p_i,
+// bitwise the first pass's d and cut) says live, which is this vote's live
+// set, so it never reads a slot that was not written. Storing W is cheaper
+// than computing it again over the source CSR (nbr_gx_mma_kernel's route
+// at bf16): the forward's two products again, 0.59 ms at the float32 peak,
+// against 2 x 446 MB of W written and read back (tools/bwd_variants.py
+// cfconv_bwd_fp32, pallas slice, H100 80GB HBM3, 700 W: stored 5.223 ms
+// with gx and 1,535 MB of workspace, recomputed 6.459 ms and none). No
+// atomics; every sum in a fixed order.
 template <bool GX>
-__global__ void __launch_bounds__(THREADS, 1)
-bwd_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
-           const unsigned char* __restrict__ mask,
-           const float* __restrict__ x, const float* __restrict__ g,
-           const float* __restrict__ w0, const float* __restrict__ b0,
-           const float* __restrict__ w1, const float* __restrict__ offset,
-           const float* __restrict__ coeff_p, float* __restrict__ gd,
-           float* __restrict__ wbuf, int A, int K, int R, float rcut,
-           float arg_scale, float dcut_scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* w0_s = smem;               // [RMAX][LDW]
-  float* w1_s = w0_s + RMAX * LDW;  // [F][LDW]
-  float* a_s = w1_s + F * LDW;      // [F][LDA]: a0, then gt0
-  float* p_s = a_s + F * LDA;       // [F][LDA]: rbf, then g_i x_j cut
-  float* xc_s = p_s + F * LDA;      // [NP][F]: the partners' x
-  float* gr_s = xc_s + NP * F;      // [ROWS][F]: the rows' g
-  __shared__ float b0_s[F], off_s[RMAX];
-  __shared__ float pr_s[ROWS][3];
-  __shared__ float d_s[NP], cut_s[NP], dcut_s[NP];
-  __shared__ int part_s[NP];
-
-  const int s = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS;
-  const int base = s * A;
-  const int tid = threadIdx.x;
-  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg, row = pg >> 2;
+__global__ void __launch_bounds__(DF_WARPS * 32, 1)
+nbr_bwd_ffma_kernel(const float* __restrict__ pos,
+                    const int* __restrict__ idx,
+                    const unsigned char* __restrict__ mask,
+                    const float* __restrict__ x, const float* __restrict__ g,
+                    const float* __restrict__ w0,
+                    const float* __restrict__ b0,
+                    const float* __restrict__ w1,
+                    const float* __restrict__ offset,
+                    const float* __restrict__ coeff_p,
+                    float* __restrict__ gd, float* __restrict__ wbuf, int S,
+                    int A, int K, int R, float rcut, float arg_scale,
+                    float dcut_scale) {
+  extern __shared__ float4 ffma_smem4[];
+  const float *w0_s, *w1_s, *b0_s, *off_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* act_s = stage_ffma_smem(ffma_smem4, w0, b0, w1, offset, R, w0_s,
+                                 w1_s, b0_s, off_s) +
+                 warp * DF_WARP_FLOATS;                    // [DF_TILE][F]
+  float* buf_s = act_s + DF_TILE * F;                      // [DF_TILE][F]
+  // the dense backward's per-warp area; its gx rows stay unused here
+  float* pd_s = buf_s + DF_TILE * F;                       // [DF_TILE][4]
+  int* ring = reinterpret_cast<int*>(pd_s + 4 * DF_TILE);  // [DM_RING]
   const float coeff = *coeff_p;
 
-  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
-  if (tid < ROWS * 3) {
-    int r = tid / 3, c = tid % 3;
-    pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
-  }
-  for (int e = tid; e < ROWS * F; e += THREADS) {
-    int i = r0 + e / F;
-    gr_s[e] = i < A ? g[(size_t)(base + i) * F + e % F] : 0.0f;
-  }
+  const int n_groups = (A + DM_RW - 1) / DM_RW;
+  const int n_items = S * n_groups;
+  for (int item = blockIdx.x * DF_WARPS + warp; item < n_items;
+       item += gridDim.x * DF_WARPS) {
+    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
+    const float* ps = pos + (size_t)s * A * 3;
+    const float* xs = x + (size_t)s * A * F;
+    const float* gs = g + (size_t)s * A * F;
+    const int* is = idx + (size_t)s * A * K;
+    const unsigned char* ms = mask + (size_t)s * A * K;
+    float* gds = gd + (size_t)s * A * K;
+    float* wbs = GX ? wbuf + (size_t)s * A * K * F : nullptr;
 
-  for (int e0 = 0; e0 < K; e0 += COLS) {
-    __syncthreads();
-    bool live = false;
-    // This thread's slot of the chunk (tid < NP), -1 past the rows or K.
-    int slot = -1;
-    if (tid < NP) {
-      int rr = tid / COLS, e = e0 + tid % COLS;
-      int part = -1;
-      if (r0 + rr < A && e < K) {
-        slot = (base + r0 + rr) * K + e;
-        part = partner_of(idx, mask, base + r0 + rr, e, K);
-      }
-      part_s[tid] = part;
-      float pc[3] = {0.0f, 0.0f, 0.0f};
-      if (part >= 0) {
-        const float* q = pos + (size_t)(base + part) * 3;
-        pc[0] = q[0];
-        pc[1] = q[1];
-        pc[2] = q[2];
-      }
-      float d, cut, dcut, rel[3];
-      live = pair_geom(pr_s[rr], pc, part >= 0, rcut, arg_scale, dcut_scale,
-                       d, cut, dcut, rel);
-      d_s[tid] = d;
-      cut_s[tid] = cut;
-      dcut_s[tid] = dcut;
-    }
-    if (!__syncthreads_or(live)) {  // the chunk adds exactly zero
-      if (slot >= 0) gd[slot] = 0.0f;
-      continue;
-    }
-
-    for (int e = tid; e < NP * F; e += THREADS) {
-      int part = part_s[e / F];
-      xc_s[e] = part >= 0 ? x[(size_t)(base + part) * F + e % F] : 0.0f;
-    }
-    float* rbf_s = p_s;
-    for (int e = tid; e < R * NP; e += THREADS) {
-      int r = e / NP, p = e % NP;
-      float dr = d_s[p] - off_s[r];
-      rbf_s[r * LDA + p] = expf(coeff * (dr * dr)) * cut_s[p];
-    }
-    __syncthreads();
-    // Forward recompute; a0 stays in registers unrounded for gt0.
-    float a0[4][FPT] = {};
-    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, a0);
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) {
-      int f = fg + 16 * c;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a0[i][c] = tanhf(a0[i][c] + b0_s[f]);
-      store4(a_s + f * LDA + p0, a0, c);
-    }
-    __syncthreads();  // rbf reads done, a0 tile complete
-    float w[4][FPT] = {};
-    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
-    if (GX && r0 + row < A) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int e = e0 + (p0 + i) % COLS;
-        if (e >= K) continue;
-        float* dst = wbuf + (size_t)((base + r0 + row) * K + e) * F + fg;
-#pragma unroll
-        for (int c = 0; c < FPT; ++c) dst[16 * c] = w[i][c];
-      }
-    }
-
-    // s_cut = sum_f g_i W x_j and the MLP cotangent g_i x_j cut (into w's
-    // registers; reference gw, cfconv.py:204).
-    float sc[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int p = p0 + i;
-      float cutp = cut_s[p];
-      const float* xj = xc_s + p * F + fg;
-      const float* gi = gr_s + row * F + fg;
-      sc[i] = 0.0f;
-#pragma unroll
-      for (int c = 0; c < FPT; ++c) {
-        float xjv = xj[16 * c], giv = gi[16 * c];
-        sc[i] += (giv * w[i][c]) * xjv;
-        w[i][c] = (giv * xjv) * cutp;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) store4(p_s + (fg + 16 * c) * LDA + p0, w, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i] = sum16(sc[i]);
-    __syncthreads();  // cotangent tile complete; a0 tile reads done
-
-    // ga0 = (g_i x_j cut) @ w1^T, gt0 = ga0 (1 - a0^2) -> a_s.
-    float ga[4][FPT] = {};
-    gemm_tile<FPT>(p_s, w1_s + fg * LDW, F, 1, LDW, p0, ga);
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ga[i][c] = ga[i][c] * (1.0f - a0[i][c] * a0[i][c]);
-      store4(a_s + (fg + 16 * c) * LDA + p0, ga, c);
-    }
-    __syncthreads();
-
-    // grbf = gt0 @ w0^T over r = fg + 16 cr, then the distance gradient.
-    float gr[4][4] = {};
-    gemm_tile<4>(a_s, w0_s + fg * LDW, F, 1, LDW, p0, gr);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float dp = d_s[p0 + i];
-      float sg = 0.0f, se = 0.0f;
-#pragma unroll
-      for (int cr = 0; cr < 4; ++cr) {
-        int r = fg + 16 * cr;
-        if (r < R) {
-          float dr = dp - off_s[r];
-          float ge = gr[i][cr] * expf(coeff * (dr * dr));
-          se += ge;
-          sg += ge * dr;
+    int head = 0, tail = 0;
+    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
+      const int i = r0 + rr;
+      const float* pi = ps + i * 3;
+      for (int kb = 0; kb < K; kb += 32) {
+        int k = kb + lane;
+        bool live = false;
+        if (k < K) {
+          int slot = i * K + k;
+          if (ms[slot]) {
+            float d, cut, dcut, rel[3];
+            live = pair_geom(pi, ps + is[slot] * 3, true, rcut, arg_scale,
+                             dcut_scale, d, cut, dcut, rel);
+          }
+          if (!live) gds[slot] = 0.0f;
         }
+        tail = ring_push(ring, tail, live, (rr << 16) | k, lane);
+        for (; tail - head >= DF_TILE; head += DF_TILE)
+          bwd_ffma_tile<GX, true>(ring, head, DF_TILE, r0, ps, is, K, xs, gs,
+                                  act_s, buf_s, pd_s, nullptr, gds, wbs,
+                                  w0_s, w1_s, b0_s, off_s, R, coeff, rcut,
+                                  arg_scale, dcut_scale, lane);
       }
-      sg = sum16(sg);
-      se = sum16(se);
-      int p = p0 + i, e = e0 + p % COLS;
-      if (fg == 0 && r0 + p / COLS < A && e < K)
-        gd[(base + r0 + p / COLS) * K + e] =
-            cut_s[p] * (2.0f * coeff) * sg + (sc[i] + se) * dcut_s[p];
     }
+    if (tail > head)
+      bwd_ffma_tile<GX, true>(ring, head, tail - head, r0, ps, is, K, xs, gs,
+                              act_s, buf_s, pd_s, nullptr, gds, wbs, w0_s,
+                              w1_s, b0_s, off_s, R, coeff, rcut, arg_scale,
+                              dcut_scale, lane);
   }
 }
 
@@ -543,7 +472,7 @@ nbr_bwd_mma_kernel(const float* __restrict__ pos, const int* __restrict__ idx,
 // of DM_RW atoms; it walks each atom's CSR entries 32 at a time, votes the
 // live ones (d < rc; the CSR holds only mask slots) into the ring as
 // (atom - r0) << 16 | i, and runs them in 16-slot tiles through
-// fwd_mma_items with g in place of x: the forward's two products, and gx_a
+// fwd_items<true> with g in place of x: the forward's two products, and gx_a
 // += (W cut) g_i as a running sum in CSR order. d is that of p_i - p_a,
 // bitwise the first pass's (p_a - p_i negated), so cut carries the same
 // bits and the live slots are the same.
@@ -558,7 +487,7 @@ nbr_gx_mma_kernel(const float* __restrict__ pos,
                   int S, int A, int K, int R, float rcut, float arg_scale,
                   float dcut_scale) {
   extern __shared__ float4 mma_smem4[];
-  fwd_mma_items(
+  fwd_items<true>(
       mma_smem4, pos, g, w0, b0, w1, offset, coeff_p, gx, S, A, R, rcut,
       arg_scale, dcut_scale,
       [=](int s, int a) {
@@ -579,7 +508,7 @@ nbr_gx_mma_kernel(const float* __restrict__ pos,
 // so the mask decides; idx is read for the masked-in slots only), and
 // pushes the live ones as (row - r0) << 16 | idx[row][k]: the partner atom,
 // not the slot, as the forward stores nothing per slot. So the dense
-// forward's items and tile run unchanged (fwd_mma_items over [0, K) with
+// forward's items and tile run unchanged (fwd_items<true> over [0, K) with
 // src = x): 16-slot tiles of the two products, out_i += (W cut) x_j in ring
 // order into the item's out rows, which its warp owns; rows with no live
 // slot stay zero.
@@ -594,7 +523,7 @@ nbr_fwd_mma_kernel(const float* __restrict__ pos, const float* __restrict__ x,
                    int S, int A, int K, int R, float rcut, float arg_scale,
                    float dcut_scale) {
   extern __shared__ float4 mma_smem4[];
-  fwd_mma_items(
+  fwd_items<true>(
       mma_smem4, pos, x, w0, b0, w1, offset, coeff_p, out, S, A, R, rcut,
       arg_scale, dcut_scale, [=](int, int) { return make_int2(0, K); },
       [=](int s, const float* ps, int i, int k, int& j) {
@@ -667,11 +596,12 @@ int cfconv_bwd(const float* pos, const int* idx, const unsigned char* mask,
     err = launch_persistent(nbr_bwd_mma_kernel, DM_WARPS, NB_SMEM, n_items,
                             st, args);
   } else {
-    void* args[] = {&pos,  &idx, &mask, &x, &g, &w0,   &b0,        &w1,
-                    &offset, &coeff, &gd, &wbuf, &A, &K, &R, &rcut,
-                    &arg_scale, &dcut_scale};
-    err = launch(gx ? bwd_kernel<true> : bwd_kernel<false>, BWD_FLOATS, S, A,
-                 st, args);
+    void* args[] = {&pos, &idx, &mask, &x, &g, &w0, &b0, &w1, &offset,
+                    &coeff, &gd, &wbuf, &S, &A, &K, &R, &rcut, &arg_scale,
+                    &dcut_scale};
+    err = launch_persistent(gx ? nbr_bwd_ffma_kernel<true>
+                               : nbr_bwd_ffma_kernel<false>,
+                            DF_WARPS, DF_SMEM, n_items, st, args);
   }
   if (err != cudaSuccess) return (int)err;
   dim3 grid((A + GPOS_ROWS - 1) / GPOS_ROWS, S);
@@ -692,13 +622,18 @@ int cfconv_bwd(const float* pos, const int* idx, const unsigned char* mask,
 }
 
 // Dynamic shared memory per block, in bytes: of the forward at fp32 (kind
-// 0, conv_kernel), of the backward's first pass at fp32 (1) or at bf16 (2,
-// tensor cores), of the forward and of the backward's gx pass at bf16 (3,
-// tensor cores: both run fwd_mma_tile, with the same per-warp areas).
+// 0, conv_kernel), of the backward's first pass at fp32 (1, CUDA cores) or
+// at bf16 (2, tensor cores), of the forward and of the backward's gx pass
+// at bf16 (3, tensor cores: both run fwd_mma_tile, with the same per-warp
+// areas).
 int cfconv_smem_bytes(int kind) {
-  if (kind == 3) return FW_SMEM;
-  if (kind == 2) return NB_SMEM;
-  return (int)sizeof(float) * (kind ? BWD_FLOATS : CONV_FLOATS);
+  switch (kind) {
+    case 0: return (int)sizeof(float) * CONV_FLOATS;
+    case 1: return DF_SMEM;
+    case 2: return NB_SMEM;
+    case 3: return FW_SMEM;
+    default: return -1;
+  }
 }
 
 }  // extern "C"

@@ -1,19 +1,20 @@
 // Device code shared by the exact-filter CFConv kernels of
 // cfconv_dense_kernels.cu (all pairs) and cfconv_kernels.cu (neighbour
-// matrix): the pair geometry; the fp32 CUDA-core kernels' 64-pair tile
-// layout, weight staging and float32-FMA tile product of the filter MLP;
-// and the tensor-core kernels' live-pair rings with their filter-MLP tiles,
+// matrix): the pair geometry; the 64-pair chunk layout, weight staging and
+// float32-FMA tile product of the fp32 neighbour-matrix forward
+// (conv_kernel); the tensor-core kernels' live-pair rings with their
+// filter-MLP tiles,
 // the backward's four products (bwd_mma_tile) and the forward's two
-// (fwd_mma_tile, with the forward-tile kernels' item loop fwd_mma_items);
-// and the fp32 dense backward's live-pair tiles on the CUDA cores
-// (bwd_ffma_tile, on the same rings).
+// (fwd_mma_tile); the fp32 live-pair tiles on the CUDA cores, on the same
+// rings (bwd_ffma_tile, fwd_ffma_tile); and the forward-tile kernels' item
+// loop of both tiers (fwd_items).
 //
-// CUDA-core tile layout: a block of THREADS threads owns ROWS rows and
+// Chunk layout of conv_kernel: a block of THREADS threads owns ROWS rows and
 // walks their partners in chunks of COLS, so one chunk is NP = ROWS * COLS
 // pairs (p = row * COLS + col). Thread (pg = tid / 16, fg = tid % 16) holds
 // pairs p0 = 4 pg .. p0 + 3 (all of row pg / 4) and features fg + 16 c.
 //
-// Precision tiers: the CUDA-core tile computes float32 only; the bf16 tier
+// Precision tiers: the CUDA-core tiles compute float32 only; the bf16 tier
 // runs on the tensor-core tiles below, with the operands of the products
 // rounded to bf16 (round to nearest even) and everything else float32.
 
@@ -583,71 +584,6 @@ __device__ __forceinline__ void fwd_mma_tile(
   __syncwarp();  // the ring and v_s are read before they are written again
 }
 
-// The body of a forward-tile kernel (FW_WARPS warps a block, FW_SMEM bytes
-// of dynamic shared memory at `smem`): w0 and w1 staged once per block;
-// then each warp owns work items of DM_RW rows of one molecule s. For each
-// row i it walks the entries e of span(s, i) = [begin, end), 32 at a time,
-// and vote(s, ps, i, e, j) (ps: the molecule's positions) says whether entry
-// e is live and sets its partner j; the live ones enter the ring as
-// (i - r0) << 16 | j and run through fwd_mma_tile, 16 at a time, then the
-// tail, summing (W cut) src[j] into the item's rows, which are stored to
-// out (rows with no live entry as zeros).
-template <typename Span, typename Vote>
-__device__ __forceinline__ void fwd_mma_items(
-    float4* smem, const float* __restrict__ pos,
-    const float* __restrict__ src, const float* __restrict__ w0,
-    const float* __restrict__ b0, const float* __restrict__ w1,
-    const float* __restrict__ offset, const float* __restrict__ coeff_p,
-    float* __restrict__ out, int S, int A, int R, float rcut,
-    float arg_scale, float dcut_scale, Span span, Vote vote) {
-  const __nv_bfloat16 *w0_b, *w1_b;
-  const float *b0_s, *off_s;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* v_s = stage_mma_smem(smem, w0, b0, w1, offset, R, w0_b, w1_b, b0_s,
-                              off_s) +
-               warp * FW_WARP_FLOATS;                      // [16][DM_VLD]
-  float* out_s = v_s + 16 * DM_VLD;                        // [DM_RW][F]
-  int* ring = reinterpret_cast<int*>(out_s + DM_RW * F);  // [DM_RING]
-  const float coeff = *coeff_p;
-
-  const int n_groups = (A + DM_RW - 1) / DM_RW;
-  const int n_items = S * n_groups;
-  for (int item = blockIdx.x * FW_WARPS + warp; item < n_items;
-       item += gridDim.x * FW_WARPS) {
-    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
-    const float* ps = pos + (size_t)s * A * 3;
-    const float* ss = src + (size_t)s * A * F;
-    for (int e = lane; e < DM_RW * F; e += 32) out_s[e] = 0.0f;
-    __syncwarp();
-
-    int head = 0, tail = 0;
-    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
-      const int2 range = span(s, r0 + rr);
-      for (int eb = range.x; eb < range.y; eb += 32) {
-        int e = eb + lane, j = 0;
-        bool live = e < range.y && vote(s, ps, r0 + rr, e, j);
-        tail = ring_push(ring, tail, live, (rr << 16) | j, lane);
-        for (; tail - head >= 16; head += 16)
-          fwd_mma_tile(ring, head, 16, r0, ps, ss, v_s, out_s, w0_b, w1_b,
-                       b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
-                       lane);
-      }
-    }
-    if (tail > head)
-      fwd_mma_tile(ring, head, tail - head, r0, ps, ss, v_s, out_s, w0_b,
-                   w1_b, b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
-                   lane);
-    float* os = out + (size_t)s * A * F;
-    for (int e = 4 * lane; e < DM_RW * F; e += 128) {
-      int i = r0 + e / F;
-      if (i < A)
-        *reinterpret_cast<float4*>(os + (size_t)i * F + e % F) =
-            *reinterpret_cast<const float4*>(out_s + e);
-    }
-    __syncwarp();  // out_s is read before the next item writes
-  }
-}
-
 // A persistent grid for a kernel of `warps` warps a block and `smem` bytes
 // of dynamic shared memory (one block per SM fits), one warp per work item
 // at a time: a block per SM, or fewer when there are fewer items.
@@ -686,14 +622,14 @@ cudaError_t launch(K kernel, int floats, int S, int A, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
-// The fp32 dense backward's live-pair tiles on the CUDA cores
-// (dense_bwd_ffma_kernel): the tensor-core kernels' ring and work items,
-// with the four filter-MLP products as register-tiled float32 FMAs. A warp
-// takes DF_TILE = 16 ring entries at a time; its activation tiles are
-// pair-major [DF_TILE][F] in its own shared memory, w0 and w1 float32 in
-// the block's, row stride DF_LDW. A product's lane holds DF_PP = 8 pairs
-// x 8 output columns (64 accumulators) and reads, per 4 steps of the
+// The fp32 live-pair tiles on the CUDA cores: the tensor-core kernels' ring
+// and work items, with the filter-MLP products as register-tiled float32
+// FMAs. A warp takes DF_TILE = 16 ring entries at a time; its activation
+// tiles are pair-major [DF_TILE][F] in its own shared memory, w0 and w1
+// float32 in the block's, row stride DF_LDW. A product's lane holds DF_PP =
+// 8 pairs x 8 output columns (64 accumulators) and reads, per 4 steps of the
 // reduction, one float4 of each of its pairs' activations and 8 float4 of
 // weights: 256 FMAs per 16 shared loads. The products with w (a0 = rbf w0,
 // W = a0 w1) take the lane's columns 4 fg + {0..3} and 64 + 4 fg + {0..3}
@@ -701,6 +637,11 @@ cudaError_t launch(K kernel, int floats, int S, int A, cudaStream_t stream,
 // cot w1^T, grbf = gt0 w0^T) take weight rows, read as float4 along the
 // reduction, rows 1 apart in the 8 lanes of a phase, which the stride
 // DF_LDW = F + 4 puts in distinct banks.
+//
+// The forward (fwd_ffma_tile) is the backward's first two products
+// (df_filter) and its gx epilogue (ring_sum) with x in g's place: no a0 kept
+// for (1 - a0^2), no gd, one activation tile a warp. The backward
+// (bwd_ffma_tile) adds the two transposed products and gd.
 
 constexpr int DF_LDW = F + 4;  // float32 weight row stride
 constexpr int DF_PP = 8;       // pairs per lane of a product
@@ -708,19 +649,33 @@ constexpr int DF_TILE = 16;    // pairs per tile
 // floats of the block's staged weights: w0_s [RMAX][DF_LDW], w1_s
 // [F][DF_LDW], b0, offsets
 constexpr int DF_W_FLOATS = (RMAX + F) * DF_LDW + F + RMAX;
-// floats per warp: a0 (then gt0) and the second tile (rbf, W cut, then
-// the cotangent), the item's gx rows, per-pair d, cut, dcut and s_cut,
-// the ring
+// floats per warp of the backward: a0 (then gt0) and the second tile (rbf,
+// W cut, then the cotangent), the item's gx rows, per-pair d, cut, dcut and
+// s_cut, the ring
 constexpr int DF_WARP_FLOATS = 2 * DF_TILE * F + DM_RW * F + 4 * DF_TILE +
                                DM_RING;
-// warps per block: one on each of the SM's four schedulers. The 227 KB a
-// block may hold would take 6, but then two schedulers carry two warps
-// each and set the pace (tools/bwd_variants.py, H100 80GB HBM3, 700 W: 6
-// and 5 warps ran 12 % and 5-8 % slower than 4, 3 warps 27-31 %).
+// warps per block of the backward: one on each of the SM's four
+// schedulers. The 227 KB a block may hold would take 6, but then two
+// schedulers carry two warps each and set the pace (tools/bwd_variants.py,
+// H100 80GB HBM3, 700 W: 6 and 5 warps ran 12 % and 5-8 % slower than 4, 3
+// warps 27-31 %).
 constexpr int DF_WARPS = 4;
 static_assert(4 * (DF_W_FLOATS + DF_WARPS * DF_WARP_FLOATS) <= 232448,
-              "the fp32 dense backward's shared memory");
+              "the fp32 backward's shared memory");
 constexpr int DF_SMEM = 4 * (DF_W_FLOATS + DF_WARPS * DF_WARP_FLOATS);
+// floats per warp of the forward: one tile (rbf, then a0, then W cut), the
+// per-pair d, cut and dcut, the item's out rows, the ring
+constexpr int FF_WARP_FLOATS = DF_TILE * F + 4 * DF_TILE + DM_RW * F +
+                               DM_RING;
+// warps per block of the forward: two on each of the SM's four schedulers
+// (237 registers a thread). Shared memory holds 12 beside the staged
+// weights, but 12 warps cap a thread at 168 registers and spill
+// (tools/bwd_variants.py dense_cfconv_fwd_fp32, dense slice, H100 80GB
+// HBM3, 700 W: 8 warps 1.884 ms, 4 2.146, 6 2.241, 12 2.067).
+constexpr int FF_WARPS = 8;
+static_assert(4 * (DF_W_FLOATS + FF_WARPS * FF_WARP_FLOATS) <= 232448,
+              "the fp32 forward's shared memory");
+constexpr int FF_SMEM = 4 * (DF_W_FLOATS + FF_WARPS * FF_WARP_FLOATS);
 
 // w0 [R, F] -> w0_s [RMAX][DF_LDW] (rows >= R zero), w1 [F, F] -> w1_s
 // [F][DF_LDW], float32; b0 and the offsets (zero past R) as they are.
@@ -737,6 +692,27 @@ __device__ __forceinline__ void stage_weights_f32(
   for (int e = threadIdx.x; e < F; e += blockDim.x) b0_s[e] = b0[e];
   for (int e = threadIdx.x; e < RMAX; e += blockDim.x)
     off_s[e] = e < R ? offset[e] : 0.0f;
+}
+
+// Stages the weights as float32 into the dynamic shared memory `smem`
+// (stage_weights_f32) and returns the start of the per-warp areas behind
+// them.
+__device__ __forceinline__ float* stage_ffma_smem(
+    float4* smem, const float* __restrict__ w0, const float* __restrict__ b0,
+    const float* __restrict__ w1, const float* __restrict__ offset, int R,
+    const float*& w0_s, const float*& w1_s, const float*& b0_s,
+    const float*& off_s) {
+  float* w0_w = reinterpret_cast<float*>(smem);  // [RMAX][DF_LDW]
+  float* w1_w = w0_w + RMAX * DF_LDW;            // [F][DF_LDW]
+  float* b0_w = w1_w + F * DF_LDW;               // [F]
+  float* off_w = b0_w + F;                       // [RMAX]
+  stage_weights_f32(w0, b0, w1, offset, R, w0_w, w1_w, b0_w, off_w);
+  __syncthreads();
+  w0_s = w0_w;
+  w1_s = w1_w;
+  b0_s = b0_w;
+  off_s = off_w;
+  return off_w + RMAX;
 }
 
 // acc[q][c] = sum_{k < K} a[(p0 + q) lda + k] w[k DF_LDW + n_c] (the
@@ -805,33 +781,41 @@ __device__ __forceinline__ void df_colprod(float (&acc)[DF_PP][8],
   }
 }
 
-// One tile of the fp32 filter-MLP backward: the ring's entries head ..
-// head + nv - 1 (nv <= DF_TILE) of the item at row r0 (pointers at its
-// molecule), each (row - r0) << 16 | j. In order: per pair d, cut, dcut;
-// rbf = exp(coeff (d - offset)^2) cut; a0 = tanh(rbf w0 + b0) (tanhf, kept
-// in act_s); W = a0 w1; s_cut = sum_f (g_i W) x_j, the cotangent (g_i x_j)
-// cut and, with GX, W cut staged for gx; ga0 = cot w1^T and gt0 = ga0 (1 -
-// a0^2) in place of a0; grbf = gt0 w0^T over the two halves of F (lanes 16
-// apart, added), then se = sum_r grbf e_r, sg = sum_r grbf e_r (d -
-// offset_r) (expf) and gd = cut 2 coeff sg + (s_cut + se) dcut. With GX,
-// gx_s rows += (W cut) g_j, pairs in ring order (a running sum per row
-// segment, lane l on features 4 l .. 4 l + 3). Padding entries (nv <= t)
-// carry cut = 0: their products are zero and never stored.
-template <bool GX>
-__device__ __forceinline__ void bwd_ffma_tile(
-    const int* ring, int head, int nv, int r0, const float* pos, int A,
-    const float* x, const float* g, float* act_s, float* buf_s, float* pd_s,
-    float* gx_s, float* gd, const float* w0_s, const float* w1_s,
-    const float* b0_s, const float* off_s, int R, float coeff, float rcut,
-    float arg_scale, float dcut_scale, int lane) {
-  const int pg = lane >> 4, fg = lane & 15, p0 = DF_PP * pg;
+// The partner atom of ring entry `ent` of the item at row r0: its low 16
+// bits (dense, and every forward ring), or with NBR the atom in slot
+// ent & 0xffff of row r0 + (ent >> 16) of the list idx (row stride
+// `stride` = K).
+template <bool NBR>
+__device__ __forceinline__ int df_partner(const int* idx, int stride, int r0,
+                                          int ent) {
+  return NBR ? idx[(r0 + (ent >> 16)) * stride + (ent & 0xffff)]
+             : ent & 0xffff;
+}
+
+// The first two products of a tile: the ring's entries head .. head + nv -
+// 1 (nv <= DF_TILE) of the item at row r0 (pointers at its molecule), each
+// (row - r0) << 16 | e (df_partner). Per pair d, cut, dcut into pd_s; rbf =
+// exp(coeff (d - offset)^2) cut into rbf_s [DF_TILE][R rounded up to 4];
+// a0 = tanh(rbf w0 + b0) (tanhf) into act_s [DF_TILE][F], which may be
+// rbf_s; W = a0 w1 in acc, the lane's pairs p0 + q x columns 4 fg + c (c <
+// 4), 64 + 4 fg + c - 4 (df_rowprod). Padding entries (nv <= t) carry cut =
+// 0: their products are zero and never stored.
+template <bool NBR>
+__device__ __forceinline__ void df_filter(
+    float (&acc)[DF_PP][8], const int* ring, int head, int nv, int r0,
+    const float* pos, const int* idx, int stride, float* rbf_s, float* act_s,
+    float* pd_s, const float* w0_s, const float* w1_s, const float* b0_s,
+    const float* off_s, int R, float coeff, float rcut, float arg_scale,
+    float dcut_scale, int lane) {
+  const int fg = lane & 15, p0 = DF_PP * (lane >> 4);
   if (lane < DF_TILE) {
     float d = rcut, cut = 0.0f, dcut = 0.0f;
     if (lane < nv) {
       int ent = ring[(head + lane) & (DM_RING - 1)];
       float rel[3];
-      pair_geom(pos + (r0 + (ent >> 16)) * 3, pos + (ent & 0xffff) * 3, true,
-                rcut, arg_scale, dcut_scale, d, cut, dcut, rel);
+      pair_geom(pos + (r0 + (ent >> 16)) * 3,
+                pos + df_partner<NBR>(idx, stride, r0, ent) * 3, true, rcut,
+                arg_scale, dcut_scale, d, cut, dcut, rel);
     }
     pd_s[4 * lane] = d;
     pd_s[4 * lane + 1] = cut;
@@ -846,19 +830,22 @@ __device__ __forceinline__ void bwd_ffma_tile(
       float dr = pd_s[4 * p] - off_s[r];
       v = expf(coeff * (dr * dr)) * pd_s[4 * p + 1];
     }
-    buf_s[p * rp + r] = v;
+    rbf_s[p * rp + r] = v;
   }
   __syncwarp();
 
   // a0 = tanh(rbf @ w0 + b0) -> act_s
-  float acc[DF_PP][8];
-  df_rowprod(acc, buf_s, rp, w0_s, rp, p0, fg);
+  df_rowprod(acc, rbf_s, rp, w0_s, rp, p0, fg);
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const float b = b0_s[(c < 4 ? 0 : F / 2) + 4 * fg + (c & 3)];
 #pragma unroll
     for (int q = 0; q < DF_PP; ++q) acc[q][c] = tanhf(acc[q][c] + b);
   }
+  // rbf_s is read before a0 may take its place (the forward); apart, the
+  // backward's a0 stores need no barrier, and one there costs it 2 %
+  // (tools/bwd_variants.py, H100 80GB HBM3, 700 W: 4.770 against 4.660 ms)
+  if (rbf_s == act_s) __syncwarp();
 #pragma unroll
   for (int q = 0; q < DF_PP; ++q) {
     float* o = act_s + (p0 + q) * F + 4 * fg;
@@ -869,8 +856,103 @@ __device__ __forceinline__ void bwd_ffma_tile(
   }
   __syncwarp();
 
-  // W = a0 @ w1; s_cut, W cut for gx, and the cotangent in W's registers
+  // W = a0 @ w1
   df_rowprod(acc, act_s, F, w1_s, F, p0, fg);
+}
+
+// out_s rows += v_s[t] src[j_t] for t < nv, the ring's entries head .. in
+// order ((row - r0) << 16 | j_t), v_s pair-major [DF_TILE][F]: a running
+// sum per row segment, lane l on features 4 l .. 4 l + 3 (src rows read
+// coalesced).
+__device__ __forceinline__ void ring_sum(const int* ring, int head, int nv,
+                                         const float* v_s, const float* src,
+                                         float* out_s, int lane) {
+  float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int cur = ring[head & (DM_RING - 1)] >> 16;
+#pragma unroll 1
+  for (int t = 0; t < nv; ++t) {
+    int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
+    if (r != cur) {
+      float4* o = reinterpret_cast<float4*>(out_s + cur * F) + lane;
+      float4 a = *o;
+      *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+      run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      cur = r;
+    }
+    const float4 v = reinterpret_cast<const float4*>(v_s + t * F)[lane];
+    const float4 sp =
+        reinterpret_cast<const float4*>(src + (size_t)(ent & 0xffff) * F)[lane];
+    run.x += __fmul_rn(v.x, sp.x);
+    run.y += __fmul_rn(v.y, sp.y);
+    run.z += __fmul_rn(v.z, sp.z);
+    run.w += __fmul_rn(v.w, sp.w);
+  }
+  float4* o = reinterpret_cast<float4*>(out_s + cur * F) + lane;
+  float4 a = *o;
+  *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+}
+
+// One tile of the fp32 filter-MLP forward: the ring's entries head .. head
+// + nv - 1 (nv <= DF_TILE) of the item at row r0, each (row - r0) << 16 |
+// j. a0 and W (df_filter, rbf and a0 in tile_s), W cut staged in tile_s in
+// a0's place, then out_s rows += (W cut) src_j in ring order (ring_sum).
+__device__ __forceinline__ void fwd_ffma_tile(
+    const int* ring, int head, int nv, int r0, const float* pos,
+    const float* src, float* tile_s, float* pd_s, float* out_s,
+    const float* w0_s, const float* w1_s, const float* b0_s,
+    const float* off_s, int R, float coeff, float rcut, float arg_scale,
+    float dcut_scale, int lane) {
+  const int fg = lane & 15, p0 = DF_PP * (lane >> 4);
+  float acc[DF_PP][8];
+  df_filter<false>(acc, ring, head, nv, r0, pos, nullptr, 0, tile_s, tile_s,
+                   pd_s, w0_s, w1_s, b0_s, off_s, R, coeff, rcut, arg_scale,
+                   dcut_scale, lane);
+  __syncwarp();  // a0 is read before W cut takes its place
+#pragma unroll
+  for (int q = 0; q < DF_PP; ++q) {
+    const float cutp = pd_s[4 * (p0 + q) + 1];
+    float* o = tile_s + (p0 + q) * F + 4 * fg;
+    *reinterpret_cast<float4*>(o) =
+        make_float4(acc[q][0] * cutp, acc[q][1] * cutp, acc[q][2] * cutp,
+                    acc[q][3] * cutp);
+    *reinterpret_cast<float4*>(o + F / 2) =
+        make_float4(acc[q][4] * cutp, acc[q][5] * cutp, acc[q][6] * cutp,
+                    acc[q][7] * cutp);
+  }
+  __syncwarp();
+  ring_sum(ring, head, nv, tile_s, src, out_s, lane);
+  __syncwarp();  // the ring and tile_s are read before they are written again
+}
+
+// One tile of the fp32 filter-MLP backward: the ring's entries head ..
+// head + nv - 1 (nv <= DF_TILE) of the item at row r0 (pointers at its
+// molecule), each (row - r0) << 16 | e, e the partner j (dense) or, with
+// NBR, the slot k of the row, whose partner is idx[row][k]; gd lands at
+// gd[row * stride + e] (stride A dense, K with NBR). In order: d, cut,
+// dcut, rbf, a0 (kept in act_s) and W (df_filter, rbf in buf_s); s_cut =
+// sum_f (g_i W) x_j, the cotangent (g_i x_j) cut and, with GX, W cut staged
+// for gx (dense) or W stored at wbuf[row * stride + e] (NBR: the workspace
+// that the gx pass reads back); ga0 = cot w1^T and gt0 = ga0 (1 - a0^2) in
+// place of a0; grbf = gt0 w0^T over the two halves of F (lanes 16 apart,
+// added), then se = sum_r grbf e_r, sg = sum_r grbf e_r (d - offset_r)
+// (expf) and gd = cut 2 coeff sg + (s_cut + se) dcut. With GX (dense),
+// gx_s rows += (W cut) g_j, pairs in ring order (ring_sum).
+template <bool GX, bool NBR>
+__device__ __forceinline__ void bwd_ffma_tile(
+    const int* ring, int head, int nv, int r0, const float* pos,
+    const int* idx, int stride, const float* x, const float* g, float* act_s,
+    float* buf_s, float* pd_s, float* gx_s, float* gd, float* wbuf,
+    const float* w0_s, const float* w1_s, const float* b0_s,
+    const float* off_s, int R, float coeff, float rcut, float arg_scale,
+    float dcut_scale, int lane) {
+  const int pg = lane >> 4, fg = lane & 15, p0 = DF_PP * pg;
+  float acc[DF_PP][8];
+  df_filter<NBR>(acc, ring, head, nv, r0, pos, idx, stride, buf_s, act_s,
+                 pd_s, w0_s, w1_s, b0_s, off_s, R, coeff, rcut, arg_scale,
+                 dcut_scale, lane);
+
+  // s_cut, W cut for gx or W for the gx pass, and the cotangent in W's
+  // registers
   float sc[DF_PP];
 #pragma unroll
   for (int q = 0; q < DF_PP; ++q) {
@@ -878,7 +960,8 @@ __device__ __forceinline__ void bwd_ffma_tile(
     const int ent = p < nv ? ring[(head + p) & (DM_RING - 1)] : 0;
     const float cutp = pd_s[4 * p + 1];
     const float* gi = g + (size_t)(r0 + (ent >> 16)) * F + 4 * fg;
-    const float* xj = x + (size_t)(ent & 0xffff) * F + 4 * fg;
+    const float* xj =
+        x + (size_t)df_partner<NBR>(idx, stride, r0, ent) * F + 4 * fg;
     const float4 gl = *reinterpret_cast<const float4*>(gi);
     const float4 gh = *reinterpret_cast<const float4*>(gi + F / 2);
     const float4 xl = *reinterpret_cast<const float4*>(xj);
@@ -889,7 +972,7 @@ __device__ __forceinline__ void bwd_ffma_tile(
 #pragma unroll
     for (int c = 0; c < 8; ++c) s += (gv[c] * acc[q][c]) * xv[c];
     sc[q] = s;
-    if (GX) {
+    if (GX && !NBR) {
       float* o = buf_s + p * F + 4 * fg;
       *reinterpret_cast<float4*>(o) =
           make_float4(acc[q][0] * cutp, acc[q][1] * cutp, acc[q][2] * cutp,
@@ -897,6 +980,14 @@ __device__ __forceinline__ void bwd_ffma_tile(
       *reinterpret_cast<float4*>(o + F / 2) =
           make_float4(acc[q][4] * cutp, acc[q][5] * cutp, acc[q][6] * cutp,
                       acc[q][7] * cutp);
+    }
+    if (GX && NBR && p < nv) {
+      float* o = wbuf + ((size_t)(r0 + (ent >> 16)) * stride + (ent & 0xffff))
+                            * F + 4 * fg;
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+      *reinterpret_cast<float4*>(o + F / 2) =
+          make_float4(acc[q][4], acc[q][5], acc[q][6], acc[q][7]);
     }
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[q][c] = (gv[c] * xv[c]) * cutp;
@@ -908,30 +999,8 @@ __device__ __forceinline__ void bwd_ffma_tile(
     for (int q = 0; q < DF_PP; ++q) pd_s[4 * (p0 + q) + 3] = sc[q];
   }
   __syncwarp();
-  if (GX) {
-    float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    int cur = ring[head & (DM_RING - 1)] >> 16;
-#pragma unroll 1
-    for (int t = 0; t < nv; ++t) {
-      int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
-      if (r != cur) {
-        float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;
-        float4 a = *o;
-        *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
-        run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        cur = r;
-      }
-      const float4 v = reinterpret_cast<const float4*>(buf_s + t * F)[lane];
-      const float4 gj =
-          reinterpret_cast<const float4*>(g + (size_t)(ent & 0xffff) * F)[lane];
-      run.x += __fmul_rn(v.x, gj.x);
-      run.y += __fmul_rn(v.y, gj.y);
-      run.z += __fmul_rn(v.z, gj.z);
-      run.w += __fmul_rn(v.w, gj.w);
-    }
-    float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;
-    float4 a = *o;
-    *o = make_float4(a.x + run.x, a.y + run.y, a.z + run.z, a.w + run.w);
+  if (GX && !NBR) {
+    ring_sum(ring, head, nv, buf_s, g, gx_s, lane);
     __syncwarp();
   }
 #pragma unroll
@@ -992,12 +1061,101 @@ __device__ __forceinline__ void bwd_ffma_tile(
     sg += __shfl_xor_sync(0xffffffffu, sg, 16);
     if (rg == 0 && kh == 0 && p < nv) {
       const int ent = ring[(head + p) & (DM_RING - 1)];
-      gd[(size_t)(r0 + (ent >> 16)) * A + (ent & 0xffff)] =
+      gd[(size_t)(r0 + (ent >> 16)) * stride + (ent & 0xffff)] =
           pd_s[4 * p + 1] * (2.0f * coeff) * sg +
           (pd_s[4 * p + 3] + se) * pd_s[4 * p + 2];
     }
   }
   __syncwarp();  // the ring and the tiles are read before they are written
+}
+
+// The body of a forward-tile kernel, on the tensor cores (MMA: FW_WARPS
+// warps a block, FW_SMEM bytes of dynamic shared memory at `smem`, w0 and
+// w1 staged as bf16, fwd_mma_tile) or at fp32 on the CUDA cores (FF_WARPS,
+// FF_SMEM, float32 weights, fwd_ffma_tile): the weights staged once per
+// block; then each warp owns work items of DM_RW rows of one molecule s.
+// For each row i it walks the entries e of span(s, i) = [begin, end), 32 at
+// a time, and vote(s, ps, i, e, j) (ps: the molecule's positions) says
+// whether entry e is live and sets its partner j; the live ones enter the
+// ring as (i - r0) << 16 | j and run through the tile, 16 at a time, then
+// the tail, summing (W cut) src[j] into the item's rows, which are stored
+// to out (rows with no live entry as zeros).
+template <bool MMA, typename Span, typename Vote>
+__device__ __forceinline__ void fwd_items(
+    float4* smem, const float* __restrict__ pos,
+    const float* __restrict__ src, const float* __restrict__ w0,
+    const float* __restrict__ b0, const float* __restrict__ w1,
+    const float* __restrict__ offset, const float* __restrict__ coeff_p,
+    float* __restrict__ out, int S, int A, int R, float rcut,
+    float arg_scale, float dcut_scale, Span span, Vote vote) {
+  constexpr int WARPS = MMA ? FW_WARPS : FF_WARPS;
+  const __nv_bfloat16 *w0_b = nullptr, *w1_b = nullptr;
+  const float *w0_s = nullptr, *w1_s = nullptr, *b0_s, *off_s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float *v_s, *pd_s = nullptr, *out_s;
+  if constexpr (MMA) {
+    v_s = stage_mma_smem(smem, w0, b0, w1, offset, R, w0_b, w1_b, b0_s,
+                         off_s) +
+          warp * FW_WARP_FLOATS;      // [16][DM_VLD]
+    out_s = v_s + 16 * DM_VLD;        // [DM_RW][F]
+  } else {
+    v_s = stage_ffma_smem(smem, w0, b0, w1, offset, R, w0_s, w1_s, b0_s,
+                          off_s) +
+          warp * FF_WARP_FLOATS;      // [DF_TILE][F]
+    pd_s = v_s + DF_TILE * F;         // [DF_TILE][4]
+    out_s = pd_s + 4 * DF_TILE;       // [DM_RW][F]
+  }
+  int* ring = reinterpret_cast<int*>(out_s + DM_RW * F);  // [DM_RING]
+  const float coeff = *coeff_p;
+
+  const int n_groups = (A + DM_RW - 1) / DM_RW;
+  const int n_items = S * n_groups;
+  for (int item = blockIdx.x * WARPS + warp; item < n_items;
+       item += gridDim.x * WARPS) {
+    const int s = item / n_groups, r0 = (item % n_groups) * DM_RW;
+    const float* ps = pos + (size_t)s * A * 3;
+    const float* ss = src + (size_t)s * A * F;
+    for (int e = lane; e < DM_RW * F; e += 32) out_s[e] = 0.0f;
+    __syncwarp();
+
+    int head = 0, tail = 0;
+    for (int rr = 0; rr < DM_RW && r0 + rr < A; ++rr) {
+      const int2 range = span(s, r0 + rr);
+      for (int eb = range.x; eb < range.y; eb += 32) {
+        int e = eb + lane, j = 0;
+        bool live = e < range.y && vote(s, ps, r0 + rr, e, j);
+        tail = ring_push(ring, tail, live, (rr << 16) | j, lane);
+        for (; tail - head >= 16; head += 16) {
+          if constexpr (MMA)
+            fwd_mma_tile(ring, head, 16, r0, ps, ss, v_s, out_s, w0_b, w1_b,
+                         b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
+                         lane);
+          else
+            fwd_ffma_tile(ring, head, 16, r0, ps, ss, v_s, pd_s, out_s, w0_s,
+                          w1_s, b0_s, off_s, R, coeff, rcut, arg_scale,
+                          dcut_scale, lane);
+        }
+      }
+    }
+    if (tail > head) {
+      if constexpr (MMA)
+        fwd_mma_tile(ring, head, tail - head, r0, ps, ss, v_s, out_s, w0_b,
+                     w1_b, b0_s, off_s, R, coeff, rcut, arg_scale, dcut_scale,
+                     lane);
+      else
+        fwd_ffma_tile(ring, head, tail - head, r0, ps, ss, v_s, pd_s, out_s,
+                      w0_s, w1_s, b0_s, off_s, R, coeff, rcut, arg_scale,
+                      dcut_scale, lane);
+    }
+    float* os = out + (size_t)s * A * F;
+    for (int e = 4 * lane; e < DM_RW * F; e += 128) {
+      int i = r0 + e / F;
+      if (i < A)
+        *reinterpret_cast<float4*>(os + (size_t)i * F + e % F) =
+            *reinterpret_cast<const float4*>(out_s + e);
+    }
+    __syncwarp();  // out_s is read before the next item writes
+  }
 }
 
 }  // namespace

@@ -36,9 +36,12 @@ rebuilds the live slots of a row need not be its first). The forward adds
 nothing for the others, the backward writes gd = 0 for them: exact, as
 the twins' MLP products enter only through cut and dcut, which are zero
 there. The backward's gx pass computes W of each live incoming slot again
-over the source CSR, so it needs no [S, A, K, F] workspace; the fp32
-backward stores W there for its gx pass (1.5 GB at S = 128, A = 266,
-K = 88). At fp32 both kernels run float32 tiles on CUDA cores.
+over the source CSR, so it needs no [S, A, K, F] workspace. The fp32
+backward's first pass runs the same live slots through register-tiled
+float32 FMAs on the CUDA cores and stores W of each live slot in that
+workspace (1.5 GB at S = 128, A = 266, K = 88), which its gx pass reads
+back. The fp32 forward runs float32 tiles on every 4 x 16 chunk of slots
+that holds a live one.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each

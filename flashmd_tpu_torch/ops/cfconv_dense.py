@@ -28,13 +28,12 @@ reference's scatter to row j (``gpos_ref[0] +=``, cfconv_dense.py:215)
 from the transpose. This equals the reference up to summation order, with
 the bf16 roundings on the same values.
 
-On the card both bf16 kernels take their filter-MLP products on the
-tensor cores over the live pairs only (d < rc, i != j): the forward its
-two, the backward its four, writing gd = 0 for every other pair. That is
-exact: W cut vanishes with cut, and ``_pair_gd`` is zero wherever cut
-and dcut are. The fp32 backward runs the same live pairs through
-register-tiled float32 FMAs on the CUDA cores; the fp32 forward runs
-float32 tiles on every 64-pair chunk that holds a live pair.
+On the card all four kernels take their filter-MLP products over the
+live pairs only (d < rc, i != j): the forward its two, the backward its
+four, writing gd = 0 for every other pair; at bf16 on the tensor cores,
+at fp32 as register-tiled float32 FMAs on the CUDA cores. That is exact:
+W cut vanishes with cut, and ``_pair_gd`` is zero wherever cut and dcut
+are.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each

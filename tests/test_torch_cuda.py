@@ -1131,6 +1131,57 @@ def test_dense_fp32_bwd_at_the_slice_width(dev):
     for k, r in zip(first, ref):
         assert _rel(k, r) <= BOUNDS["fp32"]["bwd"]
 
+
+@pytest.mark.parametrize("layout", ["spread", "lone"])
+@pytest.mark.parametrize("a", DENSE_ATOMS)
+def test_dense_fp32_fwd_matches_twin(dev, a, layout):
+    """The fp32 live-pair forward (dense_fwd_ffma_kernel) against the fp32
+    twin (1e-5 of max|twin|), two launches bitwise equal; "lone": two
+    clusters with an atom whose row has no live pair, whose out row is
+    exactly zero as the twin's."""
+    pos, x, _, w = _dense_inputs(dev, 2, a, seed=a + 5)
+    if layout == "lone":
+        pos = _lone_atom(_gd_layout(dev, 2, a, "clusters", seed=a))
+    out = cd.dense_cfconv_fwd(pos, x, *w, RCUT, "fp32")
+    again = cd.dense_cfconv_fwd(pos, x, *w, RCUT, "fp32")
+    ref = cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT, "fp32")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+    assert _rel(out, ref) <= BOUNDS["fp32"]["fwd"]
+    if layout == "lone":
+        assert float(ref[:, -1].abs().max()) == 0.0
+        assert float(out[:, -1].abs().max()) == 0.0
+
+
+def test_dense_fp32_fwd_at_the_slice_width(dev):
+    """266 beads at the dense slice's widths (F = 128, R = 50), batch 8,
+    at the spread positions and at half their spacing (rows with more than
+    32 live pairs): within 1e-5 of the twin, three launches bitwise
+    equal."""
+    pos, x, _, w = _dense_inputs(dev, 8, 266, seed=11)
+    for p in (pos, _dense_layout(dev, pos, 266, "dense")):
+        first = cd.dense_cfconv_fwd(p, x, *w, RCUT, "fp32")
+        ref = cd.dense_cfconv_fwd_plain(p, x, *w, RCUT, "fp32")
+        for _ in range(2):
+            assert torch.equal(cd.dense_cfconv_fwd(p, x, *w, RCUT, "fp32"),
+                               first)
+        assert _rel(first, ref) <= BOUNDS["fp32"]["fwd"]
+
+
+def test_dense_fp32_fwd_bitwise_reproducible(dev):
+    """The fp32 forward, bitwise equal over launches and batch orders: a
+    molecule's rows do not depend on which warp or block runs them."""
+    pos, x, _, w = _dense_inputs(dev, 3, 90, seed=2)
+    first = cd.dense_cfconv_fwd(pos, x, *w, RCUT, "fp32")
+    for _ in range(3):
+        assert torch.equal(cd.dense_cfconv_fwd(pos, x, *w, RCUT, "fp32"),
+                           first)
+    flip = torch.flip
+    out = cd.dense_cfconv_fwd(flip(pos, [0]).contiguous(),
+                              flip(x, [0]).contiguous(), *w, RCUT, "fp32")
+    assert torch.equal(flip(out, [0]), first)
+
+
 def test_dense_wrappers_refuse_what_kernels_do_not_take(dev):
     pos, x, g, w = _dense_inputs(dev, 2, 20)
     with pytest.raises(ValueError):
@@ -1291,6 +1342,117 @@ def test_nbr_tensor_core_bwd_matches_twin(dev, a, capacity, stale):
                 continue
             assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
             assert _rel(k, r) <= BOUNDS["bf16"]["bwd"]
+
+
+def _nbr_gd(pos, nbr, x, g, w, need_gx):
+    """The fp32 backward's [S, A, K] gd and [S, A, K, F] W workspaces after
+    one launch (both filled with NaN before it), and its (gpos, gx)."""
+    from flashmd_tpu_torch.ops._build import load
+    from flashmd_tpu_torch.ops._launch import _ptr, _stream
+
+    s, a, f = x.shape
+    k = nbr.idx.shape[-1]
+    gd = torch.full((s, a, k), float("nan"), device=pos.device)
+    wbuf = (torch.full((s, a, k, f), float("nan"), device=pos.device)
+            if need_gx else None)
+    gpos = torch.empty_like(pos)
+    gx = torch.empty_like(g) if need_gx else None
+    rc = load().cfconv_bwd(
+        _ptr(pos), _ptr(nbr.idx), _ptr(nbr.mask), _ptr(nbr.csr_offsets),
+        _ptr(nbr.csr_slots), _ptr(x), _ptr(g), *(_ptr(t) for t in w),
+        _ptr(gd), _ptr(wbuf), _ptr(gpos), _ptr(gx), s, a, k, f,
+        w[0].shape[0], RCUT, 0, _stream())
+    assert rc == 0
+    return gd, wbuf, gpos, gx
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("capacity", [96, 32])
+@pytest.mark.parametrize("a", NBR_ATOMS)
+def test_nbr_fp32_bwd_matches_twin(dev, a, capacity, stale):
+    """The fp32 live-slot backward (nbr_bwd_ffma_kernel, then gpos_kernel
+    and gx_kernel): gpos and gx, with and without gx, against the fp32
+    twin (1e-4 of max|twin|), two launches bitwise equal (_nbr_tc_case:
+    symmetric and overflowed lists, fresh and stale); gd exactly 0 on
+    every masked slot and every slot at d >= rc and within 1e-4 of the
+    twin's on the live ones; W written at exactly the live slots (the
+    ones gx_kernel reads), within 1e-4 of the twin's W there, and nowhere
+    else (NaN left)."""
+    pos, x, g, w, nbr = _nbr_tc_case(dev, a, capacity, stale)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    for need_gx in (True, False):
+        out = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "fp32",
+                            need_gx=need_gx)
+        again = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "fp32",
+                              need_gx=need_gx)
+        ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, RCUT,
+                                  "fp32", need_gx=need_gx)
+        torch.cuda.synchronize()
+        assert (out[1] is None) == (ref[1] is None) == (not need_gx)
+        for k, k2, r in zip(out, again, ref):
+            if r is None:
+                continue
+            assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
+            assert _rel(k, r) <= BOUNDS["fp32"]["bwd"]
+        gd, wbuf, gpos, _ = _nbr_gd(pos, nbr, x, g, w, need_gx)
+        torch.cuda.synchronize()
+        assert torch.equal(gpos, out[0])
+        geometry = cf._slot_geometry(pos, nbr.idx, nbr.mask, w[3], w[4],
+                                     RCUT)
+        live = nbr.mask & (geometry[1] < RCUT)
+        assert bool((gd[~live] == 0.0).all())
+        gd_ref, w_ref = cf._slot_gd(geometry, cf._gather_rows(x, nbr.idx),
+                                    g[:, :, None, :], *w, "fp32")
+        assert bool(torch.isfinite(gd).all())
+        assert _rel(gd, gd_ref) <= BOUNDS["fp32"]["bwd"]
+        if need_gx:
+            assert bool(torch.isfinite(wbuf[live]).all())
+            assert bool(torch.isnan(wbuf[~live]).all())
+            assert _rel(wbuf[live], w_ref[live]) <= BOUNDS["fp32"]["bwd"]
+
+
+def test_nbr_fp32_bwd_at_the_slice_width(dev):
+    """266 beads at the pallas slice's widths (F = 128, R = 50), batch 8,
+    on a fresh list at capacity 96 and on an overflowed one (32): gpos and
+    gx within 1e-4 of the twin, with and without gx, three launches
+    bitwise equal."""
+    pos, x, g, w, _ = _nbr_tc_case(dev, 266, 96, False)
+    for capacity in (96, 32):
+        nbr = batched_radius_neighbor_matrix(pos, RCUT + 1.0, capacity)
+        csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+        for need_gx in (True, False):
+            first = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "fp32",
+                                  need_gx=need_gx)
+            ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w,
+                                      RCUT, "fp32", need_gx=need_gx)
+            for _ in range(2):
+                again = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "fp32",
+                                      need_gx=need_gx)
+                for k, k2 in zip(first, again):
+                    assert k is None or torch.equal(k, k2)
+            for k, r in zip(first, ref):
+                if r is not None:
+                    assert _rel(k, r) <= BOUNDS["fp32"]["bwd"]
+
+
+def test_nbr_fp32_bwd_bitwise_reproducible(dev):
+    """The fp32 backward, bitwise equal over launches and batch orders."""
+    pos, x, g, w, nbr = _nbr_case(dev, 3, 90, 32, seed=1)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    first = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "fp32")
+    for _ in range(3):
+        again = cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "fp32")
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+    flip = torch.flip
+    rev = batched_radius_neighbor_matrix(flip(pos, [0]).contiguous(),
+                                         RCUT + 1.0, 32)
+    gpos, gx = cf.cfconv_bwd(flip(pos, [0]).contiguous(), rev.idx, rev.mask,
+                             rev.csr_offsets, rev.csr_slots,
+                             flip(x, [0]).contiguous(),
+                             flip(g, [0]).contiguous(), *w, RCUT, "fp32")
+    assert torch.equal(flip(gpos, [0]), first[0])
+    assert torch.equal(flip(gx, [0]), first[1])
 
 
 def test_nbr_bwd_bitwise_reproducible(dev):

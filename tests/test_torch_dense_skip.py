@@ -22,7 +22,11 @@ writes gd = 0 on every other pair and sums gx per row in ring order
 equals ``dense_cfconv_bwd_plain`` at fp32 within 1e-5 of max|twin|, and
 the reference's ``_dense_cfconv_bwd`` (Pallas, interpreted) within 1e-5,
 with gx and without, on the clusters with a lone atom (a row with no
-live pair).
+live pair). ``dense_cfconv_fwd`` at fp32 runs the backward's ring and
+first two products: its emulation (each row's live pairs in column order,
+out summed per row in ring order) equals ``dense_cfconv_fwd_plain`` at
+fp32 and the reference's ``_dense_cfconv_fwd`` (Pallas, interpreted)
+within 1e-5 of max|twin|, on the lone-atom clusters, ragged and padded.
 """
 
 import jax.numpy as jnp
@@ -30,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from flashmd_tpu.ops.pallas.cfconv_dense import _dense_cfconv_bwd
+from flashmd_tpu.ops.pallas.cfconv_dense import (_dense_cfconv_bwd,
+                                                 _dense_cfconv_fwd)
 from flashmd_tpu_torch.ops import cfconv_dense as cd
 from flashmd_tpu_torch.ops._launch import _op
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
@@ -253,3 +258,51 @@ def test_ring_order_matches_the_twin_and_pallas(need_gx):
         assert _close(gpos[s].numpy(), jgpos)
         if need_gx:
             assert _close(gx[s].numpy(), jgx)
+
+
+def _ring_order_fwd(pos, x, w0, b0, w1, offset, coeff):
+    """The fp32 forward kernel's pairs in plain float32: each row's live
+    pairs (d < rc, i != j), in column order (the ring's), run the two
+    products; out of the row is the sum of (W cut) x_j in ring order, zero
+    for a row with no live pair."""
+    _, d, cut, _, _, rbf = cd._pair_geometry(pos, offset, coeff, RCUT)
+    n_s, a, f = x.shape
+    live = (d < RCUT) & ~torch.eye(a, dtype=torch.bool)
+    out = torch.zeros_like(x)
+    for s in range(n_s):
+        for i in range(a):
+            js = torch.nonzero(live[s, i])[:, 0]
+            if js.numel() == 0:
+                continue
+            w = torch.tanh(rbf[s, i, js] @ w0 + b0) @ w1
+            acc = torch.zeros(f)
+            for p, j in enumerate(js):
+                acc = acc + (w[p] * cut[s, i, j]) * x[s, j]
+            out[s, i] = acc
+    return out
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["ragged", "padded"])
+def test_forward_ring_order_matches_the_twin_and_pallas(padded):
+    """The fp32 live-pair forward's emulation against the fp32 twin and
+    the reference's Pallas forward (interpreted), within 1e-5 of
+    max|ref|; the lone row's out is exactly zero in all three."""
+    pos = _with_a_lone_atom(_clusters(seed=8))
+    if padded:
+        pos = _padded(pos)
+    pos = _t(pos)
+    a = pos.shape[1]
+    x, _, (w0, b0, w1, offset, coeff) = _operands(a, seed=9)
+    out = _ring_order_fwd(pos, x, w0, b0, w1, offset, coeff)
+    ref = cd.dense_cfconv_fwd_plain(pos, x, w0, b0, w1, offset, coeff, RCUT,
+                                    "fp32")
+    assert _close(out.numpy(), ref.numpy())
+    assert float(out[:, A - 1].abs().max()) == 0.0
+    assert float(ref[:, A - 1].abs().max()) == 0.0
+    weights = tuple(jnp.asarray(v.numpy()) for v in (w0, b0, w1))
+    rbf = (jnp.asarray(offset.numpy()), jnp.asarray(coeff.numpy()))
+    for s in range(S):
+        jout, _ = _dense_cfconv_fwd(
+            jnp.asarray(pos[s].numpy()), jnp.asarray(x[s].numpy()), *weights,
+            rbf, RCUT, 8, "fp32")
+        assert _close(out[s].numpy(), jout)

@@ -18,12 +18,25 @@ slots zeroed gives gpos and gx equal (torch.equal) to
 ``cfconv_bwd_plain``, with and without gx; and a copy of the forward twin
 with both of its products zeroed there gives out equal to
 ``cfconv_fwd_plain``.
+
+``cfconv_bwd`` at fp32 runs the same live slots (the bf16 first pass's
+ring) through float32 FMAs on the CUDA cores, stores W of each live slot
+for the gx pass (``gx_kernel``, which reads it back over the source CSR
+where its own pair geometry says live) and gathers gpos's column side
+over the CSR (``gpos_kernel``): a ring-order emulation of those three
+passes equals ``cfconv_bwd_plain`` at fp32 within 1e-5 of max|twin| and
+the reference's ``_bwd_kernel`` (Pallas, interpreted) within 1e-5, with
+and without gx, on stale and overflowed lists with a row that has no live
+slot; and the slots whose W the first pass writes are exactly the ones
+whose geometry, taken the gx pass's way, is live.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from flashmd_tpu.ops.pallas.cfconv import _fused_cfconv_bwd
 from flashmd_tpu_torch.ops import cfconv as cf
 from flashmd_tpu_torch.ops._launch import _op
 from flashmd_tpu_torch.ops.neighborlist import batched_radius_neighbor_matrix
@@ -175,3 +188,169 @@ def test_forward_skipping_dead_slots_is_exact(precision, kind, stale):
                               coeff, RCUT, precision)
     assert torch.equal(out, ref)
     assert bool((ref != 0.0).any())
+
+
+def _lone_case(kind, stale, seed):
+    """_case with the last atom of each molecule 3 RCUT + SKIN away from
+    every other (moved before the build of a fresh list, after that of a
+    stale one): its row has no live slot."""
+    rng = np.random.default_rng(seed)
+    side = (A / 0.0229) ** (1 / 3)
+    pos = (side * rng.random((S, A, 3))).astype(np.float32)
+
+    def move(p):
+        p = p.copy()
+        p[:, -1, 1] = p[:, :, 1].max(axis=1) + 3 * RCUT + SKIN
+        return p
+
+    if not stale:
+        pos = move(pos)
+    nbr = batched_radius_neighbor_matrix(_t(pos), RCUT + SKIN,
+                                         CAPACITY[kind])
+    if stale:
+        pos = move(pos + (0.5 * rng.normal(size=pos.shape)).astype(
+            np.float32))
+    return _t(pos), nbr
+
+
+def _pair_live(pi, pj):
+    """The kernels' pair_geom in float32 for rel = pj - pi: (live at
+    RCUT, d, cut)."""
+    rel = (pj - pi).astype(np.float32)
+    d2 = rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]
+    d2 = (d2 + rel[..., 2] * rel[..., 2]).astype(np.float32)
+    d = np.sqrt(np.maximum(d2, np.float32(1e-12))).astype(np.float32)
+    return d < RCUT, d
+
+
+def _ring_order_bwd(pos, nbr, x, g, w0, b0, w1, offset, coeff, need_gx):
+    """The fp32 kernels' three passes in plain float32. First pass: each
+    row's live slots (mask set and d < rc), in slot order (the ring's),
+    run the MLP backward: gd per slot (0 on every other slot) and, with
+    gx, W of the slot into a workspace (NaN elsewhere). gpos: the row side
+    over the row's mask slots, then the column side over the atom's CSR
+    entries in order (gpos_kernel). gx: over the atom's CSR entries in
+    order, (W cut) g_i where the entry's geometry, p_a - p_i, is live
+    (gx_kernel)."""
+    rel, d, cut, dcut, e, rbf = cf._slot_geometry(pos, nbr.idx, nbr.mask,
+                                                  offset, coeff, RCUT)
+    n_s, a, k = nbr.idx.shape
+    f = x.shape[-1]
+    live = nbr.mask & (d < RCUT)
+    gd = torch.zeros(n_s, a, k)
+    wbuf = torch.full((n_s, a, k, f), float("nan"))
+    for s in range(n_s):
+        for i in range(a):
+            ks = torch.nonzero(live[s, i])[:, 0]
+            if ks.numel() == 0:
+                continue
+            js = nbr.idx[s, i, ks].long()
+            ct = cut[s, i, ks][:, None]
+            a0 = torch.tanh(rbf[s, i, ks] @ w0 + b0)
+            w = a0 @ w1
+            wbuf[s, i, ks] = w
+            s_cut = torch.sum((g[s, i] * w) * x[s, js], dim=1)
+            ga0 = ((g[s, i] * x[s, js]) * ct) @ w1.T
+            grbf = (ga0 * (1.0 - a0 * a0)) @ w0.T
+            ee = e[s, i, ks]
+            dr = d[s, i, ks][:, None] - offset
+            se = torch.sum(grbf * ee, dim=1)
+            sg = torch.sum(grbf * ee * dr, dim=1)
+            gd[s, i, ks] = (ct[:, 0] * (2.0 * coeff) * sg
+                            + (s_cut + se) * dcut[s, i, ks])
+    flat_pos = pos.reshape(-1, 3)
+    offsets, slots = nbr.csr_offsets.long(), nbr.csr_slots.long()
+    gpos = torch.zeros(n_s, a, 3)
+    gx = torch.zeros_like(x) if need_gx else None
+    for s in range(n_s):
+        for i in range(a):
+            u = rel[s, i] / d[s, i][:, None]
+            row = -torch.sum((gd[s, i] * nbr.mask[s, i])[:, None] * u, dim=0)
+            acc = torch.zeros(f)
+            for entry in slots[offsets[s * a + i]:offsets[s * a + i + 1]]:
+                owner = int(entry) // k
+                r = flat_pos[s * a + i] - flat_pos[owner]
+                dd = torch.sqrt(torch.clamp(torch.sum(r * r), min=1e-12))
+                row = row + gd.reshape(-1)[entry] * (r / dd)
+                if need_gx and bool(dd < RCUT):
+                    c = 0.5 * (torch.cos(dd * (np.pi / RCUT)) + 1.0)
+                    acc = acc + (wbuf.reshape(-1, f)[entry] * c) * \
+                        g.reshape(-1, f)[owner]
+            gpos[s, i] = row
+            if need_gx:
+                gx[s, i] = acc
+    return gpos, gx, wbuf
+
+
+def _close(out, ref, bound=1e-5):
+    ref = np.asarray(ref)
+    return np.abs(np.asarray(out) - ref).max() <= bound * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("need_gx", [True, False], ids=["gx", "no_gx"])
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("kind", ["symmetric", "overflowed"])
+def test_ring_order_matches_the_twin_and_pallas(kind, stale, need_gx):
+    """The fp32 live-slot backward's emulation against the fp32 twin and
+    the reference's Pallas backward (interpreted), within 1e-5 of
+    max|ref|, on a list whose last row has no live slot."""
+    pos, nbr = _lone_case(kind, stale, seed=6)
+    x, g, (w0, b0, w1, offset, coeff) = _operands(seed=7)
+    geometry, dead = _geometry(pos, nbr, offset, coeff)
+    assert bool(dead[:, -1].all())  # the lone row
+    assert (int(nbr.n_max.max()) > CAPACITY[kind]) == (kind == "overflowed")
+    gpos, gx, _ = _ring_order_bwd(pos, nbr, x, g, w0, b0, w1, offset, coeff,
+                                  need_gx)
+    gpos_ref, gx_ref = cf.cfconv_bwd_plain(
+        pos, nbr.idx, nbr.mask, x, g, w0, b0, w1, offset, coeff, RCUT,
+        "fp32", need_gx)
+    assert _close(gpos.numpy(), gpos_ref.numpy())
+    assert (gx is None) == (gx_ref is None) == (not need_gx)
+    if need_gx:
+        assert _close(gx.numpy(), gx_ref.numpy())
+    rbf = (jnp.asarray(offset.numpy()), jnp.asarray(coeff.numpy()))
+    for s in range(S):
+        residuals = (jnp.asarray(pos[s].numpy()),
+                     jnp.asarray(nbr.idx[s].numpy()),
+                     jnp.asarray(nbr.mask[s].numpy().astype(np.float32)),
+                     jnp.asarray(x[s].numpy()),
+                     *(jnp.asarray(v.numpy()) for v in (w0, b0, w1)), rbf)
+        cts = _fused_cfconv_bwd(RCUT, 8, "fp32", residuals,
+                                jnp.asarray(g[s].numpy()))
+        assert _close(gpos[s].numpy(), cts[0])
+        if need_gx:
+            assert _close(gx[s].numpy(), cts[3])
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("kind", ["symmetric", "overflowed"])
+def test_w_is_written_where_gx_reads_it(kind, stale):
+    """The slots whose W the fp32 first pass stores (its vote: mask set
+    and d < rc, rel = p_j - p_i) are exactly the CSR entries that gx_kernel
+    reads (its geometry, rel = p_a - p_i of each entry's owner i): the
+    masked slots (the row's own index at d = 1e-6) are in neither, and the
+    emulation's workspace holds a finite W there and NaN elsewhere."""
+    pos, nbr = _lone_case(kind, stale, seed=8)
+    x, g, (w0, b0, w1, offset, coeff) = _operands(seed=9)
+    p = pos.numpy()
+    n_s, a, k = nbr.idx.shape
+    idx, mask = nbr.idx.numpy(), nbr.mask.numpy()
+    rows = np.arange(a)[None, :, None]
+    assert bool((idx[~mask] == np.broadcast_to(rows, idx.shape)[~mask]).all())
+    b = np.arange(n_s)[:, None, None]
+    vote, _ = _pair_live(p[:, :, None, :], p[b, idx])
+    written = set(np.flatnonzero(mask & vote).tolist())
+    offsets, slots = nbr.csr_offsets.numpy(), nbr.csr_slots.numpy()
+    flat = p.reshape(-1, 3)
+    read = set()
+    for atom in range(n_s * a):
+        for entry in slots[offsets[atom]:offsets[atom + 1]]:
+            ok, _ = _pair_live(flat[entry // k], flat[atom])
+            if ok:
+                read.add(int(entry))
+    assert written == read and len(written) > 0
+    assert not (set(np.flatnonzero(~mask).tolist()) & read)
+    _, _, wbuf = _ring_order_bwd(pos, nbr, x, g, w0, b0, w1, offset, coeff,
+                                 True)
+    finite = torch.isfinite(wbuf).all(dim=-1).reshape(-1).numpy()
+    assert set(np.flatnonzero(finite).tolist()) == written

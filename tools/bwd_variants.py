@@ -9,9 +9,10 @@ ptxas' registers and spills of its tensor-core kernels are printed, then
 the function at its slice's shapes is held against its twin and timed
 with CUDA events (batch 128, 266 beads, F = 128, bf16; the combined cheb
 backward also at bf16x3, on the bf16x3 slice's (64, 96) fit; the dense
-backward also at fp32, on its CUDA-core kernel; open boundaries; the
-neighbour-matrix kernels on the pallas slice's list). Naming functions
-(e.g. dense_cfconv_bwd_fp32) builds and times those alone:
+kernels and the neighbour-matrix backward also at fp32, on their CUDA-core
+kernels; open boundaries; the neighbour-matrix kernels on the pallas
+slice's list). Naming functions (e.g. dense_cfconv_bwd_fp32) builds and
+times those alone:
 
 * cheb_bwd_gxgd (cheb_gxgd_mma_kernel, the per-block slice's fit):
   base   -- the source as it is: at bf16 three blocks per SM (at most
@@ -37,8 +38,11 @@ neighbour-matrix kernels on the pallas slice's list). Naming functions
   gi_smem    -- the item's g rows staged in the warp's shared memory for
                 s_cut and the cotangent (the source reads g_i from device
                 memory, through L1);
-  gx_unroll4 -- gx's ring-order sum unrolled four times (its g_j loads
-                issued ahead).
+* dense_cfconv_fwd_fp32 (dense_fwd_ffma_kernel):
+  base       -- the source as it is (FF_WARPS warps a block beside the
+                staged float32 weights);
+  w4, w6, w12 -- 4 (one per scheduler, the backward's choice), 6 or 12
+                (as many as shared memory holds) warps a block.
 * dense_cfconv_fwd (dense_fwd_mma_kernel):
   base   -- the source as it is (16 warps, at most 128 registers);
   w8     -- 8 warps a block (up to 255 registers);
@@ -53,6 +57,16 @@ neighbour-matrix kernels on the pallas slice's list). Naming functions
   base   -- the source as it is (the gx pass at 16 warps);
   w8     -- the gx pass at 8 warps a block;
   rw2    -- 2 rows (first pass) and atoms (gx pass) per work item.
+* cfconv_bwd_fp32 (nbr_bwd_ffma_kernel, then gpos_kernel and the gx pass,
+  with gx; each variant's peak device memory above its inputs printed):
+  base      -- the source as it is: the first pass stores W of every live
+               slot into the [S, A, K, F] workspace, gx_kernel reads it
+               back over the source CSR;
+  recompute -- no workspace: the first pass without the store, and a gx
+               pass (nbr_gx_ffma_kernel) that computes W again, the fp32
+               forward's tile over each atom's incoming live slots
+               (fwd_items<false> over the CSR, as nbr_gx_mma_kernel at
+               bf16).
 
 Needs a CUDA card and nvcc; prints the card's name and power limit last.
 """
@@ -155,6 +169,43 @@ GI_SMEM = {
             DF_ZERO: DF_ZERO_GI}}
 DF_K = """#pragma unroll 1
   for (int k = {}; k < {}; k += 4) {{"""
+FF_W = "constexpr int FF_WARPS = 8;"
+NBR = "cfconv_kernels.cu"
+NB_PASS1 = """    err = launch_persistent(gx ? nbr_bwd_ffma_kernel<true>
+                               : nbr_bwd_ffma_kernel<false>,"""
+NB_WBUF = "      (!bf16 && (gx == nullptr) != (wbuf == nullptr)))"
+NB_SIZES = "bool sizes_ok(int S, int A, int K, int Fdim, int R) {"
+NB_GX_PASS = """  gx_kernel<<<dim3(A, S), F, 0, st>>>(pos, g, csr_offsets, csr_slots, wbuf,
+                                      gx, A, K, rcut, arg_scale, dcut_scale);
+  return (int)cudaGetLastError();"""
+# the fp32 forward's tile over each atom's incoming live slots of the
+# source CSR, g in x's place (nbr_gx_mma_kernel's items at fp32)
+NB_GX_FFMA = """__global__ void __launch_bounds__(FF_WARPS * 32, 1)
+nbr_gx_ffma_kernel(const float* __restrict__ pos,
+                   const int* __restrict__ offsets,
+                   const int* __restrict__ slots, const float* __restrict__ g,
+                   const float* __restrict__ w0, const float* __restrict__ b0,
+                   const float* __restrict__ w1,
+                   const float* __restrict__ offset,
+                   const float* __restrict__ coeff_p, float* __restrict__ gx,
+                   int S, int A, int K, int R, float rcut, float arg_scale,
+                   float dcut_scale) {
+  extern __shared__ float4 ffma_smem4[];
+  fwd_items<false>(
+      ffma_smem4, pos, g, w0, b0, w1, offset, coeff_p, gx, S, A, R, rcut,
+      arg_scale, dcut_scale,
+      [=](int s, int a) {
+        return make_int2(offsets[s * A + a], offsets[s * A + a + 1]);
+      },
+      [=](int s, const float* ps, int a, int e, int& i) {
+        i = slots[e] / K - s * A;
+        float d, cut, dcut, rel[3];
+        return pair_geom(ps + a * 3, ps + i * 3, true, rcut, arg_scale,
+                         dcut_scale, d, cut, dcut, rel);
+      });
+}
+
+"""
 # (source, kernels of its ptxas lines, function): {variant: {file: {old:
 # new}}}; a file is the source or the shared header.
 VARIANTS = {
@@ -194,16 +245,24 @@ VARIANTS = {
         "w5": {TILE: {DF_W: "constexpr int DF_WARPS = 5;"}},
         "w3": {TILE: {DF_W: "constexpr int DF_WARPS = 3;"}},
         "gi_smem": GI_SMEM,
-        "gx_unroll4": {TILE: {"""#pragma unroll 1
-    for (int t = 0; t < nv; ++t) {
-      int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
-      if (r != cur) {
-        float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;""":
-            """#pragma unroll 4
-    for (int t = 0; t < nv; ++t) {
-      int ent = ring[(head + t) & (DM_RING - 1)], r = ent >> 16;
-      if (r != cur) {
-        float4* o = reinterpret_cast<float4*>(gx_s + cur * F) + lane;"""}},
+    },
+    (DENSE, "dense_fwd_ffma_kernel", "dense_cfconv_fwd_fp32"): {
+        "base": {},
+        "w4": {TILE: {FF_W: FF_W.replace("8;", "4;")}},
+        "w6": {TILE: {FF_W: FF_W.replace("8;", "6;")}},
+        "w12": {TILE: {FF_W: FF_W.replace("8;", "12;")}},
+    },
+    (NBR, "_ffma_kernel", "cfconv_bwd_fp32"): {
+        "base": {},
+        "recompute": {NBR: {
+            NB_PASS1: "    err = launch_persistent(nbr_bwd_ffma_kernel<false>,",
+            NB_WBUF: "      false)",
+            NB_SIZES: NB_GX_FFMA + NB_SIZES,
+            NB_GX_PASS: """  void* gargs[] = {&pos, &csr_offsets, &csr_slots, &g, &w0, &b0, &w1,
+                   &offset, &coeff, &gx, &S, &A, &K, &R, &rcut, &arg_scale,
+                   &dcut_scale};
+  return (int)launch_persistent(nbr_gx_ffma_kernel, FF_WARPS, FF_SMEM,
+                                n_items, st, gargs);"""}},
     },
     ("cfconv_dense_kernels.cu", "dense_fwd_mma_kernel", "dense_cfconv_fwd"): {
         "base": {},
@@ -342,6 +401,7 @@ def dense_cases(libs, dev):
     r, f = w[0].shape
     ref_bwd = cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, "bf16")
     ref_fwd = (cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, "bf16"),)
+    ref_fwd32 = (cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, "fp32"),)
     ref32 = {gx: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, "fp32",
                                            need_gx=gx)
              for gx in (True, False)}
@@ -374,15 +434,18 @@ def dense_cases(libs, dev):
                 report(f"{fn} {name} {'with' if need_gx else 'no'} gx", call,
                        (gpos, gx) if need_gx else (gpos,),
                        ref if need_gx else ref[:1])
-        elif fn == "dense_cfconv_fwd":
+        elif fn in ("dense_cfconv_fwd", "dense_cfconv_fwd_fp32"):
+            bf16 = int(fn == "dense_cfconv_fwd")
+
             def call():
                 rc = lib.dense_cfconv_fwd(
                     _ptr(pos), _ptr(x), *(_ptr(t) for t in w), _ptr(out), s,
-                    a, f, r, rcut, 1, _stream())
+                    a, f, r, rcut, bf16, _stream())
                 if rc:
                     raise SystemExit(f"FAILED: {name}: CUDA {rc}")
 
-            report(f"{fn} {name} bf16", call, (out,), ref_fwd)
+            report(f"{fn} {name} {'bf16' if bf16 else 'fp32'}", call, (out,),
+                   ref_fwd if bf16 else ref_fwd32)
 
 
 def nbr_cases(libs, dev):
@@ -393,6 +456,8 @@ def nbr_cases(libs, dev):
     s, a, k = nbr.idx.shape
     r, f = w[0].shape
     ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, rcut, "bf16")
+    ref32 = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, rcut,
+                                "fp32")
     ref_fwd = (cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, rcut,
                                    "bf16"),)
     for (fn, name), lib in libs.items():
@@ -411,6 +476,30 @@ def nbr_cases(libs, dev):
                     raise SystemExit(f"FAILED: {name}: CUDA {rc}")
 
             report(f"{fn} {name} bf16", call, (gpos, gx), ref)
+        elif fn == "cfconv_bwd_fp32":
+            stored = name != "recompute"
+
+            def call():
+                # the workspace as the wrapper allocates it, per call
+                wbuf = (torch.empty(s, a, k, f, device=dev) if stored
+                        else None)
+                rc = lib.cfconv_bwd(
+                    _ptr(pos), _ptr(nbr.idx), _ptr(nbr.mask),
+                    _ptr(nbr.csr_offsets), _ptr(nbr.csr_slots), _ptr(x),
+                    _ptr(g), *(_ptr(t) for t in w), _ptr(gd), _ptr(wbuf),
+                    _ptr(gpos), _ptr(gx), s, a, k, f, r, rcut, 0, _stream())
+                if rc:
+                    raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+            report(f"{fn} {name} with gx", call, (gpos, gx), ref32)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            call()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            print(f"variant {fn} {name}: peak device memory above its "
+                  f"inputs and outputs {peak} B ({peak / 1e6:.1f} MB)")
         elif fn == "cfconv_fwd":
             def call():
                 rc = lib.cfconv_fwd(
