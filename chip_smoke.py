@@ -17,12 +17,12 @@ Phases (each prints its lines; any failure exits non-zero):
                neighbour-matrix backward's two passes (bf16) must not
                spill and must hold tensor-core MMA instructions in their
                SASS (cuobjdump); their counts are printed. The fp32
-               CUDA-core live-pair kernels' thirteen instantiations
+               CUDA-core live-pair kernels' fourteen instantiations
                (FFMA_LABELS: cheb_rows_ffma_kernel fwd, gx;
                cheb_gd_ffma_kernel; cheb_gxgd_ffma_kernel; open, cell;
                dense_bwd_ffma_kernel and nbr_bwd_ffma_kernel with and
-               without gx; dense_fwd_ffma_kernel) must be built; their
-               registers and spills are printed.
+               without gx; dense_fwd_ffma_kernel, nbr_fwd_ffma_kernel)
+               must be built; their registers and spills are printed.
 3. kernels  -- each kernel vs its plain PyTorch twin on the card at the
                slices' shapes, fp32 and bf16 tiers, CUDA-event times, and
                each kernel's bound (bytes or operations over the card's
@@ -31,9 +31,9 @@ Phases (each prints its lines; any failure exits non-zero):
                compared and timed at the slice's S = 128, beside the
                live pairs and the live pair fragments that the
                tensor-core kernels run (16 x 8 gd, 16 x 16 fwd/gx and
-               gx+gd), and the executed pairs or slots of the bf16 dense
-               and neighbour-matrix kernels (16-pair tiles of each work
-               item's live pairs or slots); the
+               gx+gd), and the executed pairs or slots of the dense and
+               neighbour-matrix kernels, bf16 and fp32 (16-pair tiles of
+               each work item's live pairs or slots); the
                dense and the neighbour-matrix
                backward in both of their variants (with gx, and without
                it as block 1 runs it). The neighbour-matrix kernels run
@@ -59,11 +59,11 @@ Phases (each prints its lines; any failure exits non-zero):
                folded cells, on the fp32 slice's own fits (128, 128) on
                d_min 0 (keys "_fp32"). Every fp32 line of the four cheb
                kernels (also at the slice's (48, 64)), of the dense
-               forward and backward and of the neighbour-matrix backward
-               adds the pairs (slots) the live-pair kernel runs against
-               S A^2 (S A K), its registers and spills, and two launches
-               gated bitwise equal; the neighbour-matrix kernels on the
-               overflowed list also without gx.
+               forward and backward and of the neighbour-matrix forward
+               and backward adds the pairs (slots) the live-pair kernel
+               runs against S A^2 (S A K), its registers and spills, and
+               two launches gated bitwise equal; the neighbour-matrix
+               kernels on the overflowed list also without gx.
 4. forces   -- compute_energy_forces at full width, batch 4, on the card
                (kernels) vs the same model on the CPU (plain twins), for
                the cheb (stacked and per-block schedules), the dense and
@@ -138,7 +138,7 @@ Phases (each prints its lines; any failure exits non-zero):
                None, PALLAS_FP32_STEPS steps: 3 fwd + 3 bwd per force
                evaluation, every cheb and dense counter 0, no twin call,
                throughput beside the bf16 pallas slice's and a profiler
-               window.
+               window, which must name nbr_fwd_ffma_kernel.
 8. xla      -- the exact xla path (plain PyTorch, no kernel of its own:
                every kernel counter must stay 0 on it). Forces at batch 4:
                bf16 card vs CPU (FORCE_BOUND); fp32 against pallas fp32
@@ -616,7 +616,8 @@ FFMA_BUILD = {}
 # The fp32 CUDA-core live-pair kernels' template arguments in their mangled
 # names: cheb_rows_ffma_kernel<GX, HAS_CELL>, cheb_gd_ffma_kernel<HAS_CELL>,
 # cheb_gxgd_ffma_kernel<HAS_CELL>, dense_bwd_ffma_kernel<GX>,
-# nbr_bwd_ffma_kernel<GX>; dense_fwd_ffma_kernel (no template arguments).
+# nbr_bwd_ffma_kernel<GX>; dense_fwd_ffma_kernel and nbr_fwd_ffma_kernel (no
+# template arguments).
 FFMA_KERNELS = {
     "rows": re.compile(r"cheb_rows_ffma_kernelILb([01])ELb([01])E"),
     "gd": re.compile(r"cheb_gd_ffma_kernelILb([01])E"),
@@ -624,6 +625,7 @@ FFMA_KERNELS = {
     "dense": re.compile(r"dense_bwd_ffma_kernelILb([01])E"),
     "nbr": re.compile(r"nbr_bwd_ffma_kernelILb([01])E"),
     "dense fwd": re.compile(r"dense_fwd_ffma_kernel"),
+    "nbr fwd": re.compile(r"nbr_fwd_ffma_kernel"),
 }
 # The fp32 CUDA-core live-pair kernels' labels, as ffma_label gives them.
 FFMA_LABELS = (
@@ -633,7 +635,7 @@ FFMA_LABELS = (
       for c in ("open", "cell")),
     *(f"{name}_ffma_kernel {gx}" for name in ("dense_bwd", "nbr_bwd")
       for gx in ("with gx", "no gx")),
-    "dense_fwd_ffma_kernel",
+    "dense_fwd_ffma_kernel", "nbr_fwd_ffma_kernel",
 )
 
 
@@ -649,8 +651,9 @@ def ffma_label(name):
         if m:
             return (f"{kind}_bwd_ffma_kernel "
                     f"{'with gx' if m.group(1) == '1' else 'no gx'}")
-    if FFMA_KERNELS["dense fwd"].search(name):
-        return "dense_fwd_ffma_kernel"
+    for kind in ("dense", "nbr"):
+        if FFMA_KERNELS[f"{kind} fwd"].search(name):
+            return f"{kind}_fwd_ffma_kernel"
     for kind in ("gd", "gxgd"):
         m = FFMA_KERNELS[kind].search(name)
         if m:
@@ -660,11 +663,11 @@ def ffma_label(name):
 
 
 def ffma_kernel_report(log):
-    """{label: (registers, spill stores, spill loads)} of the thirteen fp32
+    """{label: (registers, spill stores, spill loads)} of the fourteen fp32
     CUDA-core live-pair instantiations (FFMA_LABELS: cheb fwd, gx, gd,
     gx+gd, open and cell; the dense and the neighbour-matrix backward with
-    and without gx; the dense forward), printed; fails if one is
-    missing."""
+    and without gx; the dense and the neighbour-matrix forward), printed;
+    fails if one is missing."""
     seen = {}
     for line in ptxas_summary(log):
         label = ffma_label(line.split(":")[0])
@@ -1034,7 +1037,7 @@ def crossing_pairs(pos, cell, rcut):
     return int(live.sum()), int(crossed.sum())
 
 
-def live_chunks(live, rows=4, cols=16):
+def live_chunks(live, rows, cols):
     """(chunks holding a live entry, all chunks) of the kernels' rows x
     cols tiling of live [S, A, n] (each row's entries in walk order)."""
     s, a, n = live.shape
@@ -1153,11 +1156,10 @@ def phase_dense_kernels(ff, pos, dev):
 
 
 def nbr_slot_counts(pos, nbr, rcut):
-    """(live slots, slots of the 4x16 chunks with a live slot, which the
-    fp32 forward executes, slots the live-slot kernels (the bf16 forward,
-    the backward's first pass at bf16 and fp32) execute: each work item's
-    live slots in 16-slot tiles, and the bf16 backward's gx pass: each
-    item's live incoming slots in 16-slot tiles), whole batch."""
+    """(live slots, slots the live-slot kernels (the forward and the
+    backward's first pass, bf16 and fp32) execute: each work item's live
+    slots in 16-slot tiles, and the bf16 backward's gx pass: each item's
+    live incoming slots in 16-slot tiles), whole batch."""
     s, a = pos.shape[:2]
     b = torch.arange(s, device=pos.device)[:, None, None]
     rel = pos[b, nbr.idx.long()] - pos[:, :, None, :]
@@ -1166,8 +1168,7 @@ def nbr_slot_counts(pos, nbr, rcut):
     incoming.index_add_(0, (b * a + nbr.idx.long())[live],
                         torch.ones(int(live.sum()), dtype=torch.long,
                                    device=pos.device))
-    return (int(live.sum()), 64 * live_chunks(live)[0],
-            executed_pairs(live.sum(dim=2)),
+    return (int(live.sum()), executed_pairs(live.sum(dim=2)),
             executed_pairs(incoming.view(s, a)))
 
 
@@ -1192,7 +1193,7 @@ def phase_nbr_kernels(ff, pos, dev):
     build_ms = cuda_time_ms(lambda: build_neighbors(ff, pos, skin=1.0))
     nbr = build_neighbors(ff, pos, skin=1.0)
     k = nbr.capacity
-    n_live, n_rows, n_exec, n_exec_gx = nbr_slot_counts(pos, nbr, rcut)
+    n_live, n_exec, n_exec_gx = nbr_slot_counts(pos, nbr, rcut)
     n_list = int(nbr.mask.sum())
     mlp = r * f + f * f
     fwd_slot, bwd_slot = 2 * mlp + 3 * f, 4 * mlp + 12 * f + 6 * r
@@ -1203,27 +1204,25 @@ def phase_nbr_kernels(ff, pos, dev):
     smem = [load().cfconv_smem_bytes(b) for b in (0, 1, 2, 3)]
     print(f"kernels: cfconv shapes S={s} A={a} K={k} F={f} R={r} rcut="
           f"{rcut} skin 1.0; n_max {int(nbr.n_max.max())}; dynamic shared "
-          f"memory per block fwd fp32 {smem[0]} B bf16 (tensor cores) "
-          f"{smem[3]} B, bwd fp32 {smem[1]} B, bwd bf16 (tensor cores) "
-          f"first pass {smem[2]} B gx pass {smem[3]} B; list slots "
+          f"memory per block fwd fp32 (CUDA cores) {smem[0]} B bf16 (tensor "
+          f"cores) {smem[3]} B, bwd fp32 {smem[1]} B, bwd bf16 (tensor "
+          f"cores) first pass {smem[2]} B gx pass {smem[3]} B; list slots "
           f"{n_list}, live slots (d < rc) {n_live} of {s * a * k} "
-          f"({n_live / (s * a * k):.4f}); executed slots: fp32 fwd (4x16 "
-          f"chunks with a live slot) {n_rows}, 16-slot tiles per "
-          f"{ITEM_ROWS}-row work item (bf16 fwd, bwd first pass at bf16 and "
+          f"({n_live / (s * a * k):.4f}); executed slots: 16-slot tiles per "
+          f"{ITEM_ROWS}-row work item (fwd and bwd first pass, bf16 and "
           f"fp32) {n_exec} ({n_exec / n_live:.4f} x live), bf16 bwd gx pass "
           f"{n_exec_gx} ({n_exec_gx / n_live:.4f} x live); FLOP per slot fwd "
           f"{fwd_slot} bwd {bwd_slot} (no gx {nogx_slot}); live-slot FLOP "
           f"fwd {n_live * fwd_slot:.4e} bwd {n_live * bwd_slot:.4e}; "
-          f"executed FLOP fwd fp32 {n_rows * fwd_slot:.4e} bf16 "
-          f"{n_exec * fwd_slot:.4e}, bwd fp32 (pass 1 + gx pass) "
-          f"{n_exec * nogx_slot + n_live * 3 * f:.4e}, bwd bf16 (pass 1 + gx "
-          f"pass) {n_exec * nogx_slot + n_exec_gx * fwd_slot:.4e}; "
+          f"executed FLOP fwd {n_exec * fwd_slot:.4e}, bwd fp32 (pass 1 + "
+          f"gx pass) {n_exec * nogx_slot + n_live * 3 * f:.4e}, bwd bf16 "
+          f"(pass 1 + gx pass) "
+          f"{n_exec * nogx_slot + n_exec_gx * fwd_slot:.4e}; "
           f"neighbour build + source CSR {build_ms:.4f} ms")
 
-    def note(gx):
-        regs = FFMA_BUILD.get(f"nbr_bwd_ffma_kernel {gx}")
-        return (f"slots run {n_exec} of {s * a * k} (first pass); "
-                f"nbr_bwd_ffma_kernel {gx}: "
+    def note(kernel, what=""):
+        regs = FFMA_BUILD.get(kernel)
+        return (f"slots run {n_exec} of {s * a * k}{what}; {kernel}: "
                 + (f"{regs[0]} regs, spill {regs[1]}/{regs[2]} B" if regs
                    else "registers not read"))
 
@@ -1236,6 +1235,7 @@ def phase_nbr_kernels(ff, pos, dev):
                                           rcut, p),
             float(n_live * fwd_slot),
             4 * (s * a * 3 + 2 * s * a * f) + lbytes + wbytes,
+            fp32_note=note("nbr_fwd_ffma_kernel"), repeat=True,
         ),
         "cfconv_bwd": compare_and_time(
             "cfconv_bwd",
@@ -1244,7 +1244,8 @@ def phase_nbr_kernels(ff, pos, dev):
                                           rcut, p),
             float(n_live * bwd_slot),
             4 * (2 * s * a * 3 + 3 * s * a * f) + lbytes + csr_bytes + wbytes,
-            fp32_note=note("with gx"), repeat=True,
+            fp32_note=note("nbr_bwd_ffma_kernel with gx", " (first pass)"),
+            repeat=True,
         ),
     }
     no_gx = compare_and_time(
@@ -1255,7 +1256,9 @@ def phase_nbr_kernels(ff, pos, dev):
                                       p, need_gx=False)[0],
         float(n_live * nogx_slot),
         4 * (2 * s * a * 3 + 2 * s * a * f) + lbytes + csr_bytes + wbytes,
-        label="cfconv_bwd (no gx)", fp32_note=note("no gx"), repeat=True,
+        label="cfconv_bwd (no gx)",
+        fp32_note=note("nbr_bwd_ffma_kernel no gx", " (first pass)"),
+        repeat=True,
     )
     bwd = stats["cfconv_bwd"]
     bwd["max_abs_err"] = max(bwd["max_abs_err"], no_gx["max_abs_err"])
@@ -2215,7 +2218,8 @@ def phase_pallas_fp32_slice(cfgs, dev, bf16_tp, smi):
     step), gptq None: PALLAS_FP32_STEPS BAOAB steps with cfconv_fwd 3 and
     cfconv_bwd 3 per force evaluation (every cheb and dense counter 0) and
     no twin call, the throughput beside the bf16 pallas slice's, a profiler
-    window. Returns the launch counts under the fp32 keys."""
+    window that must name the fp32 forward's kernel. Returns the launch
+    counts under the fp32 keys."""
     from flashmd_tpu_torch.ops import cfconv as cf
 
     ff, _ = _force_fields(dev, BATCH, message_passing="pallas",
@@ -2241,7 +2245,9 @@ def phase_pallas_fp32_slice(cfgs, dev, bf16_tp, smi):
           f"{sim.neighbor_rebuild_interval} step(s), twin calls 0, every "
           f"cheb and dense counter 0) beside the bf16 pallas slice's "
           f"{bf16_tp:.1f} in this run (ratio {tp / bf16_tp:.4f}), on {smi}")
-    profile_steps(sim, dev, PROFILE_STEPS, "pallas fp32")
+    seen = profile_steps(sim, dev, PROFILE_STEPS, "pallas fp32")
+    check(not seen or any("nbr_fwd_ffma_kernel" in k for k in seen),
+          "pallas fp32: the profile shows no nbr_fwd_ffma_kernel")
     return {k + "_fp32": v for k, v in counts.items()}
 
 
@@ -2275,7 +2281,8 @@ def profile_steps(sim, dev, steps, label, ops=0):
     kernels by device time, and the device's busy and idle share of the
     wall time (kernels run on one stream, so their times add); with
     ``ops``, also that many PyTorch ops by the device time of the kernels
-    each launched itself."""
+    each launched itself. Returns the names of the kernels seen (none when
+    the profiler saw no device time)."""
     import time
 
     from torch.autograd import DeviceType
@@ -2302,7 +2309,7 @@ def profile_steps(sim, dev, steps, label, ops=0):
     if busy_ms == 0:
         print(f"profile: {label}: the profiler saw no device time: not "
               "measured")
-        return
+        return []
     print(f"profile: {label}: {steps} steps: wall {wall_ms:.3f} ms/step, "
           f"device kernel time {busy_ms:.3f} ms/step, idle share "
           f"{1 - busy_ms / wall_ms:.4f}")
@@ -2319,6 +2326,7 @@ def profile_steps(sim, dev, steps, label, ops=0):
         ms = e.self_device_time_total / 1e3 / steps
         print(f"profile: {label}: op {ms:8.3f} ms/step {e.count / steps:6.1f}"
               f"/step {ms / busy_ms:.4f} of device {e.key[:60]}")
+    return [e.key for e in kernels]
 
 
 # ---------------------------------------------------------------------------

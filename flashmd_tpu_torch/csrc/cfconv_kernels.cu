@@ -6,8 +6,8 @@
 // flashmd_tpu/ops/pallas/cfconv.py, batched over S molecules, on the padded
 // neighbour matrix idx [S, A, K] (int32) / mask [S, A, K] (bool):
 //
-//   cfconv_fwd  <- _fwd_kernel (:137), conv_kernel (fp32),
-//     nbr_fwd_mma_kernel (bf16):
+//   cfconv_fwd  <- _fwd_kernel (:137), one launch:
+//     nbr_fwd_ffma_kernel (fp32), nbr_fwd_mma_kernel (bf16):
 //                  out[i] = sum_{k: mask} W_ik * cut_ik * x[idx[i, k]]
 //   cfconv_bwd  <- _bwd_kernel (:163), two or three launches:
 //     nbr_bwd_ffma_kernel (fp32), nbr_bwd_mma_kernel (bf16):
@@ -28,24 +28,18 @@
 // What bounds them on the H100: every live slot runs the two-layer filter
 // MLP, R*F + F*F = 22,784 multiply-adds at R = 50, F = 128 (twice that in
 // the backward's first pass), against a few hundred bytes of input per slot:
-// they are bound by arithmetic. Every kernel with a filter MLP but the fp32
-// forward runs over the live slots only (mask set and d < rc): the forward
-// and the backward's first pass are the dense kernels' ring over each row's
-// K slots (16-slot tiles on the tensor cores at bf16, register-tiled
-// float32 FMAs on the CUDA cores at fp32), the bf16 backward's gx pass the
-// forward's two products over each atom's incoming live slots of the
-// source CSR, with W computed again instead of stored (the kernels' notes
-// below). The fp32 gx_kernel does no MLP: it reads W back (512 B per live
-// slot) and is bound by memory; it skips each dead incoming slot after its
-// geometry and reads W and g rows of the live ones as whole 512 B lines.
-// The fp32 forward (conv_kernel) does the arithmetic as float32 FMA from
-// shared memory on the CUDA cores:
-//   - the [slots, F] MLP activations never reach device memory: a block owns
-//     4 rows and walks 16 of each row's entries per chunk, so one chunk is a
-//     64-slot tile held in registers and one shared [F, 64] tile; the 64
-//     partner feature rows are gathered into shared memory per chunk;
-//   - a chunk none of whose 64 slots is live (masked, or d >= rc) adds
-//     exactly zero (cut and dcut vanish there) and is skipped whole.
+// they are bound by arithmetic. Every kernel with a filter MLP runs over the
+// live slots only (mask set and d < rc): the forward and the backward's
+// first pass are the dense kernels' ring over each row's K slots (16-slot
+// tiles on the tensor cores at bf16, register-tiled float32 FMAs on the
+// CUDA cores at fp32, w0 and w1 staged once per block of a persistent
+// grid), the bf16 backward's gx pass the forward's two products over each
+// atom's incoming live slots of the source CSR, with W computed again
+// instead of stored (the kernels' notes below). The fp32 gx_kernel does no
+// MLP: it reads W back (512 B per live slot) and is bound by memory; it
+// skips each dead incoming slot after its geometry and reads W and g rows
+// of the live ones as whole 512 B lines. The [slots, F] MLP activations of
+// the other kernels never reach device memory.
 // The list is sorted nearest first when it is built, but between Verlet
 // rebuilds atoms move, and it keeps slots out to rc + skin: a row's live
 // slots need not come first, so every kernel looks at all K slots.
@@ -74,124 +68,53 @@
 
 namespace {
 
-// Dynamic shared memory, in floats.
-constexpr int CONV_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + NP * F;
 constexpr int GPOS_ROWS = THREADS / 32;  // one warp per row of gpos
 
-// Slot e of flat row `row`: its partner atom (local index), or -1 where
-// the slot is masked.
-__device__ __forceinline__ int partner_of(
-    const int* __restrict__ idx, const unsigned char* __restrict__ mask,
-    int row, int e, int K) {
-  int slot = row * K + e;
-  return mask[slot] ? idx[slot] : -1;
-}
-
-// Forward at fp32: out[i] = sum_k W_ik * cut_ik * x[idx[i, k]]. Grid: (row
-// tiles of ROWS, molecules).
-__global__ void __launch_bounds__(THREADS, 1)
-conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
-            const int* __restrict__ idx,
-            const unsigned char* __restrict__ mask,
-            const float* __restrict__ w0, const float* __restrict__ b0,
-            const float* __restrict__ w1, const float* __restrict__ offset,
-            const float* __restrict__ coeff_p, float* __restrict__ out, int A,
-            int K, int R, float rcut, float arg_scale, float dcut_scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* w0_s = smem;               // [RMAX][LDW]
-  float* w1_s = w0_s + RMAX * LDW;  // [F][LDW]
-  float* rbf_s = w1_s + F * LDW;    // [RMAX][LDA]
-  float* a_s = rbf_s + RMAX * LDA;  // [F][LDA]
-  float* in_s = a_s + F * LDA;      // [NP][F]: the partners' x
-  __shared__ float b0_s[F], off_s[RMAX];
-  __shared__ float pr_s[ROWS][3], d_s[NP], cut_s[NP];
-  __shared__ int part_s[NP];
-
-  const int s = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS;
-  const int base = s * A;
-  const int tid = threadIdx.x;
-  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg;
-  const float coeff = *coeff_p;
-
-  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
-  if (tid < ROWS * 3) {
-    int r = tid / 3, c = tid % 3;
-    pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
-  }
-  float acc[FPT];
-#pragma unroll
-  for (int c = 0; c < FPT; ++c) acc[c] = 0.0f;
-
-  for (int e0 = 0; e0 < K; e0 += COLS) {
-    __syncthreads();  // the previous chunk is done with every tile
-    bool live = false;
-    if (tid < NP) {
-      int rr = tid / COLS, e = e0 + tid % COLS;
-      int part = r0 + rr < A && e < K
-                     ? partner_of(idx, mask, base + r0 + rr, e, K)
-                     : -1;
-      part_s[tid] = part;
-      float pc[3] = {0.0f, 0.0f, 0.0f};
-      if (part >= 0) {
-        const float* q = pos + (size_t)(base + part) * 3;
-        pc[0] = q[0];
-        pc[1] = q[1];
-        pc[2] = q[2];
-      }
-      float d, cut, dcut, rel[3];
-      live = pair_geom(pr_s[rr], pc, part >= 0, rcut, arg_scale, dcut_scale,
-                       d, cut, dcut, rel);
-      d_s[tid] = d;
-      cut_s[tid] = cut;
-    }
-    if (!__syncthreads_or(live)) continue;  // the chunk adds exactly zero
-
-    for (int e = tid; e < NP * F; e += THREADS) {
-      int part = part_s[e / F];
-      in_s[e] = part >= 0 ? x[(size_t)(base + part) * F + e % F] : 0.0f;
-    }
-    for (int e = tid; e < R * NP; e += THREADS) {
-      int r = e / NP, p = e % NP;
-      float dr = d_s[p] - off_s[r];
-      rbf_s[r * LDA + p] = expf(coeff * (dr * dr)) * cut_s[p];
-    }
-    __syncthreads();
-    float t[4][FPT] = {};
-    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, t);
-#pragma unroll
-    for (int c = 0; c < FPT; ++c) {
-      int f = fg + 16 * c;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) t[i][c] = tanhf(t[i][c] + b0_s[f]);
-      store4(a_s + f * LDA + p0, t, c);
-    }
-    __syncthreads();
-    float w[4][FPT] = {};
-    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int p = p0 + i;
-      float cutp = cut_s[p];
-      const float* xin = in_s + p * F + fg;
-#pragma unroll
-      for (int c = 0; c < FPT; ++c) acc[c] += (w[i][c] * cutp) * xin[16 * c];
-    }
-  }
-
-  // Row sums over the 4 column groups of each row, in order.
-  __syncthreads();
-  float* red = a_s;  // [16 pair groups][F]
-#pragma unroll
-  for (int c = 0; c < FPT; ++c) red[pg * F + fg + 16 * c] = acc[c];
-  __syncthreads();
-  for (int e = tid; e < ROWS * F; e += THREADS) {
-    int rr = e / F, f = e % F;
-    if (r0 + rr >= A) continue;
-    const float* q = red + rr * 4 * F + f;
-    out[(size_t)(base + r0 + rr) * F + f] =
-        ((q[0] + q[F]) + q[2 * F]) + q[3 * F];
-  }
+// Forward at fp32, on the CUDA cores: out of a work item's rows.
+//
+// Replaces _fwd_kernel (flashmd_tpu/ops/pallas/cfconv.py:137) at fp32 (and
+// bf16x3, which ops/cfconv.py routes here), as nbr_fwd_mma_kernel does at
+// bf16. Bound: operations, per live slot 2 (R F + F F) FLOP of the two
+// products (+ 3 F elementwise) at the 67 TFLOP/s float32 peak: 0.5976 ms
+// at the pallas slice's start (871,318 live slots, R = 50, F = 128).
+//
+// Design: nbr_fwd_mma_kernel's items and vote with dense_fwd_ffma_kernel's
+// tile (fwd_items<false> over [0, K) with src = x). A persistent grid
+// stages w0 and w1 as float32 once per block (101 KB); each of its FF_WARPS
+// warps owns work items of DM_RW rows and votes each row's slots 32 at a
+// time, all K of them (between Verlet rebuilds a live slot may follow a
+// dead one), a slot live where its mask is set and d < rc (a masked slot
+// holds the row's own index, at d = 1e-6, so the mask decides; idx is read
+// for the masked-in slots only). The live ones enter the ring as (row - r0)
+// << 16 | idx[row][k], the partner atom. Every DF_TILE = 16 entries are one
+// tile (fwd_ffma_tile): a0 and W as register-tiled float32 FMAs (8 slots x
+// 8 columns a lane), tanhf and expf at the twin's places, then out_i +=
+// (W cut) x_j in ring order, which is slot order within a row, into the
+// item's out rows, which its warp owns; rows with no live slot are stored
+// as zeros. No atomics; results are bitwise reproducible.
+__global__ void __launch_bounds__(FF_WARPS * 32, 1)
+nbr_fwd_ffma_kernel(const float* __restrict__ pos,
+                    const float* __restrict__ x, const int* __restrict__ idx,
+                    const unsigned char* __restrict__ mask,
+                    const float* __restrict__ w0,
+                    const float* __restrict__ b0,
+                    const float* __restrict__ w1,
+                    const float* __restrict__ offset,
+                    const float* __restrict__ coeff_p,
+                    float* __restrict__ out, int S, int A, int K, int R,
+                    float rcut, float arg_scale, float dcut_scale) {
+  extern __shared__ float4 ffma_smem4[];
+  fwd_items<false>(
+      ffma_smem4, pos, x, w0, b0, w1, offset, coeff_p, out, S, A, R, rcut,
+      arg_scale, dcut_scale, [=](int, int) { return make_int2(0, K); },
+      [=](int s, const float* ps, int i, int k, int& j) {
+        const size_t slot = ((size_t)s * A + i) * K + k;
+        if (!mask[slot]) return false;
+        j = idx[slot];
+        float d, cut, dcut, rel[3];
+        return pair_geom(ps + i * 3, ps + j * 3, true, rcut, arg_scale,
+                         dcut_scale, d, cut, dcut, rel);
+      });
 }
 
 // Backward, first pass at fp32, on the CUDA cores: gd of every slot of a
@@ -555,16 +478,15 @@ int cfconv_fwd(const float* pos, const int* idx, const unsigned char* mask,
   if (!sizes_ok(S, A, K, Fdim, R)) return (int)cudaErrorInvalidValue;
   float arg_scale = (float)(PI / (double)rcut);
   float dcut_scale = (float)(-0.5 * (PI / (double)rcut));
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) {
-    void* args[] = {&pos, &x, &idx, &mask, &w0, &b0, &w1, &offset, &coeff,
-                    &out, &S, &A, &K, &R, &rcut, &arg_scale, &dcut_scale};
-    return (int)launch_persistent(nbr_fwd_mma_kernel, FW_WARPS, FW_SMEM,
-                                  S * ((A + DM_RW - 1) / DM_RW), st, args);
-  }
   void* args[] = {&pos, &x, &idx, &mask, &w0, &b0, &w1, &offset, &coeff,
-                  &out, &A, &K, &R, &rcut, &arg_scale, &dcut_scale};
-  return (int)launch(conv_kernel, CONV_FLOATS, S, A, st, args);
+                  &out, &S, &A, &K, &R, &rcut, &arg_scale, &dcut_scale};
+  const int n_items = S * ((A + DM_RW - 1) / DM_RW);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return (int)launch_persistent(nbr_fwd_mma_kernel, FW_WARPS, FW_SMEM,
+                                  n_items, st, args);
+  return (int)launch_persistent(nbr_fwd_ffma_kernel, FF_WARPS, FF_SMEM,
+                                n_items, st, args);
 }
 
 // gx may be null: then it is not computed (the block's input is
@@ -622,13 +544,13 @@ int cfconv_bwd(const float* pos, const int* idx, const unsigned char* mask,
 }
 
 // Dynamic shared memory per block, in bytes: of the forward at fp32 (kind
-// 0, conv_kernel), of the backward's first pass at fp32 (1, CUDA cores) or
+// 0, CUDA cores), of the backward's first pass at fp32 (1, CUDA cores) or
 // at bf16 (2, tensor cores), of the forward and of the backward's gx pass
 // at bf16 (3, tensor cores: both run fwd_mma_tile, with the same per-warp
 // areas).
 int cfconv_smem_bytes(int kind) {
   switch (kind) {
-    case 0: return (int)sizeof(float) * CONV_FLOATS;
+    case 0: return FF_SMEM;
     case 1: return DF_SMEM;
     case 2: return NB_SMEM;
     case 3: return FW_SMEM;

@@ -1,18 +1,11 @@
 // Device code shared by the exact-filter CFConv kernels of
 // cfconv_dense_kernels.cu (all pairs) and cfconv_kernels.cu (neighbour
-// matrix): the pair geometry; the 64-pair chunk layout, weight staging and
-// float32-FMA tile product of the fp32 neighbour-matrix forward
-// (conv_kernel); the tensor-core kernels' live-pair rings with their
-// filter-MLP tiles,
-// the backward's four products (bwd_mma_tile) and the forward's two
-// (fwd_mma_tile); the fp32 live-pair tiles on the CUDA cores, on the same
-// rings (bwd_ffma_tile, fwd_ffma_tile); and the forward-tile kernels' item
-// loop of both tiers (fwd_items).
-//
-// Chunk layout of conv_kernel: a block of THREADS threads owns ROWS rows and
-// walks their partners in chunks of COLS, so one chunk is NP = ROWS * COLS
-// pairs (p = row * COLS + col). Thread (pg = tid / 16, fg = tid % 16) holds
-// pairs p0 = 4 pg .. p0 + 3 (all of row pg / 4) and features fg + 16 c.
+// matrix): the pair geometry; the tensor-core kernels' live-pair rings with
+// their filter-MLP tiles, the backward's four products (bwd_mma_tile) and
+// the forward's two (fwd_mma_tile); the fp32 live-pair tiles on the CUDA
+// cores, on the same rings (bwd_ffma_tile, fwd_ffma_tile); and the
+// forward-tile kernels' item loop of both tiers (fwd_items), which the dense
+// and the neighbour-matrix forwards run at bf16 and at fp32.
 //
 // Precision tiers: the CUDA-core tiles compute float32 only; the bf16 tier
 // runs on the tensor-core tiles below, with the operands of the products
@@ -25,18 +18,9 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;     // threads per block of the gpos kernels
 constexpr int F = 128;           // filters: the kernels take exactly 128
-constexpr int FPT = F / 16;      // features per thread: f = fg + 16 c
 constexpr int RMAX = 64;         // radial basis functions, at most
-constexpr int ROWS = 4;          // destination rows per block
-constexpr int COLS = 16;         // partners per row and chunk
-constexpr int NP = ROWS * COLS;  // pairs per chunk: p = row * COLS + col
-constexpr int LDW = F + 1;       // padded weight row stride
-constexpr int LDA = NP + 4;      // padded pair stride of [k][pair] tiles
-
-// w0_s [RMAX][LDW] and w1_s [F][LDW], in floats.
-constexpr int W_FLOATS = RMAX * LDW + F * LDW;
 
 const double PI = 3.14159265358979323846;
 
@@ -45,25 +29,6 @@ __device__ __forceinline__ float sum16(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// w0 [R, F] -> w0_s [RMAX][LDW] (rows >= R zero), w1 [F, F] -> w1_s
-// [F][LDW]; b0 and offsets as they are.
-__device__ void load_weights(const float* __restrict__ w0,
-                             const float* __restrict__ b0,
-                             const float* __restrict__ w1,
-                             const float* __restrict__ offset, int R,
-                             float* w0_s, float* w1_s, float* b0_s,
-                             float* off_s) {
-  for (int e = threadIdx.x; e < RMAX * F; e += THREADS) {
-    int r = e / F, f = e % F;
-    w0_s[r * LDW + f] = r < R ? w0[r * F + f] : 0.0f;
-  }
-  for (int e = threadIdx.x; e < F * F; e += THREADS)
-    w1_s[(e / F) * LDW + e % F] = w1[e];
-  for (int e = threadIdx.x; e < F; e += THREADS) b0_s[e] = b0[e];
-  for (int e = threadIdx.x; e < RMAX; e += THREADS)
-    off_s[e] = e < R ? offset[e] : 0.0f;
 }
 
 // Pair geometry of rel = pj - pi; returns whether the pair contributes
@@ -83,33 +48,6 @@ __device__ __forceinline__ bool pair_geom(const float* pi, const float* pj,
   cut = inside ? 0.5f * (cosf(arg) + 1.0f) : 0.0f;
   dcut = inside ? dcut_scale * sinf(arg) : 0.0f;
   return inside;
-}
-
-// acc[i][c] += sum_{k < K} a_s[k * LDA + p0 + i] * b[k * kstride +
-// 16 c * cstride] for this thread's 4 pairs (p0..p0+3) and NC columns.
-template <int NC>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ a_s,
-                                          const float* __restrict__ b, int K,
-                                          int kstride, int cstride, int p0,
-                                          float (&acc)[4][NC]) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float4 a = *reinterpret_cast<const float4*>(a_s + k * LDA + p0);
-    float av[4] = {a.x, a.y, a.z, a.w};
-    float bv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) bv[c] = b[k * kstride + 16 * c * cstride];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-  }
-}
-
-__device__ __forceinline__ void store4(float* dst, const float (&v)[4][FPT],
-                                       int c) {
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
 }
 
 // ---------------------------------------------------------------------------
@@ -606,23 +544,6 @@ cudaError_t launch_persistent(K kernel, int warps, int smem, int n_items,
   return cudaGetLastError();
 }
 
-// Launch on a (row tiles of ROWS, molecules) grid with `floats` floats of
-// dynamic shared memory.
-template <typename K>
-cudaError_t launch(K kernel, int floats, int S, int A, cudaStream_t stream,
-                   void** args) {
-  size_t smem = sizeof(float) * (size_t)floats;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((A + ROWS - 1) / ROWS, S);
-  err = cudaLaunchKernel((const void*)kernel, grid, dim3(THREADS), args, smem,
-                         stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-
 // ---------------------------------------------------------------------------
 // The fp32 live-pair tiles on the CUDA cores: the tensor-core kernels' ring
 // and work items, with the filter-MLP products as register-tiled float32
@@ -667,11 +588,13 @@ constexpr int DF_SMEM = 4 * (DF_W_FLOATS + DF_WARPS * DF_WARP_FLOATS);
 // per-pair d, cut and dcut, the item's out rows, the ring
 constexpr int FF_WARP_FLOATS = DF_TILE * F + 4 * DF_TILE + DM_RW * F +
                                DM_RING;
-// warps per block of the forward: two on each of the SM's four schedulers
-// (237 registers a thread). Shared memory holds 12 beside the staged
-// weights, but 12 warps cap a thread at 168 registers and spill
-// (tools/bwd_variants.py dense_cfconv_fwd_fp32, dense slice, H100 80GB
-// HBM3, 700 W: 8 warps 1.884 ms, 4 2.146, 6 2.241, 12 2.067).
+// warps per block of the forward, dense and neighbour-matrix: two on each
+// of the SM's four schedulers (237 and 255 registers a thread). Shared
+// memory holds 12 beside the staged weights, but 12 warps cap a thread at
+// 168 registers and spill (tools/bwd_variants.py, H100 80GB HBM3, 700 W:
+// dense_cfconv_fwd_fp32 on the dense slice, 8 warps 1.884 ms, 4 2.146, 6
+// 2.241, 12 2.067; cfconv_fwd_fp32 on the pallas slice's list, 8 warps
+// 1.869, 4 2.159-2.169, 6 2.223-2.260, 12 1.971-1.988).
 constexpr int FF_WARPS = 8;
 static_assert(4 * (DF_W_FLOATS + FF_WARPS * FF_WARP_FLOATS) <= 232448,
               "the fp32 forward's shared memory");

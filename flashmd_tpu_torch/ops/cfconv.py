@@ -30,18 +30,19 @@ with idx = j. The twin (``_slot_gd``, then ``_slot_sums``) scatters the
 column side with ``index_add_``; the kernels gather it through the source
 CSR of the list (neighborlist.py), with no atomics.
 
-On the card both bf16 kernels run on the tensor cores over the live slots
-only (mask set and d < rc, voted over all K slots of a row: between
-rebuilds the live slots of a row need not be its first). The forward adds
+On the card every kernel with a filter MLP runs over the live slots only
+(mask set and d < rc, voted over all K slots of a row: between rebuilds
+the live slots of a row need not be its first): the bf16 ones on the
+tensor cores, the fp32 ones as register-tiled float32 FMAs on the CUDA
+cores, 16 live slots of a work item's rows at a time. The forward adds
 nothing for the others, the backward writes gd = 0 for them: exact, as
 the twins' MLP products enter only through cut and dcut, which are zero
-there. The backward's gx pass computes W of each live incoming slot again
-over the source CSR, so it needs no [S, A, K, F] workspace. The fp32
-backward's first pass runs the same live slots through register-tiled
-float32 FMAs on the CUDA cores and stores W of each live slot in that
-workspace (1.5 GB at S = 128, A = 266, K = 88), which its gx pass reads
-back. The fp32 forward runs float32 tiles on every 4 x 16 chunk of slots
-that holds a live one.
+there. The forward sums each row's (W cut) x_j in slot order, so a row
+with no live slot is exactly zero. The bf16 backward's gx pass computes W
+of each live incoming slot again over the source CSR, so it needs no
+[S, A, K, F] workspace; the fp32 backward's first pass stores W of each
+live slot in that workspace (1.5 GB at S = 128, A = 266, K = 88), which
+its gx pass reads back.
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches its kernel or raises; there is no fallback. Each

@@ -1252,10 +1252,10 @@ def test_nbr_kernels_match_twins(dev, precision, capacity):
     assert none is None and torch.equal(gpos_only, gpos)
 
 
-# The tensor-core neighbour-matrix kernels (bf16): each work item's live
-# slots in 16-slot tiles (the forward adds nothing for the others, the
-# backward writes gd = 0 for them), gx over the source CSR with W computed
-# again; ragged atom counts.
+# The live-slot neighbour-matrix kernels (bf16 on the tensor cores, fp32 on
+# the CUDA cores): each work item's live slots in 16-slot tiles (the
+# forward adds nothing for the others, the backward writes gd = 0 for
+# them), gx over the source CSR; ragged atom counts.
 NBR_ATOMS = [33, 70, 266]
 
 
@@ -1288,33 +1288,43 @@ def _nbr_tc_case(dev, a, capacity, stale):
     return pos, x, g, w, nbr
 
 
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
 @pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
 @pytest.mark.parametrize("capacity", [96, 32])
 @pytest.mark.parametrize("a", NBR_ATOMS)
-def test_nbr_tensor_core_fwd_matches_twin(dev, a, capacity, stale):
-    """out against the bf16 twin (2e-3 of max|twin|), two launches bitwise
-    equal (_nbr_tc_case)."""
+def test_nbr_tensor_core_fwd_matches_twin(dev, a, capacity, stale,
+                                          precision):
+    """out of the live-slot forward (nbr_fwd_mma_kernel at bf16,
+    nbr_fwd_ffma_kernel at fp32) against the twin of its tier (2e-3 and
+    1e-5 of max|twin|), two launches bitwise equal (_nbr_tc_case); every
+    row with no live slot exactly zero, as the twin's."""
     pos, x, _, w, nbr = _nbr_tc_case(dev, a, capacity, stale)
-    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
-    again = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
-    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, precision)
+    again = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, precision)
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT,
+                              precision)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
-    assert _rel(out, ref) <= BOUNDS["bf16"]["fwd"]
+    assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    d = cf._slot_geometry(pos, nbr.idx, nbr.mask, w[3], w[4], RCUT)[1]
+    empty = ~(nbr.mask & (d < RCUT)).any(dim=-1)
+    assert not bool(ref[empty].any()) and not bool(out[empty].any())
 
 
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
 @pytest.mark.parametrize("a", NBR_ATOMS)
-def test_nbr_tensor_core_fwd_all_dead(dev, a):
+def test_nbr_tensor_core_fwd_all_dead(dev, a, precision):
     """A list built on compact positions, then every atom moved onto a
     grid of spacing 1.2 RCUT: every listed slot at d >= RCUT. out is
-    exactly zero, as the twin's."""
+    exactly zero, as the twin's, at bf16 and fp32."""
     _, x, _, w = _dense_inputs(dev, 2, a, seed=a)
     nbr = batched_radius_neighbor_matrix(
         _gd_layout(dev, 2, a, "compact", seed=a), RCUT + 1.0, 32)
     assert bool(nbr.mask.any())
     pos = _gd_layout(dev, 2, a, "none", seed=a)
-    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
-    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16")
+    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, precision)
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT,
+                              precision)
     torch.cuda.synchronize()
     assert float(ref.abs().max()) == 0.0
     assert float(out.abs().max()) == 0.0
@@ -1433,6 +1443,59 @@ def test_nbr_fp32_bwd_at_the_slice_width(dev):
             for k, r in zip(first, ref):
                 if r is not None:
                     assert _rel(k, r) <= BOUNDS["fp32"]["bwd"]
+
+
+def test_nbr_fp32_fwd_at_the_slice_width(dev):
+    """The pallas fp32 slice's field (cgschnet_1enh_like at fp32: 266
+    beads, batch 128, F = 128, R = 50) on its own list (K = 88, rc + skin
+    1.0) at the start positions and with the atoms moved (a stale list):
+    the fp32 forward within 1e-5 of the twin, three launches bitwise
+    equal."""
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    ff, cfgs = cgschnet_1enh_like(n_atoms=266, batch_size=128,
+                                  message_passing="pallas",
+                                  precision="fp32", device=dev)
+    pos = collate(cfgs, device=dev).pos
+    nbr = build_neighbors(ff, pos, skin=1.0)
+    assert nbr.capacity == 88
+    layers = ff.schnet_params["interactions"][0]["filter"]["layers"]
+    rbf = ff.schnet_params["rbf"]
+    w = (layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
+         rbf["coeff"])
+    rcut = float(ff.schnet_config.cutoff.cutoff_upper)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(*pos.shape[:2], 128, generator=gen, device=dev)
+    moved = pos + 0.3 * torch.randn(pos.shape, generator=gen, device=dev)
+    for p in (pos, moved):
+        first = cf.cfconv_fwd(p, nbr.idx, nbr.mask, x, *w, rcut, "fp32")
+        ref = cf.cfconv_fwd_plain(p, nbr.idx, nbr.mask, x, *w, rcut,
+                                  "fp32")
+        for _ in range(2):
+            assert torch.equal(
+                cf.cfconv_fwd(p, nbr.idx, nbr.mask, x, *w, rcut, "fp32"),
+                first)
+        assert bool(torch.isfinite(first).all())
+        assert _rel(first, ref) <= BOUNDS["fp32"]["fwd"]
+
+
+def test_nbr_fp32_fwd_bitwise_reproducible(dev):
+    """The fp32 forward, bitwise equal over launches and batch orders: a
+    molecule's rows do not depend on which warp or block runs them."""
+    pos, x, _, w, nbr = _nbr_case(dev, 3, 90, 32, seed=2)
+    first = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "fp32")
+    for _ in range(3):
+        assert torch.equal(
+            cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "fp32"),
+            first)
+    flip = torch.flip
+    rev = batched_radius_neighbor_matrix(flip(pos, [0]).contiguous(),
+                                         RCUT + 1.0, 32)
+    out = cf.cfconv_fwd(flip(pos, [0]).contiguous(), rev.idx, rev.mask,
+                        flip(x, [0]).contiguous(), *w, RCUT, "fp32")
+    assert torch.equal(flip(out, [0]), first)
 
 
 def test_nbr_fp32_bwd_bitwise_reproducible(dev):

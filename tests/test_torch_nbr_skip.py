@@ -29,6 +29,14 @@ the reference's ``_bwd_kernel`` (Pallas, interpreted) within 1e-5, with
 and without gx, on stale and overflowed lists with a row that has no live
 slot; and the slots whose W the first pass writes are exactly the ones
 whose geometry, taken the gx pass's way, is live.
+
+``cfconv_fwd`` at fp32 (and bf16x3) runs the bf16 forward's live slots
+through the same float32 tiles, each row's (W cut) x_j summed in ring
+order, which is slot order within the row: a ring-order emulation of it
+equals ``cfconv_fwd_plain`` at fp32 and the reference's ``_fwd_kernel``
+(Pallas, interpreted) within 1e-5 of max|ref|, on symmetric and
+overflowed lists, fresh and stale, and the row with no live slot is
+exactly zero in all three.
 """
 
 import jax.numpy as jnp
@@ -36,7 +44,8 @@ import numpy as np
 import pytest
 import torch
 
-from flashmd_tpu.ops.pallas.cfconv import _fused_cfconv_bwd
+from flashmd_tpu.ops.pallas.cfconv import (_fused_cfconv_bwd,
+                                           _fused_cfconv_fwd)
 from flashmd_tpu_torch.ops import cfconv as cf
 from flashmd_tpu_torch.ops._launch import _op
 from flashmd_tpu_torch.ops.neighborlist import batched_radius_neighbor_matrix
@@ -282,6 +291,29 @@ def _ring_order_bwd(pos, nbr, x, g, w0, b0, w1, offset, coeff, need_gx):
     return gpos, gx, wbuf
 
 
+def _ring_order_fwd(pos, nbr, x, w0, b0, w1, offset, coeff):
+    """The fp32 forward kernel in plain float32: each row's live slots
+    (mask set and d < rc), in slot order (the ring's), run the two
+    products; out of the row is the running sum of (W cut) x_j in that
+    order, zero for a row with no live slot."""
+    _, d, cut, _, _, rbf = cf._slot_geometry(pos, nbr.idx, nbr.mask, offset,
+                                             coeff, RCUT)
+    n_s, a, _ = nbr.idx.shape
+    live = nbr.mask & (d < RCUT)
+    out = torch.zeros_like(x)
+    for s in range(n_s):
+        for i in range(a):
+            ks = torch.nonzero(live[s, i])[:, 0]
+            if ks.numel() == 0:
+                continue
+            w = torch.tanh(rbf[s, i, ks] @ w0 + b0) @ w1
+            acc = torch.zeros(x.shape[-1])
+            for p, k in enumerate(ks):
+                acc = acc + (w[p] * cut[s, i, k]) * x[s, nbr.idx[s, i, k]]
+            out[s, i] = acc
+    return out
+
+
 def _close(out, ref, bound=1e-5):
     ref = np.asarray(ref)
     return np.abs(np.asarray(out) - ref).max() <= bound * np.abs(ref).max()
@@ -320,6 +352,34 @@ def test_ring_order_matches_the_twin_and_pallas(kind, stale, need_gx):
         assert _close(gpos[s].numpy(), cts[0])
         if need_gx:
             assert _close(gx[s].numpy(), cts[3])
+
+
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("kind", ["symmetric", "overflowed"])
+def test_forward_ring_order_matches_the_twin_and_pallas(kind, stale):
+    """The fp32 live-slot forward's emulation against the fp32 twin and
+    the reference's Pallas forward (interpreted), within 1e-5 of
+    max|ref|; the last row of each molecule has no live slot, and its out
+    is exactly zero in all three."""
+    pos, nbr = _lone_case(kind, stale, seed=10)
+    x, _, (w0, b0, w1, offset, coeff) = _operands(seed=11)
+    _, dead = _geometry(pos, nbr, offset, coeff)
+    assert bool(dead[:, -1].all())  # the lone row
+    assert (int(nbr.n_max.max()) > CAPACITY[kind]) == (kind == "overflowed")
+    out = _ring_order_fwd(pos, nbr, x, w0, b0, w1, offset, coeff)
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, w0, b0, w1, offset,
+                              coeff, RCUT, "fp32")
+    assert _close(out.numpy(), ref.numpy())
+    assert not bool(out[:, -1].any()) and not bool(ref[:, -1].any())
+    weights = tuple(jnp.asarray(v.numpy()) for v in (w0, b0, w1))
+    rbf = (jnp.asarray(offset.numpy()), jnp.asarray(coeff.numpy()))
+    for s in range(S):
+        jout, _ = _fused_cfconv_fwd(
+            jnp.asarray(pos[s].numpy()), jnp.asarray(nbr.idx[s].numpy()),
+            jnp.asarray(nbr.mask[s].numpy().astype(np.float32)),
+            jnp.asarray(x[s].numpy()), *weights, rbf, RCUT, 8, "fp32")
+        assert _close(out[s].numpy(), jout)
+        assert not bool(np.asarray(jout)[-1].any())
 
 
 @pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])

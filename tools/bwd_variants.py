@@ -1,4 +1,4 @@
-"""Design variants of the tensor-core CFConv kernels, timed on the card.
+"""Design variants of the CFConv kernels, timed on the card.
 
     python3 tools/bwd_variants.py [function ...]
 
@@ -9,7 +9,7 @@ ptxas' registers and spills of its tensor-core kernels are printed, then
 the function at its slice's shapes is held against its twin and timed
 with CUDA events (batch 128, 266 beads, F = 128, bf16; the combined cheb
 backward also at bf16x3, on the bf16x3 slice's (64, 96) fit; the dense
-kernels and the neighbour-matrix backward also at fp32, on their CUDA-core
+and the neighbour-matrix kernels also at fp32, on their CUDA-core
 kernels; open boundaries; the neighbour-matrix kernels on the pallas
 slice's list). Naming functions (e.g. dense_cfconv_bwd_fp32) builds and
 times those alone:
@@ -48,6 +48,14 @@ times those alone:
   w8     -- 8 warps a block (up to 255 registers);
   w12    -- 12 warps a block (up to 168 registers);
   rw2    -- 2 rows per work item.
+* cfconv_fwd_fp32 (nbr_fwd_ffma_kernel, then the dense fp32 forward):
+  parent     -- the parent's conv_kernel (float32 tiles on every 4 x 16
+                chunk of slots that holds a live one, a block per 4 rows);
+  base       -- the source as it is (FF_WARPS warps a block);
+  w4, w6, w12 -- 4, 6 or 12 warps a block;
+  dense_base, dense_parent -- dense_fwd_ffma_kernel on the shared header
+                as it is and with the parent's chunk layout put back: its
+                times and whether the two agree bitwise.
 * cfconv_fwd (nbr_fwd_mma_kernel), as dense_cfconv_fwd:
   base   -- the source as it is (16 warps, at most 128 registers);
   w8     -- 8 warps a block (up to 255 registers);
@@ -206,8 +214,210 @@ nbr_gx_ffma_kernel(const float* __restrict__ pos,
 }
 
 """
-# (source, kernels of its ptxas lines, function): {variant: {file: {old:
-# new}}}; a file is the source or the shared header.
+# The parent's fp32 neighbour-matrix forward, for the cfconv_fwd_fp32
+# variants: the 64-slot chunk layout and its helpers, as the shared header
+# had them, and conv_kernel, with its launch on a (row tiles, molecules)
+# grid.
+CONV_CHUNK = """constexpr int FPT = F / 16;      // features per thread: f = fg + 16 c
+constexpr int ROWS = 4;          // destination rows per block
+constexpr int COLS = 16;         // partners per row and chunk
+constexpr int NP = ROWS * COLS;  // pairs per chunk: p = row * COLS + col
+constexpr int LDW = F + 1;       // padded weight row stride
+constexpr int LDA = NP + 4;      // padded pair stride of [k][pair] tiles
+
+// w0_s [RMAX][LDW] and w1_s [F][LDW], in floats.
+constexpr int W_FLOATS = RMAX * LDW + F * LDW;
+
+// w0 [R, F] -> w0_s [RMAX][LDW] (rows >= R zero), w1 [F, F] -> w1_s
+// [F][LDW]; b0 and offsets as they are.
+__device__ void load_weights(const float* __restrict__ w0,
+                             const float* __restrict__ b0,
+                             const float* __restrict__ w1,
+                             const float* __restrict__ offset, int R,
+                             float* w0_s, float* w1_s, float* b0_s,
+                             float* off_s) {
+  for (int e = threadIdx.x; e < RMAX * F; e += THREADS) {
+    int r = e / F, f = e % F;
+    w0_s[r * LDW + f] = r < R ? w0[r * F + f] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < F * F; e += THREADS)
+    w1_s[(e / F) * LDW + e % F] = w1[e];
+  for (int e = threadIdx.x; e < F; e += THREADS) b0_s[e] = b0[e];
+  for (int e = threadIdx.x; e < RMAX; e += THREADS)
+    off_s[e] = e < R ? offset[e] : 0.0f;
+}
+
+// acc[i][c] += sum_{k < K} a_s[k * LDA + p0 + i] * b[k * kstride +
+// 16 c * cstride] for this thread's 4 pairs (p0..p0+3) and NC columns.
+template <int NC>
+__device__ __forceinline__ void gemm_tile(const float* __restrict__ a_s,
+                                          const float* __restrict__ b, int K,
+                                          int kstride, int cstride, int p0,
+                                          float (&acc)[4][NC]) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float4 a = *reinterpret_cast<const float4*>(a_s + k * LDA + p0);
+    float av[4] = {a.x, a.y, a.z, a.w};
+    float bv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) bv[c] = b[k * kstride + 16 * c * cstride];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+  }
+}
+
+__device__ __forceinline__ void store4(float* dst, const float (&v)[4][FPT],
+                                       int c) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(v[0][c], v[1][c], v[2][c], v[3][c]);
+}
+
+// Launch on a (row tiles of ROWS, molecules) grid with `floats` floats of
+// dynamic shared memory.
+template <typename K>
+cudaError_t launch(K kernel, int floats, int S, int A, cudaStream_t stream,
+                   void** args) {
+  size_t smem = sizeof(float) * (size_t)floats;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((A + ROWS - 1) / ROWS, S);
+  err = cudaLaunchKernel((const void*)kernel, grid, dim3(THREADS), args, smem,
+                         stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+"""
+CONV_KERNEL = """constexpr int CONV_FLOATS = W_FLOATS + RMAX * LDA + F * LDA + NP * F;
+
+// Slot e of flat row `row`: its partner atom (local index), or -1 where
+// the slot is masked.
+__device__ __forceinline__ int partner_of(
+    const int* __restrict__ idx, const unsigned char* __restrict__ mask,
+    int row, int e, int K) {
+  int slot = row * K + e;
+  return mask[slot] ? idx[slot] : -1;
+}
+
+// Forward at fp32: out[i] = sum_k W_ik * cut_ik * x[idx[i, k]]. Grid: (row
+// tiles of ROWS, molecules).
+__global__ void __launch_bounds__(THREADS, 1)
+conv_kernel(const float* __restrict__ pos, const float* __restrict__ x,
+            const int* __restrict__ idx,
+            const unsigned char* __restrict__ mask,
+            const float* __restrict__ w0, const float* __restrict__ b0,
+            const float* __restrict__ w1, const float* __restrict__ offset,
+            const float* __restrict__ coeff_p, float* __restrict__ out, int A,
+            int K, int R, float rcut, float arg_scale, float dcut_scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* w0_s = smem;               // [RMAX][LDW]
+  float* w1_s = w0_s + RMAX * LDW;  // [F][LDW]
+  float* rbf_s = w1_s + F * LDW;    // [RMAX][LDA]
+  float* a_s = rbf_s + RMAX * LDA;  // [F][LDA]
+  float* in_s = a_s + F * LDA;      // [NP][F]: the partners' x
+  __shared__ float b0_s[F], off_s[RMAX];
+  __shared__ float pr_s[ROWS][3], d_s[NP], cut_s[NP];
+  __shared__ int part_s[NP];
+
+  const int s = blockIdx.y;
+  const int r0 = blockIdx.x * ROWS;
+  const int base = s * A;
+  const int tid = threadIdx.x;
+  const int fg = tid & 15, pg = tid >> 4, p0 = 4 * pg;
+  const float coeff = *coeff_p;
+
+  load_weights(w0, b0, w1, offset, R, w0_s, w1_s, b0_s, off_s);
+  if (tid < ROWS * 3) {
+    int r = tid / 3, c = tid % 3;
+    pr_s[r][c] = r0 + r < A ? pos[(size_t)(base + r0 + r) * 3 + c] : 0.0f;
+  }
+  float acc[FPT];
+#pragma unroll
+  for (int c = 0; c < FPT; ++c) acc[c] = 0.0f;
+
+  for (int e0 = 0; e0 < K; e0 += COLS) {
+    __syncthreads();  // the previous chunk is done with every tile
+    bool live = false;
+    if (tid < NP) {
+      int rr = tid / COLS, e = e0 + tid % COLS;
+      int part = r0 + rr < A && e < K
+                     ? partner_of(idx, mask, base + r0 + rr, e, K)
+                     : -1;
+      part_s[tid] = part;
+      float pc[3] = {0.0f, 0.0f, 0.0f};
+      if (part >= 0) {
+        const float* q = pos + (size_t)(base + part) * 3;
+        pc[0] = q[0];
+        pc[1] = q[1];
+        pc[2] = q[2];
+      }
+      float d, cut, dcut, rel[3];
+      live = pair_geom(pr_s[rr], pc, part >= 0, rcut, arg_scale, dcut_scale,
+                       d, cut, dcut, rel);
+      d_s[tid] = d;
+      cut_s[tid] = cut;
+    }
+    if (!__syncthreads_or(live)) continue;  // the chunk adds exactly zero
+
+    for (int e = tid; e < NP * F; e += THREADS) {
+      int part = part_s[e / F];
+      in_s[e] = part >= 0 ? x[(size_t)(base + part) * F + e % F] : 0.0f;
+    }
+    for (int e = tid; e < R * NP; e += THREADS) {
+      int r = e / NP, p = e % NP;
+      float dr = d_s[p] - off_s[r];
+      rbf_s[r * LDA + p] = expf(coeff * (dr * dr)) * cut_s[p];
+    }
+    __syncthreads();
+    float t[4][FPT] = {};
+    gemm_tile<FPT>(rbf_s, w0_s + fg, R, LDW, 1, p0, t);
+#pragma unroll
+    for (int c = 0; c < FPT; ++c) {
+      int f = fg + 16 * c;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t[i][c] = tanhf(t[i][c] + b0_s[f]);
+      store4(a_s + f * LDA + p0, t, c);
+    }
+    __syncthreads();
+    float w[4][FPT] = {};
+    gemm_tile<FPT>(a_s, w1_s + fg, F, LDW, 1, p0, w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int p = p0 + i;
+      float cutp = cut_s[p];
+      const float* xin = in_s + p * F + fg;
+#pragma unroll
+      for (int c = 0; c < FPT; ++c) acc[c] += (w[i][c] * cutp) * xin[16 * c];
+    }
+  }
+
+  // Row sums over the 4 column groups of each row, in order.
+  __syncthreads();
+  float* red = a_s;  // [16 pair groups][F]
+#pragma unroll
+  for (int c = 0; c < FPT; ++c) red[pg * F + fg + 16 * c] = acc[c];
+  __syncthreads();
+  for (int e = tid; e < ROWS * F; e += THREADS) {
+    int rr = e / F, f = e % F;
+    if (r0 + rr >= A) continue;
+    const float* q = red + rr * 4 * F + f;
+    out[(size_t)(base + r0 + rr) * F + f] =
+        ((q[0] + q[F]) + q[2 * F]) + q[3 * F];
+  }
+}
+
+"""
+NB_FWD32 = """  return (int)launch_persistent(nbr_fwd_ffma_kernel, FF_WARPS, FF_SMEM,
+                                n_items, st, args);"""
+NB_FWD32_PARENT = """  void* cargs[] = {&pos, &x, &idx, &mask, &w0, &b0, &w1, &offset, &coeff,
+                   &out, &A, &K, &R, &rcut, &arg_scale, &dcut_scale};
+  return (int)launch(conv_kernel, CONV_FLOATS, S, A, st, cargs);"""
+TILE_PI = "const double PI = 3.14159265358979323846;\n"
+# (source, kernels of its ptxas lines ("|" between names), function):
+# {variant: {file: {old: new}}}; a file is the source or the shared header.
 VARIANTS = {
     ("cheb_kernels.cu", "gxgd_mma_kernel", "cheb_bwd_gxgd"): {
         "base": {},
@@ -264,6 +474,20 @@ VARIANTS = {
   return (int)launch_persistent(nbr_gx_ffma_kernel, FF_WARPS, FF_SMEM,
                                 n_items, st, gargs);"""}},
     },
+    (NBR, "11conv_kernelE|nbr_fwd_ffma_kernelE", "cfconv_fwd_fp32"): {
+        "parent": {NBR: {NB_SIZES: CONV_CHUNK + CONV_KERNEL + NB_SIZES,
+                         NB_FWD32: NB_FWD32_PARENT}},
+        "base": {},
+        "w4": {TILE: {FF_W: FF_W.replace("8;", "4;")}},
+        "w6": {TILE: {FF_W: FF_W.replace("8;", "6;")}},
+        "w12": {TILE: {FF_W: FF_W.replace("8;", "12;")}},
+    },
+    # the dense fp32 forward built on the header as it is and as the
+    # parent had it (with the chunk layout)
+    (DENSE, "dense_fwd_ffma_kernel", "cfconv_fwd_fp32"): {
+        "dense_base": {},
+        "dense_parent": {TILE: {TILE_PI: TILE_PI + "\n" + CONV_CHUNK}},
+    },
     ("cfconv_dense_kernels.cu", "dense_fwd_mma_kernel", "dense_cfconv_fwd"): {
         "base": {},
         "w8": {TILE: {FW: FW.replace("16;", "8; ")}},
@@ -315,17 +539,20 @@ def build_all(tmp, only=()):
             raise SystemExit(f"FAILED: {fn} {name} does not build\n"
                              f"{log[-4000:]}")
         for line in cs.ptxas_summary(log):
-            if kernel in line.split(":")[0]:
+            if any(k in line.split(":")[0] for k in kernel.split("|")):
                 print(f"variant {fn} {name}: {line[-90:]}")
         lib = ctypes.CDLL(str(tmp / f"{fn}_{name}" / "lib.so"))
-        sym = fn.removesuffix("_fp32")
-        getattr(lib, sym).argtypes = _build._SIGNATURES[sym]
-        getattr(lib, sym).restype = ctypes.c_int
+        for sym, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, sym):
+                getattr(lib, sym).argtypes = argtypes
+                getattr(lib, sym).restype = ctypes.c_int
         libs[fn, name] = lib
     return libs
 
 
 def report(label, call, out, ref, ref32=None):
+    """Runs ``call``, holds ``out`` against ``ref`` and times ``call``;
+    returns the ms."""
     call()
     torch.cuda.synchronize()
     rel = max(float((o - r).abs().max() / r.abs().max())
@@ -337,6 +564,7 @@ def report(label, call, out, ref, ref32=None):
         extra = f", ||k-p|| / ||k-p_fp32|| {near:.3e}"
     ms = cs.cuda_time_ms(call, warmup=2, iters=20)
     print(f"variant {label}: max|k-p|/max|p| {rel:.3e}{extra}, {ms:.4f} ms")
+    return ms
 
 
 def gxgd_cases(libs, dev):
@@ -512,6 +740,64 @@ def nbr_cases(libs, dev):
             report(f"{fn} {name} bf16", call, (out,), ref_fwd)
 
 
+def fwd_fp32_cases(libs, dev):
+    """cfconv_fwd_fp32: each variant's neighbour-matrix forward on the
+    pallas slice's list against the fp32 twin, timed in turns (the
+    variants in order, then in reverse); then the dense fp32 forward built
+    on the header as it is and as the parent had it, on the dense slice,
+    in turns: its times, and whether the two builds agree bitwise."""
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+
+    names = [name for fn, name in libs
+             if fn == "cfconv_fwd_fp32" and not name.startswith("dense_")]
+    if not names:
+        return
+    ff, pos, x, _, w, rcut = _filter_case(dev, "pallas", 13)
+    nbr = build_neighbors(ff, pos, skin=1.0)
+    s, a, k = nbr.idx.shape
+    r, f = w[0].shape
+    ref = (cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, rcut, "fp32"),)
+    times = {}
+    for name in names + names[::-1]:
+        lib, out = libs["cfconv_fwd_fp32", name], torch.empty_like(x)
+
+        def call(lib=lib, out=out, name=name):
+            rc = lib.cfconv_fwd(
+                _ptr(pos), _ptr(nbr.idx), _ptr(nbr.mask), _ptr(x),
+                *(_ptr(t) for t in w), _ptr(out), s, a, k, f, r, rcut, 0,
+                _stream())
+            if rc:
+                raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+        times.setdefault(name, []).append(
+            report(f"cfconv_fwd_fp32 {name}", call, (out,), ref))
+    for name, ms in times.items():
+        print(f"variant cfconv_fwd_fp32 {name}: {ms[0]:.4f}, {ms[1]:.4f} ms "
+              f"(base {times['base'][0]:.4f}, {times['base'][1]:.4f})")
+
+    _, pos, x, _, w, rcut = _filter_case(dev, "dense", 12)
+    s, a = pos.shape[0], pos.shape[1]
+    r, f = w[0].shape
+    ref = (cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, "fp32"),)
+    outs = {}
+    for name in ("dense_parent", "dense_base", "dense_base", "dense_parent"):
+        lib = libs["cfconv_fwd_fp32", name]
+        out = outs.setdefault(name, torch.empty_like(x))
+
+        def call(lib=lib, out=out, name=name):
+            rc = lib.dense_cfconv_fwd(
+                _ptr(pos), _ptr(x), *(_ptr(t) for t in w), _ptr(out), s, a,
+                f, r, rcut, 0, _stream())
+            if rc:
+                raise SystemExit(f"FAILED: {name}: CUDA {rc}")
+
+        report(f"cfconv_fwd_fp32 {name} (dense_cfconv_fwd fp32)", call,
+               (out,), ref)
+    same = torch.equal(outs["dense_base"], outs["dense_parent"])
+    print(f"variant cfconv_fwd_fp32: dense_fwd_ffma_kernel on the header as "
+          f"it is and as the parent had it, bitwise the same: {same}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
@@ -520,6 +806,7 @@ def main():
     gxgd_cases(libs, dev)
     dense_cases(libs, dev)
     nbr_cases(libs, dev)
+    fwd_fp32_cases(libs, dev)
     print(cs.nvidia_smi_line())
 
 
