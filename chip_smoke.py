@@ -313,7 +313,38 @@ Phases (each prints its lines; any failure exits non-zero):
                empty): launches 3 + 3 per force evaluation, frozen
                padding, n_max <= K.
 
-Then a kernels JSON line, the nvidia-smi line, and as the last line
+13. widths -- the exact-filter kernels at other widths than the zoo's F
+               128, R 50 (ops/cfconv_general.py: F <= 128, R <= 64 on the
+               tuned kernels zero-padded to F 128, every other width on
+               the general-width kernels of
+               csrc/cfconv_general_kernels.cu, whose twelve
+               instantiations' registers and spills print with the build
+               lines, spills gated 0 where the tiles are in shared
+               memory). Each of the four kernels at each (F, R) of WIDTHS,
+               at S = BATCH, A = N_ATOMS on the start positions and the
+               pallas slice's list rule: fp32 and bf16, the backwards with
+               and without gx, two launches bitwise equal at each tier,
+               against its twin, timed beside its bound (2 (R F + F^2)
+               FLOP per live pair or slot forward, twice that backward);
+               the padded widths beside the F 128, R 50 kernels' times;
+               the neighbour backward's peak memory at F 256 (gated below
+               NBR_BWD_MEMORY_LIMIT at both tiers). Then the widths
+               slices at WIDTH_SLICES (SchNet's published widths F 64, R
+               300 with CGSchNet's tanh filter, and F 256, R 50), each a
+               SchNet of hidden_channels = num_filters = F, num_rbf = R
+               from SchNetConfig and init_schnet on the zoo's chain,
+               priors and head: pallas bf16, pallas fp32 (gptq None) and
+               dense bf16, forces at FORCE_BATCH card (no twin call) vs
+               CPU twins (FORCE_BOUND, CROSS_BOUND at fp32), then
+               WIDTH_STEPS BAOAB steps (WIDTH_SHORT_STEPS once a run
+               passes WIDTH_LONG_S) with the general family's forward and
+               backward 3 each per force evaluation, every other counter
+               0, no twin call, finite positions; throughput, ms/step,
+               peak device memory and a profiler window.
+
+Then a kernels JSON line (the general family's entries after the others:
+each slice's forward and backward with its launches and the kernel-level
+numbers at its width and tier), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -516,6 +547,23 @@ SOURCES = {
 # takes three bf16 passes per product: a third of the bf16 rate.
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "bf16x3": 989e12 / 3}
 PEAK_BYTES = 3.35e12
+# The exact-filter kernels at other widths than the zoo's (F 128, R 50),
+# routed by ops/cfconv_general.py: the kernel-level (F, R) at S = BATCH,
+# A = N_ATOMS (SchNet's published widths, F 256, two widths padded onto the
+# tuned kernels and R 100), and the two configurations of the widths
+# slices: SchNet's published widths (Schuett et al., NeurIPS 2017: 64
+# features, 300 Gaussians) with CGSchNet's tanh filter, and F 256 at R 50
+# (the width of the JAX package's TPU lane, tests/ops/test_tpu_lane.py).
+# Each slice runs WIDTH_STEPS steps, WIDTH_SHORT_STEPS once a run has taken
+# more than WIDTH_LONG_S seconds.
+WIDTHS = ((64, 300), (256, 50), (96, 50), (64, 32), (128, 100))
+WIDTH_SLICES = ((64, 300), (256, 50))
+WIDTH_RUNS = (("pallas", "bf16"), ("pallas", "fp32"), ("dense", "bf16"))
+WIDTH_STEPS = 40
+WIDTH_SHORT_STEPS = 20
+WIDTH_LONG_S = 60.0
+WIDTH_SEED = 11
+GENERAL_SOURCE = "flashmd_tpu_torch/csrc/cfconv_general_kernels.cu"
 
 
 def check(cond, msg):
@@ -682,6 +730,53 @@ def ffma_kernel_report(log):
         print(f"build: fp32 kernel {label}: {regs} regs, spill {st}/{ld} B")
     FFMA_BUILD.update(seen)
     return seen
+
+
+# {label: (registers, spill stores, spill loads)} of the general-width
+# kernels, read from ptxas by general_kernel_report at the build:
+# gw_dense_fwd_kernel<GT>, gw_nbr_fwd_kernel<GT>, gw_nbr_gx_kernel<GT> and
+# gw_bwd_kernel<GX, NBR, GT> (GT: the tiles in device memory).
+GENERAL_BUILD = {}
+GENERAL_LABELS = (
+    *(f"{k}{gt}" for k in ("gw_dense_fwd_kernel", "gw_nbr_fwd_kernel",
+                           "gw_nbr_gx_kernel", "gw_bwd_kernel dense with gx",
+                           "gw_bwd_kernel dense no gx", "gw_bwd_kernel nbr")
+      for gt in ("", " (tiles in device memory)")),
+)
+
+
+def general_label(name):
+    """The GENERAL_LABELS entry of a mangled general-width kernel name, or
+    None for another kernel."""
+    m = re.search(r"(gw_\w+?_kernel)I((?:Lb[01]E)+)E", name)
+    if not m:
+        return None
+    flags = re.findall(r"Lb([01])E", m.group(2))
+    label = m.group(1)
+    if label == "gw_bwd_kernel":
+        gx, nbr, _ = flags
+        label += (" nbr" if nbr == "1" else
+                  " dense with gx" if gx == "1" else " dense no gx")
+    return label + (" (tiles in device memory)" if flags[-1] == "1" else "")
+
+
+def general_kernel_report(log):
+    """Registers and spills of the general-width kernels' twelve
+    instantiations (GENERAL_LABELS), printed; fails if one is missing or
+    one with its tiles in shared memory spills."""
+    for line in ptxas_summary(log):
+        label = general_label(line.split(":")[0])
+        if label:
+            regs = int(re.search(r": (\d+) regs", line).group(1))
+            st, ld = map(int, re.search(r"spill (\d+)/(\d+) B",
+                                        line).groups())
+            GENERAL_BUILD[label] = (regs, st, ld)
+    for label in GENERAL_LABELS:
+        check(label in GENERAL_BUILD, f"{label}: not built")
+        regs, st, ld = GENERAL_BUILD[label]
+        print(f"build: general kernel {label}: {regs} regs, spill {st}/{ld} "
+              "B")
+        check("device memory" in label or st == ld == 0, f"{label} spills")
 
 
 def mma_kernel_report(log, lib_path, nvcc):
@@ -1300,11 +1395,9 @@ def phase_nbr_kernels(ff, pos, dev):
     return stats, no_gx["ms"]
 
 
-def nbr_bwd_memory(pos, csr, x, g, w, rcut):
-    """Peak device memory of one cfconv_bwd with gx above what was
-    allocated before it (its inputs), at bf16 (gated below
-    NBR_BWD_MEMORY_LIMIT: no [S, A, K, F] workspace) and at fp32 (which
-    keeps one, printed)."""
+def nbr_bwd_peak(pos, csr, x, g, w, rcut):
+    """{tier: peak device memory of one cfconv_bwd with gx above what was
+    allocated before it (its inputs)} at bf16 and fp32."""
     from flashmd_tpu_torch.ops import cfconv as cf
 
     extra = {}
@@ -1316,6 +1409,13 @@ def nbr_bwd_memory(pos, csr, x, g, w, rcut):
         torch.cuda.synchronize()
         extra[prec] = torch.cuda.max_memory_allocated() - before
         del out
+    return extra
+
+
+def nbr_bwd_memory(pos, csr, x, g, w, rcut):
+    """nbr_bwd_peak at bf16 (gated below NBR_BWD_MEMORY_LIMIT: no
+    [S, A, K, F] workspace) and at fp32 (which keeps one, printed)."""
+    extra = nbr_bwd_peak(pos, csr, x, g, w, rcut)
     s, a, k = csr[0].shape
     print(f"kernels: cfconv_bwd memory at S={s} A={a} K={k}: peak above its "
           f"inputs bf16 {extra['bf16']} B ({extra['bf16'] / 1e6:.1f} MB; "
@@ -1872,9 +1972,10 @@ class AllKernels:
 
     @staticmethod
     def modules():
-        from flashmd_tpu_torch.ops import cfconv, cfconv_dense, cheb_kernel
+        from flashmd_tpu_torch.ops import (cfconv, cfconv_dense,
+                                           cfconv_general, cheb_kernel)
 
-        return (cheb_kernel, cfconv_dense, cfconv)
+        return (cheb_kernel, cfconv_dense, cfconv, cfconv_general)
 
     @classmethod
     def reset_launch_counts(cls):
@@ -4368,6 +4469,270 @@ def phase_mesh(smi):
                   "card; the check waits for a machine with more")
 
 
+# ---------------------------------------------------------------------------
+# The exact-filter kernels at every width (ops/cfconv_general.py)
+# ---------------------------------------------------------------------------
+
+def width_field(device, batch, f, r, message_passing, precision="bf16"):
+    """The zoo's chain at ``batch`` (priors, head, capacity rule and
+    configurations of cgschnet_1enh_like) with a SchNet of hidden_channels
+    = num_filters = f and num_rbf = r from SchNetConfig and init_schnet on
+    a seeded generator: the zoo takes no width arguments, as the JAX zoo
+    has none."""
+    from flashmd_tpu_torch.models.schnet import init_schnet
+
+    ff, cfgs = _force_fields(device, batch, message_passing=message_passing,
+                             precision=precision)
+    cfg = dataclasses.replace(ff.schnet_config, hidden_channels=f,
+                              num_filters=f, num_rbf=r)
+    params = init_schnet(cfg, torch.Generator().manual_seed(WIDTH_SEED),
+                         device)
+    return ff.replace(schnet_params=params, schnet_config=cfg), cfgs
+
+
+def filter_weights(ff):
+    """(w0, b0, w1, offset, coeff) of the first block's filter MLP."""
+    layers = ff.schnet_params["interactions"][0]["filter"]["layers"]
+    rbf = ff.schnet_params["rbf"]
+    return (layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
+            rbf["coeff"])
+
+
+def general_note(family, kernels, what):
+    """The fp32 line's note: the pairs or slots run and the registers and
+    spills of the general-width kernels that ran (the tuned ones' are in
+    the build lines)."""
+    if family == "tuned":
+        return f"{what}; tuned kernels, padded to F = 128"
+    regs = [f"{k}: {GENERAL_BUILD[k][0]} regs, spill {GENERAL_BUILD[k][1]}/"
+            f"{GENERAL_BUILD[k][2]} B" if k in GENERAL_BUILD else
+            f"{k}: registers not read" for k in kernels]
+    return f"{what}; " + "; ".join(regs)
+
+
+def phase_width_kernels(pos, dev):
+    """Each of the four exact-filter kernels at each width of WIDTHS, at
+    fp32 and bf16, the backwards with and without gx, against its twin on
+    the slice's start positions (S = BATCH, A = N_ATOMS; the neighbour
+    matrix from the zoo's capacity rule at rc + skin 1.0): two launches
+    bitwise equal at each tier, then compare_and_time with the bound of
+    2 (R F + F^2) FLOP per live pair or slot forward and twice that
+    backward. The padded widths print the padding's work factor beside the
+    F 128, R 50 kernels' times; at F 256, R 50 the neighbour backward's
+    peak memory. Returns {(name, tier, (f, r)): numbers}."""
+    from flashmd_tpu_torch.models.forcefield import build_neighbors
+    from flashmd_tpu_torch.ops import cfconv as cf
+    from flashmd_tpu_torch.ops import cfconv_dense as cd
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
+    s, a = pos.shape[:2]
+    out = {}
+    for f, r in WIDTHS:
+        ff, _ = width_field(dev, 1, f, r, "pallas")
+        rcut = float(ff.schnet_config.cutoff.cutoff_upper)
+        w = filter_weights(ff)
+        gen = torch.Generator(device=dev).manual_seed(f + r)
+        x = torch.randn(s, a, f, generator=gen, device=dev)
+        g = torch.randn(s, a, f, generator=gen, device=dev)
+        nbr = build_neighbors(ff, pos, skin=1.0)
+        k = nbr.capacity
+        csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+        n_pairs, exec_pairs = live_counts(pos, rcut)
+        n_slots, exec_slots = nbr_slot_counts(pos, nbr, rcut)[:2]
+        mlp = r * f + f * f
+        family = cg.route(f, r, "fp32")[0]
+        pad = (r * 128 + 128 * 128) / mlp
+        wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
+        lbytes = 5 * s * a * k
+        csr_bytes = 4 * (s * a + 1 + int(nbr.mask.sum()))
+        print(f"widths: kernels F={f} R={r} S={s} A={a} K={k}: the "
+              f"{family} kernels"
+              + (f" (padded to F = 128: {pad:.3f} x the useful MLP work)"
+                 if family == "tuned" else " (general width)")
+              + f"; live pairs {n_pairs} (run {exec_pairs}), live slots "
+              f"{n_slots} (run {exec_slots}); MLP multiply-adds per live "
+              f"pair {mlp}; FLOP fwd {n_pairs * 2 * mlp:.4e} bwd "
+              f"{n_pairs * 4 * mlp:.4e} (dense)")
+        fwd_k = ["gw_dense_fwd_kernel"]
+        cases = (
+            ("dense_cfconv_fwd", "",
+             lambda p: cd.dense_cfconv_fwd(pos, x, *w, rcut, p),
+             lambda p: cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, p),
+             n_pairs * 2 * mlp, 4 * (s * a * 3 + 2 * s * a * f) + wbytes,
+             fwd_k, f"pairs run {exec_pairs}"),
+            ("dense_cfconv_bwd", "",
+             lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p),
+             lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p),
+             n_pairs * 4 * mlp, 4 * (2 * s * a * 3 + 3 * s * a * f) + wbytes,
+             ["gw_bwd_kernel dense with gx"], f"pairs run {exec_pairs}"),
+            ("dense_cfconv_bwd", " (no gx)",
+             lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p,
+                                           need_gx=False)[0],
+             lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p,
+                                                 need_gx=False)[0],
+             n_pairs * 4 * mlp, 4 * (2 * s * a * 3 + 2 * s * a * f) + wbytes,
+             ["gw_bwd_kernel dense no gx"], f"pairs run {exec_pairs}"),
+            ("cfconv_fwd", "",
+             lambda p: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, rcut, p),
+             lambda p: cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w,
+                                           rcut, p),
+             n_slots * 2 * mlp,
+             4 * (s * a * 3 + 2 * s * a * f) + lbytes + wbytes,
+             ["gw_nbr_fwd_kernel"], f"slots run {exec_slots}"),
+            ("cfconv_bwd", "",
+             lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p),
+             lambda p: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w,
+                                           rcut, p),
+             n_slots * 4 * mlp,
+             4 * (2 * s * a * 3 + 3 * s * a * f) + lbytes + csr_bytes
+             + wbytes, ["gw_bwd_kernel nbr", "gw_nbr_gx_kernel"],
+             f"slots run {exec_slots}"),
+            ("cfconv_bwd", " (no gx)",
+             lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p,
+                                     need_gx=False)[0],
+             lambda p: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w,
+                                           rcut, p, need_gx=False)[0],
+             n_slots * 4 * mlp,
+             4 * (2 * s * a * 3 + 2 * s * a * f) + lbytes + csr_bytes
+             + wbytes, ["gw_bwd_kernel nbr"], f"slots run {exec_slots}"),
+        )
+        for name, sfx, kern, plain, flops, nbytes, kernels, what in cases:
+            label = f"{name}{sfx} F{f} R{r}"
+            for prec in ("fp32", "bf16"):
+                first, again = _tuple(kern(prec)), _tuple(kern(prec))
+                torch.cuda.synchronize()
+                same = all(torch.equal(u, v) for u, v in zip(first, again))
+                print(f"kernels: {label} {prec}: two launches bitwise equal: "
+                      f"{same}")
+                check(same, f"{label} {prec}: two launches differ")
+            compare_and_time(name, kern, plain, float(flops), nbytes,
+                             label=label,
+                             fp32_note=general_note(family, kernels, what))
+            for prec in ("fp32", "bf16"):
+                out[name + sfx, prec, (f, r)] = TIER_STATS[label, prec]
+            if family == "tuned" and not sfx:
+                main = TIER_STATS.get((name, "bf16"))
+                if main:
+                    print(f"widths: padding overhead {label}: bf16 "
+                          f"{TIER_STATS[label, 'bf16']['ms']:.4f} ms, fp32 "
+                          f"{TIER_STATS[label, 'fp32']['ms']:.4f} ms beside "
+                          f"the F 128, R 50 kernel's {main['ms']:.4f} and "
+                          f"{TIER_STATS[name, 'fp32']['ms']:.4f} ms; the "
+                          f"padded MLP does {pad:.3f} x the useful work")
+        if (f, r) == (256, 50):
+            # the gx pass computes W again at both tiers: no workspace
+            extra = nbr_bwd_peak(pos, csr, x, g, w, rcut)
+            print(f"widths: cfconv_bwd memory at S={s} A={a} K={k} F={f} "
+                  f"R={r}: peak above its inputs bf16 {extra['bf16']} B, "
+                  f"fp32 {extra['fp32']} B (bound "
+                  f"{NBR_BWD_MEMORY_LIMIT / 1e6:.0f} MB at both tiers)")
+            check(max(extra.values()) < NBR_BWD_MEMORY_LIMIT,
+                  "the general-width cfconv_bwd allocates a workspace of "
+                  "the size of W")
+    return out
+
+
+def phase_widths(dev, smi):
+    """The widths slices: for each configuration of WIDTH_SLICES, the
+    pallas field (K from the zoo's capacity rule, skin 1.0, the list
+    rebuilt every step) at bf16 and fp32 and the dense field at bf16, each
+    at full width (BATCH x N_ATOMS, 3 blocks, the zoo's head and priors):
+    forces at FORCE_BATCH card (no twin call) vs CPU twins (FORCE_BOUND at
+    bf16, CROSS_BOUND at fp32), then WIDTH_STEPS BAOAB steps (dt 0.004)
+    with the general family's forward and backward at 3 each per force
+    evaluation and every other counter 0, no twin call, finite positions;
+    throughput, ms/step, peak device memory and a profiler window (the
+    device idle share). Returns {(f, r, path, tier): launch counts}."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
+    steps = WIDTH_STEPS
+    runs = {}
+    for f, r in WIDTH_SLICES:
+        for mp, prec in WIDTH_RUNS:
+            label = f"widths: {mp} {prec} F{f} R{r}"
+            bound = FORCE_BOUND if prec == "bf16" else CROSS_BOUND
+            forces = {}
+            for device in (dev, torch.device("cpu")):
+                ff, cfgs = width_field(device, FORCE_BATCH, f, r, mp, prec)
+                with counting_twins(mp) as twins:
+                    forces[device.type] = _forces(ff, cfgs, device)[1]
+                if device.type == "cuda":
+                    check(not any(twins.values()),
+                          f"{label}: twin calls on the card {twins}")
+            f_k, f_p = forces["cuda"], forces["cpu"]
+            check(bool(torch.isfinite(f_k).all()),
+                  f"{label}: non-finite forces on the card")
+            rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+            print(f"forces: {label[8:]} batch {FORCE_BATCH} card vs cpu "
+                  f"plain: max|dF|/max|F| = {rel:.3e} (bound {bound:.0e})")
+            check(rel <= bound, f"{label}: card and CPU forces disagree")
+
+            ff, cfgs = width_field(dev, BATCH, f, r, mp, prec)
+            name = "cfconv" if mp == "pallas" else "dense_cfconv"
+            n_evals = steps + 1
+            expect = {**dict.fromkeys(cg.launch_counts(), 0),
+                      f"{name}_fwd_general": 3 * n_evals,
+                      f"{name}_bwd_general": 3 * n_evals}
+            AllKernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with counting_twins(mp) as twins:
+                counts, ms, sim = run_slice(
+                    label, ff, cfgs, dev, steps, SAVE_INTERVAL, cg, expect,
+                    smi, **({"gptq": None} if prec == "fp32" else {}))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check(not any(twins.values()), f"{label}: twin calls {twins}")
+            others = {k: v for k, v in AllKernels.launch_counts().items()
+                      if k not in counts}
+            check(not any(others.values()),
+                  f"{label}: other launches {others}")
+            tp = sim.get_throughput_metrics()["throughput"]
+            k = f", K {ff.neighbor_capacity}" if mp == "pallas" else ""
+            print(f"{label}: {steps} steps, batch {BATCH}, {N_ATOMS} beads, 3 "
+                  f"blocks{k}: launches per force evaluation "
+                  f"{name}_fwd_general "
+                  f"{counts[name + '_fwd_general'] // n_evals} and "
+                  f"{name}_bwd_general "
+                  f"{counts[name + '_bwd_general'] // n_evals} (every other "
+                  f"counter 0), twin calls 0;"
+                  f" second-half throughput {tp:.1f} timestep*mol/s "
+                  f"({ms:.3f} ms/step); peak device memory {peak} B "
+                  f"({peak / 1e9:.3f} GB); {wall:.1f} s; on {smi}")
+            profile_steps(sim, dev, PROFILE_STEPS, label)
+            runs[f, r, mp, prec] = counts
+            if wall > WIDTH_LONG_S:
+                steps = WIDTH_SHORT_STEPS
+    return runs
+
+
+def width_kernel_entries(kernel_stats, runs):
+    """The kernels JSON line's entries of the general-width kernels that
+    the widths slices launched: per configuration, the forward and the
+    backward of each slice's path and tier, with the slice's launches and
+    the kernel-level numbers at that width (the backward's error the
+    larger of its runs with and without gx)."""
+    entries = []
+    for (f, r, mp, prec), counts in runs.items():
+        base = "cfconv" if mp == "pallas" else "dense_cfconv"
+        for kind in ("fwd", "bwd"):
+            name = f"{base}_{kind}"
+            st = dict(kernel_stats[name, prec, (f, r)])
+            if kind == "bwd":
+                st["max_abs_err"] = max(
+                    st["max_abs_err"],
+                    kernel_stats[name + " (no gx)", prec, (f, r)][
+                        "max_abs_err"])
+            entries.append({
+                "name": f"{name}_general{'' if prec == 'bf16' else '_fp32'}"
+                        f" F{f} R{r}",
+                "route": "cuda", "source": GENERAL_SOURCE,
+                "replaces": f"{REPLACES[name]} {prec} at F {f}, R {r}",
+                "launches": counts[f"{name}_general"], **st})
+    return entries
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)  # in order with warnings
     if not torch.cuda.is_available():
@@ -4391,6 +4756,7 @@ def main():
         print(f"build: ptxas {line}")
     mma_kernel_report(info["log"], info["path"], _build._nvcc())
     ffma_kernel_report(info["log"])
+    general_kernel_report(info["log"])
 
     from flashmd_tpu_torch.data.system import collate
     from flashmd_tpu_torch.ops import cfconv as cf
@@ -4600,6 +4966,8 @@ def main():
         phase_mixed(dev, smi)
         phase_host(ff, cfgs, dev, open_tp, smi)
         phase_mesh(smi)
+    width_stats = phase_width_kernels(pos, dev)
+    width_runs = phase_widths(dev, smi)
 
     for name in ("dense_cfconv_fwd", "dense_cfconv_bwd", "cfconv_fwd",
                  "cfconv_bwd"):
@@ -4614,7 +4982,7 @@ def main():
          "replaces": REPLACES[name], "launches": counts[name],
          **stats[name]}
         for name in REPLACES
-    ]}))
+    ] + width_kernel_entries(width_stats, width_runs)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -433,6 +433,18 @@ int dense_cfconv_bwd(const float* pos, const float* x, const float* g,
   return (int)cudaGetLastError();
 }
 
+// The gpos pass alone, on a gd [S, A, A] that a backward's first pass
+// wrote: the general-width kernels' (cfconv_general_kernels.cu) second
+// launch.
+int dense_cfconv_gpos(const float* pos, const float* gd, float* gpos, int S,
+                      int A, void* stream) {
+  if (S < 1 || A < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid((A + GPOS_ROWS - 1) / GPOS_ROWS, S);
+  dense_gpos_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(pos, gd,
+                                                                gpos, A);
+  return (int)cudaGetLastError();
+}
+
 // Dynamic shared memory per block, in bytes: of the forward at fp32 (kind
 // 0, CUDA cores) or at bf16 (3, tensor cores), of the backward's first pass
 // at fp32 (1, CUDA cores) or at bf16 (2, tensor cores). Kind 4: the fp32

@@ -543,6 +543,19 @@ int cfconv_bwd(const float* pos, const int* idx, const unsigned char* mask,
   return (int)cudaGetLastError();
 }
 
+// The gpos pass alone, on a gd [S, A, K] that a backward's first pass
+// wrote: the general-width kernels' (cfconv_general_kernels.cu) second
+// launch.
+int cfconv_gpos(const float* pos, const int* idx, const unsigned char* mask,
+                const int* csr_offsets, const int* csr_slots, const float* gd,
+                float* gpos, int S, int A, int K, void* stream) {
+  if (S < 1 || A < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid((A + GPOS_ROWS - 1) / GPOS_ROWS, S);
+  gpos_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      pos, idx, mask, csr_offsets, csr_slots, gd, gpos, A, K);
+  return (int)cudaGetLastError();
+}
+
 // Dynamic shared memory per block, in bytes: of the forward at fp32 (kind
 // 0, CUDA cores), of the backward's first pass at fp32 (1, CUDA cores) or
 // at bf16 (2, tensor cores), of the forward and of the backward's gx pass

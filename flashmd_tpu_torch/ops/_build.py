@@ -55,6 +55,14 @@ _SIGNATURES = {
     # coeff, gd, wbuf, gpos, gx, S, A, K, F, R, rcut, bf16, stream
     "cfconv_bwd": [_P] * 16 + [_I] * 5 + [_F, _I, _P],
     "cfconv_smem_bytes": [_I],
+    # nbr, pos, idx, mask, x, w0, w0t, b0, w1, w1t, offset, coeff, out, ws,
+    # S, A, K, Fp, R, Rq, rcut, bf16, stream
+    "cfconv_general_fwd": [_I] + [_P] * 13 + [_I] * 6 + [_F, _I, _P],
+    # nbr, pos, idx, mask, csr_offsets, csr_slots, x, g, w0, w0t, b0, w1,
+    # w1t, offset, coeff, gd, gpos, gx, ws, S, A, K, Fp, R, Rq, rcut, bf16,
+    # stream
+    "cfconv_general_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_F, _I, _P],
+    "cfconv_general_ws_floats": [_I] * 2,
 }
 
 _loaded: dict = {}

@@ -17,10 +17,9 @@ cfconv_bwd  ``_bwd_kernel`` (:163), its custom VJP ``_fused_cfconv_bwd``
 Operands carry the batch as their leading axis: ``pos [S, A, 3]``,
 ``x``/``g`` ``[S, A, F]``, the neighbour matrix ``idx [S, A, K]`` (int32)
 and ``mask [S, A, K]`` (bool) of ops/neighborlist.py; ``w0 [R, F]``,
-``b0 [F]``, ``w1 [F, F]``, ``offset [R]``, ``coeff []``. The kernels take
-F = 128 and R <= 64. Masked slots (which hold the row's own index) add
-exactly zero, as the reference's mask folded into the one-hot
-(cfconv.py:86-94).
+``b0 [F]``, ``w1 [F, F]``, ``offset [R]``, ``coeff []``. Masked slots (which
+hold the row's own index) add exactly zero, as the reference's mask folded
+into the one-hot (cfconv.py:86-94).
 
 The backward returns gpos and gx. Per slot it runs one MLP backward on
 the cotangent g_i x_j cut, as the reference (rounding points :204-222),
@@ -44,9 +43,18 @@ of each live incoming slot again over the source CSR, so it needs no
 live slot in that workspace (1.5 GB at S = 128, A = 266, K = 88), which
 its gx pass reads back.
 
+Widths: on CUDA tensors the wrappers route every (F >= 1, R >= 1) by
+``cfconv_general.route(F, R, precision)``: F <= 128 and R <= 64 to the
+kernels above (the tuned family, which lays its tiles out for F = 128:
+narrower filters are zero-padded to 128, exactly, and the outputs sliced
+back), any other width to the general-width kernels of
+``csrc/cfconv_general_kernels.cu`` (ops/cfconv_general.py: float32 FMAs on
+the CUDA cores at both tiers, gx computing W again over the source CSR).
+
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
-CUDA tensors it launches its kernel or raises; there is no fallback. Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+CUDA tensors it launches a kernel or raises; there is no fallback. Each
+wrapper counts the tuned family's launches in its ``launches`` attribute,
+the general family's count in ``cfconv_general.launch_counts()``.
 
 Precision tiers: ``fp32`` and ``bf16`` (operands of the four products
 rounded to bf16, everything else float32, at the same places in the
@@ -64,9 +72,9 @@ import torch
 from ..models.mlp import check_precision
 from ._launch import (RING_MAX, _check, _op, _ptr, _raise_on, _same_device,
                       _stream)
+from .cfconv_general import (TUNED_F, general_bwd, general_fwd, route,
+                             tuned_operands)
 
-KERNEL_F = 128
-KERNEL_R_MAX = 64
 # Molecules per pass of the twins: bounds their [chunk, A, K, F] tensors.
 PLAIN_CHUNK = 8
 
@@ -186,11 +194,9 @@ def _check_operands(pos, idx, mask, x, w0, b0, w1, offset, coeff):
     s, a, f = x.shape
     k = idx.shape[-1]
     r = w0.shape[0]
-    if f != KERNEL_F or not 1 <= r <= KERNEL_R_MAX:
-        raise ValueError(
-            f"neighbour-matrix CFConv kernels take F == {KERNEL_F} and 1 <= "
-            f"R <= {KERNEL_R_MAX} (got F={f}, R={r})"
-        )
+    if f < 1 or r < 1:
+        raise ValueError(f"neighbour-matrix CFConv kernels take F >= 1 and "
+                         f"R >= 1 (got F={f}, R={r})")
     if s * a * k >= 2 ** 31:
         raise ValueError(f"S * A * K = {s * a * k} slots exceed int32")
     if max(a, k) > RING_MAX:
@@ -220,15 +226,19 @@ def cfconv_fwd(pos, idx, mask, x, w0, b0, w1, offset, coeff, rcut,
 
     s, a, k, f, r = _check_operands(pos, idx, mask, x, w0, b0, w1, offset,
                                     coeff)
+    if route(f, r, precision)[0] == "general":
+        return general_fwd(pos, idx, mask, x, w0, b0, w1, offset, coeff,
+                           rcut, precision)
+    (x,), w0, b0, w1 = tuned_operands((x,), w0, b0, w1)
     out = torch.empty_like(x)
     rc = load().cfconv_fwd(
         _ptr(pos), _ptr(idx), _ptr(mask), _ptr(x), _ptr(w0), _ptr(b0),
-        _ptr(w1), _ptr(offset), _ptr(coeff), _ptr(out), s, a, k, f, r,
+        _ptr(w1), _ptr(offset), _ptr(coeff), _ptr(out), s, a, k, TUNED_F, r,
         float(rcut), int(precision == "bf16"), _stream(),
     )
     _raise_on(rc, "cfconv_fwd")
     cfconv_fwd.launches += 1
-    return out
+    return out if f == TUNED_F else out[..., :f].contiguous()
 
 
 def cfconv_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
@@ -236,10 +246,10 @@ def cfconv_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
     """(gpos [S, A, 3], gx [S, A, F] or None when ``need_gx`` is False).
     ``csr_offsets``/``csr_slots`` are the list's source CSR
     (ops/neighborlist.py); the twin does not need them. On the card: the
-    slot pass into an [S, A, K] gd workspace (at fp32 with gx, also W of
-    each live slot into an [S, A, K, F] one), the gpos pass, and the gx
-    pass over the CSR (at bf16 it computes W again on the tensor cores);
-    the launches count as one."""
+    slot pass into an [S, A, K] gd workspace (tuned fp32 with gx: also W
+    of each live slot into an [S, A, K, F] one), the gpos pass, and the gx
+    pass over the CSR (tuned bf16 and the general family: it computes W
+    again); the launches count as one."""
     check_precision(precision)
     if pos.device.type == "cpu":
         return cfconv_bwd_plain(pos, idx, mask, x, g, w0, b0, w1, offset,
@@ -252,19 +262,25 @@ def cfconv_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
     _check("csr_offsets", csr_offsets, (s * a + 1,), torch.int32)
     _check("csr_slots", csr_slots, (s * a * k,), torch.int32)
     _same_device(pos, g, csr_offsets, csr_slots)
+    if route(f, r, precision)[0] == "general":
+        return general_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0,
+                           b0, w1, offset, coeff, rcut, precision, need_gx)
+    (x, g), w0, b0, w1 = tuned_operands((x, g), w0, b0, w1)
     gd = torch.empty(s, a, k, dtype=pos.dtype, device=pos.device)
     gpos = torch.empty_like(pos)
     gx = torch.empty_like(g) if need_gx else None
-    wbuf = (torch.empty(s, a, k, f, dtype=pos.dtype, device=pos.device)
+    wbuf = (torch.empty(s, a, k, TUNED_F, dtype=pos.dtype, device=pos.device)
             if need_gx and precision != "bf16" else None)
     rc = load().cfconv_bwd(
         _ptr(pos), _ptr(idx), _ptr(mask), _ptr(csr_offsets), _ptr(csr_slots),
         _ptr(x), _ptr(g), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(offset),
-        _ptr(coeff), _ptr(gd), _ptr(wbuf), _ptr(gpos), _ptr(gx), s, a, k, f, r,
-        float(rcut), int(precision == "bf16"), _stream(),
+        _ptr(coeff), _ptr(gd), _ptr(wbuf), _ptr(gpos), _ptr(gx), s, a, k,
+        TUNED_F, r, float(rcut), int(precision == "bf16"), _stream(),
     )
     _raise_on(rc, "cfconv_bwd")
     cfconv_bwd.launches += 1
+    if gx is not None and f != TUNED_F:
+        gx = gx[..., :f].contiguous()
     return gpos, gx
 
 

@@ -17,7 +17,7 @@ dense_cfconv_bwd   ``_bwd_kernel`` (:147), its custom VJP
 
 Operands carry the batch as their leading axis: ``pos [S, A, 3]``,
 ``x``/``g`` ``[S, A, F]``; ``w0 [R, F]``, ``b0 [F]``, ``w1 [F, F]``,
-``offset [R]``, ``coeff []``. The kernels take F = 128 and R <= 64.
+``offset [R]``, ``coeff []``.
 
 The backward is written the way the kernel computes it: every output row
 is owned by one block. W and cut depend only on d_ij, which is symmetric,
@@ -35,9 +35,18 @@ at fp32 as register-tiled float32 FMAs on the CUDA cores. That is exact:
 W cut vanishes with cut, and ``_pair_gd`` is zero wherever cut and dcut
 are.
 
+Widths: on CUDA tensors the wrappers route every (F >= 1, R >= 1) by
+``cfconv_general.route(F, R, precision)``: F <= 128 and R <= 64 to the
+kernels above (the tuned family, which lays its tiles out for F = 128:
+narrower filters are zero-padded to 128, exactly, and the outputs sliced
+back), any other width to the general-width kernels of
+``csrc/cfconv_general_kernels.cu`` (ops/cfconv_general.py: float32 FMAs on
+the CUDA cores at both tiers).
+
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
-CUDA tensors it launches its kernel or raises; there is no fallback. Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+CUDA tensors it launches a kernel or raises; there is no fallback. Each
+wrapper counts the tuned family's launches in its ``launches`` attribute,
+the general family's count in ``cfconv_general.launch_counts()``.
 
 Precision tiers: ``fp32`` and ``bf16`` (operands of the four products
 rounded to bf16, everything else float32, at the same places in the
@@ -55,9 +64,9 @@ import torch
 from ..models.mlp import check_precision
 from ._launch import (RING_MAX, _check, _op, _ptr, _raise_on, _same_device,
                       _stream)
+from .cfconv_general import (TUNED_F, general_bwd, general_fwd, route,
+                             tuned_operands)
 
-KERNEL_F = 128
-KERNEL_R_MAX = 64
 # Molecules per pass of the twins: bounds their [chunk, A, A, F] tensors.
 PLAIN_CHUNK = 8
 
@@ -153,11 +162,10 @@ def dense_cfconv_bwd_plain(pos, x, g, w0, b0, w1, offset, coeff, rcut,
 
 def _check_weights(w0, b0, w1, offset, coeff, a, f):
     r = w0.shape[0]
-    if f != KERNEL_F or not 1 <= r <= KERNEL_R_MAX or a > RING_MAX:
+    if f < 1 or r < 1 or a > RING_MAX:
         raise ValueError(
-            f"dense CFConv kernels take F == {KERNEL_F}, 1 <= R <= "
-            f"{KERNEL_R_MAX} and A <= {RING_MAX} (got F={f}, R={r}, "
-            f"A={a})"
+            f"dense CFConv kernels take F >= 1, R >= 1 and A <= {RING_MAX} "
+            f"(got F={f}, R={r}, A={a})"
         )
     _check("w0", w0, (r, f))
     _check("b0", b0, (f,))
@@ -180,15 +188,19 @@ def dense_cfconv_fwd(pos, x, w0, b0, w1, offset, coeff, rcut, precision):
     _check("x", x, (s, a, f))
     r = _check_weights(w0, b0, w1, offset, coeff, a, f)
     _same_device(pos, x, w0, b0, w1, offset, coeff)
+    if route(f, r, precision)[0] == "general":
+        return general_fwd(pos, None, None, x, w0, b0, w1, offset, coeff,
+                           rcut, precision)
+    (x,), w0, b0, w1 = tuned_operands((x,), w0, b0, w1)
     out = torch.empty_like(x)
     rc = load().dense_cfconv_fwd(
         _ptr(pos), _ptr(x), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(offset),
-        _ptr(coeff), _ptr(out), s, a, f, r, float(rcut),
+        _ptr(coeff), _ptr(out), s, a, TUNED_F, r, float(rcut),
         int(precision == "bf16"), _stream(),
     )
     _raise_on(rc, "dense_cfconv_fwd")
     dense_cfconv_fwd.launches += 1
-    return out
+    return out if f == TUNED_F else out[..., :f].contiguous()
 
 
 def dense_cfconv_bwd(pos, x, g, w0, b0, w1, offset, coeff, rcut, precision,
@@ -208,16 +220,22 @@ def dense_cfconv_bwd(pos, x, g, w0, b0, w1, offset, coeff, rcut, precision,
     _check("g", g, (s, a, f))
     r = _check_weights(w0, b0, w1, offset, coeff, a, f)
     _same_device(pos, x, g, w0, b0, w1, offset, coeff)
+    if route(f, r, precision)[0] == "general":
+        return general_bwd(pos, None, None, None, None, x, g, w0, b0, w1,
+                           offset, coeff, rcut, precision, need_gx)
+    (x, g), w0, b0, w1 = tuned_operands((x, g), w0, b0, w1)
     gd = torch.empty(s, a, a, dtype=pos.dtype, device=pos.device)
     gpos = torch.empty_like(pos)
     gx = torch.empty_like(g) if need_gx else None
     rc = load().dense_cfconv_bwd(
         _ptr(pos), _ptr(x), _ptr(g), _ptr(w0), _ptr(b0), _ptr(w1),
-        _ptr(offset), _ptr(coeff), _ptr(gd), _ptr(gpos), _ptr(gx), s, a, f,
-        r, float(rcut), int(precision == "bf16"), _stream(),
+        _ptr(offset), _ptr(coeff), _ptr(gd), _ptr(gpos), _ptr(gx), s, a,
+        TUNED_F, r, float(rcut), int(precision == "bf16"), _stream(),
     )
     _raise_on(rc, "dense_cfconv_bwd")
     dense_cfconv_bwd.launches += 1
+    if gx is not None and f != TUNED_F:
+        gx = gx[..., :f].contiguous()
     return gpos, gx
 
 

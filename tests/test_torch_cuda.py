@@ -1190,9 +1190,11 @@ def test_dense_wrappers_refuse_what_kernels_do_not_take(dev):
         cd.dense_cfconv_bwd(pos, x, g.half(), *w, RCUT, "bf16")
     with pytest.raises(ValueError):
         cd.dense_cfconv_fwd(pos, x.cpu(), *w, RCUT, "fp32")
-    pos, x, g, w = _dense_inputs(dev, 2, 20, f=64)
+    # no radial function (R = 0): every width F >= 1, R >= 1 runs
+    w0, b0, w1, offset, coeff = w
     with pytest.raises(ValueError):
-        cd.dense_cfconv_fwd(pos, x, *w, RCUT, "fp32")
+        cd.dense_cfconv_fwd(pos, x, w0[:0], b0, w1, offset[:0], coeff,
+                            RCUT, "fp32")
 
 
 def test_dense_main_path_launch_counts(dev):
@@ -1269,13 +1271,13 @@ def _not_a_prefix(pos, nbr):
     return bool((live & dead_before).any())
 
 
-def _nbr_tc_case(dev, a, capacity, stale):
+def _nbr_tc_case(dev, a, capacity, stale, f=128, r=50):
     """(pos, x, g, filter weights, list): a symmetric list (capacity 96)
     or an overflowed one (32, where a row has more neighbours), fresh or
     with the atoms moved after the build (a stale list, whose live slots
     are not a prefix of their row). Atoms uniform in a cube at about 40
-    within RCUT + 1 of an inner atom."""
-    _, x, g, w = _dense_inputs(dev, 2, a, seed=a)
+    within RCUT + 1 of an inner atom. F filters, R radial functions."""
+    _, x, g, w = _dense_inputs(dev, 2, a, f=f, r=r, seed=a)
     gen = torch.Generator(device=dev).manual_seed(a + 1)
     side = (a / 0.0072) ** (1 / 3)
     pos = side * torch.rand(2, a, 3, generator=gen, device=dev)
@@ -1594,6 +1596,239 @@ def test_nbr_main_path_launch_counts(dev):
     coords = sim.simulate()
     assert cf.launch_counts() == {"cfconv_fwd": 15, "cfconv_bwd": 15}
     assert coords.shape == (2, 2, 40, 3)
+    assert torch.isfinite(torch.as_tensor(coords)).all()
+
+
+# --------------------------------------------------------------------------
+# every width (ops/cfconv_general.py): the tuned kernels zero-padded below
+# F = 128 (F <= 128, R <= 64), the general-width kernels at F > 128 or
+# R > 64, each family on its own counters
+# --------------------------------------------------------------------------
+
+# SchNet's published widths (F 64, R 300), F 256 at R 50, F 96, a narrow
+# F 64 at R 32 (both padded onto the tuned kernels) and R 100 at F 128.
+WIDTHS = [(64, 300), (256, 50), (96, 50), (64, 32), (128, 100)]
+
+
+def _family_counts():
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
+    return {**cd.launch_counts(), **cf.launch_counts(), **cg.launch_counts()}
+
+
+def _reset_family_counts():
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
+    for mod in (cd, cf, cg):
+        mod.reset_launch_counts()
+
+
+def _expect_launches(f, r, precision, path, fwd, bwd):
+    """Every counter of the dense, neighbour-matrix and general families 0
+    but ``path``'s ("dense_cfconv" or "cfconv") forward and backward on the
+    family that :func:`route` names."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
+    sfx = "_general" if cg.route(f, r, precision)[0] == "general" else ""
+    return {**dict.fromkeys(_family_counts(), 0),
+            f"{path}_fwd{sfx}": fwd, f"{path}_bwd{sfx}": bwd}
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("f,r", WIDTHS)
+def test_dense_kernels_at_every_width(dev, f, r, precision):
+    """The dense forward and backward (with and without gx) against their
+    twins at each width, two launches bitwise equal, gpos the same with
+    and without gx, and the launches on the routed family's counters."""
+    pos, x, g, w = _dense_inputs(dev, 2, 70, f=f, r=r, seed=f + r)
+    _reset_family_counts()
+    out = cd.dense_cfconv_fwd(pos, x, *w, RCUT, precision)
+    again = cd.dense_cfconv_fwd(pos, x, *w, RCUT, precision)
+    bwd = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, precision)
+    bwd2 = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, precision)
+    gpos_only, none = cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, precision,
+                                          need_gx=False)
+    torch.cuda.synchronize()
+    assert _family_counts() == _expect_launches(f, r, precision,
+                                                "dense_cfconv", 2, 3)
+    ref = cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT, precision)
+    gpos_ref, gx_ref = cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT,
+                                                 precision)
+    assert out.shape == x.shape and bwd[1].shape == x.shape
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+    assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    assert torch.equal(bwd[0], bwd2[0]) and torch.equal(bwd[1], bwd2[1])
+    assert _rel(bwd[0], gpos_ref) <= BOUNDS[precision]["bwd"]
+    assert _rel(bwd[1], gx_ref) <= BOUNDS[precision]["bwd"]
+    assert none is None and torch.equal(gpos_only, bwd[0])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
+@pytest.mark.parametrize("capacity", [96, 32])
+@pytest.mark.parametrize("f,r", WIDTHS)
+def test_nbr_kernels_at_every_width(dev, f, r, capacity, stale, precision):
+    """The neighbour-matrix forward and backward (with and without gx) on
+    symmetric (96) and overflowed (32) lists, fresh and stale
+    (_nbr_tc_case), against their twins at each width; two launches
+    bitwise equal; the launches on the routed family's counters."""
+    pos, x, g, w, nbr = _nbr_tc_case(dev, 70, capacity, stale, f=f, r=r)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    _reset_family_counts()
+    out = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, precision)
+    again = cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, precision)
+    runs = {need_gx: [cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, precision,
+                                    need_gx=need_gx) for _ in range(2)]
+            for need_gx in (True, False)}
+    torch.cuda.synchronize()
+    assert _family_counts() == _expect_launches(f, r, precision, "cfconv",
+                                                2, 4)
+    ref = cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT,
+                              precision)
+    assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+    assert _rel(out, ref) <= BOUNDS[precision]["fwd"]
+    for need_gx, (first, second) in runs.items():
+        ref = cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, RCUT,
+                                  precision, need_gx=need_gx)
+        assert (first[1] is None) == (not need_gx)
+        for k, k2, p in zip(first, second, ref):
+            if p is None:
+                continue
+            assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
+            assert _rel(k, p) <= BOUNDS[precision]["bwd"]
+    assert torch.equal(runs[True][0][0], runs[False][0][0])
+
+
+# Odd widths: F = R = 1 (padded onto the tuned kernels), F just past 128,
+# F and R that are no multiples of 64 (x, g and the weights padded to 64 by
+# the general wrapper), F = 1,600, whose backward tiles exceed a block's
+# shared memory and go to the device-memory workspace, and F = 2,900,
+# whose forward and gx-pass tiles go there too.
+ODD_WIDTHS = [(1, 1), (100, 70), (129, 1), (300, 17), (1600, 8), (2900, 8)]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("f,r", ODD_WIDTHS)
+def test_kernels_at_odd_widths(dev, f, r, precision):
+    """The four kernels, the backwards with and without gx, against their
+    twins at each odd width on a stale overflowed list, two launches
+    bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(f + r)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    offset = torch.linspace(0.0, RCUT, r, device=dev)
+    coeff = torch.tensor(-0.5 / (RCUT / max(r - 1, 1)) ** 2, device=dev)
+    w = (randn(r, f, scale=r ** -0.5), randn(f, scale=0.1),
+         randn(f, f, scale=f ** -0.5), offset, coeff)
+    pos, _, _, _, nbr = _nbr_tc_case(dev, 33, 32, True)
+    x, g = randn(2, 33, f), randn(2, 33, f)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    calls = {
+        "dense fwd": (lambda: cd.dense_cfconv_fwd(pos, x, *w, RCUT, precision),
+                      lambda: cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT,
+                                                        precision), "fwd"),
+        "nbr fwd": (lambda: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w,
+                                          RCUT, precision),
+                    lambda: cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w,
+                                                RCUT, precision), "fwd"),
+    }
+    for need_gx in (True, False):
+        calls[f"dense bwd {need_gx}"] = (
+            lambda n=need_gx: cd.dense_cfconv_bwd(pos, x, g, *w, RCUT,
+                                                  precision, need_gx=n),
+            lambda n=need_gx: cd.dense_cfconv_bwd_plain(
+                pos, x, g, *w, RCUT, precision, need_gx=n), "bwd")
+        calls[f"nbr bwd {need_gx}"] = (
+            lambda n=need_gx: cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT,
+                                            precision, need_gx=n),
+            lambda n=need_gx: cf.cfconv_bwd_plain(
+                pos, nbr.idx, nbr.mask, x, g, *w, RCUT, precision,
+                need_gx=n), "bwd")
+    for name, (kern, plain, kind) in calls.items():
+        first, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        first, again, ref = (v if isinstance(v, tuple) else (v,)
+                             for v in (first, again, ref))
+        for k, k2, p in zip(first, again, ref):
+            if p is None:
+                assert k is None
+                continue
+            assert k.shape == p.shape, name
+            assert bool(torch.isfinite(k).all()) and torch.equal(k, k2), name
+            assert _rel(k, p) <= BOUNDS[precision][kind], name
+
+
+@pytest.mark.parametrize("f,r", [(64, 300), (256, 50)])
+def test_general_kernels_bf16x3_is_fp32(dev, f, r):
+    """The general-width kernels at bf16x3 are bitwise their fp32 tier, as
+    the reference computes these kernels at float32."""
+    pos, x, g, w, nbr = _nbr_tc_case(dev, 70, 32, True, f=f, r=r)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+
+    def run(precision):
+        return (cd.dense_cfconv_fwd(pos, x, *w, RCUT, precision),
+                *cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, precision),
+                cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, precision),
+                *cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, precision))
+
+    for k, p in zip(run("bf16x3"), run("fp32")):
+        assert torch.equal(k, p)
+
+
+def _width_field(device, f, r, message_passing, precision="bf16", **kw):
+    """The zoo's chain (priors, configurations, capacity) with a SchNet of
+    hidden_channels = num_filters = f and num_rbf = r from SchNetConfig and
+    init_schnet on a seeded generator."""
+    import dataclasses
+
+    from flashmd_tpu_torch.data.system import collate
+    from flashmd_tpu_torch.models.schnet import init_schnet
+    from flashmd_tpu_torch.models.zoo import cgschnet_1enh_like
+
+    ff, cfgs = cgschnet_1enh_like(message_passing=message_passing,
+                                  precision=precision, device=device, **kw)
+    cfg = dataclasses.replace(ff.schnet_config, hidden_channels=f,
+                              num_filters=f, num_rbf=r)
+    params = init_schnet(cfg, torch.Generator().manual_seed(11), device)
+    ff = ff.replace(schnet_params=params, schnet_config=cfg)
+    return ff, cfgs, collate(cfgs, device=device)
+
+
+@pytest.mark.parametrize("path", ["dense", "pallas"])
+def test_width_field_launch_counts(dev, path):
+    """3 forward + 3 backward launches of the general family per force
+    evaluation of a 3-block SchNet at F 64, R 300 on the dense and the
+    pallas path (and none of the tuned one), in compute_energy_forces and
+    in a short simulation; the forces agree with the CPU twins'."""
+    from flashmd_tpu_torch.models.forcefield import compute_energy_forces
+    from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+
+    name = "dense_cfconv" if path == "dense" else "cfconv"
+    results = {}
+    for device in (dev, torch.device("cpu")):
+        ff, _, system = _width_field(device, 64, 300, path, n_atoms=40,
+                                     batch_size=2)
+        _reset_family_counts()
+        for _ in range(2):
+            _, forces, _ = compute_energy_forces(ff, system.pos,
+                                                 system.atom_types)
+        results[device.type] = (forces.cpu(), _family_counts())
+    assert results["cuda"][1] == _expect_launches(64, 300, "bf16", name, 6,
+                                                  6)
+    assert not any(results["cpu"][1].values())
+    assert bool(torch.isfinite(results["cuda"][0]).all())
+    assert _rel(results["cuda"][0], results["cpu"][0]) <= 2e-3
+
+    ff, cfgs, _ = _width_field(dev, 64, 300, path, n_atoms=40, batch_size=2)
+    sim = LangevinSimulation(dt=0.004, friction=1.0, n_timesteps=4,
+                             save_interval=2, random_seed=5, device=dev)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    _reset_family_counts()
+    coords = sim.simulate()
+    assert _family_counts() == _expect_launches(64, 300, "bf16", name, 15,
+                                                15)
     assert torch.isfinite(torch.as_tensor(coords)).all()
 
 

@@ -1,0 +1,307 @@
+"""Port parity for the exact-filter CFConv paths (``message_passing`` "dense"
+and "pallas") at widths other than the zoo's F = 128, R = 50: the plain
+twins of flashmd_tpu_torch/ops/cfconv_dense.py and ops/cfconv.py (forward,
+and the VJP with and without gx, fp32 and bf16) against the JAX Pallas
+kernels in interpret mode; the SchNet dense and pallas branches at SchNet's
+published widths (F 64, R 300) and at F 256, R 50 (forces, then BAOAB steps
+with the reference's noise injected) against the JAX package through
+``forcefield_from_numpy``; the tuned kernels' zero padding
+(ops/cfconv_general.py ``tuned_operands``: the twin on padded operands
+against the twin on the originals); and the route between the tuned and
+the general-width kernels at each width and precision.
+
+On the card the tuned kernels take F <= 128, R <= 64 (padded to F = 128)
+and the general-width kernels every other width; their kernels run only
+there (tests/test_torch_cuda.py). Here the wrappers take their twins, and
+the JAX side runs as its own tests run it on the CPU.
+Tolerances, on max|port - jax| / max|jax| (those of test_torch_cfconv.py):
+  * fp32: 1e-5 (summation order only);
+  * bf16: 2e-3 (the same rounding points; summation order).
+The padding identity: 1e-6 (fp32) and 2e-3 (bf16) of max|twin|.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashmd_tpu.models.zoo import cgschnet_1enh_like as jcgschnet
+from flashmd_tpu.models.schnet import init_schnet as jinit_schnet
+from flashmd_tpu.ops.neighborlist import (
+    batched_radius_neighbor_matrix as jbatched,
+)
+from flashmd_tpu.ops.pallas.cfconv import (
+    fused_cfconv_message as jfused_cfconv_message,
+)
+from flashmd_tpu.ops.pallas.cfconv_dense import (
+    dense_cfconv_message as jdense_cfconv_message,
+)
+from flashmd_tpu.simulation.langevin import (
+    LangevinSimulation as JLangevinSimulation,
+)
+from flashmd_tpu_torch.data.system import Configuration
+from flashmd_tpu_torch.models.convert import forcefield_from_numpy
+from flashmd_tpu_torch.ops import cfconv as cf
+from flashmd_tpu_torch.ops import cfconv_dense as cd
+from flashmd_tpu_torch.ops import cfconv_general as cg
+from flashmd_tpu_torch.ops.neighborlist import batched_radius_neighbor_matrix
+from flashmd_tpu_torch.simulation.langevin import LangevinSimulation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
+
+A = 29  # JAX pads to a multiple of 8: padding is exercised
+S = 2
+RCUT = 4.0
+CAPACITY = 32  # holds every neighbour: a symmetric list
+# (F, R): SchNet's published widths, F 96 (padded onto the tuned kernels on
+# the card), F 256, and a width that is no multiple of 64 with R > 64.
+WIDTHS = [(64, 300), (96, 50), (256, 50), (100, 70)]
+TOL = {"fp32": 1e-5, "bf16": 2e-3}
+PAD_TOL = {"fp32": 1e-6, "bf16": 2e-3}
+
+
+def _rel(out, ref):
+    ref = np.asarray(ref)
+    return np.abs(np.asarray(out) - ref).max() / np.abs(ref).max()
+
+
+def _inputs(f, r, seed):
+    rng = np.random.default_rng(seed)
+    offset = np.linspace(0.0, RCUT, r).astype(np.float32)
+    return {
+        # a box of side 6 around rc = 4: pairs inside and outside the cutoff
+        "pos": rng.uniform(0.0, 6.0, (S, A, 3)).astype(np.float32),
+        "x": rng.normal(size=(S, A, f)).astype(np.float32),
+        "g": rng.normal(size=(S, A, f)).astype(np.float32),
+        "w0": (rng.normal(size=(r, f)) / np.sqrt(r)).astype(np.float32),
+        "b0": (0.1 * rng.normal(size=f)).astype(np.float32),
+        "w1": (rng.normal(size=(f, f)) / np.sqrt(f)).astype(np.float32),
+        "offset": offset,
+        "coeff": np.float32(-0.5 / float(offset[1] - offset[0]) ** 2),
+    }
+
+
+def _weights(tt):
+    return (tt["w0"], tt["b0"], tt["w1"], tt["offset"], tt["coeff"])
+
+
+@functools.cache
+def _case(path, f, r, precision):
+    """(torch inputs, port list or None, JAX out, gpos, gx) of one path,
+    width and tier: the JAX message and its VJP on the same numpy inputs,
+    computed once per module."""
+    t = _inputs(f, r, seed=f + r)
+    jw = (jnp.asarray(t["w0"]), jnp.asarray(t["b0"]), jnp.asarray(t["w1"]),
+          (jnp.asarray(t["offset"]), jnp.asarray(t["coeff"])))
+    tn = None
+    if path == "dense":
+        def one(p, x):
+            return jdense_cfconv_message(p, x, *jw, RCUT, 8, precision)
+        fn = jax.vmap(one)
+    else:
+        jn = jbatched(jnp.asarray(t["pos"]), RCUT + 0.5, CAPACITY)
+        tn = batched_radius_neighbor_matrix(torch.tensor(t["pos"]),
+                                            RCUT + 0.5, CAPACITY)
+        assert int(tn.n_max.max()) <= CAPACITY
+
+        def one(p, idx, mask, x):
+            return jfused_cfconv_message(p, idx, mask.astype(jnp.float32), x,
+                                         *jw, RCUT, 8, precision)
+        fn = (lambda p, x: jax.vmap(one)(p, jn.idx, jn.mask, x))
+    out, vjp = jax.vjp(fn, jnp.asarray(t["pos"]), jnp.asarray(t["x"]))
+    gpos, gx = vjp(jnp.asarray(t["g"]))
+    tt = {k: torch.tensor(v) for k, v in t.items()}
+    return tt, tn, np.asarray(out), np.asarray(gpos), np.asarray(gx)
+
+
+def _port_fwd(path, tt, tn, precision):
+    if path == "dense":
+        return cd.dense_cfconv_fwd(tt["pos"], tt["x"], *_weights(tt), RCUT,
+                                   precision)
+    return cf.cfconv_fwd(tt["pos"], tn.idx, tn.mask, tt["x"], *_weights(tt),
+                         RCUT, precision)
+
+
+def _port_bwd(path, tt, tn, precision, need_gx):
+    if path == "dense":
+        return cd.dense_cfconv_bwd(tt["pos"], tt["x"], tt["g"],
+                                   *_weights(tt), RCUT, precision,
+                                   need_gx=need_gx)
+    return cf.cfconv_bwd(tt["pos"], tn.idx, tn.mask, tn.csr_offsets,
+                         tn.csr_slots, tt["x"], tt["g"], *_weights(tt), RCUT,
+                         precision, need_gx=need_gx)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("f,r", WIDTHS)
+@pytest.mark.parametrize("path", ["dense", "pallas"])
+def test_twin_fwd_matches_jax(path, f, r, precision):
+    tt, tn, ref, _, _ = _case(path, f, r, precision)
+    out = _port_fwd(path, tt, tn, precision)
+    assert out.shape == (S, A, f)
+    assert _rel(out.numpy(), ref) <= TOL[precision]
+
+
+@pytest.mark.parametrize("need_gx", [True, False], ids=["gx", "no_gx"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("f,r", WIDTHS)
+@pytest.mark.parametrize("path", ["dense", "pallas"])
+def test_twin_vjp_matches_jax(path, f, r, precision, need_gx):
+    tt, tn, _, gpos_ref, gx_ref = _case(path, f, r, precision)
+    gpos, gx = _port_bwd(path, tt, tn, precision, need_gx)
+    assert _rel(gpos.numpy(), gpos_ref) <= TOL[precision]
+    if need_gx:
+        assert gx.shape == (S, A, f)
+        assert _rel(gx.numpy(), gx_ref) <= TOL[precision]
+    else:
+        assert gx is None
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("f,r", [(64, 32), (96, 50), (100, 64)])
+@pytest.mark.parametrize("path", ["dense", "pallas"])
+def test_padding_to_the_tuned_width_is_exact(path, f, r, precision):
+    """The twin on operands zero-padded to F = 128 by tuned_operands (as
+    the wrappers hand them to the tuned kernels) equals the twin on the
+    originals once its outputs are sliced back to F; the padded columns
+    come out exactly zero."""
+    t = _inputs(f, r, seed=3 * f + r)
+    tt = {k: torch.tensor(v) for k, v in t.items()}
+    w0, b0, w1, offset, coeff = _weights(tt)
+    (xp, gp), w0p, b0p, w1p = cg.tuned_operands((tt["x"], tt["g"]), w0, b0,
+                                                w1)
+    assert xp.shape == (S, A, cg.TUNED_F) and w1p.shape == (128, 128)
+    assert w0p.shape == (r, 128) and b0p.shape == (128,)
+    pos = tt["pos"]
+    if path == "dense":
+        fwd = cd.dense_cfconv_fwd_plain
+        bwd = cd.dense_cfconv_bwd_plain
+        lst = ()
+    else:
+        tn = batched_radius_neighbor_matrix(pos, RCUT + 0.5, CAPACITY)
+        fwd, bwd, lst = cf.cfconv_fwd_plain, cf.cfconv_bwd_plain, (tn.idx,
+                                                                   tn.mask)
+    out = fwd(pos, *lst, tt["x"], w0, b0, w1, offset, coeff, RCUT, precision)
+    out_p = fwd(pos, *lst, xp, w0p, b0p, w1p, offset, coeff, RCUT, precision)
+    gpos, gx = bwd(pos, *lst, tt["x"], tt["g"], w0, b0, w1, offset, coeff,
+                   RCUT, precision)
+    gpos_p, gx_p = bwd(pos, *lst, xp, gp, w0p, b0p, w1p, offset, coeff, RCUT,
+                       precision)
+    assert not bool(out_p[..., f:].any()) and not bool(gx_p[..., f:].any())
+    for k, p in ((out_p[..., :f], out), (gpos_p, gpos), (gx_p[..., :f], gx)):
+        assert _rel(k.numpy(), p.numpy()) <= PAD_TOL[precision]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
+def test_route_at_each_width(precision):
+    """F <= 128 and R <= 64 take the tuned kernels (padded to 128), every
+    other width the general ones; bf16x3 runs these kernels at fp32."""
+    tier = "bf16" if precision == "bf16" else "fp32"
+    expect = {(128, 50): "tuned", (128, 64): "tuned", (64, 32): "tuned",
+              (96, 50): "tuned", (1, 1): "tuned", (64, 300): "general",
+              (256, 50): "general", (128, 100): "general",
+              (100, 70): "general", (129, 1): "general",
+              (128, 65): "general"}
+    for (f, r), family in expect.items():
+        assert cg.route(f, r, precision) == (family, tier)
+
+
+def test_general_weights_layout():
+    """The general-width kernels' weights: zero-padded to Fp = F rounded
+    up to 64 and Rq = R rounded up to 64, with the transposes; w0 and w1
+    rounded to bf16 at that tier only."""
+    t = _inputs(100, 70, seed=1)
+    tt = {k: torch.tensor(v) for k, v in t.items()}
+    for precision in ("fp32", "bf16"):
+        wg = cg.general_weights(tt["w0"], tt["b0"], tt["w1"], tt["offset"],
+                                precision)
+        assert wg["w0"].shape == (128, 128) and wg["w0t"].shape == (128, 128)
+        assert wg["w1"].shape == (128, 128) and wg["off"].shape == (128,)
+        assert all(v.is_contiguous() for v in wg.values())
+        op = cf._op
+        assert torch.equal(wg["w0"][:70, :100], op(tt["w0"], precision))
+        assert torch.equal(wg["w1"][:100, :100], op(tt["w1"], precision))
+        assert torch.equal(wg["w0t"], wg["w0"].T)
+        assert torch.equal(wg["w1t"], wg["w1"].T)
+        assert torch.equal(wg["b0"][:100], tt["b0"])
+        assert torch.equal(wg["off"][:70], tt["offset"])
+        for k, v in wg.items():
+            mask = torch.ones_like(v, dtype=torch.bool)
+            if k in ("b0", "off"):
+                mask[:(100 if k == "b0" else 70)] = False
+            else:
+                rows, cols = {"w0": (70, 100), "w0t": (100, 70),
+                              "w1": (100, 100), "w1t": (100, 100)}[k]
+                mask[:rows, :cols] = False
+            assert not bool(v[mask].any())
+
+
+def _config_kwargs(cfg):
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+@functools.cache
+def _baoab_pair(path, f, r):
+    """(JAX simulation, port simulation) of a 2-block fp32 SchNet at
+    hidden_channels = num_filters = f, num_rbf = r on ``path``, on the
+    zoo's 24-bead chain, its priors and start, the same weights."""
+    jff, jcfgs = jcgschnet(n_atoms=24, batch_size=S, num_interactions=2,
+                           precision="fp32", message_passing=path,
+                           neighbor_capacity=24)
+    jcfg = dataclasses.replace(jff.schnet_config, hidden_channels=f,
+                               num_filters=f, num_rbf=r)
+    jff = jff.replace(schnet_params=jinit_schnet(jax.random.PRNGKey(f + r),
+                                                 jcfg),
+                      schnet_config=jcfg)
+    rng = np.random.default_rng(4)
+    jcfgs = [dataclasses.replace(c, velocities=rng.normal(
+        scale=0.5, size=c.pos.shape)) for c in jcfgs]
+    kwargs = dict(dt=0.004, friction=1.0, n_timesteps=2, save_interval=2,
+                  random_seed=3, neighbor_skin=1.0,
+                  neighbor_rebuild_interval=1)
+    jsim = JLangevinSimulation(gptq=None, **kwargs)
+    jsim.attach_model_and_configurations(jff, jcfgs, beta=1.67)
+    ff = forcefield_from_numpy(
+        jax.tree.map(np.asarray, dict(jff.schnet_params)),
+        jax.tree.map(np.asarray, jff.priors),
+        _config_kwargs(jff.schnet_config), device="cpu",
+        neighbor_capacity=jff.neighbor_capacity,
+    )
+    assert (ff.schnet_config.num_filters, ff.schnet_config.num_rbf,
+            ff.schnet_config.message_passing) == (f, r, path)
+    cfgs = [Configuration(pos=c.pos, atom_types=c.atom_types,
+                          masses=c.masses, velocities=c.velocities)
+            for c in jcfgs]
+    sim = LangevinSimulation(device="cpu", gptq=None, **kwargs)
+    sim.attach_model_and_configurations(ff, cfgs, beta=1.67)
+    return jsim, sim
+
+
+@pytest.mark.parametrize("f,r", [(64, 300), (256, 50)])
+@pytest.mark.parametrize("path", ["dense", "pallas"])
+def test_schnet_forces_and_baoab_match_jax(path, f, r):
+    """The start forces, then 2 BAOAB steps with the reference's own
+    normal draws injected (the pallas list rebuilt every step, as the
+    reference's _step_with_hooks), fp32: 1e-5 of the largest force,
+    position and velocity."""
+    jsim, sim = _baoab_pair(path, f, r)
+    jcarry = jax.jit(jsim._init_carry)(jsim.initial_system,
+                                       jax.random.PRNGKey(3))
+    jstep = jax.jit(jsim._baoab)
+    jrebuild = jax.jit(jsim._rebuild_neighbors) if path == "pallas" else None
+    with torch.no_grad():
+        carry = sim._init_carry(sim.initial_system)
+        assert _rel(carry["forces"].numpy(), jcarry["forces"]) <= TOL["fp32"]
+        for t in range(2):
+            if jrebuild is not None:
+                jcarry = jrebuild(jcarry)
+            _, sub = jax.random.split(jcarry["key"])
+            xi = jax.random.normal(sub, jcarry["vel"].shape, jnp.float32)
+            jcarry = jstep(jcarry)
+            carry = sim._step_with_hooks(carry, torch.tensor(np.asarray(xi)),
+                                         t)
+    for key in ("forces", "pos", "vel"):
+        assert _rel(carry[key].numpy(), jcarry[key]) <= TOL["fp32"]
