@@ -317,10 +317,14 @@ Phases (each prints its lines; any failure exits non-zero):
                128, R 50 (ops/cfconv_general.py: F <= 128, R <= 64 on the
                tuned kernels zero-padded to F 128, every other width on
                the general-width kernels of
-               csrc/cfconv_general_kernels.cu, whose twelve
-               instantiations' registers and spills print with the build
-               lines, spills gated 0 where the tiles are in shared
-               memory). Each of the four kernels at each (F, R) of WIDTHS,
+               csrc/cfconv_general_kernels.cu: at bf16 the tensor-core
+               tiles gw_*_mma_kernel, whose registers, spills (gated 0)
+               and HMMA count (gated above 0) print with the build's MMA
+               lines; at fp32 and for the "wide" bf16 family the twelve
+               CUDA-core instantiations, whose registers and spills
+               print with the build lines, spills gated 0 where the
+               tiles are in shared memory, HMMA gated 0). Each of the
+               four kernels at each (F, R) of WIDTHS,
                at S = BATCH, A = N_ATOMS on the start positions and the
                pallas slice's list rule: fp32 and bf16, the backwards with
                and without gx, two launches bitwise equal at each tier,
@@ -340,7 +344,9 @@ Phases (each prints its lines; any failure exits non-zero):
                passes WIDTH_LONG_S) with the general family's forward and
                backward 3 each per force evaluation, every other counter
                0, no twin call, finite positions; throughput, ms/step,
-               peak device memory and a profiler window.
+               peak device memory, the filter weights' preparations
+               (ops/cfconv_general.py general_weights) and a profiler
+               window.
 
 Then a kernels JSON line (the general family's entries after the others:
 each slice's forward and backward with its launches and the kernel-level
@@ -615,10 +621,14 @@ MMA_KERNELS = {
     "rows": re.compile(r"cheb_rows_mma_kernelILi(\d)ELb([01])ELb([01])E"),
     "gxgd": re.compile(r"cheb_gxgd_mma_kernelILi(\d)ELb([01])E"),
     "dense": re.compile(r"dense_bwd_mma_kernelILb([01])E"),
-    "dense fwd": re.compile(r"dense_fwd_mma_kernel"),
-    "cfconv fwd": re.compile(r"nbr_fwd_mma_kernel"),
+    "dense fwd": re.compile(r"(?<!gw_)dense_fwd_mma_kernel"),
+    "cfconv fwd": re.compile(r"(?<!gw_)nbr_fwd_mma_kernel"),
     "cfconv": re.compile(r"nbr_bwd_mma_kernel"),
-    "cfconv gx": re.compile(r"nbr_gx_mma_kernel"),
+    "cfconv gx": re.compile(r"(?<!gw_)nbr_gx_mma_kernel"),
+    "general dense fwd": re.compile(r"gw_dense_fwd_mma_kernel"),
+    "general nbr fwd": re.compile(r"gw_nbr_fwd_mma_kernel"),
+    "general gx": re.compile(r"gw_nbr_gx_mma_kernel"),
+    "general bwd": re.compile(r"gw_bwd_mma_kernelILb([01])ELb([01])E"),
 }
 # The labels of the kernels without template arguments.
 MMA_SINGLE = {
@@ -626,7 +636,14 @@ MMA_SINGLE = {
     "cfconv fwd": "nbr_fwd_mma_kernel (cfconv_fwd)",
     "cfconv": "nbr_bwd_mma_kernel (cfconv_bwd, first pass)",
     "cfconv gx": "nbr_gx_mma_kernel (cfconv_bwd, gx pass)",
+    "general dense fwd": "gw_dense_fwd_mma_kernel (general-width "
+                         "dense_cfconv_fwd)",
+    "general nbr fwd": "gw_nbr_fwd_mma_kernel (general-width cfconv_fwd)",
+    "general gx": "gw_nbr_gx_mma_kernel (general-width cfconv_bwd, gx pass)",
 }
+# gw_bwd_mma_kernel<GX, NBR>'s instantiations: dense with and without gx,
+# the neighbour matrix.
+MMA_GENERAL_BWD = (("1", "0"), ("0", "0"), ("0", "1"))
 MMA_TIERS = {"1": "bf16", "3": "bf16x3"}
 
 
@@ -650,6 +667,11 @@ def _mma_label(kind, args):
     if kind == "dense":
         return (f"dense kernel dense_bwd_mma_kernel bf16 "
                 f"{'with gx' if args[0] == '1' else 'no gx'}")
+    if kind == "general bwd":
+        gx, nbr = args
+        return ("general kernel gw_bwd_mma_kernel bf16 "
+                + ("nbr" if nbr == "1" else
+                   "dense with gx" if gx == "1" else "dense no gx"))
     t, gx, c = args
     return (f"rows kernel cheb_rows_mma_kernel {'gx' if gx == '1' else 'fwd'}"
             f" {MMA_TIERS[t]} {'cell' if c == '1' else 'open'}")
@@ -746,8 +768,10 @@ GENERAL_LABELS = (
 
 
 def general_label(name):
-    """The GENERAL_LABELS entry of a mangled general-width kernel name, or
-    None for another kernel."""
+    """The GENERAL_LABELS entry of a mangled general-width CUDA-core kernel
+    name, or None for another kernel (the tensor-core ones included)."""
+    if "_mma_kernel" in name:
+        return None
     m = re.search(r"(gw_\w+?_kernel)I((?:Lb[01]E)+)E", name)
     if not m:
         return None
@@ -782,11 +806,13 @@ def general_kernel_report(log):
 def mma_kernel_report(log, lib_path, nvcc):
     """The tensor-core kernels' instantiations: cheb_gd_mma_kernel and
     cheb_gxgd_mma_kernel (bf16, bf16x3; open, cell), cheb_rows_mma_kernel
-    (also fwd, gx), dense_bwd_mma_kernel (with and without gx) and the
-    four bf16 kernels of MMA_SINGLE: ptxas
-    registers, static shared memory and spills, and the tensor-core
-    instructions (HMMA/HGMMA) in their SASS. Fails if one is missing,
-    spills or holds no tensor-core instruction."""
+    (also fwd, gx), dense_bwd_mma_kernel (with and without gx), the bf16
+    kernels of MMA_SINGLE and the general-width gw_bwd_mma_kernel
+    (MMA_GENERAL_BWD): ptxas registers, static shared memory and spills,
+    and the tensor-core instructions (HMMA/HGMMA) in their SASS. Fails if
+    one is missing, spills or holds no tensor-core instruction, or if one
+    of the general-width CUDA-core kernels (GENERAL_LABELS, fp32 and the
+    wide bf16 family) holds one."""
     from pathlib import Path
 
     seen, name, spill = {}, None, None
@@ -812,16 +838,29 @@ def mma_kernel_report(log, lib_path, nvcc):
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
+    cuda_core = {}
     for part in sass.split("Function : ")[1:]:
-        key = _mma_match(part.split("\n", 1)[0])
+        fname = part.split("\n", 1)[0]
+        n_mma = len(re.findall(r"\b(?:HMMA|HGMMA)\.", part))
+        key = _mma_match(fname)
         if key in seen:
-            seen[key][3] = len(re.findall(r"\b(?:HMMA|HGMMA)\.", part))
+            seen[key][3] = n_mma
+        label = general_label(fname)
+        if label:
+            cuda_core[label] = n_mma
     expected = [("gd", (t, c)) for t in MMA_TIERS for c in "01"]
     expected += [("rows", (t, gx, c)) for gx in "01" for t in MMA_TIERS
                  for c in "01"]
     expected += [("gxgd", (t, c)) for t in MMA_TIERS for c in "01"]
     expected += [("dense", (gx,)) for gx in "01"]
     expected += [(kind, ()) for kind in MMA_SINGLE]
+    expected += [("general bwd", args) for args in MMA_GENERAL_BWD]
+    for label in GENERAL_LABELS:
+        check(label in cuda_core, f"{label}: not in the SASS")
+        print(f"build: general kernel {label}: {cuda_core[label]} "
+              "tensor-core MMA instructions in SASS (CUDA cores: 0)")
+        check(cuda_core[label] == 0,
+              f"{label}: tensor-core instructions in a CUDA-core kernel")
     for key in expected:
         label = _mma_label(*key)
         check(key in seen, f"{label}: not built")
@@ -4676,12 +4715,14 @@ def phase_widths(dev, smi):
             AllKernels.reset_launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            prep = cg.weight_preparations()
             t0 = time.perf_counter()
             with counting_twins(mp) as twins:
                 counts, ms, sim = run_slice(
                     label, ff, cfgs, dev, steps, SAVE_INTERVAL, cg, expect,
                     smi, **({"gptq": None} if prec == "fp32" else {}))
             wall = time.perf_counter() - t0
+            prep = cg.weight_preparations() - prep
             peak = torch.cuda.max_memory_allocated()
             check(not any(twins.values()), f"{label}: twin calls {twins}")
             others = {k: v for k, v in AllKernels.launch_counts().items()
@@ -4699,7 +4740,8 @@ def phase_widths(dev, smi):
                   f"counter 0), twin calls 0;"
                   f" second-half throughput {tp:.1f} timestep*mol/s "
                   f"({ms:.3f} ms/step); peak device memory {peak} B "
-                  f"({peak / 1e9:.3f} GB); {wall:.1f} s; on {smi}")
+                  f"({peak / 1e9:.3f} GB); filter weights prepared {prep} "
+                  f"times in the run (3 blocks); {wall:.1f} s; on {smi}")
             profile_steps(sim, dev, PROFILE_STEPS, label)
             runs[f, r, mp, prec] = counts
             if wall > WIDTH_LONG_S:

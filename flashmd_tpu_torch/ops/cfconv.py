@@ -48,13 +48,16 @@ Widths: on CUDA tensors the wrappers route every (F >= 1, R >= 1) by
 kernels above (the tuned family, which lays its tiles out for F = 128:
 narrower filters are zero-padded to 128, exactly, and the outputs sliced
 back), any other width to the general-width kernels of
-``csrc/cfconv_general_kernels.cu`` (ops/cfconv_general.py: float32 FMAs on
-the CUDA cores at both tiers, gx computing W again over the source CSR).
+``csrc/cfconv_general_kernels.cu`` (ops/cfconv_general.py: the tensor
+cores at bf16, float32 FMAs on the CUDA cores at fp32 and for bf16 weights
+too wide for shared memory, the "wide" family; gx computing W again over
+the source CSR).
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches a kernel or raises; there is no fallback. Each
 wrapper counts the tuned family's launches in its ``launches`` attribute,
-the general family's count in ``cfconv_general.launch_counts()``.
+the general and wide families' in
+``cfconv_general.launch_counts()``.
 
 Precision tiers: ``fp32`` and ``bf16`` (operands of the four products
 rounded to bf16, everything else float32, at the same places in the
@@ -226,7 +229,7 @@ def cfconv_fwd(pos, idx, mask, x, w0, b0, w1, offset, coeff, rcut,
 
     s, a, k, f, r = _check_operands(pos, idx, mask, x, w0, b0, w1, offset,
                                     coeff)
-    if route(f, r, precision)[0] == "general":
+    if route(f, r, precision)[0] != "tuned":
         return general_fwd(pos, idx, mask, x, w0, b0, w1, offset, coeff,
                            rcut, precision)
     (x,), w0, b0, w1 = tuned_operands((x,), w0, b0, w1)
@@ -262,7 +265,7 @@ def cfconv_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
     _check("csr_offsets", csr_offsets, (s * a + 1,), torch.int32)
     _check("csr_slots", csr_slots, (s * a * k,), torch.int32)
     _same_device(pos, g, csr_offsets, csr_slots)
-    if route(f, r, precision)[0] == "general":
+    if route(f, r, precision)[0] != "tuned":
         return general_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0,
                            b0, w1, offset, coeff, rcut, precision, need_gx)
     (x, g), w0, b0, w1 = tuned_operands((x, g), w0, b0, w1)

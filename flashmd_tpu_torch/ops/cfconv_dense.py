@@ -40,13 +40,15 @@ Widths: on CUDA tensors the wrappers route every (F >= 1, R >= 1) by
 kernels above (the tuned family, which lays its tiles out for F = 128:
 narrower filters are zero-padded to 128, exactly, and the outputs sliced
 back), any other width to the general-width kernels of
-``csrc/cfconv_general_kernels.cu`` (ops/cfconv_general.py: float32 FMAs on
-the CUDA cores at both tiers).
+``csrc/cfconv_general_kernels.cu`` (ops/cfconv_general.py: the tensor
+cores at bf16, float32 FMAs on the CUDA cores at fp32 and for bf16 weights
+too wide for shared memory, the "wide" family).
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches a kernel or raises; there is no fallback. Each
 wrapper counts the tuned family's launches in its ``launches`` attribute,
-the general family's count in ``cfconv_general.launch_counts()``.
+the general and wide families' in
+``cfconv_general.launch_counts()``.
 
 Precision tiers: ``fp32`` and ``bf16`` (operands of the four products
 rounded to bf16, everything else float32, at the same places in the
@@ -188,7 +190,7 @@ def dense_cfconv_fwd(pos, x, w0, b0, w1, offset, coeff, rcut, precision):
     _check("x", x, (s, a, f))
     r = _check_weights(w0, b0, w1, offset, coeff, a, f)
     _same_device(pos, x, w0, b0, w1, offset, coeff)
-    if route(f, r, precision)[0] == "general":
+    if route(f, r, precision)[0] != "tuned":
         return general_fwd(pos, None, None, x, w0, b0, w1, offset, coeff,
                            rcut, precision)
     (x,), w0, b0, w1 = tuned_operands((x,), w0, b0, w1)
@@ -220,7 +222,7 @@ def dense_cfconv_bwd(pos, x, g, w0, b0, w1, offset, coeff, rcut, precision,
     _check("g", g, (s, a, f))
     r = _check_weights(w0, b0, w1, offset, coeff, a, f)
     _same_device(pos, x, g, w0, b0, w1, offset, coeff)
-    if route(f, r, precision)[0] == "general":
+    if route(f, r, precision)[0] != "tuned":
         return general_bwd(pos, None, None, None, None, x, g, w0, b0, w1,
                            offset, coeff, rcut, precision, need_gx)
     (x, g), w0, b0, w1 = tuned_operands((x, g), w0, b0, w1)

@@ -7,30 +7,45 @@ on ``csrc/cfconv_tile.cuh``) stage w0 and w1 whole in shared memory and lay
 their tiles out for F = 128 filters and at most 64 radial functions. The
 JAX kernels read F and R from their operands and take any width, so
 ``ops/cfconv.py`` and ``ops/cfconv_dense.py`` route each CUDA launch by
-:func:`route`, a plain function of (F, R, precision):
+:func:`route`, a plain function of (F, R, precision), to one of three
+families:
 
-* F <= 128 and R <= 64: the tuned kernels. Below F = 128 the wrapper pads
-  w0's columns, b0, w1's rows and columns and the features of x and g with
-  zeros (:func:`tuned_operands`) and slices the outputs back to F. That is
-  exact at both tiers: tanh(0) = 0, a zero stays zero under bf16 rounding,
-  and zero products add nothing. It runs (R 128 + 128^2) / (R F + F^2) times
-  the useful work (3.1x at F 64, R 50).
-* any other width: the general-width kernels of
+* "tuned", F <= 128 and R <= 64: the tuned kernels. Below F = 128 the
+  wrapper pads w0's columns, b0, w1's rows and columns and the features of
+  x and g with zeros (:func:`tuned_operands`) and slices the outputs back
+  to F. That is exact at both tiers: tanh(0) = 0, a zero stays zero under
+  bf16 rounding, and zero products add nothing. It runs (R 128 + 128^2) /
+  (R F + F^2) times the useful work (3.1x at F 64, R 50).
+* "general", any other width: the general-width kernels of
   ``csrc/cfconv_general_kernels.cu`` (:func:`general_fwd`,
-  :func:`general_bwd`), register-tiled float32 FMAs on the CUDA cores at
-  both tiers, features in chunks of 64 and R in chunks of 64, the weights
-  read through the read-only path. They take the weights zero-padded to
-  Fp = F rounded up to 64 and Rq = R rounded up to 64, with the
-  transposes of w0 and w1 and the bf16 rounding of the weights made here
-  (:func:`general_weights`), and x and g padded to Fp.
+  :func:`general_bwd`). At fp32 (and bf16x3, which computes these kernels
+  at fp32) register-tiled float32 FMAs on the CUDA cores, features and R
+  in chunks of 64, weights zero-padded to Fp = F and Rq = R rounded up to
+  64 with the transposes of w0 and w1, read through the read-only path. At
+  bf16 the tensor-core tiles (``gw_*_mma_kernel``): mma.sync bf16 products
+  with bf16 weights w0 [Rq][Fq] and w1 [Fq][Fq] (Fq, Rq: F, R rounded up to
+  16) staged once per block in shared memory, where they and one warp's
+  tiles must fit (:func:`mma_smem_bytes`).
+* "wide", bf16 at a width whose bf16 weights do not fit there (F 1,600 at
+  R 8, say): the CUDA-core kernels at bf16 (operands rounded where the
+  twins round them), with the fp32 tier's layout.
+
+:func:`general_weights` prepares a family's weights once per parameter set:
+the prepared tensors are kept, keyed on the parameters' identity, version
+counter (so that an in-place update is seen), shape, dtype and the tier,
+for as long as the parameters live. x and g are padded to the family's
+width on each call.
 
 Each family counts its own launches: the tuned one on the wrappers'
-``launches``, the general one here (``dense_cfconv_fwd_general``, ...,
-:func:`launch_counts`). There is no fallback: on CUDA tensors every width
-launches a kernel or raises.
+``launches``, the general and wide ones here (``dense_cfconv_fwd_general``,
+``cfconv_bwd_wide``, ..., :func:`launch_counts`). There is no fallback: on
+CUDA tensors every width launches a kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
+import weakref
 
 import torch
 
@@ -40,23 +55,55 @@ from ._launch import _ptr, _raise_on, _stream
 # The widths the tuned kernels take (F and RMAX of csrc/cfconv_tile.cuh).
 TUNED_F = 128
 TUNED_R_MAX = 64
-# Column and radial-function chunks of the general-width kernels (GW_CW,
-# GW_RC of csrc/cfconv_general_kernels.cu).
+# Column and radial-function chunks of the general-width CUDA-core kernels
+# (GW_CW, GW_RC of csrc/cfconv_general_kernels.cu).
 GENERAL_COLUMNS = 64
 GENERAL_RBF_CHUNK = 64
-
-
-def route(f: int, r: int, precision: str) -> tuple:
-    """(family, tier) of a CUDA launch at F filters and R radial functions:
-    family "tuned" (F <= 128, R <= 64; zero-padded to F = 128) or
-    "general"; tier "fp32" or "bf16" (bf16x3 computes these kernels at
-    fp32, as the reference does)."""
-    family = "tuned" if f <= TUNED_F and r <= TUNED_R_MAX else "general"
-    return family, "bf16" if precision == "bf16" else "fp32"
+# The tensor-core tiles (GM_* of csrc/cfconv_general_kernels.cu): F and R
+# padded to the mma k-step, the W cut staging's row stride, the ring and
+# the rows of a work item, the shared memory a block may hold, and the
+# kernels' tier code.
+MMA_K = 16
+MMA_STAGE_LD = 36
+MMA_RING = 64
+MMA_ROWS = 4
+SMEM_MAX = 232448
+MMA_TIER = 2
+# Prepared weights kept at most (general_weights).
+WEIGHT_CACHE_SIZE = 32
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def mma_smem_bytes(f: int, r: int) -> int:
+    """Bytes of shared memory that a block of the tensor-core tiles needs
+    at F filters and R radial functions, with one warp (gm_shape of the
+    kernels): the bf16 weights w0 [Rq][Fq + 8] and w1 [Fq][Fq + 8], b0 and
+    the offsets, and the area of a warp of the dense backward with gx (the
+    largest): rbf and activation fragments, the W cut staging, the item's
+    gx rows and the ring."""
+    fq, rq = _round_up(f, MMA_K), _round_up(r, MMA_K)
+    weights = 2 * (rq + fq) * (fq + 8) + 4 * (fq + rq)
+    warp = (32 * rq + 32 * fq + 4 * 16 * MMA_STAGE_LD + 4 * MMA_ROWS * fq
+            + 4 * MMA_RING)
+    return weights + warp
+
+
+def route(f: int, r: int, precision: str) -> tuple:
+    """(family, tier) of a CUDA launch at F filters and R radial functions:
+    family "tuned" (F <= 128, R <= 64; zero-padded to F = 128), "general"
+    (the tensor-core tiles at bf16, the CUDA-core kernels at fp32) or
+    "wide" (bf16 where :func:`mma_smem_bytes` exceeds a block's shared
+    memory: the CUDA-core kernels at bf16); tier "fp32" or "bf16" (bf16x3
+    computes these kernels at fp32, as the reference does)."""
+    tier = "bf16" if precision == "bf16" else "fp32"
+    if f <= TUNED_F and r <= TUNED_R_MAX:
+        return "tuned", tier
+    if tier == "bf16" and mma_smem_bytes(f, r) > SMEM_MAX:
+        return "wide", tier
+    return "general", tier
 
 
 def pad_features(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -88,12 +135,16 @@ def tuned_operands(feats, w0, b0, w1):
             _pad2(w1, TUNED_F, TUNED_F))
 
 
-def general_weights(w0, b0, w1, offset, precision):
-    """The general-width kernels' weights: w0 [Rq, Fp], its transpose
-    [Fp, Rq], b0 [Fp], w1 and its transpose [Fp, Fp] and the offsets [Rq],
-    zero-padded (Fp, Rq: F, R rounded up to 64), w0 and w1 rounded to bf16
-    at that tier; each float32 and contiguous."""
+def _prepare(w0, b0, w1, offset, precision, tensor_cores):
     r, f = w0.shape
+    if tensor_cores:
+        fq, rq = _round_up(f, MMA_K), _round_up(r, MMA_K)
+        return {
+            "w0": _pad2(w0, rq, fq).to(torch.bfloat16),
+            "b0": pad_features(b0, fq).contiguous(),
+            "w1": _pad2(w1, fq, fq).to(torch.bfloat16),
+            "off": pad_features(offset, rq).contiguous(),
+        }
     fp = _round_up(f, GENERAL_COLUMNS)
     rq = _round_up(r, GENERAL_RBF_CHUNK)
     if precision == "bf16":
@@ -104,6 +155,56 @@ def general_weights(w0, b0, w1, offset, precision):
         "w1": w1p, "w1t": w1p.T.contiguous(),
         "off": pad_features(offset, rq),
     }
+
+
+# Prepared weights: (layout, tier, the parameters' ids) -> (weak references
+# to the parameters, their version counters, shapes, dtypes and devices,
+# the tensors). An entry goes when one of its parameters dies or a newer
+# version of them replaces it, or beyond WEIGHT_CACHE_SIZE entries, the
+# oldest first. _prepared counts the preparations (weight_preparations).
+_cache: dict = {}
+_prepared = 0
+
+
+def _forget(key, _ref):
+    _cache.pop(key, None)
+
+
+def general_weights(w0, b0, w1, offset, precision, tensor_cores=False):
+    """The general-width kernels' weights, each contiguous. For the
+    CUDA-core kernels (default): w0 [Rq, Fp] float32, its transpose [Fp,
+    Rq], b0 [Fp], w1 and its transpose [Fp, Fp] and the offsets [Rq],
+    zero-padded (Fp, Rq: F, R rounded up to 64), w0 and w1 rounded to bf16
+    at that tier. With ``tensor_cores`` (the bf16 tier's tiles): w0 [Rq,
+    Fq] and w1 [Fq, Fq] in bfloat16 (round to nearest even), b0 [Fq] and
+    the offsets [Rq] float32, zero-padded (Fq, Rq: F, R rounded up to 16).
+
+    Made once per parameter set and tier: a call with the same tensors, at
+    the same version counters, returns the tensors that the first made."""
+    global _prepared
+    params = (w0, b0, w1, offset)
+    key = (bool(tensor_cores), precision == "bf16", *map(id, params))
+    stamp = tuple((t._version, tuple(t.shape), t.dtype, t.device)
+                  for t in params)
+    hit = _cache.get(key)
+    if (hit is not None and hit[1] == stamp
+            and all(ref() is t for ref, t in zip(hit[0], params))):
+        return hit[2]
+    with torch.no_grad():
+        wg = _prepare(w0, b0, w1, offset, precision, tensor_cores)
+    _prepared += 1
+    _cache.pop(key, None)
+    refs = tuple(weakref.ref(t, functools.partial(_forget, key))
+                 for t in params)
+    _cache[key] = (refs, stamp, wg)
+    while len(_cache) > WEIGHT_CACHE_SIZE:
+        _cache.pop(next(iter(_cache)), None)
+    return wg
+
+
+def weight_preparations() -> int:
+    """How many times :func:`general_weights` has prepared weights."""
+    return _prepared
 
 
 def _workspace(bwd, fp, device):
@@ -117,8 +218,16 @@ def _workspace(bwd, fp, device):
 
 
 def _weight_ptrs(wg, coeff):
-    return (_ptr(wg["w0"]), _ptr(wg["w0t"]), _ptr(wg["b0"]), _ptr(wg["w1"]),
-            _ptr(wg["w1t"]), _ptr(wg["off"]), _ptr(coeff))
+    return (_ptr(wg["w0"]), _ptr(wg.get("w0t")), _ptr(wg["b0"]),
+            _ptr(wg["w1"]), _ptr(wg.get("w1t")), _ptr(wg["off"]),
+            _ptr(coeff))
+
+
+def _family(f, r, precision):
+    """(family, tensor_cores, tier code) of a general-width launch."""
+    family, tier = route(f, r, precision)
+    mma = family == "general" and tier == "bf16"
+    return family, mma, MMA_TIER if mma else int(tier == "bf16")
 
 
 def general_fwd(pos, idx, mask, x, w0, b0, w1, offset, coeff, rcut,
@@ -131,18 +240,19 @@ def general_fwd(pos, idx, mask, x, w0, b0, w1, offset, coeff, rcut,
     s, a, f = x.shape
     r = w0.shape[0]
     nbr = idx is not None
-    wg = general_weights(w0, b0, w1, offset, precision)
+    family, mma, tier = _family(f, r, precision)
+    wg = general_weights(w0, b0, w1, offset, precision, tensor_cores=mma)
     fp, rq = wg["w1"].shape[0], wg["off"].shape[0]
     xp = pad_features(x, fp)
     out = torch.empty_like(xp)
-    ws = _workspace(False, fp, x.device)
+    ws = None if mma else _workspace(False, fp, x.device)
     rc = load().cfconv_general_fwd(
         int(nbr), _ptr(pos), _ptr(idx), _ptr(mask), _ptr(xp),
         *_weight_ptrs(wg, coeff), _ptr(out), _ptr(ws), s, a,
-        idx.shape[-1] if nbr else 0, fp, r, rq, float(rcut),
-        int(precision == "bf16"), _stream(),
+        idx.shape[-1] if nbr else 0, fp, r, rq, float(rcut), tier,
+        _stream(),
     )
-    name = "cfconv_fwd_general" if nbr else "dense_cfconv_fwd_general"
+    name = f"{'cfconv' if nbr else 'dense_cfconv'}_fwd_{family}"
     _raise_on(rc, name)
     _launches[name] += 1
     return out if fp == f else out[..., :f].contiguous()
@@ -160,21 +270,22 @@ def general_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
     r = w0.shape[0]
     nbr = idx is not None
     k = idx.shape[-1] if nbr else 0
-    wg = general_weights(w0, b0, w1, offset, precision)
+    family, mma, tier = _family(f, r, precision)
+    wg = general_weights(w0, b0, w1, offset, precision, tensor_cores=mma)
     fp, rq = wg["w1"].shape[0], wg["off"].shape[0]
     xp, gp = pad_features(x, fp), pad_features(g, fp)
     gd = torch.empty(s, a, k if nbr else a, dtype=pos.dtype,
                      device=pos.device)
     gpos = torch.empty_like(pos)
     gx = torch.empty_like(gp) if need_gx else None
-    ws = _workspace(True, fp, x.device)
+    ws = None if mma else _workspace(True, fp, x.device)
     rc = load().cfconv_general_bwd(
         int(nbr), _ptr(pos), _ptr(idx), _ptr(mask), _ptr(csr_offsets),
         _ptr(csr_slots), _ptr(xp), _ptr(gp), *_weight_ptrs(wg, coeff),
         _ptr(gd), _ptr(gpos), _ptr(gx), _ptr(ws), s, a, k, fp, r, rq,
-        float(rcut), int(precision == "bf16"), _stream(),
+        float(rcut), tier, _stream(),
     )
-    name = "cfconv_bwd_general" if nbr else "dense_cfconv_bwd_general"
+    name = f"{'cfconv' if nbr else 'dense_cfconv'}_bwd_{family}"
     _raise_on(rc, name)
     _launches[name] += 1
     if gx is not None and fp != f:
@@ -183,10 +294,11 @@ def general_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
 
 
 # Launches of the general-width kernels, one per wrapper call (a backward's
-# two or three kernels count as one), by the wrapper that routed them.
+# two or three kernels count as one), by the wrapper that routed them and
+# the family (general, wide).
 _launches = dict.fromkeys(
-    ["dense_cfconv_fwd_general", "dense_cfconv_bwd_general",
-     "cfconv_fwd_general", "cfconv_bwd_general"], 0)
+    [f"{path}_{kind}_{family}" for family in ("general", "wide")
+     for path in ("dense_cfconv", "cfconv") for kind in ("fwd", "bwd")], 0)
 
 
 def reset_launch_counts() -> None:

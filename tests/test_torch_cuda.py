@@ -1832,6 +1832,39 @@ def test_width_field_launch_counts(dev, path):
     assert torch.isfinite(torch.as_tensor(coords)).all()
 
 
+@pytest.mark.parametrize("f,r,family", [(300, 17, "general"),
+                                        (1600, 8, "wide")])
+def test_bf16_general_launches_count_on_their_family(dev, f, r, family):
+    """At bf16 the tensor-core tiles count on the general family's
+    counters, and the widths whose bf16 weights do not fit in shared
+    memory on the wide family's (the CUDA-core kernels at bf16); the dense
+    and the neighbour-matrix forward and backward against their twins."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
+    assert cg.route(f, r, "bf16") == (family, "bf16")
+    pos, x, g, w, nbr = _nbr_tc_case(dev, 33, 32, True, f=f, r=r)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    _reset_family_counts()
+    outs = (cd.dense_cfconv_fwd(pos, x, *w, RCUT, "bf16"),
+            *cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "bf16"),
+            cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16"),
+            *cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16"))
+    torch.cuda.synchronize()
+    expect = dict.fromkeys(_family_counts(), 0)
+    for name in ("dense_cfconv_fwd", "dense_cfconv_bwd", "cfconv_fwd",
+                 "cfconv_bwd"):
+        expect[f"{name}_{family}"] = 1
+    assert _family_counts() == expect
+    refs = (cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT, "bf16"),
+            *cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT, "bf16"),
+            cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w, RCUT, "bf16"),
+            *cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w, RCUT,
+                                 "bf16"))
+    for k, p in zip(outs, refs):
+        assert bool(torch.isfinite(k).all())
+        assert _rel(k, p) <= BOUNDS["bf16"]["bwd"]
+
+
 # --------------------------------------------------------------------------
 # the exact xla path (no kernel of its own: plain PyTorch with the
 # deterministic neighbour gather of ops/gather.py)

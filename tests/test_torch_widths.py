@@ -45,6 +45,7 @@ from flashmd_tpu.simulation.langevin import (
 )
 from flashmd_tpu_torch.data.system import Configuration
 from flashmd_tpu_torch.models.convert import forcefield_from_numpy
+from flashmd_tpu_torch.models.mlp import round_bf16
 from flashmd_tpu_torch.ops import cfconv as cf
 from flashmd_tpu_torch.ops import cfconv_dense as cd
 from flashmd_tpu_torch.ops import cfconv_general as cg
@@ -198,15 +199,26 @@ def test_padding_to_the_tuned_width_is_exact(path, f, r, precision):
 @pytest.mark.parametrize("precision", ["fp32", "bf16", "bf16x3"])
 def test_route_at_each_width(precision):
     """F <= 128 and R <= 64 take the tuned kernels (padded to 128), every
-    other width the general ones; bf16x3 runs these kernels at fp32."""
+    other width the general ones; bf16x3 runs these kernels at fp32. At
+    bf16 the general family is the tensor-core tiles, which take every
+    width that chip_smoke.py and the card tests run (F 300, R 17 with one
+    warp a block: 229,184 of the 232,448 bytes), and the widths whose bf16
+    weights do not fit in a block's shared memory go to the CUDA-core
+    kernels at bf16, the "wide" family."""
     tier = "bf16" if precision == "bf16" else "fp32"
     expect = {(128, 50): "tuned", (128, 64): "tuned", (64, 32): "tuned",
               (96, 50): "tuned", (1, 1): "tuned", (64, 300): "general",
               (256, 50): "general", (128, 100): "general",
               (100, 70): "general", (129, 1): "general",
-              (128, 65): "general"}
+              (128, 65): "general", (300, 17): "general"}
+    wide = {(1600, 8), (2900, 8), (320, 17), (64, 3000)}
+    for f, r in wide:
+        expect[f, r] = "wide" if tier == "bf16" else "general"
     for (f, r), family in expect.items():
         assert cg.route(f, r, precision) == (family, tier)
+    assert cg.mma_smem_bytes(300, 17) == 229184 <= cg.SMEM_MAX
+    assert cg.mma_smem_bytes(256, 50) == 187136
+    assert all(cg.mma_smem_bytes(f, r) > cg.SMEM_MAX for f, r in wide)
 
 
 def test_general_weights_layout():
@@ -237,6 +249,122 @@ def test_general_weights_layout():
                               "w1": (100, 100), "w1t": (100, 100)}[k]
                 mask[:rows, :cols] = False
             assert not bool(v[mask].any())
+
+
+@pytest.mark.parametrize("f,r", [(64, 300), (256, 50), (100, 70),
+                                 (129, 2), (300, 17)])
+def test_tensor_core_weights_layout(f, r):
+    """The tensor-core tiles' weights: w0 [Rq, Fq] and w1 [Fq, Fq] in
+    bfloat16 equal to round_bf16 of the parameters, b0 [Fq] and the offsets
+    [Rq] float32 as they are, zero-padded (Fq, Rq: F, R rounded up to 16),
+    no transposes, each contiguous."""
+    t = _inputs(f, r, seed=5 * f + r)
+    tt = {k: torch.tensor(v) for k, v in t.items()}
+    fq, rq = -(-f // 16) * 16, -(-r // 16) * 16
+    wg = cg.general_weights(tt["w0"], tt["b0"], tt["w1"], tt["offset"],
+                            "bf16", tensor_cores=True)
+    assert sorted(wg) == ["b0", "off", "w0", "w1"]
+    assert all(v.is_contiguous() for v in wg.values())
+    shapes = {"w0": (rq, fq), "w1": (fq, fq), "b0": (fq,), "off": (rq,)}
+    for k, shape in shapes.items():
+        assert tuple(wg[k].shape) == shape
+        assert wg[k].dtype == (torch.bfloat16 if k in ("w0", "w1")
+                               else torch.float32)
+    assert torch.equal(wg["w0"][:r, :f].float(), round_bf16(tt["w0"]))
+    assert torch.equal(wg["w1"][:f, :f].float(), round_bf16(tt["w1"]))
+    assert torch.equal(wg["b0"][:f], tt["b0"])
+    assert torch.equal(wg["off"][:r], tt["offset"])
+    live = {"w0": (r, f), "w1": (f, f), "b0": (f,), "off": (r,)}
+    for k, v in wg.items():
+        mask = torch.ones(v.shape, dtype=torch.bool)
+        mask[tuple(slice(0, n) for n in live[k])] = False
+        assert not bool(v[mask].any())
+
+
+def _params(f=100, r=70, seed=2):
+    t = _inputs(f, r, seed=seed)
+    return [torch.tensor(t[k]) for k in ("w0", "b0", "w1", "offset")]
+
+
+@pytest.mark.parametrize("tensor_cores,precision",
+                         [(True, "bf16"), (False, "bf16"), (False, "fp32"),
+                          (False, "bf16x3")])
+def test_weights_are_prepared_once(tensor_cores, precision):
+    """A second call with the same parameters prepares nothing and returns
+    the same tensors; other parameters of equal values are prepared anew."""
+    params = _params()
+    n = cg.weight_preparations()
+    first = cg.general_weights(*params, precision, tensor_cores=tensor_cores)
+    assert cg.weight_preparations() == n + 1
+    again = cg.general_weights(*params, precision, tensor_cores=tensor_cores)
+    assert cg.weight_preparations() == n + 1 and again is first
+    copies = [t.clone() for t in params]
+    other = cg.general_weights(*copies, precision, tensor_cores=tensor_cores)
+    assert cg.weight_preparations() == n + 2 and other is not first
+    for k, v in first.items():
+        assert torch.equal(other[k], v)
+
+
+@pytest.mark.parametrize("which", range(4), ids=["w0", "b0", "w1", "offset"])
+@pytest.mark.parametrize("tensor_cores", [True, False])
+def test_weights_see_in_place_updates(which, tensor_cores):
+    """An in-place update of a parameter (its version counter moves) is
+    prepared again, and the new tensors hold the new values."""
+    params = _params(seed=3)
+    first = cg.general_weights(*params, "bf16", tensor_cores=tensor_cores)
+    kept = {k: v.clone() for k, v in first.items()}
+    n = cg.weight_preparations()
+    params[which].mul_(2.0)
+    second = cg.general_weights(*params, "bf16", tensor_cores=tensor_cores)
+    assert cg.weight_preparations() == n + 1
+    fresh = cg._prepare(*params, "bf16", tensor_cores)
+    for k, v in second.items():
+        assert torch.equal(v, fresh[k])
+    assert any(not torch.equal(second[k], kept[k]) for k in kept)
+
+
+def test_weights_of_dead_or_updated_parameters_are_dropped():
+    """The cache keeps one entry per live parameter set: an in-place
+    update replaces its entry, and the entry goes with its parameters."""
+    import gc
+
+    params = _params(seed=6)
+    ids = tuple(map(id, params))
+
+    def entries():
+        return [k for k in cg._cache if k[2:] == ids]
+
+    cg.general_weights(*params, "bf16", tensor_cores=True)
+    assert len(entries()) == 1
+    params[2].mul_(2.0)
+    second = cg.general_weights(*params, "bf16", tensor_cores=True)
+    assert len(entries()) == 1 and cg._cache[entries()[0]][2] is second
+    del params
+    gc.collect()
+    assert not entries()
+
+
+def test_weight_tiers_are_kept_apart():
+    """fp32 and bf16 of one parameter set are prepared apart (the weights
+    rounded at bf16 only), and so are the CUDA-core and the tensor-core
+    layouts; bf16x3 shares the fp32 tensors, as it computes at fp32."""
+    params = _params(seed=4)
+    n = cg.weight_preparations()
+    fp32 = cg.general_weights(*params, "fp32")
+    bf16 = cg.general_weights(*params, "bf16")
+    mma = cg.general_weights(*params, "bf16", tensor_cores=True)
+    assert cg.weight_preparations() == n + 3
+    assert cg.general_weights(*params, "bf16x3") is fp32
+    assert cg.weight_preparations() == n + 3
+    assert torch.equal(fp32["w1"][:100, :100], params[2])
+    assert torch.equal(bf16["w1"][:100, :100], round_bf16(params[2]))
+    assert not torch.equal(fp32["w1"], bf16["w1"])
+    assert mma["w1"].dtype == torch.bfloat16 and "w1t" not in mma
+    assert (cg.general_weights(*params, "fp32"),
+            cg.general_weights(*params, "bf16"),
+            cg.general_weights(*params, "bf16", tensor_cores=True)) == (
+                fp32, bf16, mma)
+    assert cg.weight_preparations() == n + 3
 
 
 def _config_kwargs(cfg):

@@ -1,25 +1,41 @@
-"""The tuned exact-filter kernels at the zoo's widths (F 128, R 50), from this
-tree or another: their outputs, bit for bit, and their times.
+"""The exact-filter kernels from this tree or another: the tuned kernels at the
+zoo's widths (F 128, R 50) and the general-width kernels at SchNet's
+published widths (F 64, R 300) and at F 256, R 50: their outputs, bit for
+bit, and their times.
 
     python3 tools/tuned_ab.py [--tree DIR] --save FILE [--against FILE]
 
 Runs dense_cfconv_fwd, dense_cfconv_bwd (with and without gx), cfconv_fwd
-and cfconv_bwd (with and without gx) at fp32 and bf16 on chip_smoke.py's
-slice shapes: the zoo's start positions (S = 128, A = 266), the pallas
-slice's list (K from the zoo's rule, rc + skin 1.0), the first block's
-filter weights, x and g drawn from seed 12. Prints each one's CUDA-event
-time (chip_smoke.py's cuda_time_ms), saves the outputs to FILE and, with
-``--against``, says whether they equal bitwise those that another run
-saved. ``--tree DIR`` imports chip_smoke.py and flashmd_tpu_torch from DIR
-(a parent's ``git archive`` unpacked under ``_chip/``, which .gitignore
-lists), so that two trees run on one card in turns, each in its own
-process: parent, change, change, parent. Prints the tree and nvidia-smi's
-name and power limit first; exits non-zero if the outputs differ.
+and cfconv_bwd (with and without gx) at fp32 and bf16 at each width on
+chip_smoke.py's slice shapes: the zoo's start positions (S = 128, A = 266),
+the pallas slice's list (K from the zoo's rule, rc + skin 1.0), the first
+block's filter weights (the zoo's at F 128, chip_smoke.py's width_field at
+the general widths), x and g drawn from seed 12 (F 128) or F + R. Prints
+each one's CUDA-event time (chip_smoke.py's cuda_time_ms), saves the
+outputs' sha256 digests and the times to FILE and, with ``--against``,
+says whether the outputs that must not change (every tuned kernel, and
+the general-width kernels at fp32) equal bitwise those that another run
+saved, and prints every time beside that run's. ``--tree DIR`` imports chip_smoke.py and
+flashmd_tpu_torch from DIR (a parent's ``git archive`` unpacked under
+``_chip/``, which .gitignore lists), so that two trees run on one card in
+turns, each in its own process: parent, change, change, parent. Prints the
+tree and nvidia-smi's name and power limit first; exits non-zero if those
+outputs differ.
 """
 
 import argparse
+import hashlib
 import sys
 from pathlib import Path
+
+# (F, R) of each run: the tuned kernels' width, then the general widths.
+WIDTHS = ((128, 50), (64, 300), (256, 50))
+
+
+def _digest(t):
+    """sha256 of a tensor's bytes: equal digests, equal bits."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
 
 
 def main():
@@ -49,49 +65,64 @@ def main():
                              f"{mod.__file__}")
     print(f"tuned_ab: tree {tree}; {cs.nvidia_smi_line()}")
     dev = torch.device("cuda", 0)
-    ff, cfgs = cs._force_fields(dev, cs.BATCH, message_passing="pallas")
-    pos = collate(cfgs, device=dev).pos
-    layers = ff.schnet_params["interactions"][0]["filter"]["layers"]
-    rbf = ff.schnet_params["rbf"]
-    w = (layers[0]["w"], layers[0]["b"], layers[1]["w"], rbf["offset"],
-         rbf["coeff"])
-    rcut = float(ff.schnet_config.cutoff.cutoff_upper)
-    gen = torch.Generator(device=dev).manual_seed(12)
-    f = w[0].shape[1]
-    x = torch.randn(*pos.shape[:2], f, generator=gen, device=dev)
-    g = torch.randn(*pos.shape[:2], f, generator=gen, device=dev)
-    nbr = build_neighbors(ff, pos, skin=1.0)
-    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
-    calls = {
-        "dense_cfconv_fwd": lambda p: cd.dense_cfconv_fwd(pos, x, *w, rcut,
-                                                          p),
-        "dense_cfconv_bwd": lambda p: cd.dense_cfconv_bwd(pos, x, g, *w,
-                                                          rcut, p),
-        "dense_cfconv_bwd (no gx)": lambda p: cd.dense_cfconv_bwd(
-            pos, x, g, *w, rcut, p, need_gx=False)[0],
-        "cfconv_fwd": lambda p: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w,
-                                              rcut, p),
-        "cfconv_bwd": lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p),
-        "cfconv_bwd (no gx)": lambda p: cf.cfconv_bwd(
-            pos, *csr, x, g, *w, rcut, p, need_gx=False)[0],
-    }
-    outs = {}
-    for name, call in calls.items():
-        for prec in ("fp32", "bf16"):
-            out = call(prec)
-            outs[name, prec] = [t.cpu() for t in
-                                (out if isinstance(out, tuple) else (out,))]
-            ms = cs.cuda_time_ms(lambda: call(prec))
-            print(f"tuned_ab: {name} {prec} F={f} R={w[0].shape[0]} "
-                  f"K={nbr.capacity}: {ms:.4f} ms")
-    torch.save(outs, args.save)
+    outs, times, fixed = {}, {}, set()
+    for f, r in WIDTHS:
+        if (f, r) == (128, 50):
+            ff, cfgs = cs._force_fields(dev, cs.BATCH,
+                                        message_passing="pallas")
+            seed = 12
+        else:
+            ff, cfgs = cs.width_field(dev, cs.BATCH, f, r, "pallas")
+            seed = f + r
+        pos = collate(cfgs, device=dev).pos
+        w = cs.filter_weights(ff)
+        assert tuple(w[0].shape) == (r, f)
+        rcut = float(ff.schnet_config.cutoff.cutoff_upper)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(*pos.shape[:2], f, generator=gen, device=dev)
+        g = torch.randn(*pos.shape[:2], f, generator=gen, device=dev)
+        nbr = build_neighbors(ff, pos, skin=1.0)
+        csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+        calls = {
+            "dense_cfconv_fwd": lambda p: cd.dense_cfconv_fwd(
+                pos, x, *w, rcut, p),
+            "dense_cfconv_bwd": lambda p: cd.dense_cfconv_bwd(
+                pos, x, g, *w, rcut, p),
+            "dense_cfconv_bwd (no gx)": lambda p: cd.dense_cfconv_bwd(
+                pos, x, g, *w, rcut, p, need_gx=False)[0],
+            "cfconv_fwd": lambda p: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x,
+                                                  *w, rcut, p),
+            "cfconv_bwd": lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut,
+                                                  p),
+            "cfconv_bwd (no gx)": lambda p: cf.cfconv_bwd(
+                pos, *csr, x, g, *w, rcut, p, need_gx=False)[0],
+        }
+        for name, call in calls.items():
+            for prec in ("fp32", "bf16"):
+                key = f"{name} {prec} F={f} R={r}"
+                out = call(prec)
+                outs[key] = [_digest(t) for t in
+                             (out if isinstance(out, tuple) else (out,))]
+                times[key] = cs.cuda_time_ms(lambda: call(prec))
+                if (f, r) == (128, 50) or prec == "fp32":
+                    fixed.add(key)
+                print(f"tuned_ab: {key} K={nbr.capacity}: "
+                      f"{times[key]:.4f} ms")
+    torch.save({"outs": outs, "ms": times}, args.save)
     if args.against:
         ref = torch.load(args.against)
-        same = {key: all(torch.equal(a, b) for a, b in zip(v, ref[key]))
-                for key, v in outs.items()}
-        print(f"tuned_ab: outputs bitwise equal to {args.against}: "
-              f"{all(same.values())} {same if not all(same.values()) else ''}")
-        if not all(same.values()):
+        for key, ms in times.items():
+            if key in ref["ms"]:
+                print(f"tuned_ab: {key}: {ms:.4f} ms here, "
+                      f"{ref['ms'][key]:.4f} ms in {args.against} "
+                      f"(ratio {ms / ref['ms'][key]:.3f})")
+        same = {key: outs[key] == ref["outs"][key]
+                for key in sorted(fixed) if key in ref["outs"]}
+        bad = [key for key, ok in same.items() if not ok]
+        print(f"tuned_ab: the tuned kernels and the general fp32 kernels "
+              f"({len(same)} outputs) bitwise equal to {args.against}: "
+              f"{not bad and len(same) == len(fixed)} {bad or ''}")
+        if bad or len(same) != len(fixed):
             raise SystemExit(1)
 
 
