@@ -320,16 +320,23 @@ Phases (each prints its lines; any failure exits non-zero):
                csrc/cfconv_general_kernels.cu: at bf16 the tensor-core
                tiles gw_*_mma_kernel, whose registers, spills (gated 0)
                and HMMA count (gated above 0) print with the build's MMA
-               lines; at fp32 and for the "wide" bf16 family the twelve
-               CUDA-core instantiations, whose registers and spills
-               print with the build lines, spills gated 0 where the
-               tiles are in shared memory, HMMA gated 0). Each of the
-               four kernels at each (F, R) of WIDTHS,
+               lines; at fp32 and for the "wide" bf16 family the
+               CUDA-core instantiations: gf_*_kernel with the weights
+               staged in shared memory or streamed through it in panels
+               (the library's cfconv_general_layout), gw_*_kernel (the
+               first design) where neither fits and for the forward and
+               gx pass at Fp 64, whose registers and
+               spills print with the build lines, spills gated 0 where
+               the tiles are in shared memory, HMMA gated 0). Each of the
+               four kernels at each (F, R) of WIDTHS (F 640, R 8: the
+               first design's kernels at fp32 and bf16, on 16 molecules),
                at S = BATCH, A = N_ATOMS on the start positions and the
                pallas slice's list rule: fp32 and bf16, the backwards with
                and without gx, two launches bitwise equal at each tier,
                against its twin, timed beside its bound (2 (R F + F^2)
-               FLOP per live pair or slot forward, twice that backward);
+               FLOP per live pair or slot forward, twice that backward;
+               the fp32 line names the CUDA-core kernels that ran with
+               their layout, registers, spills and warps a block);
                the padded widths beside the F 128, R 50 kernels' times;
                the neighbour backward's peak memory at F 256 (gated below
                NBR_BWD_MEMORY_LIMIT at both tiers). Then the widths
@@ -337,8 +344,9 @@ Phases (each prints its lines; any failure exits non-zero):
                300 with CGSchNet's tanh filter, and F 256, R 50), each a
                SchNet of hidden_channels = num_filters = F, num_rbf = R
                from SchNetConfig and init_schnet on the zoo's chain,
-               priors and head: pallas bf16, pallas fp32 (gptq None) and
-               dense bf16, forces at FORCE_BATCH card (no twin call) vs
+               priors and head: pallas bf16, pallas fp32 (gptq None),
+               dense bf16 and dense fp32 (gptq None), forces at
+               FORCE_BATCH card (no twin call) vs
                CPU twins (FORCE_BOUND, CROSS_BOUND at fp32), then
                WIDTH_STEPS BAOAB steps (WIDTH_SHORT_STEPS once a run
                passes WIDTH_LONG_S) with the general family's forward and
@@ -560,11 +568,16 @@ PEAK_BYTES = 3.35e12
 # slices: SchNet's published widths (Schuett et al., NeurIPS 2017: 64
 # features, 300 Gaussians) with CGSchNet's tanh filter, and F 256 at R 50
 # (the width of the JAX package's TPU lane, tests/ops/test_tpu_lane.py).
-# Each slice runs WIDTH_STEPS steps, WIDTH_SHORT_STEPS once a run has taken
-# more than WIDTH_LONG_S seconds.
-WIDTHS = ((64, 300), (256, 50), (96, 50), (64, 32), (128, 100))
+# F 640 at R 8 is the narrowest width that the first design's CUDA-core
+# kernels take (gw_*: fp32, and bf16 as the "wide" family), on the first
+# 16 molecules (WIDTH_BATCHES): its dense twins hold [S, A, A, 640] float32
+# tensors (23 GB each at S = BATCH). Each slice runs WIDTH_STEPS steps,
+# WIDTH_SHORT_STEPS once a run has taken more than WIDTH_LONG_S seconds.
+WIDTHS = ((64, 300), (256, 50), (96, 50), (64, 32), (128, 100), (640, 8))
+WIDTH_BATCHES = {(640, 8): 16}
 WIDTH_SLICES = ((64, 300), (256, 50))
-WIDTH_RUNS = (("pallas", "bf16"), ("pallas", "fp32"), ("dense", "bf16"))
+WIDTH_RUNS = (("pallas", "bf16"), ("pallas", "fp32"), ("dense", "bf16"),
+              ("dense", "fp32"))
 WIDTH_STEPS = 40
 WIDTH_SHORT_STEPS = 20
 WIDTH_LONG_S = 60.0
@@ -755,16 +768,26 @@ def ffma_kernel_report(log):
 
 
 # {label: (registers, spill stores, spill loads)} of the general-width
-# kernels, read from ptxas by general_kernel_report at the build:
-# gw_dense_fwd_kernel<GT>, gw_nbr_fwd_kernel<GT>, gw_nbr_gx_kernel<GT> and
-# gw_bwd_kernel<GX, NBR, GT> (GT: the tiles in device memory).
+# CUDA-core kernels, read from ptxas by general_kernel_report at the build:
+# the first design's gw_dense_fwd_kernel<GT>, gw_nbr_fwd_kernel<GT>,
+# gw_nbr_gx_kernel<GT> and gw_bwd_kernel<GX, NBR, GT> (GT: the tiles in
+# device memory), and gf_dense_fwd_kernel<PANEL>, gf_nbr_fwd_kernel<PANEL>,
+# gf_nbr_gx_kernel<PANEL> and gf_bwd_kernel<GX, NBR, PANEL> (the weights
+# staged in shared memory, or streamed through it in panels).
 GENERAL_BUILD = {}
+_GENERAL_KINDS = ("dense_fwd_kernel", "nbr_fwd_kernel", "nbr_gx_kernel",
+                  "bwd_kernel dense with gx", "bwd_kernel dense no gx",
+                  "bwd_kernel nbr")
 GENERAL_LABELS = (
-    *(f"{k}{gt}" for k in ("gw_dense_fwd_kernel", "gw_nbr_fwd_kernel",
-                           "gw_nbr_gx_kernel", "gw_bwd_kernel dense with gx",
-                           "gw_bwd_kernel dense no gx", "gw_bwd_kernel nbr")
+    *(f"gw_{k}{gt}" for k in _GENERAL_KINDS
       for gt in ("", " (tiles in device memory)")),
+    *(f"gf_{k}{pn}" for k in _GENERAL_KINDS
+      for pn in (" (weights staged)", " (weights in panels)")),
 )
+# (prefix, label suffix) of each layout code of the library's
+# cfconv_general_layout: staged, panels, the first design's kernels.
+LAYOUT_LABEL = {0: ("gf_", " (weights staged)"),
+                1: ("gf_", " (weights in panels)"), -1: ("gw_", "")}
 
 
 def general_label(name):
@@ -772,20 +795,48 @@ def general_label(name):
     name, or None for another kernel (the tensor-core ones included)."""
     if "_mma_kernel" in name:
         return None
-    m = re.search(r"(gw_\w+?_kernel)I((?:Lb[01]E)+)E", name)
+    m = re.search(r"(g[wf]_\w+?_kernel)I((?:Lb[01]E)+)E", name)
     if not m:
         return None
     flags = re.findall(r"Lb([01])E", m.group(2))
     label = m.group(1)
-    if label == "gw_bwd_kernel":
+    if label.endswith("_bwd_kernel"):
         gx, nbr, _ = flags
         label += (" nbr" if nbr == "1" else
                   " dense with gx" if gx == "1" else " dense no gx")
+    if label.startswith("gf_"):
+        return label + (" (weights in panels)" if flags[-1] == "1"
+                        else " (weights staged)")
     return label + (" (tiles in device memory)" if flags[-1] == "1" else "")
 
 
+def general_kernels(f, r):
+    """{case: [(label, kind)]} of the CUDA-core kernels that the fp32 tier
+    runs at F filters and R radial functions, as the library's
+    cfconv_general_layout routes each kind (0 forward and gx pass, 1
+    backward, 2 dense backward with gx; the kinds of
+    cfconv_general_warps)."""
+    from flashmd_tpu_torch.ops._build import load
+
+    fp, rq = -(-f // 64) * 64, -(-r // 64) * 64
+
+    def label(kernel, kind):
+        pre, sfx = LAYOUT_LABEL[load().cfconv_general_layout(kind, fp, r,
+                                                             rq)]
+        return f"{pre}{kernel}{sfx}", kind
+
+    return {
+        "dense fwd": [label("dense_fwd_kernel", 0)],
+        "dense bwd": [label("bwd_kernel dense with gx", 2)],
+        "dense bwd (no gx)": [label("bwd_kernel dense no gx", 1)],
+        "nbr fwd": [label("nbr_fwd_kernel", 0)],
+        "nbr bwd": [label("bwd_kernel nbr", 1), label("nbr_gx_kernel", 0)],
+        "nbr bwd (no gx)": [label("bwd_kernel nbr", 1)],
+    }
+
+
 def general_kernel_report(log):
-    """Registers and spills of the general-width kernels' twelve
+    """Registers and spills of the general-width CUDA-core kernels'
     instantiations (GENERAL_LABELS), printed; fails if one is missing or
     one with its tiles in shared memory spills."""
     for line in ptxas_summary(log):
@@ -4537,23 +4588,32 @@ def filter_weights(ff):
             rbf["coeff"])
 
 
-def general_note(family, kernels, what):
-    """The fp32 line's note: the pairs or slots run and the registers and
-    spills of the general-width kernels that ran (the tuned ones' are in
-    the build lines)."""
+def general_note(family, kernels, what, f, r):
+    """The fp32 line's note: the pairs or slots run and the registers,
+    spills and warps a block of the general-width CUDA-core kernels that
+    ran (general_kernels; the tuned ones' registers are in the build
+    lines)."""
     if family == "tuned":
         return f"{what}; tuned kernels, padded to F = 128"
-    regs = [f"{k}: {GENERAL_BUILD[k][0]} regs, spill {GENERAL_BUILD[k][1]}/"
-            f"{GENERAL_BUILD[k][2]} B" if k in GENERAL_BUILD else
-            f"{k}: registers not read" for k in kernels]
-    return f"{what}; " + "; ".join(regs)
+    from flashmd_tpu_torch.ops._build import load
+
+    fp, rq = -(-f // 64) * 64, -(-r // 64) * 64
+    parts = []
+    for k, kind in kernels:
+        warps = load().cfconv_general_warps(kind, fp, r, rq)
+        parts.append(f"{k}: {GENERAL_BUILD[k][0]} regs, spill "
+                     f"{GENERAL_BUILD[k][1]}/{GENERAL_BUILD[k][2]} B, "
+                     f"{warps} warps a block" if k in GENERAL_BUILD else
+                     f"{k}: registers not read, {warps} warps a block")
+    return f"{what}; " + "; ".join(parts)
 
 
-def phase_width_kernels(pos, dev):
+def phase_width_kernels(pos_all, dev):
     """Each of the four exact-filter kernels at each width of WIDTHS, at
     fp32 and bf16, the backwards with and without gx, against its twin on
-    the slice's start positions (S = BATCH, A = N_ATOMS; the neighbour
-    matrix from the zoo's capacity rule at rc + skin 1.0): two launches
+    the slice's start positions (S = BATCH, or WIDTH_BATCHES' first
+    molecules, A = N_ATOMS; the neighbour matrix from the zoo's capacity
+    rule at rc + skin 1.0): two launches
     bitwise equal at each tier, then compare_and_time with the bound of
     2 (R F + F^2) FLOP per live pair or slot forward and twice that
     backward. The padded widths print the padding's work factor beside the
@@ -4564,9 +4624,10 @@ def phase_width_kernels(pos, dev):
     from flashmd_tpu_torch.ops import cfconv_dense as cd
     from flashmd_tpu_torch.ops import cfconv_general as cg
 
-    s, a = pos.shape[:2]
     out = {}
     for f, r in WIDTHS:
+        pos = pos_all[:WIDTH_BATCHES.get((f, r), len(pos_all))]
+        s, a = pos.shape[:2]
         ff, _ = width_field(dev, 1, f, r, "pallas")
         rcut = float(ff.schnet_config.cutoff.cutoff_upper)
         w = filter_weights(ff)
@@ -4592,40 +4653,39 @@ def phase_width_kernels(pos, dev):
               f"{n_slots} (run {exec_slots}); MLP multiply-adds per live "
               f"pair {mlp}; FLOP fwd {n_pairs * 2 * mlp:.4e} bwd "
               f"{n_pairs * 4 * mlp:.4e} (dense)")
-        fwd_k = ["gw_dense_fwd_kernel"]
+        gk = general_kernels(f, r)
         cases = (
             ("dense_cfconv_fwd", "",
              lambda p: cd.dense_cfconv_fwd(pos, x, *w, rcut, p),
              lambda p: cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, p),
              n_pairs * 2 * mlp, 4 * (s * a * 3 + 2 * s * a * f) + wbytes,
-             fwd_k, f"pairs run {exec_pairs}"),
+             gk["dense fwd"], f"pairs run {exec_pairs}"),
             ("dense_cfconv_bwd", "",
              lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p),
              lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p),
              n_pairs * 4 * mlp, 4 * (2 * s * a * 3 + 3 * s * a * f) + wbytes,
-             ["gw_bwd_kernel dense with gx"], f"pairs run {exec_pairs}"),
+             gk["dense bwd"], f"pairs run {exec_pairs}"),
             ("dense_cfconv_bwd", " (no gx)",
              lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p,
                                            need_gx=False)[0],
              lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p,
                                                  need_gx=False)[0],
              n_pairs * 4 * mlp, 4 * (2 * s * a * 3 + 2 * s * a * f) + wbytes,
-             ["gw_bwd_kernel dense no gx"], f"pairs run {exec_pairs}"),
+             gk["dense bwd (no gx)"], f"pairs run {exec_pairs}"),
             ("cfconv_fwd", "",
              lambda p: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, rcut, p),
              lambda p: cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w,
                                            rcut, p),
              n_slots * 2 * mlp,
              4 * (s * a * 3 + 2 * s * a * f) + lbytes + wbytes,
-             ["gw_nbr_fwd_kernel"], f"slots run {exec_slots}"),
+             gk["nbr fwd"], f"slots run {exec_slots}"),
             ("cfconv_bwd", "",
              lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p),
              lambda p: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w,
                                            rcut, p),
              n_slots * 4 * mlp,
              4 * (2 * s * a * 3 + 3 * s * a * f) + lbytes + csr_bytes
-             + wbytes, ["gw_bwd_kernel nbr", "gw_nbr_gx_kernel"],
-             f"slots run {exec_slots}"),
+             + wbytes, gk["nbr bwd"], f"slots run {exec_slots}"),
             ("cfconv_bwd", " (no gx)",
              lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p,
                                      need_gx=False)[0],
@@ -4633,7 +4693,7 @@ def phase_width_kernels(pos, dev):
                                            rcut, p, need_gx=False)[0],
              n_slots * 4 * mlp,
              4 * (2 * s * a * 3 + 2 * s * a * f) + lbytes + csr_bytes
-             + wbytes, ["gw_bwd_kernel nbr"], f"slots run {exec_slots}"),
+             + wbytes, gk["nbr bwd (no gx)"], f"slots run {exec_slots}"),
         )
         for name, sfx, kern, plain, flops, nbytes, kernels, what in cases:
             label = f"{name}{sfx} F{f} R{r}"
@@ -4646,7 +4706,8 @@ def phase_width_kernels(pos, dev):
                 check(same, f"{label} {prec}: two launches differ")
             compare_and_time(name, kern, plain, float(flops), nbytes,
                              label=label,
-                             fp32_note=general_note(family, kernels, what))
+                             fp32_note=general_note(family, kernels, what,
+                                                    f, r))
             for prec in ("fp32", "bf16"):
                 out[name + sfx, prec, (f, r)] = TIER_STATS[label, prec]
             if family == "tuned" and not sfx:

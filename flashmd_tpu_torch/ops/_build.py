@@ -63,6 +63,10 @@ _SIGNATURES = {
     # stream
     "cfconv_general_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_F, _I, _P],
     "cfconv_general_ws_floats": [_I] * 2,
+    # kind, Fp, R, Rq
+    "cfconv_general_layout": [_I] * 4,
+    # kind, Fp, R, Rq
+    "cfconv_general_warps": [_I] * 4,
 }
 
 _loaded: dict = {}

@@ -19,22 +19,32 @@ families:
 * "general", any other width: the general-width kernels of
   ``csrc/cfconv_general_kernels.cu`` (:func:`general_fwd`,
   :func:`general_bwd`). At fp32 (and bf16x3, which computes these kernels
-  at fp32) register-tiled float32 FMAs on the CUDA cores, features and R
-  in chunks of 64, weights zero-padded to Fp = F and Rq = R rounded up to
-  64 with the transposes of w0 and w1, read through the read-only path. At
-  bf16 the tensor-core tiles (``gw_*_mma_kernel``): mma.sync bf16 products
-  with bf16 weights w0 [Rq][Fq] and w1 [Fq][Fq] (Fq, Rq: F, R rounded up to
-  16) staged once per block in shared memory, where they and one warp's
-  tiles must fit (:func:`mma_smem_bytes`).
+  at fp32) register-tiled float32 FMAs on the CUDA cores (8 pairs x 8
+  columns a lane), weights zero-padded to Fp = F and Rq = R rounded up to
+  64, in one of three layouts (:func:`ffma_layout`, a plain function of
+  (F, R) with the kernels' byte counts): "staged", w0 and w1 whole in
+  each block's shared memory (F 64 R 300, F 128 R 100); "panels",
+  streamed through it in panels that every warp of the block shares
+  (``gf_*_kernel`` with PANEL, F 256 R 50); "l2", the first design's
+  kernels (``gw_*_kernel``: weights read through L1/L2, the backward's
+  transposes too), where a block cannot hold two warps' tiles beside the
+  panels (Fp above 576). The forward and the gx pass at Fp 64 run the
+  first design's kernels at any layout (their 8 x 4 register tile there
+  loses to its 16 warps a block). At bf16 the tensor-core tiles
+  (``gw_*_mma_kernel``): mma.sync bf16 products with bf16 weights w0
+  [Rq][Fq] and w1 [Fq][Fq] (Fq, Rq: F, R rounded up to 16) staged once per
+  block in shared memory, where they and one warp's tiles must fit
+  (:func:`mma_smem_bytes`).
 * "wide", bf16 at a width whose bf16 weights do not fit there (F 1,600 at
   R 8, say): the CUDA-core kernels at bf16 (operands rounded where the
-  twins round them), with the fp32 tier's layout.
+  twins round them), in the fp32 tier's layout at that width.
 
 :func:`general_weights` prepares a family's weights once per parameter set:
 the prepared tensors are kept, keyed on the parameters' identity, version
 counter (so that an in-place update is seen), shape, dtype and the tier,
-for as long as the parameters live. x and g are padded to the family's
-width on each call.
+for as long as the parameters live; so does :func:`tuned_operands` for
+the tuned family's padding below F = 128. x and g are padded to the
+family's width on each call.
 
 Each family counts its own launches: the tuned one on the wrappers'
 ``launches``, the general and wide ones here (``dense_cfconv_fwd_general``,
@@ -69,6 +79,14 @@ MMA_RING = 64
 MMA_ROWS = 4
 SMEM_MAX = 232448
 MMA_TIER = 2
+# The CUDA-core tiles' layouts (GF_* of csrc/cfconv_general_kernels.cu):
+# columns of a chunk, the two panel buffers' floats (32 rows of 128 + 4
+# columns, or 128 rows of 32 + 4), and the fewest warps of the dense
+# backward with gx that each layout must hold.
+FFMA_CHUNK = 128
+FFMA_PANEL_FLOATS = max(32 * (128 + 4), 128 * (32 + 4))
+FFMA_STAGED_MIN = 4
+FFMA_PANELS_MIN = 2
 # Prepared weights kept at most (general_weights).
 WEIGHT_CACHE_SIZE = 32
 
@@ -89,6 +107,45 @@ def mma_smem_bytes(f: int, r: int) -> int:
     warp = (32 * rq + 32 * fq + 4 * 16 * MMA_STAGE_LD + 4 * MMA_ROWS * fq
             + 4 * MMA_RING)
     return weights + warp
+
+
+def ffma_warp_bytes(f: int) -> int:
+    """Bytes of one warp's area of the CUDA-core tiles' dense backward
+    with gx at F filters (gf_warp_floats): the rbf / W cut tile [16][min(Fp,
+    128)], a0 and (1 - a0^2) [16][Fp] each, per-pair d, cut, dcut [16][4],
+    the item's gx rows [4][Fp] and the ring (Fp: F rounded up to 64)."""
+    fp = _round_up(f, GENERAL_COLUMNS)
+    return 4 * (16 * min(fp, FFMA_CHUNK) + 2 * 16 * fp + 4 * 16
+                + MMA_ROWS * fp + MMA_RING)
+
+
+def ffma_smem_bytes(f: int, r: int, layout: str) -> int:
+    """Bytes of shared memory that a block of the CUDA-core tiles' dense
+    backward with gx needs at F filters and R radial functions with the
+    fewest warps of ``layout`` (gf_layout of the kernels): "staged", w0
+    [R rounded up to 4][Fp + 4] and w1 [Fp][Fp + 4] float32, b0 and the
+    offsets [Rq], and FFMA_STAGED_MIN warps; "panels", the two panel
+    buffers, b0, the offsets and FFMA_PANELS_MIN warps."""
+    fp, rq = _round_up(f, GENERAL_COLUMNS), _round_up(r, GENERAL_RBF_CHUNK)
+    if layout == "staged":
+        weights = (_round_up(r, 4) + fp) * (fp + 4) + fp + rq
+        return 4 * weights + FFMA_STAGED_MIN * ffma_warp_bytes(f)
+    weights = 2 * FFMA_PANEL_FLOATS + fp + rq
+    return 4 * weights + FFMA_PANELS_MIN * ffma_warp_bytes(f)
+
+
+def ffma_layout(f: int, r: int) -> str:
+    """The CUDA-core tiles' layout at F filters and R radial functions (the
+    fp32 tier of the general family, and the wide bf16 one): "staged" where
+    :func:`ffma_smem_bytes` of that layout fits in a block's shared memory,
+    else "panels" where it fits, else "l2" (the first design's kernels).
+    The library's ``cfconv_general_layout`` gives the same for the
+    backwards; the forward and the gx pass at Fp 64 take "l2" there. The
+    wrapper reads it to prepare the transposes that "l2" needs."""
+    for layout in ("staged", "panels"):
+        if ffma_smem_bytes(f, r, layout) <= SMEM_MAX:
+            return layout
+    return "l2"
 
 
 def route(f: int, r: int, precision: str) -> tuple:
@@ -127,12 +184,21 @@ def _pad2(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 def tuned_operands(feats, w0, b0, w1):
     """(feats, w0, b0, w1) zero-padded to the tuned kernels' F = 128: each
     tensor of ``feats`` (x, g) along its features, w0's columns, b0, w1's
-    rows and columns. Unchanged at F = 128."""
+    rows and columns. Unchanged at F = 128. The padded weights are prepared
+    once per parameter set, as :func:`general_weights` prepares the general
+    family's (one set for both tiers: the tuned kernels take float32
+    weights and round them at bf16 themselves); x and g are padded on each
+    call."""
     if w1.shape[0] == TUNED_F:
         return list(feats), w0, b0, w1
-    return ([pad_features(t, TUNED_F) for t in feats],
-            pad_features(w0, TUNED_F), pad_features(b0, TUNED_F),
-            _pad2(w1, TUNED_F, TUNED_F))
+    wt = _cached(("tuned",), (w0, b0, w1), lambda: _prepare_tuned(w0, b0, w1))
+    return ([pad_features(t, TUNED_F) for t in feats], wt["w0"], wt["b0"],
+            wt["w1"])
+
+
+def _prepare_tuned(w0, b0, w1):
+    return {"w0": pad_features(w0, TUNED_F), "b0": pad_features(b0, TUNED_F),
+            "w1": _pad2(w1, TUNED_F, TUNED_F)}
 
 
 def _prepare(w0, b0, w1, offset, precision, tensor_cores):
@@ -150,11 +216,11 @@ def _prepare(w0, b0, w1, offset, precision, tensor_cores):
     if precision == "bf16":
         w0, w1 = round_bf16(w0), round_bf16(w1)
     w0p, w1p = _pad2(w0, rq, fp), _pad2(w1, fp, fp)
-    return {
-        "w0": w0p, "w0t": w0p.T.contiguous(), "b0": pad_features(b0, fp),
-        "w1": w1p, "w1t": w1p.T.contiguous(),
-        "off": pad_features(offset, rq),
-    }
+    out = {"w0": w0p, "b0": pad_features(b0, fp), "w1": w1p,
+           "off": pad_features(offset, rq)}
+    if ffma_layout(f, r) == "l2":  # only the first design's backward
+        out.update(w0t=w0p.T.contiguous(), w1t=w1p.T.contiguous())
+    return out
 
 
 # Prepared weights: (layout, tier, the parameters' ids) -> (weak references
@@ -170,20 +236,12 @@ def _forget(key, _ref):
     _cache.pop(key, None)
 
 
-def general_weights(w0, b0, w1, offset, precision, tensor_cores=False):
-    """The general-width kernels' weights, each contiguous. For the
-    CUDA-core kernels (default): w0 [Rq, Fp] float32, its transpose [Fp,
-    Rq], b0 [Fp], w1 and its transpose [Fp, Fp] and the offsets [Rq],
-    zero-padded (Fp, Rq: F, R rounded up to 64), w0 and w1 rounded to bf16
-    at that tier. With ``tensor_cores`` (the bf16 tier's tiles): w0 [Rq,
-    Fq] and w1 [Fq, Fq] in bfloat16 (round to nearest even), b0 [Fq] and
-    the offsets [Rq] float32, zero-padded (Fq, Rq: F, R rounded up to 16).
-
-    Made once per parameter set and tier: a call with the same tensors, at
-    the same version counters, returns the tensors that the first made."""
+def _cached(kind, params, make):
+    """make()'s tensors for the parameter tuple ``params`` under ``kind``
+    (layout, tier), from the cache while the parameters are the same
+    tensors at the same version counters, shapes, dtypes and devices."""
     global _prepared
-    params = (w0, b0, w1, offset)
-    key = (bool(tensor_cores), precision == "bf16", *map(id, params))
+    key = (*kind, *map(id, params))
     stamp = tuple((t._version, tuple(t.shape), t.dtype, t.device)
                   for t in params)
     hit = _cache.get(key)
@@ -191,19 +249,38 @@ def general_weights(w0, b0, w1, offset, precision, tensor_cores=False):
             and all(ref() is t for ref, t in zip(hit[0], params))):
         return hit[2]
     with torch.no_grad():
-        wg = _prepare(w0, b0, w1, offset, precision, tensor_cores)
+        made = make()
     _prepared += 1
     _cache.pop(key, None)
     refs = tuple(weakref.ref(t, functools.partial(_forget, key))
                  for t in params)
-    _cache[key] = (refs, stamp, wg)
+    _cache[key] = (refs, stamp, made)
     while len(_cache) > WEIGHT_CACHE_SIZE:
         _cache.pop(next(iter(_cache)), None)
-    return wg
+    return made
+
+
+def general_weights(w0, b0, w1, offset, precision, tensor_cores=False):
+    """The general-width kernels' weights, each contiguous. For the
+    CUDA-core kernels (default): w0 [Rq, Fp] float32, b0 [Fp], w1 [Fp, Fp]
+    and the offsets [Rq], zero-padded (Fp, Rq: F, R rounded up to 64), w0
+    and w1 rounded to bf16 at that tier; where :func:`ffma_layout` is "l2"
+    also their transposes w0t [Fp, Rq] and w1t [Fp, Fp], which only the
+    first design's backward reads. With ``tensor_cores`` (the bf16 tier's tiles): w0 [Rq,
+    Fq] and w1 [Fq, Fq] in bfloat16 (round to nearest even), b0 [Fq] and
+    the offsets [Rq] float32, zero-padded (Fq, Rq: F, R rounded up to 16).
+
+    Made once per parameter set and tier: a call with the same tensors, at
+    the same version counters, returns the tensors that the first made."""
+    return _cached((bool(tensor_cores), precision == "bf16"),
+                   (w0, b0, w1, offset),
+                   lambda: _prepare(w0, b0, w1, offset, precision,
+                                    tensor_cores))
 
 
 def weight_preparations() -> int:
-    """How many times :func:`general_weights` has prepared weights."""
+    """How many times weights have been prepared (:func:`general_weights`,
+    :func:`tuned_operands`)."""
     return _prepared
 
 

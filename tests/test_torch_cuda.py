@@ -1760,6 +1760,154 @@ def test_kernels_at_odd_widths(dev, f, r, precision):
             assert _rel(k, p) <= BOUNDS[precision][kind], name
 
 
+# The CUDA-core tiles' layouts (ops/cfconv_general.py ffma_layout): a
+# width just inside and one just outside each boundary. F 128: weights
+# staged in shared memory up to R 104, streamed in panels from R 105; R 8:
+# panels up to F 576, the first design's kernels (weights through L1/L2)
+# from F 577 (Fp 640).
+LAYOUT_WIDTHS = [(128, 104, "staged"), (128, 105, "panels"),
+                 (576, 8, "panels"), (577, 8, "l2")]
+
+
+def _general_gd(pos, nbr, x, g, w, need_gx, precision="fp32"):
+    """The general-width CUDA-core backward's gd workspace ([S, A, A]
+    dense when ``nbr`` is None, else [S, A, K]) after one launch at
+    ``precision`` (fp32: tier 0, bf16: tier 1, the wide family's; filled
+    with NaN before it: every entry must be written) and its gpos."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+    from flashmd_tpu_torch.ops._build import load
+    from flashmd_tpu_torch.ops._launch import _ptr, _stream
+
+    s, a, f = x.shape
+    r = w[0].shape[0]
+    k = nbr.idx.shape[-1] if nbr is not None else 0
+    wg = cg.general_weights(*w[:4], precision)
+    fp, rq = wg["w1"].shape[0], wg["off"].shape[0]
+    xp, gp = cg.pad_features(x, fp), cg.pad_features(g, fp)
+    gd = torch.full((s, a, k or a), float("nan"), device=pos.device)
+    gpos = torch.empty_like(pos)
+    gx = torch.empty_like(gp) if need_gx else None
+    lists = ((nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+             if nbr is not None else (None,) * 4)
+    rc = load().cfconv_general_bwd(
+        int(nbr is not None), _ptr(pos), *(_ptr(t) for t in lists),
+        _ptr(xp), _ptr(gp), *cg._weight_ptrs(wg, w[4]), _ptr(gd),
+        _ptr(gpos), _ptr(gx), _ptr(cg._workspace(True, fp, pos.device)), s,
+        a, k, fp, r, rq, RCUT, int(precision == "bf16"), _stream())
+    assert rc == 0
+    return gd, gpos
+
+
+def _check_cuda_core_tiles(dev, f, r, layout, precision):
+    """The CUDA-core tiles at F, R in ``layout`` at ``precision`` (fp32, or
+    bf16 for the wide family): the library's layout of each kind equals
+    the Python mirror's (the forward and the gx pass at Fp 64 take the
+    first design's kernels); the dense and neighbour-matrix forwards and
+    backwards (with and without gx) against their twins within
+    BOUNDS[precision], two launches bitwise equal, gpos the same with and
+    without gx; gd exactly 0 on every dead pair (the diagonal, d >= rc)
+    and slot (masked, d >= rc), within the backward's bound of the twin's
+    on the live ones."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+    from flashmd_tpu_torch.ops._build import load
+
+    assert cg.ffma_layout(f, r) == layout
+    fp, rq = -(-f // 64) * 64, -(-r // 64) * 64
+    code = {"staged": 0, "panels": 1, "l2": -1}[layout]
+    assert [load().cfconv_general_layout(kind, fp, r, rq)
+            for kind in (0, 1, 2)] == [-1 if fp == 64 else code, code, code]
+    bounds = BOUNDS[precision]
+    pos, x, g, w, nbr = _nbr_tc_case(dev, 33, 32, True, f=f, r=r)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    paths = {
+        "dense": (lambda: cd.dense_cfconv_fwd(pos, x, *w, RCUT, precision),
+                  lambda: cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT,
+                                                    precision),
+                  lambda n: cd.dense_cfconv_bwd(pos, x, g, *w, RCUT,
+                                                precision, need_gx=n),
+                  lambda n: cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT,
+                                                      precision, need_gx=n)),
+        "nbr": (lambda: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT,
+                                      precision),
+                lambda: cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w,
+                                            RCUT, precision),
+                lambda n: cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, precision,
+                                        need_gx=n),
+                lambda n: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g,
+                                              *w, RCUT, precision,
+                                              need_gx=n)),
+    }
+    for name, (fwd, fwd_plain, bwd, bwd_plain) in paths.items():
+        out, again, ref = fwd(), fwd(), fwd_plain()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+        assert _rel(out, ref) <= bounds["fwd"], name
+        runs = {n: (bwd(n), bwd(n), bwd_plain(n)) for n in (True, False)}
+        torch.cuda.synchronize()
+        for n, (first, second, ref) in runs.items():
+            assert (first[1] is None) == (not n)
+            for k, k2, p in zip(first, second, ref):
+                if p is None:
+                    continue
+                assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
+                assert _rel(k, p) <= bounds["bwd"], (name, n)
+        assert torch.equal(runs[True][0][0], runs[False][0][0])
+        for need_gx in (True, False):
+            gd, gpos = _general_gd(pos, nbr if name == "nbr" else None, x, g,
+                                   w, need_gx, precision)
+            torch.cuda.synchronize()
+            assert torch.equal(gpos, runs[need_gx][0][0])
+            if name == "nbr":
+                geometry = cf._slot_geometry(pos, nbr.idx, nbr.mask, w[3],
+                                             w[4], RCUT)
+                live = nbr.mask & (geometry[1] < RCUT)
+                gd_ref, _ = cf._slot_gd(geometry,
+                                        cf._gather_rows(x, nbr.idx),
+                                        g[:, :, None, :], *w, precision)
+            else:
+                geometry = cd._pair_geometry(pos, w[3], w[4], RCUT)
+                eye = torch.eye(x.shape[1], dtype=torch.bool, device=dev)
+                live = (geometry[1] < RCUT) & ~eye
+                gd_ref, _ = cd._pair_gd(geometry, x, g, *w, precision,
+                                        need_gx=False)
+            assert bool((gd[~live] == 0.0).all()), name
+            assert bool(torch.isfinite(gd).all()), name
+            assert _rel(gd, gd_ref) <= bounds["bwd"], name
+
+
+@pytest.mark.parametrize("f,r,layout", LAYOUT_WIDTHS)
+def test_fp32_kernels_at_the_layout_boundaries(dev, f, r, layout):
+    """At each side of each layout boundary, the fp32 tier: the checks of
+    _check_cuda_core_tiles within BOUNDS["fp32"] (1e-5 / 1e-4 of
+    max|twin|)."""
+    _check_cuda_core_tiles(dev, f, r, layout, "fp32")
+
+
+# The wide family (bf16 widths whose bf16 weights do not fit in a block's
+# shared memory) on the CUDA-core tiles at tier 1: F 320, R 17 with its
+# weights in panels, and F 64, R 3000 in panels, whose forward and gx pass
+# run the first design's kernels.
+WIDE_WIDTHS = [(320, 17, "panels"), (64, 3000, "panels")]
+
+
+@pytest.mark.parametrize("f,r,layout", WIDE_WIDTHS)
+def test_wide_bf16_kernels_on_the_cuda_core_tiles(dev, f, r, layout):
+    """The wide family at bf16: routed to ("wide", "bf16"), the checks of
+    _check_cuda_core_tiles within BOUNDS["bf16"] against the bf16 twins
+    (operands rounded where they round them), and every launch on the wide
+    family's counters."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
+    assert cg.route(f, r, "bf16") == ("wide", "bf16")
+    _reset_family_counts()
+    _check_cuda_core_tiles(dev, f, r, layout, "bf16")
+    counts = _family_counts()
+    assert all(counts[f"{path}_{kind}_wide"] > 0
+               for path in ("dense_cfconv", "cfconv")
+               for kind in ("fwd", "bwd"))
+    assert not any(v for k, v in counts.items() if not k.endswith("_wide"))
+
+
 @pytest.mark.parametrize("f,r", [(64, 300), (256, 50)])
 def test_general_kernels_bf16x3_is_fp32(dev, f, r):
     """The general-width kernels at bf16x3 are bitwise their fp32 tier, as

@@ -219,36 +219,64 @@ def test_route_at_each_width(precision):
     assert cg.mma_smem_bytes(300, 17) == 229184 <= cg.SMEM_MAX
     assert cg.mma_smem_bytes(256, 50) == 187136
     assert all(cg.mma_smem_bytes(f, r) > cg.SMEM_MAX for f, r in wide)
+    # the CUDA-core tiles' layout (fp32, and the wide bf16 family): w0 and
+    # w1 staged whole where they fit beside 4 warps of the dense backward
+    # with gx, else streamed in panels where 2 warps fit, else the first
+    # design's kernels ("l2"); a width on each side of each boundary
+    layouts = {(64, 300): "staged", (128, 100): "staged",
+               (100, 70): "staged", (128, 104): "staged",
+               (128, 105): "panels", (256, 50): "panels",
+               (129, 1): "panels", (300, 17): "panels", (576, 8): "panels",
+               (577, 8): "l2", (1600, 8): "l2", (2900, 8): "l2"}
+    for (f, r), layout in layouts.items():
+        assert cg.ffma_layout(f, r) == layout
+    # the byte mirror: F 64 R 300 stages 100,544 B of weights (w0 [300][68],
+    # w1 [64][68], b0, offsets [320]) beside 4 warps of 13,824 B
+    assert cg.ffma_warp_bytes(64) == 13824
+    assert cg.ffma_smem_bytes(64, 300, "staged") == 100544 + 4 * 13824
+    assert cg.ffma_smem_bytes(128, 104, "staged") == 232064 <= cg.SMEM_MAX
+    assert cg.ffma_smem_bytes(128, 105, "staged") == 234176 > cg.SMEM_MAX
+    assert cg.ffma_smem_bytes(256, 50, "panels") == 38144 + 2 * 45568
+    assert cg.ffma_smem_bytes(576, 8, "panels") <= cg.SMEM_MAX
+    assert cg.ffma_smem_bytes(577, 8, "panels") > cg.SMEM_MAX
 
 
 def test_general_weights_layout():
     """The general-width kernels' weights: zero-padded to Fp = F rounded
-    up to 64 and Rq = R rounded up to 64, with the transposes; w0 and w1
-    rounded to bf16 at that tier only."""
-    t = _inputs(100, 70, seed=1)
-    tt = {k: torch.tensor(v) for k, v in t.items()}
-    for precision in ("fp32", "bf16"):
-        wg = cg.general_weights(tt["w0"], tt["b0"], tt["w1"], tt["offset"],
-                                precision)
-        assert wg["w0"].shape == (128, 128) and wg["w0t"].shape == (128, 128)
-        assert wg["w1"].shape == (128, 128) and wg["off"].shape == (128,)
-        assert all(v.is_contiguous() for v in wg.values())
-        op = cf._op
-        assert torch.equal(wg["w0"][:70, :100], op(tt["w0"], precision))
-        assert torch.equal(wg["w1"][:100, :100], op(tt["w1"], precision))
-        assert torch.equal(wg["w0t"], wg["w0"].T)
-        assert torch.equal(wg["w1t"], wg["w1"].T)
-        assert torch.equal(wg["b0"][:100], tt["b0"])
-        assert torch.equal(wg["off"][:70], tt["offset"])
-        for k, v in wg.items():
-            mask = torch.ones_like(v, dtype=torch.bool)
-            if k in ("b0", "off"):
-                mask[:(100 if k == "b0" else 70)] = False
-            else:
-                rows, cols = {"w0": (70, 100), "w0t": (100, 70),
-                              "w1": (100, 100), "w1t": (100, 100)}[k]
-                mask[:rows, :cols] = False
-            assert not bool(v[mask].any())
+    up to 64 and Rq = R rounded up to 64; w0 and w1 rounded to bf16 at that
+    tier only; their transposes only where the layout is "l2" (F 600, R 8:
+    the first design's backward reads them), not where the weights are
+    staged (F 100, R 70)."""
+    for (f, r), fp, rq in (((100, 70), 128, 128), ((600, 8), 640, 64)):
+        t = _inputs(f, r, seed=1)
+        tt = {k: torch.tensor(v) for k, v in t.items()}
+        l2 = cg.ffma_layout(f, r) == "l2"
+        assert l2 == (f == 600)
+        for precision in ("fp32", "bf16"):
+            wg = cg.general_weights(tt["w0"], tt["b0"], tt["w1"],
+                                    tt["offset"], precision)
+            assert sorted(wg) == sorted(["w0", "b0", "w1", "off"]
+                                        + (["w0t", "w1t"] if l2 else []))
+            assert wg["w0"].shape == (rq, fp) and wg["w1"].shape == (fp, fp)
+            assert wg["off"].shape == (rq,) and wg["b0"].shape == (fp,)
+            assert all(v.is_contiguous() for v in wg.values())
+            op = cf._op
+            assert torch.equal(wg["w0"][:r, :f], op(tt["w0"], precision))
+            assert torch.equal(wg["w1"][:f, :f], op(tt["w1"], precision))
+            if l2:
+                assert torch.equal(wg["w0t"], wg["w0"].T)
+                assert torch.equal(wg["w1t"], wg["w1"].T)
+            assert torch.equal(wg["b0"][:f], tt["b0"])
+            assert torch.equal(wg["off"][:r], tt["offset"])
+            for k, v in wg.items():
+                mask = torch.ones_like(v, dtype=torch.bool)
+                if k in ("b0", "off"):
+                    mask[:(f if k == "b0" else r)] = False
+                else:
+                    rows, cols = {"w0": (r, f), "w0t": (f, r),
+                                  "w1": (f, f), "w1t": (f, f)}[k]
+                    mask[:rows, :cols] = False
+                assert not bool(v[mask].any())
 
 
 @pytest.mark.parametrize("f,r", [(64, 300), (256, 50), (100, 70),
@@ -303,6 +331,39 @@ def test_weights_are_prepared_once(tensor_cores, precision):
     assert cg.weight_preparations() == n + 2 and other is not first
     for k, v in first.items():
         assert torch.equal(other[k], v)
+
+
+def test_tuned_weights_are_prepared_once():
+    """The tuned family's weights padded to F = 128 (tuned_operands) are
+    prepared once per parameter set: a second call prepares nothing and
+    returns the same tensors, equal to the ones padded anew, with x and g
+    padded on each call; other parameters of equal values, or an in-place
+    update, are prepared anew; F = 128 needs no padding and prepares
+    nothing."""
+    w0, b0, w1, _ = _params(f=96, r=50, seed=7)
+    x = torch.randn(2, 5, 96)
+    n = cg.weight_preparations()
+    (xp,), *first = cg.tuned_operands((x,), w0, b0, w1)
+    assert cg.weight_preparations() == n + 1
+    (xp2,), *again = cg.tuned_operands((x,), w0, b0, w1)
+    assert cg.weight_preparations() == n + 1
+    assert all(u is v for u, v in zip(first, again)) and xp2 is not xp
+    assert torch.equal(xp, cg.pad_features(x, 128)) and xp.shape == (2, 5,
+                                                                     128)
+    fresh = cg._prepare_tuned(w0, b0, w1)
+    for u, k in zip(first, ("w0", "b0", "w1")):
+        assert torch.equal(u, fresh[k])
+    copies = [t.clone() for t in (w0, b0, w1)]
+    other = cg.tuned_operands((x,), *copies)[1:]
+    assert cg.weight_preparations() == n + 2
+    assert all(u is not v for u, v in zip(first, other))
+    w1.mul_(2.0)
+    updated = cg.tuned_operands((x,), w0, b0, w1)[1:]
+    assert cg.weight_preparations() == n + 3
+    assert torch.equal(updated[2][:96, :96], w1)
+    full = _params(f=128, r=50, seed=8)[:3]
+    assert cg.tuned_operands((x,), *full)[1:] == tuple(full)
+    assert cg.weight_preparations() == n + 3
 
 
 @pytest.mark.parametrize("which", range(4), ids=["w0", "b0", "w1", "offset"])

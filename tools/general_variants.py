@@ -1,20 +1,23 @@
-"""Design variants of the general-width tensor-core tiles (the bf16 tier of
-csrc/cfconv_general_kernels.cu), timed on the card in turns.
+"""Design variants of the general-width kernels (csrc/cfconv_general_kernels.cu):
+the tensor-core tiles of the bf16 tier and the CUDA-core tiles of the fp32
+tier, timed on the card in turns.
 
     python3 tools/general_variants.py [variant ...]
 
 Each variant is an edited copy of cfconv_general_kernels.cu (text
 substitutions), linked with the other sources of flashmd_tpu_torch/csrc
 (compiled once) into a library of its own; every compile runs at once.
-ptxas' registers and spills of each variant's gw_*_mma_kernel
-instantiations are printed. Then, in one process, the six general-width
-launches at bf16 (dense_cfconv_fwd, dense_cfconv_bwd with and without gx,
-cfconv_fwd, cfconv_bwd with and without gx) at F 64, R 300 and F 256, R 50
-on tools/tuned_ab.py's inputs (chip_smoke.py's slice shapes: S = 128, A =
-266, the pallas slice's list) run on each variant's library in turns
-(base first and last), timed with CUDA events (chip_smoke.py's
-cuda_time_ms); each variant's outputs are held bitwise to the base's,
-since no variant changes the order of an operation:
+ptxas' registers and spills of each variant's gw_*_mma_kernel (bf16
+variants) or gf_*_kernel (fp32 variants) instantiations are printed. Then,
+in one process, the six general-width launches (dense_cfconv_fwd,
+dense_cfconv_bwd with and without gx, cfconv_fwd, cfconv_bwd with and
+without gx) at F 64, R 300 and F 256, R 50 (fp32 also at F 128, R 100) on
+tools/tuned_ab.py's inputs (chip_smoke.py's slice shapes: S = 128, A =
+266, the pallas slice's list) run on each variant's library in turns (base
+first and last), bf16 for the bf16 variants and fp32 for the fp32 ones
+(base: both), timed with CUDA events (chip_smoke.py's cuda_time_ms); each
+variant's outputs are held bitwise to the base's, since no variant changes
+the order of an operation. bf16 variants (the tensor-core tiles):
 
   base      -- the source as it is;
   fw16      -- the forward tiles at up to 16 warps a block (128 registers
@@ -32,6 +35,23 @@ since no variant changes the order of an operation:
   pipe      -- the products load the next k-step's A and B fragments
                before the MMAs of this one; pipe_fw8 the same with the
                forward tiles at up to 8 warps a block (255 registers).
+
+fp32 variants (the CUDA-core tiles, gf_*; FP32_VARIANTS):
+
+  f32_fw4, f32_fw12 -- the forward tiles at up to 4 or 12 warps a block
+               (the source: 8);
+  f32_bw4   -- the backward tiles at up to 4 warps a block (the source:
+               8 where shared memory holds them: F 64 R 300);
+  f32_kp16, f32_kp64 -- panels of 16 or 64 k-rows (the source: 32; 64
+               holds fewer warps at F 256: the panels take 69.6 KB);
+  f32_l2    -- every width on the first design's kernels (weights through
+               L1/L2: the parent's fp32 tier, bitwise the same);
+  f32_gf64  -- the forward and the gx pass at Fp 64 on the gf_* tiles
+               (8 x 4 a lane there; the source: the first design's
+               kernels, gf_kind_layout);
+  f32_any   -- any number of warps a block that shared memory holds (the
+               source: a multiple of 4 from 4 up: 6 -> 4 at F 256's
+               forward).
 
 Timing probes (PROBES; their outputs are wrong and not checked; base minus
 probe is the phase's share): no_ring (no ring sum into the rows), no_tanh
@@ -153,6 +173,24 @@ VARIANTS["pipe"] = [PIPE]
 VARIANTS["pipe_fw8"] = [PIPE, ("constexpr int GM_FWD_MAX_WARPS = 12;",
                                "constexpr int GM_FWD_MAX_WARPS = 8;")]
 
+# The fp32 tier's variants (the CUDA-core tiles gf_*).
+FP32_VARIANTS = {
+    "f32_fw4": [("constexpr int GF_FWD_MAX_WARPS = 8;",
+                 "constexpr int GF_FWD_MAX_WARPS = 4;")],
+    "f32_fw12": [("constexpr int GF_FWD_MAX_WARPS = 8;",
+                  "constexpr int GF_FWD_MAX_WARPS = 12;")],
+    "f32_bw4": [("constexpr int GF_BWD_MAX_WARPS = 8;",
+                 "constexpr int GF_BWD_MAX_WARPS = 4;")],
+    "f32_kp16": [("constexpr int GF_KP = 32;", "constexpr int GF_KP = 16;")],
+    "f32_kp64": [("constexpr int GF_KP = 32;", "constexpr int GF_KP = 64;")],
+    "f32_l2": [("int gf_layout(int Fp, int R, int Rq) {\n",
+                "int gf_layout(int Fp, int R, int Rq) {\n  return GF_NONE;\n")],
+    "f32_any": [("  if (warps >= 4) warps &= ~3;\n", "")],
+    "f32_gf64": [("  return kind == GF_FWD && Fp == 64 ? GF_NONE : "
+                  "gf_layout(Fp, R, Rq);", "  return gf_layout(Fp, R, Rq);")],
+}
+VARIANTS.update(FP32_VARIANTS)
+
 # Timing probes: each removes one phase of the tiles, so its outputs are
 # wrong and are not held to the base's; base minus probe is that phase's
 # share of the time.
@@ -170,7 +208,8 @@ PROBES = {
                   "    gm_zero(acc);\n    gm_wcut_sum(acc, cut, sp, v_s,")],
 }
 VARIANTS.update(PROBES)
-WIDTHS = ((64, 300), (256, 50))
+WIDTHS = {"bf16": ((64, 300), (256, 50)),
+          "fp32": ((64, 300), (256, 50), (128, 100))}
 
 
 def _run_all(cmds):
@@ -213,10 +252,15 @@ def build_all(tmp, names):
               for name in names])
     libs = {}
     for name, log in zip(names, logs[len(others):]):
+        fp32 = name in FP32_VARIANTS or name == "base"
         for line in cs.ptxas_summary(log):
-            if "_mma_kernel" in line and "gw_" in line:
+            if "_mma_kernel" in line and "gw_" in line and name != "base" \
+                    and not fp32:
                 print(f"general_variants: {name}: "
                       f"{line[line.index('gw_'):]}")
+            if fp32 and "gf_" in line:
+                print(f"general_variants: {name}: "
+                      f"{line[line.index('gf_'):]}")
         lib = ctypes.CDLL(str(tmp / name / "lib.so"))
         for fn, argtypes in _build._SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
@@ -225,8 +269,9 @@ def build_all(tmp, names):
     return libs
 
 
-def cases(dev):
-    """{(name, (f, r)): callable} of the six bf16 launches at each width."""
+def cases(dev, prec):
+    """{(name, (f, r)): callable} of the six launches at tier ``prec`` at
+    each of its widths."""
     import torch
 
     import chip_smoke as cs
@@ -236,7 +281,7 @@ def cases(dev):
     from flashmd_tpu_torch.ops import cfconv_dense as cd
 
     out = {}
-    for f, r in WIDTHS:
+    for f, r in WIDTHS[prec]:
         ff, cfgs = cs.width_field(dev, cs.BATCH, f, r, "pallas")
         pos = collate(cfgs, device=dev).pos
         w = cs.filter_weights(ff)
@@ -248,19 +293,19 @@ def cases(dev):
         csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
         out.update({
             ("dense_cfconv_fwd", (f, r)): lambda pos=pos, x=x, w=w, rc=rcut:
-                (cd.dense_cfconv_fwd(pos, x, *w, rc, "bf16"),),
+                (cd.dense_cfconv_fwd(pos, x, *w, rc, prec),),
             ("dense_cfconv_bwd", (f, r)): lambda pos=pos, x=x, g=g, w=w,
-                rc=rcut: cd.dense_cfconv_bwd(pos, x, g, *w, rc, "bf16"),
+                rc=rcut: cd.dense_cfconv_bwd(pos, x, g, *w, rc, prec),
             ("dense_cfconv_bwd (no gx)", (f, r)): lambda pos=pos, x=x, g=g,
-                w=w, rc=rcut: cd.dense_cfconv_bwd(pos, x, g, *w, rc, "bf16",
+                w=w, rc=rcut: cd.dense_cfconv_bwd(pos, x, g, *w, rc, prec,
                                                   need_gx=False)[:1],
             ("cfconv_fwd", (f, r)): lambda pos=pos, x=x, w=w, rc=rcut,
                 n=nbr: (cf.cfconv_fwd(pos, n.idx, n.mask, x, *w, rc,
-                                      "bf16"),),
+                                      prec),),
             ("cfconv_bwd", (f, r)): lambda pos=pos, x=x, g=g, w=w, rc=rcut,
-                c=csr: cf.cfconv_bwd(pos, *c, x, g, *w, rc, "bf16"),
+                c=csr: cf.cfconv_bwd(pos, *c, x, g, *w, rc, prec),
             ("cfconv_bwd (no gx)", (f, r)): lambda pos=pos, x=x, g=g, w=w,
-                rc=rcut, c=csr: cf.cfconv_bwd(pos, *c, x, g, *w, rc, "bf16",
+                rc=rcut, c=csr: cf.cfconv_bwd(pos, *c, x, g, *w, rc, prec,
                                               need_gx=False)[:1],
         })
     return out
@@ -281,11 +326,14 @@ def main():
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(Path(tmp), names)
-        calls = cases(dev)
+        calls = {prec: cases(dev, prec) for prec in ("bf16", "fp32")}
         ref = {}
         for name in names + ["base"]:
             _build._loaded[_build.library_path()] = libs[name]
-            for key, call in calls.items():
+            precs = (("fp32",) if name in FP32_VARIANTS else
+                     ("bf16", "fp32") if name == "base" else ("bf16",))
+            for key, call in ((k + (p,), c) for p in precs
+                              for k, c in calls[p].items()):
                 outs = call()
                 torch.cuda.synchronize()
                 if name == "base" and key not in ref:
@@ -293,7 +341,8 @@ def main():
                 same = all(torch.equal(a, b) for a, b in
                            zip([t for t in outs if t is not None], ref[key]))
                 ms = cs.cuda_time_ms(call)
-                print(f"general_variants: {name} {key[0]} bf16 F={key[1][0]}"
+                print(f"general_variants: {name} {key[0]} {key[2]} "
+                      f"F={key[1][0]}"
                       f" R={key[1][1]}: {ms:.4f} ms; "
                       + ("a timing probe, outputs not checked"
                          if name in PROBES else

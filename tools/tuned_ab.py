@@ -1,26 +1,28 @@
 """The exact-filter kernels from this tree or another: the tuned kernels at the
-zoo's widths (F 128, R 50) and the general-width kernels at SchNet's
-published widths (F 64, R 300) and at F 256, R 50: their outputs, bit for
+zoo's widths (F 128, R 50) and at two widths padded onto them (F 96, R 50;
+F 64, R 32), and the general-width kernels at SchNet's published widths
+(F 64, R 300), at F 256, R 50 and at F 128, R 100: their outputs, bit for
 bit, and their times.
 
     python3 tools/tuned_ab.py [--tree DIR] --save FILE [--against FILE]
 
 Runs dense_cfconv_fwd, dense_cfconv_bwd (with and without gx), cfconv_fwd
 and cfconv_bwd (with and without gx) at fp32 and bf16 at each width on
-chip_smoke.py's slice shapes: the zoo's start positions (S = 128, A = 266),
-the pallas slice's list (K from the zoo's rule, rc + skin 1.0), the first
-block's filter weights (the zoo's at F 128, chip_smoke.py's width_field at
-the general widths), x and g drawn from seed 12 (F 128) or F + R. Prints
-each one's CUDA-event time (chip_smoke.py's cuda_time_ms), saves the
-outputs' sha256 digests and the times to FILE and, with ``--against``,
-says whether the outputs that must not change (every tuned kernel, and
-the general-width kernels at fp32) equal bitwise those that another run
-saved, and prints every time beside that run's. ``--tree DIR`` imports chip_smoke.py and
+chip_smoke.py's slice shapes: the zoo's start positions (S = 128, A =
+266), the pallas slice's list (K from the zoo's rule, rc + skin 1.0), the
+first block's filter weights (the zoo's at F 128, R 50, chip_smoke.py's
+width_field at the other widths), x and g drawn from seed 12 (F 128, R
+50) or F + R. Prints each one's CUDA-event time (chip_smoke.py's
+cuda_time_ms), saves the outputs' sha256 digests and the times to FILE
+and, with ``--against``, says whether every output equals bitwise the one
+that another run saved (no kernel changes an operation's order: the
+general fp32 kernels' redesign keeps the first design's sums), and prints
+every time beside that run's. ``--tree DIR`` imports chip_smoke.py and
 flashmd_tpu_torch from DIR (a parent's ``git archive`` unpacked under
 ``_chip/``, which .gitignore lists), so that two trees run on one card in
 turns, each in its own process: parent, change, change, parent. Prints the
-tree and nvidia-smi's name and power limit first; exits non-zero if those
-outputs differ.
+tree and nvidia-smi's name and power limit first; exits non-zero if an
+output differs.
 """
 
 import argparse
@@ -28,8 +30,9 @@ import hashlib
 import sys
 from pathlib import Path
 
-# (F, R) of each run: the tuned kernels' width, then the general widths.
-WIDTHS = ((128, 50), (64, 300), (256, 50))
+# (F, R) of each run: the tuned kernels' width, two padded onto it, then
+# the general widths.
+WIDTHS = ((128, 50), (96, 50), (64, 32), (64, 300), (256, 50), (128, 100))
 
 
 def _digest(t):
@@ -65,7 +68,7 @@ def main():
                              f"{mod.__file__}")
     print(f"tuned_ab: tree {tree}; {cs.nvidia_smi_line()}")
     dev = torch.device("cuda", 0)
-    outs, times, fixed = {}, {}, set()
+    outs, times = {}, {}
     for f, r in WIDTHS:
         if (f, r) == (128, 50):
             ff, cfgs = cs._force_fields(dev, cs.BATCH,
@@ -104,8 +107,6 @@ def main():
                 outs[key] = [_digest(t) for t in
                              (out if isinstance(out, tuple) else (out,))]
                 times[key] = cs.cuda_time_ms(lambda: call(prec))
-                if (f, r) == (128, 50) or prec == "fp32":
-                    fixed.add(key)
                 print(f"tuned_ab: {key} K={nbr.capacity}: "
                       f"{times[key]:.4f} ms")
     torch.save({"outs": outs, "ms": times}, args.save)
@@ -117,12 +118,12 @@ def main():
                       f"{ref['ms'][key]:.4f} ms in {args.against} "
                       f"(ratio {ms / ref['ms'][key]:.3f})")
         same = {key: outs[key] == ref["outs"][key]
-                for key in sorted(fixed) if key in ref["outs"]}
+                for key in sorted(outs) if key in ref["outs"]}
         bad = [key for key, ok in same.items() if not ok]
-        print(f"tuned_ab: the tuned kernels and the general fp32 kernels "
-              f"({len(same)} outputs) bitwise equal to {args.against}: "
-              f"{not bad and len(same) == len(fixed)} {bad or ''}")
-        if bad or len(same) != len(fixed):
+        print(f"tuned_ab: every kernel ({len(same)} outputs) bitwise equal "
+              f"to {args.against}: {not bad and len(same) == len(outs)} "
+              f"{bad or ''}")
+        if bad or len(same) != len(outs):
             raise SystemExit(1)
 
 
