@@ -146,7 +146,7 @@ Phases (each prints its lines; any failure exits non-zero):
                cells) vs open, each CROSS_BOUND. The slice: the zoo's
                default configuration cgschnet_1enh_like(message_passing=
                "xla") (bf16, K from the zoo rule, skin 1.0, remat
-               "block") for STEPS steps with throughput and a profiler
+               "block") for XLA_STEPS steps with throughput and a profiler
                window; at batch 128 two force evaluations bitwise equal
                (forces and energies) and the peak device memory of one
                under remat "block" and "none" (block gated below none);
@@ -188,8 +188,9 @@ Phases (each prints its lines; any failure exits non-zero):
    cli      -- the console entry points' mains (sys.argv as the command
                line gives it) on that checkpoint's two files, with
                examples/*.yaml read and written by the port's own YAML
-               code (model_file, structure_file and output_dir replaced).
-               "langevin": examples/langevin.yaml as it is at --batch_size
+               code (model_file, structure_file, output_dir and
+               n_timesteps, CLI_STEPS, replaced).
+               "langevin": examples/langevin.yaml at --batch_size
                BATCH; launches 3/2/1 per force evaluation (the steps, the
                start and each frontier candidate of the binding), no twin
                call; the file names the config implies; coordinates
@@ -284,8 +285,10 @@ Phases (each prints its lines; any failure exits non-zero):
                resume from the checkpoint, on the cheb slice and on PT at
                126 slots: frames bitwise equal; PT's acceptance npys sum
                to its cumulative matrix. "pair floor":
-               benchmarks/pair_floor_traj.py's protocol (FLOOR_STEPS steps
-               saved every FLOOR_SAVE, launches of FLOOR_LAUNCH): the
+               benchmarks/pair_floor_traj.py's protocol cut to
+               FLOOR_STEPS steps (its 5,000 to keep the run inside half
+               its time limit), saved every FLOOR_SAVE, launches of
+               FLOOR_LAUNCH: the
                smallest pair distance at the save points and its step
                beside the reference's FLOOR_REFERENCE (measured, not
                gated). "guard": NVE on the dense fp32 field at GUARD_DT
@@ -318,9 +321,12 @@ Phases (each prints its lines; any failure exits non-zero):
                tuned kernels zero-padded to F 128, every other width on
                the general-width kernels of
                csrc/cfconv_general_kernels.cu: at bf16 the tensor-core
-               tiles gw_*_mma_kernel, whose registers, spills (gated 0)
-               and HMMA count (gated above 0) print with the build's MMA
-               lines; at fp32 and for the "wide" bf16 family the
+               tiles, gw_*_mma_kernel with the weights staged whole in
+               each block or, where they do not fit, gp_*_kernel with
+               them streamed in panels (the "streamed" family), whose
+               registers, spills (gated 0) and HMMA count (gated above 0)
+               print with the build's MMA lines; at fp32 and for the
+               "wide" bf16 family (widths where neither fits) the
                CUDA-core instantiations: gf_*_kernel with the weights
                staged in shared memory or streamed through it in panels
                (the library's cfconv_general_layout), gw_*_kernel (the
@@ -329,30 +335,35 @@ Phases (each prints its lines; any failure exits non-zero):
                spills print with the build lines, spills gated 0 where
                the tiles are in shared memory, HMMA gated 0). Each of the
                four kernels at each (F, R) of WIDTHS (F 640, R 8: the
-               first design's kernels at fp32 and bf16, on 16 molecules),
-               at S = BATCH, A = N_ATOMS on the start positions and the
-               pallas slice's list rule: fp32 and bf16, the backwards with
-               and without gx, two launches bitwise equal at each tier,
-               against its twin, timed beside its bound (2 (R F + F^2)
-               FLOP per live pair or slot forward, twice that backward;
-               the fp32 line names the CUDA-core kernels that ran with
-               their layout, registers, spills and warps a block);
-               the padded widths beside the F 128, R 50 kernels' times;
-               the neighbour backward's peak memory at F 256 (gated below
-               NBR_BWD_MEMORY_LIMIT at both tiers). Then the widths
-               slices at WIDTH_SLICES (SchNet's published widths F 64, R
-               300 with CGSchNet's tanh filter, and F 256, R 50), each a
-               SchNet of hidden_channels = num_filters = F, num_rbf = R
+               first design's kernels at fp32, the streamed tiles at
+               bf16, on 16 molecules), at S = BATCH, A = N_ATOMS on the
+               start positions and the pallas slice's list rule: fp32 and
+               bf16, the backwards with and without gx, two launches
+               bitwise equal at each tier, against its twin, timed beside
+               its bound (2 (R F + F^2) FLOP per live pair or slot
+               forward, twice that backward; the fp32 line names the
+               CUDA-core kernels that ran with their layout, registers,
+               spills and warps a block, the bf16 line the family and
+               tensor-core kernels with their registers, spills, HMMA
+               count and warps a block); the padded widths beside the F
+               128, R 50 kernels' times; the neighbour backward's peak
+               memory at F 256, R 50 (gated below NBR_BWD_MEMORY_LIMIT at
+               both tiers). Then the widths slices at WIDTH_SLICES
+               (SchNet's published widths F 64, R 300 with CGSchNet's
+               tanh filter, and F 256, R 50), each a SchNet of
+               hidden_channels = num_filters = F, num_rbf = R, 3 blocks
                from SchNetConfig and init_schnet on the zoo's chain,
                priors and head: pallas bf16, pallas fp32 (gptq None),
-               dense bf16 and dense fp32 (gptq None), forces at
-               FORCE_BATCH card (no twin call) vs
-               CPU twins (FORCE_BOUND, CROSS_BOUND at fp32), then
-               WIDTH_STEPS BAOAB steps (WIDTH_SHORT_STEPS once a run
-               passes WIDTH_LONG_S) with the general family's forward and
-               backward 3 each per force evaluation, every other counter
-               0, no twin call, finite positions; throughput, ms/step,
-               peak device memory, the filter weights' preparations
+               dense bf16 and dense fp32 (gptq None); and at OC20_WIDTHS
+               (the Open Catalyst SchNet: hidden 1,024, F 256, R 200, 5
+               blocks, on the streamed tiles) pallas bf16 and dense bf16.
+               Each: forces at FORCE_BATCH card (no twin call) vs CPU
+               twins (FORCE_BOUND, CROSS_BOUND at fp32), then WIDTH_STEPS
+               BAOAB steps (WIDTH_SHORT_STEPS at WIDTH_SLICES)
+               with the routed family's forward and backward once per
+               block and force evaluation, every other counter 0, no twin
+               call, finite positions; throughput, ms/step, peak device
+               memory, the filter weights' preparations
                (ops/cfconv_general.py general_weights) and a profiler
                window.
 
@@ -451,7 +462,8 @@ NBR_BWD_MEMORY_LIMIT = 100 * 10**6
 # < 2 rcut: a pair has two x images within rcut), 21 A along y and z, so
 # that its 2 x 1 x 1 supercell (30 x 21 x 21) is sound at rcut without
 # images.
-XLA_CELL_STEPS = 40
+XLA_STEPS = 40
+XLA_CELL_STEPS = 20
 XLA_IMAGE_ATOMS = 64
 XLA_IMAGE_STEPS = 10
 XLA_IMAGE_CELL = np.diag([15.0, 21.0, 21.0])
@@ -471,7 +483,8 @@ PT_SAVE_INTERVAL = 10
 PT_EXCHANGE_INTERVAL = 10
 # The export loop: bench.py's corroboration run (bench.py:184-211: 400
 # steps saved every 100, exported every 200, forces and energies, the list
-# rebuilt every 10), with and without files, interleaved A, B in
+# rebuilt every 10) cut to half its steps, save and export intervals (two
+# export segments as there), with and without files, interleaved A, B in
 # EXPORT_PAIRS pairs (late in the process the same slice reads 0.69-1.08x
 # its first run, and a pair's two runs differ by up to 20 % on this
 # host-bound slice; PERF.md section 7). A short run with the
@@ -480,12 +493,15 @@ PT_EXCHANGE_INTERVAL = 10
 # count per segment) over 2 N steps straight, and N plus a resume to 2 N. The
 # guard: the dense fp32 field at GUARD_DT. The pair floor:
 # benchmarks/pair_floor_traj.py's protocol (5000 steps saved every 25,
-# launches of 1000 steps), the reference's 2.047 A beside it.
-EXPORT_STEPS = 400
-EXPORT_SAVE = 100
-EXPORT_INTERVAL = 200
+# launches of 1000 steps) cut to FLOOR_STEPS in launches of FLOOR_LAUNCH,
+# the reference's 2.047 A beside it. (These cuts, and those of the xla,
+# mesh, command-line and widths runs, keep the whole run inside half its
+# time limit.)
+EXPORT_STEPS = 200
+EXPORT_SAVE = 50
+EXPORT_INTERVAL = 100
 EXPORT_REBUILD = 10
-EXPORT_PAIRS = 4
+EXPORT_PAIRS = 2
 COMPONENT_STEPS = 40
 RESUME_N = 100
 RESUME_SAVE = 20
@@ -493,13 +509,15 @@ RESUME_EXCHANGE = 20
 GUARD_DT = 10.0
 GUARD_LAUNCH_STEPS = 10
 GUARD_MAX_STEPS = 400
-FLOOR_STEPS = 5000
+FLOOR_STEPS = 500
 FLOOR_SAVE = 25
-FLOOR_LAUNCH = 1000
+FLOOR_LAUNCH = 125
 FLOOR_REFERENCE = 2.047
-# The command line: examples/langevin.yaml (500 steps) at BATCH and
-# examples/parallel_tempering.yaml at PT_INDEP x 3 betas as they are; the
-# NVE and the optimisations-off runs (no kernel of their own) cut short.
+# The command line: examples/langevin.yaml at BATCH and
+# examples/parallel_tempering.yaml at PT_INDEP x 3 betas as they are but
+# for their 500 steps, cut to CLI_STEPS; the NVE and the optimisations-off
+# runs (no kernel of their own) cut shorter.
+CLI_STEPS = 200
 CLI_NVE_STEPS = 120
 CLI_OFF_STEPS = 40
 # Mixed-size batches: benchmarks/run_all.py:_cfg_mixed (16 molecules of 266
@@ -569,20 +587,33 @@ PEAK_BYTES = 3.35e12
 # features, 300 Gaussians) with CGSchNet's tanh filter, and F 256 at R 50
 # (the width of the JAX package's TPU lane, tests/ops/test_tpu_lane.py).
 # F 640 at R 8 is the narrowest width that the first design's CUDA-core
-# kernels take (gw_*: fp32, and bf16 as the "wide" family), on the first
-# 16 molecules (WIDTH_BATCHES): its dense twins hold [S, A, A, 640] float32
-# tensors (23 GB each at S = BATCH). Each slice runs WIDTH_STEPS steps,
-# WIDTH_SHORT_STEPS once a run has taken more than WIDTH_LONG_S seconds.
-WIDTHS = ((64, 300), (256, 50), (96, 50), (64, 32), (128, 100), (640, 8))
+# kernels take at fp32 (gw_*; the streamed tensor-core tiles at bf16), on
+# the first 16 molecules (WIDTH_BATCHES): its dense twins hold [S, A, A,
+# 640] float32 tensors (23 GB each at S = BATCH). F 256 at R 200 is the
+# Open Catalyst SchNet's filter (OC20_WIDTHS), a streamed width at bf16.
+# The OC20 slices run WIDTH_STEPS steps, those at WIDTH_SLICES
+# WIDTH_SHORT_STEPS.
+WIDTHS = ((64, 300), (256, 50), (96, 50), (64, 32), (128, 100), (640, 8),
+          (256, 200))
 WIDTH_BATCHES = {(640, 8): 16}
 WIDTH_SLICES = ((64, 300), (256, 50))
 WIDTH_RUNS = (("pallas", "bf16"), ("pallas", "fp32"), ("dense", "bf16"),
               ("dense", "fp32"))
+# The Open Catalyst Project's SchNet baseline (Chanussot et al., ACS Catal.
+# 2021; configs/s2ef/all/schnet/schnet.yml: hidden_channels 1024,
+# num_filters 256, num_interactions 5, num_gaussians 200) as (F, R, hidden,
+# blocks), on the zoo's chain, priors, head and 10 A cutoff with CGSchNet's
+# tanh filter (OC20's 6 A cutoff and shifted-softplus filter belong to its
+# atomistic systems; the dense and pallas kernels take tanh only, as the
+# reference's do). Its filter, F 256 R 200, is a "streamed" width at bf16;
+# its slices run pallas and dense at bf16.
+OC20_WIDTHS = (256, 200, 1024, 5)
+OC20_RUNS = (("pallas", "bf16"), ("dense", "bf16"))
 WIDTH_STEPS = 40
 WIDTH_SHORT_STEPS = 20
-WIDTH_LONG_S = 60.0
 WIDTH_SEED = 11
 GENERAL_SOURCE = "flashmd_tpu_torch/csrc/cfconv_general_kernels.cu"
+MMA_SOURCE = "flashmd_tpu_torch/csrc/cfconv_general_mma_kernels.cu"
 
 
 def check(cond, msg):
@@ -642,6 +673,10 @@ MMA_KERNELS = {
     "general nbr fwd": re.compile(r"gw_nbr_fwd_mma_kernel"),
     "general gx": re.compile(r"gw_nbr_gx_mma_kernel"),
     "general bwd": re.compile(r"gw_bwd_mma_kernelILb([01])ELb([01])E"),
+    "streamed dense fwd": re.compile(r"gp_dense_fwd_kernel"),
+    "streamed nbr fwd": re.compile(r"gp_nbr_fwd_kernel"),
+    "streamed gx": re.compile(r"gp_nbr_gx_kernel"),
+    "streamed bwd": re.compile(r"gp_bwd_kernelILb([01])ELb([01])E"),
 }
 # The labels of the kernels without template arguments.
 MMA_SINGLE = {
@@ -653,10 +688,19 @@ MMA_SINGLE = {
                          "dense_cfconv_fwd)",
     "general nbr fwd": "gw_nbr_fwd_mma_kernel (general-width cfconv_fwd)",
     "general gx": "gw_nbr_gx_mma_kernel (general-width cfconv_bwd, gx pass)",
+    "streamed dense fwd": "gp_dense_fwd_kernel (general-width "
+                          "dense_cfconv_fwd, weights streamed)",
+    "streamed nbr fwd": "gp_nbr_fwd_kernel (general-width cfconv_fwd, "
+                        "weights streamed)",
+    "streamed gx": "gp_nbr_gx_kernel (general-width cfconv_bwd, gx pass, "
+                   "weights streamed)",
 }
-# gw_bwd_mma_kernel<GX, NBR>'s instantiations: dense with and without gx,
-# the neighbour matrix.
+# gw_bwd_mma_kernel<GX, NBR>'s and gp_bwd_kernel<GX, NBR>'s instantiations:
+# dense with and without gx, the neighbour matrix.
 MMA_GENERAL_BWD = (("1", "0"), ("0", "0"), ("0", "1"))
+# {label: (registers, spill stores, spill loads, tensor-core instructions)}
+# of the tensor-core kernels, read by mma_kernel_report at the build.
+MMA_BUILD = {}
 MMA_TIERS = {"1": "bf16", "3": "bf16x3"}
 
 
@@ -680,9 +724,11 @@ def _mma_label(kind, args):
     if kind == "dense":
         return (f"dense kernel dense_bwd_mma_kernel bf16 "
                 f"{'with gx' if args[0] == '1' else 'no gx'}")
-    if kind == "general bwd":
+    if kind in ("general bwd", "streamed bwd"):
         gx, nbr = args
-        return ("general kernel gw_bwd_mma_kernel bf16 "
+        return (f"general kernel "
+                f"{'gw_bwd_mma' if kind == 'general bwd' else 'gp_bwd'}"
+                "_kernel bf16 "
                 + ("nbr" if nbr == "1" else
                    "dense with gx" if gx == "1" else "dense no gx"))
     t, gx, c = args
@@ -858,12 +904,12 @@ def mma_kernel_report(log, lib_path, nvcc):
     """The tensor-core kernels' instantiations: cheb_gd_mma_kernel and
     cheb_gxgd_mma_kernel (bf16, bf16x3; open, cell), cheb_rows_mma_kernel
     (also fwd, gx), dense_bwd_mma_kernel (with and without gx), the bf16
-    kernels of MMA_SINGLE and the general-width gw_bwd_mma_kernel
-    (MMA_GENERAL_BWD): ptxas registers, static shared memory and spills,
-    and the tensor-core instructions (HMMA/HGMMA) in their SASS. Fails if
-    one is missing, spills or holds no tensor-core instruction, or if one
-    of the general-width CUDA-core kernels (GENERAL_LABELS, fp32 and the
-    wide bf16 family) holds one."""
+    kernels of MMA_SINGLE and the general-width gw_bwd_mma_kernel and
+    gp_bwd_kernel (MMA_GENERAL_BWD): ptxas registers, static shared memory
+    and spills, and the tensor-core instructions (HMMA/HGMMA) in their SASS
+    (kept in MMA_BUILD). Fails if one is missing, spills or holds no
+    tensor-core instruction, or if one of the general-width CUDA-core
+    kernels (GENERAL_LABELS, fp32 and the wide bf16 family) holds one."""
     from pathlib import Path
 
     seen, name, spill = {}, None, None
@@ -892,11 +938,13 @@ def mma_kernel_report(log, lib_path, nvcc):
     cuda_core = {}
     for part in sass.split("Function : ")[1:]:
         fname = part.split("\n", 1)[0]
-        n_mma = len(re.findall(r"\b(?:HMMA|HGMMA)\.", part))
         key = _mma_match(fname)
+        label = general_label(fname)
+        if key not in seen and not label:
+            continue
+        n_mma = part.count("HMMA.") + part.count("HGMMA.")
         if key in seen:
             seen[key][3] = n_mma
-        label = general_label(fname)
         if label:
             cuda_core[label] = n_mma
     expected = [("gd", (t, c)) for t in MMA_TIERS for c in "01"]
@@ -905,7 +953,8 @@ def mma_kernel_report(log, lib_path, nvcc):
     expected += [("gxgd", (t, c)) for t in MMA_TIERS for c in "01"]
     expected += [("dense", (gx,)) for gx in "01"]
     expected += [(kind, ()) for kind in MMA_SINGLE]
-    expected += [("general bwd", args) for args in MMA_GENERAL_BWD]
+    expected += [(kind, args) for args in MMA_GENERAL_BWD
+                 for kind in ("general bwd", "streamed bwd")]
     for label in GENERAL_LABELS:
         check(label in cuda_core, f"{label}: not in the SASS")
         print(f"build: general kernel {label}: {cuda_core[label]} "
@@ -921,6 +970,7 @@ def mma_kernel_report(log, lib_path, nvcc):
               "instructions in SASS")
         check(st == 0 and ld == 0, f"{label} spills")
         check(n_mma > 0, f"{label}: no tensor-core instruction in its SASS")
+        MMA_BUILD[label] = (regs, st, ld, n_mma)
 
 
 def cuda_time_ms(fn, warmup=2, iters=10):
@@ -963,18 +1013,21 @@ TIER_STATS = {}
 
 def compare_and_time(name, kern, plain, flops, nbytes, label=None,
                      fp32_flops=0.0, precs=("fp32", "bf16"), fp32_note="",
-                     repeat=False):
+                     repeat=False, bf16_note="", plain_iters=3):
     """Kernel vs twin (callables of the tier) and their CUDA-event times,
     held to ``name``'s bounds, at the tiers ``precs`` (returning the last
     one's numbers: bf16, the tier of the slices, by default); at bf16x3
     the kernel must also lie nearer its bf16x3 twin than the fp32 twin on
-    the same inputs. The fp32 line ends with ``fp32_note``; with
-    ``repeat``, a second fp32 launch must equal the first bitwise."""
+    the same inputs. The fp32 line ends with ``fp32_note``, the bf16 one
+    with ``bf16_note``; with ``repeat``, a second fp32 launch must equal
+    the first bitwise. The twin is timed over ``plain_iters`` calls after
+    one more (1: the call just compared, which warmed it, is the only
+    warm-up)."""
     results = {}
     for prec in precs:
         out_k = _tuple(kern(prec))
         torch.cuda.synchronize()
-        note = ""
+        note = f"; {bf16_note}" if prec == "bf16" and bf16_note else ""
         if prec == "fp32":
             note = f"; {fp32_note}" if fp32_note else ""
             if repeat:
@@ -990,7 +1043,9 @@ def compare_and_time(name, kern, plain, flops, nbytes, label=None,
         rel = max(float((k - p).abs().max() / p.abs().max())
                   for k, p in zip(out_k, out_p))
         ms = cuda_time_ms(lambda: kern(prec))
-        plain_ms = cuda_time_ms(lambda: plain(prec), warmup=1, iters=3)
+        plain_ms = cuda_time_ms(lambda: plain(prec),
+                                warmup=int(plain_iters > 1),
+                                iters=plain_iters)
         bound_ms, bound_by = bound(flops, nbytes, prec, fp32_flops)
         limit = BOUNDS[(name, prec)]
         print(f"kernels: {label or name} {prec} max|k-p|/max|p| = {rel:.3e} "
@@ -3434,8 +3489,9 @@ def phase_prior_kinds(dev):
 def cli_config(name, tmp, out):
     """examples/<name>.yaml read and written by the port's own YAML code
     with model_file and structure_file (the checkpoint phase's files in
-    ``tmp``) and simulation.output_dir (``out``) replaced, and nothing else;
-    returns its path and the config."""
+    ``tmp``), simulation.output_dir (``out``) and simulation.n_timesteps
+    (CLI_STEPS) replaced, and nothing else; returns its path and the
+    config."""
     from flashmd_tpu_torch.utils.io import dump_yaml, load_yaml
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3443,6 +3499,7 @@ def cli_config(name, tmp, out):
     cfg["model_file"] = os.path.join(tmp, "model_and_prior.pt")
     cfg["structure_file"] = os.path.join(tmp, "configurations.pt")
     cfg["simulation"]["output_dir"] = out
+    cfg["simulation"]["n_timesteps"] = CLI_STEPS
     path = os.path.join(tmp, f"{os.path.basename(out)}.yaml")
     dump_yaml(path, cfg)
     return path, cfg
@@ -4334,8 +4391,11 @@ def phase_host(ff, cfgs, dev, open_tp, smi):
 
 # The mesh phase's workers: torch.distributed.run with one rank per process
 # (an NCCL group of one on this card; two gloo ranks sharing it), each
-# running this file with --mesh-worker. The repeats of the timed calls.
+# running this file with --mesh-worker. The repeats of the timed calls, and
+# the steps of each Langevin and PT run (STEPS before they were cut to keep
+# the whole run inside half its time limit).
 MESH_TIMED = 20
+MESH_STEPS = 40
 # Two ranks on one card over gloo with CUDA tensors, held to the JAX
 # suite's PT bounds (tests/simulation/test_parallel.py:111).
 MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
@@ -4369,7 +4429,7 @@ def mesh_worker(args):
             print(f"{tag}: {msg}")
 
     def run(cls, ff, cfgs, beta, mesh_opt, **kw):
-        kw = {"n_timesteps": STEPS, "save_interval": SAVE_INTERVAL,
+        kw = {"n_timesteps": MESH_STEPS, "save_interval": SAVE_INTERVAL,
               "random_seed": 103838, **kw}
         sim = cls(dt=0.004, device=dev, friction=1.0, mesh=mesh_opt, **kw)
         sim.attach_model_and_configurations(ff, cfgs, beta)
@@ -4563,18 +4623,22 @@ def phase_mesh(smi):
 # The exact-filter kernels at every width (ops/cfconv_general.py)
 # ---------------------------------------------------------------------------
 
-def width_field(device, batch, f, r, message_passing, precision="bf16"):
+def width_field(device, batch, f, r, message_passing, precision="bf16",
+                hidden=None, blocks=None):
     """The zoo's chain at ``batch`` (priors, head, capacity rule and
-    configurations of cgschnet_1enh_like) with a SchNet of hidden_channels
-    = num_filters = f and num_rbf = r from SchNetConfig and init_schnet on
-    a seeded generator: the zoo takes no width arguments, as the JAX zoo
-    has none."""
+    configurations of cgschnet_1enh_like) with a SchNet of num_filters = f,
+    num_rbf = r, hidden_channels = ``hidden`` (f when None) and
+    ``blocks`` interaction blocks (the zoo's 3 when None) from
+    SchNetConfig and init_schnet on a seeded generator: the zoo takes no
+    width arguments, as the JAX zoo has none."""
     from flashmd_tpu_torch.models.schnet import init_schnet
 
     ff, cfgs = _force_fields(device, batch, message_passing=message_passing,
                              precision=precision)
-    cfg = dataclasses.replace(ff.schnet_config, hidden_channels=f,
-                              num_filters=f, num_rbf=r)
+    cfg = dataclasses.replace(
+        ff.schnet_config, hidden_channels=hidden or f, num_filters=f,
+        num_rbf=r,
+        num_interactions=blocks or ff.schnet_config.num_interactions)
     params = init_schnet(cfg, torch.Generator().manual_seed(WIDTH_SEED),
                          device)
     return ff.replace(schnet_params=params, schnet_config=cfg), cfgs
@@ -4606,6 +4670,59 @@ def general_note(family, kernels, what, f, r):
                      f"{warps} warps a block" if k in GENERAL_BUILD else
                      f"{k}: registers not read, {warps} warps a block")
     return f"{what}; " + "; ".join(parts)
+
+
+# The tensor-core kernels of each case of phase_width_kernels at bf16, as
+# MMA_BUILD's labels begin, with their kind of cfconv_general_mma_warps (0
+# forward and gx pass, 1 backward, 2 dense backward with gx): {case:
+# [(staged kernel, streamed kernel, kind)]}.
+MMA_CASES = {
+    "dense fwd": [("general dense fwd kernel gw_dense_fwd_mma_kernel",
+                   "streamed dense fwd kernel gp_dense_fwd_kernel", 0)],
+    "dense bwd": [("general kernel gw_bwd_mma_kernel bf16 dense with gx",
+                   "general kernel gp_bwd_kernel bf16 dense with gx", 2)],
+    "dense bwd (no gx)": [("general kernel gw_bwd_mma_kernel bf16 dense no gx",
+                           "general kernel gp_bwd_kernel bf16 dense no gx",
+                           1)],
+    "nbr fwd": [("general nbr fwd kernel gw_nbr_fwd_mma_kernel",
+                 "streamed nbr fwd kernel gp_nbr_fwd_kernel", 0)],
+    "nbr bwd": [("general kernel gw_bwd_mma_kernel bf16 nbr",
+                 "general kernel gp_bwd_kernel bf16 nbr", 1),
+                ("general gx kernel gw_nbr_gx_mma_kernel",
+                 "streamed gx kernel gp_nbr_gx_kernel", 0)],
+    "nbr bwd (no gx)": [("general kernel gw_bwd_mma_kernel bf16 nbr",
+                         "general kernel gp_bwd_kernel bf16 nbr", 1)],
+}
+
+
+def mma_note(family, case, f, r):
+    """The bf16 line's note: the family and the tensor-core kernels that
+    ran (the weights staged whole or streamed in panels, the library's
+    cfconv_general_mma_layout) with their registers, spills and
+    tensor-core instructions from the build and their warps a block; the
+    CUDA-core kernels' names for the wide family."""
+    if family == "tuned":
+        return "tuned kernels, padded to F = 128"
+    from flashmd_tpu_torch.ops._build import load
+
+    fq, rq = -(-f // 16) * 16, -(-r // 16) * 16
+    layout = load().cfconv_general_mma_layout(fq, rq)
+    if layout < 0:
+        return (f"family {family}: the CUDA-core kernels at bf16 "
+                f"({', '.join(k for k, _ in general_kernels(f, r)[case])})")
+    parts = []
+    for staged, streamed, kind in MMA_CASES[case]:
+        label = streamed if layout == 1 else staged
+        regs, st, ld, n_mma = next(
+            (v for k, v in MMA_BUILD.items() if k.startswith(label)),
+            ("?", "?", "?", "?"))
+        parts.append(f"{label.split(' kernel ')[1]}: {regs} regs, spill "
+                     f"{st}/{ld} B, {n_mma} tensor-core MMA instructions, "
+                     f"{load().cfconv_general_mma_warps(kind, fq, rq)} warps "
+                     "a block")
+    return (f"family {family} (weights "
+            f"{'streamed in panels' if layout == 1 else 'staged whole'}); "
+            + "; ".join(parts))
 
 
 def phase_width_kernels(pos_all, dev):
@@ -4641,12 +4758,13 @@ def phase_width_kernels(pos_all, dev):
         n_slots, exec_slots = nbr_slot_counts(pos, nbr, rcut)[:2]
         mlp = r * f + f * f
         family = cg.route(f, r, "fp32")[0]
+        bf16_family = cg.route(f, r, "bf16")[0]
         pad = (r * 128 + 128 * 128) / mlp
         wbytes = 4 * (r * f + 2 * f + f * f + r + 1)
         lbytes = 5 * s * a * k
         csr_bytes = 4 * (s * a + 1 + int(nbr.mask.sum()))
         print(f"widths: kernels F={f} R={r} S={s} A={a} K={k}: the "
-              f"{family} kernels"
+              f"{family} kernels (bf16: {bf16_family})"
               + (f" (padded to F = 128: {pad:.3f} x the useful MLP work)"
                  if family == "tuned" else " (general width)")
               + f"; live pairs {n_pairs} (run {exec_pairs}), live slots "
@@ -4659,33 +4777,35 @@ def phase_width_kernels(pos_all, dev):
              lambda p: cd.dense_cfconv_fwd(pos, x, *w, rcut, p),
              lambda p: cd.dense_cfconv_fwd_plain(pos, x, *w, rcut, p),
              n_pairs * 2 * mlp, 4 * (s * a * 3 + 2 * s * a * f) + wbytes,
-             gk["dense fwd"], f"pairs run {exec_pairs}"),
+             gk["dense fwd"], "dense fwd", f"pairs run {exec_pairs}"),
             ("dense_cfconv_bwd", "",
              lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p),
              lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p),
              n_pairs * 4 * mlp, 4 * (2 * s * a * 3 + 3 * s * a * f) + wbytes,
-             gk["dense bwd"], f"pairs run {exec_pairs}"),
+             gk["dense bwd"], "dense bwd", f"pairs run {exec_pairs}"),
             ("dense_cfconv_bwd", " (no gx)",
              lambda p: cd.dense_cfconv_bwd(pos, x, g, *w, rcut, p,
                                            need_gx=False)[0],
              lambda p: cd.dense_cfconv_bwd_plain(pos, x, g, *w, rcut, p,
                                                  need_gx=False)[0],
              n_pairs * 4 * mlp, 4 * (2 * s * a * 3 + 2 * s * a * f) + wbytes,
-             gk["dense bwd (no gx)"], f"pairs run {exec_pairs}"),
+             gk["dense bwd (no gx)"], "dense bwd (no gx)",
+             f"pairs run {exec_pairs}"),
             ("cfconv_fwd", "",
              lambda p: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, rcut, p),
              lambda p: cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w,
                                            rcut, p),
              n_slots * 2 * mlp,
              4 * (s * a * 3 + 2 * s * a * f) + lbytes + wbytes,
-             gk["nbr fwd"], f"slots run {exec_slots}"),
+             gk["nbr fwd"], "nbr fwd", f"slots run {exec_slots}"),
             ("cfconv_bwd", "",
              lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p),
              lambda p: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g, *w,
                                            rcut, p),
              n_slots * 4 * mlp,
              4 * (2 * s * a * 3 + 3 * s * a * f) + lbytes + csr_bytes
-             + wbytes, gk["nbr bwd"], f"slots run {exec_slots}"),
+             + wbytes, gk["nbr bwd"], "nbr bwd",
+             f"slots run {exec_slots}"),
             ("cfconv_bwd", " (no gx)",
              lambda p: cf.cfconv_bwd(pos, *csr, x, g, *w, rcut, p,
                                      need_gx=False)[0],
@@ -4693,9 +4813,11 @@ def phase_width_kernels(pos_all, dev):
                                            rcut, p, need_gx=False)[0],
              n_slots * 4 * mlp,
              4 * (2 * s * a * 3 + 2 * s * a * f) + lbytes + csr_bytes
-             + wbytes, gk["nbr bwd (no gx)"], f"slots run {exec_slots}"),
+             + wbytes, gk["nbr bwd (no gx)"], "nbr bwd (no gx)",
+             f"slots run {exec_slots}"),
         )
-        for name, sfx, kern, plain, flops, nbytes, kernels, what in cases:
+        for (name, sfx, kern, plain, flops, nbytes, kernels, case,
+             what) in cases:
             label = f"{name}{sfx} F{f} R{r}"
             for prec in ("fp32", "bf16"):
                 first, again = _tuple(kern(prec)), _tuple(kern(prec))
@@ -4707,7 +4829,9 @@ def phase_width_kernels(pos_all, dev):
             compare_and_time(name, kern, plain, float(flops), nbytes,
                              label=label,
                              fp32_note=general_note(family, kernels, what,
-                                                    f, r))
+                                                    f, r),
+                             bf16_note=mma_note(bf16_family, case, f, r),
+                             plain_iters=1)
             for prec in ("fp32", "bf16"):
                 out[name + sfx, prec, (f, r)] = TIER_STATS[label, prec]
             if family == "tuned" and not sfx:
@@ -4733,27 +4857,33 @@ def phase_width_kernels(pos_all, dev):
 
 
 def phase_widths(dev, smi):
-    """The widths slices: for each configuration of WIDTH_SLICES, the
-    pallas field (K from the zoo's capacity rule, skin 1.0, the list
-    rebuilt every step) at bf16 and fp32 and the dense field at bf16, each
-    at full width (BATCH x N_ATOMS, 3 blocks, the zoo's head and priors):
-    forces at FORCE_BATCH card (no twin call) vs CPU twins (FORCE_BOUND at
-    bf16, CROSS_BOUND at fp32), then WIDTH_STEPS BAOAB steps (dt 0.004)
-    with the general family's forward and backward at 3 each per force
+    """The widths slices: for each configuration of WIDTH_SLICES (3 blocks,
+    hidden = F), the pallas field (K from the zoo's capacity rule, skin
+    1.0, the list rebuilt every step) and the dense field at bf16 and fp32
+    (WIDTH_RUNS), and for OC20_WIDTHS (hidden 1,024, 5 blocks) both at
+    bf16 (OC20_RUNS), each at full width (BATCH x N_ATOMS, the zoo's head
+    and priors): forces at FORCE_BATCH card (no twin call) vs CPU twins
+    (FORCE_BOUND at bf16, CROSS_BOUND at fp32), then WIDTH_STEPS BAOAB
+    steps (dt 0.004; WIDTH_SHORT_STEPS at WIDTH_SLICES)
+    with the routed family's forward and backward once per block and force
     evaluation and every other counter 0, no twin call, finite positions;
     throughput, ms/step, peak device memory and a profiler window (the
     device idle share). Returns {(f, r, path, tier): launch counts}."""
     from flashmd_tpu_torch.ops import cfconv_general as cg
 
-    steps = WIDTH_STEPS
+    slices = [(f, r, None, 3, WIDTH_RUNS) for f, r in WIDTH_SLICES]
+    slices.append((*OC20_WIDTHS, OC20_RUNS))
     runs = {}
-    for f, r in WIDTH_SLICES:
-        for mp, prec in WIDTH_RUNS:
-            label = f"widths: {mp} {prec} F{f} R{r}"
+    for f, r, hidden, blocks, width_runs in slices:
+        for mp, prec in width_runs:
+            label = (f"widths: {mp} {prec} F{f} R{r}"
+                     + (f" H{hidden}" if hidden else ""))
             bound = FORCE_BOUND if prec == "bf16" else CROSS_BOUND
+            shape = dict(hidden=hidden, blocks=blocks)
             forces = {}
             for device in (dev, torch.device("cpu")):
-                ff, cfgs = width_field(device, FORCE_BATCH, f, r, mp, prec)
+                ff, cfgs = width_field(device, FORCE_BATCH, f, r, mp, prec,
+                                       **shape)
                 with counting_twins(mp) as twins:
                     forces[device.type] = _forces(ff, cfgs, device)[1]
                 if device.type == "cuda":
@@ -4767,12 +4897,14 @@ def phase_widths(dev, smi):
                   f"plain: max|dF|/max|F| = {rel:.3e} (bound {bound:.0e})")
             check(rel <= bound, f"{label}: card and CPU forces disagree")
 
-            ff, cfgs = width_field(dev, BATCH, f, r, mp, prec)
+            ff, cfgs = width_field(dev, BATCH, f, r, mp, prec, **shape)
             name = "cfconv" if mp == "pallas" else "dense_cfconv"
+            family = cg.route(f, r, prec)[0]
+            fwd, bwd = f"{name}_fwd_{family}", f"{name}_bwd_{family}"
+            steps = WIDTH_STEPS if hidden else WIDTH_SHORT_STEPS
             n_evals = steps + 1
             expect = {**dict.fromkeys(cg.launch_counts(), 0),
-                      f"{name}_fwd_general": 3 * n_evals,
-                      f"{name}_bwd_general": 3 * n_evals}
+                      fwd: blocks * n_evals, bwd: blocks * n_evals}
             AllKernels.reset_launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4792,21 +4924,17 @@ def phase_widths(dev, smi):
                   f"{label}: other launches {others}")
             tp = sim.get_throughput_metrics()["throughput"]
             k = f", K {ff.neighbor_capacity}" if mp == "pallas" else ""
-            print(f"{label}: {steps} steps, batch {BATCH}, {N_ATOMS} beads, 3 "
-                  f"blocks{k}: launches per force evaluation "
-                  f"{name}_fwd_general "
-                  f"{counts[name + '_fwd_general'] // n_evals} and "
-                  f"{name}_bwd_general "
-                  f"{counts[name + '_bwd_general'] // n_evals} (every other "
-                  f"counter 0), twin calls 0;"
-                  f" second-half throughput {tp:.1f} timestep*mol/s "
-                  f"({ms:.3f} ms/step); peak device memory {peak} B "
-                  f"({peak / 1e9:.3f} GB); filter weights prepared {prep} "
-                  f"times in the run (3 blocks); {wall:.1f} s; on {smi}")
+            print(f"{label}: {steps} steps, batch {BATCH}, {N_ATOMS} beads, "
+                  f"{blocks} blocks, hidden {hidden or f}{k}: launches per "
+                  f"force evaluation {fwd} {counts[fwd] // n_evals} and "
+                  f"{bwd} {counts[bwd] // n_evals} (every other counter 0), "
+                  f"twin calls 0; second-half throughput {tp:.1f} "
+                  f"timestep*mol/s ({ms:.3f} ms/step); peak device memory "
+                  f"{peak} B ({peak / 1e9:.3f} GB); filter weights prepared "
+                  f"{prep} times in the run ({blocks} blocks); {wall:.1f} s; "
+                  f"on {smi}")
             profile_steps(sim, dev, PROFILE_STEPS, label)
             runs[f, r, mp, prec] = counts
-            if wall > WIDTH_LONG_S:
-                steps = WIDTH_SHORT_STEPS
     return runs
 
 
@@ -4816,9 +4944,12 @@ def width_kernel_entries(kernel_stats, runs):
     backward of each slice's path and tier, with the slice's launches and
     the kernel-level numbers at that width (the backward's error the
     larger of its runs with and without gx)."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+
     entries = []
     for (f, r, mp, prec), counts in runs.items():
         base = "cfconv" if mp == "pallas" else "dense_cfconv"
+        family = cg.route(f, r, prec)[0]
         for kind in ("fwd", "bwd"):
             name = f"{base}_{kind}"
             st = dict(kernel_stats[name, prec, (f, r)])
@@ -4828,12 +4959,23 @@ def width_kernel_entries(kernel_stats, runs):
                     kernel_stats[name + " (no gx)", prec, (f, r)][
                         "max_abs_err"])
             entries.append({
-                "name": f"{name}_general{'' if prec == 'bf16' else '_fp32'}"
+                "name": f"{name}_{family}{'' if prec == 'bf16' else '_fp32'}"
                         f" F{f} R{r}",
-                "route": "cuda", "source": GENERAL_SOURCE,
+                "route": "cuda",
+                "source": (MMA_SOURCE if prec == "bf16" and family != "wide"
+                           else GENERAL_SOURCE),
                 "replaces": f"{REPLACES[name]} {prec} at F {f}, R {r}",
-                "launches": counts[f"{name}_general"], **st})
+                "launches": counts[f"{name}_{family}"], **st})
     return entries
+
+
+_T0 = time.perf_counter()
+
+
+def mark(what):
+    """Prints the seconds since the script started after ``what``: where
+    the run's time goes."""
+    print(f"time: {what} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def main():
@@ -4860,6 +5002,7 @@ def main():
     mma_kernel_report(info["log"], info["path"], _build._nvcc())
     ffma_kernel_report(info["log"])
     general_kernel_report(info["log"])
+    mark("build")
 
     from flashmd_tpu_torch.data.system import collate
     from flashmd_tpu_torch.ops import cfconv as cf
@@ -4917,6 +5060,7 @@ def main():
     stats.update(dense_stats)
     nbr_stats, nbr_no_gx_ms = phase_nbr_kernels(ff_pallas, pos, dev)
     stats.update(nbr_stats)
+    mark("kernel phases")
     with cheb_schedule("1"):
         phase_forces(dev, "cheb")
         phase_periodic_forces(dev)
@@ -4933,6 +5077,7 @@ def main():
     phase_forces(dev, "xla")
     phase_xla_forces(dev)
     phase_image_check(dev, "xla")
+    mark("forces")
 
     n_evals = STEPS + 1
     with cheb_schedule("1"):
@@ -4996,6 +5141,7 @@ def main():
     dense_tp = sim.get_throughput_metrics()["throughput"]
     profile_steps(sim, dev, PROFILE_STEPS, "dense")
     counts.update(phase_dense_fp32_slice(cfgs, dev, dense_tp, smi))
+    mark("cheb, tier and dense slices")
     pallas_counts, ms_step, sim = run_slice(
         "pallas", ff_pallas, cfgs, dev, STEPS, SAVE_INTERVAL, cf,
         {"cfconv_fwd": 3 * n_evals, "cfconv_bwd": 3 * n_evals}, smi,
@@ -5012,7 +5158,8 @@ def main():
     pallas_tp = sim.get_throughput_metrics()["throughput"]
     profile_steps(sim, dev, PROFILE_STEPS, "pallas")
     counts.update(phase_pallas_fp32_slice(cfgs, dev, pallas_tp, smi))
-    _, ms_step, sim = run_slice("xla", ff_xla, cfgs, dev, STEPS,
+    mark("pallas slices")
+    _, ms_step, sim = run_slice("xla", ff_xla, cfgs, dev, XLA_STEPS,
                                 SAVE_INTERVAL, AllKernels, AllKernels.zeros(),
                                 smi)
     print(f"xla: K {ff_xla.neighbor_capacity}, skin {sim.neighbor_skin}, "
@@ -5032,16 +5179,19 @@ def main():
           f"({XLA_CELL_STEPS} steps, minimum image, Verlet rebuild under the "
           f"cell) beside the open xla slice's {xla_tp:.1f}")
     phase_xla_images(dev, smi)
+    mark("xla slices")
     with tempfile.TemporaryDirectory() as ckpt_dir:
         phase_checkpoint(dev, open_tp, smi, ckpt_dir)
         phase_cli(ckpt_dir, dev, smi)
     with tempfile.TemporaryDirectory() as ckpt_dir:
         phase_checkpoint_identity_basis(dev, smi, ckpt_dir)
+        mark("checkpoint and cli")
     method_fits = host_fit_methods(ff)
     phase_fidelity(dev, method_fits)
     with cheb_schedule("1"):
         phase_fit(ff, cfgs, dev, smi, method_fits)
         phase_envelopes(ff, cfgs, dev, smi)
+        mark("fidelity, fit and envelopes")
     # The integrators, beside a second run of the open cheb slice at this
     # point of the process.
     with cheb_schedule("1"):
@@ -5059,18 +5209,24 @@ def main():
         phase_pt(dev, late_tp, late_ms, smi)
     phase_pt_exchange(dev)
     phase_nve_drift(dev)
+    mark("integrators and pt")
     with cheb_schedule("1"):
         phase_export(ff, cfgs, dev, smi)
         phase_resume(ff, cfgs, dev)
         phase_pair_floor(ff, cfgs, dev, smi)
     phase_guard(dev)
+    mark("export, resume, floor and guard")
     with cheb_schedule("1"):
         phase_mixed_forces(dev)
         phase_mixed(dev, smi)
+        mark("mixed")
         phase_host(ff, cfgs, dev, open_tp, smi)
         phase_mesh(smi)
+        mark("host and mesh")
     width_stats = phase_width_kernels(pos, dev)
+    mark("widths kernels")
     width_runs = phase_widths(dev, smi)
+    mark("widths slices")
 
     for name in ("dense_cfconv_fwd", "dense_cfconv_bwd", "cfconv_fwd",
                  "cfconv_bwd"):

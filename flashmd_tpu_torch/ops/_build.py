@@ -67,6 +67,10 @@ _SIGNATURES = {
     "cfconv_general_layout": [_I] * 4,
     # kind, Fp, R, Rq
     "cfconv_general_warps": [_I] * 4,
+    # Fq, Rq
+    "cfconv_general_mma_layout": [_I] * 2,
+    # kind, Fq, Rq
+    "cfconv_general_mma_warps": [_I] * 3,
 }
 
 _loaded: dict = {}

@@ -49,14 +49,16 @@ kernels above (the tuned family, which lays its tiles out for F = 128:
 narrower filters are zero-padded to 128, exactly, and the outputs sliced
 back), any other width to the general-width kernels of
 ``csrc/cfconv_general_kernels.cu`` (ops/cfconv_general.py: the tensor
-cores at bf16, float32 FMAs on the CUDA cores at fp32 and for bf16 weights
-too wide for shared memory, the "wide" family; gx computing W again over
+cores at bf16, with the weights staged in shared memory or, where they do
+not fit, streamed through it in panels, the "streamed" family; float32
+FMAs on the CUDA cores at fp32 and for bf16 widths where neither fits,
+the "wide" family; gx computing W again over
 the source CSR).
 
 Dispatch: a wrapper takes its plain twin only for tensors on the CPU. For
 CUDA tensors it launches a kernel or raises; there is no fallback. Each
 wrapper counts the tuned family's launches in its ``launches`` attribute,
-the general and wide families' in
+the general, streamed and wide families' in
 ``cfconv_general.launch_counts()``.
 
 Precision tiers: ``fp32`` and ``bf16`` (operands of the four products

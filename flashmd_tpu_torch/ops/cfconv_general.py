@@ -34,10 +34,16 @@ families:
   (``gw_*_mma_kernel``): mma.sync bf16 products with bf16 weights w0
   [Rq][Fq] and w1 [Fq][Fq] (Fq, Rq: F, R rounded up to 16) staged once per
   block in shared memory, where they and one warp's tiles must fit
-  (:func:`mma_smem_bytes`).
-* "wide", bf16 at a width whose bf16 weights do not fit there (F 1,600 at
-  R 8, say): the CUDA-core kernels at bf16 (operands rounded where the
-  twins round them), in the fp32 tier's layout at that width.
+  (:func:`mma_layout` "staged", :func:`mma_smem_bytes`).
+* "streamed", bf16 at a width whose bf16 weights do not fit there but
+  whose tiles do beside two panel buffers (:func:`mma_layout` "panels":
+  F 256 R 200, the Open Catalyst SchNet's filter; F 640 R 8; up to F 4,048
+  at R 8 and 3,920 at R 200): the same tensor-core tiles with w0 and w1
+  streamed from device memory through shared memory in 64 x 64 panels
+  that every warp of a block shares (``gp_*_kernel``).
+* "wide", bf16 at a width where neither fits (F 4,096 at R 8, say): the
+  CUDA-core kernels at bf16 (operands rounded where the twins round them),
+  in the fp32 tier's layout at that width.
 
 :func:`general_weights` prepares a family's weights once per parameter set:
 the prepared tensors are kept, keyed on the parameters' identity, version
@@ -47,8 +53,9 @@ the tuned family's padding below F = 128. x and g are padded to the
 family's width on each call.
 
 Each family counts its own launches: the tuned one on the wrappers'
-``launches``, the general and wide ones here (``dense_cfconv_fwd_general``,
-``cfconv_bwd_wide``, ..., :func:`launch_counts`). There is no fallback: on
+``launches``, the general, streamed and wide ones here
+(``dense_cfconv_fwd_general``, ``cfconv_bwd_streamed``, ``cfconv_bwd_wide``,
+..., :func:`launch_counts`). There is no fallback: on
 CUDA tensors every width launches a kernel or raises.
 """
 
@@ -69,16 +76,20 @@ TUNED_R_MAX = 64
 # (GW_CW, GW_RC of csrc/cfconv_general_kernels.cu).
 GENERAL_COLUMNS = 64
 GENERAL_RBF_CHUNK = 64
-# The tensor-core tiles (GM_* of csrc/cfconv_general_kernels.cu): F and R
-# padded to the mma k-step, the W cut staging's row stride, the ring and
-# the rows of a work item, the shared memory a block may hold, and the
-# kernels' tier code.
+# The tensor-core tiles (GM_* and GP_* of
+# csrc/cfconv_general_mma_kernels.cu): F and R padded to the mma k-step,
+# the W cut staging's row stride, the ring and the rows of a work item, the
+# shared memory a block may hold, the two panel buffers of the streamed
+# tiles (64 x 64 bf16, row stride 72), and the kernels' tier codes (weights
+# staged whole, streamed).
 MMA_K = 16
 MMA_STAGE_LD = 36
 MMA_RING = 64
 MMA_ROWS = 4
 SMEM_MAX = 232448
+MMA_PANEL_BYTES = 2 * 2 * 64 * (64 + 8)
 MMA_TIER = 2
+STREAMED_TIER = 3
 # The CUDA-core tiles' layouts (GF_* of csrc/cfconv_general_kernels.cu):
 # columns of a chunk, the two panel buffers' floats (32 rows of 128 + 4
 # columns, or 128 rows of 32 + 4), and the fewest warps of the dense
@@ -95,18 +106,33 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def mma_smem_bytes(f: int, r: int) -> int:
+def mma_smem_bytes(f: int, r: int, layout: str = "staged") -> int:
     """Bytes of shared memory that a block of the tensor-core tiles needs
-    at F filters and R radial functions, with one warp (gm_shape of the
-    kernels): the bf16 weights w0 [Rq][Fq + 8] and w1 [Fq][Fq + 8], b0 and
+    at F filters and R radial functions, with one warp (mma_shape of the
+    kernels): "staged" (gm_shape), the bf16 weights w0 [Rq][Fq + 8] and w1
+    [Fq][Fq + 8]; "panels" (gp_shape), the two panel buffers; then b0 and
     the offsets, and the area of a warp of the dense backward with gx (the
     largest): rbf and activation fragments, the W cut staging, the item's
     gx rows and the ring."""
     fq, rq = _round_up(f, MMA_K), _round_up(r, MMA_K)
-    weights = 2 * (rq + fq) * (fq + 8) + 4 * (fq + rq)
+    weights = (2 * (rq + fq) * (fq + 8) if layout == "staged"
+               else MMA_PANEL_BYTES) + 4 * (fq + rq)
     warp = (32 * rq + 32 * fq + 4 * 16 * MMA_STAGE_LD + 4 * MMA_ROWS * fq
             + 4 * MMA_RING)
     return weights + warp
+
+
+def mma_layout(f: int, r: int) -> str:
+    """The tensor-core tiles' layout at F filters and R radial functions:
+    "staged" where :func:`mma_smem_bytes` of the whole weights fits in a
+    block's shared memory (``gw_*_mma_kernel``), else "panels" where that
+    of the panel buffers does (``gp_*_kernel``), else "none" (the bf16
+    tier then runs the CUDA-core kernels). The library's
+    ``cfconv_general_mma_layout`` gives the same (0, 1, -1)."""
+    for layout in ("staged", "panels"):
+        if mma_smem_bytes(f, r, layout) <= SMEM_MAX:
+            return layout
+    return "none"
 
 
 def ffma_warp_bytes(f: int) -> int:
@@ -148,18 +174,24 @@ def ffma_layout(f: int, r: int) -> str:
     return "l2"
 
 
+# The family of each tensor-core layout at bf16.
+_MMA_FAMILY = {"staged": "general", "panels": "streamed", "none": "wide"}
+
+
 def route(f: int, r: int, precision: str) -> tuple:
     """(family, tier) of a CUDA launch at F filters and R radial functions:
     family "tuned" (F <= 128, R <= 64; zero-padded to F = 128), "general"
-    (the tensor-core tiles at bf16, the CUDA-core kernels at fp32) or
-    "wide" (bf16 where :func:`mma_smem_bytes` exceeds a block's shared
-    memory: the CUDA-core kernels at bf16); tier "fp32" or "bf16" (bf16x3
-    computes these kernels at fp32, as the reference does)."""
+    (the tensor-core tiles with the weights staged at bf16, the CUDA-core
+    kernels at fp32), "streamed" (bf16 where :func:`mma_layout` is
+    "panels": the tensor-core tiles with the weights streamed) or "wide"
+    (bf16 where it is "none": the CUDA-core kernels at bf16); tier "fp32"
+    or "bf16" (bf16x3 computes these kernels at fp32, as the reference
+    does)."""
     tier = "bf16" if precision == "bf16" else "fp32"
     if f <= TUNED_F and r <= TUNED_R_MAX:
         return "tuned", tier
-    if tier == "bf16" and mma_smem_bytes(f, r) > SMEM_MAX:
-        return "wide", tier
+    if tier == "bf16":
+        return _MMA_FAMILY[mma_layout(f, r)], tier
     return "general", tier
 
 
@@ -303,6 +335,8 @@ def _weight_ptrs(wg, coeff):
 def _family(f, r, precision):
     """(family, tensor_cores, tier code) of a general-width launch."""
     family, tier = route(f, r, precision)
+    if family == "streamed":
+        return family, True, STREAMED_TIER
     mma = family == "general" and tier == "bf16"
     return family, mma, MMA_TIER if mma else int(tier == "bf16")
 
@@ -372,9 +406,9 @@ def general_bwd(pos, idx, mask, csr_offsets, csr_slots, x, g, w0, b0, w1,
 
 # Launches of the general-width kernels, one per wrapper call (a backward's
 # two or three kernels count as one), by the wrapper that routed them and
-# the family (general, wide).
+# the family (general, streamed, wide).
 _launches = dict.fromkeys(
-    [f"{path}_{kind}_{family}" for family in ("general", "wide")
+    [f"{path}_{kind}_{family}" for family in ("general", "streamed", "wide")
      for path in ("dense_cfconv", "cfconv") for kind in ("fwd", "bwd")], 0)
 
 

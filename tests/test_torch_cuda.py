@@ -1606,8 +1606,9 @@ def test_nbr_main_path_launch_counts(dev):
 # --------------------------------------------------------------------------
 
 # SchNet's published widths (F 64, R 300), F 256 at R 50, F 96, a narrow
-# F 64 at R 32 (both padded onto the tuned kernels) and R 100 at F 128.
-WIDTHS = [(64, 300), (256, 50), (96, 50), (64, 32), (128, 100)]
+# F 64 at R 32 (both padded onto the tuned kernels), R 100 at F 128 and the
+# Open Catalyst SchNet's filter, F 256 at R 200 (streamed at bf16).
+WIDTHS = [(64, 300), (256, 50), (96, 50), (64, 32), (128, 100), (256, 200)]
 
 
 def _family_counts():
@@ -1629,7 +1630,8 @@ def _expect_launches(f, r, precision, path, fwd, bwd):
     family that :func:`route` names."""
     from flashmd_tpu_torch.ops import cfconv_general as cg
 
-    sfx = "_general" if cg.route(f, r, precision)[0] == "general" else ""
+    family = cg.route(f, r, precision)[0]
+    sfx = "" if family == "tuned" else f"_{family}"
     return {**dict.fromkeys(_family_counts(), 0),
             f"{path}_fwd{sfx}": fwd, f"{path}_bwd{sfx}": bwd}
 
@@ -1769,11 +1771,13 @@ LAYOUT_WIDTHS = [(128, 104, "staged"), (128, 105, "panels"),
                  (576, 8, "panels"), (577, 8, "l2")]
 
 
-def _general_gd(pos, nbr, x, g, w, need_gx, precision="fp32"):
-    """The general-width CUDA-core backward's gd workspace ([S, A, A]
-    dense when ``nbr`` is None, else [S, A, K]) after one launch at
-    ``precision`` (fp32: tier 0, bf16: tier 1, the wide family's; filled
-    with NaN before it: every entry must be written) and its gpos."""
+def _general_gd(pos, nbr, x, g, w, need_gx, precision="fp32", tier=None):
+    """The general-width backward's gd workspace ([S, A, A] dense when
+    ``nbr`` is None, else [S, A, K]) after one launch at ``precision``
+    (fp32: tier 0, bf16: tier 1, the wide family's CUDA-core kernels; or
+    ``tier`` 2, the tensor-core tiles with the weights staged, 3 streamed;
+    filled with NaN before it: every entry must be written) and its
+    gpos."""
     from flashmd_tpu_torch.ops import cfconv_general as cg
     from flashmd_tpu_torch.ops._build import load
     from flashmd_tpu_torch.ops._launch import _ptr, _stream
@@ -1781,7 +1785,8 @@ def _general_gd(pos, nbr, x, g, w, need_gx, precision="fp32"):
     s, a, f = x.shape
     r = w[0].shape[0]
     k = nbr.idx.shape[-1] if nbr is not None else 0
-    wg = cg.general_weights(*w[:4], precision)
+    mma = tier is not None
+    wg = cg.general_weights(*w[:4], precision, tensor_cores=mma)
     fp, rq = wg["w1"].shape[0], wg["off"].shape[0]
     xp, gp = cg.pad_features(x, fp), cg.pad_features(g, fp)
     gd = torch.full((s, a, k or a), float("nan"), device=pos.device)
@@ -1792,8 +1797,10 @@ def _general_gd(pos, nbr, x, g, w, need_gx, precision="fp32"):
     rc = load().cfconv_general_bwd(
         int(nbr is not None), _ptr(pos), *(_ptr(t) for t in lists),
         _ptr(xp), _ptr(gp), *cg._weight_ptrs(wg, w[4]), _ptr(gd),
-        _ptr(gpos), _ptr(gx), _ptr(cg._workspace(True, fp, pos.device)), s,
-        a, k, fp, r, rq, RCUT, int(precision == "bf16"), _stream())
+        _ptr(gpos), _ptr(gx),
+        _ptr(None if mma else cg._workspace(True, fp, pos.device)), s, a, k,
+        fp, r, rq, RCUT, tier if mma else int(precision == "bf16"),
+        _stream())
     assert rc == 0
     return gd, gpos
 
@@ -1883,11 +1890,11 @@ def test_fp32_kernels_at_the_layout_boundaries(dev, f, r, layout):
     _check_cuda_core_tiles(dev, f, r, layout, "fp32")
 
 
-# The wide family (bf16 widths whose bf16 weights do not fit in a block's
-# shared memory) on the CUDA-core tiles at tier 1: F 320, R 17 with its
-# weights in panels, and F 64, R 3000 in panels, whose forward and gx pass
-# run the first design's kernels.
-WIDE_WIDTHS = [(320, 17, "panels"), (64, 3000, "panels")]
+# The wide family (bf16 widths where neither the whole bf16 weights nor the
+# streamed tiles' panel buffers and one warp fit in a block's shared memory)
+# on the CUDA-core kernels at tier 1: F 4,096 at R 8 (the first design's,
+# tiles in device memory; the streamed tiles take up to F 4,048 there).
+WIDE_WIDTHS = [(4096, 8, "l2")]
 
 
 @pytest.mark.parametrize("f,r,layout", WIDE_WIDTHS)
@@ -1906,6 +1913,161 @@ def test_wide_bf16_kernels_on_the_cuda_core_tiles(dev, f, r, layout):
                for path in ("dense_cfconv", "cfconv")
                for kind in ("fwd", "bwd"))
     assert not any(v for k, v in counts.items() if not k.endswith("_wide"))
+
+
+def _check_mma_tiles(dev, f, r, tier):
+    """The tensor-core tiles at F, R on ``tier`` (2 the weights staged, 3
+    streamed in panels): the dense and neighbour-matrix forwards and
+    backwards (with and without gx) through the wrappers against their
+    bf16 twins within BOUNDS["bf16"], two launches bitwise equal, gpos the
+    same with and without gx; the backward at ``tier`` called directly:
+    gd exactly 0 on every dead pair (the diagonal, d >= rc) and slot
+    (masked, d >= rc), within the backward's bound of the twin's on the
+    live ones, and its gpos the wrapper's."""
+    bounds = BOUNDS["bf16"]
+    pos, x, g, w, nbr = _nbr_tc_case(dev, 33, 32, True, f=f, r=r)
+    csr = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    paths = {
+        "dense": (lambda: cd.dense_cfconv_fwd(pos, x, *w, RCUT, "bf16"),
+                  lambda: cd.dense_cfconv_fwd_plain(pos, x, *w, RCUT, "bf16"),
+                  lambda n: cd.dense_cfconv_bwd(pos, x, g, *w, RCUT, "bf16",
+                                                need_gx=n),
+                  lambda n: cd.dense_cfconv_bwd_plain(pos, x, g, *w, RCUT,
+                                                      "bf16", need_gx=n)),
+        "nbr": (lambda: cf.cfconv_fwd(pos, nbr.idx, nbr.mask, x, *w, RCUT,
+                                      "bf16"),
+                lambda: cf.cfconv_fwd_plain(pos, nbr.idx, nbr.mask, x, *w,
+                                            RCUT, "bf16"),
+                lambda n: cf.cfconv_bwd(pos, *csr, x, g, *w, RCUT, "bf16",
+                                        need_gx=n),
+                lambda n: cf.cfconv_bwd_plain(pos, nbr.idx, nbr.mask, x, g,
+                                              *w, RCUT, "bf16", need_gx=n)),
+    }
+    for name, (fwd, fwd_plain, bwd, bwd_plain) in paths.items():
+        out, again, ref = fwd(), fwd(), fwd_plain()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()) and torch.equal(out, again)
+        assert _rel(out, ref) <= bounds["fwd"], name
+        runs = {n: (bwd(n), bwd(n), bwd_plain(n)) for n in (True, False)}
+        torch.cuda.synchronize()
+        for n, (first, second, ref) in runs.items():
+            assert (first[1] is None) == (not n)
+            for k, k2, p in zip(first, second, ref):
+                if p is None:
+                    continue
+                assert bool(torch.isfinite(k).all()) and torch.equal(k, k2)
+                assert _rel(k, p) <= bounds["bwd"], (name, n)
+        assert torch.equal(runs[True][0][0], runs[False][0][0])
+        for need_gx in (True, False):
+            gd, gpos = _general_gd(pos, nbr if name == "nbr" else None, x, g,
+                                   w, need_gx, "bf16", tier=tier)
+            torch.cuda.synchronize()
+            assert torch.equal(gpos, runs[need_gx][0][0])
+            if name == "nbr":
+                geometry = cf._slot_geometry(pos, nbr.idx, nbr.mask, w[3],
+                                             w[4], RCUT)
+                live = nbr.mask & (geometry[1] < RCUT)
+                gd_ref, _ = cf._slot_gd(geometry,
+                                        cf._gather_rows(x, nbr.idx),
+                                        g[:, :, None, :], *w, "bf16")
+            else:
+                geometry = cd._pair_geometry(pos, w[3], w[4], RCUT)
+                eye = torch.eye(x.shape[1], dtype=torch.bool, device=dev)
+                live = (geometry[1] < RCUT) & ~eye
+                gd_ref, _ = cd._pair_gd(geometry, x, g, *w, "bf16",
+                                        need_gx=False)
+            assert bool((gd[~live] == 0.0).all()), name
+            assert bool(torch.isfinite(gd).all()), name
+            assert _rel(gd, gd_ref) <= bounds["bwd"], name
+
+
+# The streamed family (bf16 widths whose bf16 weights do not fit whole in a
+# block's shared memory: the tensor-core tiles with the weights streamed in
+# panels, tier 3): the Open Catalyst SchNet's F 256 R 200, F 320 R 17
+# (just past F 300 R 17, the widest staged one there), F 640 R 8 and F 64
+# R 3000 (a lone wide R).
+STREAMED_WIDTHS = [(256, 200), (320, 17), (640, 8), (64, 3000)]
+
+
+@pytest.mark.parametrize("f,r", STREAMED_WIDTHS)
+def test_streamed_bf16_kernels_on_the_tensor_core_tiles(dev, f, r):
+    """The streamed family at bf16: routed to ("streamed", "bf16"), the
+    library's layout 1 (panels) equal to the mirror's, the checks of
+    _check_mma_tiles on tier 3, and every launch on the streamed family's
+    counters."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+    from flashmd_tpu_torch.ops._build import load
+
+    assert cg.route(f, r, "bf16") == ("streamed", "bf16")
+    assert cg.mma_layout(f, r) == "panels"
+    fq, rq = -(-f // 16) * 16, -(-r // 16) * 16
+    assert load().cfconv_general_mma_layout(fq, rq) == 1
+    assert all(load().cfconv_general_mma_warps(kind, fq, rq) >= 1
+               for kind in (0, 1, 2))
+    _reset_family_counts()
+    _check_mma_tiles(dev, f, r, 3)
+    counts = _family_counts()
+    assert all(counts[f"{path}_{kind}_streamed"] > 0
+               for path in ("dense_cfconv", "cfconv")
+               for kind in ("fwd", "bwd"))
+    assert not any(v for k, v in counts.items()
+                   if not k.endswith("_streamed"))
+
+
+@pytest.mark.parametrize("f,r", [(256, 50), (64, 300), (300, 17)])
+def test_streamed_tiles_are_bitwise_the_staged_ones(dev, f, r):
+    """At widths whose weights fit whole, the streamed tiles (tier 3,
+    called directly) run gm_*'s products in the same k order: every
+    output of the dense and neighbour-matrix forward and backward (gd, gpos
+    and gx) is bitwise the staged tiles' (tier 2), and the library's layout
+    there is 0 (staged)."""
+    from flashmd_tpu_torch.ops import cfconv_general as cg
+    from flashmd_tpu_torch.ops._build import load
+    from flashmd_tpu_torch.ops._launch import _ptr, _stream
+
+    assert cg.mma_layout(f, r) == "staged"
+    fq, rq = -(-f // 16) * 16, -(-r // 16) * 16
+    assert load().cfconv_general_mma_layout(fq, rq) == 0
+    pos, x, g, w, nbr = _nbr_tc_case(dev, 70, 32, True, f=f, r=r)
+    wg = cg.general_weights(*w[:4], "bf16", tensor_cores=True)
+    xp, gp = cg.pad_features(x, fq), cg.pad_features(g, fq)
+    s, a = x.shape[:2]
+
+    def fwd(tier, lists):
+        out = torch.empty_like(xp)
+        rc = load().cfconv_general_fwd(
+            int(lists is not None), _ptr(pos),
+            *(_ptr(t) for t in (lists or (None, None))), _ptr(xp),
+            *cg._weight_ptrs(wg, w[4]), _ptr(out), _ptr(None), s, a,
+            nbr.idx.shape[-1] if lists else 0, fq, r, rq, RCUT, tier,
+            _stream())
+        assert rc == 0
+        return (out,)
+
+    def bwd(tier, lists):
+        outs = []
+        for need_gx in (True, False):
+            k = nbr.idx.shape[-1] if lists else 0
+            gd = torch.full((s, a, k or a), float("nan"), device=dev)
+            gpos = torch.empty_like(pos)
+            gx = torch.empty_like(gp) if need_gx else None
+            rc = load().cfconv_general_bwd(
+                int(lists is not None), _ptr(pos),
+                *(_ptr(t) for t in (lists or (None,) * 4)), _ptr(xp),
+                _ptr(gp), *cg._weight_ptrs(wg, w[4]), _ptr(gd), _ptr(gpos),
+                _ptr(gx), _ptr(None), s, a, k, fq, r, rq, RCUT, tier,
+                _stream())
+            assert rc == 0
+            outs += [gd, gpos] + ([gx] if need_gx else [])
+        return tuple(outs)
+
+    lists = (nbr.idx, nbr.mask, nbr.csr_offsets, nbr.csr_slots)
+    staged, streamed = ((*fwd(t, None), *fwd(t, lists[:2]), *bwd(t, None),
+                         *bwd(t, lists)) for t in (2, 3))
+    torch.cuda.synchronize()
+    assert len(staged) == len(streamed) == 12
+    for k, p in zip(streamed, staged):
+        assert bool(torch.isfinite(k).all()) and torch.equal(k, p)
 
 
 @pytest.mark.parametrize("f,r", [(64, 300), (256, 50)])
@@ -1981,12 +2143,14 @@ def test_width_field_launch_counts(dev, path):
 
 
 @pytest.mark.parametrize("f,r,family", [(300, 17, "general"),
-                                        (1600, 8, "wide")])
+                                        (1600, 8, "streamed"),
+                                        (4096, 8, "wide")])
 def test_bf16_general_launches_count_on_their_family(dev, f, r, family):
     """At bf16 the tensor-core tiles count on the general family's
-    counters, and the widths whose bf16 weights do not fit in shared
-    memory on the wide family's (the CUDA-core kernels at bf16); the dense
-    and the neighbour-matrix forward and backward against their twins."""
+    counters where the weights fit whole in shared memory, on the streamed
+    family's where only their panels do, and the widths where neither fits
+    on the wide family's (the CUDA-core kernels at bf16); the dense and the
+    neighbour-matrix forward and backward against their twins."""
     from flashmd_tpu_torch.ops import cfconv_general as cg
 
     assert cg.route(f, r, "bf16") == (family, "bf16")

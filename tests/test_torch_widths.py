@@ -3,8 +3,9 @@ and "pallas") at widths other than the zoo's F = 128, R = 50: the plain
 twins of flashmd_tpu_torch/ops/cfconv_dense.py and ops/cfconv.py (forward,
 and the VJP with and without gx, fp32 and bf16) against the JAX Pallas
 kernels in interpret mode; the SchNet dense and pallas branches at SchNet's
-published widths (F 64, R 300) and at F 256, R 50 (forces, then BAOAB steps
-with the reference's noise injected) against the JAX package through
+published widths (F 64, R 300), at F 256, R 50 and at the Open Catalyst
+SchNet's (hidden 1,024, F 256, R 200; forces, then BAOAB steps with the
+reference's noise injected) against the JAX package through
 ``forcefield_from_numpy``; the tuned kernels' zero padding
 (ops/cfconv_general.py ``tuned_operands``: the twin on padded operands
 against the twin on the originals); and the route between the tuned and
@@ -200,25 +201,48 @@ def test_padding_to_the_tuned_width_is_exact(path, f, r, precision):
 def test_route_at_each_width(precision):
     """F <= 128 and R <= 64 take the tuned kernels (padded to 128), every
     other width the general ones; bf16x3 runs these kernels at fp32. At
-    bf16 the general family is the tensor-core tiles, which take every
-    width that chip_smoke.py and the card tests run (F 300, R 17 with one
-    warp a block: 229,184 of the 232,448 bytes), and the widths whose bf16
-    weights do not fit in a block's shared memory go to the CUDA-core
-    kernels at bf16, the "wide" family."""
+    bf16 the general family is the tensor-core tiles with the weights
+    staged whole, which take F 300, R 17 with one warp a block (229,184 of
+    the 232,448 bytes); the widths whose bf16 weights do not fit there go
+    to the same tiles with the weights streamed in panels, the "streamed"
+    family (F 256, R 200: the Open Catalyst SchNet's filter; F 320, R 17;
+    F 640, R 8), up to the widest whose panel buffers and one warp of the
+    dense backward with gx fit (F 4,048 at R 8, 3,920 at R 200, R 5,776 at
+    F 64); beyond, the CUDA-core kernels at bf16, the "wide" family. A
+    width on each side of each boundary."""
     tier = "bf16" if precision == "bf16" else "fp32"
     expect = {(128, 50): "tuned", (128, 64): "tuned", (64, 32): "tuned",
               (96, 50): "tuned", (1, 1): "tuned", (64, 300): "general",
               (256, 50): "general", (128, 100): "general",
               (100, 70): "general", (129, 1): "general",
               (128, 65): "general", (300, 17): "general"}
-    wide = {(1600, 8), (2900, 8), (320, 17), (64, 3000)}
+    streamed = {(320, 17), (256, 200), (640, 8), (1600, 8), (2900, 8),
+                (64, 3000), (4048, 8), (3920, 200), (64, 5776)}
+    wide = {(4049, 8), (4096, 8), (3921, 200), (64, 5777)}
+    for f, r in streamed:
+        expect[f, r] = "streamed" if tier == "bf16" else "general"
     for f, r in wide:
         expect[f, r] = "wide" if tier == "bf16" else "general"
     for (f, r), family in expect.items():
         assert cg.route(f, r, precision) == (family, tier)
     assert cg.mma_smem_bytes(300, 17) == 229184 <= cg.SMEM_MAX
     assert cg.mma_smem_bytes(256, 50) == 187136
-    assert all(cg.mma_smem_bytes(f, r) > cg.SMEM_MAX for f, r in wide)
+    assert all(cg.mma_smem_bytes(f, r) > cg.SMEM_MAX
+               for f, r in streamed | wide)
+    # the byte mirror of the streamed tiles: F 256 R 200 needs 268,352 B
+    # with its weights whole, 41,792 with the two panel buffers (18,432 B),
+    # b0 and the offsets (1,856) and one warp of the dense backward with gx
+    # (21,504); the widest widths the panels take fill all but a few bytes
+    assert cg.mma_smem_bytes(256, 200) == 268352
+    assert cg.mma_smem_bytes(256, 200, "panels") == 18432 + 1856 + 21504
+    assert cg.mma_smem_bytes(4048, 8, "panels") == 232064
+    assert cg.mma_smem_bytes(3920, 200, "panels") == 232320
+    assert cg.mma_smem_bytes(64, 5776, "panels") == 232256
+    assert all(cg.mma_smem_bytes(f, r, "panels") > cg.SMEM_MAX
+               for f, r in wide)
+    assert [cg.mma_layout(f, r) for f, r in
+            ((300, 17), (320, 17), (256, 200), (4048, 8), (4049, 8))] == [
+                "staged", "panels", "panels", "panels", "none"]
     # the CUDA-core tiles' layout (fp32, and the wide bf16 family): w0 and
     # w1 staged whole where they fit beside 4 warps of the dense backward
     # with gx, else streamed in panels where 2 warps fit, else the first
@@ -432,15 +456,24 @@ def _config_kwargs(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
+# hidden_channels of a width whose SchNet has more hidden channels than
+# filters: the Open Catalyst Project's SchNet baseline (Chanussot et al., ACS
+# Catal. 2021, configs/s2ef/all/schnet/schnet.yml: hidden_channels 1024,
+# num_filters 256, num_gaussians 200), with CGSchNet's tanh filter.
+HIDDEN = {(256, 200): 1024}
+
+
 @functools.cache
 def _baoab_pair(path, f, r):
     """(JAX simulation, port simulation) of a 2-block fp32 SchNet at
-    hidden_channels = num_filters = f, num_rbf = r on ``path``, on the
-    zoo's 24-bead chain, its priors and start, the same weights."""
+    num_filters = f, num_rbf = r and hidden_channels HIDDEN's (else f) on
+    ``path``, on the zoo's 24-bead chain, its priors and start, the same
+    weights."""
     jff, jcfgs = jcgschnet(n_atoms=24, batch_size=S, num_interactions=2,
                            precision="fp32", message_passing=path,
                            neighbor_capacity=24)
-    jcfg = dataclasses.replace(jff.schnet_config, hidden_channels=f,
+    jcfg = dataclasses.replace(jff.schnet_config,
+                               hidden_channels=HIDDEN.get((f, r), f),
                                num_filters=f, num_rbf=r)
     jff = jff.replace(schnet_params=jinit_schnet(jax.random.PRNGKey(f + r),
                                                  jcfg),
@@ -459,8 +492,9 @@ def _baoab_pair(path, f, r):
         _config_kwargs(jff.schnet_config), device="cpu",
         neighbor_capacity=jff.neighbor_capacity,
     )
-    assert (ff.schnet_config.num_filters, ff.schnet_config.num_rbf,
-            ff.schnet_config.message_passing) == (f, r, path)
+    assert (ff.schnet_config.hidden_channels, ff.schnet_config.num_filters,
+            ff.schnet_config.num_rbf, ff.schnet_config.message_passing) == (
+                HIDDEN.get((f, r), f), f, r, path)
     cfgs = [Configuration(pos=c.pos, atom_types=c.atom_types,
                           masses=c.masses, velocities=c.velocities)
             for c in jcfgs]
@@ -469,13 +503,14 @@ def _baoab_pair(path, f, r):
     return jsim, sim
 
 
-@pytest.mark.parametrize("f,r", [(64, 300), (256, 50)])
+@pytest.mark.parametrize("f,r", [(64, 300), (256, 50), (256, 200)])
 @pytest.mark.parametrize("path", ["dense", "pallas"])
 def test_schnet_forces_and_baoab_match_jax(path, f, r):
     """The start forces, then 2 BAOAB steps with the reference's own
     normal draws injected (the pallas list rebuilt every step, as the
     reference's _step_with_hooks), fp32: 1e-5 of the largest force,
-    position and velocity."""
+    position and velocity. F 256 R 200 with 1,024 hidden channels: the
+    Open Catalyst SchNet's widths (HIDDEN), 2 of its 5 blocks."""
     jsim, sim = _baoab_pair(path, f, r)
     jcarry = jax.jit(jsim._init_carry)(jsim.initial_system,
                                        jax.random.PRNGKey(3))

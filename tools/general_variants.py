@@ -1,10 +1,11 @@
-"""Design variants of the general-width kernels (csrc/cfconv_general_kernels.cu):
+"""Design variants of the general-width kernels (csrc/cfconv_general_kernels.cu
+and csrc/cfconv_general_mma_kernels.cu):
 the tensor-core tiles of the bf16 tier and the CUDA-core tiles of the fp32
 tier, timed on the card in turns.
 
     python3 tools/general_variants.py [variant ...]
 
-Each variant is an edited copy of cfconv_general_kernels.cu (text
+Each variant is an edited copy of the two general-width sources (text
 substitutions), linked with the other sources of flashmd_tpu_torch/csrc
 (compiled once) into a library of its own; every compile runs at once.
 ptxas' registers and spills of each variant's gw_*_mma_kernel (bf16
@@ -67,7 +68,9 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-GENERAL = "cfconv_general_kernels.cu"
+# The two sources of the general-width kernels (the CUDA-core tiers, the
+# tensor-core tiers): a variant edits whichever holds each substitution.
+GENERAL = ("cfconv_general_kernels.cu", "cfconv_general_mma_kernels.cu")
 VARIANTS = {
     "base": [],
     "fw16": [("constexpr int GM_FWD_MAX_WARPS = 12;",
@@ -230,28 +233,35 @@ def build_all(tmp, names):
 
     nvcc = _build._nvcc()
     flags = [*_build._FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC)]
-    others = [s for s in _build.sources() if s.name != GENERAL]
+    others = [s for s in _build.sources() if s.name not in GENERAL]
     cmds = [[nvcc, *flags, "-c", "-o", str(tmp / f"{s.stem}.o"), str(s)]
             for s in others]
-    text = (_build.CSRC / GENERAL).read_text()
+    texts = {g: (_build.CSRC / g).read_text() for g in GENERAL}
     for name in names:
-        src = text
+        srcs = dict(texts)
         for old, new in VARIANTS[name]:
-            if old not in src:
+            where = [g for g in GENERAL if old in srcs[g]]
+            if not where:
                 raise SystemExit(f"FAILED: variant {name}: {old!r} not in "
-                                 "the source")
-            src = src.replace(old, new)
+                                 "the sources")
+            for g in where:
+                srcs[g] = srcs[g].replace(old, new)
         (tmp / name).mkdir()
-        (tmp / name / GENERAL).write_text(src)
-        cmds.append([nvcc, *flags, "-c", "-o", str(tmp / name / "g.o"),
-                     str(tmp / name / GENERAL)])
+        for i, g in enumerate(GENERAL):
+            (tmp / name / g).write_text(srcs[g])
+            cmds.append([nvcc, *flags, "-c", "-o",
+                         str(tmp / name / f"g{i}.o"), str(tmp / name / g)])
     logs = _run_all(cmds)
     _run_all([[nvcc, *_build.ARCH_FLAGS, "-shared", "-o",
-               str(tmp / name / "lib.so"), str(tmp / name / "g.o"),
+               str(tmp / name / "lib.so"),
+               *(str(tmp / name / f"g{i}.o") for i in range(len(GENERAL))),
                *(str(tmp / f"{s.stem}.o") for s in others)]
               for name in names])
     libs = {}
-    for name, log in zip(names, logs[len(others):]):
+    logs = logs[len(others):]
+    logs = ["".join(logs[k:k + len(GENERAL)])
+            for k in range(0, len(logs), len(GENERAL))]
+    for name, log in zip(names, logs):
         fp32 = name in FP32_VARIANTS or name == "base"
         for line in cs.ptxas_summary(log):
             if "_mma_kernel" in line and "gw_" in line and name != "base" \
